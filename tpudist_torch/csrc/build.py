@@ -1,0 +1,148 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``*.cu`` source here is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, named by a
+hash of the source and the flags, under ``tpudist_torch/_build/`` (listed
+in ``.gitignore``), and loaded with ``ctypes``. Nothing is built when the
+package is imported: the first launch builds, later launches and later
+processes reuse the library whose hash matches. Nothing includes
+PyTorch's headers, so a build takes seconds.
+
+    python -m tpudist_torch.csrc.build     # build every source now, print the log
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent
+BUILD_DIR = CSRC.parent / "_build"
+SOURCES = ("decode_attention.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: per-source build record: seconds spent and the compiler's log
+#: (``-Xptxas -v`` register / shared-memory report); empty for a reuse
+build_info: dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc",
+        shutil.which("nvcc"),
+        Path("/usr/local/cuda/bin/nvcc"),
+    ):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the CUDA "
+        "kernels are built on the machine with the card"
+    )
+
+
+def library_path(source: str) -> Path:
+    """``source`` names a file here or is a path (an alternate source of
+    the same C interface, for an A/B)."""
+    text = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}_{digest[:16]}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``source`` unless a library with its hash exists; returns
+    the library path. The output is written to a temporary name and
+    renamed, so concurrent builds never load a half-written file."""
+    out = library_path(source)
+    if out.exists():
+        build_info.setdefault(source, {"seconds": 0.0, "log": "", "reused": True})
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed on {source} (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_info[source] = {
+        "seconds": time.perf_counter() - t0,
+        "log": (proc.stdout + proc.stderr).strip(),
+        "reused": False,
+    }
+    return out
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source at once, one ``nvcc`` process each, started
+    together."""
+    todo = [s for s in SOURCES if not library_path(s).exists()]
+    threads = [threading.Thread(target=build, args=(s,)) for s in todo]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {s: build(s) for s in SOURCES}
+
+
+def load(source: str = "decode_attention.cu") -> ctypes.CDLL:
+    """The loaded library for ``source``, built on first use, with the
+    argument types of its C entry points declared."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            _declare(lib, source)
+            _libs[source] = lib
+        return lib
+
+
+def _declare(lib: ctypes.CDLL, source: str) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if hasattr(lib, "tpudist_decode_attention"):
+        for name in ("tpudist_decode_max_smem", "tpudist_decode_fixed_floats"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = I
+        lib.tpudist_decode_attention.argtypes = [
+            I, P, P, P, P, I, I, I, I, I, I, F, P,
+        ]
+        lib.tpudist_decode_attention.restype = I
+        lib.tpudist_paged_decode_attention.argtypes = [
+            I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
+        ]
+        lib.tpudist_paged_decode_attention.restype = I
+        lib.tpudist_cuda_error_string.argtypes = [I]
+        lib.tpudist_cuda_error_string.restype = ctypes.c_char_p
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.tpudist_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+if __name__ == "__main__":
+    for src, path in build_all().items():
+        info = build_info.get(src, {})
+        print(f"{src} -> {path} ({info.get('seconds', 0.0):.2f} s)")
+        if info.get("log"):
+            print(info["log"])
