@@ -58,6 +58,8 @@ def test_importing_the_port_loads_no_reference_module():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "assert 'tpudist_torch.serve.engine' in sys.modules\n"
+        "assert 'tpudist_torch.train' in sys.modules\n"
+        "assert 'tpudist_torch.main' in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpudist'))\n"
         "assert not bad, bad\n"
@@ -76,7 +78,10 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda):
     from tpudist_torch import resolve_device
+    from tpudist_torch.distributed import init_from_env
+    from tpudist_torch.main import main as train_main
     from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.models.resnet import resnet18, resnet50
     from tpudist_torch.serve.__main__ import main
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -85,6 +90,13 @@ def test_entry_points_raise_without_cuda(no_cuda):
         GPT2(vocab_size=16, max_seq_len=16, hidden_dim=8, depth=1, num_heads=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--requests", "1"])
+    for ctor in (resnet18, resnet50):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ctor(num_filters=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_from_env()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--model", "resnet18", "--dataset", "synthetic"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -105,3 +117,21 @@ def test_cpu_entry_points_run_when_asked(no_cuda, tmp_path):
                  "--seq_len", "128", "--paged", "--block_size", "8",
                  "--log_dir", str(tmp_path)])
     assert snap["completed"] == 2 and snap["tokens"] == 6
+
+
+def test_cpu_training_runs_when_asked(no_cuda, tmp_path):
+    """``--device cpu`` trains through the plain versions of the
+    kernels; the fused-AdamW kernel is never launched."""
+    from tpudist_torch.main import main
+    from tpudist_torch.models.resnet import resnet18
+    from tpudist_torch.ops import fused_update
+
+    model = resnet18(num_filters=8, device="cpu")
+    assert model(torch.zeros(2, 32, 32, 3)).shape == (2, 1000)
+    fused_update.reset_launch_counts()
+    _, losses = main(["--device", "cpu", "--model", "resnet18", "--dataset",
+                      "synthetic", "--synthetic_size", "8", "--batch_size",
+                      "8", "--epochs", "1", "--fused", "optimizer",
+                      "--no_profiler", "--log_dir", str(tmp_path)])
+    assert len(losses) == 1
+    assert fused_update.launch_counts["fused_adamw"] == 0

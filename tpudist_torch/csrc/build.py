@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("decode_attention.cu",)
+SOURCES = ("decode_attention.cu", "fused_update.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -117,6 +117,14 @@ def load(source: str = "decode_attention.cu") -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL, source: str) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tpudist_cuda_error_string.argtypes = [I]
+    lib.tpudist_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "tpudist_fused_adamw"):
+        lib.tpudist_fused_adamw.argtypes = [
+            I, I, P, P, P, P, P, P, P, P, ctypes.c_longlong,
+            F, F, F, F, F, F, F, F, F, P,
+        ]
+        lib.tpudist_fused_adamw.restype = I
     if hasattr(lib, "tpudist_decode_attention"):
         for name in ("tpudist_decode_max_smem", "tpudist_decode_fixed_floats"):
             getattr(lib, name).argtypes = []
@@ -129,8 +137,6 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
         ]
         lib.tpudist_paged_decode_attention.restype = I
-        lib.tpudist_cuda_error_string.argtypes = [I]
-        lib.tpudist_cuda_error_string.restype = ctypes.c_char_p
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -1,0 +1,142 @@
+"""Host-side batch assembly and device staging.
+
+Counterpart of :mod:`tpudist.data.loader`'s numpy gather path and of
+``prefetch_to_mesh``. :class:`DataLoader` gathers this rank's batches
+from an in-memory numpy dataset (the sampler owns the shuffle) and hands
+them to ``transform``; :func:`prefetch_to_device` keeps ``depth`` batches
+staged ahead of the step: a background thread gathers and pins each host
+batch, and the consumer's thread issues its host-to-device copy on a side
+stream and records an event that the compute stream waits on, so the copy
+for step k+1 overlaps the compute of step k. The reference's C++ batcher
+(``data/native.py``) is host speed, not semantics, and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from typing import Callable, Iterator, Mapping
+
+import numpy as np
+import torch
+
+from tpudist_torch.data.sampler import DistributedSampler
+
+
+class DataLoader:
+    """Iterates minibatches of an array-backed dataset for one epoch.
+
+    ``dataset``: name -> numpy array, equal leading dims (e.g. ``{"image":
+    (N, 32, 32, 3) uint8, "label": (N,) int32}``). A
+    :class:`DistributedSampler` supplies this rank's index shard; batches
+    are gathered on the host and passed through ``transform``. With
+    ``drop_remainder`` (the default, as in the reference) the final short
+    batch is dropped.
+    """
+
+    def __init__(self, dataset: Mapping[str, np.ndarray], batch_size: int,
+                 sampler: DistributedSampler | None = None,
+                 transform: Callable[[dict], dict] | None = None,
+                 drop_remainder: bool = True):
+        sizes = {k: len(v) for k, v in dataset.items()}
+        if len(set(sizes.values())) != 1:
+            raise ValueError(f"ragged dataset arrays: {sizes}")
+        self.dataset = dict(dataset)
+        self.size = next(iter(sizes.values()))
+        self.batch_size = batch_size
+        self.sampler = sampler or DistributedSampler(
+            self.size, num_replicas=1, rank=0, shuffle=False)
+        self.transform = transform
+        self.drop_remainder = drop_remainder
+
+    def __len__(self) -> int:
+        n = self.sampler.num_samples
+        if self.drop_remainder:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict]:
+        indices = self.sampler.epoch_indices()
+        limit = (len(self) * self.batch_size if self.drop_remainder
+                 else len(indices))
+        for start in range(0, limit, self.batch_size):
+            idx = indices[start : start + self.batch_size]
+            batch = {k: v[idx] for k, v in self.dataset.items()}
+            yield self.transform(batch) if self.transform else batch
+
+
+def prefetch_to_device(iterator, device, *, depth: int = 2):
+    """Yield the host batches of ``iterator`` (dicts of numpy arrays) as
+    dicts of tensors on ``device``, ``depth`` copies in flight ahead of
+    the consumer (module docstring). On the CPU the tensors share the
+    numpy memory. An error in the host iterator is raised after the
+    batches staged before it have been delivered."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    host_q: queue.Queue = queue.Queue(maxsize=depth + 1)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                host_q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for batch in iterator:
+                tensors = {}
+                for k, v in batch.items():
+                    t = torch.from_numpy(np.ascontiguousarray(v))
+                    tensors[k] = t.pin_memory() if cuda else t
+                if not put(tensors):
+                    return
+            put(done)
+        except BaseException as e:  # delivered to the consumer, raised there
+            put(e)
+
+    threading.Thread(target=produce, daemon=True).start()
+    side = torch.cuda.Stream(device) if cuda else None
+    staged: collections.deque = collections.deque()
+
+    def stage(batch):
+        if not cuda:
+            return batch, None
+        with torch.cuda.stream(side):
+            out = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
+
+    try:
+        finished, error = False, None
+        while True:
+            while not finished and error is None and len(staged) < depth:
+                item = host_q.get()
+                if item is done:
+                    finished = True
+                elif isinstance(item, BaseException):
+                    error = item
+                else:
+                    staged.append(stage(item))
+            if not staged:
+                if error is not None:
+                    raise error
+                return
+            batch, ready = staged.popleft()
+            if ready is not None:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(ready)
+                for t in batch.values():
+                    # the batch was allocated on the side stream and is read
+                    # on the compute stream: keep the allocator from reusing
+                    # it before the compute stream is done with it
+                    t.record_stream(compute)
+            yield batch
+    finally:
+        stop.set()

@@ -47,15 +47,17 @@ def smoke_prompts(seed: int = 0, n: int = 8) -> list[np.ndarray]:
     return [rng.integers(0, VOCAB, (int(k),)).astype(np.int32) for k in lens]
 
 
-def device_ms(fn, flush, n: int = N_TIMED) -> float:
+def device_ms(fn, flush, n: int = N_TIMED,
+              spin_cycles: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn()`` over ``n`` launches (module
-    docstring)."""
+    docstring); ``spin_cycles`` must outlast the host's enqueue of
+    ``fn``."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for s, e in zip(starts, ends):
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin_cycles)
         flush.zero_()
         s.record()
         fn()
