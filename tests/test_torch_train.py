@@ -50,6 +50,18 @@ from tpudist_torch.train import create_train_state, fit, make_train_step
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    # the suite runs several pytest-xdist workers on one host; torch's
+    # default of one OpenMP thread per core oversubscribes it, and every
+    # parallel region then waits on descheduled threads (the bf16 CLI
+    # test ran 15x slower under 6 workers on 8 cores than alone)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("size", [1, 10, 64, 100, 2048])
 @pytest.mark.parametrize("replicas", [1, 2, 3, 8])
 @pytest.mark.parametrize("drop_last", [False, True])

@@ -38,7 +38,8 @@ class DistributedContext:
         return self.rank == 0
 
 
-def _group_up() -> bool:
+def group_up() -> bool:
+    """A process group is formed."""
     return dist.is_available() and dist.is_initialized()
 
 
@@ -51,10 +52,10 @@ def init_from_env(device=None) -> DistributedContext:
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank)
         torch.cuda.set_device(dev)
-    if not _group_up() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    if not group_up() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         dist.init_process_group(
             "nccl" if dev.type == "cuda" else "gloo", init_method="env://")
-    if _group_up():
+    if group_up():
         rank, world = dist.get_rank(), dist.get_world_size()
     else:
         rank, world = 0, 1
@@ -65,7 +66,7 @@ def init_from_env(device=None) -> DistributedContext:
 def reduce_loss(value: float) -> float:
     """Global mean of a per-process scalar on every rank (the reference's
     ``reduce_loss``); the value itself without a group."""
-    if not _group_up():
+    if not group_up():
         return float(value)
     backend = dist.get_backend()
     dev = (torch.device("cuda", torch.cuda.current_device())
@@ -77,5 +78,5 @@ def reduce_loss(value: float) -> float:
 
 def barrier() -> None:
     """Cross-process barrier; a no-op without a group."""
-    if _group_up():
+    if group_up():
         dist.barrier()

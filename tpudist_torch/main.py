@@ -182,13 +182,13 @@ def main(argv=None):
     from tpudist_torch.data.cifar import load_cifar, synthetic_cifar, to_tensor
     from tpudist_torch.data.loader import DataLoader
     from tpudist_torch.data.sampler import DistributedSampler
-    from tpudist_torch.distributed import init_from_env
+    from tpudist_torch.distributed import group_up, init_from_env
     from tpudist_torch.models import resnet
     from tpudist_torch.optim import make_optimizer, run_schedule
     from tpudist_torch.train import (
         cross_entropy_loss, evaluate, fit, smoothed_cross_entropy)
 
-    formed_here = not (dist.is_available() and dist.is_initialized())
+    formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
         dtype = policy_for(args.bf16).compute_dtype
@@ -240,7 +240,7 @@ def main(argv=None):
                 print(f"Accuracy: {acc:.4f}")
         return state, losses
     finally:
-        if formed_here and dist.is_available() and dist.is_initialized():
+        if formed_here and group_up():
             dist.destroy_process_group()
 
 

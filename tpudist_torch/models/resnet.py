@@ -38,11 +38,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from tpudist_torch.device import resolve_device
+from tpudist_torch.distributed import group_up
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -122,7 +122,7 @@ class BatchNorm(nn.Module):
                            dtype=self.stat_dtype)
         sums = torch.stack([x32.sum((0, 2, 3)), torch.square(x32).sum((0, 2, 3)),
                             count])
-        if dist.is_available() and dist.is_initialized():
+        if group_up():
             from torch.distributed.nn.functional import all_reduce
 
             sums = all_reduce(sums)

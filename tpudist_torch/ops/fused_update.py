@@ -105,15 +105,14 @@ def _same_layout(t: torch.Tensor, p: torch.Tensor) -> bool:
 
 def fused_leaf_update_cuda(g, m, v, p, lr, b1c, b2c, *, b1, b2, eps, wd=0.0,
                            compute_dtype=None, m_out=None, v_out=None,
-                           copy_out=None, lib=None):
+                           copy_out=None):
     """Launch the kernel on the current stream. ``m``, ``v``, ``p`` are
     float32; ``g`` is float32, bfloat16 or float16; all share one shape
     and one dense layout (contiguous or channels-last), which the kernel
     walks as flat storage. ``m_out``/``v_out`` default to new tensors and
     may be ``m``/``v`` themselves (in place); ``copy_out`` (a tensor of
     ``compute_dtype``, e.g. the module's own parameter) receives the copy.
-    Returns ``(u, m', v', copy|None)``. ``lib``: another build of the same
-    C interface (an A/B)."""
+    Returns ``(u, m', v', copy|None)``."""
     from tpudist_torch.csrc import build
 
     if not p.is_cuda:
@@ -145,7 +144,7 @@ def fused_leaf_update_cuda(g, m, v, p, lr, b1c, b2c, *, b1, b2, eps, wd=0.0,
                 "fused_adamw: every tensor must have p's shape and one dense "
                 f"layout; got {tuple(t.shape)} strides {t.stride()} against "
                 f"{tuple(p.shape)} strides {p.stride()}")
-    lib = lib or build.load("fused_update.cu")
+    lib = build.load("fused_update.cu")
     rc = lib.tpudist_fused_adamw(
         _G_CODE[g.dtype], _COPY_CODE[compute_dtype], g.data_ptr(),
         m.data_ptr(), v.data_ptr(), p.data_ptr(), u.data_ptr(),

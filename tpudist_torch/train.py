@@ -38,13 +38,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudist_torch.data.loader import prefetch_to_device
+from tpudist_torch.distributed import group_up
 from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.optim import Adam, AdamState, FusedAdamWState
 from tpudist_torch.profiling import WindowedProfiler
-
-
-def _group_up() -> bool:
-    return dist.is_available() and dist.is_initialized()
 
 
 @dataclasses.dataclass
@@ -99,7 +96,7 @@ def create_train_state(model: nn.Module, tx: Adam) -> TrainState:
     the reference's init-sync."""
     opt_state = tx.init(dict(model.named_parameters()))
     module = model
-    if _group_up():
+    if group_up():
         dev = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
@@ -171,7 +168,7 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
                 {k: p.grad for k, p in params.items()})
         state.step += 1
         loss = loss.detach()
-        if _group_up():
+        if group_up():
             # the global-batch mean, as the reference's loss is (ranks hold
             # equal batches); a SUM, because gloo has no AVG
             loss = loss.clone()
@@ -179,12 +176,7 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
             loss /= dist.get_world_size()
         return state, {"loss": loss}
 
-    dtype = getattr(tx, "compute_dtype", None)
     step.fused = fused_set
-    step.fused_info = {
-        "ln": "ln" in fused_set, "optimizer": "optimizer" in fused_set,
-        "compute_dtype": None if dtype is None else str(dtype).split(".")[-1],
-    }
     return step
 
 
@@ -261,9 +253,9 @@ def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
                 f"fit({key}={value!r}) is not ported yet (ROADMAP {item})")
     device = next(model.parameters()).device
     if world_size is None:
-        world_size = dist.get_world_size() if _group_up() else 1
+        world_size = dist.get_world_size() if group_up() else 1
     if global_rank is None:
-        global_rank = dist.get_rank() if _group_up() else 0
+        global_rank = dist.get_rank() if group_up() else 0
     if batch_size is None:
         batch_size = train_loader.batch_size
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
@@ -333,7 +325,7 @@ def evaluate(state: TrainState, loader, *, input_key: str = "image",
         labels = batch[label_key].long()
         counts[0] += (logits.argmax(-1) == labels).sum()
         counts[1] += labels.numel()
-    if _group_up():
+    if group_up():
         dist.all_reduce(counts)
     hits, total = counts.tolist()
     return hits / max(total, 1)
