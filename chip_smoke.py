@@ -48,8 +48,37 @@ Phases, each fatal on failure:
 10. agreement — in f32 with cudnn.deterministic, four steps of
     --fused optimizer and of --fused none from the same init on the same
     batches: losses and params within 1e-5 relative;
-11. a ``{"kernels": [...]}`` line; then the last line,
-    ``{"ok": true, "device": {...}}``.
+11. fused LayerNorm parity — the forward and backward kernels against
+    their plain versions at GPT-2's 8192 x 768 rows and a ragged
+    1000 x 200, the three compositions, RMS on and off, f32 and bf16: n,
+    r, dx = dy, dscale, dbias under the parity rule of phase 2;
+12. vmem attention parity — the forward and backward kernels against their
+    plain versions: B 8, H 12, S 1024, D 64 causal (strided q, k, v views
+    of one qkv tensor, the main path's case), S 197 non-causal, kv_len < S
+    causal and not, GQA with H_kv 4; f32 and bf16; o, lse, dq, dk, dv;
+13. times — the four kernels at the training path's shapes in bf16
+    (tpudist_torch/ops/lm_kernels_bench.py): median device time of 50
+    calls, L2 flushed, beside the bound, the plain version and the library
+    call (F.layer_norm, aten.native_layer_norm_backward,
+    scaled_dot_product_attention forward and backward);
+14. the main path, trained — a 1-rank NCCL group, then
+    ``tpudist_torch.train_gpt2.main`` with GPT-2 124M at full width and
+    depth, --bf16 --fused all --attn auto, batch 8, S 1024, 16 steps on a
+    byte-token file made from the checkout's own text (uniform random
+    tokens cannot fall below ln V): the launch counts per step (LN forward
+    25, LN backward 25 plus 25 reductions, attention forward 12 and
+    backward 12, fused AdamW 74, each counted on the model), TSV rows at
+    g_step 5, 10 and 15 and TrainTime, finite and falling losses, the
+    tokens/sec line, and the trace's kernels and busy share per step;
+15. agreement — in f32, four steps of --fused all --attn vmem and of
+    --fused none --attn xla from the same init on the same batches: the
+    two differ in their variance form and attention arithmetic, so they
+    are held to 1e-4 relative on the losses and half a peak-lr step
+    (1.5e-4) on the parameters, the key slice of the qkv biases aside (its
+    gradient is zero in exact arithmetic, so Adam turns rounding into a
+    full step of either sign); the gaps are printed;
+16. a ``{"kernels": [...]}`` line with all seven kernels; then the last
+    line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -70,10 +99,18 @@ VOCAB, NEW = 50257, 32
 FAILURES: list[str] = []
 REPLACES = {"paged_decode_attention": "tpudist/ops/decode.py:358",
             "fused_decode_attention": "tpudist/ops/decode.py:216",
-            "fused_adamw": "tpudist/ops/fused_update.py:96"}
+            "fused_adamw": "tpudist/ops/fused_update.py:96",
+            "layernorm_fwd": "tpudist/ops/layernorm.py:189",
+            "layernorm_bwd": "tpudist/ops/layernorm.py:215",
+            "vmem_attention_fwd": "tpudist/ops/vmem_attention.py:233",
+            "vmem_attention_bwd": "tpudist/ops/vmem_attention.py:264"}
 SOURCES = {"paged_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "fused_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
-           "fused_adamw": "tpudist_torch/csrc/fused_update.cu"}
+           "fused_adamw": "tpudist_torch/csrc/fused_update.cu",
+           "layernorm_fwd": "tpudist_torch/csrc/layernorm.cu",
+           "layernorm_bwd": "tpudist_torch/csrc/layernorm.cu",
+           "vmem_attention_fwd": "tpudist_torch/csrc/vmem_attention.cu",
+           "vmem_attention_bwd": "tpudist_torch/csrc/vmem_attention.cu"}
 
 
 def fail(msg: str) -> None:
@@ -285,13 +322,13 @@ def main() -> int:
         fail("f32 kernel and dense greedy streams differ")
 
     kernels.append(train_phases(smi, dev))
+    kernels.extend(lm_phases(smi, dev))
 
-    # -- 11. result ---------------------------------------------------------------
+    # -- 16. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
-                "fused_decode_attention": static_launches["fused_decode_attention"],
-                "fused_adamw": kernels[-1]["launches"]}
+                "fused_decode_attention": static_launches["fused_decode_attention"]}
     for kr in kernels:
-        kr["launches"] = launches[kr["name"]]
+        kr.setdefault("launches", launches.get(kr["name"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -393,11 +430,8 @@ def train_phases(smi: str, dev) -> dict:
 
     # -- 9. the main path, trained ---------------------------------------------
     print("== 9. ResNet-50, bf16, --fused optimizer, 16 steps under DDP (NCCL)")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
-                      WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     dist.init_process_group("nccl", init_method="env://")
     with tempfile.TemporaryDirectory() as log_dir:
         FU.reset_launch_counts()
@@ -471,6 +505,169 @@ def train_phases(smi: str, dev) -> dict:
         fail("f32 fused and unfused training disagree")
     entry["launches"] = launches
     return entry
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def lm_phases(smi: str, dev) -> list[dict]:
+    """Phases 11-15: the fused LayerNorm and vmem attention kernels and the
+    GPT-2 training path. Returns their four entries of the ``kernels``
+    line, launches filled in."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.ops import fused_update as FU
+    from tpudist_torch.ops import layernorm as LN
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.ops import vmem_attention as VA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    # -- 11, 12. parity ---------------------------------------------------------
+    print("== 11. fused LayerNorm parity: 8192x768 and 1000x200, three "
+          "compositions, rms on/off, f32/bf16")
+    for name, got, want in LB.ln_parity(gen):
+        check(name, got, want)
+    if FAILURES:
+        fail(f"fused LayerNorm parity: {FAILURES}")
+    print("== 12. vmem attention parity: o, lse, dq, dk, dv")
+    for name, got, want in LB.attn_parity(gen):
+        check(name, got, want)
+    if FAILURES:
+        fail(f"vmem attention parity: {FAILURES}")
+
+    # -- 13. times ------------------------------------------------------------------
+    print("== 13. GPT-2 training kernel times (median of 50 device times, L2 "
+          "flushed; bf16)")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    entries = []
+    for case in LB.timing_cases(gen):
+        t = LB.time_case(case, flush)
+        lib = ("n/a" if t["library_ms"] is None
+               else f"{t['library_ms'] * 1e3:.2f} us")
+        print(f"  {case['name']} [{case['shape']}]: kernel "
+              f"{t['kernel_ms'] * 1e3:.2f} us, bound {case['bound_ms'] * 1e3:.2f}"
+              f" us ({case['bound_by']}), plain {t['plain_ms'] * 1e3:.1f} us, "
+              f"library {lib}, max_abs_err {case['max_abs_err']:.3e}  [{smi}]")
+        if case["name"] in REPLACES:
+            entries.append(dict(
+                name=case["name"], route="cuda", source=SOURCES[case["name"]],
+                replaces=REPLACES[case["name"]], ms=t["kernel_ms"],
+                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                max_abs_err=case["max_abs_err"], bound_ms=case["bound_ms"],
+                bound_by=case["bound_by"]))
+    del flush
+
+    # -- 14. the main path, trained -----------------------------------------------
+    print("== 14. GPT-2 124M, bf16, --fused all --attn auto, 16 steps under "
+          "DDP (NCCL)")
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", init_method="env://")
+    with tempfile.TemporaryDirectory() as log_dir:
+        tokens = LB.token_file(Path(log_dir) / "text.bin", 16 * 8 * 1024)
+        for mod in (LN, VA, FU):
+            mod.reset_launch_counts()
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        with contextlib.redirect_stdout(out):
+            state, losses = TG.main([
+                "--bf16", "--fused", "all", "--attn", "auto",
+                "--batch_size", "8", "--seq_len", "1024", "--tokens",
+                str(tokens), "--JobID", "Smoke", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        counts = {**LN.launch_counts, **VA.launch_counts, **FU.launch_counts}
+        printed = out.getvalue()
+        print("  " + "\n  ".join(printed.strip().splitlines()[-3:]))
+        if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
+            fail("the training step did not run under DDP")
+        dist.destroy_process_group()
+        model = state.model
+        rows = (Path(log_dir) / "Smoke_8_0.log").read_text().splitlines()
+        traces = list((Path(log_dir) / "log_Smoke").glob("*.pt.trace.json"))
+        window = trace_breakdown(traces[0]) if traces else None
+    steps = len(losses)
+    depth = model.depth
+    eligible = sum(p.numel() >= FU.MIN_KERNEL_ELEMS for p in model.parameters())
+    want = {"layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": depth,
+            "vmem_attention_bwd": depth, "fused_adamw": eligible}
+    print(f"  {steps} steps; launches {counts} (per step {want}); losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    del state, model
+    if steps != 16 or eligible != 74 or any(
+            counts[k] != n * steps for k, n in want.items()):
+        fail(f"{steps} steps, launches {counts}, want {want} per step")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"losses {losses}")
+    line = [ln for ln in printed.splitlines() if ln.startswith("tokens/sec: ")]
+    if len(line) != 1 or f"steps={steps} " not in line[0]:
+        fail(f"no tokens/sec line for {steps} steps in the run's output")
+    g_steps = [r.split("\t")[1] for r in rows[1:] if not r.startswith("TrainTime")]
+    if g_steps != ["5", "10", "15"] or not rows[-1].startswith("TrainTime\t"):
+        fail(f"TSV rows {rows}")
+    if not traces or not window["steps"] or not window["kernels_per_step"]:
+        fail(f"no device work in a profiler trace under log_Smoke: {window}")
+    train_s = float(rows[-1].split("\t")[1])
+    eps15 = float(rows[3].split("\t")[4])
+    step_ms = 8 / eps15 * 1e3
+    print(f"  TSV: rows at g_step 5/10/15 + TrainTime {train_s:.3f} s; step at "
+          f"g_step 15 {step_ms:.2f} ms ({eps15 * 1024:.1f} tokens/s); "
+          f"{steps * 8 * 1024 / train_s:.1f} tokens/s over the run (profiler "
+          f"window and first step included)  [{smi}]")
+    print(f"  profiler window ({window['steps']} steps, profiled): "
+          f"{window['kernels_per_step']:.0f} kernels/step, device busy "
+          f"{window['device_ms_per_step']:.2f} ms/step of "
+          f"{window['window_ms_per_step']:.2f} ms/step wall; busy share of the "
+          f"unprofiled g_step-15 step {window['device_ms_per_step'] / step_ms:.3f}")
+    for name, ms, count in window["top"]:
+        print(f"    {ms:8.3f} ms/step  {count:5.0f}/step  {name}")
+
+    # -- 15. agreement in f32 ------------------------------------------------------
+    print("== 15. f32: --fused all --attn vmem vs --fused none --attn xla, 4 steps")
+    runs = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        tokens = LB.token_file(Path(log_dir) / "text.bin", 4 * 8 * 1024)
+        for fused, attn in (("all", "vmem"), ("none", "xla")):
+            for mod in (LN, VA, FU):
+                mod.reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                st, ls = TG.main([
+                    "--fused", fused, "--attn", attn, "--batch_size", "8",
+                    "--seq_len", "1024", "--tokens", str(tokens),
+                    "--no_profiler", "--log_dir", log_dir])
+            runs[fused] = (ls, {k: v.float().cpu() for k, v in st.params().items()})
+            ran = {**LN.launch_counts, **VA.launch_counts, **FU.launch_counts}
+            # the fused run went through every kernel, the dense run none
+            if (min(ran.values()) > 0) != (fused == "all") or (
+                    fused == "none" and any(ran.values())):
+                fail(f"--fused {fused} --attn {attn}: launches {ran}")
+            del st
+    (lf, pf), (ln, pn) = runs["all"], runs["none"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, ln))
+    gaps = {}
+    for k in pn:
+        a, b = pf[k], pn[k]
+        if k.endswith("qkv.bias"):
+            a, b = a[[0, 2]], b[[0, 2]]
+        gaps[k] = float((a - b).abs().max())
+    worst = max(gaps, key=gaps.get)
+    print(f"  losses {lf} vs {ln}: max rel {loss_rel:.3e}; params max abs "
+          f"{gaps[worst]:.3e} ({worst}), key slice of the qkv biases aside")
+    if len(lf) != 4 or loss_rel > 1e-4 or gaps[worst] > 1.5e-4:
+        fail("f32 fused and unfused GPT-2 training disagree")
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+    return entries
 
 
 def trace_breakdown(path: Path) -> dict:

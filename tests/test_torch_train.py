@@ -223,7 +223,8 @@ def test_fused_ln_raises_for_resnet(fused, tmp_path):
 def test_fit_refuses_unported_features(tmp_path):
     model = resnet18(num_filters=8, device="cpu")
     loader = DataLoader(to_tensor(synthetic_cifar(16)), 8)
-    for kw, item in ((dict(telemetry=True), "#8"), (dict(grad_accum=2), "#2"),
+    for kw, item in ((dict(telemetry=True), "#8"),
+                     (dict(shard_opt_state=True), "#7"),
                      (dict(reduce="quantized"), "#7"),
                      (dict(checkpoint_dir="x"), "#4"),
                      (dict(repair=True), "#9")):

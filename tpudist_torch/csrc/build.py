@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("decode_attention.cu", "fused_update.cu")
+SOURCES = ("decode_attention.cu", "fused_update.cu", "layernorm.cu",
+           "vmem_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -125,6 +126,30 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             F, F, F, F, F, F, F, F, F, P,
         ]
         lib.tpudist_fused_adamw.restype = I
+    L = ctypes.c_longlong
+    if hasattr(lib, "tpudist_layernorm_fwd"):
+        lib.tpudist_layernorm_max_d.argtypes = []
+        lib.tpudist_layernorm_max_d.restype = I
+        lib.tpudist_layernorm_bwd_parts.argtypes = [L]
+        lib.tpudist_layernorm_bwd_parts.restype = I
+        lib.tpudist_layernorm_fwd.argtypes = [
+            I, I, P, P, P, P, P, P, L, I, F, F, I, P,
+        ]
+        lib.tpudist_layernorm_fwd.restype = I
+        lib.tpudist_layernorm_bwd.argtypes = [
+            I, I, P, P, P, P, P, P, P, P, P, L, I, I, F, F, I, P,
+        ]
+        lib.tpudist_layernorm_bwd.restype = I
+    if hasattr(lib, "tpudist_vmem_fwd"):
+        lib.tpudist_vmem_fwd.argtypes = [
+            I, P, P, P, P, P, I, I, I, I, I, I, *[L] * 9, I, I, F, P,
+        ]
+        lib.tpudist_vmem_fwd.restype = I
+        lib.tpudist_vmem_bwd.argtypes = [
+            I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, *[L] * 15,
+            I, I, F, P,
+        ]
+        lib.tpudist_vmem_bwd.restype = I
     if hasattr(lib, "tpudist_decode_attention"):
         for name in ("tpudist_decode_max_smem", "tpudist_decode_fixed_floats"):
             getattr(lib, name).argtypes = []

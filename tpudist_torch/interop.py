@@ -11,9 +11,10 @@ running ``mean``/``var`` carry over.
 param tree (as a nested dict of numpy arrays under the flax names) onto
 the state dict of :class:`tpudist_torch.models.gpt2.GPT2`, so both
 packages can run the same weights. Flax ``Dense`` kernels are
-``[in, out]`` and ``nn.Linear`` weights ``[out, in]``; ``DenseGeneral``
+``[in, out]`` and the port's weights ``[out, in]``; ``DenseGeneral``
 kernels flatten their grouped axes first (``qkv`` ``[d, 3, h, dh]``,
-``out`` ``[h, dh, d]``).
+``out`` ``[h, dh, d]``), and biases keep their shapes (``qkv``'s
+``[3, h, dh]``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ def _linear(sd: dict, prefix: str, kernel, bias, n_in_axes: int = 1) -> None:
     n_in = int(np.prod(k.shape[:n_in_axes]))
     sd[f"{prefix}.weight"] = torch.from_numpy(
         np.ascontiguousarray(k.reshape(n_in, -1).T))
+    # the bias keeps the reference's shape (qkv: [3, heads, dh])
     sd[f"{prefix}.bias"] = torch.from_numpy(
-        np.asarray(bias, np.float32).reshape(-1).copy())
+        np.array(bias, np.float32))
 
 
 def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:

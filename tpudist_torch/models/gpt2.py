@@ -5,21 +5,29 @@ this slice). The decode path runs over a KV cache
 (:mod:`tpudist_torch.ops.decode`) in the reference's three modes: scalar
 cursor (``generate``), per-row positions (the contiguous serving pool)
 and paged block tables (the paged pool). Any ``attn_impl`` other than
-``"xla"`` sends decode through the kernels, as in the reference; the
-non-decode forward is dense for ``"xla"`` and ``"fused"``, and the
-``"vmem"`` / ``"flash"`` / ``"auto"`` impls raise until their kernels are
-ported.
+``"xla"`` sends decode through the kernels, as in the reference. The
+non-decode forward is dense for ``"xla"`` and ``"fused"`` and goes
+through :func:`tpudist_torch.ops.attention.multi_head_attention` for
+``"vmem"`` and ``"auto"`` (the whole-row kernel); ``"flash"`` raises
+until its kernel is ported (ROADMAP Queue 2 #4).
 
-Numerics follow the flax model at ``dtype``: matmul weights, biases and
-the embeddings are held in ``dtype`` (flax casts its f32 params to
-``dtype`` before every use, which is the same values), LayerNorm keeps
-f32 params and f32 statistics with flax's fast variance
-``E[x^2] - E[x]^2``, GELU is the tanh approximation (flax ``nn.gelu``),
-and the tied LM head returns f32 logits.
+``fused_ln`` swaps in the fused residual-add + LayerNorm kernel
+(:mod:`tpudist_torch.ops.layernorm`) where the reference's knob does:
+``ln_1`` plain, ``ln_2`` pre-norm with the residual stream, ``ln_f``
+plain, never on decode. The parameters are the same either way.
+
+Numerics follow the flax model at ``dtype``: every parameter is a
+float32 master cast to ``dtype`` at each use, as flax does (under the
+fused optimizer's compute copy the parameters already are ``dtype`` and
+the casts are no-ops); :func:`compute_copy` gives the serving engine a
+copy held in ``dtype``. LayerNorm keeps f32 statistics with flax's fast
+variance ``E[x^2] - E[x]^2``, GELU is the tanh approximation (flax
+``nn.gelu``), and the tied LM head returns f32 logits.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -31,9 +39,10 @@ from tpudist_torch.ops.attention import multi_head_attention
 from tpudist_torch.ops.decode import (
     cached_kv, decode_attention, paged_decode_attention,
 )
+from tpudist_torch.ops.layernorm import fused_layernorm
 
-ATTN_IMPLS = ("xla", "fused")
-_UNPORTED_IMPLS = ("vmem", "flash", "auto")
+ATTN_IMPLS = ("xla", "fused", "vmem", "auto")
+_UNPORTED_IMPLS = ("flash",)
 # flax's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -56,6 +65,32 @@ class LayerNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mu) * mul + self.bias).to(dtype)
 
+    def fused(self, x, dtype, residual=None):
+        """The reference's ``FusedLayerNorm`` over these parameters: the
+        kernel's direct variance, ``n`` in ``dtype``; with ``residual``,
+        the pre-norm composition returning ``(n, x + residual)``."""
+        return fused_layernorm(x, self.scale, self.bias, residual=residual,
+                               eps=self.eps, out_dtype=dtype)
+
+
+class Dense(nn.Module):
+    """A linear layer with a float32 master ``weight [out, in]`` and
+    ``bias``, cast to the input's dtype at each use (flax's
+    ``Dense(dtype=...)``). ``bias_shape`` keeps the reference's bias shape
+    (``qkv``'s ``[3, heads, dh]``), which the weight-decay mask reads:
+    only 1-D leaves escape decay."""
+
+    def __init__(self, n_in: int, n_out: int, *, bias_shape=None,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in, device=device))
+        self.bias = nn.Parameter(torch.zeros(bias_shape or (n_out,),
+                                             device=device))
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype),
+                        self.bias.reshape(-1).to(x.dtype))
+
 
 class Block(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, *, dtype, attn_impl,
@@ -65,18 +100,22 @@ class Block(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
-        lin = lambda i, o: nn.Linear(i, o, device=device, dtype=dtype)
+        lin = lambda i, o: Dense(i, o, device=device)
         self.ln_1 = LayerNorm(d, device=device)
-        self.qkv = lin(d, 3 * d)       # out features ordered (3, heads, dh)
+        # out features ordered (3, heads, dh)
+        self.qkv = Dense(d, 3 * d, bias_shape=(3, num_heads, d // num_heads),
+                         device=device)
         self.out = lin(d, d)           # in features ordered (heads, dh)
         self.ln_2 = LayerNorm(d, device=device)
         self.mlp_fc = lin(d, 4 * d)
         self.mlp_proj = lin(4 * d, d)
 
-    def forward(self, x, cache=None, positions=None, block_tables=None):
+    def forward(self, x, cache=None, positions=None, block_tables=None,
+                fused_ln: bool = False):
         b, s, d = x.shape
         h = self.num_heads
-        y = self.ln_1(x, self.dtype)
+        fused = fused_ln and cache is None
+        y = self.ln_1.fused(x, self.dtype) if fused else self.ln_1(x, self.dtype)
         qkv = self.qkv(y).view(b, s, 3, h, d // h)
         q, k, v = qkv.unbind(2)
         if cache is not None:
@@ -99,8 +138,14 @@ class Block(nn.Module):
         else:
             attn = multi_head_attention(q, k, v, causal=True,
                                         impl=self.attn_impl)
-        x = x + self.out(attn.reshape(b, s, d))
-        y = self.ln_2(x, self.dtype)
+        y = self.out(attn.reshape(b, s, d))
+        if fused:
+            # one kernel sweep: the residual add and the norm, both the
+            # normed value and the updated residual stream come back
+            y, x = self.ln_2.fused(y, self.dtype, residual=x)
+        else:
+            x = x + y
+            y = self.ln_2(x, self.dtype)
         y = F.gelu(self.mlp_fc(y), approximate="tanh")
         return x + self.mlp_proj(y)
 
@@ -116,12 +161,12 @@ class GPT2(nn.Module):
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  dtype=torch.float32, attn_impl: str = "xla", *,
-                 device=None, seed: int = 0):
+                 fused_ln: bool = False, device=None, seed: int = 0):
         super().__init__()
         if attn_impl in _UNPORTED_IMPLS:
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} needs the vmem / flash kernels, "
-                "which the port does not have yet; use 'xla' or 'fused'"
+                f"attn_impl={attn_impl!r} needs the blockwise flash kernel, "
+                "which the port does not have yet (ROADMAP Queue 2 #4)"
             )
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
@@ -135,9 +180,10 @@ class GPT2(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.fused_ln = bool(fused_ln)
         dev = self.device
-        self.wte = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev, dtype=dtype))
-        self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev, dtype=dtype))
+        self.wte = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev))
+        self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev))
         self.h = nn.ModuleList(
             Block(hidden_dim, num_heads, dtype=dtype, attn_impl=attn_impl,
                   device=dev)
@@ -185,20 +231,27 @@ class GPT2(nn.Module):
         return zero_cache(self, batch_size)
 
     def forward(self, tokens, *, cache=None, positions=None,
-                block_tables=None, return_hidden: bool = False):
+                block_tables=None, return_hidden: bool = False,
+                fused_ln: bool | None = None):
         """``tokens [B, s]`` -> f32 logits ``[B, s, V]`` (or the final
         hidden state with ``return_hidden``). With ``cache`` the decode
         path runs: scalar cursor, per-row ``positions`` or paged
         ``block_tables``, and the cache is updated in place — without
-        autograd, as the reference's KV-cache step has no backward."""
+        autograd, as the reference's KV-cache step has no backward.
+        ``fused_ln`` (default: the model's knob) takes the fused LN kernel
+        on the non-decode path."""
+        fused = self.fused_ln if fused_ln is None else bool(fused_ln)
         if cache is not None:
             with torch.no_grad():
                 return self._forward(tokens, cache, positions, block_tables,
-                                     return_hidden)
-        return self._forward(tokens, None, None, None, return_hidden)
+                                     return_hidden, False)
+        return self._forward(tokens, None, None, None, return_hidden, fused)
 
-    def _forward(self, tokens, cache, positions, block_tables, return_hidden):
+    def _forward(self, tokens, cache, positions, block_tables, return_hidden,
+                 fused):
         b, s = tokens.shape
+        if tokens.dtype != torch.int64:
+            tokens = tokens.long()
         if cache is not None and positions is not None:
             # per-ENTRY overrun: row b's entry i sits at pos_b + i. Entries
             # past max_seq_len NaN-poison individually (a speculative verify
@@ -227,27 +280,63 @@ class GPT2(nn.Module):
             cache["position"] = cursor + s
         else:
             pos = self.wpe[:s][None]
-        x = self.wte[tokens] + pos
+        x = self.wte[tokens].to(self.dtype) + pos.to(self.dtype)
         layers = cache["layers"] if cache is not None else [None] * self.depth
         for blk, layer in zip(self.h, layers):
-            x = blk(x, layer, positions=positions, block_tables=block_tables)
-        x = self.ln_f(x, self.dtype)
+            x = blk(x, layer, positions=positions, block_tables=block_tables,
+                    fused_ln=fused)
+        x = self.ln_f.fused(x, self.dtype) if fused else self.ln_f(x, self.dtype)
         if return_hidden:
             return x
-        return tied_head(x, self.wte)
+        return tied_head(x, self.wte.to(self.dtype))
+
+
+class _TiedHeadF32(torch.autograd.Function):
+    """``x @ wte^T`` of two half-precision operands with float32 output
+    (cuBLAS accumulates in f32); the backward rounds the f32 cotangent to
+    the operands' dtype for its two products."""
+
+    @staticmethod
+    def forward(ctx, x2, wte):
+        ctx.save_for_backward(x2, wte)
+        return torch.mm(x2, wte.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, wte = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ wte, g.t() @ x2
 
 
 def tied_head(x, wte):
     """The weight-tied LM head with f32 logits (the reference's
     ``preferred_element_type=f32``): a bf16 product would round the logits
-    to bf16 and change greedy choices."""
+    to bf16 and change greedy choices. ``wte`` is in x's dtype."""
     if x.dtype == torch.float32:
         return x @ wte.t()
     if x.is_cuda:
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), wte.t(),
-                        out_dtype=torch.float32)
+        flat = _TiedHeadF32.apply(x.reshape(-1, x.shape[-1]), wte)
         return flat.reshape(*x.shape[:-1], wte.shape[0])
     return x.float() @ wte.float().t()
+
+
+def compute_copy(model: GPT2) -> GPT2:
+    """``model`` with its matmul weights, biases and embeddings held in
+    its compute dtype, the values every forward casts them to, so an
+    inference step pays no per-use cast (the serving engine's copy);
+    LayerNorm parameters stay float32. Returns ``model`` itself when it
+    computes in float32 or already holds its weights in its dtype."""
+    if model.dtype == torch.float32 or model.wte.dtype == model.dtype:
+        return model
+    held = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in (held.wte, held.wpe):
+            p.data = p.data.to(held.dtype)
+        for m in held.modules():
+            if isinstance(m, Dense):
+                m.weight.data = m.weight.data.to(held.dtype)
+                m.bias.data = m.bias.data.to(held.dtype)
+    return held
 
 
 def gpt2_124m(**kw) -> GPT2:

@@ -1,19 +1,26 @@
 """Attention ops for the port's transformer models.
 
-Counterpart of :mod:`tpudist.ops.attention`. This slice carries the GQA
-rule (:func:`repeat_kv`) and the dense attention
-(:func:`dot_product_attention`) that the non-decode forward uses. The
-whole-sequence and blockwise kernels of the reference (vmem / flash) are
-not ported yet, so :func:`multi_head_attention` takes ``impl="xla"`` and
-``"fused"`` (dense either way, as the reference's dispatch makes them on
-the non-decode path) and raises for ``"vmem"``, ``"flash"`` and
-``"auto"``.
+Counterpart of :mod:`tpudist.ops.attention`: the GQA rule
+(:func:`repeat_kv`), the dense attention (:func:`dot_product_attention`)
+and the ``impl`` dispatch of :func:`multi_head_attention` on the
+non-decode path. ``"xla"`` and ``"fused"`` are the dense path;
+``"vmem"`` and ``"auto"`` reach the whole-row kernel
+(:mod:`tpudist_torch.ops.vmem_attention`) when it takes the shape, with
+the reference's routing: ``auto`` goes dense between S 1025 and 2047 and
+needs the blockwise flash kernel from 2048, which is not ported yet
+(``NotImplementedError``, ROADMAP Queue 2 #4), as is ``"flash"``. These
+crossovers are the reference's v5e tuning, kept as they are until they
+are measured on the H100.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
+
+from tpudist_torch.ops import vmem_attention as _vmem
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -59,14 +66,42 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
 
 
 def multi_head_attention(q, k, v, *, causal: bool = False, mask=None,
-                         impl: str = "xla"):
-    """The dense path for ``impl`` in ``("xla", "fused")``; the kernels
-    behind ``"vmem"``, ``"flash"`` and ``"auto"`` are still to be ported."""
-    if impl not in ("xla", "fused"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} needs the vmem / flash kernels, which "
-            "the port does not have yet; use 'xla' or 'fused'"
-        )
+                         impl: str = "xla", kv_len: int | None = None):
+    """Attention over ``[B, S, H, D]`` by ``impl`` (module docstring).
+    ``kv_len`` masks the keys at and past it (a right-padded batch); a
+    general ``mask`` forces the dense path, with a warning when the caller
+    asked for ``"vmem"``."""
+    if impl in ("vmem", "auto"):
+        if mask is None:
+            try:
+                return _vmem.vmem_attention(q, k, v, causal=causal,
+                                            kv_len=kv_len)
+            except NotImplementedError as e:
+                if impl == "vmem":
+                    warnings.warn(
+                        f"vmem attention unavailable ({e}); trying flash/XLA")
+            # the reference's v5e crossover: dense up to 2047, flash beyond
+            impl = "flash" if max(q.shape[1], k.shape[1]) >= 2048 else "xla"
+        elif impl == "vmem":
+            warnings.warn(
+                "vmem attention takes no general mask (pass kv_len for "
+                "contiguous key padding); using XLA attention")
+            impl = "xla"
+        else:
+            impl = "xla"
+    if impl == "flash":
+        if mask is None:
+            raise NotImplementedError(
+                "the blockwise flash attention kernel is not ported yet "
+                "(ROADMAP Queue 2 #4)")
+        warnings.warn(
+            "flash attention takes no general mask; falling back to XLA "
+            "attention (S x S scores in device memory)")
+    elif impl not in ("xla", "fused"):
+        raise ValueError(f"unknown attention impl {impl!r}")
     if k.shape[2] != q.shape[2]:
         k, v = repeat_kv(q, k, v)
+    if kv_len is not None and kv_len < k.shape[1]:
+        mask = (torch.arange(k.shape[1], device=q.device) < kv_len)[
+            None, None, None, :]
     return dot_product_attention(q, k, v, causal=causal, mask=mask)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from tpudist_torch.generate import eos_retire, row_keys, sample_logits_per_row
+from tpudist_torch.models.gpt2 import compute_copy
 from tpudist_torch.serve.prefill import Prefiller
 from tpudist_torch.serve.slots import SlotPool
 from tpudist_torch.serve.stats import ServeStats
@@ -123,7 +124,9 @@ class ServeEngine:
                  n_blocks: int | None = None, prefix_cache: bool = True,
                  watermark_blocks: int | None = None,
                  ttft_slo_s: float | None = None):
-        self.model = model
+        # the engine serves a copy held in the compute dtype: the model's
+        # float32 masters would be cast at every use of every decode step
+        self.model = model = compute_copy(model)
         self.device = model.device
         self.seed = int(seed)
         self.max_active = max_slots if max_active is None else max_active

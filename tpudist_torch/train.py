@@ -19,7 +19,12 @@ with the reference's numerics:
 - nothing in the step reads the device: the loss is copied into pinned
   host memory with ``non_blocking=True`` behind an event and resolved
   after the next step has been dispatched (the reference's one-step-
-  delayed fetch), and the optimizer's scalars come from a host counter.
+  delayed fetch), and the optimizer's scalars come from a host counter;
+- ``grad_accum > 1`` splits the batch into a leading microbatch dim and
+  sums the microbatches' gradients in float32 under DDP's ``no_sync``, then
+  all-reduces the sums once per step (module :func:`make_train_step`);
+- ``fused="ln"`` runs the model's forward with its ``fused_ln`` knob on
+  (the same parameters; GPT-2's fused residual-add + LayerNorm kernel).
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -28,6 +33,7 @@ is a silent no-op.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -88,6 +94,18 @@ def smoothed_cross_entropy(smoothing: float) -> Callable:
     return loss_fn
 
 
+def lm_loss(logits, tokens):
+    """Next-token cross-entropy: predict ``tokens[:, 1:]`` from
+    ``logits[:, :-1]`` in float32, the mean over those positions (the
+    reference's ``lm_loss``). The last position's target is ignored
+    instead of sliced off, so the ``[B, S, V]`` logits are not copied."""
+    targets = torch.full_like(tokens, -100, dtype=torch.long)
+    targets[:, :-1] = tokens[:, 1:]
+    v = logits.shape[-1]
+    return F.cross_entropy(logits.reshape(-1, v).float(), targets.reshape(-1),
+                           ignore_index=-100)
+
+
 def create_train_state(model: nn.Module, tx: Adam) -> TrainState:
     """Build the optimizer state from ``model``'s parameters (the fused
     optimizer with a compute copy turns them into the copy here) and wrap
@@ -142,10 +160,19 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
     """Build ``step(state, batch) -> (state, {"loss": tensor})``: forward,
     loss, backward (DDP all-reduces the gradients under a group), one
     optimizer update. ``state`` is updated in place; ``batch`` is a dict of
-    tensors on the model's device (NHWC images, integer labels)."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "grad_accum > 1 is not ported yet (ROADMAP Queue 1 #2)")
+    tensors on the model's device (NHWC images and integer labels, or
+    ``"tokens"`` for a language model, which is both input and label).
+
+    ``grad_accum > 1``: the batch's leading dim is ``grad_accum``
+    microbatches; each runs forward and backward under DDP's ``no_sync``,
+    its gradients are added into float32 sums, and the sums are
+    all-reduced once per step in one flat buffer and divided by
+    ``grad_accum``, as is the loss (the reference's microbatch scan with
+    float32 accumulators). DDP's own reduction is not used there: it would
+    sum the microbatches in the parameters' dtype, which is bf16 under the
+    fused optimizer's compute copy."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if reduce not in (None, "none"):
         raise NotImplementedError(
             f"reduce={reduce!r} is not ported yet (ROADMAP Queue 1 #7); "
@@ -156,16 +183,50 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
             "a fused_adamw with a compute copy feeds the forward from the "
             "copy; build the step with fused='optimizer' (or 'auto')")
 
+    fwd_kw = {"fused_ln": True} if "ln" in fused_set else {}
+
+    def forward_loss(module, batch):
+        return loss_fn(module(batch[input_key], **fwd_kw), batch[label_key])
+
+    def accumulate(state, batch, params):
+        micro = {k: v.reshape(grad_accum, -1, *v.shape[1:])
+                 for k, v in batch.items()}
+        sums = {k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.items()}
+        lsum = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(sums.values())).device)
+        ddp = isinstance(state.module, nn.parallel.DistributedDataParallel)
+        with state.module.no_sync() if ddp else contextlib.nullcontext():
+            for i in range(grad_accum):
+                loss = forward_loss(state.module,
+                                    {k: v[i] for k, v in micro.items()})
+                loss.backward()
+                for k, p in params.items():
+                    if p.grad is not None:
+                        sums[k] += p.grad
+                        p.grad = None
+                lsum += loss.detach()
+        if group_up():
+            flat = torch.cat([t.reshape(-1) for t in sums.values()])
+            dist.all_reduce(flat)
+            flat /= dist.get_world_size()
+            sums = dict(zip(sums, flat.split([t.numel()
+                                               for t in sums.values()])))
+            sums = {k: t.view_as(params[k]) for k, t in sums.items()}
+        return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
+
     def step(state: TrainState, batch: dict):
         state.module.train()
-        logits = state.module(batch[input_key])
-        loss = loss_fn(logits, batch[label_key])
         params = dict(state.model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss.backward()
-        tx.step(state.opt_state, params,
-                {k: p.grad for k, p in params.items()})
+        if grad_accum == 1:
+            loss = forward_loss(state.module, batch)
+            loss.backward()
+            grads = {k: p.grad for k, p in params.items()}
+        else:
+            loss, grads = accumulate(state, batch, params)
+        tx.step(state.opt_state, params, grads)
         state.step += 1
         loss = loss.detach()
         if group_up():
@@ -211,7 +272,6 @@ class _DelayedLoss:
 
 _DEFERRED = {
     # fit() keyword: (value meaning "off", ROADMAP item)
-    "grad_accum": (1, "Queue 1 #2"),
     "reduce": ("none", "Queue 1 #7"),
     "plan": (None, "Queue 1 #7"),
     "shard_opt_state": (False, "Queue 1 #7"),
@@ -229,17 +289,18 @@ def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
         job_id: str = "Job0", batch_size: int | None = None,
         world_size: int | None = None, global_rank: int | None = None,
         loss_fn: Callable = cross_entropy_loss, input_key: str = "image",
-        label_key: str = "label", fused=None, profile: bool = True,
-        prefetch_depth: int = 2, log_dir: str = ".",
+        label_key: str = "label", fused=None, grad_accum: int = 1,
+        profile: bool = True, prefetch_depth: int = 2, log_dir: str = ".",
         metrics_logger: MetricsLogger | None = None, **deferred):
     """The reference's training program as a function: epochs x batches,
     the per-epoch sampler re-shuffle, the windowed profiler, the TSV
     metrics and the TrainTime footer. ``model`` carries its initial
     weights (built from a seed on every rank) and its device; the loader
     yields host batches of numpy arrays. Returns ``(state, losses)``, the
-    per-step losses in step order.
+    per-step losses in step order. With ``grad_accum > 1`` each loader
+    batch holds ``grad_accum`` microbatches (see :func:`make_train_step`).
 
-    The reference's other keywords (``grad_accum``, ``reduce``, ``plan``,
+    The reference's other keywords (``reduce``, ``plan``,
     ``shard_opt_state``, ``telemetry``, ``metrics_port``,
     ``checkpoint_dir``, ``elastic``, ``chaos``, ``repair``,
     ``compile_cache``) are accepted and raise ``NotImplementedError``
@@ -259,7 +320,8 @@ def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
     if batch_size is None:
         batch_size = train_loader.batch_size
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
-                           label_key=label_key, fused=fused)
+                           label_key=label_key, fused=fused,
+                           grad_accum=grad_accum)
     state = create_train_state(model, tx)
     fetch = _DelayedLoss(device)
     losses: list[float] = []
