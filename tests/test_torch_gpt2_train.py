@@ -216,10 +216,15 @@ def test_two_gloo_ranks_equal_one_process(tmp_path):
     each train as one process of 4 x 2 on the same windows (the sampler
     deals each rank every other window; every step's gradient is the mean
     over the same 8 sequences), the qkv key slice held to the step bound
-    as in test_three_steps_match_the_reference."""
+    from its zero init as in test_three_steps_match_the_reference."""
     two = _launch(tmp_path, 2, 2)
     (one,) = _launch(tmp_path, 1, 4)
-    assert len(one["losses"]) == 3
+    steps = len(one["losses"])
+    assert steps == 3
+    for r in (*two, one):
+        for k, p in r["params"].items():
+            if k.endswith("qkv.bias"):
+                assert np.abs(p.numpy()[1]).max() <= 1.5 * steps * 1e-3, k
     for r in two:
         np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5)
         for k, want in one["params"].items():

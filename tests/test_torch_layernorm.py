@@ -23,7 +23,7 @@ import torch
 
 from tpudist.ops.layernorm import fused_layernorm as jax_fused_layernorm
 from tpudist_torch.ops import layernorm as LN
-from tpudist_torch.ops.layernorm import FusedLayerNorm, fused_layernorm
+from tpudist_torch.ops.layernorm import fused_layernorm
 
 EPS = 1e-5
 
@@ -120,20 +120,25 @@ def test_plain_versions_are_the_wrapped_functions(comp):
 
 
 def test_module_holds_the_layernorm_parameter_names():
-    """FusedLayerNorm declares GPT-2's LayerNorm parameters under the same
-    names (what lets the model's fused_ln knob reuse them), and RMS has no
-    bias."""
+    """GPT-2's LayerNorm holds the reference's ``scale`` and ``bias`` and
+    runs both paths over them (what lets the model's fused_ln knob reuse
+    them): its fused pre-norm gives ``n`` in the compute dtype and
+    ``r = x + residual`` in x's dtype, the kernel's function of the same
+    parameters."""
     from tpudist_torch.models.gpt2 import LayerNorm
 
-    fused, plain = FusedLayerNorm(48), LayerNorm(48)
-    assert dict(fused.named_parameters()).keys() == dict(
-        plain.named_parameters()).keys() == {"scale", "bias"}
-    assert [n for n, _ in FusedLayerNorm(48, rms=True).named_parameters()] == [
-        "scale"]
+    ln = LayerNorm(48)
+    assert dict(ln.named_parameters()).keys() == {"scale", "bias"}
+    with torch.no_grad():
+        ln.scale.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(1))
+        ln.bias.normal_(generator=torch.Generator().manual_seed(2))
     x = torch.randn(2, 3, 48, generator=torch.Generator().manual_seed(0))
-    n, r = fused(x, residual=x, out_dtype=torch.bfloat16)
+    n, r = ln.fused(x, torch.bfloat16, residual=x)
     assert n.dtype == torch.bfloat16 and r.dtype == torch.float32
     torch.testing.assert_close(r, 2 * x)
+    want = fused_layernorm(2 * x, ln.scale, ln.bias, eps=ln.eps,
+                           out_dtype=torch.bfloat16)
+    assert torch.equal(n, want)
 
 
 def test_validation_errors():

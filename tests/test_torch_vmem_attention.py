@@ -68,6 +68,46 @@ def test_matches_the_reference_kernel(s, causal, kv_len, h, h_kv, dtype,
         kernel_parity(g.float().numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_matches_the_reference_kernel_at_wider_heads(d, dtype,
+                                                      kernel_parity):
+    """GPT-2's head dim and the widest the CUDA kernels take, causal with
+    grouped K/V heads."""
+    rng = np.random.Generator(np.random.PCG64(d))
+    q, do = (rng.standard_normal((2, 128, 4, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((2, 128, 2, d)).astype(np.float32)
+            for _ in range(2))
+    jd = jnp.dtype(dtype)
+    want, vjp = jax.vjp(lambda q, k, v: jax_vmem(q, k, v, causal=True),
+                        *(jnp.asarray(a, jd) for a in (q, k, v)))
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.tensor(a).to(td).requires_grad_() for a in (q, k, v))
+    got = vmem_attention(tq, tk, tv, causal=True)
+    got_grads = torch.autograd.grad(got, (tq, tk, tv),
+                                    torch.tensor(do).to(td))
+    kernel_parity(got.detach().float().numpy(), np.asarray(want))
+    for g, w in zip(got_grads, vjp(jnp.asarray(do, jd))):
+        kernel_parity(g.float().numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("impl", ["auto", "vmem"])
+def test_wrapper_errors_are_not_routed_around(monkeypatch, impl):
+    """Only the reference's refusals (NotImplementedError) send auto or
+    vmem elsewhere. Any other error of the kernel's wrapper (a head dim
+    the CUDA kernels do not take, a tensor off the card, a failed build or
+    launch) reaches the caller: nothing falls back to dense attention.
+    Here the CUDA wrapper stands in for the CPU path and refuses the CPU
+    tensors with ValueError."""
+    monkeypatch.setattr(VA, "vmem_fwd", VA.vmem_fwd_cuda)
+    q = torch.zeros(1, 128, 2, 200)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(ValueError, match="CUDA"):
+            multi_head_attention(q, q, q, causal=True, impl=impl)
+
+
 def test_kv_len_equals_slicing_the_keys():
     """Keys at and past kv_len are inert: the output equals attention over
     the sliced keys, and their dk/dv are zero."""

@@ -36,6 +36,10 @@
 // query tile looping over key tiles: no atomics, deterministic. Nothing is
 // padded: rows past S and keys past S or kv_len are masked in the kernel.
 //
+// Head dims up to 128: the kernels are built for HD 64 and 128 and take
+// any D <= HD, reading the columns past D as zeros and writing none of
+// them (GPT-2 and ViT run D 64 exactly).
+//
 // Layout: q [B, Sq, H, D] and k, v [B, Sk, Hkv, D] with any batch, row
 // and head strides (in elements) and a contiguous last dim; o, dq, dk, dv
 // contiguous in the same layouts; lse and delta [B, H, Sq] f32.
@@ -55,9 +59,9 @@ constexpr int kTile = 64;        // query rows and keys per tile
 constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 scores each
 constexpr int kPad = 4;          // row padding of the shared tiles (floats)
 constexpr int kTS = kTile + kPad;  // stride of a [*, kTile] shared tile
-// the head dim the kernels are built for (GPT-2's and ViT's); the dk/dv
-// kernel's eight f32 tiles at 128 would pass the 227 KB of shared memory
-constexpr int kHeadDim = 64;
+// the largest head dim: at HD 128 the dk/dv kernel's six f32 tiles take
+// 200 KB of the 227 KB of shared memory a block may have
+constexpr int kMaxHeadDim = 128;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -114,22 +118,25 @@ struct Params {
   long long osb, oss, osh;  // o strides (backward input)
   long long dsb, dss, dsh;  // do strides
   int b, h, h_kv, sq, sk;
+  int d;       // the true head dim, <= HD: columns past it read as 0
   int k_end;   // min(sk, kv_len): keys at or past it are masked
   int causal;
   float scale;
 };
 
-// rows x HD elements starting at `row0` of a [*, S, *, HD] tensor, into
+// rows x HD elements starting at `row0` of a [*, S, *, D] tensor, into
 // shared memory as f32, either row-major (dst[r * (HD + kPad) + d]) or
-// transposed (dst[d * kTS + r]); rows past `limit` read as 0.
+// transposed (dst[d * kTS + r]); rows past `limit` and columns past
+// `width` read as 0.
 template <typename T, int HD, bool kTransposed>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long row_stride, int row0,
-                                          int limit) {
+                                          int limit, int width) {
   for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     const int row = row0 + r;
-    const float v = row < limit ? to_f(src[row * row_stride + d]) : 0.f;
+    const float v =
+        row < limit && d < width ? to_f(src[row * row_stride + d]) : 0.f;
     if (kTransposed)
       dst[d * kTS + r] = v;
     else
@@ -213,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) vmem_fwd_kernel(Params p) {
   const T* q = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
   const T* k = static_cast<const T*>(p.k) + b * p.ksb + hk * p.ksh;
   const T* v = static_cast<const T*>(p.v) + b * p.vsb + hk * p.vsh;
-  load_tile<T, HD, false>(Qs, q, p.qss, q0, p.sq);
+  load_tile<T, HD, false>(Qs, q, p.qss, q0, p.sq, p.d);
   int k_stop = p.k_end;
   if (p.causal) k_stop = min(k_stop, q0 + kTile);
   const int n_kt = (k_stop + kTile - 1) / kTile;
@@ -222,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) vmem_fwd_kernel(Params p) {
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_tile<T, HD, true>(Kt, k, p.kss, kt * kTile, p.sk);
+    load_tile<T, HD, true>(Kt, k, p.kss, kt * kTile, p.sk, p.d);
     __syncthreads();
     float s[4][4];
     tile_dot<HD>(s, Qs, Kt, ty, tx);
@@ -245,8 +252,8 @@ __global__ void __launch_bounds__(kThreads) vmem_fwd_kernel(Params p) {
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_tile<T, HD, true>(Kt, k, p.kss, kt * kTile, p.sk);
-    load_tile<T, HD, false>(Vs, v, p.vss, kt * kTile, p.sk);
+    load_tile<T, HD, true>(Kt, k, p.kss, kt * kTile, p.sk, p.d);
+    load_tile<T, HD, false>(Vs, v, p.vss, kt * kTile, p.sk, p.d);
     __syncthreads();
     float s[4][4];
     tile_dot<HD>(s, Qs, Kt, ty, tx);
@@ -273,9 +280,10 @@ __global__ void __launch_bounds__(kThreads) vmem_fwd_kernel(Params p) {
     const float li = group_sum(l[i]);
     const int row = q0 + ty + 16 * i;
     if (row >= p.sq) continue;
-    T* orow = o + (((long long)b * p.sq + row) * p.h + h) * HD + tx * DPT;
+    T* orow = o + (((long long)b * p.sq + row) * p.h + h) * p.d + tx * DPT;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) orow[j] = from_f<T>(acc[i][j] / li);
+    for (int j = 0; j < DPT; ++j)
+      if (tx * DPT + j < p.d) orow[j] = from_f<T>(acc[i][j] / li);
     if (tx == 0)
       p.lse_out[((long long)b * p.h + h) * p.sq + row] = m[i] + logf(li);
   }
@@ -294,7 +302,7 @@ __global__ void __launch_bounds__(kThreads) vmem_delta_kernel(Params p) {
   const T* o = static_cast<const T*>(p.o) + b * p.osb + r * p.oss + h * p.osh;
   const T* dout = static_cast<const T*>(p.dout) + b * p.dsb + r * p.dss + h * p.dsh;
   float s = 0.f;
-  for (int d = lane; d < HD; d += 32) s += to_f(dout[d]) * to_f(o[d]);
+  for (int d = lane; d < p.d; d += 32) s += to_f(dout[d]) * to_f(o[d]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) p.delta_out[row] = s;
@@ -304,6 +312,7 @@ __global__ void __launch_bounds__(kThreads) vmem_delta_kernel(Params p) {
 // (thread rows ty + 16 i), queries its columns (tx * 4 + j).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) vmem_dkdv_kernel(Params p) {
+  static_assert(HD >= kTile, "p^T and ds^T take the place of Qt and Ot");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int RS = HD + kPad;
@@ -313,8 +322,10 @@ __global__ void __launch_bounds__(kThreads) vmem_dkdv_kernel(Params p) {
   float* Qt = Qs + kTile * RS;      // [HD][kTS]     q transposed
   float* Os = Qt + HD * kTS;        // [kTile][RS]   do rows
   float* Ot = Os + kTile * RS;      // [HD][kTS]     do transposed
-  float* PT = Ot + HD * kTS;        // [kTile][kTS]  p^T rounded, [key][query]
-  float* ST = PT + kTile * kTS;     // [kTile][kTS]  ds^T rounded
+  // p^T and ds^T rounded, [key][query], over Qt and Ot once the two
+  // products that read those are done (HD >= kTile)
+  float* PT = Qt;                   // [kTile][kTS]
+  float* ST = Ot;                   // [kTile][kTS]
   __shared__ float lse_s[kTile], delta_s[kTile];
   constexpr int DPT = HD / 16;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -328,8 +339,8 @@ __global__ void __launch_bounds__(kThreads) vmem_dkdv_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.f;
   if (k0 < p.k_end) {
-    load_tile<T, HD, false>(Ks, k, p.kss, k0, p.sk);
-    load_tile<T, HD, false>(Vs, v, p.vss, k0, p.sk);
+    load_tile<T, HD, false>(Ks, k, p.kss, k0, p.sk, p.d);
+    load_tile<T, HD, false>(Vs, v, p.vss, k0, p.sk, p.d);
     const int qt0 = p.causal ? k0 / kTile : 0;
     const int n_qt = (p.sq + kTile - 1) / kTile;
     for (int hq = hk * ratio; hq < (hk + 1) * ratio; ++hq) {
@@ -340,10 +351,10 @@ __global__ void __launch_bounds__(kThreads) vmem_dkdv_kernel(Params p) {
       for (int qt = qt0; qt < n_qt; ++qt) {
         const int q0 = qt * kTile;
         __syncthreads();
-        load_tile<T, HD, false>(Qs, q, p.qss, q0, p.sq);
-        load_tile<T, HD, true>(Qt, q, p.qss, q0, p.sq);
-        load_tile<T, HD, false>(Os, dout, p.dss, q0, p.sq);
-        load_tile<T, HD, true>(Ot, dout, p.dss, q0, p.sq);
+        load_tile<T, HD, false>(Qs, q, p.qss, q0, p.sq, p.d);
+        load_tile<T, HD, true>(Qt, q, p.qss, q0, p.sq, p.d);
+        load_tile<T, HD, false>(Os, dout, p.dss, q0, p.sq, p.d);
+        load_tile<T, HD, true>(Ot, dout, p.dss, q0, p.sq, p.d);
         if (tid < kTile) {
           const bool in = q0 + tid < p.sq;
           lse_s[tid] = in ? lse[q0 + tid] : 0.f;
@@ -353,6 +364,7 @@ __global__ void __launch_bounds__(kThreads) vmem_dkdv_kernel(Params p) {
         float s[4][4], dp[4][4];
         tile_dot<HD>(s, Ks, Qt, ty, tx);   // s^T[key][query]
         tile_dot<HD>(dp, Vs, Ot, ty, tx);  // dp^T[key][query]
+        __syncthreads();                   // Qt, Ot become PT, ST
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float4 pv, sv;
@@ -384,9 +396,10 @@ __global__ void __launch_bounds__(kThreads) vmem_dkdv_kernel(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= p.sk) continue;
-    const long long off = (((long long)b * p.sk + row) * p.h_kv + hk) * HD + tx * DPT;
+    const long long off = (((long long)b * p.sk + row) * p.h_kv + hk) * p.d + tx * DPT;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
+      if (tx * DPT + j >= p.d) continue;
       dk_out[off + j] = from_f<T>(dk[i][j]);
       dv_out[off + j] = from_f<T>(dv[i][j]);
     }
@@ -413,8 +426,8 @@ __global__ void __launch_bounds__(kThreads) vmem_dq_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + b * p.dsb + h * p.dsh;
   const T* k = static_cast<const T*>(p.k) + b * p.ksb + hk * p.ksh;
   const T* v = static_cast<const T*>(p.v) + b * p.vsb + hk * p.vsh;
-  load_tile<T, HD, false>(Qs, q, p.qss, q0, p.sq);
-  load_tile<T, HD, false>(Os, dout, p.dss, q0, p.sq);
+  load_tile<T, HD, false>(Qs, q, p.qss, q0, p.sq, p.d);
+  load_tile<T, HD, false>(Os, dout, p.dss, q0, p.sq, p.d);
   float lse[4], delta[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -434,9 +447,9 @@ __global__ void __launch_bounds__(kThreads) vmem_dq_kernel(Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, HD, true>(Kt, k, p.kss, k0, p.sk);
-    load_tile<T, HD, true>(Vt, v, p.vss, k0, p.sk);
-    load_tile<T, HD, false>(Ks, k, p.kss, k0, p.sk);
+    load_tile<T, HD, true>(Kt, k, p.kss, k0, p.sk, p.d);
+    load_tile<T, HD, true>(Vt, v, p.vss, k0, p.sk, p.d);
+    load_tile<T, HD, false>(Ks, k, p.kss, k0, p.sk, p.d);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dot<HD>(s, Qs, Kt, ty, tx);
@@ -465,9 +478,10 @@ __global__ void __launch_bounds__(kThreads) vmem_dq_kernel(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.sq) continue;
-    T* drow = dq_out + (((long long)b * p.sq + row) * p.h + h) * HD + tx * DPT;
+    T* drow = dq_out + (((long long)b * p.sq + row) * p.h + h) * p.d + tx * DPT;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) drow[j] = from_f<T>(dq[i][j]);
+    for (int j = 0; j < DPT; ++j)
+      if (tx * DPT + j < p.d) drow[j] = from_f<T>(dq[i][j]);
   }
 }
 
@@ -477,7 +491,7 @@ constexpr int fwd_smem() {
 }
 template <int HD>
 constexpr int dkdv_smem() {
-  return (4 * kTile * (HD + kPad) + 2 * HD * kTS + 2 * kTile * kTS) * 4;
+  return (4 * kTile * (HD + kPad) + 2 * HD * kTS) * 4;
 }
 template <int HD>
 constexpr int dq_smem() {
@@ -523,13 +537,14 @@ int dispatch(int dtype, bool backward, const Params& p, cudaStream_t s) {
   }
 }
 
-int run(int dtype, int d, bool backward, const Params& p, void* stream) {
+int run(int dtype, bool backward, const Params& p, void* stream) {
   if (p.b < 1 || p.h < 1 || p.h_kv < 1 || p.h % p.h_kv || p.sq < 1 ||
       p.sk < 1 || p.k_end < 1 || (p.causal && p.sq != p.sk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d != kHeadDim) return (int)cudaErrorInvalidValue;
-  return dispatch<kHeadDim>(dtype, backward, p, s);
+  if (p.d < 1 || p.d > kMaxHeadDim) return (int)cudaErrorInvalidValue;
+  return p.d <= 64 ? dispatch<64>(dtype, backward, p, s)
+                   : dispatch<kMaxHeadDim>(dtype, backward, p, s);
 }
 
 }  // namespace
@@ -552,11 +567,11 @@ int tpudist_vmem_fwd(int dtype, const void* q, const void* k, const void* v,
   p.qsb = qsb; p.qss = qss; p.qsh = qsh;
   p.ksb = ksb; p.kss = kss; p.ksh = ksh;
   p.vsb = vsb; p.vss = vss; p.vsh = vsh;
-  p.b = b; p.h = h; p.h_kv = h_kv; p.sq = sq; p.sk = sk;
+  p.b = b; p.h = h; p.h_kv = h_kv; p.sq = sq; p.sk = sk; p.d = d;
   p.k_end = kv_len < sk ? kv_len : sk;
   p.causal = causal;
   p.scale = scale;
-  return run(dtype, d, false, p, stream);
+  return run(dtype, false, p, stream);
 }
 
 // Three launches: delta, then dk / dv, then dq. o and do may be strided
@@ -584,11 +599,11 @@ int tpudist_vmem_bwd(int dtype, const void* q, const void* k, const void* v,
   p.vsb = vsb; p.vss = vss; p.vsh = vsh;
   p.osb = osb; p.oss = oss; p.osh = osh;
   p.dsb = dsb; p.dss = dss; p.dsh = dsh;
-  p.b = b; p.h = h; p.h_kv = h_kv; p.sq = sq; p.sk = sk;
+  p.b = b; p.h = h; p.h_kv = h_kv; p.sq = sq; p.sk = sk; p.d = d;
   p.k_end = kv_len < sk ? kv_len : sk;
   p.causal = causal;
   p.scale = scale;
-  return run(dtype, d, true, p, stream);
+  return run(dtype, true, p, stream);
 }
 
 const char* tpudist_cuda_error_string(int code) {

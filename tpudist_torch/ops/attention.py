@@ -5,12 +5,15 @@ Counterpart of :mod:`tpudist.ops.attention`: the GQA rule
 and the ``impl`` dispatch of :func:`multi_head_attention` on the
 non-decode path. ``"xla"`` and ``"fused"`` are the dense path;
 ``"vmem"`` and ``"auto"`` reach the whole-row kernel
-(:mod:`tpudist_torch.ops.vmem_attention`) when it takes the shape, with
-the reference's routing: ``auto`` goes dense between S 1025 and 2047 and
-needs the blockwise flash kernel from 2048, which is not ported yet
-(``NotImplementedError``, ROADMAP Queue 2 #4), as is ``"flash"``. These
-crossovers are the reference's v5e tuning, kept as they are until they
-are measured on the H100.
+(:mod:`tpudist_torch.ops.vmem_attention`) with the reference's routing:
+the kernel's ``NotImplementedError`` (S_pad > 1024, or the refusals the
+reference shares) sends ``auto`` dense between S 1025 and 2047 and to
+the blockwise flash kernel from 2048, which is not ported yet
+(``NotImplementedError``, ROADMAP Queue 2 #4), as is ``"flash"``. Any
+other error of the kernel's wrapper (a head dim it does not take, a
+build or launch failure) propagates: nothing falls back to the dense
+path on the card. These crossovers are the reference's v5e tuning, kept
+as they are until they are measured on the H100.
 """
 
 from __future__ import annotations

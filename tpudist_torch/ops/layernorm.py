@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 #: launches of the kernels, counted where the wrappers launch them and
 #: nowhere else (the plain versions never count); one backward call
@@ -315,26 +314,3 @@ def fused_layernorm(x, scale, bias=None, *, residual=None, eps: float = 1e-6,
         return n.reshape(*lead, d), r.reshape(*lead, d)
     return _LNPost.apply(x2, y2, s32, b32, eps, rms, out_dtype).reshape(
         *lead, d)
-
-
-class FusedLayerNorm(nn.Module):
-    """The fused counterpart of a LayerNorm / RMSNorm (``rms=True``) with
-    an optional fused residual add (the reference's ``FusedLayerNorm``).
-    Holds the same parameters under the same names as the port's
-    ``LayerNorm``: ``scale`` ``[D]`` (ones) and, unless ``rms``, ``bias``
-    ``[D]`` (zeros), float32."""
-
-    def __init__(self, dim: int, *, eps: float = 1e-6, rms: bool = False,
-                 device=None):
-        super().__init__()
-        self.eps, self.rms = eps, rms
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = None if rms else nn.Parameter(
-            torch.zeros(dim, device=device))
-
-    def forward(self, x, residual=None, return_residual: bool | None = None,
-                out_dtype=None):
-        return fused_layernorm(x, self.scale, self.bias, residual=residual,
-                               eps=self.eps, rms=self.rms,
-                               out_dtype=out_dtype,
-                               return_residual=return_residual)

@@ -35,8 +35,10 @@ import torch
 #: the longest sequence (rounded up to 128) the reference's kernel takes;
 #: ``auto`` routing depends on this refusal
 MAX_SEQ = 1024
-#: the head dim the CUDA kernels are built for (``kHeadDim`` in the source)
-KERNEL_HEAD_DIM = 64
+#: the largest head dim the CUDA kernels take (``kMaxHeadDim`` in the
+#: source); a larger one is an error on the card, never a reason to route
+#: elsewhere
+MAX_HEAD_DIM = 128
 NEG_INF = float(np.finfo(np.float32).min)
 
 #: launches of the kernels, counted where the wrappers launch them and
@@ -125,9 +127,9 @@ def _check(what, q, k, v, extra=()):
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"{what}: k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d}; the kernels are built for "
-                         f"{KERNEL_HEAD_DIM}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d}; the kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
     for t in (q, k, v, *extra):
         if t.stride(-1) != 1:
             raise ValueError(f"{what}: the last dim must be contiguous, got "
@@ -237,13 +239,14 @@ def vmem_attention(q, k, v, *, causal: bool = False,
     right-padded batches that share one true length. ``k``/``v`` may carry
     fewer heads than ``q`` (GQA; heads divisible). Raises
     ``NotImplementedError`` for a sequence longer than :data:`MAX_SEQ`
-    after rounding up to 128, for ``causal`` with ``s_q != s_k``, for
-    indivisible heads, and on the card for a head dim other than
-    :data:`KERNEL_HEAD_DIM`: callers (``multi_head_attention``) route those
-    elsewhere."""
+    after rounding up to 128, for ``causal`` with ``s_q != s_k`` and for
+    indivisible heads, as the reference does: callers
+    (``multi_head_attention``) route those elsewhere. On the card a head
+    dim past :data:`MAX_HEAD_DIM` raises ``ValueError``, which no caller
+    routes around."""
     if q.ndim != 4:
         raise NotImplementedError(f"expected [B,S,H,D], got {tuple(q.shape)}")
-    s_q, h, d = q.shape[1], q.shape[2], q.shape[3]
+    s_q, h = q.shape[1], q.shape[2]
     s_k, h_kv = k.shape[1], k.shape[2]
     if kv_len is None:
         kv_len = s_k
@@ -257,10 +260,6 @@ def vmem_attention(q, k, v, *, causal: bool = False,
     if h % h_kv:
         raise NotImplementedError(f"q heads {h} not a multiple of kv heads "
                                   f"{h_kv}")
-    if q.is_cuda and d != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA vmem kernels are built for head dim {KERNEL_HEAD_DIM}, "
-            f"got {d}")
     if not 1 <= kv_len:
         raise ValueError(f"kv_len must be at least 1, got {kv_len}")
     return _VmemAttention.apply(q, k, v, causal, int(kv_len))

@@ -23,8 +23,8 @@ with the reference's numerics:
 - ``grad_accum > 1`` splits the batch into a leading microbatch dim and
   sums the microbatches' gradients in float32 under DDP's ``no_sync``, then
   all-reduces the sums once per step (module :func:`make_train_step`);
-- ``fused="ln"`` runs the model's forward with its ``fused_ln`` knob on
-  (the same parameters; GPT-2's fused residual-add + LayerNorm kernel).
+- ``fused="ln"`` switches the model's ``fused_ln`` knob on (the same
+  parameters; GPT-2's fused residual-add + LayerNorm kernel).
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -183,10 +183,13 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
             "a fused_adamw with a compute copy feeds the forward from the "
             "copy; build the step with fused='optimizer' (or 'auto')")
 
-    fwd_kw = {"fused_ln": True} if "ln" in fused_set else {}
+    if "ln" in fused_set:
+        # the reference's clone with fused_ln=True: the same parameters,
+        # the LayerNorms through the fused kernel
+        model.fused_ln = True
 
     def forward_loss(module, batch):
-        return loss_fn(module(batch[input_key], **fwd_kw), batch[label_key])
+        return loss_fn(module(batch[input_key]), batch[label_key])
 
     def accumulate(state, batch, params):
         micro = {k: v.reshape(grad_accum, -1, *v.shape[1:])
