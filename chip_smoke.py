@@ -84,7 +84,36 @@ Phases, each fatal on failure:
     rounding into a full step of either sign): on both runs it stays
     within 1.5 x steps x the peak lr of its zero init; the gaps are
     printed;
-16. a ``{"kernels": [...]}`` line with all seven kernels; then the last
+16. flash attention parity — the forward and backward kernels against
+    their plain versions: B 4, H 12, S 4096, D 64 causal (strided q, k, v
+    views of one qkv tensor, the long-context path's case), S 2048
+    non-causal, a ragged S 2100 causal, kv_len 1900 < S 2048 causal and
+    not, GQA H 12 / H_kv 4 repeated as multi_head_attention repeats it,
+    head dims 128, 80 and 32; f32 and bf16; o, lse, dq, dk, dv under the
+    bars of phase 11; then multi_head_attention(impl="auto") at S 2048
+    launches the flash kernel once and the vmem kernel never at D 32, 64
+    and 128 and with grouped K/V heads, and raises ValueError at D 200
+    (never dense);
+17. times — the two flash kernels at the long-context shape (B 4, H 12,
+    S 4096, D 64, causal, bf16): median device time of 50 calls, L2
+    flushed, beside the bound, the plain version and
+    scaled_dot_product_attention forward and backward;
+18. the long-context path, trained — a 1-rank NCCL group, then
+    ``tpudist_torch.train_gpt2.main`` with GPT-2 124M at full width and
+    depth, --seq_len 4096 --batch_size 4 --bf16 --fused all --attn auto
+    --chunked_ce 256 (the reference's long-context leg), 16 steps on the
+    byte-token file of phase 14: launches per step (flash forward 12 and
+    backward 12, vmem 0, LN forward 25, backward 25 plus 25 reductions,
+    fused AdamW 74), TSV rows at g_step 5, 10 and 15 and TrainTime,
+    finite and falling losses, the tokens/sec line, and the trace's
+    kernels and busy share per step;
+19. agreement — in f32 at S 2048, depth 4 (cut for the dense path's
+    memory), batch 4: four steps of --fused all --attn flash --chunked_ce
+    256 and of --fused none --attn xla (full logits) from the same init on
+    the same batches, held to LONG_LOSS_BAR / LONG_PARAM_BAR (set from the
+    readings) with the qkv key slice held to its step bound as in phase
+    15; the gaps are printed;
+20. a ``{"kernels": [...]}`` line with all nine kernels; then the last
     line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -108,20 +137,28 @@ FAILURES: list[str] = []
 #: from their readings (PERF.md): relative on the losses, absolute on the
 #: parameters
 LOSS_BAR, PARAM_BAR = 1e-5, 1e-5
+#: phase 19's bars on the f32 flash + chunked-CE and dense + full-logits
+#: paths after 4 steps at S 2048, about ten times their first readings on
+#: the H100 (8.8e-8 relative on the losses, 1.8e-7 on the parameters)
+LONG_LOSS_BAR, LONG_PARAM_BAR = 1e-6, 2e-6
 REPLACES = {"paged_decode_attention": "tpudist/ops/decode.py:358",
             "fused_decode_attention": "tpudist/ops/decode.py:216",
             "fused_adamw": "tpudist/ops/fused_update.py:96",
             "layernorm_fwd": "tpudist/ops/layernorm.py:189",
             "layernorm_bwd": "tpudist/ops/layernorm.py:215",
             "vmem_attention_fwd": "tpudist/ops/vmem_attention.py:233",
-            "vmem_attention_bwd": "tpudist/ops/vmem_attention.py:264"}
+            "vmem_attention_bwd": "tpudist/ops/vmem_attention.py:264",
+            "flash_attention_fwd": "tpudist/ops/flash_attention.py:127",
+            "flash_attention_bwd": "tpudist/ops/flash_attention.py:307"}
 SOURCES = {"paged_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "fused_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "fused_adamw": "tpudist_torch/csrc/fused_update.cu",
            "layernorm_fwd": "tpudist_torch/csrc/layernorm.cu",
            "layernorm_bwd": "tpudist_torch/csrc/layernorm.cu",
            "vmem_attention_fwd": "tpudist_torch/csrc/vmem_attention.cu",
-           "vmem_attention_bwd": "tpudist_torch/csrc/vmem_attention.cu"}
+           "vmem_attention_bwd": "tpudist_torch/csrc/vmem_attention.cu",
+           "flash_attention_fwd": "tpudist_torch/csrc/flash_attention.cu",
+           "flash_attention_bwd": "tpudist_torch/csrc/flash_attention.cu"}
 
 
 def fail(msg: str) -> None:
@@ -185,9 +222,14 @@ def main() -> int:
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for src, info in build.build_info.items():
         print(f"  {src}: nvcc {info['seconds']:.2f} s")
+        fn = None
         for line in info["log"].splitlines():
+            if "Function properties for" in line:
+                fn = line.split(" for ", 1)[1].strip()
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
+            if "spill stores" in line and " 0 bytes spill stores" not in line:
+                print(f"    (the spills above are {fn}'s)")
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -329,8 +371,9 @@ def main() -> int:
 
     kernels.append(train_phases(smi, dev))
     kernels.extend(lm_phases(smi, dev))
+    kernels.extend(long_context_phases(smi, dev))
 
-    # -- 16. result ---------------------------------------------------------------
+    # -- 20. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
                 "fused_decode_attention": static_launches["fused_decode_attention"]}
     for kr in kernels:
@@ -524,16 +567,8 @@ def lm_phases(smi: str, dev) -> list[dict]:
     """Phases 11-15: the fused LayerNorm and vmem attention kernels and the
     GPT-2 training path. Returns their four entries of the ``kernels``
     line, launches filled in."""
-    import contextlib
-    import io
-
-    import numpy as np
     import torch
-    import torch.distributed as dist
 
-    from tpudist_torch import train_gpt2 as TG
-    from tpudist_torch.ops import fused_update as FU
-    from tpudist_torch.ops import layernorm as LN
     from tpudist_torch.ops import lm_kernels_bench as LB
     from tpudist_torch.ops import vmem_attention as VA
 
@@ -599,43 +634,188 @@ def lm_phases(smi: str, dev) -> list[dict]:
     # -- 14. the main path, trained -----------------------------------------------
     print("== 14. GPT-2 124M, bf16, --fused all --attn auto, 16 steps under "
           "DDP (NCCL)")
+    counts = trained_gpt2(
+        ["--bf16", "--fused", "all", "--attn", "auto"], batch=8, seq=1024,
+        job="Smoke", smi=smi, want=lambda depth, eligible: {
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1,
+            "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "fused_adamw": eligible})
+
+    # -- 15. agreement in f32 ------------------------------------------------------
+    print("== 15. f32: --fused all --attn vmem vs --fused none --attn xla, 4 steps")
+    f32_agreement(
+        (["--fused", "all", "--attn", "vmem"], {"flash_attention_fwd",
+                                                "flash_attention_bwd"}),
+        ["--fused", "none", "--attn", "xla"], batch=8, seq=1024,
+        loss_bar=LOSS_BAR, param_bar=PARAM_BAR,
+        what="f32 fused and unfused GPT-2 training")
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+    return entries
+
+
+def long_context_phases(smi: str, dev) -> list[dict]:
+    """Phases 16-19: the flash attention kernels and the long-context GPT-2
+    training path. Returns their two entries of the ``kernels`` line,
+    launches filled in."""
+    import torch
+
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.ops import vmem_attention as VA
+    from tpudist_torch.ops.attention import multi_head_attention, repeat_kv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    # -- 16. parity -----------------------------------------------------------------
+    print("== 16. flash attention parity: o, lse, dq, dk, dv")
+    for name, got, want in LB.flash_parity(gen):
+        check(name, got, want, elem=True)
+    if FAILURES:
+        fail(f"flash attention parity: {FAILURES}")
+    # the model's router on the card: auto reaches the flash kernel from
+    # S 2048 at every head dim it takes (grouped heads repeated first) and
+    # raises past them, never going dense
+    for d, h_kv in ((32, 4), (64, 4), (128, 4), (64, 2), (200, 4)):
+        q, k, v, _ = LB.attn_inputs(gen, 1, 2048, 4, h_kv, torch.bfloat16, d=d)
+        FA.reset_launch_counts()
+        VA.reset_launch_counts()
+        try:
+            got = multi_head_attention(q, k, v, causal=True, impl="auto")
+        except ValueError as e:
+            routed = f"ValueError ({e})"
+        else:
+            kk, vv = repeat_kv(q, k, v)
+            check(f"auto D {d} H_kv {h_kv}", got, FA.flash_fwd_plain(
+                q, kk, vv, causal=True, kv_len=2048, scale=VA._scale(d))[0],
+                elem=True)
+            routed = (f"{FA.launch_counts['flash_attention_fwd']} flash, "
+                      f"{VA.launch_counts['vmem_attention_fwd']} vmem launches")
+        print(f"  auto at D {d}, H 4 / H_kv {h_kv}, S 2048: {routed}")
+        if not (routed == "1 flash, 0 vmem launches" if d <= FA.MAX_HEAD_DIM
+                else routed.startswith("ValueError")):
+            FAILURES.append(f"auto D {d} H_kv {h_kv}: {routed}")
+    if FAILURES:
+        fail(f"flash attention routing: {FAILURES}")
+
+    # -- 17. times ------------------------------------------------------------------
+    print("== 17. flash attention kernel times (median of 50 device times, L2 "
+          "flushed; bf16)")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    entries = []
+    for case in LB.flash_timing_cases(gen):
+        t = LB.time_case(case, flush)
+        print(f"  {case['name']} [{case['shape']}]: kernel "
+              f"{t['kernel_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+              f"({case['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
+              f"(SDPA) {t['library_ms']:.4f} ms, max_abs_err "
+              f"{case['max_abs_err']:.3e}  [{smi}]")
+        entries.append(dict(
+            name=case["name"], route="cuda", source=SOURCES[case["name"]],
+            replaces=REPLACES[case["name"]], ms=t["kernel_ms"],
+            plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+            max_abs_err=case["max_abs_err"], bound_ms=case["bound_ms"],
+            bound_by=case["bound_by"]))
+    del flush
+
+    # -- 18. the long-context path, trained -----------------------------------------
+    print("== 18. GPT-2 124M, bf16, S 4096, --fused all --attn auto "
+          "--chunked_ce 256, 16 steps under DDP (NCCL)")
+    counts = trained_gpt2(
+        ["--bf16", "--fused", "all", "--attn", "auto", "--chunked_ce", "256"],
+        batch=4, seq=4096, job="Long", smi=smi, want=lambda depth, eligible: {
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
+            "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
+            "flash_attention_bwd": depth, "fused_adamw": eligible})
+
+    # -- 19. agreement in f32 ------------------------------------------------------
+    print("== 19. f32, S 2048, depth 4: --fused all --attn flash --chunked_ce "
+          "256 vs --fused none --attn xla, 4 steps")
+    f32_agreement(
+        (["--fused", "all", "--attn", "flash", "--chunked_ce", "256"],
+         {"vmem_attention_fwd", "vmem_attention_bwd"}),
+        ["--fused", "none", "--attn", "xla"], batch=4, seq=2048,
+        extra=["--depth", "4"], loss_bar=LONG_LOSS_BAR,
+        param_bar=LONG_PARAM_BAR,
+        what="f32 flash + chunked CE and dense + full-logits GPT-2 training")
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+    return entries
+
+
+def counted_modules():
+    """The wrapper modules whose launch counts the GPT-2 phases read."""
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import fused_update as FU
+    from tpudist_torch.ops import layernorm as LN
+    from tpudist_torch.ops import vmem_attention as VA
+
+    return LN, VA, FA, FU
+
+
+def launches() -> dict:
+    return {k: n for mod in counted_modules()
+            for k, n in mod.launch_counts.items()}
+
+
+def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
+                 want) -> dict:
+    """Phases 14 and 18: a 1-rank NCCL group, then ``train_gpt2.main``
+    with GPT-2 124M at full width and depth, ``flags``, the profiler on,
+    16 steps on :func:`lm_kernels_bench.token_file`'s text, every launch
+    count set to 0 just before and read just after. Fails unless it ran
+    under DDP, launched ``want(depth, eligible leaves)`` kernels per step,
+    kept its 74 fused-AdamW leaves, and wrote finite, falling losses, the
+    tokens/sec line, the TSV rows and a trace with device work. Returns
+    the launch counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.ops import fused_update as FU
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                       RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     dist.init_process_group("nccl", init_method="env://")
     with tempfile.TemporaryDirectory() as log_dir:
-        tokens = LB.token_file(Path(log_dir) / "text.bin", 16 * 8 * 1024)
-        for mod in (LN, VA, FU):
+        tokens = LB.token_file(Path(log_dir) / "text.bin", 16 * batch * seq)
+        for mod in counted_modules():
             mod.reset_launch_counts()
         out = io.StringIO()
         torch.cuda.synchronize()
         with contextlib.redirect_stdout(out):
             state, losses = TG.main([
-                "--bf16", "--fused", "all", "--attn", "auto",
-                "--batch_size", "8", "--seq_len", "1024", "--tokens",
-                str(tokens), "--JobID", "Smoke", "--log_dir", log_dir])
+                *flags, "--batch_size", str(batch), "--seq_len", str(seq),
+                "--tokens", str(tokens), "--JobID", job,
+                "--log_dir", log_dir])
         torch.cuda.synchronize()
-        counts = {**LN.launch_counts, **VA.launch_counts, **FU.launch_counts}
+        counts = launches()
         printed = out.getvalue()
         print("  " + "\n  ".join(printed.strip().splitlines()[-3:]))
         if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
             fail("the training step did not run under DDP")
         dist.destroy_process_group()
         model = state.model
-        rows = (Path(log_dir) / "Smoke_8_0.log").read_text().splitlines()
-        traces = list((Path(log_dir) / "log_Smoke").glob("*.pt.trace.json"))
+        rows = (Path(log_dir) / f"{job}_{batch}_0.log").read_text().splitlines()
+        traces = list((Path(log_dir) / f"log_{job}").glob("*.pt.trace.json"))
         window = trace_breakdown(traces[0]) if traces else None
     steps = len(losses)
-    depth = model.depth
     eligible = sum(p.numel() >= FU.MIN_KERNEL_ELEMS for p in model.parameters())
-    want = {"layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
-            "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": depth,
-            "vmem_attention_bwd": depth, "fused_adamw": eligible}
-    print(f"  {steps} steps; launches {counts} (per step {want}); losses "
+    per_step = want(model.depth, eligible)
+    print(f"  {steps} steps; launches {counts} (per step {per_step}); losses "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}")
     del state, model
     if steps != 16 or eligible != 74 or any(
-            counts[k] != n * steps for k, n in want.items()):
-        fail(f"{steps} steps, launches {counts}, want {want} per step")
+            counts[k] != n * steps for k, n in per_step.items()):
+        fail(f"{steps} steps, launches {counts}, want {per_step} per step")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"losses {losses}")
     line = [ln for ln in printed.splitlines() if ln.startswith("tokens/sec: ")]
@@ -645,13 +825,13 @@ def lm_phases(smi: str, dev) -> list[dict]:
     if g_steps != ["5", "10", "15"] or not rows[-1].startswith("TrainTime\t"):
         fail(f"TSV rows {rows}")
     if not traces or not window["steps"] or not window["kernels_per_step"]:
-        fail(f"no device work in a profiler trace under log_Smoke: {window}")
+        fail(f"no device work in a profiler trace under log_{job}: {window}")
     train_s = float(rows[-1].split("\t")[1])
     eps15 = float(rows[3].split("\t")[4])
-    step_ms = 8 / eps15 * 1e3
+    step_ms = batch / eps15 * 1e3
     print(f"  TSV: rows at g_step 5/10/15 + TrainTime {train_s:.3f} s; step at "
-          f"g_step 15 {step_ms:.2f} ms ({eps15 * 1024:.1f} tokens/s); "
-          f"{steps * 8 * 1024 / train_s:.1f} tokens/s over the run (profiler "
+          f"g_step 15 {step_ms:.2f} ms ({eps15 * seq:.1f} tokens/s); "
+          f"{steps * batch * seq / train_s:.1f} tokens/s over the run (profiler "
           f"window and first step included)  [{smi}]")
     print(f"  profiler window ({window['steps']} steps, profiled): "
           f"{window['kernels_per_step']:.0f} kernels/step, device busy "
@@ -660,28 +840,46 @@ def lm_phases(smi: str, dev) -> list[dict]:
           f"unprofiled g_step-15 step {window['device_ms_per_step'] / step_ms:.3f}")
     for name, ms, count in window["top"]:
         print(f"    {ms:8.3f} ms/step  {count:5.0f}/step  {name}")
+    return counts
 
-    # -- 15. agreement in f32 ------------------------------------------------------
-    print("== 15. f32: --fused all --attn vmem vs --fused none --attn xla, 4 steps")
-    runs = {}
+
+def f32_agreement(kernel_path, dense_flags, *, batch: int, seq: int,
+                  loss_bar: float, param_bar: float, what: str,
+                  extra=()) -> None:
+    """Phases 15 and 19: four float32 steps of the kernels' path
+    (``kernel_path`` = (flags, the counted kernels it must NOT launch))
+    and of the dense path from the same init on the same batches, one
+    process. The kernels' run must launch every other counted kernel and
+    the dense run none. Losses are held to ``loss_bar`` relative and
+    parameters to ``param_bar`` absolute, except the key slice of the qkv
+    biases, whose gradient is zero in exact arithmetic (Adam turns its
+    rounding into a full step of either sign): on both runs it stays
+    within 1.5 x steps x the peak lr of its zero init."""
+    import contextlib
+    import io
+
+    from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    (kernel_flags, unused) = kernel_path
+    runs = []
     with tempfile.TemporaryDirectory() as log_dir:
-        tokens = LB.token_file(Path(log_dir) / "text.bin", 4 * 8 * 1024)
-        for fused, attn in (("all", "vmem"), ("none", "xla")):
-            for mod in (LN, VA, FU):
+        tokens = LB.token_file(Path(log_dir) / "text.bin", 4 * batch * seq)
+        for flags, kernels in ((kernel_flags, True), (dense_flags, False)):
+            for mod in counted_modules():
                 mod.reset_launch_counts()
             with contextlib.redirect_stdout(io.StringIO()):
                 st, ls = TG.main([
-                    "--fused", fused, "--attn", attn, "--batch_size", "8",
-                    "--seq_len", "1024", "--tokens", str(tokens),
-                    "--no_profiler", "--log_dir", log_dir])
-            runs[fused] = (ls, {k: v.float().cpu() for k, v in st.params().items()})
-            ran = {**LN.launch_counts, **VA.launch_counts, **FU.launch_counts}
-            # the fused run went through every kernel, the dense run none
-            if (min(ran.values()) > 0) != (fused == "all") or (
-                    fused == "none" and any(ran.values())):
-                fail(f"--fused {fused} --attn {attn}: launches {ran}")
+                    *flags, *extra, "--batch_size", str(batch), "--seq_len",
+                    str(seq), "--tokens", str(tokens), "--no_profiler",
+                    "--log_dir", log_dir])
+            ran = launches()
+            used = {k for k, n in ran.items() if n}
+            if used != (set(ran) - unused if kernels else set()):
+                fail(f"{' '.join(flags)}: launches {ran}")
+            runs.append((ls, {k: v.float().cpu() for k, v in st.params().items()}))
             del st
-    (lf, pf), (ln, pn) = runs["all"], runs["none"]
+    (lf, pf), (ln, pn) = runs
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, ln))
     gaps, key_moved = {}, 0.0
     for k in pn:
@@ -694,16 +892,13 @@ def lm_phases(smi: str, dev) -> list[dict]:
         gaps[k] = float((a - b).abs().max())
     worst = max(gaps, key=gaps.get)
     key_bound = 1.5 * len(lf) * 3e-4  # 1.5 x steps x the peak lr
-    print(f"  losses {lf} vs {ln}: max rel {loss_rel:.3e}; params max abs "
-          f"{gaps[worst]:.3e} ({worst}) [bar {PARAM_BAR:g}]; key slice of "
-          f"the qkv biases moved at most {key_moved:.3e} [step bound "
-          f"{key_bound:.2e}]")
-    if (len(lf) != 4 or loss_rel > LOSS_BAR or gaps[worst] > PARAM_BAR
+    print(f"  losses {lf} vs {ln}: max rel {loss_rel:.3e} [bar {loss_bar:g}]; "
+          f"params max abs {gaps[worst]:.3e} ({worst}) [bar {param_bar:g}]; "
+          f"key slice of the qkv biases moved at most {key_moved:.3e} [step "
+          f"bound {key_bound:.2e}]")
+    if (len(lf) != 4 or loss_rel > loss_bar or gaps[worst] > param_bar
             or key_moved > key_bound):
-        fail("f32 fused and unfused GPT-2 training disagree")
-    for e in entries:
-        e["launches"] = counts[e["name"]]
-    return entries
+        fail(f"{what} disagree")
 
 
 def trace_breakdown(path: Path) -> dict:

@@ -1,0 +1,287 @@
+"""The port's blockwise flash attention (tpudist_torch.ops.flash_attention)
+against the JAX reference (tpudist.ops.flash_attention) on the same numpy
+inputs: S 128, 256, a ragged 300, and 384 with ``kv_len`` 250; causal and
+not; head dims 32 and 64; float32 and bfloat16. Held against (a) the
+Pallas ``_flash_fwd`` in interpret mode (o and lse), (b) the Pallas
+``_bwd_pallas`` in interpret mode from the same residuals (dq, dk, dv),
+(c) ``jax.vjp(flash_attention)`` end to end, whose backward on the CPU is
+the blockwise scan ``_bwd_blockwise``, and (d) ``multi_head_attention``'s
+routing: ``impl="flash"``, ``auto`` from S 2048, a general mask and causal
+``s_q != s_k`` to the dense path with a warning, and no other error
+routed around.
+
+Tolerance: the repo's kernel-parity rule (``kernel_parity``): 2e-5
+absolute and relative in float32; in bfloat16 2% of the reference's
+largest magnitude (p is rounded to bf16 against the running max on both
+sides, and the sums run in different orders).
+
+On the CPU the wrappers take the kernels' plain versions; the kernels are
+held to those on the card by ``chip_smoke.py`` (phase 16)."""
+
+import types
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpudist.ops.attention import multi_head_attention as jax_mha
+from tpudist.ops.flash_attention import _bwd_pallas, _flash_fwd
+from tpudist.ops.flash_attention import flash_attention as jax_flash
+from tpudist_torch.ops import flash_attention as FA
+from tpudist_torch.ops import vmem_attention as VA
+from tpudist_torch.ops.attention import dot_product_attention, multi_head_attention
+from tpudist_torch.ops.flash_attention import flash_attention
+
+CASES = [
+    (128, True, None, 32), (128, False, None, 64),
+    (256, True, None, 64), (256, False, None, 32),
+    (300, True, None, 32), (300, False, None, 64),
+    (384, True, 250, 64), (384, False, 250, 32),
+]
+IDS = [f"S{s}-{'causal' if c else 'full'}-kv{kv}-D{d}" for s, c, kv, d in CASES]
+
+
+def _inputs(b, s, h, d, seed):
+    rng = np.random.Generator(np.random.PCG64(seed))
+    return tuple(rng.standard_normal((b, s, h, d)).astype(np.float32)
+                 for _ in range(4))
+
+
+def _jax_forward(q, k, v, *, causal, kv_len, dtype):
+    """The reference wrapper's padding around ``_flash_fwd`` (S to 128, D
+    to 128, ``kv_len`` masking the padded keys), returning the padded
+    residuals and the unpadded ``(o, lse)``."""
+    b, s, h, d = q.shape
+    pad_s, pad_d = -s % 128, -d % 128
+    jd = jnp.dtype(dtype)
+    padded = [jnp.pad(jnp.asarray(a, jd), ((0, 0), (0, pad_s), (0, 0),
+                                           (0, pad_d))).transpose(0, 2, 1, 3)
+              for a in (q, k, v)]
+    kv = s if kv_len is None else kv_len
+    eff_kv = None if kv == s + pad_s else kv
+    o, lse = _flash_fwd(*padded, causal=causal, sm_scale=1.0 / float(np.sqrt(d)),
+                        block_q=128, block_k=128, kv_len=eff_kv)
+    res = (*padded, o, lse)
+    return res, eff_kv, o.transpose(0, 2, 1, 3)[:, :s, :, :d], lse[:, :, :s]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,causal,kv_len,d", CASES, ids=IDS)
+def test_forward_matches_the_pallas_kernel(s, causal, kv_len, d, dtype,
+                                           kernel_parity):
+    q, k, v, _ = _inputs(1, s, 2, d, seed=s + d)
+    _, _, want_o, want_lse = _jax_forward(q, k, v, causal=causal,
+                                          kv_len=kv_len, dtype=dtype)
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.tensor(a).to(td) for a in (q, k, v))
+    o, lse = FA.flash_fwd_plain(tq, tk, tv, causal=causal,
+                                kv_len=kv_len or s, scale=VA._scale(d))
+    assert o.shape == (1, s, 2, d) and o.dtype == td
+    assert lse.shape == (1, 2, s) and lse.dtype == torch.float32
+    kernel_parity(o.float().numpy(), np.asarray(want_o))
+    kernel_parity(lse.numpy(), np.asarray(want_lse))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,causal,kv_len,d", CASES, ids=IDS)
+def test_backward_matches_the_pallas_kernels(s, causal, kv_len, d, dtype,
+                                             kernel_parity):
+    """From the reference's own residuals (q, k, v, o, lse), the plain
+    backward against ``_bwd_pallas`` in interpret mode."""
+    q, k, v, do = _inputs(1, s, 2, d, seed=s + d + 1)
+    res, eff_kv, o, lse = _jax_forward(q, k, v, causal=causal, kv_len=kv_len,
+                                       dtype=dtype)
+    jd = jnp.dtype(dtype)
+    g = jnp.pad(jnp.asarray(do, jd), ((0, 0), (0, -s % 128), (0, 0),
+                                      (0, -d % 128))).transpose(0, 2, 1, 3)
+    want = _bwd_pallas(res, g, causal=causal, sm_scale=1.0 / float(np.sqrt(d)),
+                       block_q=128, block_k=128, kv_len=eff_kv, interpret=True)
+    td = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.tensor(a).to(td) for a in (q, k, v, do))
+    to = torch.tensor(np.asarray(o, np.float32)).to(td)
+    got = FA.flash_bwd_plain(tq, tk, tv, to, tdo,
+                             torch.tensor(np.asarray(lse)), causal=causal,
+                             kv_len=kv_len or s, scale=VA._scale(d))
+    for g_, w in zip(got, want):
+        assert g_.dtype == td
+        w = np.asarray(w).transpose(0, 2, 1, 3)[:, :s, :, :d]
+        kernel_parity(g_.float().numpy(), w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,causal,kv_len,d", CASES, ids=IDS)
+def test_autograd_matches_the_reference_vjp(s, causal, kv_len, d, dtype,
+                                            kernel_parity):
+    """flash_attention and its gradients against ``jax.vjp`` of the
+    reference's wrapper (forward in interpret mode, ``_bwd_blockwise``)."""
+    q, k, v, do = _inputs(2, s, 2, d, seed=s + d + 2)
+    jd = jnp.dtype(dtype)
+    want, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, causal=causal, kv_len=kv_len),
+        *(jnp.asarray(a, jd) for a in (q, k, v)))
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.tensor(a).to(td).requires_grad_() for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=causal, kv_len=kv_len)
+    assert got.shape == (2, s, 2, d) and got.dtype == td
+    got_grads = torch.autograd.grad(got, (tq, tk, tv), torch.tensor(do).to(td))
+    kernel_parity(got.detach().float().numpy(), np.asarray(want))
+    for g, w in zip(got_grads, vjp(jnp.asarray(do, jd))):
+        assert g.dtype == td
+        kernel_parity(g.float().numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wider_key_blocks_match_the_reference(dtype, kernel_parity):
+    """The plain version honours any block_k that tiles S (another bf16
+    function: the running max moves once per block), as the reference's."""
+    q, k, v, _ = _inputs(1, 512, 2, 32, seed=21)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jax_flash(*(jnp.asarray(a, jd) for a in (q, k, v)), causal=True,
+                     block_k=256)
+    got = flash_attention(*(torch.tensor(a).to(td) for a in (q, k, v)),
+                          causal=True, block_k=256)
+    kernel_parity(got.float().numpy(), np.asarray(want))
+
+
+def test_kv_len_equals_slicing_the_keys():
+    """Keys at and past kv_len are inert: the output equals attention over
+    the sliced keys, and their dk/dv are zero."""
+    q, k, v, _ = _inputs(1, 256, 2, 32, seed=3)
+    tq, tk, tv = (torch.tensor(a).requires_grad_() for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, kv_len=130)
+    want = dot_product_attention(tq, tk[:, :130], tv[:, :130])
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    dk, dv = torch.autograd.grad(got.sum(), (tk, tv))
+    assert not dk[:, 130:].any() and not dv[:, 130:].any()
+
+
+def test_refuses_what_the_reference_refuses():
+    q = torch.zeros(1, 256, 2, 8)
+    with pytest.raises(NotImplementedError, match="causal"):
+        flash_attention(q, q[:, :128], q[:, :128], causal=True)
+    with pytest.raises(NotImplementedError, match="128-aligned"):
+        flash_attention(q, q, q, block_k=192)
+    with pytest.raises(NotImplementedError, match="128-aligned"):
+        q3 = torch.zeros(1, 384, 2, 8)  # 256-row blocks do not tile 384
+        flash_attention(q3, q3, q3, block_q=256)
+    with pytest.raises(NotImplementedError, match=r"\[B,S,H,D\]"):
+        flash_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="heads"):
+        flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+class _Spy:
+    def __init__(self, monkeypatch):
+        self.calls = []
+        real = FA.flash_attention
+
+        def spy(*a, **kw):
+            self.calls.append(a[0].shape[1])
+            return real(*a, **kw)
+
+        monkeypatch.setattr(FA, "flash_attention", spy)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_routing(monkeypatch, impl):
+    """flash: every length reaches the blockwise kernel; auto: from S 2048
+    (below it the whole-row kernel or the dense path). A general mask and
+    causal attention with s_q != s_k go dense with a warning; grouped K/V
+    heads are repeated before the kernel."""
+    spy = _Spy(monkeypatch)
+    rng = np.random.Generator(np.random.PCG64(9))
+    mk = lambda s, h=2: torch.tensor(rng.standard_normal((1, s, h, 8)),
+                                     dtype=torch.float32)
+    q = mk(197)
+    got = multi_head_attention(q, q, q, causal=True, impl=impl)
+    assert spy.calls == ([197] if impl == "flash" else [])
+    torch.testing.assert_close(got, dot_product_attention(q, q, q, causal=True),
+                               rtol=2e-5, atol=2e-5)
+    q, kv = mk(2048, 4), mk(2048, 2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = multi_head_attention(q, kv, kv, causal=True, impl=impl)
+    assert spy.calls[-1] == 2048
+    kk = torch.repeat_interleave(kv, 2, dim=2)
+    torch.testing.assert_close(
+        got, dot_product_attention(q, kk, kk, causal=True), rtol=2e-5,
+        atol=2e-5)
+    n = len(spy.calls)
+    q = mk(64)
+    mask = torch.rand(1, 1, 64, 64, generator=torch.Generator().manual_seed(0)) > 0.3
+    mask[..., 0] = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = multi_head_attention(q, q, q, mask=mask, impl=impl)
+    assert len(spy.calls) == n
+    assert any("general mask" in str(w.message) for w in caught) == (
+        impl == "flash")
+    torch.testing.assert_close(got, dot_product_attention(q, q, q, mask=mask))
+    if impl == "flash":
+        k = mk(32)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = multi_head_attention(q, k, k, causal=True, impl=impl)
+        assert spy.calls[-1] == 64  # tried, refused, dense
+        assert any("unavailable" in str(w.message) for w in caught)
+        torch.testing.assert_close(
+            got, dot_product_attention(q, k, k, causal=True))
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_wrapper_errors_are_not_routed_around(monkeypatch, impl):
+    """Only the reference's refusals (NotImplementedError) send flash
+    elsewhere. Any other error of the kernel's wrapper (a head dim the
+    CUDA kernels do not take, a tensor off the card, a failed build or
+    launch) reaches the caller: nothing falls back to dense attention.
+    Here the CUDA wrapper stands in for the CPU path and refuses the CPU
+    tensors with ValueError."""
+    monkeypatch.setattr(FA, "flash_fwd", FA.flash_fwd_cuda)
+    q = torch.zeros(1, 2048, 2, 200)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(ValueError, match="CUDA"):
+            multi_head_attention(q, q, q, causal=True, impl=impl)
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+def test_dispatch_matches_the_reference(impl, kernel_parity):
+    """multi_head_attention on both sides, GQA and kv_len included."""
+    q, k, v, _ = _inputs(2, 256, 4, 16, seed=11)
+    k, v = k[:, :, :2], v[:, :, :2]
+    want = jax_mha(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                   impl=impl, kv_len=200)
+    got = multi_head_attention(*(torch.tensor(a) for a in (q, k, v)),
+                               causal=True, impl=impl, kv_len=200)
+    kernel_parity(got.numpy(), np.asarray(want))
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    seen = []
+    monkeypatch.setattr(FA, "flash_fwd_cuda", lambda *a, **k: seen.append("fwd"))
+    monkeypatch.setattr(FA, "flash_bwd_cuda", lambda *a, **k: seen.append("bwd"))
+    card = types.SimpleNamespace(is_cuda=True)
+    FA.flash_fwd(card, None, None, causal=True, kv_len=1, scale=1.0)
+    FA.flash_bwd(card, None, None, None, None, None, causal=True, kv_len=1,
+                 scale=1.0)
+    assert seen == ["fwd", "bwd"]
+    monkeypatch.undo()
+    FA.reset_launch_counts()
+    q = torch.zeros(1, 128, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_fwd_cuda(q, q, q, causal=True, kv_len=128, scale=0.125)
+    flash_attention(q.requires_grad_(), q, q, causal=True).sum().backward()
+    assert set(FA.launch_counts.values()) == {0}
+
+
+def test_the_kernel_takes_only_its_key_tile():
+    """The CUDA forward updates the running max once per 128 keys; another
+    block_k is another bf16 function, which it refuses rather than
+    computing the wrong one."""
+    q = torch.zeros(1, 256, 2, 64)
+    with pytest.raises(ValueError, match="block_k"):
+        FA.flash_fwd_cuda(q, q, q, causal=True, kv_len=256, scale=0.125,
+                          block_k=256)

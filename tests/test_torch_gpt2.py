@@ -151,11 +151,10 @@ def test_per_row_overrun_raises_and_poisons():
 
 
 def test_unported_attention_impls_raise():
-    """Only the blockwise flash kernel is still to port; the whole-row
-    kernel behind "vmem" and "auto" is there."""
-    with pytest.raises(NotImplementedError, match="not have yet"):
-        GPT2(**GEOM, attn_impl="flash", device="cpu")
-    for impl in ("vmem", "auto"):
+    """Every attention kernel of the reference is ported: the whole-row
+    kernel behind "vmem" and "auto", the blockwise one behind "flash";
+    the context-parallel impls are not, and raise."""
+    for impl in ("vmem", "auto", "flash"):
         assert GPT2(**GEOM, attn_impl=impl, device="cpu").attn_impl == impl
     with pytest.raises(ValueError, match="attn_impl"):
         GPT2(**GEOM, attn_impl="ring", device="cpu")

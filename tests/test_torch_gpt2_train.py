@@ -5,7 +5,16 @@ identical weights and batches, unfused, with the fused LayerNorm, with
 everything fused, and with two accumulated microbatches; the weight-decay
 mask on GPT-2's leaves; the token windows each rank reads; the loss; and
 the CLI on the CPU, including the refusal of every flag the port does not
-run yet.
+run yet. Then the long-context pieces: GPT-2 with ``attn_impl="flash"``
+(2 layers, d 128, 2 heads of 64, S 256) against the reference's flash
+model, logits, gradients and three steps of the trainer with the chunked
+loss (``forward_loss``) and everything fused; and two gloo ranks with
+``--chunked_ce`` equal to one process.
+
+Flash model tolerance: logits under the repo's float32 kernel-parity rule
+(2e-5 absolute and relative); gradients within 1e-4 relative plus 1e-6
+absolute (float32; the attention and the loss sum in different orders on
+the two sides, through two layers).
 
 Trainer tolerance: per-step losses within 1e-5 relative, parameters
 within 1e-4 relative plus 1e-4 absolute after three AdamW steps at a peak
@@ -40,9 +49,11 @@ from tpudist.optim import run_schedule as jax_run_schedule
 from tpudist.train import create_train_state as jax_create_train_state
 from tpudist.train import lm_loss as jax_lm_loss
 from tpudist.train import make_train_step as jax_make_train_step
+from tpudist.models.lm_utils import chunked_lm_forward as jax_chunked
 from tpudist_torch.data.lm import TokenWindowLoader, encode_bytes
 from tpudist_torch.interop import gpt2_params_from_flax
 from tpudist_torch.models.gpt2 import GPT2
+from tpudist_torch.models.lm_utils import chunked_lm_forward
 from tpudist_torch.optim import decay_mask, make_optimizer, run_schedule
 from tpudist_torch.train import create_train_state, lm_loss, make_train_step
 from tpudist_torch.train_gpt2 import main, resolve_attn
@@ -50,6 +61,9 @@ from tpudist_torch.train_gpt2 import main, resolve_attn
 REPO = Path(__file__).resolve().parent.parent
 GEOM = dict(vocab_size=256, max_seq_len=128, hidden_dim=64, depth=2,
             num_heads=2)
+#: the long-context pieces at a test's size: heads of GPT-2's 64
+FLASH_GEOM = dict(vocab_size=256, max_seq_len=256, hidden_dim=128, depth=2,
+                  num_heads=2)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,12 +186,13 @@ state, losses = main(["--device", "cpu", "--vocab_size", "256", "--seq_len",
                       "64", "--hidden_dim", "64", "--depth", "2",
                       "--num_heads", "4", "--synthetic_tokens", "1536",
                       "--batch_size", batch, "--grad_accum", "2", "--lr",
-                      "1e-3", "--no_profiler", "--log_dir", out + "_logs"])
+                      "1e-3", "--no_profiler", "--log_dir", out + "_logs",
+                      *sys.argv[3:]])
 torch.save({"losses": losses, "params": state.params()}, out)
 """
 
 
-def _launch(tmp_path, world, batch):
+def _launch(tmp_path, world, batch, extra=()):
     port = _free_port()
     procs = []
     for rank in range(world):
@@ -187,7 +202,8 @@ def _launch(tmp_path, world, batch):
                "OMP_NUM_THREADS": "2"}
         out = tmp_path / f"w{world}_r{rank}.pt"
         procs.append((out, subprocess.Popen(
-            [sys.executable, "-c", WORKER, str(out), str(batch)], cwd=REPO,
+            [sys.executable, "-c", WORKER, str(out), str(batch), *extra],
+            cwd=REPO,
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     try:
@@ -232,6 +248,98 @@ def test_two_gloo_ranks_equal_one_process(tmp_path):
             if k.endswith("qkv.bias"):
                 g, w = g[[0, 2]], w[[0, 2]]
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def test_two_gloo_ranks_with_chunked_ce_equal_one_process(tmp_path):
+    """--chunked_ce under DDP: the chunked head reads wte outside the
+    wrapped forward, and autograd sums its two uses into one gradient
+    before DDP's hook on wte fires, so two gloo ranks still train as one
+    process on the same windows (bars as in
+    test_two_gloo_ranks_equal_one_process)."""
+    two = _launch(tmp_path, 2, 2, ["--chunked_ce", "24"])
+    (one,) = _launch(tmp_path, 1, 4, ["--chunked_ce", "24"])
+    steps = len(one["losses"])
+    assert steps == 3
+    for r in two:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5)
+        for k, want in one["params"].items():
+            g, w = r["params"][k].numpy(), want.numpy()
+            if k.endswith("qkv.bias"):
+                assert np.abs(g[1]).max() <= 1.5 * steps * 1e-3, k
+                g, w = g[[0, 2]], w[[0, 2]]
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def test_flash_gpt2_matches_the_reference(kernel_parity):
+    """attn_impl="flash" on both sides (the reference's kernel in interpret
+    mode, its blockwise backward; the port's plain versions): the logits
+    and every parameter's gradient of the LM loss, in float32."""
+    jm = JGPT2(**FLASH_GEOM, attn_impl="flash")
+    params = _flax_params(jm, seed=5)
+    tokens = _stream(2 * 256, seed=6).reshape(2, 256)
+    want = jm.apply({"params": params}, tokens, train=False)
+    want_grads = gpt2_params_from_flax(jax.tree_util.tree_map(
+        np.asarray, jax.grad(lambda p: jax_lm_loss(
+            jm.apply({"params": p}, tokens, train=False), tokens))(params)))
+    model = GPT2(**FLASH_GEOM, attn_impl="flash", device="cpu")
+    model.load_state_dict(gpt2_params_from_flax(params))
+    t = torch.from_numpy(tokens)
+    got = model(t)
+    lm_loss(got, t).backward()
+    kernel_parity(got.detach().numpy(), np.asarray(want))
+    for k, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[k].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_flash_chunked_ce_three_steps_match_the_reference():
+    """The long-context leg's step at a test's size: attn_impl="flash",
+    the chunked loss as forward_loss, fused LayerNorm and fused AdamW, three
+    steps on both sides from the same weights (bars as in
+    test_three_steps_match_the_reference)."""
+    steps, batch = 3, 2
+    loader = JaxTokenWindowLoader(_stream(), batch, 256)
+    batches = [b for _, b in zip(range(steps), loader)]
+    mesh = mesh_lib.create_mesh(devices=jax.devices()[:1])
+    jm = JGPT2(**FLASH_GEOM, attn_impl="flash")
+    opt_kw = dict(weight_decay=0.1, clip_norm=1.0, fused=True)
+    jtx = jax_make_optimizer(
+        jax_run_schedule(1e-3, total_steps=steps, warmup_steps=1), **opt_kw)
+    jstate = jax_create_train_state(jm, 0, jnp.zeros((1, 256), jnp.int32),
+                                    jtx, mesh)
+    init = gpt2_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, meta.unbox(jstate.params)))
+    jstep = jax_make_train_step(jm, jtx, mesh, loss_fn=jax_lm_loss,
+                                input_key="tokens", label_key="tokens",
+                                fused="all",
+                                forward_loss=jax_chunked(jm, chunk=64))
+    want_losses = []
+    for b in batches:
+        jstate, metrics = jstep(jstate, b)
+        want_losses.append(float(metrics["loss"]))
+
+    model = GPT2(**FLASH_GEOM, attn_impl="flash", device="cpu")
+    model.load_state_dict(init)
+    tx = make_optimizer(run_schedule(1e-3, total_steps=steps, warmup_steps=1),
+                        **opt_kw)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx, loss_fn=lm_loss, input_key="tokens",
+                           label_key="tokens", fused="all",
+                           forward_loss=chunked_lm_forward(model, chunk=64))
+    losses = [float(step(state, {"tokens": torch.from_numpy(b["tokens"])})[1]
+                    ["loss"]) for b in batches]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    want = gpt2_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, meta.unbox(jstate.params)))
+    got = state.params()
+    for k, w in want.items():
+        g, w = got[k].numpy(), w.numpy()
+        if k.endswith("qkv.bias"):
+            start = init[k].numpy()[1]
+            for side in (g[1], w[1]):
+                assert np.abs(side - start).max() <= 1.5 * steps * 1e-3, k
+            g, w = g[[0, 2]], w[[0, 2]]
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=k)
 
 
 def test_fused_ln_forward_matches_the_reference(kernel_parity):
@@ -375,8 +483,8 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--arch", "llama"], ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
-    ["--fsdp", "2"], ["--cp", "2"], ["--attn", "flash"], ["--attn", "ring"],
-    ["--attn", "ulysses"], ["--attn", "ulysses_flash"], ["--chunked_ce", "16"],
+    ["--fsdp", "2"], ["--cp", "2"], ["--remat_layers"], ["--attn", "ring"],
+    ["--attn", "ulysses"], ["--attn", "ulysses_flash"], ["--top_k", "5"],
     ["--remat"], ["--remat_policy", "full"], ["--scan_layers"],
     ["--dropout", "0.1"], ["--amp"], ["--optimizer", "lion"],
     ["--init_hf", "x"], ["--generate", "8"], ["--eval"],

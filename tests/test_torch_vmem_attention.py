@@ -25,6 +25,7 @@ import torch
 
 from tpudist.ops.attention import multi_head_attention as jax_mha
 from tpudist.ops.vmem_attention import vmem_attention as jax_vmem
+from tpudist_torch.ops import flash_attention as FA
 from tpudist_torch.ops import vmem_attention as VA
 from tpudist_torch.ops.attention import dot_product_attention, multi_head_attention
 from tpudist_torch.ops.vmem_attention import vmem_attention
@@ -166,9 +167,8 @@ class _Spy:
 @pytest.mark.parametrize("impl", ["auto", "vmem"])
 def test_auto_routing(monkeypatch, impl):
     """auto / vmem: S_pad <= 1024 reaches the whole-row kernel; S 1025..2047
-    goes to the dense path (vmem warns that it fell back); S >= 2048 needs
-    the flash kernel, which is not ported (NotImplementedError naming its
-    ROADMAP item); a general mask forces the dense path."""
+    goes to the dense path (vmem warns that it fell back); S >= 2048 goes
+    to the blockwise flash kernel; a general mask forces the dense path."""
     spy = _Spy(monkeypatch)
     rng = np.random.Generator(np.random.PCG64(9))
     mk = lambda s: torch.tensor(rng.standard_normal((1, s, 2, 8)),
@@ -186,9 +186,16 @@ def test_auto_routing(monkeypatch, impl):
     assert any("unavailable" in str(w.message) for w in caught) == (
         impl == "vmem")
     torch.testing.assert_close(got, dot_product_attention(q, q, q, causal=True))
-    q = torch.zeros(1, 2048, 1, 8)
-    with pytest.raises(NotImplementedError, match="Queue 2 #4"):
-        multi_head_attention(q, q, q, causal=True, impl=impl)
+    q = mk(2048)
+    flash = []
+    real = FA.flash_attention
+    monkeypatch.setattr(FA, "flash_attention",
+                        lambda *a, **kw: flash.append(a[0].shape[1]) or
+                        real(*a, **kw))
+    got = multi_head_attention(q, q, q, causal=True, impl=impl)
+    assert flash == [2048]
+    torch.testing.assert_close(got, dot_product_attention(q, q, q, causal=True),
+                               rtol=2e-5, atol=2e-5)
     q = mk(64)
     mask = torch.rand(1, 1, 64, 64, generator=torch.Generator().manual_seed(0)) > 0.3
     mask[..., 0] = True

@@ -2,11 +2,12 @@
 
 Each ``*.cu`` source here is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, named by a
-hash of the source and the flags, under ``tpudist_torch/_build/`` (listed
-in ``.gitignore``), and loaded with ``ctypes``. Nothing is built when the
-package is imported: the first launch builds, later launches and later
-processes reuse the library whose hash matches. Nothing includes
-PyTorch's headers, so a build takes seconds.
+hash of the source, the shared headers (``*.cuh``) and the flags, under
+``tpudist_torch/_build/`` (listed in ``.gitignore``), and loaded with
+``ctypes``. Nothing is built when the package is imported: the first
+launch builds, later launches and later processes reuse the library
+whose hash matches. Nothing includes PyTorch's headers, so a build takes
+seconds.
 
     python -m tpudist_torch.csrc.build     # build every source now, print the log
 """
@@ -25,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("decode_attention.cu", "fused_update.cu", "layernorm.cu",
-           "vmem_attention.cu")
+SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_update.cu",
+           "layernorm.cu", "vmem_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,8 +56,10 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     """``source`` names a file here or is a path (an alternate source of
-    the same C interface, for an A/B)."""
-    text = (CSRC / source).read_bytes()
+    the same C interface, for an A/B). The name hashes the headers here
+    too, since a source may include them."""
+    text = b"".join([(CSRC / source).read_bytes(),
+                     *(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))])
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}_{digest[:16]}.so"
 
@@ -140,16 +143,20 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             I, I, P, P, P, P, P, P, P, P, P, L, I, I, F, F, I, P,
         ]
         lib.tpudist_layernorm_bwd.restype = I
-    if hasattr(lib, "tpudist_vmem_fwd"):
-        lib.tpudist_vmem_fwd.argtypes = [
-            I, P, P, P, P, P, I, I, I, I, I, I, *[L] * 9, I, I, F, P,
-        ]
-        lib.tpudist_vmem_fwd.restype = I
-        lib.tpudist_vmem_bwd.argtypes = [
-            I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, *[L] * 15,
-            I, I, F, P,
-        ]
-        lib.tpudist_vmem_bwd.restype = I
+    # vmem_attention.cu and flash_attention.cu share one C interface
+    for prefix in ("tpudist_vmem", "tpudist_flash"):
+        if hasattr(lib, f"{prefix}_fwd"):
+            fwd = getattr(lib, f"{prefix}_fwd")
+            bwd = getattr(lib, f"{prefix}_bwd")
+            fwd.argtypes = [
+                I, P, P, P, P, P, I, I, I, I, I, I, *[L] * 9, I, I, F, P,
+            ]
+            fwd.restype = I
+            bwd.argtypes = [
+                I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, *[L] * 15,
+                I, I, F, P,
+            ]
+            bwd.restype = I
     if hasattr(lib, "tpudist_decode_attention"):
         for name in ("tpudist_decode_max_smem", "tpudist_decode_fixed_floats"):
             getattr(lib, name).argtypes = []

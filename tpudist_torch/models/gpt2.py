@@ -8,8 +8,8 @@ and paged block tables (the paged pool). Any ``attn_impl`` other than
 ``"xla"`` sends decode through the kernels, as in the reference. The
 non-decode forward is dense for ``"xla"`` and ``"fused"`` and goes
 through :func:`tpudist_torch.ops.attention.multi_head_attention` for
-``"vmem"`` and ``"auto"`` (the whole-row kernel); ``"flash"`` raises
-until its kernel is ported (ROADMAP Queue 2 #4).
+``"vmem"`` (the whole-row kernel), ``"flash"`` (the blockwise kernel) and
+``"auto"`` (by sequence length, the reference's routing).
 
 ``fused_ln`` (an attribute, which ``make_train_step(fused="ln")`` sets)
 swaps in the fused residual-add + LayerNorm kernel
@@ -43,8 +43,7 @@ from tpudist_torch.ops.decode import (
 )
 from tpudist_torch.ops.layernorm import fused_layernorm
 
-ATTN_IMPLS = ("xla", "fused", "vmem", "auto")
-_UNPORTED_IMPLS = ("flash",)
+ATTN_IMPLS = ("xla", "fused", "vmem", "auto", "flash")
 # flax's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -165,11 +164,6 @@ class GPT2(nn.Module):
                  dtype=torch.float32, attn_impl: str = "xla", *,
                  fused_ln: bool = False, device=None, seed: int = 0):
         super().__init__()
-        if attn_impl in _UNPORTED_IMPLS:
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} needs the blockwise flash kernel, "
-                "which the port does not have yet (ROADMAP Queue 2 #4)"
-            )
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
         if hidden_dim % num_heads:

@@ -1,0 +1,100 @@
+"""The chunked LM loss: counterpart of :mod:`tpudist.models.lm_utils`'s
+``chunked_head_reduce`` / ``tied_head_logits_fn`` / ``chunked_ce_sum`` /
+``chunked_lm_forward``.
+
+The plain path's f32 ``[B, S, V]`` logits are the memory high-water mark
+at long context (B 4, S 4096, V 50257: 3.3 GB, twice that with their
+gradient). This loss runs the blocks once, then the weight-tied head and
+the softmax cross-entropy over sequence chunks, each chunk's body under
+``torch.utils.checkpoint`` (non-reentrant), so live logits stay bounded
+by ``[B, chunk, V]`` in the forward AND the backward, which recomputes
+each chunk's logits instead of storing them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from tpudist_torch.models.gpt2 import tied_head
+
+
+def _chunk_ce_sum(logits_fn, hc, tc, mc):
+    logits = logits_fn(hc)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tc.reshape(-1),
+                         reduction="none")
+    return (ce * mc.reshape(-1)).sum()
+
+
+def chunked_head_reduce(logits_fn: Callable, h, targets, pos_mask,
+                        chunk: int):
+    """The masked softmax-CE sum of a position-wise head over sequence
+    chunks. ``logits_fn``: ``[B, chunk, D]`` hidden -> ``[B, chunk, V]``
+    f32 logits; ``h [B, S, D]``; ``targets``/``pos_mask`` ``[B, S]``
+    (``pos_mask`` broadcastable). S is padded to a multiple of ``chunk``
+    with a zero position mask, as the reference pads it."""
+    b, s, _ = h.shape
+    pad = -s % chunk
+    pos_mask = torch.broadcast_to(pos_mask, (b, s)).float()
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        pos_mask = F.pad(pos_mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s + pad, chunk):
+        total = total + checkpoint(
+            _chunk_ce_sum, logits_fn, h[:, c:c + chunk],
+            targets[:, c:c + chunk], pos_mask[:, c:c + chunk],
+            use_reentrant=False)
+    return total
+
+
+def tied_head_logits_fn(head_w) -> Callable:
+    """``logits_fn`` for :func:`chunked_head_reduce`: the weight-tied head
+    against a ``[V, D]`` table, cast to the hidden's dtype inside the chunk
+    (so a float32 master's gradient sums over the chunks in float32, as
+    the reference's scan sums it), with f32 logits
+    (:func:`tpudist_torch.models.gpt2.tied_head`)."""
+
+    def logits_fn(hc):
+        return tied_head(hc, head_w.to(hc.dtype))
+
+    return logits_fn
+
+
+def chunked_ce_sum(head_w, h, targets, pos_mask, chunk: int):
+    """The masked softmax-CE sum under the weight-tied head."""
+    return chunked_head_reduce(tied_head_logits_fn(head_w), h, targets,
+                               pos_mask, chunk)
+
+
+def chunked_lm_forward(model, chunk: int = 256) -> Callable:
+    """A ``forward_loss(module, batch)`` for
+    :func:`tpudist_torch.train.make_train_step`: the next-token CE of
+    ``batch["tokens"]`` that never materializes the ``[B, S, V]``
+    logits. ``module`` (``model``, or ``model`` under DDP) runs the blocks
+    with ``return_hidden=True``; the chunked tied head reads ``model.wte``
+    outside that forward, and autograd sums its two uses into one
+    gradient before DDP's hook on it fires. Mean CE over the ``B (S - 1)``
+    predicted positions: the same function as ``lm_loss`` on full logits.
+    The model's ``fused_ln`` attribute is read at each call, so no rebuild
+    is needed when ``make_train_step(fused="ln")`` sets it."""
+    if getattr(model, "dropout", 0.0):
+        raise ValueError(
+            "chunked_lm_forward does not support dropout (the fused path "
+            "has no rng stream); use the default forward")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    def forward_loss(module, batch):
+        tokens = batch["tokens"].long()
+        hidden = module(tokens, return_hidden=True)
+        h, targets = hidden[:, :-1], tokens[:, 1:]
+        b, s, _ = h.shape
+        mask = torch.ones((b, s), device=h.device)
+        return chunked_ce_sum(model.wte, h, targets, mask, chunk) / (b * s)
+
+    return forward_loss

@@ -3,17 +3,20 @@
 Counterpart of :mod:`tpudist.ops.attention`: the GQA rule
 (:func:`repeat_kv`), the dense attention (:func:`dot_product_attention`)
 and the ``impl`` dispatch of :func:`multi_head_attention` on the
-non-decode path. ``"xla"`` and ``"fused"`` are the dense path;
-``"vmem"`` and ``"auto"`` reach the whole-row kernel
-(:mod:`tpudist_torch.ops.vmem_attention`) with the reference's routing:
-the kernel's ``NotImplementedError`` (S_pad > 1024, or the refusals the
-reference shares) sends ``auto`` dense between S 1025 and 2047 and to
-the blockwise flash kernel from 2048, which is not ported yet
-(``NotImplementedError``, ROADMAP Queue 2 #4), as is ``"flash"``. Any
-other error of the kernel's wrapper (a head dim it does not take, a
-build or launch failure) propagates: nothing falls back to the dense
-path on the card. These crossovers are the reference's v5e tuning, kept
-as they are until they are measured on the H100.
+non-decode path. ``"xla"`` and ``"fused"`` are the dense path; ``"vmem"``
+and ``"auto"`` reach the whole-row kernel
+(:mod:`tpudist_torch.ops.vmem_attention`) and ``"flash"`` the blockwise
+kernel (:mod:`tpudist_torch.ops.flash_attention`), with the reference's
+routing: the whole-row kernel's ``NotImplementedError`` (S_pad > 1024,
+or the refusals the reference shares) sends ``auto`` dense between S 1025
+and 2047 and to the flash kernel from 2048; grouped K/V heads are
+repeated before the flash and dense paths; flash's own
+``NotImplementedError`` (causal with ``s_q != s_k``, unaligned blocks)
+and a general ``mask`` send it dense with a warning. Any other error of
+a kernel's wrapper (a head dim it does not take, a build or launch
+failure) propagates: nothing falls back to the dense path on the card.
+These crossovers are the reference's v5e tuning, kept as they are until
+they are measured on the H100.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import warnings
 import numpy as np
 import torch
 
+from tpudist_torch.ops import flash_attention as _flash
 from tpudist_torch.ops import vmem_attention as _vmem
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -73,7 +77,7 @@ def multi_head_attention(q, k, v, *, causal: bool = False, mask=None,
     """Attention over ``[B, S, H, D]`` by ``impl`` (module docstring).
     ``kv_len`` masks the keys at and past it (a right-padded batch); a
     general ``mask`` forces the dense path, with a warning when the caller
-    asked for ``"vmem"``."""
+    asked for ``"vmem"`` or ``"flash"``."""
     if impl in ("vmem", "auto"):
         if mask is None:
             try:
@@ -92,18 +96,25 @@ def multi_head_attention(q, k, v, *, causal: bool = False, mask=None,
             impl = "xla"
         else:
             impl = "xla"
-    if impl == "flash":
-        if mask is None:
-            raise NotImplementedError(
-                "the blockwise flash attention kernel is not ported yet "
-                "(ROADMAP Queue 2 #4)")
-        warnings.warn(
-            "flash attention takes no general mask; falling back to XLA "
-            "attention (S x S scores in device memory)")
-    elif impl not in ("xla", "fused"):
+    if impl not in ("xla", "fused", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if k.shape[2] != q.shape[2]:
+        # GQA reaching the flash and dense paths (vmem reads grouped heads
+        # in place)
         k, v = repeat_kv(q, k, v)
+    if impl == "flash":
+        if mask is not None:
+            warnings.warn(
+                "flash attention takes no general mask; falling back to XLA "
+                "attention (S x S scores in device memory) - for contiguous "
+                "key padding use kv_len instead")
+        else:
+            try:
+                return _flash.flash_attention(q, k, v, causal=causal,
+                                              kv_len=kv_len)
+            except NotImplementedError as e:
+                warnings.warn(
+                    f"flash attention unavailable ({e}); using XLA attention")
     if kv_len is not None and kv_len < k.shape[1]:
         mask = (torch.arange(k.shape[1], device=q.device) < kv_len)[
             None, None, None, :]

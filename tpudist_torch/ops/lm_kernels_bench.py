@@ -3,11 +3,14 @@
     python -m tpudist_torch.ops.lm_kernels_bench            # parity, then times
     python -m tpudist_torch.ops.lm_kernels_bench --parity   # parity only
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab # end to end, in turns
+    python -m tpudist_torch.ops.lm_kernels_bench --train_ab --seq_len 4096
     python -m tpudist_torch.ops.lm_kernels_bench --decode_ab # serving copy, in turns
 
 The kernels are the fused residual-add + LayerNorm forward and backward
-(:mod:`tpudist_torch.ops.layernorm`) and the whole-row attention forward
-and backward (:mod:`tpudist_torch.ops.vmem_attention`).
+(:mod:`tpudist_torch.ops.layernorm`), the whole-row attention forward
+and backward (:mod:`tpudist_torch.ops.vmem_attention`) and the blockwise
+flash attention forward and backward
+(:mod:`tpudist_torch.ops.flash_attention`).
 
 Parity holds each kernel against its plain PyTorch version on the same
 inputs on the card, under the repo's kernel-parity rule (2e-5 absolute
@@ -18,8 +21,11 @@ its largest magnitude. Cases: LayerNorm at GPT-2's 8192 x 768 rows and a
 ragged 1000 x 200, the three compositions, RMS on and off; attention at
 GPT-2's B 8, H 12, S 1024, D 64 causal (q, k, v strided views of one qkv
 tensor, as the model passes them), S 197 non-causal, ``kv_len`` < S, GQA
-with 4 K/V heads, and head dims 32, 80 and 128; float32 and bfloat16
-throughout.
+with 4 K/V heads, and head dims 32, 80 and 128; flash attention at the
+long-context leg's B 4, H 12, S 4096, D 64 causal (strided views again),
+S 2048 non-causal, a ragged S 2100, ``kv_len`` 1900 < S 2048 causal and
+not, GQA H 12 / H_kv 4 repeated as ``multi_head_attention`` repeats it,
+and head dims 128, 80 and 32; float32 and bfloat16 throughout.
 
 Times are at the training path's shapes in bfloat16: the median device
 time of 50 calls between CUDA events, the card held busy while the host
@@ -35,13 +41,18 @@ products 989 TFLOP/s on the tensor cores, float32 arithmetic 67 TFLOP/s;
 NVIDIA's H100 SXM data sheet, dense), counting only the causal half of
 the score matrix that the data needs.
 
-``--train_ab`` trains GPT-2 124M (bf16, batch 8, S 1024, 16 steps, one
-process, no profiler) on the kernels' path (``--fused all --attn auto``)
-and on the dense path (``--fused optimizer --attn xla``: dense attention
-and the unfused LayerNorm, the fused AdamW kept) in turns (kernels,
-dense, dense, kernels), and prints each run's step time at g_step 15
-(the TSV), its tokens/s over the run and its peak device memory. Both
-train on :func:`token_file`'s fixed text.
+``--train_ab`` trains GPT-2 124M (bf16, 16 steps, one process, no
+profiler) on two paths in turns (A, B, B, A), and prints each run's step
+time at g_step 15 (the TSV), its tokens/s over the run and its peak
+device memory. At S 1024 (batch 8) the paths are the kernels' path
+(``--fused all --attn auto``) and the dense path (``--fused optimizer
+--attn xla``: dense attention and the unfused LayerNorm, the fused AdamW
+kept). From S 2048 (``--seq_len``, batch 4) they are the reference's
+long-context leg (``bench.py``'s flash-versus-XLA step): ``--attn flash
+--chunked_ce 256`` against ``--attn xla --chunked_ce 256``, both under
+``--fused all``, so only the attention differs; a run that exhausts the
+card's memory is reported as such. Both train on :func:`token_file`'s
+fixed text.
 
 ``--decode_ab`` times the decode step of GPT-2 124M in bf16 (B 8, a
 64-token prompt, ``attn_impl="fused"``) on the float32-master model,
@@ -66,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from tpudist_torch.ops import decode_bench as DB
+from tpudist_torch.ops import flash_attention as FA
 from tpudist_torch.ops import layernorm as LN
 from tpudist_torch.ops import vmem_attention as VA
 
@@ -76,6 +88,8 @@ SPIN_CYCLES = 20_000_000
 EPS = 1e-5
 B, H, S, D = 8, 12, 1024, 64
 ROWS, WIDTH = B * S, H * D
+#: the long-context leg's attention: B 4 sequences of S 4096
+FB, FS = 4, 4096
 
 
 #: the element-wise bar of a bfloat16 output: ``|got - want| <= ELEM_ULPS
@@ -221,6 +235,46 @@ def attn_parity(gen):
             del po, pl, pg
 
 
+#: (tag, b, s, h, h_kv, causal, kv_len, strided, head dim); grouped K/V
+#: heads are repeated before the kernels, as multi_head_attention does
+FLASH_CASES = (
+    ("main path", FB, FS, H, H, True, None, True, D),
+    ("S 2048 non-causal", 2, 2048, H, H, False, None, False, D),
+    ("ragged S 2100 causal", 2, 2100, H, H, True, None, False, D),
+    ("kv_len 1900 < S 2048 causal", 2, 2048, H, H, True, 1900, False, D),
+    ("kv_len 1900 < S 2048 non-causal", 2, 2048, H, H, False, 1900, False, D),
+    ("GQA H 12 / H_kv 4 repeated, causal", 2, 2048, H, 4, True, None, False, D),
+    ("D 128 causal", 2, 2048, 8, 8, True, None, True, 128),
+    ("D 80 S 2100 kv_len 2000 non-causal", 2, 2100, 8, 8, False, 2000, False, 80),
+    ("D 32 causal", 2, 2048, 8, 8, True, None, True, 32),
+)
+
+
+def flash_parity(gen):
+    """Yield ``(name, got, want)`` for every flash parity case: the
+    forward's o and lse, then the backward's dq, dk, dv from the kernel's
+    own (o, lse)."""
+    from tpudist_torch.ops.attention import repeat_kv
+
+    for tag, b, s, h, h_kv, causal, kv_len, strided, d in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = attn_inputs(gen, b, s, h, h_kv, dtype,
+                                      strided=strided, d=d)
+            k, v = repeat_kv(q, k, v)
+            kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d))
+            ko, kl = FA.flash_fwd_cuda(q, k, v, **kw)
+            po, pl = FA.flash_fwd_plain(q, k, v, **kw)
+            name = f"flash {tag} {str(dtype)[6:]}"
+            yield f"{name} o", ko, po
+            yield f"{name} lse", kl, pl
+            del po, pl
+            kg = FA.flash_bwd_cuda(q, k, v, ko, do, kl, **kw)
+            pg = FA.flash_bwd_plain(q, k, v, ko, do, kl, **kw)
+            for gname, got, want in zip(("dq", "dk", "dv"), kg, pg):
+                yield f"{name} {gname}", got, want
+            del kg, pg
+
+
 def bound(nbytes: int, flops: float, dtype) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -282,41 +336,62 @@ def timing_cases(gen) -> list[dict]:
                                            rms=False),
             None, 4 * elems * item + 3 * WIDTH * 4, 17)
 
-    q, k, v, do = attn_inputs(gen, B, S, H, H, dt, strided=True)
-    akw = dict(causal=True, kv_len=S, scale=VA._scale(D))
+    cases += attention_cases(
+        "vmem_attention", VA.vmem_fwd_cuda, VA.vmem_fwd_plain,
+        VA.vmem_bwd_cuda, VA.vmem_bwd_plain, gen, B, S,
+        f"B {B}, H {H}, S {S}, D {D}, causal, bf16")
+    return cases
+
+
+def attention_cases(prefix, fwd_cuda, fwd_plain, bwd_cuda, bwd_plain,
+                    gen, b, s, shape) -> list[dict]:
+    """The forward and backward of one attention kernel pair at ``b``
+    sequences of ``s`` (H 12, D 64, causal, bf16, q/k/v strided views of
+    one qkv tensor) with their plain versions, parity errors, bounds and
+    ``scaled_dot_product_attention`` (forward, and backward through
+    autograd) as the library call."""
+    dt = torch.bfloat16
+    q, k, v, do = attn_inputs(gen, b, s, H, H, dt, strided=True)
+    akw = dict(causal=True, kv_len=s, scale=VA._scale(D))
     qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
-    tensor = B * S * H * D * item
-    lse_bytes = B * H * S * 4
+    tensor = b * s * H * D * q.element_size()
+    lse_bytes = b * H * s * 4
     # causal: the score entries the mask keeps, s (s + 1) / 2 per head
-    kept = B * H * S * (S + 1) / 2
-    got, want = VA.vmem_fwd_cuda(q, k, v, **akw), VA.vmem_fwd_plain(q, k, v,
-                                                                     **akw)
+    kept = b * H * s * (s + 1) / 2
+    got, want = fwd_cuda(q, k, v, **akw), fwd_plain(q, k, v, **akw)
     o, lse = got
-    cases.append(dict(
-        name="vmem_attention_fwd",
-        kernel=lambda: VA.vmem_fwd_cuda(q, k, v, **akw),
-        plain=lambda: VA.vmem_fwd_plain(q, k, v, **akw),
+    cases = [dict(
+        name=f"{prefix}_fwd",
+        kernel=lambda: fwd_cuda(q, k, v, **akw),
+        plain=lambda: fwd_plain(q, k, v, **akw),
         library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        is_causal=True),
-        max_abs_err=max(max_err(a, b)[0] for a, b in zip(got, want)),
-        shape=f"B {B}, H {H}, S {S}, D {D}, causal, bf16",
-        **bound(4 * tensor + lse_bytes, 2 * 2 * D * kept, dt)))
+        max_abs_err=max(max_err(a, w)[0] for a, w in zip(got, want)),
+        shape=shape, **bound(4 * tensor + lse_bytes, 2 * 2 * D * kept, dt))]
     del want
     ql, kl, vl = (a.detach().clone().requires_grad_() for a in (qh, kh, vh))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     doh = do.transpose(1, 2)
-    got = VA.vmem_bwd_cuda(q, k, v, o, do, lse, **akw)
-    want = VA.vmem_bwd_plain(q, k, v, o, do, lse, **akw)
+    got = bwd_cuda(q, k, v, o, do, lse, **akw)
+    want = bwd_plain(q, k, v, o, do, lse, **akw)
     cases.append(dict(
-        name="vmem_attention_bwd",
-        kernel=lambda: VA.vmem_bwd_cuda(q, k, v, o, do, lse, **akw),
-        plain=lambda: VA.vmem_bwd_plain(q, k, v, o, do, lse, **akw),
+        name=f"{prefix}_bwd",
+        kernel=lambda: bwd_cuda(q, k, v, o, do, lse, **akw),
+        plain=lambda: bwd_plain(q, k, v, o, do, lse, **akw),
         library=lambda: torch.autograd.grad(lo, (ql, kl, vl), doh,
                                             retain_graph=True),
-        max_abs_err=max(max_err(a, b)[0] for a, b in zip(got, want)),
-        shape=f"B {B}, H {H}, S {S}, D {D}, causal, bf16",
-        **bound(8 * tensor + lse_bytes, 5 * 2 * D * kept, dt)))
+        max_abs_err=max(max_err(a, w)[0] for a, w in zip(got, want)),
+        shape=shape, **bound(8 * tensor + lse_bytes, 5 * 2 * D * kept, dt)))
     return cases
+
+
+def flash_timing_cases(gen) -> list[dict]:
+    """The flash kernels at the long-context leg's shape (B 4, H 12,
+    S 4096, D 64, causal, bf16), as :func:`attention_cases`."""
+    return attention_cases(
+        "flash_attention", FA.flash_fwd_cuda, FA.flash_fwd_plain,
+        FA.flash_bwd_cuda, FA.flash_bwd_plain, gen, FB, FS,
+        f"B {FB}, H {H}, S {FS}, D {D}, causal, bf16")
 
 
 def time_case(case, flush) -> dict:
@@ -348,32 +423,50 @@ def token_file(path: Path, n_tokens: int) -> Path:
     return path
 
 
-#: --train_ab's two paths: (name, train_gpt2 flags)
+#: --train_ab's two paths at S 1024: (name, train_gpt2 flags)
 AB_PATHS = (("kernels", ["--fused", "all", "--attn", "auto"]),
             ("dense", ["--fused", "optimizer", "--attn", "xla"]))
+#: and from S 2048: the reference's long-context leg, flash against the
+#: dense attention on the same chunked-CE step
+AB_PATHS_LONG = (
+    ("flash", ["--fused", "all", "--attn", "flash", "--chunked_ce", "256"]),
+    ("dense", ["--fused", "all", "--attn", "xla", "--chunked_ce", "256"]))
 
 
-def train_ab(steps: int = 16) -> list[dict]:
-    """The two paths of :data:`AB_PATHS` in turns (A, B, B, A)."""
+def train_ab(seq_len: int = 1024, steps: int = 16) -> list[dict]:
+    """The two paths for ``seq_len`` (module docstring) in turns (A, B, B,
+    A). A run that exhausts the card's memory reports ``oom`` instead of
+    its numbers."""
     from tpudist_torch import train_gpt2
 
+    paths, batch = (AB_PATHS, 8) if seq_len <= 1024 else (AB_PATHS_LONG, 4)
     out = []
     with tempfile.TemporaryDirectory() as log_dir:
-        tokens = token_file(Path(log_dir) / "text.bin", steps * 8 * 1024)
+        tokens = token_file(Path(log_dir) / "text.bin",
+                            steps * batch * seq_len)
         for n, i in enumerate((0, 1, 1, 0)):
-            name, flags = AB_PATHS[i]
+            name, flags = paths[i]
             torch.cuda.reset_peak_memory_stats()
-            with contextlib.redirect_stdout(io.StringIO()):
-                _, losses = train_gpt2.main([
-                    *flags, "--bf16", "--batch_size", "8", "--seq_len",
-                    "1024", "--tokens", str(tokens), "--no_profiler",
-                    "--JobID", f"AB{n}", "--log_dir", log_dir])
-            rows = (Path(log_dir) / f"AB{n}_8_0.log").read_text().splitlines()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    _, losses = train_gpt2.main([
+                        *flags, "--bf16", "--batch_size", str(batch),
+                        "--seq_len", str(seq_len), "--tokens", str(tokens),
+                        "--no_profiler", "--JobID", f"AB{n}",
+                        "--log_dir", log_dir])
+            except torch.cuda.OutOfMemoryError as e:
+                out.append(dict(path=name, oom=str(e).splitlines()[0],
+                                peak_gib=torch.cuda.max_memory_allocated()
+                                / 2**30))
+                torch.cuda.empty_cache()
+                continue
+            rows = (Path(log_dir) / f"AB{n}_{batch}_0.log").read_text() \
+                .splitlines()
             eps15 = float(rows[3].split("\t")[4])
             train_s = float(rows[-1].split("\t")[1])
             out.append(dict(
-                path=name, step_ms=8 / eps15 * 1e3,
-                tokens_per_s=len(losses) * 8 * 1024 / train_s,
+                path=name, step_ms=batch / eps15 * 1e3,
+                tokens_per_s=len(losses) * batch * seq_len / train_s,
                 final_loss=losses[-1],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30))
     return out
@@ -425,6 +518,8 @@ def main(argv=None) -> int:
     p.add_argument("--parity", action="store_true", help="parity only")
     p.add_argument("--train_ab", action="store_true",
                    help="only the end-to-end A/B of the two paths")
+    p.add_argument("--seq_len", default=1024, type=int,
+                   help="--train_ab's sequence length (module docstring)")
     p.add_argument("--decode_ab", action="store_true",
                    help="only the decode step on masters vs the copy")
     args = p.parse_args(argv)
@@ -437,13 +532,18 @@ def main(argv=None) -> int:
                   f"parameters {r['param_mib']:.1f} MiB")
         return 0
     if args.train_ab:
-        for r in train_ab():
-            print(f"{r['path']}: step at g_step 15 {r['step_ms']:.2f} ms, "
-                  f"{r['tokens_per_s']:.1f} tokens/s over the run, final loss "
-                  f"{r['final_loss']:.4f}, peak {r['peak_gib']:.2f} GiB")
+        for r in train_ab(args.seq_len):
+            if "oom" in r:
+                print(f"{r['path']}: out of memory at S {args.seq_len} "
+                      f"(peak {r['peak_gib']:.2f} GiB): {r['oom']}")
+                continue
+            print(f"{r['path']}: S {args.seq_len}, step at g_step 15 "
+                  f"{r['step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s "
+                  f"over the run, final loss {r['final_loss']:.4f}, peak "
+                  f"{r['peak_gib']:.2f} GiB")
         return 0
     build.build_all()
-    for src in ("layernorm.cu", "vmem_attention.cu"):
+    for src in ("layernorm.cu", "vmem_attention.cu", "flash_attention.cu"):
         info = build.build_info[src]
         print(f"{src}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -451,7 +551,7 @@ def main(argv=None) -> int:
                 print("  " + line.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = []
-    for parity in (ln_parity, attn_parity):
+    for parity in (ln_parity, attn_parity, flash_parity):
         for name, got, want in parity(gen):
             torch.cuda.synchronize()
             err, ok = max_err(got, want)
@@ -465,7 +565,7 @@ def main(argv=None) -> int:
         print(f"parity failures: {failed}")
         return 1 if failed else 0
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for case in timing_cases(gen):
+    for case in (*timing_cases(gen), *flash_timing_cases(gen)):
         t = time_case(case, flush)
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"{case['name']} [{case['shape']}]: kernel {t['kernel_ms']:.4f}"

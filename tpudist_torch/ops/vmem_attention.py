@@ -140,62 +140,78 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def vmem_fwd_cuda(q, k, v, *, causal: bool, kv_len: int, scale: float):
-    """Launch the forward kernel on the current stream. ``q [B, Sq, H,
-    D]``, ``k``/``v`` ``[B, Sk, H_kv, D]`` in one dtype, any strides but a
-    contiguous last dim. Returns ``(o, lse)``."""
+def launch_fwd(kind: str, counts: dict, q, k, v, *, causal: bool,
+               kv_len: int, scale: float):
+    """Launch ``kind``'s forward kernel (``"vmem"`` or ``"flash"``: the two
+    sources share one C interface) on the current stream and count it in
+    ``counts``. ``q [B, Sq, H, D]``, ``k``/``v`` ``[B, Sk, H_kv, D]`` in
+    one dtype, any strides but a contiguous last dim. Returns ``(o,
+    lse)``."""
     from tpudist_torch.csrc import build
 
-    _check("vmem_attention_fwd", q, k, v)
+    what = f"{kind}_attention_fwd"
+    _check(what, q, k, v)
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    lib = build.load("vmem_attention.cu")
-    rc = lib.tpudist_vmem_fwd(
+    lib = build.load(f"{kind}_attention.cu")
+    rc = getattr(lib, f"tpudist_{kind}_fwd")(
         _CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, s_q, s_k, h, h_kv, d, *_strides(q),
         *_strides(k), *_strides(v), kv_len, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, "vmem_attention_fwd")
-    launch_counts["vmem_attention_fwd"] += 1
+    build.check(lib, rc, what)
+    counts[what] += 1
     return o, lse
 
 
-def vmem_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, kv_len: int,
-                  scale: float):
-    """Launch the backward's three kernels on the current stream (the
-    ``delta`` pre-pass, dk/dv, dq). ``o``/``do`` ``[B, Sq, H, D]`` with a
-    contiguous last dim; ``lse`` contiguous f32 ``[B, H, Sq]``. Returns
-    ``(dq, dk, dv)``."""
+def launch_bwd(kind: str, counts: dict, q, k, v, o, do, lse, *,
+               causal: bool, kv_len: int, scale: float):
+    """Launch ``kind``'s backward kernels on the current stream (the
+    ``delta`` pre-pass, dk/dv, dq), counted once in ``counts``.
+    ``o``/``do`` ``[B, Sq, H, D]`` with a contiguous last dim; ``lse``
+    contiguous f32 ``[B, H, Sq]``. Returns ``(dq, dk, dv)``."""
     from tpudist_torch.csrc import build
 
-    _check("vmem_attention_bwd", q, k, v, (o, do))
+    what = f"{kind}_attention_bwd"
+    _check(what, q, k, v, (o, do))
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     for t, shape in ((o, q.shape), (do, q.shape), (lse, (b, h, s_q))):
         if t.shape != shape or t.device != q.device:
-            raise ValueError(f"vmem_attention_bwd: got {tuple(t.shape)}, "
-                             f"want {tuple(shape)} on {q.device}")
+            raise ValueError(f"{what}: got {tuple(t.shape)}, want "
+                             f"{tuple(shape)} on {q.device}")
     if o.dtype != q.dtype or do.dtype != q.dtype:
-        raise ValueError("vmem_attention_bwd: o and do must be in q's dtype")
+        raise ValueError(f"{what}: o and do must be in q's dtype")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("vmem_attention_bwd: lse must be contiguous float32")
+        raise ValueError(f"{what}: lse must be contiguous float32")
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s_k, h_kv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lib = build.load("vmem_attention.cu")
-    rc = lib.tpudist_vmem_bwd(
+    lib = build.load(f"{kind}_attention.cu")
+    rc = getattr(lib, f"tpudist_{kind}_bwd")(
         _CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s_q, s_k, h, h_kv, d,
         *_strides(q), *_strides(k), *_strides(v), *_strides(o),
         *_strides(do), kv_len, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, "vmem_attention_bwd")
-    launch_counts["vmem_attention_bwd"] += 1
+    build.check(lib, rc, what)
+    counts[what] += 1
     return dq, dk, dv
+
+
+def vmem_fwd_cuda(q, k, v, **kw):
+    """The forward kernel on the current stream (:func:`launch_fwd`)."""
+    return launch_fwd("vmem", launch_counts, q, k, v, **kw)
+
+
+def vmem_bwd_cuda(q, k, v, o, do, lse, **kw):
+    """The backward's three kernels on the current stream
+    (:func:`launch_bwd`)."""
+    return launch_bwd("vmem", launch_counts, q, k, v, o, do, lse, **kw)
 
 
 def vmem_fwd(q, k, v, **kw):

@@ -24,7 +24,10 @@ with the reference's numerics:
   sums the microbatches' gradients in float32 under DDP's ``no_sync``, then
   all-reduces the sums once per step (module :func:`make_train_step`);
 - ``fused="ln"`` switches the model's ``fused_ln`` knob on (the same
-  parameters; GPT-2's fused residual-add + LayerNorm kernel).
+  parameters; GPT-2's fused residual-add + LayerNorm kernel);
+- ``forward_loss(module, batch) -> loss`` replaces the default
+  ``loss_fn(module(batch[input_key]), batch[label_key])`` (the chunked LM
+  loss, :func:`tpudist_torch.models.lm_utils.chunked_lm_forward`).
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -156,7 +159,8 @@ def resolve_fused(fused, model, tx) -> frozenset:
 
 def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
                     input_key: str = "image", label_key: str = "label",
-                    fused=None, grad_accum: int = 1, reduce: str = "none"):
+                    fused=None, grad_accum: int = 1, reduce: str = "none",
+                    forward_loss: Callable | None = None):
     """Build ``step(state, batch) -> (state, {"loss": tensor})``: forward,
     loss, backward (DDP all-reduces the gradients under a group), one
     optimizer update. ``state`` is updated in place; ``batch`` is a dict of
@@ -170,7 +174,15 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
     ``grad_accum``, as is the loss (the reference's microbatch scan with
     float32 accumulators). DDP's own reduction is not used there: it would
     sum the microbatches in the parameters' dtype, which is bf16 under the
-    fused optimizer's compute copy."""
+    fused optimizer's compute copy.
+
+    ``forward_loss(module, batch) -> loss`` takes the place of
+    ``loss_fn(module(batch[input_key]), batch[label_key])`` for every
+    (micro)batch, as the reference's ``forward_loss=`` does. ``fused="ln"``
+    sets the model's ``fused_ln`` attribute, which a ``forward_loss``
+    built on the same model reads at each call: the reference's
+    ``rebuild`` hook (which re-closes a loss over a fused clone) has no
+    counterpart here because nothing is cloned."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if reduce not in (None, "none"):
@@ -188,8 +200,9 @@ def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
         # the LayerNorms through the fused kernel
         model.fused_ln = True
 
-    def forward_loss(module, batch):
-        return loss_fn(module(batch[input_key]), batch[label_key])
+    if forward_loss is None:
+        def forward_loss(module, batch):
+            return loss_fn(module(batch[input_key]), batch[label_key])
 
     def accumulate(state, batch, params):
         micro = {k: v.reshape(grad_accum, -1, *v.shape[1:])
@@ -293,6 +306,7 @@ def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
         world_size: int | None = None, global_rank: int | None = None,
         loss_fn: Callable = cross_entropy_loss, input_key: str = "image",
         label_key: str = "label", fused=None, grad_accum: int = 1,
+        forward_loss: Callable | None = None,
         profile: bool = True, prefetch_depth: int = 2, log_dir: str = ".",
         metrics_logger: MetricsLogger | None = None, **deferred):
     """The reference's training program as a function: epochs x batches,
@@ -301,7 +315,8 @@ def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
     weights (built from a seed on every rank) and its device; the loader
     yields host batches of numpy arrays. Returns ``(state, losses)``, the
     per-step losses in step order. With ``grad_accum > 1`` each loader
-    batch holds ``grad_accum`` microbatches (see :func:`make_train_step`).
+    batch holds ``grad_accum`` microbatches, and ``forward_loss`` replaces
+    the default loss (see :func:`make_train_step`).
 
     The reference's other keywords (``reduce``, ``plan``,
     ``shard_opt_state``, ``telemetry``, ``metrics_port``,
@@ -324,7 +339,7 @@ def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
         batch_size = train_loader.batch_size
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
                            label_key=label_key, fused=fused,
-                           grad_accum=grad_accum)
+                           grad_accum=grad_accum, forward_loss=forward_loss)
     state = create_train_state(model, tx)
     fetch = _DelayedLoss(device)
     losses: list[float] = []

@@ -19,11 +19,16 @@ with the reference's ``tokens/sec: ... steps=... final_loss=...`` line.
 
 ``--attn auto`` resolves as the reference does on its accelerator: on the
 card S <= 1024 takes the whole-row vmem kernel, 1025..2047 the dense path,
-from 2048 the blockwise flash kernel (not ported yet: it raises); off the
-card it is the dense path. ``--fused ln|all`` runs the fused residual-add
-+ LayerNorm kernel in every block, ``--fused optimizer|all`` the fused
-AdamW kernel (under ``--bf16`` its bf16 compute copy is the forward's
-parameters).
+from 2048 the blockwise flash kernel; off the card it is the dense path.
+``--fused ln|all`` runs the fused residual-add + LayerNorm kernel in
+every block, ``--fused optimizer|all`` the fused AdamW kernel (under
+``--bf16`` its bf16 compute copy is the forward's parameters).
+``--chunked_ce N`` trains on the chunked tied-head loss
+(:func:`tpudist_torch.models.lm_utils.chunked_lm_forward`), which never
+holds the ``[B, S, V]`` logits. The reference's long-context leg is
+
+    python -m tpudist_torch.train_gpt2 --seq_len 4096 --batch_size 4 \
+        --bf16 --fused all --attn auto --chunked_ce 256
 
 Every other flag of the reference is accepted, and a value other than its
 default raises ``NotImplementedError`` naming the ROADMAP item that ports
@@ -134,7 +139,7 @@ _UNPORTED = {
     "amp": "Queue 1 #2", "shard_opt_state": "Queue 1 #7",
     "dropout": "Queue 1 #3", "remat": "Queue 1 #3",
     "remat_policy": "Queue 1 #3", "scan_layers": "Queue 1 #3",
-    "remat_layers": "Queue 1 #3", "chunked_ce": "Queue 1 #3",
+    "remat_layers": "Queue 1 #3",
     "num_kv_heads": "Queue 1 #4", "ffn_dim": "Queue 1 #4",
     "rope_theta": "Queue 1 #4", "tie_embeddings": "Queue 1 #4",
     "fsdp": "Queue 1 #7", "tensor": "Queue 1 #7", "pipe": "Queue 1 #7",
@@ -154,7 +159,7 @@ _UNPORTED = {
 #: values of choice flags this port does not run yet -> the ROADMAP item
 _UNPORTED_CHOICES = {
     ("arch", "llama"): "Queue 1 #4",
-    ("attn", "flash"): "Queue 2 #4", ("attn", "ring"): "Queue 1 #5",
+    ("attn", "ring"): "Queue 1 #5",
     ("attn", "ulysses"): "Queue 1 #5", ("attn", "ulysses_flash"): "Queue 1 #5",
     ("optimizer", "sgd"): "Queue 1 #2", ("optimizer", "lamb"): "Queue 1 #2",
     ("optimizer", "lion"): "Queue 1 #2", ("optimizer", "muon"): "Queue 1 #2",
@@ -212,6 +217,7 @@ def main(argv=None):
     from tpudist_torch.data.lm import TokenWindowLoader
     from tpudist_torch.distributed import group_up, init_from_env
     from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.models.lm_utils import chunked_lm_forward
     from tpudist_torch.optim import make_optimizer, run_schedule
     from tpudist_torch.train import fit, lm_loss
 
@@ -239,12 +245,15 @@ def main(argv=None):
             optimizer=args.optimizer, weight_decay=args.weight_decay,
             clip_norm=args.clip_norm, fused=fuse_opt,
             compute_dtype=dtype if dtype != torch.float32 else None)
+        forward_loss = (chunked_lm_forward(model, chunk=args.chunked_ce)
+                        if args.chunked_ce else None)
         t0 = time.time()
         state, losses = fit(
             model, tx, loader, epochs=args.epochs, job_id=args.JobID,
             batch_size=args.batch_size, world_size=ctx.world_size,
             global_rank=ctx.rank, loss_fn=lm_loss, input_key="tokens",
             label_key="tokens", grad_accum=args.grad_accum,
+            forward_loss=forward_loss,
             fused=None if args.fused == "none" else args.fused,
             profile=not args.no_profiler, log_dir=args.log_dir)
         wall = time.time() - t0
