@@ -58,9 +58,14 @@ Phases, each fatal on failure:
     plain versions: B 8, H 12, S 1024, D 64 causal (strided q, k, v views
     of one qkv tensor, the main path's case), S 197 non-causal, kv_len < S
     causal and not, GQA with H_kv 4, head dims 128, 80 and 32; f32 and
-    bf16; o, lse, dq, dk, dv under the bars of phase 11; then
-    multi_head_attention(impl="auto") at S 256 launches the kernel once at
-    D 32, 64 and 128 and raises ValueError at D 200 (never dense);
+    bf16; o, lse, dq, dk, dv under the bars of phase 11, and a D 20 GQA
+    case whose head stride of 20 elements sends the bf16 backward's tiles
+    through element-wise loads; the backward kernels' registers and
+    spills from the build report (a spill in a bf16 HD 64 instantiation
+    fails); two bf16 backward calls on the main path's inputs must give
+    bit-identical dq, dk, dv; then multi_head_attention(impl="auto") at
+    S 256 launches the kernel once at D 32, 64 and 128 and raises
+    ValueError at D 200 (never dense);
 13. times — the four kernels at the training path's shapes in bf16
     (tpudist_torch/ops/lm_kernels_bench.py): median device time of 50
     calls, L2 flushed, beside the bound, the plain version and the library
@@ -89,8 +94,10 @@ Phases, each fatal on failure:
     views of one qkv tensor, the long-context path's case), S 2048
     non-causal, a ragged S 2100 causal, kv_len 1900 < S 2048 causal and
     not, GQA H 12 / H_kv 4 repeated as multi_head_attention repeats it,
-    head dims 128, 80 and 32; f32 and bf16; o, lse, dq, dk, dv under the
-    bars of phase 11; then multi_head_attention(impl="auto") at S 2048
+    head dims 128, 80, 32 and 20 (strided, head stride 20: element-wise
+    loads); f32 and bf16; o, lse, dq, dk, dv under the bars of phase 11;
+    the backward's registers and spills and the repeat check, as in phase
+    12; then multi_head_attention(impl="auto") at S 2048
     launches the flash kernel once and the vmem kernel never at D 32, 64
     and 128 and with grouped K/V heads, and raises ValueError at D 200
     (never dense);
@@ -582,10 +589,12 @@ def lm_phases(smi: str, dev) -> list[dict]:
     if FAILURES:
         fail(f"fused LayerNorm parity: {FAILURES}")
     print("== 12. vmem attention parity: o, lse, dq, dk, dv")
+    backward_build("vmem_attention.cu")
     for name, got, want in LB.attn_parity(gen):
         check(name, got, want, elem=True)
     if FAILURES:
         fail(f"vmem attention parity: {FAILURES}")
+    repeatable("vmem", gen, LB.B, LB.S)
     # the model's router on the card: auto reaches the kernel at every
     # head dim it takes and raises past them, never going dense
     from tpudist_torch.ops.attention import multi_head_attention
@@ -671,10 +680,12 @@ def long_context_phases(smi: str, dev) -> list[dict]:
 
     # -- 16. parity -----------------------------------------------------------------
     print("== 16. flash attention parity: o, lse, dq, dk, dv")
+    backward_build("flash_attention.cu")
     for name, got, want in LB.flash_parity(gen):
         check(name, got, want, elem=True)
     if FAILURES:
         fail(f"flash attention parity: {FAILURES}")
+    repeatable("flash", gen, LB.FB, LB.FS)
     # the model's router on the card: auto reaches the flash kernel from
     # S 2048 at every head dim it takes (grouped heads repeated first) and
     # raises past them, never going dense
@@ -744,6 +755,33 @@ def long_context_phases(smi: str, dev) -> list[dict]:
     for e in entries:
         e["launches"] = counts[e["name"]]
     return entries
+
+
+def backward_build(source: str) -> None:
+    """Print the backward kernels' registers and spills from ``source``'s
+    build report; fail if a bf16 HD 64 instantiation spills."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    lines, spilled = LB.backward_build(source)
+    print(f"  {source} backward kernels (-Xptxas -v):")
+    for line in lines:
+        print("    " + line)
+    if not lines:
+        fail(f"no build report for {source}")
+    if spilled:
+        fail(f"bf16 HD 64 backward kernels spill: {spilled}")
+
+
+def repeatable(kind: str, gen, b: int, s: int) -> None:
+    """Fail unless two bf16 calls of ``kind``'s backward on the same
+    inputs give bit-identical dq, dk and dv (no atomics)."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    same = LB.repeat_identical(kind, gen, b, s)
+    print(f"  two bf16 backward calls at B {b}, S {s}: dq, dk, dv "
+          f"bit-identical: {same}")
+    if not same:
+        fail("the bf16 backward is not deterministic")
 
 
 def counted_modules():

@@ -8,7 +8,9 @@ Pallas ``_flash_fwd`` in interpret mode (o and lse), (b) the Pallas
 the blockwise scan ``_bwd_blockwise``, and (d) ``multi_head_attention``'s
 routing: ``impl="flash"``, ``auto`` from S 2048, a general mask and causal
 ``s_q != s_k`` to the dense path with a warning, and no other error
-routed around.
+routed around. Then (e) the bf16 backward's tensor-core arithmetic, p and
+ds carried as hi + lo bf16 pairs (``tests/torch_attention_model.py``),
+against ``_bwd_pallas`` under ``lm_kernels_bench``'s element-wise bar.
 
 Tolerance: the repo's kernel-parity rule (``kernel_parity``): 2e-5
 absolute and relative in float32; in bfloat16 2% of the reference's
@@ -30,7 +32,9 @@ import torch
 from tpudist.ops.attention import multi_head_attention as jax_mha
 from tpudist.ops.flash_attention import _bwd_pallas, _flash_fwd
 from tpudist.ops.flash_attention import flash_attention as jax_flash
+from torch_attention_model import mma_bwd_model, one_bf16, split_bf16
 from tpudist_torch.ops import flash_attention as FA
+from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.ops import vmem_attention as VA
 from tpudist_torch.ops.attention import dot_product_attention, multi_head_attention
 from tpudist_torch.ops.flash_attention import flash_attention
@@ -285,3 +289,61 @@ def test_the_kernel_takes_only_its_key_tile():
     with pytest.raises(ValueError, match="block_k"):
         FA.flash_fwd_cuda(q, q, q, causal=True, kv_len=256, scale=0.125,
                           block_k=256)
+
+
+# -- the bf16 backward on the tensor cores ---------------------------------------
+# The CUDA backward carries the f32 p and ds of the flash function into its
+# bf16 products as hi + lo pairs (tests/torch_attention_model.py). Its
+# arithmetic, modelled on the CPU, against the Pallas backward in interpret
+# mode, under lm_kernels_bench's element-wise bar: 2 bf16 ulps plus 2^-14 of
+# the largest magnitude, beside the 2% rule.
+
+#: S 256 and 384, D 64 and 32, causal and kv_len < S
+MMA_CASES = [
+    (256, True, None, 64), (256, False, 200, 32),
+    (384, True, 300, 32), (384, False, 250, 64),
+]
+MMA_IDS = [f"S{s}-{'causal' if c else 'full'}-kv{kv}-D{d}"
+           for s, c, kv, d in MMA_CASES]
+
+
+def test_split_bf16_carries_an_f32_value():
+    """hi + lo stands for x within 2^-16 relative, where hi alone is off
+    by up to 2^-9."""
+    rng = np.random.Generator(np.random.PCG64(5))
+    x = torch.tensor(rng.standard_normal(100_000).astype(np.float32)
+                     * np.exp2(rng.integers(-30, 30, 100_000)).astype(np.float32))
+    hi, lo = split_bf16(x)
+    assert torch.equal(hi, x.to(torch.bfloat16).float())
+    rel = ((hi + lo - x).abs() / x.abs()).max().item()
+    assert rel <= 2.0 ** -16, rel
+    assert ((hi - x).abs() / x.abs()).max().item() > 2.0 ** -10
+
+
+@pytest.mark.parametrize("s,causal,kv_len,d", MMA_CASES, ids=MMA_IDS)
+def test_mma_backward_model_matches_the_pallas_kernels(s, causal, kv_len, d):
+    """The hi + lo model from the reference's own residuals against
+    ``_bwd_pallas`` in interpret mode, in bf16. The model with p and ds
+    rounded to one bf16 (vmem's function) is printed as a reading."""
+    q, k, v, do = _inputs(1, s, 2, d, seed=s + d + 3)
+    res, eff_kv, o, lse = _jax_forward(q, k, v, causal=causal, kv_len=kv_len,
+                                       dtype="bfloat16")
+    g = jnp.pad(jnp.asarray(do, jnp.bfloat16),
+                ((0, 0), (0, -s % 128), (0, 0), (0, -d % 128))
+                ).transpose(0, 2, 1, 3)
+    want = _bwd_pallas(res, g, causal=causal, sm_scale=1.0 / float(np.sqrt(d)),
+                       block_q=128, block_k=128, kv_len=eff_kv, interpret=True)
+    bf = torch.bfloat16
+    tq, tk, tv, tdo = (torch.tensor(a).to(bf) for a in (q, k, v, do))
+    to = torch.tensor(np.asarray(o, np.float32)).to(bf)
+    kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d))
+    args = (tq, tk, tv, to, tdo, torch.tensor(np.asarray(lse)))
+    got = mma_bwd_model(*args, parts=split_bf16, **kw)
+    single = mma_bwd_model(*args, parts=one_bf16, **kw)
+    for name, g_, one, w in zip(("dq", "dk", "dv"), got, single, want):
+        w = torch.tensor(np.asarray(w, np.float32).transpose(0, 2, 1, 3)
+                         [:, :s, :, :d]).to(bf)
+        err, ok = LB.max_err(g_, w)
+        print(f"{name}: hi + lo {err:.3e} ({LB.elem_reading(g_, w)}); one "
+              f"bf16 {LB.max_err(one, w)[0]:.3e} ({LB.elem_reading(one, w)})")
+        assert ok, f"{name}: {err:.3e}, {LB.elem_reading(g_, w)}"

@@ -4,7 +4,10 @@ against the JAX reference's Pallas kernel in interpret mode
 197 (ViT's padding) and 256, causal and not, a ``kv_len`` below S, and
 grouped K/V heads; the output and the gradients of q, k and v, in float32
 and bfloat16. Then the S_pad > 1024 refusal and ``multi_head_attention``'s
-``auto`` routing around it.
+``auto`` routing around it. Last, the bf16 backward's tensor-core
+arithmetic (``tests/torch_attention_model.py``: p and ds rounded to one
+bf16, f32 sums) against the reference's VJP under ``lm_kernels_bench``'s
+element-wise bar, GQA and MQA included.
 
 Tolerance: the repo's kernel-parity rule (``kernel_parity``): 2e-5
 absolute and relative in float32; in bfloat16 2% of the reference's
@@ -24,8 +27,11 @@ import pytest
 import torch
 
 from tpudist.ops.attention import multi_head_attention as jax_mha
+from tpudist.ops.vmem_attention import _vmem_fwd_raw, _vmem_vjp_bwd
 from tpudist.ops.vmem_attention import vmem_attention as jax_vmem
+from torch_attention_model import mma_bwd_model, one_bf16
 from tpudist_torch.ops import flash_attention as FA
+from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.ops import vmem_attention as VA
 from tpudist_torch.ops.attention import dot_product_attention, multi_head_attention
 from tpudist_torch.ops.vmem_attention import vmem_attention
@@ -235,3 +241,43 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
         VA.vmem_fwd_cuda(q, q, q, causal=True, kv_len=64, scale=0.125)
     vmem_attention(q.requires_grad_(), q, q, causal=True).sum().backward()
     assert set(VA.launch_counts.values()) == {0}
+
+
+# -- the bf16 backward on the tensor cores ---------------------------------------
+# The CUDA backward rounds p and ds to bf16 before their products, as the
+# Pallas backward does, so they are single bf16 mma's with f32 sums
+# (tests/torch_attention_model.py). Its arithmetic, modelled on the CPU,
+# against the reference's VJP (_vmem_vjp_bwd in interpret mode from
+# _vmem_fwd_raw's residuals), under lm_kernels_bench's element-wise bar:
+# 2 bf16 ulps plus 2^-14 of the largest magnitude, beside the 2% rule.
+
+
+@pytest.mark.parametrize("s,causal,kv_len,d,h_kv", [
+    (256, True, None, 64, 2), (256, False, 200, 32, 4),
+    (384, True, 300, 32, 1), (384, False, 250, 64, 4),
+], ids=["S256-causal-D64-gqa", "S256-full-kv200-D32",
+        "S384-causal-kv300-D32-mqa", "S384-full-kv250-D64"])
+def test_mma_backward_model_matches_the_reference_vjp(s, causal, kv_len, d,
+                                                      h_kv):
+    rng = np.random.Generator(np.random.PCG64(s + d + h_kv))
+    q, do = (rng.standard_normal((1, s, 4, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, s, h_kv, d)).astype(np.float32)
+            for _ in range(2))
+    sm_scale = 1.0 / float(np.sqrt(d))
+    heads_first = lambda a: jnp.asarray(a, jnp.bfloat16).transpose(0, 2, 1, 3)
+    jq, jk, jv, jdo = (heads_first(a) for a in (q, k, v, do))
+    o, lse = _vmem_fwd_raw(jq, jk, jv, causal=causal, sm_scale=sm_scale,
+                           kv_len=kv_len)
+    want = _vmem_vjp_bwd(causal, sm_scale, kv_len, (jq, jk, jv, o, lse), jdo)
+    bf = torch.bfloat16
+    tq, tk, tv, tdo = (torch.tensor(a).to(bf) for a in (q, k, v, do))
+    to = torch.tensor(np.asarray(o, np.float32).transpose(0, 2, 1, 3)).to(bf)
+    got = mma_bwd_model(tq, tk, tv, to, tdo,
+                        torch.tensor(np.asarray(lse, np.float32)[..., 0]),
+                        causal=causal, kv_len=kv_len or s,
+                        scale=VA._scale(d), parts=one_bf16)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = torch.tensor(np.asarray(w, np.float32).transpose(0, 2, 1, 3)).to(bf)
+        err, ok = LB.max_err(g, w)
+        assert ok, f"{name}: {err:.3e}, {LB.elem_reading(g, w)}"

@@ -1,6 +1,15 @@
-// SIMT attention tiles shared by vmem_attention.cu and flash_attention.cu:
-// the f32 tile helpers, the launch parameters, and the backward kernels,
-// which both Pallas backwards share up to one rounding.
+// Attention tiles shared by vmem_attention.cu and flash_attention.cu: the
+// launch parameters, the SIMT f32 tile helpers the forwards run on, and
+// the backward, which both Pallas backwards share up to one rounding.
+//
+// The backward is three launches: the delta pre-pass here, then dk/dv and
+// dq. For bf16 inputs those two are the tensor-core kernels of
+// attention_mma.cuh (mma.sync bf16 tiles, f32 sums; its note says what
+// bounds them). For f32 inputs they are the SIMT kernels below, and that
+// is deliberate, not a fallback: f32 products need f32 arithmetic (the
+// tensor cores' f32 path is TF32), and the f32 trainings of chip_smoke.py
+// phases 15 and 19 hold these kernels to 1e-5 and 1e-6. The SIMT kernels
+// run every product as f32 FMAs on the CUDA cores (67 TFLOP/s peak).
 //
 // The backward (delta pre-pass, dk/dv per key tile, dq per query tile)
 // recomputes p = exp(s - lse) from the saved row log-sum-exp; dv = p^T do,
@@ -9,7 +18,8 @@
 // cast once at the end. With kRound (the vmem kernels) p and ds are
 // rounded to the inputs' dtype before their products, as the Pallas vmem
 // backward rounds them; without it (the flash kernels) every product runs
-// on f32 values, as the Pallas flash backward computes them.
+// on f32 values, as the Pallas flash backward computes them. In f32 the
+// two are one function, so the SIMT kernels take no kRound.
 //
 // Each block owns a 64-row tile and loops over 64-row tiles of the other
 // side, skipping those above the diagonal under causal and those past
@@ -31,6 +41,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -101,6 +113,7 @@ struct Params {
   int k_end;   // min(sk, kv_len): keys at or past it are masked
   int causal;
   float scale;
+  int vec;     // the bf16 backward's 16-byte-copy mask (attention_mma.cuh)
 };
 
 // rows x HD elements starting at `row0` of a [*, S, *, D] tensor, into
@@ -184,12 +197,6 @@ __device__ __forceinline__ bool visible(const Params& p, int qr, int kc) {
   return kc < p.k_end && (!p.causal || kc <= qr);
 }
 
-// p or ds as the product that follows reads it
-template <typename T, bool kRound>
-__device__ __forceinline__ float operand(float x) {
-  return kRound ? round_to<T>(x) : x;
-}
-
 // delta[b, h, r] = sum_d do * o in f32: one warp per row
 template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_delta_kernel(Params p) {
@@ -209,10 +216,11 @@ __global__ void __launch_bounds__(kThreads) attn_delta_kernel(Params p) {
   if (lane == 0) p.delta_out[row] = s;
 }
 
-// dk, dv for one (batch, kv head, key tile): keys are the tile's rows
+// f32 dk, dv for one (batch, kv head, key tile): keys are the tile's rows
 // (thread rows ty + 16 i), queries its columns (tx * 4 + j).
-template <typename T, int HD, bool kRound>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
+  using T = float;
   static_assert(HD >= kTile, "p^T and ds^T take the place of Qt and Ot");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -279,8 +287,8 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
               pe = expf(__fmul_rn(s[i][j], p.scale) - lse_s[tx * 4 + j]);
               ds = pe * (dp[i][j] - delta_s[tx * 4 + j]) * p.scale;
             }
-            pp[j] = operand<T, kRound>(pe);
-            sp[j] = operand<T, kRound>(ds);
+            pp[j] = pe;
+            sp[j] = ds;
           }
           *reinterpret_cast<float4*>(PT + (ty + 16 * i) * kTS + tx * 4) = pv;
           *reinterpret_cast<float4*>(ST + (ty + 16 * i) * kTS + tx * 4) = sv;
@@ -301,15 +309,16 @@ __global__ void __launch_bounds__(kThreads) attn_dkdv_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       if (tx * DPT + j >= p.d) continue;
-      dk_out[off + j] = from_f<T>(dk[i][j]);
-      dv_out[off + j] = from_f<T>(dv[i][j]);
+      dk_out[off + j] = dk[i][j];
+      dv_out[off + j] = dv[i][j];
     }
   }
 }
 
-// dq for one (batch, head, query tile), looping over the key tiles.
-template <typename T, int HD, bool kRound>
+// f32 dq for one (batch, head, query tile), looping over the key tiles.
+template <int HD>
 __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
+  using T = float;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int RS = HD + kPad;
@@ -367,7 +376,7 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
           const float pe = expf(__fmul_rn(s[i][j], p.scale) - lse[i]);
           ds = pe * (dp[i][j] - delta[i]) * p.scale;
         }
-        sp[j] = operand<T, kRound>(ds);
+        sp[j] = ds;
       }
       *reinterpret_cast<float4*>(Ss + (ty + 16 * i) * kTS + tx * 4) = sv;
     }
@@ -382,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(Params p) {
     T* drow = dq_out + (((long long)b * p.sq + row) * p.h + h) * p.d + tx * DPT;
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
-      if (tx * DPT + j < p.d) drow[j] = from_f<T>(dq[i][j]);
+      if (tx * DPT + j < p.d) drow[j] = dq[i][j];
   }
 }
 
@@ -396,28 +405,48 @@ constexpr int dq_smem() {
 }
 
 template <typename K>
-int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t s) {
+int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t s,
+           int threads = kThreads) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<grid, kThreads, smem, s>>>(p);
+  kern<<<grid, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The backward's three launches: delta, then dk / dv, then dq.
+}  // namespace
+
+#include "attention_mma.cuh"
+
+namespace {
+
+// The backward's three launches: delta, then dk / dv, then dq. bf16 takes
+// the tensor-core kernels of attention_mma.cuh, f32 the SIMT ones above.
 template <typename T, int HD, bool kRound>
 int attn_bwd(const Params& p, cudaStream_t s) {
   const long long rows = (long long)p.b * p.h * p.sq;
   const dim3 dgrid((unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)));
   int rc = launch(attn_delta_kernel<T>, dgrid, 0, p, s);
   if (rc != 0) return rc;
-  const dim3 kgrid((p.sk + kTile - 1) / kTile, p.h_kv, p.b);
-  rc = launch(attn_dkdv_kernel<T, HD, kRound>, kgrid, dkdv_smem<HD>(), p, s);
-  if (rc != 0) return rc;
-  const dim3 qgrid((p.sq + kTile - 1) / kTile, p.h, p.b);
-  return launch(attn_dq_kernel<T, HD, kRound>, qgrid, dq_smem<HD>(), p, s);
+  const int n_kt = (p.sk + kTile - 1) / kTile;
+  const int n_qt = (p.sq + kTile - 1) / kTile;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    Params pv = p;
+    pv.vec = vec_mask(p);
+    rc = launch(attn_dkdv_mma_kernel<HD, kRound>, dim3(n_kt * p.h_kv * p.b),
+                dkdv_mma_smem<HD>(), pv, s, kMmaThreads);
+    if (rc != 0) return rc;
+    return launch(attn_dq_mma_kernel<HD, kRound>, dim3(n_qt * p.h * p.b),
+                  dq_mma_smem<HD>(), pv, s, kMmaThreads);
+  } else {
+    rc = launch(attn_dkdv_kernel<HD>, dim3(n_kt, p.h_kv, p.b),
+                dkdv_smem<HD>(), p, s);
+    if (rc != 0) return rc;
+    return launch(attn_dq_kernel<HD>, dim3(n_qt, p.h, p.b), dq_smem<HD>(), p,
+                  s);
+  }
 }
 
 // The shapes every kernel here takes (cudaErrorInvalidValue otherwise).

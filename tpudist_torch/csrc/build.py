@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,8 +36,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: per-source build record: seconds spent and the compiler's log
-#: (``-Xptxas -v`` register / shared-memory report); empty for a reuse
+#: per-source build record: seconds spent (0 for a reuse) and the
+#: compiler's log (``-Xptxas -v`` register / shared-memory report), kept
+#: beside the library as ``<library>.log``
 build_info: dict[str, dict] = {}
 
 
@@ -56,10 +58,11 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     """``source`` names a file here or is a path (an alternate source of
-    the same C interface, for an A/B). The name hashes the headers here
-    too, since a source may include them."""
-    text = b"".join([(CSRC / source).read_bytes(),
-                     *(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))])
+    the same C interface, for an A/B). The name hashes the headers beside
+    the source too, since it may include them."""
+    path = CSRC / source
+    text = b"".join([path.read_bytes(), *(
+        h.read_bytes() for h in sorted(path.parent.glob("*.cuh")))])
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}_{digest[:16]}.so"
 
@@ -69,8 +72,11 @@ def build(source: str) -> Path:
     the library path. The output is written to a temporary name and
     renamed, so concurrent builds never load a half-written file."""
     out = library_path(source)
+    log = out.with_suffix(".log")
     if out.exists():
-        build_info.setdefault(source, {"seconds": 0.0, "log": "", "reused": True})
+        build_info.setdefault(source, {
+            "seconds": 0.0, "reused": True,
+            "log": log.read_text() if log.exists() else ""})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -86,12 +92,11 @@ def build(source: str) -> Path:
             f"nvcc failed on {source} (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    text = (proc.stdout + proc.stderr).strip()
+    log.write_text(text)
     os.replace(tmp, out)
     build_info[source] = {
-        "seconds": time.perf_counter() - t0,
-        "log": (proc.stdout + proc.stderr).strip(),
-        "reused": False,
-    }
+        "seconds": time.perf_counter() - t0, "log": text, "reused": False}
     return out
 
 
@@ -169,6 +174,49 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
         ]
         lib.tpudist_paged_decode_attention.restype = I
+
+
+def _kernel_name(mangled: str) -> str:
+    """``attn_dq_mma_kernel<64, true>`` from nvcc's name of a kernel in an
+    anonymous namespace, ``_ZN<n><namespace><n><name>I<args>E...``;
+    other names are returned as they are."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    rest = mangled[m.end() + int(m.group(1)):] if m else ""
+    m = re.match(r"\d+", rest)
+    if not m:
+        return mangled
+    end = m.end() + int(m.group())
+    name, tail = rest[m.end():end], rest[end:]
+    if not tail.startswith("I") or "Ev" not in tail:
+        return name
+    args = []
+    for bf16, n, flag in re.findall(
+            r"(13__nv_bfloat16)|Li(\d+)E|Lb([01])E|f(?=[fLE])",
+            tail[1:tail.index("Ev")]):
+        args.append("bf16" if bf16 else n if n else
+                    {"0": "false", "1": "true"}.get(flag, "float"))
+    return f"{name}<{', '.join(args)}>"
+
+
+def register_report(source: str) -> list[dict]:
+    """Per kernel of ``source``'s library: registers, spill stores and
+    loads (bytes) and stack frame, from its build's ``-Xptxas -v`` log."""
+    out, cur = [], {}
+    for line in build_info.get(source, {}).get("log", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1))}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = {}
+    return out
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -13,21 +13,28 @@
 //                      product, acc = alpha acc + p v in f32; at the end
 //                      o = acc / l (l == 0 read as 1) and lse = m + log l.
 //   attn_delta_kernel  replace _bwd_dkv_kernel and _bwd_dq_kernel
-//   attn_dkdv_kernel   (_bwd_pallas) and the delta it computes before them,
-//   attn_dq_kernel     instantiated without kRound (attention_tiles.cuh):
-//                      p = exp(s - lse), dv = p^T do, dp = do v^T,
-//                      ds = p (dp - delta) scale, dq = ds k, dk = ds^T q,
-//                      every product on f32 values with no rounding of p
-//                      or ds, as the Pallas flash backward computes them.
+//   dk/dv, dq kernels  (_bwd_pallas) and the delta it computes before them,
+//                      instantiated without kRound: p = exp(s - lse),
+//                      dv = p^T do, dp = do v^T, ds = p (dp - delta) scale,
+//                      dq = ds k, dk = ds^T q, every product on f32 p and
+//                      ds with no rounding, as the Pallas flash backward
+//                      computes them. bf16 inputs run attention_mma.cuh's
+//                      tensor-core kernels, which carry p and ds as hi + lo
+//                      bf16 pairs (two mma's each); f32 inputs the SIMT
+//                      kernels of attention_tiles.cuh.
 //
 // What bounds them on the H100. At the long-context training shape (B 4,
 // H 12, S 4096, D 64, causal, bf16) the forward must do 103.1 GFLOP of
 // matrix products over the causal half (0.104 ms at the bf16 tensor-core
 // peak of 989 TFLOP/s) and move q, k, v and o (100.7 MB, 0.030 ms at
 // 3.35 TB/s): bound by operations. The backward's five products come to
-// 257.7 GFLOP (0.261 ms). These first kernels are SIMT: every product is
-// f32 FMAs on the CUDA cores (67 TFLOP/s peak), so they sit far above
-// those bounds; wgmma and TMA are later speed work.
+// 257.7 GFLOP (0.261 ms). The forward is SIMT: every product is f32 FMAs
+// on the CUDA cores (67 TFLOP/s peak), far above its bound; tensor-core
+// tiles for it are later speed work. The bf16 backward runs on the tensor
+// cores but does 10 products a tile pair against the bound's 5 (the hi +
+// lo pairs and dq's recompute of s and dp), and its warps read every
+// operand through ldmatrix, so shared-memory traffic and the f32 expf
+// beside the mma's set its time (attention_mma.cuh).
 //
 // The rounding decides the forward's tile. The Pallas kernel rounds p to
 // bf16 against the RUNNING max, which it updates once per 128-key tile
@@ -42,8 +49,9 @@
 // key 0 every row sees. K^T and then V share one buffer: at D 64 a block
 // takes 85 KB, two blocks an SM (135 KB at D 128).
 //
-// The backward is all f32, so its tile sizes only change the order of
-// the sums: it runs the 64 x 64 tiles of the shared backward kernels.
+// The backward's products run on f32 p and ds (bf16 as hi + lo pairs on
+// the tensor cores), so its tile sizes only change the order of the sums:
+// it runs the 64 x 64 tiles of the shared backward kernels.
 //
 // C interface for ctypes: every pointer and the stream are void*, the
 // return value is cudaGetLastError() after the launches; the layouts are

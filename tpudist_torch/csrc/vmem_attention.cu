@@ -8,20 +8,25 @@
 //                      dtype before the PV product, f32 accumulation, one
 //                      division by l = sum p, and lse = m + log l.
 //   attn_delta_kernel  replace _bwd_kernel (_vmem_vjp_bwd), instantiated
-//   attn_dkdv_kernel   with kRound (attention_tiles.cuh): p recomputed as
-//   attn_dq_kernel     exp(s - lse); dv = p^T do, dp = do v^T, delta =
-//                      sum(do * o) in f32, ds = p (dp - delta) * scale;
-//                      p and ds cast to v's dtype before their products,
-//                      dq = ds k, dk = ds^T q; grouped K/V heads (GQA) sum
-//                      dk / dv in f32 and cast once at the end.
+//   dk/dv, dq kernels  with kRound: p recomputed as exp(s - lse); dv =
+//                      p^T do, dp = do v^T, delta = sum(do * o) in f32,
+//                      ds = p (dp - delta) * scale; p and ds cast to v's
+//                      dtype before their products, dq = ds k, dk = ds^T q;
+//                      grouped K/V heads (GQA) sum dk / dv in f32 and cast
+//                      once at the end. bf16 inputs run attention_mma.cuh's
+//                      tensor-core kernels (the rounded p and ds are
+//                      exactly single bf16 mma operands); f32 inputs the
+//                      SIMT kernels of attention_tiles.cuh.
 //
 // What bounds them on the H100. At GPT-2's B 8, H 12, S 1024, D 64 in bf16
 // the forward must move q, k, v and o (50 MB, 15 us at 3.35 TB/s) and do
 // about 13 GFLOP of causal matrix products (13 us at the bf16 tensor-core
 // peak of 989 TFLOP/s); the backward moves about 100 MB (30 us) for about
-// 32 GFLOP (33 us). These first kernels are SIMT: every product is f32
-// FMAs on the CUDA cores (67 TFLOP/s peak), so they are bound by
-// operations, far above those bounds; wgmma and TMA are later speed work.
+// 32 GFLOP (33 us). The forward is SIMT: every product is f32 FMAs on the
+// CUDA cores (67 TFLOP/s peak), far above its bound; tensor-core tiles for
+// it are later speed work. The bf16 backward runs on the tensor cores, 7
+// products a tile pair against the bound's 5 (dq recomputes s and dp);
+// ldmatrix traffic and the f32 expf beside the mma's set its time.
 //
 // The TPU kernel holds a whole [S, S] f32 score matrix in VMEM (4 MB at
 // S 1024); a Hopper block has 227 KB. So each block owns a 64-row query
@@ -43,7 +48,8 @@
 //
 // The tile helpers, the backward kernels (here with kRound: p and ds
 // rounded to the inputs' dtype), the layouts and the C entry points'
-// parameters are in attention_tiles.cuh, shared with flash_attention.cu.
+// parameters are in attention_tiles.cuh and attention_mma.cuh, shared
+// with flash_attention.cu.
 //
 // C interface for ctypes: every pointer and the stream are void*, the
 // return value is cudaGetLastError() after the launches.

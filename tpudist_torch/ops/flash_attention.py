@@ -9,7 +9,9 @@ masked with the finite ``finfo(f32).min``, the running max updated once
 per tile, ``p = exp(s - m)`` cast to v's dtype before the value product,
 and the row log-sum-exp saved for the backward. The backward recomputes
 ``p`` from it and runs every product on f32 values, with no rounding of
-``p`` or ``ds``.
+``p`` or ``ds``; in bf16 the kernels run those products on the tensor
+cores with ``p`` and ``ds`` carried as hi + lo bf16 pairs
+(``csrc/attention_mma.cuh``).
 
 :func:`flash_attention` keeps the reference wrapper's contract on the
 models' ``[B, S, H, D]`` layout: keys past ``kv_len`` and past S are

@@ -5,6 +5,8 @@
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab # end to end, in turns
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab --seq_len 4096
     python -m tpudist_torch.ops.lm_kernels_bench --decode_ab # serving copy, in turns
+    python -m tpudist_torch.ops.lm_kernels_bench --ab DIR   # bf16 backward, DIR's vs this
+    python -m tpudist_torch.ops.lm_kernels_bench --order    # vmem bf16 bwd vs sum orders
 
 The kernels are the fused residual-add + LayerNorm forward and backward
 (:mod:`tpudist_torch.ops.layernorm`), the whole-row attention forward
@@ -21,11 +23,15 @@ its largest magnitude. Cases: LayerNorm at GPT-2's 8192 x 768 rows and a
 ragged 1000 x 200, the three compositions, RMS on and off; attention at
 GPT-2's B 8, H 12, S 1024, D 64 causal (q, k, v strided views of one qkv
 tensor, as the model passes them), S 197 non-causal, ``kv_len`` < S, GQA
-with 4 K/V heads, and head dims 32, 80 and 128; flash attention at the
+with 4 K/V heads, and head dims 32, 80, 128 and 20; flash attention at the
 long-context leg's B 4, H 12, S 4096, D 64 causal (strided views again),
 S 2048 non-causal, a ragged S 2100, ``kv_len`` 1900 < S 2048 causal and
 not, GQA H 12 / H_kv 4 repeated as ``multi_head_attention`` repeats it,
-and head dims 128, 80 and 32; float32 and bfloat16 throughout.
+and head dims 128, 80, 32 and 20; float32 and bfloat16 throughout. At
+D 20 the head stride is 20 elements, so the bf16 backward loads its tiles
+element by element instead of by 16-byte copies. Before the parity lines
+each attention source's kernels are listed with their registers and
+spills from the build's ``-Xptxas -v`` report.
 
 Times are at the training path's shapes in bfloat16: the median device
 time of 50 calls between CUDA events, the card held busy while the host
@@ -53,6 +59,28 @@ long-context leg (``bench.py``'s flash-versus-XLA step): ``--attn flash
 ``--fused all``, so only the attention differs; a run that exhausts the
 card's memory is reported as such. Both train on :func:`token_file`'s
 fixed text.
+
+``--ab DIR`` times the bf16 backward (the delta, dk/dv and dq kernels of
+one call) built from another revision's sources against this
+checkout's, in turns (A, B, B, A) on the same inputs, at rows 8 and 4 of
+PERF.md's kernel table: flash at B 4, H 12, S 4096, D 64 causal and vmem
+at B 8, H 12, S 1024, D 64 causal. DIR holds that revision's
+``flash_attention.cu``, ``vmem_attention.cu`` and the headers they
+include, e.g. for the parent commit::
+
+    mkdir -p scratch_chip/parent
+    for f in flash_attention.cu vmem_attention.cu attention_tiles.cuh; do
+      git show HEAD~1:tpudist_torch/csrc/$f > scratch_chip/parent/$f; done
+
+It prints each turn's median device time (as the times above), the ratio
+of the two sides' sums, each side's parity error, and the card's name and
+power limit.
+
+``--order`` shows why the vmem plain backward sums s and dp as the
+kernels do: at every vmem case in bf16 it holds the kernels' dq, dk, dv
+against the plain backward with s and dp summed on the tensor cores, as
+f32 FMAs and in f64 (:data:`ORDER_DOTS`), and the f32 sums against the
+f64 ones, each line with its element-wise reading.
 
 ``--decode_ab`` times the decode step of GPT-2 124M in bf16 (B 8, a
 64-token prompt, ``attn_impl="fused"``) on the float32-master model,
@@ -210,6 +238,8 @@ ATTN_CASES = (
     ("D 128 causal", 4, 512, 8, 8, True, None, True, 128),
     ("D 80 GQA H 8 / H_kv 2 kv_len 300", 2, 384, 8, 2, False, 300, False, 80),
     ("D 32 S 197 causal", 4, 197, 8, 8, True, None, True, 32),
+    ("D 20 GQA H 4 / H_kv 2 kv_len 200 < S 256 causal", 2, 256, 4, 2, True,
+     200, False, 20),
 )
 
 
@@ -247,6 +277,7 @@ FLASH_CASES = (
     ("D 128 causal", 2, 2048, 8, 8, True, None, True, 128),
     ("D 80 S 2100 kv_len 2000 non-causal", 2, 2100, 8, 8, False, 2000, False, 80),
     ("D 32 causal", 2, 2048, 8, 8, True, None, True, 32),
+    ("D 20 ragged S 2100 causal", 1, 2100, 4, 4, True, None, True, 20),
 )
 
 
@@ -273,6 +304,39 @@ def flash_parity(gen):
             for gname, got, want in zip(("dq", "dk", "dv"), kg, pg):
                 yield f"{name} {gname}", got, want
             del kg, pg
+
+
+def backward_build(source: str) -> tuple[list[str], list[str]]:
+    """The backward kernels' lines of ``source``'s ``-Xptxas -v`` report
+    (registers, spill stores and loads, stack) and the names of the bf16
+    HD 64 instantiations among them that spill (there must be none)."""
+    from tpudist_torch.csrc import build
+
+    lines, spilled = [], []
+    for r in build.register_report(source):
+        if not any(n in r["kernel"] for n in ("delta", "dkdv", "dq")):
+            continue
+        lines.append(f"{r['kernel']}: {r['registers']} registers, "
+                     f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
+                     f"stores / loads, {r['stack']} bytes stack")
+        if "_mma_" in r["kernel"] and "<64," in r["kernel"] and (
+                r["spill_stores"] or r["spill_loads"]):
+            spilled.append(r["kernel"])
+    return lines, spilled
+
+
+def repeat_identical(kind: str, gen, b, s) -> bool:
+    """Two calls of ``kind``'s (``"vmem"`` or ``"flash"``) backward on the
+    same bf16 inputs (H 12, D 64, causal, strided views of one qkv tensor)
+    give bit-identical dq, dk and dv."""
+    mod = FA if kind == "flash" else VA
+    bwd = getattr(mod, f"{kind}_bwd_cuda")
+    q, k, v, do = attn_inputs(gen, b, s, H, H, torch.bfloat16, strided=True)
+    kw = dict(causal=True, kv_len=s, scale=VA._scale(D))
+    o, lse = getattr(mod, f"{kind}_fwd_cuda")(q, k, v, **kw)
+    first = bwd(q, k, v, o, do, lse, **kw)
+    second = bwd(q, k, v, o, do, lse, **kw)
+    return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def bound(nbytes: int, flops: float, dtype) -> dict:
@@ -505,6 +569,85 @@ def decode_ab(steps: int = 32) -> list[dict]:
     return out
 
 
+#: --order's summations of s = q k^T and dp = do v^T in the vmem plain
+#: backward: as the kernels sum them, as f32 FMAs (cuBLAS), and in f64
+#: rounded once to f32
+ORDER_DOTS = {
+    "tensor-core": VA._dot,
+    "f32": VA._dot_f32,
+    "f64": lambda a, b: torch.einsum("bqhd,bkhd->bhqk", a.double(),
+                                     b.double()).float(),
+}
+
+
+def order_probe(gen) -> list[str]:
+    """At every vmem parity case in bf16: the kernels' dq, dk, dv against
+    the plain backward with s and dp summed each way of
+    :data:`ORDER_DOTS`, and the f32 sums against the f64 ones, each with
+    its element-wise reading and whether it holds the bar."""
+    lines = []
+    for tag, b, s, h, h_kv, causal, kv_len, strided, d in ATTN_CASES:
+        q, k, v, do = attn_inputs(gen, b, s, h, h_kv, torch.bfloat16,
+                                  strided=strided, d=d)
+        kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d))
+        o, lse = VA.vmem_fwd_cuda(q, k, v, **kw)
+        got = VA.vmem_bwd_cuda(q, k, v, o, do, lse, **kw)
+        plain = {n: VA.vmem_bwd_plain(q, k, v, o, do, lse, dot=f, **kw)
+                 for n, f in ORDER_DOTS.items()}
+        pairs = [("kernels", got, n) for n in ORDER_DOTS]
+        pairs.append(("plain (f32 sums)", plain["f32"], "f64"))
+        for a_name, a, b_name in pairs:
+            parts = [f"{g} {elem_reading(x, y)}"
+                     f"{'' if max_err(x, y)[1] else ' (over the bar)'}"
+                     for g, x, y in zip(("dq", "dk", "dv"), a, plain[b_name])]
+            lines.append(f"vmem {tag}: {a_name} vs plain ({b_name} sums): "
+                         + "; ".join(parts))
+    return lines
+
+
+#: --ab's cases: rows 8 and 4 of PERF.md's kernel table, the backward at
+#: the long-context and GPT-2 training shapes
+AB_CASES = (("flash", FB, FS), ("vmem", B, S))
+
+
+def backward_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
+    """The bf16 backward built from ``src_dir``'s ``flash_attention.cu`` /
+    ``vmem_attention.cu`` (and the headers beside them) as A against this
+    checkout's as B, in turns (A, B, B, A), at :data:`AB_CASES`: the
+    median device time of ``n`` calls per turn and each side's parity
+    error against the plain version."""
+    from tpudist_torch.csrc import build
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = []
+    for kind, b, s in AB_CASES:
+        mod = FA if kind == "flash" else VA
+        fwd = getattr(mod, f"{kind}_fwd_cuda")
+        bwd = getattr(mod, f"{kind}_bwd_cuda")
+        plain = getattr(mod, f"{kind}_bwd_plain")
+        libs = {"A": build.load(str((src_dir / f"{kind}_attention.cu")
+                                    .resolve())), "B": None}
+        q, k, v, do = attn_inputs(gen, b, s, H, H, torch.bfloat16,
+                                  strided=True)
+        kw = dict(causal=True, kv_len=s, scale=VA._scale(D))
+        o, lse = fwd(q, k, v, **kw)
+        want = plain(q, k, v, o, do, lse, **kw)
+        err = {who: max(max_err(g, w)[0] for g, w in zip(
+            bwd(q, k, v, o, do, lse, lib=lib, **kw), want))
+            for who, lib in libs.items()}
+        del want
+        ms = {"A": [], "B": []}
+        for who in "ABBA":
+            ms[who].append(DB.device_ms(
+                lambda: bwd(q, k, v, o, do, lse, lib=libs[who], **kw), flush,
+                n, spin_cycles=SPIN_CYCLES))
+        out.append(dict(name=f"{kind}_attention_bwd",
+                        shape=f"B {b}, H {H}, S {s}, D {D}, causal, bf16",
+                        ms=ms, err=err))
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -522,10 +665,30 @@ def main(argv=None) -> int:
                    help="--train_ab's sequence length (module docstring)")
     p.add_argument("--decode_ab", action="store_true",
                    help="only the decode step on masters vs the copy")
+    p.add_argument("--order", action="store_true",
+                   help="only the vmem bf16 backward against its plain "
+                   "version with s and dp summed three ways")
+    p.add_argument("--ab", type=Path, default=None, metavar="DIR",
+                   help="only the bf16 backward built from DIR's sources "
+                   "against this checkout's, in turns")
     args = p.parse_args(argv)
     from tpudist_torch.csrc import build
 
     print(card())
+    if args.order:
+        for line in order_probe(torch.Generator(device="cuda").manual_seed(0)):
+            print(line)
+        return 0
+    if args.ab:
+        for r in backward_ab(args.ab):
+            a, b = (r["ms"][w] for w in "AB")
+            print(f"{r['name']} [{r['shape']}]: {args.ab} (A) "
+                  f"{a[0]:.4f} / {a[1]:.4f} ms, this checkout (B) "
+                  f"{b[0]:.4f} / {b[1]:.4f} ms (medians of {DB.N_TIMED} "
+                  f"calls, turns A B B A); A / B {sum(a) / sum(b):.2f}x; "
+                  f"max_abs_err A {r['err']['A']:.3e}, B {r['err']['B']:.3e}"
+                  f"  [{card()}]")
+        return 0
     if args.decode_ab:
         for r in decode_ab():
             print(f"{r['weights']}: {r['step_ms']:.4f} ms per decode step, "
@@ -546,9 +709,10 @@ def main(argv=None) -> int:
     for src in ("layernorm.cu", "vmem_attention.cu", "flash_attention.cu"):
         info = build.build_info[src]
         print(f"{src}: nvcc {info['seconds']:.2f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print("  " + line.strip())
+        for r in build.register_report(src):
+            print(f"  {r['kernel']}: {r['registers']} registers, "
+                  f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
+                  f"stores / loads")
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = []
     for parity in (ln_parity, attn_parity, flash_parity):

@@ -6,7 +6,9 @@ Counterpart of :mod:`tpudist.ops.vmem_attention`. The kernels
 reached through ``_vmem_vjp_bwd``: f32 scores ``q.k * scale`` with the
 causal and ``kv_len`` masks, the exact row max, ``p = exp(s - m)`` cast to
 v's dtype before the value product, one division by ``l``, and the row
-log-sum-exp saved for the backward, which recomputes ``p`` from it. The
+log-sum-exp saved for the backward, which recomputes ``p`` from it and
+rounds ``p`` and ``ds`` to v's dtype before their products (in bf16 the
+kernels run those on the tensor cores, ``csrc/attention_mma.cuh``). The
 TPU kernel holds a head's whole ``[S, S]`` score matrix in VMEM; the CUDA
 kernels tile it (the source's note says how), but compute the same
 function with the same roundings.
@@ -58,10 +60,31 @@ def _scale(d: int) -> float:
     return float(np.float32(1.0 / float(np.sqrt(d))))
 
 
-def _scores(q, k, *, causal: bool, kv_len: int, scale: float):
+def _dot_f32(a, b):
+    """``[B, H, Sa, Sb]`` products of ``a [B, Sa, H, D]`` and ``b [B, Sb, H,
+    D]`` over D, as f32 values."""
+    return torch.einsum("bqhd,bkhd->bhqk", a.float(), b.float())
+
+
+def _dot(a, b):
+    """:func:`_dot_f32`'s products, but bf16 operands on the card multiply
+    on the tensor cores with f32 accumulation, as the Pallas kernel's
+    ``dot_general(..., preferred_element_type=f32)`` and the bf16 backward
+    kernel do."""
+    if not (a.is_cuda and a.dtype == torch.bfloat16):
+        return _dot_f32(a, b)
+    bsz, s_a, h, d = a.shape
+    at, bt = (t.transpose(1, 2).reshape(bsz * h, -1, d) for t in (a, b))
+    out = torch.bmm(at, bt.transpose(1, 2), out_dtype=torch.float32)
+    return out.reshape(bsz, h, s_a, -1)
+
+
+def _scores(q, k, *, causal: bool, kv_len: int, scale: float,
+            dot=_dot_f32):
     """f32 scores ``[B, H, Sq, Sk]`` of ``q [B, Sq, H, D]`` against the
-    head-broadcast ``k [B, Sk, H, D]``, masked with ``finfo(f32).min``."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    head-broadcast ``k [B, Sk, H, D]`` (products by ``dot``), masked with
+    ``finfo(f32).min``."""
+    s = dot(q, k) * scale
     s_q, s_k = s.shape[-2:]
     kp = torch.arange(s_k, device=q.device)
     keep = (kp < kv_len)[None, :].expand(s_q, s_k)
@@ -91,16 +114,23 @@ def vmem_fwd_plain(q, k, v, *, causal: bool, kv_len: int, scale: float):
 
 
 def vmem_bwd_plain(q, k, v, o, do, lse, *, causal: bool, kv_len: int,
-                   scale: float):
+                   scale: float, dot=_dot):
     """The backward kernels' function in plain PyTorch: ``(dq, dk, dv)``
     in the input dtypes; grouped K/V heads sum their dk/dv in f32 before
-    the cast."""
+    the cast.
+
+    p and ds are rounded to bf16 before their products, so the function
+    is discontinuous in ``s = q k^T`` and ``dp = do v^T``: summing those
+    in another order flips some roundings and moves single outputs by up
+    to ~5e-4 of the largest (``lm_kernels_bench --order``, which passes
+    other ``dot`` summations). So they are summed as the kernels sum them
+    (:func:`_dot`: on the tensor cores for bf16 on the card)."""
     kk, vv = _broadcast_kv(q, k, v)
-    s = _scores(q, kk, causal=causal, kv_len=kv_len, scale=scale)
+    s = _scores(q, kk, causal=causal, kv_len=kv_len, scale=scale, dot=dot)
     p = torch.exp(s - lse[..., None])
     dob = do.to(v.dtype).float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dob)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dob, vv.float())
+    dp = dot(do.to(v.dtype), vv)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
     ds = (p * (dp - delta) * scale).to(v.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kk.float()).to(q.dtype)
@@ -167,11 +197,13 @@ def launch_fwd(kind: str, counts: dict, q, k, v, *, causal: bool,
 
 
 def launch_bwd(kind: str, counts: dict, q, k, v, o, do, lse, *,
-               causal: bool, kv_len: int, scale: float):
+               causal: bool, kv_len: int, scale: float, lib=None):
     """Launch ``kind``'s backward kernels on the current stream (the
     ``delta`` pre-pass, dk/dv, dq), counted once in ``counts``.
     ``o``/``do`` ``[B, Sq, H, D]`` with a contiguous last dim; ``lse``
-    contiguous f32 ``[B, H, Sq]``. Returns ``(dq, dk, dv)``."""
+    contiguous f32 ``[B, H, Sq]``. ``lib`` is another build of the same C
+    interface (an A/B), by default this checkout's. Returns ``(dq, dk,
+    dv)``."""
     from tpudist_torch.csrc import build
 
     what = f"{kind}_attention_bwd"
@@ -190,7 +222,7 @@ def launch_bwd(kind: str, counts: dict, q, k, v, o, do, lse, *,
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s_k, h_kv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lib = build.load(f"{kind}_attention.cu")
+    lib = lib or build.load(f"{kind}_attention.cu")
     rc = getattr(lib, f"tpudist_{kind}_bwd")(
         _CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
