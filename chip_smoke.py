@@ -60,10 +60,12 @@ Phases, each fatal on failure:
     causal and not, GQA with H_kv 4, head dims 128, 80 and 32; f32 and
     bf16; o, lse, dq, dk, dv under the bars of phase 11, and a D 20 GQA
     case whose head stride of 20 elements sends the bf16 backward's tiles
-    through element-wise loads; the backward kernels' registers and
-    spills from the build report (a spill in a bf16 HD 64 instantiation
-    fails); two bf16 backward calls on the main path's inputs must give
-    bit-identical dq, dk, dv; then multi_head_attention(impl="auto") at
+    through element-wise loads (in bf16 the forward and backward are the
+    tensor-core kernels); the forward and backward kernels' registers and
+    spills from the build report (a spill in a bf16 HD 64 tensor-core
+    instantiation fails); two bf16 forward calls on the main path's inputs
+    must give bit-identical o and lse, and two backward calls bit-identical
+    dq, dk, dv; then multi_head_attention(impl="auto") at
     S 256 launches the kernel once at D 32, 64 and 128 and raises
     ValueError at D 200 (never dense);
 13. times — the four kernels at the training path's shapes in bf16
@@ -96,7 +98,7 @@ Phases, each fatal on failure:
     not, GQA H 12 / H_kv 4 repeated as multi_head_attention repeats it,
     head dims 128, 80, 32 and 20 (strided, head stride 20: element-wise
     loads); f32 and bf16; o, lse, dq, dk, dv under the bars of phase 11;
-    the backward's registers and spills and the repeat check, as in phase
+    the kernels' registers and spills and the repeat checks, as in phase
     12; then multi_head_attention(impl="auto") at S 2048
     launches the flash kernel once and the vmem kernel never at D 32, 64
     and 128 and with grouped K/V heads, and raises ValueError at D 200
@@ -120,7 +122,16 @@ Phases, each fatal on failure:
     the same batches, held to LONG_LOSS_BAR / LONG_PARAM_BAR (set from the
     readings) with the qkv key slice held to its step bound as in phase
     15; the gaps are printed;
-20. a ``{"kernels": [...]}`` line with all nine kernels; then the last
+20. the tied LM head in bf16 at the S 1024 path's shape (x [8192, 768],
+    wte [50257, 768]): the logits and the gradients of x and wte through
+    ``tied_head`` (the f32 cotangent carried as hi + lo on the tensor
+    cores) against the upcast plain version (f32 operands, the CPU path's
+    function), from the cotangent of the mean cross-entropy on random
+    targets; the logits under the f32 parity rule, the gradients under
+    phase 11's element bar, each with the share of bf16 elements that
+    differ; the old backward (g rounded to one bf16) printed beside them
+    as a reading;
+21. a ``{"kernels": [...]}`` line with all nine kernels; then the last
     line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -379,8 +390,9 @@ def main() -> int:
     kernels.append(train_phases(smi, dev))
     kernels.extend(lm_phases(smi, dev))
     kernels.extend(long_context_phases(smi, dev))
+    tied_head_phase(dev)
 
-    # -- 20. result ---------------------------------------------------------------
+    # -- 21. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
                 "fused_decode_attention": static_launches["fused_decode_attention"]}
     for kr in kernels:
@@ -589,7 +601,7 @@ def lm_phases(smi: str, dev) -> list[dict]:
     if FAILURES:
         fail(f"fused LayerNorm parity: {FAILURES}")
     print("== 12. vmem attention parity: o, lse, dq, dk, dv")
-    backward_build("vmem_attention.cu")
+    attention_build("vmem_attention.cu")
     for name, got, want in LB.attn_parity(gen):
         check(name, got, want, elem=True)
     if FAILURES:
@@ -680,7 +692,7 @@ def long_context_phases(smi: str, dev) -> list[dict]:
 
     # -- 16. parity -----------------------------------------------------------------
     print("== 16. flash attention parity: o, lse, dq, dk, dv")
-    backward_build("flash_attention.cu")
+    attention_build("flash_attention.cu")
     for name, got, want in LB.flash_parity(gen):
         check(name, got, want, elem=True)
     if FAILURES:
@@ -757,31 +769,76 @@ def long_context_phases(smi: str, dev) -> list[dict]:
     return entries
 
 
-def backward_build(source: str) -> None:
-    """Print the backward kernels' registers and spills from ``source``'s
-    build report; fail if a bf16 HD 64 instantiation spills."""
+def attention_build(source: str) -> None:
+    """Print the attention kernels' registers and spills, forwards and
+    backward, from ``source``'s build report; fail if a bf16 HD 64
+    tensor-core instantiation spills."""
     from tpudist_torch.ops import lm_kernels_bench as LB
 
-    lines, spilled = LB.backward_build(source)
-    print(f"  {source} backward kernels (-Xptxas -v):")
+    lines, spilled = LB.attention_build(source)
+    print(f"  {source} forward and backward kernels (-Xptxas -v):")
     for line in lines:
         print("    " + line)
-    if not lines:
-        fail(f"no build report for {source}")
+    if not any("fwd_mma" in ln for ln in lines):
+        fail(f"no tensor-core forward in the build report of {source}")
     if spilled:
-        fail(f"bf16 HD 64 backward kernels spill: {spilled}")
+        fail(f"bf16 HD 64 tensor-core kernels spill: {spilled}")
 
 
 def repeatable(kind: str, gen, b: int, s: int) -> None:
-    """Fail unless two bf16 calls of ``kind``'s backward on the same
-    inputs give bit-identical dq, dk and dv (no atomics)."""
+    """Fail unless two bf16 calls of ``kind``'s forward give bit-identical
+    o and lse, and two of its backward bit-identical dq, dk and dv, on the
+    same inputs (no atomics)."""
     from tpudist_torch.ops import lm_kernels_bench as LB
 
     same = LB.repeat_identical(kind, gen, b, s)
-    print(f"  two bf16 backward calls at B {b}, S {s}: dq, dk, dv "
-          f"bit-identical: {same}")
-    if not same:
-        fail("the bf16 backward is not deterministic")
+    print(f"  two bf16 forward calls at B {b}, S {s}: o, lse bit-identical: "
+          f"{same['forward']}; two backward calls: dq, dk, dv "
+          f"bit-identical: {same['backward']}")
+    if not all(same.values()):
+        fail(f"the bf16 {kind} kernels are not deterministic: {same}")
+
+
+def tied_head_phase(dev) -> None:
+    """Phase 20: the bf16 tied head's logits and gradients on the card
+    against the upcast plain version (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudist_torch.models.gpt2 import tied_head
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    print("== 20. tied LM head, bf16, x [8192, 768] x wte [50257, 768]: "
+          "logits, dx, dwte")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rows = LB.ROWS
+    x = LB._rand(gen, (rows, LB.WIDTH), torch.bfloat16)
+    wte = LB._rand(gen, (VOCAB, LB.WIDTH), torch.bfloat16, 0.02)
+    targets = torch.randint(0, VOCAB, (rows,), generator=gen, device=dev)
+    xk, wk = (t.clone().requires_grad_() for t in (x, wte))
+    logits = tied_head(xk, wk)
+    # the mean cross-entropy's cotangent of the logits, as training feeds it
+    g = F.softmax(logits.detach(), -1)
+    g[torch.arange(rows, device=dev), targets] -= 1.0
+    g /= rows
+    got = torch.autograd.grad(logits, (xk, wk), g)
+    xp, wp = (t.clone().requires_grad_() for t in (x, wte))
+    plain = xp.float() @ wp.float().t()
+    check("logits (f32)", logits.detach(), plain.detach())
+    want = torch.autograd.grad(plain, (xp, wp), g)
+    del plain, logits
+    gb = g.to(torch.bfloat16)
+    old = (torch.mm(gb, wte, out_dtype=torch.float32).to(torch.bfloat16),
+           torch.mm(gb.t(), x, out_dtype=torch.float32).to(torch.bfloat16))
+    for name, a, o, w in zip(("dx", "dwte"), got, old, want):
+        share = lambda t: float((t != w).float().mean())
+        check(f"{name} (g as hi + lo), {share(a):.4%} of elements differ",
+              a, w, elem=True)
+        print(f"    the old backward (g as one bf16): {share(o):.4%} of "
+              f"elements differ, {LB.elem_reading(o, w)}, element bar "
+              f"{'held' if LB.max_err(o, w)[1] else 'missed'}")
+    if FAILURES:
+        fail(f"tied head: {FAILURES}")
 
 
 def counted_modules():
@@ -943,7 +1000,7 @@ def trace_breakdown(path: Path) -> dict:
     """Per-step device work in a ``torch.profiler`` Chrome trace: kernels,
     the card's busy time (the union of kernel, memcpy and memset
     intervals), the window's wall time (its ``ProfilerStep#`` spans) and
-    the five kernels that take the most time."""
+    the eight kernels that take the most time."""
     import collections
 
     events = json.loads(path.read_text())["traceEvents"]
@@ -962,7 +1019,7 @@ def trace_breakdown(path: Path) -> dict:
         if e.get("cat") == "kernel":
             by_name[e["name"][:70]][0] += e["dur"]
             by_name[e["name"][:70]][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(
         steps=len(steps),
         kernels_per_step=sum(c for _, c in by_name.values()) / n,

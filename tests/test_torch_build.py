@@ -76,3 +76,37 @@ def test_a_reused_build_keeps_its_report(tmp_path, monkeypatch):
     assert build.build(str(src)) == out
     assert build.build_info[str(src)]["reused"]
     assert len(build.register_report(str(src))) == 3
+
+
+def _entry(name, args, spill, regs):
+    """One kernel's lines of a ptxas log, its name mangled as nvcc 12
+    mangles a kernel in an anonymous namespace."""
+    ns = "_GLOBAL__N__96ee40d6_18_flash_attention_cu_8d14b098"
+    mangled = f"_ZN{len(ns)}{ns}{len(name)}{name}I{args}EEvNS_6ParamsE"
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\n    0 bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads\nptxas info    : Used {regs} "
+            f"registers, used 1 barriers, 400 bytes cmem[0]\n")
+
+
+def test_attention_build_reports_forwards_and_flags_hd64_spills(monkeypatch):
+    """The attention build report (chip_smoke phases 12 and 16) lists the
+    forward kernels beside the backward ones, and flags a spill only in a
+    bf16 HD 64 tensor-core instantiation, forward or backward."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    log = "".join((
+        _entry("flash_fwd_mma_kernel", "Li64E", 8, 255),
+        _entry("flash_fwd_mma_kernel", "Li128E", 16, 255),
+        _entry("attn_dkdv_mma_kernel", "Li64ELb0E", 0, 168),
+        _entry("attn_dq_mma_kernel", "Li64ELb0E", 4, 255),
+        _entry("flash_fwd_kernel", "fLi64E", 12, 131),
+    ))
+    monkeypatch.setitem(build.build_info, "f.cu", {"log": log})
+    lines, spilled = LB.attention_build("f.cu")
+    assert [ln.split(":")[0] for ln in lines] == [
+        "flash_fwd_mma_kernel<64>", "flash_fwd_mma_kernel<128>",
+        "attn_dkdv_mma_kernel<64, false>", "attn_dq_mma_kernel<64, false>",
+        "flash_fwd_kernel<float, 64>"]
+    assert spilled == ["flash_fwd_mma_kernel<64>",
+                       "attn_dq_mma_kernel<64, false>"]

@@ -10,7 +10,10 @@ routing: ``impl="flash"``, ``auto`` from S 2048, a general mask and causal
 ``s_q != s_k`` to the dense path with a warning, and no other error
 routed around. Then (e) the bf16 backward's tensor-core arithmetic, p and
 ds carried as hi + lo bf16 pairs (``tests/torch_attention_model.py``),
-against ``_bwd_pallas`` under ``lm_kernels_bench``'s element-wise bar.
+against ``_bwd_pallas``, and (f) the bf16 forward's, p rounded to one bf16
+against the running max of each 128-key tile, against ``_flash_fwd``,
+both under ``lm_kernels_bench``'s element-wise bar; a 64-key running max
+misses the forward's function.
 
 Tolerance: the repo's kernel-parity rule (``kernel_parity``): 2e-5
 absolute and relative in float32; in bfloat16 2% of the reference's
@@ -32,7 +35,8 @@ import torch
 from tpudist.ops.attention import multi_head_attention as jax_mha
 from tpudist.ops.flash_attention import _bwd_pallas, _flash_fwd
 from tpudist.ops.flash_attention import flash_attention as jax_flash
-from torch_attention_model import mma_bwd_model, one_bf16, split_bf16
+from torch_attention_model import (f32_dot, mma_bwd_model, mma_fwd_model,
+                                   one_bf16, split_bf16, xla_dot)
 from tpudist_torch.ops import flash_attention as FA
 from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.ops import vmem_attention as VA
@@ -347,3 +351,61 @@ def test_mma_backward_model_matches_the_pallas_kernels(s, causal, kv_len, d):
         print(f"{name}: hi + lo {err:.3e} ({LB.elem_reading(g_, w)}); one "
               f"bf16 {LB.max_err(one, w)[0]:.3e} ({LB.elem_reading(one, w)})")
         assert ok, f"{name}: {err:.3e}, {LB.elem_reading(g_, w)}"
+
+
+# -- the bf16 forward on the tensor cores ----------------------------------------
+# The CUDA forward walks the Pallas kernel's 128-key tiles from key 0, takes
+# the row max over all 128 keys before any exp, rounds p = exp(s - m_new) to
+# one bf16 for p v, and sums l over the f32 p (tests/torch_attention_model.py).
+# Its arithmetic, modelled on the CPU with the score sums in XLA's order (so
+# that only the rounding of p is under test), against _flash_fwd in interpret
+# mode, under the element-wise bar; the model with torch's own order of the
+# sums is printed as a reading. A running max taken every 64 keys rounds p
+# against other maxima: that misses the kernel's function, and the last test
+# pins the 128-key unit by showing it.
+
+FWD_CASES = [(256, True, None, 64), (300, False, 250, 20),
+             (384, True, 300, 64), (200, True, None, 20)]
+FWD_IDS = [f"S{s}-{'causal' if c else 'full'}-kv{kv}-D{d}"
+           for s, c, kv, d in FWD_CASES]
+
+
+def _mma_forward(s, causal, kv_len, d, block_k):
+    """``((o, lse) of the model, (o, lse) of _flash_fwd)`` in bf16 / f32
+    on one seeded input, and the model's ``o`` with torch's order."""
+    q, k, v, _ = _inputs(1, s, 4, d, seed=s + d + 5)
+    _, _, want_o, want_lse = _jax_forward(q, k, v, causal=causal,
+                                          kv_len=kv_len, dtype="bfloat16")
+    bf = torch.bfloat16
+    want = (torch.tensor(np.asarray(want_o, np.float32)).to(bf),
+            torch.tensor(np.asarray(want_lse, np.float32)))
+    tq, tk, tv = (torch.tensor(a).to(bf) for a in (q, k, v))
+    kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d),
+              block_k=block_k)
+    got = mma_fwd_model(tq, tk, tv, dot=xla_dot(-d % 128), **kw)
+    return got, want, mma_fwd_model(tq, tk, tv, dot=f32_dot, **kw)[0]
+
+
+@pytest.mark.parametrize("s,causal,kv_len,d", FWD_CASES, ids=FWD_IDS)
+def test_mma_forward_model_matches_the_pallas_kernel(s, causal, kv_len, d):
+    got, want, own = _mma_forward(s, causal, kv_len, d, block_k=128)
+    print(f"o: {LB.elem_reading(got[0], want[0])}; with torch's order of "
+          f"the score sums {LB.elem_reading(own, want[0])}")
+    for name, g, w in zip(("o", "lse"), got, want):
+        err, ok = LB.max_err(g, w)
+        assert ok, f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("s,causal,kv_len,d", FWD_CASES[:2], ids=FWD_IDS[:2])
+def test_a_64_key_running_max_misses_the_forward(s, causal, kv_len, d):
+    """The same model stepping its running max every 64 keys (the CUDA
+    forward's product tile) rounds p against other maxima: o misses the
+    Pallas kernel's element-wise bar, by far more than any order of the
+    sums moves it."""
+    got, want, _ = _mma_forward(s, causal, kv_len, d, block_k=64)
+    err, ok = LB.max_err(got[0], want[0])
+    differ = float((got[0].float() != want[0].float()).float().mean())
+    print(f"o with a 64-key running max: {err:.3e}, "
+          f"{LB.elem_reading(got[0], want[0])}, {differ:.2%} of elements "
+          f"differ")
+    assert not ok and differ > 0.05

@@ -6,8 +6,10 @@ grouped K/V heads; the output and the gradients of q, k and v, in float32
 and bfloat16. Then the S_pad > 1024 refusal and ``multi_head_attention``'s
 ``auto`` routing around it. Last, the bf16 backward's tensor-core
 arithmetic (``tests/torch_attention_model.py``: p and ds rounded to one
-bf16, f32 sums) against the reference's VJP under ``lm_kernels_bench``'s
-element-wise bar, GQA and MQA included.
+bf16, f32 sums) against the reference's VJP, and the bf16 forward's (p
+rounded to one bf16 against the exact row max, l from the f32 p) against
+``_vmem_fwd_raw``, under ``lm_kernels_bench``'s element-wise bar, GQA and
+MQA included.
 
 Tolerance: the repo's kernel-parity rule (``kernel_parity``): 2e-5
 absolute and relative in float32; in bfloat16 2% of the reference's
@@ -29,7 +31,8 @@ import torch
 from tpudist.ops.attention import multi_head_attention as jax_mha
 from tpudist.ops.vmem_attention import _vmem_fwd_raw, _vmem_vjp_bwd
 from tpudist.ops.vmem_attention import vmem_attention as jax_vmem
-from torch_attention_model import mma_bwd_model, one_bf16
+from torch_attention_model import (f32_dot, mma_bwd_model, mma_fwd_model,
+                                   one_bf16, xla_dot)
 from tpudist_torch.ops import flash_attention as FA
 from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.ops import vmem_attention as VA
@@ -281,3 +284,45 @@ def test_mma_backward_model_matches_the_reference_vjp(s, causal, kv_len, d,
         w = torch.tensor(np.asarray(w, np.float32).transpose(0, 2, 1, 3)).to(bf)
         err, ok = LB.max_err(g, w)
         assert ok, f"{name}: {err:.3e}, {LB.elem_reading(g, w)}"
+
+
+# -- the bf16 forward on the tensor cores ----------------------------------------
+# The CUDA forward sums s = q k^T in f32 from bf16 products, takes the exact
+# row max in a first pass, and rounds p = exp(s - m) to one bf16 for p v while
+# l sums the f32 p (tests/torch_attention_model.py). Its arithmetic, modelled
+# on the CPU with the score sums in XLA's order (so that only the rounding of
+# p is under test), against _vmem_fwd_raw in interpret mode, under the
+# element-wise bar. The same model with torch's own order of the sums is
+# printed as a reading.
+
+
+@pytest.mark.parametrize("s,causal,kv_len,d,h_kv", [
+    (256, True, None, 64, 2), (300, False, 250, 20, 4),
+    (384, True, 300, 64, 1), (200, True, None, 20, 2),
+], ids=["S256-causal-D64-gqa", "S300-full-kv250-D20",
+        "S384-causal-kv300-D64-mqa", "S200-causal-D20-gqa"])
+def test_mma_forward_model_matches_the_pallas_kernel(s, causal, kv_len, d,
+                                                     h_kv):
+    rng = np.random.Generator(np.random.PCG64(s + d + h_kv + 7))
+    q = rng.standard_normal((1, s, 4, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, h_kv, d)).astype(np.float32)
+            for _ in range(2))
+    pad = -s % 128
+    heads_first = lambda a: jnp.pad(jnp.asarray(a, jnp.bfloat16), (
+        (0, 0), (0, pad), (0, 0), (0, 0))).transpose(0, 2, 1, 3)
+    o, lse = _vmem_fwd_raw(*(heads_first(a) for a in (q, k, v)),
+                           causal=causal, sm_scale=1.0 / float(np.sqrt(d)),
+                           kv_len=kv_len or s)
+    bf = torch.bfloat16
+    want_o = torch.tensor(np.asarray(o, np.float32).transpose(0, 2, 1, 3)
+                          [:, :s]).to(bf)
+    want_lse = torch.tensor(np.asarray(lse, np.float32)[:, :, :s, 0])
+    tq, tk, tv = (torch.tensor(a).to(bf) for a in (q, k, v))
+    kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d))
+    got_o, got_lse = mma_fwd_model(tq, tk, tv, dot=xla_dot(), **kw)
+    own = mma_fwd_model(tq, tk, tv, dot=f32_dot, **kw)[0]
+    print(f"o: {LB.elem_reading(got_o, want_o)}; with torch's order of the "
+          f"score sums {LB.elem_reading(own, want_o)}")
+    for name, g, w in (("o", got_o, want_o), ("lse", got_lse, want_lse)):
+        err, ok = LB.max_err(g, w)
+        assert ok, f"{name}: {err:.3e}"

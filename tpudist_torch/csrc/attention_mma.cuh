@@ -1,8 +1,9 @@
-// The bf16 attention backward on Hopper's tensor cores: the dk/dv and dq
+// The bf16 attention kernels on Hopper's tensor cores: the dk/dv and dq
 // kernels that attention_tiles.cuh's attn_bwd runs for bfloat16 inputs,
-// for both vmem (kRound) and flash. Included by attention_tiles.cuh after
-// Params, visible() and the launch helper; f32 inputs keep the SIMT
-// kernels there, since f32 products need f32 arithmetic.
+// for both vmem (kRound) and flash, and the pieces the two bf16 forwards
+// (vmem_attention.cu, flash_attention.cu) are built from. Included by
+// attention_tiles.cuh after Params, visible() and the launch helper; f32
+// inputs keep the SIMT kernels, since f32 products need f32 arithmetic.
 //
 // Products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 fed by
 // ldmatrix (.trans where an operand is stored k-major), f32 accumulators.
@@ -10,27 +11,30 @@
 // accumulator of one product to be the A operand of the next, which
 // mma.sync's fragments give for free and wgmma's 64-row warpgroup tiles
 // give only with a register A whose layout must match; a first tensor-core
-// backward that is right comes before one at the card's full rate.
+// kernel that is right comes before one at the card's full rate.
 //
 // The arithmetic keeps each reference's roundings:
 //   s = q k^T and dp = do v^T are products of the bf16 inputs summed in
-//   f32, exactly what both Pallas backwards compute;
-//   vmem (kRound) rounds p and ds to bf16 before dv = p^T do, dk = ds^T q
-//   and dq = ds k, as the Pallas vmem backward does, so those are single
-//   bf16 mma's;
-//   flash runs those products on f32 p and ds. Each is carried as a pair
-//   hi = bf16(x), lo = bf16(x - hi) (about 2^-17 relative per term) and
-//   multiplied twice into one f32 accumulator. That costs 10 tile products
-//   per causal tile pair where the bound counts 5: dk/dv does s, dp and two
-//   each for dv and dk; dq recomputes s and dp (the price of a split with
-//   no atomics) and does two for dq. vmem does 7.
+//   f32, exactly what the Pallas kernels compute;
+//   both forwards round p to bf16 (p.astype(v.dtype)) before o += p v: the
+//   s accumulators turn straight into the A operand of that product
+//   (a_operands<true>), and l sums the unrounded f32 p;
+//   vmem's backward (kRound) rounds p and ds to bf16 before dv = p^T do,
+//   dk = ds^T q and dq = ds k, as the Pallas vmem backward does, so those
+//   are single bf16 mma's;
+//   flash's backward runs those products on f32 p and ds. Each is carried
+//   as a pair hi = bf16(x), lo = bf16(x - hi) (about 2^-17 relative per
+//   term) and multiplied twice into one f32 accumulator. That costs 10 tile
+//   products per causal tile pair where the bound counts 5: dk/dv does s,
+//   dp and two each for dv and dk; dq recomputes s and dp (the price of a
+//   split with no atomics) and does two for dq. vmem does 7.
 //
-// Layout of the work. 128 threads, four warps, each owning 16 rows of a
-// 64-row tile. dk/dv: one block per (key tile, kv head, batch); keys are
-// the M dimension, so s^T = k q^T and dp^T = v do^T come out with p^T and
-// ds^T in the accumulator layout, which is exactly the A-operand layout of
-// dv += p^T do and dk += ds^T q (FlashAttention-2's trick): no trip
-// through shared memory. The block loops over the query tiles of every
+// Layout of the backward's work. 128 threads, four warps, each owning 16
+// rows of a 64-row tile. dk/dv: one block per (key tile, kv head, batch);
+// keys are the M dimension, so s^T = k q^T and dp^T = v do^T come out with
+// p^T and ds^T in the accumulator layout, which is exactly the A-operand
+// layout of dv += p^T do and dk += ds^T q (FlashAttention-2's trick): no
+// trip through shared memory. The block loops over the query tiles of every
 // query head of its GQA group, summing in f32. dq: one block per (query
 // tile, head, batch) over the key tiles; ds feeds dq += ds k the same way.
 // No atomics: each output tile has one owner, so a call is deterministic.
@@ -46,7 +50,7 @@
 // by element by the same kernel. Rows past S and columns past D read as
 // zero; masked entries (causal, kv_len, query rows past S) get p = ds = 0.
 //
-// What bounds them: at the flash shape (B 4, H 12, S 4096, D 64, causal)
+// What bounds the backward: at the flash shape (B 4, H 12, S 4096, D 64, causal)
 // every tile pair moves its q, do, k, v tiles through ldmatrix once per
 // warp, 4 warps per block, which costs about as many shared-memory cycles
 // as the mma's take on the tensor cores; expf and the masks run on the
@@ -441,6 +445,147 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dq_mma_kernel(Params p) {
       dq_out[(((long long)b * p.sq + row) * p.h + h) * p.d + col] =
           __float2bfloat16(dq[j][e]);
     }
+}
+
+// -- the forwards' pieces ------------------------------------------------------
+// Both forwards give one block (four warps) a 64-row query tile of one
+// (head, batch); each warp owns 16 rows and keeps their q fragments in
+// registers for the whole key loop. An element e of accumulator tile j is
+// row g + 8 (e / 2), column 8 j + 2 t + e % 2 (g = lane / 4, t = lane % 4),
+// so a row's values live in the four lanes of a quad: row statistics take
+// two shuffles.
+
+// the warp's 16 rows of a padded [kTile][RS] tile as mma A fragments, one
+// per 16 columns
+template <int HD>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[HD / 16][4],
+                                             const __nv_bfloat16* A,
+                                             int lane) {
+  constexpr int RS = MmaTile<HD>::kStride;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(a[kk], A + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+}
+
+// acc[j] = A . B^T for the 16 rows whose fragments are `a` against the 64
+// rows of the [row][d] tile `Bt`: rows_dot's products in rows_dot's order,
+// from registers; d-chunks past D are zero and skipped
+template <int HD>
+__device__ __forceinline__ void frags_dot(float (&acc)[8][4],
+                                          const uint32_t (&a)[HD / 16][4],
+                                          const __nv_bfloat16* Bt, int d,
+                                          int lane) {
+  constexpr int RS = MmaTile<HD>::kStride;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if (kk * 16 >= d) break;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, Bt + (np * 16 + lane % 8 + (lane / 16) * 8) * RS + kk * 16 +
+                     ((lane / 8) % 2) * 8);
+      mma_bf16(acc[2 * np], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// the max and the sum of the thread's 16 values of row i (0: row g, 1:
+// row g + 8) in an accumulator tile x[8][4], as trees: a serial chain of
+// 16 would set the step's latency at four warps a block
+__device__ __forceinline__ float row_max(const float (&x)[8][4], int i) {
+  float a[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a[j] = fmaxf(x[j][2 * i], x[j][2 * i + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) a[j] = fmaxf(a[j], a[j + w]);
+  return a[0];
+}
+__device__ __forceinline__ float row_sum(const float (&x)[8][4], int i) {
+  float a[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a[j] = x[j][2 * i] + x[j][2 * i + 1];
+#pragma unroll
+  for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) a[j] += a[j + w];
+  return a[0];
+}
+
+// max and sum over the four lanes of a quad (one row's 64 columns)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// every key of the 64-key tile from k0 is visible from every row of the
+// 64-row query tile from q0 (no per-element mask needed)
+__device__ __forceinline__ bool tile_visible(const Params& p, int q0,
+                                             int k0) {
+  return k0 + kTile <= p.k_end && (!p.causal || k0 + kTile - 1 <= q0);
+}
+
+// The forward's epilogue for the warp's two rows `row[i]`: o = acc / l[i]
+// cast once to bf16 into the contiguous [B, Sq, H, D] output (pairs of
+// columns where D is even), and lse[i] in f32; rows past S and columns
+// past D are not written.
+template <int HD>
+__device__ __forceinline__ void store_fwd_rows(const Params& p,
+                                               const float (&acc)[HD / 8][4],
+                                               const float (&l)[2],
+                                               const float (&lse)[2],
+                                               const int (&row)[2], int h,
+                                               int b, int lane) {
+  const int t = lane % 4;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= p.sq) continue;
+    __nv_bfloat16* orow = out + (((long long)b * p.sq + row[i]) * p.h + h) * p.d;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (col >= p.d) break;
+      const float x0 = acc[j][2 * i] / l[i], x1 = acc[j][2 * i + 1] / l[i];
+      if (col + 1 < p.d && p.d % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        orow[col] = __float2bfloat16(x0);
+        if (col + 1 < p.d) orow[col + 1] = __float2bfloat16(x1);
+      }
+    }
+    if (t == 0) p.lse_out[((long long)b * p.h + h) * p.sq + row[i]] = lse[i];
+  }
+}
+
+// the forwards' 1-D grid: one block per (64-row query tile, head, batch),
+// the tile rank outermost; under causal the longest rows start first
+struct FwdBlock {
+  int q0, h, b, hk;
+  __device__ explicit FwdBlock(const Params& p) {
+    const int heads = p.h * p.b;
+    const int n_qt = (p.sq + kTile - 1) / kTile;
+    const int rank = blockIdx.x / heads;
+    q0 = (p.causal ? n_qt - 1 - rank : rank) * kTile;
+    h = (blockIdx.x % heads) % p.h;
+    b = (blockIdx.x % heads) / p.h;
+    hk = h / (p.h / p.h_kv);
+  }
+};
+
+inline dim3 fwd_grid(const Params& p) {
+  return dim3(((p.sq + kTile - 1) / kTile) * p.h * p.b);
 }
 
 template <int HD>

@@ -2,31 +2,36 @@
 //
 // Replaces the Pallas kernels of tpudist/ops/vmem_attention.py:
 //
-//   vmem_fwd_kernel    replaces _fwd_kernel (_vmem_fwd_raw): per query row,
-//                      f32 scores q.k * scale with the causal and kv_len
-//                      masks, the row max m, p = exp(s - m) cast to v's
-//                      dtype before the PV product, f32 accumulation, one
-//                      division by l = sum p, and lse = m + log l.
-//   attn_delta_kernel  replace _bwd_kernel (_vmem_vjp_bwd), instantiated
-//   dk/dv, dq kernels  with kRound: p recomputed as exp(s - lse); dv =
-//                      p^T do, dp = do v^T, delta = sum(do * o) in f32,
-//                      ds = p (dp - delta) * scale; p and ds cast to v's
-//                      dtype before their products, dq = ds k, dk = ds^T q;
-//                      grouped K/V heads (GQA) sum dk / dv in f32 and cast
-//                      once at the end. bf16 inputs run attention_mma.cuh's
-//                      tensor-core kernels (the rounded p and ds are
-//                      exactly single bf16 mma operands); f32 inputs the
-//                      SIMT kernels of attention_tiles.cuh.
+//   vmem_fwd_mma_kernel  replace _fwd_kernel (_vmem_fwd_raw): per query
+//   vmem_fwd_kernel      row, f32 scores q.k * scale with the causal and
+//                        kv_len masks, the EXACT row max m, p = exp(s - m)
+//                        in f32 cast to v's dtype before the PV product,
+//                        f32 accumulation, one division by l = sum p (the
+//                        unrounded f32 p), and lse = m + log l; GQA reads
+//                        each K/V head in place. bf16 inputs run the
+//                        tensor-core kernel, f32 inputs the SIMT one.
+//   attn_delta_kernel    replace _bwd_kernel (_vmem_vjp_bwd), instantiated
+//   dk/dv, dq kernels    with kRound: p recomputed as exp(s - lse); dv =
+//                        p^T do, dp = do v^T, delta = sum(do * o) in f32,
+//                        ds = p (dp - delta) * scale; p and ds cast to v's
+//                        dtype before their products, dq = ds k, dk = ds^T q;
+//                        grouped K/V heads (GQA) sum dk / dv in f32 and cast
+//                        once at the end. bf16 inputs run attention_mma.cuh's
+//                        tensor-core kernels (the rounded p and ds are
+//                        exactly single bf16 mma operands); f32 inputs the
+//                        SIMT kernels of attention_tiles.cuh.
 //
 // What bounds them on the H100. At GPT-2's B 8, H 12, S 1024, D 64 in bf16
-// the forward must move q, k, v and o (50 MB, 15 us at 3.35 TB/s) and do
-// about 13 GFLOP of causal matrix products (13 us at the bf16 tensor-core
-// peak of 989 TFLOP/s); the backward moves about 100 MB (30 us) for about
-// 32 GFLOP (33 us). The forward is SIMT: every product is f32 FMAs on the
-// CUDA cores (67 TFLOP/s peak), far above its bound; tensor-core tiles for
-// it are later speed work. The bf16 backward runs on the tensor cores, 7
-// products a tile pair against the bound's 5 (dq recomputes s and dp);
-// ldmatrix traffic and the f32 expf beside the mma's set its time.
+// the forward must move q, k, v and o (50 MB, 0.01514 ms at 3.35 TB/s) and
+// do about 13 GFLOP of causal matrix products (13 us at the bf16
+// tensor-core peak of 989 TFLOP/s): bound by bytes. The backward moves
+// about 100 MB (30 us) for about 32 GFLOP (33 us). Both run on the tensor
+// cores in bf16 through mma.sync (attention_mma.cuh), not wgmma / TMA:
+// those are later speed work. The forward does 3 tile products per (query
+// tile, key tile) pair where the bound counts 2: pass 1 does q k^T for the
+// exact max, pass 2 does it again and p v. The backward does 7 against 5
+// (dq recomputes s and dp). ldmatrix traffic and the f32 expf beside the
+// mma's set their time.
 //
 // The TPU kernel holds a whole [S, S] f32 score matrix in VMEM (4 MB at
 // S 1024); a Hopper block has 227 KB. So each block owns a 64-row query
@@ -34,13 +39,23 @@
 // under causal and those past kv_len. The forward makes two passes over
 // the keys: the first finds the exact row max, the second computes
 // p = exp(s - m) against it, rounds p to v's dtype exactly where the
-// Pallas kernel rounds it, and sums l and P.V; this costs one extra q.k
-// product against an online softmax, whose p would be rounded against a
-// running max instead. The backward computes delta in a pre-pass, then dk
-// and dv with one block per (batch, kv head, key tile) looping over the
-// query tiles of every query head of its group, then dq with one block per
-// query tile looping over key tiles: no atomics, deterministic. Nothing is
-// padded: rows past S and keys past S or kv_len are masked in the kernel.
+// Pallas kernel rounds it, and sums l and P.V. The second pass recomputes
+// s with the same instructions as the first, so the two agree bit for bit
+// and p <= 1. An online softmax would save the extra q.k product but round
+// p against a running max: that is flash's function, not vmem's. The
+// backward computes delta in a pre-pass, then dk and dv with one block per
+// (batch, kv head, key tile) looping over the query tiles of every query
+// head of its group, then dq with one block per query tile looping over
+// key tiles: no atomics, deterministic. Nothing is padded: rows past S and
+// keys past S or kv_len are masked in the kernel.
+//
+// The bf16 forward: 128 threads, four warps of 16 query rows, the warp's q
+// fragments in registers; K (and in pass 2 V) tiles in padded shared
+// memory, double-buffered by cp.async across both passes; s = q k^T
+// through ldmatrix, p v through ldmatrix.trans with p taken straight from
+// the s accumulators; row max and sum over the quad of lanes that holds a
+// row. Strides, D or a base that are not multiples of 8 elements load
+// element by element in the same kernel.
 //
 // Head dims up to 128: the kernels are built for HD 64 and 128 and take
 // any D <= HD, reading the columns past D as zeros and writing none of
@@ -58,6 +73,7 @@
 
 namespace {
 
+// The SIMT forward, for f32 inputs.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) vmem_fwd_kernel(Params p) {
   extern __shared__ float4 smem4[];
@@ -142,16 +158,124 @@ __global__ void __launch_bounds__(kThreads) vmem_fwd_kernel(Params p) {
   }
 }
 
+// The bf16 forward on the tensor cores (the file's note): pass 1 over the
+// key tiles takes the exact row max, pass 2 recomputes s the same way and
+// sums l and p v. One loop of 2 n_kt steps double-buffers the tiles of
+// both passes.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+    vmem_fwd_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int RS = MmaTile<HD>::kStride, TE = MmaTile<HD>::kElems;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [kTile][RS]
+  bf16* Ks = Qs + TE;                         // [2][kTile][RS] two stages
+  bf16* Vs = Ks + 2 * TE;                     // [2][kTile][RS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const FwdBlock blk(p);
+  const bf16* k =
+      static_cast<const bf16*>(p.k) + blk.b * p.ksb + blk.hk * p.ksh;
+  const bf16* v =
+      static_cast<const bf16*>(p.v) + blk.b * p.vsb + blk.hk * p.vsh;
+  int k_stop = p.k_end;
+  if (p.causal) k_stop = min(k_stop, blk.q0 + kTile);
+  const int n_kt = (k_stop + kTile - 1) / kTile;
+  const int n_it = 2 * n_kt;  // pass 1: k tiles; pass 2: k and v tiles
+  auto prefetch = [&](int it) {
+    const int st = it % 2, k0 = (it < n_kt ? it : it - n_kt) * kTile;
+    load_tile_bf16<HD>(Ks + st * TE, k, p.kss, k0, p.sk, p.d, p.vec & kVecK);
+    if (it >= n_kt)
+      load_tile_bf16<HD>(Vs + st * TE, v, p.vss, k0, p.sk, p.d,
+                         p.vec & kVecV);
+  };
+  load_tile_bf16<HD>(
+      Qs, static_cast<const bf16*>(p.q) + blk.b * p.qsb + blk.h * p.qsh,
+      p.qss, blk.q0, p.sq, p.d, p.vec & kVecQ);
+  prefetch(0);
+  cp_async_commit();
+  const int row[2] = {blk.q0 + warp * 16 + g, blk.q0 + warp * 16 + g + 8};
+  uint32_t qf[HD / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // stage it landed; every warp is done with it - 1
+    if (it == 0) load_a_frags<HD>(qf, Qs + warp * 16 * RS, lane);
+    if (it + 1 < n_it) prefetch(it + 1);
+    cp_async_commit();
+    const int st = it % 2;
+    const bool pass2 = it >= n_kt;
+    const int k0 = (pass2 ? it - n_kt : it) * kTile;
+    const bool all = tile_visible(p, blk.q0, k0);
+    float s[8][4];
+    frags_dot<HD>(s, qf, Ks + st * TE, p.d, lane);
+    if (!pass2) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] =
+              all || visible(p, row[e >> 1], k0 + j * 8 + 2 * t + (e & 1))
+                  ? __fmul_rn(s[j][e], p.scale)
+                  : -INFINITY;
+      m[0] = fmaxf(m[0], row_max(s, 0));
+      m[1] = fmaxf(m[1], row_max(s, 1));
+      if (it == n_kt - 1) {
+        m[0] = quad_max(m[0]);
+        m[1] = quad_max(m[1]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = 0.f;
+        if (all || visible(p, row[e >> 1], k0 + j * 8 + 2 * t + (e & 1)))
+          pe = expf(__fmul_rn(s[j][e], p.scale) - m[e >> 1]);
+        s[j][e] = pe;
+      }
+    l[0] += row_sum(s, 0);
+    l[1] += row_sum(s, 1);
+    rows_times_tile<HD, true>(acc, s, Vs + st * TE, p.d, lane);  // o += p v
+  }
+  float lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    lse[i] = m[i] + logf(l[i]);
+  }
+  store_fwd_rows<HD>(p, acc, l, lse, row, blk.h, blk.b, lane);
+}
+
+template <int HD>
+constexpr int fwd_mma_smem() {
+  return 5 * MmaTile<HD>::kElems * 2;
+}
+
 template <int HD>
 constexpr int fwd_smem() {
   return (2 * kTile * (HD + kPad) + HD * kTS + kTile * kTS) * 4;
 }
 
+// bf16 runs the tensor-core forward, f32 the SIMT one
 template <typename T, int HD>
 struct VmemFwd {
   static int run(const Params& p, cudaStream_t s) {
-    const dim3 grid((p.sq + kTile - 1) / kTile, p.h, p.b);
-    return launch(vmem_fwd_kernel<T, HD>, grid, fwd_smem<HD>(), p, s);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      Params pv = p;
+      pv.vec = vec_mask(p);
+      return launch(vmem_fwd_mma_kernel<HD>, fwd_grid(p), fwd_mma_smem<HD>(),
+                    pv, s, kMmaThreads);
+    } else {
+      const dim3 grid((p.sq + kTile - 1) / kTile, p.h, p.b);
+      return launch(vmem_fwd_kernel<T, HD>, grid, fwd_smem<HD>(), p, s);
+    }
   }
 };
 

@@ -286,21 +286,41 @@ class GPT2(nn.Module):
         return tied_head(x, self.wte.to(self.dtype))
 
 
+def tied_head_grads(g, x2, wte, mm):
+    """The f32 sums ``(g @ wte, g^T @ x2)`` of the tied head's backward for
+    the f32 logits cotangent ``g [N, V]`` and half-precision ``x2 [N, D]``,
+    ``wte [V, D]``: the reference's f32 products of the f32 ``g`` (its
+    ``jax.grad`` of ``einsum(..., preferred_element_type=f32)``), which the
+    caller rounds once to the operands' dtype. ``mm(a, b)`` multiplies two
+    half-precision operands into f32 sums, so ``g`` is carried as ``hi =
+    half(g)`` and ``lo = half(g - hi)`` (about 2^-17 relative), each
+    multiplied, the two sums added in f32: one half-precision ``g`` would
+    round the cotangent itself (2^-9)."""
+    hi = g.to(x2.dtype)
+    lo = (g - hi).to(x2.dtype)
+    return (mm(hi, wte) + mm(lo, wte), mm(hi.t(), x2) + mm(lo.t(), x2))
+
+
+def _mm_f32(a, b):
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 class _TiedHeadF32(torch.autograd.Function):
     """``x @ wte^T`` of two half-precision operands with float32 output
-    (cuBLAS accumulates in f32); the backward rounds the f32 cotangent to
-    the operands' dtype for its two products."""
+    (cuBLAS accumulates in f32); the backward multiplies the f32
+    cotangent at f32 precision on the tensor cores
+    (:func:`tied_head_grads`) and rounds each gradient once."""
 
     @staticmethod
     def forward(ctx, x2, wte):
         ctx.save_for_backward(x2, wte)
-        return torch.mm(x2, wte.t(), out_dtype=torch.float32)
+        return _mm_f32(x2, wte.t())
 
     @staticmethod
     def backward(ctx, g):
         x2, wte = ctx.saved_tensors
-        g = g.to(x2.dtype)
-        return g @ wte, g.t() @ x2
+        dx, dwte = tied_head_grads(g, x2, wte, _mm_f32)
+        return dx.to(x2.dtype), dwte.to(wte.dtype)
 
 
 def tied_head(x, wte):

@@ -9,9 +9,9 @@ masked with the finite ``finfo(f32).min``, the running max updated once
 per tile, ``p = exp(s - m)`` cast to v's dtype before the value product,
 and the row log-sum-exp saved for the backward. The backward recomputes
 ``p`` from it and runs every product on f32 values, with no rounding of
-``p`` or ``ds``; in bf16 the kernels run those products on the tensor
-cores with ``p`` and ``ds`` carried as hi + lo bf16 pairs
-(``csrc/attention_mma.cuh``).
+``p`` or ``ds``. In bf16 the kernels run every product on the tensor
+cores (``csrc/attention_mma.cuh``), the backward's ``p`` and ``ds``
+carried as hi + lo bf16 pairs; in f32 they are SIMT kernels.
 
 :func:`flash_attention` keeps the reference wrapper's contract on the
 models' ``[B, S, H, D]`` layout: keys past ``kv_len`` and past S are
@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from tpudist_torch.ops.vmem_attention import (
-    MAX_HEAD_DIM, NEG_INF, _scale, launch_bwd, launch_fwd,
+    MAX_HEAD_DIM, NEG_INF, _dot, _scale, launch_bwd, launch_fwd,
 )
 
 DEFAULT_BLOCK_Q = 128
@@ -81,15 +81,18 @@ def _mask(s, q_pos, k0, *, causal: bool, k_end: int):
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool, kv_len: int, scale: float,
-                    block_k: int = DEFAULT_BLOCK_K):
+                    block_k: int = DEFAULT_BLOCK_K, dot=_dot):
     """The forward kernel's function in plain PyTorch: ``(o [B, Sq, H, D]
     in q's dtype, lse [B, H, Sq] f32)``. An online softmax over key tiles
     of ``block_k`` from key 0, ``p`` rounded to v's dtype against the
     running max, as the Pallas kernel does; tiles past ``kv_len`` (and
-    above the diagonal under ``causal``) add nothing and are skipped."""
+    above the diagonal under ``causal``) add nothing and are skipped.
+    ``s = q k^T`` is summed by ``dot`` as the kernel sums it
+    (:func:`tpudist_torch.ops.vmem_attention._dot`: on the tensor cores
+    for bf16 on the card), since the rounding of p makes ``o`` jump with
+    the order of those sums (``lm_kernels_bench --order``)."""
     b, s_q, h, d = q.shape
     k_end = min(kv_len, k.shape[1])
-    qf, kf = _heads_first(q), _heads_first(k)
     vt = v.transpose(1, 2)
     m = torch.full((b, h, s_q, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, h, s_q, 1), device=q.device)
@@ -97,7 +100,7 @@ def flash_fwd_plain(q, k, v, *, causal: bool, kv_len: int, scale: float,
     q_pos = torch.arange(s_q, device=q.device)
     stop = min(k_end, s_q) if causal else k_end
     for k0 in range(0, stop, block_k):
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block_k])
+        s = dot(q, k[:, k0:k0 + block_k])
         s = _mask(s * scale, q_pos, k0, causal=causal, k_end=k_end)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -142,8 +145,8 @@ def flash_bwd_plain(q, k, v, o, do, lse, *, causal: bool, kv_len: int,
 
 def flash_fwd_cuda(q, k, v, *, block_k: int = DEFAULT_BLOCK_K, **kw):
     """The forward kernel on the current stream
-    (:func:`tpudist_torch.ops.vmem_attention.launch_fwd`); it takes only
-    ``block_k`` :data:`KERNEL_BLOCK_K`."""
+    (:func:`tpudist_torch.ops.vmem_attention.launch_fwd`, ``lib`` among
+    ``kw`` for an A/B); it takes only ``block_k`` :data:`KERNEL_BLOCK_K`."""
     if block_k != KERNEL_BLOCK_K:
         raise ValueError(f"flash_attention_fwd: the kernel takes block_k "
                          f"{KERNEL_BLOCK_K}, got {block_k}")

@@ -5,8 +5,9 @@
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab # end to end, in turns
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab --seq_len 4096
     python -m tpudist_torch.ops.lm_kernels_bench --decode_ab # serving copy, in turns
-    python -m tpudist_torch.ops.lm_kernels_bench --ab DIR   # bf16 backward, DIR's vs this
-    python -m tpudist_torch.ops.lm_kernels_bench --order    # vmem bf16 bwd vs sum orders
+    python -m tpudist_torch.ops.lm_kernels_bench --ab DIR   # bf16 attention, DIR's vs this
+    python -m tpudist_torch.ops.lm_kernels_bench --order    # bf16 attention vs sum orders
+    python -m tpudist_torch.ops.lm_kernels_bench --head     # tied head products, in turns
 
 The kernels are the fused residual-add + LayerNorm forward and backward
 (:mod:`tpudist_torch.ops.layernorm`), the whole-row attention forward
@@ -31,7 +32,7 @@ and head dims 128, 80, 32 and 20; float32 and bfloat16 throughout. At
 D 20 the head stride is 20 elements, so the bf16 backward loads its tiles
 element by element instead of by 16-byte copies. Before the parity lines
 each attention source's kernels are listed with their registers and
-spills from the build's ``-Xptxas -v`` report.
+spills from the build's ``-Xptxas -v`` report, forwards and backward.
 
 Times are at the training path's shapes in bfloat16: the median device
 time of 50 calls between CUDA events, the card held busy while the host
@@ -60,27 +61,35 @@ long-context leg (``bench.py``'s flash-versus-XLA step): ``--attn flash
 card's memory is reported as such. Both train on :func:`token_file`'s
 fixed text.
 
-``--ab DIR`` times the bf16 backward (the delta, dk/dv and dq kernels of
-one call) built from another revision's sources against this
-checkout's, in turns (A, B, B, A) on the same inputs, at rows 8 and 4 of
-PERF.md's kernel table: flash at B 4, H 12, S 4096, D 64 causal and vmem
-at B 8, H 12, S 1024, D 64 causal. DIR holds that revision's
+``--ab DIR`` times the bf16 forward and backward (the delta, dk/dv and dq
+kernels of one call) built from another revision's sources against this
+checkout's, in turns (A, B, B, A) on the same inputs, at rows 7-8 and 3-4
+of PERF.md's kernel table: flash at B 4, H 12, S 4096, D 64 causal and
+vmem at B 8, H 12, S 1024, D 64 causal. DIR holds that revision's
 ``flash_attention.cu``, ``vmem_attention.cu`` and the headers they
 include, e.g. for the parent commit::
 
     mkdir -p scratch_chip/parent
-    for f in flash_attention.cu vmem_attention.cu attention_tiles.cuh; do
+    for f in flash_attention.cu vmem_attention.cu attention_tiles.cuh \
+        attention_mma.cuh; do
       git show HEAD~1:tpudist_torch/csrc/$f > scratch_chip/parent/$f; done
 
 It prints each turn's median device time (as the times above), the ratio
 of the two sides' sums, each side's parity error, and the card's name and
 power limit.
 
-``--order`` shows why the vmem plain backward sums s and dp as the
-kernels do: at every vmem case in bf16 it holds the kernels' dq, dk, dv
-against the plain backward with s and dp summed on the tensor cores, as
-f32 FMAs and in f64 (:data:`ORDER_DOTS`), and the f32 sums against the
-f64 ones, each line with its element-wise reading.
+``--order`` shows why the plain versions sum s (and the vmem backward
+dp) as the kernels do: at every vmem and flash case in bf16 it holds the
+outputs that round p (both forwards' o, the vmem backward's dq, dk, dv)
+against the plain version with those products summed on the tensor
+cores, as f32 FMAs and in f64 (:data:`ORDER_DOTS`), and the f32 sums
+against the f64 ones, each line with its element-wise reading.
+
+``--head`` times the weight-tied LM head's three products at GPT-2's
+S 1024 step (bf16 operands, f32 sums) at V 50257 and at 50304, whose
+operand rows are all 16-byte aligned, in turns, naming the kernels cuBLAS
+runs; then its bf16 backward with the cotangent rounded to one bf16 and
+carried as hi + lo, in turns.
 
 ``--decode_ab`` times the decode step of GPT-2 124M in bf16 (B 8, a
 64-token prompt, ``attn_impl="fused"``) on the float32-master model,
@@ -306,37 +315,45 @@ def flash_parity(gen):
             del kg, pg
 
 
-def backward_build(source: str) -> tuple[list[str], list[str]]:
-    """The backward kernels' lines of ``source``'s ``-Xptxas -v`` report
-    (registers, spill stores and loads, stack) and the names of the bf16
-    HD 64 instantiations among them that spill (there must be none)."""
+def attention_build(source: str) -> tuple[list[str], list[str]]:
+    """The attention kernels' lines of ``source``'s ``-Xptxas -v`` report
+    (registers, spill stores and loads, stack), forwards and backward, and
+    the names of the bf16 HD 64 tensor-core instantiations among them that
+    spill (there must be none)."""
+    import re
+
     from tpudist_torch.csrc import build
 
     lines, spilled = [], []
     for r in build.register_report(source):
-        if not any(n in r["kernel"] for n in ("delta", "dkdv", "dq")):
+        if not any(n in r["kernel"] for n in ("fwd", "delta", "dkdv", "dq")):
             continue
         lines.append(f"{r['kernel']}: {r['registers']} registers, "
                      f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
                      f"stores / loads, {r['stack']} bytes stack")
-        if "_mma_" in r["kernel"] and "<64," in r["kernel"] and (
+        if "_mma_" in r["kernel"] and re.search(r"<64[,>]", r["kernel"]) and (
                 r["spill_stores"] or r["spill_loads"]):
             spilled.append(r["kernel"])
     return lines, spilled
 
 
-def repeat_identical(kind: str, gen, b, s) -> bool:
-    """Two calls of ``kind``'s (``"vmem"`` or ``"flash"``) backward on the
-    same bf16 inputs (H 12, D 64, causal, strided views of one qkv tensor)
-    give bit-identical dq, dk and dv."""
+def repeat_identical(kind: str, gen, b, s) -> dict:
+    """Whether two calls of ``kind``'s (``"vmem"`` or ``"flash"``) forward
+    give bit-identical o and lse, and two of its backward bit-identical
+    dq, dk and dv, on the same bf16 inputs (H 12, D 64, causal, strided
+    views of one qkv tensor): ``{"forward": bool, "backward": bool}``."""
     mod = FA if kind == "flash" else VA
+    fwd = getattr(mod, f"{kind}_fwd_cuda")
     bwd = getattr(mod, f"{kind}_bwd_cuda")
     q, k, v, do = attn_inputs(gen, b, s, H, H, torch.bfloat16, strided=True)
     kw = dict(causal=True, kv_len=s, scale=VA._scale(D))
-    o, lse = getattr(mod, f"{kind}_fwd_cuda")(q, k, v, **kw)
-    first = bwd(q, k, v, o, do, lse, **kw)
-    second = bwd(q, k, v, o, do, lse, **kw)
-    return all(torch.equal(a, b) for a, b in zip(first, second))
+    same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x, y))
+    first = fwd(q, k, v, **kw)
+    out = {"forward": same(first, fwd(q, k, v, **kw))}
+    o, lse = first
+    out["backward"] = same(bwd(q, k, v, o, do, lse, **kw),
+                           bwd(q, k, v, o, do, lse, **kw))
+    return out
 
 
 def bound(nbytes: int, flops: float, dtype) -> dict:
@@ -569,9 +586,9 @@ def decode_ab(steps: int = 32) -> list[dict]:
     return out
 
 
-#: --order's summations of s = q k^T and dp = do v^T in the vmem plain
-#: backward: as the kernels sum them, as f32 FMAs (cuBLAS), and in f64
-#: rounded once to f32
+#: --order's summations of s = q k^T (and the backward's dp = do v^T) in
+#: the plain versions: as the kernels sum them, as f32 FMAs (cuBLAS), and
+#: in f64 rounded once to f32
 ORDER_DOTS = {
     "tensor-core": VA._dot,
     "f32": VA._dot_f32,
@@ -580,42 +597,69 @@ ORDER_DOTS = {
 }
 
 
-def order_probe(gen) -> list[str]:
-    """At every vmem parity case in bf16: the kernels' dq, dk, dv against
-    the plain backward with s and dp summed each way of
-    :data:`ORDER_DOTS`, and the f32 sums against the f64 ones, each with
-    its element-wise reading and whether it holds the bar."""
+def _order_lines(label, names, got, plain) -> list[str]:
+    """``got`` (the kernels' outputs) against ``plain[n]`` for every
+    summation ``n`` of :data:`ORDER_DOTS`, and the f32 sums against the
+    f64 ones: one line each, an element-wise reading per output."""
+    pairs = [("kernels", got, n) for n in ORDER_DOTS]
+    pairs.append(("plain (f32 sums)", plain["f32"], "f64"))
     lines = []
-    for tag, b, s, h, h_kv, causal, kv_len, strided, d in ATTN_CASES:
-        q, k, v, do = attn_inputs(gen, b, s, h, h_kv, torch.bfloat16,
-                                  strided=strided, d=d)
-        kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d))
-        o, lse = VA.vmem_fwd_cuda(q, k, v, **kw)
-        got = VA.vmem_bwd_cuda(q, k, v, o, do, lse, **kw)
-        plain = {n: VA.vmem_bwd_plain(q, k, v, o, do, lse, dot=f, **kw)
-                 for n, f in ORDER_DOTS.items()}
-        pairs = [("kernels", got, n) for n in ORDER_DOTS]
-        pairs.append(("plain (f32 sums)", plain["f32"], "f64"))
-        for a_name, a, b_name in pairs:
-            parts = [f"{g} {elem_reading(x, y)}"
-                     f"{'' if max_err(x, y)[1] else ' (over the bar)'}"
-                     for g, x, y in zip(("dq", "dk", "dv"), a, plain[b_name])]
-            lines.append(f"vmem {tag}: {a_name} vs plain ({b_name} sums): "
-                         + "; ".join(parts))
+    for a_name, a, b_name in pairs:
+        parts = [f"{g} {elem_reading(x, y)}"
+                 f"{'' if max_err(x, y)[1] else ' (over the bar)'}"
+                 for g, x, y in zip(names, a, plain[b_name])]
+        lines.append(f"{label}: {a_name} vs plain ({b_name} sums): "
+                     + "; ".join(parts))
     return lines
 
 
-#: --ab's cases: rows 8 and 4 of PERF.md's kernel table, the backward at
-#: the long-context and GPT-2 training shapes
+def order_probe(gen) -> list[str]:
+    """At every vmem and flash parity case in bf16: each kernel's outputs
+    that round p (the two forwards' o, vmem's dq, dk, dv) against its
+    plain version with s (and dp) summed each way of :data:`ORDER_DOTS`,
+    and the f32 sums against the f64 ones, each with its element-wise
+    reading and whether it holds the bar: the size of an order-only
+    difference."""
+    from tpudist_torch.ops.attention import repeat_kv
+
+    lines = []
+    for kind, cases in (("vmem", ATTN_CASES), ("flash", FLASH_CASES)):
+        mod = FA if kind == "flash" else VA
+        fwd_cuda = getattr(mod, f"{kind}_fwd_cuda")
+        fwd_plain = getattr(mod, f"{kind}_fwd_plain")
+        for tag, b, s, h, h_kv, causal, kv_len, strided, d in cases:
+            q, k, v, do = attn_inputs(gen, b, s, h, h_kv, torch.bfloat16,
+                                      strided=strided, d=d)
+            if kind == "flash":
+                k, v = repeat_kv(q, k, v)
+            kw = dict(causal=causal, kv_len=kv_len or s, scale=VA._scale(d))
+            o, lse = fwd_cuda(q, k, v, **kw)
+            plain = {n: fwd_plain(q, k, v, dot=f, **kw)[:1]
+                     for n, f in ORDER_DOTS.items()}
+            lines += _order_lines(f"{kind} forward {tag}", ("o",), (o,),
+                                  plain)
+            if kind == "vmem":
+                got = VA.vmem_bwd_cuda(q, k, v, o, do, lse, **kw)
+                plain = {n: VA.vmem_bwd_plain(q, k, v, o, do, lse, dot=f,
+                                              **kw)
+                         for n, f in ORDER_DOTS.items()}
+                lines += _order_lines(f"vmem backward {tag}",
+                                      ("dq", "dk", "dv"), got, plain)
+    return lines
+
+
+#: --ab's cases: rows 7-8 and 3-4 of PERF.md's kernel table, the forward
+#: and backward at the long-context and GPT-2 training shapes
 AB_CASES = (("flash", FB, FS), ("vmem", B, S))
 
 
-def backward_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
-    """The bf16 backward built from ``src_dir``'s ``flash_attention.cu`` /
-    ``vmem_attention.cu`` (and the headers beside them) as A against this
-    checkout's as B, in turns (A, B, B, A), at :data:`AB_CASES`: the
-    median device time of ``n`` calls per turn and each side's parity
-    error against the plain version."""
+def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
+    """The bf16 forward and backward built from ``src_dir``'s
+    ``flash_attention.cu`` / ``vmem_attention.cu`` (and the headers beside
+    them) as A against this checkout's as B, in turns (A, B, B, A), at
+    :data:`AB_CASES`: the median device time of ``n`` calls per turn and
+    each side's parity error against the plain version. Both backwards
+    take this checkout's forward's (o, lse)."""
     from tpudist_torch.csrc import build
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -625,27 +669,103 @@ def backward_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
         mod = FA if kind == "flash" else VA
         fwd = getattr(mod, f"{kind}_fwd_cuda")
         bwd = getattr(mod, f"{kind}_bwd_cuda")
-        plain = getattr(mod, f"{kind}_bwd_plain")
         libs = {"A": build.load(str((src_dir / f"{kind}_attention.cu")
                                     .resolve())), "B": None}
         q, k, v, do = attn_inputs(gen, b, s, H, H, torch.bfloat16,
                                   strided=True)
         kw = dict(causal=True, kv_len=s, scale=VA._scale(D))
         o, lse = fwd(q, k, v, **kw)
-        want = plain(q, k, v, o, do, lse, **kw)
-        err = {who: max(max_err(g, w)[0] for g, w in zip(
-            bwd(q, k, v, o, do, lse, lib=lib, **kw), want))
-            for who, lib in libs.items()}
-        del want
-        ms = {"A": [], "B": []}
-        for who in "ABBA":
-            ms[who].append(DB.device_ms(
-                lambda: bwd(q, k, v, o, do, lse, lib=libs[who], **kw), flush,
-                n, spin_cycles=SPIN_CYCLES))
-        out.append(dict(name=f"{kind}_attention_bwd",
-                        shape=f"B {b}, H {H}, S {s}, D {D}, causal, bf16",
-                        ms=ms, err=err))
+        calls = (
+            ("fwd", lambda lib: fwd(q, k, v, lib=lib, **kw),
+             lambda: getattr(mod, f"{kind}_fwd_plain")(q, k, v, **kw)),
+            ("bwd", lambda lib: bwd(q, k, v, o, do, lse, lib=lib, **kw),
+             lambda: getattr(mod, f"{kind}_bwd_plain")(q, k, v, o, do, lse,
+                                                       **kw)))
+        for direction, call, plain in calls:
+            want = plain()
+            err = {who: max(max_err(g, w)[0] for g, w in zip(call(lib), want))
+                   for who, lib in libs.items()}
+            del want
+            ms = {"A": [], "B": []}
+            for who in "ABBA":
+                ms[who].append(DB.device_ms(
+                    lambda: call(libs[who]), flush, n,
+                    spin_cycles=SPIN_CYCLES))
+            out.append(dict(name=f"{kind}_attention_{direction}",
+                            shape=f"B {b}, H {H}, S {s}, D {D}, causal, bf16",
+                            ms=ms, err=err))
     return out
+
+
+#: --head's vocabularies: GPT-2's, whose odd row count leaves no operand
+#: row of the head's products 16-byte aligned, and its next multiple of 64
+HEAD_VOCABS = (50257, 50304)
+
+
+def _cuda_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:60] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def head_probe(n: int = DB.N_TIMED) -> list[str]:
+    """The weight-tied head's three products at GPT-2's S 1024 step (x
+    [8192, 768] and wte [V, 768] in bf16, f32 sums: the logits, dx = g wte
+    and dwte = g^T x) at each of :data:`HEAD_VOCABS`, in turns (50257,
+    50304, 50304, 50257), with the kernels cuBLAS picks; then the whole
+    bf16 backward at V 50257 with the cotangent rounded to one bf16 (the
+    old backward) and carried as hi + lo
+    (:func:`tpudist_torch.models.gpt2.tied_head_grads`), in turns (old,
+    new, new, old). Device times as the kernel times above."""
+    from tpudist_torch.models.gpt2 import _mm_f32, tied_head_grads
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf = torch.bfloat16
+    x = _rand(gen, (ROWS, WIDTH), bf)
+    tables = {v: (_rand(gen, (v, WIDTH), bf, 0.02),
+                  _rand(gen, (ROWS, v), bf, 1e-6)) for v in HEAD_VOCABS}
+    products = (("logits = x wte^T", lambda w, g: _mm_f32(x, w.t())),
+                ("dx = g wte", lambda w, g: _mm_f32(g, w)),
+                ("dwte = g^T x", lambda w, g: _mm_f32(g.t(), x)))
+    lines = []
+    for name, fn in products:
+        ms = {v: [] for v in HEAD_VOCABS}
+        for v in (HEAD_VOCABS[0], HEAD_VOCABS[1], HEAD_VOCABS[1],
+                  HEAD_VOCABS[0]):
+            w, g = tables[v]
+            ms[v].append(DB.device_ms(lambda: fn(w, g), flush, n,
+                                      spin_cycles=SPIN_CYCLES))
+        for v in HEAD_VOCABS:
+            w, g = tables[v]
+            lines.append(f"{name} at V {v}: {ms[v][0]:.4f} / {ms[v][1]:.4f} "
+                         f"ms; kernels {_cuda_kernels(lambda: fn(w, g))}")
+    w = tables[HEAD_VOCABS[0]][0]
+    g32 = _rand(gen, (ROWS, HEAD_VOCABS[0]), torch.float32, 1e-6)
+    del tables
+
+    def old():
+        gb = g32.to(bf)
+        return _mm_f32(gb, w).to(bf), _mm_f32(gb.t(), x).to(bf)
+
+    def new():
+        dx, dw = tied_head_grads(g32, x, w, _mm_f32)
+        return dx.to(bf), dw.to(bf)
+
+    ms = {"old": [], "new": []}
+    for who in ("old", "new", "new", "old"):
+        ms[who].append(DB.device_ms(old if who == "old" else new, flush, n,
+                                    spin_cycles=SPIN_CYCLES))
+    lines.append(f"head backward at V {HEAD_VOCABS[0]}: g as one bf16 "
+                 f"{ms['old'][0]:.4f} / {ms['old'][1]:.4f} ms, g as hi + lo "
+                 f"{ms['new'][0]:.4f} / {ms['new'][1]:.4f} ms (turns old new "
+                 f"new old)")
+    return lines
 
 
 def card() -> str:
@@ -666,11 +786,14 @@ def main(argv=None) -> int:
     p.add_argument("--decode_ab", action="store_true",
                    help="only the decode step on masters vs the copy")
     p.add_argument("--order", action="store_true",
-                   help="only the vmem bf16 backward against its plain "
-                   "version with s and dp summed three ways")
+                   help="only the bf16 kernels that round p against their "
+                   "plain versions with s (and dp) summed three ways")
     p.add_argument("--ab", type=Path, default=None, metavar="DIR",
-                   help="only the bf16 backward built from DIR's sources "
-                   "against this checkout's, in turns")
+                   help="only the bf16 forwards and backwards built from "
+                   "DIR's sources against this checkout's, in turns")
+    p.add_argument("--head", action="store_true",
+                   help="only the tied head's products at V 50257 and "
+                   "50304, and its backward old and new, in turns")
     args = p.parse_args(argv)
     from tpudist_torch.csrc import build
 
@@ -679,8 +802,12 @@ def main(argv=None) -> int:
         for line in order_probe(torch.Generator(device="cuda").manual_seed(0)):
             print(line)
         return 0
+    if args.head:
+        for line in head_probe():
+            print(f"{line}  [{card()}]")
+        return 0
     if args.ab:
-        for r in backward_ab(args.ab):
+        for r in kernels_ab(args.ab):
             a, b = (r["ms"][w] for w in "AB")
             print(f"{r['name']} [{r['shape']}]: {args.ab} (A) "
                   f"{a[0]:.4f} / {a[1]:.4f} ms, this checkout (B) "

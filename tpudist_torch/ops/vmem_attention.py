@@ -7,8 +7,9 @@ reached through ``_vmem_vjp_bwd``: f32 scores ``q.k * scale`` with the
 causal and ``kv_len`` masks, the exact row max, ``p = exp(s - m)`` cast to
 v's dtype before the value product, one division by ``l``, and the row
 log-sum-exp saved for the backward, which recomputes ``p`` from it and
-rounds ``p`` and ``ds`` to v's dtype before their products (in bf16 the
-kernels run those on the tensor cores, ``csrc/attention_mma.cuh``). The
+rounds ``p`` and ``ds`` to v's dtype before their products. In bf16 the
+forward and backward kernels run every product on the tensor cores
+(``csrc/attention_mma.cuh``); in f32 they are SIMT kernels. The
 TPU kernel holds a head's whole ``[S, S]`` score matrix in VMEM; the CUDA
 kernels tile it (the source's note says how), but compute the same
 function with the same roundings.
@@ -100,11 +101,17 @@ def _broadcast_kv(q, k, v):
     return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
 
 
-def vmem_fwd_plain(q, k, v, *, causal: bool, kv_len: int, scale: float):
+def vmem_fwd_plain(q, k, v, *, causal: bool, kv_len: int, scale: float,
+                   dot=_dot):
     """The forward kernel's function in plain PyTorch: ``(o [B, Sq, H, D]
-    in q's dtype, lse [B, H, Sq] f32)``."""
+    in q's dtype, lse [B, H, Sq] f32)``.
+
+    p is rounded to bf16 before its product, so ``o`` jumps where another
+    order of the ``s = q k^T`` sums moves ``s`` across a rounding boundary
+    (``lm_kernels_bench --order``); ``s`` is summed as the kernel sums it
+    (:func:`_dot`: on the tensor cores for bf16 on the card)."""
     kk, vv = _broadcast_kv(q, k, v)
-    s = _scores(q, kk, causal=causal, kv_len=kv_len, scale=scale)
+    s = _scores(q, kk, causal=causal, kv_len=kv_len, scale=scale, dot=dot)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -171,12 +178,13 @@ def _strides(t):
 
 
 def launch_fwd(kind: str, counts: dict, q, k, v, *, causal: bool,
-               kv_len: int, scale: float):
+               kv_len: int, scale: float, lib=None):
     """Launch ``kind``'s forward kernel (``"vmem"`` or ``"flash"``: the two
     sources share one C interface) on the current stream and count it in
     ``counts``. ``q [B, Sq, H, D]``, ``k``/``v`` ``[B, Sk, H_kv, D]`` in
-    one dtype, any strides but a contiguous last dim. Returns ``(o,
-    lse)``."""
+    one dtype, any strides but a contiguous last dim. ``lib`` is another
+    build of the same C interface (an A/B), by default this checkout's.
+    Returns ``(o, lse)``."""
     from tpudist_torch.csrc import build
 
     what = f"{kind}_attention_fwd"
@@ -185,7 +193,7 @@ def launch_fwd(kind: str, counts: dict, q, k, v, *, causal: bool,
     s_k, h_kv = k.shape[1], k.shape[2]
     o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    lib = build.load(f"{kind}_attention.cu")
+    lib = lib or build.load(f"{kind}_attention.cu")
     rc = getattr(lib, f"tpudist_{kind}_fwd")(
         _CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, s_q, s_k, h, h_kv, d, *_strides(q),
