@@ -1,8 +1,10 @@
 """The port's decode attention (tpudist_torch.ops.decode) against the JAX
 reference on the same inputs: the plain versions of both kernels against
 the Pallas kernels (interpret mode on the CPU, as the JAX package's own
-tests run them), the dense oracles, and cached_kv's writes in its three
-modes against the JAX cache contents.
+tests run them), the dense oracles, a numerical model of the CUDA
+kernels' arithmetic (tests/torch_decode_model.py) against the Pallas
+kernels, and cached_kv's writes in its three modes against the JAX cache
+contents.
 
 Tolerances follow tests/conftest.py's kernel-parity rule, restated here
 (the port's tests do not import the reference's conftest helper): 2e-5
@@ -26,7 +28,9 @@ from tpudist_torch.generate import zero_cache
 from tpudist_torch.interop import gpt2_params_from_flax
 from tpudist_torch.models.gpt2 import GPT2
 from tpudist_torch.ops import decode as D
+from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.serve.blocks import paged_cache
+from torch_decode_model import contiguous_model, paged_model
 
 GEOM = dict(vocab_size=64, max_seq_len=64, hidden_dim=32, depth=2, num_heads=4)
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -145,6 +149,113 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
         D.paged_fused_attention_cuda(_t(q, torch.float32), _t(k, torch.float32),
                                      _t(v, torch.float32), torch.from_numpy(bt),
                                      torch.from_numpy(pos))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' arithmetic (tests/torch_decode_model.py) against the
+# Pallas kernels: in f32 the parity rule; in bf16 lm_kernels_bench's
+# element bar (2 ulps + 2^-14 of the max) and at most 1% of the elements
+# differing, since a p rounded against another max than the function's
+# moves outputs by about one ulp, which only the share of differing
+# elements shows
+
+
+def _hold_model(got, want):
+    w = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    if want.dtype == jnp.bfloat16:
+        w = w.to(torch.bfloat16)
+        err, ok = LB.max_err(got, w, elem=True)
+        share = float((got.float() != w.float()).float().mean())
+        assert ok and share <= 0.01, (err, share)
+    else:
+        assert_parity(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("gqa", [1, 2])
+@pytest.mark.parametrize("pos", [0, 15, 40, 63])
+@pytest.mark.parametrize("parts", [1, 3])
+def test_contiguous_model_matches_pallas(dtype, gqa, pos, parts):
+    """The contiguous kernel's arithmetic (tiles of 16 slots shared by the
+    parts of a cluster, the maxes exchanged before any p, column-owning PV
+    partials) against the Pallas fused decode kernel, at cursors inside
+    the first tile, on a tile edge and across tiles."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.Generator(np.random.PCG64(100 + pos + 7 * gqa))
+    b, h, dh, s = 3, 4, 16, 64
+    q = rng.standard_normal((b, 1, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, h // gqa, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, h // gqa, s, dh)).astype(np.float32)
+    mask = (np.arange(s) <= pos)[None, None, None, :]
+    want = jax_decode_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                                jnp.asarray(v, jdt), jnp.asarray(mask),
+                                jnp.int32(pos), impl="fused")
+    got = contiguous_model(_t(q, tdt), _t(k, tdt), _t(v, tdt), pos,
+                           parts=parts, tile=16)
+    _hold_model(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("gqa", [1, 2])
+@pytest.mark.parametrize("s_q", [1, 3])
+@pytest.mark.parametrize("parts", [1, 3])
+def test_paged_model_matches_pallas(dtype, gqa, s_q, parts):
+    """The paged kernel's arithmetic (tiles of two pool blocks; split
+    parts seeded with the max of all earlier pool blocks; unsplit walks in
+    chunks of two blocks carrying their sums over; the rescales folded
+    into the weights) against the Pallas paged kernel, cursors at block
+    start, block end, mid-block and the table's end."""
+    jdt, tdt = DTYPES[dtype]
+    h = 4
+    q, k, v, bt, pos = _paged_fixture(3, b=6, h=h, h_kv=h // gqa, dh=16,
+                                      bs=8, n_blocks=64, mb=8, max_pos=63,
+                                      s_q=s_q)
+    pos[:5] = [0, 7, 8, 36, 63 - s_q + 1]
+    want = jax_paged_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(bt), jnp.asarray(pos), impl="paged")
+    got = paged_model(_t(q, tdt), _t(k, tdt), _t(v, tdt),
+                      torch.from_numpy(bt), torch.from_numpy(pos),
+                      parts=parts, gb=2, cb=2)
+    _hold_model(got, want)
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_part_local_max_misses_pallas(kind):
+    """A split that rounds p against each part's own max (contiguous) or
+    starts each part's running max from NEG_INF (paged) and rescales
+    afterwards computes another function: in bf16 at cursor 255 with 4
+    parts it differs from the Pallas kernel in about 40% of the output
+    elements, each by about one ulp, where the exact split (maxes
+    exchanged, or seeded with the earlier pool blocks') differs in none."""
+    rng = np.random.Generator(np.random.PCG64(0))
+    b, h, dh, cursor = 2, 4, 32, 255
+    if kind == "contiguous":
+        q = rng.standard_normal((b, 1, h, dh)).astype(np.float32)
+        k = rng.standard_normal((b, h, cursor + 1, dh)).astype(np.float32)
+        v = rng.standard_normal((b, h, cursor + 1, dh)).astype(np.float32)
+        mask = (np.arange(cursor + 1) <= cursor)[None, None, None, :]
+        want = jax_decode_attention(
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+            jnp.asarray(mask), jnp.int32(cursor), impl="fused")
+        args = [_t(x, torch.bfloat16) for x in (q, k, v)] + [cursor]
+        model = lambda own: contiguous_model(*args, parts=4, tile=16,
+                                             own_max=own)
+    else:
+        q, k, v, bt, pos = _paged_fixture(0, b=b, h=h, h_kv=h, dh=dh, bs=16,
+                                          n_blocks=40, mb=16, max_pos=1)
+        pos[:] = cursor
+        want = jax_paged_attention(
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+            jnp.asarray(bt), jnp.asarray(pos), impl="paged")
+        args = [_t(x, torch.bfloat16) for x in (q, k, v)] + [
+            torch.from_numpy(bt), torch.from_numpy(pos)]
+        model = lambda own: paged_model(*args, parts=4, gb=2, own_max=own)
+    w = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    share = {own: float((model(own).float() != w).float().mean())
+             for own in (False, True)}
+    assert share[False] <= 0.005, share
+    assert share[True] >= 0.2, share
 
 
 # ---------------------------------------------------------------------------

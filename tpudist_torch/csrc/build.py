@@ -174,6 +174,9 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
         ]
         lib.tpudist_paged_decode_attention.restype = I
+        if hasattr(lib, "tpudist_decode_set_max_split"):
+            lib.tpudist_decode_set_max_split.argtypes = [I]
+            lib.tpudist_decode_set_max_split.restype = I
 
 
 def _kernel_name(mangled: str) -> str:

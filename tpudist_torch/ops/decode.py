@@ -26,11 +26,17 @@ the same function beside it and a launch counter
 What bounds them on the H100: bytes. Each reads every K/V element up to
 the row's cursor once, ``2 * sum_b H_kv * slots_b * dh * itemsize``, and
 does two multiply-adds per element, far below the card's 295 operations
-per byte. The CUDA designs (``tpudist_torch/csrc/decode_attention.cu``)
-keep scores, probabilities and running sums on chip and read only the
-slots the mask admits. They are simple first versions (a block per
-(row, head), a warp per key row, 2-byte loads), with no vector loads,
-split-KV, TMA or wgmma yet; PERF.md has their times against the bound.
+per byte. The CUDA design (``tpudist_torch/csrc/decode_attention.cu``)
+keeps scores, probabilities and running sums on chip, reads only the
+slots the mask admits, and keeps loads in flight: one block per (row, kv
+head) serving the whole GQA group, K/V tiles of up to 16 KB brought in by
+the TMA's bulk copies through a ring of shared-memory stages,
+column-owning f32 PV partials summed once after the walk, and, where the
+grid is short, the walk split over a thread-block cluster whose parts
+exchange their maxes (contiguous: the global max before any p; paged:
+each part seeded with the max of all earlier pool blocks), so p is
+rounded where the serial function rounds it. PERF.md has their times
+against the bound.
 
 The wrappers take the plain version only for tensors on the CPU. On a
 CUDA tensor they launch the kernel or raise.
@@ -338,7 +344,10 @@ def paged_fused_attention_cuda(q, k_pool, v_pool, block_tables, positions,
         raise ValueError(f"positions must be int32 [{b}]")
     mb = block_tables.shape[1]
     lib = lib or build.load()
-    smem = 4 * (2 * s_q * dh + s_q * bs + 3 * s_q)
+    # the least the kernel takes: one query head, one tile of scores and
+    # block statistics
+    smem = 4 * (lib.tpudist_decode_fixed_floats()
+                + s_q * (2 * dh + 3 * max(bs, 128) + 16) + mb)
     if smem > lib.tpudist_decode_max_smem():
         raise ValueError(f"block_size {bs}: {smem} B of shared memory exceeds the card's")
     out = torch.empty_like(q)

@@ -4,6 +4,13 @@
     python -m tpudist_torch.ops.decode_bench --ab OLD.cu   # A/B against another
                                                            # source of the same C interface
     python -m tpudist_torch.ops.decode_bench --sweep       # over cursors, L2 cold and warm
+    python -m tpudist_torch.ops.decode_bench --parity      # chip_smoke.py's phase 2 cases
+    python -m tpudist_torch.ops.decode_bench --split_ab    # split up to 8 vs none, in turns
+
+The timed shapes are the main path's (the paged kernel at the served
+batch's cursors, the contiguous kernel at ``generate()``'s last step) and
+cursor 1023 (eight paged rows, and B 4 contiguous), each beside its bound
+and SDPA.
 
 Each time is the median of ``n`` launches, each between two CUDA events.
 Before every launch a spin kernel holds the card while the host enqueues
@@ -23,6 +30,7 @@ data sheet, dense).
 from __future__ import annotations
 
 import argparse
+import functools
 import statistics
 import subprocess
 from pathlib import Path
@@ -135,6 +143,97 @@ def contiguous_case(gen, *, b=4, pos=95, dtype=torch.bfloat16, heads=12,
     )
 
 
+def long_cases(seed: int = 0) -> list[dict]:
+    """Both kernels at GPT-2's full context: eight paged rows at cursor
+    1023, and B 4 contiguous at pos 1023."""
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    return [paged_case(gen, [1023] * 8), contiguous_case(gen, pos=1023)]
+
+
+def parity_cases(seed: int = 0):
+    """Yield ``(name, kernel, plain)`` for every parity case of
+    ``chip_smoke.py`` phase 2: contiguous B 8, H 12, S 1024 at pos 0 / 31 /
+    1023, GQA H_kv 6, B 4 at pos 1023, dh 20, 80 (H_kv 4) and 128; paged
+    bs 32 over a 1025-block pool with permuted tables, cursors at block
+    start / end / mid-block / the table's end, GQA H_kv 6, s_q 5 and 16,
+    dh 20, 80 (H_kv 4, s_q 3) and 128, and eight rows all at cursor 1023;
+    float32 and bfloat16 throughout. Two cases run with the cluster split
+    off: contiguous B 4 at pos 1023 (one block walks every tile) and paged
+    s_q 16 (its scores take two chunks, the sums carried across)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dev = torch.device("cuda")
+    h, s_len, bs = 12, 1024, 32
+    mb, n_pool = s_len // bs, 1025
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for b, h_kv, dh, cursors in ((8, h, 64, (0, 31, 1023)),
+                                     (8, h // 2, 64, (0, 31, 1023)),
+                                     (4, h, 64, (1023,)),
+                                     (8, h, 20, (31, 1023)),
+                                     (8, 4, 80, (500,)),
+                                     (8, h, 128, (95, 1023))):
+            k = rnd(b, h_kv, s_len, dh, dtype=dtype)
+            v = rnd(b, h_kv, s_len, dh, dtype=dtype)
+            q = rnd(b, 1, h, dh, dtype=dtype)
+            for pos in cursors:
+                yield (f"contiguous {dn} B={b} H_kv={h_kv} dh={dh} pos={pos}",
+                       functools.partial(D.fused_decode_attention_cuda,
+                                         q, k, v, pos),
+                       functools.partial(D.fused_decode_attention_plain,
+                                         q, k, v, pos))
+                if b == 4:
+                    yield (f"contiguous {dn} B=4 pos={pos}, split off",
+                           _unsplit(D.fused_decode_attention_cuda, q, k, v,
+                                    pos),
+                           functools.partial(D.fused_decode_attention_plain,
+                                             q, k, v, pos))
+        for h_kv, s_q, dh, at_end in ((h, 1, 64, False), (h // 2, 1, 64, False),
+                                      (h, 5, 64, False), (h, 16, 64, False),
+                                      (h, 1, 20, False), (4, 3, 80, False),
+                                      (h, 1, 128, False), (h, 1, 64, True)):
+            kp = rnd(n_pool, h_kv, bs, dh, dtype=dtype)
+            vp = rnd(n_pool, h_kv, bs, dh, dtype=dtype)
+            q = rnd(8, s_q, h, dh, dtype=dtype)
+            perm = torch.randperm(n_pool - 1, generator=gen)[: 8 * mb] + 1
+            tables = perm.reshape(8, mb).to(dev, torch.int32)
+            # block start, block end, mid-block, first and last slot
+            cur = ([1023] * 8 if at_end
+                   else [0, 31, 32, 63, 500, 777, 1023 - s_q + 1, 15])
+            pos = torch.tensor(cur, dtype=torch.int32, device=dev)
+            args = (q, kp, vp, tables, pos)
+            yield (f"paged {dn} H_kv={h_kv} s_q={s_q} dh={dh} cursors="
+                   f"{'1023 x 8' if at_end else 'mixed'}",
+                   functools.partial(D.paged_fused_attention_cuda, *args),
+                   functools.partial(D.paged_fused_attention_plain, *args))
+            if s_q == 16:
+                yield (f"paged {dn} s_q=16 cursors=mixed, split off",
+                       _unsplit(D.paged_fused_attention_cuda, *args),
+                       functools.partial(D.paged_fused_attention_plain, *args))
+
+
+def _unsplit(kernel, *args):
+    """``kernel(*args)`` with the cluster split off."""
+    def run():
+        old = set_max_split(1)
+        try:
+            return kernel(*args)
+        finally:
+            set_max_split(old)
+    return run
+
+
+def set_max_split(n: int) -> int:
+    """Cap this checkout's kernels' cluster split at ``n`` parts (1..8);
+    returns the previous cap."""
+    from tpudist_torch.csrc import build
+
+    return build.load().tpudist_decode_set_max_split(n)
+
+
 def main_path_cases(seed: int = 0, new_tokens: int = 32) -> list[dict]:
     """The two kernels' timed shapes: the paged kernel at the served
     batch's cursors on its last decode tick, the contiguous kernel at
@@ -143,6 +242,68 @@ def main_path_cases(seed: int = 0, new_tokens: int = 32) -> list[dict]:
     cursors = [len(p) + new_tokens - 1 for p in smoke_prompts(seed)]
     return [paged_case(gen, cursors),
             contiguous_case(gen, pos=64 + new_tokens - 1)]
+
+
+#: the largest share of bf16 output elements that may differ from the
+#: plain version (``chip_smoke.py`` phase 2): order-only differences of
+#: the f32 score sums flip a rounding of p in about 0.02% of them, while
+#: p rounded against another max than the function's moves ~40%
+SHARE_BAR = 0.01
+
+
+def parity(seed: int = 0) -> list[dict]:
+    """Every :func:`parity_cases` case, the kernel against its plain
+    version: the max abs error, the bar (the parity rule; for bf16 also
+    ``lm_kernels_bench``'s element bar and at most :data:`SHARE_BAR` of
+    elements differing), the share of differing elements and, for bf16,
+    the error in ulps."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    out = []
+    for name, kernel, plain in parity_cases(seed):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok = LB.max_err(got, want, elem=True)
+        share = float((got != want).float().mean())
+        bf16 = want.dtype == torch.bfloat16
+        if bf16:
+            ok = ok and share <= SHARE_BAR
+        out.append(dict(name=name, err=err, ok=ok, share=share,
+                        reading=LB.elem_reading(got, want) if bf16 else ""))
+    return out
+
+
+def repeat_identical(seed: int = 0) -> dict:
+    """Whether two calls of each kernel at its main-path shape give
+    bit-identical outputs (no atomics, fixed orders)."""
+    return {c["name"]: bool(torch.equal(c["kernel"](), c["kernel"]()))
+            for c in main_path_cases(seed)}
+
+
+def build_report() -> tuple[list[str], list[str]]:
+    """The decode kernels' registers and spills from the build's
+    ``-Xptxas -v`` log, and the bf16 kernels that spill."""
+    from tpudist_torch.csrc import build
+
+    build.load()
+    lines, spilled = [], []
+    for k in build.register_report("decode_attention.cu"):
+        lines.append(f"{k['kernel']}: {k['registers']} registers, "
+                     f"{k.get('spill_stores', 0)} bytes spill stores, "
+                     f"{k.get('spill_loads', 0)} bytes spill loads")
+        if "bf16" in k["kernel"] and (k.get("spill_stores", 0)
+                                      or k.get("spill_loads", 0)):
+            spilled.append(k["kernel"])
+    return lines, spilled
+
+
+def in_turns(fa, fb, flush, n: int) -> tuple[list[float], list[float]]:
+    """Device times of ``fa`` and ``fb`` in turns, A B B A."""
+    ta, tb = [], []
+    for who in "ABBA":
+        t = device_ms(fa if who == "A" else fb, flush, n)
+        (ta if who == "A" else tb).append(t)
+    return ta, tb
 
 
 def main(argv=None) -> int:
@@ -155,6 +316,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time both kernels over cursors 0..1023 with the "
                     "L2 flushed and warm, beside the library call")
+    ap.add_argument("--parity", action="store_true",
+                    help="chip_smoke.py's phase 2: every parity case, the "
+                    "build report and the repeat check")
+    ap.add_argument("--split_ab", action="store_true",
+                    help="time the kernels with the cluster split (up to 8 "
+                    "parts) and without, in turns")
     ap.add_argument("-n", type=int, default=N_TIMED)
     args = ap.parse_args(argv)
     card = subprocess.run(
@@ -162,28 +329,42 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    if args.parity:
+        lines, spilled = build_report()
+        print("\n".join(lines))
+        res = parity()
+        for r in res:
+            print(f"{r['name']}: max_abs_err {r['err']:.3e}, {r['share']:.4%} "
+                  f"of elements differ {r['reading']} "
+                  f"{'ok' if r['ok'] else 'FAIL'}")
+        same = repeat_identical()
+        print(f"two calls bit-identical: {same}  [{card}]")
+        return 0 if all(r["ok"] for r in res) and all(same.values()) \
+            and not spilled else 1
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     if args.sweep:
         return sweep(card, flush, args.n)
     other = build.load(str(Path(args.ab).resolve())) if args.ab else None
-    for case in main_path_cases():
+    for case in main_path_cases() + long_cases():
         want = case["plain"]()
         err = float((case["kernel"]().float() - want.float()).abs().max())
         line = (f"{case['name']} [{case['shape']}]: bound "
                 f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}), "
                 f"max_abs_err {err:.3e}")
-        if other is None:
+        if args.split_ab:
+            ta, tb = in_turns(case["kernel"], _unsplit(case["kernel"]), flush,
+                              args.n)
+            line += (f", split up to 8 {[round(t * 1e3, 2) for t in ta]} us, "
+                     f"up to 1 {[round(t * 1e3, 2) for t in tb]} us")
+        elif other is None:
             t = device_ms(case["kernel"], flush, args.n)
             line += (f", kernel {t * 1e3:.2f} us, library "
                      f"{device_ms(case['library'], flush, args.n) * 1e3:.2f} us")
         else:
             err_b = float((case["kernel"](other).float() - want.float())
                           .abs().max())
-            ta, tb = [], []
-            for who in "ABBA":
-                lib = None if who == "A" else other
-                t = device_ms(lambda: case["kernel"](lib), flush, args.n)
-                (ta if who == "A" else tb).append(t)
+            ta, tb = in_turns(case["kernel"], lambda: case["kernel"](other),
+                              flush, args.n)
             line += (f", this checkout {[round(t * 1e3, 2) for t in ta]} us, "
                      f"{args.ab} {[round(t * 1e3, 2) for t in tb]} us "
                      f"(max_abs_err {err_b:.3e})")
@@ -193,9 +374,13 @@ def main(argv=None) -> int:
 
 def sweep(card: str, flush, n: int) -> int:
     """Kernel time against the cursor, with the L2 flushed (cold) and not
-    (warm: a 1 KB "flush"), beside the library call and the bound."""
+    (warm: a 1 KB "flush"), beside the library call and the bound; first
+    the floor of the method, the time of a one-element kernel."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     warm = torch.empty(1024, dtype=torch.uint8, device="cuda")
+    tiny = torch.empty(1, device="cuda")
+    print(f"floor: one one-element zero_() between the same events "
+          f"{device_ms(tiny.zero_, flush, n) * 1e3:.2f} us  [{card}]")
     cases = [contiguous_case(gen, pos=p) for p in (0, 95, 511, 1023)]
     cases += [paged_case(gen, [p] * 8) for p in (0, 31, 511, 1023)]
     for case in cases:
