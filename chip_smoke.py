@@ -15,8 +15,10 @@ Phases, each fatal on failure:
    pos 0 / 31 / 1023, GQA, B 4 at pos 1023, dh 20, 80 and 128; paged: bs
    32, a 1025-block pool, permuted tables, cursors at block start / end /
    mid-block / the table's end, GQA, s_q 5 and 16, dh 20, 80 and 128, and
-   eight rows all at cursor 1023; the contiguous B 4 and paged s_q 16 cases
-   also with the cluster split off; f32 and bf16). Tolerance: the repo's
+   eight rows all at cursor 1023; then grids that fill the card (contiguous
+   B 32 at pos 1023; paged B 32 at s_q 16 over 4096-slot tables), a
+   contiguous cursor at 65535 and paged blocks of 1024 slots at dh 256;
+   f32 and bf16). Tolerance: the repo's
    kernel-parity rule, 2e-5 absolute + relative in f32, 2% of the
    reference's max magnitude in bf16; in bf16 also lm_kernels_bench's
    element bar and at most 1% of the elements differing (a p rounded
@@ -27,7 +29,7 @@ Phases, each fatal on failure:
    version and one PyTorch library call computing the same function
    (scaled_dot_product_attention on the gathered windows, same mask), at
    the main path's shapes and at cursor 1023 (eight paged rows; B 4
-   contiguous);
+   contiguous), each output held to phase 2's bars first;
 4. the main path, served — GPT-2 124M at full width, bf16, random init
    from a seed, attn_impl="fused", ServeEngine(paged=True, block_size=32,
    max_slots=8): 8 requests (prompts 16..128 tokens, 32 new tokens, 6
@@ -193,10 +195,12 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def check(name, got, want, *, elem: bool = False) -> float:
+def check(name, got, want, *, elem: bool = False,
+          share_bar: float | None = None) -> float:
     """Hold ``got`` to ``want`` under the repo's kernel-parity rule
     (``lm_kernels_bench.parity_tol``); with ``elem`` a bf16 output is also
-    held element by element (``lm_kernels_bench.max_err``)."""
+    held element by element (``lm_kernels_bench.max_err``), and with
+    ``share_bar`` at most that share of its elements may differ."""
     import torch
 
     from tpudist_torch.ops import lm_kernels_bench as LB
@@ -206,6 +210,10 @@ def check(name, got, want, *, elem: bool = False) -> float:
     err, ok = LB.max_err(got, want, elem=elem)
     extra = (f", {LB.elem_reading(got, want)}"
              if elem and want.dtype == torch.bfloat16 else "")
+    if share_bar is not None and want.dtype == torch.bfloat16:
+        share = float((got != want).float().mean())
+        extra += f", {share:.4%} of elements differ"
+        ok = ok and share <= share_bar
     print(f"  {name}: max_abs_err {err:.3e} (atol {atol:.3e}, rtol {rtol:g})"
           f"{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -288,7 +296,7 @@ def main() -> int:
     kernels = []
     for case in DB.main_path_cases(SEED, NEW):
         err = check(f"{case['name']} timed config", case["kernel"](),
-                    case["plain"]())
+                    case["plain"](), elem=True, share_bar=DB.SHARE_BAR)
         kernels.append(dict(
             name=case["name"], route="cuda", source=SOURCES[case["name"]],
             replaces=REPLACES[case["name"]],
@@ -304,7 +312,8 @@ def main() -> int:
               f" us ({k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, "
               f"library {k['library_ms'] * 1e3:.2f} us  [{smi}]")
     for case in DB.long_cases(SEED):
-        check(f"{case['name']} at cursor 1023", case["kernel"](), case["plain"]())
+        check(f"{case['name']} at cursor 1023", case["kernel"](), case["plain"](),
+              elem=True, share_bar=DB.SHARE_BAR)
         ms = DB.device_ms(case["kernel"], flush)
         lib_ms = DB.device_ms(case["library"], flush)
         print(f"  {case['name']} [{case['shape']}]")

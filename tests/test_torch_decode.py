@@ -201,10 +201,10 @@ def test_contiguous_model_matches_pallas(dtype, gqa, pos, parts):
 @pytest.mark.parametrize("parts", [1, 3])
 def test_paged_model_matches_pallas(dtype, gqa, s_q, parts):
     """The paged kernel's arithmetic (tiles of two pool blocks; split
-    parts seeded with the max of all earlier pool blocks; unsplit walks in
-    chunks of two blocks carrying their sums over; the rescales folded
-    into the weights) against the Pallas paged kernel, cursors at block
-    start, block end, mid-block and the table's end."""
+    parts seeded with the max of all earlier pool blocks, each holding the
+    scores of its whole walk; the rescales folded into the weights)
+    against the Pallas paged kernel, cursors at block start, block end,
+    mid-block and the table's end."""
     jdt, tdt = DTYPES[dtype]
     h = 4
     q, k, v, bt, pos = _paged_fixture(3, b=6, h=h, h_kv=h // gqa, dh=16,
@@ -216,8 +216,38 @@ def test_paged_model_matches_pallas(dtype, gqa, s_q, parts):
         jnp.asarray(bt), jnp.asarray(pos), impl="paged")
     got = paged_model(_t(q, tdt), _t(k, tdt), _t(v, tdt),
                       torch.from_numpy(bt), torch.from_numpy(pos),
-                      parts=parts, gb=2, cb=2)
+                      parts=parts, gb=2)
     _hold_model(got, want)
+
+
+@pytest.mark.parametrize("dh", [20, 64, 80, 256])
+def test_dot_kernel_order_is_the_kernels_sum(dh):
+    """The plain versions' bf16 scores on the card (``dot_kernel_order``)
+    equal, bit for bit, a scalar float32 walk of the kernels' score loop:
+    lane l of 8 sums chunks l, l + 8, ... of 8 columns with an fma each
+    (exact in float64, then rounded, as a bf16 product is exact), and the
+    lanes meet by xor shuffles 4, 2, 1; and they stay within f32 rounding
+    of the einsum's sums."""
+    rng = np.random.Generator(np.random.PCG64(dh))
+    q = _t(rng.standard_normal((3, dh)), torch.bfloat16)
+    k = _t(rng.standard_normal((5, dh)), torch.bfloat16)
+    got = D.dot_kernel_order(q, k)
+    qn, kn = q.double().numpy(), k.double().numpy()
+    nc = (dh + 7) // 8
+    for r in range(3):
+        for t in range(5):
+            lanes = []
+            for gl in range(8):
+                a = np.float32(0.0)
+                for c in range(gl, nc, 8):
+                    for d in range(c * 8, min(c * 8 + 8, dh)):
+                        a = np.float32(np.float64(a) + qn[r, d] * kn[t, d])
+                lanes.append(a)
+            for o in (4, 2, 1):
+                lanes = [np.float32(lanes[i] + lanes[i ^ o]) for i in range(8)]
+            assert float(got[r, t]) == float(lanes[0]), (r, t)
+    want = torch.einsum("rd,td->rt", q.float(), k.float())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["contiguous", "paged"])

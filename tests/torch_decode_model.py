@@ -12,8 +12,8 @@ roundings in the same places, on the CPU in float32.
 - PV runs in column-owning partials: each of ``slices`` slot slices (slot
   t in slice t % slices) is summed on its own and the slices are added in
   order. The paged rescales are folded into the weights:
-  ``exp(m_j - m_end) * cast(exp(s - m_j))``, with the sums of an earlier
-  chunk carried over by ``exp(m_before - m_end)``.
+  ``exp(m_j - m_end) * cast(exp(s - m_j))``, each part holding the scores
+  of its whole walk.
 - The parts' numerators and denominators are combined in rank order
   (paged: each scaled from its own running max to the largest).
 
@@ -76,12 +76,11 @@ def contiguous_model(q, k, v, pos, *, parts=1, tile=16, slices=4,
 
 
 def paged_model(q, k_pool, v_pool, tables, positions, *, parts=1, gb=1,
-                cb=None, slices=4, own_max=False):
+                slices=4, own_max=False):
     """q ``[B, s_q, H, dh]``, pools ``[N, H_kv, bs, dh]``, tables ``[B,
     mb]``, positions ``[B]`` -> ``[B, s_q, H, dh]``: the paged kernel with
     each row's walk in units of ``gb`` pool blocks shared by ``parts``
-    parts; an unsplit walk goes in chunks of ``cb`` pool blocks (a
-    multiple of ``gb``; default: the whole walk)."""
+    parts."""
     b, s_q, h, dh = q.shape
     h_kv, bs = k_pool.shape[1], k_pool.shape[2]
     mb = tables.shape[1]
@@ -101,35 +100,24 @@ def paged_model(q, k_pool, v_pool, tables, positions, *, parts=1, gb=1,
         s = torch.where(slot[None, None, :] <= lim[None, :, None], s, NEG_INF)
         n_units = (nblk + gb - 1) // gb
         ranges = [(lo * gb, min(nblk, hi * gb)) for lo, hi in _split(n_units, parts)]
-        split = len(ranges) > 1
         block_max = s.reshape(h_kv, ratio * s_q, nblk, bs).amax(-1)
         nums, dens, ends = [], [], []
         for lo, hi in ranges:
             seed = (block_max[..., :lo].amax(-1) if lo and not own_max
                     else torch.full(block_max.shape[:2], NEG_INF))
-            step = hi - lo if split else (cb or hi - lo)
-            m, l = seed, torch.zeros_like(seed)
-            acc = torch.zeros(h_kv, ratio * s_q, dh)
-            for c0 in range(lo, hi, step):
-                c1 = min(hi, c0 + step)
-                run = torch.cummax(torch.cat(
-                    [m[..., None], block_max[..., c0:c1]], -1), -1).values[..., 1:]
-                m_end = run[..., -1]
-                carry = torch.exp(m - m_end)
-                m_j = run.repeat_interleave(bs, -1)  # per slot
-                sc = s[..., c0 * bs:c1 * bs]
-                e = torch.exp(sc - m_j)
-                f = torch.exp(m_j - m_end[..., None])
-                w = f * e.to(v_pool.dtype).float()
-                l = carry * l + (f * e).reshape(*e.shape[:2], c1 - c0, bs) \
-                    .sum(-1).sum(-1)
-                acc = carry[..., None] * acc + torch.stack([
-                    _pv(w[g], vw[g, c0 * bs:c1 * bs], slices)
-                    for g in range(h_kv)])
-                m = m_end
-            nums.append(acc)
-            dens.append(l)
-            ends.append(m)
+            # the running max m_j through each block, from the part's seed
+            run = torch.cummax(torch.cat(
+                [seed[..., None], block_max[..., lo:hi]], -1), -1).values[..., 1:]
+            m_end = run[..., -1]
+            m_j = run.repeat_interleave(bs, -1)  # per slot
+            e = torch.exp(s[..., lo * bs:hi * bs] - m_j)
+            f = torch.exp(m_j - m_end[..., None])
+            w = f * e.to(v_pool.dtype).float()
+            dens.append((f * e).reshape(*e.shape[:2], hi - lo, bs)
+                        .sum(-1).sum(-1))
+            nums.append(torch.stack([_pv(w[g], vw[g, lo * bs:hi * bs], slices)
+                                     for g in range(h_kv)]))
+            ends.append(m_end)
         top = torch.stack(ends).amax(0)
         num = sum(torch.exp(e - top)[..., None] * x for e, x in zip(ends, nums))
         den = sum(torch.exp(e - top) * x for e, x in zip(ends, dens))

@@ -163,9 +163,6 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             ]
             bwd.restype = I
     if hasattr(lib, "tpudist_decode_attention"):
-        for name in ("tpudist_decode_max_smem", "tpudist_decode_fixed_floats"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = I
         lib.tpudist_decode_attention.argtypes = [
             I, P, P, P, P, I, I, I, I, I, I, F, P,
         ]
@@ -174,9 +171,6 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
         ]
         lib.tpudist_paged_decode_attention.restype = I
-        if hasattr(lib, "tpudist_decode_set_max_split"):
-            lib.tpudist_decode_set_max_split.argtypes = [I]
-            lib.tpudist_decode_set_max_split.restype = I
 
 
 def _kernel_name(mangled: str) -> str:

@@ -52,8 +52,10 @@
 //   form a thread-block cluster and meet in distributed shared memory. A
 //   launch takes the most parts (up to 8) whose clusters the card holds at
 //   once (cudaOccupancyMaxActiveClusters), each with at least one whole
-//   tile; a row with fewer tiles' worth of work than parts is walked by
-//   fewer, by rank 0 alone (no cluster barrier) when it has one. The parts
+//   tile; failing that (a full grid), the fewest parts whose scores fit in
+//   shared memory: a part holds the scores of its whole walk. A row with
+//   fewer tiles' worth of work than parts is walked by fewer, by rank 0
+//   alone (no cluster barrier) when it has one. The parts
 //   push their maxes to each other before any p is formed: the contiguous
 //   parts round p against the global max, and the paged parts seed their
 //   running max with the max of all earlier pool blocks (the parts before
@@ -77,6 +79,8 @@
 
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -93,16 +97,8 @@ constexpr int kTileBytes = 16384;   // most bytes one K or V tile holds
 constexpr int kMaxTileKeys = 128;
 constexpr int kMaxPairs = 4;        // (row, 8-column chunk) pairs a thread owns
 constexpr int kMaxSplit = 8;        // the portable cluster size
-constexpr int kScoreBudget = 8192;  // floats of paged scores per chunk
 constexpr int kRedFloats = kThreads * 8;
 constexpr int kMaxSmem = 227 * 1024;
-// shared floats besides the [pos + 1] score row of a one-row contiguous
-// block: the ring, q, the per-thread partials, the block's sums, the row
-// statistics, alignment and the last tile's rounding (the wrapper's check)
-constexpr int kDecodeFixed =
-    kStages * kTileBytes / 4 + 2 * kMaxDh + kRedFloats + 256;
-
-int g_max_split = kMaxSplit;  // tpudist_decode_set_max_split
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -224,7 +220,7 @@ struct Params {
   int pairs;  // rows * nc (row, chunk) pairs in PV
   int nsl;    // slot slices per pair (pairs <= kThreads), else 1
   int S, pos;     // contiguous
-  int bs, mb, cb; // paged: pool blocks per chunk (a multiple of gb)
+  int bs, mb, bpp; // paged: the most pool blocks a part walks
   int sc_cols;    // score columns per row
   int nsplit;     // parts per (b, kv head): the cluster size
   float scale;
@@ -246,8 +242,8 @@ __host__ __device__ inline Layout layout(const Params& p, int item) {
   L.sc = at; at = align16(at + 4 * (size_t)p.rows * p.sc_cols);
   L.acc = at; at = align16(at + 4 * (size_t)p.rows * p.dp);
   L.red = at; at = align16(at + 4 * (size_t)(p.nsl > 1 ? kRedFloats : 0));
-  L.st = at; at = align16(at + 4 * 4 * (size_t)p.rows);
-  L.blk = at; at = align16(at + 4 * 2 * (size_t)p.rows * p.cb);
+  L.st = at; at = align16(at + 4 * 3 * (size_t)p.rows);
+  L.blk = at; at = align16(at + 4 * 2 * (size_t)p.rows * p.bpp);
   L.fac = at; at = align16(at + 4 * (size_t)p.rows * (kMaxSplit + 1));
   L.mxall = at; at = align16(at + 4 * (size_t)p.rows * kMaxSplit);
   L.gather = at;  // the leader's copy of every part's sums
@@ -275,9 +271,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Params p) {
   float* m_s = reinterpret_cast<float*>(smem + L.st);    // running max
   float* l_s = m_s + rows;                               // denominators
   float* mx_s = l_s + rows;                              // this part's max
-  float* cf_s = mx_s + rows;  // carry factor of the sums into a chunk
-  float* bm_s = reinterpret_cast<float*>(smem + L.blk);  // [rows][cb] maxes
-  float* bsum_s = bm_s + rows * p.cb;                    // [rows][cb] sums
+  float* bm_s = reinterpret_cast<float*>(smem + L.blk);  // [rows][bpp] maxes
+  float* bsum_s = bm_s + rows * p.bpp;                   // [rows][bpp] sums
   float* fac = reinterpret_cast<float*>(smem + L.fac);   // [rows][9]
   float* mxall = reinterpret_cast<float*>(smem + L.mxall);  // [part][rows]
   float* gather = reinterpret_cast<float*>(smem + L.gather);
@@ -339,39 +334,25 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Params p) {
     if (hi > nblk) hi = nblk;
   }
   const int nb = hi - lo;
-  // paged: one chunk per part when split, else chunks of cb blocks
-  const int nch = kPaged ? (split ? 1 : (nb + p.cb - 1) / p.cb) : 1;
-  auto k_tiles = [&](int nbc) {  // K tiles of a chunk of nbc pool blocks
-    return p.spb == 1 ? (nbc + p.gb - 1) / p.gb : nbc * p.spb;
-  };
-  const int tpc = kPaged ? 2 * k_tiles(p.cb) : 2 * nb;  // tiles per chunk
-  int total;
-  if (kPaged)
-    total = nb == 0 ? 0 : (nch - 1) * tpc + 2 * k_tiles(nb - (nch - 1) * p.cb);
-  else
-    total = 2 * nb;
+  // K tiles of the walk: the same number of V tiles follow them
+  const int nkt = kPaged ? (p.spb == 1 ? (nb + p.gb - 1) / p.gb : nb * p.spb)
+                         : nb;
+  const int total = 2 * nkt;
 
-  // tile i of the block's stream: its chunk, first pool block and pool
-  // blocks (paged), first key within the pool block, keys, the score
-  // column and logical slot of its first key, whether it holds V, and
-  // whether it is the chunk's first V tile
+  // tile i of the block's stream: its first pool block of the part's walk
+  // (paged), first key within the pool block, keys, the score column and
+  // logical slot of its first key, and whether it holds V
   struct Tile {
-    int c, jj0, t0, nk, col, slot, is_v, first;
+    int jj0, t0, nk, col, slot, is_v;
   };
   auto tile_at = [&](int i) {
     Tile t;
+    t.is_v = i >= nkt;
+    const int ii = t.is_v ? i - nkt : i;
     if (kPaged) {
-      t.c = i / tpc;
-      int ii = i - t.c * tpc;
-      int nbc = nb - t.c * p.cb;
-      if (nbc > p.cb) nbc = p.cb;
-      const int nkt = k_tiles(nbc);
-      t.is_v = ii >= nkt;
-      if (t.is_v) ii -= nkt;
-      t.first = t.is_v && ii == 0;
       if (p.spb == 1) {
         t.jj0 = ii * p.gb;
-        const int nbt = nbc - t.jj0 < p.gb ? nbc - t.jj0 : p.gb;
+        const int nbt = nb - t.jj0 < p.gb ? nb - t.jj0 : p.gb;
         t.t0 = 0;
         t.nk = nbt * p.bs;
       } else {
@@ -380,16 +361,12 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Params p) {
         t.nk = p.bs - t.t0 < p.tk ? p.bs - t.t0 : p.tk;
       }
       t.col = t.jj0 * p.bs + t.t0;
-      t.slot = (lo + t.c * p.cb) * p.bs + t.col;
+      t.slot = lo * p.bs + t.col;
     } else {
-      t.c = 0;
-      t.is_v = i >= nb;
-      const int idx = t.is_v ? i - nb : i;
-      t.first = 0;
       t.jj0 = 0;
       t.t0 = 0;
-      t.col = idx * p.tk;
-      t.slot = (lo + idx) * p.tk;
+      t.col = ii * p.tk;
+      t.slot = (lo + ii) * p.tk;
       t.nk = pos + 1 - t.slot < p.tk ? pos + 1 - t.slot : p.tk;
     }
     return t;
@@ -400,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Params p) {
     if (kPaged) {
       const int jb = p.spb == 1 ? kk / p.bs : 0;
       const int key = p.spb == 1 ? kk - jb * p.bs : t.t0 + kk;
-      const int blk = tab[t.c * p.cb + t.jj0 + jb];
+      const int blk = tab[t.jj0 + jb];
       return base + (((size_t)blk * p.H_kv + hk) * p.bs + key) * dh;
     }
     return base + (((size_t)b * p.H_kv + hk) * p.S + t.slot + kk) * dh;
@@ -534,11 +511,6 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Params p) {
       const int pr = pair_of(a);
       if ((sliced && a > 0) || pr >= p.pairs) continue;
       const int r = pr / p.nc, c = pr % p.nc;
-      if (kPaged && t.first) {
-        const float f = cf_s[r];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[a][e] *= f;
-      }
       const float* wr = sc + (size_t)r * p.sc_cols + t.col;
 #pragma unroll 4
       for (int s = sl; s < t.nk; s += nsl) {
@@ -551,120 +523,113 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Params p) {
     }
   };
 
-  // the walk: per chunk, the K tiles (scores), the softmax, the V tiles (PV)
-  for (int c = 0; c < nch; ++c) {
-    const int nbc = kPaged ? (nb - c * p.cb < p.cb ? nb - c * p.cb : p.cb) : nb;
-    const int nkt = kPaged ? k_tiles(nbc) : nb;
-    for (int i = 0; i < nkt; ++i) {
-      const Tile t = tile_at(cur);
-      scores(next(), t);
+  // the walk: the K tiles (scores), the softmax, the V tiles (PV)
+  for (int i = 0; i < nkt; ++i) {
+    const Tile t = tile_at(cur);
+    scores(next(), t);
+  }
+  __syncthreads();
+  const int ncols = kPaged ? nb * p.bs
+                           : (nb == 0 ? 0 : (pos + 1 - lo * p.tk < nb * p.tk
+                                                 ? pos + 1 - lo * p.tk
+                                                 : nb * p.tk));
+  if (split) {
+    // this part's max, then the cluster's: the global max (contiguous),
+    // or the max of all earlier pool blocks as the paged seed
+    for (int r = w; r < rows; r += kWarps) {
+      float x = kNegInf;
+      for (int s = lane; s < ncols; s += kWarp)
+        x = fmaxf(x, sc[(size_t)r * p.sc_cols + s]);
+      x = warp_max(x);
+      if (lane == 0) mx_s[r] = x;
     }
     __syncthreads();
-    const int ncols = kPaged ? nbc * p.bs
-                             : (nb == 0 ? 0 : (pos + 1 - lo * p.tk < nb * p.tk
-                                                   ? pos + 1 - lo * p.tk
-                                                   : nb * p.tk));
-    if (split) {
-      // this part's max, then the cluster's: the global max (contiguous),
-      // or the max of all earlier pool blocks as the paged seed
-      for (int r = w; r < rows; r += kWarps) {
+    cluster_wait();  // every block has started: its memory may be written
+    if (part < ns_eff)  // push this part's max to every part
+      for (int x = tid; x < ns_eff * rows; x += kThreads)
+        cluster.map_shared_rank(mxall, x / rows)[part * rows + x % rows] =
+            mx_s[x % rows];
+    cluster_arrive();
+    cluster_wait();
+    for (int r = tid; r < rows; r += kThreads) {
+      float m = kNegInf;
+      const int upto = kPaged ? (part < ns_eff ? part : ns_eff) : ns_eff;
+      for (int q = 0; q < upto; ++q) m = fmaxf(m, mxall[q * rows + r]);
+      m_s[r] = m;
+    }
+    __syncthreads();
+  }
+  if (kPaged) {
+    // the online softmax, with the rescales folded into the weights:
+    // each pool block's max, a warp per (row, block); the running max
+    // m_j through each block from the part's seed, a thread per row; then
+    // a warp per (row, block) writes w = exp(m_j - m_end) * cast(exp(s -
+    // m_j)), p rounded against m_j exactly as the serial walk rounds it,
+    // and the block's sum of the unrounded p likewise scaled
+    for (int x = w; x < rows * nb; x += kWarps) {
+      const int r = x / nb, jj = x - r * nb;
+      const float* sb = sc + (size_t)r * p.sc_cols + jj * p.bs;
+      float mx = kNegInf;
+      for (int s = lane; s < p.bs; s += kWarp) mx = fmaxf(mx, sb[s]);
+      mx = warp_max(mx);
+      if (lane == 0) bm_s[r * p.bpp + jj] = mx;
+    }
+    __syncthreads();
+    for (int r = tid; r < rows; r += kThreads) {
+      float m = m_s[r];
+      for (int jj = 0; jj < nb; ++jj) {
+        m = fmaxf(m, bm_s[r * p.bpp + jj]);
+        bm_s[r * p.bpp + jj] = m;
+      }
+      m_s[r] = m;
+    }
+    __syncthreads();
+    for (int x = w; x < rows * nb; x += kWarps) {
+      const int r = x / nb, jj = x - r * nb;
+      float* sb = sc + (size_t)r * p.sc_cols + jj * p.bs;
+      const float m_j = bm_s[r * p.bpp + jj];
+      const float f = expf(m_j - m_s[r]);
+      float sum = 0.f;
+      for (int s = lane; s < p.bs; s += kWarp) {
+        const float e = expf(sb[s] - m_j);
+        sb[s] = f * round_to<T>(e);
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) bsum_s[r * p.bpp + jj] = f * sum;
+    }
+    __syncthreads();
+    for (int r = tid; r < rows; r += kThreads) {
+      float l = 0.f;
+      for (int jj = 0; jj < nb; ++jj) l += bsum_s[r * p.bpp + jj];
+      l_s[r] = l;
+    }
+  } else {
+    for (int r = w; r < rows; r += kWarps) {
+      float* srow = sc + (size_t)r * p.sc_cols;
+      float m = m_s[r];
+      if (!split) {
         float x = kNegInf;
-        for (int s = lane; s < ncols; s += kWarp)
-          x = fmaxf(x, sc[(size_t)r * p.sc_cols + s]);
-        x = warp_max(x);
-        if (lane == 0) mx_s[r] = x;
+        for (int s = lane; s < ncols; s += kWarp) x = fmaxf(x, srow[s]);
+        m = warp_max(x);
       }
-      __syncthreads();
-      cluster_wait();  // every block has started: its memory may be written
-      if (part < ns_eff)  // push this part's max to every part
-        for (int x = tid; x < ns_eff * rows; x += kThreads)
-          cluster.map_shared_rank(mxall, x / rows)[part * rows + x % rows] =
-              mx_s[x % rows];
-      cluster_arrive();
-      cluster_wait();
-      for (int r = tid; r < rows; r += kThreads) {
-        float m = kNegInf;
-        const int upto = kPaged ? (part < ns_eff ? part : ns_eff) : ns_eff;
-        for (int q = 0; q < upto; ++q) m = fmaxf(m, mxall[q * rows + r]);
+      float sum = 0.f;
+      for (int s = lane; s < ncols; s += kWarp) {
+        const float e = expf(srow[s] - m);
+        srow[s] = round_to<T>(e);
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
         m_s[r] = m;
-      }
-      __syncthreads();
-    }
-    if (kPaged) {
-      // the online softmax, with the rescales folded into the weights:
-      // each pool block's max, a warp per (row, block); the running max
-      // m_j through each block, a thread per row; then a warp per (row,
-      // block) writes w = exp(m_j - m_end) * cast(exp(s - m_j)), p rounded
-      // against m_j exactly as the serial walk rounds it, and the block's
-      // sum of the unrounded p likewise scaled; the sums from before the
-      // chunk carry over by exp(m_before - m_end)
-      for (int x = w; x < rows * nbc; x += kWarps) {
-        const int r = x / nbc, jj = x - r * nbc;
-        const float* sb = sc + (size_t)r * p.sc_cols + jj * p.bs;
-        float mx = kNegInf;
-        for (int s = lane; s < p.bs; s += kWarp) mx = fmaxf(mx, sb[s]);
-        mx = warp_max(mx);
-        if (lane == 0) bm_s[r * p.cb + jj] = mx;
-      }
-      __syncthreads();
-      for (int r = tid; r < rows; r += kThreads) {
-        const float before = m_s[r];
-        float m = before;
-        for (int jj = 0; jj < nbc; ++jj) {
-          m = fmaxf(m, bm_s[r * p.cb + jj]);
-          bm_s[r * p.cb + jj] = m;
-        }
-        cf_s[r] = expf(before - m);
-        m_s[r] = m;
-      }
-      __syncthreads();
-      for (int x = w; x < rows * nbc; x += kWarps) {
-        const int r = x / nbc, jj = x - r * nbc;
-        float* sb = sc + (size_t)r * p.sc_cols + jj * p.bs;
-        const float m_j = bm_s[r * p.cb + jj];
-        const float f = expf(m_j - m_s[r]);
-        float sum = 0.f;
-        for (int s = lane; s < p.bs; s += kWarp) {
-          const float e = expf(sb[s] - m_j);
-          sb[s] = f * round_to<T>(e);
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) bsum_s[r * p.cb + jj] = f * sum;
-      }
-      __syncthreads();
-      for (int r = tid; r < rows; r += kThreads) {
-        float l = cf_s[r] * l_s[r];
-        for (int jj = 0; jj < nbc; ++jj) l += bsum_s[r * p.cb + jj];
-        l_s[r] = l;
-      }
-    } else {
-      for (int r = w; r < rows; r += kWarps) {
-        float* srow = sc + (size_t)r * p.sc_cols;
-        float m = m_s[r];
-        if (!split) {
-          float x = kNegInf;
-          for (int s = lane; s < ncols; s += kWarp) x = fmaxf(x, srow[s]);
-          m = warp_max(x);
-        }
-        float sum = 0.f;
-        for (int s = lane; s < ncols; s += kWarp) {
-          const float e = expf(srow[s] - m);
-          srow[s] = round_to<T>(e);
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          m_s[r] = m;
-          l_s[r] = sum;
-        }
+        l_s[r] = sum;
       }
     }
-    // the V tiles' first next() is the barrier that publishes the weights
-    for (int i = 0; i < nkt; ++i) {
-      const Tile t = tile_at(cur);
-      pv(next(), t);
-    }
+  }
+  // the V tiles' first next() is the barrier that publishes the weights
+  for (int i = 0; i < nkt; ++i) {
+    const Tile t = tile_at(cur);
+    pv(next(), t);
   }
 
   // the partials, summed across slices in a fixed order
@@ -760,8 +725,8 @@ void shape(Params& p, int hb) {
   p.nsl = p.pairs <= kThreads ? kThreads / p.pairs : 1;
 }
 
-// tiles, chunks and score columns for `ns` parts; false if `ns` parts
-// would not each get a tile (contiguous)
+// tiles and score columns for `ns` parts, each holding the scores of its
+// whole walk; false if `ns` parts would not each get a tile (contiguous)
 template <bool kPaged>
 bool configure(Params& p, int ns, int item) {
   p.nsplit = ns;
@@ -782,16 +747,8 @@ bool configure(Params& p, int ns, int item) {
       p.tile_rows = tk;
     }
     const int units = (p.mb + p.gb - 1) / p.gb;
-    if (ns > 1) {
-      // a split part holds all its scores: its blocks' max is exchanged
-      // before its walk
-      p.cb = (units + ns - 1) / ns * p.gb;
-    } else {
-      int cb = kScoreBudget / (p.rows * p.bs) / p.gb * p.gb;
-      if (cb < p.gb) cb = p.gb;
-      p.cb = cb < units * p.gb ? cb : units * p.gb;
-    }
-    p.sc_cols = p.cb * p.bs;
+    p.bpp = (units + ns - 1) / ns * p.gb;
+    p.sc_cols = p.bpp * p.bs;
     return true;
   }
   // every part gets at least one whole tile: below that the cluster's
@@ -804,24 +761,29 @@ bool configure(Params& p, int ns, int item) {
   p.spb = 1;
   p.sc_cols = (ntiles + ns - 1) / ns * tk;
   p.mb = 0;
-  p.cb = 0;
+  p.bpp = 0;
   return true;
 }
 
-// the blocks of `ns`-block clusters the card holds at once with `smem`
-// bytes each (cached: the occupancy query costs host time)
+// the blocks of `ns`-block clusters the current device holds at once with
+// `smem` bytes each (cached per device: the occupancy query costs host time)
 template <typename Kernel>
 int resident_blocks(Kernel kernel, size_t smem, int ns) {
   struct Entry {
     const void* k;
     size_t smem;
-    int ns, blocks;
+    int dev, ns, blocks;
   };
   static Entry cache[64];
   static int used = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaGetDevice(&dev);
   const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> hold(mu);
   for (int i = 0; i < used; ++i)
-    if (cache[i].k == key && cache[i].smem == smem && cache[i].ns == ns)
+    if (cache[i].k == key && cache[i].smem == smem && cache[i].dev == dev &&
+        cache[i].ns == ns)
       return cache[i].blocks;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ns, 1, 1);
@@ -839,7 +801,7 @@ int resident_blocks(Kernel kernel, size_t smem, int ns) {
     cudaGetLastError();
     clusters = 0;
   }
-  if (used < 64) cache[used++] = Entry{key, smem, ns, clusters * ns};
+  if (used < 64) cache[used++] = Entry{key, smem, dev, ns, clusters * ns};
   return clusters * ns;
 }
 
@@ -849,21 +811,16 @@ int launch(Params p, int B, cudaStream_t stream) {
   const int ratio = p.H / p.H_kv;
   const int mb = p.mb;
   auto kernel = decode_kernel<T, kPaged>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  // per launch: the attribute belongs to the current device
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return (int)err;
   p.vec = (p.dh * item) % 16 == 0 && (uintptr_t)p.k % 16 == 0 &&
           (uintptr_t)p.v % 16 == 0;
   // the most heads a block serves: its pairs fit kMaxPairs per thread
   shape(p, 1);
   const int row_cap = kMaxPairs * kThreads / p.nc;
   int hb = divisor_at_most(ratio, row_cap / p.s_q > 0 ? row_cap / p.s_q : 1);
-  int cap = kMaxSplit < g_max_split ? kMaxSplit : g_max_split;
-  if (cap < 1) cap = 1;
   int ns = 0;
   size_t smem = 0;
   for (;;) {
@@ -872,7 +829,7 @@ int launch(Params p, int B, cudaStream_t stream) {
     // the most parts whose clusters the card holds at once; failing that,
     // the fewest parts whose scores fit
     int fallback = 0;
-    for (int n = cap; n >= 1; --n) {
+    for (int n = kMaxSplit; n >= 1; --n) {
       p.mb = mb;
       if (!configure<kPaged>(p, n, item)) continue;
       const size_t need = layout(p, item).total;
@@ -905,7 +862,7 @@ int launch(Params p, int B, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -914,18 +871,10 @@ int launch(Params p, int B, cudaStream_t stream) {
 
 extern "C" {
 
-// limits the Python wrappers check before a launch (the head dim against
-// MAX_HEAD_DIM in ops/decode.py, which must equal kMaxDh)
-int tpudist_decode_max_smem() { return kMaxSmem; }
-int tpudist_decode_fixed_floats() { return kDecodeFixed; }
-
-// the most parts (cluster blocks) a launch splits one (b, kv head) into,
-// 1..8 (default 8); returns the previous value. For measurements only.
-int tpudist_decode_set_max_split(int n) {
-  const int old = g_max_split;
-  g_max_split = n < 1 ? 1 : (n > kMaxSplit ? kMaxSplit : n);
-  return old;
-}
+// Both entry points return cudaErrorInvalidValue for what the kernels do
+// not take, an input whose scores fit in no split among them (the
+// wrappers check the head dim against MAX_HEAD_DIM in ops/decode.py,
+// which must equal kMaxDh).
 
 // dtype: 0 = float32, 1 = bfloat16
 int tpudist_decode_attention(int dtype, const void* q, const void* k,

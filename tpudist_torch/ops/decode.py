@@ -39,7 +39,10 @@ rounded where the serial function rounds it. PERF.md has their times
 against the bound.
 
 The wrappers take the plain version only for tensors on the CPU. On a
-CUDA tensor they launch the kernel or raise.
+CUDA tensor they launch the kernel or raise, as the kernel's launch does
+(``RuntimeError``) for an input whose scores fit in shared memory in no
+split: a part holds the scores of its whole walk, so the longest cursor
+taken falls with the query rows a block serves (``s_q`` times the heads).
 """
 
 from __future__ import annotations
@@ -152,6 +155,43 @@ def cached_kv(cache: dict, k, v, *, positions=None, block_tables=None):
 
 
 # ---------------------------------------------------------------------------
+# scores
+
+
+def dot_kernel_order(q, k):
+    """``[..., R, T]`` f32 dot products of bf16 ``q [..., R, dh]`` and
+    ``k [..., T, dh]``, summed in the CUDA kernels' order: lane ``l`` of a
+    group of 8 adds the 8-column chunks ``l, l + 8, ...`` in turn, element
+    by element (a product of two bf16 values is exact in f32, so the
+    kernels' fma is this add), and the 8 lanes meet by xor shuffles 4, 2,
+    1. The f32 sum's order decides where p = exp(s - m) rounds to bf16."""
+    dh = q.shape[-1]
+    pad = -dh % 64  # zero columns add exact zeros
+    qf = torch.nn.functional.pad(q.float(), (0, pad))
+    kf = torch.nn.functional.pad(k.float(), (0, pad))
+    steps = (dh + pad) // 64
+    prod = (qf[..., :, None, :] * kf[..., None, :, :]).unflatten(
+        -1, (steps, 8, 8))  # [..., R, T, step, lane, element]
+    a = torch.zeros(prod.shape[:-3] + (8,), device=q.device)
+    for i in range(steps):
+        for e in range(8):
+            a = a + prod[..., i, :, e]
+    a = a + a[..., [4, 5, 6, 7, 0, 1, 2, 3]]
+    a = a + a[..., [2, 3, 0, 1, 6, 7, 4, 5]]
+    return a[..., 0] + a[..., 1]
+
+
+def _dot(q, k):
+    """f32 ``q . k`` over the last axis (``[..., R, dh]``, ``[..., T, dh]``
+    -> ``[..., R, T]``); bf16 operands on the card sum in the kernels'
+    order (:func:`dot_kernel_order`), so a check of the kernels' bf16
+    output sees where they round p, not how an einsum orders its sums."""
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        return dot_kernel_order(q, k)
+    return torch.einsum("...rd,...td->...rt", q.float(), k.float())
+
+
+# ---------------------------------------------------------------------------
 # contiguous decode attention
 
 
@@ -164,10 +204,8 @@ def fused_decode_attention_plain(q, keys, values, pos: int):
     h_kv = keys.shape[1]
     ratio = h // h_kv
     sm_scale = 1.0 / float(np.sqrt(dh))
-    qh = q.reshape(b, h_kv, ratio, dh).float()
-    kw = keys[:, :, :pos + 1].float()
+    s = _dot(q.reshape(b, h_kv, ratio, dh), keys[:, :, :pos + 1]) * sm_scale
     vw = values[:, :, :pos + 1]
-    s = torch.einsum("bgrd,bgtd->bgrt", qh, kw) * sm_scale
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -218,9 +256,6 @@ def fused_decode_attention_cuda(q, keys, values, pos: int, *, lib=None):
     if not 0 <= pos < s_len:
         raise ValueError(f"pos {pos} outside [0, {s_len})")
     lib = lib or build.load()
-    smem = 4 * (lib.tpudist_decode_fixed_floats() + pos + 1)
-    if smem > lib.tpudist_decode_max_smem():
-        raise ValueError(f"pos {pos}: {smem} B of shared memory exceeds the card's")
     out = torch.empty_like(q)
     rc = lib.tpudist_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), keys.data_ptr(),
@@ -228,7 +263,8 @@ def fused_decode_attention_cuda(q, keys, values, pos: int, *, lib=None):
         ctypes.c_float(1.0 / float(np.sqrt(dh))),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    build.check(lib, rc, "fused_decode_attention")
+    build.check(lib, rc, f"fused_decode_attention (B {b}, H {h}, H_kv {h_kv}, "
+                         f"dh {dh}, pos {pos})")
     launch_counts["fused_decode_attention"] += 1
     return out
 
@@ -287,7 +323,7 @@ def paged_fused_attention_plain(q, k_pool, v_pool, block_tables, positions):
     ratio = h // h_kv
     sm_scale = 1.0 / float(np.sqrt(dh))
     dev = q.device
-    qh = q.permute(0, 2, 1, 3).reshape(b, h_kv, ratio, s_q, dh).float()
+    qh = q.permute(0, 2, 1, 3).reshape(b, h_kv, ratio * s_q, dh)
     pos = positions.long()
     last = torch.div(pos + s_q - 1, bs, rounding_mode="floor").clamp(max=mb - 1)
     row_lim = pos[:, None] + torch.arange(s_q, device=dev)[None, :]  # [B, s_q]
@@ -296,9 +332,8 @@ def paged_fused_attention_plain(q, k_pool, v_pool, block_tables, positions):
     acc = torch.zeros((b, h_kv, ratio, s_q, dh), device=dev)
     for j in range(mb):
         blk = block_tables[:, j].long()
-        kb = k_pool[blk].float()  # [B, H_kv, bs, dh]
         vb = v_pool[blk]
-        s = torch.einsum("bgrqd,bgtd->bgrqt", qh, kb) * sm_scale
+        s = _dot(qh, k_pool[blk]).reshape(b, h_kv, ratio, s_q, bs) * sm_scale
         slot = j * bs + torch.arange(bs, device=dev)
         allowed = slot[None, None, :] <= row_lim[:, :, None]  # [B, s_q, bs]
         s = torch.where(allowed[:, None, None], s, NEG_INF)
@@ -344,12 +379,6 @@ def paged_fused_attention_cuda(q, k_pool, v_pool, block_tables, positions,
         raise ValueError(f"positions must be int32 [{b}]")
     mb = block_tables.shape[1]
     lib = lib or build.load()
-    # the least the kernel takes: one query head, one tile of scores and
-    # block statistics
-    smem = 4 * (lib.tpudist_decode_fixed_floats()
-                + s_q * (2 * dh + 3 * max(bs, 128) + 16) + mb)
-    if smem > lib.tpudist_decode_max_smem():
-        raise ValueError(f"block_size {bs}: {smem} B of shared memory exceeds the card's")
     out = torch.empty_like(q)
     rc = lib.tpudist_paged_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
@@ -358,7 +387,8 @@ def paged_fused_attention_cuda(q, k_pool, v_pool, block_tables, positions,
         ctypes.c_float(1.0 / float(np.sqrt(dh))),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    build.check(lib, rc, "paged_decode_attention")
+    build.check(lib, rc, f"paged_decode_attention (B {b}, s_q {s_q}, H {h}, "
+                         f"H_kv {h_kv}, dh {dh}, bs {bs}, max_blocks {mb})")
     launch_counts["paged_decode_attention"] += 1
     return out
 

@@ -5,7 +5,6 @@
                                                            # source of the same C interface
     python -m tpudist_torch.ops.decode_bench --sweep       # over cursors, L2 cold and warm
     python -m tpudist_torch.ops.decode_bench --parity      # chip_smoke.py's phase 2 cases
-    python -m tpudist_torch.ops.decode_bench --split_ab    # split up to 8 vs none, in turns
 
 The timed shapes are the main path's (the paged kernel at the served
 batch's cursors, the contiguous kernel at ``generate()``'s last step) and
@@ -157,9 +156,11 @@ def parity_cases(seed: int = 0):
     bs 32 over a 1025-block pool with permuted tables, cursors at block
     start / end / mid-block / the table's end, GQA H_kv 6, s_q 5 and 16,
     dh 20, 80 (H_kv 4, s_q 3) and 128, and eight rows all at cursor 1023;
-    float32 and bfloat16 throughout. Two cases run with the cluster split
-    off: contiguous B 4 at pos 1023 (one block walks every tile) and paged
-    s_q 16 (its scores take two chunks, the sums carried across)."""
+    float32 and bfloat16 throughout. Then the launch's other choices and
+    limits: grids that fill the card (contiguous B 32 at pos 1023, one
+    part a row; paged B 32 at s_q 16 over 4096-slot tables, whose scores
+    fit only in two parts), a cursor past 40k (contiguous B 1, pos 65535)
+    and pool blocks of 1024 slots at dh 256 and s_q 16."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     dev = torch.device("cuda")
     h, s_len, bs = 12, 1024, 32
@@ -185,12 +186,6 @@ def parity_cases(seed: int = 0):
                                          q, k, v, pos),
                        functools.partial(D.fused_decode_attention_plain,
                                          q, k, v, pos))
-                if b == 4:
-                    yield (f"contiguous {dn} B=4 pos={pos}, split off",
-                           _unsplit(D.fused_decode_attention_cuda, q, k, v,
-                                    pos),
-                           functools.partial(D.fused_decode_attention_plain,
-                                             q, k, v, pos))
         for h_kv, s_q, dh, at_end in ((h, 1, 64, False), (h // 2, 1, 64, False),
                                       (h, 5, 64, False), (h, 16, 64, False),
                                       (h, 1, 20, False), (4, 3, 80, False),
@@ -209,29 +204,33 @@ def parity_cases(seed: int = 0):
                    f"{'1023 x 8' if at_end else 'mixed'}",
                    functools.partial(D.paged_fused_attention_cuda, *args),
                    functools.partial(D.paged_fused_attention_plain, *args))
-            if s_q == 16:
-                yield (f"paged {dn} s_q=16 cursors=mixed, split off",
-                       _unsplit(D.paged_fused_attention_cuda, *args),
-                       functools.partial(D.paged_fused_attention_plain, *args))
-
-
-def _unsplit(kernel, *args):
-    """``kernel(*args)`` with the cluster split off."""
-    def run():
-        old = set_max_split(1)
-        try:
-            return kernel(*args)
-        finally:
-            set_max_split(old)
-    return run
-
-
-def set_max_split(n: int) -> int:
-    """Cap this checkout's kernels' cluster split at ``n`` parts (1..8);
-    returns the previous cap."""
-    from tpudist_torch.csrc import build
-
-    return build.load().tpudist_decode_set_max_split(n)
+        for b, n_slots in ((32, 1024), (1, 65536)):
+            pos = n_slots - 1
+            k = rnd(b, h, n_slots, 64, dtype=dtype)
+            v = rnd(b, h, n_slots, 64, dtype=dtype)
+            q = rnd(b, 1, h, 64, dtype=dtype)
+            yield (f"contiguous {dn} B={b} S={n_slots} pos={pos}",
+                   functools.partial(D.fused_decode_attention_cuda,
+                                     q, k, v, pos),
+                   functools.partial(D.fused_decode_attention_plain,
+                                     q, k, v, pos))
+        for b, hq, h_kv, dh, bsz, mbz, fixed in (
+                (32, h, h, 64, 32, 128, [0, 31, 32, 63, 500, 1008, 4080]),
+                (2, 4, 2, 256, 1024, 4, [1500, 4080])):
+            n_blk = b * mbz + 1
+            kp = rnd(n_blk, h_kv, bsz, dh, dtype=dtype)
+            vp = rnd(n_blk, h_kv, bsz, dh, dtype=dtype)
+            q = rnd(b, 16, hq, dh, dtype=dtype)
+            perm = torch.randperm(n_blk - 1, generator=gen)[: b * mbz] + 1
+            tables = perm.reshape(b, mbz).to(dev, torch.int32)
+            cur = fixed + torch.randint(0, mbz * bsz - 15, (b - len(fixed),),
+                                        generator=gen).tolist()
+            args = (q, kp, vp, tables,
+                    torch.tensor(cur, dtype=torch.int32, device=dev))
+            yield (f"paged {dn} B={b} H={hq} H_kv={h_kv} s_q=16 dh={dh} "
+                   f"bs={bsz} max_blocks={mbz} cursors=mixed",
+                   functools.partial(D.paged_fused_attention_cuda, *args),
+                   functools.partial(D.paged_fused_attention_plain, *args))
 
 
 def main_path_cases(seed: int = 0, new_tokens: int = 32) -> list[dict]:
@@ -319,9 +318,6 @@ def main(argv=None) -> int:
     ap.add_argument("--parity", action="store_true",
                     help="chip_smoke.py's phase 2: every parity case, the "
                     "build report and the repeat check")
-    ap.add_argument("--split_ab", action="store_true",
-                    help="time the kernels with the cluster split (up to 8 "
-                    "parts) and without, in turns")
     ap.add_argument("-n", type=int, default=N_TIMED)
     args = ap.parse_args(argv)
     card = subprocess.run(
@@ -351,12 +347,7 @@ def main(argv=None) -> int:
         line = (f"{case['name']} [{case['shape']}]: bound "
                 f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}), "
                 f"max_abs_err {err:.3e}")
-        if args.split_ab:
-            ta, tb = in_turns(case["kernel"], _unsplit(case["kernel"]), flush,
-                              args.n)
-            line += (f", split up to 8 {[round(t * 1e3, 2) for t in ta]} us, "
-                     f"up to 1 {[round(t * 1e3, 2) for t in tb]} us")
-        elif other is None:
+        if other is None:
             t = device_ms(case["kernel"], flush, args.n)
             line += (f", kernel {t * 1e3:.2f} us, library "
                      f"{device_ms(case['library'], flush, args.n) * 1e3:.2f} us")
