@@ -40,32 +40,49 @@ Phases, each fatal on failure:
 6. agreement — in f32, the paged engine with attn_impl="fused" and with
    "xla" (the dense path, on the card) gives identical greedy streams; the
    smallest top-2 logit gap along the streams is printed;
-7. fused-AdamW parity — the kernel against its plain version at each of
-   ResNet-50's 76 kernel-eligible leaf shapes (channels-last layouts) and
-   at 1024, 1027 and 9001 elements; f32 and bf16 grads, no copy and a
-   bf16 copy, wd 0 and 0.1. u, m' and v' hold the parity rule; the copy
-   is bit-identical to ``(p + u).to(bf16)`` of the kernel's own u;
-8. fused-AdamW times — one ResNet-50 optimizer step (76 launches, bf16
-   grads and copy): device time (median of 50, card held busy, L2
-   flushed) and time per launch, beside the byte bound, the plain
-   version and ``torch.optim.Adam(fused=True).step()`` over the same leaves;
+7. fused-AdamW parity — leaf mode (the kernel as ``fused_leaf_update``'s
+   counterpart) against its plain version at each of ResNet-50's 76
+   leaf shapes of at least 1024 elements (channels-last layouts) and at
+   1024, 1027 and 9001 elements: u, m' and v' hold the parity rule and the
+   copy is bit-identical to ``(p + u).to(bf16)`` of the kernel's own u;
+   then optimizer mode (the training step's one multi-tensor launch)
+   against the plain step over all 161 ResNet-50 and all 148 GPT-2 124M
+   leaves, a ragged list (1, 7, 1023, 1027, 9001 elements and a 37 x 111
+   leaf that starts one element into its buffers) and 600 leaves of
+   1..5000 elements (two launches): m', v', the master and the copy
+   bit-equal, one launch per table of leaves; each with f32 and bf16
+   grads, no copy and a bf16 copy, wd 0 and 0.1 (on leaves of more than
+   one dimension);
+8. fused-AdamW times — one ResNet-50 optimizer step over all 161 leaves
+   (bf16 grads and copy): device time of ``FusedAdamW.step`` (median of
+   50, card held busy, L2 flushed), beside the byte bound, the per-leaf
+   structure the step had before (a leaf-mode launch per leaf of at
+   least 1024 elements, ``master += u``, the eager plain formula for the
+   rest), the plain step and ``torch.optim.Adam(fused=True).step()`` over
+   the same leaves;
 9. the main path, trained — a 1-rank NCCL group (env://), then
    ``tpudist_torch.main.main`` with ResNet-50, synthetic CIFAR (2048
    images), batch 128, 1 epoch, --bf16 --fused optimizer, the profiler
-   on: 16 steps under DDP; the kernel must have run 76 x 16 times (the
-   count of the model's own eligible leaves), the TSV must have rows at
+   on: 16 steps under DDP; the kernel must have run once a step (16
+   launches) covering all 161 leaves each time, the TSV must have rows at
    g_step 5, 10 and 15 and the TrainTime row, the losses must be finite
    and fall, and a trace must be under log_<JobID>; from that trace, the
    kernels and the card's busy time per step and the top kernels;
 10. agreement — in f32 with cudnn.deterministic, four steps of
     --fused optimizer and of --fused none from the same init on the same
     batches: losses and params within 1e-5 relative;
-11. fused LayerNorm parity — the forward and backward kernels against
-    their plain versions at GPT-2's 8192 x 768 rows and a ragged
-    1000 x 200, the three compositions, RMS on and off, f32 and bf16: n,
-    r, dx = dy, dscale, dbias under the parity rule of phase 2 and, for
-    bf16 outputs, element by element within 2 bf16 ulps plus 2^-12 of the
-    largest magnitude (lm_kernels_bench.ELEM_ULPS / ELEM_ATOL);
+11. fused LayerNorm parity — the kernels' registers and spills from the
+    build report (a spill in a bf16 forward instantiation for D 768
+    fails), then the forward and backward kernels against their plain
+    versions at GPT-2's 8192 x 768 rows, a ragged 1000 x 200, 1000 x 197
+    (no multiple of 16 bytes: the forward's element-wise path) and 1000 x
+    768 rows starting one element into their buffers (misaligned: the
+    element-wise path), the three compositions, RMS on and off, f32 and
+    bf16: n, r, dx = dy, dscale, dbias under the parity rule of phase 2
+    and, for bf16 outputs, element by element within 2 bf16 ulps plus
+    2^-14 of the largest magnitude (lm_kernels_bench.ELEM_ULPS /
+    ELEM_ATOL); two bf16 forward calls at 8192 x 768, plain and pre-norm,
+    must be bit-identical;
 12. vmem attention parity — the forward and backward kernels against their
     plain versions: B 8, H 12, S 1024, D 64 causal (strided q, k, v views
     of one qkv tensor, the main path's case), S 197 non-causal, kv_len < S
@@ -91,7 +108,7 @@ Phases, each fatal on failure:
     byte-token file made from the checkout's own text (uniform random
     tokens cannot fall below ln V): the launch counts per step (LN forward
     25, LN backward 25 plus 25 reductions, attention forward 12 and
-    backward 12, fused AdamW 74, each counted on the model), TSV rows at
+    backward 12, fused AdamW 1 covering the model's 148 leaves), TSV rows at
     g_step 5, 10 and 15 and TrainTime, finite and falling losses, the
     tokens/sec line, and the trace's kernels and busy share per step;
 15. agreement — in f32, four steps of --fused all --attn vmem and of
@@ -125,7 +142,8 @@ Phases, each fatal on failure:
     --chunked_ce 256 (the reference's long-context leg), 16 steps on the
     byte-token file of phase 14: launches per step (flash forward 12 and
     backward 12, vmem 0, LN forward 25, backward 25 plus 25 reductions,
-    fused AdamW 74), TSV rows at g_step 5, 10 and 15 and TrainTime,
+    fused AdamW 1 covering 148 leaves), TSV rows at g_step 5, 10 and 15
+    and TrainTime,
     finite and falling losses, the tokens/sec line, and the trace's
     kernels and busy share per step;
 19. agreement — in f32 at S 2048, depth 4 (cut for the dense path's
@@ -434,80 +452,103 @@ def train_phases(smi: str, dev) -> dict:
     from tpudist_torch.ops.lm_kernels_bench import parity_tol
 
     hp = dict(b1=0.9, b2=0.999, eps=1e-8)
-    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
     gd = torch.Generator(device=dev).manual_seed(SEED + 7)
 
     # -- 7. fused-AdamW parity ---------------------------------------------------
-    print("== 7. fused-AdamW parity: ResNet-50's leaf shapes + 1024/1027/9001")
+    print("== 7. fused-AdamW parity: leaf mode at ResNet-50's leaf shapes + "
+          "1024/1027/9001; optimizer mode over ResNet-50's and GPT-2's leaves")
     leaves = FB.resnet50_leaves()
-    shapes = [p for p in leaves] + [torch.empty(n, device=dev)
-                                    for n in (1024, 1027, 9001)]
-    for gdt in (torch.float32, torch.bfloat16):
-        for cdt in (None, torch.bfloat16):
-            for wd in (0.0, 0.1):
-                errs, atol_fail, copy_exact, plain_exact = [], [], True, True
-                for ref in shapes:
-                    def like(dtype, scale=1.0, positive=False):
-                        src = torch.rand if positive else torch.randn
-                        t = torch.empty_like(ref, dtype=torch.float32)
-                        t.copy_(src(ref.shape, generator=gd, device=dev) * scale)
-                        return t.to(dtype)
-                    args = (like(gdt, 0.1), like(torch.float32, 0.01),
-                            like(torch.float32, 1e-3, positive=True),
-                            like(torch.float32), *FB.SCALARS)
-                    ku, km, kv, kc = FU.fused_leaf_update_cuda(
-                        *args, wd=wd, compute_dtype=cdt, **hp)
-                    pu, pm, pv, pc = FU.fused_leaf_update_plain(
-                        *args, wd=wd, compute_dtype=cdt, **hp)
-                    torch.cuda.synchronize()
-                    for got, want in ((ku, pu), (km, pm), (kv, pv)):
-                        atol, rtol = parity_tol(want)
-                        d = (got - want).abs()
-                        errs.append(float(d.max()))
-                        if not bool((d <= atol + rtol * want.abs()).all()):
-                            atol_fail.append(tuple(ref.shape))
-                        plain_exact &= bool(torch.equal(got, want))
-                    if cdt is not None:
-                        copy_exact &= bool(torch.equal(
-                            kc, (args[3] + ku).to(cdt)))
-                name = (f"g {str(gdt).split('.')[-1]}, copy "
-                        f"{str(cdt).split('.')[-1]}, wd {wd}")
-                ok = not atol_fail and copy_exact
-                print(f"  {name}: {len(shapes)} shapes, max_abs_err "
-                      f"{max(errs):.3e}, bit-equal to plain {plain_exact}, "
-                      f"copy bit-exact {copy_exact} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    FAILURES.append(f"fused_adamw {name} {atol_fail[:3]}")
+    shapes = [p for p in leaves if p.numel() >= FU.MIN_KERNEL_ELEMS] + [
+        torch.empty(n, device=dev) for n in (1024, 1027, 9001)]
+    combos = [(gdt, cdt, wd) for gdt in (torch.float32, torch.bfloat16)
+              for cdt in (None, torch.bfloat16) for wd in (0.0, 0.1)]
+    for gdt, cdt, wd in combos:
+        errs, atol_fail, copy_exact, plain_exact = [], [], True, True
+        for ref in shapes:
+            def like(dtype, scale=1.0, positive=False):
+                src = torch.rand if positive else torch.randn
+                t = torch.empty_like(ref, dtype=torch.float32)
+                t.copy_(src(ref.shape, generator=gd, device=dev) * scale)
+                return t.to(dtype)
+            args = (like(gdt, 0.1), like(torch.float32, 0.01),
+                    like(torch.float32, 1e-3, positive=True),
+                    like(torch.float32), *FB.SCALARS)
+            ku, km, kv, kc = FU.fused_leaf_update_cuda(
+                *args, wd=wd, compute_dtype=cdt, **hp)
+            pu, pm, pv, pc = FU.fused_leaf_update_plain(
+                *args, wd=wd, compute_dtype=cdt, **hp)
+            torch.cuda.synchronize()
+            for got, want in ((ku, pu), (km, pm), (kv, pv)):
+                atol, rtol = parity_tol(want)
+                d = (got - want).abs()
+                errs.append(float(d.max()))
+                if not bool((d <= atol + rtol * want.abs()).all()):
+                    atol_fail.append(tuple(ref.shape))
+                plain_exact &= bool(torch.equal(got, want))
+            if cdt is not None:
+                copy_exact &= bool(torch.equal(kc, (args[3] + ku).to(cdt)))
+        name = (f"leaf mode, g {str(gdt).split('.')[-1]}, copy "
+                f"{str(cdt).split('.')[-1]}, wd {wd}")
+        ok = not atol_fail and copy_exact
+        print(f"  {name}: {len(shapes)} shapes, max_abs_err {max(errs):.3e}, "
+              f"bit-equal to plain {plain_exact}, copy bit-exact {copy_exact} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"fused_adamw {name} {atol_fail[:3]}")
+    # optimizer mode: m', v', the master and the copy bit-equal to the plain
+    # step; a list within one table takes one launch, 600 leaves two
+    lists = [("ResNet-50", leaves, False), ("GPT-2 124M", FB.gpt2_leaves(), False),
+             ("ragged " + "/".join(map(str, FB.RAGGED)) + " + 37x111 misaligned",
+              FB.ragged_leaves(dev), True),
+             ("600 leaves of 1..5000", FB.long_leaves(dev, gd), False)]
+    for label, group, misalign in lists:
+        want_launches = -(-len(group) // FU.MAX_TABLE_LEAVES)
+        for gdt, cdt, wd in combos:
+            r = FB.step_parity(group, gd, g_dtype=gdt, copy_dtype=cdt, wd=wd,
+                               misalign_last=misalign)
+            ok = (r["equal"] and r["fused_adamw"] == want_launches
+                  and r["fused_adamw_leaves"] == len(group))
+            name = (f"step over {label} ({len(group)} leaves), g "
+                    f"{str(gdt).split('.')[-1]}, copy "
+                    f"{str(cdt).split('.')[-1]}, wd {wd}")
+            print(f"  {name}: {r['fused_adamw']} launches covering "
+                  f"{r['fused_adamw_leaves']} leaves, bit-equal to the plain "
+                  f"step {r['equal']} (max_abs_err {r['err']:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"fused_adamw {name}")
+    del lists
     if FAILURES:
         fail(f"fused-AdamW parity: {FAILURES}")
 
     # -- 8. fused-AdamW times --------------------------------------------------
     print("== 8. fused-AdamW times: one ResNet-50 optimizer step")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    case = FB.step_case(leaves, g)
-    err = FB.max_err(case["kernel"](), case["plain"]())
-    if not err <= 2e-5:  # the f32 parity rule's absolute part
-        fail(f"fused-AdamW timed config: max_abs_err {err:.3e}")
+    case = FB.step_case(leaves, gd)
+    par = case["parity"]
+    if not (par["equal"] and par["fused_adamw"] == 1):
+        fail(f"fused-AdamW timed config: {par}")
     times = {}
-    for name in ("kernel", "plain", "library"):
+    for name in ("kernel", "per_leaf", "plain", "library"):
         host_ms, spin_ms = FB.enqueue_check(case[name])
-        print(f"  {name}: enqueue {host_ms:.2f} ms on the host, spin "
-              f"{spin_ms:.1f} ms on the card")
-        if host_ms >= spin_ms:
-            fail(f"{name}: the host enqueue outlasts the spin; its time "
-                 "would include host time")
-        times[name] = DB.device_ms(case[name], flush,
-                                   spin_cycles=FB.SPIN_CYCLES)
+        cycles = FB.spin_for(host_ms, spin_ms)
+        busy, acts = FB.busy_ms(case[name])
+        print(f"  {name}: enqueue {host_ms:.2f} ms on the host, timed behind "
+              f"a spin of {spin_ms * cycles / FB.SPIN_CYCLES:.1f} ms; card "
+              f"busy {busy:.4f} ms in {acts} activities over one call "
+              "(profiler)")
+        times[name] = DB.device_ms(case[name], flush, spin_cycles=cycles)
     del flush
     print(f"  [{case['shape']}]")
-    print(f"    kernel {times['kernel']:.4f} ms ({times['kernel'] / case['leaves'] * 1e3:.2f}"
-          f" us per launch), bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
-          f"plain {times['plain']:.4f} ms, library (torch.optim.Adam fused) "
-          f"{times['library']:.4f} ms, max_abs_err {err:.3e}  [{smi}]")
+    print(f"    step {times['kernel']:.4f} ms (1 launch), bound "
+          f"{case['bound_ms']:.4f} ms ({case['bound_by']}), the per-leaf "
+          f"structure {times['per_leaf']:.4f} ms, plain {times['plain']:.4f} "
+          f"ms, library (torch.optim.Adam fused) {times['library']:.4f} ms, "
+          f"bit-equal to the plain step (max_abs_err {par['err']:.3e})  [{smi}]")
     entry = dict(name="fused_adamw", route="cuda", source=SOURCES["fused_adamw"],
                  replaces=REPLACES["fused_adamw"], ms=times["kernel"],
                  plain_ms=times["plain"], library_ms=times["library"],
-                 max_abs_err=err, bound_ms=case["bound_ms"],
+                 max_abs_err=par["err"], bound_ms=case["bound_ms"],
                  bound_by=case["bound_by"])
     del case, leaves
 
@@ -526,20 +567,23 @@ def train_phases(smi: str, dev) -> dict:
             "--log_dir", log_dir])
         torch.cuda.synchronize()
         launches = FU.launch_counts["fused_adamw"]
+        covered = FU.launch_counts["fused_adamw_leaves"]
         if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
             fail("the training step did not run under DDP")
         dist.destroy_process_group()
-        eligible = sum(p.numel() >= FU.MIN_KERNEL_ELEMS
-                       for p in state.model.parameters())
+        n_leaves = len(list(state.model.parameters()))
         rows = (Path(log_dir) / "Smoke_128_0.log").read_text().splitlines()
         traces = list((Path(log_dir) / "log_Smoke").glob("*.pt.trace.json"))
         window = trace_breakdown(traces[0]) if traces else None
     del state
     steps = len(losses)
-    print(f"  {steps} steps, fused-AdamW launches {launches} (= {eligible} "
-          f"eligible leaves x {steps}); losses {losses[0]:.4f} -> {losses[-1]:.4f}")
-    if steps != 16 or launches != eligible * steps or eligible != 76:
-        fail(f"{steps} steps, {launches} launches, {eligible} eligible leaves")
+    print(f"  {steps} steps, fused-AdamW launches {launches} (= 1 x {steps}) "
+          f"covering {covered} leaves (= {n_leaves} x {steps}); losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if (steps != 16 or launches != steps or n_leaves != 161
+            or covered != n_leaves * steps):
+        fail(f"{steps} steps, {launches} launches covering {covered} of "
+             f"{n_leaves} leaves a step")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"losses {losses}")
     g_steps = [r.split("\t")[1] for r in rows[1:] if not r.startswith("TrainTime")]
@@ -608,12 +652,23 @@ def lm_phases(smi: str, dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
 
     # -- 11, 12. parity ---------------------------------------------------------
-    print("== 11. fused LayerNorm parity: 8192x768 and 1000x200, three "
-          "compositions, rms on/off, f32/bf16")
+    print("== 11. fused LayerNorm parity: 8192x768, 1000x200, 1000x197 and "
+          "1000x768 at +1 element, three compositions, rms on/off, f32/bf16")
+    lines, spilled = LB.ln_build()
+    print("  layernorm.cu kernels (-Xptxas -v):")
+    for line in lines:
+        print("    " + line)
+    if spilled:
+        fail(f"bf16 LayerNorm forward kernels at D 768 spill: {spilled}")
     for name, got, want in LB.ln_parity(gen):
         check(name, got, want, elem=True)
     if FAILURES:
         fail(f"fused LayerNorm parity: {FAILURES}")
+    same = LB.ln_repeat_identical(gen)
+    print(f"  two bf16 forward calls at {LB.ROWS} x {LB.WIDTH} bit-identical: "
+          f"{same}")
+    if not all(same.values()):
+        fail(f"the LayerNorm forward is not deterministic: {same}")
     print("== 12. vmem attention parity: o, lse, dq, dk, dv")
     attention_build("vmem_attention.cu")
     for name, got, want in LB.attn_parity(gen):
@@ -671,12 +726,12 @@ def lm_phases(smi: str, dev) -> list[dict]:
           "DDP (NCCL)")
     counts = trained_gpt2(
         ["--bf16", "--fused", "all", "--attn", "auto"], batch=8, seq=1024,
-        job="Smoke", smi=smi, want=lambda depth, eligible: {
+        job="Smoke", smi=smi, want=lambda depth, n_leaves: {
             "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
             "layernorm_bwd_reduce": 2 * depth + 1,
             "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "fused_adamw": eligible})
+            "fused_adamw": 1, "fused_adamw_leaves": n_leaves})
 
     # -- 15. agreement in f32 ------------------------------------------------------
     print("== 15. f32: --fused all --attn vmem vs --fused none --attn xla, 4 steps")
@@ -762,11 +817,12 @@ def long_context_phases(smi: str, dev) -> list[dict]:
           "--chunked_ce 256, 16 steps under DDP (NCCL)")
     counts = trained_gpt2(
         ["--bf16", "--fused", "all", "--attn", "auto", "--chunked_ce", "256"],
-        batch=4, seq=4096, job="Long", smi=smi, want=lambda depth, eligible: {
+        batch=4, seq=4096, job="Long", smi=smi, want=lambda depth, n_leaves: {
             "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
             "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
             "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
-            "flash_attention_bwd": depth, "fused_adamw": eligible})
+            "flash_attention_bwd": depth, "fused_adamw": 1,
+            "fused_adamw_leaves": n_leaves})
 
     # -- 19. agreement in f32 ------------------------------------------------------
     print("== 19. f32, S 2048, depth 4: --fused all --attn flash --chunked_ce "
@@ -876,8 +932,9 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
     with GPT-2 124M at full width and depth, ``flags``, the profiler on,
     16 steps on :func:`lm_kernels_bench.token_file`'s text, every launch
     count set to 0 just before and read just after. Fails unless it ran
-    under DDP, launched ``want(depth, eligible leaves)`` kernels per step,
-    kept its 74 fused-AdamW leaves, and wrote finite, falling losses, the
+    under DDP, launched ``want(depth, the model's leaves)`` kernels per step
+    (one fused-AdamW launch covering all 148 leaves), and wrote finite,
+    falling losses, the
     tokens/sec line, the TSV rows and a trace with device work. Returns
     the launch counts."""
     import contextlib
@@ -888,7 +945,6 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
     import torch.distributed as dist
 
     from tpudist_torch import train_gpt2 as TG
-    from tpudist_torch.ops import fused_update as FU
     from tpudist_torch.ops import lm_kernels_bench as LB
 
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
@@ -917,12 +973,12 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
         traces = list((Path(log_dir) / f"log_{job}").glob("*.pt.trace.json"))
         window = trace_breakdown(traces[0]) if traces else None
     steps = len(losses)
-    eligible = sum(p.numel() >= FU.MIN_KERNEL_ELEMS for p in model.parameters())
-    per_step = want(model.depth, eligible)
+    n_leaves = len(list(model.parameters()))
+    per_step = want(model.depth, n_leaves)
     print(f"  {steps} steps; launches {counts} (per step {per_step}); losses "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}")
     del state, model
-    if steps != 16 or eligible != 74 or any(
+    if steps != 16 or n_leaves != 148 or any(
             counts[k] != n * steps for k, n in per_step.items()):
         fail(f"{steps} steps, launches {counts}, want {per_step} per step")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):

@@ -110,3 +110,26 @@ def test_attention_build_reports_forwards_and_flags_hd64_spills(monkeypatch):
         "flash_fwd_kernel<float, 64>"]
     assert spilled == ["flash_fwd_mma_kernel<64>",
                        "attn_dq_mma_kernel<64, false>"]
+
+
+def test_kernel_names_of_repeated_and_namespace_types():
+    """Template arguments that repeat a type (``S<n>_``), a type of the
+    kernel's own namespace (``NS_<len><name>E``) and a float before a
+    named type read as they were written: the register report tells the
+    LayerNorm forward's bf16 instantiations and fused AdamW's copy modes
+    apart."""
+    ns = "_ZN12_GLOBAL__N_1"
+    cases = {
+        f"{ns}13ln_fwd_kernelI13__nv_bfloat16S1_Li24EEEvPKT_S4_PKfS6_":
+            "ln_fwd_kernel<bf16, bf16, 24>",
+        f"{ns}13ln_fwd_kernelIf13__nv_bfloat16Li24EEEvPKT_":
+            "ln_fwd_kernel<float, bf16, 24>",
+        f"{ns}13ln_fwd_kernelI13__nv_bfloat16fLi8EEEvPKT_":
+            "ln_fwd_kernel<bf16, float, 8>",
+        f"{ns}12adamw_kernelI6__halfNS_6NoCopyEEEvNS_5TableE":
+            "adamw_kernel<half, NoCopy>",
+        f"{ns}12adamw_kernelIffEEvNS_5TableE": "adamw_kernel<float, float>",
+        f"{ns}13ln_bwd_reduceEPKdS1_PfS2_ii": "ln_bwd_reduce",
+    }
+    for mangled, name in cases.items():
+        assert build._kernel_name(mangled) == name

@@ -9,7 +9,11 @@ Tolerances are tests/test_fused_update.py's: 1e-6 absolute on the
 [40, 130] and [9001] leaves (the kernel path) and 5e-7 on the small
 leaves, a few float32 ulps at ~2.0-magnitude params after 5 compounding
 Adam steps (XLA may fuse and reassociate where PyTorch rounds op by op).
-The bf16 copy is held bit-exact."""
+The bf16 copy is held bit-exact. The multi-tensor step's plain version is
+held bit-equal to the per-leaf path it replaced, and its launch plan to
+covering every element once (hypothesis)."""
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +21,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from tpudist.ops.fused_update import fused_leaf_update as jax_leaf_update
 from tpudist.optim import decay_mask as jax_decay_mask
@@ -229,3 +235,155 @@ def test_layout_rule_ignores_size_one_dims():
     assert F._same_layout(torch.empty_like(q), q)
     assert not F._same_layout(torch.empty(64, 64, 3, 3), q)
     assert not F._same_layout(torch.empty(64, 64, 9), q)
+
+
+def _model_leaves(model):
+    """A small ResNet's or a tiny GPT-2's parameters on the CPU (BatchNorm
+    and LayerNorm leaves of a few elements among them)."""
+    if model == "resnet":
+        from tpudist_torch.models.resnet import resnet18
+
+        net = resnet18(num_filters=4, num_classes=10, device="cpu")
+    else:
+        from tpudist_torch.models.gpt2 import GPT2
+
+        net = GPT2(vocab_size=64, max_seq_len=16, hidden_dim=32, depth=2,
+                   num_heads=4, device="cpu")
+    return [p.detach() for p in net.parameters()]
+
+
+def _leaf_state(leaves, seed, gdtype, copy):
+    """Random g (rounded through bf16 for a bf16 g), m, v, masters and
+    zeroed copies per leaf, from numpy, and a decay on leaves of more than
+    one dimension (decay_mask)."""
+    r = np.random.Generator(np.random.PCG64(seed))
+    f = lambda p, scale=1.0, pos=False: torch.from_numpy(np.asarray(
+        (r.random(p.shape) if pos else r.standard_normal(p.shape)) * scale,
+        np.float32))
+    return dict(
+        g=[f(p, 0.1).to(getattr(torch, gdtype)) for p in leaves],
+        m=[f(p, 0.01) for p in leaves], v=[f(p, 1e-3, True) for p in leaves],
+        p=[f(p) for p in leaves],
+        copy=[None if copy is None else torch.zeros(p.shape,
+                                                    dtype=torch.bfloat16)
+              for p in leaves],
+        wd=[0.1 if p.ndim > 1 else 0.0 for p in leaves])
+
+
+def _clone_table(s):
+    c = lambda ts: [None if t is None else t.clone() for t in ts]
+    return F.AdamWTable(c(s["m"]), c(s["v"]), c(s["p"]), c(s["copy"]), s["wd"])
+
+
+@pytest.mark.parametrize("model", ["resnet", "gpt2"])
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("copy", [None, "bfloat16"])
+def test_plain_step_equals_per_leaf_path_plus_master_add(model, gdtype, copy):
+    """The multi-tensor step's plain version is, to the bit, what the
+    optimizer ran before it: ``fused_leaf_update`` per leaf (the plain
+    formula under the per-leaf threshold too) writing m, v and the copy in
+    place, then ``master += u``; over every leaf of a small ResNet and a
+    tiny GPT-2, small leaves included."""
+    leaves = _model_leaves(model)
+    assert any(p.numel() < F.MIN_KERNEL_ELEMS for p in leaves)
+    assert any(p.numel() >= F.MIN_KERNEL_ELEMS for p in leaves)
+    s = _leaf_state(leaves, 3, gdtype, copy)
+    lr, b1c, b2c = 3e-3, 0.271, 0.002997
+    step, per_leaf = _clone_table(s), _clone_table(s)
+    F.reset_launch_counts()
+    F.fused_adamw_step(step, s["g"], lr, b1c, b2c, **HP)
+    for g, m, v, p, c, wd in zip(s["g"], per_leaf.m, per_leaf.v, per_leaf.p,
+                                 per_leaf.copy, per_leaf.wd):
+        u, _, _, _ = F.fused_leaf_update(g, m, v, p, lr, b1c, b2c, wd=wd,
+                                         m_out=m, v_out=v, copy_out=c, **HP)
+        p.add_(u)
+    for name in ("m", "v", "p", "copy"):
+        for a, b in zip(getattr(step, name), getattr(per_leaf, name)):
+            assert (a is None and b is None) or torch.equal(a, b), name
+    assert set(F.launch_counts.values()) == {0}  # CPU: the plain version
+
+
+class _FakeTable:
+    """A table whose first master claims to lie on the card."""
+
+    p = [types.SimpleNamespace(is_cuda=True)]
+
+    def __len__(self):
+        return 1
+
+
+def test_cuda_step_never_takes_the_plain_version(monkeypatch):
+    """The multi-tensor entry routes on the masters' device alone: CUDA
+    masters go to the kernel wrapper, which refuses anything but CUDA
+    tensors (so no failure there can fall back to the plain path)."""
+    seen = []
+    monkeypatch.setattr(F, "fused_adamw_step_cuda",
+                        lambda *a, **k: seen.append("cuda"))
+    monkeypatch.setattr(F, "fused_adamw_step_plain",
+                        lambda *a, **k: seen.append("plain"))
+    F.fused_adamw_step(_FakeTable(), [None], 1e-3, 0.1, 0.001, **HP)
+    assert seen == ["cuda"]
+    monkeypatch.undo()
+    F.reset_launch_counts()
+    s = _leaf_state(_model_leaves("gpt2")[:3], 0, "float32", None)
+    with pytest.raises(ValueError, match="not CUDA tensors"):
+        F.fused_adamw_step_cuda(_clone_table(s), s["g"], 1e-3, 0.1, 0.001,
+                                **HP)
+    assert set(F.launch_counts.values()) == {0}
+
+
+def test_fused_adamw_state_holds_one_table_over_every_leaf():
+    params = {k: torch.from_numpy(np.array(v)) for k, v in _tree().items()}
+    tx = fused_adamw(1e-2, weight_decay=0.1, mask=decay_mask,
+                     compute_dtype=torch.bfloat16)
+    state = tx.init(params)
+    t = state.table
+    assert state.names == list(params) and len(t) == len(params)
+    for i, k in enumerate(state.names):
+        assert t.m[i] is state.mu[k] and t.v[i] is state.nu[k]
+        assert t.p[i] is state.master[k] and t.copy[i] is params[k]
+    assert t.wd == [0.1 if params[k].ndim > 1 else 0.0 for k in state.names]
+    with pytest.raises(ValueError, match="differ from"):
+        tx.step(state, dict(reversed(params.items())),
+                {k: torch.zeros_like(v) for k, v in params.items()})
+
+
+@settings(max_examples=60, deadline=None)
+@given(sizes=st.lists(st.integers(1, 100_000), max_size=1000),
+       groups=st.integers(1, 3), max_leaves=st.sampled_from([1, 7, 480]),
+       chunk=st.sampled_from([4096, F.CHUNK_ELEMS]), seed=st.integers(0, 99))
+def test_launch_plan_covers_each_element_once(sizes, groups, max_leaves,
+                                              chunk, seed):
+    """:func:`plan_launches` groups the leaves by dtype, splits a group
+    past one table into as many launches as it needs, numbers each
+    launch's chunks without gaps, and the kernel's mapping of a chunk to
+    (leaf, first element) covers every element of every leaf exactly
+    once."""
+    r = np.random.Generator(np.random.PCG64(seed))
+    keys = [("g", int(k)) for k in r.integers(0, groups, len(sizes))]
+    sizes = [0 if r.random() < 0.02 else n for n in sizes]  # a few empty
+    plan = F.plan_launches(keys, sizes, max_leaves=max_leaves, chunk=chunk)
+    seen = [i for launch in plan for i in launch.idx]
+    assert sorted(seen) == [i for i, n in enumerate(sizes) if n]
+    for key in set(keys):
+        group = [launch for launch in plan if launch.key == key]
+        n_group = sum(1 for k, n in zip(keys, sizes) if k == key and n)
+        assert len(group) == -(-n_group // max_leaves)
+    for launch in plan:
+        assert 0 < len(launch.idx) <= max_leaves
+        assert all(keys[i] == launch.key for i in launch.idx)
+        n = np.array([sizes[i] for i in launch.idx], np.int64)
+        counts = -(-n // chunk)
+        start = np.array(launch.chunk0, np.int64)
+        np.testing.assert_array_equal(start,
+                                      np.concatenate([[0], np.cumsum(counts)[:-1]]))
+        assert launch.n_chunks == counts.sum()
+        # the kernel's walk: chunk c -> the last leaf whose chunk0 <= c
+        c = np.arange(launch.n_chunks)
+        leaf = np.searchsorted(start, c, side="right") - 1
+        begin = (c - start[leaf]) * chunk
+        end = np.minimum(begin + chunk, n[leaf])
+        assert (begin % chunk == 0).all() and (begin < end).all()
+        covered = np.zeros(len(n), np.int64)
+        np.add.at(covered, leaf, end - begin)
+        np.testing.assert_array_equal(covered, n)

@@ -128,12 +128,13 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tpudist_cuda_error_string.argtypes = [I]
     lib.tpudist_cuda_error_string.restype = ctypes.c_char_p
-    if hasattr(lib, "tpudist_fused_adamw"):
-        lib.tpudist_fused_adamw.argtypes = [
-            I, I, P, P, P, P, P, P, P, P, ctypes.c_longlong,
-            F, F, F, F, F, F, F, F, F, P,
+    if hasattr(lib, "tpudist_fused_adamw_table"):
+        lib.tpudist_fused_adamw_max_leaves.argtypes = []
+        lib.tpudist_fused_adamw_max_leaves.restype = I
+        lib.tpudist_fused_adamw_table.argtypes = [
+            I, I, P, I, I, I, F, F, F, F, F, F, F, F, P, P, P, P,
         ]
-        lib.tpudist_fused_adamw.restype = I
+        lib.tpudist_fused_adamw_table.restype = I
     L = ctypes.c_longlong
     if hasattr(lib, "tpudist_layernorm_fwd"):
         lib.tpudist_layernorm_max_d.argtypes = []
@@ -187,11 +188,18 @@ def _kernel_name(mangled: str) -> str:
     if not tail.startswith("I") or "Ev" not in tail:
         return name
     args = []
-    for bf16, n, flag in re.findall(
-            r"(13__nv_bfloat16)|Li(\d+)E|Lb([01])E|f(?=[fLE])",
-            tail[1:tail.index("Ev")]):
-        args.append("bf16" if bf16 else n if n else
-                    {"0": "false", "1": "true"}.get(flag, "float"))
+    for m in re.finditer(r"13__nv_bfloat16|6__half|Li(\d+)E|Lb([01])E|"
+                         r"NS\d*_\d+(\w+?)E|S\d*_|f(?=[fLENS\d])",
+                         tail[1:tail.index("Ev")]):
+        tok = m.group(0)
+        if m.group(3):  # a type of the kernel's own namespace
+            args.append(m.group(3))
+        elif tok[0] == "S":  # a type repeated: the argument before it
+            args.append(args[-1] if args else "?")
+        else:
+            args.append({"13__nv_bfloat16": "bf16", "6__half": "half",
+                         "f": "float"}.get(tok) or m.group(1) or
+                        {"0": "false", "1": "true"}[m.group(2)])
     return f"{name}<{', '.join(args)}>"
 
 

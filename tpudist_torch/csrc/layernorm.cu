@@ -20,15 +20,27 @@
 // The design keeps a whole row in registers: one warp per row, each lane
 // holding ceil(D / 32) values, so the row is read from device memory once
 // and both statistics and the output come from registers (the TPU kernel
-// keeps its block of rows in VMEM for the same reason). The TPU kernel
-// sums dscale / dbias across its sequential grid in VMEM scratch; blocks
-// on Hopper run in no order, so each block of the backward writes its own
-// partial sums [n_parts, D] and a second launch adds them up in a fixed
-// order: deterministic, no atomics. Each warp sums its few rows in f32
+// keeps its block of rows in VMEM for the same reason).
+//
+// The forward runs a persistent grid (one wave of resident blocks) whose
+// warps each walk several rows. Where the width is a multiple of 16 bytes
+// and every pointer is 16-byte aligned it loads and stores 16 bytes a lane
+// (8 bf16 or 4 f32 values: a 768-wide bf16 row is 3 loads a lane), keeps
+// scale and bias in registers for the whole walk, and issues the next
+// row's loads before this row's two warp reductions, so a warp always has
+// a row in flight. Other widths and misaligned rows take a scalar path
+// (one element per lane per load) in the same kernel. The function is the
+// same on both: only the f32 order of a lane's partial sums differs from
+// the one-element-per-lane layout. The backward's loads are still one
+// element per lane (later speed work).
+//
+// The TPU kernel sums dscale / dbias across its sequential grid in VMEM
+// scratch; blocks on Hopper run in no order, so each block of the backward
+// writes its own partial sums [n_parts, D] and a second launch adds them
+// up in a fixed order: deterministic, no atomics. Each warp sums its few rows in f32
 // registers; the block's warps and the partials are added in f64, since a
 // sequential f32 sum of 264 partials of GPT-2's 8192 rows drifts by ~1e-4
-// from the exact column sums. Loads are one element per lane (no 16-byte
-// vectors yet); making them wide is later speed work.
+// from the exact column sums.
 //
 // C interface for ctypes: every pointer and the stream are void*, the
 // return value is cudaGetLastError() after the launches.
@@ -41,7 +53,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;  // one warp per row
+constexpr int kRowsPerBlock = 8;  // warps a block, each on its own rows
 constexpr int kThreads = kWarp * kRowsPerBlock;
 constexpr int kMaxParts = 264;  // backward blocks: two per SM of the H100
 constexpr int kMaxD = 2048;
@@ -95,40 +107,222 @@ __device__ __forceinline__ void row_stats(const float (&r)[PER], int lane,
   rstd = rsqrtf(var + eps);
 }
 
+// 16 bytes of TX: kVec<TX> elements, the forward's unit of load and store
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// the kVec<TX> values of one 16-byte load, in f32
+__device__ __forceinline__ void unpack(const uint4& w, float* f, float) {
+  f[0] = __uint_as_float(w.x); f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z); f[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4& w, float* f,
+                                       __nv_bfloat16) {
+  const unsigned int u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+// store N values (N a multiple of 4) at p, which is aligned for them
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* f) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k)
+    reinterpret_cast<float4*>(p)[k] =
+        make_float4(f[4 * k], f[4 * k + 1], f[4 * k + 2], f[4 * k + 3]);
+}
+template <int N>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* f) {
+  unsigned int w[N / 2];
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+    w[k] = *reinterpret_cast<const unsigned int*>(&t);
+  }
+  if constexpr (N == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  }
+}
+
+// row r's x and y as the lane's NV 16-byte vectors (columns past d untouched)
+template <typename TX, int NV>
+__device__ __forceinline__ void load_row(const TX* __restrict__ x,
+                                         const TX* __restrict__ y, long long r,
+                                         int d, int lane, uint4 (&xa)[NV],
+                                         uint4 (&ya)[NV]) {
+  const long long base = r * d;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (j * kWarp + lane) * kVec<TX>;
+    if (c < d) {
+      xa[j] = *reinterpret_cast<const uint4*>(x + base + c);
+      if (y != nullptr) ya[j] = *reinterpret_cast<const uint4*>(y + base + c);
+    }
+  }
+}
+
+// The forward over rows whose width is a multiple of kVec<TX> and whose
+// pointers are 16-byte aligned: lane l holds the columns of vectors
+// l, l + 32, ... (PER values in NV 16-byte vectors), so each load of a
+// warp is 512 contiguous bytes. For PER <= 32 (D <= 1024) scale and bias
+// live in registers for the whole walk and the next row's x and y are
+// loaded before this row's two reductions; past that the registers would
+// spill, so scale and bias are read from the cache for every row and the
+// next row is loaded after this one.
+template <typename TX, typename TO, int PER>
+__device__ __forceinline__ void ln_fwd_rows_vec(
+    const TX* __restrict__ x, const TX* __restrict__ y,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    TO* __restrict__ out, TX* __restrict__ res, long long row,
+    long long stride, long long n_rows, int d, float inv_d, float eps,
+    int rms, int lane) {
+  constexpr int V = kVec<TX>;
+  constexpr int NV = PER / V;
+  constexpr bool kHold = PER <= 32;
+  static_assert(PER % V == 0, "PER must be a multiple of the vector width");
+  float sc[kHold ? PER : 1], bi[kHold ? PER : 1];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * kWarp + lane) * V;
+#pragma unroll
+      for (int k = 0; k < V; k += 4) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f), b4 = s4;
+        if (c < d) {
+          s4 = *reinterpret_cast<const float4*>(scale + c + k);
+          if (bias != nullptr) b4 = *reinterpret_cast<const float4*>(bias + c + k);
+        }
+        sc[j * V + k] = s4.x; sc[j * V + k + 1] = s4.y;
+        sc[j * V + k + 2] = s4.z; sc[j * V + k + 3] = s4.w;
+        bi[j * V + k] = b4.x; bi[j * V + k + 1] = b4.y;
+        bi[j * V + k + 2] = b4.z; bi[j * V + k + 3] = b4.w;
+      }
+    }
+  }
+  uint4 xa[NV], ya[NV];
+  load_row<TX, NV>(x, y, row, d, lane, xa, ya);
+  for (; row < n_rows; row += stride) {
+    float r[PER];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * kWarp + lane) * V;
+#pragma unroll
+      for (int k = 0; k < V; ++k) r[j * V + k] = 0.f;
+      if (c < d) {
+        unpack(xa[j], &r[j * V], TX());
+        if (y != nullptr) {
+          float t[V];
+          unpack(ya[j], t, TX());
+#pragma unroll
+          for (int k = 0; k < V; ++k) r[j * V + k] += t[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) s += r[j * V + k];
+    }
+    const long long next = row + stride;
+    if (kHold && next < n_rows) load_row<TX, NV>(x, y, next, d, lane, xa, ya);
+    // the mean, then the direct variance of the centred values, over the
+    // true width (inv_d = 1 / D); RMS: mean 0, variance E[r^2]
+    const float mean = rms ? 0.f : warp_sum(s) * inv_d;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if ((j * kWarp + lane) * V < d) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float c = r[j * V + k] - mean;
+          ss += c * c;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(ss) * inv_d + eps);
+    const long long base = row * d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * kWarp + lane) * V;
+      if (c < d) {
+        float n[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float sv = kHold ? sc[kHold ? j * V + k : 0] : scale[c + k];
+          n[k] = (r[j * V + k] - mean) * rstd * sv;
+          if (bias != nullptr)
+            n[k] += kHold ? bi[kHold ? j * V + k : 0] : bias[c + k];
+        }
+        store_vec<V>(out + base + c, n);
+        if (res != nullptr) store_vec<V>(res + base + c, &r[j * V]);
+      }
+    }
+    if (!kHold && next < n_rows) load_row<TX, NV>(x, y, next, d, lane, xa, ya);
+  }
+}
+
+// The forward one element per lane at a time: any width, any alignment.
+template <typename TX, typename TO, int PER>
+__device__ __forceinline__ void ln_fwd_rows_scalar(
+    const TX* __restrict__ x, const TX* __restrict__ y,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    TO* __restrict__ out, TX* __restrict__ res, long long row,
+    long long stride, long long n_rows, int d, float inv_d, float eps,
+    int rms, int lane) {
+  for (; row < n_rows; row += stride) {
+    const long long base = row * d;
+    float r[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + j * kWarp;
+      float v = 0.f;
+      if (c < d) {
+        v = to_f(x[base + c]);
+        if (y != nullptr) v += to_f(y[base + c]);
+      }
+      r[j] = v;
+    }
+    float mean, rstd;
+    row_stats<PER>(r, lane, d, inv_d, eps, rms, mean, rstd);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + j * kWarp;
+      if (c < d) {
+        float n = (r[j] - mean) * rstd * scale[c];
+        if (bias != nullptr) n += bias[c];
+        out[base + c] = from_f<TO>(n);
+        if (res != nullptr) res[base + c] = from_f<TX>(r[j]);
+      }
+    }
+  }
+}
+
+// A persistent grid (about one wave of resident blocks): warp w of the
+// grid takes rows w, w + warps, ... Rows of a width that is a multiple of
+// 16 bytes, with every pointer 16-byte aligned, take the vector path
+// (`vec`, set by the launch); the rest the scalar one.
 template <typename TX, typename TO, int PER>
 __global__ void __launch_bounds__(kThreads)
     ln_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
                   const float* __restrict__ scale,
                   const float* __restrict__ bias, TO* __restrict__ out,
                   TX* __restrict__ res, long long n_rows, int d, float inv_d,
-                  float eps, int rms) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + warp;
+                  float eps, int rms, int vec) {
+  const int lane = threadIdx.x % kWarp;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
+  const long long stride = (long long)gridDim.x * kRowsPerBlock;
   if (row >= n_rows) return;
-  const long long base = row * d;
-  float r[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = lane + j * kWarp;
-    float v = 0.f;
-    if (c < d) {
-      v = to_f(x[base + c]);
-      if (y != nullptr) v += to_f(y[base + c]);
-    }
-    r[j] = v;
-  }
-  float mean, rstd;
-  row_stats<PER>(r, lane, d, inv_d, eps, rms, mean, rstd);
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = lane + j * kWarp;
-    if (c < d) {
-      float n = (r[j] - mean) * rstd * scale[c];
-      if (bias != nullptr) n += bias[c];
-      out[base + c] = from_f<TO>(n);
-      if (res != nullptr) res[base + c] = from_f<TX>(r[j]);
-    }
-  }
+  if (vec)
+    ln_fwd_rows_vec<TX, TO, PER>(x, y, scale, bias, out, res, row, stride,
+                                 n_rows, d, inv_d, eps, rms, lane);
+  else
+    ln_fwd_rows_scalar<TX, TO, PER>(x, y, scale, bias, out, res, row, stride,
+                                    n_rows, d, inv_d, eps, rms, lane);
 }
 
 // Sum each lane's PER column values over the block's warps, in f64, into
@@ -240,16 +434,47 @@ int parts_for(long long n_rows) {
   return (int)(groups < kMaxParts ? (groups > 0 ? groups : 1) : kMaxParts);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        count <= 0) {
+      count = 132;  // the H100 SXM's
+    }
+  }
+  return count;
+}
+
 template <typename TX, typename TO, int PER>
 int launch_fwd(const void* x, const void* y, const void* scale,
                const void* bias, void* out, void* res, long long n_rows,
                int d, float inv_d, float eps, int rms, cudaStream_t s) {
-  const long long blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  ln_fwd_kernel<TX, TO, PER><<<(unsigned)blocks, kThreads, 0, s>>>(
+  auto kern = ln_fwd_kernel<TX, TO, PER>;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const int vec = d % kVec<TX> == 0 && aligned16(x) &&
+                  (y == nullptr || aligned16(y)) && aligned16(scale) &&
+                  (bias == nullptr || aligned16(bias)) && aligned16(out) &&
+                  (res == nullptr || aligned16(res));
+  long long blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const long long wave = (long long)sm_count() * per_sm;
+  if (blocks > wave) blocks = wave;
+  kern<<<(unsigned)blocks, kThreads, 0, s>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(y),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<TO*>(out), static_cast<TX*>(res), n_rows, d, inv_d, eps,
-      rms);
+      rms, vec);
   return (int)cudaGetLastError();
 }
 

@@ -138,11 +138,14 @@ def _ptr(t):
 
 
 def layernorm_fwd_cuda(x, y, scale, bias, *, eps: float, rms: bool,
-                       out_dtype, want_residual: bool):
+                       out_dtype, want_residual: bool, lib=None):
     """Launch the forward kernel on the current stream. ``x``/``y``:
     contiguous ``[N, D]`` of one dtype (float32 or bfloat16), ``D`` at most
     the kernel's 2048; ``scale``/``bias``: contiguous float32 ``[D]``.
-    Returns ``(n, r|None)``."""
+    The kernel takes 16-byte loads where D is a multiple of 16 bytes and
+    every pointer is 16-byte aligned, element-wise loads otherwise.
+    ``lib``: a loaded build of another ``layernorm.cu`` (an A/B); this
+    checkout's by default. Returns ``(n, r|None)``."""
     from tpudist_torch.csrc import build
 
     _check("layernorm_fwd", [x, y], [scale, bias])
@@ -152,7 +155,7 @@ def layernorm_fwd_cuda(x, y, scale, bias, *, eps: float, rms: bool,
         raise ValueError(f"layernorm_fwd: out_dtype {out_dtype} not in "
                          "(float32, bfloat16)")
     n_rows, d = x.shape
-    lib = build.load("layernorm.cu")
+    lib = lib or build.load("layernorm.cu")
     if d > lib.tpudist_layernorm_max_d():
         raise ValueError(f"layernorm_fwd: D {d} above the kernel's "
                          f"{lib.tpudist_layernorm_max_d()}")

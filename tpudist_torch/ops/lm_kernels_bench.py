@@ -5,7 +5,7 @@
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab # end to end, in turns
     python -m tpudist_torch.ops.lm_kernels_bench --train_ab --seq_len 4096
     python -m tpudist_torch.ops.lm_kernels_bench --decode_ab # serving copy, in turns
-    python -m tpudist_torch.ops.lm_kernels_bench --ab DIR   # bf16 attention, DIR's vs this
+    python -m tpudist_torch.ops.lm_kernels_bench --ab DIR   # DIR's LN/attention kernels vs this
     python -m tpudist_torch.ops.lm_kernels_bench --order    # bf16 attention vs sum orders
     python -m tpudist_torch.ops.lm_kernels_bench --head     # tied head products, in turns
 
@@ -20,8 +20,11 @@ inputs on the card, under the repo's kernel-parity rule (2e-5 absolute
 plus relative in float32, 2% of the plain result's largest magnitude in
 bfloat16) and, for bfloat16 outputs, element by element as well: within
 :data:`ELEM_ULPS` bf16 ulps of the plain value plus :data:`ELEM_ATOL` of
-its largest magnitude. Cases: LayerNorm at GPT-2's 8192 x 768 rows and a
-ragged 1000 x 200, the three compositions, RMS on and off; attention at
+its largest magnitude. Cases: LayerNorm at GPT-2's 8192 x 768 rows, a
+ragged 1000 x 200, 1000 x 197 (a width that is no multiple of 16 bytes:
+the forward's element-wise path) and 1000 x 768 rows that start one
+element into their buffers (misaligned: the element-wise path again), the
+three compositions, RMS on and off; attention at
 GPT-2's B 8, H 12, S 1024, D 64 causal (q, k, v strided views of one qkv
 tensor, as the model passes them), S 197 non-causal, ``kv_len`` < S, GQA
 with 4 K/V heads, and head dims 32, 80, 128 and 20; flash attention at the
@@ -61,17 +64,18 @@ long-context leg (``bench.py``'s flash-versus-XLA step): ``--attn flash
 card's memory is reported as such. Both train on :func:`token_file`'s
 fixed text.
 
-``--ab DIR`` times the bf16 forward and backward (the delta, dk/dv and dq
-kernels of one call) built from another revision's sources against this
-checkout's, in turns (A, B, B, A) on the same inputs, at rows 7-8 and 3-4
-of PERF.md's kernel table: flash at B 4, H 12, S 4096, D 64 causal and
-vmem at B 8, H 12, S 1024, D 64 causal. DIR holds that revision's
-``flash_attention.cu``, ``vmem_attention.cu`` and the headers they
-include, e.g. for the parent commit::
+``--ab DIR`` times kernels built from another revision's sources against
+this checkout's, in turns (A, B, B, A) on the same inputs, for each source
+DIR holds: ``layernorm.cu``, the plain and pre-norm forwards at 8192 x
+768 bf16 (row 5 of PERF.md's kernel table); ``flash_attention.cu`` and
+``vmem_attention.cu`` (with the headers they include), the bf16 forward
+and backward (the delta, dk/dv and dq kernels of one call) at rows 7-8
+and 3-4: flash at B 4, H 12, S 4096, D 64 causal and vmem at B 8, H 12,
+S 1024, D 64 causal. For the parent commit, e.g.::
 
     mkdir -p scratch_chip/parent
-    for f in flash_attention.cu vmem_attention.cu attention_tiles.cuh \
-        attention_mma.cuh; do
+    for f in layernorm.cu flash_attention.cu vmem_attention.cu \
+        attention_tiles.cuh attention_mma.cuh; do
       git show HEAD~1:tpudist_torch/csrc/$f > scratch_chip/parent/$f; done
 
 It prints each turn's median device time (as the times above), the ratio
@@ -185,19 +189,28 @@ def _rand(gen, shape, dtype, scale=1.0, shift=0.0):
     return t.to(dtype)
 
 
-def ln_inputs(gen, n, d, dtype):
-    """x, y, scale, bias, g, gr for ``n`` rows of width ``d``."""
-    return dict(x=_rand(gen, (n, d), dtype), y=_rand(gen, (n, d), dtype),
+def ln_inputs(gen, n, d, dtype, offset: int = 0):
+    """x, y, scale, bias, g, gr for ``n`` rows of width ``d``; with
+    ``offset`` x and y are contiguous rows that start ``offset`` elements
+    into a flat buffer."""
+    def rows():
+        return _rand(gen, (n * d + offset,), dtype)[offset:].view(n, d)
+
+    return dict(x=rows(), y=rows(),
                 scale=_rand(gen, (d,), torch.float32, 0.1, 1.0),
                 bias=_rand(gen, (d,), torch.float32, 0.1),
                 g=_rand(gen, (n, d), dtype), gr=_rand(gen, (n, d), dtype))
 
 
+#: LayerNorm parity cases, (rows, width, offset of x and y in elements)
+LN_CASES = ((ROWS, WIDTH, 0), (1000, 200, 0), (1000, 197, 0), (1000, WIDTH, 1))
+
+
 def ln_parity(gen):
     """Yield ``(name, got, want)`` for every LayerNorm parity case."""
-    for n, d in ((ROWS, WIDTH), (1000, 200)):
+    for n, d, off in LN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            t = ln_inputs(gen, n, d, dtype)
+            t = ln_inputs(gen, n, d, dtype, off)
             for comp in ("plain", "pre", "post"):
                 for rms in (False, True):
                     y = None if comp == "plain" else t["y"]
@@ -214,7 +227,8 @@ def ln_parity(gen):
                                                eps=EPS, rms=rms)
                     bp = LN.layernorm_bwd_plain(r, t["g"], gr, t["scale"],
                                                 eps=EPS, rms=rms)
-                    tag = (f"ln {n}x{d} {str(dtype)[6:]} {comp}"
+                    tag = (f"ln {n}x{d}{f' at +{off}' if off else ''} "
+                           f"{str(dtype)[6:]} {comp}"
                            f"{' rms' if rms else ''}")
                     yield f"{tag} n", kn, pn
                     if kr is not None:
@@ -335,6 +349,40 @@ def attention_build(source: str) -> tuple[list[str], list[str]]:
                 r["spill_stores"] or r["spill_loads"]):
             spilled.append(r["kernel"])
     return lines, spilled
+
+
+def ln_build() -> tuple[list[str], list[str]]:
+    """The LayerNorm kernels' lines of ``layernorm.cu``'s ``-Xptxas -v``
+    report and the names of the bf16 forward instantiations for widths up
+    to 768 (``PER`` 24, GPT-2's) among them that spill (there must be
+    none)."""
+    from tpudist_torch.csrc import build
+
+    lines, spilled = [], []
+    for r in build.register_report("layernorm.cu"):
+        lines.append(f"{r['kernel']}: {r['registers']} registers, "
+                     f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
+                     f"stores / loads, {r['stack']} bytes stack")
+        if (r["kernel"].startswith("ln_fwd_kernel<") and "bf16" in r["kernel"]
+                and r["kernel"].endswith(", 24>")
+                and (r["spill_stores"] or r["spill_loads"])):
+            spilled.append(r["kernel"])
+    return lines, spilled
+
+
+def ln_repeat_identical(gen) -> dict:
+    """Whether two forward calls at 8192 x 768 bf16 give bit-identical
+    outputs, plain (``n``) and pre-norm (``n``, ``r``)."""
+    t = ln_inputs(gen, ROWS, WIDTH, torch.bfloat16)
+    out = {}
+    for name, y in (("plain", None), ("pre-norm", t["y"])):
+        kw = dict(eps=EPS, rms=False, out_dtype=torch.bfloat16,
+                  want_residual=y is not None)
+        a = LN.layernorm_fwd_cuda(t["x"], y, t["scale"], t["bias"], **kw)
+        b = LN.layernorm_fwd_cuda(t["x"], y, t["scale"], t["bias"], **kw)
+        out[name] = all(torch.equal(p, q) for p, q in zip(a, b)
+                        if p is not None)
+    return out
 
 
 def repeat_identical(kind: str, gen, b, s) -> dict:
@@ -653,19 +701,55 @@ def order_probe(gen) -> list[str]:
 AB_CASES = (("flash", FB, FS), ("vmem", B, S))
 
 
+def _turns(calls, libs, flush, n) -> tuple[dict, dict]:
+    """Each side's parity error of ``call(lib)`` against ``plain()``, and
+    its median device times of ``n`` calls in turns (A, B, B, A)."""
+    call, plain = calls
+    want = plain()
+    err = {who: max(max_err(g, w)[0] for g, w in zip(call(lib), want)
+                    if g is not None)
+           for who, lib in libs.items()}
+    del want
+    ms = {"A": [], "B": []}
+    for who in "ABBA":
+        ms[who].append(DB.device_ms(lambda: call(libs[who]), flush, n,
+                                    spin_cycles=SPIN_CYCLES))
+    return ms, err
+
+
 def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
-    """The bf16 forward and backward built from ``src_dir``'s
-    ``flash_attention.cu`` / ``vmem_attention.cu`` (and the headers beside
-    them) as A against this checkout's as B, in turns (A, B, B, A), at
-    :data:`AB_CASES`: the median device time of ``n`` calls per turn and
-    each side's parity error against the plain version. Both backwards
-    take this checkout's forward's (o, lse)."""
+    """Kernels built from ``src_dir``'s sources as A against this
+    checkout's as B, in turns (A, B, B, A), for each source ``src_dir``
+    holds: ``layernorm.cu``'s plain and pre-norm forwards at 8192 x 768
+    bf16; ``flash_attention.cu`` / ``vmem_attention.cu`` (and the headers
+    beside them), the bf16 forward and backward at :data:`AB_CASES`. Each
+    entry has the median device time of ``n`` calls per turn and each
+    side's parity error against the plain version. Both attention
+    backwards take this checkout's forward's (o, lse)."""
     from tpudist_torch.csrc import build
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     out = []
+    if (src_dir / "layernorm.cu").exists():
+        libs = {"A": build.load(str((src_dir / "layernorm.cu").resolve())),
+                "B": None}
+        t = ln_inputs(gen, ROWS, WIDTH, torch.bfloat16)
+        for name, y in (("layernorm_fwd", None),
+                        ("layernorm_fwd_prenorm", t["y"])):
+            kw = dict(eps=EPS, rms=False, out_dtype=torch.bfloat16,
+                      want_residual=y is not None)
+            ms, err = _turns(
+                (lambda lib: LN.layernorm_fwd_cuda(t["x"], y, t["scale"],
+                                                   t["bias"], lib=lib, **kw),
+                 lambda: LN.layernorm_fwd_plain(t["x"], y, t["scale"],
+                                                t["bias"], **kw)),
+                libs, flush, n)
+            out.append(dict(name=name, shape=f"{ROWS} x {WIDTH} rows, bf16",
+                            ms=ms, err=err))
     for kind, b, s in AB_CASES:
+        if not (src_dir / f"{kind}_attention.cu").exists():
+            continue
         mod = FA if kind == "flash" else VA
         fwd = getattr(mod, f"{kind}_fwd_cuda")
         bwd = getattr(mod, f"{kind}_bwd_cuda")
@@ -682,15 +766,7 @@ def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
              lambda: getattr(mod, f"{kind}_bwd_plain")(q, k, v, o, do, lse,
                                                        **kw)))
         for direction, call, plain in calls:
-            want = plain()
-            err = {who: max(max_err(g, w)[0] for g, w in zip(call(lib), want))
-                   for who, lib in libs.items()}
-            del want
-            ms = {"A": [], "B": []}
-            for who in "ABBA":
-                ms[who].append(DB.device_ms(
-                    lambda: call(libs[who]), flush, n,
-                    spin_cycles=SPIN_CYCLES))
+            ms, err = _turns((call, plain), libs, flush, n)
             out.append(dict(name=f"{kind}_attention_{direction}",
                             shape=f"B {b}, H {H}, S {s}, D {D}, causal, bf16",
                             ms=ms, err=err))
@@ -789,8 +865,9 @@ def main(argv=None) -> int:
                    help="only the bf16 kernels that round p against their "
                    "plain versions with s (and dp) summed three ways")
     p.add_argument("--ab", type=Path, default=None, metavar="DIR",
-                   help="only the bf16 forwards and backwards built from "
-                   "DIR's sources against this checkout's, in turns")
+                   help="only the kernels built from DIR's sources "
+                   "(layernorm.cu, flash_attention.cu, vmem_attention.cu) "
+                   "against this checkout's, in turns")
     p.add_argument("--head", action="store_true",
                    help="only the tied head's products at V 50257 and "
                    "50304, and its backward old and new, in turns")

@@ -9,8 +9,8 @@ Both optimizers follow optax's arithmetic, not ``torch.optim.Adam``'s:
 torch folds the bias correction into the step size and divides by
 ``sqrt(v)/sqrt(bc2) + eps``, which rounds differently. Both are built on
 :func:`tpudist_torch.ops.fused_update.adamw_math`, the one formula, so the
-unfused path (eager ops per leaf) and the fused path (one kernel launch
-per leaf of at least 1024 elements) compute the same bits.
+unfused path (eager ops per leaf) and the fused path (one multi-tensor
+kernel launch per step over every leaf) compute the same bits.
 
 An optimizer here updates in place under ``torch.no_grad``:
 ``tx.init(params)`` builds the state from a ``{name: tensor}`` dict (the
@@ -29,7 +29,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpudist_torch.ops.fused_update import adamw_math, fused_leaf_update
+from tpudist_torch.ops import fused_update as FU
+from tpudist_torch.ops.fused_update import adamw_math
 
 
 def warmup_cosine(peak_lr: float, *, warmup_steps: int, total_steps: int,
@@ -104,9 +105,13 @@ class AdamState:
 class FusedAdamWState(AdamState):
     """Adds ``master``: the float32 master of each parameter. Without a
     compute copy it is the parameter itself; with one, it is a separate
-    tensor and the parameter holds the copy."""
+    tensor and the parameter holds the copy. ``table``: the kernel's
+    static table over every leaf (moments, master, copy, decay), built
+    once at :meth:`FusedAdamW.init`; ``names`` orders its leaves."""
 
     master: dict
+    table: FU.AdamWTable
+    names: list
 
 
 class Adam:
@@ -175,17 +180,20 @@ class Adam:
 
 
 class FusedAdamW(Adam):
-    """:class:`Adam`'s update through the one-pass kernel
-    (:func:`tpudist_torch.ops.fused_update.fused_leaf_update`).
+    """:class:`Adam`'s update through the one-pass kernel, one launch per
+    step over every leaf
+    (:func:`tpudist_torch.ops.fused_update.fused_adamw_step`).
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) keeps a compute copy: at
     :meth:`init` the float32 masters move into the state and each float
     parameter becomes its copy in place (its ``.data`` cast), so the
     module's forward reads the copy and its gradients arrive in the
     compute dtype. Each step the kernel writes the new copy,
-    ``compute_dtype(p + u)``, straight into the parameter's storage, in the
-    same sweep as the moments. Without a copy the parameters are the
-    masters and ``p += u``."""
+    ``compute_dtype(p + u)``, straight into the parameter's storage, and
+    the new master ``p + u`` into the master's, in the same sweep as the
+    moments. Without a copy the parameters are the masters. A parameter's
+    storage must not be rebound (``p.data = ...``) after :meth:`init`: the
+    table holds its pointer."""
 
     fused = True
 
@@ -207,21 +215,24 @@ class FusedAdamW(Adam):
             for p in params.values():
                 if p.is_floating_point():
                     p.data = p.data.to(self.compute_dtype)
-        return FusedAdamWState(0, base.mu, base.nu, master)
+        names = list(params)
+        wds = self.leaf_decay(master)
+        table = FU.AdamWTable(
+            [base.mu[k] for k in names], [base.nu[k] for k in names],
+            [master[k] for k in names],
+            [params[k] if master[k] is not params[k] else None
+             for k in names], [wds[k] for k in names])
+        return FusedAdamWState(0, base.mu, base.nu, master, table, names)
 
     @torch.no_grad()
     def step(self, state: FusedAdamWState, params: dict, grads: dict) -> None:
+        if list(params) != state.names:
+            raise ValueError("fused_adamw: step's parameters differ from "
+                             "those the state was built for")
         grads = self._grads(grads)
         lr, b1c, b2c = self.scalars(state.count)
-        wds = self.leaf_decay(state.master)
-        for k, p in params.items():
-            master = state.master[k]
-            copy = p if master is not p else None
-            u, _, _, _ = fused_leaf_update(
-                grads[k], state.mu[k], state.nu[k], master, lr, b1c, b2c,
-                b1=self.b1, b2=self.b2, eps=self.eps, wd=wds[k],
-                m_out=state.mu[k], v_out=state.nu[k], copy_out=copy)
-            master.add_(u)
+        FU.fused_adamw_step(state.table, [grads[k] for k in state.names], lr,
+                            b1c, b2c, b1=self.b1, b2=self.b2, eps=self.eps)
         state.count += 1
 
 
