@@ -72,17 +72,21 @@ Phases, each fatal on failure:
     --fused optimizer and of --fused none from the same init on the same
     batches: losses and params within 1e-5 relative;
 11. fused LayerNorm parity — the kernels' registers and spills from the
-    build report (a spill in a bf16 forward instantiation for D 768
-    fails), then the forward and backward kernels against their plain
-    versions at GPT-2's 8192 x 768 rows, a ragged 1000 x 200, 1000 x 197
-    (no multiple of 16 bytes: the forward's element-wise path) and 1000 x
-    768 rows starting one element into their buffers (misaligned: the
-    element-wise path), the three compositions, RMS on and off, f32 and
-    bf16: n, r, dx = dy, dscale, dbias under the parity rule of phase 2
-    and, for bf16 outputs, element by element within 2 bf16 ulps plus
-    2^-14 of the largest magnitude (lm_kernels_bench.ELEM_ULPS /
-    ELEM_ATOL); two bf16 forward calls at 8192 x 768, plain and pre-norm,
-    must be bit-identical;
+    build report (a spill in a bf16 forward instantiation for D 768, or
+    in any bf16 or f32 backward instantiation for D up to 768, fails),
+    then the forward and backward kernels against their plain versions
+    at GPT-2's 8192 x 768 rows, a ragged 1000 x 200, 1000 x 197 (no
+    multiple of 16 bytes: the element-wise paths), 1000 x 768 rows
+    starting one element into their buffers (misaligned: the element-wise
+    paths again), 3 x 768 (fewer rows than a backward block has warps),
+    65536 x 768 (many rows a warp of the backward's persistent grid) and
+    1000 x 2048 (the widest rows; the backward stages its column sums),
+    the three compositions, RMS on and off, f32 and bf16: n, r, dx = dy,
+    dscale, dbias under the parity rule of phase 2 and, for bf16 outputs,
+    element by element within 2 bf16 ulps plus 2^-14 of the largest
+    magnitude (lm_kernels_bench.ELEM_ULPS / ELEM_ATOL); two bf16 calls at
+    8192 x 768, plain and pre-norm, must be bit-identical, the forward in
+    n and r, the backward in dr, dscale and dbias;
 12. vmem attention parity — the forward and backward kernels against their
     plain versions: B 8, H 12, S 1024, D 64 causal (strided q, k, v views
     of one qkv tensor, the main path's case), S 197 non-causal, kv_len < S
@@ -101,7 +105,8 @@ Phases, each fatal on failure:
     (tpudist_torch/ops/lm_kernels_bench.py): median device time of 50
     calls, L2 flushed, beside the bound, the plain version and the library
     call (F.layer_norm, aten.native_layer_norm_backward,
-    scaled_dot_product_attention forward and backward);
+    scaled_dot_product_attention forward and backward); the LayerNorm
+    backward also at the long-context path's 16384 x 768 rows;
 14. the main path, trained — a 1-rank NCCL group, then
     ``tpudist_torch.train_gpt2.main`` with GPT-2 124M at full width and
     depth, --bf16 --fused all --attn auto, batch 8, S 1024, 16 steps on a
@@ -652,23 +657,24 @@ def lm_phases(smi: str, dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
 
     # -- 11, 12. parity ---------------------------------------------------------
-    print("== 11. fused LayerNorm parity: 8192x768, 1000x200, 1000x197 and "
-          "1000x768 at +1 element, three compositions, rms on/off, f32/bf16")
+    print("== 11. fused LayerNorm parity: 8192x768, 1000x200, 1000x197, "
+          "1000x768 at +1 element, 3x768, 65536x768 and 1000x2048, three "
+          "compositions, rms on/off, f32/bf16")
     lines, spilled = LB.ln_build()
     print("  layernorm.cu kernels (-Xptxas -v):")
     for line in lines:
         print("    " + line)
     if spilled:
-        fail(f"bf16 LayerNorm forward kernels at D 768 spill: {spilled}")
+        fail(f"LayerNorm kernels at D <= 768 spill: {spilled}")
     for name, got, want in LB.ln_parity(gen):
         check(name, got, want, elem=True)
     if FAILURES:
         fail(f"fused LayerNorm parity: {FAILURES}")
     same = LB.ln_repeat_identical(gen)
-    print(f"  two bf16 forward calls at {LB.ROWS} x {LB.WIDTH} bit-identical: "
-          f"{same}")
+    print(f"  two bf16 calls at {LB.ROWS} x {LB.WIDTH} bit-identical (forward "
+          f"n, r; backward dr, dscale, dbias): {same}")
     if not all(same.values()):
-        fail(f"the LayerNorm forward is not deterministic: {same}")
+        fail(f"the LayerNorm kernels are not deterministic: {same}")
     print("== 12. vmem attention parity: o, lse, dq, dk, dv")
     attention_build("vmem_attention.cu")
     for name, got, want in LB.attn_parity(gen):

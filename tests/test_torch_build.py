@@ -112,6 +112,33 @@ def test_attention_build_reports_forwards_and_flags_hd64_spills(monkeypatch):
                        "attn_dq_mma_kernel<64, false>"]
 
 
+def test_ln_build_reports_backward_and_flags_spills_to_d768(monkeypatch):
+    """The LayerNorm build report (chip_smoke phase 11) lists the backward
+    instantiations ``ln_bwd_kernel<TX, TG, PER, V>`` beside the forward
+    ones, and flags a spill in every backward for D up to 768 (PER at most
+    24, f32 or bf16, either load width) and in the bf16 forwards at D 768;
+    a spill at D 2048 or in an f32 forward is reported, not flagged."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    log = "".join((
+        _entry("ln_bwd_kernel", "13__nv_bfloat16S1_Li24ELi8E", 0, 159),
+        _entry("ln_bwd_kernel", "ffLi24ELi1E", 16, 255),
+        _entry("ln_bwd_kernel", "13__nv_bfloat16S1_Li64ELi8E", 480, 255),
+        _entry("ln_bwd_kernel", "f13__nv_bfloat16Li8ELi8E", 4, 80),
+        _entry("ln_fwd_kernel", "13__nv_bfloat16S1_Li24E", 8, 255),
+        _entry("ln_fwd_kernel", "ffLi24E", 8, 200),
+    ))
+    monkeypatch.setitem(build.build_info, "layernorm.cu", {"log": log})
+    lines, spilled = LB.ln_build()
+    assert [ln.split(":")[0] for ln in lines] == [
+        "ln_bwd_kernel<bf16, bf16, 24, 8>", "ln_bwd_kernel<float, float, 24, 1>",
+        "ln_bwd_kernel<bf16, bf16, 64, 8>", "ln_bwd_kernel<float, bf16, 8, 8>",
+        "ln_fwd_kernel<bf16, bf16, 24>", "ln_fwd_kernel<float, float, 24>"]
+    assert spilled == ["ln_bwd_kernel<float, float, 24, 1>",
+                       "ln_bwd_kernel<float, bf16, 8, 8>",
+                       "ln_fwd_kernel<bf16, bf16, 24>"]
+
+
 def test_kernel_names_of_repeated_and_namespace_types():
     """Template arguments that repeat a type (``S<n>_``), a type of the
     kernel's own namespace (``NS_<len><name>E``) and a float before a

@@ -9,38 +9,55 @@
 //                    (+ bias) written in out_dtype and r in x's dtype, in
 //                    one pass over the rows.
 //   ln_bwd_kernel    replaces _bwd_kernel (_bwd_call): the statistics
-//   ln_bwd_reduce    recomputed from the saved r, dr = rstd * (g^ -
+//                    recomputed from the saved r, dr = rstd * (g^ -
 //                    x^ mean(g^ x^) - mean(g^)) (+ gr), and dscale =
 //                    sum g x^, dbias = sum g over all rows in f32.
 //
 // What bounds them on the H100: bytes. At GPT-2's 8192 x 768 rows in bf16
 // the pre-norm forward reads x and y and writes n and r (8 bytes per
 // element, 50 MB: 15 us at 3.35 TB/s) for about 10 f32 operations per
-// element; the backward reads r, g, gr and writes dr (the same 50 MB).
-// The design keeps a whole row in registers: one warp per row, each lane
-// holding ceil(D / 32) values, so the row is read from device memory once
-// and both statistics and the output come from registers (the TPU kernel
-// keeps its block of rows in VMEM for the same reason).
+// element; the pre-norm backward reads r, g, gr and writes dr (the same
+// 50 MB), plain 38 MB. Both keep a whole row in registers: one warp per
+// row, each lane holding ceil(D / 32) values, so the row is read from
+// device memory once and both statistics and the output come from
+// registers (the TPU kernel keeps its block of rows in VMEM for the same
+// reason). Both run a persistent grid (the forward one wave of resident
+// blocks, the backward one block an SM) whose warps each walk several
+// rows; where the width is a multiple of 16 bytes (the backward: of 8
+// elements) and every pointer is 16-byte aligned they
+// load and store 16 bytes a lane (8 bf16 values: a 768-wide bf16 row is 3
+// loads a lane), and they issue the next row's loads before this row's
+// warp reductions, so a warp always has a row in flight. Other widths and
+// misaligned rows take an element-wise path. The function is the same on
+// both paths: only the f32 order of a lane's partial sums differs.
 //
-// The forward runs a persistent grid (one wave of resident blocks) whose
-// warps each walk several rows. Where the width is a multiple of 16 bytes
-// and every pointer is 16-byte aligned it loads and stores 16 bytes a lane
-// (8 bf16 or 4 f32 values: a 768-wide bf16 row is 3 loads a lane), keeps
-// scale and bias in registers for the whole walk, and issues the next
-// row's loads before this row's two warp reductions, so a warp always has
-// a row in flight. Other widths and misaligned rows take a scalar path
-// (one element per lane per load) in the same kernel. The function is the
-// same on both: only the f32 order of a lane's partial sums differs from
-// the one-element-per-lane layout. The backward's loads are still one
-// element per lane (later speed work).
+// The forward keeps scale and bias in registers for the walk and takes the
+// element-wise path in the same kernel. The backward holds the row in
+// flight packed (bf16 pairs in 16-byte words: 12 registers an array at D
+// 768, not 24), loads gr a row ahead with r and g (loaded after a row's
+// four reductions, gr made pre-norm cost 2.5x plain for 1.33x the bytes),
+// and has an instantiation per load width.
 //
 // The TPU kernel sums dscale / dbias across its sequential grid in VMEM
-// scratch; blocks on Hopper run in no order, so each block of the backward
-// writes its own partial sums [n_parts, D] and a second launch adds them
-// up in a fixed order: deterministic, no atomics. Each warp sums its few rows in f32
-// registers; the block's warps and the partials are added in f64, since a
-// sequential f32 sum of 264 partials of GPT-2's 8192 rows drifts by ~1e-4
-// from the exact column sums.
+// scratch; blocks on Hopper run in no order. The backward adds each row's
+// f32 terms per column in f64 (in registers, or staged a round at a time
+// past D 768), each block writes its partial row [n_parts, D], and a
+// second launch (ln_bwd_reduce, a warp per 8 columns) adds the partials
+// up in block order in f64: deterministic, no atomics. The f64 sums cost 2
+// conversions an element, about 4 us of the H100's f64-conversion rate at
+// 8192 x 768; summed in f32 per warp they missed the parity bar at 65536
+// rows. The reduction is a launch of its own, not a grid-wide barrier in the
+// row kernel's launch: a cooperative launch needs every block resident at
+// once, so beside the NCCL kernels of data-parallel training (on another
+// stream, holding SMs) it would wait for them and end the overlap of the
+// all-reduce with the backward (the barrier saved ~2.7 us a call at
+// 8192 x 768 on the H100).
+// The row statistics add the lanes' f32 partial sums in f64 and round
+// once; layernorm_bwd_plain takes its row sums in f64: summed in f32 in
+// two orders, the rstd of most rows differs by an ulp, and at 65536 rows
+// that moves dscale columns past the f32 parity bar (up to 3.1x it for
+// left-to-right sums against this kernel's lane order,
+// tests/test_torch_layernorm.py).
 //
 // C interface for ctypes: every pointer and the stream are void*, the
 // return value is cudaGetLastError() after the launches.
@@ -55,7 +72,9 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;  // warps a block, each on its own rows
 constexpr int kThreads = kWarp * kRowsPerBlock;
-constexpr int kMaxParts = 264;  // backward blocks: two per SM of the H100
+constexpr int kBwdWarps = 8;  // the backward's warps a block
+constexpr int kBwdThreads = kWarp * kBwdWarps;
+constexpr int kFinishCols = 8;  // columns a warp of ln_bwd_reduce adds up
 constexpr int kMaxD = 2048;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -325,128 +344,335 @@ __global__ void __launch_bounds__(kThreads)
                                     n_rows, d, inv_d, eps, rms, lane);
 }
 
-// Sum each lane's PER column values over the block's warps, in f64, into
-// part[0:d].
-template <int PER>
-__device__ __forceinline__ void block_colsum(const float (&acc)[PER],
+// V columns of one row as loaded, V = 8 (16-byte loads: one uint4 of bf16,
+// two of f32) or V = 1 (one element): the look-ahead holds a row packed,
+// so at D 768 bf16 a row in flight costs 12 registers an array, not 24.
+template <typename T, int V>
+struct Pack;
+template <typename T>
+struct Pack<T, 1> {
+  T v;
+  __device__ __forceinline__ void load(const T* p) { v = *p; }
+  __device__ __forceinline__ void widen(float* f) const { f[0] = to_f(v); }
+};
+template <typename T>
+struct Pack<T, 8> {
+  static constexpr int W = 8 * (int)sizeof(T) / 16;
+  uint4 w[W];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) w[k] = reinterpret_cast<const uint4*>(p)[k];
+  }
+  __device__ __forceinline__ void widen(float* f) const {
+#pragma unroll
+    for (int k = 0; k < W; ++k) unpack(w[k], f + k * kVec<T>, T());
+  }
+};
+
+template <int V, typename T>
+__device__ __forceinline__ void store_cols(T* p, const float* f) {
+  if constexpr (V == 1) {
+    *p = from_f<T>(f[0]);
+  } else {
+    store_vec<V>(p, f);
+  }
+}
+
+// a and b summed over the warp, the two butterflies interleaved
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
+// The block's column sums of one array of lane sums: the warps' sums
+// staged in shared memory, then added in warp order into part[0:d].
+template <int PER, int V>
+__device__ __forceinline__ void block_colsum(const double (&acc)[PER],
                                              double* red, double* part,
                                              int warp, int lane, int d) {
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = lane + j * kWarp;
-    if (c < d) red[warp * d + c] = acc[j];
+  for (int j = 0; j < PER / V; ++j) {
+    const int c = (j * kWarp + lane) * V;
+    if (c < d) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) red[warp * d + c + k] = acc[j * V + k];
+    }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < d; c += kThreads) {
+  for (int c = threadIdx.x; c < d; c += kBwdThreads) {
     double s = 0.0;
 #pragma unroll
-    for (int w = 0; w < kRowsPerBlock; ++w) s += red[w * d + c];
+    for (int w = 0; w < kBwdWarps; ++w) s += red[w * d + c];
     part[c] = s;
   }
   __syncthreads();
 }
 
-// One warp per row, rows strided over the grid; each block sums its rows'
-// g * x^ and g per column, across its warps through shared memory, into
-// its own partial row of ds_part / db_part.
-template <typename TX, typename TG, int PER>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ double warp_sum_f64(double x) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// One block's walk of the backward. Warp w takes rows base + w of the
+// rounds base = kBwdWarps * blockIdx.x, + kBwdWarps * gridDim.x, ...;
+// lane l holds columns (l + 32 j) * V + k of chunk j < PER / V, k < V, so
+// with V = 8 each load of a warp is 512 contiguous bytes of bf16. Where a
+// row packed is at most 64 bytes a lane (bf16 up to D 1024, f32 up to D
+// 256) the next round's r, g and gr are loaded before this row's
+// reductions, so the warp always has a row in flight; otherwise r and g
+// are loaded at the row's start and gr where dr is written. For PER <= 32
+// scale lives in registers for the whole walk.
+//
+// The statistics round near layernorm_bwd_plain's: each row sum's
+// butterfly in f64 (over lane partials of PER values in f32), rounded to
+// f32 once, every other step in f32 without contraction. The column sums
+// add the rows' g * x^ (rounded to f32, as the plain version's products)
+// and g in f64, so a block's partial sums are the exact sums of those f32
+// terms whatever rows a warp walks. With 16-byte loads up to D 768
+// (kLaneSums) each lane adds its own columns in f64 registers, and the
+// block's warps are added in warp order at the end; past that, and on the
+// element-wise path, the f64 sums would spill, so each round the warps
+// stage their rows' terms in shared memory and thread t adds columns t,
+// t + kBwdThreads, ... of the round's rows in warp order in f64 registers
+// (two barriers a round: 12% slower at D 768 on the H100).
+template <typename TX, typename TG, int PER, int V>
+__device__ __forceinline__ void ln_bwd_walk(
+    const TX* __restrict__ r_in, const TG* __restrict__ g_in,
+    const TX* __restrict__ gr_in, const float* __restrict__ scale,
+    TX* __restrict__ dr_out, double* ds_part, double* db_part,
+    long long n_rows, int d, float inv_d, float eps, int rms, double* red) {
+  constexpr int NV = PER / V;
+  constexpr bool kLaneSums = V > 1 && PER <= 24;
+  // f64 sums a thread keeps: its lane's columns, or the columns it adds up
+  constexpr int NS = kLaneSums ? PER : PER * kWarp / kBwdThreads;
+  constexpr bool kAhead = V > 1 && PER * sizeof(TX) <= 64;
+  constexpr bool kHold = PER <= 32;
+  static_assert(PER % V == 0 && NS >= 1, "PER must be a multiple of V and 8");
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  auto col = [&](int j) { return (j * kWarp + lane) * V; };
+  float sc[kHold ? PER : 1];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) sc[j * V + k] = 0.f;
+      if (col(j) < d) {
+        if constexpr (V == 1) {
+          sc[j] = scale[col(j)];
+        } else {
+          Pack<float, V> s8;
+          s8.load(scale + col(j));
+          s8.widen(&sc[j * V]);
+        }
+      }
+    }
+  }
+  double ds_acc[NS], db_acc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) ds_acc[i] = db_acc[i] = 0.0;
+  float* stage = reinterpret_cast<float*>(red);  // [kBwdWarps][2][d]
+  Pack<TX, V> ra[NV], gra[NV];
+  Pack<TG, V> ga[NV];
+  auto load = [&](long long rr, bool with_gr) {
+    const long long base = rr * d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (col(j) < d) {
+        ra[j].load(r_in + base + col(j));
+        ga[j].load(g_in + base + col(j));
+        if (with_gr) gra[j].load(gr_in + base + col(j));
+      }
+    }
+  };
+  const long long stride = (long long)gridDim.x * kBwdWarps;
+  long long base = (long long)blockIdx.x * kBwdWarps;
+  if (kAhead && base + warp < n_rows) load(base + warp, gr_in != nullptr);
+  for (; base < n_rows; base += stride) {
+    const long long row = base + warp;
+    if (row < n_rows) {
+      if (!kAhead) load(row, false);
+      float x[PER];
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) x[j * V + k] = 0.f;
+        if (col(j) < d) ra[j].widen(&x[j * V]);
+#pragma unroll
+        for (int k = 0; k < V; ++k) s += x[j * V + k];
+      }
+      Pack<TG, V> gc[NV];
+      Pack<TX, V> grc[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        gc[j] = ga[j];
+        if (kAhead) grc[j] = gra[j];
+      }
+      if (kAhead && row + stride < n_rows) load(row + stride, gr_in != nullptr);
+      // the mean, then the direct variance of the centred values, over the
+      // true width (inv_d = 1 / D); RMS: mean 0, variance E[r^2]
+      const float mean = rms ? 0.f : __fmul_rn((float)warp_sum_f64(s), inv_d);
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (col(j) < d) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float c = x[j * V + k] - mean;
+            ss += __fmul_rn(c, c);
+          }
+        }
+      }
+      const float var = __fmul_rn((float)warp_sum_f64(ss), inv_d);
+      const float rstd = rsqrtf(__fadd_rn(var, eps));
+      // x^ in place of r; g^ = g * scale is recomputed where it is used
+      float s2 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (col(j) < d) {
+          float gv[V];
+          gc[j].widen(gv);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float sv = kHold ? sc[kHold ? j * V + k : 0] : scale[col(j) + k];
+            x[j * V + k] = (x[j * V + k] - mean) * rstd;
+            const float dxhat = gv[k] * sv;
+            s2 += dxhat * x[j * V + k];
+            s1 += dxhat;
+          }
+        }
+      }
+      warp_sum2(s2, s1);
+      const float c2 = s2 * inv_d;
+      const float c1 = rms ? 0.f : s1 * inv_d;
+      const long long at = row * d;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (col(j) < d) {
+          float gv[V], grv[V], dr[V], gx[V];
+          gc[j].widen(gv);
+          if (gr_in != nullptr) {
+            if (!kAhead) grc[j].load(gr_in + at + col(j));
+            grc[j].widen(grv);
+          }
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float sv = kHold ? sc[kHold ? j * V + k : 0] : scale[col(j) + k];
+            const float xhat = x[j * V + k];
+            const float dxhat = gv[k] * sv;
+            dr[k] = dxhat - xhat * c2;
+            if (!rms) dr[k] -= c1;
+            dr[k] *= rstd;
+            if (gr_in != nullptr) dr[k] += grv[k];
+            gx[k] = __fmul_rn(gv[k], xhat);
+            if constexpr (kLaneSums) {
+              ds_acc[j * V + k] += (double)gx[k];
+              db_acc[j * V + k] += (double)gv[k];
+            }
+          }
+          store_cols<V>(dr_out + at + col(j), dr);
+          if constexpr (!kLaneSums) {
+            store_cols<V>(stage + 2 * warp * d + col(j), gx);
+            store_cols<V>(stage + (2 * warp + 1) * d + col(j), gv);
+          }
+        }
+      }
+    }
+    if constexpr (!kLaneSums) {
+      __syncthreads();
+      const int active = n_rows - base < kBwdWarps ? (int)(n_rows - base) : kBwdWarps;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = threadIdx.x + i * kBwdThreads;
+        if (c < d) {
+          for (int w = 0; w < active; ++w) {
+            ds_acc[i] += stage[2 * w * d + c];
+            db_acc[i] += stage[(2 * w + 1) * d + c];
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  double* ds_row = ds_part + (long long)blockIdx.x * d;
+  double* db_row = db_part + (long long)blockIdx.x * d;
+  if constexpr (kLaneSums) {
+    block_colsum<PER, V>(ds_acc, red, ds_row, warp, lane, d);
+    block_colsum<PER, V>(db_acc, red, db_row, warp, lane, d);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = threadIdx.x + i * kBwdThreads;
+      if (c < d) {
+        ds_row[c] = ds_acc[i];
+        db_row[c] = db_acc[i];
+      }
+    }
+  }
+}
+
+// One warp a block: dscale / dbias of columns [8 g, 8 g + 8), g the
+// block, from the row kernel's partial rows. Lane 8 p + i adds parts p,
+// p + 4, p + 8, ... of column 8 g + i in f64, the four phases are added by
+// a fixed butterfly, and the sum is rounded to f32 once. The same order on
+// every call, no atomics.
+__global__ void __launch_bounds__(kWarp)
+    ln_bwd_reduce(const double* __restrict__ ds_part,
+                  const double* __restrict__ db_part, float* __restrict__ ds,
+                  float* __restrict__ db, int n_parts, int d) {
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x * kFinishCols + lane % kFinishCols;
+  double s = 0.0, b = 0.0;
+  if (c < d) {
+    for (int i = lane / kFinishCols; i < n_parts; i += kWarp / kFinishCols) {
+      s += ds_part[(long long)i * d + c];
+      b += db_part[(long long)i * d + c];
+    }
+  }
+#pragma unroll
+  for (int o = kFinishCols; o < kWarp; o <<= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (lane < kFinishCols && c < d) {
+    ds[c] = (float)s;
+    db[c] = (float)b;
+  }
+}
+
+// One warp per row on a persistent grid of one block an SM
+// (ln_bwd_walk), V = 8 where the width is a multiple of 8 and every
+// pointer is 16-byte aligned, V = 1 otherwise. Each block writes its own
+// partial row of ds_part / db_part for ln_bwd_reduce. (The bound of one
+// block an SM keeps ptxas from spilling registers to fit more.)
+template <typename TX, typename TG, int PER, int V>
+__global__ void __launch_bounds__(kBwdThreads, 1)
     ln_bwd_kernel(const TX* __restrict__ r_in, const TG* __restrict__ g_in,
                   const TX* __restrict__ gr_in,
                   const float* __restrict__ scale, TX* __restrict__ dr_out,
-                  double* __restrict__ ds_part, double* __restrict__ db_part,
-                  long long n_rows, int d, float inv_d, float eps, int rms) {
-  extern __shared__ double red[];  // [kRowsPerBlock][d]
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  float ds_acc[PER], db_acc[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) ds_acc[j] = db_acc[j] = 0.f;
-  const long long stride = (long long)gridDim.x * kRowsPerBlock;
-  for (long long row = (long long)blockIdx.x * kRowsPerBlock + warp;
-       row < n_rows; row += stride) {
-    const long long base = row * d;
-    float r[PER], g[PER];
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + j * kWarp;
-      r[j] = c < d ? to_f(r_in[base + c]) : 0.f;
-      g[j] = c < d ? to_f(g_in[base + c]) : 0.f;
-    }
-    float mean, rstd;
-    row_stats<PER>(r, lane, d, inv_d, eps, rms, mean, rstd);
-    // x^ and g^ = g * scale are recomputed in the second loop rather than
-    // held: registers, not arithmetic, limit this kernel
-    float s2 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < d) {
-        const float xhat = (r[j] - mean) * rstd;
-        const float dxhat = g[j] * scale[c];
-        s2 += dxhat * xhat;
-        s1 += dxhat;
-      }
-    }
-    const float c2 = warp_sum(s2) * inv_d;
-    const float c1 = rms ? 0.f : warp_sum(s1) * inv_d;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < d) {
-        const float xhat = (r[j] - mean) * rstd;
-        const float dxhat = g[j] * scale[c];
-        float dr = dxhat - xhat * c2;
-        if (!rms) dr -= c1;
-        dr *= rstd;
-        if (gr_in != nullptr) dr += to_f(gr_in[base + c]);
-        dr_out[base + c] = from_f<TX>(dr);
-        ds_acc[j] += g[j] * xhat;
-        db_acc[j] += g[j];
-      }
-    }
-  }
-  // the block's column sums, one array at a time through shared memory
-  block_colsum<PER>(ds_acc, red, ds_part + (long long)blockIdx.x * d, warp,
-                    lane, d);
-  block_colsum<PER>(db_acc, red, db_part + (long long)blockIdx.x * d, warp,
-                    lane, d);
-}
-
-// dscale / dbias: the partial rows added in block order in f64, one
-// thread per column, rounded to f32 once.
-__global__ void ln_bwd_reduce(const double* __restrict__ ds_part,
-                              const double* __restrict__ db_part,
-                              float* __restrict__ ds, float* __restrict__ db,
-                              int n_parts, int d) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  double s = 0.0, b = 0.0;
-  for (int i = 0; i < n_parts; ++i) {
-    s += ds_part[(long long)i * d + c];
-    b += db_part[(long long)i * d + c];
-  }
-  ds[c] = (float)s;
-  db[c] = (float)b;
-}
-
-int parts_for(long long n_rows) {
-  const long long groups = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  return (int)(groups < kMaxParts ? (groups > 0 ? groups : 1) : kMaxParts);
+                  double* ds_part, double* db_part, long long n_rows, int d,
+                  float inv_d, float eps, int rms) {
+  extern __shared__ double red[];  // [kBwdWarps][d]
+  ln_bwd_walk<TX, TG, PER, V>(r_in, g_in, gr_in, scale, dr_out, ds_part,
+                              db_part, n_rows, d, inv_d, eps, rms, red);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// the current device's SM count (an attribute query: no cache to key)
 int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        count <= 0) {
-      count = 132;  // the H100 SXM's
-    }
+  int dev = 0, count = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      count <= 0) {
+    count = 132;  // the H100 SXM's
   }
   return count;
 }
@@ -501,34 +727,61 @@ int fwd_per(int x_dtype, int out_dtype, const void* x, const void* y,
   }
 }
 
-template <typename TX, typename TG, int PER>
+// The backward's grid for n_rows rows, its one decision: one block an SM
+// (the D 768 instantiations hold no more: 241-255 registers a thread), or
+// a block a round of kBwdWarps rows where there are fewer. The caller
+// allocates that many partial rows.
+int parts_for(long long n_rows) {
+  const long long groups = (n_rows + kBwdWarps - 1) / kBwdWarps;
+  const long long wave = sm_count();
+  return (int)(groups < wave ? (groups > 0 ? groups : 1) : wave);
+}
+
+template <typename TX, typename TG, int PER, int V>
 int launch_bwd(const void* r, const void* g, const void* gr,
                const void* scale, void* dr, void* ds_part, void* db_part,
-               long long n_rows, int d, int n_parts, float inv_d, float eps,
-               int rms, cudaStream_t s) {
-  const int smem = kRowsPerBlock * d * (int)sizeof(double);
-  auto kern = ln_bwd_kernel<TX, TG, PER>;
+               void* ds, void* db, long long n_rows, int d, int n_parts,
+               float inv_d, float eps, int rms, cudaStream_t s) {
+  auto kern = ln_bwd_kernel<TX, TG, PER, V>;
+  const int smem = kBwdWarps * d * (int)sizeof(double);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<n_parts, kThreads, smem, s>>>(
+  kern<<<(unsigned)n_parts, kBwdThreads, smem, s>>>(
       static_cast<const TX*>(r), static_cast<const TG*>(g),
       static_cast<const TX*>(gr), static_cast<const float*>(scale),
       static_cast<TX*>(dr), static_cast<double*>(ds_part),
       static_cast<double*>(db_part), n_rows, d, inv_d, eps, rms);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_bwd_reduce<<<(unsigned)((d + kFinishCols - 1) / kFinishCols), kWarp, 0, s>>>(
+      static_cast<const double*>(ds_part), static_cast<const double*>(db_part),
+      static_cast<float*>(ds), static_cast<float*>(db), n_parts, d);
   return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TG, int PER>
+int bwd_vec(const void* r, const void* g, const void* gr, const void* scale,
+            void* dr, void* ds_part, void* db_part, void* ds, void* db,
+            long long n_rows, int d, int n_parts, float inv_d, float eps,
+            int rms, cudaStream_t s) {
+  const bool vec = d % 8 == 0 && aligned16(r) && aligned16(g) &&
+                   (gr == nullptr || aligned16(gr)) && aligned16(scale) &&
+                   aligned16(dr);
+  return vec ? launch_bwd<TX, TG, PER, 8>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s)
+             : launch_bwd<TX, TG, PER, 1>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
 }
 
 template <typename TX, int PER>
 int bwd_g(int g_dtype, const void* r, const void* g, const void* gr,
-          const void* scale, void* dr, void* ds_part, void* db_part,
-          long long n_rows, int d, int n_parts, float inv_d, float eps,
-          int rms, cudaStream_t s) {
+          const void* scale, void* dr, void* ds_part, void* db_part, void* ds,
+          void* db, long long n_rows, int d, int n_parts, float inv_d,
+          float eps, int rms, cudaStream_t s) {
   switch (g_dtype) {
-    case 0: return launch_bwd<TX, float, PER>(r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
-    case 1: return launch_bwd<TX, __nv_bfloat16, PER>(r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 0: return bwd_vec<TX, float, PER>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 1: return bwd_vec<TX, __nv_bfloat16, PER>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -536,11 +789,11 @@ int bwd_g(int g_dtype, const void* r, const void* g, const void* gr,
 template <int PER>
 int bwd_per(int r_dtype, int g_dtype, const void* r, const void* g,
             const void* gr, const void* scale, void* dr, void* ds_part,
-            void* db_part, long long n_rows, int d, int n_parts, float inv_d,
-            float eps, int rms, cudaStream_t s) {
+            void* db_part, void* ds, void* db, long long n_rows, int d,
+            int n_parts, float inv_d, float eps, int rms, cudaStream_t s) {
   switch (r_dtype) {
-    case 0: return bwd_g<float, PER>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
-    case 1: return bwd_g<__nv_bfloat16, PER>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 0: return bwd_g<float, PER>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 1: return bwd_g<__nv_bfloat16, PER>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -549,8 +802,8 @@ int bwd_per(int r_dtype, int g_dtype, const void* r, const void* g,
 
 extern "C" {
 
-// Rows of the backward's partial sums for n_rows rows (the caller
-// allocates two f64 arrays [parts, d]).
+// The blocks of the backward's grid for n_rows rows: the rows of its
+// partial sums (the caller allocates two f64 arrays [parts, d]).
 int tpudist_layernorm_bwd_parts(long long n_rows) { return parts_for(n_rows); }
 
 int tpudist_layernorm_max_d() { return kMaxD; }
@@ -570,26 +823,21 @@ int tpudist_layernorm_fwd(int x_dtype, int out_dtype, const void* x,
   return fwd_per<64>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
 }
 
-// Two launches: the row kernel (dr and the per-block partials), then the
-// reduction of the partials into ds / db. gr may be null.
+// Two launches: the rows, dr and n_parts blocks' partial sums
+// (n_parts from tpudist_layernorm_bwd_parts), then their sum into ds /
+// db. gr may be null.
 int tpudist_layernorm_bwd(int r_dtype, int g_dtype, const void* r,
                           const void* g, const void* gr, const void* scale,
                           void* dr, void* ds_part, void* db_part, void* ds,
                           void* db, long long n_rows, int d, int n_parts,
                           float inv_d, float eps, int rms, void* stream) {
-  if (n_rows < 0 || d < 1 || d > kMaxD || n_parts != parts_for(n_rows))
+  if (n_rows < 0 || d < 1 || d > kMaxD || n_parts < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (d <= 256) rc = bwd_per<8>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
-  else if (d <= 768) rc = bwd_per<24>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
-  else if (d <= 1024) rc = bwd_per<32>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
-  else rc = bwd_per<64>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, n_rows, d, n_parts, inv_d, eps, rms, s);
-  if (rc != 0) return rc;
-  ln_bwd_reduce<<<(d + 255) / 256, 256, 0, s>>>(
-      static_cast<const double*>(ds_part), static_cast<const double*>(db_part),
-      static_cast<float*>(ds), static_cast<float*>(db), n_parts, d);
-  return (int)cudaGetLastError();
+  if (d <= 256) return bwd_per<8>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  if (d <= 768) return bwd_per<24>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  if (d <= 1024) return bwd_per<32>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  return bwd_per<64>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
 }
 
 const char* tpudist_cuda_error_string(int code) {

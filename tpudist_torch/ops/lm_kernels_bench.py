@@ -22,9 +22,12 @@ bfloat16) and, for bfloat16 outputs, element by element as well: within
 :data:`ELEM_ULPS` bf16 ulps of the plain value plus :data:`ELEM_ATOL` of
 its largest magnitude. Cases: LayerNorm at GPT-2's 8192 x 768 rows, a
 ragged 1000 x 200, 1000 x 197 (a width that is no multiple of 16 bytes:
-the forward's element-wise path) and 1000 x 768 rows that start one
-element into their buffers (misaligned: the element-wise path again), the
-three compositions, RMS on and off; attention at
+the element-wise paths), 1000 x 768 rows that start one element into
+their buffers (misaligned: the element-wise paths again), 3 x 768 (fewer
+rows than a backward block has warps), 65536 x 768 (many rows a warp of
+the backward's persistent grid) and 1000 x 2048 (the widest rows), the
+three compositions, RMS on and off;
+attention at
 GPT-2's B 8, H 12, S 1024, D 64 causal (q, k, v strided views of one qkv
 tensor, as the model passes them), S 197 non-causal, ``kv_len`` < S, GQA
 with 4 K/V heads, and head dims 32, 80, 128 and 20; flash attention at the
@@ -44,7 +47,8 @@ enqueues and the L2 flushed before each call
 bound and one PyTorch library call computing the same function
 (``F.layer_norm``, ``aten.native_layer_norm_backward``,
 ``scaled_dot_product_attention`` and its backward through autograd), a
-yardstick the port never calls. A bound is the larger of the bytes the
+yardstick the port never calls; the LayerNorm backward also at the
+long-context leg's 16384 x 768 rows. A bound is the larger of the bytes the
 call must move (each input read once, each output written once) over
 3.35 TB/s and its operations over the peak rate of their type (bf16
 products 989 TFLOP/s on the tensor cores, float32 arithmetic 67 TFLOP/s;
@@ -66,8 +70,11 @@ fixed text.
 
 ``--ab DIR`` times kernels built from another revision's sources against
 this checkout's, in turns (A, B, B, A) on the same inputs, for each source
-DIR holds: ``layernorm.cu``, the plain and pre-norm forwards at 8192 x
-768 bf16 (row 5 of PERF.md's kernel table); ``flash_attention.cu`` and
+DIR holds: ``layernorm.cu``, the plain and pre-norm forwards and
+backwards at 8192 x 768 bf16 (rows 5 and 6 of PERF.md's kernel table),
+each side's device time per call split by kernel from a profiler trace
+(:func:`kernel_split`), and both sides' register reports;
+``flash_attention.cu`` and
 ``vmem_attention.cu`` (with the headers they include), the bf16 forward
 and backward (the delta, dk/dv and dq kernels of one call) at rows 7-8
 and 3-4: flash at B 4, H 12, S 4096, D 64 causal and vmem at B 8, H 12,
@@ -107,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import subprocess
 import tempfile
@@ -131,6 +139,8 @@ B, H, S, D = 8, 12, 1024, 64
 ROWS, WIDTH = B * S, H * D
 #: the long-context leg's attention: B 4 sequences of S 4096
 FB, FS = 4, 4096
+#: the long-context leg's LayerNorm rows
+LONG_ROWS = FB * FS
 
 
 #: the element-wise bar of a bfloat16 output: ``|got - want| <= ELEM_ULPS
@@ -202,8 +212,14 @@ def ln_inputs(gen, n, d, dtype, offset: int = 0):
                 g=_rand(gen, (n, d), dtype), gr=_rand(gen, (n, d), dtype))
 
 
-#: LayerNorm parity cases, (rows, width, offset of x and y in elements)
-LN_CASES = ((ROWS, WIDTH, 0), (1000, 200, 0), (1000, 197, 0), (1000, WIDTH, 1))
+#: LayerNorm parity cases, (rows, width, offset of x and y in elements):
+#: GPT-2's rows, a ragged width, a width that is no multiple of 16 bytes,
+#: rows one element into their buffers, fewer rows than a backward block
+#: has warps, many rows a warp of the backward's persistent grid, and the
+#: widest rows the kernels take (the backward's column sums staged in
+#: shared memory, past D 768)
+LN_CASES = ((ROWS, WIDTH, 0), (1000, 200, 0), (1000, 197, 0), (1000, WIDTH, 1),
+            (3, WIDTH, 0), (65536, WIDTH, 0), (1000, 2048, 0))
 
 
 def ln_parity(gen):
@@ -351,37 +367,49 @@ def attention_build(source: str) -> tuple[list[str], list[str]]:
     return lines, spilled
 
 
-def ln_build() -> tuple[list[str], list[str]]:
-    """The LayerNorm kernels' lines of ``layernorm.cu``'s ``-Xptxas -v``
-    report and the names of the bf16 forward instantiations for widths up
-    to 768 (``PER`` 24, GPT-2's) among them that spill (there must be
-    none)."""
+def ln_build(source: str = "layernorm.cu") -> tuple[list[str], list[str]]:
+    """The LayerNorm kernels' lines of ``source``'s ``-Xptxas -v`` report
+    and the names of the instantiations among them that must not spill
+    but do: the bf16 forwards for widths up to 768 (``PER`` 24, GPT-2's)
+    and every backward for widths up to 768 (``ln_bwd_kernel<TX, TG, PER,
+    V>`` with ``PER`` at most 24)."""
+    import re
+
     from tpudist_torch.csrc import build
 
     lines, spilled = [], []
-    for r in build.register_report("layernorm.cu"):
+    for r in build.register_report(source):
         lines.append(f"{r['kernel']}: {r['registers']} registers, "
                      f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
                      f"stores / loads, {r['stack']} bytes stack")
-        if (r["kernel"].startswith("ln_fwd_kernel<") and "bf16" in r["kernel"]
-                and r["kernel"].endswith(", 24>")
-                and (r["spill_stores"] or r["spill_loads"])):
+        if not (r["spill_stores"] or r["spill_loads"]):
+            continue
+        fwd = (r["kernel"].startswith("ln_fwd_kernel<") and "bf16" in r["kernel"]
+               and r["kernel"].endswith(", 24>"))
+        bwd = re.fullmatch(r"ln_bwd_kernel<\w+, \w+, (\d+), \d+>", r["kernel"])
+        if fwd or bwd and int(bwd.group(1)) <= 24:
             spilled.append(r["kernel"])
     return lines, spilled
 
 
 def ln_repeat_identical(gen) -> dict:
-    """Whether two forward calls at 8192 x 768 bf16 give bit-identical
-    outputs, plain (``n``) and pre-norm (``n``, ``r``)."""
+    """Whether two calls at 8192 x 768 bf16 give bit-identical outputs:
+    the forward plain (``n``) and pre-norm (``n``, ``r``), the backward
+    plain and pre-norm (``dr``, ``dscale``, ``dbias``)."""
     t = ln_inputs(gen, ROWS, WIDTH, torch.bfloat16)
+    same = lambda a, b: all(torch.equal(p, q) for p, q in zip(a, b)
+                            if p is not None)
     out = {}
     for name, y in (("plain", None), ("pre-norm", t["y"])):
         kw = dict(eps=EPS, rms=False, out_dtype=torch.bfloat16,
                   want_residual=y is not None)
-        a = LN.layernorm_fwd_cuda(t["x"], y, t["scale"], t["bias"], **kw)
-        b = LN.layernorm_fwd_cuda(t["x"], y, t["scale"], t["bias"], **kw)
-        out[name] = all(torch.equal(p, q) for p, q in zip(a, b)
-                        if p is not None)
+        out[f"forward {name}"] = same(
+            *(LN.layernorm_fwd_cuda(t["x"], y, t["scale"], t["bias"], **kw)
+              for _ in range(2)))
+    for name, gr in (("plain", None), ("pre-norm", t["gr"])):
+        out[f"backward {name}"] = same(
+            *(LN.layernorm_bwd_cuda(t["x"], t["g"], gr, t["scale"], eps=EPS,
+                                    rms=False) for _ in range(2)))
     return out
 
 
@@ -416,54 +444,63 @@ def timing_cases(gen) -> list[dict]:
     ``kernel``/``plain``/``library`` callables, the parity error of the
     timed inputs and its bound. LayerNorm: the plain composition (``ln_1``
     and ``ln_f``; F.layer_norm computes the same function) and, as
-    ``*_prenorm`` extras, the pre-norm one (``ln_2``)."""
+    ``*_prenorm`` extras, the pre-norm one (``ln_2``); the backward also
+    at the long-context path's rows (:data:`LONG_ROWS`, ``*_16384``)."""
     dt = torch.bfloat16
-    t = ln_inputs(gen, ROWS, WIDTH, dt)
-    x, y, scale, bias, g, gr = (t[k] for k in ("x", "y", "scale", "bias", "g",
-                                               "gr"))
-    elems, item = ROWS * WIDTH, x.element_size()
-    fkw = dict(eps=EPS, rms=False, out_dtype=dt)
     cases = []
 
-    def ln_case(name, kernel, plain, library, nbytes, flops_per_elem):
+    def ln_case(name, rows, kernel, plain, library, nbytes, flops_per_elem):
         got, want = kernel(), plain()
         err = max(max_err(a, b)[0] for a, b in zip(got, want)
                   if a is not None)
         cases.append(dict(name=name, kernel=kernel, plain=plain,
                           library=library, max_abs_err=err,
-                          shape=f"{ROWS} x {WIDTH} rows, bf16",
-                          **bound(nbytes, flops_per_elem * elems,
+                          shape=f"{rows} x {WIDTH} rows, bf16",
+                          **bound(nbytes, flops_per_elem * rows * WIDTH,
                                   torch.float32)))
 
-    sb, bb = scale.to(dt), bias.to(dt)
-    ln_case("layernorm_fwd",
-            lambda: LN.layernorm_fwd_cuda(x, None, scale, bias,
-                                          want_residual=False, **fkw),
-            lambda: LN.layernorm_fwd_plain(x, None, scale, bias,
-                                           want_residual=False, **fkw),
-            lambda: F.layer_norm(x, (WIDTH,), sb, bb, EPS),
-            2 * elems * item + 2 * WIDTH * 4, 9)
-    ln_case("layernorm_fwd_prenorm",
-            lambda: LN.layernorm_fwd_cuda(x, y, scale, bias,
-                                          want_residual=True, **fkw),
-            lambda: LN.layernorm_fwd_plain(x, y, scale, bias,
-                                           want_residual=True, **fkw),
-            None, 4 * elems * item + 2 * WIDTH * 4, 10)
-    _, mean, rstd = torch.ops.aten.native_layer_norm(x, (WIDTH,), sb, bb, EPS)
-    ln_case("layernorm_bwd",
-            lambda: LN.layernorm_bwd_cuda(x, g, None, scale, eps=EPS,
-                                          rms=False),
-            lambda: LN.layernorm_bwd_plain(x, g, None, scale, eps=EPS,
-                                           rms=False),
-            lambda: torch.ops.aten.native_layer_norm_backward(
-                g, x, (WIDTH,), mean, rstd, sb, bb, [True, True, True]),
-            3 * elems * item + 3 * WIDTH * 4, 16)
-    ln_case("layernorm_bwd_prenorm",
-            lambda: LN.layernorm_bwd_cuda(x, g, gr, scale, eps=EPS,
-                                          rms=False),
-            lambda: LN.layernorm_bwd_plain(x, g, gr, scale, eps=EPS,
-                                           rms=False),
-            None, 4 * elems * item + 3 * WIDTH * 4, 17)
+    def ln_cases(rows):
+        t = ln_inputs(gen, rows, WIDTH, dt)
+        x, y, scale, bias, g, gr = (t[k] for k in ("x", "y", "scale", "bias",
+                                                   "g", "gr"))
+        elems, item = rows * WIDTH, x.element_size()
+        fkw = dict(eps=EPS, rms=False, out_dtype=dt)
+        sb, bb = scale.to(dt), bias.to(dt)
+        tag = "" if rows == ROWS else f"_{rows}"
+        if rows == ROWS:
+            ln_case("layernorm_fwd", rows,
+                    lambda: LN.layernorm_fwd_cuda(x, None, scale, bias,
+                                                  want_residual=False, **fkw),
+                    lambda: LN.layernorm_fwd_plain(x, None, scale, bias,
+                                                   want_residual=False, **fkw),
+                    lambda: F.layer_norm(x, (WIDTH,), sb, bb, EPS),
+                    2 * elems * item + 2 * WIDTH * 4, 9)
+            ln_case("layernorm_fwd_prenorm", rows,
+                    lambda: LN.layernorm_fwd_cuda(x, y, scale, bias,
+                                                  want_residual=True, **fkw),
+                    lambda: LN.layernorm_fwd_plain(x, y, scale, bias,
+                                                   want_residual=True, **fkw),
+                    None, 4 * elems * item + 2 * WIDTH * 4, 10)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, (WIDTH,), sb, bb,
+                                                         EPS)
+        ln_case(f"layernorm_bwd{tag}", rows,
+                lambda: LN.layernorm_bwd_cuda(x, g, None, scale, eps=EPS,
+                                              rms=False),
+                lambda: LN.layernorm_bwd_plain(x, g, None, scale, eps=EPS,
+                                               rms=False),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    g, x, (WIDTH,), mean, rstd, sb, bb, [True, True, True]),
+                3 * elems * item + 3 * WIDTH * 4, 16)
+        ln_case(f"layernorm_bwd_prenorm{tag}", rows,
+                lambda: LN.layernorm_bwd_cuda(x, g, gr, scale, eps=EPS,
+                                              rms=False),
+                lambda: LN.layernorm_bwd_plain(x, g, gr, scale, eps=EPS,
+                                               rms=False),
+                None, 4 * elems * item + 3 * WIDTH * 4, 17)
+
+    # a function per row count, so each case's lambdas keep its own inputs
+    for rows in (ROWS, LONG_ROWS):
+        ln_cases(rows)
 
     cases += attention_cases(
         "vmem_attention", VA.vmem_fwd_cuda, VA.vmem_fwd_plain,
@@ -717,14 +754,62 @@ def _turns(calls, libs, flush, n) -> tuple[dict, dict]:
     return ms, err
 
 
+def _over_bar(got, want) -> float:
+    """The largest ``|got - want|`` over the parity rule's allowance at
+    ``want``: above 1 misses it."""
+    atol, rtol = parity_tol(want)
+    return float(((got.float() - want.float()).abs()
+                  / (atol + rtol * want.float().abs())).max())
+
+
+def stats_split(gen, libs: dict) -> list[str]:
+    """At 65536 x 768, phase 11's case with the most rows a column sum:
+    the backward's dscale from each kernel in ``libs`` and from the plain
+    version with float32 row sums in its statistics (``_row_stats``'
+    default, the forward's), each held to the plain version (float64 row
+    sums rounded once) and the kernels to the float32 one as well. Each
+    line gives the worst :func:`_over_bar` over the eight distinct
+    comparisons (r = x or x + y, RMS off and on, f32 and bf16) and how
+    many are above 1."""
+    over: dict[str, list[float]] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = ln_inputs(gen, 65536, WIDTH, dtype)
+        for r in (t["x"], (t["x"].float() + t["y"].float()).to(dtype)):
+            for rms in (False, True):
+                want = LN.layernorm_bwd_plain(r, t["g"], None, t["scale"],
+                                              eps=EPS, rms=rms)[1]
+                rf = r.float()
+                mean, rstd = LN._row_stats(rf, eps=EPS, rms=rms)
+                f32 = (t["g"].float() * ((rf - mean) * rstd)).double().sum(
+                    0).float()
+                got = {"plain, f32 statistics": f32}
+                for who, lib in libs.items():
+                    got[who] = LN.layernorm_bwd_cuda(
+                        r, t["g"], None, t["scale"], eps=EPS, rms=rms,
+                        lib=lib)[1]
+                for who, ds in got.items():
+                    over.setdefault(f"{who} against the plain version",
+                                    []).append(_over_bar(ds, want))
+                    if who in libs:
+                        over.setdefault(f"{who} against the plain version "
+                                        "with f32 statistics", []).append(
+                                            _over_bar(ds, f32))
+        del t
+    return [f"65536 x {WIDTH} dscale, {k}: worst |err| / bar {max(v):.3f}, "
+            f"{sum(x > 1 for x in v)} of {len(v)} above 1"
+            for k, v in over.items()]
+
+
 def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
     """Kernels built from ``src_dir``'s sources as A against this
     checkout's as B, in turns (A, B, B, A), for each source ``src_dir``
-    holds: ``layernorm.cu``'s plain and pre-norm forwards at 8192 x 768
-    bf16; ``flash_attention.cu`` / ``vmem_attention.cu`` (and the headers
-    beside them), the bf16 forward and backward at :data:`AB_CASES`. Each
-    entry has the median device time of ``n`` calls per turn and each
-    side's parity error against the plain version. Both attention
+    holds: ``layernorm.cu``'s plain and pre-norm forwards and backwards at
+    8192 x 768 bf16; ``flash_attention.cu`` / ``vmem_attention.cu`` (and
+    the headers beside them), the bf16 forward and backward at
+    :data:`AB_CASES`. Each entry has the median device time of ``n`` calls
+    per turn and each side's parity error against the plain version; the
+    LayerNorm entries also each side's split by kernel, then both sides'
+    register reports and :func:`stats_split`'s lines. Both attention
     backwards take this checkout's forward's (o, lse)."""
     from tpudist_torch.csrc import build
 
@@ -732,21 +817,37 @@ def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     out = []
     if (src_dir / "layernorm.cu").exists():
-        libs = {"A": build.load(str((src_dir / "layernorm.cu").resolve())),
-                "B": None}
+        source = str((src_dir / "layernorm.cu").resolve())
+        libs = {"A": build.load(source), "B": None}
         t = ln_inputs(gen, ROWS, WIDTH, torch.bfloat16)
+        x, scale, g = t["x"], t["scale"], t["g"]
+        calls = []
         for name, y in (("layernorm_fwd", None),
                         ("layernorm_fwd_prenorm", t["y"])):
             kw = dict(eps=EPS, rms=False, out_dtype=torch.bfloat16,
                       want_residual=y is not None)
-            ms, err = _turns(
-                (lambda lib: LN.layernorm_fwd_cuda(t["x"], y, t["scale"],
-                                                   t["bias"], lib=lib, **kw),
-                 lambda: LN.layernorm_fwd_plain(t["x"], y, t["scale"],
-                                                t["bias"], **kw)),
-                libs, flush, n)
+            calls.append((name, functools.partial(
+                LN.layernorm_fwd_cuda, x, y, scale, t["bias"], **kw),
+                functools.partial(LN.layernorm_fwd_plain, x, y, scale,
+                                  t["bias"], **kw)))
+        for name, gr in (("layernorm_bwd", None),
+                         ("layernorm_bwd_prenorm", t["gr"])):
+            kw = dict(eps=EPS, rms=False)
+            calls.append((name, functools.partial(
+                LN.layernorm_bwd_cuda, x, g, gr, scale, **kw),
+                functools.partial(LN.layernorm_bwd_plain, x, g, gr, scale,
+                                  **kw)))
+        for name, call, plain in calls:
+            ms, err = _turns((lambda lib: call(lib=lib), plain), libs, flush,
+                             n)
             out.append(dict(name=name, shape=f"{ROWS} x {WIDTH} rows, bf16",
-                            ms=ms, err=err))
+                            ms=ms, err=err, split={
+                                who: kernel_split(lambda: call(lib=lib), flush)
+                                for who, lib in libs.items()}))
+        out.append(dict(name="layernorm.cu registers", report={
+            "A": ln_build(source)[0], "B": ln_build()[0]}))
+        out.append(dict(name="layernorm_bwd statistics", report={
+            "A, B": stats_split(gen, libs)}))
     for kind, b, s in AB_CASES:
         if not (src_dir / f"{kind}_attention.cu").exists():
             continue
@@ -787,6 +888,34 @@ def _cuda_kernels(fn) -> list[str]:
         torch.cuda.synchronize()
     return sorted({e.name[:60] for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def kernel_split(fn, flush, n: int = 20) -> dict[str, float]:
+    """Device ms per call of each kernel one ``fn()`` launches, from a
+    ``torch.profiler`` trace of ``n`` calls with the L2 flushed before
+    each (the flush's fill kernels left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudist_torch.csrc import build
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or "FillFunctor" in e.name):
+            continue
+        name = build._kernel_name(e.name).replace("(anonymous namespace)::",
+                                                  "")
+        name = name.removeprefix("void ").split("(")[0]
+        span = (e.time_range.end - e.time_range.start) / 1e3 / n
+        out[name] = out.get(name, 0.0) + span
+    return out
 
 
 def head_probe(n: int = DB.N_TIMED) -> list[str]:
@@ -885,6 +1014,12 @@ def main(argv=None) -> int:
         return 0
     if args.ab:
         for r in kernels_ab(args.ab):
+            if "report" in r:
+                for who, lines in r["report"].items():
+                    print(f"{r['name']} ({who}):")
+                    for line in lines:
+                        print(f"  {line}")
+                continue
             a, b = (r["ms"][w] for w in "AB")
             print(f"{r['name']} [{r['shape']}]: {args.ab} (A) "
                   f"{a[0]:.4f} / {a[1]:.4f} ms, this checkout (B) "
@@ -892,6 +1027,9 @@ def main(argv=None) -> int:
                   f"calls, turns A B B A); A / B {sum(a) / sum(b):.2f}x; "
                   f"max_abs_err A {r['err']['A']:.3e}, B {r['err']['B']:.3e}"
                   f"  [{card()}]")
+            for who, split in r.get("split", {}).items():
+                print(f"  {who}, device ms per call by kernel (profiler): "
+                      + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
         return 0
     if args.decode_ab:
         for r in decode_ab():
