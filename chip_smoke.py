@@ -166,13 +166,49 @@ Phases, each fatal on failure:
     phase 11's element bar, each with the share of bf16 elements that
     differ; the old backward (g rounded to one bf16) printed beside them
     as a reading;
-21. a ``{"kernels": [...]}`` line with all nine kernels; then the last
+21. (no phase: the number was the result line's before phases 22-25);
+22. the ViT path, trained — a 1-rank NCCL group, then
+    ``tpudist_torch.main.main`` with ViT-B/16 at full width and depth on
+    2048 synthetic 32x32 images (4-pixel patches: 65 tokens), batch 128,
+    --bf16 --fused all, the profiler on: 16 steps under DDP; launches per
+    step (LN forward 25, backward 25 plus 25 reductions, fused AdamW 1
+    covering all 152 leaves, no attention kernel: ``main.py``'s ViT runs
+    the dense attention, no guard check), finite losses, TSV rows at
+    g_step 5, 10 and 15 and TrainTime, images/s, and the trace's kernels
+    and busy share per step;
+23. agreement — in f32 with cudnn.deterministic, four ViT-B/16 steps of
+    --fused all and of --fused none from the same init on the same
+    batches, held to VIT_LOSS_BAR / VIT_PARAM_BAR with the qkv key slice
+    held to its step bound as in phase 15; then one sgd step with
+    --grad_accum 2 against one flat step (--fused ln), held to
+    ACCUM_LOSS_BAR / ACCUM_PARAM_BAR;
+24. ViT-B/16 at the ImageNet shape through the model API (16-pixel
+    patches on 224x224, batch 32, 197 tokens): bf16 forward and backward
+    with fused_ln, finite, 25 launches of each LayerNorm kernel; in f32,
+    fused_ln True against False and attn_impl "vmem" (non-causal, ragged
+    197; 12 forward and 12 backward launches) against "xla": logits and
+    every gradient under the f32 parity rule of phase 11;
+25. --amp and the optimizers — fused AdamW under the guard at ViT-B's
+    152 leaves (``fused_update_bench.guard_check``): a step fed one inf
+    leaves m, v, the masters and the copy bit-identical, takes one check
+    and one update launch, counts one skip and no step; the next finite
+    step is bit-identical to an unguarded optimizer that never saw the
+    bad batch; the guarded and unguarded step's device times and the
+    check's alone, beside its byte bound; one step each of sgd, lamb, lion
+    and muon at ViT-B's leaf shapes (depth 2), card against CPU in f32,
+    the parameters' difference beyond one ulp under OPT_BARS of the
+    largest update; then --amp --fused all through the CLI for 4 ViT
+    steps (bf16 copy, one check launch a step, no step skipped);
+26. a ``{"kernels": [...]}`` line with all nine kernels; then the last
     line, ``{"ok": true, "device": {...}}``.
+
+Phases 22-25 print their seconds.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import socket
 import subprocess
@@ -190,6 +226,26 @@ FAILURES: list[str] = []
 #: from their readings (PERF.md): relative on the losses, absolute on the
 #: parameters
 LOSS_BAR, PARAM_BAR = 1e-5, 1e-5
+#: phase 23's bars on the f32 ViT-B/16 kernel and plain-op paths after 4
+#: steps (relative on the losses, absolute on the parameters), set from
+#: the first reading on the H100 (losses 1.6e-7 apart; parameters 1.6e-4,
+#: in blocks.10.mlp.proj.weight): the runs take Adam at a constant lr 1e-3
+#: from step 1 (phase 15's GPT-2 warms up from 0), and Adam moves a
+#: coordinate whose gradient is within rounding of zero by up to lr a step
+#: either way, so the parameter bar is one step of lr
+VIT_LOSS_BAR, VIT_PARAM_BAR = 1e-5, 1e-3
+#: phase 23's bars on one float32 sgd step with --grad_accum 2 against one
+#: flat step: the two sum each gradient in other orders (~1e-7 of it), and
+#: an sgd step moves a parameter by lr x its gradient
+ACCUM_LOSS_BAR, ACCUM_PARAM_BAR = 1e-6, 1e-7
+#: phase 25's relative bars, card against CPU, on one step of each
+#: optimizer at ViT-B's leaf shapes (the largest difference of the two
+#: updated parameters beyond one float32 ulp of the parameter, over the
+#: largest update): sgd and lion are element-wise (the same roundings on
+#: both), lamb's trust ratio sums its norms in other orders, muon's five
+#: Newton-Schulz iterations run float32 products of up to 3072 terms
+#: summed in other orders
+OPT_BARS = {"sgd": 1e-6, "lion": 1e-6, "lamb": 1e-5, "muon": 1e-3}
 #: phase 19's bars on the f32 flash + chunked-CE and dense + full-logits
 #: paths after 4 steps at S 2048, about ten times their first readings on
 #: the H100 (8.8e-8 relative on the losses, 1.8e-7 on the parameters)
@@ -428,8 +484,10 @@ def main() -> int:
     kernels.extend(lm_phases(smi, dev))
     kernels.extend(long_context_phases(smi, dev))
     tied_head_phase(dev)
+    vit_phases(smi, dev)
+    amp_phase(smi, dev)
 
-    # -- 21. result ---------------------------------------------------------------
+    # -- 26. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
                 "fused_decode_attention": static_launches["fused_decode_attention"]}
     for kr in kernels:
@@ -591,27 +649,10 @@ def train_phases(smi: str, dev) -> dict:
              f"{n_leaves} leaves a step")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"losses {losses}")
-    g_steps = [r.split("\t")[1] for r in rows[1:] if not r.startswith("TrainTime")]
-    if g_steps != ["5", "10", "15"] or not rows[-1].startswith("TrainTime\t"):
-        fail(f"TSV rows {rows}")
     if not traces:
         fail("no profiler trace under log_Smoke")
-    train_s = float(rows[-1].split("\t")[1])
-    eps15 = float(rows[3].split("\t")[4])
-    step_ms = 128 / eps15 * 1e3
-    print(f"  TSV: rows at g_step 5/10/15 + TrainTime {train_s:.3f} s; step at "
-          f"g_step 15 {step_ms:.2f} ms ({eps15:.1f} images/s); "
-          f"{steps * 128 / train_s:.1f} images/s over the run (profiler window "
-          f"and first step included); trace {traces[0].name}  [{smi}]")
-    if not window["steps"] or not window["kernels_per_step"]:
-        fail(f"the profiler trace holds no device work: {window}")
-    print(f"  profiler window ({window['steps']} steps, profiled): "
-          f"{window['kernels_per_step']:.0f} kernels/step, device busy "
-          f"{window['device_ms_per_step']:.2f} ms/step of "
-          f"{window['window_ms_per_step']:.2f} ms/step wall; busy share of the "
-          f"unprofiled g_step-15 step {window['device_ms_per_step'] / step_ms:.3f}")
-    for name, ms, count in window["top"]:
-        print(f"    {ms:8.3f} ms/step  {count:5.0f}/step  {name}")
+    run_report(rows, window, steps=steps, batch=128, unit="images", smi=smi,
+               trace=traces[0].name)
 
     # -- 10. agreement in f32 ----------------------------------------------------
     print("== 10. f32: --fused optimizer vs --fused none, 4 steps, deterministic cuDNN")
@@ -742,10 +783,10 @@ def lm_phases(smi: str, dev) -> list[dict]:
     # -- 15. agreement in f32 ------------------------------------------------------
     print("== 15. f32: --fused all --attn vmem vs --fused none --attn xla, 4 steps")
     f32_agreement(
-        (["--fused", "all", "--attn", "vmem"], {"flash_attention_fwd",
-                                                "flash_attention_bwd"}),
-        ["--fused", "none", "--attn", "xla"], batch=8, seq=1024,
-        loss_bar=LOSS_BAR, param_bar=PARAM_BAR,
+        (["--fused", "all", "--attn", "vmem"], {
+            "flash_attention_fwd", "flash_attention_bwd", "fused_adamw_check"}),
+        ["--fused", "none", "--attn", "xla"], run=gpt2_runner(8, 1024),
+        loss_bar=LOSS_BAR, param_bar=PARAM_BAR, peak_lr=3e-4,
         what="f32 fused and unfused GPT-2 training")
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -835,10 +876,10 @@ def long_context_phases(smi: str, dev) -> list[dict]:
           "256 vs --fused none --attn xla, 4 steps")
     f32_agreement(
         (["--fused", "all", "--attn", "flash", "--chunked_ce", "256"],
-         {"vmem_attention_fwd", "vmem_attention_bwd"}),
-        ["--fused", "none", "--attn", "xla"], batch=4, seq=2048,
-        extra=["--depth", "4"], loss_bar=LONG_LOSS_BAR,
-        param_bar=LONG_PARAM_BAR,
+         {"vmem_attention_fwd", "vmem_attention_bwd", "fused_adamw_check"}),
+        ["--fused", "none", "--attn", "xla"],
+        run=gpt2_runner(4, 2048, extra=["--depth", "4"]),
+        loss_bar=LONG_LOSS_BAR, param_bar=LONG_PARAM_BAR, peak_lr=3e-4,
         what="f32 flash + chunked CE and dense + full-logits GPT-2 training")
     for e in entries:
         e["launches"] = counts[e["name"]]
@@ -917,6 +958,230 @@ def tied_head_phase(dev) -> None:
         fail(f"tied head: {FAILURES}")
 
 
+
+def vit_phases(smi: str, dev) -> None:
+    """Phases 22-24: ViT-B/16 trained through ``main.main`` (the kernels
+    of its path: the fused LayerNorm forward and backward and fused
+    AdamW), its f32 agreement with the plain-op path and of
+    ``--grad_accum 2`` with a flat step, and the ImageNet shape through
+    the model API."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from tpudist_torch import main as M
+    from tpudist_torch.models.vit import vit_b16
+    from tpudist_torch.ops import layernorm as LN
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.ops import vmem_attention as VA
+
+    # -- 22. the main path, trained ------------------------------------------------
+    t0 = time.perf_counter()
+    print("== 22. ViT-B/16, bf16, --fused all, batch 128 of 32x32 images (65 "
+          "tokens), 16 steps under DDP (NCCL)")
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", init_method="env://")
+    with tempfile.TemporaryDirectory() as log_dir:
+        for mod in counted_modules():
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        state, losses = M.main([
+            "--model", "vit_b16", "--dataset", "synthetic",
+            "--synthetic_size", "2048", "--batch_size", "128", "--epochs", "1",
+            "--bf16", "--fused", "all", "--JobID", "Vit", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        counts = launches()
+        if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
+            fail("the training step did not run under DDP")
+        dist.destroy_process_group()
+        depth = state.model.depth
+        n_leaves = len(list(state.model.parameters()))
+        rows = (Path(log_dir) / "Vit_128_0.log").read_text().splitlines()
+        traces = list((Path(log_dir) / "log_Vit").glob("*.pt.trace.json"))
+        window = trace_breakdown(traces[0]) if traces else None
+    del state
+    steps = len(losses)
+    per_step = {"layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+                "layernorm_bwd_reduce": 2 * depth + 1,
+                "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "fused_adamw": 1, "fused_adamw_leaves": n_leaves,
+                "fused_adamw_check": 0}
+    print(f"  {steps} steps; launches {counts} (per step {per_step}); losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if steps != 16 or n_leaves != 152 or counts != {
+            k: n * steps for k, n in per_step.items()}:
+        fail(f"{steps} steps, launches {counts}, want {per_step} per step")
+    if not np.isfinite(losses).all():
+        fail(f"losses {losses}")
+    if not traces:
+        fail("no profiler trace under log_Vit")
+    run_report(rows, window, steps=steps, batch=128, unit="images", smi=smi,
+               trace=traces[0].name)
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+
+    # -- 23. agreement in f32 ------------------------------------------------------
+    t0 = time.perf_counter()
+    print("== 23. f32 ViT-B/16: --fused all vs --fused none, 4 steps; "
+          "--grad_accum 2 vs one flat sgd step")
+    torch.backends.cudnn.deterministic = True
+    f32_agreement(
+        (["--fused", "all"], {"vmem_attention_fwd", "vmem_attention_bwd",
+                              "flash_attention_fwd", "flash_attention_bwd",
+                              "fused_adamw_check"}),
+        ["--fused", "none"], run=vit_runner(), loss_bar=VIT_LOSS_BAR,
+        param_bar=VIT_PARAM_BAR, peak_lr=1e-3,
+        what="f32 fused and unfused ViT training")
+    runs = []
+    with tempfile.TemporaryDirectory() as log_dir:
+        for accum in ("2", "1"):
+            st, ls = vit_runner(128)(["--optimizer", "sgd", "--fused", "ln",
+                                      "--grad_accum", accum], log_dir)
+            runs.append((ls, {k: v.float().cpu() for k, v in st.params().items()}))
+            del st
+    torch.backends.cudnn.deterministic = False
+    (la, pa), (lf, pf) = runs
+    loss_rel = abs(la[0] - lf[0]) / abs(lf[0])
+    gaps = {k: float((pa[k] - pf[k]).abs().max()) for k in pf}
+    worst = max(gaps, key=gaps.get)
+    print(f"  --grad_accum 2 loss {la} vs flat {lf}: rel {loss_rel:.3e} [bar "
+          f"{ACCUM_LOSS_BAR:g}]; params max abs {gaps[worst]:.3e} ({worst}) "
+          f"[bar {ACCUM_PARAM_BAR:g}]")
+    if len(la) != 1 or loss_rel > ACCUM_LOSS_BAR or gaps[worst] > ACCUM_PARAM_BAR:
+        fail("--grad_accum 2 and the flat step disagree")
+    print(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # -- 24. the ImageNet shape, through the model API --------------------------
+    t0 = time.perf_counter()
+    print("== 24. ViT-B/16 at 224x224 (16-pixel patches, 197 tokens), batch "
+          "32, through the model API")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    x = torch.rand(32, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (32,), generator=gen, device=dev)
+
+    def forward_backward(model):
+        model.zero_grad(set_to_none=True)
+        logits = model(x)
+        F.cross_entropy(logits, y).backward()
+        torch.cuda.synchronize()
+        return logits.detach(), {k: p.grad for k, p in model.named_parameters()}
+
+    LN.reset_launch_counts()
+    logits, grads = forward_backward(vit_b16(
+        patch_size=16, image_size=224, dtype=torch.bfloat16, fused_ln=True,
+        device=dev))
+    ln_counts = dict(LN.launch_counts)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+    print(f"  bf16, fused_ln: logits {tuple(logits.shape)} {logits.dtype}, "
+          f"finite logits and gradients {finite}; LayerNorm launches "
+          f"{ln_counts}")
+    if (logits.shape != (32, 1000) or logits.dtype != torch.float32
+            or not finite or set(ln_counts.values()) != {25}):
+        fail("bf16 ViT-B/16 at 224x224")
+    base = vit_b16(patch_size=16, image_size=224, device=dev)
+    want = forward_backward(base)
+    base.fused_ln = True
+    fused = forward_backward(base)
+    vmem = vit_b16(patch_size=16, image_size=224, attn_impl="vmem", device=dev)
+    vmem.load_state_dict(base.state_dict())
+    VA.reset_launch_counts()
+    by_vmem = forward_backward(vmem)
+    vmem_counts = dict(VA.launch_counts)
+    for name, (got_logits, got_grads) in (("fused_ln True vs False", fused),
+                                          ("attn vmem vs xla", by_vmem)):
+        check(f"f32 logits, {name}", got_logits, want[0])
+        errs = {k: LB.max_err(got_grads[k], want[1][k], elem=False)
+                for k in want[1]}
+        worst = max(errs, key=lambda k: errs[k][0])
+        ok = all(e[1] for e in errs.values())
+        print(f"  f32 gradients, {name}: {len(errs)} leaves within the parity "
+              f"rule {ok}, worst {worst} max_abs_err {errs[worst][0]:.3e}")
+        if not ok:
+            FAILURES.append(f"f32 gradients, {name}")
+    print(f"  vmem launches {vmem_counts} (12 forward, 12 backward)")
+    if vmem_counts != {"vmem_attention_fwd": 12, "vmem_attention_bwd": 12}:
+        FAILURES.append(f"vmem launches {vmem_counts}")
+    if FAILURES:
+        fail(f"ViT-B/16 at 224x224: {FAILURES}")
+    print(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+
+
+def amp_phase(smi: str, dev) -> None:
+    """Phase 25: the --amp guard around fused AdamW, the four other
+    optimizers card against CPU, and --amp through the CLI."""
+    import torch
+
+    from tpudist_torch.amp import skipped_steps
+    from tpudist_torch.models.vit import vit_b16
+    from tpudist_torch.ops import fused_update_bench as FB
+    from tpudist_torch.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    print("== 25. --amp and the optimizers")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    r = FB.guard_check(FB.vit_leaves(), torch.Generator(device=dev).manual_seed(
+        SEED + 25), flush)
+    del flush
+    print("  " + FB.guard_line(r, smi))
+    if not FB.guard_ok(r):
+        fail("the --amp guard around fused AdamW")
+
+    # one step of each optimizer at ViT-B's leaf shapes (depth cut to 2:
+    # every distinct shape), card against CPU
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    model = vit_b16(patch_size=4, image_size=32, depth=2, device=dev)
+    p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    g = {k: torch.randn(p.shape, generator=gen, device=dev) * 0.1
+         for k, p in p0.items()}
+    for name, bar in OPT_BARS.items():
+        news = []
+        for where in (dev, torch.device("cpu")):
+            params = {k: p.to(where, copy=True) for k, p in p0.items()}
+            tx = make_optimizer(1e-3, optimizer=name, weight_decay=0.1)
+            tx.step(tx.init(params), params, {k: t.to(where) for k, t in g.items()})
+            news.append({k: t.cpu() for k, t in params.items()})
+        card, cpu = news
+        gap, excess, top = 0.0, 0.0, 0.0
+        for k, want in cpu.items():
+            d = (card[k] - want).abs()
+            # an update that differs in its last bits can round p + u one
+            # ulp of p apart: that ulp is the rounding of the sum, not the
+            # optimizer's arithmetic
+            ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) \
+                - want.abs()
+            gap = max(gap, float(d.max()))
+            excess = max(excess, float((d - ulp).clamp_min(0).max()))
+            top = max(top, float((want - p0[k].cpu()).abs().max()))
+        print(f"  {name}: {len(cpu)} leaves, card against CPU: parameters "
+              f"{gap:.3e} apart at most, {excess:.3e} beyond one ulp of the "
+              f"parameter; largest update {top:.3e}, rel {excess / top:.3e} "
+              f"[bar {bar:g}]")
+        if not excess <= bar * top:
+            FAILURES.append(f"{name} card against CPU")
+    del model
+    if FAILURES:
+        fail(f"optimizers: {FAILURES}")
+
+    # --amp through the CLI
+    with tempfile.TemporaryDirectory() as log_dir:
+        for mod in counted_modules():
+            mod.reset_launch_counts()
+        state, losses = vit_runner()(["--amp", "--fused", "all"], log_dir)
+        counts = launches()
+    skipped = skipped_steps(state.opt_state)
+    bf16 = all(p.dtype == torch.bfloat16 for p in state.model.parameters())
+    del state
+    print(f"  --amp --fused all, 4 ViT-B/16 steps: losses {losses}, skipped "
+          f"{skipped}, bf16 compute copy {bf16}; launches {counts}")
+    if (len(losses) != 4 or not all(map(math.isfinite, losses)) or skipped
+            or not bf16 or counts["fused_adamw_check"] != 4
+            or counts["fused_adamw"] != 4):
+        fail("--amp through the CLI")
+    print(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+
 def counted_modules():
     """The wrapper modules whose launch counts the GPT-2 phases read."""
     from tpudist_torch.ops import flash_attention as FA
@@ -992,18 +1257,34 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
     line = [ln for ln in printed.splitlines() if ln.startswith("tokens/sec: ")]
     if len(line) != 1 or f"steps={steps} " not in line[0]:
         fail(f"no tokens/sec line for {steps} steps in the run's output")
+    if not traces:
+        fail(f"no profiler trace under log_{job}")
+    run_report(rows, window, steps=steps, batch=batch, per_row=seq,
+               unit="tokens", smi=smi)
+    return counts
+
+
+def run_report(rows, window, *, steps: int, batch: int, unit: str, smi: str,
+               per_row: int = 1, trace: str | None = None) -> float:
+    """Phases 9, 14, 18 and 22: fail unless the TSV has rows at g_step 5,
+    10 and 15 and the TrainTime row and the profiler window holds device
+    work; print the step at g_step 15, the run's rate in ``unit`` per
+    second (``per_row`` of them a batch row) and the window's kernels,
+    device time and busy share per step. Returns the g_step-15 step's
+    milliseconds."""
     g_steps = [r.split("\t")[1] for r in rows[1:] if not r.startswith("TrainTime")]
     if g_steps != ["5", "10", "15"] or not rows[-1].startswith("TrainTime\t"):
         fail(f"TSV rows {rows}")
-    if not traces or not window["steps"] or not window["kernels_per_step"]:
-        fail(f"no device work in a profiler trace under log_{job}: {window}")
+    if not window or not window["steps"] or not window["kernels_per_step"]:
+        fail(f"the profiler trace holds no device work: {window}")
     train_s = float(rows[-1].split("\t")[1])
     eps15 = float(rows[3].split("\t")[4])
     step_ms = batch / eps15 * 1e3
     print(f"  TSV: rows at g_step 5/10/15 + TrainTime {train_s:.3f} s; step at "
-          f"g_step 15 {step_ms:.2f} ms ({eps15 * seq:.1f} tokens/s); "
-          f"{steps * batch * seq / train_s:.1f} tokens/s over the run (profiler "
-          f"window and first step included)  [{smi}]")
+          f"g_step 15 {step_ms:.2f} ms ({eps15 * per_row:.1f} {unit}/s); "
+          f"{steps * batch * per_row / train_s:.1f} {unit}/s over the run "
+          f"(profiler window and first step included)"
+          f"{f'; trace {trace}' if trace else ''}  [{smi}]")
     print(f"  profiler window ({window['steps']} steps, profiled): "
           f"{window['kernels_per_step']:.0f} kernels/step, device busy "
           f"{window['device_ms_per_step']:.2f} ms/step of "
@@ -1011,39 +1292,69 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
           f"unprofiled g_step-15 step {window['device_ms_per_step'] / step_ms:.3f}")
     for name, ms, count in window["top"]:
         print(f"    {ms:8.3f} ms/step  {count:5.0f}/step  {name}")
-    return counts
+    return step_ms
 
 
-def f32_agreement(kernel_path, dense_flags, *, batch: int, seq: int,
-                  loss_bar: float, param_bar: float, what: str,
-                  extra=()) -> None:
-    """Phases 15 and 19: four float32 steps of the kernels' path
-    (``kernel_path`` = (flags, the counted kernels it must NOT launch))
-    and of the dense path from the same init on the same batches, one
-    process. The kernels' run must launch every other counted kernel and
-    the dense run none. Losses are held to ``loss_bar`` relative and
-    parameters to ``param_bar`` absolute, except the key slice of the qkv
-    biases, whose gradient is zero in exact arithmetic (Adam turns its
-    rounding into a full step of either sign): on both runs it stays
-    within 1.5 x steps x the peak lr of its zero init."""
+def gpt2_runner(batch: int, seq: int, extra=()):
+    """``run(flags, log_dir) -> (state, losses)``: 4 steps of
+    ``train_gpt2.main`` with ``flags`` at ``batch`` x ``seq`` on
+    :func:`lm_kernels_bench.token_file`'s text, output silenced."""
     import contextlib
     import io
 
     from tpudist_torch import train_gpt2 as TG
     from tpudist_torch.ops import lm_kernels_bench as LB
 
+    def run(flags, log_dir):
+        tokens = LB.token_file(Path(log_dir) / "text.bin", 4 * batch * seq)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return TG.main([
+                *flags, *extra, "--batch_size", str(batch), "--seq_len",
+                str(seq), "--tokens", str(tokens), "--no_profiler",
+                "--log_dir", log_dir])
+
+    return run
+
+
+def vit_runner(n_images: int = 512):
+    """``run(flags, log_dir) -> (state, losses)``: ``main.main`` with
+    ViT-B/16 on ``n_images`` synthetic 32x32 images, batch 128, one epoch,
+    float32 unless ``flags`` say otherwise, output silenced."""
+    import contextlib
+    import io
+
+    from tpudist_torch import main as M
+
+    def run(flags, log_dir):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return M.main([
+                "--model", "vit_b16", "--dataset", "synthetic",
+                "--synthetic_size", str(n_images), "--batch_size", "128",
+                "--epochs", "1", "--no_profiler", "--log_dir", log_dir,
+                *flags])
+
+    return run
+
+
+def f32_agreement(kernel_path, dense_flags, *, run, loss_bar: float,
+                  param_bar: float, peak_lr: float, what: str) -> None:
+    """Phases 15, 19 and 23: four float32 steps of the kernels' path
+    (``kernel_path`` = (flags, the counted kernels it must NOT launch))
+    and of the dense path from the same init on the same batches, one
+    process, each run by ``run(flags, log_dir)``. The kernels' run must
+    launch every other counted kernel and the dense run none. Losses are
+    held to ``loss_bar`` relative and parameters to ``param_bar``
+    absolute, except the key slice of the qkv biases, whose gradient is
+    zero in exact arithmetic (Adam turns its rounding into a full step of
+    either sign): on both runs it stays within 1.5 x steps x
+    ``peak_lr`` of its zero init."""
     (kernel_flags, unused) = kernel_path
     runs = []
     with tempfile.TemporaryDirectory() as log_dir:
-        tokens = LB.token_file(Path(log_dir) / "text.bin", 4 * batch * seq)
         for flags, kernels in ((kernel_flags, True), (dense_flags, False)):
             for mod in counted_modules():
                 mod.reset_launch_counts()
-            with contextlib.redirect_stdout(io.StringIO()):
-                st, ls = TG.main([
-                    *flags, *extra, "--batch_size", str(batch), "--seq_len",
-                    str(seq), "--tokens", str(tokens), "--no_profiler",
-                    "--log_dir", log_dir])
+            st, ls = run(flags, log_dir)
             ran = launches()
             used = {k for k, n in ran.items() if n}
             if used != (set(ran) - unused if kernels else set()):
@@ -1062,9 +1373,11 @@ def f32_agreement(kernel_path, dense_flags, *, batch: int, seq: int,
             a, b = a[[0, 2]], b[[0, 2]]
         gaps[k] = float((a - b).abs().max())
     worst = max(gaps, key=gaps.get)
-    key_bound = 1.5 * len(lf) * 3e-4  # 1.5 x steps x the peak lr
+    key_bound = 1.5 * len(lf) * peak_lr
+    diff = (pf[worst] - pn[worst]).abs()
     print(f"  losses {lf} vs {ln}: max rel {loss_rel:.3e} [bar {loss_bar:g}]; "
-          f"params max abs {gaps[worst]:.3e} ({worst}) [bar {param_bar:g}]; "
+          f"params max abs {gaps[worst]:.3e} ({worst}: {int((diff > 1e-5).sum())}"
+          f" of {diff.numel()} elements over 1e-5) [bar {param_bar:g}]; "
           f"key slice of the qkv biases moved at most {key_moved:.3e} [step "
           f"bound {key_bound:.2e}]")
     if (len(lf) != 4 or loss_rel > loss_bar or gaps[worst] > param_bar

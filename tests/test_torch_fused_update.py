@@ -175,10 +175,13 @@ def test_make_optimizer_defaults_are_the_references_adam():
                            weight_decay=0.1)
     assert fused.fused and fused.compute_dtype == torch.bfloat16
     assert fused.mask is decay_mask
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        make_optimizer(optimizer="sgd")
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        make_optimizer(skip_nonfinite_updates=True)
+    # the reference's other choices and its guard are ported; fused=True
+    # takes adam only, as the reference's does
+    assert type(make_optimizer(optimizer="sgd")).__name__ == "SGD"
+    guarded = make_optimizer(skip_nonfinite_updates=True)
+    assert type(guarded.inner) is Adam and not guarded.fused
+    with pytest.raises(ValueError, match="adam/adamw update only"):
+        make_optimizer(optimizer="sgd", fused=True)
 
 
 def test_compute_copy_is_cast_of_post_update_master():

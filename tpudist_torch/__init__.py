@@ -12,7 +12,11 @@ Ported so far: GPT-2 serving (paged and contiguous ``ServeEngine``,
 data-parallel training (``python -m tpudist_torch.main``) through the
 fused-AdamW kernel; GPT-2 training (``python -m tpudist_torch.train_gpt2``)
 through the fused residual-add + LayerNorm and whole-row attention
-kernels, forward and backward, and the fused-AdamW kernel.
+kernels, forward and backward, and the fused-AdamW kernel, and at S 4096
+through the flash-attention kernels; ViT-B/16 training (``python -m
+tpudist_torch.main --model vit_b16``) through the LayerNorm and fused-AdamW
+kernels, with ``--amp``, ``--grad_accum`` and the sgd / lamb / lion / muon
+optimizers.
 """
 
 from tpudist_torch.device import resolve_device

@@ -132,9 +132,11 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
         lib.tpudist_fused_adamw_max_leaves.argtypes = []
         lib.tpudist_fused_adamw_max_leaves.restype = I
         lib.tpudist_fused_adamw_table.argtypes = [
-            I, I, P, I, I, I, F, F, F, F, F, F, F, F, P, P, P, P,
+            I, I, P, I, I, I, F, F, F, F, F, F, F, F, P, P, P, P, P,
         ]
         lib.tpudist_fused_adamw_table.restype = I
+        lib.tpudist_fused_adamw_check.argtypes = [I, P, I, I, I, P, I, P]
+        lib.tpudist_fused_adamw_check.restype = I
     L = ctypes.c_longlong
     if hasattr(lib, "tpudist_layernorm_fwd"):
         lib.tpudist_layernorm_max_d.argtypes = []

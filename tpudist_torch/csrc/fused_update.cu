@@ -46,6 +46,14 @@
 // kept alive after it; ResNet-50's 161 and GPT-2's 148 leaves fit in one.
 // The caller splits a longer list into as many launches as it needs.
 //
+// The non-finite update guard (`--amp`, the reference's skip_nonfinite)
+// costs no host sync: `finite_kernel` walks the same table's gradients and
+// sets a 4-byte device flag when any of them holds an inf or a NaN (the
+// flag is cleared by the same call's memset first), and a launch given the
+// flag returns before any write when it is set, so a skipped step leaves
+// m, v, the master and the copy as they were. The host reads the flag a
+// step later, to hold the step counter back (ops/fused_update.py).
+//
 // Dtype codes: 0 float32, 1 bfloat16, 2 float16; the copy's code is -1 when
 // there is no copy. Every entry point returns a cudaError_t as int.
 
@@ -88,6 +96,8 @@ struct Table {
   float* u;
   float* m_out;
   float* v_out;
+  // the guard's flag (nonzero: a gradient is not finite), or null
+  int* nonfinite;
   Leaf leaf[kMaxLeaves];
 };
 static_assert(sizeof(Table) <= 32764, "the table must fit the parameter space");
@@ -155,22 +165,28 @@ __device__ __forceinline__ float adamw(float g, float m, float v, float p,
   return __fmul_rn(dir, h.neg_lr);
 }
 
+// the last leaf whose first chunk is at or before chunk c; a block's chunks
+// only grow, so the search starts at its previous chunk's leaf
+__device__ __forceinline__ int find_leaf(const Table& t, int c, int leaf) {
+  int lo = leaf, hi = t.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].chunk0 <= c) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
 // m, v and p are read and written by the same thread, the read first, so
 // none of them is __restrict__.
 template <typename TG, typename TC>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(const __grid_constant__ Table t) {
+  // a step whose gradients hold an inf or a NaN writes nothing
+  if (t.nonfinite != nullptr && *t.nonfinite != 0) return;
   const bool leaf_mode = t.u != nullptr;
   int leaf = 0;
   for (int c = blockIdx.x; c < t.n_chunks; c += gridDim.x) {
-    // the last leaf whose first chunk is at or before c; c only grows, so
-    // the search starts at the previous chunk's leaf
-    int lo = leaf, hi = t.n_leaves - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (t.leaf[mid].chunk0 <= c) lo = mid; else hi = mid - 1;
-    }
-    leaf = lo;
+    leaf = find_leaf(t, c, leaf);
     const Leaf& e = t.leaf[leaf];
     const TG* g = static_cast<const TG*>(e.g);
     const float* m = e.m;
@@ -216,6 +232,39 @@ adamw_kernel(const __grid_constant__ Table t) {
       store1(copy, i, cv);
     }
   }
+}
+
+// Sets *t.nonfinite when any gradient element of the table is an inf or a
+// NaN; reads g only, with the chunk walk of adamw_kernel. Bound by bytes (2
+// an element of a bf16 gradient), it reads four elements a thread a time
+// where g is aligned and writes one int a block at most.
+template <typename TG>
+__global__ void __launch_bounds__(kThreads)
+finite_kernel(const __grid_constant__ Table t) {
+  bool bad = false;
+  int leaf = 0;
+  for (int c = blockIdx.x; c < t.n_chunks; c += gridDim.x) {
+    leaf = find_leaf(t, c, leaf);
+    const Leaf& e = t.leaf[leaf];
+    const TG* g = static_cast<const TG*>(e.g);
+    const int64_t begin = (int64_t)(c - e.chunk0) * t.chunk;
+    const int64_t end = begin + t.chunk < e.n ? begin + t.chunk : e.n;
+    int64_t head = begin;
+    if (reinterpret_cast<uintptr_t>(g) % (4 * sizeof(TG)) == 0) {
+      const int64_t end4 = end >> 2;
+      for (int64_t i = (begin >> 2) + threadIdx.x; i < end4; i += kThreads) {
+        float x[4];
+        load4(g, i, x);
+        bad |= !(isfinite(x[0]) && isfinite(x[1]) && isfinite(x[2]) &&
+                 isfinite(x[3]));
+      }
+      head = end4 << 2;
+    }
+    for (int64_t i = head + threadIdx.x; i < end; i += kThreads) {
+      bad |= !isfinite(to_f32(g[i]));
+    }
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *t.nonfinite = 1;
 }
 
 int sm_count() {
@@ -266,6 +315,43 @@ int launch(Table& t, cudaStream_t stream) {
 }
 
 template <typename TG>
+int launch_check(Table& t, cudaStream_t stream) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, finite_kernel<TG>, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) per_sm = 1;
+  }
+  int blocks = sm_count() * per_sm;
+  if (blocks > t.n_chunks) blocks = t.n_chunks;
+  finite_kernel<TG><<<blocks, kThreads, 0, stream>>>(t);
+  return (int)cudaGetLastError();
+}
+
+// The table of `n_leaves` records as the entry points take it, checked:
+// leaf i's chunks follow leaf i - 1's without a gap, n_chunks in all.
+int fill_table(Table& t, const void* leaves, int n_leaves, int n_chunks,
+               int chunk) {
+  if (n_leaves < 0 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4 != 0 ||
+      n_chunks < 0 || leaves == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  t.n_leaves = n_leaves;
+  t.n_chunks = n_chunks;
+  t.chunk = chunk;
+  const Leaf* in = static_cast<const Leaf*>(leaves);
+  long long next = 0;  // the chunk numbering must have no gaps or overlaps
+  for (int i = 0; i < n_leaves; ++i) {
+    t.leaf[i] = in[i];
+    if (in[i].chunk0 != next) return (int)cudaErrorInvalidValue;
+    next += (in[i].n + chunk - 1) / chunk;
+  }
+  if (next != n_chunks) return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
+template <typename TG>
 int dispatch_copy(int copy_dtype, Table& t, cudaStream_t s) {
   switch (copy_dtype) {
     case -1: return launch<TG, NoCopy>(t, s);
@@ -293,42 +379,61 @@ int tpudist_fused_adamw_max_leaves() { return kMaxLeaves; }
 // b1c and b2c are this step's float32 scalars, computed on the host from
 // the step counter. With u_out null the launch is in optimizer mode;
 // otherwise it is in leaf mode and takes exactly one leaf, whose u, m' and
-// v' go to u_out, m_out and v_out (m_out / v_out may be m / v).
+// v' go to u_out, m_out and v_out (m_out / v_out may be m / v). A non-null
+// `nonfinite` (a device int) makes the launch write nothing when it is
+// nonzero (tpudist_fused_adamw_check sets it).
 int tpudist_fused_adamw_table(int g_dtype, int copy_dtype, const void* leaves,
                               int n_leaves, int n_chunks, int chunk, float b1,
                               float omb1, float b2, float omb2, float eps,
                               float lr, float b1c, float b2c, void* u_out,
-                              void* m_out, void* v_out, void* stream) {
-  if (n_leaves < 0 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4 != 0 ||
-      n_chunks < 0 || leaves == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
+                              void* m_out, void* v_out, void* nonfinite,
+                              void* stream) {
   const bool leaf_mode = u_out != nullptr;
   if (leaf_mode && (n_leaves != 1 || m_out == nullptr || v_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Table t;
+  const int rc = fill_table(t, leaves, n_leaves, n_chunks, chunk);
+  if (rc != (int)cudaSuccess) return rc;
   t.h = Hyper{b1, omb1, b2, omb2, eps, -lr, b1c, b2c};
-  t.n_leaves = n_leaves;
-  t.n_chunks = n_chunks;
-  t.chunk = chunk;
   t.u = static_cast<float*>(u_out);
   t.m_out = static_cast<float*>(m_out);
   t.v_out = static_cast<float*>(v_out);
-  const Leaf* in = static_cast<const Leaf*>(leaves);
-  long long next = 0;  // the chunk numbering must have no gaps or overlaps
-  for (int i = 0; i < n_leaves; ++i) {
-    t.leaf[i] = in[i];
-    if (in[i].chunk0 != next) return (int)cudaErrorInvalidValue;
-    next += (in[i].n + chunk - 1) / chunk;
-  }
-  if (next != n_chunks) return (int)cudaErrorInvalidValue;
+  t.nonfinite = static_cast<int*>(nonfinite);
   if (n_chunks == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (g_dtype) {
     case 0: return dispatch_copy<float>(copy_dtype, t, s);
     case 1: return dispatch_copy<__nv_bfloat16>(copy_dtype, t, s);
     case 2: return dispatch_copy<__half>(copy_dtype, t, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The guard's check over the gradients of the same records: sets the
+// device int `nonfinite` to 1 when any element is an inf or a NaN. With
+// `clear` it first sets it to 0 on the stream (the first of a step's
+// launches); it never clears it otherwise, so the launches of one step
+// add up.
+int tpudist_fused_adamw_check(int g_dtype, const void* leaves, int n_leaves,
+                              int n_chunks, int chunk, void* nonfinite,
+                              int clear, void* stream) {
+  if (nonfinite == nullptr) return (int)cudaErrorInvalidValue;
+  Table t;
+  const int rc = fill_table(t, leaves, n_leaves, n_chunks, chunk);
+  if (rc != (int)cudaSuccess) return rc;
+  t.u = t.m_out = t.v_out = nullptr;
+  t.nonfinite = static_cast<int*>(nonfinite);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clear) {
+    const cudaError_t err = cudaMemsetAsync(nonfinite, 0, sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n_chunks == 0) return (int)cudaSuccess;
+  switch (g_dtype) {
+    case 0: return launch_check<float>(t, s);
+    case 1: return launch_check<__nv_bfloat16>(t, s);
+    case 2: return launch_check<__half>(t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

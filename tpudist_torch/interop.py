@@ -15,6 +15,12 @@ packages can run the same weights. Flax ``Dense`` kernels are
 kernels flatten their grouped axes first (``qkv`` ``[d, 3, h, dh]``,
 ``out`` ``[h, dh, d]``), and biases keep their shapes (``qkv``'s
 ``[3, h, dh]``).
+
+:func:`vit_params_from_flax` maps a flax :class:`tpudist.models.vit.ViT`
+param tree onto the state dict of :class:`tpudist_torch.models.vit.ViT`
+the same way: the patch ``Conv`` kernel ``[p, p, 3, d]`` becomes
+``[d, 3, p, p]``, ``Dense`` kernels ``[out, in]``, biases and ``cls`` /
+``pos_embedding`` keep their shapes.
 """
 
 from __future__ import annotations
@@ -110,3 +116,42 @@ def resnet_params_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
                     norm(f"{block}.{dst}", leaf, stats[name][inner])
     return sd
 
+
+
+def vit_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ViT params (``embedding``, ``cls``, ``pos_embedding``,
+    ``block_{i}/{LayerNorm_0,qkv,out,LayerNorm_1,MlpBlock_0/{Dense_0,
+    Dense_1}}``, ``LayerNorm_0``, ``head``; a ``{"params": ...}`` wrapper
+    is accepted) -> the port's state dict, in f32 on the CPU. Block
+    ``block_{i}`` becomes ``blocks.{i}``, its norms ``ln_0``/``ln_1``, its
+    MLP's ``Dense_0``/``Dense_1`` ``mlp.fc``/``mlp.proj``; the final
+    ``LayerNorm_0`` becomes ``norm``."""
+    p = tree["params"] if "params" in tree else tree
+    sd: dict[str, torch.Tensor] = {
+        "embedding.weight": _f32(np.transpose(p["embedding"]["kernel"],
+                                              (3, 2, 0, 1))),
+        "embedding.bias": _f32(p["embedding"]["bias"]),
+        "cls": _f32(p["cls"]),
+        "pos_embedding": _f32(p["pos_embedding"]),
+    }
+
+    def norm(dst, src):
+        sd[f"{dst}.scale"] = _f32(src["scale"])
+        sd[f"{dst}.bias"] = _f32(src["bias"])
+
+    depth = sum(1 for k in p if k.startswith("block_"))
+    for i in range(depth):
+        src, dst = p[f"block_{i}"], f"blocks.{i}"
+        norm(f"{dst}.ln_0", src["LayerNorm_0"])
+        norm(f"{dst}.ln_1", src["LayerNorm_1"])
+        _linear(sd, f"{dst}.qkv", src["qkv"]["kernel"], src["qkv"]["bias"])
+        _linear(sd, f"{dst}.out", src["out"]["kernel"], src["out"]["bias"],
+                n_in_axes=2)
+        mlp = src["MlpBlock_0"]
+        _linear(sd, f"{dst}.mlp.fc", mlp["Dense_0"]["kernel"],
+                mlp["Dense_0"]["bias"])
+        _linear(sd, f"{dst}.mlp.proj", mlp["Dense_1"]["kernel"],
+                mlp["Dense_1"]["bias"])
+    norm("norm", p["LayerNorm_0"])
+    _linear(sd, "head", p["head"]["kernel"], p["head"]["bias"])
+    return sd

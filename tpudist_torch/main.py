@@ -11,6 +11,11 @@ rows every 5 steps, a profiler window in ``{log_dir}/log_{JobID}``, the
 ``TrainTime`` row), plus ``--device`` (``cuda`` by default; ``cpu`` runs
 the plain path and is the only way to run without a card). The world
 comes from the ``env://`` variables ``torchrun`` sets, one card per rank.
+``--model`` takes the ResNets and ``vit_b16`` (4-pixel patches on the
+32x32 images: 65 tokens); ``--optimizer`` adam, sgd, lamb, lion or muon;
+``--grad_accum k`` splits each ``--batch_size`` batch into k
+microbatches; ``--amp`` is bf16 compute plus the non-finite update guard,
+whose skipped steps are printed after training.
 
 Every other flag ``main.py`` accepts is accepted here too, and a value
 other than its default raises ``NotImplementedError`` naming the ROADMAP
@@ -125,7 +130,6 @@ _UNPORTED = {
     "image_size": "Queue 1 #4", "workers": "Queue 1 #4",
     "packed": "Queue 1 #4", "packed_val": "Queue 1 #4",
     "cache_shard_rows": "Queue 1 #4",
-    "amp": "Queue 1 #2", "grad_accum": "Queue 1 #2",
     "device_cache": "Queue 1 #2", "augment": "Queue 1 #1",
     "reduce": "Queue 1 #7", "fsdp": "Queue 1 #7",
     "telemetry": "Queue 1 #8", "health": "Queue 1 #8", "trace": "Queue 1 #8",
@@ -144,12 +148,9 @@ _UNPORTED = {
 
 #: values of choice flags this port does not run yet -> the ROADMAP item
 _UNPORTED_CHOICES = {
-    ("model", "vit_b16"): "Queue 1 #3",
     ("model", "gpt2"): "Queue 1 #3",
     ("dataset", "imagenet"): "Queue 1 #4",
     ("dataset", "digits"): "Queue 1 #1",
-    ("optimizer", "sgd"): "Queue 1 #2", ("optimizer", "lamb"): "Queue 1 #2",
-    ("optimizer", "lion"): "Queue 1 #2", ("optimizer", "muon"): "Queue 1 #2",
 }
 
 
@@ -178,12 +179,13 @@ def main(argv=None):
     import torch
     import torch.distributed as dist
 
-    from tpudist_torch.amp import policy_for
+    from tpudist_torch.amp import policy_for, skipped_steps
     from tpudist_torch.data.cifar import load_cifar, synthetic_cifar, to_tensor
     from tpudist_torch.data.loader import DataLoader
     from tpudist_torch.data.sampler import DistributedSampler
     from tpudist_torch.distributed import group_up, init_from_env
     from tpudist_torch.models import resnet
+    from tpudist_torch.models.vit import vit_b16
     from tpudist_torch.optim import make_optimizer, run_schedule
     from tpudist_torch.train import (
         cross_entropy_loss, evaluate, fit, smoothed_cross_entropy)
@@ -191,17 +193,24 @@ def main(argv=None):
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
-        dtype = policy_for(args.bf16).compute_dtype
+        # --amp is the bf16 policy plus the guard on the optimizer below
+        dtype = policy_for(args.bf16 or args.amp).compute_dtype
         # the reference keeps the stock 1000-way head even on CIFAR
-        model = getattr(resnet, args.model)(dtype=dtype, stem=args.stem,
-                                            device=ctx.device)
+        if args.model == "vit_b16":
+            # 4-pixel patches keep the 32x32 images at 64 tokens (+ cls)
+            model = vit_b16(dtype=dtype, patch_size=4, image_size=32,
+                            device=ctx.device)
+        else:
+            model = getattr(resnet, args.model)(dtype=dtype, stem=args.stem,
+                                                device=ctx.device)
         if args.dataset == "synthetic":
             data = synthetic_cifar(args.synthetic_size, num_classes=100)
         else:
             data = load_cifar(args.data_root, dataset=args.dataset, train=True)
         sampler = DistributedSampler(len(data["label"]),
                                      num_replicas=ctx.world_size, rank=ctx.rank)
-        # --batch_size is per replica, and one process drives one replica
+        # --batch_size is per replica, and one process drives one replica;
+        # each batch holds --grad_accum microbatches
         loader = DataLoader(data, args.batch_size, sampler=sampler,
                             transform=to_tensor)
         lr = args.lr
@@ -212,7 +221,8 @@ def main(argv=None):
             args.fused == "auto" and args.optimizer == "adam")
         tx = make_optimizer(
             lr, optimizer=args.optimizer, weight_decay=args.weight_decay,
-            clip_norm=args.clip_norm, fused=fuse_opt,
+            clip_norm=args.clip_norm, skip_nonfinite_updates=args.amp,
+            fused=fuse_opt,
             # the copy only pays when the model computes narrower than fp32
             compute_dtype=dtype if dtype != torch.float32 else None)
         loss_fn = (smoothed_cross_entropy(args.label_smoothing)
@@ -220,9 +230,13 @@ def main(argv=None):
         state, losses = fit(
             model, tx, loader, epochs=args.epochs, job_id=args.JobID,
             batch_size=args.batch_size, world_size=ctx.world_size,
-            global_rank=ctx.rank, loss_fn=loss_fn,
+            global_rank=ctx.rank, loss_fn=loss_fn, grad_accum=args.grad_accum,
             fused=None if args.fused == "none" else args.fused,
             profile=not args.no_profiler, log_dir=args.log_dir)
+        if args.amp and ctx.is_chief:
+            skipped = skipped_steps(state.opt_state)
+            if skipped:
+                print(f"amp: skipped {skipped} non-finite update step(s)")
         if args.eval:
             # every rank scores the full validation set (the reference's
             # unsharded val loader); rank 0 reports

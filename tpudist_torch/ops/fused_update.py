@@ -35,9 +35,17 @@ The launch's table of leaves rides the kernel's parameter space, at most
 :data:`MAX_TABLE_LEAVES` leaves a launch; :func:`plan_launches` groups the
 leaves by dtype and splits a longer list into as few launches as fit.
 
+The non-finite update guard (``--amp``) adds no host sync:
+:func:`nonfinite_check` sets a 4-byte device flag when a gradient holds an
+inf or a NaN (the ``.cu``'s ``finite_kernel``, one launch per group of
+the table), and :func:`fused_adamw_step` given that flag writes nothing
+when it is set. The optimizer reads the flag a step later
+(:class:`tpudist_torch.amp.SkipNonfinite`).
+
 The wrappers take the kernel for CUDA tensors and the plain version for
 CPU tensors. :data:`launch_counts` counts kernel launches
-(``fused_adamw``) and the leaves they covered (``fused_adamw_leaves``).
+(``fused_adamw``, the guard's ``fused_adamw_check``) and the leaves the
+update launches covered (``fused_adamw_leaves``).
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ import math
 
 import numpy as np
 import torch
+
+from tpudist_torch.amp import all_finite
 
 #: leaves below this many elements take the plain formula in
 #: :func:`fused_leaf_update` (the reference's threshold,
@@ -61,10 +71,11 @@ CHUNK_ELEMS = 32768
 #: wrapper checks against the built library)
 MAX_TABLE_LEAVES = 480
 
-#: launches of the kernel, counted where the wrapper launches it and
-#: nowhere else (the plain version never counts), and the leaves they
-#: covered
-launch_counts = {"fused_adamw": 0, "fused_adamw_leaves": 0}
+#: launches of the update kernel and of the guard's check, counted where
+#: the wrappers launch them and nowhere else (the plain versions never
+#: count), and the leaves the update launches covered
+launch_counts = {"fused_adamw": 0, "fused_adamw_leaves": 0,
+                 "fused_adamw_check": 0}
 
 _G_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _COPY_CODE = {None: -1, torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -249,32 +260,28 @@ class AdamWTable:
 
 
 def fused_adamw_step_plain(table: AdamWTable, grads, lr, b1c, b2c, *, b1,
-                           b2, eps) -> None:
+                           b2, eps, nonfinite=None) -> None:
     """The optimizer-mode kernel's function in plain PyTorch: for each
     leaf, :func:`fused_leaf_update_plain`, then m, v and the copy written
-    in place and ``p += u`` (the reference's ``optax.apply_updates``)."""
+    in place and ``p += u`` (the reference's ``optax.apply_updates``).
+    With ``nonfinite`` (the guard's flag) every write keeps the old value
+    where the flag is set, as the kernel writes nothing then."""
+    keep = None if nonfinite is None else nonfinite != 0
+    put = (lambda dst, new: dst.copy_(new)) if keep is None else (
+        lambda dst, new: dst.copy_(torch.where(keep, dst, new)))
     for g, m, v, p, c, wd in zip(grads, table.m, table.v, table.p,
                                  table.copy, table.wd):
         u, m2, v2, cp = fused_leaf_update_plain(
             g, m, v, p, lr, b1c, b2c, b1=b1, b2=b2, eps=eps, wd=wd,
             compute_dtype=None if c is None else c.dtype)
-        m.copy_(m2)
-        v.copy_(v2)
+        put(m, m2)
+        put(v, v2)
         if c is not None:
-            c.copy_(cp)
-        p.add_(u)
+            put(c, cp)
+        put(p, p + u)
 
 
-def fused_adamw_step_cuda(table: AdamWTable, grads, lr, b1c, b2c, *, b1,
-                          b2, eps) -> None:
-    """Update every leaf of ``table`` in place from ``grads`` (one per
-    leaf, float32, bfloat16 or float16, each in its master's layout) on the
-    current stream: one kernel launch for each group of gradient and copy
-    dtypes, more only past :data:`MAX_TABLE_LEAVES` leaves."""
-    from tpudist_torch.csrc import build
-
-    if not table.p or not table.p[0].is_cuda:
-        raise ValueError("fused_adamw: the masters are not CUDA tensors")
+def _check_grads(table: AdamWTable, grads) -> None:
     if len(grads) != len(table):
         raise ValueError(f"fused_adamw: {len(grads)} gradients for "
                          f"{len(table)} leaves")
@@ -283,6 +290,70 @@ def fused_adamw_step_cuda(table: AdamWTable, grads, lr, b1c, b2c, *, b1,
             raise ValueError(f"fused_adamw: grad dtype {g.dtype} not in "
                              "(float32, bfloat16, float16)")
         _check_leaf(g, p, "a gradient")
+
+
+def _check_flag(flag: torch.Tensor, table: AdamWTable) -> None:
+    if flag.dtype != torch.int32 or flag.numel() != 1 or \
+            flag.device != table.p[0].device:
+        raise ValueError("fused_adamw: the guard's flag must be one int32 on "
+                         "the masters' device")
+
+
+def nonfinite_check_plain(table: AdamWTable, grads, flag) -> None:
+    """The check kernel's function: ``flag`` becomes 1 when an element of
+    ``grads`` is an inf or a NaN, else 0."""
+    flag.copy_((~all_finite(grads)).to(flag.dtype).reshape(flag.shape))
+
+
+def nonfinite_check_cuda(table: AdamWTable, grads, flag) -> None:
+    """Set the int32 device ``flag`` to 1 when an element of ``grads`` (one
+    per leaf of ``table``, in its master's layout) is an inf or a NaN,
+    else 0, on the current stream: the flag cleared, then one check launch
+    for each group of gradient and copy dtypes."""
+    from tpudist_torch.csrc import build
+
+    if not table.p or not table.p[0].is_cuda:
+        raise ValueError("fused_adamw: the masters are not CUDA tensors")
+    _check_grads(table, grads)
+    _check_flag(flag, table)
+    lib = build.load("fused_update.cu")
+    stream = torch.cuda.current_stream(table.p[0].device).cuda_stream
+    for i, (g_code, _, idx, rec, n_chunks) in enumerate(table.plan(
+            g.dtype for g in grads)):
+        rec = rec.copy()
+        rec["g"] = [grads[j].data_ptr() for j in idx]
+        rc = lib.tpudist_fused_adamw_check(
+            g_code, rec.ctypes.data, len(rec), n_chunks, CHUNK_ELEMS,
+            flag.data_ptr(), int(i == 0), stream)
+        build.check(lib, rc, "fused_adamw check")
+        launch_counts["fused_adamw_check"] += 1
+
+
+def nonfinite_check(table: AdamWTable, grads, flag) -> None:
+    """The guard's check over ``table``'s leaves: the kernel for CUDA
+    leaves, the plain version for CPU leaves."""
+    if not len(table):
+        flag.zero_()
+        return
+    fn = nonfinite_check_cuda if table.p[0].is_cuda else nonfinite_check_plain
+    fn(table, grads, flag)
+
+
+def fused_adamw_step_cuda(table: AdamWTable, grads, lr, b1c, b2c, *, b1,
+                          b2, eps, nonfinite=None) -> None:
+    """Update every leaf of ``table`` in place from ``grads`` (one per
+    leaf, float32, bfloat16 or float16, each in its master's layout) on the
+    current stream: one kernel launch for each group of gradient and copy
+    dtypes, more only past :data:`MAX_TABLE_LEAVES` leaves. With
+    ``nonfinite`` (the guard's int32 device flag) the launches write
+    nothing when the flag is set."""
+    from tpudist_torch.csrc import build
+
+    if not table.p or not table.p[0].is_cuda:
+        raise ValueError("fused_adamw: the masters are not CUDA tensors")
+    _check_grads(table, grads)
+    if nonfinite is not None:
+        _check_flag(nonfinite, table)
     if [0 if c is None else c.data_ptr() for c in table.copy] != \
             table._copy_ptrs:
         raise ValueError("fused_adamw: a compute copy moved since the table "
@@ -298,21 +369,22 @@ def fused_adamw_step_cuda(table: AdamWTable, grads, lr, b1c, b2c, *, b1,
         rc = lib.tpudist_fused_adamw_table(
             g_code, c_code, rec.ctypes.data, len(rec), n_chunks, CHUNK_ELEMS,
             b1, 1.0 - b1, b2, 1.0 - b2, eps, lr, b1c, b2c, None, None, None,
-            stream)
+            None if nonfinite is None else nonfinite.data_ptr(), stream)
         build.check(lib, rc, "fused_adamw")
         launch_counts["fused_adamw"] += 1
         launch_counts["fused_adamw_leaves"] += len(rec)
 
 
 def fused_adamw_step(table: AdamWTable, grads, lr, b1c, b2c, *, b1, b2,
-                     eps) -> None:
+                     eps, nonfinite=None) -> None:
     """One optimizer step over every leaf of ``table``: the kernel for CUDA
-    leaves, the plain version for CPU leaves."""
+    leaves, the plain version for CPU leaves; nothing is written where the
+    guard's flag ``nonfinite`` is set."""
     if not len(table):
         return
     fn = fused_adamw_step_cuda if table.p[0].is_cuda else \
         fused_adamw_step_plain
-    fn(table, grads, lr, b1c, b2c, b1=b1, b2=b2, eps=eps)
+    fn(table, grads, lr, b1c, b2c, b1=b1, b2=b2, eps=eps, nonfinite=nonfinite)
 
 
 def fused_leaf_update_cuda(g, m, v, p, lr, b1c, b2c, *, b1, b2, eps, wd=0.0,
@@ -362,7 +434,7 @@ def fused_leaf_update_cuda(g, m, v, p, lr, b1c, b2c, *, b1, b2, eps, wd=0.0,
         _G_CODE[g.dtype], _COPY_CODE[compute_dtype], rec.ctypes.data, 1,
         math.ceil(n / CHUNK_ELEMS), CHUNK_ELEMS, b1, 1.0 - b1, b2, 1.0 - b2,
         eps, lr, b1c, b2c, u.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
-        torch.cuda.current_stream(p.device).cuda_stream)
+        None, torch.cuda.current_stream(p.device).cuda_stream)
     build.check(lib, rc, "fused_adamw")
     launch_counts["fused_adamw"] += 1
     launch_counts["fused_adamw_leaves"] += 1

@@ -2,6 +2,7 @@
 
     python -m tpudist_torch.ops.fused_update_bench                # on the card
     python -m tpudist_torch.ops.fused_update_bench --ab OLD.cu    # another revision's kernel, in turns
+    python -m tpudist_torch.ops.fused_update_bench --guard        # the --amp guard at ViT-B's leaves
 
 The timed unit is what ``--fused optimizer --bf16`` runs each step:
 ``FusedAdamW.step`` over all of ResNet-50's 161 leaves (25,557,032
@@ -32,6 +33,13 @@ card waiting on the host between them, so each run's busy time
 (:func:`busy_ms`, from a profiler trace) is printed too: for the
 one-launch step the two agree, for the per-leaf structure and the plain
 step the busy time is their device work.
+
+``--guard`` runs the non-finite update guard (``--amp``) over ViT-B/16's
+152 leaves (:func:`guard_check`): a step fed one inf leaves every state
+tensor bit-identical and is counted as skipped, the next finite step is
+bit-identical to an optimizer that never saw the bad batch, and the
+guarded step's device time (the check launch and the update) stands
+beside the unguarded one's and the check's alone.
 
 The bound is the larger of the bytes one step must move (g 2 B, m, v, p
 12 B read; m', v', p' 12 B, copy 2 B written: 28 B per element) over the
@@ -73,6 +81,16 @@ def gpt2_leaves() -> list[torch.Tensor]:
     from tpudist_torch.models.gpt2 import GPT2
 
     return [p.detach() for p in GPT2(device="cuda").parameters()]
+
+
+def vit_leaves(depth: int = 12) -> list[torch.Tensor]:
+    """ViT-B/16's parameters on the card as ``main.py --model vit_b16``
+    builds it (4-pixel patches, 32x32 images: 152 leaves at depth 12)."""
+    from tpudist_torch.models.vit import vit_b16
+
+    return [p.detach() for p in vit_b16(patch_size=4, image_size=32,
+                                        depth=depth,
+                                        device="cuda").parameters()]
 
 
 def random_state(leaves, gen: torch.Generator, *, g_dtype, copy_dtype,
@@ -272,6 +290,70 @@ def step_case(leaves, gen: torch.Generator, *, g_dtype=torch.bfloat16,
     )
 
 
+def guard_check(leaves, gen: torch.Generator, flush=None) -> dict:
+    """The ``--amp`` guard around the fused optimizer over ``leaves`` (bf16
+    gradients and copy, decay 0.1 masked off 1-D leaves): a step whose
+    gradients hold one inf, then a finite one, against an unguarded
+    optimizer fed only the finite step. Returns whether the skipped step
+    left m, v, the masters and the copy bit-identical, the skip count and
+    the step count after it, the launches it took, whether the next step
+    equals the unguarded one to the bit, and with ``flush`` the device ms
+    of the guarded step, the unguarded step and the check launch alone,
+    with the check's byte bound."""
+    from tpudist_torch.amp import skipped_steps
+    from tpudist_torch.optim import make_optimizer
+
+    state = random_state(leaves, gen, g_dtype=torch.bfloat16,
+                         copy_dtype=None, wd=0.0)
+    kw = dict(fused=True, weight_decay=0.1, compute_dtype=torch.bfloat16)
+    guarded = make_optimizer(SCALARS[0], skip_nonfinite_updates=True, **kw)
+    unguarded = make_optimizer(SCALARS[0], **kw)
+    params = {f"l{i}": p.clone() for i, p in enumerate(state["p"])}
+    clean = {k: p.clone() for k, p in params.items()}
+    st, cst = guarded.init(params), unguarded.init(clean)
+    good = dict(zip(params, state["g"]))
+    bad = dict(good)
+    k_bad = list(params)[len(params) // 2]
+    bad[k_bad] = good[k_bad].clone()
+    bad[k_bad].view(-1)[bad[k_bad].numel() // 3] = float("inf")
+
+    def snapshot():
+        inner = st.inner
+        return [t.clone() for d in (inner.mu, inner.nu, inner.master, params)
+                for t in d.values()]
+
+    before = snapshot()
+    FU.reset_launch_counts()
+    guarded.step(st, params, bad)
+    launches = dict(FU.launch_counts)
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(a, b) for a, b in zip(snapshot(), before))
+    skipped, count = skipped_steps(st), st.inner.count
+    guarded.step(st, params, good)
+    unguarded.step(cst, clean, good)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*st.inner.mu.values(), *st.inner.nu.values(),
+         *st.inner.master.values(), *params.values()],
+        [*cst.mu.values(), *cst.nu.values(), *cst.master.values(),
+         *clean.values()]))
+    out = dict(unchanged=unchanged, skipped=skipped, count=count,
+               launches=launches, next_equal=same,
+               skipped_after=skipped_steps(st), count_after=st.inner.count)
+    if flush is not None:
+        grads = [good[k] for k in st.inner.names]
+        n = sum(g.numel() for g in grads)
+        out.update(
+            guarded_ms=timed_ms(lambda: guarded.inner.step(
+                st.inner, params, good, guard=True), flush),
+            unguarded_ms=timed_ms(lambda: unguarded.step(cst, clean, good),
+                                  flush),
+            check_ms=timed_ms(lambda: FU.nonfinite_check_cuda(
+                st.inner.table, grads, st.inner.nonfinite), flush),
+            check_bound=DB.bound(2 * n, n), elements=n)
+    return out
+
+
 def enqueue_check(fn, spin_cycles: int = SPIN_CYCLES) -> tuple[float, float]:
     """``(host ms to enqueue one fn(), device ms of the spin)``: the spin
     must be the longer for :func:`DB.device_ms` to time device work only."""
@@ -360,16 +442,47 @@ def ab(old: Path, flush) -> dict:
                 busy={who: busy_ms(fn) for who, fn in steps.items()})
 
 
+def guard_ok(r: dict) -> bool:
+    return (r["unchanged"] and r["skipped"] == 1 and r["count"] == 0
+            and r["launches"]["fused_adamw"] == 1
+            and r["launches"]["fused_adamw_check"] == 1 and r["next_equal"]
+            and r["skipped_after"] == 1 and r["count_after"] == 1)
+
+
+def guard_line(r: dict, smi: str) -> str:
+    line = (f"guard: the step with one inf left m, v, masters and copy "
+            f"bit-identical {r['unchanged']}, skipped {r['skipped']}, count "
+            f"{r['count']}, launches {r['launches']}; the next step "
+            f"bit-identical to an optimizer that never saw it "
+            f"{r['next_equal']} (skipped {r['skipped_after']}, count "
+            f"{r['count_after']})")
+    if "guarded_ms" in r:
+        b = r["check_bound"]
+        line += (f"\n  step over {r['elements']} elements, bf16 g and copy: "
+                 f"guarded {r['guarded_ms']:.4f} ms, unguarded "
+                 f"{r['unguarded_ms']:.4f} ms, the check alone "
+                 f"{r['check_ms']:.4f} ms (bound {b['bound_ms']:.4f} ms, "
+                 f"{b['bound_by']})  [{smi}]")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tpudist_torch.ops.fused_update_bench")
     ap.add_argument("--ab", type=Path, default=None, metavar="OLD.cu",
                     help="only another revision's per-leaf step (A) against "
                     "this checkout's (B), in turns")
+    ap.add_argument("--guard", action="store_true",
+                    help="only the --amp guard at ViT-B/16's leaves")
     args = ap.parse_args(argv)
     smi = card()
     print(smi)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    if args.guard:
+        r = guard_check(vit_leaves(), torch.Generator(device="cuda").manual_seed(2),
+                        flush)
+        print(guard_line(r, smi))
+        return 0 if guard_ok(r) else 1
     if args.ab:
         r = ab(args.ab, flush)
         a, b = r["ms"]["A"], r["ms"]["B"]

@@ -10,8 +10,11 @@ with the reference's numerics:
   already global), so the gradients DDP all-reduces and averages are those
   of the global-batch mean loss; BN statistics span the global batch
   (:class:`tpudist_torch.models.resnet.BatchNorm`);
-- the update is optax-order Adam/AdamW (:mod:`tpudist_torch.optim`),
-  through the fused kernel under ``fused="optimizer"``;
+- the update is one of :mod:`tpudist_torch.optim`'s optax-order
+  optimizers (Adam/AdamW through the fused kernel under
+  ``fused="optimizer"``), optionally behind the ``--amp`` guard
+  (:func:`tpudist_torch.amp.skip_nonfinite`, whose skip counter rides the
+  optimizer state and whose flag is read a step late, like the loss);
 - under the fused optimizer with a compute copy the module's parameters
   ARE the copy, so the forward reads it, DDP reduces exactly the
   gradients the optimizer reads, and the kernel writes the next copy
@@ -22,9 +25,14 @@ with the reference's numerics:
   delayed fetch), and the optimizer's scalars come from a host counter;
 - ``grad_accum > 1`` splits the batch into a leading microbatch dim and
   sums the microbatches' gradients in float32 under DDP's ``no_sync``, then
-  all-reduces the sums once per step (module :func:`make_train_step`);
+  all-reduces the sums once per step (module :func:`make_train_step`); a
+  ResNet's BatchNorm updates its running statistics once per microbatch,
+  in microbatch order, as the reference's scan threads them, each over
+  the global microbatch (its statistics are all-reduced in the forward,
+  which ``no_sync`` does not touch);
 - ``fused="ln"`` switches the model's ``fused_ln`` knob on (the same
-  parameters; GPT-2's fused residual-add + LayerNorm kernel);
+  parameters; the fused residual-add + LayerNorm kernel of GPT-2 and
+  ViT);
 - ``forward_loss(module, batch) -> loss`` replaces the default
   ``loss_fn(module(batch[input_key]), batch[label_key])`` (the chunked LM
   loss, :func:`tpudist_torch.models.lm_utils.chunked_lm_forward`).
@@ -46,10 +54,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from tpudist_torch.amp import inner_state
 from tpudist_torch.data.loader import prefetch_to_device
 from tpudist_torch.distributed import group_up
 from tpudist_torch.metrics import MetricsLogger
-from tpudist_torch.optim import Adam, AdamState, FusedAdamWState
+from tpudist_torch.optim import FusedAdamWState, Optimizer
 from tpudist_torch.profiling import WindowedProfiler
 
 
@@ -63,12 +72,13 @@ class TrainState:
     step: int
     model: nn.Module
     module: nn.Module
-    opt_state: AdamState
+    opt_state: object
 
     def params(self) -> dict[str, torch.Tensor]:
         """The float32 master of every parameter, by name."""
-        if isinstance(self.opt_state, FusedAdamWState):
-            params = self.opt_state.master
+        opt = inner_state(self.opt_state)
+        if isinstance(opt, FusedAdamWState):
+            params = opt.master
         else:
             params = dict(self.model.named_parameters())
         return {k: p.detach() for k, p in params.items()}
@@ -109,7 +119,7 @@ def lm_loss(logits, tokens):
                            ignore_index=-100)
 
 
-def create_train_state(model: nn.Module, tx: Adam) -> TrainState:
+def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
     """Build the optimizer state from ``model``'s parameters (the fused
     optimizer with a compute copy turns them into the copy here) and wrap
     the module in DDP when a process group is up. Every rank builds the
@@ -157,7 +167,7 @@ def resolve_fused(fused, model, tx) -> frozenset:
     return frozenset(out)
 
 
-def make_train_step(model, tx: Adam, *, loss_fn: Callable = cross_entropy_loss,
+def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_loss,
                     input_key: str = "image", label_key: str = "label",
                     fused=None, grad_accum: int = 1, reduce: str = "none",
                     forward_loss: Callable | None = None):
@@ -301,7 +311,7 @@ _DEFERRED = {
 }
 
 
-def fit(model: nn.Module, tx: Adam, train_loader, *, epochs: int,
+def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         job_id: str = "Job0", batch_size: int | None = None,
         world_size: int | None = None, global_rank: int | None = None,
         loss_fn: Callable = cross_entropy_loss, input_key: str = "image",
