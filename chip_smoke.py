@@ -199,14 +199,52 @@ Phases, each fatal on failure:
     the parameters' difference beyond one ulp under OPT_BARS of the
     largest update; then --amp --fused all through the CLI for 4 ViT
     steps (bf16 copy, one check launch a step, no step skipped);
-26. a ``{"kernels": [...]}`` line with all nine kernels; then the last
+26. the device-cached path, trained — a 1-rank NCCL group, then
+    ``tpudist_torch.main.main`` with ResNet-50 on 2048 synthetic images
+    held on the card as uint8 (``--device_cache``, 6.3 MB), batch 128,
+    --bf16 --fused optimizer --augment (the crop, flip and normalization
+    on the card, after the gather), the profiler on: 16 steps; one fused
+    AdamW launch a step covering all 161 leaves, finite losses, TSV rows
+    at g_step 5, 10 and 15 and TrainTime, images/s and the busy share, and
+    from the trace the host-to-device bytes a step, held under
+    CACHE_H2D_BAR (the indices and labels, never an image batch);
+27. agreement — in f32 with cudnn.deterministic, four ResNet-50 steps of
+    --device_cache (no augment) and of the host loader from the same init
+    on the same sampler order: bit-identity printed, held to phase 10's
+    1e-5;
+28. the LM path with the new flags, trained — a 1-rank NCCL group, then
+    ``tpudist_torch.train_gpt2.main`` with GPT-2 124M at full width and
+    depth, --bf16 --fused all --attn auto --amp --dropout 0.1 --remat full,
+    batch 8, S 1024, 16 steps on phase 14's text, then --eval on the
+    held-out rest of that text and --generate 32 at temperature 0: launches
+    a step (LN forward 50 and vmem forward 24, the whole forward twice; LN
+    backward 25 plus 25 reductions, vmem backward 12, one finite check and
+    one fused AdamW covering 148 leaves), finite and falling losses, the
+    TSV rows and the tokens/sec line, the trace's busy share; the eval
+    batches each 25 LN and 12 vmem forwards and nothing else, the val_loss
+    line; --generate 12 x 32 contiguous decode launches; then the peak
+    memory of 4 steps with --remat_policy full, --remat_policy
+    dots_saveable and no remat, in that order or the phase fails (the
+    reference's per-block order), the whole forward's (--remat full)
+    beside them;
+29. agreement — in f32, four steps of --dropout 0.1 --remat full and of
+    --dropout 0.1 from the same init: bit-identity printed, held to phase
+    15's LOSS_BAR / PARAM_BAR; --init_hf from a checkpoint that
+    ``interop.save_hf_checkpoint`` wrote from a seeded model: the first
+    loss within the f32 parity rule of that model's on the same batch;
+    --optimizer sgd, lamb, lion and muon through the CLI at depth 2 (two
+    finite steps each), and one step of each at GPT-2's leaf shapes
+    (depth 2), card against CPU, under OPT_BARS as in phase 25;
+30. a ``{"kernels": [...]}`` line with all nine kernels; then the last
     line, ``{"ok": true, "device": {...}}``.
 
-Phases 22-25 print their seconds.
+Phases 22-29 print their seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -486,8 +524,10 @@ def main() -> int:
     tied_head_phase(dev)
     vit_phases(smi, dev)
     amp_phase(smi, dev)
+    device_cache_phases(smi, dev)
+    lm_flag_phases(smi, dev)
 
-    # -- 26. result ---------------------------------------------------------------
+    # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
                 "fused_decode_attention": static_launches["fused_decode_attention"]}
     for kr in kernels:
@@ -1117,7 +1157,6 @@ def amp_phase(smi: str, dev) -> None:
     from tpudist_torch.amp import skipped_steps
     from tpudist_torch.models.vit import vit_b16
     from tpudist_torch.ops import fused_update_bench as FB
-    from tpudist_torch.optim import make_optimizer
 
     t0 = time.perf_counter()
     print("== 25. --amp and the optimizers")
@@ -1131,8 +1170,38 @@ def amp_phase(smi: str, dev) -> None:
 
     # one step of each optimizer at ViT-B's leaf shapes (depth cut to 2:
     # every distinct shape), card against CPU
-    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
-    model = vit_b16(patch_size=4, image_size=32, depth=2, device=dev)
+    optimizer_agreement(vit_b16(patch_size=4, image_size=32, depth=2,
+                                device=dev), dev, SEED + 26)
+
+    # --amp through the CLI
+    with tempfile.TemporaryDirectory() as log_dir:
+        for mod in counted_modules():
+            mod.reset_launch_counts()
+        state, losses = vit_runner()(["--amp", "--fused", "all"], log_dir)
+        counts = launches()
+    skipped = skipped_steps(state.opt_state)
+    bf16 = all(p.dtype == torch.bfloat16 for p in state.model.parameters())
+    del state
+    print(f"  --amp --fused all, 4 ViT-B/16 steps: losses {losses}, skipped "
+          f"{skipped}, bf16 compute copy {bf16}; launches {counts}")
+    if (len(losses) != 4 or not all(map(math.isfinite, losses)) or skipped
+            or not bf16 or counts["fused_adamw_check"] != 4
+            or counts["fused_adamw"] != 4):
+        fail("--amp through the CLI")
+    print(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+
+
+def optimizer_agreement(model, dev, seed: int) -> None:
+    """Phases 25 and 29: one step of each of sgd, lamb, lion and muon over
+    ``model``'s leaves with the same random gradients on the card and on
+    the CPU (weight decay 0.1), in f32; the parameters' difference beyond
+    one ulp of the parameter is held to ``OPT_BARS`` of the largest
+    update."""
+    import torch
+
+    from tpudist_torch.optim import make_optimizer
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
     p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
     g = {k: torch.randn(p.shape, generator=gen, device=dev) * 0.1
          for k, p in p0.items()}
@@ -1161,26 +1230,317 @@ def amp_phase(smi: str, dev) -> None:
               f"[bar {bar:g}]")
         if not excess <= bar * top:
             FAILURES.append(f"{name} card against CPU")
-    del model
     if FAILURES:
         fail(f"optimizers: {FAILURES}")
 
-    # --amp through the CLI
+
+
+#: phase 28's held-out text: the bytes of lm_kernels_bench.TEXT_FILES past
+#: the 16 x 8 x 1024 the training run reads (10 windows of 1024: batches of
+#: 8 and 2)
+HELD_OUT = 16 * 8 * 1024
+#: phase 26's ceiling on the host-to-device bytes of a device-cached step:
+#: its 128 indices and labels are 1 KiB; one uint8 image batch is 384 KiB
+CACHE_H2D_BAR = 64 << 10
+
+
+def device_cache_phases(smi: str, dev) -> None:
+    """Phases 26-27: ResNet-50 on the device cache with the device
+    augmentation through ``main.main``, then its f32 agreement with the
+    host loader."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch import main as M
+    from tpudist_torch.ops import fused_update as FU
+
+    # -- 26. the device-cached path, trained ----------------------------------
+    t0 = time.perf_counter()
+    print("== 26. ResNet-50, bf16, --fused optimizer --device_cache --augment, "
+          "16 steps under DDP (NCCL)")
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", init_method="env://")
     with tempfile.TemporaryDirectory() as log_dir:
         for mod in counted_modules():
             mod.reset_launch_counts()
-        state, losses = vit_runner()(["--amp", "--fused", "all"], log_dir)
+        torch.cuda.synchronize()
+        state, losses = M.main([
+            "--model", "resnet50", "--dataset", "synthetic",
+            "--synthetic_size", "2048", "--batch_size", "128", "--epochs", "1",
+            "--bf16", "--fused", "optimizer", "--device_cache", "--augment",
+            "--JobID", "Cache", "--log_dir", log_dir])
+        torch.cuda.synchronize()
         counts = launches()
-    skipped = skipped_steps(state.opt_state)
-    bf16 = all(p.dtype == torch.bfloat16 for p in state.model.parameters())
+        if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
+            fail("the training step did not run under DDP")
+        dist.destroy_process_group()
+        n_leaves = len(list(state.model.parameters()))
+        rows = (Path(log_dir) / "Cache_128_0.log").read_text().splitlines()
+        traces = list((Path(log_dir) / "log_Cache").glob("*.pt.trace.json"))
+        window = trace_breakdown(traces[0]) if traces else None
+        h2d = h2d_per_step(traces[0]) if traces else None
     del state
-    print(f"  --amp --fused all, 4 ViT-B/16 steps: losses {losses}, skipped "
-          f"{skipped}, bf16 compute copy {bf16}; launches {counts}")
-    if (len(losses) != 4 or not all(map(math.isfinite, losses)) or skipped
-            or not bf16 or counts["fused_adamw_check"] != 4
-            or counts["fused_adamw"] != 4):
-        fail("--amp through the CLI")
-    print(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+    steps = len(losses)
+    print(f"  {steps} steps; launches {counts}; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    if (steps != 16 or n_leaves != 161 or counts["fused_adamw"] != steps
+            or counts["fused_adamw_leaves"] != n_leaves * steps):
+        fail(f"{steps} steps, launches {counts}, want one fused AdamW launch "
+             f"covering {n_leaves} leaves a step")
+    if not np.isfinite(losses).all():
+        fail(f"losses {losses}")
+    if not traces:
+        fail("no profiler trace under log_Cache")
+    run_report(rows, window, steps=steps, batch=128, unit="images", smi=smi,
+               trace=traces[0].name)
+    print(f"  host-to-device per profiled step: {h2d['bytes']:.0f} bytes in "
+          f"{h2d['copies']:.1f} copies (trace; the image batch would be "
+          f"{128 * 32 * 32 * 3} bytes of uint8) [bar {CACHE_H2D_BAR}]")
+    if not (h2d["steps"] and h2d["copies"] and h2d["has_bytes"]
+            and h2d["bytes"] <= CACHE_H2D_BAR):
+        fail(f"host-to-device copies of the cached path: {h2d}")
+    print(f"  phase 26: {time.perf_counter() - t0:.1f} s")
+
+    # -- 27. agreement in f32 ------------------------------------------------------
+    t0 = time.perf_counter()
+    print("== 27. f32: --device_cache vs the host loader, 4 steps, "
+          "deterministic cuDNN")
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for flags in (["--device_cache"], []):
+        with tempfile.TemporaryDirectory() as log_dir:
+            with contextlib.redirect_stdout(io.StringIO()):
+                st, ls = M.main([
+                    "--model", "resnet50", "--dataset", "synthetic",
+                    "--synthetic_size", "512", "--batch_size", "128",
+                    "--epochs", "1", "--fused", "optimizer", "--no_profiler",
+                    "--log_dir", log_dir, *flags])
+        runs.append((ls, {k: v.float().cpu() for k, v in st.params().items()}))
+        del st
+    torch.backends.cudnn.deterministic = False
+    (lc, pc), (lh, ph) = runs
+    same = lc == lh and all(torch.equal(pc[k], ph[k]) for k in ph)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    param_rel = max(float((pc[k] - ph[k]).abs().max() / ph[k].abs().max())
+                    for k in ph)
+    print(f"  losses {lc} vs {lh}: bit-identical (losses and parameters) "
+          f"{same}; max rel {loss_rel:.3e}, params max rel {param_rel:.3e} "
+          "[bar 1e-5]")
+    if len(lc) != 4 or loss_rel > 1e-5 or param_rel > 1e-5:
+        fail("the device-cached and host-loader paths disagree")
+    print(f"  phase 27: {time.perf_counter() - t0:.1f} s")
+
+
+def h2d_per_step(path: Path) -> dict:
+    """Host-to-device copies in a ``torch.profiler`` Chrome trace, per
+    ``ProfilerStep#`` span: their bytes (the ``bytes`` argument of each
+    ``gpu_memcpy`` event) and their number."""
+    events = json.loads(path.read_text())["traceEvents"]
+    steps = sum(1 for e in events if e.get("cat") == "user_annotation"
+                and str(e.get("name", "")).startswith("ProfilerStep#"))
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in str(e.get("name", ""))]
+    n = max(steps, 1)
+    return dict(steps=steps, copies=len(copies) / n,
+                has_bytes=all("bytes" in e.get("args", {}) for e in copies),
+                bytes=sum(e.get("args", {}).get("bytes", 0)
+                          for e in copies) / n)
+
+
+@contextlib.contextmanager
+def leg_counts(legs: dict):
+    """While ``train_gpt2.main`` runs, read the launch counts at its
+    after-training legs (``generate`` and ``evaluate_lm``): ``legs["train"]``
+    the counts and ``legs["peak_gb"]`` the peak memory at the first leg's
+    entry (training done), and under each leg's name its own counts, every
+    count set to 0 at its entry, with its seconds."""
+    import torch
+
+    import tpudist_torch.generate as G
+    import tpudist_torch.train as TR
+    from tpudist_torch.ops import decode as D
+
+    mods = (*counted_modules(), D)
+
+    def wrap(module, name):
+        inner = getattr(module, name)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            legs.setdefault("train", launches())
+            legs.setdefault("peak_gb", torch.cuda.max_memory_allocated() / 1e9)
+            for m in mods:
+                m.reset_launch_counts()
+            t = time.perf_counter()
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            legs[name + "_s"] = time.perf_counter() - t
+            legs[name] = {k: n for m in mods for k, n in m.launch_counts.items()}
+            return out
+
+        setattr(module, name, run)
+        return module, name, inner
+
+    saved = [wrap(G, "generate"), wrap(TR, "evaluate_lm")]
+    try:
+        yield legs
+    finally:
+        for module, name, inner in saved:
+            setattr(module, name, inner)
+
+
+def peak_gb(run, flags) -> float:
+    """Peak device memory (GB) over ``run(flags)``'s steps, from a reset."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as log_dir:
+        st, losses = run(flags, log_dir)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    del st
+    if not all(map(math.isfinite, losses)):
+        fail(f"{' '.join(flags)}: losses {losses}")
+    return peak
+
+
+def lm_flag_phases(smi: str, dev) -> None:
+    """Phases 28-29: GPT-2 124M through ``train_gpt2.main`` with --amp,
+    --dropout and --remat, its memory by remat policy, --eval and
+    --generate; then f32 remat against none with dropout, --init_hf and
+    the four other optimizers at GPT-2's leaves."""
+    import numpy as np
+    import torch
+
+    from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.data.lm import TokenWindowLoader, encode_bytes
+    from tpudist_torch.interop import save_hf_checkpoint
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.train import lm_loss
+
+    flags = ["--bf16", "--fused", "all", "--attn", "auto", "--amp",
+             "--dropout", "0.1"]
+
+    # -- 28. the LM path with the new flags, trained --------------------------
+    t0 = time.perf_counter()
+    print("== 28. GPT-2 124M, bf16, --fused all --attn auto --amp --dropout 0.1 "
+          "--remat full, 16 steps under DDP (NCCL); --eval, --generate 32")
+    legs: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        text = b"".join((HERE / n).read_bytes() for n in LB.TEXT_FILES)
+        val = Path(tmp) / "val.bin"
+        encode_bytes(text)[HELD_OUT:].astype(np.uint16).tofile(val)
+        n_val = len(TokenWindowLoader(str(val), 8, 1024, shuffle=False,
+                                      drop_remainder=False))
+        torch.cuda.reset_peak_memory_stats()
+        with leg_counts(legs):
+            trained_gpt2(
+                [*flags, "--remat", "full", "--eval", "--val_tokens", str(val),
+                 "--generate", str(NEW), "--temperature", "0"],
+                batch=8, seq=1024, job="Remat", smi=smi, legs=legs,
+                want=lambda depth, n_leaves: {
+                    "layernorm_fwd": 2 * (2 * depth + 1),
+                    "layernorm_bwd": 2 * depth + 1,
+                    "layernorm_bwd_reduce": 2 * depth + 1,
+                    "vmem_attention_fwd": 2 * depth,
+                    "vmem_attention_bwd": depth,
+                    "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                    "fused_adamw": 1, "fused_adamw_leaves": n_leaves,
+                    "fused_adamw_check": 1})
+    gen, ev = legs.get("generate", {}), legs.get("evaluate_lm", {})
+    print(f"  --generate {NEW}: launches {gen} in {legs.get('generate_s', 0):.3f}"
+          f" s; --eval over {n_val} batches: launches {ev} in "
+          f"{legs.get('evaluate_lm_s', 0):.3f} s  [{smi}]")
+    if gen.get("fused_decode_attention") != 12 * NEW:
+        fail(f"--generate launched the contiguous decode kernel "
+             f"{gen.get('fused_decode_attention')} times, want 12 x {NEW}")
+    if (ev.get("layernorm_fwd") != 25 * n_val
+            or ev.get("vmem_attention_fwd") != 12 * n_val
+            or ev.get("layernorm_bwd") or ev.get("vmem_attention_bwd")):
+        fail(f"--eval launches {ev}, want 25 LN and 12 vmem forwards a batch")
+    # the policies' order is the reference's per-block contract; the
+    # whole forward's checkpoint recomputes every activation at the head's
+    # backward, before any is freed, so its peak is no-remat's (printed)
+    run = gpt2_runner(8, 1024)
+    peaks = {"whole forward": legs["peak_gb"]}
+    for name, extra in (("whole forward, 4 steps", ["--remat", "full"]),
+                        ("full", ["--remat_policy", "full"]),
+                        ("dots_saveable", ["--remat_policy", "dots_saveable"]),
+                        ("none", [])):
+        peaks[name] = peak_gb(run, [*flags, *extra])
+    print("  peak memory (torch.cuda.max_memory_allocated, GB), 4 steps each: "
+          f"per block (--remat_policy) full {peaks['full']:.3f}, dots_saveable "
+          f"{peaks['dots_saveable']:.3f}; no remat {peaks['none']:.3f}; the "
+          f"whole forward (--remat full) {peaks['whole forward, 4 steps']:.3f}"
+          f" ({peaks['whole forward']:.3f} over the 16-step run under DDP)  "
+          f"[{smi}]")
+    if not peaks["full"] <= peaks["dots_saveable"] <= peaks["none"]:
+        fail(f"peak memory out of order (full <= dots_saveable <= none): {peaks}")
+    print(f"  phase 28: {time.perf_counter() - t0:.1f} s")
+
+    # -- 29. agreement in f32, --init_hf, the optimizers -----------------------
+    t0 = time.perf_counter()
+    print("== 29. f32: --dropout 0.1 --remat full vs --dropout 0.1, 4 steps; "
+          "--init_hf; sgd / lamb / lion / muon at GPT-2's leaves (depth 2)")
+    runs = []
+    with tempfile.TemporaryDirectory() as log_dir:
+        for extra in (["--remat", "full"], []):
+            st, ls = run(["--fused", "all", "--attn", "vmem", "--dropout", "0.1",
+                          *extra], log_dir)
+            runs.append((ls, {k: v.float().cpu() for k, v in st.params().items()}))
+            del st
+    (lr_, pr), (ln, pn) = runs
+    same = lr_ == ln and all(torch.equal(pr[k], pn[k]) for k in pn)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lr_, ln))
+    gap = max(float((pr[k] - pn[k]).abs().max()) for k in pn)
+    print(f"  losses {lr_} vs {ln}: bit-identical (losses and parameters) "
+          f"{same}; max rel {loss_rel:.3e} [bar {LOSS_BAR:g}], params max abs "
+          f"{gap:.3e} [bar {PARAM_BAR:g}]")
+    if len(lr_) != 4 or loss_rel > LOSS_BAR or gap > PARAM_BAR:
+        fail("f32 GPT-2 with and without --remat disagree under dropout")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = GPT2(attn_impl="vmem", device=dev, seed=SEED + 29)
+        save_hf_checkpoint(model.state_dict(), tmp, arch="gpt2",
+                           depth=model.depth)
+        tokens = LB.token_file(Path(tmp) / "first.bin", 4 * 8 * 1024)
+        first = next(iter(TokenWindowLoader(str(tokens), 8, 1024)))["tokens"]
+        with torch.no_grad():
+            x = torch.from_numpy(first).to(dev)
+            want = float(lm_loss(model.train()(x), x))
+        del model
+        st, ls = run(["--init_hf", tmp, "--fused", "none", "--attn", "vmem"],
+                     tmp)
+        del st
+    err = abs(ls[0] - want)
+    print(f"  --init_hf: first loss {ls[0]:.7f}, the saved model's {want:.7f} "
+          f"on the same batch: abs {err:.3e} [f32 rule 2e-5 + 2e-5 rel]")
+    if err > 2e-5 + 2e-5 * abs(want):
+        fail("--init_hf did not start from the saved weights")
+
+    for name in OPT_BARS:
+        with tempfile.TemporaryDirectory() as log_dir:
+            with contextlib.redirect_stdout(io.StringIO()):
+                st, ls = TG.main(["--depth", "2", "--seq_len", "128",
+                                  "--batch_size", "2", "--synthetic_tokens",
+                                  "512", "--optimizer", name, "--warmup_steps",
+                                  "0", "--no_profiler",
+                                  "--log_dir", log_dir])
+            del st
+        print(f"  --optimizer {name} through the CLI (depth 2, S 128): losses "
+              f"{ls}")
+        if len(ls) != 2 or not all(map(math.isfinite, ls)):
+            fail(f"--optimizer {name} through the CLI")
+    optimizer_agreement(GPT2(depth=2, device=dev), dev, SEED + 30)
+    print(f"  phase 29: {time.perf_counter() - t0:.1f} s")
+
 
 def counted_modules():
     """The wrapper modules whose launch counts the GPT-2 phases read."""
@@ -1198,7 +1558,7 @@ def launches() -> dict:
 
 
 def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
-                 want) -> dict:
+                 want, legs: dict | None = None) -> dict:
     """Phases 14 and 18: a 1-rank NCCL group, then ``train_gpt2.main``
     with GPT-2 124M at full width and depth, ``flags``, the profiler on,
     16 steps on :func:`lm_kernels_bench.token_file`'s text, every launch
@@ -1206,10 +1566,9 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
     under DDP, launched ``want(depth, the model's leaves)`` kernels per step
     (one fused-AdamW launch covering all 148 leaves), and wrote finite,
     falling losses, the
-    tokens/sec line, the TSV rows and a trace with device work. Returns
-    the launch counts."""
-    import contextlib
-    import io
+    tokens/sec line, the TSV rows and a trace with device work. With
+    ``legs`` (filled by :func:`leg_counts`) the training's counts are those
+    read before the after-training legs. Returns the launch counts."""
 
     import numpy as np
     import torch
@@ -1233,7 +1592,7 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
                 "--tokens", str(tokens), "--JobID", job,
                 "--log_dir", log_dir])
         torch.cuda.synchronize()
-        counts = launches()
+        counts = legs["train"] if legs else launches()
         printed = out.getvalue()
         print("  " + "\n  ".join(printed.strip().splitlines()[-3:]))
         if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
@@ -1299,9 +1658,6 @@ def gpt2_runner(batch: int, seq: int, extra=()):
     """``run(flags, log_dir) -> (state, losses)``: 4 steps of
     ``train_gpt2.main`` with ``flags`` at ``batch`` x ``seq`` on
     :func:`lm_kernels_bench.token_file`'s text, output silenced."""
-    import contextlib
-    import io
-
     from tpudist_torch import train_gpt2 as TG
     from tpudist_torch.ops import lm_kernels_bench as LB
 
@@ -1320,9 +1676,6 @@ def vit_runner(n_images: int = 512):
     """``run(flags, log_dir) -> (state, losses)``: ``main.main`` with
     ViT-B/16 on ``n_images`` synthetic 32x32 images, batch 128, one epoch,
     float32 unless ``flags`` say otherwise, output silenced."""
-    import contextlib
-    import io
-
     from tpudist_torch import main as M
 
     def run(flags, log_dir):

@@ -483,17 +483,34 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--arch", "llama"], ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
-    ["--fsdp", "2"], ["--cp", "2"], ["--remat_layers"], ["--attn", "ring"],
-    ["--attn", "ulysses"], ["--attn", "ulysses_flash"], ["--top_k", "5"],
-    ["--remat"], ["--remat_policy", "full"], ["--scan_layers"],
-    ["--dropout", "0.1"], ["--amp"], ["--optimizer", "lion"],
-    ["--init_hf", "x"], ["--generate", "8"], ["--eval"],
+    ["--fsdp", "2"], ["--cp", "2"], ["--attn", "ring"],
+    ["--attn", "ulysses"], ["--attn", "ulysses_flash"],
+    ["--init_hf", "x", "--arch", "llama"], ["--dropout", "0.1", "--arch", "llama"],
+    ["--eval", "--cp", "2"], ["--generate", "8", "--top_k", "5", "--attn", "ring"],
+    ["--remat_policy", "full", "--pipe", "2"],
     ["--checkpoint_dir", "ck"], ["--telemetry"], ["--elastic"],
     ["--compile_cache", "cc"], ["--shard_opt_state"], ["--num_kv_heads", "2"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue [12] #\d"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
         main([*CLI, *flag])
+
+
+@pytest.mark.parametrize("flag,error,match", [
+    (["--scan_layers", "--generate", "8"], SystemExit, "--scan_layers"),
+    (["--scan_layers", "--init_hf", "x"], SystemExit, "--scan_layers"),
+    (["--remat_layers"], ValueError, "remat_layers requires scan_layers"),
+    (["--dropout", "0.1", "--chunked_ce", "16"], ValueError, "dropout"),
+    (["--generate", "64"], SystemExit, "must be < --seq_len"),
+    (["--optimizer", "lion", "--fused", "all"], ValueError, "adam"),
+    (["--amp", "--optimizer", "muon", "--fused", "optimizer"], ValueError,
+     "adam"),
+    (["--init_hf", "no/such/dir"], FileNotFoundError, "no/such/dir"),
+    (["--remat", "bogus"], SystemExit, "2"),
+], ids=lambda f: " ".join(f) if isinstance(f, list) else "")
+def test_refused_where_the_reference_refuses(flag, error, match, tmp_path):
+    with pytest.raises(error, match=match):
+        main([*CLI, *flag, "--log_dir", str(tmp_path)])
 
 
 def test_runs_on_the_card_by_default(monkeypatch):

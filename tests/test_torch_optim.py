@@ -13,7 +13,8 @@ reference's ``make_optimizer`` (optax) on the same inputs.
   an update of size ~lr.
 - Muon's routing against the reference's (``tpudist/optim.py``'s
   ``muon_dims`` labels, read off optax's partitioned state) for every
-  leaf of a ResNet-18 and a ViT, and one muon step on those trees (which
+  leaf of a ResNet-18, a ViT and a GPT-2 (its ``qkv``, ``out``, MLP
+  kernels and the tied ``wte``), and one muon step on those trees (which
   holds each leaf's reduction and output axes: a wrong matrix view
   orthogonalizes another matrix).
 - ``make_optimizer``'s refusals: ``fused=True`` with another optimizer
@@ -30,9 +31,13 @@ from flax.linen import meta
 
 from tpudist.models import resnet18 as jax_resnet18
 from tpudist.models import vit_b16 as jax_vit
+from tpudist.models.gpt2 import GPT2 as JGPT2
 from tpudist.optim import make_optimizer as jax_make_optimizer
 from tpudist.optim import warmup_cosine as jax_warmup_cosine
-from tpudist_torch.interop import resnet_params_from_flax, vit_params_from_flax
+from tpudist_torch.interop import (
+    gpt2_params_from_flax, resnet_params_from_flax, vit_params_from_flax,
+)
+from tpudist_torch.models.gpt2 import GPT2
 from tpudist_torch.models.resnet import resnet18
 from tpudist_torch.models.vit import vit_b16
 from tpudist_torch.optim import (
@@ -143,6 +148,16 @@ def _flax_vit():
                              train=False))["params"]
 
 
+GPT2_GEOM = dict(vocab_size=64, max_seq_len=16, hidden_dim=32, depth=2,
+                 num_heads=4)
+
+
+def _flax_gpt2():
+    m = JGPT2(**GPT2_GEOM)
+    return meta.unbox(m.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32),
+                             train=False))["params"]
+
+
 def _flax_resnet():
     m = jax_resnet18(num_filters=8)
     v = m.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False)
@@ -170,10 +185,12 @@ def _models():
                 vit_b16(**_tiny_vit(), image_size=32, device="cpu")),
         "resnet18": (res_params, lambda t: resnet_params_from_flax(t, zeros),
                      resnet18(num_filters=8, device="cpu")),
+        "gpt2": (_flax_gpt2(), gpt2_params_from_flax,
+                 GPT2(**GPT2_GEOM, device="cpu")),
     }
 
 
-@pytest.mark.parametrize("name", ["vit", "resnet18"])
+@pytest.mark.parametrize("name", ["vit", "resnet18", "gpt2"])
 def test_muon_routing_is_the_references(name):
     tree, convert, model = _models()[name]
     params = dict(model.named_parameters())
@@ -186,7 +203,7 @@ def test_muon_routing_is_the_references(name):
     assert any(routed) and not all(routed)
 
 
-@pytest.mark.parametrize("name", ["vit", "resnet18"])
+@pytest.mark.parametrize("name", ["vit", "resnet18", "gpt2"])
 def test_muon_step_on_model_leaves_matches_the_reference(name):
     """One muon step (weight decay on) over every leaf of the model, from
     the reference's init, on gradients drawn per leaf: the reference's

@@ -294,13 +294,21 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
     ["--packed", "p"], ["--workers", "2"], ["--reduce", "bucketed"],
     ["--fsdp", "2"], ["--telemetry"], ["--trace"], ["--health"],
     ["--checkpoint_dir", "ck"], ["--elastic"], ["--chaos", "crash@3"],
-    ["--device_cache"], ["--augment"], ["--serve"], ["--tensor", "2"],
-    ["--keep_last", "2"], ["--model", "gpt2"], ["--dataset", "imagenet"],
+    ["--device_cache", "--cache_shard_rows", "8"],
+    ["--augment", "--dataset", "imagenet"], ["--serve"], ["--tensor", "2"],
+    ["--keep_last", "2"], ["--device_cache", "--packed", "p"],
+    ["--dataset", "imagenet"],
     ["--dataset", "digits"], ["--hang_timeout", "5"], ["--image_size", "64"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
         main([*CLI, *flag])
+
+
+def test_model_gpt2_exits_to_the_lm_cli():
+    """The reference exits pointing at its LM script (main.py:445)."""
+    with pytest.raises(SystemExit, match="tpudist_torch.train_gpt2"):
+        main([*CLI, "--model", "gpt2"])
 
 
 @pytest.mark.parametrize("fused", ["ln", "all"])

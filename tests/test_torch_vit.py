@@ -142,8 +142,10 @@ def test_main_builds_vit_b16_at_65_tokens():
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        _port(dropout=0.1)
+    # dropout is ported: in train mode it needs the step's key, as the
+    # reference needs a 'dropout' rng
+    with pytest.raises(ValueError, match="needs a dropout_key"):
+        _port(dropout=0.1).train()(torch.zeros(1, 32, 32, 3))
     with pytest.raises(NotImplementedError, match="Queue 1 #7"):
         _port(mesh=object())
 

@@ -70,8 +70,11 @@ def prefetch_to_device(iterator, device, *, depth: int = 2):
     """Yield the host batches of ``iterator`` (dicts of numpy arrays) as
     dicts of tensors on ``device``, ``depth`` copies in flight ahead of
     the consumer (module docstring). On the CPU the tensors share the
-    numpy memory. An error in the host iterator is raised after the
-    batches staged before it have been delivered."""
+    numpy memory. Keys starting with ``"_"`` are per-step operands already
+    on the device (the device cache's ``"_cache"``): they pass through
+    untouched, and only the row data crosses. An error in the host
+    iterator is raised after the batches staged before it have been
+    delivered."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     host_q: queue.Queue = queue.Queue(maxsize=depth + 1)
@@ -92,6 +95,9 @@ def prefetch_to_device(iterator, device, *, depth: int = 2):
             for batch in iterator:
                 tensors = {}
                 for k, v in batch.items():
+                    if k.startswith("_"):
+                        tensors[k] = v
+                        continue
                     t = torch.from_numpy(np.ascontiguousarray(v))
                     tensors[k] = t.pin_memory() if cuda else t
                 if not put(tensors):
@@ -108,7 +114,8 @@ def prefetch_to_device(iterator, device, *, depth: int = 2):
         if not cuda:
             return batch, None
         with torch.cuda.stream(side):
-            out = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+            out = {k: v if k.startswith("_") else v.to(device, non_blocking=True)
+                   for k, v in batch.items()}
             ready = torch.cuda.Event()
             ready.record(side)
         return out, ready
@@ -132,11 +139,12 @@ def prefetch_to_device(iterator, device, *, depth: int = 2):
             if ready is not None:
                 compute = torch.cuda.current_stream(device)
                 compute.wait_event(ready)
-                for t in batch.values():
+                for k, t in batch.items():
                     # the batch was allocated on the side stream and is read
                     # on the compute stream: keep the allocator from reusing
                     # it before the compute stream is done with it
-                    t.record_stream(compute)
+                    if not k.startswith("_"):
+                        t.record_stream(compute)
             yield batch
     finally:
         stop.set()

@@ -8,9 +8,10 @@ state dict of :class:`tpudist_torch.models.resnet.ResNet`: conv kernels
 running ``mean``/``var`` carry over.
 
 :func:`gpt2_params_from_flax` maps a flax :class:`tpudist.models.gpt2.GPT2`
-param tree (as a nested dict of numpy arrays under the flax names) onto
-the state dict of :class:`tpudist_torch.models.gpt2.GPT2`, so both
-packages can run the same weights. Flax ``Dense`` kernels are
+param tree (as a nested dict of numpy arrays under the flax names; the
+unrolled ``h_{i}`` layout or the ``scan_layers`` one, stacked under
+``hs``) onto the state dict of :class:`tpudist_torch.models.gpt2.GPT2`, so
+both packages can run the same weights. Flax ``Dense`` kernels are
 ``[in, out]`` and the port's weights ``[out, in]``; ``DenseGeneral``
 kernels flatten their grouped axes first (``qkv`` ``[d, 3, h, dh]``,
 ``out`` ``[h, dh, d]``), and biases keep their shapes (``qkv``'s
@@ -21,9 +22,22 @@ param tree onto the state dict of :class:`tpudist_torch.models.vit.ViT`
 the same way: the patch ``Conv`` kernel ``[p, p, 3, d]`` becomes
 ``[d, 3, p, p]``, ``Dense`` kernels ``[out, in]``, biases and ``cls`` /
 ``pos_embedding`` keep their shapes.
+
+The HF bridge (:func:`load_hf_params`, :func:`save_hf_checkpoint` and the
+GPT-2 maps between them) is the reference's, onto the port's state dict:
+HF's ``Conv1D`` weights are ``[in, out]`` with q|k|v packed along the
+output, so each becomes a port weight by one transpose. Checkpoints are
+read and written with a small ``safetensors`` codec of the port's own
+(:func:`read_safetensors`, :func:`write_safetensors`; the machine with the
+card has no ``safetensors`` package), or ``pytorch_model*.bin`` through
+``torch.load(weights_only=True)``. Nothing is downloaded.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,13 +53,35 @@ def _linear(sd: dict, prefix: str, kernel, bias, n_in_axes: int = 1) -> None:
         np.array(bias, np.float32))
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def unstack_layers(params: dict, *, prefix: str, dest: str) -> dict:
+    """The ``scan_layers`` layout (``{dest}/block/...`` with a leading depth
+    axis) -> the unrolled ``{prefix}{i}/...`` one: the port's copy of
+    ``tpudist.models.lm_utils.unstack_layers`` on unboxed numpy trees."""
+    block = params[dest]["block"]
+    leaf = block
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    out = {k: v for k, v in params.items() if k != dest}
+    for i in range(np.shape(leaf)[0]):
+        out[f"{prefix}{i}"] = _tree_map(lambda a: np.asarray(a)[i], block)
+    return out
+
+
 def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:
     """flax GPT-2 params (``wte``, ``wpe``, ``h_{i}/{ln_1,qkv,out,ln_2,
-    mlp_fc,mlp_proj}``, ``ln_f``; a ``{"params": ...}`` wrapper is
-    accepted) -> the port's state dict, in f32 on the CPU.
-    ``GPT2.load_state_dict`` casts each entry to the model's dtype and
-    device."""
+    mlp_fc,mlp_proj}`` or their ``scan_layers`` stack ``hs/block/...``,
+    ``ln_f``; a ``{"params": ...}`` wrapper is accepted) -> the port's
+    state dict, in f32 on the CPU. ``GPT2.load_state_dict`` casts each
+    entry to the model's dtype and device."""
     p = tree["params"] if "params" in tree else tree
+    if "hs" in p:
+        p = unstack_layers(p, prefix="h_", dest="hs")
     sd: dict[str, torch.Tensor] = {
         "wte": torch.from_numpy(np.asarray(p["wte"], np.float32).copy()),
         "wpe": torch.from_numpy(np.asarray(p["wpe"], np.float32).copy()),
@@ -155,3 +191,179 @@ def vit_params_from_flax(tree) -> dict[str, torch.Tensor]:
     norm("norm", p["LayerNorm_0"])
     _linear(sd, "head", p["head"]["kernel"], p["head"]["bias"])
     return sd
+
+
+# -- safetensors: an 8-byte little-endian header length, a JSON header of
+# {name: {dtype, shape, data_offsets}}, then the raw little-endian bytes
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
+              "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+              "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path) -> dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file, on the CPU."""
+    buf = bytearray(Path(path).read_bytes())
+    if len(buf) < 8:
+        raise ValueError(f"{path}: too short for a safetensors header")
+    n = int.from_bytes(buf[:8], "little")
+    if 8 + n > len(buf):
+        raise ValueError(f"{path}: header of {n} bytes past the file's end")
+    header = json.loads(buf[8:8 + n].decode("utf-8"))
+    header.pop("__metadata__", None)
+    base, size = 8 + n, len(buf) - 8 - n
+    out = {}
+    for name, info in header.items():
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has unsupported dtype "
+                             f"{info['dtype']}")
+        shape = [int(d) for d in info["shape"]]
+        begin, end = (int(o) for o in info["data_offsets"])
+        count = int(np.prod(shape, dtype=np.int64))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if not 0 <= begin <= end <= size or end - begin != count * itemsize:
+            raise ValueError(f"{path}: {name}'s offsets {begin}..{end} do "
+                             f"not hold {shape} {info['dtype']}")
+        if count == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        out[name] = torch.frombuffer(buf, dtype=dtype, count=count,
+                                     offset=base + begin).reshape(shape)
+    return out
+
+
+def write_safetensors(tensors: dict[str, torch.Tensor], path,
+                      metadata: dict[str, str] | None = None) -> None:
+    """Write ``tensors`` as a ``.safetensors`` file, by name, contiguous,
+    the header padded with spaces to a multiple of 8 bytes."""
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    blobs, offset = [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"{name}: dtype {t.dtype} has no safetensors name")
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def load_hf_state_dict(path) -> dict[str, torch.Tensor]:
+    """A local HF checkpoint (a directory or one file) -> {name: tensor}:
+    ``*.safetensors`` (preferred; shards merge) or ``pytorch_model*.bin``."""
+    p = Path(path)
+    if p.is_dir():
+        files = (sorted(p.glob("*.safetensors"))
+                 or sorted(p.glob("pytorch_model*.bin")))
+        if not files:
+            raise FileNotFoundError(
+                f"{p} holds no *.safetensors or pytorch_model*.bin")
+    elif p.exists():
+        files = [p]
+    else:
+        raise FileNotFoundError(str(p))
+    sd = {}
+    for f in files:
+        if f.suffix == ".safetensors":
+            sd.update(read_safetensors(f))
+        else:
+            sd.update(torch.load(f, map_location="cpu", weights_only=True))
+    return sd
+
+
+#: the port's GPT-2 linears and their HF ``Conv1D`` names
+_HF_LINEARS = (("qkv", "attn.c_attn"), ("out", "attn.c_proj"),
+               ("mlp_fc", "mlp.c_fc"), ("mlp_proj", "mlp.c_proj"))
+
+
+def gpt2_params_from_hf(state_dict, *, depth: int,
+                        num_heads: int) -> dict[str, torch.Tensor]:
+    """HF ``GPT2LMHeadModel``/``GPT2Model`` state dict -> the port's GPT-2
+    state dict, in f32 on the CPU. The LM head is tied in both, so only
+    ``wte`` transfers; keys may carry the ``transformer.`` prefix or not."""
+    sd = {k.removeprefix("transformer."): v for k, v in state_dict.items()}
+
+    def f32(key):
+        return sd[key].detach().to("cpu", torch.float32)
+
+    wte = f32("wte.weight")
+    d = wte.shape[1]
+    out = {"wte": wte.clone(), "wpe": f32("wpe.weight").clone(),
+           "ln_f.scale": f32("ln_f.weight").clone(),
+           "ln_f.bias": f32("ln_f.bias").clone()}
+    for i in range(depth):
+        src, dst = f"h.{i}", f"h.{i}"
+        for ln in ("ln_1", "ln_2"):
+            out[f"{dst}.{ln}.scale"] = f32(f"{src}.{ln}.weight").clone()
+            out[f"{dst}.{ln}.bias"] = f32(f"{src}.{ln}.bias").clone()
+        for port, hf in _HF_LINEARS:
+            # Conv1D [in, out] -> Dense [out, in]
+            out[f"{dst}.{port}.weight"] = f32(f"{src}.{hf}.weight").t().contiguous()
+            out[f"{dst}.{port}.bias"] = f32(f"{src}.{hf}.bias").clone()
+        # q|k|v along the output: the bias keeps the port's [3, heads, dh]
+        out[f"{dst}.qkv.bias"] = out[f"{dst}.qkv.bias"].reshape(
+            3, num_heads, d // num_heads)
+    return out
+
+
+def gpt2_params_to_hf(params: dict, *, depth: int) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`gpt2_params_from_hf`: the port's GPT-2 state dict
+    -> one HF ``GPT2LMHeadModel.load_state_dict(strict=False)`` loads
+    (``strict=False`` only for HF's non-weight buffers), f32 on the CPU."""
+    def f32(key):
+        return params[key].detach().to("cpu", torch.float32)
+
+    wte = f32("wte").clone()
+    sd = {"transformer.wte.weight": wte,
+          "transformer.wpe.weight": f32("wpe").clone(),
+          "transformer.ln_f.weight": f32("ln_f.scale").clone(),
+          "transformer.ln_f.bias": f32("ln_f.bias").clone(),
+          "lm_head.weight": wte}  # tied
+    for i in range(depth):
+        src, dst = f"h.{i}", f"transformer.h.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{dst}.{ln}.weight"] = f32(f"{src}.{ln}.scale").clone()
+            sd[f"{dst}.{ln}.bias"] = f32(f"{src}.{ln}.bias").clone()
+        for port, hf in _HF_LINEARS:
+            sd[f"{dst}.{hf}.weight"] = f32(f"{src}.{port}.weight").t().contiguous()
+            sd[f"{dst}.{hf}.bias"] = f32(f"{src}.{port}.bias").reshape(-1).clone()
+    return sd
+
+
+def _not_ported(arch: str):
+    if arch in ("llama", "bert", "t5"):
+        raise NotImplementedError(
+            f"the {arch} HF bridge is not ported yet (ROADMAP Queue 1 #4)")
+    raise ValueError(f"unknown arch {arch!r} (want gpt2, llama, bert, or t5)")
+
+
+def load_hf_params(path, *, arch: str, depth: int, num_heads: int,
+                   num_kv_heads: int | None = None) -> dict[str, torch.Tensor]:
+    """One-call warm start: a local HF checkpoint -> the port's state dict
+    for ``arch`` (gpt2; the other families raise naming their item)."""
+    if arch != "gpt2":
+        _not_ported(arch)
+    return gpt2_params_from_hf(load_hf_state_dict(path), depth=depth,
+                               num_heads=num_heads)
+
+
+def save_hf_checkpoint(params: dict, path, *, arch: str, depth: int) -> None:
+    """Write the port's ``params`` (a state dict) as an HF-layout
+    ``model.safetensors`` under ``path`` (``{"format": "pt"}`` metadata,
+    which ``from_pretrained`` requires)."""
+    if arch != "gpt2":
+        _not_ported(arch)
+    sd = gpt2_params_to_hf(params, depth=depth)
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(sd, os.path.join(path, "model.safetensors"),
+                      metadata={"format": "pt"})

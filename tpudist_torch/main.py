@@ -15,7 +15,13 @@ comes from the ``env://`` variables ``torchrun`` sets, one card per rank.
 32x32 images: 65 tokens); ``--optimizer`` adam, sgd, lamb, lion or muon;
 ``--grad_accum k`` splits each ``--batch_size`` batch into k
 microbatches; ``--amp`` is bf16 compute plus the non-finite update guard,
-whose skipped steps are printed after training.
+whose skipped steps are printed after training. ``--device_cache`` holds
+the whole training set on the device as uint8 and gathers each batch
+there from its indices (the ToTensor runs in the step; with
+``--augment`` the crop, flip and normalization do); ``--augment`` alone
+is the reference's host augmentation, bit for bit. ``--model gpt2``
+exits pointing at ``python -m tpudist_torch.train_gpt2``, as the
+reference points at its LM script.
 
 Every other flag ``main.py`` accepts is accepted here too, and a value
 other than its default raises ``NotImplementedError`` naming the ROADMAP
@@ -130,7 +136,6 @@ _UNPORTED = {
     "image_size": "Queue 1 #4", "workers": "Queue 1 #4",
     "packed": "Queue 1 #4", "packed_val": "Queue 1 #4",
     "cache_shard_rows": "Queue 1 #4",
-    "device_cache": "Queue 1 #2", "augment": "Queue 1 #1",
     "reduce": "Queue 1 #7", "fsdp": "Queue 1 #7",
     "telemetry": "Queue 1 #8", "health": "Queue 1 #8", "trace": "Queue 1 #8",
     "metrics_port": "Queue 1 #8", "hang_timeout": "Queue 1 #8",
@@ -148,7 +153,6 @@ _UNPORTED = {
 
 #: values of choice flags this port does not run yet -> the ROADMAP item
 _UNPORTED_CHOICES = {
-    ("model", "gpt2"): "Queue 1 #3",
     ("dataset", "imagenet"): "Queue 1 #4",
     ("dataset", "digits"): "Queue 1 #1",
 }
@@ -174,13 +178,18 @@ def check_ported(parser, args) -> None:
 def main(argv=None):
     parser, args = parse_args(argv)
     check_ported(parser, args)
+    if args.model == "gpt2":
+        raise SystemExit("gpt2 training uses python -m "
+                         "tpudist_torch.train_gpt2 (token data)")
     os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
 
     import torch
     import torch.distributed as dist
 
     from tpudist_torch.amp import policy_for, skipped_steps
+    from tpudist_torch.data import transforms as T
     from tpudist_torch.data.cifar import load_cifar, synthetic_cifar, to_tensor
+    from tpudist_torch.data.device_cache import DeviceCachedLoader
     from tpudist_torch.data.loader import DataLoader
     from tpudist_torch.data.sampler import DistributedSampler
     from tpudist_torch.distributed import group_up, init_from_env
@@ -211,8 +220,30 @@ def main(argv=None):
                                      num_replicas=ctx.world_size, rank=ctx.rank)
         # --batch_size is per replica, and one process drives one replica;
         # each batch holds --grad_accum microbatches
-        loader = DataLoader(data, args.batch_size, sampler=sampler,
-                            transform=to_tensor)
+        input_transform = None
+        if args.device_cache:
+            # one copy of the set to the device now; the steps gather
+            loader = DeviceCachedLoader(data, args.batch_size,
+                                        device=ctx.device, sampler=sampler)
+            if args.augment:
+                mean, std = T._STATS[args.dataset]
+                post = T.device_compose(T.device_random_crop_flip(),
+                                        T.device_normalize(mean, std, dtype))
+            else:
+                # the reference's ToTensor, in the step; a tensor divisor,
+                # as a CUDA kernel turns a python one into a multiply by
+                # its reciprocal, which the host path's division is not
+                def post(x):
+                    return x.to(dtype) / torch.full((), 255.0, dtype=dtype,
+                                                    device=x.device)
+            input_transform = loader.input_transform(post)
+        elif args.augment:
+            loader = DataLoader(data, args.batch_size, sampler=sampler,
+                                transform=T.standard_cifar_augment(
+                                    seed=ctx.rank, dataset=args.dataset))
+        else:
+            loader = DataLoader(data, args.batch_size, sampler=sampler,
+                                transform=to_tensor)
         lr = args.lr
         if args.schedule == "cosine":
             lr = run_schedule(args.lr, total_steps=args.epochs * len(loader),
@@ -231,6 +262,7 @@ def main(argv=None):
             model, tx, loader, epochs=args.epochs, job_id=args.JobID,
             batch_size=args.batch_size, world_size=ctx.world_size,
             global_rank=ctx.rank, loss_fn=loss_fn, grad_accum=args.grad_accum,
+            input_transform=input_transform,
             fused=None if args.fused == "none" else args.fused,
             profile=not args.no_profiler, log_dir=args.log_dir)
         if args.amp and ctx.is_chief:
@@ -246,9 +278,13 @@ def main(argv=None):
             else:
                 val = load_cifar(args.data_root, dataset=args.dataset,
                                  train=False)
+            # eval sees the training distribution: the augmented run's
+            # statistics, without the crop and flip
             val_loader = DataLoader(
                 val, min(args.batch_size, len(val["label"])),
-                transform=to_tensor, drop_remainder=False)
+                transform=(T.standard_cifar_eval(dataset=args.dataset)
+                           if args.augment else to_tensor),
+                drop_remainder=False)
             acc = evaluate(state, val_loader)
             if ctx.is_chief:
                 print(f"Accuracy: {acc:.4f}")

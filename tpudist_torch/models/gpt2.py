@@ -1,7 +1,7 @@
 """GPT-2 decoder in PyTorch: counterpart of :mod:`tpudist.models.gpt2`.
 
-Dense blocks only (no MoE, tensor/pipeline parallelism, scan or remat in
-this slice). The decode path runs over a KV cache
+Dense blocks only (no MoE or tensor/pipeline parallelism). The decode
+path runs over a KV cache
 (:mod:`tpudist_torch.ops.decode`) in the reference's three modes: scalar
 cursor (``generate``), per-row positions (the contiguous serving pool)
 and paged block tables (the paged pool). Any ``attn_impl`` other than
@@ -25,6 +25,18 @@ the casts are no-ops); :func:`compute_copy` gives the serving engine a
 copy held in ``dtype``. LayerNorm keeps f32 statistics with flax's fast
 variance ``E[x^2] - E[x]^2``, GELU is the tanh approximation (flax
 ``nn.gelu``), and the tied LM head returns f32 logits.
+
+``dropout`` is the reference's: on the embedding sum and on each
+residual branch before its add, in train mode, with masks drawn from the
+``dropout_key`` the training step passes (:func:`dropout`). The memory
+levers are the reference's fields: ``remat_policy`` checkpoints each
+block under a :mod:`tpudist_torch.remat` policy, and ``remat_layers``
+(which requires ``scan_layers``) means ``"full"``. ``scan_layers`` exists
+in JAX so that the compiler traces one block instead of ``depth`` and
+stores the parameters stacked; eager PyTorch has no trace to shorten, so
+here it builds the same unrolled blocks (``interop.gpt2_params_from_flax``
+unstacks a scanned tree) and only keeps the reference's refusals. The
+decode path never remats and never drops.
 """
 
 from __future__ import annotations
@@ -36,16 +48,52 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudist_torch import remat as remat_lib
 from tpudist_torch.device import resolve_device
 from tpudist_torch.ops.attention import multi_head_attention
 from tpudist_torch.ops.decode import (
     cached_kv, decode_attention, paged_decode_attention,
 )
 from tpudist_torch.ops.layernorm import fused_layernorm
+from tpudist_torch.rng import fold_in, generator
 
 ATTN_IMPLS = ("xla", "fused", "vmem", "auto", "flash")
 # flax's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
+
+
+def dropout(x, rate: float, key: int | None):
+    """flax ``nn.Dropout(rate)`` in train mode: each element kept with
+    probability ``1 - rate`` and divided by it (in ``x``'s dtype), else 0,
+    the mask drawn from a generator seeded with ``key`` at this call (so a
+    checkpoint's recompute draws it again). ``key=None`` returns ``x``."""
+    if key is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator(key, x.device), device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def site_key(key: int | None, *path: int) -> int | None:
+    """The key of one dropout site below ``key`` (None stays None)."""
+    return None if key is None else fold_in(key, *path)
+
+
+def train_key(model: nn.Module, key: int | None) -> int | None:
+    """The key ``model``'s forward draws its masks from: ``key`` in train
+    mode with ``dropout > 0``, else None (eval mode drops nothing). In
+    train mode such a model without a key raises, as the reference's
+    needs a 'dropout' rng."""
+    if not (model.training and model.dropout):
+        return None
+    if key is None:
+        raise ValueError(
+            f"dropout={model.dropout} in train mode needs a dropout_key "
+            "(make_train_step passes one); call eval() to score")
+    return key
 
 
 class LayerNorm(nn.Module):
@@ -95,12 +143,13 @@ class Dense(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, *, dtype, attn_impl,
-                 device):
+                 device, dropout: float = 0.0):
         super().__init__()
         d = hidden_dim
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.dropout = dropout
         lin = lambda i, o: Dense(i, o, device=device)
         self.ln_1 = LayerNorm(d, device=device)
         # out features ordered (3, heads, dh)
@@ -112,7 +161,9 @@ class Block(nn.Module):
         self.mlp_proj = lin(4 * d, d)
 
     def forward(self, x, cache=None, positions=None, block_tables=None,
-                fused_ln: bool = False):
+                fused_ln: bool = False, dropout_key: int | None = None):
+        """``dropout_key``: this block's key (None: no dropout); the
+        attention branch draws from site 0, the MLP branch from site 1."""
         b, s, d = x.shape
         h = self.num_heads
         fused = fused_ln and cache is None
@@ -139,7 +190,8 @@ class Block(nn.Module):
         else:
             attn = multi_head_attention(q, k, v, causal=True,
                                         impl=self.attn_impl)
-        y = self.out(attn.reshape(b, s, d))
+        y = dropout(self.out(attn.reshape(b, s, d)), self.dropout,
+                    site_key(dropout_key, 0))
         if fused:
             # one kernel sweep: the residual add and the norm, both the
             # normed value and the updated residual stream come back
@@ -148,7 +200,8 @@ class Block(nn.Module):
             x = x + y
             y = self.ln_2(x, self.dtype)
         y = F.gelu(self.mlp_fc(y), approximate="tanh")
-        return x + self.mlp_proj(y)
+        return x + dropout(self.mlp_proj(y), self.dropout,
+                           site_key(dropout_key, 1))
 
 
 class GPT2(nn.Module):
@@ -157,17 +210,28 @@ class GPT2(nn.Module):
     raises without a card unless ``"cpu"`` is given; ``seed`` draws the
     random init from a ``torch.Generator`` on that device (flax's
     distributions: lecun-normal kernels, N(0, 0.02) ``wte``, N(0, 0.01)
-    ``wpe``, zero biases, unit LayerNorm scales)."""
+    ``wpe``, zero biases, unit LayerNorm scales). ``dropout``,
+    ``scan_layers``, ``remat_layers`` and ``remat_policy`` are the
+    reference's fields (module docstring)."""
 
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  dtype=torch.float32, attn_impl: str = "xla", *,
+                 dropout: float = 0.0, scan_layers: bool = False,
+                 remat_layers: bool = False, remat_policy=None,
                  fused_ln: bool = False, device=None, seed: int = 0):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide into num_heads")
+        if remat_layers and not scan_layers:
+            raise ValueError("remat_layers requires scan_layers=True "
+                             "(set remat_policy to checkpoint the unrolled "
+                             "blocks, or make_train_step(remat=...) for a "
+                             "whole-forward checkpoint)")
+        self.block_policy = remat_policy or ("full" if remat_layers else None)
+        remat_lib.resolve(self.block_policy)  # an unknown name raises here
         self.device = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
@@ -176,13 +240,15 @@ class GPT2(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.dropout = float(dropout)
+        self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
         dev = self.device
         self.wte = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev))
         self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev))
         self.h = nn.ModuleList(
             Block(hidden_dim, num_heads, dtype=dtype, attn_impl=attn_impl,
-                  device=dev)
+                  device=dev, dropout=self.dropout)
             for _ in range(depth)
         )
         self.ln_f = LayerNorm(hidden_dim, device=dev)
@@ -227,23 +293,31 @@ class GPT2(nn.Module):
         return zero_cache(self, batch_size)
 
     def forward(self, tokens, *, cache=None, positions=None,
-                block_tables=None, return_hidden: bool = False):
+                block_tables=None, return_hidden: bool = False,
+                dropout_key: int | None = None):
         """``tokens [B, s]`` -> f32 logits ``[B, s, V]`` (or the final
         hidden state with ``return_hidden``). With ``cache`` the decode
         path runs: scalar cursor, per-row ``positions`` or paged
         ``block_tables``, and the cache is updated in place — without
         autograd, as the reference's KV-cache step has no backward. The
         ``fused_ln`` attribute takes the fused LN kernel on the non-decode
-        path."""
+        path. In train mode a model with ``dropout > 0`` needs
+        ``dropout_key`` (the training step's; the embedding draws from
+        site 0, block ``i`` from site ``i + 1``), as the reference needs a
+        'dropout' rng; in eval mode nothing is dropped."""
         if cache is not None:
+            if self.scan_layers:
+                raise ValueError(
+                    "scan_layers has no decode path (the KV cache needs "
+                    "per-layer variables); generate with scan_layers=False")
             with torch.no_grad():
                 return self._forward(tokens, cache, positions, block_tables,
-                                     return_hidden, False)
+                                     return_hidden, False, None)
         return self._forward(tokens, None, None, None, return_hidden,
-                             self.fused_ln)
+                             self.fused_ln, train_key(self, dropout_key))
 
     def _forward(self, tokens, cache, positions, block_tables, return_hidden,
-                 fused):
+                 fused, dropout_key):
         b, s = tokens.shape
         if tokens.dtype != torch.int64:
             tokens = tokens.long()
@@ -276,10 +350,13 @@ class GPT2(nn.Module):
         else:
             pos = self.wpe[:s][None]
         x = self.wte[tokens].to(self.dtype) + pos.to(self.dtype)
+        x = dropout(x, self.dropout, site_key(dropout_key, 0))
         layers = cache["layers"] if cache is not None else [None] * self.depth
-        for blk, layer in zip(self.h, layers):
-            x = blk(x, layer, positions=positions, block_tables=block_tables,
-                    fused_ln=fused)
+        policy = self.block_policy if cache is None else None
+        for i, (blk, layer) in enumerate(zip(self.h, layers)):
+            run = remat_lib.checkpoint(blk, policy)
+            x = run(x, layer, positions=positions, block_tables=block_tables,
+                    fused_ln=fused, dropout_key=site_key(dropout_key, i + 1))
         x = self.ln_f.fused(x, self.dtype) if fused else self.ln_f(x, self.dtype)
         if return_hidden:
             return x

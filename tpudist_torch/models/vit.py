@@ -30,8 +30,11 @@ depth. The parameters are the same either way.
 
 Every parameter is a float32 master cast to ``dtype`` at each use, as
 flax casts (under the fused optimizer's compute copy the parameters
-already are ``dtype`` and the casts are no-ops). ``dropout`` and ``mesh``
-of the reference are not ported: ``main.py`` reaches neither.
+already are ``dtype`` and the casts are no-ops). ``dropout`` is the
+reference's residual dropout, on each block's two branches before their
+adds (no embedding dropout), with masks from the training step's
+``dropout_key`` (:func:`tpudist_torch.models.gpt2.dropout`). ``mesh`` of
+the reference is not ported.
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudist_torch.device import resolve_device
-from tpudist_torch.models.gpt2 import _TRUNC_STD, Dense, LayerNorm
+from tpudist_torch.models.gpt2 import (
+    _TRUNC_STD, Dense, LayerNorm, dropout, site_key, train_key,
+)
 from tpudist_torch.ops.attention import multi_head_attention
 
 ATTN_IMPLS = ("xla", "vmem", "auto")
@@ -76,8 +81,9 @@ class MlpBlock(nn.Module):
 
 class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, *, dtype,
-                 attn_impl: str, device=None):
+                 attn_impl: str, device=None, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
@@ -90,21 +96,22 @@ class EncoderBlock(nn.Module):
         self.ln_1 = LayerNorm(dim, eps=LN_EPS, device=device)
         self.mlp = MlpBlock(dim, mlp_dim, device=device)
 
-    def forward(self, x, fused_ln: bool = False):
+    def forward(self, x, fused_ln: bool = False, dropout_key: int | None = None):
         b, s, d = x.shape
         h = self.num_heads
         y = self.ln_0.fused(x, self.dtype) if fused_ln else self.ln_0(x, self.dtype)
         qkv = self.qkv(y).view(b, s, 3, h, d // h)
         q, k, v = qkv.unbind(2)
         attn = multi_head_attention(q, k, v, causal=False, impl=self.attn_impl)
-        y = self.out(attn.reshape(b, s, d))
+        y = dropout(self.out(attn.reshape(b, s, d)), self.dropout,
+                    site_key(dropout_key, 0))
         if fused_ln:
             # the residual add and the norm in one kernel sweep
             y, x = self.ln_1.fused(y, self.dtype, residual=x)
         else:
             x = x + y
             y = self.ln_1(x, self.dtype)
-        return x + self.mlp(y)
+        return x + dropout(self.mlp(y), self.dropout, site_key(dropout_key, 1))
 
 
 class ViT(nn.Module):
@@ -124,9 +131,6 @@ class ViT(nn.Module):
                  image_size: int = 224, fused_ln: bool = False, device=None,
                  seed: int = 0):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(
-                "ViT dropout is not ported yet (ROADMAP Queue 1 #3, dropout)")
         if mesh is not None:
             raise NotImplementedError(
                 "ViT over a mesh is not ported yet (ROADMAP Queue 1 #7)")
@@ -146,6 +150,7 @@ class ViT(nn.Module):
         self.mlp_dim = mlp_dim
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.dropout = float(dropout)
         self.fused_ln = bool(fused_ln)
         n_tokens = (image_size // patch_size) ** 2 + 1
         dev = self.device
@@ -155,7 +160,7 @@ class ViT(nn.Module):
             torch.empty(1, n_tokens, hidden_dim, device=dev))
         self.blocks = nn.ModuleList(
             EncoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype,
-                         attn_impl=attn_impl, device=dev)
+                         attn_impl=attn_impl, device=dev, dropout=self.dropout)
             for _ in range(depth))
         self.norm = LayerNorm(hidden_dim, eps=LN_EPS, device=dev)
         self.head = Dense(hidden_dim, num_classes, device=dev)
@@ -195,9 +200,12 @@ class ViT(nn.Module):
         lecun(self.head.weight, d)
         self.head.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, dropout_key: int | None = None):
         """``x``: NHWC images ``[B, H, W, 3]`` -> float32 logits
-        ``[B, num_classes]``."""
+        ``[B, num_classes]``. In train mode a model with ``dropout > 0``
+        needs ``dropout_key`` (block ``i`` draws from site ``i``); in eval
+        mode nothing is dropped."""
+        dropout_key = train_key(self, dropout_key)
         dt = self.dtype
         # NCHW in memory, so the weight's gradient keeps the weight's layout
         x = x.permute(0, 3, 1, 2).to(dt).contiguous()
@@ -211,8 +219,8 @@ class ViT(nn.Module):
                              f"{self.pos_embedding.shape[1]} (image_size)")
         x = x + self.pos_embedding.to(dt)
         fused = self.fused_ln
-        for blk in self.blocks:
-            x = blk(x, fused_ln=fused)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, fused_ln=fused, dropout_key=site_key(dropout_key, i))
         x = self.norm.fused(x, dt) if fused else self.norm(x, dt)
         # flax Dense(dtype=float32): the head computes in float32
         return F.linear(x[:, 0].float(), self.head.weight.float(),

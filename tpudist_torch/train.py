@@ -35,7 +35,18 @@ with the reference's numerics:
   ViT);
 - ``forward_loss(module, batch) -> loss`` replaces the default
   ``loss_fn(module(batch[input_key]), batch[label_key])`` (the chunked LM
-  loss, :func:`tpudist_torch.models.lm_utils.chunked_lm_forward`).
+  loss, :func:`tpudist_torch.models.lm_utils.chunked_lm_forward`);
+- ``input_transform`` runs on the model's input inside the step (the
+  device cache's gather, the device ToTensor or augmentation), with the
+  reference's calling convention (:func:`_apply_input_transform`);
+- ``remat`` checkpoints the model's whole forward under a named policy
+  (:mod:`tpudist_torch.remat`), inside DDP; the loss stays outside the
+  checkpoint, so the backward recomputes the model and not the loss;
+- a model with ``dropout > 0`` draws its masks from a key of
+  ``(dropout_seed, rank, step)`` (``step * grad_accum + microbatch`` under
+  ``grad_accum``), passed to its forward as ``dropout_key``: fresh every
+  step and microbatch, independent across ranks (the reference draws one
+  mask over the global batch), and drawn again bit for bit on recompute.
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -60,6 +71,8 @@ from tpudist_torch.distributed import group_up
 from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.optim import FusedAdamWState, Optimizer
 from tpudist_torch.profiling import WindowedProfiler
+from tpudist_torch.remat import remat_module, resolve as resolve_remat
+from tpudist_torch.rng import fold_in
 
 
 @dataclasses.dataclass
@@ -135,6 +148,35 @@ def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
     return TrainState(0, model, module, opt_state)
 
 
+def _apply_input_transform(transform, inputs, batch, step=None):
+    """The input_transform calling convention: plain transforms receive
+    the inputs; transforms declaring ``wants_batch`` also receive the
+    whole batch (the device cache's ``"_cache"`` rides there), and those
+    declaring ``wants_step`` the step counter last. Eval paths pass
+    ``step=None`` and refuse an augmenting (``wants_step``) transform."""
+    if transform is None:
+        return inputs
+    wants_step = getattr(transform, "wants_step", False)
+    if wants_step and step is None:
+        raise ValueError(
+            "input_transform declares wants_step (an augmenting transform) "
+            "but this is an eval path — evaluate with the normalization "
+            "transform only"
+        )
+    args = [inputs]
+    if getattr(transform, "wants_batch", False):
+        args.append(batch)
+    if wants_step:
+        args.append(step)
+    return transform(*args)
+
+
+def dropout_key(seed: int, rank: int, index: int) -> int:
+    """The dropout stream's key for this rank's (micro)batch ``index``
+    (the step, or ``step * grad_accum + microbatch``)."""
+    return fold_in(seed, rank, index)
+
+
 def resolve_fused(fused, model, tx) -> frozenset:
     """Resolve a ``fused=`` request against what the model and optimizer
     support, as the reference does: ``None``/``"none"`` -> nothing;
@@ -170,7 +212,9 @@ def resolve_fused(fused, model, tx) -> frozenset:
 def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_loss,
                     input_key: str = "image", label_key: str = "label",
                     fused=None, grad_accum: int = 1, reduce: str = "none",
-                    forward_loss: Callable | None = None):
+                    forward_loss: Callable | None = None, remat=False,
+                    dropout_seed: int = 0,
+                    input_transform: Callable | None = None):
     """Build ``step(state, batch) -> (state, {"loss": tensor})``: forward,
     loss, backward (DDP all-reduces the gradients under a group), one
     optimizer update. ``state`` is updated in place; ``batch`` is a dict of
@@ -192,7 +236,16 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     sets the model's ``fused_ln`` attribute, which a ``forward_loss``
     built on the same model reads at each call: the reference's
     ``rebuild`` hook (which re-closes a loss over a fused clone) has no
-    counterpart here because nothing is cloned."""
+    counterpart here because nothing is cloned.
+
+    ``input_transform`` applies to ``batch[input_key]`` before the model
+    (never to the labels), with the step (or the microbatch's index under
+    ``grad_accum``) for a transform that wants it; a ``forward_loss``
+    reads the batch itself, as in the reference. ``remat`` names a policy
+    of :mod:`tpudist_torch.remat` for the model's whole forward.
+    ``dropout_seed`` keys the dropout stream of a model with ``dropout >
+    0`` (module docstring); such a model refuses a ``forward_loss``, which
+    has no stream, as the reference does."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if reduce not in (None, "none"):
@@ -205,18 +258,40 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             "a fused_adamw with a compute copy feeds the forward from the "
             "copy; build the step with fused='optimizer' (or 'auto')")
 
+    dropout_rate = float(getattr(model, "dropout", 0.0) or 0.0)
+    if forward_loss is not None and dropout_rate > 0:
+        raise ValueError(
+            f"model.dropout={dropout_rate} but forward_loss has no rng "
+            "stream; use the default forward or a dropout-free model")
+    if resolve_remat(remat) is not None and next(model.buffers(), None) is not None:
+        raise ValueError(
+            "remat recomputes the forward, and this model updates buffers in "
+            "it (BatchNorm's running statistics would move twice a step)")
+    remat_module(model, remat)
+
     if "ln" in fused_set:
         # the reference's clone with fused_ln=True: the same parameters,
         # the LayerNorms through the fused kernel
         model.fused_ln = True
 
+    rank = dist.get_rank() if group_up() else 0
     if forward_loss is None:
-        def forward_loss(module, batch):
-            return loss_fn(module(batch[input_key]), batch[label_key])
+        def run_loss(module, batch, index):
+            inputs = _apply_input_transform(input_transform, batch[input_key],
+                                            batch, index)
+            kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
+                  if dropout_rate > 0 else {})
+            return loss_fn(module(inputs, **kw), batch[label_key])
+    else:
+        def run_loss(module, batch, index):
+            return forward_loss(module, batch)
 
     def accumulate(state, batch, params):
+        # "_"-prefixed keys are per-step operands (the device cache), not
+        # rows: every microbatch reads them whole
+        operands = {k: v for k, v in batch.items() if k.startswith("_")}
         micro = {k: v.reshape(grad_accum, -1, *v.shape[1:])
-                 for k, v in batch.items()}
+                 for k, v in batch.items() if k not in operands}
         sums = {k: torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.items()}
         lsum = torch.zeros((), dtype=torch.float32,
@@ -224,8 +299,10 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         ddp = isinstance(state.module, nn.parallel.DistributedDataParallel)
         with state.module.no_sync() if ddp else contextlib.nullcontext():
             for i in range(grad_accum):
-                loss = forward_loss(state.module,
-                                    {k: v[i] for k, v in micro.items()})
+                loss = run_loss(state.module,
+                                {**{k: v[i] for k, v in micro.items()},
+                                 **operands},
+                                state.step * grad_accum + i)
                 loss.backward()
                 for k, p in params.items():
                     if p.grad is not None:
@@ -247,7 +324,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         for p in params.values():
             p.grad = None
         if grad_accum == 1:
-            loss = forward_loss(state.module, batch)
+            loss = run_loss(state.module, batch, state.step)
             loss.backward()
             grads = {k: p.grad for k, p in params.items()}
         else:
@@ -316,7 +393,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         world_size: int | None = None, global_rank: int | None = None,
         loss_fn: Callable = cross_entropy_loss, input_key: str = "image",
         label_key: str = "label", fused=None, grad_accum: int = 1,
-        forward_loss: Callable | None = None,
+        forward_loss: Callable | None = None, remat=False, seed: int = 0,
+        input_transform: Callable | None = None,
         profile: bool = True, prefetch_depth: int = 2, log_dir: str = ".",
         metrics_logger: MetricsLogger | None = None, **deferred):
     """The reference's training program as a function: epochs x batches,
@@ -349,7 +427,9 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         batch_size = train_loader.batch_size
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
                            label_key=label_key, fused=fused,
-                           grad_accum=grad_accum, forward_loss=forward_loss)
+                           grad_accum=grad_accum, forward_loss=forward_loss,
+                           remat=remat, dropout_seed=seed,
+                           input_transform=input_transform)
     state = create_train_state(model, tx)
     fetch = _DelayedLoss(device)
     losses: list[float] = []
@@ -401,17 +481,20 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
 
 @torch.no_grad()
 def evaluate(state: TrainState, loader, *, input_key: str = "image",
-             label_key: str = "label") -> float:
+             label_key: str = "label",
+             input_transform: Callable | None = None) -> float:
     """Top-1 accuracy of ``state.model`` (running BN statistics) over every
     sample of ``loader``. Under a process group the hit and row counts are
     summed over the ranks, so each rank may hold the full validation set
-    (the reference's convention) or its own shard."""
+    (the reference's convention) or its own shard. ``input_transform`` is
+    :func:`make_train_step`'s hook, without a step."""
     model = state.model
     model.eval()
     device = next(model.parameters()).device
     counts = torch.zeros(2, dtype=torch.int64, device=device)
     for batch in prefetch_to_device(iter(loader), device):
-        logits = model(batch[input_key])
+        logits = model(_apply_input_transform(input_transform,
+                                              batch[input_key], batch))
         labels = batch[label_key].long()
         counts[0] += (logits.argmax(-1) == labels).sum()
         counts[1] += labels.numel()
@@ -419,3 +502,47 @@ def evaluate(state: TrainState, loader, *, input_key: str = "image",
         dist.all_reduce(counts)
     hits, total = counts.tolist()
     return hits / max(total, 1)
+
+
+@torch.no_grad()
+def evaluate_lm(state: TrainState, loader, *, input_key: str = "tokens",
+                chunk: int | None = None,
+                input_transform: Callable | None = None) -> dict[str, float]:
+    """Next-token cross-entropy and perplexity of ``state.model`` over
+    every window of ``loader`` (the reference's ``evaluate_lm``). A ragged
+    last batch is scored as it is: only its real rows enter the sum and
+    the count. ``chunk`` takes the chunked tied head
+    (:func:`tpudist_torch.models.lm_utils.chunked_ce_sum`), so the
+    ``[B, S, V]`` logits never exist; ``input_transform`` applies to the
+    model's input, never to the targets. Under a process group the sums
+    and counts are added over the ranks. Returns ``{"loss": mean CE per
+    predicted position, "perplexity": exp(loss)}`` (inf past exp's
+    range, never clamped)."""
+    import math
+
+    from tpudist_torch.models.lm_utils import chunked_ce_sum
+
+    model = state.model
+    model.eval()
+    device = next(model.parameters()).device
+    sums = torch.zeros(2, dtype=torch.float64, device=device)
+    for batch in prefetch_to_device(iter(loader), device):
+        tokens = batch[input_key].long()
+        inputs = _apply_input_transform(input_transform, tokens, batch)
+        b, s = tokens.shape
+        if chunk:
+            hidden = model(inputs, return_hidden=True)
+            ce = chunked_ce_sum(model.wte, hidden[:, :-1], tokens[:, 1:],
+                                torch.ones((b, s - 1), device=device), chunk)
+        else:
+            logits = model(inputs)[:, :-1]
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                                 tokens[:, 1:].reshape(-1), reduction="sum")
+        sums[0] += ce
+        sums[1] += b * (s - 1)
+    if group_up():
+        dist.all_reduce(sums)
+    total, positions = sums.tolist()
+    loss = total / max(positions, 1)
+    ppl = math.exp(loss) if loss < 700.0 else float("inf")
+    return {"loss": loss, "perplexity": ppl}
