@@ -236,9 +236,38 @@ Phases, each fatal on failure:
     finite steps each), and one step of each at GPT-2's leaf shapes
     (depth 2), card against CPU, under OPT_BARS as in phase 25;
 30. a ``{"kernels": [...]}`` line with all nine kernels; then the last
-    line, ``{"ok": true, "device": {...}}``.
+    line, ``{"ok": true, "device": {...}}`` (printed after phases 31-33);
+31. recovery, ResNet-50 — ``python -m tpudist_torch.launch
+    --nproc_per_node 1`` runs ``tpudist_torch.main`` (through this
+    script's ``--recovery_child`` mode, which forms a 1-rank NCCL group,
+    sets cudnn.deterministic, zeroes the launch counts and writes each
+    life's losses and counts) with ResNet-50, --bf16 --fused optimizer
+    --amp, 2048 synthetic images, batch 128, 16 steps, --checkpoint_every
+    4: once uninterrupted, once with --max_restarts 1 and --chaos
+    corrupt@12 (the newest step, 12, is truncated and the process
+    crashes; the relaunched generation reports the fallback, sets step 12
+    aside under _failed/, restores step 8 and trains steps 9..16). The
+    resumed losses must equal the uninterrupted run's steps 9..16 and
+    every tensor of the two runs' step-16 checkpoints (masters, moments,
+    BN buffers) must be bit-identical; each life launches fused AdamW
+    and its finite check once a step, covering all 161 leaves;
+32. recovery, GPT-2 — the same with ``tpudist_torch.train_gpt2``, GPT-2
+    124M at S 1024, batch 8, --bf16 --fused all --amp --attn auto, 16
+    steps on phase 14's text, --checkpoint_every 6: uninterrupted, and
+    with --chaos sigterm@8 (the first life writes the emergency checkpoint
+    at step 8 and exits 75; the launcher relaunches generation 1, which
+    resumes at step 9): losses and the step-16 checkpoints bit-identical,
+    and in each life the launches a step of phase 14 plus the finite
+    check;
+33. checkpoint costs, in this process under a 1-rank NCCL group, for
+    ResNet-50 (bf16 --fused optimizer --amp) and GPT-2 124M (bf16 --fused
+    all --amp) after two steps, with keep_last 2: a step's bytes on disk
+    (about 0.31 and 1.49 GB: float32 masters, m and v), what an
+    asynchronous save blocks the loop (the host copy queued behind one
+    event), its background write, an emergency ``wait=True`` save and a
+    restore, with the card's name and power limit.
 
-Phases 22-29 print their seconds.
+Phases 22-29 and 31-33 print their seconds.
 """
 
 from __future__ import annotations
@@ -526,6 +555,8 @@ def main() -> int:
     amp_phase(smi, dev)
     device_cache_phases(smi, dev)
     lm_flag_phases(smi, dev)
+    recovery_phases(smi)
+    checkpoint_costs(smi)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -1785,5 +1816,292 @@ def top2_gap(model, prompts, streams) -> float:
     return min(gaps)
 
 
+RECOVERY_CHILD = "--recovery_child"
+
+
+def recovery_child(argv) -> int:
+    """One rank of a launched world (phases 31-32): ``argv`` is
+    ``--local_rank=i --recovery_child CLI OUT_DIR CLI_ARGS...``. Forms a
+    1-rank NCCL group from the launcher's env:// variables (so the step
+    runs under DDP and the checkpointer on its gloo group), makes cuDNN
+    deterministic, zeroes the launch counts, runs ``tpudist_torch.<CLI>``
+    and writes ``life<generation>.json`` to OUT_DIR (losses, exit code,
+    launch counts) whatever way the life ends."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    i = argv.index(RECOVERY_CHILD)
+    cli, out = argv[i + 1], Path(argv[i + 2])
+    cli_args = argv[:i] + argv[i + 3:]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://")
+    module = importlib.import_module(f"tpudist_torch.{cli}")
+    for mod in counted_modules():
+        mod.reset_launch_counts()
+    gen = int(os.environ.get("TPUDIST_RESTART_GENERATION", "0"))
+    record = {"generation": gen, "code": None}
+    try:
+        state, losses = module.main(cli_args)
+        record.update(code=0, losses=losses, step=state.step)
+    except SystemExit as e:
+        record.update(code=e.code, losses=getattr(e, "losses", None),
+                      step=getattr(e, "step", None))
+        raise
+    finally:
+        torch.cuda.synchronize()
+        record["launches"] = launches()
+        (out / f"life{gen}.json").write_text(json.dumps(record))
+        dist.destroy_process_group()
+    return 0
+
+
+def launched(cli: str, args, out: Path, launcher=()) -> tuple[str, list]:
+    """Run ``tpudist_torch.<cli>`` with ``args`` under ``python -m
+    tpudist_torch.launch --nproc_per_node 1 [launcher]`` through
+    :func:`recovery_child`; fail unless the launcher exits 0 within 600 s.
+    Returns its stdout + stderr and each life's record, generation
+    order."""
+    out.mkdir()
+    cmd = [sys.executable, "-m", "tpudist_torch.launch", "--nproc_per_node",
+           "1", "--master_port", str(free_port()), *launcher,
+           str(HERE / "chip_smoke.py"), RECOVERY_CHILD, cli, str(out), *args]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        text, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.terminate()  # the launcher forwards it and reaps its world
+        text, _ = proc.communicate()
+        fail(f"{cli} {' '.join(launcher)}: launcher timed out:\n{text[-4000:]}")
+    if proc.returncode != 0:
+        fail(f"{cli} {' '.join(launcher)}: launcher exited "
+             f"{proc.returncode}:\n{text[-4000:]}")
+    lives = [json.loads((out / f"life{g}.json").read_text())
+             for g in range(len(list(out.glob("life*.json"))))]
+    return text, lives
+
+
+def same_checkpoints(a: Path, b: Path, step: int) -> int:
+    """Fail unless saved step ``step`` of the two directories holds the
+    same entries, every tensor bit-identical. Returns the tensor count."""
+    import torch
+
+    from tpudist_torch.checkpoint import read_step
+
+    sa, sb = read_step(a, step), read_step(b, step)
+    if sa.keys() != sb.keys():
+        fail(f"step {step} checkpoints differ in keys: "
+             f"{sorted(set(sa) ^ set(sb))[:8]}")
+    differ = [k for k in sa if not (
+        torch.equal(sa[k], sb[k]) if isinstance(sa[k], torch.Tensor)
+        else sa[k] == sb[k])]
+    if differ:
+        fail(f"step {step} checkpoints differ in {len(differ)} entries, "
+             f"e.g. {differ[:4]}")
+    return sum(isinstance(v, torch.Tensor) for v in sa.values())
+
+
+def check_lives(what: str, lives: list, want_steps, per_step: dict) -> None:
+    """Fail unless each life ran its steps (``want_steps[g]``) and
+    launched ``per_step`` kernels a step."""
+    for life, steps in zip(lives, want_steps):
+        got = life["launches"]
+        if any(got[k] != n * steps for k, n in per_step.items()):
+            fail(f"{what} generation {life['generation']}: launches {got}, "
+                 f"want {per_step} x {steps} steps")
+    print(f"  {what}: " + "; ".join(
+        f"generation {life['generation']} exit {life['code']}, "
+        f"{steps} steps, launches "
+        f"{ {k: life['launches'][k] for k in per_step} }"
+        for life, steps in zip(lives, want_steps)))
+
+
+def recovery_phases(smi: str) -> None:
+    """Phases 31 and 32 (module docstring)."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    adamw = {"fused_adamw": 1, "fused_adamw_check": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        print("== 31. recovery: ResNet-50 bf16 --fused optimizer --amp "
+              "through tpudist_torch.launch, --chaos corrupt@12")
+        t0 = time.perf_counter()
+        args = ["--model", "resnet50", "--dataset", "synthetic",
+                "--synthetic_size", "2048", "--batch_size", "128", "--epochs",
+                "1", "--bf16", "--fused", "optimizer", "--amp",
+                "--no_profiler", "--checkpoint_every", "4", "--log_dir",
+                str(tmp)]
+        _, base = launched("main", [*args, "--checkpoint_dir",
+                                    str(tmp / "r_full")], tmp / "r_full_out")
+        text, lives = launched(
+            "main", [*args, "--checkpoint_dir", str(tmp / "r_drill"),
+                     "--chaos", "corrupt@12"], tmp / "r_drill_out",
+            launcher=["--max_restarts", "1", "--backoff_base", "0"])
+        fallback = [ln for ln in text.splitlines()
+                    if ln.startswith("checkpoint_fallback: ")]
+        if (len(lives) != 2 or lives[0]["code"] is not None
+                or lives[1]["code"] != 0 or len(fallback) != 1
+                or '"failed_step": 12' not in fallback[0]
+                or '"next_step": 8' not in fallback[0]
+                or not (tmp / "r_drill" / "_failed" / "12").is_dir()):
+            fail(f"corrupt@12: lives {[(l['generation'], l['code']) for l in lives]}"
+                 f", fallback lines {fallback}")
+        print(f"  generation 0 crashed after truncating step 12; generation 1: "
+              f"{fallback[0][:160]}...")
+        resumed_at(lives[1], base[0], 8, "ResNet-50")
+        check_lives("launches", [base[0], *lives], (16, 12, 8),
+                    {**adamw, "fused_adamw_leaves": 161})
+        n = same_checkpoints(tmp / "r_full", tmp / "r_drill", 16)
+        print(f"  step-16 checkpoints bit-identical: {n} tensors  "
+              f"[{time.perf_counter() - t0:.1f} s]")
+
+        print("== 32. recovery: GPT-2 124M S 1024 bf16 --fused all --amp "
+              "through tpudist_torch.launch, --chaos sigterm@8")
+        t0 = time.perf_counter()
+        tokens = LB.token_file(tmp / "text.bin", 16 * 8 * 1024)
+        args = ["--bf16", "--fused", "all", "--amp", "--attn", "auto",
+                "--batch_size", "8", "--seq_len", "1024", "--tokens",
+                str(tokens), "--no_profiler", "--checkpoint_every", "6",
+                "--log_dir", str(tmp)]
+        _, base = launched("train_gpt2", [*args, "--checkpoint_dir",
+                                          str(tmp / "g_full")],
+                           tmp / "g_full_out")
+        text, lives = launched(
+            "train_gpt2", [*args, "--checkpoint_dir", str(tmp / "g_drill"),
+                           "--chaos", "sigterm@8"], tmp / "g_drill_out")
+        if (len(lives) != 2 or lives[0]["code"] != 75 or lives[0]["step"] != 8
+                or lives[1]["code"] != 0
+                or "exited rc=75 (restartable); restarting generation 1"
+                not in text):
+            fail(f"sigterm@8: lives {[(l['generation'], l['code']) for l in lives]}"
+                 f"\n{text[-3000:]}")
+        if lives[0]["losses"] != base[0]["losses"][:8]:
+            fail(f"the preempted life's losses {lives[0]['losses']} are not "
+                 f"the uninterrupted run's first 8 {base[0]['losses'][:8]}")
+        print("  generation 0 exited 75 after its emergency checkpoint at "
+              "step 8; generation 1 resumed")
+        resumed_at(lives[1], base[0], 8, "GPT-2 124M")
+        depth = 12
+        check_lives("launches", [base[0], *lives], (16, 8, 8), {
+            **adamw, "fused_adamw_leaves": 148,
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1,
+            "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0})
+        n = same_checkpoints(tmp / "g_full", tmp / "g_drill", 16)
+        print(f"  step-16 checkpoints bit-identical: {n} tensors  "
+              f"[{time.perf_counter() - t0:.1f} s]  [{smi}]")
+
+
+def resumed_at(life: dict, base: dict, k: int, what: str) -> None:
+    """Fail unless the resumed ``life`` trained steps k+1..16 with exactly
+    the uninterrupted run's losses."""
+    import numpy as np
+
+    want = base["losses"][k:]
+    if (life["step"] != 16 or life["losses"] != want
+            or len(base["losses"]) != 16
+            or not np.isfinite(base["losses"]).all()):
+        fail(f"{what}: resumed losses {life['losses']} (step {life['step']})"
+             f" against the uninterrupted run's {want}")
+    print(f"  {what}: generation {life['generation']} resumed at step {k + 1};"
+          f" its {len(want)} losses equal the uninterrupted run's bit for bit "
+          f"({want[0]:.6f} .. {want[-1]:.6f})")
+
+
+def checkpoint_costs(smi: str) -> None:
+    """Phase 33 (module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch.checkpoint import Checkpointer
+    from tpudist_torch.models import resnet
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.optim import make_optimizer
+    from tpudist_torch.train import create_train_state, lm_loss, make_train_step
+
+    print("== 33. checkpoint costs (1-rank NCCL group, keep_last 2)")
+    t_phase = time.perf_counter()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", init_method="env://")
+    rng = np.random.Generator(np.random.PCG64(SEED))
+    bf16 = torch.bfloat16
+    cases = (
+        ("ResNet-50", 0.31,
+         lambda: resnet.resnet50(dtype=bf16, device="cuda"),
+         dict(weight_decay=0.0), "optimizer", {},
+         lambda: {"image": torch.from_numpy(rng.standard_normal(
+             (128, 32, 32, 3), dtype=np.float32)).cuda(),
+                  "label": torch.from_numpy(rng.integers(
+                      0, 1000, 128).astype(np.int32)).cuda()}),
+        ("GPT-2 124M", 1.49,
+         lambda: GPT2(dtype=bf16, attn_impl="vmem", device="cuda", seed=SEED),
+         dict(weight_decay=0.1, clip_norm=1.0), "all",
+         dict(loss_fn=lm_loss, input_key="tokens", label_key="tokens"),
+         lambda: {"tokens": torch.from_numpy(rng.integers(
+             0, VOCAB, (8, 1024)).astype(np.int32)).cuda()}))
+    for name, want_gb, build, opt, fused, kw, batch in cases:
+        model = build()
+        tx = make_optimizer(1e-4, fused=True, compute_dtype=bf16,
+                            skip_nonfinite_updates=True, **opt)
+        state = create_train_state(model, tx)
+        step = make_train_step(model, tx, fused=fused, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = Checkpointer(tmp, keep_last=2)
+            state, _ = step(state, batch())
+            blocks, flushes, writes = [], [], []
+            for _ in range(2):  # the first save also pins its host buffers
+                state, _ = step(state, batch())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ck.save(state)
+                blocks.append(time.perf_counter() - t0)
+                ck.wait()
+                flushes.append(time.perf_counter() - t0)
+                writes.append(ck.last_write_s)
+            gb = ck.step_bytes(state.step) / 1e9
+            state, _ = step(state, batch())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(state, wait=True)
+            emergency = time.perf_counter() - t0
+            masters = {k: v.clone() for k, v in state.params().items()}
+            saved = state.step
+            state, _ = step(state, batch())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.restore(state)
+            torch.cuda.synchronize()
+            restore = time.perf_counter() - t0
+            if state.step != saved or any(not torch.equal(masters[k], v)
+                                          for k, v in state.params().items()):
+                fail(f"{name}: restore did not bring step {saved} back")
+            kept = ck.all_steps()
+            ck.close()
+        print(f"  {name}: {gb:.3f} GB a step on disk (expected ~{want_gb}); "
+              f"an async save blocks {blocks[1] * 1e3:.2f} ms ({blocks[0] * 1e3:.1f}"
+              f" ms the first, which pins its buffers), durable after "
+              f"{flushes[1]:.3f} s (background write {writes[1]:.3f} s; first "
+              f"{flushes[0]:.3f} / {writes[0]:.3f} s); emergency wait=True save "
+              f"{emergency:.3f} s; restore {restore:.3f} s; kept steps {kept}"
+              f"  [{smi}]")
+        if kept != [saved - 1, saved]:
+            fail(f"{name}: keep_last 2 kept {kept}")
+        if abs(gb - want_gb) > 0.05 * want_gb:
+            fail(f"{name}: {gb:.3f} GB a step, expected ~{want_gb}")
+        del model, state, step, tx
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"  [{time.perf_counter() - t_phase:.1f} s]")
+
+
 if __name__ == "__main__":
+    if RECOVERY_CHILD in sys.argv:
+        sys.exit(recovery_child(sys.argv[1:]))
     sys.exit(main())

@@ -488,7 +488,7 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
     ["--init_hf", "x", "--arch", "llama"], ["--dropout", "0.1", "--arch", "llama"],
     ["--eval", "--cp", "2"], ["--generate", "8", "--top_k", "5", "--attn", "ring"],
     ["--remat_policy", "full", "--pipe", "2"],
-    ["--checkpoint_dir", "ck"], ["--telemetry"], ["--elastic"],
+    ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic"],
     ["--compile_cache", "cc"], ["--shard_opt_state"], ["--num_kv_heads", "2"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):

@@ -293,10 +293,10 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [
     ["--packed", "p"], ["--workers", "2"], ["--reduce", "bucketed"],
     ["--fsdp", "2"], ["--telemetry"], ["--trace"], ["--health"],
-    ["--checkpoint_dir", "ck"], ["--elastic"], ["--chaos", "crash@3"],
+    ["--repair"], ["--elastic"], ["--skip_window", "4"],
     ["--device_cache", "--cache_shard_rows", "8"],
     ["--augment", "--dataset", "imagenet"], ["--serve"], ["--tensor", "2"],
-    ["--keep_last", "2"], ["--device_cache", "--packed", "p"],
+    ["--compile_cache", "cc"], ["--device_cache", "--packed", "p"],
     ["--dataset", "imagenet"],
     ["--dataset", "digits"], ["--hang_timeout", "5"], ["--image_size", "64"],
 ], ids=lambda f: " ".join(f))
@@ -324,8 +324,9 @@ def test_fit_refuses_unported_features(tmp_path):
     for kw, item in ((dict(telemetry=True), "#8"),
                      (dict(shard_opt_state=True), "#7"),
                      (dict(reduce="quantized"), "#7"),
-                     (dict(checkpoint_dir="x"), "#4"),
-                     (dict(repair=True), "#9")):
+                     (dict(elastic=True), "#7"),
+                     (dict(repair=True), "#8"),
+                     (dict(compile_cache="cc"), "#9")):
         with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
             fit(model, make_optimizer(), loader, epochs=1, profile=False,
                 log_dir=str(tmp_path), **kw)

@@ -99,6 +99,17 @@ class SkipState:
             self.skipped += 1
             self.inner.count -= 1
 
+    def state_dict(self) -> dict:
+        """``skipped`` and the inner state's entries, after :meth:`resolve`
+        (a wait for the last step's flag), so both counts are exact."""
+        self.resolve()
+        return {"skipped": self.skipped, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        self.skipped = int(sd["skipped"])
+        self.pending = None
+
 
 class SkipNonfinite:
     """The reference's ``skip_nonfinite`` around a port optimizer:

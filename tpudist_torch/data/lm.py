@@ -97,8 +97,14 @@ class TokenWindowLoader:
         return {"tokens": tokens}
 
     def __iter__(self) -> Iterator[dict]:
+        return self.iter_from(0)
+
+    def iter_from(self, start_batch: int) -> Iterator[dict]:
+        """This epoch from batch ``start_batch`` on, skipped on the index
+        level (no gather for the skipped windows)."""
         indices = self.sampler.epoch_indices()
         limit = (len(self) * self.batch_size if self.drop_remainder
                  else len(indices))
-        for start in range(0, limit, self.batch_size):
+        for start in range(start_batch * self.batch_size, limit,
+                           self.batch_size):
             yield self.gather(indices[start:start + self.batch_size])

@@ -56,17 +56,39 @@ class DataLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
+    def probe(self) -> dict:
+        """A one-sample batch through ``transform``: the reference's
+        shape probe, which its ``fit`` draws once before training. A
+        transform with a stream of its own (the host augmentation) moves
+        it on by that one row, so ``fit`` draws it too."""
+        idx = self.sampler.epoch_indices()[:1]
+        batch = {k: v[idx] for k, v in self.dataset.items()}
+        return self.transform(batch) if self.transform else batch
+
     def __iter__(self) -> Iterator[dict]:
+        return self.iter_from(0)
+
+    def iter_from(self, start_batch: int) -> Iterator[dict]:
+        """This epoch from batch ``start_batch`` on: the skip is on the
+        index level (no gather, no transform for the skipped batches), as
+        the reference's is. A host ``transform`` that draws from a stream
+        of its own (the host augmentation) therefore continues from where
+        its stream stands, not from where an uninterrupted run's would."""
         indices = self.sampler.epoch_indices()
         limit = (len(self) * self.batch_size if self.drop_remainder
                  else len(indices))
-        for start in range(0, limit, self.batch_size):
+        for start in range(start_batch * self.batch_size, limit,
+                           self.batch_size):
             idx = indices[start : start + self.batch_size]
             batch = {k: v[idx] for k, v in self.dataset.items()}
             yield self.transform(batch) if self.transform else batch
 
 
-def prefetch_to_device(iterator, device, *, depth: int = 2):
+#: seconds between polls of ``prefetch_to_device``'s ``stop_check``
+STOP_POLL_S = 0.5
+
+
+def prefetch_to_device(iterator, device, *, depth: int = 2, stop_check=None):
     """Yield the host batches of ``iterator`` (dicts of numpy arrays) as
     dicts of tensors on ``device``, ``depth`` copies in flight ahead of
     the consumer (module docstring). On the CPU the tensors share the
@@ -74,7 +96,13 @@ def prefetch_to_device(iterator, device, *, depth: int = 2):
     on the device (the device cache's ``"_cache"``): they pass through
     untouched, and only the row data crosses. An error in the host
     iterator is raised after the batches staged before it have been
-    delivered."""
+    delivered.
+
+    ``stop_check`` is polled every :data:`STOP_POLL_S` while the consumer
+    waits on the host thread: when it returns True the stream ends early
+    (the batches already staged are delivered first), as if the epoch
+    ended. ``fit`` passes its preemption flag, so a SIGTERM that lands
+    while the input is stalled still reaches the graceful path."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     host_q: queue.Queue = queue.Queue(maxsize=depth + 1)
@@ -120,11 +148,20 @@ def prefetch_to_device(iterator, device, *, depth: int = 2):
             ready.record(side)
         return out, ready
 
+    def next_host():
+        while True:
+            try:
+                return host_q.get(timeout=None if stop_check is None
+                                  else STOP_POLL_S)
+            except queue.Empty:
+                if stop_check():
+                    return done
+
     try:
         finished, error = False, None
         while True:
             while not finished and error is None and len(staged) < depth:
-                item = host_q.get()
+                item = next_host()
                 if item is done:
                     finished = True
                 elif isinstance(item, BaseException):

@@ -2,6 +2,8 @@
 
     python -m tpudist_torch.main --batch_size 128 --JobID Job0
     torchrun --nproc_per_node 2 -m tpudist_torch.main --dataset synthetic
+    python -m tpudist_torch.launch --nproc_per_node 2 --max_restarts 1 \
+        tpudist_torch/main.py --checkpoint_dir ck --checkpoint_every 4
     python -m tpudist_torch.main --device cpu --model resnet18 \\
         --dataset synthetic --synthetic_size 64 --batch_size 8 --no_profiler
 
@@ -22,6 +24,15 @@ there from its indices (the ToTensor runs in the step; with
 is the reference's host augmentation, bit for bit. ``--model gpt2``
 exits pointing at ``python -m tpudist_torch.train_gpt2``, as the
 reference points at its LM script.
+
+``--checkpoint_dir`` saves every ``--checkpoint_every`` steps (and/or
+``--checkpoint_every_s`` seconds) and at the end, keeps the newest
+``--keep_last``, and resumes from the newest loadable step unless
+``--no_resume``; SIGTERM gives a checkpoint at the last completed step
+and exit 75 (:mod:`tpudist_torch.resilience`), and ``--chaos`` injects a
+fault at a step. Under ``python -m tpudist_torch.launch --max_restarts N
+tpudist_torch/main.py ...`` a preempted or crashed world is relaunched
+and resumes.
 
 Every other flag ``main.py`` accepts is accepted here too, and a value
 other than its default raises ``NotImplementedError`` naming the ROADMAP
@@ -140,11 +151,8 @@ _UNPORTED = {
     "telemetry": "Queue 1 #8", "health": "Queue 1 #8", "trace": "Queue 1 #8",
     "metrics_port": "Queue 1 #8", "hang_timeout": "Queue 1 #8",
     "divergence_every": "Queue 1 #8", "hang_action": "Queue 1 #8",
-    "chaos": "Queue 1 #9", "repair": "Queue 1 #9", "skip_window": "Queue 1 #9",
-    "elastic": "Queue 1 #9", "compile_cache": "Queue 1 #9",
-    "checkpoint_dir": "Queue 1 #4", "checkpoint_every": "Queue 1 #4",
-    "checkpoint_every_s": "Queue 1 #4", "no_resume": "Queue 1 #4",
-    "keep_last": "Queue 1 #4",
+    "repair": "Queue 1 #8", "skip_window": "Queue 1 #8",
+    "elastic": "Queue 1 #7", "compile_cache": "Queue 1 #9",
     "serve": "Queue 1 #6", "serve_requests": "Queue 1 #6",
     "serve_slots": "Queue 1 #6", "spec_draft": "Queue 1 #6",
     "serve_experts": "Queue 1 #6", "serve_moe_dispatch": "Queue 1 #6",
@@ -264,7 +272,12 @@ def main(argv=None):
             global_rank=ctx.rank, loss_fn=loss_fn, grad_accum=args.grad_accum,
             input_transform=input_transform,
             fused=None if args.fused == "none" else args.fused,
-            profile=not args.no_profiler, log_dir=args.log_dir)
+            profile=not args.no_profiler, log_dir=args.log_dir,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_every_s=args.checkpoint_every_s or None,
+            keep_last=args.keep_last or None, resume=not args.no_resume,
+            chaos=args.chaos)
         if args.amp and ctx.is_chief:
             skipped = skipped_steps(state.opt_state)
             if skipped:

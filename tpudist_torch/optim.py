@@ -121,6 +121,26 @@ def _writer(ok: torch.Tensor | None) -> Callable:
     return lambda dst, new: dst.copy_(torch.where(ok, new, dst))
 
 
+@torch.no_grad()
+def load_tensors(dst: dict, src: dict, what: str) -> None:
+    """Copy ``src``'s tensors into ``dst``'s by name, in place: the same
+    names and shapes or a ``ValueError``, and a tensor that already is the
+    destination, or a view of all of it (a checkpoint loaded into the
+    live tensors), is left alone. Never rebinds an entry, so storage a kernel's table points at
+    stays the storage it writes."""
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: names differ ({sorted(set(dst) ^ set(src))})")
+    for k, t in dst.items():
+        s = src[k]
+        if s is t or (s.data_ptr() == t.data_ptr() and s.device == t.device
+                      and s.dtype == t.dtype and s.shape == t.shape):
+            continue
+        if tuple(s.shape) != tuple(t.shape):
+            raise ValueError(f"{what}[{k!r}]: shape {tuple(s.shape)}, the "
+                             f"state's is {tuple(t.shape)}")
+        t.copy_(s)
+
+
 @dataclasses.dataclass
 class AdamState:
     """``count``: updates applied so far (a host integer); ``mu``/``nu``:
@@ -129,6 +149,16 @@ class AdamState:
     count: int
     mu: dict
     nu: dict
+
+    def state_dict(self) -> dict:
+        """The live tensors by name and the count (nothing copied)."""
+        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Take ``sd``'s count and copy its moments in place."""
+        load_tensors(self.mu, sd["mu"], "mu")
+        load_tensors(self.nu, sd["nu"], "nu")
+        self.count = int(sd["count"])
 
 
 @dataclasses.dataclass
@@ -144,6 +174,25 @@ class FusedAdamWState(AdamState):
     table: FU.AdamWTable
     names: list
     nonfinite: torch.Tensor | None = None
+
+    def state_dict(self) -> dict:
+        """:class:`AdamState`'s entries and ``master``, the float32
+        masters; the compute copy is not kept (:meth:`load_state_dict`
+        derives it)."""
+        return {**super().state_dict(), "master": dict(self.master)}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy the moments and masters in place, then rewrite each compute
+        copy as ``compute_dtype(master)``, which is what the kernel's last
+        launch wrote. Every tensor keeps its storage, so the kernel's table
+        (:class:`~tpudist_torch.ops.fused_update.AdamWTable`, built on
+        their pointers) stays valid."""
+        super().load_state_dict(sd)
+        load_tensors(self.master, sd["master"], "master")
+        for p, c in zip(self.table.p, self.table.copy):
+            if c is not None:
+                c.copy_(p.to(c.dtype))
 
 
 class Optimizer:
@@ -330,6 +379,13 @@ class MomentState:
     count: int
     mu: dict
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": dict(self.mu)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        load_tensors(self.mu, sd["mu"], "mu")
+        self.count = int(sd["count"])
+
 
 def _zeros(params: dict) -> dict:
     return {k: torch.zeros_like(p) for k, p in params.items()}
@@ -480,6 +536,15 @@ class MuonState:
     mu: dict
     adam_mu: dict
     adam_nu: dict
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": dict(self.mu),
+                "adam_mu": dict(self.adam_mu), "adam_nu": dict(self.adam_nu)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for name in ("mu", "adam_mu", "adam_nu"):
+            load_tensors(getattr(self, name), sd[name], name)
+        self.count = int(sd["count"])
 
 
 class Muon(Optimizer):

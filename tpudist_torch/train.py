@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import time
 from typing import Callable
 
@@ -69,7 +70,7 @@ from tpudist_torch.amp import inner_state
 from tpudist_torch.data.loader import prefetch_to_device
 from tpudist_torch.distributed import group_up
 from tpudist_torch.metrics import MetricsLogger
-from tpudist_torch.optim import FusedAdamWState, Optimizer
+from tpudist_torch.optim import FusedAdamWState, Optimizer, load_tensors
 from tpudist_torch.profiling import WindowedProfiler
 from tpudist_torch.remat import remat_module, resolve as resolve_remat
 from tpudist_torch.rng import fold_in
@@ -99,6 +100,34 @@ class TrainState:
     def batch_stats(self) -> dict[str, torch.Tensor]:
         """The BN running statistics, by buffer name."""
         return dict(self.model.named_buffers())
+
+    def _own_params(self) -> dict[str, torch.Tensor]:
+        # the parameters whose masters the optimizer state does not hold
+        owned = getattr(inner_state(self.opt_state), "master", {})
+        return {k: p.detach() for k, p in self.model.named_parameters()
+                if k not in owned}
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds, as the live tensors (nothing copied):
+        ``step``; ``params``, the parameters whose float32 masters the
+        optimizer state does not hold (all of them but under the fused
+        optimizer, whose state holds every master); ``buffers``, the BN
+        running statistics and counters; ``opt``, the optimizer state's
+        ``state_dict``. Each tensor appears once, and a compute copy never
+        (the fused optimizer derives it on load)."""
+        return {"step": self.step, "params": self._own_params(),
+                "buffers": self.batch_stats(),
+                "opt": self.opt_state.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy ``sd`` into the live tensors in place (no tensor is rebound:
+        the fused kernel's table and DDP's buckets keep their storage) and
+        take its step and counters."""
+        load_tensors(self._own_params(), sd["params"], "params")
+        load_tensors(self.batch_stats(), sd["buffers"], "buffers")
+        self.opt_state.load_state_dict(sd["opt"])
+        self.step = int(sd["step"])
 
 
 def cross_entropy_loss(logits, labels):
@@ -245,7 +274,12 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     of :mod:`tpudist_torch.remat` for the model's whole forward.
     ``dropout_seed`` keys the dropout stream of a model with ``dropout >
     0`` (module docstring); such a model refuses a ``forward_loss``, which
-    has no stream, as the reference does."""
+    has no stream, as the reference does.
+
+    Under a process group ``step(state, batch, votes)`` also sums the
+    host floats ``votes`` over the ranks in the loss's all-reduce
+    (``metrics["votes"]``, on the device): ``fit`` agrees its stop and
+    save decisions through them without a collective of their own."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if reduce not in (None, "none"):
@@ -318,7 +352,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             sums = {k: t.view_as(params[k]) for k, t in sums.items()}
         return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
 
-    def step(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict, votes: tuple = ()):
         state.module.train()
         params = dict(state.model.named_parameters())
         for p in params.values():
@@ -332,33 +366,47 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         tx.step(state.opt_state, params, grads)
         state.step += 1
         loss = loss.detach()
-        if group_up():
-            # the global-batch mean, as the reference's loss is (ranks hold
-            # equal batches); a SUM, because gloo has no AVG
-            loss = loss.clone()
-            dist.all_reduce(loss)
-            loss /= dist.get_world_size()
-        return state, {"loss": loss}
+        if not group_up():
+            return state, {"loss": loss}
+        # the global-batch mean, as the reference's loss is (ranks hold
+        # equal batches); a SUM, because gloo has no AVG. The votes ride
+        # the same all-reduce and come back summed over the ranks.
+        flat = torch.cat([loss.reshape(1).float(),
+                          *(loss.new_full((1,), float(v), dtype=torch.float32)
+                            for v in votes)])
+        dist.all_reduce(flat)
+        metrics = {"loss": flat[0] / dist.get_world_size()}
+        if votes:
+            metrics["votes"] = flat[1:]
+        return state, metrics
 
     step.fused = fused_set
     return step
 
 
-class _DelayedLoss:
-    """One-step-delayed loss fetch: :meth:`start` copies the device loss
-    into one of two pinned host buffers behind an event; :meth:`value`
-    waits for that event only, after the next step is dispatched."""
+class _DelayedFetch:
+    """One-step-delayed fetch of a step's scalars: :meth:`start` copies the
+    loss (and the summed votes, when the step returns them) into one of
+    two pinned host buffers behind an event; :meth:`value` waits for that
+    event only, after the next step is dispatched, and returns
+    ``(loss, votes)``."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.bufs = [torch.empty((), dtype=torch.float32, pin_memory=self.cuda)
-                     for _ in range(2)]
+        self.bufs = [None, None]
         self.turn = 0
 
-    def start(self, loss: torch.Tensor):
+    def start(self, metrics: dict):
+        values = metrics["loss"].reshape(1)
+        if "votes" in metrics:
+            values = torch.cat([values, metrics["votes"]])
         buf = self.bufs[self.turn]
+        if buf is None or buf.shape != values.shape:
+            buf = torch.empty(values.shape, dtype=torch.float32,
+                              pin_memory=self.cuda)
+            self.bufs[self.turn] = buf
         self.turn ^= 1
-        buf.copy_(loss, non_blocking=True)
+        buf.copy_(values, non_blocking=True)
         ready = None
         if self.cuda:
             ready = torch.cuda.Event()
@@ -366,11 +414,12 @@ class _DelayedLoss:
         return buf, ready
 
     @staticmethod
-    def value(handle) -> float:
+    def value(handle) -> tuple[float, list[float]]:
         buf, ready = handle
         if ready is not None:
             ready.synchronize()
-        return float(buf)
+        values = buf.tolist()
+        return values[0], values[1:]
 
 
 _DEFERRED = {
@@ -380,12 +429,63 @@ _DEFERRED = {
     "shard_opt_state": (False, "Queue 1 #7"),
     "telemetry": (False, "Queue 1 #8"),
     "metrics_port": (None, "Queue 1 #8"),
-    "checkpoint_dir": (None, "Queue 1 #4"),
-    "elastic": (False, "Queue 1 #9"),
-    "chaos": (None, "Queue 1 #9"),
-    "repair": (None, "Queue 1 #9"),
+    "elastic": (False, "Queue 1 #7"),
+    "repair": (None, "Queue 1 #8"),
     "compile_cache": (None, "Queue 1 #9"),
 }
+
+
+def run_geometry(train_loader, *, batch_size: int, world_size: int,
+                 grad_accum: int) -> dict:
+    """The geometry a checkpoint is bound to (``tpudist_meta.json``, the
+    reference's keys): the data position of ``state.step`` depends on
+    each of them. The model-axis worlds are 1: the port is data-parallel
+    only."""
+    if not hasattr(train_loader, "__len__"):
+        raise ValueError(
+            "checkpointing needs a sized train_loader (len() maps state.step "
+            "to an epoch/batch position for exact resume)")
+    return {"steps_per_epoch": len(train_loader), "batch_size": batch_size,
+            "world_size": world_size, "grad_accum": grad_accum,
+            "fsdp_world": 1, "tensor_world": 1, "pipe_world": 1}
+
+
+def _bring_up_checkpoint(ckpt, state, run_meta: dict, *, resume: bool,
+                         checkpoint_dir) -> int:
+    """Resume from ``ckpt``'s newest loadable step into ``state`` (in
+    place) when it holds one, after the geometry guard; record this run's
+    geometry. Returns the step the run starts from."""
+    from tpudist_torch.resilience import elastic
+
+    start_step = 0
+    if ckpt.latest_step() is not None:
+        if not resume:
+            raise ValueError(
+                f"checkpoint_dir {checkpoint_dir} already holds checkpoints "
+                "but resume=False; refusing to mix runs (the old steps + "
+                "overwritten meta would corrupt a later resume) — use a fresh "
+                "checkpoint_dir")
+        saved = ckpt.read_meta()
+        if saved is not None and not elastic.meta_matches(saved, run_meta):
+            reason = elastic.refusal_reason(saved, run_meta)
+            hint = (" — this is a pure world resize, and the elastic reshard "
+                    "is not ported yet (ROADMAP Queue 1 #7)"
+                    if reason is None else f" — {reason}")
+            raise ValueError(
+                f"checkpoint at {checkpoint_dir} was written by a run with "
+                f"different geometry ({saved} != {run_meta}); state.step "
+                "would map to the wrong data position — resume with the "
+                f"original settings or start a fresh checkpoint_dir{hint}")
+        events: list[dict] = []
+        ckpt.restore(state, fallback=True, on_event=events.append)
+        for ev in events:
+            print(f"checkpoint_fallback: {json.dumps(ev)}", flush=True)
+            # set aside what failed to load: it would shadow latest_step
+            # and take the step number a later save needs
+            ckpt.quarantine_failed_step(ev["failed_step"])
+        start_step = state.step
+    ckpt.write_meta(run_meta)
+    return start_step
 
 
 def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
@@ -396,21 +496,64 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         forward_loss: Callable | None = None, remat=False, seed: int = 0,
         input_transform: Callable | None = None,
         profile: bool = True, prefetch_depth: int = 2, log_dir: str = ".",
-        metrics_logger: MetricsLogger | None = None, **deferred):
+        metrics_logger: MetricsLogger | None = None,
+        checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+        checkpoint_every_s: float | None = None,
+        keep_last: int | None = None, resume: bool = True,
+        preempt: bool | str = "auto", chaos=None, **deferred):
     """The reference's training program as a function: epochs x batches,
     the per-epoch sampler re-shuffle, the windowed profiler, the TSV
     metrics and the TrainTime footer. ``model`` carries its initial
     weights (built from a seed on every rank) and its device; the loader
     yields host batches of numpy arrays. Returns ``(state, losses)``, the
-    per-step losses in step order. With ``grad_accum > 1`` each loader
-    batch holds ``grad_accum`` microbatches, and ``forward_loss`` replaces
-    the default loss (see :func:`make_train_step`).
+    per-step losses of this run in step order. With ``grad_accum > 1``
+    each loader batch holds ``grad_accum`` microbatches, and
+    ``forward_loss`` replaces the default loss (see
+    :func:`make_train_step`).
+
+    Persistence and recovery, as the reference's ``fit``:
+
+    - ``checkpoint_dir`` saves the state (:mod:`tpudist_torch.checkpoint`)
+      every ``checkpoint_every`` steps and/or every ``checkpoint_every_s``
+      seconds of wall clock (every save resets the clock; the step cadence
+      stays on its multiples), and once at the end; ``keep_last`` bounds
+      retention. With ``resume`` (the default) the newest loadable step is
+      restored into the freshly built state (after the geometry guard:
+      a checkpoint of another ``steps_per_epoch``, batch size, world or
+      ``grad_accum`` is refused) and training continues at the next step:
+      the same epoch, the same position in the sampler's order, through
+      the loader's ``iter_from``. ``resume=False`` refuses a directory
+      that holds checkpoints. A newest step that fails to load is
+      reported (a ``checkpoint_fallback`` line), set aside under
+      ``_failed/`` and the previous one restored.
+    - ``preempt`` (``"auto"``) traps SIGTERM/SIGINT as a flag checked at
+      step boundaries; on a trip the in-flight step finishes, the
+      checkpoint at the last completed step is written synchronously and
+      :class:`tpudist_torch.resilience.Preempted` (exit 75) is raised,
+      carrying the state and the losses. ``False`` keeps the default
+      dispositions.
+    - ``chaos`` injects a fault at a step boundary
+      (:mod:`tpudist_torch.resilience.chaos`).
+
+    One rank stops at the boundary where its flag is set, so
+    ``sigterm@k`` persists step k. Under a process group the ranks must
+    stop (and save) at the same step, or one would wait in a collective
+    for ever: each step's all-reduce carries the rank's stop vote (and
+    its vote that the save clock is due), read a step late with the loss,
+    so every rank takes the decision at the same boundary, one or two
+    steps after the first flag, with no host sync of its own. A stalled
+    input ends early on a trip only on one rank.
+
+    The delayed loss fetch and the ``--amp`` flag are resolved before a
+    save (a wait at save steps only), so the saved counters are exact.
 
     The reference's other keywords (``reduce``, ``plan``,
-    ``shard_opt_state``, ``telemetry``, ``metrics_port``,
-    ``checkpoint_dir``, ``elastic``, ``chaos``, ``repair``,
-    ``compile_cache``) are accepted and raise ``NotImplementedError``
-    naming their ROADMAP item unless they are at their "off" value."""
+    ``shard_opt_state``, ``telemetry``, ``metrics_port``, ``elastic``,
+    ``repair``, ``compile_cache``) are accepted and raise
+    ``NotImplementedError`` naming their ROADMAP item unless they are at
+    their "off" value."""
+    from tpudist_torch.resilience import PreemptionGuard, Preempted, make_injector
+
     for key, value in deferred.items():
         if key not in _DEFERRED:
             raise TypeError(f"fit() got an unexpected keyword argument {key!r}")
@@ -425,57 +568,158 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         global_rank = dist.get_rank() if group_up() else 0
     if batch_size is None:
         batch_size = train_loader.batch_size
+    if hasattr(train_loader, "probe"):
+        # the reference draws a one-row probe batch before training (its
+        # shape source); drawn here too, so a host transform's stream (the
+        # host augmentation) stands where the reference's does
+        train_loader.probe()
+    run_meta = (run_geometry(train_loader, batch_size=batch_size,
+                             world_size=world_size, grad_accum=grad_accum)
+                if checkpoint_dir is not None else None)
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
                            label_key=label_key, fused=fused,
                            grad_accum=grad_accum, forward_loss=forward_loss,
                            remat=remat, dropout_seed=seed,
                            input_transform=input_transform)
     state = create_train_state(model, tx)
-    fetch = _DelayedLoss(device)
+    chaos_inj = make_injector(chaos)
+    # ranks agree their stop and time-cadence saves through the step's
+    # all-reduce; one rank decides on its own, at once
+    voting = group_up() and dist.get_world_size() > 1
+    fetch = _DelayedFetch(device)
     losses: list[float] = []
     logger = metrics_logger or MetricsLogger(
         job_id, batch_size, global_rank, world_size, log_dir=log_dir)
-    with logger, WindowedProfiler(job_id, enabled=profile,
-                                  log_dir=f"{log_dir}/log_{job_id}",
-                                  device=device) as prof:
-        print("Start")
-        pending = None  # (global_step, epoch, idx, start, loss handle)
+    # installed before the checkpoint bring-up: a preemption anywhere past
+    # here exits 75 after persisting what had become restorable
+    guard = PreemptionGuard(enabled=bool(preempt)).__enter__()
+    ckpt = None
+    start_step = global_step = 0
+    preempt_signum = None
+    try:
+        if checkpoint_dir is not None:
+            from tpudist_torch.checkpoint import Checkpointer
 
-        def resolve(now: float) -> None:
-            g, e, idx, start, handle = pending
-            loss_value = fetch.value(handle)
-            losses.append(loss_value)
-            logger.log_step(g, loss_value, now - start)
-            logger.print_progress(e, idx, loss_value)
+            ckpt = Checkpointer(checkpoint_dir, keep_last=keep_last)
+            if chaos_inj is not None:
+                # the corrupt drill truncates a committed step: settle the
+                # save in flight first
+                chaos_inj.bind(checkpoint_dir, wait=ckpt.wait)
+            start_step = global_step = _bring_up_checkpoint(
+                ckpt, state, run_meta, resume=resume,
+                checkpoint_dir=checkpoint_dir)
+        steps_per_epoch = len(train_loader) if run_meta else None
+        with logger, WindowedProfiler(job_id, enabled=profile,
+                                      log_dir=f"{log_dir}/log_{job_id}",
+                                      device=device) as prof:
+            print("Start")
+            pending = None  # (global_step, epoch, idx, start, handle)
+            agreed = {"stop": False, "save": False}
+            last_save = {"t": time.monotonic(), "step": start_step}
 
-        global_step = 0
-        logger.start_timer()
-        try:
-            for e in range(epochs):
-                if hasattr(train_loader, "sampler"):
-                    train_loader.sampler.set_epoch(e)
-                staged = prefetch_to_device(iter(train_loader), device,
-                                            depth=prefetch_depth)
-                for idx, batch in enumerate(staged):
-                    start = time.time()
-                    global_step += 1
-                    state, metrics = step(state, batch)
-                    handle = fetch.start(metrics["loss"])
-                    prof.step()
-                    if pending is not None:
-                        resolve(start)
-                    pending = (global_step, e, idx, start, handle)
-        except BaseException:
-            # flush the last completed step before the error leaves, but
-            # never mask the error with a failing fetch
+            def resolve(now: float) -> None:
+                g, e, idx, start, handle = pending
+                loss_value, votes = fetch.value(handle)
+                losses.append(loss_value)
+                logger.log_step(g, loss_value, now - start)
+                logger.print_progress(e, idx, loss_value)
+                if votes:
+                    agreed["stop"] = agreed["stop"] or votes[0] > 0
+                    # a vote cast before the last save is spent
+                    agreed["save"] = agreed["save"] or (
+                        votes[1] > 0 and g > last_save["step"])
+
+            def save_due(g: int) -> bool:
+                if checkpoint_every and g % checkpoint_every == 0:
+                    return True
+                if voting:
+                    return agreed["save"]
+                return bool(checkpoint_every_s) and (
+                    time.monotonic() - last_save["t"] >= checkpoint_every_s)
+
+            # a trip while the consumer waits on a stalled input ends the
+            # stream early; under a group only a vote may stop a rank
+            stop_check = ((lambda: guard.tripped is not None)
+                          if guard.active and not voting else None)
+            logger.start_timer()
+            try:
+                start_epoch = global_step // steps_per_epoch if run_meta else 0
+                skip = global_step % steps_per_epoch if run_meta else 0
+                for e in range(start_epoch, epochs):
+                    if hasattr(train_loader, "sampler"):
+                        train_loader.sampler.set_epoch(e)
+                    first_idx = skip if e == start_epoch else 0
+                    batches = (train_loader.iter_from(first_idx) if first_idx
+                               else iter(train_loader))
+                    if chaos_inj is not None:
+                        batches = chaos_inj.wrap_batches(batches,
+                                                         global_step + 1)
+                    staged = prefetch_to_device(batches, device,
+                                                depth=prefetch_depth,
+                                                stop_check=stop_check)
+                    for idx, batch in enumerate(staged, start=first_idx):
+                        # the step boundary, before the next dispatch: chaos
+                        # first (an injected SIGTERM is seen below at once),
+                        # then the stop decision, so the checkpoint the
+                        # emergency save writes is the last completed step
+                        if chaos_inj is not None:
+                            chaos_inj.maybe_fire(global_step)
+                        tripped = guard.tripped is not None
+                        if agreed["stop"] or (tripped and not voting):
+                            preempt_signum = guard.tripped
+                            break
+                        start = time.time()
+                        global_step += 1
+                        votes = ()
+                        if voting:
+                            votes = (float(tripped), float(
+                                bool(checkpoint_every_s) and time.monotonic()
+                                - last_save["t"] >= checkpoint_every_s))
+                        state, metrics = step(state, batch, votes)
+                        handle = fetch.start(metrics)
+                        prof.step()
+                        if pending is not None:
+                            resolve(start)
+                        pending = (global_step, e, idx, start, handle)
+                        if ckpt is not None and save_due(global_step):
+                            # resolve the step first: its loss row, and the
+                            # votes it carries, are then taken on every rank
+                            # at this same save
+                            resolve(time.time())
+                            pending = None
+                            ckpt.save(state)
+                            agreed["save"] = False
+                            last_save.update(t=time.monotonic(),
+                                             step=global_step)
+                    # a trip during a stalled input wait ends the stream
+                    # without the check above
+                    if not voting and guard.tripped is not None:
+                        preempt_signum = guard.tripped
+                    if agreed["stop"] or preempt_signum is not None:
+                        break
+            except BaseException:
+                # flush the last completed step before the error leaves, but
+                # never mask the error with a failing fetch
+                if pending is not None:
+                    try:
+                        resolve(time.time())
+                    except Exception:
+                        pass
+                raise
             if pending is not None:
-                try:
-                    resolve(time.time())
-                except Exception:
-                    pass
-            raise
-        if pending is not None:
-            resolve(time.time())
+                resolve(time.time())
+            preempted = preempt_signum is not None or agreed["stop"]
+            if ckpt is not None and global_step > start_step:
+                # the emergency save is synchronous: the supervisor may
+                # relaunch the moment this process exits
+                ckpt.save(state, wait=preempted)
+    finally:
+        guard.__exit__(None, None, None)
+        if ckpt is not None:
+            ckpt.close()
+    if preempted:
+        raise Preempted(preempt_signum, global_step, state=state,
+                        losses=losses)
     return state, losses
 
 
