@@ -235,8 +235,9 @@ Phases, each fatal on failure:
     --optimizer sgd, lamb, lion and muon through the CLI at depth 2 (two
     finite steps each), and one step of each at GPT-2's leaf shapes
     (depth 2), card against CPU, under OPT_BARS as in phase 25;
-30. a ``{"kernels": [...]}`` line with all nine kernels; then the last
-    line, ``{"ok": true, "device": {...}}`` (printed after phases 31-33);
+30. a ``{"kernels": [...]}`` line with all nine kernels and the two wide
+    LayerNorm variants; then the last line, ``{"ok": true, "device":
+    {...}}`` (printed after phases 31-38);
 31. recovery, ResNet-50 — ``python -m tpudist_torch.launch
     --nproc_per_node 1`` runs ``tpudist_torch.main`` (through this
     script's ``--recovery_child`` mode, which forms a 1-rank NCCL group,
@@ -265,9 +266,46 @@ Phases, each fatal on failure:
     (about 0.31 and 1.49 GB: float32 masters, m and v), what an
     asynchronous save blocks the loop (the host copy queued behind one
     event), its background write, an emergency ``wait=True`` save and a
-    restore, with the card's name and power limit.
+    restore, with the card's name and power limit;
+34. wide-row LayerNorm — the wide kernels' registers and spills (16
+    instantiations, none may spill), then ``ln_fwd_wide_kernel`` and
+    ``ln_bwd_wide_kernel`` (rows past 2048) against their plain versions
+    at 1000 x 2560, 8192 x 4096, 1000 x 5120, 2048 x 8192 and the
+    element-wise paths (1000 x 4100; 512 x 4096 one element in), plain and
+    pre-norm, RMS on and off, f32 and bf16, under phase 11's bars; two bf16
+    RMS calls at 4096 x 4096 bit-identical; one forward and one backward
+    at D 768, 2048, 2056, 4096 and 8192 launch the register kernels up to
+    2048 and the wide ones past it; D 8200 raises ValueError naming the
+    widest row; then the median device times at 4096 x 4096 (a Llama-3-8B
+    step's rows) and 2048 x 8192 beside the byte bound, the plain version
+    and ``F.rms_norm`` / ``F.layer_norm`` (and their backward through
+    autograd);
+35. llama_125m, trained — ``train_gpt2.main --arch llama --num_kv_heads 4
+    --vocab_size 32000 --bf16 --fused all --attn auto`` (12 x 768, GQA
+    12/4, SwiGLU 2048, an untied head), batch 8, S 1024, 16 steps on phase
+    14's text under a 1-rank NCCL group: launches a step (RMS LN forward 25,
+    backward 25 plus 25 reductions, vmem forward 12 and backward 12 over
+    grouped heads, one fused AdamW over 111 leaves), and phase 14's TSV,
+    tokens/sec and trace readings;
+36. agreement — in f32 at depth 2, four steps of --fused all --attn vmem
+    and of --fused none --attn xla from the same init, under phase 15's
+    LOSS_BAR / PARAM_BAR;
+37. Llama decode — llama_125m in bf16 with ``attn_impl="fused"``:
+    ``generate()`` on B 4, prompt 64, 32 new tokens (the contiguous kernel
+    12 x 32 times over the cache's 4 K/V heads), then
+    ``ServeEngine(paged=True, block_size=32, max_slots=8)`` on 8 requests
+    as phase 4 serves them (the paged kernel 12 times per decode step);
+    in f32 the engine with ``"fused"`` and with ``"xla"`` gives identical
+    greedy streams;
+38. Llama-3-8B width at depth 2 — ``--arch llama --hidden_dim 4096
+    --depth 2 --num_heads 32 --num_kv_heads 8 --ffn_dim 14336 --vocab_size
+    128256 --rope_theta 500000 --bf16 --fused all --attn auto --chunked_ce
+    256``, batch 2, S 2048, 16 steps (depth cut from 32 so one card holds
+    the AdamW state): launches a step (the wide LN kernels 5 / 5 + 5, flash
+    forward and backward 2 each at head dim 128, one fused AdamW over 21
+    leaves), the TSV and trace readings and the peak device memory.
 
-Phases 22-29 and 31-33 print their seconds.
+Phases 22-29 and 31-38 print their seconds.
 """
 
 from __future__ import annotations
@@ -325,7 +363,9 @@ REPLACES = {"paged_decode_attention": "tpudist/ops/decode.py:358",
             "vmem_attention_fwd": "tpudist/ops/vmem_attention.py:233",
             "vmem_attention_bwd": "tpudist/ops/vmem_attention.py:264",
             "flash_attention_fwd": "tpudist/ops/flash_attention.py:127",
-            "flash_attention_bwd": "tpudist/ops/flash_attention.py:307"}
+            "flash_attention_bwd": "tpudist/ops/flash_attention.py:307",
+            "layernorm_fwd_wide": "tpudist/ops/layernorm.py:189",
+            "layernorm_bwd_wide": "tpudist/ops/layernorm.py:215"}
 SOURCES = {"paged_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "fused_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "fused_adamw": "tpudist_torch/csrc/fused_update.cu",
@@ -334,7 +374,20 @@ SOURCES = {"paged_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "vmem_attention_fwd": "tpudist_torch/csrc/vmem_attention.cu",
            "vmem_attention_bwd": "tpudist_torch/csrc/vmem_attention.cu",
            "flash_attention_fwd": "tpudist_torch/csrc/flash_attention.cu",
-           "flash_attention_bwd": "tpudist_torch/csrc/flash_attention.cu"}
+           "flash_attention_bwd": "tpudist_torch/csrc/flash_attention.cu",
+           "layernorm_fwd_wide": "tpudist_torch/csrc/layernorm.cu",
+           "layernorm_bwd_wide": "tpudist_torch/csrc/layernorm.cu"}
+#: the wide-row LayerNorm kernels' counts (rows past 2048), which no GPT-2
+#: or ViT path launches
+WIDE_LN = frozenset({"layernorm_fwd_wide", "layernorm_bwd_wide"})
+#: the Llama phases' geometry flags: llama_125m (12 x 768, GQA 12/4, SwiGLU
+#: 2048) at a 32000-token vocabulary, and Llama-3-8B's width (phase 38)
+LLAMA_125M = ["--arch", "llama", "--num_kv_heads", "4", "--vocab_size",
+              "32000"]
+LLAMA3_8B_WIDTH = ["--arch", "llama", "--hidden_dim", "4096", "--depth", "2",
+                   "--num_heads", "32", "--num_kv_heads", "8", "--ffn_dim",
+                   "14336", "--vocab_size", "128256", "--rope_theta",
+                   "500000"]
 
 
 def fail(msg: str) -> None:
@@ -557,6 +610,7 @@ def main() -> int:
     lm_flag_phases(smi, dev)
     recovery_phases(smi)
     checkpoint_costs(smi)
+    kernels.extend(llama_phases(smi, dev))
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -1076,6 +1130,7 @@ def vit_phases(smi: str, dev) -> None:
     steps = len(losses)
     per_step = {"layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
                 "layernorm_bwd_reduce": 2 * depth + 1,
+                "layernorm_fwd_wide": 0, "layernorm_bwd_wide": 0,
                 "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
                 "fused_adamw": 1, "fused_adamw_leaves": n_leaves,
@@ -1150,7 +1205,10 @@ def vit_phases(smi: str, dev) -> None:
           f"finite logits and gradients {finite}; LayerNorm launches "
           f"{ln_counts}")
     if (logits.shape != (32, 1000) or logits.dtype != torch.float32
-            or not finite or set(ln_counts.values()) != {25}):
+            or not finite or ln_counts != {
+                "layernorm_fwd": 25, "layernorm_bwd": 25,
+                "layernorm_bwd_reduce": 25, "layernorm_fwd_wide": 0,
+                "layernorm_bwd_wide": 0}):
         fail("bf16 ViT-B/16 at 224x224")
     base = vit_b16(patch_size=16, image_size=224, device=dev)
     want = forward_backward(base)
@@ -1573,6 +1631,249 @@ def lm_flag_phases(smi: str, dev) -> None:
     print(f"  phase 29: {time.perf_counter() - t0:.1f} s")
 
 
+def llama_phases(smi: str, dev) -> list[dict]:
+    """Phases 34-38: the wide-row LayerNorm kernels and the Llama paths.
+    Returns the wide kernels' two entries of the ``kernels`` line, their
+    launches from phase 38 (the Llama-3-8B-width leg)."""
+    entries = wide_ln_phase(smi, dev)
+    llama_training_phases(smi)
+    llama_decode_phase(smi, dev)
+    counts = llama_wide_phase(smi)
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+    return entries
+
+
+def wide_ln_phase(smi: str, dev) -> list[dict]:
+    """Phase 34 (module docstring)."""
+    import torch
+
+    from tpudist_torch.ops import layernorm as LN
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    print("== 34. wide-row LayerNorm parity: D 2560, 4096 (8192 rows), 5120, "
+          "8192, 4100 and 4096 one element in; plain and pre-norm, rms on/off, "
+          "f32/bf16")
+    from tpudist_torch.csrc import build
+
+    wide = [r for r in build.register_report("layernorm.cu")
+            if "_wide_kernel<" in r["kernel"]]
+    print("  the wide kernels (-Xptxas -v):")
+    for r in wide:
+        print(f"    {r['kernel']}: {r['registers']} registers, "
+              f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / "
+              "loads")
+    spilled = [r["kernel"] for r in wide if r["spill_stores"] or r["spill_loads"]]
+    if len(wide) != 16 or spilled:
+        fail(f"wide LayerNorm kernels: {len(wide)} built, spills {spilled}")
+    for name, got, want in LB.ln_parity(gen, LB.WIDE_CASES, ("plain", "pre")):
+        check(name, got, want, elem=True)
+    if FAILURES:
+        fail(f"wide-row LayerNorm parity: {FAILURES}")
+    same = LB.wide_repeat_identical(gen)
+    print(f"  two bf16 RMS calls at 4096 x 4096 bit-identical: {same}")
+    if not all(same.values()):
+        fail(f"the wide LayerNorm kernels are not deterministic: {same}")
+    # D <= 2048 keeps the register kernels, one launch each; past it the
+    # wide ones; past the widest the wrapper raises naming it
+    routes = {}
+    for d in (768, 2048, 2056, 4096, 8192):
+        t = LB.ln_inputs(gen, 64, d, torch.bfloat16)
+        LN.reset_launch_counts()
+        LN.layernorm_fwd_cuda(t["x"], None, t["scale"], None, eps=LB.EPS,
+                              rms=True, out_dtype=torch.bfloat16,
+                              want_residual=False)
+        LN.layernorm_bwd_cuda(t["x"], t["g"], None, t["scale"], eps=LB.EPS,
+                              rms=True)
+        routes[d] = {k: n for k, n in LN.launch_counts.items() if n}
+        kind = "_wide" if d > LN.MAX_REG_D else ""
+        if routes[d] != {f"layernorm_fwd{kind}": 1, f"layernorm_bwd{kind}": 1,
+                         "layernorm_bwd_reduce": 1}:
+            fail(f"D {d} launched {routes[d]}")
+    print(f"  launches by width (one forward and one backward each): {routes}")
+    t = LB.ln_inputs(gen, 4, 8200, torch.bfloat16)
+    try:
+        LN.layernorm_fwd_cuda(t["x"], None, t["scale"], None, eps=LB.EPS,
+                              rms=True, out_dtype=torch.bfloat16,
+                              want_residual=False)
+    except ValueError as e:
+        print(f"  D 8200: ValueError ({e})")
+        if "8192" not in str(e):
+            fail("the width limit's error does not name it")
+    else:
+        fail("D 8200 did not raise")
+
+    print("  times (median of 50 device times, L2 flushed; bf16):")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    entries = []
+    for case in LB.wide_timing_cases(gen):
+        tm = LB.time_case(case, flush)
+        lib = ("n/a" if tm["library_ms"] is None
+               else f"{tm['library_ms'] * 1e3:.2f} us")
+        print(f"  {case['name']} [{case['shape']}]: kernel "
+              f"{tm['kernel_ms'] * 1e3:.2f} us, bound {case['bound_ms'] * 1e3:.2f}"
+              f" us ({case['bound_by']}), plain {tm['plain_ms'] * 1e3:.1f} us, "
+              f"library {lib}, max_abs_err {case['max_abs_err']:.3e}  [{smi}]")
+        if case["name"] in REPLACES:
+            entries.append(dict(
+                name=case["name"], route="cuda", source=SOURCES[case["name"]],
+                replaces=REPLACES[case["name"]], ms=tm["kernel_ms"],
+                plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
+                max_abs_err=case["max_abs_err"], bound_ms=case["bound_ms"],
+                bound_by=case["bound_by"]))
+    del flush
+    print(f"  phase 34: {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def llama_training_phases(smi: str) -> None:
+    """Phases 35-36 (module docstring)."""
+    t0 = time.perf_counter()
+    print("== 35. llama_125m, bf16, --fused all --attn auto, 16 steps under "
+          "DDP (NCCL)")
+    trained_gpt2(
+        [*LLAMA_125M, "--bf16", "--fused", "all", "--attn", "auto"], batch=8,
+        seq=1024, job="Llama", smi=smi, leaves=3 + 9 * 12,
+        want=lambda depth, n_leaves: {
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1, "layernorm_fwd_wide": 0,
+            "layernorm_bwd_wide": 0, "vmem_attention_fwd": depth,
+            "vmem_attention_bwd": depth, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0, "fused_adamw": 1,
+            "fused_adamw_leaves": n_leaves})
+    print(f"  phase 35: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("== 36. f32, llama_125m at depth 2: --fused all --attn vmem vs "
+          "--fused none --attn xla, 4 steps")
+    f32_agreement(
+        (["--fused", "all", "--attn", "vmem"], {
+            "flash_attention_fwd", "flash_attention_bwd", "fused_adamw_check"}),
+        ["--fused", "none", "--attn", "xla"],
+        run=gpt2_runner(8, 1024, extra=[*LLAMA_125M, "--depth", "2"]),
+        loss_bar=LOSS_BAR, param_bar=PARAM_BAR, peak_lr=3e-4,
+        what="f32 fused and unfused Llama training")
+    print(f"  phase 36: {time.perf_counter() - t0:.1f} s")
+
+
+def llama_decode_phase(smi: str, dev) -> None:
+    """Phase 37 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from tpudist_torch.generate import generate
+    from tpudist_torch.models.llama import llama_125m
+    from tpudist_torch.ops import decode as D
+    from tpudist_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    vocab = 32000
+    rng = np.random.Generator(np.random.PCG64(SEED + 37))
+    prompts = [rng.integers(0, vocab, (int(n),)).astype(np.int32)
+               for n in rng.integers(16, 129, 8)]
+    print("== 37. llama_125m decode, bf16, attn_impl='fused': generate() "
+          "B 4, prompt 64, 32 new tokens; paged engine, 8 requests")
+    model = llama_125m(vocab_size=vocab, max_seq_len=1024,
+                       dtype=torch.bfloat16, attn_impl="fused", device=dev,
+                       seed=SEED + 37)
+    cache = model.init_cache(1)
+    if cache["layers"][0]["k"].shape[1] != model.num_kv_heads:
+        fail(f"the decode cache holds {cache['layers'][0]['k'].shape[1]} "
+             f"heads, not the {model.num_kv_heads} K/V heads")
+    batch = np.stack([rng.integers(0, vocab, (64,)).astype(np.int32)
+                      for _ in range(4)])
+    generate(model, batch[:, :16], 2, temperature=0.0)  # warm-up
+    D.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = generate(model, batch, NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    static = dict(D.launch_counts)
+    if toks.shape != (4, NEW) or not ((toks >= 0) & (toks < vocab)).all():
+        fail(f"Llama generate() returned {toks.shape}")
+    if static != {"fused_decode_attention": model.depth * NEW,
+                  "paged_decode_attention": 0}:
+        fail(f"Llama generate() launched {static}, want {model.depth} x {NEW}"
+             " contiguous")
+    print(f"  generate(): contiguous kernel launches "
+          f"{static['fused_decode_attention']} (= {model.depth} x {NEW}), "
+          f"H 12 / H_kv 4 read in place; {gen_s:.3f} s for 4 x {NEW} tokens"
+          f"  [{smi}]")
+    eng = ServeEngine(model, max_slots=8, paged=True, block_size=32, seed=SEED)
+    warm = eng.submit(prompts[0][:20], 4)
+    eng.run()
+    if len(eng.result(warm)) != 4:
+        fail("Llama warm-up request did not complete")
+    eng.reset_stats()
+    steps0 = eng.decode_steps
+    sampling = [dict(temperature=0.0)] * 6 + [
+        dict(temperature=1.0, top_k=50, top_p=0.95)] * 2
+    D.reset_launch_counts()
+    rids = [eng.submit(p, NEW, **o) for p, o in zip(prompts, sampling)]
+    torch.cuda.synchronize()
+    out = eng.run()
+    torch.cuda.synchronize()
+    served = dict(D.launch_counts)
+    steps = eng.decode_steps - steps0
+    for r in rids:
+        if len(out[r]) != NEW or not all(0 <= x < vocab for x in out[r]):
+            fail(f"Llama request {r}: {len(out[r])} tokens")
+    if served != {"paged_decode_attention": model.depth * steps,
+                  "fused_decode_attention": 0}:
+        fail(f"the Llama engine launched {served} for {steps} decode steps")
+    snap = eng.stats.snapshot()
+    print(f"  paged engine: 8 requests x {NEW} tokens, {steps} decode steps, "
+          f"paged kernel launches {served['paged_decode_attention']} (= "
+          f"{model.depth} x {steps}); TTFT p50 {snap['ttft_p50']} s, TPOT "
+          f"p50 {snap['tpot_p50']} s, {snap['tokens_per_sec']} tok/s  [{smi}]")
+    del model, eng
+    streams = {}
+    for impl in ("fused", "xla"):
+        m = llama_125m(vocab_size=vocab, max_seq_len=1024, attn_impl=impl,
+                       device=dev, seed=SEED + 37)
+        e = ServeEngine(m, max_slots=8, paged=True, block_size=32, seed=SEED)
+        ids = [e.submit(p, NEW) for p in prompts]
+        res = e.run()
+        streams[impl] = [res[i] for i in ids]
+        if impl == "xla":
+            gap = top2_gap(m, prompts, streams[impl])
+        del m, e
+    same = streams["fused"] == streams["xla"]
+    print(f"  f32: attn_impl='fused' vs 'xla' greedy streams identical: "
+          f"{same}; smallest top-2 logit gap {gap:.3e}")
+    if not same:
+        fail("f32 Llama kernel and dense greedy streams differ")
+    print(f"  phase 37: {time.perf_counter() - t0:.1f} s")
+
+
+def llama_wide_phase(smi: str) -> dict:
+    """Phase 38 (module docstring). Returns its launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    print("== 38. Llama-3-8B width at depth 2 (d 4096, GQA 32/8, ffn 14336, "
+          "vocab 128256, theta 5e5), bf16, S 2048, batch 2, --fused all "
+          "--attn auto --chunked_ce 256, 16 steps under DDP (NCCL)")
+    torch.cuda.reset_peak_memory_stats()
+    counts = trained_gpt2(
+        [*LLAMA3_8B_WIDTH, "--bf16", "--fused", "all", "--attn", "auto",
+         "--chunked_ce", "256"], batch=2, seq=2048, job="Llama8B", smi=smi,
+        leaves=3 + 9 * 2, want=lambda depth, n_leaves: {
+            "layernorm_fwd": 0, "layernorm_bwd": 0,
+            "layernorm_fwd_wide": 2 * depth + 1,
+            "layernorm_bwd_wide": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
+            "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
+            "flash_attention_bwd": depth, "fused_adamw": 1,
+            "fused_adamw_leaves": n_leaves})
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB (torch.cuda.max_memory_allocated)  [{smi}]")
+    print(f"  phase 38: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def counted_modules():
     """The wrapper modules whose launch counts the GPT-2 phases read."""
     from tpudist_torch.ops import flash_attention as FA
@@ -1589,14 +1890,15 @@ def launches() -> dict:
 
 
 def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
-                 want, legs: dict | None = None) -> dict:
+                 want, legs: dict | None = None, leaves: int = 148) -> dict:
     """Phases 14 and 18: a 1-rank NCCL group, then ``train_gpt2.main``
     with GPT-2 124M at full width and depth, ``flags``, the profiler on,
     16 steps on :func:`lm_kernels_bench.token_file`'s text, every launch
     count set to 0 just before and read just after. Fails unless it ran
     under DDP, launched ``want(depth, the model's leaves)`` kernels per step
-    (one fused-AdamW launch covering all 148 leaves), and wrote finite,
-    falling losses, the
+    (one fused-AdamW launch covering all ``leaves`` leaves: GPT-2's 148 by
+    default; ``flags`` may name another model, e.g. ``--arch llama``), and
+    wrote finite, falling losses, the
     tokens/sec line, the TSV rows and a trace with device work. With
     ``legs`` (filled by :func:`leg_counts`) the training's counts are those
     read before the after-training legs. Returns the launch counts."""
@@ -1639,7 +1941,7 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
     print(f"  {steps} steps; launches {counts} (per step {per_step}); losses "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}")
     del state, model
-    if steps != 16 or n_leaves != 148 or any(
+    if steps != 16 or n_leaves != leaves or any(
             counts[k] != n * steps for k, n in per_step.items()):
         fail(f"{steps} steps, launches {counts}, want {per_step} per step")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -1733,6 +2035,7 @@ def f32_agreement(kernel_path, dense_flags, *, run, loss_bar: float,
     either sign): on both runs it stays within 1.5 x steps x
     ``peak_lr`` of its zero init."""
     (kernel_flags, unused) = kernel_path
+    unused = set(unused) | WIDE_LN  # every agreement phase runs D 768
     runs = []
     with tempfile.TemporaryDirectory() as log_dir:
         for flags, kernels in ((kernel_flags, True), (dense_flags, False)):

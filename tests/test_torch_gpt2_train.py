@@ -482,18 +482,40 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--arch", "llama"], ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
+    ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
     ["--fsdp", "2"], ["--cp", "2"], ["--attn", "ring"],
     ["--attn", "ulysses"], ["--attn", "ulysses_flash"],
-    ["--init_hf", "x", "--arch", "llama"], ["--dropout", "0.1", "--arch", "llama"],
     ["--eval", "--cp", "2"], ["--generate", "8", "--top_k", "5", "--attn", "ring"],
     ["--remat_policy", "full", "--pipe", "2"],
     ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic"],
-    ["--compile_cache", "cc"], ["--shard_opt_state"], ["--num_kv_heads", "2"],
+    ["--compile_cache", "cc"], ["--shard_opt_state"],
+    ["--experts", "4", "--arch", "llama"], ["--attn", "ring", "--arch", "llama"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
         main([*CLI, *flag])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--arch", "llama"], ["--arch", "llama", "--num_kv_heads", "2"],
+    ["--arch", "llama", "--num_kv_heads", "1", "--ffn_dim", "96",
+     "--rope_theta", "500000", "--tie_embeddings"],
+    ["--num_kv_heads", "2", "--ffn_dim", "96"],
+], ids=lambda f: " ".join(f))
+def test_llama_flags_run(flag, tmp_path):
+    """The Llama flags that raised before Llama was ported now train
+    (``tests/test_torch_llama.py`` holds them to the reference); under
+    ``--arch gpt2`` the reference ignores them, and so does the port."""
+    state, losses = main([*CLI, *flag, "--epochs", "1", "--total_steps",
+                          "16", "--log_dir", str(tmp_path)])
+    assert len(losses) == 16 and np.isfinite(losses).all()
+    llama = "llama" in flag
+    assert type(state.model).__name__ == ("Llama" if llama else "GPT2")
+    if llama:
+        kv = int(flag[flag.index("--num_kv_heads") + 1]) if \
+            "--num_kv_heads" in flag else 4
+        assert state.model.num_kv_heads == kv
+        assert state.model.tie_embeddings == ("--tie_embeddings" in flag)
 
 
 @pytest.mark.parametrize("flag,error,match", [
@@ -507,6 +529,9 @@ def test_unported_flags_raise(flag):
      "adam"),
     (["--init_hf", "no/such/dir"], FileNotFoundError, "no/such/dir"),
     (["--remat", "bogus"], SystemExit, "2"),
+    (["--dropout", "0.1", "--arch", "llama"], SystemExit, "dropout"),
+    (["--arch", "llama", "--scan_layers", "--generate", "8"], SystemExit,
+     "--scan_layers"),
 ], ids=lambda f: " ".join(f) if isinstance(f, list) else "")
 def test_refused_where_the_reference_refuses(flag, error, match, tmp_path):
     with pytest.raises(error, match=match):

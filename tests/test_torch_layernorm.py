@@ -124,6 +124,31 @@ def test_backward_at_a_main_path_row_count(comp, rms, dtype, kernel_parity):
         kernel_parity(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("comp", ["plain", "pre"])
+def test_wide_rows_match_the_reference_kernel(comp, rms, dtype,
+                                              kernel_parity):
+    """16 rows of D 4096 (Llama-7B/8B's width, past the register kernels'
+    2048: on the card the wide kernels) against the reference kernel in
+    interpret mode, which pads D to its lanes and shrinks its row block:
+    n (and r), dx (and dy), dscale and dbias under the kernel-parity
+    rule."""
+    t = _inputs(4096, seed=23 + rms, shape=(16,))
+    want_out, want_grads = _jax(comp, t, jnp.dtype(dtype), rms)
+    got_out, got_grads = _port(comp, t, getattr(torch, dtype), rms)
+    for got, want in zip(got_out, want_out):
+        kernel_parity(got.detach().float().numpy(), np.asarray(want))
+    for name, got, want in zip(("dx", "dy", "dscale", "dbias"), got_grads,
+                               want_grads):
+        want = np.asarray(want)
+        if name == "dy" and comp == "plain" or name == "dbias" and rms:
+            assert got is None and not want.any(), name
+            continue
+        kernel_parity(got.float().numpy(), want)
+    assert 4096 > LN.MAX_REG_D and LN.MAX_D >= 8192
+
+
 def test_row_statistics_round_each_sum_once():
     """The backward's statistics (``_row_stats(exact=True)``), the rounding
     the backward kernel follows: each row sum taken in float64 and rounded

@@ -233,7 +233,7 @@ def test_init_hf_computes_transformers_logits_and_round_trips(hf, tmp_path):
     assert torch.equal(state.model.wpe.detach(), sd["wpe"][:16])
 
 
-@pytest.mark.parametrize("arch", ["llama", "bert", "t5"])
+@pytest.mark.parametrize("arch", ["bert", "t5"])
 def test_other_families_name_their_item(arch, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #4"):
         interop.load_hf_params(tmp_path, arch=arch, depth=1, num_heads=1)

@@ -12,6 +12,11 @@
 //                    recomputed from the saved r, dr = rstd * (g^ -
 //                    x^ mean(g^ x^) - mean(g^)) (+ gr), and dscale =
 //                    sum g x^, dbias = sum g over all rows in f32.
+//   ln_fwd_wide_kernel, ln_bwd_wide_kernel
+//                    the same two functions for rows wider than a warp's
+//                    registers hold (kMaxRegD, 2048; the reference's
+//                    kernel takes any width), one row a block staged in
+//                    shared memory, up to kMaxD (8192); see "Rows wider".
 //
 // What bounds them on the H100: bytes. At GPT-2's 8192 x 768 rows in bf16
 // the pre-norm forward reads x and y and writes n and r (8 bytes per
@@ -75,7 +80,12 @@ constexpr int kThreads = kWarp * kRowsPerBlock;
 constexpr int kBwdWarps = 8;  // the backward's warps a block
 constexpr int kBwdThreads = kWarp * kBwdWarps;
 constexpr int kFinishCols = 8;  // columns a warp of ln_bwd_reduce adds up
-constexpr int kMaxD = 2048;
+constexpr int kMaxRegD = 2048;  // the widest row a warp's registers hold
+constexpr int kWideWarps = 16;  // the wide kernels' warps, one row a block
+constexpr int kWideThreads = kWarp * kWideWarps;
+// the widest row: the wide backward stages 24 bytes a column in shared
+// memory (192 KB of the H100's 227 KB a block at 8192, Llama-2-70B's width)
+constexpr int kMaxD = 8192;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -662,6 +672,192 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                               db_part, n_rows, d, inv_d, eps, rms, red);
 }
 
+// ---------------------------------------------------------------------------
+// Rows wider than kMaxRegD (Llama-2-7B's and Llama-3-8B's 4096, up to
+// kMaxD). A warp's registers cannot hold such a row (PER would be 128 floats
+// a lane at D 4096), so these kernels give each row a block of kWideThreads
+// and stage it in shared memory as f32. Thread t owns the columns of chunks
+// t, t + kWideThreads, ... (V consecutive columns a chunk: 16-byte loads
+// where the launch allows them, one element otherwise), for the row and,
+// in the backward, for the block's column sums, so the staging needs no
+// barrier: only the block-wide sums do. Simple first: one row a block at a
+// time, the row read from device memory once, its values re-read from
+// shared memory by the thread that wrote them.
+
+// the sum of v over the block, in f64, the same on every thread: warp
+// butterflies, then warp 0 .. kWideWarps - 1 added in order from shared
+// memory (red: kWideWarps doubles; the leading barrier frees it from the
+// previous call)
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  v = warp_sum_f64(v);
+  __syncthreads();
+  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  double t = 0.0;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) t += red[w];
+  return t;
+}
+
+// The forward, one row a block on a grid of up to a wave of blocks: r = x
+// (+ y) staged in f32, the mean and the direct variance from block sums
+// (thread partials in f64, rounded to f32 once), then n and r written from
+// the staged row. Dynamic shared memory: the row, then kWideWarps doubles.
+template <typename TX, typename TO, int V>
+__global__ void __launch_bounds__(kWideThreads)
+    ln_fwd_wide_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, TO* __restrict__ out,
+                       TX* __restrict__ res, long long n_rows, int d,
+                       float inv_d, float eps, int rms) {
+  extern __shared__ double wide_smem[];
+  double* red = wide_smem;
+  float* rs = reinterpret_cast<float*>(wide_smem + kWideWarps);
+  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const long long base = row * d;
+    double s = 0.0;
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+      float v[V];
+      Pack<TX, V> xp;
+      xp.load(x + base + c);
+      xp.widen(v);
+      if (y != nullptr) {
+        float t[V];
+        Pack<TX, V> yp;
+        yp.load(y + base + c);
+        yp.widen(t);
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] += t[k];
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        rs[c + k] = v[k];
+        s += v[k];
+      }
+    }
+    const float mean = rms ? 0.f : __fmul_rn((float)block_sum(s, red), inv_d);
+    double ss = 0.0;
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float cv = rs[c + k] - mean;
+        ss += __fmul_rn(cv, cv);
+      }
+    }
+    const float var = __fmul_rn((float)block_sum(ss, red), inv_d);
+    const float rstd = rsqrtf(__fadd_rn(var, eps));
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+      float n[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        n[k] = (rs[c + k] - mean) * rstd * scale[c + k];
+        if (bias != nullptr) n[k] += bias[c + k];
+      }
+      store_cols<V>(out + base + c, n);
+      if (res != nullptr) store_cols<V>(res + base + c, rs + c);
+    }
+  }
+}
+
+// The backward, one row a block at a time on the persistent grid of
+// ln_bwd_kernel (n_parts blocks, block b taking rows b, b + n_parts, ...):
+// r and g staged in f32, the statistics as the forward's (the thread
+// partials in f64 as layernorm_bwd_plain's exact row sums), the row sums
+// of g^ x^ and g^ in f64, dr written, and each column's g x^ (rounded to
+// f32) and g added in f64 into the block's own sums in shared memory by
+// the thread that owns the column; at the end the block writes them as its
+// partial row for ln_bwd_reduce. Dynamic shared memory: the two f64 column
+// sums, kWideWarps doubles, then the staged r (x^ once computed) and g:
+// 24 bytes a column, 192 KB at D 8192.
+template <typename TX, typename TG, int V>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    ln_bwd_wide_kernel(const TX* __restrict__ r_in,
+                       const TG* __restrict__ g_in,
+                       const TX* __restrict__ gr_in,
+                       const float* __restrict__ scale,
+                       TX* __restrict__ dr_out, double* ds_part,
+                       double* db_part, long long n_rows, int d, float inv_d,
+                       float eps, int rms) {
+  extern __shared__ double wide_smem[];
+  double* ds_acc = wide_smem;
+  double* db_acc = ds_acc + d;
+  double* red = db_acc + d;
+  float* xs = reinterpret_cast<float*>(red + kWideWarps);
+  float* gs = xs + d;
+  for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) ds_acc[c + k] = db_acc[c + k] = 0.0;
+  }
+  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const long long base = row * d;
+    double s = 0.0;
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+      Pack<TX, V> rp;
+      rp.load(r_in + base + c);
+      rp.widen(xs + c);
+      Pack<TG, V> gp;
+      gp.load(g_in + base + c);
+      gp.widen(gs + c);
+#pragma unroll
+      for (int k = 0; k < V; ++k) s += xs[c + k];
+    }
+    const float mean = rms ? 0.f : __fmul_rn((float)block_sum(s, red), inv_d);
+    double ss = 0.0;
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float cv = xs[c + k] - mean;
+        ss += __fmul_rn(cv, cv);
+      }
+    }
+    const float var = __fmul_rn((float)block_sum(ss, red), inv_d);
+    const float rstd = rsqrtf(__fadd_rn(var, eps));
+    // x^ in place of r; g^ = g * scale is recomputed where it is used
+    double s2 = 0.0, s1 = 0.0;
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float xhat = (xs[c + k] - mean) * rstd;
+        const float dxhat = gs[c + k] * scale[c + k];
+        xs[c + k] = xhat;
+        s2 += __fmul_rn(dxhat, xhat);
+        s1 += dxhat;
+      }
+    }
+    const float c2 = __fmul_rn((float)block_sum(s2, red), inv_d);
+    const float c1 = rms ? 0.f : __fmul_rn((float)block_sum(s1, red), inv_d);
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+      float dr[V], grv[V];
+      if (gr_in != nullptr) {
+        Pack<TX, V> gp;
+        gp.load(gr_in + base + c);
+        gp.widen(grv);
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float gv = gs[c + k], xhat = xs[c + k];
+        const float dxhat = gv * scale[c + k];
+        dr[k] = dxhat - xhat * c2;
+        if (!rms) dr[k] -= c1;
+        dr[k] *= rstd;
+        if (gr_in != nullptr) dr[k] += grv[k];
+        ds_acc[c + k] += (double)__fmul_rn(gv, xhat);
+        db_acc[c + k] += (double)gv;
+      }
+      store_cols<V>(dr_out + base + c, dr);
+    }
+  }
+  double* ds_row = ds_part + (long long)blockIdx.x * d;
+  double* db_row = db_part + (long long)blockIdx.x * d;
+  for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      ds_row[c + k] = ds_acc[c + k];
+      db_row[c + k] = db_acc[c + k];
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -737,6 +933,17 @@ int parts_for(long long n_rows) {
   return (int)(groups < wave ? (groups > 0 ? groups : 1) : wave);
 }
 
+// After the row kernel (checked): ln_bwd_reduce adds its partial rows.
+int launch_reduce(void* ds_part, void* db_part, void* ds, void* db,
+                  int n_parts, int d, cudaStream_t s) {
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_bwd_reduce<<<(unsigned)((d + kFinishCols - 1) / kFinishCols), kWarp, 0, s>>>(
+      static_cast<const double*>(ds_part), static_cast<const double*>(db_part),
+      static_cast<float*>(ds), static_cast<float*>(db), n_parts, d);
+  return (int)cudaGetLastError();
+}
+
 template <typename TX, typename TG, int PER, int V>
 int launch_bwd(const void* r, const void* g, const void* gr,
                const void* scale, void* dr, void* ds_part, void* db_part,
@@ -754,12 +961,7 @@ int launch_bwd(const void* r, const void* g, const void* gr,
       static_cast<const TX*>(gr), static_cast<const float*>(scale),
       static_cast<TX*>(dr), static_cast<double*>(ds_part),
       static_cast<double*>(db_part), n_rows, d, inv_d, eps, rms);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ln_bwd_reduce<<<(unsigned)((d + kFinishCols - 1) / kFinishCols), kWarp, 0, s>>>(
-      static_cast<const double*>(ds_part), static_cast<const double*>(db_part),
-      static_cast<float*>(ds), static_cast<float*>(db), n_parts, d);
-  return (int)cudaGetLastError();
+  return launch_reduce(ds_part, db_part, ds, db, n_parts, d, s);
 }
 
 template <typename TX, typename TG, int PER>
@@ -798,6 +1000,128 @@ int bwd_per(int r_dtype, int g_dtype, const void* r, const void* g,
   }
 }
 
+// -- the wide rows (d > kMaxRegD) ---------------------------------------------
+
+// a kernel's dynamic shared memory above the 48 KB default needs opting in
+template <typename K>
+cudaError_t allow_smem(K kern, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+template <typename TX, typename TO, int V>
+int launch_fwd_wide(const void* x, const void* y, const void* scale,
+                    const void* bias, void* out, void* res, long long n_rows,
+                    int d, float inv_d, float eps, int rms, cudaStream_t s) {
+  auto kern = ln_fwd_wide_kernel<TX, TO, V>;
+  const int smem = kWideWarps * (int)sizeof(double) + d * (int)sizeof(float);
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kWideThreads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) per_sm = 1;
+  long long blocks = n_rows;
+  const long long wave = (long long)sm_count() * per_sm;
+  if (blocks > wave) blocks = wave;
+  kern<<<(unsigned)blocks, kWideThreads, smem, s>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(y),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<TO*>(out), static_cast<TX*>(res), n_rows, d, inv_d, eps,
+      rms);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte loads (V 8) where the width is a multiple of 8 and every pointer
+// is 16-byte aligned, element-wise (V 1) otherwise
+template <typename TX, typename TO>
+int fwd_wide_vec(const void* x, const void* y, const void* scale,
+                 const void* bias, void* out, void* res, long long n_rows,
+                 int d, float inv_d, float eps, int rms, cudaStream_t s) {
+  const bool vec = d % 8 == 0 && aligned16(x) && (y == nullptr || aligned16(y)) &&
+                   aligned16(scale) && (bias == nullptr || aligned16(bias)) &&
+                   aligned16(out) && (res == nullptr || aligned16(res));
+  return vec ? launch_fwd_wide<TX, TO, 8>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s)
+             : launch_fwd_wide<TX, TO, 1>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+}
+
+template <typename TX>
+int fwd_wide_out(int out_dtype, const void* x, const void* y, const void* scale,
+                 const void* bias, void* out, void* res, long long n_rows,
+                 int d, float inv_d, float eps, int rms, cudaStream_t s) {
+  switch (out_dtype) {
+    case 0: return fwd_wide_vec<TX, float>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+    case 1: return fwd_wide_vec<TX, __nv_bfloat16>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int fwd_wide(int x_dtype, int out_dtype, const void* x, const void* y,
+             const void* scale, const void* bias, void* out, void* res,
+             long long n_rows, int d, float inv_d, float eps, int rms,
+             cudaStream_t s) {
+  switch (x_dtype) {
+    case 0: return fwd_wide_out<float>(out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+    case 1: return fwd_wide_out<__nv_bfloat16>(out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TX, typename TG, int V>
+int launch_bwd_wide(const void* r, const void* g, const void* gr,
+                    const void* scale, void* dr, void* ds_part, void* db_part,
+                    void* ds, void* db, long long n_rows, int d, int n_parts,
+                    float inv_d, float eps, int rms, cudaStream_t s) {
+  auto kern = ln_bwd_wide_kernel<TX, TG, V>;
+  const int smem = (2 * d + kWideWarps) * (int)sizeof(double) +
+                   2 * d * (int)sizeof(float);
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)n_parts, kWideThreads, smem, s>>>(
+      static_cast<const TX*>(r), static_cast<const TG*>(g),
+      static_cast<const TX*>(gr), static_cast<const float*>(scale),
+      static_cast<TX*>(dr), static_cast<double*>(ds_part),
+      static_cast<double*>(db_part), n_rows, d, inv_d, eps, rms);
+  return launch_reduce(ds_part, db_part, ds, db, n_parts, d, s);
+}
+
+template <typename TX, typename TG>
+int bwd_wide_vec(const void* r, const void* g, const void* gr,
+                 const void* scale, void* dr, void* ds_part, void* db_part,
+                 void* ds, void* db, long long n_rows, int d, int n_parts,
+                 float inv_d, float eps, int rms, cudaStream_t s) {
+  const bool vec = d % 8 == 0 && aligned16(r) && aligned16(g) &&
+                   (gr == nullptr || aligned16(gr)) && aligned16(scale) &&
+                   aligned16(dr);
+  return vec ? launch_bwd_wide<TX, TG, 8>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s)
+             : launch_bwd_wide<TX, TG, 1>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+}
+
+template <typename TX>
+int bwd_wide_g(int g_dtype, const void* r, const void* g, const void* gr,
+               const void* scale, void* dr, void* ds_part, void* db_part,
+               void* ds, void* db, long long n_rows, int d, int n_parts,
+               float inv_d, float eps, int rms, cudaStream_t s) {
+  switch (g_dtype) {
+    case 0: return bwd_wide_vec<TX, float>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 1: return bwd_wide_vec<TX, __nv_bfloat16>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int bwd_wide(int r_dtype, int g_dtype, const void* r, const void* g,
+             const void* gr, const void* scale, void* dr, void* ds_part,
+             void* db_part, void* ds, void* db, long long n_rows, int d,
+             int n_parts, float inv_d, float eps, int rms, cudaStream_t s) {
+  switch (r_dtype) {
+    case 0: return bwd_wide_g<float>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 1: return bwd_wide_g<__nv_bfloat16>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -820,7 +1144,8 @@ int tpudist_layernorm_fwd(int x_dtype, int out_dtype, const void* x,
   if (d <= 256) return fwd_per<8>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
   if (d <= 768) return fwd_per<24>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
   if (d <= 1024) return fwd_per<32>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
-  return fwd_per<64>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+  if (d <= kMaxRegD) return fwd_per<64>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+  return fwd_wide(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
 }
 
 // Two launches: the rows, dr and n_parts blocks' partial sums
@@ -837,7 +1162,8 @@ int tpudist_layernorm_bwd(int r_dtype, int g_dtype, const void* r,
   if (d <= 256) return bwd_per<8>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
   if (d <= 768) return bwd_per<24>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
   if (d <= 1024) return bwd_per<32>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
-  return bwd_per<64>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  if (d <= kMaxRegD) return bwd_per<64>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  return bwd_wide(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
 }
 
 const char* tpudist_cuda_error_string(int code) {

@@ -4,7 +4,7 @@
 :func:`generate` runs the reference's schedule eagerly: ONE bulk prefill
 pass over the bucket-padded prompt (causal within the chunk), the
 cursors rewound to the true prompt length, then single-token decode
-steps against the static head-major ``[B, H, max_seq_len, dh]`` cache —
+steps against the static head-major ``[B, H_kv, max_seq_len, dh]`` cache —
 with ``attn_impl="fused"`` each step runs the contiguous decode kernel
 once per layer. The serving engine (:mod:`tpudist_torch.serve`) builds on
 :func:`zero_cache`, :func:`sample_logits_per_row` and :func:`eos_retire`.
@@ -193,22 +193,28 @@ def eos_retire(tok, done, eos_id, pad_id=0):
 
 def zero_cache(model, batch_size: int) -> dict:
     """Zeroed decode cache for ``batch_size`` rows: per layer the
-    head-major ``[B, H, max_seq_len, dh]`` K/V buffers and a scalar cursor,
-    plus the model's wpe cursor."""
-    shape = (batch_size, model.num_heads, model.max_seq_len, model.head_dim)
+    head-major ``[B, H_kv, max_seq_len, dh]`` K/V buffers (``H_kv`` the
+    model's ``num_kv_heads``: GQA heads are cached once, and the decode
+    kernels read them in place) and a scalar cursor, plus the wpe cursor
+    of a model with a position table (GPT-2; Llama's RoPE reads each
+    layer's cursor)."""
+    shape = (batch_size, model.num_kv_heads, model.max_seq_len,
+             model.head_dim)
     mk = lambda: torch.zeros(shape, dtype=model.dtype, device=model.device)
-    return {
-        "position": 0,
-        "layers": [{"k": mk(), "v": mk(), "index": 0}
-                   for _ in range(model.depth)],
-    }
+    cache = {"layers": [{"k": mk(), "v": mk(), "index": 0}
+                        for _ in range(model.depth)]}
+    if hasattr(model, "wpe"):
+        cache["position"] = 0
+    return cache
 
 
 def reset_cursors(cache: dict, true_len: int) -> None:
-    """Rewind every scalar cursor to the TRUE prompt length after a
-    bucket-padded prefill (the pad tail's K/V sits above the cursor, is
-    overwritten step by step and never attended)."""
-    cache["position"] = int(true_len)
+    """Rewind every scalar cursor (each layer's, and the wpe cursor where
+    the cache has one) to the TRUE prompt length after a bucket-padded
+    prefill (the pad tail's K/V sits above the cursor, is overwritten step
+    by step and never attended)."""
+    if "position" in cache:
+        cache["position"] = int(true_len)
     for layer in cache["layers"]:
         layer["index"] = int(true_len)
 

@@ -17,6 +17,13 @@ kernels flatten their grouped axes first (``qkv`` ``[d, 3, h, dh]``,
 ``out`` ``[h, dh, d]``), and biases keep their shapes (``qkv``'s
 ``[3, h, dh]``).
 
+:func:`llama_params_from_flax` maps a flax :class:`tpudist.models.llama.Llama`
+param tree (unrolled ``layer_{i}``, or stacked under ``layers``) onto the
+state dict of :class:`tpudist_torch.models.llama.Llama`: the bias-free
+kernels ``[in, out...]`` (``q_proj``/``k_proj``/``v_proj`` ``[d, heads,
+dh]``, ``o_proj`` ``[h, dh, d]``) become ``[out, in]`` weights, the
+RMSNorm ``scale`` s, ``embed`` and ``lm_head`` carry over.
+
 :func:`vit_params_from_flax` maps a flax :class:`tpudist.models.vit.ViT`
 param tree onto the state dict of :class:`tpudist_torch.models.vit.ViT`
 the same way: the patch ``Conv`` kernel ``[p, p, 3, d]`` becomes
@@ -25,8 +32,10 @@ the same way: the patch ``Conv`` kernel ``[p, p, 3, d]`` becomes
 
 The HF bridge (:func:`load_hf_params`, :func:`save_hf_checkpoint` and the
 GPT-2 maps between them) is the reference's, onto the port's state dict:
-HF's ``Conv1D`` weights are ``[in, out]`` with q|k|v packed along the
-output, so each becomes a port weight by one transpose. Checkpoints are
+HF's GPT-2 ``Conv1D`` weights are ``[in, out]`` with q|k|v packed along
+the output, so each becomes a port weight by one transpose; HF's Llama
+``Linear`` weights are ``[out, in]``, the port's layout, so they carry over
+as they are. Checkpoints are
 read and written with a small ``safetensors`` codec of the port's own
 (:func:`read_safetensors`, :func:`write_safetensors`; the machine with the
 card has no ``safetensors`` package), or ``pytorch_model*.bin`` through
@@ -43,11 +52,15 @@ import numpy as np
 import torch
 
 
-def _linear(sd: dict, prefix: str, kernel, bias, n_in_axes: int = 1) -> None:
+def _kernel(kernel, n_in_axes: int = 1) -> torch.Tensor:
+    """A flax kernel ``[in..., out...]`` as a port weight ``[out, in]``."""
     k = np.asarray(kernel, np.float32)
     n_in = int(np.prod(k.shape[:n_in_axes]))
-    sd[f"{prefix}.weight"] = torch.from_numpy(
-        np.ascontiguousarray(k.reshape(n_in, -1).T))
+    return torch.from_numpy(np.ascontiguousarray(k.reshape(n_in, -1).T))
+
+
+def _linear(sd: dict, prefix: str, kernel, bias, n_in_axes: int = 1) -> None:
+    sd[f"{prefix}.weight"] = _kernel(kernel, n_in_axes)
     # the bias keeps the reference's shape (qkv: [3, heads, dh])
     sd[f"{prefix}.bias"] = torch.from_numpy(
         np.array(bias, np.float32))
@@ -110,6 +123,35 @@ def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:
 
 def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
+
+
+
+#: a Llama block's bias-free linears and how many leading kernel axes
+#: each contracts (o_proj's DenseGeneral: heads and dh)
+_LLAMA_LINEARS = (("q_proj", 1), ("k_proj", 1), ("v_proj", 1), ("o_proj", 2),
+                  ("gate_proj", 1), ("up_proj", 1), ("down_proj", 1))
+
+
+def llama_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax Llama params (``embed``, ``layer_{i}/{attn_norm, q_proj, ...,
+    down_proj}`` or their ``scan_layers`` stack ``layers/block/...``,
+    ``norm``, and ``lm_head`` when untied; a ``{"params": ...}`` wrapper is
+    accepted) -> the port's state dict, in f32 on the CPU."""
+    p = tree["params"] if "params" in tree else tree
+    if "layers" in p:
+        p = unstack_layers(p, prefix="layer_", dest="layers")
+    sd: dict[str, torch.Tensor] = {"embed": _f32(p["embed"])}
+    depth = sum(1 for k in p if k.startswith("layer_"))
+    for i in range(depth):
+        src, dst = p[f"layer_{i}"], f"layer_{i}"
+        for norm in ("attn_norm", "mlp_norm"):
+            sd[f"{dst}.{norm}.scale"] = _f32(src[norm]["scale"])
+        for name, n_in in _LLAMA_LINEARS:
+            sd[f"{dst}.{name}.weight"] = _kernel(src[name]["kernel"], n_in)
+    sd["norm.scale"] = _f32(p["norm"]["scale"])
+    if "lm_head" in p:
+        sd["lm_head"] = _f32(p["lm_head"])
+    return sd
 
 
 def resnet_params_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
@@ -340,8 +382,71 @@ def gpt2_params_to_hf(params: dict, *, depth: int) -> dict[str, torch.Tensor]:
     return sd
 
 
+#: the port's Llama block leaves and their HF ``LlamaForCausalLM`` names
+_HF_LLAMA = (("attn_norm.scale", "input_layernorm.weight"),
+             ("mlp_norm.scale", "post_attention_layernorm.weight"),
+             ("q_proj.weight", "self_attn.q_proj.weight"),
+             ("k_proj.weight", "self_attn.k_proj.weight"),
+             ("v_proj.weight", "self_attn.v_proj.weight"),
+             ("o_proj.weight", "self_attn.o_proj.weight"),
+             ("gate_proj.weight", "mlp.gate_proj.weight"),
+             ("up_proj.weight", "mlp.up_proj.weight"),
+             ("down_proj.weight", "mlp.down_proj.weight"))
+
+
+def llama_params_from_hf(state_dict, *, depth: int, num_heads: int,
+                         num_kv_heads: int | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """HF ``LlamaForCausalLM``/``LlamaModel`` state dict -> the port's
+    Llama state dict, in f32 on the CPU (the reference's
+    ``llama_params_from_hf``). HF's linears are ``[out, in]`` as the
+    port's, with q/k/v heads in the same (heads, dh) order; GQA shapes are
+    checked against ``num_heads`` / ``num_kv_heads``. ``lm_head`` is
+    emitted only when present and not the embedding (a tied checkpoint
+    loads into ``Llama(tie_embeddings=True)``)."""
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+
+    def f32(key):
+        return sd[key].detach().to("cpu", torch.float32).clone()
+
+    embed = f32("embed_tokens.weight")
+    d = embed.shape[1]
+    kv = num_kv_heads or num_heads
+    out = {"embed": embed, "norm.scale": f32("norm.weight")}
+    for i in range(depth):
+        for port, hf in _HF_LLAMA:
+            out[f"layer_{i}.{port}"] = f32(f"layers.{i}.{hf}")
+        k = out[f"layer_{i}.k_proj.weight"]
+        if k.shape != (kv * (d // num_heads), d):
+            raise ValueError(
+                f"layer {i}: k_proj {tuple(k.shape)} is not {kv} K/V heads of "
+                f"{d // num_heads} (num_heads {num_heads}, num_kv_heads {kv})")
+    if "lm_head.weight" in sd:
+        head = f32("lm_head.weight")
+        if not torch.equal(head, embed):
+            out["lm_head"] = head
+    return out
+
+
+def llama_params_to_hf(params: dict, *, depth: int) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`llama_params_from_hf`: the port's Llama state
+    dict -> one HF ``LlamaForCausalLM.load_state_dict`` loads, f32 on the
+    CPU (a tied model writes ``lm_head.weight`` = the embedding, as
+    ``tie_word_embeddings=True`` expects)."""
+    def f32(key):
+        return params[key].detach().to("cpu", torch.float32).clone()
+
+    sd = {"model.embed_tokens.weight": f32("embed"),
+          "model.norm.weight": f32("norm.scale"),
+          "lm_head.weight": f32("lm_head" if "lm_head" in params else "embed")}
+    for i in range(depth):
+        for port, hf in _HF_LLAMA:
+            sd[f"model.layers.{i}.{hf}"] = f32(f"layer_{i}.{port}")
+    return sd
+
+
 def _not_ported(arch: str):
-    if arch in ("llama", "bert", "t5"):
+    if arch in ("bert", "t5"):
         raise NotImplementedError(
             f"the {arch} HF bridge is not ported yet (ROADMAP Queue 1 #4)")
     raise ValueError(f"unknown arch {arch!r} (want gpt2, llama, bert, or t5)")
@@ -350,20 +455,27 @@ def _not_ported(arch: str):
 def load_hf_params(path, *, arch: str, depth: int, num_heads: int,
                    num_kv_heads: int | None = None) -> dict[str, torch.Tensor]:
     """One-call warm start: a local HF checkpoint -> the port's state dict
-    for ``arch`` (gpt2; the other families raise naming their item)."""
-    if arch != "gpt2":
-        _not_ported(arch)
-    return gpt2_params_from_hf(load_hf_state_dict(path), depth=depth,
-                               num_heads=num_heads)
+    for ``arch`` (gpt2 and llama; bert and t5 raise naming their item)."""
+    if arch == "gpt2":
+        return gpt2_params_from_hf(load_hf_state_dict(path), depth=depth,
+                                   num_heads=num_heads)
+    if arch == "llama":
+        return llama_params_from_hf(load_hf_state_dict(path), depth=depth,
+                                    num_heads=num_heads,
+                                    num_kv_heads=num_kv_heads)
+    _not_ported(arch)
 
 
 def save_hf_checkpoint(params: dict, path, *, arch: str, depth: int) -> None:
     """Write the port's ``params`` (a state dict) as an HF-layout
     ``model.safetensors`` under ``path`` (``{"format": "pt"}`` metadata,
     which ``from_pretrained`` requires)."""
-    if arch != "gpt2":
+    if arch == "gpt2":
+        sd = gpt2_params_to_hf(params, depth=depth)
+    elif arch == "llama":
+        sd = llama_params_to_hf(params, depth=depth)
+    else:
         _not_ported(arch)
-    sd = gpt2_params_to_hf(params, depth=depth)
     os.makedirs(path, exist_ok=True)
     write_safetensors(sd, os.path.join(path, "model.safetensors"),
                       metadata={"format": "pt"})

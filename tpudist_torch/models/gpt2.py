@@ -259,6 +259,18 @@ class GPT2(nn.Module):
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_heads
 
+    @property
+    def num_kv_heads(self) -> int:
+        """The decode cache's heads (GPT-2 has no grouped K/V)."""
+        return self.num_heads
+
+    @property
+    def geometry(self) -> dict:
+        """What a checkpoint of this model is bound to (the run meta)."""
+        return {"arch": "gpt2", "vocab_size": self.vocab_size,
+                "hidden_dim": self.hidden_dim, "depth": self.depth,
+                "num_heads": self.num_heads}
+
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         g = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -291,6 +303,10 @@ class GPT2(nn.Module):
         from tpudist_torch.generate import zero_cache
 
         return zero_cache(self, batch_size)
+
+    def compute_copy(self) -> "GPT2":
+        """The serving engine's copy (:func:`compute_copy`)."""
+        return compute_copy(self)
 
     def forward(self, tokens, *, cache=None, positions=None,
                 block_tables=None, return_hidden: bool = False,

@@ -4,8 +4,9 @@
 
 The plain path's f32 ``[B, S, V]`` logits are the memory high-water mark
 at long context (B 4, S 4096, V 50257: 3.3 GB, twice that with their
-gradient). This loss runs the blocks once, then the weight-tied head and
-the softmax cross-entropy over sequence chunks, each chunk's body under
+gradient). This loss runs the blocks once, then the LM head (GPT-2's
+tied ``wte``, Llama's ``lm_head``: :func:`lm_head_weight`) and the softmax
+cross-entropy over sequence chunks, each chunk's body under
 ``torch.utils.checkpoint`` (non-reentrant), so live logits stay bounded
 by ``[B, chunk, V]`` in the forward AND the backward, which recomputes
 each chunk's logits instead of storing them.
@@ -53,8 +54,8 @@ def chunked_head_reduce(logits_fn: Callable, h, targets, pos_mask,
 
 
 def tied_head_logits_fn(head_w) -> Callable:
-    """``logits_fn`` for :func:`chunked_head_reduce`: the weight-tied head
-    against a ``[V, D]`` table, cast to the hidden's dtype inside the chunk
+    """``logits_fn`` for :func:`chunked_head_reduce`: the head against a
+    ``[V, D]`` table (tied or not, the reference's one head function), cast to the hidden's dtype inside the chunk
     (so a float32 master's gradient sums over the chunks in float32, as
     the reference's scan sums it), with f32 logits
     (:func:`tpudist_torch.models.gpt2.tied_head`)."""
@@ -65,8 +66,19 @@ def tied_head_logits_fn(head_w) -> Callable:
     return logits_fn
 
 
+def lm_head_weight(model) -> torch.Tensor:
+    """The ``[V, D]`` output projection of an LM, whichever family (the
+    reference's ``lm_head_weight`` rule): Llama's untied ``lm_head``, else
+    GPT-2's tied ``wte``, else a tied Llama's ``embed``."""
+    for name in ("lm_head", "wte", "embed"):
+        w = getattr(model, name, None)
+        if isinstance(w, torch.Tensor):
+            return w
+    raise ValueError(f"no LM head weight on {type(model).__name__}")
+
+
 def chunked_ce_sum(head_w, h, targets, pos_mask, chunk: int):
-    """The masked softmax-CE sum under the weight-tied head."""
+    """The masked softmax-CE sum under the head ``head_w [V, D]``."""
     return chunked_head_reduce(tied_head_logits_fn(head_w), h, targets,
                                pos_mask, chunk)
 
@@ -76,10 +88,12 @@ def chunked_lm_forward(model, chunk: int = 256) -> Callable:
     :func:`tpudist_torch.train.make_train_step`: the next-token CE of
     ``batch["tokens"]`` that never materializes the ``[B, S, V]``
     logits. ``module`` (``model``, or ``model`` under DDP) runs the blocks
-    with ``return_hidden=True``; the chunked tied head reads ``model.wte``
-    outside that forward, and autograd sums its two uses into one
-    gradient before DDP's hook on it fires. Mean CE over the ``B (S - 1)``
-    predicted positions: the same function as ``lm_loss`` on full logits.
+    with ``return_hidden=True``; the chunked head reads the model's head
+    weight (:func:`lm_head_weight`: GPT-2's tied ``wte``, Llama's
+    ``lm_head`` or tied ``embed``) outside that forward, and autograd sums
+    a tied weight's two uses into one gradient before DDP's hook on it
+    fires. Mean CE over the ``B (S - 1)`` predicted positions: the same
+    function as ``lm_loss`` on full logits.
     The model's ``fused_ln`` attribute is read at each call, so no rebuild
     is needed when ``make_train_step(fused="ln")`` sets it."""
     if getattr(model, "dropout", 0.0):
@@ -95,6 +109,7 @@ def chunked_lm_forward(model, chunk: int = 256) -> Callable:
         h, targets = hidden[:, :-1], tokens[:, 1:]
         b, s, _ = h.shape
         mask = torch.ones((b, s), device=h.device)
-        return chunked_ce_sum(model.wte, h, targets, mask, chunk) / (b * s)
+        return chunked_ce_sum(lm_head_weight(model), h, targets, mask,
+                              chunk) / (b * s)
 
     return forward_loss

@@ -26,6 +26,13 @@ residual stream's own cotangent for pre-norm). ``rms=True`` is scale-only
 RMSNorm. Unlike the reference there is no padding to a (8, 128) tile: the
 kernel masks the row's tail itself.
 
+Rows up to :data:`MAX_REG_D` (2048) take the kernels that hold a row in
+one warp's registers; wider rows (Llama-7B/8B's 4096, up to
+:data:`MAX_D`, 8192) take ``ln_fwd_wide_kernel`` / ``ln_bwd_wide_kernel``,
+which give a row a block and stage it in shared memory (the backward 24
+bytes a column, so 8192 is the widest its block can hold), and count as
+``layernorm_fwd_wide`` / ``layernorm_bwd_wide``.
+
 Each wrapper takes the kernel for CUDA tensors and the plain PyTorch
 version (:func:`layernorm_fwd_plain`, :func:`layernorm_bwd_plain`, the
 same arithmetic op by op) only for CPU tensors. :data:`launch_counts`
@@ -39,9 +46,15 @@ import torch
 
 #: launches of the kernels, counted where the wrappers launch them and
 #: nowhere else (the plain versions never count); one backward call
-#: launches ``layernorm_bwd`` and then ``layernorm_bwd_reduce``
+#: launches ``layernorm_bwd`` (``layernorm_bwd_wide`` past MAX_REG_D) and
+#: then ``layernorm_bwd_reduce``
 launch_counts = {"layernorm_fwd": 0, "layernorm_bwd": 0,
-                 "layernorm_bwd_reduce": 0}
+                 "layernorm_bwd_reduce": 0, "layernorm_fwd_wide": 0,
+                 "layernorm_bwd_wide": 0}
+
+#: the widest row the register kernels take, and the widest any kernel
+#: takes (``tpudist_layernorm_max_d()``; the wide backward's shared memory)
+MAX_REG_D, MAX_D = 2048, 8192
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -150,13 +163,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_width(what, d: int, lib) -> None:
+    """Raise for a row wider than the loaded build's widest."""
+    widest = lib.tpudist_layernorm_max_d()
+    if d > widest:
+        raise ValueError(
+            f"{what}: D {d} above the kernels' widest row, {widest} (the "
+            "wide backward stages 24 bytes a column in one block's shared "
+            "memory)")
+
+
 def layernorm_fwd_cuda(x, y, scale, bias, *, eps: float, rms: bool,
                        out_dtype, want_residual: bool, lib=None):
     """Launch the forward kernel on the current stream. ``x``/``y``:
     contiguous ``[N, D]`` of one dtype (float32 or bfloat16), ``D`` at most
-    the kernel's 2048; ``scale``/``bias``: contiguous float32 ``[D]``.
-    The kernel takes 16-byte loads where D is a multiple of 16 bytes and
-    every pointer is 16-byte aligned, element-wise loads otherwise.
+    :data:`MAX_D` (the wide kernel past :data:`MAX_REG_D`);
+    ``scale``/``bias``: contiguous float32 ``[D]``. The kernels take
+    16-byte loads where D is a multiple of 16 bytes (the wide kernel: of 8
+    elements) and every pointer is 16-byte aligned, element-wise loads
+    otherwise.
     ``lib``: a loaded build of another ``layernorm.cu`` (an A/B); this
     checkout's by default. Returns ``(n, r|None)``."""
     from tpudist_torch.csrc import build
@@ -169,9 +194,7 @@ def layernorm_fwd_cuda(x, y, scale, bias, *, eps: float, rms: bool,
                          "(float32, bfloat16)")
     n_rows, d = x.shape
     lib = lib or build.load("layernorm.cu")
-    if d > lib.tpudist_layernorm_max_d():
-        raise ValueError(f"layernorm_fwd: D {d} above the kernel's "
-                         f"{lib.tpudist_layernorm_max_d()}")
+    _check_width("layernorm_fwd", d, lib)
     out = torch.empty((n_rows, d), dtype=out_dtype, device=x.device)
     res = torch.empty_like(x) if want_residual else None
     rc = lib.tpudist_layernorm_fwd(
@@ -181,7 +204,8 @@ def layernorm_fwd_cuda(x, y, scale, bias, *, eps: float, rms: bool,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "layernorm_fwd")
     if n_rows:
-        launch_counts["layernorm_fwd"] += 1
+        launch_counts["layernorm_fwd_wide" if d > MAX_REG_D
+                      else "layernorm_fwd"] += 1
     return out, res
 
 
@@ -201,9 +225,7 @@ def layernorm_bwd_cuda(r, g, gr, scale, *, eps: float, rms: bool, lib=None):
         raise ValueError("layernorm_bwd: r and its cotangent differ in dtype")
     n_rows, d = r.shape
     lib = lib or build.load("layernorm.cu")
-    if d > lib.tpudist_layernorm_max_d():
-        raise ValueError(f"layernorm_bwd: D {d} above the kernel's "
-                         f"{lib.tpudist_layernorm_max_d()}")
+    _check_width("layernorm_bwd", d, lib)
     parts = lib.tpudist_layernorm_bwd_parts(n_rows)
     dr = torch.empty_like(r)
     part = torch.empty((2, parts, d), dtype=torch.float64, device=r.device)
@@ -215,7 +237,8 @@ def layernorm_bwd_cuda(r, g, gr, scale, *, eps: float, rms: bool, lib=None):
         d, parts, _inv_d(d), eps, int(rms),
         torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, rc, "layernorm_bwd")
-    launch_counts["layernorm_bwd"] += 1
+    launch_counts["layernorm_bwd_wide" if d > MAX_REG_D
+                  else "layernorm_bwd"] += 1
     launch_counts["layernorm_bwd_reduce"] += 1
     return dr, sums[0], sums[1]
 

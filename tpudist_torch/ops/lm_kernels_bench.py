@@ -25,8 +25,11 @@ ragged 1000 x 200, 1000 x 197 (a width that is no multiple of 16 bytes:
 the element-wise paths), 1000 x 768 rows that start one element into
 their buffers (misaligned: the element-wise paths again), 3 x 768 (fewer
 rows than a backward block has warps), 65536 x 768 (many rows a warp of
-the backward's persistent grid) and 1000 x 2048 (the widest rows), the
-three compositions, RMS on and off;
+the backward's persistent grid) and 1000 x 2048 (the widest rows of the
+register kernels), the three compositions, RMS on and off; then the wide
+kernels past 2048 (:data:`WIDE_CASES`: D 2560, 4096 at 8192 rows, 5120,
+8192, and the element-wise paths at D 4100 and one element in), plain and
+pre-norm, RMS on and off;
 attention at
 GPT-2's B 8, H 12, S 1024, D 64 causal (q, k, v strided views of one qkv
 tensor, as the model passes them), S 197 non-causal, ``kv_len`` < S, GQA
@@ -48,7 +51,9 @@ bound and one PyTorch library call computing the same function
 (``F.layer_norm``, ``aten.native_layer_norm_backward``,
 ``scaled_dot_product_attention`` and its backward through autograd), a
 yardstick the port never calls; the LayerNorm backward also at the
-long-context leg's 16384 x 768 rows. A bound is the larger of the bytes the
+long-context leg's 16384 x 768 rows; the wide kernels at 4096 x 4096 (a
+Llama-3-8B step's rows) and 2048 x 8192, RMS (``F.rms_norm`` and its
+backward through autograd) and LayerNorm. A bound is the larger of the bytes the
 call must move (each input read once, each output written once) over
 3.35 TB/s and its operations over the peak rate of their type (bf16
 products 989 TFLOP/s on the tensor cores, float32 arithmetic 67 TFLOP/s;
@@ -73,7 +78,8 @@ this checkout's, in turns (A, B, B, A) on the same inputs, for each source
 DIR holds: ``layernorm.cu``, the plain and pre-norm forwards and
 backwards at 8192 x 768 bf16 (rows 5 and 6 of PERF.md's kernel table),
 each side's device time per call split by kernel from a profiler trace
-(:func:`kernel_split`), and both sides' register reports;
+(:func:`kernel_split`), whether the two sides' outputs are bit-identical,
+and both sides' register reports;
 ``flash_attention.cu`` and
 ``vmem_attention.cu`` (with the headers they include), the bf16 forward
 and backward (the delta, dk/dv and dq kernels of one call) at rows 7-8
@@ -222,12 +228,25 @@ LN_CASES = ((ROWS, WIDTH, 0), (1000, 200, 0), (1000, 197, 0), (1000, WIDTH, 1),
             (3, WIDTH, 0), (65536, WIDTH, 0), (1000, 2048, 0))
 
 
-def ln_parity(gen):
-    """Yield ``(name, got, want)`` for every LayerNorm parity case."""
-    for n, d, off in LN_CASES:
+#: the wide rows' parity cases (rows, width, offset), past the register
+#: kernels' 2048 (ln_fwd_wide_kernel / ln_bwd_wide_kernel): 2560, Llama-2-7B
+#: and Llama-3-8B's 4096 at twice a Llama-3-8B step's 4096 rows (batch 2 x
+#: S 2048), 5120, Llama-2-70B's 8192 (the widest), and the element-wise
+#: paths: a width that is no multiple of 8, and rows one element in
+WIDE_CASES = ((1000, 2560, 0), (8192, 4096, 0), (1000, 5120, 0),
+              (2048, 8192, 0), (1000, 4100, 0), (512, 4096, 1))
+#: the wide rows' timed shapes: a Llama-3-8B step's rows at D 4096, and
+#: Llama-2-70B's width
+WIDE_TIMED = ((4096, 4096), (2048, 8192))
+
+
+def ln_parity(gen, cases=LN_CASES, comps=("plain", "pre", "post")):
+    """Yield ``(name, got, want)`` for every LayerNorm parity case of
+    ``cases`` in the compositions ``comps``."""
+    for n, d, off in cases:
         for dtype in (torch.float32, torch.bfloat16):
             t = ln_inputs(gen, n, d, dtype, off)
-            for comp in ("plain", "pre", "post"):
+            for comp in comps:
                 for rms in (False, True):
                     y = None if comp == "plain" else t["y"]
                     gr = t["gr"] if comp == "pre" else None
@@ -411,6 +430,91 @@ def ln_repeat_identical(gen) -> dict:
             *(LN.layernorm_bwd_cuda(t["x"], t["g"], gr, t["scale"], eps=EPS,
                                     rms=False) for _ in range(2)))
     return out
+
+
+def wide_repeat_identical(gen) -> dict:
+    """Whether two calls of the wide kernels at a Llama-3-8B step's 4096 x
+    4096 bf16 RMS rows give bit-identical outputs: the pre-norm forward
+    (``n``, ``r``) and backward (``dr``, ``dscale``)."""
+    t = ln_inputs(gen, 4096, 4096, torch.bfloat16)
+    same = lambda a, b: all(torch.equal(p, q) for p, q in zip(a, b)
+                            if p is not None)
+    kw = dict(eps=EPS, rms=True, out_dtype=torch.bfloat16, want_residual=True)
+    return {
+        "forward pre-norm": same(*(LN.layernorm_fwd_cuda(
+            t["x"], t["y"], t["scale"], None, **kw) for _ in range(2))),
+        "backward pre-norm": same(*(LN.layernorm_bwd_cuda(
+            t["x"], t["g"], t["gr"], t["scale"], eps=EPS, rms=True)
+            for _ in range(2)))}
+
+
+def wide_timing_cases(gen) -> list[dict]:
+    """The wide kernels at :data:`WIDE_TIMED`'s shapes in bf16, as
+    :func:`timing_cases`: RMSNorm (Llama's) plain and pre-norm, forward
+    and backward, and the LayerNorm plain composition, with ``F.rms_norm``
+    / ``F.layer_norm`` (forward) and their backward through autograd as
+    the library calls. The first case of each kind is the main path's
+    (``layernorm_fwd_wide``, ``layernorm_bwd_wide``: the Llama-3-8B leg's
+    ``attn_norm`` and ``norm``)."""
+    dt = torch.bfloat16
+    cases = []
+
+    def shape_cases(rows, d):
+        # a function per shape, so each case's lambdas keep its own inputs
+        t = ln_inputs(gen, rows, d, dt)
+        x, y, scale, bias, g, gr = (t[k] for k in ("x", "y", "scale",
+                                                   "bias", "g", "gr"))
+        elems, item = rows * d, x.element_size()
+        sb, bb = scale.to(dt), bias.to(dt)
+        tag = "" if (rows, d) == WIDE_TIMED[0] else f"_{d}"
+        # the library's backward from one forward, through autograd
+        xl, sl, bl = (a.detach().clone().requires_grad_() for a in (x, sb, bb))
+        rms_out = F.rms_norm(xl, (d,), sl, EPS)
+        ln_out = F.layer_norm(xl, (d,), sl, bl, EPS)
+
+        def case(name, kernel, plain, library, nbytes, flops_per_elem):
+            got, want = kernel(), plain()
+            err = max(max_err(a, b)[0] for a, b in zip(got, want)
+                      if a is not None)
+            cases.append(dict(name=name, kernel=kernel, plain=plain,
+                              library=library, max_abs_err=err,
+                              shape=f"{rows} x {d} rows, bf16",
+                              **bound(nbytes, flops_per_elem * rows * d,
+                                      torch.float32)))
+
+        def fwd(y_, bias_, rms, want_residual):
+            kw = dict(eps=EPS, rms=rms, out_dtype=dt,
+                      want_residual=want_residual)
+            return (lambda: LN.layernorm_fwd_cuda(x, y_, scale, bias_, **kw),
+                    lambda: LN.layernorm_fwd_plain(x, y_, scale, bias_, **kw))
+
+        def bwd(gr_, rms):
+            kw = dict(eps=EPS, rms=rms)
+            return (lambda: LN.layernorm_bwd_cuda(x, g, gr_, scale, **kw),
+                    lambda: LN.layernorm_bwd_plain(x, g, gr_, scale, **kw))
+
+        vec = d * 4
+        case(f"layernorm_fwd_wide{tag}", *fwd(None, None, True, False),
+             lambda: F.rms_norm(x, (d,), sb, EPS), 2 * elems * item + vec, 5)
+        case(f"layernorm_fwd_wide_prenorm{tag}", *fwd(y, None, True, True),
+             None, 4 * elems * item + vec, 6)
+        case(f"layernorm_fwd_wide_ln{tag}", *fwd(None, bias, False, False),
+             lambda: F.layer_norm(x, (d,), sb, bb, EPS),
+             2 * elems * item + 2 * vec, 9)
+        case(f"layernorm_bwd_wide{tag}", *bwd(None, True),
+             lambda: torch.autograd.grad(rms_out, (xl, sl), g,
+                                         retain_graph=True),
+             3 * elems * item + 3 * vec, 12)
+        case(f"layernorm_bwd_wide_prenorm{tag}", *bwd(gr, True), None,
+             4 * elems * item + 3 * vec, 13)
+        case(f"layernorm_bwd_wide_ln{tag}", *bwd(None, False),
+             lambda: torch.autograd.grad(ln_out, (xl, sl, bl), g,
+                                         retain_graph=True),
+             3 * elems * item + 4 * vec, 16)
+
+    for rows, d in WIDE_TIMED:
+        shape_cases(rows, d)
+    return cases
 
 
 def repeat_identical(kind: str, gen, b, s) -> dict:
@@ -840,8 +944,10 @@ def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
         for name, call, plain in calls:
             ms, err = _turns((lambda lib: call(lib=lib), plain), libs, flush,
                              n)
+            same = all(torch.equal(a, b) for a, b in zip(
+                call(lib=libs["A"]), call(lib=libs["B"])) if a is not None)
             out.append(dict(name=name, shape=f"{ROWS} x {WIDTH} rows, bf16",
-                            ms=ms, err=err, split={
+                            ms=ms, err=err, same=same, split={
                                 who: kernel_split(lambda: call(lib=lib), flush)
                                 for who, lib in libs.items()}))
         out.append(dict(name="layernorm.cu registers", report={
@@ -1026,7 +1132,8 @@ def main(argv=None) -> int:
                   f"{b[0]:.4f} / {b[1]:.4f} ms (medians of {DB.N_TIMED} "
                   f"calls, turns A B B A); A / B {sum(a) / sum(b):.2f}x; "
                   f"max_abs_err A {r['err']['A']:.3e}, B {r['err']['B']:.3e}"
-                  f"  [{card()}]")
+                  + (f"; A and B outputs bit-identical {r['same']}"
+                     if "same" in r else "") + f"  [{card()}]")
             for who, split in r.get("split", {}).items():
                 print(f"  {who}, device ms per call by kernel (profiler): "
                       + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
@@ -1057,7 +1164,8 @@ def main(argv=None) -> int:
                   f"stores / loads")
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = []
-    for parity in (ln_parity, attn_parity, flash_parity):
+    wide = functools.partial(ln_parity, cases=WIDE_CASES, comps=("plain", "pre"))
+    for parity in (ln_parity, wide, attn_parity, flash_parity):
         for name, got, want in parity(gen):
             torch.cuda.synchronize()
             err, ok = max_err(got, want)
@@ -1071,7 +1179,8 @@ def main(argv=None) -> int:
         print(f"parity failures: {failed}")
         return 1 if failed else 0
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for case in (*timing_cases(gen), *flash_timing_cases(gen)):
+    for case in (*timing_cases(gen), *wide_timing_cases(gen),
+                 *flash_timing_cases(gen)):
         t = time_case(case, flush)
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"{case['name']} [{case['shape']}]: kernel {t['kernel_ms']:.4f}"

@@ -14,8 +14,8 @@ The reference's policies on ``torch.utils.checkpoint`` (non-reentrant):
 
 Two hooks consume them, as in the reference:
 ``make_train_step(remat=...)`` checkpoints the model's whole forward
-(:func:`remat_module`), and GPT-2's ``remat_policy`` field checkpoints
-each block (:func:`checkpoint`). The port's hand-written kernels are bound
+(:func:`remat_module`), and GPT-2's and Llama's ``remat_policy`` field
+checkpoints each block (:func:`checkpoint`). The port's hand-written kernels are bound
 through ``ctypes`` and launched on raw pointers, so a selective policy's
 dispatch mode never sees them: they are always recomputed, and their
 outputs, allocated with ``torch.empty`` (which no policy here saves), are

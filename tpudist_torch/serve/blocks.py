@@ -35,14 +35,15 @@ GARBAGE_BLOCK = 0
 
 def paged_cache(model, n_blocks: int, block_size: int) -> dict:
     """The device-side block pool: the model's decode-cache structure with
-    every layer's K/V as ``[n_blocks, H, block_size, dh]``."""
-    shape = (n_blocks, model.num_heads, block_size, model.head_dim)
+    every layer's K/V as ``[n_blocks, H_kv, block_size, dh]`` (``H_kv`` the
+    model's ``num_kv_heads``)."""
+    shape = (n_blocks, model.num_kv_heads, block_size, model.head_dim)
     mk = lambda: torch.zeros(shape, dtype=model.dtype, device=model.device)
-    return {
-        "position": 0,
-        "layers": [{"k": mk(), "v": mk(), "index": 0}
-                   for _ in range(model.depth)],
-    }
+    cache = {"layers": [{"k": mk(), "v": mk(), "index": 0}
+                        for _ in range(model.depth)]}
+    if hasattr(model, "wpe"):
+        cache["position"] = 0
+    return cache
 
 
 def scatter_blocks(pool: dict, row_cache: dict, table, start: int, end: int,

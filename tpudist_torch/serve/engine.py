@@ -49,7 +49,6 @@ import numpy as np
 import torch
 
 from tpudist_torch.generate import eos_retire, row_keys, sample_logits_per_row
-from tpudist_torch.models.gpt2 import compute_copy
 from tpudist_torch.serve.prefill import Prefiller
 from tpudist_torch.serve.slots import SlotPool
 from tpudist_torch.serve.stats import ServeStats
@@ -103,7 +102,8 @@ class _Inflight:
 
 class ServeEngine:
     """Continuous-batching engine over a model with the decode contract
-    (the port's GPT-2). Runs on the model's device.
+    (the port's GPT-2 and Llama). Runs on the model's device, on the
+    model's ``compute_copy()``.
 
     ``max_slots`` sizes the decode batch, ``max_active`` caps concurrent
     requests below it, ``max_queue`` bounds admission (:class:`QueueFull`).
@@ -126,7 +126,7 @@ class ServeEngine:
                  ttft_slo_s: float | None = None):
         # the engine serves a copy held in the compute dtype: the model's
         # float32 masters would be cast at every use of every decode step
-        self.model = model = compute_copy(model)
+        self.model = model = model.compute_copy()
         self.device = model.device
         self.seed = int(seed)
         self.max_active = max_slots if max_active is None else max_active

@@ -436,18 +436,25 @@ _DEFERRED = {
 
 
 def run_geometry(train_loader, *, batch_size: int, world_size: int,
-                 grad_accum: int) -> dict:
+                 grad_accum: int, model=None) -> dict:
     """The geometry a checkpoint is bound to (``tpudist_meta.json``, the
     reference's keys): the data position of ``state.step`` depends on
     each of them. The model-axis worlds are 1: the port is data-parallel
-    only."""
+    only. A language model's ``geometry`` (its arch and widths: GPT-2's
+    heads, Llama's K/V heads, SwiGLU width, theta and tying) goes in under
+    ``"model"``, so a resume into another geometry is refused by the same
+    guard before any tensor is read."""
     if not hasattr(train_loader, "__len__"):
         raise ValueError(
             "checkpointing needs a sized train_loader (len() maps state.step "
             "to an epoch/batch position for exact resume)")
-    return {"steps_per_epoch": len(train_loader), "batch_size": batch_size,
+    meta = {"steps_per_epoch": len(train_loader), "batch_size": batch_size,
             "world_size": world_size, "grad_accum": grad_accum,
             "fsdp_world": 1, "tensor_world": 1, "pipe_world": 1}
+    geometry = getattr(model, "geometry", None)
+    if geometry is not None:
+        meta["model"] = dict(geometry)
+    return meta
 
 
 def _bring_up_checkpoint(ckpt, state, run_meta: dict, *, resume: bool,
@@ -574,7 +581,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         # host augmentation) stands where the reference's does
         train_loader.probe()
     run_meta = (run_geometry(train_loader, batch_size=batch_size,
-                             world_size=world_size, grad_accum=grad_accum)
+                             world_size=world_size, grad_accum=grad_accum,
+                             model=model)
                 if checkpoint_dir is not None else None)
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
                            label_key=label_key, fused=fused,
@@ -764,7 +772,7 @@ def evaluate_lm(state: TrainState, loader, *, input_key: str = "tokens",
     range, never clamped)."""
     import math
 
-    from tpudist_torch.models.lm_utils import chunked_ce_sum
+    from tpudist_torch.models.lm_utils import chunked_ce_sum, lm_head_weight
 
     model = state.model
     model.eval()
@@ -776,7 +784,8 @@ def evaluate_lm(state: TrainState, loader, *, input_key: str = "tokens",
         b, s = tokens.shape
         if chunk:
             hidden = model(inputs, return_hidden=True)
-            ce = chunked_ce_sum(model.wte, hidden[:, :-1], tokens[:, 1:],
+            ce = chunked_ce_sum(lm_head_weight(model), hidden[:, :-1],
+                                tokens[:, 1:],
                                 torch.ones((b, s - 1), device=device), chunk)
         else:
             logits = model(inputs)[:, :-1]
