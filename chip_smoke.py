@@ -267,18 +267,21 @@ Phases, each fatal on failure:
     asynchronous save blocks the loop (the host copy queued behind one
     event), its background write, an emergency ``wait=True`` save and a
     restore, with the card's name and power limit;
-34. wide-row LayerNorm — the wide kernels' registers and spills (16
+34. wide-row LayerNorm — the wide kernels' registers and spills (32
     instantiations, none may spill), then ``ln_fwd_wide_kernel`` and
     ``ln_bwd_wide_kernel`` (rows past 2048) against their plain versions
     at 1000 x 2560, 8192 x 4096, 1000 x 5120, 2048 x 8192 and the
     element-wise paths (1000 x 4100; 512 x 4096 one element in), plain and
-    pre-norm, RMS on and off, f32 and bf16, under phase 11's bars; two bf16
-    RMS calls at 4096 x 4096 bit-identical; one forward and one backward
-    at D 768, 2048, 2056, 4096 and 8192 launch the register kernels up to
-    2048 and the wide ones past it; D 8200 raises ValueError naming the
-    widest row; then the median device times at 4096 x 4096 (a Llama-3-8B
-    step's rows) and 2048 x 8192 beside the byte bound, the plain version
-    and ``F.rms_norm`` / ``F.layer_norm`` (and their backward through
+    pre-norm, RMS on and off, f32 and bf16, under phase 11's bars; two
+    bf16 RMS calls at 4096 x 4096 and at 2048 x 8192 bit-identical; one
+    forward and one backward at D 768, 2048, 2056, 4096 and 8192 launch the
+    register kernels up to 2048 and the wide ones past it; D 8200 raises
+    ValueError naming the widest row; then each wide kernel's launch at
+    4096 x 4096 (a Llama-3-8B step's rows) and 2048 x 8192 (blocks,
+    threads, cluster size, the backward's partial rows, blocks resident an
+    SM, row slots, rows a step, columns a thread), and the median device
+    times there beside the byte bound, the plain version and
+    ``F.rms_norm`` / ``F.layer_norm`` (and their backward through
     autograd);
 35. llama_125m, trained — ``train_gpt2.main --arch llama --num_kv_heads 4
     --vocab_size 32000 --bf16 --fused all --attn auto`` (12 x 768, GQA
@@ -303,7 +306,8 @@ Phases, each fatal on failure:
     256``, batch 2, S 2048, 16 steps (depth cut from 32 so one card holds
     the AdamW state): launches a step (the wide LN kernels 5 / 5 + 5, flash
     forward and backward 2 each at head dim 128, one fused AdamW over 21
-    leaves), the TSV and trace readings and the peak device memory.
+    leaves), the TSV and trace readings, the wide LN kernels' device time
+    a step from the trace and the peak device memory.
 
 Phases 22-29 and 31-38 print their seconds.
 """
@@ -1666,14 +1670,17 @@ def wide_ln_phase(smi: str, dev) -> list[dict]:
               f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / "
               "loads")
     spilled = [r["kernel"] for r in wide if r["spill_stores"] or r["spill_loads"]]
-    if len(wide) != 16 or spilled:
+    # each two dtypes x two dtypes x V 8 / 1, x 8 / 16 columns a thread
+    # (forward) or x clusters of 1 / 2 blocks (backward)
+    if len(wide) != 32 or spilled:
         fail(f"wide LayerNorm kernels: {len(wide)} built, spills {spilled}")
     for name, got, want in LB.ln_parity(gen, LB.WIDE_CASES, ("plain", "pre")):
         check(name, got, want, elem=True)
     if FAILURES:
         fail(f"wide-row LayerNorm parity: {FAILURES}")
     same = LB.wide_repeat_identical(gen)
-    print(f"  two bf16 RMS calls at 4096 x 4096 bit-identical: {same}")
+    print(f"  two bf16 RMS calls at 4096 x 4096 and 2048 x 8192 "
+          f"bit-identical: {same}")
     if not all(same.values()):
         fail(f"the wide LayerNorm kernels are not deterministic: {same}")
     # D <= 2048 keeps the register kernels, one launch each; past it the
@@ -1705,6 +1712,15 @@ def wide_ln_phase(smi: str, dev) -> list[dict]:
     else:
         fail("D 8200 did not raise")
 
+    for rows, d in LB.WIDE_TIMED:
+        for kind, g in LB.wide_geometry(rows, d).items():
+            parts = (f", {g['parts']} partial rows" if kind == "backward"
+                     else "")
+            print(f"  {kind} at {rows} x {d} bf16: {g['blocks']} blocks of "
+                  f"{g['threads']} threads in clusters of {g['cluster']}"
+                  f"{parts}, {g['per_sm']} resident an SM, a ring of "
+                  f"{g['slots']} row slots, {g['rows_a_step']} rows a step, "
+                  f"{g['columns_a_thread']} columns a thread")
     print("  times (median of 50 device times, L2 flushed; bf16):")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     entries = []
@@ -1867,7 +1883,9 @@ def llama_wide_phase(smi: str) -> dict:
             "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
             "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
             "flash_attention_bwd": depth, "fused_adamw": 1,
-            "fused_adamw_leaves": n_leaves})
+            "fused_adamw_leaves": n_leaves},
+        trace_kernels=("ln_fwd_wide_kernel", "ln_bwd_wide_kernel",
+                       "ln_bwd_reduce"))
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB (torch.cuda.max_memory_allocated)  [{smi}]")
     print(f"  phase 38: {time.perf_counter() - t0:.1f} s")
@@ -1890,7 +1908,8 @@ def launches() -> dict:
 
 
 def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
-                 want, legs: dict | None = None, leaves: int = 148) -> dict:
+                 want, legs: dict | None = None, leaves: int = 148,
+                 trace_kernels=()) -> dict:
     """Phases 14 and 18: a 1-rank NCCL group, then ``train_gpt2.main``
     with GPT-2 124M at full width and depth, ``flags``, the profiler on,
     16 steps on :func:`lm_kernels_bench.token_file`'s text, every launch
@@ -1901,7 +1920,9 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
     wrote finite, falling losses, the
     tokens/sec line, the TSV rows and a trace with device work. With
     ``legs`` (filled by :func:`leg_counts`) the training's counts are those
-    read before the after-training legs. Returns the launch counts."""
+    read before the after-training legs. Each name in ``trace_kernels``
+    gets a line with the device time a step of the trace's kernels whose
+    names hold it. Returns the launch counts."""
 
     import numpy as np
     import torch
@@ -1953,6 +1974,11 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
         fail(f"no profiler trace under log_{job}")
     run_report(rows, window, steps=steps, batch=batch, per_row=seq,
                unit="tokens", smi=smi)
+    for key in trace_kernels:
+        hits = [v for k, v in window["by_name"].items() if key in k]
+        print(f"  {key}: {sum(ms for ms, _ in hits):.3f} ms/step in "
+              f"{sum(n for _, n in hits):.0f} launches/step (profiler window)"
+              f"  [{smi}]")
     return counts
 
 
@@ -2075,8 +2101,9 @@ def f32_agreement(kernel_path, dense_flags, *, run, loss_bar: float,
 def trace_breakdown(path: Path) -> dict:
     """Per-step device work in a ``torch.profiler`` Chrome trace: kernels,
     the card's busy time (the union of kernel, memcpy and memset
-    intervals), the window's wall time (its ``ProfilerStep#`` spans) and
-    the eight kernels that take the most time."""
+    intervals), the window's wall time (its ``ProfilerStep#`` spans), the
+    eight kernels that take the most time and every kernel's ms and
+    launches a step (``by_name``, names cut at 70 characters)."""
     import collections
 
     events = json.loads(path.read_text())["traceEvents"]
@@ -2097,6 +2124,7 @@ def trace_breakdown(path: Path) -> dict:
             by_name[e["name"][:70]][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(
+        by_name={k: (v[0] / 1e3 / n, v[1] / n) for k, v in by_name.items()},
         steps=len(steps),
         kernels_per_step=sum(c for _, c in by_name.values()) / n,
         device_ms_per_step=busy / 1e3 / n,

@@ -125,16 +125,20 @@ def test_backward_at_a_main_path_row_count(comp, rms, dtype, kernel_parity):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [2560, 4096, 4100, 8192])
 @pytest.mark.parametrize("rms", [False, True])
 @pytest.mark.parametrize("comp", ["plain", "pre"])
-def test_wide_rows_match_the_reference_kernel(comp, rms, dtype,
+def test_wide_rows_match_the_reference_kernel(comp, rms, d, dtype,
                                               kernel_parity):
-    """16 rows of D 4096 (Llama-7B/8B's width, past the register kernels'
-    2048: on the card the wide kernels) against the reference kernel in
-    interpret mode, which pads D to its lanes and shrinks its row block:
-    n (and r), dx (and dy), dscale and dbias under the kernel-parity
-    rule."""
-    t = _inputs(4096, seed=23 + rms, shape=(16,))
+    """A few rows past the register kernels' 2048 (on the card the wide
+    kernels), at the widths chip_smoke phase 34 runs: 2560, 4096
+    (Llama-7B/8B's), 4100 (no multiple of 8: the element-wise path) and
+    8192 (Llama-2-70B's, 16 columns a thread), against the reference
+    kernel in interpret mode, which pads D to its lanes and shrinks its
+    row block: n (and r), dx (and dy), dscale and dbias under the
+    kernel-parity rule."""
+    rows = 16 if d == 4096 else 4
+    t = _inputs(d, seed=23 + rms + (0 if d == 4096 else d), shape=(rows,))
     want_out, want_grads = _jax(comp, t, jnp.dtype(dtype), rms)
     got_out, got_grads = _port(comp, t, getattr(torch, dtype), rms)
     for got, want in zip(got_out, want_out):
@@ -146,7 +150,7 @@ def test_wide_rows_match_the_reference_kernel(comp, rms, dtype,
             assert got is None and not want.any(), name
             continue
         kernel_parity(got.float().numpy(), want)
-    assert 4096 > LN.MAX_REG_D and LN.MAX_D >= 8192
+    assert LN.MAX_REG_D < d <= LN.MAX_D
 
 
 def test_row_statistics_round_each_sum_once():

@@ -151,6 +151,9 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
             I, I, P, P, P, P, P, P, P, P, P, L, I, I, F, F, I, P,
         ]
         lib.tpudist_layernorm_bwd.restype = I
+    if hasattr(lib, "tpudist_layernorm_wide_geometry"):  # older builds lack it
+        lib.tpudist_layernorm_wide_geometry.argtypes = [I, I, I, L, I, P]
+        lib.tpudist_layernorm_wide_geometry.restype = I
     # vmem_attention.cu and flash_attention.cu share one C interface
     for prefix in ("tpudist_vmem", "tpudist_flash"):
         if hasattr(lib, f"{prefix}_fwd"):

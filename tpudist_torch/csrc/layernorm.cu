@@ -15,8 +15,10 @@
 //   ln_fwd_wide_kernel, ln_bwd_wide_kernel
 //                    the same two functions for rows wider than a warp's
 //                    registers hold (kMaxRegD, 2048; the reference's
-//                    kernel takes any width), one row a block staged in
-//                    shared memory, up to kMaxD (8192); see "Rows wider".
+//                    kernel takes any width), a row across a block whose
+//                    threads keep their columns in registers while the
+//                    rows ahead stream into shared memory, up to kMaxD
+//                    (8192); see "Rows wider".
 //
 // What bounds them on the H100: bytes. At GPT-2's 8192 x 768 rows in bf16
 // the pre-norm forward reads x and y and writes n and r (8 bytes per
@@ -67,12 +69,15 @@
 // C interface for ctypes: every pointer and the stream are void*, the
 // return value is cudaGetLastError() after the launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;  // warps a block, each on its own rows
@@ -81,11 +86,11 @@ constexpr int kBwdWarps = 8;  // the backward's warps a block
 constexpr int kBwdThreads = kWarp * kBwdWarps;
 constexpr int kFinishCols = 8;  // columns a warp of ln_bwd_reduce adds up
 constexpr int kMaxRegD = 2048;  // the widest row a warp's registers hold
-constexpr int kWideWarps = 16;  // the wide kernels' warps, one row a block
+constexpr int kWideWarps = 16;  // the wide kernels' warps, a row across them
 constexpr int kWideThreads = kWarp * kWideWarps;
-// the widest row: the wide backward stages 24 bytes a column in shared
-// memory (192 KB of the H100's 227 KB a block at 8192, Llama-2-70B's width)
-constexpr int kMaxD = 8192;
+// the widest row: the wide forward holds at most 16 columns a thread in
+// registers (Llama-2-70B's 8192)
+constexpr int kMaxD = 16 * kWideThreads;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -674,102 +679,411 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
 // ---------------------------------------------------------------------------
 // Rows wider than kMaxRegD (Llama-2-7B's and Llama-3-8B's 4096, up to
-// kMaxD). A warp's registers cannot hold such a row (PER would be 128 floats
-// a lane at D 4096), so these kernels give each row a block of kWideThreads
-// and stage it in shared memory as f32. Thread t owns the columns of chunks
-// t, t + kWideThreads, ... (V consecutive columns a chunk: 16-byte loads
-// where the launch allows them, one element otherwise), for the row and,
-// in the backward, for the block's column sums, so the staging needs no
-// barrier: only the block-wide sums do. Simple first: one row a block at a
-// time, the row read from device memory once, its values re-read from
-// shared memory by the thread that wrote them.
+// kMaxD). A warp's registers cannot hold such a row (128 floats a lane at
+// D 4096), so a row is spread over many threads, each of which owns the
+// same columns of every row it walks: chunks g, g + span, ... of V columns
+// (16-byte copies where the launch allows them, one element otherwise), g
+// its index among the span threads across the row. It keeps those columns'
+// scale (and bias) in registers, and in the backward their f64 column sums.
+// The rows come through a ring of row slots in shared memory: each thread
+// copies its own chunks of the rows ahead with cp.async and reads back only
+// what it copied, so the ring needs no barrier, and the copies of the next
+// rows are in flight while the block works on this step's. A step is two
+// rows where the ring has four slots and a block spans a row, else one; its
+// row sums are a warp butterfly each and one barrier for all (two slot
+// buffers used in turn): a step of RMS takes one barrier forward and two
+// backward, of LayerNorm two and three (the backward's sums of r and of g^
+// share the first). Where the width or a pointer rules out 16-byte copies
+// (V 1) each thread moves its elements into its slots with plain loads and
+// stores as it goes.
+//
+// The forward: a row across a block of kWideThreads (PER 8 columns a thread
+// up to D 4096, 16 up to 8192), two blocks an SM at 8 columns. The
+// backward: one block of kWideThreads an SM (its 16 f64 column sums, scale
+// and two rows' r and g take up to the 128 registers a thread may have
+// there), 8 columns a thread; past D 4096 a row spans a thread-block
+// cluster of two blocks on two SMs, one row a step, which add their row
+// sums by asynchronous stores into each other's shared memory (st.async,
+// counted on an mbarrier: a cluster barrier's release would wait for the
+// block's global stores too), so no thread holds more than 8 columns.
+//
+// What still bounds the backward on the H100 is not bytes: one block an SM
+// walks its rows in lockstep steps, and a second block does not fit beside
+// it (a cluster of half-width blocks, two an SM, was slower: every row sum
+// then crosses SMs).
+//
+// The arithmetic is the one-row-a-block kernels' it replaces, in the same
+// order where a thread owns the same columns (every width but the
+// backward's past 4096): the row sums are thread partials in f64 over the
+// thread's columns in column order, a butterfly over xor offsets 16 .. 1,
+// then the warps in order; the column sums add each row's terms in row
+// order.
 
-// the sum of v over the block, in f64, the same on every thread: warp
-// butterflies, then warp 0 .. kWideWarps - 1 added in order from shared
-// memory (red: kWideWarps doubles; the leading barrier frees it from the
-// previous call)
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  v = warp_sum_f64(v);
-  __syncthreads();
-  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
-  __syncthreads();
-  double t = 0.0;
-#pragma unroll
-  for (int w = 0; w < kWideWarps; ++w) t += red[w];
-  return t;
+// 16 bytes from global to shared memory, not waited for
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
 }
 
-// The forward, one row a block on a grid of up to a wave of blocks: r = x
-// (+ y) staged in f32, the mean and the direct variance from block sums
-// (thread partials in f64, rounded to f32 once), then n and r written from
-// the staged row. Dynamic shared memory: the row, then kWideWarps doubles.
-template <typename TX, typename TO, int V>
-__global__ void __launch_bounds__(kWideThreads)
+// the async copies issued since the last commit, as one group; then wait
+// until at most N groups are outstanding (no-ops on the V 1 path, whose
+// stores are done when issued)
+template <int V>
+__device__ __forceinline__ void commit_rows() {
+  if constexpr (V > 1) asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int V, int N>
+__device__ __forceinline__ void wait_rows() {
+  if constexpr (V > 1) asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the two halves of a cluster barrier, release / acquire
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+// the one arrival of a phase, expecting `bytes` of remote stores
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// v into the shared memory of the cluster's block `rank` at the address
+// that is `at` in this block, counted on that block's mbarrier at `bar`:
+// no fence, so the store does not wait for this thread's global stores
+__device__ __forceinline__ void store_remote(unsigned at, unsigned bar, int rank,
+                                             double v) {
+  unsigned rat, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rat) : "r"(at), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f64 [%0], %1, [%2];\n" ::"r"(rat),
+      "d"(v), "r"(rbar)
+      : "memory");
+}
+
+// the backward's blocks: kWideThreads of 8 columns each, in clusters of at
+// most kMaxCluster across the widest row
+constexpr int kWideBwdCols = 8;
+constexpr int kMaxCluster = kMaxD / (kWideBwdCols * kWideThreads);
+
+// the slot buffers of the row sums: two, each of kWideVals doubles a warp
+// of the cluster (at most two sums of each of two rows), then the
+// backward's two mbarriers
+constexpr int kWideVals = 4;
+constexpr int kWideRedBytes =
+    2 * kMaxCluster * kWideWarps * kWideVals * (int)sizeof(double) + 16;
+
+// A wide kernel's ring: kWideThreads threads of PER columns, kColBytes
+// bytes a column over the tensors a row brings (x, y forward; r, g, gr
+// backward), 2 to 4 slots in at most kBudget bytes, and kStep rows a step:
+// two where there are four slots, so two more rows are always in flight.
+template <int PER, int kColBytes, int kBudget>
+struct Ring {
+  static constexpr int kSlotBytes = kWideThreads * PER * kColBytes;
+  static constexpr int kFit = kBudget / kSlotBytes;
+  static constexpr int kSlots = kFit > 4 ? 4 : (kFit < 2 ? 2 : kFit);
+  static constexpr int kStep = kSlots == 4 ? 2 : 1;
+  static constexpr int kSmem = kWideRedBytes + kSlots * kSlotBytes;
+};
+// the forward's: at most 96 KB, so two blocks share an SM; the backward's,
+// one block an SM
+template <typename TX, int PER>
+using FwdRing = Ring<PER, 2 * (int)sizeof(TX), 96 * 1024>;
+template <typename TX, typename TG>
+using BwdRing = Ring<kWideBwdCols, 2 * (int)sizeof(TX) + (int)sizeof(TG),
+                     192 * 1024>;
+
+// v[0:N] each summed over the warp, the butterflies interleaved
+template <int N>
+__device__ __forceinline__ void warp_sums_f64(double (&v)[N]) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+}
+
+// v[0:N] each summed over the NCL blocks of the cluster (NCL 1: the
+// block), in f64, the same on every thread. Each warp's sums go to its
+// place (rank, warp) of every block's slot buffer `buf`, which flips: in a
+// block by shared-memory stores and a barrier; across a cluster by
+// asynchronous remote stores counted on that buffer's mbarrier, which
+// thread 0 arms for the cluster's values and every thread waits on (no
+// fence, so no wait for this block's global stores). Then the warps are
+// added in (rank, warp) order: the warp order of one block as wide as the
+// cluster. A buffer is written again two sums later, once every warp has
+// passed (sent) the sum between, which it does after reading this one.
+// `phase` holds each buffer's mbarrier parity.
+template <int NCL, int N>
+__device__ __forceinline__ void row_sums(double (&v)[N], double* red,
+                                         unsigned bars, int& buf,
+                                         unsigned& phase, int rank) {
+  warp_sums_f64(v);
+  double* slots = red + buf * NCL * kWideWarps * kWideVals;
+  const int at = (rank * kWideWarps + (int)threadIdx.x / kWarp) * kWideVals;
+  if constexpr (NCL == 1) {
+    if (threadIdx.x % kWarp == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) slots[at + i] = v[i];
+    }
+    __syncthreads();
+  } else {
+    const unsigned bar = bars + 8 * buf;
+    if (threadIdx.x == 0)
+      mbar_expect(bar, NCL * kWideWarps * N * (unsigned)sizeof(double));
+    if (threadIdx.x % kWarp == 0) {
+#pragma unroll
+      for (int q = 0; q < NCL; ++q) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          store_remote(smem_addr(slots + at + i), bar, q, v[i]);
+      }
+    }
+    mbar_wait(bar, (phase >> buf) & 1u);
+    phase ^= 1u << buf;
+  }
+  // four loads ahead at a time: unrolled whole, the compiler would hold
+  // every warp's sum in registers at once
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    double t = 0.0;
+#pragma unroll 4
+    for (int w = 0; w < NCL * kWideWarps; ++w) t += slots[w * kWideVals + i];
+    v[i] = t;
+  }
+  buf ^= 1;
+}
+
+// column of element 0 of chunk j of thread g of span
+template <int V>
+__device__ __forceinline__ int wide_col(int j, int g, int span) {
+  return (j * span + g) * V;
+}
+
+// The thread's chunks of one row of src into its places in a slot area
+// (chunk j's 16-byte word w at word (j W + w) kWideThreads + threadIdx.x, so
+// a warp's reads are contiguous): cp.async for V 8, plain loads and stores
+// for V 1.
+template <typename T, int V, int PER>
+__device__ __forceinline__ void stage_row(const T* __restrict__ src,
+                                          unsigned char* area, int d, int g,
+                                          int span) {
+#pragma unroll
+  for (int j = 0; j < PER / V; ++j) {
+    const int c = wide_col<V>(j, g, span);
+    if (c >= d) continue;
+    if constexpr (V == 1) {
+      reinterpret_cast<T*>(area)[j * kWideThreads + threadIdx.x] = src[c];
+    } else {
+      constexpr int W = V * (int)sizeof(T) / 16;
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        copy16_async(reinterpret_cast<uint4*>(area) + (j * W + w) * kWideThreads +
+                         threadIdx.x,
+                     src + c + w * kVec<T>);
+    }
+  }
+}
+
+// the thread's chunk j of the row in a slot area, in f32
+template <typename T, int V>
+__device__ __forceinline__ void slot_chunk(const unsigned char* area, int j,
+                                           float* f) {
+  if constexpr (V == 1) {
+    f[0] = to_f(reinterpret_cast<const T*>(area)[j * kWideThreads + threadIdx.x]);
+  } else {
+    constexpr int W = V * (int)sizeof(T) / 16;
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      unpack(reinterpret_cast<const uint4*>(area)[(j * W + w) * kWideThreads +
+                                                  threadIdx.x],
+             f + w * kVec<T>, T());
+  }
+}
+
+// the thread's PER values of a [d] f32 vector (0 past d)
+template <int V, int PER>
+__device__ __forceinline__ void hold_cols(const float* __restrict__ v, int d,
+                                          int g, int span, float (&f)[PER]) {
+#pragma unroll
+  for (int j = 0; j < PER / V; ++j) {
+    const int c = wide_col<V>(j, g, span);
+#pragma unroll
+    for (int k = 0; k < V; ++k) f[j * V + k] = 0.f;
+    if (c < d) {
+      Pack<float, V> p;
+      p.load(v + c);
+      p.widen(&f[j * V]);
+    }
+  }
+}
+
+// The forward on a persistent grid of about a wave of resident blocks (two
+// an SM at 8 columns a thread; block b walks rows b, b + gridDim.x, ...):
+// per step, r = x (+ y) in f32 from the ring, the mean and the direct
+// variance from block sums (thread partials in f64, rounded to f32 once),
+// then n and r written.
+template <typename TX, typename TO, int V, int PER>
+__global__ void __launch_bounds__(kWideThreads, V == 8 && PER == 8 ? 2 : 1)
     ln_fwd_wide_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias, TO* __restrict__ out,
                        TX* __restrict__ res, long long n_rows, int d,
                        float inv_d, float eps, int rms) {
-  extern __shared__ double wide_smem[];
-  double* red = wide_smem;
-  float* rs = reinterpret_cast<float*>(wide_smem + kWideWarps);
-  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
-    const long long base = row * d;
-    double s = 0.0;
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
-      float v[V];
-      Pack<TX, V> xp;
-      xp.load(x + base + c);
-      xp.widen(v);
-      if (y != nullptr) {
-        float t[V];
-        Pack<TX, V> yp;
-        yp.load(y + base + c);
-        yp.widen(t);
+  using R = FwdRing<TX, PER>;
+  constexpr int K = R::kStep, S = R::kSlots, NC = PER / V;
+  constexpr int kArea = kWideThreads * PER * (int)sizeof(TX);
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  double* red = reinterpret_cast<double*>(wide_smem);
+  unsigned char* ring = wide_smem + kWideRedBytes;
+  const int t = threadIdx.x;
+  float sc[PER], bi[PER];
+  hold_cols<V, PER>(scale, d, t, kWideThreads, sc);
+  if (bias != nullptr) hold_cols<V, PER>(bias, d, t, kWideThreads, bi);
+  const long long first = blockIdx.x, stride = gridDim.x;
+  const long long rows = first < n_rows ? (n_rows - 1 - first) / stride + 1 : 0;
+  auto issue = [&](long long m) {
+    if (m < rows) {
+      unsigned char* slot = ring + (int)(m % S) * R::kSlotBytes;
+      const long long at = (first + stride * m) * d;
+      stage_row<TX, V, PER>(x + at, slot, d, t, kWideThreads);
+      if (y != nullptr)
+        stage_row<TX, V, PER>(y + at, slot + kArea, d, t,
+                                            kWideThreads);
+    }
+    commit_rows<V>();
+  };
+  // r = x (+ y), chunk j of a row slot
+  auto row_chunk = [&](const unsigned char* slot, int j, float (&v)[V]) {
+    slot_chunk<TX, V>(slot, j, v);
+    if (y != nullptr) {
+      float u[V];
+      slot_chunk<TX, V>(slot + kArea, j, u);
 #pragma unroll
-        for (int k = 0; k < V; ++k) v[k] += t[k];
-      }
+      for (int k = 0; k < V; ++k) v[k] += u[k];
+    }
+  };
+  for (int m = 0; m < S - K; ++m) issue(m);
+  int buf = 0;
+  unsigned phase = 0;
+  for (long long m0 = 0; m0 < rows; m0 += K) {
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        rs[c + k] = v[k];
-        s += v[k];
+    for (int k = 0; k < K; ++k) issue(m0 + S - K + k);
+    wait_rows<V, S - K>();
+    const unsigned char* slot[K];
+    bool live[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      slot[k] = ring + (int)((m0 + k) % S) * R::kSlotBytes;
+      live[k] = m0 + k < rows;
+    }
+    // RMS: the sum of r^2 (mean 0); LayerNorm: the sum of r
+    double s[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      s[k] = 0.0;
+      if (!live[k]) continue;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        if (wide_col<V>(j, t, kWideThreads) >= d) continue;
+        float v[V];
+        row_chunk(slot[k], j, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (rms) {
+            const float cv = v[i] - 0.f;
+            s[k] += __fmul_rn(cv, cv);
+          } else {
+            s[k] += v[i];
+          }
+        }
       }
     }
-    const float mean = rms ? 0.f : __fmul_rn((float)block_sum(s, red), inv_d);
-    double ss = 0.0;
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+    row_sums<1>(s, red, 0u, buf, phase, 0);
+    float mean[K], rstd[K];
+    if (rms) {
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const float cv = rs[c + k] - mean;
-        ss += __fmul_rn(cv, cv);
+      for (int k = 0; k < K; ++k) {
+        mean[k] = 0.f;
+        rstd[k] = rsqrtf(__fadd_rn(__fmul_rn((float)s[k], inv_d), eps));
       }
+    } else {
+      double ss[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        mean[k] = __fmul_rn((float)s[k], inv_d);
+        ss[k] = 0.0;
+        if (!live[k]) continue;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          if (wide_col<V>(j, t, kWideThreads) >= d) continue;
+          float v[V];
+          row_chunk(slot[k], j, v);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float cv = v[i] - mean[k];
+            ss[k] += __fmul_rn(cv, cv);
+          }
+        }
+      }
+      row_sums<1>(ss, red, 0u, buf, phase, 0);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        rstd[k] = rsqrtf(__fadd_rn(__fmul_rn((float)ss[k], inv_d), eps));
     }
-    const float var = __fmul_rn((float)block_sum(ss, red), inv_d);
-    const float rstd = rsqrtf(__fadd_rn(var, eps));
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
-      float n[V];
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        n[k] = (rs[c + k] - mean) * rstd * scale[c + k];
-        if (bias != nullptr) n[k] += bias[c + k];
+    for (int k = 0; k < K; ++k) {
+      if (!live[k]) continue;
+      const long long at = (first + stride * (m0 + k)) * d;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = wide_col<V>(j, t, kWideThreads);
+        if (c >= d) continue;
+        float v[V], n[V];
+        row_chunk(slot[k], j, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          n[i] = (v[i] - mean[k]) * rstd[k] * sc[j * V + i];
+          // rounded apart, as the plain version adds the bias
+          if (bias != nullptr) n[i] = __fadd_rn(n[i], bi[j * V + i]);
+        }
+        store_cols<V>(out + at + c, n);
+        if (res != nullptr) store_cols<V>(res + at + c, v);
       }
-      store_cols<V>(out + base + c, n);
-      if (res != nullptr) store_cols<V>(res + base + c, rs + c);
     }
   }
 }
 
-// The backward, one row a block at a time on the persistent grid of
-// ln_bwd_kernel (n_parts blocks, block b taking rows b, b + n_parts, ...):
-// r and g staged in f32, the statistics as the forward's (the thread
-// partials in f64 as layernorm_bwd_plain's exact row sums), the row sums
-// of g^ x^ and g^ in f64, dr written, and each column's g x^ (rounded to
-// f32) and g added in f64 into the block's own sums in shared memory by
-// the thread that owns the column; at the end the block writes them as its
-// partial row for ln_bwd_reduce. Dynamic shared memory: the two f64 column
-// sums, kWideWarps doubles, then the staged r (x^ once computed) and g:
-// 24 bytes a column, 192 KB at D 8192.
-template <typename TX, typename TG, int V>
+// The backward: cluster q of the grid's Q (gridDim.x / NCL clusters of NCL
+// blocks; NCL 1: block q) walks rows q, q + Q, ..., each of its blocks over
+// its own columns: per
+// row, the statistics as the forward's from r in the ring, the row sums of
+// g^ x^ and g^ in f64 (thread partials, rounded to f32 once), dr written,
+// and each column's g x^ (rounded to f32) and g added in f64 into the f64
+// registers of the thread that owns the column, rows in order; at the end
+// each block writes its columns of the cluster's partial row q for
+// ln_bwd_reduce.
+template <typename TX, typename TG, int V, int NCL>
 __global__ void __launch_bounds__(kWideThreads, 1)
     ln_bwd_wide_kernel(const TX* __restrict__ r_in,
                        const TG* __restrict__ g_in,
@@ -778,82 +1092,187 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                        TX* __restrict__ dr_out, double* ds_part,
                        double* db_part, long long n_rows, int d, float inv_d,
                        float eps, int rms) {
-  extern __shared__ double wide_smem[];
-  double* ds_acc = wide_smem;
-  double* db_acc = ds_acc + d;
-  double* red = db_acc + d;
-  float* xs = reinterpret_cast<float*>(red + kWideWarps);
-  float* gs = xs + d;
-  for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
-#pragma unroll
-    for (int k = 0; k < V; ++k) ds_acc[c + k] = db_acc[c + k] = 0.0;
+  using R = BwdRing<TX, TG>;
+  constexpr int PER = kWideBwdCols, S = R::kSlots, NC = PER / V;
+  // one row a step where a cluster spans a row
+  constexpr int K = NCL == 1 ? R::kStep : 1;
+  constexpr int kAreaX = kWideThreads * PER * (int)sizeof(TX);
+  constexpr int kAreaG = kWideThreads * PER * (int)sizeof(TG);
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  double* red = reinterpret_cast<double*>(wide_smem);
+  const unsigned bars = smem_addr(wide_smem + kWideRedBytes - 16);
+  unsigned char* ring = wide_smem + kWideRedBytes;
+  const int rank = NCL > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  if constexpr (NCL > 1) {
+    if (threadIdx.x == 0) {
+      mbar_init(bars);
+      mbar_init(bars + 8);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_arrive();  // waited on before the first remote store
   }
-  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
-    const long long base = row * d;
-    double s = 0.0;
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
-      Pack<TX, V> rp;
-      rp.load(r_in + base + c);
-      rp.widen(xs + c);
-      Pack<TG, V> gp;
-      gp.load(g_in + base + c);
-      gp.widen(gs + c);
+  const int g = rank * kWideThreads + threadIdx.x;
+  constexpr int span = NCL * kWideThreads;
+  float sc[PER];
+  hold_cols<V, PER>(scale, d, g, span, sc);
+  double ds_acc[PER], db_acc[PER];
 #pragma unroll
-      for (int k = 0; k < V; ++k) s += xs[c + k];
+  for (int i = 0; i < PER; ++i) ds_acc[i] = db_acc[i] = 0.0;
+  const long long first = blockIdx.x / NCL, stride = gridDim.x / NCL;
+  const int rows = first < n_rows ? (int)((n_rows - 1 - first) / stride + 1) : 0;
+  auto issue = [&](int m) {
+    if (m < rows) {
+      unsigned char* slot = ring + (m % S) * R::kSlotBytes;
+      const long long at = (first + stride * m) * d;
+      stage_row<TX, V, PER>(r_in + at, slot, d, g, span);
+      stage_row<TG, V, PER>(g_in + at, slot + kAreaX, d, g,
+                                             span);
+      if (gr_in != nullptr)
+        stage_row<TX, V, PER>(gr_in + at, slot + kAreaX + kAreaG,
+                                               d, g, span);
     }
-    const float mean = rms ? 0.f : __fmul_rn((float)block_sum(s, red), inv_d);
-    double ss = 0.0;
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+    commit_rows<V>();
+  };
+  for (int m = 0; m < S - K; ++m) issue(m);
+  if constexpr (NCL > 1) cluster_wait();
+  int buf = 0;
+  unsigned phase = 0;
+  for (int m0 = 0; m0 < rows; m0 += K) {
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const float cv = xs[c + k] - mean;
-        ss += __fmul_rn(cv, cv);
+    for (int k = 0; k < K; ++k) issue(m0 + S - K + k);
+    wait_rows<V, S - K>();
+    const unsigned char* slot[K];
+    bool live[K];
+    // the rows' r and g at the thread's columns, in f32, for every pass
+    float xv[K][PER], gv[K][PER];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      slot[k] = ring + ((m0 + k) % S) * R::kSlotBytes;
+      live[k] = m0 + k < rows;
+      if (!live[k]) continue;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        if (wide_col<V>(j, g, span) >= d) continue;
+        slot_chunk<TX, V>(slot[k], j, &xv[k][j * V]);
+        slot_chunk<TG, V>(slot[k] + kAreaX, j, &gv[k][j * V]);
       }
     }
-    const float var = __fmul_rn((float)block_sum(ss, red), inv_d);
-    const float rstd = rsqrtf(__fadd_rn(var, eps));
-    // x^ in place of r; g^ = g * scale is recomputed where it is used
-    double s2 = 0.0, s1 = 0.0;
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+    float mean[K], rstd[K], c1[K], c2[K];
+    double q[K];
+    if (rms) {
+      // the sum of r^2 (mean 0)
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const float xhat = (xs[c + k] - mean) * rstd;
-        const float dxhat = gs[c + k] * scale[c + k];
-        xs[c + k] = xhat;
-        s2 += __fmul_rn(dxhat, xhat);
-        s1 += dxhat;
+      for (int k = 0; k < K; ++k) {
+        mean[k] = c1[k] = 0.f;
+        q[k] = 0.0;
+        if (!live[k]) continue;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          if (wide_col<V>(j, g, span) >= d) continue;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float cv = xv[k][j * V + i] - 0.f;
+            q[k] += __fmul_rn(cv, cv);
+          }
+        }
+      }
+      row_sums<NCL>(q, red, bars, buf, phase, rank);
+    } else {
+      // the sums of r and of g^ = g * scale, in one barrier
+      double p[2 * K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        p[2 * k] = p[2 * k + 1] = 0.0;
+        if (!live[k]) continue;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          if (wide_col<V>(j, g, span) >= d) continue;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            p[2 * k] += xv[k][j * V + i];
+            p[2 * k + 1] += gv[k][j * V + i] * sc[j * V + i];
+          }
+        }
+      }
+      row_sums<NCL>(p, red, bars, buf, phase, rank);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        mean[k] = __fmul_rn((float)p[2 * k], inv_d);
+        c1[k] = __fmul_rn((float)p[2 * k + 1], inv_d);
+        q[k] = 0.0;
+        if (!live[k]) continue;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          if (wide_col<V>(j, g, span) >= d) continue;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float cv = xv[k][j * V + i] - mean[k];
+            q[k] += __fmul_rn(cv, cv);
+          }
+        }
+      }
+      row_sums<NCL>(q, red, bars, buf, phase, rank);
+    }
+    // the sum of g^ x^
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      rstd[k] = rsqrtf(__fadd_rn(__fmul_rn((float)q[k], inv_d), eps));
+      q[k] = 0.0;
+      if (!live[k]) continue;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        if (wide_col<V>(j, g, span) >= d) continue;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float xhat = (xv[k][j * V + i] - mean[k]) * rstd[k];
+          const float dxhat = gv[k][j * V + i] * sc[j * V + i];
+          q[k] += __fmul_rn(dxhat, xhat);
+        }
       }
     }
-    const float c2 = __fmul_rn((float)block_sum(s2, red), inv_d);
-    const float c1 = rms ? 0.f : __fmul_rn((float)block_sum(s1, red), inv_d);
-    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
-      float dr[V], grv[V];
-      if (gr_in != nullptr) {
-        Pack<TX, V> gp;
-        gp.load(gr_in + base + c);
-        gp.widen(grv);
-      }
+    row_sums<NCL>(q, red, bars, buf, phase, rank);
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const float gv = gs[c + k], xhat = xs[c + k];
-        const float dxhat = gv * scale[c + k];
-        dr[k] = dxhat - xhat * c2;
-        if (!rms) dr[k] -= c1;
-        dr[k] *= rstd;
-        if (gr_in != nullptr) dr[k] += grv[k];
-        ds_acc[c + k] += (double)__fmul_rn(gv, xhat);
-        db_acc[c + k] += (double)gv;
+    for (int k = 0; k < K; ++k) {
+      c2[k] = __fmul_rn((float)q[k], inv_d);
+      if (!live[k]) continue;
+      const long long at = (first + stride * (m0 + k)) * d;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = wide_col<V>(j, g, span);
+        if (c >= d) continue;
+        float grv[V], dr[V];
+        if (gr_in != nullptr)
+          slot_chunk<TX, V>(slot[k] + kAreaX + kAreaG, j, grv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float xhat = (xv[k][j * V + i] - mean[k]) * rstd[k];
+          const float dxhat = gv[k][j * V + i] * sc[j * V + i];
+          dr[i] = dxhat - xhat * c2[k];
+          if (!rms) dr[i] -= c1[k];
+          dr[i] *= rstd[k];
+          if (gr_in != nullptr) dr[i] += grv[i];
+          ds_acc[j * V + i] += (double)__fmul_rn(gv[k][j * V + i], xhat);
+          db_acc[j * V + i] += (double)gv[k][j * V + i];
+        }
+        store_cols<V>(dr_out + at + c, dr);
       }
-      store_cols<V>(dr_out + base + c, dr);
     }
   }
-  double* ds_row = ds_part + (long long)blockIdx.x * d;
-  double* db_row = db_part + (long long)blockIdx.x * d;
-  for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+  // no block leaves while a remote store to or from it may be in flight
+  if constexpr (NCL > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+  double* ds_row = ds_part + first * d;
+  double* db_row = db_part + first * d;
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      ds_row[c + k] = ds_acc[c + k];
-      db_row[c + k] = db_acc[c + k];
+  for (int j = 0; j < NC; ++j) {
+    const int c = wide_col<V>(j, g, span);
+    if (c >= d) continue;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      ds_row[c + i] = ds_acc[j * V + i];
+      db_row[c + i] = db_acc[j * V + i];
     }
   }
 }
@@ -1002,31 +1421,48 @@ int bwd_per(int r_dtype, int g_dtype, const void* r, const void* g,
 
 // -- the wide rows (d > kMaxRegD) ---------------------------------------------
 
-// a kernel's dynamic shared memory above the 48 KB default needs opting in
-template <typename K>
-cudaError_t allow_smem(K kern, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
+// Once per instantiation: a wide kernel's shared memory opted in above the
+// 48 KB default, and the blocks of `threads` that fit an SM beside it.
+template <typename Kern>
+cudaError_t wide_setup(Kern kern, int smem, int threads, int& per_sm) {
+  if (per_sm > 0) return cudaSuccess;
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  return e;
 }
 
-template <typename TX, typename TO, int V>
+// What a wide launch would be, for tpudist_layernorm_wide_geometry: its
+// blocks, the blocks resident an SM, the ring's row slots, the rows a step,
+// the columns a thread, the blocks a cluster and the backward's partial rows.
+int wide_geometry(int* geo, int blocks, int per_sm, int slots, int step,
+                  int per, int cluster, int parts) {
+  const int v[7] = {blocks, per_sm, slots, step, per, cluster, parts};
+  for (int i = 0; i < 7; ++i) geo[i] = v[i];
+  return (int)cudaSuccess;
+}
+
+template <typename TX, typename TO, int V, int PER>
 int launch_fwd_wide(const void* x, const void* y, const void* scale,
                     const void* bias, void* out, void* res, long long n_rows,
-                    int d, float inv_d, float eps, int rms, cudaStream_t s) {
-  auto kern = ln_fwd_wide_kernel<TX, TO, V>;
-  const int smem = kWideWarps * (int)sizeof(double) + d * (int)sizeof(float);
-  cudaError_t e = allow_smem(kern, smem);
+                    int d, float inv_d, float eps, int rms, cudaStream_t s,
+                    int* geo) {
+  using R = FwdRing<TX, PER>;
+  constexpr int kSmem = R::kSmem;
+  auto kern = ln_fwd_wide_kernel<TX, TO, V, PER>;
+  static int per_sm = 0;
+  const cudaError_t e = wide_setup(kern, kSmem, kWideThreads, per_sm);
   if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kWideThreads,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) per_sm = 1;
   long long blocks = n_rows;
-  const long long wave = (long long)sm_count() * per_sm;
+  const long long wave = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
   if (blocks > wave) blocks = wave;
-  kern<<<(unsigned)blocks, kWideThreads, smem, s>>>(
+  if (geo != nullptr)
+    return wide_geometry(geo, (int)blocks, per_sm, R::kSlots, R::kStep, PER, 1, 0);
+  kern<<<(unsigned)blocks, kWideThreads, kSmem, s>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(y),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<TO*>(out), static_cast<TX*>(res), n_rows, d, inv_d, eps,
@@ -1034,26 +1470,33 @@ int launch_fwd_wide(const void* x, const void* y, const void* scale,
   return (int)cudaGetLastError();
 }
 
-// 16-byte loads (V 8) where the width is a multiple of 8 and every pointer
-// is 16-byte aligned, element-wise (V 1) otherwise
+// 16-byte copies (V 8) where the width is a multiple of 8 and every pointer
+// is 16-byte aligned, element-wise (V 1) otherwise; 8 columns a thread up to
+// D 4096, 16 past it
 template <typename TX, typename TO>
 int fwd_wide_vec(const void* x, const void* y, const void* scale,
                  const void* bias, void* out, void* res, long long n_rows,
-                 int d, float inv_d, float eps, int rms, cudaStream_t s) {
+                 int d, float inv_d, float eps, int rms, cudaStream_t s,
+                 int* geo) {
   const bool vec = d % 8 == 0 && aligned16(x) && (y == nullptr || aligned16(y)) &&
                    aligned16(scale) && (bias == nullptr || aligned16(bias)) &&
                    aligned16(out) && (res == nullptr || aligned16(res));
-  return vec ? launch_fwd_wide<TX, TO, 8>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s)
-             : launch_fwd_wide<TX, TO, 1>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+  const bool narrow = d <= 8 * kWideThreads;
+  if (vec)
+    return narrow ? launch_fwd_wide<TX, TO, 8, 8>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo)
+                  : launch_fwd_wide<TX, TO, 8, 16>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo);
+  return narrow ? launch_fwd_wide<TX, TO, 1, 8>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo)
+                : launch_fwd_wide<TX, TO, 1, 16>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo);
 }
 
 template <typename TX>
 int fwd_wide_out(int out_dtype, const void* x, const void* y, const void* scale,
                  const void* bias, void* out, void* res, long long n_rows,
-                 int d, float inv_d, float eps, int rms, cudaStream_t s) {
+                 int d, float inv_d, float eps, int rms, cudaStream_t s,
+                 int* geo) {
   switch (out_dtype) {
-    case 0: return fwd_wide_vec<TX, float>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
-    case 1: return fwd_wide_vec<TX, __nv_bfloat16>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+    case 0: return fwd_wide_vec<TX, float>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo);
+    case 1: return fwd_wide_vec<TX, __nv_bfloat16>(x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1061,52 +1504,88 @@ int fwd_wide_out(int out_dtype, const void* x, const void* y, const void* scale,
 int fwd_wide(int x_dtype, int out_dtype, const void* x, const void* y,
              const void* scale, const void* bias, void* out, void* res,
              long long n_rows, int d, float inv_d, float eps, int rms,
-             cudaStream_t s) {
+             cudaStream_t s, int* geo) {
   switch (x_dtype) {
-    case 0: return fwd_wide_out<float>(out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
-    case 1: return fwd_wide_out<__nv_bfloat16>(out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+    case 0: return fwd_wide_out<float>(out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo);
+    case 1: return fwd_wide_out<__nv_bfloat16>(out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, geo);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename TX, typename TG, int V>
+// The backward's launch: one block an SM up to D 4096, clusters of NCL 2
+// blocks past it, as many as the card holds at once up to n_parts (the
+// partial rows the caller allocated), then ln_bwd_reduce over their partial
+// rows.
+template <typename TX, typename TG, int V, int NCL>
 int launch_bwd_wide(const void* r, const void* g, const void* gr,
                     const void* scale, void* dr, void* ds_part, void* db_part,
                     void* ds, void* db, long long n_rows, int d, int n_parts,
-                    float inv_d, float eps, int rms, cudaStream_t s) {
-  auto kern = ln_bwd_wide_kernel<TX, TG, V>;
-  const int smem = (2 * d + kWideWarps) * (int)sizeof(double) +
-                   2 * d * (int)sizeof(float);
-  const cudaError_t e = allow_smem(kern, smem);
+                    float inv_d, float eps, int rms, cudaStream_t s, int* geo) {
+  using R = BwdRing<TX, TG>;
+  auto kern = ln_bwd_wide_kernel<TX, TG, V, NCL>;
+  static int per_sm = 0, resident = 0;  // blocks an SM; clusters at once
+  cudaError_t e = wide_setup(kern, R::kSmem, kWideThreads, per_sm);
   if (e != cudaSuccess) return (int)e;
-  kern<<<(unsigned)n_parts, kWideThreads, smem, s>>>(
-      static_cast<const TX*>(r), static_cast<const TG*>(g),
-      static_cast<const TX*>(gr), static_cast<const float*>(scale),
-      static_cast<TX*>(dr), static_cast<double*>(ds_part),
-      static_cast<double*>(db_part), n_rows, d, inv_d, eps, rms);
-  return launch_reduce(ds_part, db_part, ds, db, n_parts, d, s);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = R::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = NCL > 1 ? 1 : 0;
+  if (resident < 1) {
+    if (NCL > 1) {
+      cfg.gridDim = dim3(NCL);
+      e = cudaOccupancyMaxActiveClusters(&resident, kern, &cfg);
+      if (e != cudaSuccess) return (int)e;
+    } else {
+      resident = sm_count() * per_sm;
+    }
+    if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int parts = n_parts < resident ? n_parts : resident;
+  if (geo != nullptr)
+    return wide_geometry(geo, parts * NCL, per_sm, R::kSlots,
+                         NCL == 1 ? R::kStep : 1, kWideBwdCols, NCL, parts);
+  cfg.gridDim = dim3(parts * NCL);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const TX*>(r),
+                         static_cast<const TG*>(g), static_cast<const TX*>(gr),
+                         static_cast<const float*>(scale), static_cast<TX*>(dr),
+                         static_cast<double*>(ds_part),
+                         static_cast<double*>(db_part), n_rows, d, inv_d, eps,
+                         rms);
+  if (e != cudaSuccess) return (int)e;
+  return launch_reduce(ds_part, db_part, ds, db, parts, d, s);
 }
 
 template <typename TX, typename TG>
 int bwd_wide_vec(const void* r, const void* g, const void* gr,
                  const void* scale, void* dr, void* ds_part, void* db_part,
                  void* ds, void* db, long long n_rows, int d, int n_parts,
-                 float inv_d, float eps, int rms, cudaStream_t s) {
+                 float inv_d, float eps, int rms, cudaStream_t s, int* geo) {
   const bool vec = d % 8 == 0 && aligned16(r) && aligned16(g) &&
                    (gr == nullptr || aligned16(gr)) && aligned16(scale) &&
                    aligned16(dr);
-  return vec ? launch_bwd_wide<TX, TG, 8>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s)
-             : launch_bwd_wide<TX, TG, 1>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  const bool narrow = d <= kWideBwdCols * kWideThreads;
+  if (vec)
+    return narrow ? launch_bwd_wide<TX, TG, 8, 1>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo)
+                  : launch_bwd_wide<TX, TG, 8, 2>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo);
+  return narrow ? launch_bwd_wide<TX, TG, 1, 1>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo)
+                : launch_bwd_wide<TX, TG, 1, 2>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo);
 }
 
 template <typename TX>
 int bwd_wide_g(int g_dtype, const void* r, const void* g, const void* gr,
                const void* scale, void* dr, void* ds_part, void* db_part,
                void* ds, void* db, long long n_rows, int d, int n_parts,
-               float inv_d, float eps, int rms, cudaStream_t s) {
+               float inv_d, float eps, int rms, cudaStream_t s, int* geo) {
   switch (g_dtype) {
-    case 0: return bwd_wide_vec<TX, float>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
-    case 1: return bwd_wide_vec<TX, __nv_bfloat16>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 0: return bwd_wide_vec<TX, float>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo);
+    case 1: return bwd_wide_vec<TX, __nv_bfloat16>(r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1114,10 +1593,11 @@ int bwd_wide_g(int g_dtype, const void* r, const void* g, const void* gr,
 int bwd_wide(int r_dtype, int g_dtype, const void* r, const void* g,
              const void* gr, const void* scale, void* dr, void* ds_part,
              void* db_part, void* ds, void* db, long long n_rows, int d,
-             int n_parts, float inv_d, float eps, int rms, cudaStream_t s) {
+             int n_parts, float inv_d, float eps, int rms, cudaStream_t s,
+             int* geo) {
   switch (r_dtype) {
-    case 0: return bwd_wide_g<float>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
-    case 1: return bwd_wide_g<__nv_bfloat16>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+    case 0: return bwd_wide_g<float>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo);
+    case 1: return bwd_wide_g<__nv_bfloat16>(g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, geo);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1132,6 +1612,24 @@ int tpudist_layernorm_bwd_parts(long long n_rows) { return parts_for(n_rows); }
 
 int tpudist_layernorm_max_d() { return kMaxD; }
 
+// The launch a wide kernel (kMaxRegD < d <= kMaxD) would make for n_rows
+// 16-byte-aligned rows: bwd 0 the forward (other_dtype its out dtype), 1
+// the backward (other_dtype g's); geo[0:7] gets its blocks, the blocks
+// resident an SM, the ring's row slots, the rows a step, the columns a
+// thread, the blocks a cluster and the backward's partial rows (0 forward).
+// Sets the kernel up as a launch would.
+int tpudist_layernorm_wide_geometry(int bwd, int x_dtype, int other_dtype,
+                                    long long n_rows, int d, int* geo) {
+  if (n_rows < 1 || d <= kMaxRegD || d > kMaxD || geo == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (bwd)
+    return bwd_wide(x_dtype, other_dtype, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, n_rows, d,
+                    parts_for(n_rows), 0.f, 0.f, 0, nullptr, geo);
+  return fwd_wide(x_dtype, other_dtype, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, n_rows, d, 0.f, 0.f, 0, nullptr, geo);
+}
+
 // dtype codes: 0 float32, 1 bfloat16. y, bias and res may be null (no
 // residual add, RMS or no bias, no residual output).
 int tpudist_layernorm_fwd(int x_dtype, int out_dtype, const void* x,
@@ -1145,7 +1643,7 @@ int tpudist_layernorm_fwd(int x_dtype, int out_dtype, const void* x,
   if (d <= 768) return fwd_per<24>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
   if (d <= 1024) return fwd_per<32>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
   if (d <= kMaxRegD) return fwd_per<64>(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
-  return fwd_wide(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s);
+  return fwd_wide(x_dtype, out_dtype, x, y, scale, bias, out, res, n_rows, d, inv_d, eps, rms, s, nullptr);
 }
 
 // Two launches: the rows, dr and n_parts blocks' partial sums
@@ -1163,7 +1661,7 @@ int tpudist_layernorm_bwd(int r_dtype, int g_dtype, const void* r,
   if (d <= 768) return bwd_per<24>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
   if (d <= 1024) return bwd_per<32>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
   if (d <= kMaxRegD) return bwd_per<64>(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
-  return bwd_wide(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s);
+  return bwd_wide(r_dtype, g_dtype, r, g, gr, scale, dr, ds_part, db_part, ds, db, n_rows, d, n_parts, inv_d, eps, rms, s, nullptr);
 }
 
 const char* tpudist_cuda_error_string(int code) {

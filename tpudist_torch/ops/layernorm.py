@@ -29,9 +29,12 @@ kernel masks the row's tail itself.
 Rows up to :data:`MAX_REG_D` (2048) take the kernels that hold a row in
 one warp's registers; wider rows (Llama-7B/8B's 4096, up to
 :data:`MAX_D`, 8192) take ``ln_fwd_wide_kernel`` / ``ln_bwd_wide_kernel``,
-which give a row a block and stage it in shared memory (the backward 24
-bytes a column, so 8192 is the widest its block can hold), and count as
-``layernorm_fwd_wide`` / ``layernorm_bwd_wide``.
+which spread a row over threads that keep their columns (scale, bias and
+the backward's float64 column sums) in registers while the rows ahead
+stream into shared memory, a 512-thread block a row (the forward at most
+16 columns a thread, so 8192 is the widest; the backward 8, past 4096 a
+cluster of two blocks adding its row sums through distributed shared
+memory). They count as ``layernorm_fwd_wide`` / ``layernorm_bwd_wide``.
 
 Each wrapper takes the kernel for CUDA tensors and the plain PyTorch
 version (:func:`layernorm_fwd_plain`, :func:`layernorm_bwd_plain`, the
@@ -53,7 +56,7 @@ launch_counts = {"layernorm_fwd": 0, "layernorm_bwd": 0,
                  "layernorm_bwd_wide": 0}
 
 #: the widest row the register kernels take, and the widest any kernel
-#: takes (``tpudist_layernorm_max_d()``; the wide backward's shared memory)
+#: takes (``tpudist_layernorm_max_d()``; the wide forward's registers)
 MAX_REG_D, MAX_D = 2048, 8192
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -169,8 +172,8 @@ def _check_width(what, d: int, lib) -> None:
     if d > widest:
         raise ValueError(
             f"{what}: D {d} above the kernels' widest row, {widest} (the "
-            "wide backward stages 24 bytes a column in one block's shared "
-            "memory)")
+            "wide forward holds at most 16 columns a thread of a 512-thread "
+            "block in registers)")
 
 
 def layernorm_fwd_cuda(x, y, scale, bias, *, eps: float, rms: bool,

@@ -50,10 +50,10 @@ enqueues and the L2 flushed before each call
 bound and one PyTorch library call computing the same function
 (``F.layer_norm``, ``aten.native_layer_norm_backward``,
 ``scaled_dot_product_attention`` and its backward through autograd), a
-yardstick the port never calls; the LayerNorm backward also at the
-long-context leg's 16384 x 768 rows; the wide kernels at 4096 x 4096 (a
-Llama-3-8B step's rows) and 2048 x 8192, RMS (``F.rms_norm`` and its
-backward through autograd) and LayerNorm. A bound is the larger of the bytes the
+yardstick the port never calls; the LayerNorm forward and backward also
+at the long-context leg's 16384 x 768 rows; the wide kernels at 4096 x
+4096 (a Llama-3-8B step's rows) and 2048 x 8192, RMS (``F.rms_norm`` and
+its backward through autograd) and LayerNorm. A bound is the larger of the bytes the
 call must move (each input read once, each output written once) over
 3.35 TB/s and its operations over the peak rate of their type (bf16
 products 989 TFLOP/s on the tensor cores, float32 arithmetic 67 TFLOP/s;
@@ -76,10 +76,12 @@ fixed text.
 ``--ab DIR`` times kernels built from another revision's sources against
 this checkout's, in turns (A, B, B, A) on the same inputs, for each source
 DIR holds: ``layernorm.cu``, the plain and pre-norm forwards and
-backwards at 8192 x 768 bf16 (rows 5 and 6 of PERF.md's kernel table),
-each side's device time per call split by kernel from a profiler trace
-(:func:`kernel_split`), whether the two sides' outputs are bit-identical,
-and both sides' register reports;
+backwards at 8192 x 768 bf16 (rows 5 and 6 of PERF.md's kernel table) and
+the wide kernels at :data:`WIDE_TIMED` (RMS plain and pre-norm, LayerNorm
+with bias), each side's device time per call split by kernel from a
+profiler trace (:func:`kernel_split`), whether the two sides' outputs are
+bit-identical, each side's share of output elements not bit-equal to the
+plain version's, and both sides' register reports;
 ``flash_attention.cu`` and
 ``vmem_attention.cu`` (with the headers they include), the bf16 forward
 and backward (the delta, dk/dv and dq kernels of one call) at rows 7-8
@@ -433,19 +435,24 @@ def ln_repeat_identical(gen) -> dict:
 
 
 def wide_repeat_identical(gen) -> dict:
-    """Whether two calls of the wide kernels at a Llama-3-8B step's 4096 x
-    4096 bf16 RMS rows give bit-identical outputs: the pre-norm forward
-    (``n``, ``r``) and backward (``dr``, ``dscale``)."""
-    t = ln_inputs(gen, 4096, 4096, torch.bfloat16)
+    """Whether two calls of the wide kernels give bit-identical outputs on
+    the same bf16 RMS rows, at each of :data:`WIDE_TIMED`'s shapes (a
+    Llama-3-8B step's 4096 x 4096; 2048 x 8192, where the backward's row
+    sums cross a cluster): the pre-norm forward (``n``, ``r``) and backward
+    (``dr``, ``dscale``)."""
     same = lambda a, b: all(torch.equal(p, q) for p, q in zip(a, b)
                             if p is not None)
     kw = dict(eps=EPS, rms=True, out_dtype=torch.bfloat16, want_residual=True)
-    return {
-        "forward pre-norm": same(*(LN.layernorm_fwd_cuda(
-            t["x"], t["y"], t["scale"], None, **kw) for _ in range(2))),
-        "backward pre-norm": same(*(LN.layernorm_bwd_cuda(
+    out = {}
+    for rows, d in WIDE_TIMED:
+        t = ln_inputs(gen, rows, d, torch.bfloat16)
+        tag = "" if d == WIDE_TIMED[0][1] else f" D {d}"
+        out[f"forward pre-norm{tag}"] = same(*(LN.layernorm_fwd_cuda(
+            t["x"], t["y"], t["scale"], None, **kw) for _ in range(2)))
+        out[f"backward pre-norm{tag}"] = same(*(LN.layernorm_bwd_cuda(
             t["x"], t["g"], t["gr"], t["scale"], eps=EPS, rms=True)
-            for _ in range(2)))}
+            for _ in range(2)))
+    return out
 
 
 def wide_timing_cases(gen) -> list[dict]:
@@ -548,8 +555,9 @@ def timing_cases(gen) -> list[dict]:
     ``kernel``/``plain``/``library`` callables, the parity error of the
     timed inputs and its bound. LayerNorm: the plain composition (``ln_1``
     and ``ln_f``; F.layer_norm computes the same function) and, as
-    ``*_prenorm`` extras, the pre-norm one (``ln_2``); the backward also
-    at the long-context path's rows (:data:`LONG_ROWS`, ``*_16384``)."""
+    ``*_prenorm`` extras, the pre-norm one (``ln_2``); the plain forward
+    and both backwards also at the long-context path's rows
+    (:data:`LONG_ROWS`, ``*_16384``)."""
     dt = torch.bfloat16
     cases = []
 
@@ -571,14 +579,14 @@ def timing_cases(gen) -> list[dict]:
         fkw = dict(eps=EPS, rms=False, out_dtype=dt)
         sb, bb = scale.to(dt), bias.to(dt)
         tag = "" if rows == ROWS else f"_{rows}"
+        ln_case(f"layernorm_fwd{tag}", rows,
+                lambda: LN.layernorm_fwd_cuda(x, None, scale, bias,
+                                              want_residual=False, **fkw),
+                lambda: LN.layernorm_fwd_plain(x, None, scale, bias,
+                                               want_residual=False, **fkw),
+                lambda: F.layer_norm(x, (WIDTH,), sb, bb, EPS),
+                2 * elems * item + 2 * WIDTH * 4, 9)
         if rows == ROWS:
-            ln_case("layernorm_fwd", rows,
-                    lambda: LN.layernorm_fwd_cuda(x, None, scale, bias,
-                                                  want_residual=False, **fkw),
-                    lambda: LN.layernorm_fwd_plain(x, None, scale, bias,
-                                                   want_residual=False, **fkw),
-                    lambda: F.layer_norm(x, (WIDTH,), sb, bb, EPS),
-                    2 * elems * item + 2 * WIDTH * 4, 9)
             ln_case("layernorm_fwd_prenorm", rows,
                     lambda: LN.layernorm_fwd_cuda(x, y, scale, bias,
                                                   want_residual=True, **fkw),
@@ -858,6 +866,18 @@ def _turns(calls, libs, flush, n) -> tuple[dict, dict]:
     return ms, err
 
 
+def _differ(call, plain, libs) -> dict:
+    """Each side's share of output elements that are not bit-equal to the
+    plain version's (all outputs of ``call(lib)`` together)."""
+    want = plain()
+    out = {}
+    for who, lib in libs.items():
+        pairs = [(g, w) for g, w in zip(call(lib), want) if g is not None]
+        out[who] = (sum(int((g != w).sum()) for g, w in pairs)
+                    / sum(w.numel() for _, w in pairs))
+    return out
+
+
 def _over_bar(got, want) -> float:
     """The largest ``|got - want|`` over the parity rule's allowance at
     ``want``: above 1 misses it."""
@@ -904,11 +924,77 @@ def stats_split(gen, libs: dict) -> list[str]:
             for k, v in over.items()]
 
 
+def ln_ab_calls(t, d: int) -> list[tuple]:
+    """``--ab``'s LayerNorm calls on :func:`ln_inputs` ``t`` of width
+    ``d``, each ``(name, call(lib=...), plain())``: at D 768 the LayerNorm
+    forward and backward, plain and pre-norm (rows 5 and 6 at GPT-2's
+    shape); past :data:`LN.MAX_REG_D` the wide kernels' cases of
+    :func:`wide_timing_cases`: RMS plain and pre-norm, LayerNorm with
+    bias, forward and backward."""
+    x, y, scale, bias, g, gr = (t[k] for k in ("x", "y", "scale", "bias",
+                                               "g", "gr"))
+    wide = d > LN.MAX_REG_D
+    tag = "" if not wide or d == WIDE_TIMED[0][1] else f"_{d}"
+    fwd_cases = ((f"layernorm_fwd_wide{tag}", None, None, True),
+                 (f"layernorm_fwd_wide_prenorm{tag}", y, None, True),
+                 (f"layernorm_fwd_wide_ln{tag}", None, bias, False)) if wide \
+        else (("layernorm_fwd", None, bias, False),
+              ("layernorm_fwd_prenorm", y, bias, False))
+    bwd_cases = ((f"layernorm_bwd_wide{tag}", None, True),
+                 (f"layernorm_bwd_wide_prenorm{tag}", gr, True),
+                 (f"layernorm_bwd_wide_ln{tag}", None, False)) if wide \
+        else (("layernorm_bwd", None, False),
+              ("layernorm_bwd_prenorm", gr, False))
+    calls = []
+    for name, y_, bias_, rms in fwd_cases:
+        kw = dict(eps=EPS, rms=rms, out_dtype=torch.bfloat16,
+                  want_residual=y_ is not None)
+        calls.append((name, functools.partial(
+            LN.layernorm_fwd_cuda, x, y_, scale, bias_, **kw),
+            functools.partial(LN.layernorm_fwd_plain, x, y_, scale, bias_,
+                              **kw)))
+    for name, gr_, rms in bwd_cases:
+        kw = dict(eps=EPS, rms=rms)
+        calls.append((name, functools.partial(
+            LN.layernorm_bwd_cuda, x, g, gr_, scale, **kw),
+            functools.partial(LN.layernorm_bwd_plain, x, g, gr_, scale,
+                              **kw)))
+    return calls
+
+
+def wide_geometry(rows: int, d: int, dtype=torch.bfloat16) -> dict:
+    """The launches the wide kernels make for ``rows`` 16-byte-aligned
+    rows of width ``d`` in ``dtype`` (``tpudist_layernorm_wide_geometry``):
+    for ``"forward"`` and ``"backward"``, the blocks and their threads, the
+    blocks resident an SM, the ring's row slots, the rows a step, the
+    columns a thread, the blocks a cluster and the backward's partial
+    rows."""
+    import ctypes
+
+    from tpudist_torch.csrc import build
+
+    lib = build.load("layernorm.cu")
+    out = {}
+    for bwd, kind in enumerate(("forward", "backward")):
+        geo = (ctypes.c_int * 7)()
+        code = LN._CODE[dtype]
+        build.check(lib, lib.tpudist_layernorm_wide_geometry(
+            bwd, code, code, rows, d, ctypes.addressof(geo)),
+            "layernorm_wide_geometry")
+        out[kind] = dict(zip(("blocks", "per_sm", "slots", "rows_a_step",
+                              "columns_a_thread", "cluster", "parts"), geo),
+                         threads=512)
+    return out
+
+
 def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
     """Kernels built from ``src_dir``'s sources as A against this
     checkout's as B, in turns (A, B, B, A), for each source ``src_dir``
     holds: ``layernorm.cu``'s plain and pre-norm forwards and backwards at
-    8192 x 768 bf16; ``flash_attention.cu`` / ``vmem_attention.cu`` (and
+    8192 x 768 bf16, and the wide kernels' RMS plain and pre-norm and
+    LayerNorm forwards and backwards at :data:`WIDE_TIMED`'s shapes
+    (:func:`ln_ab_calls`), each side's share of output elements not
+    bit-equal to the plain version's beside; ``flash_attention.cu`` / ``vmem_attention.cu`` (and
     the headers beside them), the bf16 forward and backward at
     :data:`AB_CASES`. Each entry has the median device time of ``n`` calls
     per turn and each side's parity error against the plain version; the
@@ -923,33 +1009,22 @@ def kernels_ab(src_dir: Path, n: int = DB.N_TIMED) -> list[dict]:
     if (src_dir / "layernorm.cu").exists():
         source = str((src_dir / "layernorm.cu").resolve())
         libs = {"A": build.load(source), "B": None}
-        t = ln_inputs(gen, ROWS, WIDTH, torch.bfloat16)
-        x, scale, g = t["x"], t["scale"], t["g"]
-        calls = []
-        for name, y in (("layernorm_fwd", None),
-                        ("layernorm_fwd_prenorm", t["y"])):
-            kw = dict(eps=EPS, rms=False, out_dtype=torch.bfloat16,
-                      want_residual=y is not None)
-            calls.append((name, functools.partial(
-                LN.layernorm_fwd_cuda, x, y, scale, t["bias"], **kw),
-                functools.partial(LN.layernorm_fwd_plain, x, y, scale,
-                                  t["bias"], **kw)))
-        for name, gr in (("layernorm_bwd", None),
-                         ("layernorm_bwd_prenorm", t["gr"])):
-            kw = dict(eps=EPS, rms=False)
-            calls.append((name, functools.partial(
-                LN.layernorm_bwd_cuda, x, g, gr, scale, **kw),
-                functools.partial(LN.layernorm_bwd_plain, x, g, gr, scale,
-                                  **kw)))
-        for name, call, plain in calls:
-            ms, err = _turns((lambda lib: call(lib=lib), plain), libs, flush,
-                             n)
-            same = all(torch.equal(a, b) for a, b in zip(
-                call(lib=libs["A"]), call(lib=libs["B"])) if a is not None)
-            out.append(dict(name=name, shape=f"{ROWS} x {WIDTH} rows, bf16",
-                            ms=ms, err=err, same=same, split={
-                                who: kernel_split(lambda: call(lib=lib), flush)
-                                for who, lib in libs.items()}))
+        for rows, d in ((ROWS, WIDTH), *WIDE_TIMED):
+            t = ln_inputs(gen, rows, d, torch.bfloat16)
+            for name, call, plain in ln_ab_calls(t, d):
+                ms, err = _turns((lambda lib: call(lib=lib), plain), libs,
+                                 flush, n)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    call(lib=libs["A"]), call(lib=libs["B"]))
+                           if a is not None)
+                out.append(dict(name=name, shape=f"{rows} x {d} rows, bf16",
+                                ms=ms, err=err, same=same,
+                                differ=_differ(lambda lib: call(lib=lib),
+                                               plain, libs), split={
+                                    who: kernel_split(lambda: call(lib=lib),
+                                                      flush)
+                                    for who, lib in libs.items()}))
+            del t
         out.append(dict(name="layernorm.cu registers", report={
             "A": ln_build(source)[0], "B": ln_build()[0]}))
         out.append(dict(name="layernorm_bwd statistics", report={
@@ -1133,7 +1208,10 @@ def main(argv=None) -> int:
                   f"calls, turns A B B A); A / B {sum(a) / sum(b):.2f}x; "
                   f"max_abs_err A {r['err']['A']:.3e}, B {r['err']['B']:.3e}"
                   + (f"; A and B outputs bit-identical {r['same']}"
-                     if "same" in r else "") + f"  [{card()}]")
+                     if "same" in r else "")
+                  + (f"; elements not bit-equal to the plain version's A "
+                     f"{r['differ']['A']:.4%}, B {r['differ']['B']:.4%}"
+                     if "differ" in r else "") + f"  [{card()}]")
             for who, split in r.get("split", {}).items():
                 print(f"  {who}, device ms per call by kernel (profiler): "
                       + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
