@@ -307,9 +307,37 @@ Phases, each fatal on failure:
     the AdamW state): launches a step (the wide LN kernels 5 / 5 + 5, flash
     forward and backward 2 each at head dim 128, one fused AdamW over 21
     leaves), the TSV and trace readings, the wide LN kernels' device time
-    a step from the trace and the peak device memory.
+    a step from the trace and the peak device memory;
+39. context-parallel attention (``tpudist_torch.parallel.cp``) at GPT-2
+    124M's long-context shape, B 4, H 12, dh 64, S 4096, causal and not,
+    f32 and bf16: the ring at n = 1 against the dense plain version (the
+    kernel-parity rule of phase 2); the loopback ring at n = 4 (all four
+    ranks' shards in this process, every hop and the backward's reverse
+    ring) against n = 1, forward and q/k/v gradients, under the
+    reference's CP tolerances in f32 (1e-5 forward, 1e-4 gradients,
+    absolute and relative) and the parity rule in bf16; Ulysses with the
+    kernel attention at n = 1 against ``flash_attention`` on the same
+    inputs, forward and gradients bit-identical (the re-shard is the
+    identity); the loopback Ulysses at n = 4, whose all-to-all hands the
+    flash kernel (S 4096) and the vmem kernel (S 1024) contiguous ``[B, S,
+    H/4, D]`` tensors, against the kernel on all heads, under phase 11's
+    element bar with bit-identity printed; the ring's and flash's forward
+    and forward + backward times at n = 1;
+40. ``train_gpt2 --cp 1 --attn ulysses_flash`` — phase 18's configuration
+    (GPT-2 124M, S 4096, batch 4, bf16, --fused all --chunked_ce 256),
+    16 steps: the flash kernels 12 + 12 a step, and losses equal to phase
+    18's bit for bit (at n = 1 the Ulysses body calls the same kernel on
+    the same inputs); then phase 38's Llama-3-8B-width leg the same way
+    (K/V heads repeated before the attention), against phase 38's losses;
+41. ``train_gpt2 --cp 1 --attn ring`` — GPT-2 124M, S 1024, batch 8,
+    bf16, --fused all, 16 steps, against ``--attn xla`` under
+    ``RING_BF16_BAR``; no attention kernel launches on either; the step
+    times and peak device memory of both (the ring saves the row
+    log-sum-exp, the dense path its bf16 probabilities); then in f32 at
+    depth 2, four steps of ``--fused all --attn ring`` against ``--fused
+    none --attn xla`` under phase 15's bars.
 
-Phases 22-29 and 31-38 print their seconds.
+Phases 22-29 and 31-41 print their seconds.
 """
 
 from __future__ import annotations
@@ -381,6 +409,17 @@ SOURCES = {"paged_decode_attention": "tpudist_torch/csrc/decode_attention.cu",
            "flash_attention_bwd": "tpudist_torch/csrc/flash_attention.cu",
            "layernorm_fwd_wide": "tpudist_torch/csrc/layernorm.cu",
            "layernorm_bwd_wide": "tpudist_torch/csrc/layernorm.cu"}
+#: phase 41's relative bar on the bf16 ring and dense losses over 16 steps:
+#: the two round differently (the dense path rounds p to bf16 before the
+#: value product, the ring sums p v in f32 and rounds the output once),
+#: about 2^-9 of an attention output, which the warmup's small steps carry
+#: into the losses; a causal leak or a wrong hop moves them by far more
+RING_BF16_BAR = 1e-2
+#: phase 39's bars, the reference's own CP tolerances
+#: (tests/test_context_parallel.py): f32, absolute and relative
+CP_FWD_TOL, CP_GRAD_TOL = 1e-5, 1e-4
+#: losses of trained_gpt2's runs, by job: phases 40-41 compare against them
+TRAINED_LOSSES: dict[str, list[float]] = {}
 #: the wide-row LayerNorm kernels' counts (rows past 2048), which no GPT-2
 #: or ViT path launches
 WIDE_LN = frozenset({"layernorm_fwd_wide", "layernorm_bwd_wide"})
@@ -615,6 +654,8 @@ def main() -> int:
     recovery_phases(smi)
     checkpoint_costs(smi)
     kernels.extend(llama_phases(smi, dev))
+    cp_attention_phase(smi, dev)
+    cp_training_phases(smi)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -1892,6 +1933,218 @@ def llama_wide_phase(smi: str) -> dict:
     return counts
 
 
+def cp_close(name: str, got, want, tol: float) -> None:
+    """Hold a float32 ``got`` to ``want`` within ``tol`` absolute plus
+    ``tol`` relative (``torch.allclose``'s rule)."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+    print(f"  {name}: max_abs_err {err:.3e} (atol = rtol = {tol:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(name)
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` CUDA-event times of ``fn()`` after one warm-up."""
+    import statistics
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cp_attention_phase(smi: str, dev, shape=(4, 12, 64, 4096)) -> None:
+    """Phase 39 (module docstring) at ``shape`` = (B, H, dh, S), GPT-2
+    124M's long-context shape by default; the vmem leg takes the first
+    min(S, 1024) positions."""
+    import torch
+
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import vmem_attention as VA
+    from tpudist_torch.ops.attention import dot_product_attention, kernel_attention
+    from tpudist_torch.parallel import cp
+
+    t0 = time.perf_counter()
+    (b, h, dh, s), n = shape, 4
+    print(f"== 39. context-parallel attention at B {b}, H {h}, dh {dh}, S {s}: "
+          f"the ring at n = 1 and, loopback, n = {n}; Ulysses through the "
+          "kernels")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 39)
+
+    def grads(fn, q, k, v, g):
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = fn(qq, kk, vv)
+        out.backward(g)
+        return [out.detach(), qq.grad, kk.grad, vv.grad]
+
+    names = ("o", "dq", "dk", "dv")
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            tag = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+            q, k, v, g = (torch.randn(b, s, h, dh, generator=gen, device=dev)
+                          .to(dtype) for _ in range(4))
+            with torch.no_grad():
+                check(f"ring n=1 vs dense, {tag}",
+                      cp.ring_attention_local(q, k, v, causal=causal),
+                      dot_product_attention(q, k, v, causal=causal))
+            one = grads(lambda *x: cp.ring_attention_local(
+                *x, causal=causal), q, k, v, g)
+            four = grads(lambda *x: cp.ring_attention_loopback(
+                *x, n, causal=causal), q, k, v, g)
+            for name, a, w in zip(names, four, one):
+                what = f"ring n={n} vs n=1 {name}, {tag}"
+                if dtype == torch.float32:
+                    cp_close(what, a, w, CP_FWD_TOL if name == "o"
+                             else CP_GRAD_TOL)
+                else:
+                    check(what, a, w)
+            del one, four
+            FA.reset_launch_counts()
+            uly = grads(lambda *x: cp.ulysses_attention_local(
+                *x, causal=causal, attn_fn=kernel_attention), q, k, v, g)
+            flash = grads(lambda *x: FA.flash_attention(*x, causal=causal),
+                          q, k, v, g)
+            same = [torch.equal(a, w) for a, w in zip(uly, flash)]
+            print(f"  ulysses_flash n=1 vs flash_attention, {tag}: o, dq, dk, "
+                  f"dv bit-identical {same}; flash launches "
+                  f"{dict(FA.launch_counts)}")
+            if not all(same) or FA.launch_counts["flash_attention_fwd"] != 2:
+                FAILURES.append(f"ulysses_flash n=1, {tag}")
+            del uly, flash
+            if dtype == torch.float32:
+                continue
+            # the all-to-all hands the kernels contiguous [B, S, H/n, D]
+            for kind, seq, mod, ref in (
+                    ("flash", s, FA, FA.flash_attention),
+                    ("vmem", min(s, 1024), VA, VA.vmem_attention)):
+                qs, ks, vs, gs = (x[:, :seq].contiguous() for x in (q, k, v, g))
+                mod.reset_launch_counts()
+                got = grads(lambda *x: cp.ulysses_attention_loopback(
+                    *x, n, causal=causal, attn_fn=kernel_attention),
+                    qs, ks, vs, gs)
+                launched = dict(mod.launch_counts)
+                want = grads(lambda *x: ref(*x, causal=causal), qs, ks, vs, gs)
+                for name, a, w in zip(names, got, want):
+                    check(f"ulysses n={n} through {kind} (S {seq}) {name}, "
+                          f"{tag}", a, w, elem=True)
+                print(f"    bit-identical {[torch.equal(a, w) for a, w in zip(got, want)]}"
+                      f"; {kind} launches {launched}")
+                if launched[f"{kind}_attention_fwd"] != 1:
+                    FAILURES.append(f"ulysses n={n} {kind} launches {launched}")
+    if FAILURES:
+        fail(f"context-parallel attention: {FAILURES}")
+    q, k, v, g = (torch.randn(b, s, h, dh, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    for name, fn in (("ring n=1", lambda *x: cp.ring_attention_local(
+            *x, causal=True)), ("flash", lambda *x: FA.flash_attention(
+                *x, causal=True))):
+        with torch.no_grad():
+            fwd = event_ms(lambda: fn(q, k, v))
+        both = event_ms(lambda: fn(qq, kk, vv).backward(g))
+        print(f"  {name}, bf16 causal: forward {fwd:.3f} ms, forward + "
+              f"backward {both:.3f} ms (CUDA events, median of 5)  [{smi}]")
+    print(f"  phase 39: {time.perf_counter() - t0:.1f} s")
+
+
+def cp_training_phases(smi: str) -> None:
+    """Phases 40-41 (module docstring)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    print("== 40. GPT-2 124M, bf16, S 4096, --fused all --cp 1 --attn "
+          "ulysses_flash --chunked_ce 256, 16 steps under DDP (NCCL)")
+    long_flags = ["--bf16", "--fused", "all", "--chunked_ce", "256"]
+    counts = trained_gpt2(
+        [*long_flags, "--cp", "1", "--attn", "ulysses_flash"], batch=4,
+        seq=4096, job="LongCP", smi=smi, want=lambda depth, n_leaves: {
+            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
+            "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
+            "flash_attention_bwd": depth, "fused_adamw": 1,
+            "fused_adamw_leaves": n_leaves})
+    print(f"  flash launches a step: forward "
+          f"{counts['flash_attention_fwd'] / 16:g}, backward "
+          f"{counts['flash_attention_bwd'] / 16:g}")
+    same = TRAINED_LOSSES["LongCP"] == TRAINED_LOSSES["Long"]
+    print(f"  losses equal phase 18's (--attn auto: flash) bit for bit: {same}")
+    if not same:
+        fail(f"--cp 1 --attn ulysses_flash losses {TRAINED_LOSSES['LongCP']} "
+             f"!= --attn flash {TRAINED_LOSSES['Long']}")
+    print("  Llama-3-8B width at depth 2, bf16, S 2048, batch 2, --fused all "
+          "--cp 1 --attn ulysses_flash --chunked_ce 256, 16 steps")
+    trained_gpt2(
+        [*LLAMA3_8B_WIDTH, *long_flags, "--cp", "1", "--attn",
+         "ulysses_flash"], batch=2, seq=2048, job="Llama8BCP", smi=smi,
+        leaves=3 + 9 * 2, want=lambda depth, n_leaves: {
+            "layernorm_fwd": 0, "layernorm_bwd": 0,
+            "layernorm_fwd_wide": 2 * depth + 1,
+            "layernorm_bwd_wide": 2 * depth + 1,
+            "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
+            "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
+            "flash_attention_bwd": depth, "fused_adamw": 1,
+            "fused_adamw_leaves": n_leaves})
+    same = TRAINED_LOSSES["Llama8BCP"] == TRAINED_LOSSES["Llama8B"]
+    print(f"  losses equal phase 38's bit for bit: {same}")
+    if not same:
+        fail(f"Llama --cp 1 --attn ulysses_flash losses "
+             f"{TRAINED_LOSSES['Llama8BCP']} != {TRAINED_LOSSES['Llama8B']}")
+    print(f"  phase 40: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("== 41. GPT-2 124M, bf16, S 1024, batch 8, --fused all: --cp 1 "
+          "--attn ring vs --attn xla, 16 steps under DDP (NCCL)")
+    peaks = {}
+    for attn in ("ring", "xla"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trained_gpt2(
+            ["--bf16", "--fused", "all", "--cp", "1", "--attn", attn],
+            batch=8, seq=1024, job=f"Ring_{attn}", smi=smi,
+            want=lambda depth, n_leaves: {
+                "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+                "layernorm_bwd_reduce": 2 * depth + 1,
+                "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "fused_adamw": 1, "fused_adamw_leaves": n_leaves})
+        peaks[attn] = torch.cuda.max_memory_allocated() / 1e9
+    ring, dense = TRAINED_LOSSES["Ring_ring"], TRAINED_LOSSES["Ring_xla"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ring, dense))
+    print(f"  losses ring {ring[0]:.4f} -> {ring[-1]:.4f}, xla {dense[0]:.4f} "
+          f"-> {dense[-1]:.4f}: max rel {rel:.3e} [bar {RING_BF16_BAR:g}]")
+    print(f"  peak device memory: ring {peaks['ring']:.3f} GB (saves the row "
+          f"log-sum-exp), xla {peaks['xla']:.3f} GB (saves bf16 "
+          "probabilities) (torch.cuda.max_memory_allocated)  "
+          f"[{smi}]")
+    if rel > RING_BF16_BAR:
+        fail("bf16 ring and dense training disagree")
+    print("  f32, depth 2: --fused all --cp 1 --attn ring vs --fused none "
+          "--attn xla, 4 steps")
+    f32_agreement(
+        (["--fused", "all", "--cp", "1", "--attn", "ring"],
+         {"vmem_attention_fwd", "vmem_attention_bwd", "flash_attention_fwd",
+          "flash_attention_bwd", "fused_adamw_check"}),
+        ["--fused", "none", "--attn", "xla"],
+        run=gpt2_runner(8, 1024, extra=["--depth", "2"]),
+        loss_bar=LOSS_BAR, param_bar=PARAM_BAR, peak_lr=3e-4,
+        what="f32 ring and dense GPT-2 training")
+    print(f"  phase 41: {time.perf_counter() - t0:.1f} s")
+
+
 def counted_modules():
     """The wrapper modules whose launch counts the GPT-2 phases read."""
     from tpudist_torch.ops import flash_attention as FA
@@ -1957,6 +2210,7 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
         traces = list((Path(log_dir) / f"log_{job}").glob("*.pt.trace.json"))
         window = trace_breakdown(traces[0]) if traces else None
     steps = len(losses)
+    TRAINED_LOSSES[job] = list(losses)
     n_leaves = len(list(model.parameters()))
     per_step = want(model.depth, n_leaves)
     print(f"  {steps} steps; launches {counts} (per step {per_step}); losses "

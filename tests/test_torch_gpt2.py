@@ -153,7 +153,9 @@ def test_per_row_overrun_raises_and_poisons():
 def test_unported_attention_impls_raise():
     """Every attention kernel of the reference is ported: the whole-row
     kernel behind "vmem" and "auto", the blockwise one behind "flash";
-    the context-parallel impls are not, and raise."""
+    the context-parallel impls raise without the layout they run over
+    (the reference's without its mesh; tests/test_torch_cp.py runs
+    them)."""
     for impl in ("vmem", "auto", "flash"):
         assert GPT2(**GEOM, attn_impl=impl, device="cpu").attn_impl == impl
     with pytest.raises(ValueError, match="attn_impl"):

@@ -483,17 +483,30 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
-    ["--fsdp", "2"], ["--cp", "2"], ["--attn", "ring"],
-    ["--attn", "ulysses"], ["--attn", "ulysses_flash"],
-    ["--eval", "--cp", "2"], ["--generate", "8", "--top_k", "5", "--attn", "ring"],
+    ["--fsdp", "2"], ["--cp", "2"], ["--eval", "--cp", "2"],
     ["--remat_policy", "full", "--pipe", "2"],
     ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic"],
     ["--compile_cache", "cc"], ["--shard_opt_state"],
-    ["--experts", "4", "--arch", "llama"], ["--attn", "ring", "--arch", "llama"],
+    ["--experts", "4", "--arch", "llama"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
+    """``--cp 2`` with the default ``--attn auto`` is the reference's
+    gathered-sequence path, not ported (Queue 1 #5 (remainder))."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
         main([*CLI, *flag])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--attn", "ring"], ["--attn", "ulysses"], ["--attn", "ulysses_flash"],
+    ["--attn", "ring", "--arch", "llama"],
+], ids=lambda f: " ".join(f))
+def test_context_parallel_flags_run(flag, tmp_path):
+    """The context-parallel attentions, which raised until they were
+    ported, train at ``--cp 1`` (one rank, no collective; the gloo worlds
+    of tests/test_torch_cp_train.py hold ``--cp 2`` to the reference)."""
+    state, losses = main([*CLI, *flag, "--log_dir", str(tmp_path)])
+    assert len(losses) == 16 and np.isfinite(losses).all()
+    assert state.model.attn_impl == flag[1]
 
 
 @pytest.mark.parametrize("flag", [
@@ -532,6 +545,8 @@ def test_llama_flags_run(flag, tmp_path):
     (["--dropout", "0.1", "--arch", "llama"], SystemExit, "dropout"),
     (["--arch", "llama", "--scan_layers", "--generate", "8"], SystemExit,
      "--scan_layers"),
+    (["--generate", "8", "--top_k", "5", "--attn", "ring"], SystemExit,
+     "no decode path"),
 ], ids=lambda f: " ".join(f) if isinstance(f, list) else "")
 def test_refused_where_the_reference_refuses(flag, error, match, tmp_path):
     with pytest.raises(error, match=match):

@@ -15,7 +15,17 @@ bound, as in tests/test_torch_gpt2_train.py. ``--eval`` is
 ``tpudist.train.evaluate_lm`` within 1e-5 with a ragged last batch, with
 and without the chunked head; ``--generate`` at temperature 0 is
 ``tpudist.generate.generate``'s stream. The port's safetensors codec
-reads and writes what the ``safetensors`` package does."""
+reads and writes what the ``safetensors`` package does.
+
+Context parallelism at the CLI: ``--attn ring|ulysses`` at ``--cp 1``
+gives the reference CLI's losses within 1e-5 relative and its
+parameters within 1e-4 relative plus 1e-4 absolute after three AdamW
+steps at lr 1e-3 (tests/test_torch_gpt2_train.py's trainer bar: a tenth
+of a step; the qkv key slice to its step bound); ``--cp 2``
+runs in a world it divides (tests/test_torch_cp_train.py) and refuses
+one it does not; ``--cp 2`` with a non-CP ``--attn`` names ROADMAP Queue
+1 #5 (remainder); ``--generate`` with a CP attention and ``--eval`` with
+``--cp 2`` exit before training, as the reference's do."""
 
 import contextlib
 import io
@@ -274,3 +284,44 @@ def test_safetensors_codec_reads_and_writes_the_packages_format(tmp_path):
     (tmp_path / "short.safetensors").write_bytes(b"\x10")
     with pytest.raises(ValueError, match="too short"):
         interop.read_safetensors(tmp_path / "short.safetensors")
+
+
+@pytest.mark.parametrize("attn", ["ring", "ulysses"])
+def test_cp_one_matches_the_reference_cli(attn, hf, tmp_path):
+    flags = ["--tokens", str(hf.train), "--init_hf", str(hf.st), "--lr",
+             "1e-3", "--warmup_steps", "0", "--attn", attn, "--log_dir",
+             str(tmp_path)]
+    jstate, want_losses = _reference_cli([*flags, "--batch_size", "1"])
+    state, losses, _ = _port([*flags, "--batch_size", "8"])
+    assert len(losses) == len(want_losses) == 3
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    want = gpt2_params_from_flax(jax.tree_util.tree_map(
+        np.asarray, jstate.params))
+    got = state.params()
+    start = interop.load_hf_params(hf.st, arch="gpt2", depth=DEPTH,
+                                   num_heads=HEADS)
+    for k, w in want.items():
+        g, w = got[k].numpy(), w.numpy()
+        if k.endswith("qkv.bias"):
+            moved = np.abs(np.stack([g[1], w[1]]) - start[k].numpy()[1])
+            assert moved.max() <= 1.5 * 3 * 1e-3, k
+            g, w = g[[0, 2]], w[[0, 2]]
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4, err_msg=k)
+
+
+def test_cp_refusals_are_the_references(tmp_path):
+    base = ["--synthetic_tokens", "2048", "--log_dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Queue 1 #5 \(remainder\)"):
+        _port([*base, "--cp", "2", "--attn", "flash"])
+    with pytest.raises(ValueError, match="1 ranks not divisible"):
+        _port([*base, "--cp", "2", "--attn", "ring"])
+    for argv, match in ((["--generate", "8", "--attn", "ulysses"],
+                         "has no decode path"),
+                        (["--eval", "--cp", "2", "--attn", "ring"],
+                         "support the non-cp")):
+        with pytest.raises(SystemExit, match=match) as port:
+            _port([*base, *argv])
+        with pytest.raises(SystemExit) as ref:
+            _reference_cli([*base, *argv])
+        assert str(port.value) == str(ref.value)

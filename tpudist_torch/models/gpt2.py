@@ -11,6 +11,14 @@ through :func:`tpudist_torch.ops.attention.multi_head_attention` for
 ``"vmem"`` (the whole-row kernel), ``"flash"`` (the blockwise kernel) and
 ``"auto"`` (by sequence length, the reference's routing).
 
+The context-parallel impls ``"ring"``, ``"ulysses"`` and
+``"ulysses_flash"`` (:mod:`tpudist_torch.parallel.cp`) need the model's
+``layout`` (a :class:`tpudist_torch.mesh.RankLayout`, the reference's
+``mesh``): the forward takes this rank's chunk of every sequence, the
+positions ``seq_idx * s ..`` of the global row (``wpe`` read there), and
+the attention runs over the layout's seq group. They have no decode path
+and raise there, as the reference does.
+
 ``fused_ln`` (an attribute, which ``make_train_step(fused="ln")`` sets)
 swaps in the fused residual-add + LayerNorm kernel
 (:mod:`tpudist_torch.ops.layernorm`) where the reference's knob does:
@@ -55,9 +63,10 @@ from tpudist_torch.ops.decode import (
     cached_kv, decode_attention, paged_decode_attention,
 )
 from tpudist_torch.ops.layernorm import fused_layernorm
+from tpudist_torch.parallel.cp import CP_IMPLS, context_parallel_attention
 from tpudist_torch.rng import fold_in, generator
 
-ATTN_IMPLS = ("xla", "fused", "vmem", "auto", "flash")
+ATTN_IMPLS = ("xla", "fused", "vmem", "auto", "flash", *CP_IMPLS)
 # flax's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -75,6 +84,33 @@ def dropout(x, rate: float, key: int | None):
     u = torch.rand(x.shape, generator=generator(key, x.device), device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
+
+
+def check_attn_impl(attn_impl: str, layout) -> None:
+    """Refuse an unknown ``attn_impl``, and a context-parallel one without
+    a ``layout`` (the reference's refusal of a CP impl without its
+    ``mesh``)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+    if attn_impl in CP_IMPLS and layout is None:
+        raise ValueError(
+            f"attn_impl={attn_impl!r} needs the model's layout= (a "
+            "tpudist_torch.mesh.RankLayout: the attention runs over its seq "
+            "group)")
+
+
+def refuse_cp_decode(attn_impl: str) -> None:
+    if attn_impl in CP_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r} has no decode path; "
+                         "generate with the xla/flash model")
+
+
+def seq_offset(model, s: int) -> int:
+    """The global position of a context-parallel model's first local
+    position (0 otherwise)."""
+    if model.attn_impl in CP_IMPLS:
+        return model.layout.seq_idx * s
+    return 0
 
 
 def site_key(key: int | None, *path: int) -> int | None:
@@ -143,12 +179,13 @@ class Dense(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, *, dtype, attn_impl,
-                 device, dropout: float = 0.0):
+                 device, dropout: float = 0.0, layout=None):
         super().__init__()
         d = hidden_dim
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.layout = layout
         self.dropout = dropout
         lin = lambda i, o: Dense(i, o, device=device)
         self.ln_1 = LayerNorm(d, device=device)
@@ -187,6 +224,9 @@ class Block(nn.Module):
                     q.contiguous(), keys, values, mask, pos,
                     impl="fused" if kernel else "xla",
                 )
+        elif self.attn_impl in CP_IMPLS:
+            attn = context_parallel_attention(
+                q, k, v, self.attn_impl, self.layout.seq_group, causal=True)
         else:
             attn = multi_head_attention(q, k, v, causal=True,
                                         impl=self.attn_impl)
@@ -212,17 +252,18 @@ class GPT2(nn.Module):
     distributions: lecun-normal kernels, N(0, 0.02) ``wte``, N(0, 0.01)
     ``wpe``, zero biases, unit LayerNorm scales). ``dropout``,
     ``scan_layers``, ``remat_layers`` and ``remat_policy`` are the
-    reference's fields (module docstring)."""
+    reference's fields, and ``layout`` is the context-parallel impls'
+    (module docstring)."""
 
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  dtype=torch.float32, attn_impl: str = "xla", *,
                  dropout: float = 0.0, scan_layers: bool = False,
                  remat_layers: bool = False, remat_policy=None,
-                 fused_ln: bool = False, device=None, seed: int = 0):
+                 fused_ln: bool = False, layout=None, device=None,
+                 seed: int = 0):
         super().__init__()
-        if attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+        check_attn_impl(attn_impl, layout)
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide into num_heads")
         if remat_layers and not scan_layers:
@@ -240,6 +281,7 @@ class GPT2(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.layout = layout
         self.dropout = float(dropout)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
@@ -248,7 +290,7 @@ class GPT2(nn.Module):
         self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev))
         self.h = nn.ModuleList(
             Block(hidden_dim, num_heads, dtype=dtype, attn_impl=attn_impl,
-                  device=dev, dropout=self.dropout)
+                  device=dev, dropout=self.dropout, layout=layout)
             for _ in range(depth)
         )
         self.ln_f = LayerNorm(hidden_dim, device=dev)
@@ -320,8 +362,10 @@ class GPT2(nn.Module):
         path. In train mode a model with ``dropout > 0`` needs
         ``dropout_key`` (the training step's; the embedding draws from
         site 0, block ``i`` from site ``i + 1``), as the reference needs a
-        'dropout' rng; in eval mode nothing is dropped."""
+        'dropout' rng; in eval mode nothing is dropped. A context-parallel
+        model takes this rank's chunk of the sequence."""
         if cache is not None:
+            refuse_cp_decode(self.attn_impl)
             if self.scan_layers:
                 raise ValueError(
                     "scan_layers has no decode path (the KV cache needs "
@@ -364,7 +408,8 @@ class GPT2(nn.Module):
             pos = self.wpe[cursor:cursor + s][None]
             cache["position"] = cursor + s
         else:
-            pos = self.wpe[:s][None]
+            off = seq_offset(self, s)
+            pos = self.wpe[off:off + s][None]
         x = self.wte[tokens].to(self.dtype) + pos.to(self.dtype)
         x = dropout(x, self.dropout, site_key(dropout_key, 0))
         layers = cache["layers"] if cache is not None else [None] * self.depth

@@ -4,8 +4,11 @@ Pre-norm RMSNorm, rotary position embeddings (:func:`apply_rope`, the
 rotate-half convention, angles in float32, no position table),
 grouped-query attention (``num_kv_heads`` K/V heads under ``num_heads``
 query heads), a SwiGLU MLP, no biases and an untied LM head (tying
-optional). Dense blocks only: ``num_experts > 0`` (Mixtral) and the
-context-parallel attentions are not ported yet.
+optional). Dense blocks only: ``num_experts > 0`` (Mixtral) is not
+ported yet. The context-parallel impls (``"ring"``, ``"ulysses"``,
+``"ulysses_flash"``) take GPT-2's ``layout`` (:mod:`.gpt2`): RoPE rotates
+this rank's chunk at its global positions, and grouped K/V heads are
+repeated before the attention, as the reference repeats them.
 
 The parameter names are the reference's, so the optimizer's routing
 (``optim._ADAM_TOP``, ``muon_view``, the 1-D decay mask), the checkpoint
@@ -52,12 +55,15 @@ from torch import nn
 
 from tpudist_torch import remat as remat_lib
 from tpudist_torch.device import resolve_device
-from tpudist_torch.models.gpt2 import ATTN_IMPLS, _TRUNC_STD, tied_head
-from tpudist_torch.ops.attention import multi_head_attention
+from tpudist_torch.models.gpt2 import (
+    _TRUNC_STD, check_attn_impl, refuse_cp_decode, seq_offset, tied_head,
+)
+from tpudist_torch.ops.attention import multi_head_attention, repeat_kv
 from tpudist_torch.ops.decode import (
     cached_kv, decode_attention, paged_decode_attention,
 )
 from tpudist_torch.ops.layernorm import fused_layernorm
+from tpudist_torch.parallel.cp import CP_IMPLS, context_parallel_attention
 
 #: the ROADMAP item that ports the Mixtral-style experts
 _MOE_ITEM = "Queue 1 #7"
@@ -136,7 +142,7 @@ class Linear(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, num_kv_heads: int,
                  ffn_dim: int, *, dtype, attn_impl, rope_theta: float,
-                 norm_eps: float, device):
+                 norm_eps: float, device, layout=None):
         super().__init__()
         d = hidden_dim
         if num_heads % num_kv_heads:
@@ -144,6 +150,7 @@ class LlamaBlock(nn.Module):
                              f"num_kv_heads {num_kv_heads}")
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.dtype, self.attn_impl = dtype, attn_impl
+        self.layout = layout
         self.rope_theta = rope_theta
         dh = d // num_heads
         self.attn_norm = RMSNorm(d, eps=norm_eps, device=device)
@@ -158,7 +165,9 @@ class LlamaBlock(nn.Module):
         self.down_proj = Linear(ffn_dim, d, device=device)
 
     def forward(self, x, cache=None, positions=None, block_tables=None,
-                fused_ln: bool = False):
+                fused_ln: bool = False, offset: int = 0):
+        """``offset``: the global position of ``x``'s first row (a
+        context-parallel chunk's)."""
         b, s, d = x.shape
         h, kv = self.num_heads, self.num_kv_heads
         dh = d // h
@@ -190,6 +199,15 @@ class LlamaBlock(nn.Module):
             else:
                 attn = decode_attention(q, keys, values, mask, cur,
                                         impl="fused" if kernel else "xla")
+        elif self.attn_impl in CP_IMPLS:
+            pos = torch.arange(offset, offset + s, dtype=torch.float32,
+                               device=x.device)
+            q = apply_rope(q, theta=theta, positions=pos)
+            k = apply_rope(k, theta=theta, positions=pos)
+            # the CP bodies shard and rotate whole head sets
+            k, v = repeat_kv(q, k, v)
+            attn = context_parallel_attention(
+                q, k, v, self.attn_impl, self.layout.seq_group, causal=True)
         else:
             q = apply_rope(q, theta=theta)
             k = apply_rope(k, theta=theta)
@@ -218,8 +236,9 @@ class Llama(nn.Module):
     """The reference's ``Llama`` fields and defaults (vocab 32000, S 2048,
     d 768, 12 layers, 12 heads, MHA unless ``num_kv_heads``, SwiGLU width
     :func:`default_ffn_dim` unless ``ffn_dim``, theta 1e4, eps 1e-5, an
-    untied head). ``device`` defaults to ``"cuda"`` and raises without a
-    card unless ``"cpu"`` is given; ``seed`` draws the random init from a
+    untied head; ``layout`` for the context-parallel impls, as GPT-2's).
+    ``device`` defaults to ``"cuda"`` and raises without a card unless
+    ``"cpu"`` is given; ``seed`` draws the random init from a
     ``torch.Generator`` on that device (flax's distributions: lecun-normal
     kernels, N(0, 0.02) ``embed`` and ``lm_head``, unit RMSNorm scales)."""
 
@@ -230,15 +249,14 @@ class Llama(nn.Module):
                  attn_impl: str = "xla", *, tie_embeddings: bool = False,
                  norm_eps: float = 1e-5, scan_layers: bool = False,
                  remat_layers: bool = False, remat_policy=None,
-                 fused_ln: bool = False, num_experts: int = 0, device=None,
-                 seed: int = 0):
+                 fused_ln: bool = False, num_experts: int = 0, layout=None,
+                 device=None, seed: int = 0):
         super().__init__()
         if num_experts:
             raise NotImplementedError(
                 f"Llama num_experts={num_experts} (Mixtral-style MoE) is not "
                 f"ported yet (ROADMAP {_MOE_ITEM})")
-        if attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+        check_attn_impl(attn_impl, layout)
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide into num_heads")
         if remat_layers and not scan_layers:
@@ -256,6 +274,7 @@ class Llama(nn.Module):
         self.rope_theta = float(rope_theta)
         self.norm_eps = norm_eps
         self.dtype, self.attn_impl = dtype, attn_impl
+        self.layout = layout
         self.tie_embeddings = bool(tie_embeddings)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
@@ -265,7 +284,7 @@ class Llama(nn.Module):
             self.add_module(f"layer_{i}", LlamaBlock(
                 hidden_dim, num_heads, self.num_kv_heads, self.ffn_dim,
                 dtype=dtype, attn_impl=attn_impl, rope_theta=self.rope_theta,
-                norm_eps=norm_eps, device=dev))
+                norm_eps=norm_eps, device=dev, layout=layout))
         self.norm = RMSNorm(hidden_dim, eps=norm_eps, device=dev)
         if not self.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -338,6 +357,7 @@ class Llama(nn.Module):
         ``block_tables``) without autograd, updating the cache in place;
         otherwise the ``fused_ln`` attribute picks the fused RMSNorm."""
         if cache is not None:
+            refuse_cp_decode(self.attn_impl)
             if self.scan_layers:
                 raise ValueError(
                     "scan_layers has no decode path (the KV cache needs "
@@ -359,10 +379,11 @@ class Llama(nn.Module):
         x = self.embed[tokens].to(self.dtype)  # RoPE: no position table
         layers = cache["layers"] if cache is not None else [None] * self.depth
         policy = self.block_policy if cache is None else None
+        offset = seq_offset(self, s) if cache is None else 0
         for blk, layer in zip(self.blocks, layers):
             run = remat_lib.checkpoint(blk, policy)
             x = run(x, layer, positions=positions, block_tables=block_tables,
-                    fused_ln=fused)
+                    fused_ln=fused, offset=offset)
         x = self.norm.fused(x, self.dtype) if fused else self.norm(x, self.dtype)
         if return_hidden:
             return x

@@ -10,6 +10,11 @@ cross-entropy over sequence chunks, each chunk's body under
 ``torch.utils.checkpoint`` (non-reentrant), so live logits stay bounded
 by ``[B, chunk, V]`` in the forward AND the backward, which recomputes
 each chunk's logits instead of storing them.
+
+Under context parallelism (:func:`seq_shard_lm`) a rank scores only its
+chunk of each sequence, against labels taken from the whole row: its last
+position's label is the next chunk's first token, and the sequence's last
+position has none.
 """
 
 from __future__ import annotations
@@ -83,7 +88,23 @@ def chunked_ce_sum(head_w, h, targets, pos_mask, chunk: int):
                                pos_mask, chunk)
 
 
-def chunked_lm_forward(model, chunk: int = 256) -> Callable:
+def seq_shard_lm(tokens, layout):
+    """This seq rank's chunk of the token rows ``[B, S]`` and the
+    next-token labels of its positions, ``-100`` where there is none (the
+    sequence's last position): ``(tokens [B, S/n], labels [B, S/n])``."""
+    b, s = tokens.shape
+    n = layout.seq
+    if s % n:
+        raise ValueError(f"sequence {s} not divisible by the seq axis {n}")
+    w = s // n
+    lo = layout.seq_idx * w
+    labels = torch.full((b, w), -100, dtype=torch.long, device=tokens.device)
+    nxt = tokens[:, lo + 1:lo + w + 1]
+    labels[:, :nxt.shape[1]] = nxt
+    return tokens[:, lo:lo + w], labels
+
+
+def chunked_lm_forward(model, chunk: int = 256, layout=None) -> Callable:
     """A ``forward_loss(module, batch)`` for
     :func:`tpudist_torch.train.make_train_step`: the next-token CE of
     ``batch["tokens"]`` that never materializes the ``[B, S, V]``
@@ -95,7 +116,11 @@ def chunked_lm_forward(model, chunk: int = 256) -> Callable:
     fires. Mean CE over the ``B (S - 1)`` predicted positions: the same
     function as ``lm_loss`` on full logits.
     The model's ``fused_ln`` attribute is read at each call, so no rebuild
-    is needed when ``make_train_step(fused="ln")`` sets it."""
+    is needed when ``make_train_step(fused="ln")`` sets it. With a
+    ``layout`` of more than one seq rank the loss is this rank's share:
+    its chunk's CE sum (:func:`seq_shard_lm`) over the replica's ``B (S -
+    1)``, which the seq group's ranks add up (``make_train_step(layout=)``
+    takes such a loss and no other)."""
     if getattr(model, "dropout", 0.0):
         raise ValueError(
             "chunked_lm_forward does not support dropout (the fused path "
@@ -105,6 +130,13 @@ def chunked_lm_forward(model, chunk: int = 256) -> Callable:
 
     def forward_loss(module, batch):
         tokens = batch["tokens"].long()
+        if sharded:
+            b, s = tokens.shape
+            local, labels = seq_shard_lm(tokens, layout)
+            hidden = module(local, return_hidden=True)
+            return chunked_ce_sum(lm_head_weight(model), hidden,
+                                  labels.clamp(min=0), labels >= 0,
+                                  chunk) / (b * (s - 1))
         hidden = module(tokens, return_hidden=True)
         h, targets = hidden[:, :-1], tokens[:, 1:]
         b, s, _ = h.shape
@@ -112,4 +144,6 @@ def chunked_lm_forward(model, chunk: int = 256) -> Callable:
         return chunked_ce_sum(lm_head_weight(model), h, targets, mask,
                               chunk) / (b * s)
 
+    sharded = layout is not None and layout.seq > 1
+    forward_loss.layout = layout if sharded else None
     return forward_loss

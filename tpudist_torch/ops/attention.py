@@ -1,8 +1,8 @@
 """Attention ops for the port's transformer models.
 
 Counterpart of :mod:`tpudist.ops.attention`: the GQA rule
-(:func:`repeat_kv`), the dense attention (:func:`dot_product_attention`)
-and the ``impl`` dispatch of :func:`multi_head_attention` on the
+(:func:`repeat_kv`), the dense attention (:func:`dot_product_attention`),
+:func:`kernel_attention` and the ``impl`` dispatch of :func:`multi_head_attention` on the
 non-decode path. ``"xla"`` and ``"fused"`` are the dense path; ``"vmem"``
 and ``"auto"`` reach the whole-row kernel
 (:mod:`tpudist_torch.ops.vmem_attention`) and ``"flash"`` the blockwise
@@ -47,6 +47,14 @@ def repeat_kv(q, k, v, *, head_axis: int = 2):
         torch.repeat_interleave(k, rep, dim=head_axis),
         torch.repeat_interleave(v, rep, dim=head_axis),
     )
+
+
+def kernel_attention(q, k, v, *, causal: bool = False):
+    """The best kernel for the shape (``multi_head_attention(impl="auto")``:
+    the vmem kernel up to S 1024, the dense path to 2047, the flash kernel
+    from 2048), the ``attn_fn`` of Ulysses' ``ulysses_flash``, which sees
+    the whole sequence over a local head group."""
+    return multi_head_attention(q, k, v, causal=causal, impl="auto")
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,

@@ -46,7 +46,23 @@ with the reference's numerics:
   ``(dropout_seed, rank, step)`` (``step * grad_accum + microbatch`` under
   ``grad_accum``), passed to its forward as ``dropout_key``: fresh every
   step and microbatch, independent across ranks (the reference draws one
-  mask over the global batch), and drawn again bit for bit on recompute.
+  mask over the global batch), and drawn again bit for bit on recompute;
+- ``layout`` (a :class:`tpudist_torch.mesh.RankLayout` of more than one
+  seq rank) shards each sequence over the rank's seq group, the
+  reference's ``batch_spec`` over ``(data, seq)``: every rank holds its
+  data replica's whole ``[B, S]`` token rows (cheap int32) and feeds the
+  model its chunk (:func:`tpudist_torch.models.lm_utils.seq_shard_lm`),
+  whose context-parallel attention spans the group. Its loss is its
+  chunk's next-token CE sum over the replica's ``B (S - 1)`` positions, so
+  the seq group's losses add up to the replica's mean. DDP averages the
+  gradients over all ``data * seq`` ranks, and the reference's gradient is
+  the mean over data replicas of the SUM over seq chunks: each rank's
+  backward runs on its loss times ``seq`` (exact for a power of two), the
+  same all-reduce, no second group. The logged loss is the sum over the
+  ranks divided by ``data``: the global mean. Dropout under CP draws its
+  masks keyed by the global rank (:func:`dropout_key`), as a data-parallel
+  rank does; no bit parity with the reference's one global mask is
+  claimed.
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -70,7 +86,9 @@ from tpudist_torch.amp import inner_state
 from tpudist_torch.data.loader import prefetch_to_device
 from tpudist_torch.distributed import group_up
 from tpudist_torch.metrics import MetricsLogger
+from tpudist_torch.models.lm_utils import seq_shard_lm
 from tpudist_torch.optim import FusedAdamWState, Optimizer, load_tensors
+from tpudist_torch.parallel.cp import CP_IMPLS
 from tpudist_torch.profiling import WindowedProfiler
 from tpudist_torch.remat import remat_module, resolve as resolve_remat
 from tpudist_torch.rng import fold_in
@@ -243,7 +261,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
                     fused=None, grad_accum: int = 1, reduce: str = "none",
                     forward_loss: Callable | None = None, remat=False,
                     dropout_seed: int = 0,
-                    input_transform: Callable | None = None):
+                    input_transform: Callable | None = None, layout=None):
     """Build ``step(state, batch) -> (state, {"loss": tensor})``: forward,
     loss, backward (DDP all-reduces the gradients under a group), one
     optimizer update. ``state`` is updated in place; ``batch`` is a dict of
@@ -276,6 +294,13 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     0`` (module docstring); such a model refuses a ``forward_loss``, which
     has no stream, as the reference does.
 
+    ``layout`` shards the sequence over its seq group (module docstring):
+    the model must take a context-parallel ``attn_impl`` (another raises
+    ``NotImplementedError``: the reference's GSPMD gathers the sequence
+    for it, ROADMAP Queue 1 #5 (remainder)), the default loss must be
+    ``lm_loss`` on ``"tokens"``, and a ``forward_loss`` must be one built
+    for the same layout (``chunked_lm_forward(..., layout=)``).
+
     Under a process group ``step(state, batch, votes)`` also sums the
     host floats ``votes`` over the ranks in the loss's all-reduce
     (``metrics["votes"]``, on the device): ``fit`` agrees its stop and
@@ -301,6 +326,23 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         raise ValueError(
             "remat recomputes the forward, and this model updates buffers in "
             "it (BatchNorm's running statistics would move twice a step)")
+    seq = layout.seq if layout is not None else 1
+    if seq > 1:
+        impl = getattr(model, "attn_impl", None)
+        if impl not in CP_IMPLS:
+            raise NotImplementedError(
+                f"a seq axis of {seq} with attn_impl={impl!r} is not ported "
+                "yet (ROADMAP Queue 1 #5 (remainder)); use ring, ulysses or "
+                "ulysses_flash")
+        if forward_loss is None and (loss_fn is not lm_loss
+                                     or input_key != label_key):
+            raise ValueError("a seq-sharded step computes the next-token "
+                             "loss of its tokens: pass loss_fn=lm_loss")
+        if forward_loss is not None and getattr(
+                forward_loss, "layout", None) is not layout:
+            raise ValueError("forward_loss does not shard the sequence over "
+                             "this layout; build it with chunked_lm_forward("
+                             "..., layout=layout)")
     remat_module(model, remat)
 
     if "ln" in fused_set:
@@ -309,7 +351,19 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         model.fused_ln = True
 
     rank = dist.get_rank() if group_up() else 0
-    if forward_loss is None:
+    if forward_loss is None and seq > 1:
+        def run_loss(module, batch, index):
+            tokens = batch[input_key].long()
+            local, labels = seq_shard_lm(tokens, layout)
+            kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
+                  if dropout_rate > 0 else {})
+            logits = module(local, **kw)
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                                 labels.reshape(-1), ignore_index=-100,
+                                 reduction="sum")
+            b, s = tokens.shape
+            return ce / (b * (s - 1))
+    elif forward_loss is None:
         def run_loss(module, batch, index):
             inputs = _apply_input_transform(input_transform, batch[input_key],
                                             batch, index)
@@ -337,7 +391,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
                                 {**{k: v[i] for k, v in micro.items()},
                                  **operands},
                                 state.step * grad_accum + i)
-                loss.backward()
+                backward(loss)
                 for k, p in params.items():
                     if p.grad is not None:
                         sums[k] += p.grad
@@ -352,6 +406,10 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             sums = {k: t.view_as(params[k]) for k, t in sums.items()}
         return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
 
+    def backward(loss):
+        # DDP averages over data x seq ranks; the chunks' gradients add
+        (loss * seq if seq > 1 else loss).backward()
+
     def step(state: TrainState, batch: dict, votes: tuple = ()):
         state.module.train()
         params = dict(state.model.named_parameters())
@@ -359,7 +417,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             p.grad = None
         if grad_accum == 1:
             loss = run_loss(state.module, batch, state.step)
-            loss.backward()
+            backward(loss)
             grads = {k: p.grad for k, p in params.items()}
         else:
             loss, grads = accumulate(state, batch, params)
@@ -368,14 +426,15 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         loss = loss.detach()
         if not group_up():
             return state, {"loss": loss}
-        # the global-batch mean, as the reference's loss is (ranks hold
-        # equal batches); a SUM, because gloo has no AVG. The votes ride
-        # the same all-reduce and come back summed over the ranks.
+        # the global-batch mean, as the reference's loss is (replicas hold
+        # equal batches, a seq group's chunks add up to its replica's
+        # mean); a SUM, because gloo has no AVG. The votes ride the same
+        # all-reduce and come back summed over the ranks.
         flat = torch.cat([loss.reshape(1).float(),
                           *(loss.new_full((1,), float(v), dtype=torch.float32)
                             for v in votes)])
         dist.all_reduce(flat)
-        metrics = {"loss": flat[0] / dist.get_world_size()}
+        metrics = {"loss": flat[0] / (dist.get_world_size() // seq)}
         if votes:
             metrics["votes"] = flat[1:]
         return state, metrics
@@ -507,7 +566,7 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         checkpoint_dir: str | None = None, checkpoint_every: int = 0,
         checkpoint_every_s: float | None = None,
         keep_last: int | None = None, resume: bool = True,
-        preempt: bool | str = "auto", chaos=None, **deferred):
+        preempt: bool | str = "auto", chaos=None, layout=None, **deferred):
     """The reference's training program as a function: epochs x batches,
     the per-epoch sampler re-shuffle, the windowed profiler, the TSV
     metrics and the TrainTime footer. ``model`` carries its initial
@@ -515,8 +574,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
     yields host batches of numpy arrays. Returns ``(state, losses)``, the
     per-step losses of this run in step order. With ``grad_accum > 1``
     each loader batch holds ``grad_accum`` microbatches, and
-    ``forward_loss`` replaces the default loss (see
-    :func:`make_train_step`).
+    ``forward_loss`` replaces the default loss and ``layout`` shards the
+    sequence over its seq group (see :func:`make_train_step`).
 
     Persistence and recovery, as the reference's ``fit``:
 
@@ -588,7 +647,7 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
                            label_key=label_key, fused=fused,
                            grad_accum=grad_accum, forward_loss=forward_loss,
                            remat=remat, dropout_seed=seed,
-                           input_transform=input_transform)
+                           input_transform=input_transform, layout=layout)
     state = create_train_state(model, tx)
     chaos_inj = make_injector(chaos)
     # ranks agree their stop and time-cadence saves through the step's
