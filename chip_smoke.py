@@ -335,9 +335,40 @@ Phases, each fatal on failure:
     times and peak device memory of both (the ring saves the row
     log-sum-exp, the dense path its bf16 probabilities); then in f32 at
     depth 2, four steps of ``--fused all --attn ring`` against ``--fused
-    none --attn xla`` under phase 15's bars.
+    none --attn xla`` under phase 15's bars;
+42. BERT-base (12 x 768, 12 heads, model vocab 30523) — the bf16 vmem and
+    flash kernels non-causal at B 32, H 12, S 512 held to their plain
+    versions (o, lse, dq, dk, dv under phases 12 and 16's rule), then timed
+    with SDPA, forward and forward + backward, beside their bound (bytes of
+    each call, the function's six products); the MLM head's tied product at
+    one 128-position chunk (4096 x 768) against V 30523 and 30528; then
+    ``train_bert --bf16 --attn flash --chunked_ce 128`` at the CLI's
+    defaults (S 512, batch 32), 16 steps under DDP on phase 14's text as
+    uint16 ids: the flash kernels 12 + 12 a step and nothing else counted,
+    finite losses, the TSV and trace readings (the head's products among
+    the top entries), then ``--eval`` (12 flash forwards a batch); then the
+    same model and batches through the model API, ``fit(fused="all")`` with
+    ``make_optimizer(fused=True)`` (bf16 compute copy) and
+    ``attn_impl="auto"``: a step launches each LN kernel 25 times (``ln_embed``
+    plain, 24 post-norm compositions at eps 1e-12), vmem 12 + 12 (S 512),
+    and one AdamW over all 154 leaves;
+43. f32 BERT at depth 2 (bert-base width, S 512, batch 32), 4 Adam steps at
+    lr 1e-4 through the model API: ``fused="all"`` with flash, then with
+    vmem, against ``fused=None`` with the dense attention under
+    ``BERT_LOSS_BAR`` / ``BERT_PARAM_BAR``; ``ulysses_flash`` over a
+    one-rank layout bit-identical to ``attn_impl="auto"`` (losses and
+    parameters); the ring over it against the dense attention under the
+    same bars; an ``attention_mask`` batch on the dense path, finite;
+44. T5 (t5-v1.1-small: d 512, ffn 1024, 8 + 8 layers, 6 heads of 85) —
+    ``train_t5 --bf16 --eval --generate`` at its defaults (byte vocab,
+    windows of 512, batch 16), 16 steps under DDP: no counted kernel and no
+    decode kernel in the training, ``--eval`` or ``--generate`` (the
+    relative bias keeps every attention dense), the TSV and trace readings;
+    then in f32 with the
+    trained weights, greedy ``generate_seq2seq`` of the span targets for 4
+    windows equal to the full-forward greedy rollout.
 
-Phases 22-29 and 31-41 print their seconds.
+Phases 22-29 and 31-44 print their seconds.
 """
 
 from __future__ import annotations
@@ -418,7 +449,7 @@ RING_BF16_BAR = 1e-2
 #: phase 39's bars, the reference's own CP tolerances
 #: (tests/test_context_parallel.py): f32, absolute and relative
 CP_FWD_TOL, CP_GRAD_TOL = 1e-5, 1e-4
-#: losses of trained_gpt2's runs, by job: phases 40-41 compare against them
+#: losses of trained_cli's runs, by job: phases 40-41 compare against them
 TRAINED_LOSSES: dict[str, list[float]] = {}
 #: the wide-row LayerNorm kernels' counts (rows past 2048), which no GPT-2
 #: or ViT path launches
@@ -656,6 +687,7 @@ def main() -> int:
     kernels.extend(llama_phases(smi, dev))
     cp_attention_phase(smi, dev)
     cp_training_phases(smi)
+    encoder_phases(smi, dev)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -941,14 +973,14 @@ def lm_phases(smi: str, dev) -> list[dict]:
     # -- 14. the main path, trained -----------------------------------------------
     print("== 14. GPT-2 124M, bf16, --fused all --attn auto, 16 steps under "
           "DDP (NCCL)")
-    counts = trained_gpt2(
+    counts = trained_cli(
         ["--bf16", "--fused", "all", "--attn", "auto"], batch=8, seq=1024,
         job="Smoke", smi=smi, want=lambda depth, n_leaves: {
             "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
             "layernorm_bwd_reduce": 2 * depth + 1,
             "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "fused_adamw": 1, "fused_adamw_leaves": n_leaves})
+            "fused_adamw": 1, "fused_adamw_leaves": n_leaves})["counts"]
 
     # -- 15. agreement in f32 ------------------------------------------------------
     print("== 15. f32: --fused all --attn vmem vs --fused none --attn xla, 4 steps")
@@ -1032,14 +1064,14 @@ def long_context_phases(smi: str, dev) -> list[dict]:
     # -- 18. the long-context path, trained -----------------------------------------
     print("== 18. GPT-2 124M, bf16, S 4096, --fused all --attn auto "
           "--chunked_ce 256, 16 steps under DDP (NCCL)")
-    counts = trained_gpt2(
+    counts = trained_cli(
         ["--bf16", "--fused", "all", "--attn", "auto", "--chunked_ce", "256"],
         batch=4, seq=4096, job="Long", smi=smi, want=lambda depth, n_leaves: {
             "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
             "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
             "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
             "flash_attention_bwd": depth, "fused_adamw": 1,
-            "fused_adamw_leaves": n_leaves})
+            "fused_adamw_leaves": n_leaves})["counts"]
 
     # -- 19. agreement in f32 ------------------------------------------------------
     print("== 19. f32, S 2048, depth 4: --fused all --attn flash --chunked_ce "
@@ -1484,12 +1516,14 @@ def h2d_per_step(path: Path) -> dict:
 
 
 @contextlib.contextmanager
-def leg_counts(legs: dict):
-    """While ``train_gpt2.main`` runs, read the launch counts at its
-    after-training legs (``generate`` and ``evaluate_lm``): ``legs["train"]``
-    the counts and ``legs["peak_gb"]`` the peak memory at the first leg's
-    entry (training done), and under each leg's name its own counts, every
-    count set to 0 at its entry, with its seconds."""
+def leg_counts(legs: dict, after=None):
+    """While a training CLI runs, read the launch counts (the decode
+    kernels' too) at its after-training legs, the ``(module, name)`` pairs
+    of ``after`` (by default train_gpt2's ``generate`` and
+    ``evaluate_lm``): ``legs["train"]`` the counts and ``legs["peak_gb"]``
+    the peak memory at the first leg's entry (training done), and under
+    each leg's name its own counts, every count set to 0 at its entry,
+    with its seconds."""
     import torch
 
     import tpudist_torch.generate as G
@@ -1498,12 +1532,15 @@ def leg_counts(legs: dict):
 
     mods = (*counted_modules(), D)
 
+    def counts():
+        return {k: n for m in mods for k, n in m.launch_counts.items()}
+
     def wrap(module, name):
         inner = getattr(module, name)
 
         def run(*args, **kwargs):
             torch.cuda.synchronize()
-            legs.setdefault("train", launches())
+            legs.setdefault("train", counts())
             legs.setdefault("peak_gb", torch.cuda.max_memory_allocated() / 1e9)
             for m in mods:
                 m.reset_launch_counts()
@@ -1511,13 +1548,14 @@ def leg_counts(legs: dict):
             out = inner(*args, **kwargs)
             torch.cuda.synchronize()
             legs[name + "_s"] = time.perf_counter() - t
-            legs[name] = {k: n for m in mods for k, n in m.launch_counts.items()}
+            legs[name] = counts()
             return out
 
         setattr(module, name, run)
         return module, name, inner
 
-    saved = [wrap(G, "generate"), wrap(TR, "evaluate_lm")]
+    saved = [wrap(m, n) for m, n in (after or ((G, "generate"),
+                                               (TR, "evaluate_lm")))]
     try:
         yield legs
     finally:
@@ -1575,7 +1613,7 @@ def lm_flag_phases(smi: str, dev) -> None:
                                       drop_remainder=False))
         torch.cuda.reset_peak_memory_stats()
         with leg_counts(legs):
-            trained_gpt2(
+            trained_cli(
                 [*flags, "--remat", "full", "--eval", "--val_tokens", str(val),
                  "--generate", str(NEW), "--temperature", "0"],
                 batch=8, seq=1024, job="Remat", smi=smi, legs=legs,
@@ -1790,7 +1828,7 @@ def llama_training_phases(smi: str) -> None:
     t0 = time.perf_counter()
     print("== 35. llama_125m, bf16, --fused all --attn auto, 16 steps under "
           "DDP (NCCL)")
-    trained_gpt2(
+    trained_cli(
         [*LLAMA_125M, "--bf16", "--fused", "all", "--attn", "auto"], batch=8,
         seq=1024, job="Llama", smi=smi, leaves=3 + 9 * 12,
         want=lambda depth, n_leaves: {
@@ -1914,7 +1952,7 @@ def llama_wide_phase(smi: str) -> dict:
           "vocab 128256, theta 5e5), bf16, S 2048, batch 2, --fused all "
           "--attn auto --chunked_ce 256, 16 steps under DDP (NCCL)")
     torch.cuda.reset_peak_memory_stats()
-    counts = trained_gpt2(
+    counts = trained_cli(
         [*LLAMA3_8B_WIDTH, "--bf16", "--fused", "all", "--attn", "auto",
          "--chunked_ce", "256"], batch=2, seq=2048, job="Llama8B", smi=smi,
         leaves=3 + 9 * 2, want=lambda depth, n_leaves: {
@@ -1926,7 +1964,7 @@ def llama_wide_phase(smi: str) -> dict:
             "flash_attention_bwd": depth, "fused_adamw": 1,
             "fused_adamw_leaves": n_leaves},
         trace_kernels=("ln_fwd_wide_kernel", "ln_bwd_wide_kernel",
-                       "ln_bwd_reduce"))
+                       "ln_bwd_reduce"))["counts"]
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB (torch.cuda.max_memory_allocated)  [{smi}]")
     print(f"  phase 38: {time.perf_counter() - t0:.1f} s")
@@ -2068,14 +2106,14 @@ def cp_training_phases(smi: str) -> None:
     print("== 40. GPT-2 124M, bf16, S 4096, --fused all --cp 1 --attn "
           "ulysses_flash --chunked_ce 256, 16 steps under DDP (NCCL)")
     long_flags = ["--bf16", "--fused", "all", "--chunked_ce", "256"]
-    counts = trained_gpt2(
+    counts = trained_cli(
         [*long_flags, "--cp", "1", "--attn", "ulysses_flash"], batch=4,
         seq=4096, job="LongCP", smi=smi, want=lambda depth, n_leaves: {
             "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
             "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": 0,
             "vmem_attention_bwd": 0, "flash_attention_fwd": depth,
             "flash_attention_bwd": depth, "fused_adamw": 1,
-            "fused_adamw_leaves": n_leaves})
+            "fused_adamw_leaves": n_leaves})["counts"]
     print(f"  flash launches a step: forward "
           f"{counts['flash_attention_fwd'] / 16:g}, backward "
           f"{counts['flash_attention_bwd'] / 16:g}")
@@ -2086,7 +2124,7 @@ def cp_training_phases(smi: str) -> None:
              f"!= --attn flash {TRAINED_LOSSES['Long']}")
     print("  Llama-3-8B width at depth 2, bf16, S 2048, batch 2, --fused all "
           "--cp 1 --attn ulysses_flash --chunked_ce 256, 16 steps")
-    trained_gpt2(
+    trained_cli(
         [*LLAMA3_8B_WIDTH, *long_flags, "--cp", "1", "--attn",
          "ulysses_flash"], batch=2, seq=2048, job="Llama8BCP", smi=smi,
         leaves=3 + 9 * 2, want=lambda depth, n_leaves: {
@@ -2112,7 +2150,7 @@ def cp_training_phases(smi: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        trained_gpt2(
+        trained_cli(
             ["--bf16", "--fused", "all", "--cp", "1", "--attn", attn],
             batch=8, seq=1024, job=f"Ring_{attn}", smi=smi,
             want=lambda depth, n_leaves: {
@@ -2145,6 +2183,388 @@ def cp_training_phases(smi: str) -> None:
     print(f"  phase 41: {time.perf_counter() - t0:.1f} s")
 
 
+#: phase 43's bars, set before its first run: the f32 BERT kernel paths
+#: against the dense path after 4 Adam steps at a constant lr 1e-4 from
+#: step 1, phase 15's relative loss bar, and VIT_PARAM_BAR's rule on the
+#: parameters (Adam moves a coordinate whose gradient is within rounding
+#: of zero by up to lr a step either way: one step of lr)
+BERT_LOSS_BAR, BERT_PARAM_BAR, BERT_LR = 1e-5, 1e-4, 1e-4
+
+
+def bert_leaves(depth: int) -> int:
+    """A BERT's leaves: the three tables, ln_embed, 12 a block, and the MLM
+    head's transform, LayerNorm and bias (154 for BERT-base)."""
+    return 3 + 2 + 12 * depth + 5
+
+
+def t5_leaves(enc_depth: int, dec_depth: int) -> int:
+    """A T5's leaves: the shared table, two relative-bias tables, the two
+    final norms and the untied head, 9 an encoder block and 14 a decoder
+    block (190 for t5-small)."""
+    return 6 + 9 * enc_depth + 14 * dec_depth
+
+
+def encoder_phases(smi: str, dev, *, bert=None, t5=None) -> None:
+    """Phases 42-44 (module docstring). ``bert`` / ``t5`` (batch, seq,
+    geometry) cut the shapes for a rehearsal on the CPU; None runs the
+    phases' own."""
+    bert_training_phase(smi, dev, *(bert or ()))
+    bert_agreement_phase(dev, *(bert or ())[:2])
+    t5_phase(smi, dev, *(t5 or ()))
+
+
+def check_counts(what: str, counts: dict, per_step: dict,
+                 steps: int = 16) -> None:
+    """Fail unless every count of ``per_step`` is that times ``steps``
+    and every other counted kernel stayed at 0."""
+    if set(per_step) - set(counts):
+        fail(f"{what}: no such counts {sorted(set(per_step) - set(counts))}")
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    print(f"  {what}: launches {counts} (per step {per_step})")
+    if counts != want:
+        fail(f"{what}: launches {counts}, want {want}")
+
+
+def attention_times(smi: str, dev, b=32, h=12, s=512, dh=64) -> None:
+    """vmem and flash, bf16 non-causal at BERT-base's shape: each held to
+    its plain version on the inputs it is timed on (o and lse, then dq,
+    dk, dv from the kernel's own o and lse, under phases 12 and 16's
+    rule), then forward and forward + backward timed beside SDPA and the
+    bound: the bytes of each call's inputs read and outputs written once
+    (the backward reads o and lse back), and the forward's two products
+    and the backward's four (the recomputed q k^T is the kernels' choice,
+    not the function's work)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.ops import vmem_attention as VA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    q, k, v, g = (torch.randn(b, s, h, dh, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=False, kv_len=s, scale=VA._scale(dh))
+    for name, fwd_cuda, fwd_plain, bwd_cuda, bwd_plain in (
+            ("vmem", VA.vmem_fwd_cuda, VA.vmem_fwd_plain, VA.vmem_bwd_cuda,
+             VA.vmem_bwd_plain),
+            ("flash", FA.flash_fwd_cuda, FA.flash_fwd_plain, FA.flash_bwd_cuda,
+             FA.flash_bwd_plain)):
+        tag = f"{name} non-causal B {b} H {h} S {s} dh {dh} bf16"
+        ko, kl = fwd_cuda(q, k, v, **kw)
+        po, pl = fwd_plain(q, k, v, **kw)
+        check(f"{tag} o", ko, po, elem=True)
+        check(f"{tag} lse", kl, pl, elem=True)
+        del po, pl
+        kg = bwd_cuda(q, k, v, ko, g, kl, **kw)
+        pg = bwd_plain(q, k, v, ko, g, kl, **kw)
+        for gname, got, want in zip(("dq", "dk", "dv"), kg, pg):
+            check(f"{tag} {gname}", got, want, elem=True)
+        del ko, kl, kg, pg
+    if FAILURES:
+        fail(f"attention parity at BERT-base's shape: {FAILURES}")
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    io_bytes = b * s * h * dh * 2
+    fwd_bound = LB.bound(4 * io_bytes + b * h * s * 4,
+                         4 * b * h * s * s * dh, torch.bfloat16)
+    both_bound = LB.bound(12 * io_bytes + 2 * b * h * s * 4,
+                          12 * b * h * s * s * dh, torch.bfloat16)
+    sdpa = lambda x, y, z: F.scaled_dot_product_attention(
+        x.transpose(1, 2), y.transpose(1, 2), z.transpose(1, 2)).transpose(1, 2)
+    for name, fn in (("vmem", VA.vmem_attention), ("flash", FA.flash_attention),
+                     ("sdpa", sdpa)):
+        kw = {} if name == "sdpa" else {"causal": False}
+        with torch.no_grad():
+            fwd = event_ms(lambda: fn(q, k, v, **kw))
+        both = event_ms(lambda: fn(qq, kk, vv, **kw).backward(g))
+        print(f"  {name}, bf16 non-causal B {b} H {h} S {s} dh {dh}: forward "
+              f"{fwd:.4f} ms (bound {fwd_bound['bound_ms']:.4f}, "
+              f"{fwd_bound['bound_by']}), forward + backward {both:.4f} ms "
+              f"(bound {both_bound['bound_ms']:.4f}, {both_bound['bound_by']})"
+              f" (CUDA events, median of 5)  [{smi}]")
+
+
+def head_times(smi: str, dev, rows: int = 32 * 128, d: int = 768) -> None:
+    """The MLM head's tied product at one --chunked_ce 128 chunk of BERT-base
+    (rows x d against V x d, bf16, f32 out) and its backward, at the CLI's
+    vocabulary of 30523 (no row 16-byte aligned) beside 30528."""
+    import torch
+
+    from tpudist_torch.models.gpt2 import tied_head
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    x = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+    for vocab in (30523, 30528):
+        w = (torch.randn(vocab, d, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+        g = torch.randn(rows, vocab, generator=gen, device=dev)
+        with torch.no_grad():
+            fwd = event_ms(lambda: tied_head(x, w))
+        both = event_ms(lambda: tied_head(xx, ww).backward(g))
+        print(f"  MLM head product {rows} x {d} x V {vocab}: forward "
+              f"{fwd:.4f} ms, forward + backward {both:.4f} ms (CUDA events, "
+              f"median of 5)  [{smi}]")
+
+
+def bert_training_phase(smi: str, dev, batch: int = 32, seq: int = 512,
+                        geom: dict | None = None) -> None:
+    """Phase 42 (module docstring); ``geom`` (hidden_dim, depth, num_heads)
+    narrows BERT-base for a rehearsal."""
+    import torch
+    import torch.distributed as dist
+
+    import tpudist_torch.train_bert as TB
+    from tpudist_torch.data.lm import TokenWindowLoader
+    from tpudist_torch.models.bert import Bert, mlm_forward, mlm_transform
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.optim import make_optimizer, run_schedule
+    from tpudist_torch.train import fit
+
+    t0 = time.perf_counter()
+    geom = geom or {}
+    width = [f for k, v in geom.items() for f in (f"--{k}", str(v))]
+    print("== 42. BERT-base (12 x 768, 12 heads, S 512, batch 32, model vocab "
+          "30523), bf16: train_bert --attn flash --chunked_ce 128, 16 steps "
+          "under DDP (NCCL), then --eval")
+    attention_times(smi, dev, b=batch, s=seq)
+    head_times(smi, dev, rows=batch * 128)
+    depth = geom.get("depth", 12)
+    legs: dict = {}
+    with leg_counts(legs, [(TB, "evaluate_mlm")]):
+        run = trained_cli(
+            ["--bf16", "--attn", "flash", "--chunked_ce", "128", "--eval",
+             *width], main=TB.main, batch=batch, seq=seq, job="Bert",
+            smi=smi, legs=legs, leaves=bert_leaves(depth),
+            want=lambda depth, _: {"flash_attention_fwd": depth,
+                                   "flash_attention_bwd": depth},
+            trace_kernels=("gemm", "indexing_backward", "flash_fwd",
+                           "attn_dkdv", "attn_dq", "elementwise", "reduce"))
+    # --eval reads the training tokens again: 16 batches
+    check_counts("--eval", legs["evaluate_mlm"],
+                 {"flash_attention_fwd": depth}, steps=16)
+    if "masked_accuracy: " not in run["printed"]:
+        fail("no --eval line")
+    del run
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tokens = LB.token_file(Path(tmp) / "text.bin", 16 * batch * seq)
+        print("  the model API: Bert(attn_impl='auto') + fit(fused='all') + "
+              "make_optimizer(fused=True, compute copy bf16), mlm_forward("
+              "chunk=128), 16 steps under DDP (NCCL)")
+        os.environ.update(MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(free_port()), RANK="0",
+                          WORLD_SIZE="1", LOCAL_RANK="0")
+        dist.init_process_group("nccl", init_method="env://")
+        try:
+            model = Bert(vocab_size=30523, max_seq_len=seq,
+                         dtype=torch.bfloat16, attn_impl="auto",
+                         device="cuda", seed=SEED, **geom)
+            loader = TokenWindowLoader(
+                tokens, batch, seq, vocab_size=30522,
+                transform=mlm_transform(30523, 30522, seed=SEED))
+            tx = make_optimizer(run_schedule(1e-4, total_steps=16,
+                                             warmup_steps=0),
+                                fused=True, compute_dtype=torch.bfloat16)
+            for mod in counted_modules():
+                mod.reset_launch_counts()
+            torch.cuda.synchronize()
+            with contextlib.redirect_stdout(io.StringIO()):
+                state, losses = fit(
+                    model, tx, loader, epochs=1, job_id="BertAPI",
+                    input_key="tokens", label_key="targets", fused="all",
+                    forward_loss=mlm_forward(model, chunk=128),
+                    profile=False, log_dir=tmp)
+            torch.cuda.synchronize()
+            counts = launches()
+            rows = (Path(tmp) / f"BertAPI_{batch}_0.log").read_text(
+            ).splitlines()
+        finally:
+            dist.destroy_process_group()
+    n_leaves = len(list(state.model.parameters()))
+    api_ms = batch / float(rows[3].split("\t")[4]) * 1e3
+    print(f"  16 steps; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{n_leaves} leaves; step at g_step 15 {api_ms:.2f} ms (TSV, "
+          f"profiler off)  [{smi}]")
+    if len(losses) != 16 or not all(math.isfinite(x) for x in losses):
+        fail(f"model API losses {losses}")
+    if n_leaves != bert_leaves(depth):
+        fail(f"the BERT has {n_leaves} leaves, want {bert_leaves(depth)}")
+    ln = 2 * depth + 1  # ln_embed plain, two post-norms a block
+    check_counts("fit(fused='all'), attn auto (vmem at S 512)", counts, {
+        "layernorm_fwd": ln, "layernorm_bwd": ln, "layernorm_bwd_reduce": ln,
+        "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+        "fused_adamw": 1, "fused_adamw_leaves": n_leaves})
+    del state, model
+    torch.cuda.empty_cache()
+    print(f"  phase 42: {time.perf_counter() - t0:.1f} s")
+
+
+def bert_runner(batch: int = 32, seq: int = 512, depth: int = 2):
+    """``run(flags, log_dir) -> (state, losses)``: 4 float32 steps of a
+    BERT-base-width encoder at ``depth`` through the model API, one
+    process: ``--fused all|none`` (fused LN and fused AdamW, or neither),
+    ``--attn IMPL`` (a CP impl over a one-rank layout); the same init
+    (seed 0), batches and corruption every call."""
+    import torch
+
+    from tpudist_torch.data.lm import TokenWindowLoader
+    from tpudist_torch.mesh import MeshConfig, create_layout
+    from tpudist_torch.models.bert import Bert, mlm_forward, mlm_transform
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.optim import make_optimizer, run_schedule
+    from tpudist_torch.train import fit
+
+    def run(flags, log_dir):
+        opts = dict(zip(flags[::2], flags[1::2]))
+        fused = opts["--fused"] == "all"
+        layout = create_layout(MeshConfig(data=-1, seq=1))
+        model = Bert(vocab_size=30523, max_seq_len=seq, depth=depth,
+                     attn_impl=opts["--attn"], layout=layout, device="cuda",
+                     seed=SEED)
+        tokens = LB.token_file(Path(log_dir) / "text.bin", 4 * batch * seq)
+        loader = TokenWindowLoader(tokens, batch, seq, vocab_size=30522,
+                                   transform=mlm_transform(30523, 30522,
+                                                           seed=SEED))
+        tx = make_optimizer(run_schedule(BERT_LR, total_steps=4,
+                                         warmup_steps=0), fused=fused)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fit(model, tx, loader, epochs=1, input_key="tokens",
+                       label_key="targets", fused="all" if fused else None,
+                       forward_loss=mlm_forward(model, chunk=128),
+                       profile=False, log_dir=log_dir)
+
+    return run
+
+
+def bert_agreement_phase(dev, batch: int = 32, seq: int = 512) -> None:
+    """Phase 43 (module docstring)."""
+    import torch
+
+    from tpudist_torch.models.bert import Bert
+
+    t0 = time.perf_counter()
+    print("== 43. f32 BERT at depth 2 (bert-base width, S 512, batch 32), "
+          "4 Adam steps at lr 1e-4")
+    run = bert_runner(batch, seq)
+    attn_kernels = {"vmem": {"vmem_attention_fwd", "vmem_attention_bwd"},
+                    "flash": {"flash_attention_fwd", "flash_attention_bwd"}}
+    for attn, other in (("flash", "vmem"), ("vmem", "flash")):
+        print(f"  --fused all --attn {attn} vs --fused none --attn xla")
+        f32_agreement(
+            (["--fused", "all", "--attn", attn],
+             attn_kernels[other] | {"fused_adamw_check"}),
+            ["--fused", "none", "--attn", "xla"], run=run,
+            loss_bar=BERT_LOSS_BAR, param_bar=BERT_PARAM_BAR,
+            peak_lr=BERT_LR, what=f"f32 BERT {attn} and dense training")
+    results = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        for attn in ("ulysses_flash", "auto"):
+            for mod in counted_modules():
+                mod.reset_launch_counts()
+            st, ls = run(["--fused", "none", "--attn", attn], log_dir)
+            results[attn] = (ls, {k: v.float().cpu()
+                                  for k, v in st.params().items()},
+                             launches())
+            del st
+    (lu, pu, cu), (la, pa, ca) = results["ulysses_flash"], results["auto"]
+    same = lu == la and all(torch.equal(pu[k], pa[k]) for k in pa)
+    print(f"  --cp 1 --attn ulysses_flash vs attn_impl='auto': losses and "
+          f"params bit-identical {same}; vmem launches {cu['vmem_attention_fwd']}"
+          f" / {ca['vmem_attention_fwd']} forward")
+    if not same or cu["vmem_attention_fwd"] != 4 * 2 or cu != ca:
+        fail("ulysses_flash at one seq rank is not attn_impl='auto'")
+    print("  --cp 1 --attn ring vs --attn xla (no kernel on either)")
+    f32_agreement((["--fused", "none", "--attn", "ring"], set(launches())),
+                  ["--fused", "none", "--attn", "xla"], run=run,
+                  loss_bar=BERT_LOSS_BAR, param_bar=BERT_PARAM_BAR,
+                  peak_lr=BERT_LR, what="f32 ring and dense BERT training")
+    model = Bert(vocab_size=30523, max_seq_len=seq, depth=2, device="cuda",
+                 seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    tokens = torch.randint(0, 30522, (4, seq), generator=gen, device=dev)
+    mask = torch.ones(4, seq, dtype=torch.long, device=dev)
+    mask[1, seq // 5:] = 0
+    mask[2, seq // 2:] = 0
+    with torch.no_grad():
+        logits = model(tokens, attention_mask=mask)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"  attention_mask batch on the dense path: logits "
+          f"{tuple(logits.shape)}, finite {finite}")
+    if not finite:
+        fail("attention_mask logits not finite")
+    print(f"  phase 43: {time.perf_counter() - t0:.1f} s")
+
+
+def t5_phase(smi: str, dev, batch: int = 16, seq: int = 512,
+             geom: dict | None = None) -> None:
+    """Phase 44 (module docstring); ``geom`` (hidden_dim, ffn_dim,
+    enc_depth, dec_depth, num_heads) narrows t5-small for a rehearsal."""
+    import numpy as np
+    import torch
+
+    import tpudist_torch.generate as G
+    import tpudist_torch.train_t5 as TT
+    from tpudist_torch.generate import generate_seq2seq
+    from tpudist_torch.models.t5 import (
+        T5, span_corrupt_transform, span_corruption_plan,
+    )
+    from tpudist_torch.ops import decode as D
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    t0 = time.perf_counter()
+    geom = {"hidden_dim": 512, "ffn_dim": 1024, "enc_depth": 8,
+            "dec_depth": 8, "num_heads": 6, **(geom or {})}
+    print("== 44. T5 (t5-v1.1-small: d 512, ffn 1024, 8 + 8 layers, 6 heads "
+          "of 85), bf16: train_t5 at its defaults (vocab 256, S 512, batch "
+          "16), 16 steps under DDP (NCCL), then --eval and --generate")
+    legs: dict = {}
+    with leg_counts(legs, [(TT, "evaluate_spans"), (G, "generate_seq2seq")]):
+        run = trained_cli(
+            ["--bf16", "--eval", "--generate",
+             *(f for k, v in geom.items() for f in (f"--{k}", str(v)))],
+            main=TT.main, batch=batch, seq=seq, job="T5", smi=smi, legs=legs,
+            leaves=t5_leaves(geom["enc_depth"], geom["dec_depth"]),
+            want=lambda *_: {})
+    for leg in ("evaluate_spans", "generate_seq2seq"):
+        check_counts(f"{leg} (dense attention with the relative bias)",
+                     legs[leg], {}, steps=1)
+    if "generation_span_match: " not in run["printed"]:
+        fail("no --generate line")
+    _, spans, _, dec_len = span_corruption_plan(seq)
+    model = T5(vocab_size=256 + spans + 1, max_decode_len=dec_len + 1,
+               device="cuda", **geom)
+    model.load_state_dict(run.pop("model").state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        window = np.fromfile(LB.token_file(Path(tmp) / "text.bin", 4 * seq),
+                             np.uint16).astype(np.int32).reshape(4, seq)
+    demo = span_corrupt_transform(model.vocab_size, seed=SEED)(
+        {"tokens": window}, 0, 0)
+    D.reset_launch_counts()
+    out = generate_seq2seq(model, demo["enc_tokens"], dec_len,
+                           temperature=0.0)
+    decode_launches = dict(D.launch_counts)
+    enc = torch.from_numpy(demo["enc_tokens"]).to(model.device)
+    dec = torch.zeros(4, 1, dtype=torch.long, device=model.device)
+    gaps = []
+    with torch.no_grad():
+        for _ in range(dec_len):
+            logits = model(enc, dec)[:, -1]
+            top = torch.topk(logits, 2, dim=-1).values
+            gaps.append(float((top[:, 0] - top[:, 1]).min()))
+            dec = torch.cat([dec, logits.argmax(-1, keepdim=True)], dim=1)
+    rollout = dec[:, 1:].cpu().numpy().astype(np.int32)
+    same = bool(np.array_equal(out, rollout))
+    print(f"  f32, the trained weights: greedy generate_seq2seq ({dec_len} "
+          f"tokens x 4 windows) equals the full-forward greedy rollout "
+          f"{same}; smallest top-2 logit gap {min(gaps):.3e}; decode kernel "
+          f"launches {decode_launches}")
+    if not same or any(decode_launches.values()):
+        fail("generate_seq2seq is not the full-forward rollout, or a decode "
+             "kernel launched")
+    print(f"  phase 44: {time.perf_counter() - t0:.1f} s")
+
+
 def counted_modules():
     """The wrapper modules whose launch counts the GPT-2 phases read."""
     from tpudist_torch.ops import flash_attention as FA
@@ -2160,65 +2580,78 @@ def launches() -> dict:
             for k, n in mod.launch_counts.items()}
 
 
-def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
-                 want, legs: dict | None = None, leaves: int = 148,
-                 trace_kernels=()) -> dict:
-    """Phases 14 and 18: a 1-rank NCCL group, then ``train_gpt2.main``
-    with GPT-2 124M at full width and depth, ``flags``, the profiler on,
-    16 steps on :func:`lm_kernels_bench.token_file`'s text, every launch
-    count set to 0 just before and read just after. Fails unless it ran
-    under DDP, launched ``want(depth, the model's leaves)`` kernels per step
-    (one fused-AdamW launch covering all ``leaves`` leaves: GPT-2's 148 by
-    default; ``flags`` may name another model, e.g. ``--arch llama``), and
-    wrote finite, falling losses, the
-    tokens/sec line, the TSV rows and a trace with device work. With
-    ``legs`` (filled by :func:`leg_counts`) the training's counts are those
-    read before the after-training legs. Each name in ``trace_kernels``
-    gets a line with the device time a step of the trace's kernels whose
-    names hold it. Returns the launch counts."""
+def trained_cli(flags, *, batch: int, seq: int, job: str, smi: str, want,
+                main=None, legs: dict | None = None,
+                leaves: int = 148, trace_kernels=()) -> dict:
+    """Phases 14, 18, 28, 35, 38, 40-42 and 44: a 1-rank NCCL group, then
+    ``main`` (a training CLI's; ``train_gpt2.main`` unless given) with
+    ``flags``, the profiler on, 16 steps of ``batch`` x ``seq`` on
+    :func:`lm_kernels_bench.token_file`'s text, every launch count (the
+    decode kernels' too) set to 0 just before and read just after. Fails
+    unless it ran under DDP, launched ``want(depth, the model's leaves)``
+    kernels per step and no other counted kernel (one fused-AdamW launch
+    covering all the leaves), the model has ``leaves`` leaves (GPT-2's 148
+    by default), and it wrote finite, falling losses, the tokens/sec line,
+    the TSV rows and a trace with device work. With ``legs`` (filled by
+    :func:`leg_counts`) the training's counts are those read before the
+    after-training legs. Each name in ``trace_kernels`` gets a line with
+    the device time a step of the trace's kernels whose names hold it.
+    Returns ``{"counts", "printed", "model"}``: the training's counts, its
+    standard output and the trained model."""
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.ops import decode as D
     from tpudist_torch.ops import lm_kernels_bench as LB
 
+    main = main or TG.main
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                       RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     dist.init_process_group("nccl", init_method="env://")
-    with tempfile.TemporaryDirectory() as log_dir:
-        tokens = LB.token_file(Path(log_dir) / "text.bin", 16 * batch * seq)
-        for mod in counted_modules():
-            mod.reset_launch_counts()
-        out = io.StringIO()
-        torch.cuda.synchronize()
-        with contextlib.redirect_stdout(out):
-            state, losses = TG.main([
-                *flags, "--batch_size", str(batch), "--seq_len", str(seq),
-                "--tokens", str(tokens), "--JobID", job,
-                "--log_dir", log_dir])
-        torch.cuda.synchronize()
-        counts = legs["train"] if legs else launches()
-        printed = out.getvalue()
-        print("  " + "\n  ".join(printed.strip().splitlines()[-3:]))
-        if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
-            fail("the training step did not run under DDP")
-        dist.destroy_process_group()
-        model = state.model
-        rows = (Path(log_dir) / f"{job}_{batch}_0.log").read_text().splitlines()
-        traces = list((Path(log_dir) / f"log_{job}").glob("*.pt.trace.json"))
-        window = trace_breakdown(traces[0]) if traces else None
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            tokens = LB.token_file(Path(log_dir) / "text.bin",
+                                   16 * batch * seq)
+            for mod in (*counted_modules(), D):
+                mod.reset_launch_counts()
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            with contextlib.redirect_stdout(out):
+                state, losses = main([
+                    *flags, "--batch_size", str(batch), "--seq_len",
+                    str(seq), "--tokens", str(tokens), "--JobID", job,
+                    "--log_dir", log_dir])
+            torch.cuda.synchronize()
+            counts = (legs or {}).get("train") or {**launches(),
+                                                   **D.launch_counts}
+            rows = (Path(log_dir) / f"{job}_{batch}_0.log").read_text(
+            ).splitlines()
+            traces = list((Path(log_dir) / f"log_{job}").glob(
+                "*.pt.trace.json"))
+            window = trace_breakdown(traces[0]) if traces else None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    printed = out.getvalue()
+    print("  " + "\n  ".join(ln for ln in printed.strip().splitlines()
+                             if not ln.startswith("Epoch: ")))
+    if not isinstance(state.module, torch.nn.parallel.DistributedDataParallel):
+        fail("the training step did not run under DDP")
+    model = state.model
+    del state
     steps = len(losses)
     TRAINED_LOSSES[job] = list(losses)
     n_leaves = len(list(model.parameters()))
-    per_step = want(model.depth, n_leaves)
-    print(f"  {steps} steps; launches {counts} (per step {per_step}); losses "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-    del state, model
-    if steps != 16 or n_leaves != leaves or any(
-            counts[k] != n * steps for k, n in per_step.items()):
-        fail(f"{steps} steps, launches {counts}, want {per_step} per step")
+    print(f"  {steps} steps; {n_leaves} leaves; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    if steps != 16 or n_leaves != leaves:
+        fail(f"{job}: {steps} steps and {n_leaves} leaves, want 16 and "
+             f"{leaves}")
+    check_counts(job, counts, want(getattr(model, "depth", None), n_leaves),
+                 steps)
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"losses {losses}")
     line = [ln for ln in printed.splitlines() if ln.startswith("tokens/sec: ")]
@@ -2233,7 +2666,7 @@ def trained_gpt2(flags, *, batch: int, seq: int, job: str, smi: str,
         print(f"  {key}: {sum(ms for ms, _ in hits):.3f} ms/step in "
               f"{sum(n for _, n in hits):.0f} launches/step (profiler window)"
               f"  [{smi}]")
-    return counts
+    return {"counts": counts, "printed": printed, "model": model}
 
 
 def run_report(rows, window, *, steps: int, batch: int, unit: str, smi: str,

@@ -100,6 +100,49 @@ def test_matches_the_reference(scheme, n, causal):
            _reference(ref_fn, q, k, v, g, n, causal=causal))
 
 
+#: the bf16 ring's bar against the reference: every dq, dk, dv element
+#: within one bf16 step of the reference's, the step of the tensor's
+#: largest element (the unit of ROADMAP's reading before the repair; an
+#: element's own step is too fine where two hops' rounded terms cancel,
+#: and at an exact 0 the two sides' f32 residues differ), and at most 1%
+#: of the elements off it at all. Both were set after the first reading
+#: of the repaired backward (the per-element one-step form was tried
+#: first and failed on small dq elements). Readings, full / causal, as
+#: (largest error in steps of the largest element, share of elements off):
+#: repaired dq 0 / (0.0156, 0.83%), dk and dv 0 / 0 (bit-equal); the
+#: backward before the repair dq (0.5, 40.5%) / (1.0, 29.5%), dk
+#: (1.0, 38.7%) / (0.5, 26.4%), dv (0.25, 38.0%) / (0.5, 16.9%). The step
+#: term alone passes the old backward; the share cap is what fails it.
+RING_BF16_STEPS, RING_BF16_SHARE = 1.0, 0.01
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_ring_gradients_round_as_the_reference(causal):
+    """bf16 on both sides, n = 2 (the loopback against the reference on 2
+    CPU devices), B 1, S 64, H 2, D 16: the backward rounds each hop's
+    dq, dk, dv and their running sums to bf16 and takes delta from the
+    f32 output, as ``jax.grad`` of the reference's scan does."""
+    q, k, v, g = _inputs(b=1, s=64, h=2, d=16, seed=3)
+    mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(data=1, seq=2),
+                                devices=jax.devices()[:2])
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)
+
+    def loss(q, k, v):
+        out = ring_attention(q, k, v, mesh, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * bf(g).astype(jnp.float32))
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(bf(q), bf(k), bf(v))
+    ts = [torch.tensor(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    cp.ring_attention_loopback(*ts, 2, causal=causal).backward(
+        torch.tensor(g).bfloat16())
+    for name, t, w in zip("qkv", ts, want):
+        got = t.grad.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        step = np.spacing(np.abs(w).max()) * 2.0 ** 16
+        assert float((np.abs(got - w) / step).max()) <= RING_BF16_STEPS, name
+        assert float((got != w).mean()) <= RING_BF16_SHARE, name
+
+
 @pytest.mark.parametrize("scheme", ["ring", "ulysses"])
 def test_grouped_kv_heads_through_repeat_kv(scheme):
     """Llama's GQA: K/V heads repeated before the CP body on both sides;

@@ -243,12 +243,75 @@ def test_init_hf_computes_transformers_logits_and_round_trips(hf, tmp_path):
     assert torch.equal(state.model.wpe.detach(), sd["wpe"][:16])
 
 
+def _encoder_family(arch):
+    """A random port model of ``arch`` at a test's size, its state dict,
+    its depth and heads."""
+    from tpudist_torch.models.bert import Bert
+    from tpudist_torch.models.t5 import T5
+
+    if arch == "bert":
+        model = Bert(vocab_size=99, max_seq_len=32, hidden_dim=32, depth=2,
+                     num_heads=4, device="cpu", seed=4)
+    else:
+        model = T5(vocab_size=99, hidden_dim=32, ffn_dim=48, enc_depth=2,
+                   dec_depth=2, num_heads=4, device="cpu", seed=4)
+    with torch.no_grad():  # no zero or unit leaf left to hide a swap
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=torch.Generator()
+                               .manual_seed(p.numel())) * 0.1)
+    return model.state_dict(), 2, 4
+
+
 @pytest.mark.parametrize("arch", ["bert", "t5"])
-def test_other_families_name_their_item(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #4"):
-        interop.load_hf_params(tmp_path, arch=arch, depth=1, num_heads=1)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #4"):
-        interop.save_hf_checkpoint({}, tmp_path, arch=arch, depth=1)
+def test_encoder_hf_bridge_round_trips_through_safetensors(arch, tmp_path):
+    """The port's state dict -> an HF-layout model.safetensors -> back,
+    bit for bit, every entry."""
+    sd, depth, heads = _encoder_family(arch)
+    interop.save_hf_checkpoint(sd, tmp_path, arch=arch, depth=depth)
+    back = interop.load_hf_params(tmp_path, arch=arch, depth=depth,
+                                  num_heads=heads)
+    assert back.keys() == sd.keys()
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+
+
+@pytest.mark.parametrize("arch", ["bert", "t5"])
+def test_encoder_hf_bridge_is_the_references(arch, tmp_path):
+    """The HF state dict the port writes, read by the reference's
+    converter (``tpudist.interop``) and carried across from flax, is the
+    port's own reading of it; and the reference's writer gives the port's
+    HF names and values."""
+    from tpudist import interop as jax_interop
+    from tpudist_torch.interop import bert_params_from_flax, t5_params_from_flax
+
+    sd, depth, heads = _encoder_family(arch)
+    interop.save_hf_checkpoint(sd, tmp_path, arch=arch, depth=depth)
+    hf = {k: v.numpy() for k, v in interop.load_hf_state_dict(tmp_path).items()}
+    if arch == "bert":
+        flax = jax_interop.bert_params_from_hf(hf, depth=depth, num_heads=heads)
+        want = bert_params_from_flax(flax)
+        written = jax_interop.bert_params_to_hf(flax, depth=depth)
+    else:
+        flax = jax_interop.t5_params_from_hf(hf, enc_depth=depth,
+                                             dec_depth=depth, num_heads=heads)
+        want = t5_params_from_flax(flax)
+        written = jax_interop.t5_params_to_hf(flax, enc_depth=depth,
+                                              dec_depth=depth)
+    got = interop.load_hf_params(tmp_path, arch=arch, depth=depth,
+                                 num_heads=heads)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert written.keys() == hf.keys()
+    for k in hf:
+        np.testing.assert_array_equal(np.asarray(written[k]), hf[k], err_msg=k)
+
+
+def test_unknown_arch_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="unknown arch 'vit'"):
+        interop.load_hf_params(tmp_path, arch="vit", depth=1, num_heads=1)
+    with pytest.raises(ValueError, match="unknown arch 'vit'"):
+        interop.save_hf_checkpoint({}, tmp_path, arch="vit", depth=1)
 
 
 def _tensors():

@@ -51,7 +51,17 @@ class TokenWindowLoader:
     ``vocab_size`` every gathered batch is checked: an id outside
     ``[0, vocab_size)`` raises instead of indexing a wrong embedding row.
     Yields ``{"tokens": int32 [batch_size, window]}``; the final short
-    batch is dropped under ``drop_remainder``."""
+    batch is dropped under ``drop_remainder``.
+
+    ``transform`` (dict -> dict) runs on each gathered batch after the
+    vocab check: the objective's corruption (BERT's
+    :func:`~tpudist_torch.models.bert.mlm_transform`, T5's
+    :func:`~tpudist_torch.models.t5.span_corrupt_transform`). One with
+    ``wants_position`` is called as ``transform(batch, epoch, start)``
+    (``start`` the batch's first index into the epoch's order), so
+    :meth:`iter_from` replays the same corruption on a resume; any other
+    as ``transform(batch)``, advancing its own stream once per batch it
+    transforms."""
 
     def __init__(self, source, batch_size: int, seq_len: int, *,
                  stride: int | None = None, dtype=None,
@@ -59,9 +69,10 @@ class TokenWindowLoader:
                  sampler: DistributedSampler | None = None,
                  num_replicas: int = 1, rank: int = 0, seed: int = 0,
                  shuffle: bool = True, targets_in_window: bool = False,
-                 drop_remainder: bool = True):
+                 drop_remainder: bool = True, transform=None):
         if isinstance(source, (str, os.PathLike)):
             source = load_token_stream(source, dtype=dtype)
+        self.transform = transform
         self.flat = source
         self.batch_size = batch_size
         self.seq_len = seq_len
@@ -96,6 +107,16 @@ class TokenWindowLoader:
                     "tokenizer/vocab mismatch")
         return {"tokens": tokens}
 
+    def probe(self) -> dict | None:
+        """A one-window batch through ``transform``: the reference's shape
+        probe, which its ``fit`` draws once before training, so a
+        transform's own stream (BERT's corruption) moves on by that one
+        row there and here alike. Without a transform there is no stream
+        to move: nothing is gathered and None comes back."""
+        if self.transform is None:
+            return None
+        return self._gather_batch(self.sampler.epoch_indices()[:1], 0)
+
     def __iter__(self) -> Iterator[dict]:
         return self.iter_from(0)
 
@@ -107,4 +128,13 @@ class TokenWindowLoader:
                  else len(indices))
         for start in range(start_batch * self.batch_size, limit,
                            self.batch_size):
-            yield self.gather(indices[start:start + self.batch_size])
+            yield self._gather_batch(indices[start:start + self.batch_size],
+                                     start)
+
+    def _gather_batch(self, indices: np.ndarray, start: int) -> dict:
+        batch = self.gather(indices)
+        if self.transform is None:
+            return batch
+        if getattr(self.transform, "wants_position", False):
+            return self.transform(batch, self.sampler.epoch, start)
+        return self.transform(batch)

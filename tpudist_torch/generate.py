@@ -16,6 +16,10 @@ counter-based hash of ``(seed, request_id, token_index, vocab id)``
 (:func:`row_keys`, :func:`gumbel_field`), so a slot's draw depends on
 nothing but its own request and token index — the same bits on any
 device and in any batch composition.
+
+:func:`generate_seq2seq` is the encoder-decoder counterpart (T5): one
+encoder pass, then single-token decoder steps against the decoder's
+cache.
 """
 
 from __future__ import annotations
@@ -261,6 +265,54 @@ def generate(model, prompt, max_new_tokens: int, *, temperature: float = 1.0,
         # the last step primes a position that is never sampled, as in
         # the reference's scan
         logits = model(tok[:, None].long(), cache=cache)[:, -1]
+    out = torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()
+    if return_lengths:
+        lengths = torch.stack(alive, dim=1).sum(1).to(torch.int32)
+        return out, lengths.cpu().numpy()
+    return out
+
+
+@torch.no_grad()
+def generate_seq2seq(model, enc_tokens, max_new_tokens: int, *,
+                     temperature: float = 1.0, top_k: int | None = None,
+                     top_p: float | None = None, seed: int = 0,
+                     start_id: int = 0, eos_id: int | None = None,
+                     pad_id: int = 0, return_lengths: bool = False):
+    """Seq2seq generation for an encoder-decoder model
+    (:class:`tpudist_torch.models.t5.T5`): encode ``enc_tokens [B, Se]``
+    once, then decode ``max_new_tokens`` tokens from ``start_id`` step by
+    step against the decoder's cache (``model.max_decode_len`` slots; the
+    start token takes one). Returns ``[B, max_new_tokens]`` int32 numpy
+    (and ``[B]`` real lengths with ``return_lengths``), with
+    :func:`generate`'s sampling controls and ``eos_id`` / ``pad_id``
+    retirement."""
+    if max_new_tokens + 1 > model.max_decode_len:
+        raise ValueError(
+            f"start token + {max_new_tokens} new tokens exceeds the model's "
+            f"max_decode_len {model.max_decode_len} (the decoder KV cache "
+            "size)")
+    dev = model.device
+    enc_tokens = torch.as_tensor(np.asarray(enc_tokens, np.int64), device=dev)
+    b = enc_tokens.shape[0]
+    enc = model(enc_tokens, encode_only=True)
+    cache = model.init_cache(b)
+    start = torch.full((b, 1), start_id, dtype=torch.long, device=dev)
+    logits = model(start, decode=True, enc=enc, cache=cache)[:, -1]
+    gen = None
+    if temperature != 0.0:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    toks, alive = [], []
+    for i in range(max_new_tokens):
+        tok = sample_logits(logits, gen, temperature=temperature,
+                            top_k=top_k, top_p=top_p)
+        alive.append(~done)
+        if eos_id is not None:
+            tok, done = eos_retire(tok, done, eos_id, pad_id)
+        toks.append(tok)
+        if i + 1 < max_new_tokens:
+            logits = model(tok[:, None].long(), decode=True, enc=enc,
+                           cache=cache)[:, -1]
     out = torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()
     if return_lengths:
         lengths = torch.stack(alive, dim=1).sum(1).to(torch.int32)

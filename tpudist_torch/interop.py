@@ -30,12 +30,17 @@ the same way: the patch ``Conv`` kernel ``[p, p, 3, d]`` becomes
 ``[d, 3, p, p]``, ``Dense`` kernels ``[out, in]``, biases and ``cls`` /
 ``pos_embedding`` keep their shapes.
 
+:func:`bert_params_from_flax` and :func:`t5_params_from_flax` map the
+encoder families' flax trees the same way (BERT unrolled or stacked under
+``hs``; T5 has no scanned layout).
+
 The HF bridge (:func:`load_hf_params`, :func:`save_hf_checkpoint` and the
-GPT-2 maps between them) is the reference's, onto the port's state dict:
-HF's GPT-2 ``Conv1D`` weights are ``[in, out]`` with q|k|v packed along
-the output, so each becomes a port weight by one transpose; HF's Llama
-``Linear`` weights are ``[out, in]``, the port's layout, so they carry over
-as they are. Checkpoints are
+per-family maps between them) is the reference's, onto the port's state
+dict: HF's GPT-2 ``Conv1D`` weights are ``[in, out]`` with q|k|v packed
+along the output, so each becomes a port weight by one transpose; HF's
+Llama, BERT and T5 ``Linear`` weights are ``[out, in]``, the port's
+layout, so they carry over as they are (BERT's separate query/key/value
+stacked into ``qkv``). Checkpoints are
 read and written with a small ``safetensors`` codec of the port's own
 (:func:`read_safetensors`, :func:`write_safetensors`; the machine with the
 card has no ``safetensors`` package), or ``pytorch_model*.bin`` through
@@ -151,6 +156,81 @@ def llama_params_from_flax(tree) -> dict[str, torch.Tensor]:
     sd["norm.scale"] = _f32(p["norm"]["scale"])
     if "lm_head" in p:
         sd["lm_head"] = _f32(p["lm_head"])
+    return sd
+
+
+def _ln(sd: dict, prefix: str, src) -> None:
+    sd[f"{prefix}.scale"] = _f32(src["scale"])
+    sd[f"{prefix}.bias"] = _f32(src["bias"])
+
+
+def bert_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax BERT params (``wte``, ``wpe``, ``wty``, ``ln_embed``,
+    ``h_{i}/{qkv, out, ln_attn, mlp_fc, mlp_proj, ln_mlp}`` or their
+    ``scan_layers`` stack ``hs/block/...``, and ``mlm_head/{transform, ln,
+    bias}`` when present; a ``{"params": ...}`` wrapper is accepted) -> the
+    port's :class:`~tpudist_torch.models.bert.Bert` state dict, in f32 on
+    the CPU. ``qkv`` ``[d, 3, h, dh]`` and ``out`` ``[h, dh, d]`` flatten
+    their grouped axes; the biases keep their shapes."""
+    p = tree["params"] if "params" in tree else tree
+    if "hs" in p:
+        p = unstack_layers(p, prefix="h_", dest="hs")
+    sd: dict[str, torch.Tensor] = {k: _f32(p[k]) for k in ("wte", "wpe", "wty")
+                                   if k in p}
+    _ln(sd, "ln_embed", p["ln_embed"])
+    depth = sum(1 for k in p if k.startswith("h_"))
+    for i in range(depth):
+        src, dst = p[f"h_{i}"], f"h.{i}"
+        _linear(sd, f"{dst}.qkv", src["qkv"]["kernel"], src["qkv"]["bias"])
+        _linear(sd, f"{dst}.out", src["out"]["kernel"], src["out"]["bias"],
+                n_in_axes=2)
+        for name in ("mlp_fc", "mlp_proj"):
+            _linear(sd, f"{dst}.{name}", src[name]["kernel"],
+                    src[name]["bias"])
+        for ln in ("ln_attn", "ln_mlp"):
+            _ln(sd, f"{dst}.{ln}", src[ln])
+    if "mlm_head" in p:
+        head = p["mlm_head"]
+        _linear(sd, "mlm_head.transform", head["transform"]["kernel"],
+                head["transform"]["bias"])
+        _ln(sd, "mlm_head.ln", head["ln"])
+        sd["mlm_head.bias"] = _f32(head["bias"])
+    return sd
+
+
+def t5_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax T5 params (``wte``, ``enc_rel_bias``, ``dec_rel_bias``,
+    ``enc_{i}/{ln_attn, attn, ln_mlp, mlp}``, ``ln_enc``, ``dec_{i}/{ln_self,
+    self_attn, ln_cross, cross_attn, ln_mlp, mlp}``, ``ln_dec``, ``lm_head``;
+    a ``{"params": ...}`` wrapper is accepted; the family has no scanned
+    layout) -> the port's :class:`~tpudist_torch.models.t5.T5` state dict,
+    in f32 on the CPU: the bias-free kernels ``[in..., out...]`` (q/k/v
+    ``[d, h, dh]``, out ``[h, dh, d]``) become ``[out, in]`` weights."""
+    p = tree["params"] if "params" in tree else tree
+    sd: dict[str, torch.Tensor] = {
+        k: _f32(p[k]) for k in ("wte", "enc_rel_bias", "dec_rel_bias")}
+
+    def attn(dst, src):
+        for name in ("q", "k", "v"):
+            sd[f"{dst}.{name}.weight"] = _kernel(src[name]["kernel"])
+        sd[f"{dst}.out.weight"] = _kernel(src["out"]["kernel"], 2)
+
+    def block(dst, src, norms, attns):
+        for ln in norms:
+            sd[f"{dst}.{ln}.scale"] = _f32(src[ln]["scale"])
+        for a in attns:
+            attn(f"{dst}.{a}", src[a])
+        for name in ("wi_0", "wi_1", "wo"):
+            sd[f"{dst}.mlp.{name}.weight"] = _kernel(src["mlp"][name]["kernel"])
+
+    for i in range(sum(1 for k in p if k.startswith("enc_") and k[4:].isdigit())):
+        block(f"enc.{i}", p[f"enc_{i}"], ("ln_attn", "ln_mlp"), ("attn",))
+    for i in range(sum(1 for k in p if k.startswith("dec_") and k[4:].isdigit())):
+        block(f"dec.{i}", p[f"dec_{i}"], ("ln_self", "ln_cross", "ln_mlp"),
+              ("self_attn", "cross_attn"))
+    sd["ln_enc.scale"] = _f32(p["ln_enc"]["scale"])
+    sd["ln_dec.scale"] = _f32(p["ln_dec"]["scale"])
+    sd["lm_head.weight"] = _kernel(p["lm_head"]["kernel"])
     return sd
 
 
@@ -445,25 +525,205 @@ def llama_params_to_hf(params: dict, *, depth: int) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _not_ported(arch: str):
-    if arch in ("bert", "t5"):
-        raise NotImplementedError(
-            f"the {arch} HF bridge is not ported yet (ROADMAP Queue 1 #4)")
-    raise ValueError(f"unknown arch {arch!r} (want gpt2, llama, bert, or t5)")
+#: the port's BERT block leaves and their HF ``BertForMaskedLM`` names
+#: (under ``bert.encoder.layer.{i}.``), q/k/v aside
+_HF_BERT = (("out", "attention.output.dense"),
+            ("ln_attn", "attention.output.LayerNorm"),
+            ("mlp_fc", "intermediate.dense"),
+            ("mlp_proj", "output.dense"),
+            ("ln_mlp", "output.LayerNorm"))
+_QKV = ("query", "key", "value")
+
+
+def _hf_leaf(port: str) -> str:
+    """A port leaf's HF name: LayerNorm ``scale`` is HF's ``weight``."""
+    return "weight" if port == "scale" else port
+
+
+def bert_params_from_hf(state_dict, *, depth: int,
+                        num_heads: int) -> dict[str, torch.Tensor]:
+    """HF ``BertForMaskedLM``/``BertModel`` state dict -> the port's BERT
+    state dict, in f32 on the CPU (the reference's ``bert_params_from_hf``).
+    HF's ``Linear`` weights are ``[out, in]`` as the port's; its separate
+    query/key/value stack into ``qkv`` (bias ``[3, heads, dh]``); the MLM
+    head's transform and bias map onto ``mlm_head`` when present (the
+    decoder matrix is tied to ``wte`` in both); the pooler is ignored."""
+    sd = {k.removeprefix("bert."): v for k, v in state_dict.items()}
+
+    def f32(key):
+        return sd[key].detach().to("cpu", torch.float32).clone()
+
+    def ln(dst, src):
+        out[f"{dst}.scale"] = f32(f"{src}.weight")
+        out[f"{dst}.bias"] = f32(f"{src}.bias")
+
+
+    out = {"wte": f32("embeddings.word_embeddings.weight"),
+           "wpe": f32("embeddings.position_embeddings.weight"),
+           "wty": f32("embeddings.token_type_embeddings.weight")}
+    d = out["wte"].shape[1]
+    ln("ln_embed", "embeddings.LayerNorm")
+    for i in range(depth):
+        src, dst = f"encoder.layer.{i}", f"h.{i}"
+        out[f"{dst}.qkv.weight"] = torch.cat(
+            [f32(f"{src}.attention.self.{n}.weight") for n in _QKV])
+        out[f"{dst}.qkv.bias"] = torch.stack(
+            [f32(f"{src}.attention.self.{n}.bias") for n in _QKV]).reshape(
+                3, num_heads, d // num_heads)
+        for port, hf in _HF_BERT:
+            if port.startswith("ln"):
+                ln(f"{dst}.{port}", f"{src}.{hf}")
+            else:
+                out[f"{dst}.{port}.weight"] = f32(f"{src}.{hf}.weight")
+                out[f"{dst}.{port}.bias"] = f32(f"{src}.{hf}.bias")
+    head = "cls.predictions"
+    if f"{head}.transform.dense.weight" in sd:
+        out["mlm_head.transform.weight"] = f32(f"{head}.transform.dense.weight")
+        out["mlm_head.transform.bias"] = f32(f"{head}.transform.dense.bias")
+        ln("mlm_head.ln", f"{head}.transform.LayerNorm")
+        out["mlm_head.bias"] = f32(f"{head}.bias")
+    return out
+
+
+def bert_params_to_hf(params: dict, *, depth: int) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`bert_params_from_hf`: the port's BERT state dict ->
+    one HF ``BertForMaskedLM.load_state_dict(strict=False)`` loads
+    (``strict=False`` for HF's position-id buffer and the pooler), f32 on
+    the CPU; the decoder is the tied ``wte``."""
+    def f32(key):
+        return params[key].detach().to("cpu", torch.float32).clone()
+
+    e = "bert.embeddings"
+    wte = f32("wte")
+    sd = {f"{e}.word_embeddings.weight": wte,
+          f"{e}.position_embeddings.weight": f32("wpe"),
+          f"{e}.token_type_embeddings.weight": f32("wty"),
+          f"{e}.LayerNorm.weight": f32("ln_embed.scale"),
+          f"{e}.LayerNorm.bias": f32("ln_embed.bias"),
+          "cls.predictions.decoder.weight": wte}
+    for i in range(depth):
+        src, dst = f"h.{i}", f"bert.encoder.layer.{i}"
+        w, b = f32(f"{src}.qkv.weight"), f32(f"{src}.qkv.bias").reshape(3, -1)
+        for j, n in enumerate(_QKV):
+            sd[f"{dst}.attention.self.{n}.weight"] = w.chunk(3)[j].clone()
+            sd[f"{dst}.attention.self.{n}.bias"] = b[j].clone()
+        for port, hf in _HF_BERT:
+            for leaf in (("scale", "bias") if port.startswith("ln")
+                         else ("weight", "bias")):
+                sd[f"{dst}.{hf}.{_hf_leaf(leaf)}"] = f32(f"{src}.{port}.{leaf}")
+    if "mlm_head.bias" in params:
+        c = "cls.predictions"
+        sd[f"{c}.transform.dense.weight"] = f32("mlm_head.transform.weight")
+        sd[f"{c}.transform.dense.bias"] = f32("mlm_head.transform.bias")
+        sd[f"{c}.transform.LayerNorm.weight"] = f32("mlm_head.ln.scale")
+        sd[f"{c}.transform.LayerNorm.bias"] = f32("mlm_head.ln.bias")
+        sd[f"{c}.bias"] = f32("mlm_head.bias")
+        sd[f"{c}.decoder.bias"] = f32("mlm_head.bias")
+    return sd
+
+
+#: a T5 block's sub-layers: (port prefix, HF layer index, HF module) per
+#: stack; each attention is q/k/v/o, each MLP wi_0/wi_1/wo
+_HF_T5 = {"enc": (("ln_attn", "attn", 0, "SelfAttention"),
+                  ("ln_mlp", "mlp", 1, "DenseReluDense")),
+          "dec": (("ln_self", "self_attn", 0, "SelfAttention"),
+                  ("ln_cross", "cross_attn", 1, "EncDecAttention"),
+                  ("ln_mlp", "mlp", 2, "DenseReluDense"))}
+_HF_STACK = {"enc": "encoder", "dec": "decoder"}
+
+
+def _t5_leaves(module: str):
+    """(port leaf, HF leaf) of one T5 sub-layer's linears."""
+    if module == "DenseReluDense":
+        return (("wi_0", "wi_0"), ("wi_1", "wi_1"), ("wo", "wo"))
+    return (("q", "q"), ("k", "k"), ("v", "v"), ("out", "o"))
+
+
+def t5_params_from_hf(state_dict, *, enc_depth: int, dec_depth: int,
+                      num_heads: int) -> dict[str, torch.Tensor]:
+    """HF ``T5ForConditionalGeneration`` (v1.1: gated-gelu, untied
+    ``lm_head``) state dict -> the port's T5 state dict, in f32 on the CPU
+    (the reference's ``t5_params_from_hf``). HF's ``Linear`` weights are
+    ``[out, in]`` as the port's; the shared relative bias lives on block 0
+    of each stack in HF and as ``enc_rel_bias`` / ``dec_rel_bias`` here; the
+    embeddings are the shared table. ``num_heads`` is checked against the
+    bias tables."""
+    def f32(key):
+        return state_dict[key].detach().to("cpu", torch.float32).clone()
+
+    rel = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    out = {"wte": f32("shared.weight"),
+           "enc_rel_bias": f32(f"encoder.{rel}"),
+           "dec_rel_bias": f32(f"decoder.{rel}"),
+           "ln_enc.scale": f32("encoder.final_layer_norm.weight"),
+           "ln_dec.scale": f32("decoder.final_layer_norm.weight"),
+           "lm_head.weight": f32("lm_head.weight")}
+    if out["enc_rel_bias"].shape[1] != num_heads:
+        raise ValueError(f"relative bias of {out['enc_rel_bias'].shape[1]} "
+                         f"heads, not num_heads {num_heads}")
+    for stack, depth in (("enc", enc_depth), ("dec", dec_depth)):
+        for i in range(depth):
+            src = f"{_HF_STACK[stack]}.block.{i}.layer"
+            for norm, sub, j, module in _HF_T5[stack]:
+                out[f"{stack}.{i}.{norm}.scale"] = f32(
+                    f"{src}.{j}.layer_norm.weight")
+                for port, hf in _t5_leaves(module):
+                    out[f"{stack}.{i}.{sub}.{port}.weight"] = f32(
+                        f"{src}.{j}.{module}.{hf}.weight")
+    return out
+
+
+def t5_params_to_hf(params: dict, *, enc_depth: int,
+                    dec_depth: int) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`t5_params_from_hf`: the port's T5 state dict -> one
+    HF ``T5ForConditionalGeneration.load_state_dict`` loads on a matching
+    v1.1 config (``feed_forward_proj="gated-gelu"``,
+    ``tie_word_embeddings=False``), f32 on the CPU."""
+    def f32(key):
+        return params[key].detach().to("cpu", torch.float32).clone()
+
+    rel = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    wte = f32("wte")
+    sd = {"shared.weight": wte, "encoder.embed_tokens.weight": wte,
+          "decoder.embed_tokens.weight": wte,
+          f"encoder.{rel}": f32("enc_rel_bias"),
+          f"decoder.{rel}": f32("dec_rel_bias"),
+          "encoder.final_layer_norm.weight": f32("ln_enc.scale"),
+          "decoder.final_layer_norm.weight": f32("ln_dec.scale"),
+          "lm_head.weight": f32("lm_head.weight")}
+    for stack, depth in (("enc", enc_depth), ("dec", dec_depth)):
+        for i in range(depth):
+            dst = f"{_HF_STACK[stack]}.block.{i}.layer"
+            for norm, sub, j, module in _HF_T5[stack]:
+                sd[f"{dst}.{j}.layer_norm.weight"] = f32(
+                    f"{stack}.{i}.{norm}.scale")
+                for port, hf in _t5_leaves(module):
+                    sd[f"{dst}.{j}.{module}.{hf}.weight"] = f32(
+                        f"{stack}.{i}.{sub}.{port}.weight")
+    return sd
+
+
+def _unknown(arch: str):
+    return ValueError(f"unknown arch {arch!r} (want gpt2, llama, bert, or t5)")
 
 
 def load_hf_params(path, *, arch: str, depth: int, num_heads: int,
                    num_kv_heads: int | None = None) -> dict[str, torch.Tensor]:
     """One-call warm start: a local HF checkpoint -> the port's state dict
-    for ``arch`` (gpt2 and llama; bert and t5 raise naming their item)."""
+    for ``arch`` (gpt2, llama, bert, t5; T5 with ``depth`` layers in each
+    stack, the published symmetric geometries)."""
+    if arch not in ("gpt2", "llama", "bert", "t5"):
+        raise _unknown(arch)
+    sd = load_hf_state_dict(path)
     if arch == "gpt2":
-        return gpt2_params_from_hf(load_hf_state_dict(path), depth=depth,
-                                   num_heads=num_heads)
+        return gpt2_params_from_hf(sd, depth=depth, num_heads=num_heads)
     if arch == "llama":
-        return llama_params_from_hf(load_hf_state_dict(path), depth=depth,
-                                    num_heads=num_heads,
+        return llama_params_from_hf(sd, depth=depth, num_heads=num_heads,
                                     num_kv_heads=num_kv_heads)
-    _not_ported(arch)
+    if arch == "bert":
+        return bert_params_from_hf(sd, depth=depth, num_heads=num_heads)
+    return t5_params_from_hf(sd, enc_depth=depth, dec_depth=depth,
+                             num_heads=num_heads)
 
 
 def save_hf_checkpoint(params: dict, path, *, arch: str, depth: int) -> None:
@@ -474,8 +734,12 @@ def save_hf_checkpoint(params: dict, path, *, arch: str, depth: int) -> None:
         sd = gpt2_params_to_hf(params, depth=depth)
     elif arch == "llama":
         sd = llama_params_to_hf(params, depth=depth)
+    elif arch == "bert":
+        sd = bert_params_to_hf(params, depth=depth)
+    elif arch == "t5":
+        sd = t5_params_to_hf(params, enc_depth=depth, dec_depth=depth)
     else:
-        _not_ported(arch)
+        raise _unknown(arch)
     os.makedirs(path, exist_ok=True)
     write_safetensors(sd, os.path.join(path, "model.safetensors"),
                       metadata={"format": "pt"})

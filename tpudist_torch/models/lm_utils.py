@@ -88,20 +88,27 @@ def chunked_ce_sum(head_w, h, targets, pos_mask, chunk: int):
                                pos_mask, chunk)
 
 
+def seq_shard(x, layout):
+    """This seq rank's chunk of ``[B, S, ...]`` rows."""
+    s = x.shape[1]
+    if s % layout.seq:
+        raise ValueError(f"sequence {s} not divisible by the seq axis "
+                         f"{layout.seq}")
+    w = s // layout.seq
+    return x[:, layout.seq_idx * w:(layout.seq_idx + 1) * w]
+
+
 def seq_shard_lm(tokens, layout):
     """This seq rank's chunk of the token rows ``[B, S]`` and the
     next-token labels of its positions, ``-100`` where there is none (the
     sequence's last position): ``(tokens [B, S/n], labels [B, S/n])``."""
-    b, s = tokens.shape
-    n = layout.seq
-    if s % n:
-        raise ValueError(f"sequence {s} not divisible by the seq axis {n}")
-    w = s // n
+    local = seq_shard(tokens, layout)
+    b, w = local.shape
     lo = layout.seq_idx * w
     labels = torch.full((b, w), -100, dtype=torch.long, device=tokens.device)
     nxt = tokens[:, lo + 1:lo + w + 1]
     labels[:, :nxt.shape[1]] = nxt
-    return tokens[:, lo:lo + w], labels
+    return local, labels
 
 
 def chunked_lm_forward(model, chunk: int = 256, layout=None) -> Callable:

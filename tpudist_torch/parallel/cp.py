@@ -11,11 +11,14 @@ positions ``i S/n ..``):
   with ``finfo(float32).min``, the running max, ``alpha`` and ``p`` as
   ``_online_merge`` computes them (a fully masked chunk adds exactly 0), the
   output ``acc / l`` in q's dtype. The S x S scores never exist. It is a
-  ``torch.autograd.Function`` that saves q, k, v, the output and the row
-  log-sum-exp; its backward recomputes each hop's ``p`` from the lse,
+  ``torch.autograd.Function`` that saves q, k, v, the f32 output and the
+  row log-sum-exp; its backward recomputes each hop's ``p`` from the lse,
   accumulates dq locally, and sends the dk, dv accumulators around the
   ring with their K/V chunk, so after ``n`` rotations each is back at its
-  owner: the transpose of the reference's ``ppermute``. Under ``causal`` a
+  owner: the transpose of the reference's ``ppermute``. It rounds where
+  the reference's ``jax.grad`` of its scan rounds: delta from the f32
+  output, each hop's dq, dk, dv products and their running sums in the
+  inputs' dtype, which is the dtype dk and dv travel in. Under ``causal`` a
   hop whose chunk lies wholly in the future adds nothing and is not
   computed (its rotation still happens); the forward's last rotation,
   which only brings K/V home in the reference, is not made. The chunk
@@ -164,24 +167,28 @@ class _RingAttention(torch.autograd.Function):
                 m, l, acc = _merge(m, l, acc, sc, _heads(v_cur))
             if t + 1 < comm.n:
                 k_cur, v_cur = comm.rotate([k_cur, v_cur])
-        out = (acc / torch.where(l == 0.0, 1.0, l)).permute(0, 1, 3, 2, 4)
-        out = out.to(q.dtype).contiguous()
+        # the f32 output is what the reference's delta reads (its acc / l);
+        # q.dtype's copy is what the caller gets
+        out32 = acc / torch.where(l == 0.0, 1.0, l)
         lse = torch.where(l > 0.0, m + torch.log(l), float("inf"))
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.comm, ctx.causal = comm, causal
-        return out
+        return out32.permute(0, 1, 3, 2, 4).to(q.dtype).contiguous()
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out32, lse = ctx.saved_tensors
         comm, causal = ctx.comm, ctx.causal
         s, d = q.shape[2], q.shape[4]
         scale = _scale(d)
         qh, doh = _heads(q), _heads(do)
-        delta = (doh * _heads(out)).sum(-1, keepdim=True)
-        dq = torch.zeros_like(qh)
-        dk = torch.zeros_like(qh)
-        dv = torch.zeros_like(qh)
+        delta = (doh * out32).sum(-1, keepdim=True)
+        # the reference's jax.grad of its scan rounds where its cotangents
+        # change hands: each hop's dq, dk, dv leave their f32 products in
+        # the inputs' dtype and are added to the running sums in it, and
+        # dk, dv travel the ring in it (a no-op in f32)
+        rnd = lambda x: x.to(q.dtype).float()
+        dq = dk = dv = None
         k_cur, v_cur = k, v
         for t in range(comm.n):
             srcs = [(i - t) % comm.n for i in comm.ranks]
@@ -189,21 +196,33 @@ class _RingAttention(torch.autograd.Function):
             if mask is not False:
                 kh, vh = _heads(k_cur), _heads(v_cur)
                 p = torch.exp(_scores(qh, kh, scale, mask) - lse)
-                dv = dv + p.transpose(-1, -2) @ doh
-                ds = p * (doh @ vh.transpose(-1, -2) - delta)
-                dq = dq + ds @ kh
-                dk = dk + ds.transpose(-1, -2) @ qh
-            # dk, dv travel with their chunk: n rotations bring them home
-            if t + 1 < comm.n:
-                k_cur, v_cur, dk, dv = comm.rotate([k_cur, v_cur, dk, dv])
-            elif comm.n > 1:
-                dk, dv = comm.rotate([dk, dv])
+                ds = p * (doh @ vh.transpose(-1, -2) - delta) * scale
+                dq = _acc(dq, rnd(ds @ kh), rnd)
+                dk = _acc(dk, rnd(ds.transpose(-1, -2) @ qh), rnd)
+                dv = _acc(dv, rnd(p.transpose(-1, -2) @ doh), rnd)
+            # dk, dv travel with their chunk, in the inputs' dtype: n
+            # rotations bring them home
+            if comm.n > 1:
+                dk, dv = (torch.zeros_like(qh) if g is None else g
+                          for g in (dk, dv))
+                sent = [dk.to(q.dtype), dv.to(q.dtype)]
+                if t + 1 < comm.n:
+                    k_cur, v_cur, *sent = comm.rotate([k_cur, v_cur, *sent])
+                else:
+                    sent = comm.rotate(sent)
+                dk, dv = (g.float() for g in sent)
 
         def back(g, like):
+            g = torch.zeros_like(qh) if g is None else g
             return g.permute(0, 1, 3, 2, 4).to(like.dtype).contiguous()
 
-        return (back(dq * scale, q), back(dk * scale, k), back(dv, v), None,
-                None)
+        return back(dq, q), back(dk, k), back(dv, v), None, None
+
+
+def _acc(total, part, rnd):
+    """``total + part`` rounded as the reference's cotangent sums are
+    (``total`` None: nothing summed yet)."""
+    return part if total is None else rnd(total + part)
 
 
 class _AllToAll(torch.autograd.Function):
