@@ -366,9 +366,41 @@ Phases, each fatal on failure:
     relative bias keeps every attention dense), the TSV and trace readings;
     then in f32 with the
     trained weights, greedy ``generate_seq2seq`` of the span targets for 4
-    windows equal to the full-forward greedy rollout.
+    windows equal to the full-forward greedy rollout;
+45. ImageNet at 224x224 — packs written from ``synthetic_imagenet`` with
+    numpy (2048 training rows, 308,281,344 bytes, and 512 validation rows
+    of the same 1000 classes, in a temporary directory), then ``main.main
+    --model resnet50 --dataset imagenet --packed P --packed_val V --bf16
+    --fused optimizer --batch_size 128 --eval``, 16 steps under DDP
+    (NCCL): one AdamW launch over 161 leaves a step and no other counted
+    kernel, the TSV and trace readings with the ``HBM`` row, the
+    host-to-device bytes a step (the 19,267,584-byte uint8 batch plus at
+    most ``CACHE_H2D_BAR``), the native gather's host ms a batch and the
+    top-1 line; where PIL is installed, a JPEG tree the smoke writes
+    packed by ``pack_image_folder`` (equal to the eval loader's pixels)
+    and streamed through ``ImageFolderLoader`` on 4 decode threads;
+46. the same with ``--device_cache --augment``: host-to-device bytes a
+    step under ``CACHE_H2D_BAR``;
+47. the same with ``--device_cache --cache_shard_rows 512`` (4 shards of
+    77,070,336 bytes, 4 steps each): the staged shards and the index
+    batches follow the rotation's (seed, epoch) plan and cover every row
+    once; each shard's staging, boundary wait and whether its copy was
+    done at first use; the peak memory beside phases 45 and 46; then the
+    rotation alone through ``prefetch_to_device``: every batch gathered on
+    the card bit-identical to a host gather of its rows, every row once,
+    and at most three shards (and two gathered batches) of device memory;
+48. ``--model vit_b16`` at 224x224 (16-pixel patches, 197 tokens) from the
+    pack, ``--bf16 --fused all``, 16 steps: LN 25 / 25 + 25 and one AdamW
+    over 152 leaves a step, the TSV and trace readings;
+49. ``memory.train_state_budget`` (built on the meta device) with
+    ``format_budget`` beside the allocator's peak: phase 48's ViT-B/16 and
+    phase 28's GPT-2 124M without remat;
+50. kernel times by phase 13's method: vmem and flash, forward and each
+    backward alone, at BERT-base's B 32, H 12, S 512 non-causal beside SDPA
+    and the bound; the LayerNorm kernels at ViT-B/16 224's 25,216 x 768
+    rows, eps 1e-6, beside ``F.layer_norm``.
 
-Phases 22-29 and 31-44 print their seconds.
+Phases 22-29 and 31-50 print their seconds.
 """
 
 from __future__ import annotations
@@ -688,6 +720,8 @@ def main() -> int:
     cp_attention_phase(smi, dev)
     cp_training_phases(smi)
     encoder_phases(smi, dev)
+    imagenet_phases(smi, dev)
+    kernel_table_phase(smi, dev)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -1647,6 +1681,7 @@ def lm_flag_phases(smi: str, dev) -> None:
                         ("dots_saveable", ["--remat_policy", "dots_saveable"]),
                         ("none", [])):
         peaks[name] = peak_gb(run, [*flags, *extra])
+    PEAKS["gpt2_none"] = peaks["none"] * 1e9
     print("  peak memory (torch.cuda.max_memory_allocated, GB), 4 steps each: "
           f"per block (--remat_policy) full {peaks['full']:.3f}, dots_saveable "
           f"{peaks['dots_saveable']:.3f}; no remat {peaks['none']:.3f}; the "
@@ -2382,6 +2417,7 @@ def bert_training_phase(smi: str, dev, batch: int = 32, seq: int = 512,
         finally:
             dist.destroy_process_group()
     n_leaves = len(list(state.model.parameters()))
+    rows = [r for r in rows if not r.startswith("HBM\t")]
     api_ms = batch / float(rows[3].split("\t")[4]) * 1e3
     print(f"  16 steps; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
           f"{n_leaves} leaves; step at g_step 15 {api_ms:.2f} ms (TSV, "
@@ -2672,14 +2708,21 @@ def trained_cli(flags, *, batch: int, seq: int, job: str, smi: str, want,
 def run_report(rows, window, *, steps: int, batch: int, unit: str, smi: str,
                per_row: int = 1, trace: str | None = None) -> float:
     """Phases 9, 14, 18 and 22: fail unless the TSV has rows at g_step 5,
-    10 and 15 and the TrainTime row and the profiler window holds device
-    work; print the step at g_step 15, the run's rate in ``unit`` per
-    second (``per_row`` of them a batch row) and the window's kernels,
-    device time and busy share per step. Returns the g_step-15 step's
-    milliseconds."""
+    10 and 15, the TrainTime row and one HBM row (the allocator's stats
+    after bring-up; 16 steps stay under its cadence of 50), and the
+    profiler window holds device work; print the step at g_step 15, the
+    run's rate in ``unit`` per second (``per_row`` of them a batch row),
+    the HBM row and the window's kernels, device time and busy share per
+    step. Returns the g_step-15 step's milliseconds."""
+    hbm = [r for r in rows if r.startswith("HBM\t")]
+    rows = [r for r in rows if not r.startswith("HBM\t")]
     g_steps = [r.split("\t")[1] for r in rows[1:] if not r.startswith("TrainTime")]
     if g_steps != ["5", "10", "15"] or not rows[-1].startswith("TrainTime\t"):
         fail(f"TSV rows {rows}")
+    # the bring-up row of the card's allocator (fit's memory_log_every)
+    if len(hbm) != 1 or set(json.loads(hbm[0].split("\t", 1)[1])) != {
+            "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}:
+        fail(f"TSV HBM rows {hbm}")
     if not window or not window["steps"] or not window["kernels_per_step"]:
         fail(f"the profiler trace holds no device work: {window}")
     train_s = float(rows[-1].split("\t")[1])
@@ -2690,6 +2733,7 @@ def run_report(rows, window, *, steps: int, batch: int, unit: str, smi: str,
           f"{steps * batch * per_row / train_s:.1f} {unit}/s over the run "
           f"(profiler window and first step included)"
           f"{f'; trace {trace}' if trace else ''}  [{smi}]")
+    print(f"  TSV {hbm[0]}")
     print(f"  profiler window ({window['steps']} steps, profiled): "
           f"{window['kernels_per_step']:.0f} kernels/step, device busy "
           f"{window['device_ms_per_step']:.2f} ms/step of "
@@ -3117,6 +3161,418 @@ def checkpoint_costs(smi: str) -> None:
         torch.cuda.empty_cache()
     dist.destroy_process_group()
     print(f"  [{time.perf_counter() - t_phase:.1f} s]")
+
+
+#: phases 45-49's data: ImageNet-1k's shapes (224 x 224 x 3 uint8 rows,
+#: 1000 classes), cut from its 1,281,167 training images to 2048 (16 steps
+#: of 128) and its 50,000 validation images to 512
+IMAGENET_ROWS, IMAGENET_VAL_ROWS, IMAGENET_SIZE = 2048, 512, 224
+IMAGENET_CLASSES = [f"n{i:08d}" for i in range(1000)]
+#: phase 47's shards: 512 rows (77,070,336 bytes), 4 steps of 128 each
+SHARD_ROWS = 512
+#: phase 28's peak device memory (bytes) without remat, for phase 49
+PEAKS: dict[str, float] = {}
+
+
+def write_pack(prefix: str, n: int, seed: int) -> int:
+    """``synthetic_imagenet(n)`` as a pack in ``data/packed.py``'s layout,
+    written through ``np.lib.format.open_memmap``; returns its bytes."""
+    import numpy as np
+
+    from tpudist_torch.data.imagenet import synthetic_imagenet
+
+    data = synthetic_imagenet(n, image_size=IMAGENET_SIZE, seed=seed)
+    images = np.lib.format.open_memmap(f"{prefix}_images.npy", mode="w+",
+                                       dtype=np.uint8, shape=data["image"].shape)
+    images[:] = data["image"]
+    images.flush()
+    nbytes = int(images.nbytes)
+    del images
+    np.save(f"{prefix}_labels.npy", data["label"])
+    Path(f"{prefix}_meta.json").write_text(json.dumps({
+        "classes": IMAGENET_CLASSES, "image_size": IMAGENET_SIZE, "n": n,
+        "source_root": "synthetic_imagenet", "transform": "synthetic"}))
+    return nbytes
+
+
+@contextlib.contextmanager
+def instances(cls, on_init=None):
+    """While open, every ``cls`` built is appended to the yielded list (and
+    handed to ``on_init``)."""
+    made, init = [], cls.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+        if on_init is not None:
+            on_init(self)
+
+    cls.__init__ = record
+    try:
+        yield made
+    finally:
+        cls.__init__ = init
+
+
+def imagenet_cli(flags, *, job: str, smi: str, per_step: dict,
+                 leaves: int) -> dict:
+    """Phases 45-48: a 1-rank NCCL group, then ``main.main`` with
+    ``--dataset imagenet --image_size 224 --batch_size 128 --epochs 1`` and
+    ``flags``, the profiler on, every launch count set to 0 just before and
+    read just after (``--eval`` included). Fails unless it ran 16 steps
+    under DDP on a model of ``leaves`` leaves with ``per_step`` launches a
+    step and no other counted kernel, finite losses, the TSV rows and a
+    trace. Returns its losses, output, the trace's readings, its
+    host-to-device bytes a step and the peak device memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch import main as M
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", init_method="env://")
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            for mod in counted_modules():
+                mod.reset_launch_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            with contextlib.redirect_stdout(out):
+                state, losses = M.main([
+                    "--dataset", "imagenet", "--image_size", str(IMAGENET_SIZE),
+                    "--batch_size", "128", "--epochs", "1", "--JobID", job,
+                    "--log_dir", log_dir, *flags])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            counts = launches()
+            ddp = isinstance(state.module,
+                             torch.nn.parallel.DistributedDataParallel)
+            n_leaves = len(list(state.model.parameters()))
+            rows = (Path(log_dir) / f"{job}_128_0.log").read_text().splitlines()
+            traces = list((Path(log_dir) / f"log_{job}").glob("*.pt.trace.json"))
+            window = trace_breakdown(traces[0]) if traces else None
+            h2d = h2d_per_step(traces[0]) if traces else None
+    finally:
+        dist.destroy_process_group()
+    del state
+    printed = out.getvalue()
+    print("  " + "\n  ".join(ln for ln in printed.strip().splitlines()
+                             if not ln.startswith("Epoch: ")))
+    steps = len(losses)
+    print(f"  {steps} steps; {n_leaves} leaves; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    if not ddp:
+        fail(f"{job}: the training step did not run under DDP")
+    if steps != 16 or n_leaves != leaves:
+        fail(f"{job}: {steps} steps and {n_leaves} leaves, want 16 and {leaves}")
+    check_counts(job, counts, per_step, steps)
+    if not np.isfinite(losses).all():
+        fail(f"{job}: losses {losses}")
+    if not traces:
+        fail(f"no profiler trace under log_{job}")
+    step_ms = run_report(rows, window, steps=steps, batch=128, unit="images",
+                         smi=smi, trace=traces[0].name)
+    print(f"  host-to-device per profiled step: {h2d['bytes']:.0f} bytes in "
+          f"{h2d['copies']:.1f} copies (trace); peak device memory "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated)  [{smi}]")
+    if not (h2d["steps"] and h2d["copies"] and h2d["has_bytes"]):
+        fail(f"{job}: host-to-device copies {h2d}")
+    return dict(losses=losses, printed=printed, window=window, h2d=h2d,
+                peak=peak, step_ms=step_ms)
+
+
+def imagenet_phases(smi: str, dev) -> None:
+    """Phases 45-49 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from tpudist_torch.data import device_cache as DC
+    from tpudist_torch.data import loader as L
+
+    resnet50 = {"fused_adamw": 1, "fused_adamw_leaves": 161}
+    image_bytes = IMAGENET_SIZE * IMAGENET_SIZE * 3
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train, val = f"{tmp}/in224", f"{tmp}/in224_val"
+        nbytes = write_pack(train, IMAGENET_ROWS, SEED)
+        vbytes = write_pack(val, IMAGENET_VAL_ROWS, SEED + 1)
+        print(f"== packs: {IMAGENET_ROWS} training rows ({nbytes} bytes) and "
+              f"{IMAGENET_VAL_ROWS} validation rows ({vbytes} bytes) written "
+              f"in {time.perf_counter() - t0:.1f} s")
+        if nbytes != IMAGENET_ROWS * image_bytes:
+            fail(f"the training pack holds {nbytes} bytes")
+        data = ["--packed", train, "--packed_val", val, "--eval"]
+
+        # -- 45. ResNet-50 on the host loader ---------------------------------
+        t0 = time.perf_counter()
+        print("== 45. ResNet-50 at 224x224, bf16, --fused optimizer, the pack "
+              "through the host loader (native gather), --eval, 16 steps under "
+              "DDP (NCCL)")
+        with instances(L.DataLoader) as loaders:
+            host = imagenet_cli(["--model", "resnet50", "--bf16", "--fused",
+                                 "optimizer", *data], job="In45", smi=smi,
+                                per_step=resnet50, leaves=161)
+        gathers = [ld.gather_seconds / max(len(ld), 1) for ld in loaders]
+        print(f"  native gather (host, pinned): {gathers[0] * 1e3:.2f} ms a "
+              f"training batch of 128 x {image_bytes} bytes, "
+              f"{gathers[1] * 1e3:.2f} ms an eval batch; the image batch is "
+              f"{128 * image_bytes} bytes of uint8")
+        if not 0 <= host["h2d"]["bytes"] - 128 * image_bytes <= CACHE_H2D_BAR:
+            fail(f"phase 45 moved {host['h2d']['bytes']:.0f} bytes a step to "
+                 f"the card, want the {128 * image_bytes}-byte image batch "
+                 f"and at most {CACHE_H2D_BAR} more")
+        if "Accuracy: " not in host["printed"]:
+            fail("phase 45: no top-1 line")
+        streaming_phase(smi)
+        print(f"  phase 45: {time.perf_counter() - t0:.1f} s")
+
+        # -- 46. ResNet-50 on the device cache --------------------------------
+        t0 = time.perf_counter()
+        print("== 46. the same with --device_cache --augment: the pack on the "
+              "card, indices and labels a step")
+        cached = imagenet_cli(["--model", "resnet50", "--bf16", "--fused",
+                               "optimizer", "--device_cache", "--augment",
+                               *data], job="In46", smi=smi, per_step=resnet50,
+                              leaves=161)
+        if cached["h2d"]["bytes"] > CACHE_H2D_BAR:
+            fail(f"phase 46 moved {cached['h2d']['bytes']:.0f} bytes a step "
+                 f"to the card [bar {CACHE_H2D_BAR}]")
+        print(f"  phase 46: {time.perf_counter() - t0:.1f} s")
+
+        # -- 47. ResNet-50 on the rotating device cache -----------------------
+        t0 = time.perf_counter()
+        print(f"== 47. the same with --device_cache --cache_shard_rows "
+              f"{SHARD_ROWS}: 4 shards of {SHARD_ROWS * image_bytes} bytes")
+        staged, batches = [], []
+
+        def record(rot):
+            stage, iterate = rot._stage, rot._iter_impl
+
+            def stage_rows(rows):
+                staged.append(np.array(rows))
+                return stage(rows)
+
+            def iterate_batches(start):
+                for b in iterate(start):
+                    batches.append(np.array(b["image"]))
+                    yield b
+
+            rot._stage, rot._iter_impl = stage_rows, iterate_batches
+
+        with instances(DC.RotatingDeviceCache, record) as rots:
+            rotated = imagenet_cli(
+                ["--model", "resnet50", "--bf16", "--fused", "optimizer",
+                 "--device_cache", "--cache_shard_rows", str(SHARD_ROWS),
+                 *data], job="In47", smi=smi, per_step=resnet50, leaves=161)
+        rot = rots[0]
+        shards, orders = rot.epoch_plan()
+        per_shard = SHARD_ROWS // 128
+        seen = np.concatenate([staged[i // per_shard][b]
+                               for i, b in enumerate(batches)])
+        planned = all(np.array_equal(a, w) for a, w in zip(staged, shards))
+        planned &= all(np.array_equal(b, orders[i // per_shard][
+            (i % per_shard) * 128:(i % per_shard + 1) * 128])
+            for i, b in enumerate(batches))
+        once = np.array_equal(np.sort(seen), np.arange(IMAGENET_ROWS))
+        print(f"  {len(staged)} shards staged, {len(batches)} index batches: "
+              f"the (seed, epoch) plan {planned}; every row once {once}")
+        for i, entry in enumerate(rot.stage_log):
+            print(f"    shard {i}: staged in {entry['stage_s'] * 1e3:.1f} ms, "
+                  f"the iterator waited {entry['wait_s'] * 1e3:.1f} ms at its "
+                  f"boundary; copy done at first use "
+                  f"{rot.ready_at_use[i] if i < len(rot.ready_at_use) else None}")
+        print(f"  peak device memory {rotated['peak'] / 1e9:.3f} GB against "
+              f"{host['peak'] / 1e9:.3f} on the host loader (phase 45) and "
+              f"{cached['peak'] / 1e9:.3f} with the whole pack (phase 46)  "
+              f"[{smi}]")
+        if len(staged) != 4 or len(batches) != 16 or not (planned and once):
+            fail("phase 47: the rotation did not follow its plan")
+        rotation_check(train, smi, dev)
+        print(f"  phase 47: {time.perf_counter() - t0:.1f} s")
+
+        # -- 48. ViT-B/16 at 224 -------------------------------------------------
+        t0 = time.perf_counter()
+        print("== 48. ViT-B/16 at 224x224 (16-pixel patches, 197 tokens), bf16, "
+              "--fused all, the pack through the host loader, 16 steps under "
+              "DDP (NCCL)")
+        vit = imagenet_cli(
+            ["--model", "vit_b16", "--bf16", "--fused", "all", "--packed",
+             train], job="In48", smi=smi, leaves=152,
+            per_step={"layernorm_fwd": 25, "layernorm_bwd": 25,
+                      "layernorm_bwd_reduce": 25, "fused_adamw": 1,
+                      "fused_adamw_leaves": 152})
+        print(f"  phase 48: {time.perf_counter() - t0:.1f} s")
+    budget_phase(smi, vit["peak"])
+
+
+def streaming_phase(smi: str) -> None:
+    """Phase 45's second part: where the machine has PIL, a JPEG tree the
+    smoke writes is packed (``pack_image_folder``) and streamed through
+    ``ImageFolderLoader`` on 4 decode threads; the pack's rows equal the
+    eval loader's pixels."""
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        print("  PIL is not installed here: the streaming loader and "
+              "pack_image_folder are held by the CPU tests only")
+        return
+    from tpudist_torch.data.imagenet import ImageFolderLoader
+    from tpudist_torch.data.packed import load_packed, pack_image_folder
+
+    rng = np.random.Generator(np.random.PCG64(SEED + 45))
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in range(4):
+            (Path(tmp) / "train" / f"c{c}").mkdir(parents=True)
+            for i in range(32):
+                h, w = (int(x) for x in rng.integers(240, 400, 2))
+                Image.fromarray(rng.integers(0, 256, (h, w, 3)).astype(
+                    np.uint8)).save(Path(tmp) / "train" / f"c{c}" / f"{i}.jpg")
+        stats = pack_image_folder(Path(tmp) / "train", f"{tmp}/jpk",
+                                  image_size=IMAGENET_SIZE, workers=4)
+        pack = load_packed(f"{tmp}/jpk")
+        with ImageFolderLoader(Path(tmp) / "train", 128, train=False,
+                               image_size=IMAGENET_SIZE, workers=4,
+                               normalize=False) as ev:
+            same = np.array_equal(next(iter(ev))["image"], pack["image"])
+        with ImageFolderLoader(Path(tmp) / "train", 64, train=True,
+                               image_size=IMAGENET_SIZE, workers=4) as tr:
+            t0 = time.perf_counter()
+            shapes = [b["image"].shape for b in tr]
+            rate = 128 / (time.perf_counter() - t0)
+    print(f"  PIL present: packed {stats['n']} JPEGs at "
+          f"{stats['images_per_sec']:.0f} images/s; the pack equals the eval "
+          f"loader's pixels {same}; streamed {len(shapes)} train batches of "
+          f"{shapes[0]} at {rate:.0f} images/s on 4 decode threads (host)")
+    if not same or shapes != [(64, IMAGENET_SIZE, IMAGENET_SIZE, 3)] * 2:
+        fail("the streaming loader and its pack disagree")
+
+
+def rotation_check(train: str, smi: str, dev) -> None:
+    """Phase 47's check of the rotation alone, on the card: one epoch of
+    ``RotatingDeviceCache`` over the pack through ``prefetch_to_device`` (as
+    ``fit`` drives it), each batch gathered by its ``input_transform`` and
+    held bit for bit to a host gather of the same rows; the peak device
+    memory of the shards (and one gathered batch) against three shards."""
+    import numpy as np
+    import torch
+
+    from tpudist_torch.data.device_cache import RotatingDeviceCache
+    from tpudist_torch.data.loader import prefetch_to_device
+    from tpudist_torch.data.packed import load_packed
+
+    pack = load_packed(train)
+    rot = RotatingDeviceCache({"image": pack["image"], "label": pack["label"]},
+                              128, shard_rows=SHARD_ROWS, device=dev)
+    gather = rot.input_transform()
+    shards, orders = rot.epoch_plan()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    equal, seen = [], []
+    for i, batch in enumerate(prefetch_to_device(iter(rot), dev)):
+        got = gather(batch["image"], batch).cpu()
+        rows = shards[i // 4][batch["image"].cpu().numpy()]
+        equal.append(torch.equal(got, torch.from_numpy(
+            np.asarray(pack["image"][rows]))))
+        seen.append(rows)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base
+    shard_bytes = SHARD_ROWS * pack["image"][0].nbytes
+    once = np.array_equal(np.sort(np.concatenate(seen)),
+                          np.arange(len(pack["label"])))
+    print(f"  the rotation alone: {len(equal)} batches, each bit-identical to "
+          f"a host gather of its rows {all(equal)}; every row once {once}; "
+          f"peak device memory over the loop {held / 1e6:.1f} MB (3 shards "
+          f"{3 * shard_bytes / 1e6:.1f} MB)  [{smi}]")
+    if len(equal) != 16 or not all(equal) or not once:
+        fail("the rotating cache's gathers differ from the host gather")
+    if held > 3 * shard_bytes + 2 * 128 * pack["image"][0].nbytes:
+        fail(f"the rotation held {held} bytes on the card, more than three "
+             "shards")
+
+
+def budget_phase(smi: str, vit_peak: int) -> None:
+    """Phase 49: ``train_state_budget`` (built on the meta device) beside
+    the allocator's peak: ViT-B/16 at phase 48's configuration, and GPT-2
+    124M at phase 28's without remat."""
+    import torch
+
+    from tpudist_torch.memory import (budget_columns, device_memory_stats,
+                                      format_budget, train_state_budget)
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.models.vit import vit_b16
+    from tpudist_torch.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    print("== 49. train_state_budget (meta device) against the allocator's "
+          "peak")
+    bf16 = torch.bfloat16
+    cases = (
+        ("ViT-B/16 224, batch 128, --fused all (phase 48)",
+         lambda d: vit_b16(patch_size=16, image_size=IMAGENET_SIZE, dtype=bf16,
+                           device=d),
+         make_optimizer(1e-3, fused=True, compute_dtype=bf16), 128, 197,
+         vit_peak),
+        ("GPT-2 124M, batch 8 x 1024, --fused all --amp --dropout 0.1, no "
+         "remat (phase 28)",
+         lambda d: GPT2(dtype=bf16, attn_impl="auto", dropout=0.1, device=d),
+         make_optimizer(3e-4, fused=True, compute_dtype=bf16,
+                        skip_nonfinite_updates=True), 8, 1024,
+         PEAKS.get("gpt2_none")))
+    stats = device_memory_stats()
+    for name, build, tx, batch, seq, peak in cases:
+        t = time.perf_counter()
+        report = train_state_budget(build, tx, batch=batch, seq=seq)
+        cols = budget_columns(report)
+        share = ("not measured in this run" if peak is None else
+                 f"{peak / report['per_chip_total_bytes']:.3f} of it")
+        print(f"  {name}: {format_budget(report, live_peak_bytes=peak)} "
+              f"(budgeted in {time.perf_counter() - t:.2f} s; estimate "
+              f"{report['per_chip_total_bytes']} bytes, live peak {peak} "
+              f"bytes: {share})  [{smi}]")
+        if not (report["fits"] and cols["xla_static_bytes"] is None
+                and report["hbm_budget_bytes"] == stats["bytes_limit"]):
+            fail(f"phase 49: {report}, {cols}")
+    print(f"  device_memory_stats {stats}")
+    print(f"  phase 49: {time.perf_counter() - t0:.1f} s")
+
+
+def kernel_table_phase(smi: str, dev) -> None:
+    """Phase 50: the kernel table's readings at the encoder's and ViT-224's
+    shapes, by phase 13's method (median of 50 device times, L2 flushed):
+    vmem and flash, forward and backward alone, at BERT-base's B 32, H 12,
+    S 512 non-causal beside SDPA and the bound; the LayerNorm kernels at
+    ViT-B/16's 25,216 x 768 rows (batch 128 x 197 tokens), eps 1e-6,
+    beside ``F.layer_norm``."""
+    import torch
+
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    t0 = time.perf_counter()
+    print("== 50. kernel times at BERT-base's attention and ViT-B/16 224's "
+          "LayerNorm (median of 50 device times, L2 flushed; bf16)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for case in [*LB.encoder_timing_cases(gen),
+                 *LB.ln_cases(gen, 128 * 197, eps=1e-6, tag="_vit224",
+                              prenorm_fwd=True)]:
+        t = LB.time_case(case, flush)
+        lib = ("n/a" if t["library_ms"] is None
+               else f"{t['library_ms'] * 1e3:.2f} us")
+        print(f"  {case['name']} [{case['shape']}]: kernel "
+              f"{t['kernel_ms'] * 1e3:.2f} us, bound {case['bound_ms'] * 1e3:.2f}"
+              f" us ({case['bound_by']}), plain {t['plain_ms'] * 1e3:.1f} us, "
+              f"library {lib}, max_abs_err {case['max_abs_err']:.3e}  [{smi}]")
+    del flush
+    print(f"  phase 50: {time.perf_counter() - t0:.1f} s")
+
 
 
 if __name__ == "__main__":

@@ -48,8 +48,12 @@ def _np_tree(tree):
 
 
 def _init(model, seed=0, s=S):
-    params = model.init(jax.random.key(seed), jnp.zeros((1, s), jnp.int32),
-                        train=False)["params"]
+    """The reference's params, its init under ``jax.jit`` (one compiled
+    program instead of a dispatch per operation; the gradients below
+    too)."""
+    params = jax.jit(lambda: model.init(
+        jax.random.key(seed), jnp.zeros((1, s), jnp.int32),
+        train=False)["params"])()
     return _np_tree(params)
 
 
@@ -78,7 +82,7 @@ def _against_reference(jm, pm, params, tokens, targets, kernel_parity,
         return optax.softmax_cross_entropy_with_integer_labels(
             logits, jnp.asarray(targets)).mean(), logits
 
-    (_, want), jg = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, want), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     want_grads = _np_tree(jg)
     pcall = {k: torch.from_numpy(v) for k, v in call.items()}
     got = pm(torch.from_numpy(tokens), **pcall)
@@ -264,9 +268,9 @@ def test_mlm_forward_matches_the_reference(chunk):
     params = _init(jm, seed=20)
     batch = J.mlm_transform(300, 299, seed=3)({"tokens": _tokens((2, S), 21)})
     jloss = J.mlm_forward(jm, chunk=chunk)
-    (want, _), jg = jax.value_and_grad(
+    (want, _), jg = jax.jit(jax.value_and_grad(
         lambda p: jloss(p, {}, {k: jnp.asarray(v) for k, v in batch.items()}),
-        has_aux=True)(params)
+        has_aux=True))(params)
     want_grads = bert_params_from_flax(_np_tree(jg))
     pm = _port(params)
     pm.train()

@@ -53,10 +53,15 @@ def _ints(shape, seed, lo=1, hi=100):
 
 
 def _pair(cfg, seed, enc, dec):
+    """The reference model, its params and the port's model on them. The
+    reference's init (and below, its gradients) run under ``jax.jit``: one
+    compiled program instead of a dispatch per operation (eagerly the
+    init alone took ~19 s of the CPU here)."""
     jm = J.T5(**cfg)
-    params = jax.tree_util.tree_map(np.asarray, meta.unbox(jm.init(
-        jax.random.key(seed), (jnp.asarray(enc), jnp.asarray(dec)),
-        train=False)["params"]))
+    init = jax.jit(lambda e, d: jm.init(jax.random.key(seed), (e, d),
+                                        train=False)["params"])
+    params = jax.tree_util.tree_map(np.asarray, meta.unbox(
+        init(jnp.asarray(enc), jnp.asarray(dec))))
     pm = T.T5(**cfg, device="cpu")
     pm.load_state_dict(t5_params_from_flax(params))
     return jm, params, pm
@@ -90,7 +95,7 @@ def test_logits_and_gradients_match_the_reference(heads, kernel_parity):
         return optax.softmax_cross_entropy_with_integer_labels(
             logits, jnp.asarray(tgt)).mean(), logits
 
-    (_, want), jg = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, want), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     want_grads = t5_params_from_flax(
         jax.tree_util.tree_map(np.asarray, meta.unbox(jg)))
     got = pm(torch.from_numpy(enc), torch.from_numpy(dec))
@@ -110,9 +115,10 @@ def test_incremental_decode_matches_the_full_forward():
     logits; the encoder output against ``encode_only``'s."""
     enc, dec = _ints((2, 12), 4, 1, 40), _ints((2, 8), 5, 1, 40)
     jm, params, pm = _pair(CFG, 0, enc, dec)
-    full = np.asarray(jm.apply({"params": params}, enc, dec, train=False))
-    want_enc = np.asarray(jm.apply({"params": params}, enc, train=False,
-                                   encode_only=True))
+    full = np.asarray(jax.jit(lambda p: jm.apply(
+        {"params": p}, enc, dec, train=False))(params))
+    want_enc = np.asarray(jax.jit(lambda p: jm.apply(
+        {"params": p}, enc, train=False, encode_only=True))(params))
     e = pm(torch.from_numpy(enc), encode_only=True)
     np.testing.assert_allclose(e.detach().numpy(), want_enc, rtol=2e-5,
                                atol=2e-5)
@@ -225,8 +231,9 @@ def test_seq2seq_forward_matches_the_reference():
     batch = J.span_corrupt_transform(128, seed=1)(
         {"tokens": _ints((2, 40), 9, 0, 100)}, 0, 0)
     jm, params, pm = _pair(CFG, 2, batch["enc_tokens"], batch["dec_tokens"])
-    (want, _), jg = jax.value_and_grad(J.seq2seq_forward(jm), has_aux=True)(
-        params, {}, {k: jnp.asarray(v) for k, v in batch.items()})
+    (want, _), jg = jax.jit(jax.value_and_grad(
+        J.seq2seq_forward(jm), has_aux=True))(
+            params, {}, {k: jnp.asarray(v) for k, v in batch.items()})
     want_grads = t5_params_from_flax(
         jax.tree_util.tree_map(np.asarray, meta.unbox(jg)))
     pm.train()

@@ -72,10 +72,12 @@ def test_cli_matches_the_reference_cli(tmp_path, monkeypatch):
     jm = JT5(vocab_size=256 + spans + 1, hidden_dim=64, ffn_dim=128,
              enc_depth=2, dec_depth=2, num_heads=4,
              max_decode_len=dec_len + 1)
-    init = jax.tree_util.tree_map(np.asarray, meta.unbox(jm.init(
-        jax.random.key(3), (jnp.zeros((1, enc_len), jnp.int32),
-                            jnp.zeros((1, dec_len), jnp.int32)),
-        train=False)["params"]))
+    # the reference's init and eval forward under jax.jit: one compiled
+    # program each instead of a dispatch per operation
+    init = jax.tree_util.tree_map(np.asarray, meta.unbox(jax.jit(
+        lambda: jm.init(jax.random.key(3), (
+            jnp.zeros((1, enc_len), jnp.int32),
+            jnp.zeros((1, dec_len), jnp.int32)), train=False)["params"])()))
 
     import tpudist.train as jax_train
 
@@ -140,9 +142,10 @@ def test_cli_matches_the_reference_cli(tmp_path, monkeypatch):
                   transform=span_corrupt_transform(jm.vocab_size,
                                                    seed=10_000))
     ce, hits, n = 0.0, 0, 0
+    apply = jax.jit(lambda p, e, d: jm.apply({"params": p}, e, d,
+                                             train=False))
     for b in val:
-        logits = jm.apply({"params": jstate.params}, b["enc_tokens"],
-                          b["dec_tokens"], train=False)
+        logits = apply(jstate.params, b["enc_tokens"], b["dec_tokens"])
         logp = jax.nn.log_softmax(logits, axis=-1)
         tgt = b["targets"]
         ce -= float(np.take_along_axis(np.asarray(logp), tgt[..., None],

@@ -291,18 +291,43 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--packed", "p"], ["--workers", "2"], ["--reduce", "bucketed"],
+    ["--reduce", "bucketed"],
     ["--fsdp", "2"], ["--telemetry"], ["--trace"], ["--health"],
     ["--repair"], ["--elastic"], ["--skip_window", "4"],
-    ["--device_cache", "--cache_shard_rows", "8"],
-    ["--augment", "--dataset", "imagenet"], ["--serve"], ["--tensor", "2"],
-    ["--compile_cache", "cc"], ["--device_cache", "--packed", "p"],
-    ["--dataset", "imagenet"],
-    ["--dataset", "digits"], ["--hang_timeout", "5"], ["--image_size", "64"],
+    ["--serve"], ["--tensor", "2"],
+    ["--compile_cache", "cc"],
+    ["--dataset", "digits"], ["--hang_timeout", "5"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
         main([*CLI, *flag])
+
+
+_IMAGENET_FLAGS = [
+    (["--packed", "p"], None), (["--workers", "2"], None),
+    (["--device_cache", "--cache_shard_rows", "8"],
+     (SystemExit, "--cache_shard_rows rotates the packed HBM cache")),
+    (["--augment", "--dataset", "imagenet"],
+     (FileNotFoundError, "dataset/train does not exist")),
+    (["--device_cache", "--packed", "p"], None),
+    (["--dataset", "imagenet"],
+     (FileNotFoundError, "dataset/train does not exist")),
+    (["--image_size", "64"], None),
+]
+
+
+@pytest.mark.parametrize("flag,raises", _IMAGENET_FLAGS,
+                         ids=[" ".join(f) for f, _ in _IMAGENET_FLAGS])
+def test_imagenet_flags_are_ported(flag, raises):
+    """The ImageNet data path's flags (tests/test_torch_imagenet_cli.py runs
+    them): no longer refused; the reference's guard, and its missing
+    image folder, raise as the reference's do."""
+    from tpudist_torch.main import check_ported, parse_args
+
+    check_ported(*parse_args([*CLI, *flag]))
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            main([*CLI, *flag, "--no_profiler"])
 
 
 def test_model_gpt2_exits_to_the_lm_cli():

@@ -7,7 +7,8 @@ hash of the source, the shared headers (``*.cuh``) and the flags, under
 ``ctypes``. Nothing is built when the package is imported: the first
 launch builds, later launches and later processes reuse the library
 whose hash matches. Nothing includes PyTorch's headers, so a build takes
-seconds.
+seconds. The host batcher (``batcher.cpp``, plain C++ for the DataLoader's
+gather) is built the same way by ``g++`` (:func:`build_host`).
 
     python -m tpudist_torch.csrc.build     # build every source now, print the log
 """
@@ -33,6 +34,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: the host batcher's compiler and flags: no FMA contraction, so the fused
+#: ``x * scale + shift`` rounds twice, as numpy's does
+CXX = os.environ.get("TPUDIST_CXX", "g++")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall",
+             "-ffp-contract=off")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -97,6 +104,35 @@ def build(source: str) -> Path:
     os.replace(tmp, out)
     build_info[source] = {
         "seconds": time.perf_counter() - t0, "log": text, "reused": False}
+    return out
+
+
+def build_host(source: str = "batcher.cpp") -> Path:
+    """Compile the C++ ``source`` here with :data:`CXX` unless a library
+    with the hash of its text and the flags exists; returns its path.
+    Raises when the compiler is missing or fails."""
+    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(
+        (CXX, *CXX_FLAGS)).encode()).hexdigest()
+    out = BUILD_DIR / f"{Path(source).stem}_{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [CXX, *CXX_FLAGS, "-o", tmp, str(CSRC / source)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"{CXX} not found: the host batcher "
+                               f"({source}) cannot be built") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return out
 
 

@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Iterator
-
 import numpy as np
 
+from tpudist_torch.data.loader import SampledLoader
 from tpudist_torch.data.sampler import DistributedSampler
 
 
@@ -42,7 +41,7 @@ def encode_bytes(text: str | bytes) -> np.ndarray:
     return np.frombuffer(text, np.uint8).astype(np.int32)
 
 
-class TokenWindowLoader:
+class TokenWindowLoader(SampledLoader):
     """Batches of ``seq_len``-token windows from a flat stream.
 
     ``source``: a path (``.npy``/``.bin``) or a 1-D array. Windows start
@@ -88,12 +87,6 @@ class TokenWindowLoader:
             self.num_windows, num_replicas=num_replicas, rank=rank,
             shuffle=shuffle, seed=seed)
 
-    def __len__(self) -> int:
-        n = self.sampler.num_samples
-        if self.drop_remainder:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
-
     def gather(self, indices: np.ndarray) -> dict[str, np.ndarray]:
         offsets = (np.asarray(indices, np.int64)[:, None] * self.stride
                    + np.arange(self.window)[None, :])
@@ -116,20 +109,6 @@ class TokenWindowLoader:
         if self.transform is None:
             return None
         return self._gather_batch(self.sampler.epoch_indices()[:1], 0)
-
-    def __iter__(self) -> Iterator[dict]:
-        return self.iter_from(0)
-
-    def iter_from(self, start_batch: int) -> Iterator[dict]:
-        """This epoch from batch ``start_batch`` on, skipped on the index
-        level (no gather for the skipped windows)."""
-        indices = self.sampler.epoch_indices()
-        limit = (len(self) * self.batch_size if self.drop_remainder
-                 else len(indices))
-        for start in range(start_batch * self.batch_size, limit,
-                           self.batch_size):
-            yield self._gather_batch(indices[start:start + self.batch_size],
-                                     start)
 
     def _gather_batch(self, indices: np.ndarray, start: int) -> dict:
         batch = self.gather(indices)

@@ -1,14 +1,18 @@
 """Host-side batch assembly and device staging.
 
-Counterpart of :mod:`tpudist.data.loader`'s numpy gather path and of
-``prefetch_to_mesh``. :class:`DataLoader` gathers this rank's batches
-from an in-memory numpy dataset (the sampler owns the shuffle) and hands
-them to ``transform``; :func:`prefetch_to_device` keeps ``depth`` batches
-staged ahead of the step: a background thread gathers and pins each host
-batch, and the consumer's thread issues its host-to-device copy on a side
-stream and records an event that the compute stream waits on, so the copy
-for step k+1 overlaps the compute of step k. The reference's C++ batcher
-(``data/native.py``) is host speed, not semantics, and is not ported yet.
+Counterpart of :mod:`tpudist.data.loader`. :class:`SampledLoader` is the
+iterator contract every host loader shares (the sampler, ``__len__``,
+``iter_from`` and the sample position each batch is gathered at);
+:class:`DataLoader` gathers this rank's batches from an in-memory (or
+memory-mapped) numpy dataset through the C++ batcher
+(:mod:`tpudist_torch.data.native`), or through numpy with
+``native=False``, and hands them to ``transform``;
+:func:`prefetch_to_device` keeps ``depth`` batches staged ahead of the
+step: a background thread gathers each host batch (into pinned memory on
+a machine with a card), and the consumer's thread issues its
+host-to-device copy on a side stream and records an event that the
+compute stream waits on, so the copy for step k+1 overlaps the compute
+of step k.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Mapping
 
 import numpy as np
@@ -24,21 +29,77 @@ import torch
 from tpudist_torch.data.sampler import DistributedSampler
 
 
-class DataLoader:
+class SampledLoader:
+    """The iterator contract of every host loader (the reference's
+    ``SampledLoader``). Subclasses set ``sampler``, ``batch_size`` and
+    ``drop_remainder`` and implement ``_gather_batch(indices, start)``,
+    ``start`` being the batch's position in the epoch's index stream (for
+    augmentation keyed by position). The skip of :meth:`iter_from` is on
+    the index level: no gather and no transform for the skipped batches,
+    as the reference's is."""
+
+    sampler: DistributedSampler
+    batch_size: int
+    drop_remainder: bool
+
+    def __len__(self) -> int:
+        n = self.sampler.num_samples
+        if self.drop_remainder:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def _gather_batch(self, indices: np.ndarray, start: int) -> dict:
+        raise NotImplementedError
+
+    def probe(self) -> dict:
+        """A one-sample batch through the loader's transform: the
+        reference's shape probe, which its ``fit`` draws once before
+        training. A transform with a stream of its own (the host
+        augmentation) moves it on by that one row, so ``fit`` draws it
+        too."""
+        return self._gather_batch(self.sampler.epoch_indices()[:1], 0)
+
+    def __iter__(self) -> Iterator[dict]:
+        return self.iter_from(0)
+
+    def iter_from(self, start_batch: int) -> Iterator[dict]:
+        """This epoch from batch ``start_batch`` on. A host ``transform``
+        that draws from a stream of its own (the host augmentation)
+        continues from where its stream stands, not from where an
+        uninterrupted run's would."""
+        indices = self.sampler.epoch_indices()
+        limit = (len(self) * self.batch_size if self.drop_remainder
+                 else len(indices))
+        for start in range(start_batch * self.batch_size, limit,
+                           self.batch_size):
+            yield self._gather_batch(indices[start : start + self.batch_size],
+                                     start)
+
+
+class DataLoader(SampledLoader):
     """Iterates minibatches of an array-backed dataset for one epoch.
 
     ``dataset``: name -> numpy array, equal leading dims (e.g. ``{"image":
-    (N, 32, 32, 3) uint8, "label": (N,) int32}``). A
-    :class:`DistributedSampler` supplies this rank's index shard; batches
-    are gathered on the host and passed through ``transform``. With
-    ``drop_remainder`` (the default, as in the reference) the final short
-    batch is dropped.
-    """
+    (N, 32, 32, 3) uint8, "label": (N,) int32}``; a memory-mapped pack
+    works: only the gathered rows are read). A :class:`DistributedSampler`
+    supplies this rank's index shard; batches are gathered on the host
+    and passed through ``transform``. With ``drop_remainder`` (the
+    default, as in the reference) the final short batch is dropped.
+
+    ``native=True`` (the reference's default) gathers through the C++
+    batcher, which is built at the first batch or raises: a transform
+    advertising a ``native_spec`` (:func:`tpudist_torch.data.transforms.
+    to_tensor_normalize`) is fused into the gather, another runs on the
+    gathered rows; on a machine with a card the rows land in pinned host
+    memory, which the copy to the card reads. Its arrays must be
+    C-contiguous. ``native=False`` is the numpy gather. Both give the same
+    batches bit for bit. ``gather_seconds`` sums the host time of this
+    loader's gathers (transform included)."""
 
     def __init__(self, dataset: Mapping[str, np.ndarray], batch_size: int,
                  sampler: DistributedSampler | None = None,
                  transform: Callable[[dict], dict] | None = None,
-                 drop_remainder: bool = True):
+                 drop_remainder: bool = True, native: bool = True):
         sizes = {k: len(v) for k, v in dataset.items()}
         if len(set(sizes.values())) != 1:
             raise ValueError(f"ragged dataset arrays: {sizes}")
@@ -49,39 +110,43 @@ class DataLoader:
             self.size, num_replicas=1, rank=0, shuffle=False)
         self.transform = transform
         self.drop_remainder = drop_remainder
+        self.native = native
+        if native:
+            for k, v in self.dataset.items():
+                if not v.flags["C_CONTIGUOUS"]:
+                    raise ValueError(
+                        f"DataLoader(native=True) gathers from C-contiguous "
+                        f"arrays; {k!r} is not (np.ascontiguousarray it "
+                        "once, or pass native=False)")
+        self.gather_seconds = 0.0
 
-    def __len__(self) -> int:
-        n = self.sampler.num_samples
-        if self.drop_remainder:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+    def _gather_batch(self, idx: np.ndarray, start: int) -> dict:
+        t0 = time.perf_counter()
+        if self.native:
+            from tpudist_torch.data.native import native_batch
 
-    def probe(self) -> dict:
-        """A one-sample batch through ``transform``: the reference's
-        shape probe, which its ``fit`` draws once before training. A
-        transform with a stream of its own (the host augmentation) moves
-        it on by that one row, so ``fit`` draws it too."""
-        idx = self.sampler.epoch_indices()[:1]
-        batch = {k: v[idx] for k, v in self.dataset.items()}
-        return self.transform(batch) if self.transform else batch
-
-    def __iter__(self) -> Iterator[dict]:
-        return self.iter_from(0)
-
-    def iter_from(self, start_batch: int) -> Iterator[dict]:
-        """This epoch from batch ``start_batch`` on: the skip is on the
-        index level (no gather, no transform for the skipped batches), as
-        the reference's is. A host ``transform`` that draws from a stream
-        of its own (the host augmentation) therefore continues from where
-        its stream stands, not from where an uninterrupted run's would."""
-        indices = self.sampler.epoch_indices()
-        limit = (len(self) * self.batch_size if self.drop_remainder
-                 else len(indices))
-        for start in range(start_batch * self.batch_size, limit,
-                           self.batch_size):
-            idx = indices[start : start + self.batch_size]
+            batch = native_batch(self.dataset, idx, self.transform,
+                                 pin=torch.cuda.is_available())
+        else:
             batch = {k: v[idx] for k, v in self.dataset.items()}
-            yield self.transform(batch) if self.transform else batch
+            if self.transform is not None:
+                batch = self.transform(batch)
+        self.gather_seconds += time.perf_counter() - t0
+        return batch
+
+
+def _host_tensor(v) -> torch.Tensor:
+    """``v`` as a CPU tensor. A numpy view of a whole tensor (the native
+    gather's pinned buffer) gives that tensor's storage back, so the copy
+    to the card reads the pinned block itself and records its event
+    there."""
+    if isinstance(v, torch.Tensor):
+        return v
+    base = getattr(v, "base", None)
+    if (isinstance(base, torch.Tensor) and base.data_ptr() == v.ctypes.data
+            and tuple(base.shape) == v.shape):
+        return base
+    return torch.from_numpy(np.ascontiguousarray(v))
 
 
 #: seconds between polls of ``prefetch_to_device``'s ``stop_check``
@@ -126,8 +191,9 @@ def prefetch_to_device(iterator, device, *, depth: int = 2, stop_check=None):
                     if k.startswith("_"):
                         tensors[k] = v
                         continue
-                    t = torch.from_numpy(np.ascontiguousarray(v))
-                    tensors[k] = t.pin_memory() if cuda else t
+                    t = _host_tensor(v)
+                    tensors[k] = (t.pin_memory() if cuda and not t.is_pinned()
+                                  else t)
                 if not put(tensors):
                     return
             put(done)

@@ -21,13 +21,15 @@ torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means ``"cuda"``. A CUDA device without a card raises;
-    ``"cpu"`` is honoured only when asked for explicitly."""
+    ``"cpu"`` is honoured only when asked for explicitly, as is ``"meta"``
+    (shapes without storage: :func:`tpudist_torch.memory.train_state_budget`
+    builds a model there to count its bytes)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "tpudist_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain CPU path"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

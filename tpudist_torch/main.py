@@ -14,14 +14,26 @@ rows every 5 steps, a profiler window in ``{log_dir}/log_{JobID}``, the
 the plain path and is the only way to run without a card). The world
 comes from the ``env://`` variables ``torchrun`` sets, one card per rank.
 ``--model`` takes the ResNets and ``vit_b16`` (4-pixel patches on the
-32x32 images: 65 tokens); ``--optimizer`` adam, sgd, lamb, lion or muon;
+32x32 images: 65 tokens; 16-pixel patches at ``--image_size`` on
+ImageNet: 197 tokens at 224); ``--optimizer`` adam, sgd, lamb, lion or muon;
 ``--grad_accum k`` splits each ``--batch_size`` batch into k
 microbatches; ``--amp`` is bf16 compute plus the non-finite update guard,
 whose skipped steps are printed after training. ``--device_cache`` holds
 the whole training set on the device as uint8 and gathers each batch
 there from its indices (the ToTensor runs in the step; with
 ``--augment`` the crop, flip and normalization do); ``--augment`` alone
-is the reference's host augmentation, bit for bit. ``--model gpt2``
+is the reference's host augmentation, bit for bit.
+
+``--dataset imagenet`` trains on ImageNet-shaped data from local files:
+``--packed <prefix>`` reads a pack (``python -m tpudist_torch.data.packed
+--root <tree> --out <prefix>``) as uint8 from a memmap through the C++
+batcher and normalizes in the step, with ``--device_cache`` from the
+card, and with ``--cache_shard_rows N`` through the rotating device cache
+for a pack larger than the card; without ``--packed`` it streams
+``<data_root>/train`` (JPEG decode on ``--workers`` threads, PIL needed),
+and ``--eval`` scores ``--packed_val`` (its class list must be the
+training pack's) or ``<data_root>/val``. On the card the TSV gets the
+reference's ``HBM`` rows. ``--model gpt2``
 exits pointing at ``python -m tpudist_torch.train_gpt2``, as the
 reference points at its LM script.
 
@@ -144,9 +156,6 @@ def parse_args(argv=None):
 
 #: flags of main.py this port does not run yet -> the ROADMAP item
 _UNPORTED = {
-    "image_size": "Queue 1 #4", "workers": "Queue 1 #4",
-    "packed": "Queue 1 #4", "packed_val": "Queue 1 #4",
-    "cache_shard_rows": "Queue 1 #4",
     "reduce": "Queue 1 #7", "fsdp": "Queue 1 #7",
     "telemetry": "Queue 1 #8", "health": "Queue 1 #8", "trace": "Queue 1 #8",
     "metrics_port": "Queue 1 #8", "hang_timeout": "Queue 1 #8",
@@ -161,7 +170,6 @@ _UNPORTED = {
 
 #: values of choice flags this port does not run yet -> the ROADMAP item
 _UNPORTED_CHOICES = {
-    ("dataset", "imagenet"): "Queue 1 #4",
     ("dataset", "digits"): "Queue 1 #1",
 }
 
@@ -183,23 +191,168 @@ def check_ported(parser, args) -> None:
                 f"--{name} {value} is not ported yet (ROADMAP {item}){extra}")
 
 
+def _cifar_train(args, ctx, dtype):
+    """The CIFAR (or synthetic) training loader and its in-step transform:
+    the host ToTensor, the host augmentation, or the device cache with
+    the ToTensor or the augmentation in the step."""
+    import torch
+
+    from tpudist_torch.data import transforms as T
+    from tpudist_torch.data.cifar import load_cifar, synthetic_cifar, to_tensor
+    from tpudist_torch.data.device_cache import DeviceCachedLoader
+    from tpudist_torch.data.loader import DataLoader
+    from tpudist_torch.data.sampler import DistributedSampler
+
+    if args.dataset == "synthetic":
+        data = synthetic_cifar(args.synthetic_size, num_classes=100)
+    else:
+        data = load_cifar(args.data_root, dataset=args.dataset, train=True)
+    sampler = DistributedSampler(len(data["label"]),
+                                 num_replicas=ctx.world_size, rank=ctx.rank)
+    # --batch_size is per replica, and one process drives one replica;
+    # each batch holds --grad_accum microbatches
+    if args.device_cache:
+        # one copy of the set to the device now; the steps gather
+        loader = DeviceCachedLoader(data, args.batch_size, device=ctx.device,
+                                    sampler=sampler)
+        if args.augment:
+            mean, std = T._STATS[args.dataset]
+            post = T.device_compose(T.device_random_crop_flip(),
+                                    T.device_normalize(mean, std, dtype))
+        else:
+            # the reference's ToTensor, in the step; a tensor divisor, as
+            # a CUDA kernel turns a python one into a multiply by its
+            # reciprocal, which the host path's division is not
+            def post(x):
+                return x.to(dtype) / torch.full((), 255.0, dtype=dtype,
+                                                device=x.device)
+        return loader, loader.input_transform(post)
+    transform = (T.standard_cifar_augment(seed=ctx.rank, dataset=args.dataset)
+                 if args.augment else to_tensor)
+    return DataLoader(data, args.batch_size, sampler=sampler,
+                      transform=transform), None
+
+
+def _cifar_val(args):
+    """The whole validation set (the reference's unsharded val loader);
+    eval sees the training distribution: the augmented run's statistics,
+    without the crop and flip."""
+    from tpudist_torch.data import transforms as T
+    from tpudist_torch.data.cifar import load_cifar, synthetic_cifar, to_tensor
+    from tpudist_torch.data.loader import DataLoader
+
+    if args.dataset == "synthetic":
+        val = synthetic_cifar(args.synthetic_size // 4 or 1, num_classes=100)
+    else:
+        val = load_cifar(args.data_root, dataset=args.dataset, train=False)
+    return DataLoader(
+        val, min(args.batch_size, len(val["label"])),
+        transform=(T.standard_cifar_eval(dataset=args.dataset)
+                   if args.augment else to_tensor),
+        drop_remainder=False)
+
+
+def _imagenet_train(args, ctx, dtype):
+    """ImageNet's training loader, its in-step transform and its class
+    list (``main.py:463-535``). ``--packed``: the pack's uint8 pixels from
+    a memmap, normalized in the step (with ``--augment`` after a crop and
+    flip there), through the host loader, the device cache, or with
+    ``--cache_shard_rows`` the rotating device cache; otherwise the
+    streaming image folder ``<data_root>/train`` (RandomResizedCrop and
+    flip on the host)."""
+    from tpudist_torch.data import transforms as T
+    from tpudist_torch.data.sampler import DistributedSampler
+
+    if not args.packed:
+        from tpudist_torch.data.imagenet import ImageFolderLoader
+
+        loader = ImageFolderLoader(
+            os.path.join(args.data_root, "train"), args.batch_size,
+            train=True, image_size=args.image_size,
+            num_replicas=ctx.world_size, rank=ctx.rank, workers=args.workers)
+        return loader, None, loader.classes
+    from tpudist_torch.data.packed import load_packed
+
+    packed = load_packed(args.packed)
+    pdata = {"image": packed["image"], "label": packed["label"]}
+    norm = T.device_normalize(T.IMAGENET_MEAN, T.IMAGENET_STD, dtype)
+    if args.augment:
+        # packed pixels are the eval decode: a reflect-pad crop and flip in
+        # the step, fresh every step
+        norm = T.device_compose(
+            T.device_random_crop_flip(pad=max(args.image_size // 28, 4)), norm)
+    if args.device_cache and args.cache_shard_rows:
+        from tpudist_torch.data.device_cache import RotatingDeviceCache
+
+        # a pack larger than the card: the rotation is its own sampler
+        loader = RotatingDeviceCache(pdata, args.batch_size,
+                                     shard_rows=args.cache_shard_rows,
+                                     device=ctx.device)
+        return loader, loader.input_transform(norm), packed["classes"]
+    sampler = DistributedSampler(len(pdata["label"]),
+                                 num_replicas=ctx.world_size, rank=ctx.rank)
+    if args.device_cache:
+        from tpudist_torch.data.device_cache import DeviceCachedLoader
+
+        loader = DeviceCachedLoader(pdata, args.batch_size,
+                                    device=ctx.device, sampler=sampler)
+        return loader, loader.input_transform(norm), packed["classes"]
+    from tpudist_torch.data.loader import DataLoader
+
+    return (DataLoader(pdata, args.batch_size, sampler=sampler),
+            norm, packed["classes"])
+
+
+def _imagenet_val(args, dtype, train_classes):
+    """ImageNet's validation loader and its in-step transform
+    (``main.py:690-722``): ``--packed_val``, whose class list must be the
+    training set's, normalized in the step; otherwise the streaming
+    ``<data_root>/val`` keyed by the training classes."""
+    from tpudist_torch.data.loader import DataLoader
+
+    if args.packed_val:
+        from tpudist_torch.data import transforms as T
+        from tpudist_torch.data.packed import load_packed
+
+        vdata = load_packed(args.packed_val)
+        if vdata["classes"] != train_classes:
+            # a val pack built without --classes_from (or from a tree
+            # missing a class dir) would shift labels silently
+            raise SystemExit(
+                "--packed_val class list does not match the training "
+                "classes — rebuild it with `python -m "
+                "tpudist_torch.data.packed --classes_from <train pack>`")
+        loader = DataLoader({"image": vdata["image"], "label": vdata["label"]},
+                            args.batch_size, drop_remainder=False)
+        return loader, T.device_normalize(T.IMAGENET_MEAN, T.IMAGENET_STD,
+                                          dtype)
+    from tpudist_torch.data.imagenet import ImageFolderLoader
+
+    return ImageFolderLoader(
+        os.path.join(args.data_root, "val"), args.batch_size, train=False,
+        image_size=args.image_size, workers=args.workers,
+        drop_remainder=False, classes=train_classes), None
+
+
 def main(argv=None):
     parser, args = parse_args(argv)
     check_ported(parser, args)
     if args.model == "gpt2":
         raise SystemExit("gpt2 training uses python -m "
                          "tpudist_torch.train_gpt2 (token data)")
+    if args.cache_shard_rows and not (
+            args.dataset == "imagenet" and args.packed and args.device_cache):
+        # on every dataset path: the rotation backs only the packed device
+        # cache, and ignoring the flag would run another memory profile
+        raise SystemExit(
+            "--cache_shard_rows rotates the packed HBM cache and needs "
+            "--dataset imagenet --packed <prefix> --device_cache")
     os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
 
     import torch
     import torch.distributed as dist
 
     from tpudist_torch.amp import policy_for, skipped_steps
-    from tpudist_torch.data import transforms as T
-    from tpudist_torch.data.cifar import load_cifar, synthetic_cifar, to_tensor
-    from tpudist_torch.data.device_cache import DeviceCachedLoader
-    from tpudist_torch.data.loader import DataLoader
-    from tpudist_torch.data.sampler import DistributedSampler
     from tpudist_torch.distributed import group_up, init_from_env
     from tpudist_torch.models import resnet
     from tpudist_torch.models.vit import vit_b16
@@ -213,45 +366,22 @@ def main(argv=None):
         # --amp is the bf16 policy plus the guard on the optimizer below
         dtype = policy_for(args.bf16 or args.amp).compute_dtype
         # the reference keeps the stock 1000-way head even on CIFAR
+        imagenet = args.dataset == "imagenet"
         if args.model == "vit_b16":
-            # 4-pixel patches keep the 32x32 images at 64 tokens (+ cls)
-            model = vit_b16(dtype=dtype, patch_size=4, image_size=32,
+            # 4-pixel patches keep the 32x32 images at 64 tokens (+ cls);
+            # ImageNet crops take the standard 16-pixel patches
+            model = vit_b16(dtype=dtype, patch_size=16 if imagenet else 4,
+                            image_size=args.image_size if imagenet else 32,
                             device=ctx.device)
         else:
             model = getattr(resnet, args.model)(dtype=dtype, stem=args.stem,
                                                 device=ctx.device)
-        if args.dataset == "synthetic":
-            data = synthetic_cifar(args.synthetic_size, num_classes=100)
+        input_transform = train_classes = None
+        if imagenet:
+            loader, input_transform, train_classes = _imagenet_train(
+                args, ctx, dtype)
         else:
-            data = load_cifar(args.data_root, dataset=args.dataset, train=True)
-        sampler = DistributedSampler(len(data["label"]),
-                                     num_replicas=ctx.world_size, rank=ctx.rank)
-        # --batch_size is per replica, and one process drives one replica;
-        # each batch holds --grad_accum microbatches
-        input_transform = None
-        if args.device_cache:
-            # one copy of the set to the device now; the steps gather
-            loader = DeviceCachedLoader(data, args.batch_size,
-                                        device=ctx.device, sampler=sampler)
-            if args.augment:
-                mean, std = T._STATS[args.dataset]
-                post = T.device_compose(T.device_random_crop_flip(),
-                                        T.device_normalize(mean, std, dtype))
-            else:
-                # the reference's ToTensor, in the step; a tensor divisor,
-                # as a CUDA kernel turns a python one into a multiply by
-                # its reciprocal, which the host path's division is not
-                def post(x):
-                    return x.to(dtype) / torch.full((), 255.0, dtype=dtype,
-                                                    device=x.device)
-            input_transform = loader.input_transform(post)
-        elif args.augment:
-            loader = DataLoader(data, args.batch_size, sampler=sampler,
-                                transform=T.standard_cifar_augment(
-                                    seed=ctx.rank, dataset=args.dataset))
-        else:
-            loader = DataLoader(data, args.batch_size, sampler=sampler,
-                                transform=to_tensor)
+            loader, input_transform = _cifar_train(args, ctx, dtype)
         lr = args.lr
         if args.schedule == "cosine":
             lr = run_schedule(args.lr, total_steps=args.epochs * len(loader),
@@ -285,20 +415,12 @@ def main(argv=None):
         if args.eval:
             # every rank scores the full validation set (the reference's
             # unsharded val loader); rank 0 reports
-            if args.dataset == "synthetic":
-                val = synthetic_cifar(args.synthetic_size // 4 or 1,
-                                      num_classes=100)
+            if imagenet:
+                val_loader, eval_transform = _imagenet_val(
+                    args, dtype, train_classes)
             else:
-                val = load_cifar(args.data_root, dataset=args.dataset,
-                                 train=False)
-            # eval sees the training distribution: the augmented run's
-            # statistics, without the crop and flip
-            val_loader = DataLoader(
-                val, min(args.batch_size, len(val["label"])),
-                transform=(T.standard_cifar_eval(dataset=args.dataset)
-                           if args.augment else to_tensor),
-                drop_remainder=False)
-            acc = evaluate(state, val_loader)
+                val_loader, eval_transform = _cifar_val(args), None
+            acc = evaluate(state, val_loader, input_transform=eval_transform)
             if ctx.is_chief:
                 print(f"Accuracy: {acc:.4f}")
         return state, losses

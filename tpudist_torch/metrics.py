@@ -10,10 +10,14 @@ byte-for-byte the same file contract (the reference's main.py):
   zero or negative duration writes ``0.0`` under a ``ZeroDur`` tag;
 - rank 0 prints ``Epoch: {e} step: {idx} loss: {loss}`` every
   ``print_every`` (10) batches;
-- a final ``TrainTime\t%f`` row with the total wall seconds.
+- a final ``TrainTime\t%f`` row with the total wall seconds;
+- ``HBM\t{json}`` rows (rank 0, :meth:`MetricsLogger.log_memory`) with
+  the card's live allocator stats, after bring-up and at ``fit``'s
+  ``memory_log_every`` cadence; none on the CPU, where the allocator
+  reports nothing, so a CPU run's file is the reference's.
 
-The reference's HBM rows and its JSONL sink mirror belong to the
-telemetry layer, which is not ported yet (ROADMAP Queue 1 #8).
+The reference's JSONL sink mirror belongs to the telemetry layer, which
+is not ported yet (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -68,6 +72,25 @@ class MetricsLogger:
     def print_progress(self, epoch: int, idx: int, loss_value: float) -> None:
         if self.global_rank == 0 and idx % self.print_every == 0:
             print("Epoch: {} step: {} loss: {}".format(epoch, idx, loss_value))
+
+    def log_memory(self, stats: dict | None,
+                   peak_bytes_in_use: int | None = None) -> None:
+        """One ``HBM\t{json}`` row (rank 0) of live device memory stats
+        (:func:`tpudist_torch.memory.device_memory_stats`), a tagged row
+        like ``TrainTime``. Nothing when ``stats`` is None (the CPU) or
+        off rank 0. ``peak_bytes_in_use``, when given, is the interval's
+        peak ``fit`` derives from the allocator's lifetime peak; it
+        replaces the lifetime value."""
+        if not stats or self.global_rank != 0:
+            return
+        import json
+
+        fields = dict(stats)
+        if peak_bytes_in_use is not None:
+            fields.pop("peak_bytes_in_use", None)
+            fields["peak_bytes_in_use"] = int(peak_bytes_in_use)
+        self._file.write("HBM\t%s\n" % json.dumps(fields, sort_keys=True))
+        self._file.flush()
 
     def finish(self) -> float:
         train_time = time.time() - self._train_begin

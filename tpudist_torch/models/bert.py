@@ -61,6 +61,7 @@ from tpudist_torch.models.lm_utils import chunked_head_reduce, seq_shard
 from tpudist_torch.ops.attention import multi_head_attention
 from tpudist_torch.ops.layernorm import fused_layernorm
 from tpudist_torch.parallel.cp import CP_IMPLS, context_parallel_attention
+from tpudist_torch.rng import generator
 
 #: BERT's LayerNorm epsilon, every norm of the family
 EPS = 1e-12
@@ -212,7 +213,7 @@ class Bert(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        g = generator(int(seed), self.device)
         for name, p in self.named_parameters():
             if p.ndim == 2 and name.endswith("weight"):
                 lecun_(p, p.shape[1], g)
@@ -291,7 +292,7 @@ class BertClassifier(nn.Module):
         self.dropout = float(dropout)
         self.pooler = Dense(hidden_dim, hidden_dim, device=dev)
         self.classifier = Dense(hidden_dim, num_labels, device=dev)
-        g = torch.Generator(device=dev).manual_seed(int(seed) + 1)
+        g = generator(int(seed) + 1, dev)
         with torch.no_grad():
             for lin in (self.pooler, self.classifier):
                 lecun_(lin.weight, hidden_dim, g)

@@ -315,7 +315,7 @@ class GPT2(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        g = generator(int(seed), self.device)
 
         def lecun(p, fan_in):
             t = torch.empty(p.shape, device=self.device)

@@ -55,6 +55,7 @@ from torch import nn
 
 from tpudist_torch import remat as remat_lib
 from tpudist_torch.device import resolve_device
+from tpudist_torch.rng import generator
 from tpudist_torch.models.gpt2 import (
     _TRUNC_STD, check_attn_impl, refuse_cp_decode, seq_offset, tied_head,
 )
@@ -317,7 +318,7 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        g = generator(int(seed), self.device)
 
         def lecun(p, fan_in):
             t = torch.empty(p.shape, device=self.device)

@@ -123,9 +123,14 @@ class BatchNorm(nn.Module):
         sums = torch.stack([x32.sum((0, 2, 3)), torch.square(x32).sum((0, 2, 3)),
                             count])
         if group_up():
+            import torch.distributed as dist
             from torch.distributed.nn.functional import all_reduce
 
-            sums = all_reduce(sums)
+            # the group named at each call: some torch releases bind the
+            # default group when the module is first imported, and a later
+            # process group (a new world in the same process) would then
+            # reach a destroyed one
+            sums = all_reduce(sums, group=dist.group.WORLD)
         mean = sums[0] / sums[2]
         var = torch.clamp(sums[1] / sums[2] - torch.square(mean), min=0.0)
         return mean, var

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudist_torch.device import resolve_device
+from tpudist_torch.rng import generator
 from tpudist_torch.models.bert import lecun_
 from tpudist_torch.models.llama import Linear, RMSNorm
 from tpudist_torch.ops.attention import dot_product_attention
@@ -212,7 +213,7 @@ class T5(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        g = generator(int(seed), self.device)
         normal = lambda p, std: p.copy_(
             torch.randn(p.shape, device=p.device, generator=g) * std)
         normal(self.wte, 1.0)

@@ -558,84 +558,86 @@ def timing_cases(gen) -> list[dict]:
     ``*_prenorm`` extras, the pre-norm one (``ln_2``); the plain forward
     and both backwards also at the long-context path's rows
     (:data:`LONG_ROWS`, ``*_16384``)."""
+    return [*ln_cases(gen, ROWS, prenorm_fwd=True),
+            *ln_cases(gen, LONG_ROWS, tag=f"_{LONG_ROWS}"),
+            *attention_cases(
+                "vmem_attention", VA.vmem_fwd_cuda, VA.vmem_fwd_plain,
+                VA.vmem_bwd_cuda, VA.vmem_bwd_plain, gen, B, S,
+                f"B {B}, H {H}, S {S}, D {D}, causal, bf16")]
+
+
+def ln_cases(gen, rows, *, eps=EPS, tag="", prenorm_fwd=False) -> list[dict]:
+    """The LayerNorm kernels over ``rows`` x 768 bf16 rows at ``eps``, as
+    :func:`timing_cases` lists them: the plain forward (``F.layer_norm``
+    the library call), with ``prenorm_fwd`` the pre-norm one, and both
+    backwards (``aten.native_layer_norm_backward`` for the plain one);
+    each name ends in ``tag``."""
     dt = torch.bfloat16
     cases = []
 
-    def ln_case(name, rows, kernel, plain, library, nbytes, flops_per_elem):
+    def ln_case(name, kernel, plain, library, nbytes, flops_per_elem):
         got, want = kernel(), plain()
         err = max(max_err(a, b)[0] for a, b in zip(got, want)
                   if a is not None)
-        cases.append(dict(name=name, kernel=kernel, plain=plain,
+        cases.append(dict(name=name + tag, kernel=kernel, plain=plain,
                           library=library, max_abs_err=err,
-                          shape=f"{rows} x {WIDTH} rows, bf16",
+                          shape=f"{rows} x {WIDTH} rows, eps {eps:g}, bf16",
                           **bound(nbytes, flops_per_elem * rows * WIDTH,
                                   torch.float32)))
 
-    def ln_cases(rows):
-        t = ln_inputs(gen, rows, WIDTH, dt)
-        x, y, scale, bias, g, gr = (t[k] for k in ("x", "y", "scale", "bias",
-                                                   "g", "gr"))
-        elems, item = rows * WIDTH, x.element_size()
-        fkw = dict(eps=EPS, rms=False, out_dtype=dt)
-        sb, bb = scale.to(dt), bias.to(dt)
-        tag = "" if rows == ROWS else f"_{rows}"
-        ln_case(f"layernorm_fwd{tag}", rows,
-                lambda: LN.layernorm_fwd_cuda(x, None, scale, bias,
-                                              want_residual=False, **fkw),
-                lambda: LN.layernorm_fwd_plain(x, None, scale, bias,
-                                               want_residual=False, **fkw),
-                lambda: F.layer_norm(x, (WIDTH,), sb, bb, EPS),
-                2 * elems * item + 2 * WIDTH * 4, 9)
-        if rows == ROWS:
-            ln_case("layernorm_fwd_prenorm", rows,
-                    lambda: LN.layernorm_fwd_cuda(x, y, scale, bias,
-                                                  want_residual=True, **fkw),
-                    lambda: LN.layernorm_fwd_plain(x, y, scale, bias,
-                                                   want_residual=True, **fkw),
-                    None, 4 * elems * item + 2 * WIDTH * 4, 10)
-        _, mean, rstd = torch.ops.aten.native_layer_norm(x, (WIDTH,), sb, bb,
-                                                         EPS)
-        ln_case(f"layernorm_bwd{tag}", rows,
-                lambda: LN.layernorm_bwd_cuda(x, g, None, scale, eps=EPS,
-                                              rms=False),
-                lambda: LN.layernorm_bwd_plain(x, g, None, scale, eps=EPS,
-                                               rms=False),
-                lambda: torch.ops.aten.native_layer_norm_backward(
-                    g, x, (WIDTH,), mean, rstd, sb, bb, [True, True, True]),
-                3 * elems * item + 3 * WIDTH * 4, 16)
-        ln_case(f"layernorm_bwd_prenorm{tag}", rows,
-                lambda: LN.layernorm_bwd_cuda(x, g, gr, scale, eps=EPS,
-                                              rms=False),
-                lambda: LN.layernorm_bwd_plain(x, g, gr, scale, eps=EPS,
-                                               rms=False),
-                None, 4 * elems * item + 3 * WIDTH * 4, 17)
-
-    # a function per row count, so each case's lambdas keep its own inputs
-    for rows in (ROWS, LONG_ROWS):
-        ln_cases(rows)
-
-    cases += attention_cases(
-        "vmem_attention", VA.vmem_fwd_cuda, VA.vmem_fwd_plain,
-        VA.vmem_bwd_cuda, VA.vmem_bwd_plain, gen, B, S,
-        f"B {B}, H {H}, S {S}, D {D}, causal, bf16")
+    t = ln_inputs(gen, rows, WIDTH, dt)
+    x, y, scale, bias, g, gr = (t[k] for k in ("x", "y", "scale", "bias",
+                                               "g", "gr"))
+    elems, item = rows * WIDTH, x.element_size()
+    fkw = dict(eps=eps, rms=False, out_dtype=dt)
+    sb, bb = scale.to(dt), bias.to(dt)
+    ln_case("layernorm_fwd",
+            lambda: LN.layernorm_fwd_cuda(x, None, scale, bias,
+                                          want_residual=False, **fkw),
+            lambda: LN.layernorm_fwd_plain(x, None, scale, bias,
+                                           want_residual=False, **fkw),
+            lambda: F.layer_norm(x, (WIDTH,), sb, bb, eps),
+            2 * elems * item + 2 * WIDTH * 4, 9)
+    if prenorm_fwd:
+        ln_case("layernorm_fwd_prenorm",
+                lambda: LN.layernorm_fwd_cuda(x, y, scale, bias,
+                                              want_residual=True, **fkw),
+                lambda: LN.layernorm_fwd_plain(x, y, scale, bias,
+                                               want_residual=True, **fkw),
+                None, 4 * elems * item + 2 * WIDTH * 4, 10)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, (WIDTH,), sb, bb, eps)
+    ln_case("layernorm_bwd",
+            lambda: LN.layernorm_bwd_cuda(x, g, None, scale, eps=eps,
+                                          rms=False),
+            lambda: LN.layernorm_bwd_plain(x, g, None, scale, eps=eps,
+                                           rms=False),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                g, x, (WIDTH,), mean, rstd, sb, bb, [True, True, True]),
+            3 * elems * item + 3 * WIDTH * 4, 16)
+    ln_case("layernorm_bwd_prenorm",
+            lambda: LN.layernorm_bwd_cuda(x, g, gr, scale, eps=eps,
+                                          rms=False),
+            lambda: LN.layernorm_bwd_plain(x, g, gr, scale, eps=eps,
+                                           rms=False),
+            None, 4 * elems * item + 3 * WIDTH * 4, 17)
     return cases
 
 
 def attention_cases(prefix, fwd_cuda, fwd_plain, bwd_cuda, bwd_plain,
-                    gen, b, s, shape) -> list[dict]:
+                    gen, b, s, shape, *, causal: bool = True) -> list[dict]:
     """The forward and backward of one attention kernel pair at ``b``
-    sequences of ``s`` (H 12, D 64, causal, bf16, q/k/v strided views of
-    one qkv tensor) with their plain versions, parity errors, bounds and
+    sequences of ``s`` (H 12, D 64, bf16, q/k/v strided views of one qkv
+    tensor) with their plain versions, parity errors, bounds and
     ``scaled_dot_product_attention`` (forward, and backward through
-    autograd) as the library call."""
+    autograd) as the library call. The bounds count the score entries the
+    mask keeps: ``s (s + 1) / 2`` a head when ``causal``, ``s^2`` else."""
     dt = torch.bfloat16
     q, k, v, do = attn_inputs(gen, b, s, H, H, dt, strided=True)
-    akw = dict(causal=True, kv_len=s, scale=VA._scale(D))
+    akw = dict(causal=causal, kv_len=s, scale=VA._scale(D))
     qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
     tensor = b * s * H * D * q.element_size()
     lse_bytes = b * H * s * 4
-    # causal: the score entries the mask keeps, s (s + 1) / 2 per head
-    kept = b * H * s * (s + 1) / 2
+    kept = b * H * s * ((s + 1) / 2 if causal else s)
     got, want = fwd_cuda(q, k, v, **akw), fwd_plain(q, k, v, **akw)
     o, lse = got
     cases = [dict(
@@ -643,12 +645,12 @@ def attention_cases(prefix, fwd_cuda, fwd_plain, bwd_cuda, bwd_plain,
         kernel=lambda: fwd_cuda(q, k, v, **akw),
         plain=lambda: fwd_plain(q, k, v, **akw),
         library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                       is_causal=True),
+                                                       is_causal=causal),
         max_abs_err=max(max_err(a, w)[0] for a, w in zip(got, want)),
         shape=shape, **bound(4 * tensor + lse_bytes, 2 * 2 * D * kept, dt))]
     del want
     ql, kl, vl = (a.detach().clone().requires_grad_() for a in (qh, kh, vh))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     doh = do.transpose(1, 2)
     got = bwd_cuda(q, k, v, o, do, lse, **akw)
     want = bwd_plain(q, k, v, o, do, lse, **akw)
@@ -661,6 +663,20 @@ def attention_cases(prefix, fwd_cuda, fwd_plain, bwd_cuda, bwd_plain,
         max_abs_err=max(max_err(a, w)[0] for a, w in zip(got, want)),
         shape=shape, **bound(8 * tensor + lse_bytes, 5 * 2 * D * kept, dt)))
     return cases
+
+
+def encoder_timing_cases(gen, b: int = 32, s: int = 512) -> list[dict]:
+    """vmem and flash, forward and backward, at BERT-base's non-causal
+    shape (B 32, H 12, S 512, D 64, bf16), as :func:`attention_cases`."""
+    shape = f"B {b}, H {H}, S {s}, D {D}, non-causal, bf16"
+    return [*attention_cases("vmem_attention", VA.vmem_fwd_cuda,
+                             VA.vmem_fwd_plain, VA.vmem_bwd_cuda,
+                             VA.vmem_bwd_plain, gen, b, s, shape,
+                             causal=False),
+            *attention_cases("flash_attention", FA.flash_fwd_cuda,
+                             FA.flash_fwd_plain, FA.flash_bwd_cuda,
+                             FA.flash_bwd_plain, gen, b, s, shape,
+                             causal=False)]
 
 
 def flash_timing_cases(gen) -> list[dict]:

@@ -37,5 +37,8 @@ def fold_in(key: int, *data: int) -> int:
 
 
 def generator(key: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``key``."""
+    """A ``torch.Generator`` on ``device`` seeded with ``key`` (a CPU one
+    for the meta device, whose draws fill nothing)."""
+    if torch.device(device).type == "meta":
+        device = "cpu"
     return torch.Generator(device=device).manual_seed(key)

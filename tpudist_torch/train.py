@@ -85,6 +85,7 @@ from torch import nn
 from tpudist_torch.amp import inner_state
 from tpudist_torch.data.loader import prefetch_to_device
 from tpudist_torch.distributed import group_up
+from tpudist_torch.memory import device_memory_stats
 from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.models.lm_utils import seq_shard_lm
 from tpudist_torch.optim import FusedAdamWState, Optimizer, load_tensors
@@ -563,6 +564,7 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         input_transform: Callable | None = None,
         profile: bool = True, prefetch_depth: int = 2, log_dir: str = ".",
         metrics_logger: MetricsLogger | None = None,
+        memory_log_every: int | None = None,
         checkpoint_dir: str | None = None, checkpoint_every: int = 0,
         checkpoint_every_s: float | None = None,
         keep_last: int | None = None, resume: bool = True,
@@ -612,6 +614,13 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
 
     The delayed loss fetch and the ``--amp`` flag are resolved before a
     save (a wait at save steps only), so the saved counters are exact.
+
+    ``memory_log_every`` cadences the TSV's ``HBM`` rows
+    (:meth:`MetricsLogger.log_memory`): one after bring-up, then every N
+    steps, each carrying the interval's peak (the allocator's peak when
+    it rose since the last row, else the bytes in use). ``None`` is
+    ``log_every * 10`` on the card and off on the CPU, whose allocator
+    reports nothing; 0 is off.
 
     The reference's other keywords (``reduce``, ``plan``,
     ``shard_opt_state``, ``telemetry``, ``metrics_port``, ``elastic``,
@@ -680,6 +689,27 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
                                       log_dir=f"{log_dir}/log_{job_id}",
                                       device=device) as prof:
             print("Start")
+            # the live memory after bring-up (parameters and optimizer
+            # state placed, no activations yet); None on the CPU
+            mem_stats = device_memory_stats(device)
+            logger.log_memory(mem_stats)
+            mem_every = memory_log_every
+            if mem_every is None:
+                mem_every = logger.log_every * 10 if mem_stats else 0
+            mem_peak = {"seen": (mem_stats or {}).get("peak_bytes_in_use")}
+
+            def log_memory() -> None:
+                m = device_memory_stats(device)
+                interval_peak = None
+                if m:
+                    lp = m.get("peak_bytes_in_use")
+                    if lp is not None and (mem_peak["seen"] is None
+                                           or lp > mem_peak["seen"]):
+                        interval_peak = mem_peak["seen"] = lp
+                    else:
+                        interval_peak = m.get("bytes_in_use")
+                logger.log_memory(m, peak_bytes_in_use=interval_peak)
+
             pending = None  # (global_step, epoch, idx, start, handle)
             agreed = {"stop": False, "save": False}
             last_save = {"t": time.monotonic(), "step": start_step}
@@ -748,6 +778,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
                         if pending is not None:
                             resolve(start)
                         pending = (global_step, e, idx, start, handle)
+                        if mem_every and global_step % mem_every == 0:
+                            log_memory()
                         if ckpt is not None and save_due(global_step):
                             # resolve the step first: its loss row, and the
                             # votes it carries, are then taken on every rank
