@@ -398,9 +398,38 @@ Phases, each fatal on failure:
 50. kernel times by phase 13's method: vmem and flash, forward and each
     backward alone, at BERT-base's B 32, H 12, S 512 non-causal beside SDPA
     and the bound; the LayerNorm kernels at ViT-B/16 224's 25,216 x 768
-    rows, eps 1e-6, beside ``F.layer_norm``.
+    rows, eps 1e-6, beside ``F.layer_norm``;
+51. a non-context-parallel attention over the gathered sequence
+    (``parallel.cp.gathered_attention``, the ``--cp N --attn
+    vmem|flash|auto`` path), loopback n = 4, bf16: the vmem kernels at GPT-2
+    124M's B 8, H 12, dh 64, S 1024 causal, the flash kernels at B 4, S
+    4096, and vmem over grouped K/V heads (12 / 4) at llama_125m's widths:
+    o, dq, dk, dv bit-identical to the kernel on the whole sequence, the
+    forward and backward launched once per rank, and the time per rank
+    beside the whole-sequence call;
+52. speculative serving, the main path — phase 4's configuration (GPT-2
+    124M, bf16, ``ServeEngine(paged=True, block_size=32, max_slots=8)``, the
+    same 8 requests) with ``early_exit_draft(model, 4)`` and ``spec_k 4``:
+    the paged kernel 12 times per verify pass, every launch at ``s_q`` 5;
+    drafted, accepted and the acceptance rate, TPOT p50 and tokens/s
+    beside phase 4's, how many greedy streams equal phase 4's; then the
+    paged kernel at the verify shape (B 8, ``s_q`` 5, phase 3's cursors)
+    held to its plain version and timed beside the bound and SDPA; and
+    where a speculative pass's time goes (``spec_pass_split``): the draft
+    forwards, the draft's sampling, the verify forward, the K/V writes
+    inside both, acceptance, each between two synchronisations, then one
+    pass under the profiler for its kernel-busy time and kernel count;
+53. agreement in f32: the speculative engine against the plain engine,
+    paged, greedy, GPT-2 124M at full width (draft depth 4) and llama_125m
+    at full width cut to depth 4 with a stop token (draft depth 2):
+    identical streams; the smallest top-2 logit gap is printed;
+54. the serving CLIs — ``python -m tpudist_torch.serve --full --bf16
+    --paged --spec_draft 4 --spec_k 4`` and ``python -m tpudist_torch.main
+    --serve --spec_draft 1`` exit 0 and their ``serve`` rows carry the
+    speculative fields; a paged engine with ``spec_k`` 16 raises
+    ``ValueError`` (the kernel takes at most 16 query rows).
 
-Phases 22-29 and 31-50 print their seconds.
+Phases 22-29 and 31-54 print their seconds.
 """
 
 from __future__ import annotations
@@ -658,6 +687,8 @@ def main() -> int:
         fail(f"paged kernel launched {served_launches['paged_decode_attention']} "
              f"times for {steps} decode steps x {model.depth} layers")
     snap = eng.stats.snapshot()
+    phase4 = dict(snap=snap, streams=[out[r] for r in rids],
+                  sampling=sampling)
     print(f"  8 requests x {NEW} tokens served, {steps} decode steps, paged "
           f"kernel launches {served_launches['paged_decode_attention']} "
           f"(= {model.depth} x {steps})")
@@ -722,6 +753,10 @@ def main() -> int:
     encoder_phases(smi, dev)
     imagenet_phases(smi, dev)
     kernel_table_phase(smi, dev)
+    gathered_attention_phase(smi, dev)
+    spec_serving_phase(smi, dev, phase4)
+    spec_agreement_phase(dev)
+    serve_cli_phase(smi, dev)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -3573,6 +3608,366 @@ def kernel_table_phase(smi: str, dev) -> None:
     del flush
     print(f"  phase 50: {time.perf_counter() - t0:.1f} s")
 
+
+
+#: phase 51's shapes (kernel, (B, S, H, H_kv)): GPT-2 124M at S 1024 and
+#: S 4096, llama_125m's grouped heads
+GATHERED_CASES = (("vmem", (8, 1024, 12, 12)), ("flash", (4, 4096, 12, 12)),
+                  ("vmem", (8, 1024, 12, 4)))
+
+
+def gathered_attention_phase(smi: str, dev, cases=GATHERED_CASES) -> None:
+    """Phase 51 (module docstring) at ``cases``."""
+    import functools
+
+    import torch
+
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import vmem_attention as VA
+    from tpudist_torch.ops.attention import multi_head_attention
+    from tpudist_torch.parallel import cp
+
+    t0 = time.perf_counter()
+    n = 4
+    print(f"== 51. non-context-parallel attention over the gathered sequence, "
+          f"loopback n = {n}, bf16 causal")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+
+    def grads(fn, q, k, v, g):
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = fn(qq, kk, vv)
+        out.backward(g)
+        return [out.detach(), qq.grad, kk.grad, vv.grad]
+
+    for kind, (b, s, h, h_kv) in cases:
+        mod = VA if kind == "vmem" else FA
+        rnd = lambda heads: torch.randn(b, s, heads, 64, generator=gen,
+                                        device=dev).to(torch.bfloat16)
+        q, k, v, g = rnd(h), rnd(h_kv), rnd(h_kv), rnd(h)
+        attn = functools.partial(multi_head_attention, impl=kind)
+        whole = lambda *x: attn(*x, causal=True)
+        gathered = lambda *x: cp.gathered_attention_loopback(
+            *x, n, causal=True, attn_fn=attn)
+        want = grads(whole, q, k, v, g)
+        mod.reset_launch_counts()
+        got = grads(gathered, q, k, v, g)
+        launched = dict(mod.launch_counts)
+        same = [torch.equal(a, w) for a, w in zip(got, want)]
+        shape = f"B {b}, S {s}, H {h}/{h_kv}, dh 64"
+        print(f"  {kind} [{shape}]: o, dq, dk, dv bit-identical to the whole "
+              f"sequence {same}; launches {launched}")
+        if not all(same):
+            fail(f"gathered {kind} at {shape} differs from the whole call")
+        if launched != {f"{kind}_attention_fwd": n,
+                        f"{kind}_attention_bwd": n}:
+            fail(f"gathered {kind}: launches {launched}, want {n} + {n}")
+        del got, want
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        one = event_ms(lambda: whole(qq, kk, vv).backward(g))
+        ranks = event_ms(lambda: gathered(qq, kk, vv).backward(g))
+        print(f"    forward + backward: whole sequence {one:.3f} ms, per rank "
+              f"{ranks / n:.3f} ms ({ranks:.3f} for the {n} ranks; CUDA "
+              f"events, median of 5)  [{smi}]")
+    print(f"  phase 51: {time.perf_counter() - t0:.1f} s")
+
+
+def spec_serving_phase(smi: str, dev, phase4: dict) -> None:
+    """Phase 52 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.ops import decode as D
+    from tpudist_torch.ops import decode_bench as DB
+    from tpudist_torch.serve import ServeEngine, early_exit_draft
+
+    t0 = time.perf_counter()
+    k = 4
+    print(f"== 52. speculative serving: phase 4's configuration with "
+          f"early_exit_draft(depth 4), spec_k {k}")
+    prompts = DB.smoke_prompts(SEED)
+    model = GPT2(dtype=torch.bfloat16, attn_impl="fused", device="cuda",
+                 seed=SEED)
+    eng = ServeEngine(model, max_slots=8, paged=True, block_size=32,
+                      seed=SEED, draft_model=early_exit_draft(model, 4),
+                      spec_k=k)
+    warm = eng.submit(prompts[0][:20], 4)
+    eng.run()
+    if len(eng.result(warm)) != 4:
+        fail("speculative warm-up request did not complete")
+    eng.reset_stats()
+    passes0 = eng.decode_steps
+    widths = []
+    launch = D.paged_fused_attention_cuda
+
+    def recorded(q, *args, **kw):
+        widths.append(q.shape[1])
+        return launch(q, *args, **kw)
+
+    D.reset_launch_counts()
+    D.paged_fused_attention_cuda = recorded
+    try:
+        rids = [eng.submit(p, NEW, **opts)
+                for p, opts in zip(prompts, phase4["sampling"])]
+        torch.cuda.synchronize()
+        out = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        D.paged_fused_attention_cuda = launch
+    counts = dict(D.launch_counts)
+    passes = eng.decode_steps - passes0
+    for r in rids:
+        toks = out[r]
+        if len(toks) != NEW or not all(0 <= t < VOCAB for t in toks):
+            fail(f"speculative request {r}: {len(toks)} tokens")
+    paged = counts["paged_decode_attention"]
+    if paged != model.depth * passes or set(widths) != {k + 1}:
+        fail(f"paged kernel launched {paged} times at s_q {sorted(set(widths))}"
+             f" for {passes} verify passes x {model.depth} layers")
+    if counts["fused_decode_attention"]:
+        fail(f"contiguous kernel launched: {counts}")
+    snap, base = eng.stats.snapshot(), phase4["snap"]
+    greedy = [i for i, o in enumerate(phase4["sampling"])
+              if o["temperature"] == 0.0]
+    equal = sum(out[rids[i]] == phase4["streams"][i] for i in greedy)
+    print(f"  8 requests x {NEW} tokens, {passes} verify passes, paged kernel "
+          f"launches {paged} (= {model.depth} x {passes}), every one at s_q "
+          f"{k + 1}")
+    print(f"  drafted {snap['spec_drafted']}, accepted {snap['spec_accepted']}, "
+          f"acceptance rate {snap['spec_acceptance_rate']}")
+    print(f"  TPOT p50 {snap['tpot_p50']} s against phase 4's "
+          f"{base['tpot_p50']}, {snap['tokens_per_sec']} tok/s against "
+          f"{base['tokens_per_sec']}, TTFT p50 {snap['ttft_p50']} s  [{smi}]")
+    print(f"  greedy streams equal to phase 4's: {equal} of {len(greedy)} "
+          "(bf16: a window's products round apart from one token's)")
+    print("  serve_summary " + json.dumps(snap))
+    spec_pass_split(eng, prompts, phase4["sampling"], smi)
+    del eng, model
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 52)
+    cursors = [len(p) + NEW - 1 for p in prompts]
+    case = DB.paged_case(gen, cursors, s_q=k + 1)
+    err = check(f"paged kernel at the verify shape [{case['shape']}]",
+                case["kernel"](), case["plain"](), elem=True,
+                share_bar=DB.SHARE_BAR)
+    ms = DB.device_ms(case["kernel"], flush)
+    plain = DB.device_ms(case["plain"], flush)
+    lib = DB.device_ms(case["library"], flush)
+    print(f"    kernel {ms * 1e3:.2f} us, bound {case['bound_ms'] * 1e3:.3f} us "
+          f"({case['bound_by']}), plain {plain * 1e3:.1f} us, library "
+          f"{lib * 1e3:.2f} us (SDPA, gathered windows, causal within the "
+          f"window), max_abs_err {err:.3e}  [{smi}]")
+    if FAILURES:
+        fail(f"verify-shape parity: {FAILURES}")
+    del flush
+    print(f"  phase 52: {time.perf_counter() - t0:.1f} s")
+
+
+def spec_pass_split(eng, prompts, sampling, smi: str) -> None:
+    """Where a speculative pass's time goes (phase 52). The engine serves
+    the prompts again with each part of its pass run between two
+    synchronisations (wall time, inclusive: the K/V writes lie inside the
+    forwards; "other" is the pass less its four parts), then once more
+    with its third pass, unsynchronised, under ``torch.profiler``: the
+    pass's wall time beside the card's busy time and its kernel count,
+    and the host ops that take the most time."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudist_torch.models import gpt2 as G
+    from tpudist_torch.serve import engine as E
+    from tpudist_torch.serve import spec as S
+
+    wall, calls, stack = collections.Counter(), collections.Counter(), []
+
+    def timed(name, fn, outer_only=False):
+        def call(*a, **kw):
+            if not stack and not outer_only:
+                return fn(*a, **kw)
+            label = name.format(outer=stack[-1] if stack else "")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stack.append(label)
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                stack.pop()
+            wall[label] += time.perf_counter() - t
+            calls[label] += 1
+            return out
+        return call
+
+    originals = (G.cached_kv, E.sample_logits_per_row, S.speculative_accept)
+    eng._spec_pass = timed("pass", eng._spec_pass, outer_only=True)
+    eng.draft.forward = timed("draft forward", eng.draft.forward)
+    eng.model.forward = timed("verify forward", eng.model.forward)
+    G.cached_kv = timed("{outer} K/V writes", G.cached_kv)
+    E.sample_logits_per_row = timed("draft sampling", E.sample_logits_per_row)
+    S.speculative_accept = timed("acceptance", S.speculative_accept)
+    try:
+        for p, opts in zip(prompts, sampling):
+            eng.submit(p, NEW, **opts)
+        eng.run()
+    finally:
+        G.cached_kv, E.sample_logits_per_row, S.speculative_accept = originals
+        del eng._spec_pass, eng.draft.forward, eng.model.forward
+    n = calls["pass"]
+    parts = ("draft forward", "draft sampling", "verify forward",
+             "acceptance")
+    wall["other"] = wall["pass"] - sum(wall[x] for x in parts)
+    print(f"  one speculative pass, parts synchronised ({n} passes): "
+          f"{wall['pass'] / n * 1e3:.3f} ms  [{smi}]")
+    for name in (*parts, "draft forward K/V writes",
+                 "verify forward K/V writes", "other"):
+        print(f"    {name}: {wall[name] / n * 1e3:.3f} ms a pass "
+              f"({calls[name] / n:g} calls), "
+              f"{100 * wall[name] / wall['pass']:.1f}%")
+    if n == 0 or min(wall[x] for x in parts) <= 0:
+        fail(f"the pass split timed nothing: {dict(wall)}")
+
+    seen = [0]
+    plain_pass = eng._spec_pass
+
+    def profiled(*a, **kw):
+        seen[0] += 1
+        if seen[0] != 3:
+            return plain_pass(*a, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = plain_pass(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        prof_out.update(prof=prof, ms=ms)
+        return out
+
+    prof_out: dict = {}
+    eng._spec_pass = profiled
+    try:
+        for p, opts in zip(prompts, sampling):
+            eng.submit(p, NEW, **opts)
+        eng.run()
+    finally:
+        del eng._spec_pass
+    if not prof_out:
+        fail("the profiled speculative pass never ran")
+    prof = prof_out["prof"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "pass.json"
+        prof.export_chrome_trace(str(trace))
+        tb = trace_breakdown(trace)
+    host = sorted((e for e in prof.key_averages()
+                   if e.key.startswith("aten::")),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    busy = tb["device_ms_per_step"]
+    print(f"    profiled pass: wall {prof_out['ms']:.3f} ms (profiler on), "
+          f"card busy {busy:.3f} ms "
+          f"({100 * busy / prof_out['ms']:.1f}%), "
+          f"{tb['kernels_per_step']:g} kernels  [{smi}]")
+    print("    host ops by self time: " + "; ".join(
+        f"{e.key} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms"
+        for e in host))
+    print("    kernels by time: " + "; ".join(
+        f"{k[:48]} x{c:g} {m:.3f} ms" for k, m, c in tb["top"][:5]))
+
+
+def spec_agreement_phase(dev) -> None:
+    """Phase 53 (module docstring)."""
+    import torch
+
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.models.llama import llama_125m
+    from tpudist_torch.ops import decode_bench as DB
+    from tpudist_torch.serve import ServeEngine, early_exit_draft
+
+    t0 = time.perf_counter()
+    print("== 53. f32: the speculative engine against the plain engine, paged,"
+          " greedy")
+    prompts = DB.smoke_prompts(SEED)
+    for name, build, depth, stop in (
+            ("GPT-2 124M", lambda: GPT2(attn_impl="fused", device="cuda",
+                                        seed=SEED), 4, False),
+            ("llama_125m at depth 4", lambda: llama_125m(
+                vocab_size=32000, depth=4, attn_impl="fused", device="cuda",
+                seed=SEED), 2, True)):
+        model = build()
+        toks = [p % model.vocab_size for p in prompts]
+
+        def serve(eos=None, **kw):
+            eng = ServeEngine(model, max_slots=8, paged=True, block_size=32,
+                              seed=SEED, **kw)
+            ids = [eng.submit(p, NEW, eos_id=eos) for p in toks]
+            res = eng.run()
+            return [res[i] for i in ids], eng
+
+        eos = serve()[0][0][NEW // 2] if stop else None
+        plain, _ = serve(eos)
+        spec, eng = serve(eos, draft_model=early_exit_draft(model, depth),
+                          spec_k=4)
+        snap = eng.stats.snapshot()
+        gap = top2_gap(model, toks, plain)
+        cut = sum(len(s) < NEW for s in plain)
+        print(f"  {name}: streams identical {spec == plain}"
+              f"{f', stop token {eos} cuts {cut} of 8 streams' if stop else ''}"
+              f"; acceptance rate {snap['spec_acceptance_rate']}; smallest "
+              f"top-2 logit gap along the streams {gap:.3e}")
+        if spec != plain:
+            fail(f"{name}: f32 speculative and plain greedy streams differ")
+        if stop and not cut:
+            fail(f"{name}: the stop token cut no stream")
+        del model, eng
+    print(f"  phase 53: {time.perf_counter() - t0:.1f} s")
+
+
+def serve_cli_phase(smi: str, dev) -> None:
+    """Phase 54 (module docstring)."""
+    import torch
+
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.serve import ServeEngine, early_exit_draft
+
+    t0 = time.perf_counter()
+    print("== 54. the serving CLIs with a draft")
+    fields = {"spec_drafted", "spec_accepted", "spec_acceptance_rate"}
+    env = {**os.environ, "PYTHONPATH": str(HERE)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for job, argv in (
+                ("Serve", ["tpudist_torch.serve", "--full", "--bf16", "--paged",
+                           "--spec_draft", "4", "--spec_k", "4"]),
+                ("Demo", ["tpudist_torch.main", "--serve", "--spec_draft",
+                          "1"])):
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", *argv, "--log_dir", tmp, "--JobID",
+                 job], cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=300)
+            lines = proc.stdout.splitlines()
+            if proc.returncode:
+                print("\n".join(lines[-20:]) + proc.stderr[-3000:])
+                fail(f"python -m {' '.join(argv)} exited {proc.returncode}")
+            rows = [json.loads(r) for r in
+                    open(Path(tmp) / f"{job}_serve_0.jsonl")]
+            serve = [r for r in rows if r["kind"] in ("serve", "serve_summary")]
+            if not serve or not all(fields <= set(r) for r in serve):
+                fail(f"{argv[0]}: serve rows without the speculative fields")
+            said = [x for x in lines if x.startswith(("served", "speculative"))]
+            print(f"  python -m {' '.join(argv)}: exit 0 in "
+                  f"{time.perf_counter() - t1:.1f} s; {len(serve)} serve rows "
+                  f"with the spec fields; " + "; ".join(said) + f"  [{smi}]")
+    model = GPT2(vocab_size=256, max_seq_len=256, hidden_dim=128, depth=2,
+                 num_heads=4, attn_impl="fused", device="cuda")
+    try:
+        ServeEngine(model, paged=True, block_size=32, spec_k=16,
+                    draft_model=early_exit_draft(model, 1))
+    except ValueError as e:
+        print(f"  paged engine with spec_k 16: ValueError ({e})")
+    else:
+        fail("a paged engine with spec_k 16 did not raise")
+    print(f"  phase 54: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

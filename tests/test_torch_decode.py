@@ -344,8 +344,11 @@ def test_cached_kv_per_row_mode_matches_jax():
 
 def test_cached_kv_paged_mode_matches_jax():
     """Paged writes land at (table[p // bs], p % bs); inactive rows (zero
-    table, position 0) and a verify tail past the table's extent land in
-    the garbage block 0."""
+    table, position 0) land in the garbage block 0, and a verify tail past
+    the table's extent writes nothing. The reference writes that tail (NaN
+    past GPT-2's position table) into block 0 too, where row 0, which maps
+    only two blocks, reads it as masked slots: ``0 * NaN`` makes its later
+    layers NaN. The port's row 0 is the reference's without row 2."""
     jm, params, pm = _models(7)
     n_blocks, bs = 12, 8
     jpool = jax_paged_cache(jm, n_blocks, bs)
@@ -361,12 +364,29 @@ def test_cached_kv_paged_mode_matches_jax():
                       block_tables=jnp.asarray(tables), mutable=["cache"])
     pm(torch.from_numpy(toks).long(), cache=ppool,
        positions=torch.from_numpy(pos), block_tables=torch.from_numpy(tables))
+    # the reference on rows 0-1 alone: no tail past the table's extent
+    _, alone = jm.apply({"params": params,
+                         "cache": jax_paged_cache(jm, n_blocks, bs)},
+                        jnp.asarray(toks[:2]), train=False, decode=True,
+                        positions=jnp.asarray(pos[:2]),
+                        block_tables=jnp.asarray(tables[:2]),
+                        mutable=["cache"])
     # block 0 takes several racing garbage writes (order unspecified):
-    # compare every other block exactly
+    # compare every other block exactly; past layer 0 the three-row
+    # reference's row 0 (blocks 3 and 5) is NaN, so row 0 is held to the
+    # reference run on rows 0-1 alone
+    row0 = [3, 5]
     for i, layer in enumerate(ppool["layers"]):
         jl = upd["cache"][f"h_{i}"]
         for name, jname in (("k", "cached_key"), ("v", "cached_value")):
-            np.testing.assert_allclose(layer[name][1:].numpy(),
-                                       np.asarray(jl[jname])[1:], atol=2e-5)
+            got, want = layer[name].numpy(), np.asarray(jl[jname])
+            blocks = list(range(1, n_blocks)) if i == 0 else list(tables[2])
+            np.testing.assert_allclose(got[blocks], want[blocks], atol=2e-5)
+            if i:
+                assert np.isnan(want[row0]).any()
+            np.testing.assert_allclose(
+                got[row0], np.asarray(alone["cache"][f"h_{i}"][jname])[row0],
+                atol=2e-5)
+            assert np.isfinite(got[1:]).all()
     # row 0's entries 7..10 straddle blocks 3 and 5
     assert float(ppool["layers"][0]["k"][5, :, :3].abs().sum()) > 0

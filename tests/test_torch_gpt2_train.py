@@ -483,16 +483,27 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
-    ["--fsdp", "2"], ["--cp", "2"], ["--eval", "--cp", "2"],
+    ["--fsdp", "2"],
     ["--remat_policy", "full", "--pipe", "2"],
     ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic"],
     ["--compile_cache", "cc"], ["--shard_opt_state"],
     ["--experts", "4", "--arch", "llama"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
-    """``--cp 2`` with the default ``--attn auto`` is the reference's
-    gathered-sequence path, not ported (Queue 1 #5 (remainder))."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
+        main([*CLI, *flag])
+
+
+@pytest.mark.parametrize("flag,raises", [
+    (["--cp", "2"], (ValueError, "1 ranks not divisible")),
+    (["--eval", "--cp", "2"], (SystemExit, "support the non-cp")),
+], ids=["--cp 2", "--eval --cp 2"])
+def test_cp_with_the_default_attention_is_ported(flag, raises):
+    """``--cp 2`` with the default ``--attn auto`` is the reference's
+    gathered-sequence path, which raised as unported until it was
+    ported: in one process it needs the 2 ranks it names, and ``--eval``
+    keeps the reference's refusal."""
+    with pytest.raises(raises[0], match=raises[1]):
         main([*CLI, *flag])
 
 

@@ -294,7 +294,8 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
     ["--reduce", "bucketed"],
     ["--fsdp", "2"], ["--telemetry"], ["--trace"], ["--health"],
     ["--repair"], ["--elastic"], ["--skip_window", "4"],
-    ["--serve"], ["--tensor", "2"],
+    ["--serve", "--tensor", "2"], ["--tensor", "2"],
+    ["--serve", "--serve_experts", "2"],
     ["--compile_cache", "cc"],
     ["--dataset", "digits"], ["--hang_timeout", "5"],
 ], ids=lambda f: " ".join(f))

@@ -111,24 +111,37 @@ def _hash32(x):
     return x ^ (x >> 16)
 
 
+def fold_keys(keys, data):
+    """``keys`` ``[B]`` with ``data`` (an int or ``[B]``) folded in: the
+    port's ``fold_in(key, data)``, one link of :func:`row_keys`' chain."""
+    data = torch.as_tensor(data, device=keys.device).long()
+    return _hash32(keys ^ (data & _M32))
+
+
 def row_keys(seed: int, request_ids, token_index):
     """Per-row stream keys ``[B]`` (int64, 32-bit values): a hash chain of
     ``(seed, request_id, token_index)`` — the port's
     ``fold_in(fold_in(key(seed), rid), index)``."""
     rid = torch.as_tensor(request_ids).long()
-    idx = torch.as_tensor(token_index, device=rid.device).long()
     base = _hash32(torch.full_like(rid, int(seed) & _M32))
-    return _hash32(_hash32(base ^ (rid & _M32)) ^ (idx & _M32))
+    return fold_keys(fold_keys(base, rid), token_index)
+
+
+def uniform_field(keys, n: int):
+    """``[B, n]`` uniforms in (0, 1); row ``b`` depends only on
+    ``keys[b]``. 23 bits a draw, centred: ``(j + 0.5) / 2**23`` is exact in
+    float32 and at most ``1 - 2**-24`` (with 24 bits the top value rounds
+    to 1.0, whose gumbel is ``+inf``)."""
+    i = torch.arange(n, device=keys.device, dtype=torch.int64)
+    bits = _hash32(_hash32(i)[None, :] ^ keys[:, None])
+    bits = _hash32(bits + keys[:, None])
+    return ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
 
 
 def gumbel_field(keys, vocab: int):
     """``[B, V]`` standard gumbel noise; row ``b`` depends only on
     ``keys[b]``."""
-    v = torch.arange(vocab, device=keys.device, dtype=torch.int64)
-    bits = _hash32(_hash32(v)[None, :] ^ keys[:, None])
-    bits = _hash32(bits + keys[:, None])
-    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(uniform_field(keys, vocab)))
 
 
 def _per_row_warp(logits, temperature, top_k, top_p):
@@ -162,6 +175,27 @@ def _per_row_warp(logits, temperature, top_k, top_p):
     thresh = torch.maximum(k_thresh, p_thresh)
     return (greedy, scaled, top_vals, top_idx, masked_vals, thresh,
             k_active, p_active)
+
+
+def per_row_log_probs(logits, *, temperature, top_k, top_p):
+    """Log-probabilities ``[B, V]`` of the warped per-row distribution
+    :func:`sample_logits_per_row` draws from (the reference's
+    ``per_row_log_probs``): the same filter (:func:`_per_row_warp`), the
+    kept set renormalized, filtered tokens ``-inf``; a greedy row
+    (``temperature == 0``) is a point mass, ``0.0`` at the first argmax.
+    The kept set is the full-vocab test ``scaled >= thresh``, which the
+    sampler's candidate subset equals except on exact ties at the cut."""
+    (greedy, scaled, _, _, _, thresh, k_active,
+     p_active) = _per_row_warp(logits, temperature, top_k, top_p)
+    filtered = (k_active | p_active)[:, None]
+    keep = torch.where(filtered, scaled >= thresh, True)
+    masked = torch.where(keep, scaled, float("-inf"))
+    logp = masked - torch.logsumexp(masked, dim=-1, keepdim=True)
+    v = logits.shape[-1]
+    point = torch.where(
+        torch.arange(v, device=logits.device)[None, :] == greedy[:, None],
+        0.0, float("-inf"))
+    return torch.where((temperature == 0.0)[:, None], point, logp)
 
 
 def sample_logits_per_row(logits, keys, *, temperature, top_k, top_p):

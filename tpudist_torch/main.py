@@ -37,6 +37,14 @@ reference's ``HBM`` rows. ``--model gpt2``
 exits pointing at ``python -m tpudist_torch.train_gpt2``, as the
 reference points at its LM script.
 
+``--serve`` runs the reference's serving demo instead of training: a
+byte-vocabulary GPT-2 (128 wide, 2 deep) with random weights serves
+``--serve_requests`` mixed-length requests, alternately greedy and
+sampled, through the continuous-batching engine with ``--serve_slots``
+slots (``--spec_draft N --spec_k K``: speculative decoding with the
+target's first ``N`` blocks as the draft), writing ``serve`` rows to
+``{log_dir}/{JobID}_serve_0.jsonl``.
+
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps (and/or
 ``--checkpoint_every_s`` seconds) and at the end, keeps the newest
 ``--keep_last``, and resumes from the newest loadable step unless
@@ -162,10 +170,8 @@ _UNPORTED = {
     "divergence_every": "Queue 1 #8", "hang_action": "Queue 1 #8",
     "repair": "Queue 1 #8", "skip_window": "Queue 1 #8",
     "elastic": "Queue 1 #7", "compile_cache": "Queue 1 #9",
-    "serve": "Queue 1 #6", "serve_requests": "Queue 1 #6",
-    "serve_slots": "Queue 1 #6", "spec_draft": "Queue 1 #6",
-    "serve_experts": "Queue 1 #6", "serve_moe_dispatch": "Queue 1 #6",
-    "spec_k": "Queue 1 #6", "tensor": "Queue 1 #6",
+    "serve_experts": "Queue 1 #7", "serve_moe_dispatch": "Queue 1 #7",
+    "tensor": "Queue 1 #7",
 }
 
 #: values of choice flags this port does not run yet -> the ROADMAP item
@@ -179,10 +185,8 @@ def check_ported(parser, args) -> None:
     ``main.py`` accepts and this port does not run yet."""
     for name, item in _UNPORTED.items():
         if getattr(args, name) != parser.get_default(name):
-            extra = (" (serving runs as `python -m tpudist_torch.serve`)"
-                     if item == "Queue 1 #6" else "")
             raise NotImplementedError(
-                f"--{name} is not ported yet (ROADMAP {item}){extra}")
+                f"--{name} is not ported yet (ROADMAP {item})")
     for (name, value), item in _UNPORTED_CHOICES.items():
         if getattr(args, name) == value:
             extra = (" (it needs scikit-learn, which the machine with the "
@@ -334,9 +338,62 @@ def _imagenet_val(args, dtype, train_classes):
         drop_remainder=False, classes=train_classes), None
 
 
+def _serve_demo(args):
+    """``--serve``: the reference's demo (``main.py:_serve_demo``) on the
+    port's engine. Returns the SLO snapshot."""
+    import numpy as np
+
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.serve import ServeEngine, early_exit_draft
+    from tpudist_torch.serve.stats import fmt_s
+    from tpudist_torch.telemetry import TelemetrySink
+
+    model = GPT2(vocab_size=256, max_seq_len=256, hidden_dim=128, depth=2,
+                 num_heads=4, attn_impl="fused", device=args.device)
+    sink = TelemetrySink(
+        os.path.join(args.log_dir, f"{args.JobID}_serve_0.jsonl"))
+    streamed: dict[int, int] = {}
+
+    def on_token(ev):
+        streamed[ev.request_id] = streamed.get(ev.request_id, 0) + 1
+        if ev.done:
+            print(f"request {ev.request_id}: {streamed[ev.request_id]} "
+                  "tokens (done)")
+
+    engine = ServeEngine(
+        model, max_slots=args.serve_slots, sink=sink, stats_every=10,
+        on_token=on_token, spec_k=args.spec_k,
+        draft_model=(early_exit_draft(model, args.spec_draft)
+                     if args.spec_draft else None))
+    rng = np.random.Generator(np.random.PCG64(0))
+    for i in range(args.serve_requests):
+        # alternate greedy and sampled requests in one decode batch
+        engine.submit(rng.integers(0, 256, (int(rng.integers(4, 48)),)),
+                      int(rng.integers(8, 48)),
+                      temperature=0.0 if i % 2 == 0 else 0.8,
+                      top_k=0 if i % 2 == 0 else 50)
+    engine.run()
+    sink.close()
+    snap = engine.stats.snapshot()
+    print(
+        f"served {snap['completed']} requests, {snap['tokens']} tokens in "
+        f"{snap['wall_s']:.2f}s ({snap['tokens_per_sec']:.1f} tok/s); "
+        f"TTFT p50/p95 {fmt_s(snap['ttft_p50'])}/{fmt_s(snap['ttft_p95'])}s, "
+        f"TPOT p50 {fmt_s(snap['tpot_p50'], 1e3, 1)}ms, slot utilization "
+        f"{fmt_s(snap['slot_utilization'], digits=2)}")
+    if args.spec_draft:
+        print(f"speculative: {snap['spec_accepted']}/{snap['spec_drafted']} "
+              "drafts accepted (rate "
+              f"{fmt_s(snap['spec_acceptance_rate'], digits=2)})")
+    print(f"serve telemetry: {sink.path}")
+    return snap
+
+
 def main(argv=None):
     parser, args = parse_args(argv)
     check_ported(parser, args)
+    if args.serve:
+        return _serve_demo(args)
     if args.model == "gpt2":
         raise SystemExit("gpt2 training uses python -m "
                          "tpudist_torch.train_gpt2 (token data)")

@@ -165,7 +165,7 @@ class Bert(nn.Module):
                  fused_ln: bool = False, layout=None, device=None,
                  seed: int = 0, mlm_head: bool = True):
         super().__init__()
-        check_attn_impl(attn_impl, layout)
+        check_attn_impl(attn_impl, layout, gather=False)
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide into num_heads")
         if remat_layers and not scan_layers:

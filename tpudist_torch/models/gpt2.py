@@ -16,8 +16,13 @@ The context-parallel impls ``"ring"``, ``"ulysses"`` and
 ``layout`` (a :class:`tpudist_torch.mesh.RankLayout`, the reference's
 ``mesh``): the forward takes this rank's chunk of every sequence, the
 positions ``seq_idx * s ..`` of the global row (``wpe`` read there), and
-the attention runs over the layout's seq group. They have no decode path
-and raise there, as the reference does.
+the attention runs over the layout's seq group. Under a layout whose seq
+axis is larger than 1 the other impls (``"xla"``, ``"vmem"``, ``"flash"``,
+``"auto"``) take the same chunk and positions and attend over the whole
+sequence, gathered over the seq group
+(:func:`tpudist_torch.parallel.cp.gathered_attention`): the reference's
+GSPMD runs them replicated over the sequence. A seq-sharded model has no
+decode path and raises there, as the reference does.
 
 ``fused_ln`` (an attribute, which ``make_train_step(fused="ln")`` sets)
 swaps in the fused residual-add + LayerNorm kernel
@@ -50,6 +55,7 @@ decode path never remats and never drops.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 
 import torch
@@ -63,7 +69,9 @@ from tpudist_torch.ops.decode import (
     cached_kv, decode_attention, paged_decode_attention,
 )
 from tpudist_torch.ops.layernorm import fused_layernorm
-from tpudist_torch.parallel.cp import CP_IMPLS, context_parallel_attention
+from tpudist_torch.parallel.cp import (
+    CP_IMPLS, context_parallel_attention, gathered_attention_local,
+)
 from tpudist_torch.rng import fold_in, generator
 
 ATTN_IMPLS = ("xla", "fused", "vmem", "auto", "flash", *CP_IMPLS)
@@ -86,10 +94,11 @@ def dropout(x, rate: float, key: int | None):
                                                        device=x.device))
 
 
-def check_attn_impl(attn_impl: str, layout) -> None:
-    """Refuse an unknown ``attn_impl``, and a context-parallel one without
-    a ``layout`` (the reference's refusal of a CP impl without its
-    ``mesh``)."""
+def check_attn_impl(attn_impl: str, layout, *, gather: bool = True) -> None:
+    """Refuse an unknown ``attn_impl``, a context-parallel one without a
+    ``layout`` (the reference's refusal of a CP impl without its
+    ``mesh``), and, for a model without the gathered path (``gather=
+    False``), a non-context-parallel one under a seq axis."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     if attn_impl in CP_IMPLS and layout is None:
@@ -97,18 +106,34 @@ def check_attn_impl(attn_impl: str, layout) -> None:
             f"attn_impl={attn_impl!r} needs the model's layout= (a "
             "tpudist_torch.mesh.RankLayout: the attention runs over its seq "
             "group)")
+    if not gather and attn_impl not in CP_IMPLS and layout is not None \
+            and layout.seq > 1:
+        raise ValueError(
+            f"a seq axis of {layout.seq} needs a sequence-parallel "
+            "attention: attn_impl ring, ulysses or ulysses_flash")
 
 
-def refuse_cp_decode(attn_impl: str) -> None:
-    if attn_impl in CP_IMPLS:
-        raise ValueError(f"attn_impl={attn_impl!r} has no decode path; "
+def gathers_sequence(model) -> bool:
+    """Whether ``model`` runs a non-context-parallel attention over the
+    sequence gathered from its seq group (a layout with a seq axis > 1)."""
+    layout = model.layout
+    return (model.attn_impl not in CP_IMPLS and layout is not None
+            and layout.seq > 1)
+
+
+def refuse_cp_decode(model) -> None:
+    if model.attn_impl in CP_IMPLS:
+        raise ValueError(f"attn_impl={model.attn_impl!r} has no decode path; "
                          "generate with the xla/flash model")
+    if gathers_sequence(model):
+        raise ValueError("a model laid out over a seq axis has no decode "
+                         "path; generate with a model without one")
 
 
 def seq_offset(model, s: int) -> int:
-    """The global position of a context-parallel model's first local
-    position (0 otherwise)."""
-    if model.attn_impl in CP_IMPLS:
+    """The global position of a seq-sharded model's first local position
+    (0 otherwise)."""
+    if model.attn_impl in CP_IMPLS or gathers_sequence(model):
         return model.layout.seq_idx * s
     return 0
 
@@ -227,6 +252,11 @@ class Block(nn.Module):
         elif self.attn_impl in CP_IMPLS:
             attn = context_parallel_attention(
                 q, k, v, self.attn_impl, self.layout.seq_group, causal=True)
+        elif gathers_sequence(self):
+            attn = gathered_attention_local(
+                q, k, v, group=self.layout.seq_group, causal=True,
+                attn_fn=functools.partial(multi_head_attention,
+                                          impl=self.attn_impl))
         else:
             attn = multi_head_attention(q, k, v, causal=True,
                                         impl=self.attn_impl)
@@ -365,7 +395,7 @@ class GPT2(nn.Module):
         'dropout' rng; in eval mode nothing is dropped. A context-parallel
         model takes this rank's chunk of the sequence."""
         if cache is not None:
-            refuse_cp_decode(self.attn_impl)
+            refuse_cp_decode(self)
             if self.scan_layers:
                 raise ValueError(
                     "scan_layers has no decode path (the KV cache needs "

@@ -8,7 +8,9 @@ optional). Dense blocks only: ``num_experts > 0`` (Mixtral) is not
 ported yet. The context-parallel impls (``"ring"``, ``"ulysses"``,
 ``"ulysses_flash"``) take GPT-2's ``layout`` (:mod:`.gpt2`): RoPE rotates
 this rank's chunk at its global positions, and grouped K/V heads are
-repeated before the attention, as the reference repeats them.
+repeated before the attention, as the reference repeats them. Under a seq
+axis the other impls attend over the gathered sequence, as GPT-2's do,
+with grouped K/V heads gathered before any repeat.
 
 The parameter names are the reference's, so the optimizer's routing
 (``optim._ADAM_TOP``, ``muon_view``, the 1-D decay mask), the checkpoint
@@ -47,6 +49,7 @@ dict between that layout and the reference's stacked one.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 
 import torch
@@ -57,14 +60,17 @@ from tpudist_torch import remat as remat_lib
 from tpudist_torch.device import resolve_device
 from tpudist_torch.rng import generator
 from tpudist_torch.models.gpt2 import (
-    _TRUNC_STD, check_attn_impl, refuse_cp_decode, seq_offset, tied_head,
+    _TRUNC_STD, check_attn_impl, gathers_sequence, refuse_cp_decode,
+    seq_offset, tied_head,
 )
 from tpudist_torch.ops.attention import multi_head_attention, repeat_kv
 from tpudist_torch.ops.decode import (
     cached_kv, decode_attention, paged_decode_attention,
 )
 from tpudist_torch.ops.layernorm import fused_layernorm
-from tpudist_torch.parallel.cp import CP_IMPLS, context_parallel_attention
+from tpudist_torch.parallel.cp import (
+    CP_IMPLS, context_parallel_attention, gathered_attention_local,
+)
 
 #: the ROADMAP item that ports the Mixtral-style experts
 _MOE_ITEM = "Queue 1 #7"
@@ -209,6 +215,17 @@ class LlamaBlock(nn.Module):
             k, v = repeat_kv(q, k, v)
             attn = context_parallel_attention(
                 q, k, v, self.attn_impl, self.layout.seq_group, causal=True)
+        elif gathers_sequence(self):
+            pos = torch.arange(offset, offset + s, dtype=torch.float32,
+                               device=x.device)
+            q = apply_rope(q, theta=theta, positions=pos)
+            k = apply_rope(k, theta=theta, positions=pos)
+            # grouped K/V gathered as they are, repeated (if at all) by the
+            # attention over the whole sequence
+            attn = gathered_attention_local(
+                q, k, v, group=self.layout.seq_group, causal=True,
+                attn_fn=functools.partial(multi_head_attention,
+                                          impl=self.attn_impl))
         else:
             q = apply_rope(q, theta=theta)
             k = apply_rope(k, theta=theta)
@@ -358,7 +375,7 @@ class Llama(nn.Module):
         ``block_tables``) without autograd, updating the cache in place;
         otherwise the ``fused_ln`` attribute picks the fused RMSNorm."""
         if cache is not None:
-            refuse_cp_decode(self.attn_impl)
+            refuse_cp_decode(self)
             if self.scan_layers:
                 raise ValueError(
                     "scan_layers has no decode path (the KV cache needs "

@@ -94,9 +94,13 @@ def cached_kv(cache: dict, k, v, *, positions=None, block_tables=None):
 
     ``block_tables`` ``[B, max_blocks]`` (with ``positions``): the cache
     holds the shared pool ``[n_blocks, H_kv, bs, dh]``; row ``b``'s entry
-    at ``p`` lands at ``(table[b, p // bs], p % bs)``, and an entry past
-    the table's extent lands in block 0, the garbage block. Returns
-    ``(k_pool, v_pool, block_tables, positions)``.
+    at ``p`` lands at ``(table[b, p // bs], p % bs)`` (block 0, the
+    garbage block, where the table maps nothing), and an entry past the
+    table's extent writes nothing: a speculative verify window's tail
+    past ``max_seq_len`` can hold NaN, and a live row walking an unmapped
+    block reads the garbage block as masked slots, whose ``p = 0`` times a
+    NaN would poison it. Returns ``(k_pool, v_pool, block_tables,
+    positions)``.
     """
     b, s, h, dh = k.shape
     ck, cv = cache["k"], cache["v"]
@@ -119,10 +123,12 @@ def cached_kv(cache: dict, k, v, *, positions=None, block_tables=None):
             p = pos + i
             lb = torch.div(p, bs_blk, rounding_mode="floor")
             mapped = block_tables.gather(1, lb.clamp(max=mb - 1)[:, None])[:, 0]
-            blk = torch.where(lb < mb, mapped.long(), 0)
+            inside = lb < mb
+            blk = torch.where(inside, mapped.long(), 0)
             off = p % bs_blk
-            ck[blk, :, off] = kt[:, :, i]
-            cv[blk, :, off] = vt[:, :, i]
+            keep = inside[:, None, None]
+            ck[blk, :, off] = torch.where(keep, kt[:, :, i], ck[blk, :, off])
+            cv[blk, :, off] = torch.where(keep, vt[:, :, i], cv[blk, :, off])
         return ck, cv, block_tables, positions
     max_len = ck.shape[2]
     if positions is not None:

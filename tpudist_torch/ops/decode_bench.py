@@ -81,30 +81,36 @@ def bound(nbytes: int, flops: int) -> dict:
 
 
 def paged_case(gen, cursors, *, dtype=torch.bfloat16, heads=12, dh=64,
-               bs=32, max_len=1024) -> dict:
-    """One decode tick of the paged engine: q ``[B, 1, H, dh]`` at the
-    given cursors, a pool of the engine's default size (``B`` slots of
-    ``max_len`` plus the garbage block), random permuted tables."""
+               bs=32, max_len=1024, s_q=1) -> dict:
+    """One decode tick of the paged engine: q ``[B, s_q, H, dh]`` at the
+    given cursors (``s_q`` 1 for a decode step, ``spec_k + 1`` for a
+    speculative verify pass, causal within the window), a pool of the
+    engine's default size (``B`` slots of ``max_len`` plus the garbage
+    block), random permuted tables."""
     dev = torch.device("cuda")
     b, mb = len(cursors), max_len // bs
     n_pool = b * mb + 1
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, dtype)
     kp, vp = rnd(n_pool, heads, bs, dh), rnd(n_pool, heads, bs, dh)
-    q = rnd(b, 1, heads, dh)
+    q = rnd(b, s_q, heads, dh)
     tables = (torch.randperm(n_pool - 1, generator=gen)[: b * mb] + 1) \
         .reshape(b, mb).to(dev, torch.int32)
     cur = np.asarray(cursors, np.int64)
     pos = torch.from_numpy(cur.astype(np.int32)).to(dev)
     item = q.element_size()
-    slots = int((cur + 1).sum())
-    walked = int((cur // bs + 1).sum())
+    # each row reads K/V up to its window's last position once; query row
+    # i scores cursor + i + 1 slots
+    slots = int((cur + s_q).sum())
+    scored = int(sum((c + i + 1) for c in cur for i in range(s_q)))
+    walked = int(((cur + s_q - 1) // bs + 1).sum())
     nbytes = (2 * heads * slots * dh * item + 2 * q.numel() * item
               + 4 * (walked + b))
     # the library yardstick: SDPA over each row's gathered window, masked
     kwin = kp[tables.long()].transpose(1, 2).reshape(b, heads, max_len, dh)
     vwin = vp[tables.long()].transpose(1, 2).reshape(b, heads, max_len, dh)
-    mask = (torch.arange(max_len, device=dev)[None, :]
-            <= pos[:, None].long())[:, None, None, :]
+    rows = pos[:, None].long() + torch.arange(s_q, device=dev)[None, :]
+    mask = (torch.arange(max_len, device=dev)[None, None, :]
+            <= rows[:, :, None])[:, None]
     qh = q.transpose(1, 2)
     args = (q, kp, vp, tables, pos)
     return dict(
@@ -114,8 +120,8 @@ def paged_case(gen, cursors, *, dtype=torch.bfloat16, heads=12, dh=64,
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kwin, vwin, attn_mask=mask),
         shape=f"B {b}, H {heads}, dh {dh}, bs {bs}, {n_pool}-block pool, "
-              f"cursors {cur.tolist()}",
-        **bound(nbytes, 4 * dh * heads * slots),
+              f"{f's_q {s_q}, ' if s_q > 1 else ''}cursors {cur.tolist()}",
+        **bound(nbytes, 4 * dh * heads * scored),
     )
 
 

@@ -33,14 +33,27 @@ positions ``i S/n ..``):
   whose backward is the same exchange (it is its own adjoint). Needs
   ``H % n == 0``.
 
+- **Gathered** (:func:`gathered_attention`): a non-context-parallel
+  attention (the dense path, the vmem or the flash kernel) under a seq
+  axis, the reference's replicated-sequence ``shard_map``. The forward
+  all-gathers q, k and v (grouped K/V heads as they are), runs
+  ``attn_fn`` over the whole sequence and keeps this rank's rows; the
+  backward all-gathers the output's cotangent, runs the same attention's
+  backward over the whole sequence and keeps this rank's rows of dq, dk
+  and dv. Every rank computes the whole attention, so each rank's result
+  is bit-identical to one call on the whole sequence, and the backward
+  exchanges one tensor, not three partial gradients; the price is the
+  reference's, n-fold attention work.
+
 ``n == 1`` takes no collective: Ulysses calls ``attn_fn`` on its inputs
 and the ring makes one hop. The exchanges go through a small object: the
 process group's (:class:`GroupComm`: ``dist.batch_isend_irecv`` to
-``i + 1`` from ``i - 1``, ``dist.all_to_all_single``), or
-:class:`LoopbackComm`, which holds all ``n`` shards in one process along a
-leading dim, so one card (or a CPU test) runs every hop of an n-way ring
-and of its reverse in the backward at full width
-(:func:`ring_attention_loopback`, :func:`ulysses_attention_loopback`).
+``i + 1`` from ``i - 1``, ``dist.all_to_all_single``,
+``dist.all_gather_into_tensor``), or :class:`LoopbackComm`, which holds
+all ``n`` shards in one process along a leading dim, so one card (or a
+CPU test) runs every hop of an n-way ring and of its reverse in the
+backward at full width (:func:`ring_attention_loopback`,
+:func:`ulysses_attention_loopback`, :func:`gathered_attention_loopback`).
 The loopback is test scaffolding: the training CLI never selects it.
 """
 
@@ -50,7 +63,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpudist_torch.ops.attention import dot_product_attention, kernel_attention
+from tpudist_torch.ops.attention import (
+    dot_product_attention, kernel_attention, multi_head_attention,
+)
 
 NEG_INF = float(np.finfo(np.float32).min)
 #: the context-parallel ``attn_impl`` values of the models
@@ -89,6 +104,15 @@ class GroupComm:
         dist.all_to_all_single(out, x[0].contiguous(), group=self.group)
         return out[None]
 
+    def all_gather(self, x):
+        """``x [1, B, S/n, ...]``, this rank's chunk -> ``[B, S, ...]``, the
+        seq ranks' chunks in rank order along S."""
+        part = x[0].contiguous()
+        out = torch.empty((self.n * part.shape[0], *part.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, part, group=self.group)
+        return _unshard(out.view(self.n, *part.shape))
+
 
 class LoopbackComm:
     """All ``n`` seq ranks in one process: tensors carry a leading dim of
@@ -104,6 +128,9 @@ class LoopbackComm:
 
     def all_to_all(self, x):
         return x.transpose(0, 1).contiguous()
+
+    def all_gather(self, x):
+        return _unshard(x)
 
 
 def _scale(d: int) -> float:
@@ -324,6 +351,70 @@ def ulysses_attention_loopback(q, k, v, n: int, *, causal: bool = False,
     return _unshard(_ulysses(_shards(q, n), _shards(k, n), _shards(v, n),
                              LoopbackComm(n), causal,
                              attn_fn or dot_product_attention))
+
+
+class _GatheredAttention(torch.autograd.Function):
+    """:func:`gathered_attention` on ``[R, B, S/n, H, D]`` shards."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_fn, comm, causal):
+        s = q.shape[2]
+        whole = [comm.all_gather(x) for x in (q, k, v)]
+        grad = any(ctx.needs_input_grad[:3])
+        outs, graphs = [], []
+        for i in comm.ranks:
+            # each rank's own call on the whole sequence, whose graph its
+            # backward walks again with the whole cotangent
+            leaves = [x.detach().requires_grad_(grad) for x in whole]
+            with torch.enable_grad() if grad else torch.no_grad():
+                out = attn_fn(*leaves, causal=causal)
+            outs.append(out.detach()[:, i * s:(i + 1) * s])
+            graphs.append((out, leaves))
+        ctx.graphs, ctx.comm, ctx.s = graphs, comm, s
+        return torch.stack(outs)
+
+    @staticmethod
+    def backward(ctx, do):
+        comm, s = ctx.comm, ctx.s
+        do = comm.all_gather(do)
+        grads = []
+        for i, (out, leaves) in zip(comm.ranks, ctx.graphs):
+            g = torch.autograd.grad(out, leaves, do)
+            grads.append([x[:, i * s:(i + 1) * s] for x in g])
+        ctx.graphs = None
+        return (*(torch.stack(list(x)) for x in zip(*grads)), None, None,
+                None)
+
+
+def gathered_attention(q, k, v, attn_fn, comm, causal: bool):
+    """A non-context-parallel ``attn_fn(q, k, v, causal=...)`` over the
+    whole sequence of a seq group (module docstring): ``q, k, v`` are the
+    ranks' chunks ``[R, B, S/n, H(_kv), D]`` (``R`` the ranks ``comm``
+    holds: one for :class:`GroupComm`, ``n`` for :class:`LoopbackComm`),
+    the result this rank's rows of the output, ``[R, B, S/n, H, D]``."""
+    if comm.n == 1:
+        return attn_fn(q[0], k[0], v[0], causal=causal)[None]
+    return _GatheredAttention.apply(q, k, v, attn_fn, comm, causal)
+
+
+def gathered_attention_local(q, k, v, *, group=None, causal: bool = False,
+                             attn_fn=None):
+    """:func:`gathered_attention` on this rank's chunk ``[B, S/n, H, D]``
+    over the seq ``group`` (the dense attention by default, grouped K/V
+    heads repeated)."""
+    return gathered_attention(q[None], k[None], v[None],
+                              attn_fn or multi_head_attention,
+                              GroupComm(group), causal)[0]
+
+
+def gathered_attention_loopback(q, k, v, n: int, *, causal: bool = False,
+                                attn_fn=None):
+    """n-way :func:`gathered_attention` on whole ``[B, S, H, D]`` inputs,
+    all ``n`` ranks in this process (:class:`LoopbackComm`): each rank's
+    attention runs once over the whole sequence."""
+    return _unshard(gathered_attention(
+        _shards(q, n), _shards(k, n), _shards(v, n),
+        attn_fn or multi_head_attention, LoopbackComm(n), causal))
 
 
 def context_parallel_attention(q, k, v, impl: str, group, *, causal: bool):

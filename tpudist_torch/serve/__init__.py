@@ -6,7 +6,10 @@ decode path (counterpart of :mod:`tpudist.serve`).
   pool, per-slot block tables, chain-hashed prefix cache;
 - :mod:`tpudist_torch.serve.prefill` — chunked, bucketed prefill;
 - :mod:`tpudist_torch.serve.engine` — the scheduler (priority lanes,
-  block-budget admission, preempt-to-queue, one-step-delayed fetch);
+  block-budget admission, preempt-to-queue, one-step-delayed fetch,
+  speculative decoding);
+- :mod:`tpudist_torch.serve.spec` — the acceptance rule, early-exit
+  drafts, the draft pool's bytes;
 - :mod:`tpudist_torch.serve.stats` — TTFT/TPOT SLO rows.
 
 Quick start::
@@ -19,7 +22,9 @@ Quick start::
     results = engine.run()
 """
 
-from tpudist_torch.serve.blocks import BlockPool, PagedSlotPool, PrefixCache
+from tpudist_torch.serve.blocks import (
+    BlockPool, PagedSlotPool, PrefixCache, draft_equivalent_blocks,
+)
 from tpudist_torch.serve.engine import (
     NO_EOS,
     QueueFull,
@@ -29,6 +34,7 @@ from tpudist_torch.serve.engine import (
 )
 from tpudist_torch.serve.prefill import Prefiller
 from tpudist_torch.serve.slots import SlotPool, write_slot
+from tpudist_torch.serve.spec import early_exit_draft, speculative_accept
 from tpudist_torch.serve.stats import ServeStats
 
 __all__ = [
@@ -44,4 +50,7 @@ __all__ = [
     "PagedSlotPool",
     "PrefixCache",
     "ServeStats",
+    "early_exit_draft",
+    "speculative_accept",
+    "draft_equivalent_blocks",
 ]

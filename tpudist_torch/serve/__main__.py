@@ -7,14 +7,22 @@
     # GPT-2 124M at full width, bf16, paged pool through the kernels
     python -m tpudist_torch.serve --device cuda --full --bf16 --paged
 
+    # speculative decoding: the target's first 4 blocks draft 4 tokens a
+    # tick, one paged-kernel verify pass a layer scores them
+    python -m tpudist_torch.serve --full --bf16 --paged --spec_draft 4 --spec_k 4
+
+    # a local HF GPT-2 checkpoint (its geometry flags as given)
+    python -m tpudist_torch.serve --init_hf /path/to/gpt2 --prompt 464,3290
+
     # the plain CPU path
     python -m tpudist_torch.serve --device cpu --requests 3 --max_new 6
 
 ``--prompt`` takes comma-separated token ids (no tokenizer ships);
 without any, mixed-length random prompts exercise the scheduler. The
-flags are the JAX CLI's, plus ``--device``, ``--paged`` /
-``--block_size`` and ``--attn_impl`` (default ``fused``: decode through
-the kernels).
+flags are the JAX CLI's (``--tensor``, ``--trace`` and ``--metrics_port``
+are not ported: ROADMAP Queue 1 #7, #8), plus ``--device``, ``--full``,
+``--paged`` / ``--block_size`` and ``--attn_impl`` (default ``fused``:
+decode through the kernels).
 """
 
 from __future__ import annotations
@@ -27,8 +35,11 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--init_hf", default=None, type=str,
+                   help="local HF GPT-2 checkpoint to serve (implies "
+                   "--full); default: random weights from --seed")
     p.add_argument("--vocab_size", default=None, type=int,
-                   help="default: 50257 with --full, else 256")
+                   help="default: 50257 with --full or --init_hf, else 256")
     p.add_argument("--seq_len", default=1024, type=int)
     p.add_argument("--hidden_dim", default=768, type=int)
     p.add_argument("--depth", default=12, type=int)
@@ -52,6 +63,12 @@ def parse_args(argv=None):
     p.add_argument("--top_k", default=0, type=int)
     p.add_argument("--top_p", default=1.0, type=float)
     p.add_argument("--eos_id", default=None, type=int)
+    p.add_argument("--spec_draft", default=0, type=int,
+                   help="speculative decoding: an early-exit draft of this "
+                   "depth (the target's first N blocks, its weights; 0 = "
+                   "off)")
+    p.add_argument("--spec_k", default=4, type=int,
+                   help="with --spec_draft: proposals a slot a tick")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--log_dir", default=".", type=str)
     p.add_argument("--JobID", default="Serve", type=str)
@@ -64,11 +81,11 @@ def main(argv=None):
     import torch
 
     from tpudist_torch.models.gpt2 import GPT2
-    from tpudist_torch.serve import ServeEngine
+    from tpudist_torch.serve import ServeEngine, early_exit_draft
     from tpudist_torch.serve.stats import fmt_s
     from tpudist_torch.telemetry import TelemetrySink
 
-    small = not args.full
+    small = not (args.full or args.init_hf)
     model = GPT2(
         vocab_size=args.vocab_size or (256 if small else 50257),
         max_seq_len=args.seq_len,
@@ -78,6 +95,12 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         attn_impl=args.attn_impl, device=args.device, seed=args.seed,
     )
+    if args.init_hf:
+        from tpudist_torch.interop import load_hf_params
+
+        model.load_state_dict(load_hf_params(
+            args.init_hf, arch="gpt2", depth=model.depth,
+            num_heads=model.num_heads))
     rng = np.random.Generator(np.random.PCG64(args.seed))
     if args.prompt:
         prompts = [np.asarray([int(t) for t in s.split(",")], np.int32)
@@ -92,7 +115,9 @@ def main(argv=None):
     engine = ServeEngine(
         model, max_slots=args.slots, max_queue=args.max_queue, seed=args.seed,
         sink=sink, stats_every=10, paged=args.paged,
-        block_size=args.block_size,
+        block_size=args.block_size, spec_k=args.spec_k,
+        draft_model=(early_exit_draft(model, args.spec_draft)
+                     if args.spec_draft else None),
     )
     rids = [
         engine.submit(pr, args.max_new, temperature=args.temperature,
@@ -114,7 +139,11 @@ def main(argv=None):
         f"TPOT p50/p95 {fmt_s(snap['tpot_p50'], 1e3, 1)}/"
         f"{fmt_s(snap['tpot_p95'], 1e3, 1)}ms, "
         f"slot utilization {fmt_s(snap['slot_utilization'], digits=2)}\n"
-        f"serve telemetry: {sink.path}"
+        + (f"speculative: {snap['spec_accepted']}/{snap['spec_drafted']} "
+           "drafts accepted (rate "
+           f"{fmt_s(snap['spec_acceptance_rate'], digits=2)})\n"
+           if args.spec_draft else "")
+        + f"serve telemetry: {sink.path}"
     )
     return snap
 

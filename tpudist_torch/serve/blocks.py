@@ -333,20 +333,19 @@ class PagedSlotPool:
             self.prefix.insert(prompt, table, n_hit)
         return slot
 
-    def needs_block(self, slot: int) -> bool:
-        return int(self.positions[slot]) // self.block_size >= int(
-            self.fill[slot]
-        )
-
-    def ensure_next(self, slot: int) -> bool:
-        """Map the slot's next block; ``False`` when the pool is dry."""
-        if not self.needs_block(slot):
-            return True
-        b = self.blocks.alloc()
-        if b is None:
-            return False
-        self.tables[slot, self.fill[slot]] = b
-        self.fill[slot] += 1
+    def ensure_to(self, slot: int, n_tokens: int) -> bool:
+        """Map blocks until the slot's table covers ``n_tokens`` positions
+        (clamped to the table's extent); ``False`` when the pool runs dry
+        on the way (blocks mapped so far stay mapped). A plain decode
+        step asks for its cursor plus one; the speculative dispatch maps a
+        whole window at once."""
+        need = min(self.blocks_for(n_tokens), self.max_blocks)
+        while int(self.fill[slot]) < need:
+            b = self.blocks.alloc()
+            if b is None:
+                return False
+            self.tables[slot, self.fill[slot]] = b
+            self.fill[slot] += 1
         return True
 
     def advance(self, slot: int) -> None:
@@ -374,3 +373,17 @@ class PagedSlotPool:
         table = np.zeros(self.max_blocks, np.int32)
         table[: len(hit_blocks)] = hit_blocks
         return gather_prefix(self.cache, table)
+
+
+def draft_equivalent_blocks(model, draft_model, max_slots: int,
+                            block_size: int) -> int:
+    """How many target-model KV blocks the draft pool's bytes buy: the
+    equal-memory handicap for a speculative-against-plain comparison (a
+    speculative engine holds a whole contiguous draft pool beside its
+    paged target pool, so the plain engine gets that many more blocks).
+    Rounds up."""
+    from tpudist_torch.serve.spec import cache_bytes
+
+    per_token = cache_bytes(model, 1) // model.max_seq_len
+    draft = cache_bytes(draft_model, max_slots)
+    return -(-draft // max(per_token * block_size, 1))

@@ -34,9 +34,25 @@ lowest-priority slot goes back to the FRONT of its lane and replays its
 prompt plus progress at re-admission; its stream continues bit-identical).
 **Priority lanes** with TTFT-deadline aging (``ttft_slo_s``).
 
-Left out of this slice (see ROADMAP.md): speculative decoding
-(``draft_model``), tensor-sharded serving (``mesh``), the AOT compile
-cache, program anatomy, span tracing and the metrics endpoint.
+**Speculative mode** (``draft_model=``, e.g.
+:func:`tpudist_torch.serve.spec.early_exit_draft`): each tick the draft
+proposes ``spec_k`` tokens per live slot (``spec_k`` single-token steps
+plus one priming step, on a second, contiguous draft pool pinned to the
+target's slots), and ONE target pass scores the window ``[last, d_1..d_K]``
+at per-row positions; on the paged pool that pass launches the paged
+decode kernel once per layer at ``s_q = spec_k + 1``.
+Acceptance-rejection (:func:`tpudist_torch.serve.spec.speculative_accept`)
+keeps the target's distribution exactly, so greedy output is the plain
+engine's token for token. The cursor becomes device-carried (only the
+card knows how many tokens a pass accepted; the host's copy syncs at
+each delayed fetch, at most two passes behind), one clamp ``limit =
+prompt_len + max_new_tokens`` bounds sequence end and budget on the card,
+and rejected drafts' K/V is left above the cursor, where the causal mask
+never admits it before it is overwritten.
+
+Left out of this slice (see ROADMAP.md): tensor-sharded serving
+(``mesh``), the AOT compile cache, program anatomy, span tracing and the
+metrics endpoint.
 """
 
 from __future__ import annotations
@@ -48,7 +64,10 @@ import time
 import numpy as np
 import torch
 
-from tpudist_torch.generate import eos_retire, row_keys, sample_logits_per_row
+from tpudist_torch.generate import (
+    eos_retire, fold_keys, row_keys, sample_logits_per_row,
+)
+from tpudist_torch.ops.decode import PAGED_MAX_SQ
 from tpudist_torch.serve.prefill import Prefiller
 from tpudist_torch.serve.slots import SlotPool
 from tpudist_torch.serve.stats import ServeStats
@@ -100,6 +119,31 @@ class _Inflight:
     rid: np.ndarray
 
 
+@dataclasses.dataclass
+class _SpecInflight:
+    """A dispatched-but-unfetched speculative pass: ``host`` ``[S, K+5]``
+    int32 on its way to the host (the emitted window ``[:, :K+1]``, then
+    ``n_emit``, ``n_spec``, the advanced cursor and the stop flag), with
+    the same ownership snapshot as :class:`_Inflight`."""
+
+    host: torch.Tensor
+    event: torch.cuda.Event | None
+    live: np.ndarray
+    rid: np.ndarray
+
+
+def _to_host(packed: torch.Tensor):
+    """Start a step's results toward the host: a non-blocking copy into
+    pinned memory and an event the host waits on one tick later."""
+    if not packed.is_cuda:
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 class ServeEngine:
     """Continuous-batching engine over a model with the decode contract
     (the port's GPT-2 and Llama). Runs on the model's device, on the
@@ -113,7 +157,16 @@ class ServeEngine:
     ``max_seq_len``), ``n_blocks`` (default: the contiguous pool's bytes
     plus the garbage block), ``prefix_cache``, ``watermark_blocks``
     (default ``max_slots``). ``retain_results=False`` drops a request's
-    tokens once it completes (stream through ``on_token``/``events()``)."""
+    tokens once it completes (stream through ``on_token``/``events()``).
+
+    ``draft_model`` (same vocabulary, ``max_seq_len`` at least the
+    target's) turns on speculative decoding with ``spec_k`` proposals a
+    tick (module docstring); a draft made by
+    :func:`tpudist_torch.serve.spec.early_exit_draft` of ``model`` is
+    rebuilt on the engine's compute copy, so it still shares the target's
+    weights. On a paged engine whose attention is the kernel the verify
+    pass takes ``spec_k + 1`` query rows, so ``spec_k + 1`` must be at most
+    the kernel's ``PAGED_MAX_SQ``."""
 
     def __init__(self, model, *, max_slots: int = 8,
                  max_active: int | None = None, max_queue: int = 256,
@@ -123,11 +176,17 @@ class ServeEngine:
                  paged: bool = False, block_size: int = 32,
                  n_blocks: int | None = None, prefix_cache: bool = True,
                  watermark_blocks: int | None = None,
-                 ttft_slo_s: float | None = None):
+                 ttft_slo_s: float | None = None, draft_model=None,
+                 spec_k: int = 4):
+        source = model
         # the engine serves a copy held in the compute dtype: the model's
         # float32 masters would be cast at every use of every decode step
         self.model = model = model.compute_copy()
         self.device = model.device
+        self.spec = draft_model is not None
+        self.spec_k = int(spec_k)
+        if self.spec:
+            draft_model = self._check_draft(source, draft_model, paged)
         self.seed = int(seed)
         self.max_active = max_slots if max_active is None else max_active
         if not 1 <= self.max_active <= max_slots:
@@ -152,6 +211,13 @@ class ServeEngine:
             self.pool = SlotPool(model, max_slots)
             self.watermark = 0
         self.prefiller = Prefiller(model, chunk=prefill_chunk)
+        self.draft = draft_model
+        if self.spec:
+            # the draft's own contiguous pool, a row per target slot (its
+            # cursors are the engine's lane), and a headless prefiller
+            self._draft_pool = SlotPool(draft_model, max_slots)
+            self._draft_prefiller = Prefiller(draft_model, chunk=prefill_chunk,
+                                              head=False)
         self.on_token = on_token
         self.ttft_slo_s = ttft_slo_s
         self.stats = ServeStats(
@@ -185,8 +251,40 @@ class ServeEngine:
         # the device-carried token feedback and the admission overrides
         self._prev_tok = torch.zeros(s, dtype=torch.int32, device=self.device)
         self._override: dict[int, int] = {}
-        self._inflight: _Inflight | None = None
+        # speculative: the device-carried cursor lane and the per-slot
+        # emission limit (prompt_len + max_new_tokens)
+        self._pos_dev = torch.zeros(s, dtype=torch.int32, device=self.device)
+        self._limit = np.zeros(s, np.int32)
+        self._inflight: _Inflight | _SpecInflight | None = None
         self._drained_events: list[TokenEvent] = []
+
+    def _check_draft(self, source, draft, paged: bool):
+        """Validate a draft model; returns the one the engine runs."""
+        model = self.model
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if getattr(draft, "vocab_size", None) != model.vocab_size:
+            raise ValueError(
+                f"draft vocab {getattr(draft, 'vocab_size', None)} != target "
+                f"vocab {model.vocab_size}: the acceptance ratio compares "
+                "the two distributions token by token")
+        if draft.max_seq_len < model.max_seq_len:
+            raise ValueError(
+                f"draft max_seq_len {draft.max_seq_len} < target's "
+                f"{model.max_seq_len}: the draft pool rides the target's "
+                "cursor lane")
+        if paged and model.attn_impl != "xla" \
+                and self.spec_k + 1 > PAGED_MAX_SQ:
+            raise ValueError(
+                f"spec_k {self.spec_k}: the verify pass takes spec_k + 1 = "
+                f"{self.spec_k + 1} query rows, the paged decode kernel at "
+                f"most {PAGED_MAX_SQ}")
+        parent = getattr(draft, "early_exit_of", None)
+        if parent is not None and parent[0] is source:
+            from tpudist_torch.serve.spec import early_exit_draft
+
+            return early_exit_draft(model, draft.depth)
+        return draft.compute_copy()
 
     # -- submission --------------------------------------------------------
 
@@ -453,6 +551,12 @@ class ServeEngine:
                     self.pool.blocks.decref(int(blk))
             else:
                 slot = self.pool.insert(row_cache, len(kv_tokens))
+            if self.spec:
+                # the draft's K/V of the same tokens in the same slot's row
+                # (no prefix cache on the draft side: always a prefill)
+                d_row, _ = self._draft_prefiller(kv_tokens)
+                self._draft_pool.write_row(d_row, slot)
+                self._limit[slot] = len(req.prompt) + req.max_new_tokens
             self._req[slot] = req.request_id
             self._dispatched[slot] = n_disp
             self._budget[slot] = req.max_new_tokens
@@ -491,17 +595,37 @@ class ServeEngine:
         self._req[victim] = -1
         self.stats.on_preempt(rid)
 
+    def _live_rows(self) -> np.ndarray:
+        """Rows a decode step runs: the occupied slots, in the plain
+        engine only those with budget left (the speculative pass enforces
+        the budget on the card by its ``limit`` clamp)."""
+        if self.spec:
+            return self.pool.active.copy()
+        return self.pool.active & (self._dispatched < self._budget)
+
+    def _tokens_to_map(self, slot: int) -> int:
+        """Positions the slot's table must cover before the next dispatch:
+        a plain step writes the cursor's one; a verify pass writes up to
+        ``spec_k + 1`` past a cursor the host knows one fetch late (the
+        pass in flight may have moved it ``spec_k + 1`` more), capped at
+        the row's limit, which ``submit`` checked fits the pool."""
+        pos = int(self.pool.positions[slot])
+        if not self.spec:
+            return pos + 1
+        return min(pos + 2 * (self.spec_k + 1), int(self._limit[slot]))
+
     def _ensure_blocks(self, live: np.ndarray) -> np.ndarray:
-        """Paged pre-dispatch pass: every live slot whose cursor crossed a
-        block boundary maps a fresh block. A dry pool escalates:
-        force-fetch the in-flight step, evict a cold prefix leaf, preempt
-        the newest lowest-priority slot."""
+        """Paged pre-dispatch pass: every live slot maps the blocks its
+        next step writes. A dry pool escalates: force-fetch the in-flight
+        step, evict a cold prefix leaf, preempt the newest lowest-priority
+        slot."""
         for slot in np.nonzero(live)[0]:
-            while live[slot] and not self.pool.ensure_next(slot):
+            while live[slot] and not self.pool.ensure_to(
+                    slot, self._tokens_to_map(slot)):
                 if self._inflight is not None:
                     self._drained_events.extend(self._process(self._inflight))
                     self._inflight = None
-                    live &= self.pool.active & (self._dispatched < self._budget)
+                    live &= self._live_rows()
                     continue
                 if self.pool.evict_prefix(1):
                     continue
@@ -513,23 +637,125 @@ class ServeEngine:
                 live[victim] = False
         return live
 
-    def _dispatch(self) -> _Inflight | None:
-        """Enqueue the next decode step without waiting on the previous
-        one. Live rows = occupied slots with budget left; a slot whose
-        stop token sits in the unfetched step rides one masked zombie row
-        (discarded at process time by the ownership guard)."""
-        live = self.pool.active & (self._dispatched < self._budget)
+    def _overrides(self):
+        """The admission overrides as lanes: token, flag (and cursor)."""
+        s = self.pool.max_slots
+        override_tok = np.zeros(s, np.int32)
+        use_override = np.zeros(s, np.int32)
+        override_pos = np.zeros(s, np.int32)
+        for slot, tok in self._override.items():
+            override_tok[slot] = tok
+            use_override[slot] = 1
+            override_pos[slot] = self.pool.positions[slot]
+        self._override.clear()
+        return override_tok, use_override, override_pos
+
+    def _dispatch_spec(self) -> _SpecInflight | None:
+        """The speculative :meth:`_dispatch`: live rows are the occupied
+        slots (the budget is enforced on the card by the ``limit`` clamp,
+        which emits nothing for an exhausted row); the cursor lane chains
+        through the passes on the card, and an admission splices a fresh
+        slot's cursor in as it splices its first token."""
+        live = self._live_rows()
         if self.paged and live.any():
             live = self._ensure_blocks(live)
         if not live.any():
             return None
-        s = self.pool.max_slots
-        override_tok = np.zeros(s, np.int32)
-        use_override = np.zeros(s, np.int32)
-        for slot, tok in self._override.items():
-            override_tok[slot] = tok
-            use_override[slot] = 1
-        self._override.clear()
+        override_tok, use_override, override_pos = self._overrides()
+        ints = self._to_device(np.stack([
+            override_tok, use_override, override_pos,
+            (~live).astype(np.int32), self._req.astype(np.int32),
+            self._topk, self._eos, self._limit,
+        ]))
+        floats = self._to_device(np.stack([self._temp, self._topp]))
+        tables = self._to_device(self.pool.tables) if self.paged else None
+        (o_tok, use_o, o_pos, done, req_ids, top_k, eos,
+         limit) = ints.unbind(0)
+        use_o = use_o.bool()
+        tok0 = torch.where(use_o, o_tok, self._prev_tok)
+        pos = torch.where(use_o, o_pos, self._pos_dev)
+        emit, n_emit, n_spec, new_pos, done_out = self._spec_pass(
+            tok0, pos, done.bool(), req_ids, floats[0], top_k, floats[1],
+            eos, limit, tables)
+        self._pos_dev = new_pos
+        last = emit.gather(1, (n_emit.long() - 1).clamp(min=0)[:, None])[:, 0]
+        self._prev_tok = torch.where(n_emit > 0, last, tok0)
+        packed = torch.cat([emit, torch.stack(
+            [n_emit, n_spec, new_pos, done_out.to(torch.int32)], 1)], 1)
+        host, event = _to_host(packed)
+        self.decode_steps += 1
+        return _SpecInflight(host, event, live, self._req.copy())
+
+    def _spec_pass(self, tok0, pos, done, req_ids, temperature, top_k, top_p,
+                   eos, limit, tables):
+        """One speculative pass on the card over the whole slot batch:
+        ``spec_k`` draft steps and the priming step, the target's verify
+        pass over ``[tok0, d_1..d_K]``, acceptance and the first-stop cut.
+        ``allowed = limit - 1 - pos`` tokens a row may still emit, and
+        ``n_spec = clip(allowed - 1, 0, K)`` drafts are eligible, so
+        ``n_emit <= allowed``: the card never overshoots a budget."""
+        from tpudist_torch.serve.spec import speculative_accept
+
+        k = self.spec_k
+        dev = tok0.device
+        pos = pos.to(torch.int32)
+        allowed = limit - 1 - pos
+        n_spec = torch.clamp(allowed - 1, 0, k).to(torch.int32)
+        alive = (~done) & (allowed > 0)
+        keys = row_keys(self.seed, req_ids, pos)
+        # the draft rides the target's cursors; a position past its last
+        # slot (a row's draft tail near max_seq_len, never consumed) is
+        # clamped onto that slot, whose K/V no consumed proposal reads
+        d_last = self.draft.max_seq_len - 1
+        d_cache = self._draft_pool.cache
+        cur, d_toks, d_logits = tok0, [], []
+        for i in range(k):
+            dl = self.draft(cur[:, None].long(), cache=d_cache,
+                            positions=torch.clamp(pos + i, max=d_last))[:, -1]
+            cur = sample_logits_per_row(
+                dl, fold_keys(keys, i), temperature=temperature, top_k=top_k,
+                top_p=top_p)
+            d_toks.append(cur)
+            d_logits.append(dl)
+        # prime d_K's draft K/V (no head): after a fully accepted window
+        # the next pass feeds the bonus token, and the draft attends d_K
+        self.draft(cur[:, None].long(), cache=d_cache,
+                   positions=torch.clamp(pos + k, max=d_last),
+                   return_hidden=True)
+        d_toks = torch.stack(d_toks, 1)
+        window = torch.cat([tok0[:, None], d_toks], 1)
+        t_logits = self.model(window.long(), cache=self.pool.cache,
+                              positions=pos, block_tables=tables)
+        emit, n_emit = speculative_accept(
+            t_logits, torch.stack(d_logits, 1), d_toks, n_spec, keys,
+            temperature=temperature, top_k=top_k, top_p=top_p)
+        # the first-stop cut: keep through the first stop token and flag
+        # the row for retirement
+        cols = torch.arange(k + 1, device=dev)[None, :]
+        is_eos = ((emit == eos[:, None]) & (eos >= 0)[:, None]
+                  & (cols < n_emit[:, None]))
+        first = torch.where(is_eos, cols, k + 1).amin(1).to(torch.int32)
+        n_emit = torch.minimum(n_emit, first + 1)
+        eos_hit = first < n_emit
+        n_emit = torch.where(alive, n_emit, 0).to(torch.int32)
+        n_spec = torch.where(alive, n_spec, 0).to(torch.int32)
+        emit = torch.where(cols < n_emit[:, None], emit, 0).to(torch.int32)
+        done_out = done | (alive & eos_hit)
+        return emit, n_emit, n_spec, (pos + n_emit).to(torch.int32), done_out
+
+    def _dispatch(self) -> _Inflight | _SpecInflight | None:
+        """Enqueue the next decode step without waiting on the previous
+        one. Live rows = occupied slots with budget left; a slot whose
+        stop token sits in the unfetched step rides one masked zombie row
+        (discarded at process time by the ownership guard)."""
+        if self.spec:
+            return self._dispatch_spec()
+        live = self._live_rows()
+        if self.paged and live.any():
+            live = self._ensure_blocks(live)
+        if not live.any():
+            return None
+        override_tok, use_override, _ = self._overrides()
         # every host lane travels as a fresh copy (see _to_device): two
         # packed transfers plus the block tables per tick
         ints = self._to_device(np.stack([
@@ -554,23 +780,61 @@ class ServeEngine:
         nxt, done = eos_retire(nxt, done.bool(), eos, 0)
         self._prev_tok = nxt
         # the step's results start for the host now; read one tick later
-        packed = torch.stack([nxt, done.to(torch.int32)])
-        if self.device.type == "cuda":
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = packed, None
+        host, event = _to_host(torch.stack([nxt, done.to(torch.int32)]))
         for slot in np.nonzero(live)[0]:
             self.pool.advance(slot)
             self._dispatched[slot] += 1
         self.decode_steps += 1
         return _Inflight(host, event, live, self._req.copy())
 
-    def _process(self, prev: _Inflight) -> list[TokenEvent]:
+    def _retire(self, rid: int, slot: int) -> None:
+        self._finish(rid)
+        self.pool.release(slot)
+        self._req[slot] = -1
+        self._slot_req.pop(slot, None)
+
+    def _process_spec(self, prev: _SpecInflight) -> list[TokenEvent]:
+        """Fetch a speculative pass: stream each owned row's window in
+        order (a :class:`TokenEvent` per token), sync the host cursor from
+        the card's, and retire on the stop flag or on the budget, which
+        the card's clamp lands exactly on a window's last token."""
+        if prev.event is not None:
+            prev.event.synchronize()
+        out = prev.host.numpy()
+        k1 = self.spec_k + 1
+        emit = out[:, :k1]
+        n_emit, n_spec, pos, done = out[:, k1:].T
+        events: list[TokenEvent] = []
+        drafted = accepted = 0
+        for slot in np.nonzero(prev.live)[0]:
+            rid = int(prev.rid[slot])
+            if self._req[slot] != rid or rid not in self._counts:
+                continue  # a zombie pass: the ownership guard
+            self.pool.positions[slot] = int(pos[slot])
+            m = int(n_emit[slot])
+            if m == 0:
+                continue
+            # drafted counts the ELIGIBLE proposals (a clamped window is
+            # not a rejection); accepted leaves out the correction token
+            drafted += int(n_spec[slot])
+            accepted += m - 1
+            for j in range(m):
+                n = self._counts[rid]
+                finished = ((bool(done[slot]) and j == m - 1)
+                            or n + 1 >= int(self._budget[slot]))
+                events.append(self._emit(rid, int(emit[slot, j]), finished))
+                if finished:
+                    self._retire(rid, slot)
+                    break
+        self.stats.on_decode_step(int(prev.live.sum()), len(events))
+        self.stats.on_spec(drafted, accepted)
+        return events
+
+    def _process(self, prev) -> list[TokenEvent]:
         """Fetch a dispatched step's tokens (the one host wait per tick,
         one step behind the card) and stream/retire."""
+        if isinstance(prev, _SpecInflight):
+            return self._process_spec(prev)
         if prev.event is not None:
             prev.event.synchronize()
         tok, done = prev.host.numpy()
@@ -585,9 +849,6 @@ class ServeEngine:
             finished = bool(done[slot]) or n + 1 >= int(self._budget[slot])
             events.append(self._emit(rid, int(tok[slot]), finished))
             if finished:
-                self._finish(rid)
-                self.pool.release(slot)
-                self._req[slot] = -1
-                self._slot_req.pop(slot, None)
+                self._retire(rid, slot)
         self.stats.on_decode_step(int(prev.live.sum()), len(events))
         return events

@@ -22,12 +22,17 @@ from tpudist_torch.generate import bucket_length, reset_cursors, zero_cache
 class Prefiller:
     """Callable turning a prompt into ``(row_cache, last_logits)``: a
     batch-1 cache holding the prompt's K/V and the f32 logits ``[V]``
-    after the prompt's LAST real token."""
+    after the prompt's LAST real token. ``head=False`` skips the LM head
+    on the final chunk too and returns ``(row_cache, None)``: the
+    speculative draft's prefill, whose prompt-end logits nobody reads
+    (its first proposal follows the target's first token)."""
 
-    def __init__(self, model, *, chunk: int = 512, minimum: int = 8):
+    def __init__(self, model, *, chunk: int = 512, minimum: int = 8,
+                 head: bool = True):
         self.model = model
         self.chunk = min(int(chunk), model.max_seq_len)
         self.minimum = minimum
+        self.head = head
         if self.chunk < 1:
             raise ValueError(f"prefill chunk must be >= 1, got {chunk}")
 
@@ -71,7 +76,7 @@ class Prefiller:
             toks = np.zeros((1, padded), np.int64)
             toks[0, :n] = prompt[off:off + n]
             toks = torch.from_numpy(toks).to(self.model.device)
-            final = i + 1 == len(plan)
+            final = i + 1 == len(plan) and self.head
             # earlier chunks only feed the cache: no LM head for them
             out = self.model(toks, cache=cache, return_hidden=not final)
             if final:
@@ -80,4 +85,4 @@ class Prefiller:
             last = n - 1
         # the cursors now sit past p (padded final chunk); the pool copy
         # moves only K/V and the engine owns the slot's true length
-        return cache, logits[0, last]
+        return cache, None if logits is None else logits[0, last]

@@ -58,6 +58,15 @@ class SlotPool:
         are the same resource)."""
         return self.n_active / self.max_slots
 
+    def write_row(self, row_cache: dict, slot: int) -> None:
+        """Copy a prefilled batch-1 cache into a given slot's row without
+        the pool's occupancy bookkeeping: the speculative draft pool,
+        whose row for a request is the slot the target's admission chose
+        and whose cursors are the engine's shared per-slot lane."""
+        if not 0 <= slot < self.max_slots:
+            raise ValueError(f"slot {slot} outside [0, {self.max_slots})")
+        write_slot(self.cache, row_cache, slot)
+
     def insert(self, row_cache: dict, true_len: int) -> int:
         """Copy a prefilled batch-1 cache into a free slot; returns the
         slot. Raises when the pool is full (admission checks first)."""

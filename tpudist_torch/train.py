@@ -89,7 +89,6 @@ from tpudist_torch.memory import device_memory_stats
 from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.models.lm_utils import seq_shard_lm
 from tpudist_torch.optim import FusedAdamWState, Optimizer, load_tensors
-from tpudist_torch.parallel.cp import CP_IMPLS
 from tpudist_torch.profiling import WindowedProfiler
 from tpudist_torch.remat import remat_module, resolve as resolve_remat
 from tpudist_torch.rng import fold_in
@@ -296,11 +295,11 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     has no stream, as the reference does.
 
     ``layout`` shards the sequence over its seq group (module docstring):
-    the model must take a context-parallel ``attn_impl`` (another raises
-    ``NotImplementedError``: the reference's GSPMD gathers the sequence
-    for it, ROADMAP Queue 1 #5 (remainder)), the default loss must be
-    ``lm_loss`` on ``"tokens"``, and a ``forward_loss`` must be one built
-    for the same layout (``chunked_lm_forward(..., layout=)``).
+    the model must be one built on the same layout (a context-parallel
+    ``attn_impl``, or another, which attends over the gathered sequence),
+    the default loss must be ``lm_loss`` on ``"tokens"``, and a
+    ``forward_loss`` must be one built for the same layout
+    (``chunked_lm_forward(..., layout=)``).
 
     Under a process group ``step(state, batch, votes)`` also sums the
     host floats ``votes`` over the ranks in the loss's all-reduce
@@ -329,12 +328,10 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             "it (BatchNorm's running statistics would move twice a step)")
     seq = layout.seq if layout is not None else 1
     if seq > 1:
-        impl = getattr(model, "attn_impl", None)
-        if impl not in CP_IMPLS:
-            raise NotImplementedError(
-                f"a seq axis of {seq} with attn_impl={impl!r} is not ported "
-                "yet (ROADMAP Queue 1 #5 (remainder)); use ring, ulysses or "
-                "ulysses_flash")
+        if getattr(model, "layout", None) is not layout:
+            raise ValueError(
+                f"a seq axis of {seq} needs a model built on the same layout "
+                "(its attention runs over the layout's seq group)")
         if forward_loss is None and (loss_fn is not lm_loss
                                      or input_key != label_key):
             raise ValueError("a seq-sharded step computes the next-token "

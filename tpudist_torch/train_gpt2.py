@@ -62,9 +62,10 @@ and each trains on its chunk of every sequence
 ``tokens/sec`` line count replicas, and the checkpoint's world is the
 replicas' (the state is the same on every seq rank, so a run resumes at
 another ``--cp``). ``--cp 1`` runs the same attention bodies on one rank
-with no collective. ``--cp > 1`` with another ``--attn`` (which the
-reference runs by gathering the sequence) raises ``NotImplementedError``
-naming ROADMAP Queue 1 #5 (remainder); ``--generate`` with a
+with no collective. ``--cp > 1`` with another ``--attn`` (``xla``,
+``vmem``, ``flash``, ``auto``, which resolves by the global ``--seq_len``)
+attends over the sequence gathered from the seq ranks, as the reference's
+GSPMD does; ``--generate`` with a
 context-parallel attention, and ``--eval`` or ``--generate`` with ``--cp >
 1``, exit before training, as in the reference.
 
@@ -207,12 +208,6 @@ def check_ported(parser, args) -> None:
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
-    if args.cp > 1 and args.attn not in CP_ATTN:
-        raise NotImplementedError(
-            f"--cp {args.cp} with --attn {args.attn} (the sequence gathered "
-            "for a non-context-parallel attention) is not ported yet (ROADMAP "
-            "Queue 1 #5 (remainder)); use --attn ring, ulysses or "
-            "ulysses_flash")
 
 
 def resolve_attn(attn: str, seq_len: int, device) -> str:
