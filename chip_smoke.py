@@ -427,9 +427,50 @@ Phases, each fatal on failure:
     --paged --spec_draft 4 --spec_k 4`` and ``python -m tpudist_torch.main
     --serve --spec_draft 1`` exit 0 and their ``serve`` rows carry the
     speculative fields; a paged engine with ``spec_k`` 16 raises
-    ``ValueError`` (the kernel takes at most 16 query rows).
+    ``ValueError`` (the kernel takes at most 16 query rows);
+55. the quantized ring (``comm.ring_allreduce_quantized``), loopback n = 4
+    on the card: GPT-2 124M's gradient shapes flattened by
+    ``BucketLayout``, each simulated rank its own random gradient,
+    stochastic rounding keyed per rank: every rank's sum bit-identical,
+    within ``w A / 127`` of the exact float32 sum (``A`` the ranks' amax
+    summed: the bound of tests/test_torch_comm.py), int8 on the wire at
+    least 3x under float32 (``wire_bytes``); one reduction's time per rank
+    beside the bound of one pass over its buckets (read them, write the
+    sum: 8 bytes an element);
+56. ZeRO-1 through the fused AdamW kernel, loopback n = 4: over
+    ResNet-50's 161 leaves and GPT-2 124M's 148, each list with two leaves
+    no dim of divides by 4 added (37 x 111 and 1027 elements: every
+    leaf of the two models divides), bf16 gradients and copy, wd 0.1,
+    with ``shard``, ``pad`` and ``replicate`` leaves: each
+    simulated rank's update is one kernel launch over its slices, and the
+    four ranks' slices put together are bit-equal to the replicated
+    one-launch step (m', v', the masters and the copy); under the
+    ``--amp`` guard each rank adds one check launch over its slices, a
+    finite step is bit-equal to the unguarded one, and a NaN in the last
+    rank's slice sets that rank's flag alone (which a world sums over its
+    data group), whose update then writes nothing; the kernel's time
+    over one rank's slices beside the replicated launch and phase 8's
+    bound (the rank's and the whole step's);
+57. FSDP on the card, a 1-rank NCCL group: GPT-2 124M at full width,
+    bf16, S 1024, batch 8, wrapped by ``parallel.fsdp.apply_fsdp`` (a
+    layout whose fsdp group is the one rank: every leaf of 1024 elements
+    or more a shard, FSDP2's gathers, its bf16 cast of the float32 master
+    shards and its reductions run for real), ``fit(plan=)``
+    --fused all --attn vmem: 8 steps with 25 / 25 + 25 LN, 12 + 12 vmem and
+    two fused AdamW launches over the 148 leaves a step (the kernel
+    launches once for each mix of gradient and copy dtypes: FSDP's shards
+    take float32 gradients and FSDP's cast as their copy, the replicated
+    leaves bf16 gradients and the kernel's copy; the kernels read what FSDP
+    gathered; a misaligned or non-contiguous operand raises), finite
+    losses, the step time beside phases 14's and 28's; then four float32
+    steps wrapped and unwrapped from one init held to phase 15's bars;
+58. the CLIs at one rank: ``python -m tpudist_torch.main --reduce
+    quantized`` (the 1-rank reducer resolves ``none``: printed) and
+    ``python -m tpudist_torch.train_gpt2 --shard_opt_state --amp`` exit 0;
+    ``main --dataset digits`` raises ``ImportError`` naming scikit-learn
+    where it is missing (and trains where it is installed).
 
-Phases 22-29 and 31-54 print their seconds.
+Phases 22-29 and 31-58 print their seconds.
 """
 
 from __future__ import annotations
@@ -455,6 +496,8 @@ FAILURES: list[str] = []
 #: from their readings (PERF.md): relative on the losses, absolute on the
 #: parameters
 LOSS_BAR, PARAM_BAR = 1e-5, 1e-5
+#: each trained CLI phase's step at g_step 15 (ms), by its JobID
+STEP_MS: dict[str, float] = {}
 #: phase 23's bars on the f32 ViT-B/16 kernel and plain-op paths after 4
 #: steps (relative on the losses, absolute on the parameters), set from
 #: the first reading on the H100 (losses 1.6e-7 apart; parameters 1.6e-4,
@@ -757,6 +800,7 @@ def main() -> int:
     spec_serving_phase(smi, dev, phase4)
     spec_agreement_phase(dev)
     serve_cli_phase(smi, dev)
+    data_parallel_phases(smi, dev)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -2730,8 +2774,8 @@ def trained_cli(flags, *, batch: int, seq: int, job: str, smi: str, want,
         fail(f"no tokens/sec line for {steps} steps in the run's output")
     if not traces:
         fail(f"no profiler trace under log_{job}")
-    run_report(rows, window, steps=steps, batch=batch, per_row=seq,
-               unit="tokens", smi=smi)
+    STEP_MS[job] = run_report(rows, window, steps=steps, batch=batch,
+                              per_row=seq, unit="tokens", smi=smi)
     for key in trace_kernels:
         hits = [v for k, v in window["by_name"].items() if key in k]
         print(f"  {key}: {sum(ms for ms, _ in hits):.3f} ms/step in "
@@ -3968,6 +4012,390 @@ def serve_cli_phase(smi: str, dev) -> None:
     else:
         fail("a paged engine with spec_k 16 did not raise")
     print(f"  phase 54: {time.perf_counter() - t0:.1f} s")
+
+
+def data_parallel_phases(smi: str, dev) -> None:
+    """Phases 55-58 (module docstring)."""
+    ring_phase(smi, dev)
+    zero1_phase(smi, dev)
+    fsdp_phase(smi, dev)
+    dp_cli_phase(smi)
+
+
+def ring_phase(smi: str, dev, n: int = 4, model=None) -> None:
+    """Phase 55 (module docstring); ``model`` replaces GPT-2 124M (a CPU
+    rehearsal passes a narrow one)."""
+    import torch
+
+    from tpudist_torch import allreduce as comm
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.ops import decode_bench as DB
+    from tpudist_torch.rng import fold_in
+
+    t0 = time.perf_counter()
+    print(f"== 55. the quantized ring, loopback n = {n}, GPT-2 124M's "
+          "gradient buckets")
+    params = dict((model or GPT2(device="meta")).named_parameters())
+    layout = comm.BucketLayout(params, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 55)
+    x = torch.empty((n, layout.n_buckets, layout.bucket_size), device=dev)
+    for r in range(n):
+        grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+                 for k, p in params.items()}
+        x[r] = layout.flatten(grads)
+        del grads
+    chunks = x.view(n, n, layout.buckets_per_chunk, layout.bucket_size)
+    ring = comm.LoopbackRing(n)
+    keys = [fold_in(SEED, 0, r, 0, 1) for r in range(n)]
+    out = comm.ring_allreduce_quantized(chunks, ring, keys)
+    same = all(bool(torch.equal(out[r], out[0])) for r in range(1, n))
+    exact = x.double().sum(0).float().view_as(out[0])
+    err = float((out[0] - exact).abs().max())
+    bound = n * float(sum(x[r].abs().max() for r in range(n))) / 127
+    ratio = layout.wire_bytes("bucketed") / layout.wire_bytes("quantized")
+    print(f"  {layout.total} elements in {layout.n_buckets} buckets of "
+          f"{layout.bucket_size} ({layout.buckets_per_chunk} a chunk); every "
+          f"rank's sum bit-identical: {same}; max_abs_err against the exact "
+          f"f32 sum {err:.3e} [bound w A / 127 = {bound:.3e}]; wire bytes a "
+          f"step {layout.wire_bytes('quantized')} int8 vs "
+          f"{layout.wire_bytes('bucketed')} f32 ({ratio:.2f}x)")
+    if not same or err > bound or ratio < 3:
+        fail(f"the quantized ring: identical {same}, err {err} (bound "
+             f"{bound}), compression {ratio:.2f}x")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = DB.device_ms(lambda: comm.ring_allreduce_quantized(chunks, ring, keys),
+                      flush, n=10) / n
+    elems = layout.padded_total
+    b = DB.bound(8 * elems, 0)
+    print(f"  one reduction per rank {ms:.3f} ms (the loopback's {n} ranks "
+          f"/ {n}), bound {b['bound_ms']:.3f} ms ({b['bound_by']}: one read "
+          f"of the rank's {elems} f32 elements and one write of the sum)  "
+          f"[{smi}]")
+    del x, chunks, out, exact, flush
+    print(f"  phase 55: {time.perf_counter() - t0:.1f} s")
+
+
+def zero1_phase(smi: str, dev, n: int = 4, lists=None) -> None:
+    """Phase 56 (module docstring); ``lists`` replaces ResNet-50's and
+    GPT-2 124M's leaves (a CPU rehearsal passes small ones)."""
+    import torch
+
+    from tpudist_torch import optim as O
+    from tpudist_torch.amp import skip_nonfinite
+    from tpudist_torch.ops import decode_bench as DB
+    from tpudist_torch.ops import fused_update as FU
+    from tpudist_torch.ops import fused_update_bench as FB
+
+    t0 = time.perf_counter()
+    print(f"== 56. ZeRO-1 through the fused AdamW kernel, loopback n = {n}: "
+          "bf16 grads and copy, wd 0.1")
+    gd = torch.Generator(device=dev).manual_seed(SEED + 56)
+    bf16 = torch.bfloat16
+    lists = lists or (("ResNet-50", FB.resnet50_leaves), ("GPT-2 124M",
+                                                         FB.gpt2_leaves))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def make():
+        return O.fused_adamw(1e-3, weight_decay=0.1, mask=O.decay_mask,
+                             compute_dtype=bf16)
+
+    for label, leaves_fn in lists:
+        # no dim of either extra leaf divides by 4: they pad (neither
+        # model has such a leaf of 1024 elements or more)
+        leaves = leaves_fn() + [torch.empty(37, 111, device=dev),
+                                torch.empty(1027, device=dev)]
+        names = [str(i) for i in range(len(leaves))]
+        base = {}
+        for k, p in zip(names, leaves):
+            base[k] = torch.empty_like(p, dtype=torch.float32)
+            base[k].copy_(torch.randn(p.shape, generator=gd, device=dev))
+        # in each master's layout (channels-last conv weights), as
+        # autograd gives them
+        grads = {k: torch.empty_like(p, dtype=bf16).copy_(
+            torch.randn(p.shape, generator=gd, device=dev) * 0.1)
+            for k, p in base.items()}
+        del leaves
+        rep_params = {k: v.clone() for k, v in base.items()}
+        rep_tx = make()
+        rep = rep_tx.init(rep_params)
+        FU.reset_launch_counts()
+        rep_tx.step(rep, rep_params, grads)
+        rep_launches = FU.launch_counts["fused_adamw"]
+        ranks = []
+        for r in range(n):
+            z = O.ShardedStateOptimizer(make(), world=n, rank=r)
+            st = z.init({k: v.clone() for k, v in base.items()})
+            FU.reset_launch_counts()
+            z.update(st, grads)
+            ranks.append((z, st, FU.launch_counts["fused_adamw"],
+                          FU.launch_counts["fused_adamw_leaves"]))
+        modes = {m for m, _ in ranks[0][1].modes.values()}
+        equal = True
+        for k in names:
+            mode, info = ranks[0][1].modes[k]
+            for field in ("mu", "nu", "master"):
+                want = getattr(rep, field)[k]
+                parts = [getattr(st.inner, field)[k] for _, st, _, _ in ranks]
+                got = parts[0] if mode == "replicate" else O._assemble(
+                    parts, mode, info, want.shape)
+                equal &= bool(torch.equal(got, want))
+            parts = [st.slices[k] for _, st, _, _ in ranks]
+            got = parts[0] if mode == "replicate" else O._assemble(
+                parts, mode, info, rep_params[k].shape)
+            equal &= bool(torch.equal(got, rep_params[k]))
+        per_rank = [c for _, _, c, _ in ranks]
+        covered = [c for _, _, _, c in ranks]
+        count = {m: sum(1 for mm, _ in ranks[0][1].modes.values() if mm == m)
+                 for m in ("shard", "pad", "replicate")}
+        print(f"  {label} ({len(names)} leaves: {count}): launches per rank "
+              f"{per_rank} covering {covered} slices; replicated step "
+              f"{rep_launches} launch; m', v', masters and copy of the {n} "
+              f"ranks put together bit-equal to it: {equal}")
+        if (not equal or per_rank != [1] * n or rep_launches != 1
+                or modes != {"shard", "pad", "replicate"}):
+            fail(f"ZeRO-1 over {label}: equal {equal}, launches {per_rank}, "
+                 f"modes {modes}")
+        # the --amp guard (ZeRO-1 outermost): one check launch a rank over
+        # its slices; a finite step writes what the unguarded one wrote,
+        # and a NaN in the last rank's slice of the last (pad) leaf sets
+        # that rank's flag alone and it writes nothing (a world sums the
+        # flags over its data group; the loopback has none)
+        poisoned = dict(grads)
+        poisoned[names[-1]] = grads[names[-1]].clone()
+        poisoned[names[-1]].view(-1)[-1] = float("nan")
+        checks, flags, guarded, kept = [], [], True, True
+        for r in range(n):
+            for gr in (grads, poisoned):
+                zg = O.ShardedStateOptimizer(skip_nonfinite(make()), world=n,
+                                             rank=r)
+                sg = zg.init({k: v.clone() for k, v in base.items()})
+                FU.reset_launch_counts()
+                zg.update(sg, gr)
+                inner = sg.inner.inner
+                if gr is grads:
+                    checks.append(FU.launch_counts["fused_adamw_check"])
+                    guarded &= all(torch.equal(
+                        inner.master[k], ranks[r][1].inner.master[k])
+                        for k in names)
+                    continue
+                flags.append(int(inner.nonfinite))
+                kept &= all(torch.equal(inner.master[k], base[k] if
+                                        sg.modes[k][0] == "replicate" else
+                                        O._slice_of(base[k], *sg.modes[k],
+                                                    n, r))
+                            for k in names) or not flags[-1]
+                del zg, sg, inner
+        print(f"  {label} under the --amp guard: check launches per rank "
+              f"{checks}; finite step bit-equal to the unguarded: "
+              f"{guarded}; a NaN in rank {n - 1}'s slice: flags {flags}, "
+              f"the flagged rank wrote nothing: {kept}")
+        if (checks != [1] * n or not guarded or not kept
+                or flags != [0] * (n - 1) + [1]):
+            fail(f"ZeRO-1 under the guard over {label}: checks {checks}, "
+                 f"equal {guarded}, flags {flags}, kept {kept}")
+        del poisoned
+        # the kernel alone over rank 0's slices, then over every leaf
+        z, st, _, _ = ranks[0]
+        gsl = [grads[k] if st.modes[k][0] == "replicate" else
+               O._slice_of(grads[k], *st.modes[k], n, 0)
+               for k in st.inner.names]
+        sc = st.inner, rep
+        lr, b1c, b2c = z.inner.scalars(1)
+        rank_ms = DB.device_ms(lambda: FU.fused_adamw_step(
+            sc[0].table, gsl, lr, b1c, b2c, **FB.HP), flush, n=20)
+        glist = [grads[k] for k in rep.names]
+        rep_ms = DB.device_ms(lambda: FU.fused_adamw_step(
+            sc[1].table, glist, lr, b1c, b2c, **FB.HP), flush, n=20)
+        per_elem, ops = 12 + 12 + 2 + 2, 16
+        n_rank = sum(t.numel() for t in gsl)
+        n_all = sum(t.numel() for t in glist)
+        rb = DB.bound(n_rank * per_elem, n_rank * ops)
+        ab = DB.bound(n_all * per_elem, n_all * ops)
+        print(f"    rank 0's launch over {n_rank} elements {rank_ms:.4f} ms "
+              f"(bound {rb['bound_ms']:.4f} ms, {rb['bound_by']}); the "
+              f"replicated launch over {n_all} {rep_ms:.4f} ms (phase 8's "
+              f"bound {ab['bound_ms']:.4f} ms)  [{smi}]")
+        del ranks, rep, rep_params, base, grads, gsl, glist, sc, z, st
+    del flush
+    print(f"  phase 56: {time.perf_counter() - t0:.1f} s")
+
+
+def fsdp_phase(smi: str, dev, *, batch: int = 8, seq: int = 1024,
+               geom=None) -> None:
+    """Phase 57 (module docstring); ``geom`` narrows GPT-2 (a CPU
+    rehearsal)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from tpudist_torch.data.lm import TokenWindowLoader
+    from tpudist_torch.mesh import RankLayout
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.ops import lm_kernels_bench as LB
+    from tpudist_torch.optim import make_optimizer, run_schedule
+    from tpudist_torch.parallel.plan import ParallelPlan
+    from tpudist_torch.train import fit, lm_loss
+
+    t0 = time.perf_counter()
+    print("== 57. FSDP on the card: GPT-2 124M, bf16, S 1024, 8 steps "
+          "wrapped by FSDP2 over a 1-rank NCCL fsdp group, --fused all "
+          "--attn vmem")
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method="env://")
+    geom = geom or {}
+    results = {}
+    try:
+        layout = RankLayout(0, 1, 1, fsdp=1, fsdp_group=dist.group.WORLD,
+                            device_mesh=DeviceMesh.from_group(
+                                dist.group.WORLD, dev.type,
+                                mesh_dim_names=("fsdp",)))
+        with tempfile.TemporaryDirectory() as log_dir:
+            tokens = LB.token_file(Path(log_dir) / "text.bin",
+                                   8 * batch * seq)
+
+            def run(dtype, wrap, steps, job):
+                model = GPT2(dtype=dtype, attn_impl="vmem", device=dev,
+                             seed=SEED, max_seq_len=seq, **geom)
+                tx = make_optimizer(
+                    run_schedule(3e-4, total_steps=steps, warmup_steps=100),
+                    weight_decay=0.1, clip_norm=1.0, fused=True,
+                    compute_dtype=dtype if dtype != torch.float32 else None)
+                loader = TokenWindowLoader(str(tokens), batch, seq,
+                                           shuffle=False)
+                loader = _Head(loader, steps)
+                plan = ParallelPlan(layout) if wrap else None
+                for mod in counted_modules():
+                    mod.reset_launch_counts()
+                sync()
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    state, losses = fit(
+                        model, tx, loader, epochs=1, fused="all", plan=plan,
+                        loss_fn=lm_loss, input_key="tokens",
+                        label_key="tokens", profile=False, log_dir=log_dir,
+                        job_id=job)
+                sync()
+                wall = time.perf_counter() - t1
+                return state, losses, launches(), wall
+
+            state, losses, counts, wall = run(torch.bfloat16, True, 8, "Fsdp")
+            sharded = sum(1 for p in state.model.parameters()
+                          if hasattr(p, "to_local"))
+            n_leaves = len(list(state.model.parameters()))
+            depth = state.model.depth
+            rows = [r for r in (Path(log_dir) / f"Fsdp_{batch}_0.log")
+                    .read_text().splitlines() if not r.startswith("HBM\t")]
+            del state
+            eps5 = float(rows[1].split("\t")[4])
+            step_ms = batch / eps5 * 1e3
+            print(f"  8 steps; {n_leaves} leaves, {sharded} sharded by FSDP2 "
+                  f"(the rest below 1024 elements, replicated); losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+                  f"launches {counts}")
+            check_counts("FSDP", counts, {
+                "layernorm_fwd": 2 * depth + 1,
+                "layernorm_bwd": 2 * depth + 1,
+                "layernorm_bwd_reduce": 2 * depth + 1,
+                "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+                # a launch for each mix: FSDP's shards (float32 gradients,
+                # no copy) and the replicated leaves (bf16, their copy)
+                "fused_adamw": 2, "fused_adamw_leaves": n_leaves}, 8)
+            if not np.isfinite(losses).all():
+                fail(f"FSDP losses {losses}")
+            print(f"  step at g_step 5 {step_ms:.2f} ms ({wall:.1f} s wall "
+                  f"for the 8 steps, bring-up included); the "
+                  f"unwrapped DDP runs: phase 14 {STEP_MS.get('Smoke', 0):.2f}"
+                  f" ms, phase 28 (--amp --dropout 0.1 --remat full) "
+                  f"{STEP_MS.get('Remat', 0):.2f} ms  [{smi}]")
+            for wrap in (True, False):
+                st, ls, _, _ = run(torch.float32, wrap, 4, f"F32w{int(wrap)}")
+                results[wrap] = (ls, {k: v.float().cpu()
+                                      for k, v in st.params().items()})
+                del st
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (lf, pf), (ln, pn) = results[True], results[False]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, ln))
+    gap = max(float((pf[k] - pn[k]).abs().max()) for k in pn)
+    print(f"  f32, 4 steps: FSDP-wrapped losses {lf} vs unwrapped {ln}: max "
+          f"rel {loss_rel:.3e} [bar {LOSS_BAR:g}]; params max abs {gap:.3e} "
+          f"[bar {PARAM_BAR:g}]")
+    if len(lf) != 4 or loss_rel > LOSS_BAR or gap > PARAM_BAR:
+        fail("FSDP-wrapped and unwrapped f32 GPT-2 training disagree")
+    print(f"  phase 57: {time.perf_counter() - t0:.1f} s")
+
+
+class _Head:
+    """The first ``n`` batches of ``loader`` (a sized loader's prefix)."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+        self.batch_size = loader.batch_size
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return (b for _, b in zip(range(self.n), self.loader))
+
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def dp_cli_phase(smi: str) -> None:
+    """Phase 58 (module docstring)."""
+    import importlib.util
+
+    from tpudist_torch.mesh import RankLayout
+    from tpudist_torch.parallel.dp import resolve_method
+
+    t0 = time.perf_counter()
+    print("== 58. the data-parallel CLIs at one rank")
+    print(f"  a 1-rank world's reducer: --reduce quantized resolves "
+          f"{resolve_method('quantized', RankLayout(0, 1, 1))!r}")
+    env = {**os.environ, "PYTHONPATH": str(HERE)}
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv, want_ok in (
+                (["tpudist_torch.main", "--reduce", "quantized", "--dataset",
+                  "synthetic", "--synthetic_size", "1024", "--bf16",
+                  "--fused", "optimizer"], True),
+                (["tpudist_torch.train_gpt2", "--shard_opt_state", "--amp",
+                  "--fused", "all", "--synthetic_tokens", str(8 * 8 * 1024)],
+                 True),
+                (["tpudist_torch.main", "--dataset", "digits", "--model",
+                  "resnet18"], sklearn)):
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", *argv, "--epochs", "1",
+                 "--no_profiler", "--log_dir", tmp], cwd=HERE, env=env,
+                capture_output=True, text=True, timeout=600)
+            said = " ".join(argv)
+            if want_ok:
+                if proc.returncode:
+                    print(proc.stdout[-3000:] + proc.stderr[-3000:])
+                    fail(f"python -m {said} exited {proc.returncode}")
+                tail = [x for x in proc.stdout.splitlines()
+                        if x.startswith(("Epoch: ", "tokens/sec"))][-1:]
+                print(f"  python -m {said}: exit 0 in "
+                      f"{time.perf_counter() - t1:.1f} s; {' '.join(tail)}  "
+                      f"[{smi}]")
+            else:
+                last = (proc.stderr.strip().splitlines() or [""])[-1]
+                if (proc.returncode == 0 or "ImportError" not in last
+                        or "scikit-learn" not in last):
+                    print(proc.stdout[-2000:] + proc.stderr[-3000:])
+                    fail(f"python -m {said} without scikit-learn: exit "
+                         f"{proc.returncode}, last line {last!r}")
+                print(f"  python -m {said}: exit {proc.returncode}, {last}")
+    print(f"  phase 58: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

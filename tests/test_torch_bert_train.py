@@ -26,7 +26,6 @@ in make_train_step) against the JAX reference, on the CPU.
 import contextlib
 import io
 import os
-import socket
 import subprocess
 import sys
 import types
@@ -103,9 +102,9 @@ def _two_torch_threads():
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    from torch_ports import free_port
+
+    return free_port()
 
 
 def _launch(tmp_path, world, argv):

@@ -20,7 +20,6 @@ forward, 1e-4 on the gradients, float32 on both sides.
 """
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -209,7 +208,7 @@ def test_layout_is_the_references_device_order():
     """rank = data_idx * seq + seq_idx: the reference's mesh (axis order
     data, fsdp, pipe, expert, seq, tensor) over devices 0..7 in order."""
     cfg = mesh_lib.MeshConfig(data=-1, seq=4)
-    assert cfg.axis_sizes(8) == {"data": 2, "seq": 4}
+    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "seq": 4}
     mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(data=2, seq=4),
                                 devices=jax.devices()[:8])
     ids = np.vectorize(lambda d: d.id)(np.asarray(mesh.devices))
@@ -255,9 +254,9 @@ dist.destroy_process_group()
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    from torch_ports import free_port
+
+    return free_port()
 
 
 def test_two_gloo_ranks_match_the_reference(tmp_path):

@@ -24,7 +24,6 @@ windows.
 """
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -93,9 +92,9 @@ torch.save({"losses": losses, "params": state.params(), "windows": windows,
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    from torch_ports import free_port
+
+    return free_port()
 
 
 def _launch(tmp_path, tag, world, argv, extra_env=None):

@@ -18,7 +18,6 @@ as long and holds the losses to 1e-6: the semantics are the same, only
 float32 rounding differs."""
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -65,9 +64,9 @@ if ctx.world_size > 1:
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    from torch_ports import free_port
+
+    return free_port()
 
 
 def _launch(tmp_path, world, fused, steps=STEPS, dtype="float32"):

@@ -220,11 +220,9 @@ def _launch(tmp_path, world, batch, extra=()):
 
 
 def _free_port() -> int:
-    import socket
+    from torch_ports import free_port
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    return free_port()
 
 
 def test_two_gloo_ranks_equal_one_process(tmp_path):
@@ -483,10 +481,10 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
-    ["--fsdp", "2"],
+    ["--fsdp", "2", "--tensor", "2"],
     ["--remat_policy", "full", "--pipe", "2"],
-    ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic"],
-    ["--compile_cache", "cc"], ["--shard_opt_state"],
+    ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic", "--pipe", "2"],
+    ["--compile_cache", "cc"], ["--shard_opt_state", "--experts", "4"],
     ["--experts", "4", "--arch", "llama"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):

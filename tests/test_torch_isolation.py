@@ -1,8 +1,9 @@
-"""The port stands alone: no module of tpudist_torch, nor chip_smoke.py,
-imports jax, flax or anything of the tpudist package (checked on the
-source by an AST walk, and on a fresh interpreter by importing the whole
-port and looking at sys.modules). And its entry points run on the card by
-default: without CUDA they raise unless the caller asks for the CPU."""
+"""The port stands alone: no module of tpudist_torch, nor chip_smoke.py
+or tools/torch_world_run.py, imports jax, flax or anything of the tpudist
+package (checked on the source by an AST walk, and on a fresh interpreter
+by importing the whole port and looking at sys.modules). And its entry
+points run on the card by default: without CUDA they raise unless the
+caller asks for the CPU."""
 
 import ast
 import os
@@ -21,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpudist")
 def _sources():
     files = sorted(PORT.rglob("*.py"))
     assert files, "tpudist_torch has no python sources"
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py",
+                    REPO / "tools" / "torch_world_run.py"]
 
 
 def _imported_modules(path: Path):
@@ -98,6 +100,19 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--model", "resnet18", "--dataset", "synthetic"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_world_run_tool_refuses_without_cuda(no_cuda):
+    """The multi-card timing tool measures the card only: without one it
+    exits before it runs a CLI."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_world_run", REPO / "tools" / "torch_world_run.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main(["gpt2", "G4", "--fsdp", "4"])
 
 
 def test_cpu_entry_points_run_when_asked(no_cuda, tmp_path):

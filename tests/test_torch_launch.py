@@ -303,8 +303,6 @@ def test_two_gloo_ranks_stop_together_and_resume_bit_identical(tmp_path):
 
 
 def _free_port() -> int:
-    import socket
+    from torch_ports import free_port
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    return free_port()

@@ -291,13 +291,15 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--reduce", "bucketed"],
-    ["--fsdp", "2"], ["--telemetry"], ["--trace"], ["--health"],
-    ["--repair"], ["--elastic"], ["--skip_window", "4"],
+    ["--reduce", "bucketed", "--tensor", "2"],
+    ["--fsdp", "2", "--tensor", "2"], ["--telemetry"], ["--trace"],
+    ["--health"], ["--repair"], ["--elastic", "--serve_experts", "2"],
+    ["--skip_window", "4"],
     ["--serve", "--tensor", "2"], ["--tensor", "2"],
     ["--serve", "--serve_experts", "2"],
     ["--compile_cache", "cc"],
-    ["--dataset", "digits"], ["--hang_timeout", "5"],
+    ["--dataset", "digits", "--serve_moe_dispatch", "index"],
+    ["--hang_timeout", "5"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
@@ -348,9 +350,7 @@ def test_fit_refuses_unported_features(tmp_path):
     model = resnet18(num_filters=8, device="cpu")
     loader = DataLoader(to_tensor(synthetic_cifar(16)), 8)
     for kw, item in ((dict(telemetry=True), "#8"),
-                     (dict(shard_opt_state=True), "#7"),
-                     (dict(reduce="quantized"), "#7"),
-                     (dict(elastic=True), "#7"),
+                     (dict(metrics_port=9100), "#8"),
                      (dict(repair=True), "#8"),
                      (dict(compile_cache="cc"), "#9")):
         with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):

@@ -1,0 +1,64 @@
+"""One rank of a port training CLI run on the card that reports what a
+multi-card comparison reads: the rank's peak device memory and the TSV's
+step times. Run from the root of the repo, one rank a card:
+
+    torchrun --nproc_per_node 4 tools/torch_world_run.py main R4 \\
+        --model resnet50 --dataset synthetic --synthetic_size 8192 \\
+        --batch_size 128 --epochs 1 --bf16 --fused optimizer --reduce quantized
+    torchrun --nproc_per_node 4 tools/torch_world_run.py gpt2 G4 \\
+        --bf16 --fused all --batch_size 8 --synthetic_tokens 524288 --fsdp 4
+
+The first argument names the CLI (``main``: :mod:`tpudist_torch.main`;
+``gpt2``: :mod:`tpudist_torch.train_gpt2`), the second the job (its TSV
+goes to ``chiprun_out/world/<job>/``), the rest are the CLI's flags
+(``--no_profiler`` is added). Each rank prints its step count, peak
+memory (``torch.cuda.max_memory_allocated``) and wall time; rank 0 also
+the step at each TSV row (``batch / examples_per_sec``). Without a card
+it exits with an error: it measures the card and nothing else.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main(argv=None) -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_world_run: no CUDA device; it times the "
+                         "card's steps and peak memory")
+    which, job, *flags = sys.argv[1:] if argv is None else argv
+    if which == "main":
+        from tpudist_torch.main import main as cli
+    elif which == "gpt2":
+        from tpudist_torch.train_gpt2 import main as cli
+    else:
+        raise SystemExit(f"unknown CLI {which!r}: main or gpt2")
+    log_dir = Path("chiprun_out/world") / job
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = cli([*flags, "--log_dir", str(log_dir), "--JobID", job,
+                     "--no_profiler"])
+    wall = time.perf_counter() - t0
+    rank = int(os.environ.get("RANK", "0"))
+    peak = f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+    print(f"[{job}] rank {rank}: {len(losses)} steps, peak {peak}, wall "
+          f"{wall:.1f} s", flush=True)
+    if rank == 0:
+        tsv = next(log_dir.glob(f"{job}_*_0.log"))
+        batch = int(tsv.name.split("_")[-2])
+        rows = [r.split("\t") for r in tsv.read_text().splitlines()
+                if r[:1].isdigit()]
+        print(f"[{job}] TSV g_steps {[r[1] for r in rows]}, step ms "
+              f"{[round(batch / float(r[4]) * 1e3, 2) for r in rows]}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

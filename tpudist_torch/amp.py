@@ -153,13 +153,18 @@ def skip_nonfinite(tx) -> SkipNonfinite:
 
 
 def is_skip_state(opt_state) -> bool:
-    """True when ``opt_state`` is a :func:`skip_nonfinite` state."""
+    """True when ``opt_state`` is a :func:`skip_nonfinite` state (under
+    ZeRO-1's, too)."""
+    if hasattr(opt_state, "slices"):
+        opt_state = opt_state.inner
     return isinstance(opt_state, SkipState)
 
 
 def skipped_steps(opt_state: SkipState) -> int:
     """The skip counter of a :func:`skip_nonfinite` state, the last step's
     flag read first (this waits for that step)."""
+    if hasattr(opt_state, "slices"):
+        opt_state = opt_state.inner
     opt_state.resolve()
     return opt_state.skipped
 
@@ -171,6 +176,9 @@ def maybe_skipped_steps(opt_state) -> int | None:
 
 
 def inner_state(opt_state):
-    """The wrapped optimizer's state of a :func:`skip_nonfinite` state, or
+    """The wrapped optimizer's state under a :func:`skip_nonfinite` state
+    and a ZeRO-1 state (:func:`tpudist_torch.optim.shard_state`), or
     ``opt_state`` itself."""
-    return opt_state.inner if is_skip_state(opt_state) else opt_state
+    while is_skip_state(opt_state) or hasattr(opt_state, "slices"):
+        opt_state = opt_state.inner
+    return opt_state

@@ -33,9 +33,14 @@ float32 masters, the BN buffers, the optimizer state and the step.
   back from a newest step that fails to load, emitting
   ``checkpoint_fallback`` events.
 
-The elastic reshard's quarantine (``quarantine_steps``,
-``recover_interrupted_reshard``, ``purge_quarantined``) waits with the
-reshard (ROADMAP Queue 1 #7).
+- **The elastic reshard's commit.** A resume onto another data world
+  (:mod:`tpudist_torch.resilience.elastic`) rewrites history: the old
+  steps are moved under ``_pre_reshard/`` with a commit marker
+  (:meth:`Checkpointer.quarantine_steps`), the new-world state is saved,
+  the meta flipped, and only then is the quarantine purged
+  (:meth:`Checkpointer.purge_quarantined`).
+  :meth:`Checkpointer.recover_interrupted_reshard` finishes or rolls back
+  a commit a crash interrupted, as the reference's protocol does.
 """
 
 from __future__ import annotations
@@ -58,6 +63,14 @@ from tpudist_torch.distributed import group_up
 #: moved, never deleted (the failure may be transient I/O), but out of the
 #: step namespace so latest_step stops seeing them
 FAILED_DIR = "_failed"
+
+#: where an elastic reshard's commit moves the old-world steps (a name
+#: without digits: a step scan must never read it as a step)
+QUARANTINE_DIR = "_pre_reshard"
+
+#: the quarantine's commit marker: the NEW geometry, written after every
+#: rename
+COMMIT_MARKER = "commit_meta.json"
 
 #: the last-known-good marker: its step is exempt from retention
 ANCHOR_FILE = "tpudist_anchor.json"
@@ -199,15 +212,24 @@ class Checkpointer:
                 if not isinstance(v, torch.Tensor):
                     out[k] = v
                     continue
+                # a DTensor (a shard of a global array) stages its local
+                # part and keeps its placement, so DCP writes its chunk
+                t = v.to_local() if hasattr(v, "to_local") else v
                 buf = self._buffers.get(name)
-                if (buf is None or buf.shape != v.shape
-                        or buf.dtype != v.dtype):
-                    buf = torch.empty(v.shape, dtype=v.dtype,
-                                      pin_memory=v.is_cuda)
+                if (buf is None or buf.shape != t.shape
+                        or buf.dtype != t.dtype):
+                    buf = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=t.is_cuda)
                     self._buffers[name] = buf
-                buf.copy_(v.detach(), non_blocking=v.is_cuda)
-                cuda = cuda or v.is_cuda
+                buf.copy_(t.detach(), non_blocking=t.is_cuda)
+                cuda = cuda or t.is_cuda
                 out[k] = buf
+                if t is not v:
+                    from torch.distributed.tensor import DTensor
+
+                    out[k] = DTensor.from_local(
+                        buf, v.device_mesh, v.placements, run_check=False,
+                        shape=v.shape, stride=v.stride())
             return out
 
         staged = copy(sd)
@@ -275,6 +297,104 @@ class Checkpointer:
                 pass
         self._barrier()
         return (self.directory / FAILED_DIR / str(step)).is_dir()
+
+    # -- the elastic reshard's commit --------------------------------------
+    # 1. quarantine_steps(commit_meta=new): every step dir renamed into
+    #    QUARANTINE_DIR (still a valid old-world checkpoint), then the
+    #    marker (the NEW meta) written atomically beside them;
+    # 2. save(state, wait=True) at the remapped step;
+    # 3. write_meta(new): the flip;
+    # 4. purge_quarantined(): the old steps, marker last.
+    # recover_interrupted_reshard() at the next bring-up: a live step and
+    # the marker mean the save landed (adopt the marker as the meta and
+    # purge); otherwise roll every quarantined dir back.
+    def _quarantined(self) -> list[Path]:
+        q = self.directory / QUARANTINE_DIR
+        if not q.is_dir():
+            return []
+        return sorted((p for p in q.iterdir()
+                       if p.is_dir() and p.name.isdigit()),
+                      key=lambda p: int(p.name))
+
+    def quarantine_steps(self, commit_meta: dict | None = None) -> list[int]:
+        """Move every live step dir aside and drop the commit marker
+        describing the NEW geometry. Returns the quarantined steps."""
+        self.wait()
+        steps = self.all_steps()
+        self._barrier()
+        if self._rank == 0:
+            q = self.directory / QUARANTINE_DIR
+            q.mkdir(exist_ok=True)
+            for s in steps:
+                os.replace(self.directory / str(s), q / str(s))
+            if commit_meta is not None:
+                # only after every rename: the marker certifies them
+                atomic_write_json(q, COMMIT_MARKER, commit_meta)
+        self._barrier()
+        return steps
+
+    def recover_interrupted_reshard(self) -> str | None:
+        """Finish or roll back a commit a crash interrupted: ``"completed"``
+        (a new-world step was saved: its marker becomes the meta and the
+        quarantine is purged), ``"rolled_back"`` (the quarantined steps
+        renamed back under the old meta, still valid), or None (nothing
+        interrupted). Every rank reads the decision before any rank acts."""
+        q = self.directory / QUARANTINE_DIR
+        if not q.is_dir():
+            return None
+        marker = q / COMMIT_MARKER
+        adopt = (json.loads(marker.read_text())
+                 if self.all_steps() and marker.exists() else None)
+        self._barrier()
+        if adopt is not None:
+            self.write_meta(adopt)
+            self._barrier()
+            self.purge_quarantined()
+            return "completed"
+        if self._rank == 0:
+            # the marker first: a rollback cut short must leave a
+            # marker-less quarantine, retried as another rollback
+            if marker.exists():
+                os.unlink(marker)
+            for p in self._quarantined():
+                os.replace(p, self.directory / p.name)
+            try:
+                q.rmdir()
+            except OSError:
+                pass
+        self._barrier()
+        return "rolled_back"
+
+    def purge_quarantined(self) -> None:
+        """Delete the quarantined old-world steps (once a new-world step
+        and its meta are durable), the marker last."""
+        if self._rank == 0:
+            q = self.directory / QUARANTINE_DIR
+            for p in self._quarantined():
+                shutil.rmtree(p, ignore_errors=True)
+            shutil.rmtree(q, ignore_errors=True)
+        self._barrier()
+
+    def saved_metadata(self, step: int) -> dict:
+        """Each tensor entry of saved step ``step`` by its flattened name:
+        ``(global shape, dtype)``."""
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.metadata import (
+            TensorStorageMetadata)
+
+        meta = dcp.FileSystemReader(str(self.directory / str(int(step)))
+                                    ).read_metadata().state_dict_metadata
+        return {k: (tuple(m.size), m.properties.dtype)
+                for k, m in meta.items()
+                if isinstance(m, TensorStorageMetadata)}
+
+    def raw_restore(self, sd: dict, step: int) -> dict:
+        """Load saved step ``step`` into ``sd`` (nested dicts of tensors,
+        each of the saved global shape or a DTensor of it; entries left
+        out are not read). Returns ``sd``."""
+        self.wait()
+        self._dcp(_dcp_load, sd, self.directory / str(int(step)))
+        return sd
 
     # -- read -------------------------------------------------------------
     def latest_step(self) -> int | None:

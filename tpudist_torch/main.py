@@ -54,6 +54,16 @@ fault at a step. Under ``python -m tpudist_torch.launch --max_restarts N
 tpudist_torch/main.py ...`` a preempted or crashed world is relaunched
 and resumes.
 
+The data-parallel layers: ``--reduce bucketed|quantized|auto`` takes
+the gradient reduction out of DDP into the explicit bucketed or int8
+reducer (:mod:`tpudist_torch.parallel.dp`; a one-replica world resolves
+``none``), ``--fsdp N`` shards the model with FSDP over a ``data x
+fsdp`` layout (:mod:`tpudist_torch.parallel.plan`; an explicit
+``--reduce`` with it raises, as the reference's does), and ``--elastic``
+lets ``--checkpoint_dir`` resume a checkpoint written at another world.
+``--dataset digits`` is scikit-learn's bundled digits (an
+``ImportError`` names the package where it is missing).
+
 Every other flag ``main.py`` accepts is accepted here too, and a value
 other than its default raises ``NotImplementedError`` naming the ROADMAP
 item that ports it.
@@ -164,35 +174,30 @@ def parse_args(argv=None):
 
 #: flags of main.py this port does not run yet -> the ROADMAP item
 _UNPORTED = {
-    "reduce": "Queue 1 #7", "fsdp": "Queue 1 #7",
     "telemetry": "Queue 1 #8", "health": "Queue 1 #8", "trace": "Queue 1 #8",
     "metrics_port": "Queue 1 #8", "hang_timeout": "Queue 1 #8",
     "divergence_every": "Queue 1 #8", "hang_action": "Queue 1 #8",
     "repair": "Queue 1 #8", "skip_window": "Queue 1 #8",
-    "elastic": "Queue 1 #7", "compile_cache": "Queue 1 #9",
-    "serve_experts": "Queue 1 #7", "serve_moe_dispatch": "Queue 1 #7",
-    "tensor": "Queue 1 #7",
+    "compile_cache": "Queue 1 #9",
+    "serve_experts": "Queue 1 #7d (experts)",
+    "serve_moe_dispatch": "Queue 1 #7d (experts)",
+    "tensor": "Queue 1 #7b (tensor parallelism)",
 }
-
-#: values of choice flags this port does not run yet -> the ROADMAP item
-_UNPORTED_CHOICES = {
-    ("dataset", "digits"): "Queue 1 #1",
-}
-
 
 def check_ported(parser, args) -> None:
-    """Raise ``NotImplementedError`` for a flag (or a flag value) that
-    ``main.py`` accepts and this port does not run yet."""
+    """Raise ``NotImplementedError`` for a flag that ``main.py`` accepts
+    and this port does not run yet, and the reference's refusals of flag
+    combinations."""
     for name, item in _UNPORTED.items():
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
-    for (name, value), item in _UNPORTED_CHOICES.items():
-        if getattr(args, name) == value:
-            extra = (" (it needs scikit-learn, which the machine with the "
-                     "card does not have)" if value == "digits" else "")
-            raise NotImplementedError(
-                f"--{name} {value} is not ported yet (ROADMAP {item}){extra}")
+    if args.fsdp > 1 and args.reduce in ("bucketed", "quantized"):
+        raise ValueError(
+            f"--reduce {args.reduce} is pure-DP (the explicit reducer "
+            f"reduces over the data axis only) but --fsdp {args.fsdp} shards "
+            "the model — keep --reduce none (FSDP already reduce-scatters "
+            "gradients over fsdp), or drop --fsdp")
 
 
 def _cifar_train(args, ctx, dtype):
@@ -209,6 +214,10 @@ def _cifar_train(args, ctx, dtype):
 
     if args.dataset == "synthetic":
         data = synthetic_cifar(args.synthetic_size, num_classes=100)
+    elif args.dataset == "digits":
+        from tpudist_torch.data.digits import load_digits_dataset
+
+        data = load_digits_dataset(train=True)
     else:
         data = load_cifar(args.data_root, dataset=args.dataset, train=True)
     sampler = DistributedSampler(len(data["label"]),
@@ -247,6 +256,10 @@ def _cifar_val(args):
 
     if args.dataset == "synthetic":
         val = synthetic_cifar(args.synthetic_size // 4 or 1, num_classes=100)
+    elif args.dataset == "digits":
+        from tpudist_torch.data.digits import load_digits_dataset
+
+        val = load_digits_dataset(train=False)
     else:
         val = load_cifar(args.data_root, dataset=args.dataset, train=False)
     return DataLoader(
@@ -420,6 +433,12 @@ def main(argv=None):
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
+        plan = None
+        if args.fsdp > 1:
+            from tpudist_torch.parallel.plan import ParallelPlan
+
+            # data x fsdp: the batch is split over both, one replica a rank
+            plan = ParallelPlan.build(data=-1, fsdp=args.fsdp)
         # --amp is the bf16 policy plus the guard on the optimizer below
         dtype = policy_for(args.bf16 or args.amp).compute_dtype
         # the reference keeps the stock 1000-way head even on CIFAR
@@ -464,7 +483,8 @@ def main(argv=None):
             checkpoint_every=args.checkpoint_every,
             checkpoint_every_s=args.checkpoint_every_s or None,
             keep_last=args.keep_last or None, resume=not args.no_resume,
-            chaos=args.chaos)
+            chaos=args.chaos, reduce=args.reduce, plan=plan,
+            elastic=args.elastic)
         if args.amp and ctx.is_chief:
             skipped = skipped_steps(state.opt_state)
             if skipped:

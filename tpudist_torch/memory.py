@@ -5,9 +5,10 @@ The port's copy of :mod:`tpudist.memory` (with :mod:`tpudist.utils.tree`'s
 
 1. per-tree bytes, exact: :func:`tree_bytes` / :func:`tree_size` over
    state dicts, modules, optimizer states or any nesting of them;
-   :func:`per_device_bytes` / :func:`state_bytes` (replicated only: the
-   port's training is data-parallel, and another placement is ROADMAP
-   Queue 1 #7);
+   :func:`per_device_bytes` / :func:`state_bytes` under the port's
+   placement records (:func:`plan_placements`: a leaf's shard dim and
+   its world, FSDP's and ZeRO-1's; a ZeRO-1 pad leaf is ``[world,
+   cols]`` split on dim 0);
 2. an activation estimate, analytic: :func:`transformer_activation_bytes`
    is the reference's word for word;
 3. live stats: :func:`device_memory_stats` reads the caching allocator
@@ -80,34 +81,96 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def _replicated_only(shardings) -> None:
-    if shardings is not None:
+def _shard_shape(shape, record) -> tuple:
+    """The largest shard one device holds of a leaf of ``shape`` under
+    ``record``: None (replicated), ``(dim, world)`` (ceil division, the
+    padded shard an allocator reserves) or ``(dim, world, axis)``; an
+    axis the port does not lay out raises."""
+    if record is None:
+        return tuple(shape)
+    dim, world, *axis = record
+    if axis and axis[0] not in ("data", "fsdp"):
+        from tpudist_torch.mesh import AXIS_ITEMS
+
         raise NotImplementedError(
-            "per-device bytes under a sharded placement are not ported yet "
-            "(ROADMAP Queue 1 #7)")
+            f"a placement over {axis[0]!r} is not ported yet (ROADMAP "
+            f"{AXIS_ITEMS.get(axis[0], 'Queue 1 #7')})")
+    out = list(shape)
+    out[dim] = -(-out[dim] // int(world))
+    return tuple(out)
 
 
 def per_device_bytes(tree, shardings=None) -> int:
-    """Bytes one device holds for ``tree``: all of it, every leaf
-    replicated. A ``shardings`` tree raises (Queue 1 #7)."""
-    _replicated_only(shardings)
-    return tree_bytes(tree)
+    """Bytes one device holds for ``tree``. ``shardings``: the placement
+    record of each leaf (:func:`_shard_shape`), a dict keyed as ``tree``
+    when it is a dict of tensors, else a sequence aligned with its
+    leaves; None: every leaf replicated."""
+    if shardings is None:
+        return tree_bytes(tree)
+    if isinstance(tree, dict) and all(isinstance(v, torch.Tensor)
+                                      for v in tree.values()):
+        pairs = [(t, shardings.get(k)) for k, t in tree.items()]
+    else:
+        leaves = _leaves(tree)
+        shardings = list(shardings)
+        if len(shardings) != len(leaves):
+            raise ValueError(f"{len(shardings)} placement records for "
+                             f"{len(leaves)} leaves")
+        pairs = list(zip(leaves, shardings))
+    total = 0
+    for t, rec in pairs:
+        n = 1
+        for d in _shard_shape(tuple(t.shape), rec):
+            n *= d
+        total += n * t.element_size()
+    return total
+
+
+def plan_placements(params: dict, *, fsdp: int = 1, data: int = 1,
+                    zero1: bool = False, min_size: int = 1024) -> dict:
+    """The placement record of each parameter's leaf under a plan: its
+    ``fsdp`` shard dim (the plan's rule), or, under ZeRO-1 for what
+    FSDP leaves whole, its ``data`` slice (a pad leaf's record is on its
+    stored ``[world, cols]`` shape: apply it with :func:`zero1_shape`)."""
+    from tpudist_torch.mesh import largest_divisible_dim
+    from tpudist_torch.optim import _zero1_layout
+
+    out = {}
+    for k, p in params.items():
+        shape = tuple(p.shape)
+        dim = largest_divisible_dim(shape, fsdp, min_size=min_size)
+        if dim is not None:
+            out[k] = (dim, fsdp, "fsdp")
+            continue
+        out[k] = None
+        if zero1:
+            mode, info = _zero1_layout(shape, data, min_size)
+            if mode == "shard":
+                out[k] = (info, data, "data")
+            elif mode == "pad":
+                out[k] = (0, data, "data", info)
+    return out
 
 
 def state_bytes(state, shardings=None) -> dict[str, dict[str, int]]:
     """``{component: {"global", "per_device"}}`` for a
     :class:`tpudist_torch.train.TrainState`'s ``params`` (the float32
-    masters), ``opt_state`` and ``batch_stats``, plus ``total``."""
-    _replicated_only(shardings)
+    masters), ``opt_state`` and ``batch_stats``, plus ``total``.
+    ``shardings``: ``{"params": records, "opt_state": records}`` as
+    :func:`per_device_bytes` takes them (a component without one is
+    replicated)."""
     parts = {"params": state.params(), "opt_state": state.opt_state,
              "batch_stats": state.batch_stats()}
+    shardings = shardings or {}
     out: dict[str, dict[str, int]] = {}
-    total = 0
+    total = total_d = 0
     for name, sub in parts.items():
         b = tree_bytes(sub)
-        out[name] = {"global": b, "per_device": b}
+        d = per_device_bytes(sub, shardings.get(name))
+        out[name] = {"global": b, "per_device": d}
         total += b
-    out["total"] = {"global": total, "per_device": total}
+        total_d += d
+    out["total"] = {"global": total, "per_device": total_d}
     return out
 
 
@@ -195,15 +258,24 @@ def train_state_budget(
     ``grad_dtype_bytes``; ``workspace_fraction`` is the allocator's
     scratch. ``hbm_budget_bytes`` defaults to the card's memory
     (``torch.cuda.get_device_properties(...).total_memory``) and is
-    required without a card. ``plan=`` (a sharded placement) raises:
-    ROADMAP Queue 1 #7.
+    required without a card. ``plan`` (a :class:`tpudist_torch.parallel.
+    plan.ParallelPlan`, or anything with ``data``/``fsdp``/``tensor``/
+    ``pipe``/``expert``) makes the parameters, gradients and optimizer
+    state per device under its placement (:func:`plan_placements`;
+    ZeRO-1 when ``tx`` is :func:`tpudist_torch.optim.shard_state`'s), and
+    the activation estimate's batch ``batch / (data * fsdp)``; a tensor,
+    pipe or expert axis above 1 raises.
 
     Returns the reference's keys: per-component bytes, the per-chip total,
     ``fits`` and ``bytes_per_param``."""
     if plan is not None:
-        raise NotImplementedError(
-            "train_state_budget(plan=...) is not ported yet (ROADMAP Queue "
-            "1 #7)")
+        from tpudist_torch.mesh import AXIS_ITEMS
+
+        for axis in ("tensor", "pipe", "expert"):
+            if getattr(plan, axis, 1) != 1:
+                raise NotImplementedError(
+                    f"train_state_budget under a {axis} axis is not ported "
+                    f"yet (ROADMAP {AXIS_ITEMS[axis]})")
     if hbm_budget_bytes is None:
         if not torch.cuda.is_available():
             raise ValueError("hbm_budget_bytes is required without a card "
@@ -213,23 +285,47 @@ def train_state_budget(
     model = model_fn(torch.device("meta"))
     params = dict(model.named_parameters())
     n_params = tree_size(params)
-    opt_state = tx.init(params)
+    from tpudist_torch.optim import ShardedStateOptimizer
+
+    zero1 = isinstance(tx, ShardedStateOptimizer)
+    inner_tx = tx.inner if zero1 else tx
+    opt_state = inner_tx.init(params)
     # what the step holds: the parameters as the model keeps them after
     # init (a fused optimizer's compute copy: bf16) and what the state
     # adds (moments; the float32 masters of a compute copy)
     own = {id(p) for p in model.parameters()}
     params_bytes = tree_bytes(dict(model.named_parameters()))
-    opt_bytes = sum(t.numel() * t.element_size() for t in _leaves(opt_state)
-                    if id(t) not in own)
+    opt_leaves = [t for t in _leaves(opt_state) if id(t) not in own]
+    opt_bytes = sum(t.numel() * t.element_size() for t in opt_leaves)
+    opt_per_chip, grads_per_chip, act_batch = opt_bytes, None, batch
+    if plan is not None or zero1:
+        fsdp = int(getattr(plan, "fsdp", 1)) if plan is not None else 1
+        data = (int(getattr(plan, "data", 1)) if plan is not None
+                else int(tx.world))
+        recs = plan_placements(params, fsdp=fsdp, data=data, zero1=zero1,
+                               min_size=getattr(plan, "fsdp_min_size", 1024)
+                               if plan is not None else tx.min_size)
+        named = dict(model.named_parameters())
+        params_bytes = per_device_bytes(named, {
+            k: r for k, r in recs.items() if r is not None and r[2] == "fsdp"})
+        grads_per_chip = per_device_bytes(
+            {k: torch.empty(p.shape, device="meta", dtype=torch.uint8)
+             for k, p in named.items()},
+            {k: r for k, r in recs.items()
+             if r is not None and r[2] == "fsdp"}) * grad_dtype_bytes
+        opt_per_chip = sum(
+            _leaf_per_device(t, recs, named) for t in opt_leaves)
+        act_batch = -(-batch // (fsdp * data))
     acts = transformer_activation_bytes(
-        batch, seq, int(getattr(model, "hidden_dim", 0) or 0),
+        act_batch, seq, int(getattr(model, "hidden_dim", 0) or 0),
         int(getattr(model, "depth", 0) or 0),
         num_heads=getattr(model, "num_heads", None),
         remat_policy=remat_policy,
         attention_scores=getattr(model, "attn_impl", "xla") in ("xla", "auto"),
     )
-    grads = n_params * grad_dtype_bytes
-    subtotal = params_bytes + opt_bytes + acts + grads
+    grads = (n_params * grad_dtype_bytes if grads_per_chip is None
+             else grads_per_chip)
+    subtotal = params_bytes + opt_per_chip + acts + grads
     per_chip_total = int(subtotal * (1.0 + workspace_fraction))
     return {
         "n_params": int(n_params),
@@ -237,7 +333,7 @@ def train_state_budget(
         "remat_policy": str(remat_policy),
         "params_bytes": int(params_bytes),
         "opt_state_bytes_global": int(opt_bytes),
-        "opt_state_bytes_per_chip": int(opt_bytes),
+        "opt_state_bytes_per_chip": int(opt_per_chip),
         "grad_bytes": int(grads),
         "activation_bytes_est": int(acts),
         "workspace_bytes_est": int(per_chip_total - subtotal),
@@ -246,6 +342,22 @@ def train_state_budget(
         "fits": bool(per_chip_total <= hbm_budget_bytes),
         "bytes_per_param": round(per_chip_total / max(n_params, 1), 2),
     }
+
+
+def _leaf_per_device(t, recs: dict, params: dict) -> int:
+    """Per-device bytes of one optimizer-state leaf: the record of the
+    parameter it mirrors (same shape), a ZeRO-1 pad leaf its ``cols``."""
+    for k, p in params.items():
+        if tuple(t.shape) != tuple(p.shape) or recs.get(k) is None:
+            continue
+        rec = recs[k]
+        if len(rec) == 4:
+            return rec[3] * t.element_size()
+        n = 1
+        for d in _shard_shape(tuple(t.shape), rec[:3]):
+            n *= d
+        return n * t.element_size()
+    return t.numel() * t.element_size()
 
 
 def budget_columns(report: Mapping[str, Any] | None = None, *,

@@ -1,16 +1,21 @@
-"""The data x seq rank layout: the part of :mod:`tpudist.mesh` that
-context parallelism needs.
+"""The data x fsdp x seq rank layout: the part of :mod:`tpudist.mesh`
+that data, fully-sharded and context parallelism need.
 
 The reference lays its devices out as a named mesh whose axis order is
-``data, fsdp, pipe, expert, seq, tensor``. With every axis but ``data``
-and ``seq`` at 1, ``seq`` is the innermost, so rank ``r`` of a world of
-``data * seq`` ranks sits at ``(data_idx, seq_idx) = (r // seq, r %
-seq)``: the reference's device order. :func:`create_layout` gives a rank
-those coordinates and two process groups, created on every rank in the
-same order: its seq peers (its ``data`` index fixed; ring and Ulysses
-attention run over them) and its data replicas (its ``seq`` index fixed).
-The other axes (fsdp, pipe, expert, tensor) are not ported yet and raise,
-naming ROADMAP Queue 1 #7.
+``data, fsdp, pipe, expert, seq, tensor``. With pipe, expert and tensor
+at 1, rank ``r`` of a world of ``data * fsdp * seq`` ranks sits at
+``data_idx = r // (fsdp * seq)``, ``fsdp_idx = (r // seq) % fsdp``,
+``seq_idx = r % seq``: the reference's device order. :func:`create_layout`
+gives a rank those coordinates and its process groups, created on every
+rank in the same order: its seq peers (data and fsdp fixed; ring and
+Ulysses attention run over them), its fsdp peers (data and seq fixed;
+FSDP shards parameters over them) and its data replicas (fsdp and seq
+fixed; the explicit reducer and ZeRO-1 work over them). The batch is
+split over ``data x fsdp`` jointly (:attr:`RankLayout.replica`), as the
+reference's ``batch_sharding`` splits it. ``fsdp`` with ``seq > 1`` is
+refused, as the reference's ``train_gpt2.py`` refuses it; the other axes
+raise, naming their ROADMAP items (tensor parallelism, the pipeline,
+experts).
 """
 
 from __future__ import annotations
@@ -40,15 +45,23 @@ class MeshConfig:
     tensor: int = 1
 
     def __post_init__(self):
-        for axis in (FSDP_AXIS, PIPELINE_AXIS, EXPERT_AXIS, TENSOR_AXIS):
+        for axis in (PIPELINE_AXIS, EXPERT_AXIS, TENSOR_AXIS):
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"MeshConfig({axis}={getattr(self, axis)}) is not ported "
-                    "yet (ROADMAP Queue 1 #7); the port lays out data x seq")
+                    f"yet (ROADMAP {AXIS_ITEMS[axis]}); the port lays out "
+                    "data x fsdp x seq")
+        if self.fsdp > 1 and self.seq > 1:
+            raise ValueError(
+                "fsdp does not compose with seq > 1 (the context-parallel "
+                "step keeps parameters replicated), as the reference's "
+                "train_gpt2.py refuses --fsdp with --cp")
 
     def axis_sizes(self, world: int) -> dict[str, int]:
-        """``{"data": ..., "seq": ...}`` over ``world`` ranks."""
-        sizes = {DATA_AXIS: self.data, SEQUENCE_AXIS: self.seq}
+        """``{"data": ..., "fsdp": ..., "seq": ...}`` over ``world``
+        ranks."""
+        sizes = {DATA_AXIS: self.data, FSDP_AXIS: self.fsdp,
+                 SEQUENCE_AXIS: self.seq}
         wild = [k for k, v in sizes.items() if v == -1]
         if len(wild) > 1:
             raise ValueError(f"at most one axis may be -1, got {wild}")
@@ -63,31 +76,109 @@ class MeshConfig:
         elif fixed != world:
             raise ValueError(f"layout {sizes} wants {fixed} ranks, the world "
                              f"has {world}")
+        if sizes[FSDP_AXIS] > 1 and sizes[SEQUENCE_AXIS] > 1:
+            raise ValueError(
+                "fsdp does not compose with seq > 1 (the context-parallel "
+                "step keeps parameters replicated), as the reference's "
+                "train_gpt2.py refuses --fsdp with --cp")
         return sizes
+
+
+#: the ROADMAP items that port the axes the layout still refuses
+AXIS_ITEMS = {TENSOR_AXIS: "Queue 1 #7b (tensor parallelism)",
+              PIPELINE_AXIS: "Queue 1 #7c (the pipeline)",
+              EXPERT_AXIS: "Queue 1 #7d (experts)"}
+
+
+def largest_divisible_dim(shape, size: int, *,
+                          min_size: int = 1024) -> int | None:
+    """The dim of ``shape`` to shard ``size`` ways: the largest one
+    ``size`` divides (the last of equal ones, as the reference's ``max``
+    over ``(dim, index)`` picks), or None when ``size`` is 1, the leaf
+    holds fewer than ``min_size`` elements or no dim divides."""
+    if size <= 1 or math.prod(shape) < min_size:
+        return None
+    candidates = [(d, i) for i, d in enumerate(shape) if d % size == 0]
+    return max(candidates)[1] if candidates else None
+
+
+def largest_divisible_spec(shape, axis: str, size: int, *,
+                           min_size: int = 1024) -> tuple:
+    """The reference's one spec rule (``tpudist.mesh.
+    largest_divisible_spec``) as a tuple: ``axis`` at the
+    :func:`largest_divisible_dim`, None elsewhere; ``()`` when nothing
+    qualifies (the leaf stays replicated)."""
+    dim = largest_divisible_dim(shape, size, min_size=min_size)
+    if dim is None:
+        return ()
+    return tuple(axis if i == dim else None for i in range(len(shape)))
 
 
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
-    """This rank's place in a ``data x seq`` world. ``seq_group`` and
-    ``data_group`` are None when their axis is 1 (no collective)."""
+    """This rank's place in a ``data x fsdp x seq`` world. A group is None
+    when its axis is 1 (no collective). ``device_mesh`` is the
+    ``torch.distributed`` DeviceMesh over the same groups, ``(data,
+    fsdp)`` or the one of them above 1 (None when both are 1): FSDP2 and
+    the ZeRO-1 DTensors are placed on it."""
 
     rank: int
     data: int
     seq: int
     seq_group: object = None
     data_group: object = None
+    fsdp: int = 1
+    fsdp_group: object = None
+    device_mesh: object = None
 
     @property
     def data_idx(self) -> int:
-        return self.rank // self.seq
+        return self.rank // (self.fsdp * self.seq)
+
+    @property
+    def fsdp_idx(self) -> int:
+        return (self.rank // self.seq) % self.fsdp
 
     @property
     def seq_idx(self) -> int:
         return self.rank % self.seq
 
+    @property
+    def data_parallel_size(self) -> int:
+        """Replicas the batch is split over: ``data * fsdp`` (the
+        reference's ``data_parallel_size``)."""
+        return self.data * self.fsdp
+
+    @property
+    def replica(self) -> int:
+        """This rank's index among the ``data * fsdp`` batch replicas."""
+        return self.data_idx * self.fsdp + self.fsdp_idx
+
+    def data_mesh(self):
+        """The 1-D DeviceMesh of this rank's data replicas (None with one
+        data replica)."""
+        if self.data == 1:
+            return None
+        if self.fsdp == 1:
+            return self.device_mesh
+        return self.device_mesh[DATA_AXIS]
+
     def __deepcopy__(self, memo):
         # process groups are process-wide: a copied model shares them
         return self
+
+
+def _groups(rank: int, world: int, stride: int, size: int):
+    """Create (on every rank, in the same order) the groups of ``size``
+    ranks ``stride`` apart; return this rank's."""
+    mine = None
+    starts = [r for r in range(world) if (r // stride) % size == 0]
+    for start in starts:
+        ranks = [start + k * stride for k in range(size)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
 
 
 def create_layout(config: MeshConfig = MeshConfig()) -> RankLayout:
@@ -99,18 +190,29 @@ def create_layout(config: MeshConfig = MeshConfig()) -> RankLayout:
     else:
         rank, world = 0, 1
     sizes = config.axis_sizes(world)
-    data, seq = sizes[DATA_AXIS], sizes[SEQUENCE_AXIS]
-    seq_group = data_group = None
+    data, fsdp, seq = sizes[DATA_AXIS], sizes[FSDP_AXIS], sizes[SEQUENCE_AXIS]
+    seq_group = data_group = fsdp_group = device_mesh = None
     if seq > 1:
-        for d in range(data):
-            g = dist.new_group([d * seq + j for j in range(seq)])
-            if d == rank // seq:
-                seq_group = g
-    if data > 1 and seq > 1:
-        for j in range(seq):
-            g = dist.new_group([d * seq + j for d in range(data)])
-            if j == rank % seq:
-                data_group = g
+        seq_group = _groups(rank, world, 1, seq)
+    if fsdp > 1:
+        fsdp_group = _groups(rank, world, seq, fsdp)
+    if data > 1 and data < world:
+        data_group = _groups(rank, world, fsdp * seq, data)
     elif data > 1:
         data_group = dist.group.WORLD
-    return RankLayout(rank, data, seq, seq_group, data_group)
+    if data > 1 or fsdp > 1:
+        import torch
+        from torch.distributed.device_mesh import DeviceMesh
+
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        if data > 1 and fsdp > 1:
+            device_mesh = DeviceMesh.from_group(
+                [data_group, fsdp_group], device_type,
+                mesh=torch.arange(world).view(data, fsdp),
+                mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+        else:
+            device_mesh = DeviceMesh.from_group(
+                data_group if data > 1 else fsdp_group, device_type,
+                mesh_dim_names=(DATA_AXIS if data > 1 else FSDP_AXIS,))
+    return RankLayout(rank, data, seq, seq_group, data_group, fsdp,
+                      fsdp_group, device_mesh)

@@ -73,7 +73,7 @@ from tpudist_torch.parallel.cp import (
 )
 
 #: the ROADMAP item that ports the Mixtral-style experts
-_MOE_ITEM = "Queue 1 #7"
+_MOE_ITEM = "Queue 1 #7d (experts)"
 
 
 def apply_rope(x, *, theta: float = 10000.0, positions=None):

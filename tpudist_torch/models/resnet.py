@@ -101,7 +101,11 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` over
     the batch and spatial dims of NCHW, cross-replica under a process
     group (module docstring). Parameters ``scale``/``bias``; running
-    statistics in the buffers ``mean``/``var``."""
+    statistics in the buffers ``mean``/``var``. ``cross_replica = False``
+    (the explicit reducer's path, :mod:`tpudist_torch.parallel.dp`) takes
+    this rank's batch statistics, the DDP default."""
+
+    cross_replica = True
 
     def __init__(self, features: int, *, dtype: torch.dtype,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -122,7 +126,7 @@ class BatchNorm(nn.Module):
                            dtype=self.stat_dtype)
         sums = torch.stack([x32.sum((0, 2, 3)), torch.square(x32).sum((0, 2, 3)),
                             count])
-        if group_up():
+        if group_up() and self.cross_replica:
             import torch.distributed as dist
             from torch.distributed.nn.functional import all_reduce
 

@@ -25,6 +25,14 @@ computes them, so a step never reads a device value back. With
 step also computes a device flag from the gradients, writes every state
 tensor and parameter through it (unchanged where a gradient holds an inf
 or a NaN) and returns it.
+
+Under FSDP (:mod:`tpudist_torch.parallel.fsdp`) the parameters and their
+gradients are DTensors: every optimizer works on their local shards
+(``to_local()``), and :meth:`Optimizer.shard_over` makes the global-norm
+clip and the guard's flag span the fsdp group. :func:`shard_state` is
+ZeRO-1: each state leaf is stored as this rank's slice over the data
+replicas (:class:`ShardedStateOptimizer`), and
+:meth:`Optimizer.slice_over` makes the guard's flag span them.
 """
 
 from __future__ import annotations
@@ -121,6 +129,16 @@ def _writer(ok: torch.Tensor | None) -> Callable:
     return lambda dst, new: dst.copy_(torch.where(ok, new, dst))
 
 
+def local(t):
+    """The local shard of a DTensor (FSDP's parameters and gradients), or
+    ``t`` itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def local_dict(tensors: dict) -> dict:
+    return {k: local(t) for k, t in tensors.items()}
+
+
 @torch.no_grad()
 def load_tensors(dst: dict, src: dict, what: str) -> None:
     """Copy ``src``'s tensors into ``dst``'s by name, in place: the same
@@ -205,6 +223,10 @@ class Optimizer:
 
     fused = False
     compute_dtype = None
+    #: the update of one element reads no other element (ZeRO-1 may then
+    #: update slices; Lamb's trust ratio and Muon's orthogonalization read
+    #: the whole leaf)
+    elementwise = True
 
     def __init__(self, learning_rate: float | Callable[[int], float] = 1e-3,
                  *, weight_decay: float = 0.0,
@@ -214,6 +236,63 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.mask = mask
         self.clip_norm = clip_norm
+        self.shard_group = None
+        self.sharded = frozenset()
+        self.sliced = False
+        self.slice_group = None
+
+    def shard_over(self, group, sharded) -> None:
+        """Gradients of the names in ``sharded`` are this rank's shards of
+        leaves split over ``group`` (FSDP's); the others are replicated
+        over it. The clip's global norm and the guard's flag then sum over
+        the group, so every rank takes the same decision."""
+        if not self.elementwise and sharded:
+            raise NotImplementedError(
+                f"{type(self).__name__} reads whole leaves (not an "
+                "element-wise update), and FSDP holds shards of them: run "
+                "it without --fsdp")
+        self.shard_group, self.sharded = group, frozenset(sharded)
+
+    def slice_over(self, group) -> None:
+        """:meth:`step` takes this rank's slices of gradients that are whole
+        on every rank of ``group`` (ZeRO-1's data replicas; None: a
+        one-process stand-in), clipped already: ZeRO-1 clips the whole
+        gradients, as the replicated step does, before it slices them. The
+        step then clips nothing, and the guard's flag spans ``group``."""
+        self.sliced, self.slice_group = True, group
+
+    def _flag_groups(self) -> list:
+        return [g for g in (self.shard_group, self.slice_group)
+                if g is not None]
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """optax's ``global_norm`` of ``grads``; over the shard group the
+        squares of sharded leaves are summed over the ranks, a replicated
+        leaf's counted once."""
+        if self.shard_group is None:
+            return global_norm(grads.values())
+        import torch.distributed as dist
+
+        n = dist.get_world_size(self.shard_group)
+        parts = [torch.sum(torch.square(g.float())) * (
+            1.0 if k in self.sharded else 1.0 / n) for k, g in grads.items()]
+        total = torch.stack(parts).sum()
+        dist.all_reduce(total, group=self.shard_group)
+        return torch.sqrt(total)
+
+    def all_finite(self, grads: dict) -> torch.Tensor:
+        """The guard's flag: every gradient finite (on every rank of the
+        shard and slice groups)."""
+        ok = all_finite(grads)
+        groups = self._flag_groups()
+        if not groups:
+            return ok
+        import torch.distributed as dist
+
+        bad = (~ok).to(torch.int32)
+        for g in groups:
+            dist.all_reduce(bad, group=g)
+        return bad == 0
 
     def lr_at(self, count: int) -> float:
         """The learning rate of the update that follows ``count`` earlier
@@ -231,10 +310,20 @@ class Optimizer:
         return {k: self.weight_decay if mask is None or mask[k] else 0.0
                 for k in params}
 
-    def _grads(self, grads: dict) -> dict:
-        if self.clip_norm is not None:
+    def clip(self, grads: dict) -> dict:
+        """``grads`` clipped to ``clip_norm`` by their global norm (over the
+        shard group), or ``grads`` itself without a ``clip_norm``."""
+        if self.clip_norm is None:
+            return grads
+        if self.shard_group is None:
             return clip_by_global_norm(grads, self.clip_norm)
-        return grads
+        norm = self.global_norm(grads)
+        keep = norm < self.clip_norm
+        return {k: torch.where(keep, g, (g / norm.to(g.dtype)) * self.clip_norm)
+                for k, g in grads.items()}
+
+    def _grads(self, grads: dict) -> dict:
+        return grads if self.sliced else self.clip(grads)
 
     @torch.no_grad()
     def step(self, state, params: dict, grads: dict, *, guard: bool = False):
@@ -242,7 +331,8 @@ class Optimizer:
         ``guard`` the update is written only where every gradient is
         finite, and the step returns the device flag (true: skipped); it
         counts the step as taken either way."""
-        ok = all_finite(grads) if guard else None
+        params, grads = local_dict(params), local_dict(grads)
+        ok = self.all_finite(grads) if guard else None
         self._update(state, params, self._grads(grads), _writer(ok))
         state.count += 1
         return None if ok is None else ~ok
@@ -273,6 +363,7 @@ class Adam(Optimizer):
                 _bias_correction(self.b2, count + 1))
 
     def init(self, params: dict) -> AdamState:
+        params = local_dict(params)
         zeros = {k: torch.zeros_like(p, dtype=torch.float32)
                  for k, p in params.items()}
         return AdamState(0, zeros, {k: torch.zeros_like(z)
@@ -321,12 +412,17 @@ class FusedAdamW(Adam):
     @torch.no_grad()
     def init(self, params: dict) -> FusedAdamWState:
         base = super().init(params)
+        # FSDP's sharded parameters: their local shards are the masters,
+        # and FSDP's mixed-precision cast at the all-gather makes the copy
+        sharded = {k for k, p in params.items() if hasattr(p, "to_local")}
+        params = local_dict(params)
         if self.compute_dtype is None:
             master = dict(params)
         else:
-            master = {k: p.detach().float().clone() for k, p in params.items()}
-            for p in params.values():
-                if p.is_floating_point():
+            master = {k: p if k in sharded else p.detach().float().clone()
+                      for k, p in params.items()}
+            for k, p in params.items():
+                if p.is_floating_point() and k not in sharded:
                     p.data = p.data.to(self.compute_dtype)
         names = list(params)
         wds = self.leaf_decay(master)
@@ -346,11 +442,18 @@ class FusedAdamW(Adam):
         if list(params) != state.names:
             raise ValueError("fused_adamw: step's parameters differ from "
                              "those the state was built for")
+        grads = local_dict(grads)
         flag = None
         if guard:
+            # the check launch over this rank's leaves (shards, slices),
+            # then the flag summed over the ranks holding the others
             flag = state.nonfinite
             FU.nonfinite_check(state.table, [grads[k] for k in state.names],
                                flag)
+            for g in self._flag_groups():
+                import torch.distributed as dist
+
+                dist.all_reduce(flag, group=g)
         grads = self._grads(grads)
         lr, b1c, b2c = self.scalars(state.count)
         FU.fused_adamw_step(state.table, [grads[k] for k in state.names], lr,
@@ -403,7 +506,7 @@ class SGD(Optimizer):
         self.momentum = momentum
 
     def init(self, params: dict) -> MomentState:
-        return MomentState(0, _zeros(params))
+        return MomentState(0, _zeros(local_dict(params)))
 
     def _update(self, state: MomentState, params, grads, put) -> None:
         neg_lr = -self.lr_at(state.count)
@@ -427,7 +530,7 @@ class Lion(Optimizer):
         self.b1, self.b2 = b1, b2
 
     def init(self, params: dict) -> MomentState:
-        return MomentState(0, _zeros(params))
+        return MomentState(0, _zeros(local_dict(params)))
 
     def _update(self, state: MomentState, params, grads, put) -> None:
         neg_lr = -self.lr_at(state.count)
@@ -449,6 +552,8 @@ class Lamb(Adam):
     """``optax.lamb``: Adam's direction ``m_hat / (sqrt(v_hat) + eps)``,
     the masked decay ``+ wd*p``, then each leaf scaled by its trust ratio
     ``||p|| / ||u||`` (1 where either norm is 0) and by ``-lr``."""
+
+    elementwise = False
 
     def __init__(self, learning_rate=1e-3, *, b1=0.9, b2=0.999, eps=1e-6,
                  weight_decay=0.0, mask=None, clip_norm=None):
@@ -555,6 +660,8 @@ class Muon(Optimizer):
     added, times ``-lr``; the rest take Nesterov Adam (``adam_b1``,
     ``adam_b2``, ``eps``, no decay)."""
 
+    elementwise = False
+
     def __init__(self, learning_rate=1e-3, *, beta: float = 0.95,
                  eps: float = 1e-8, weight_decay=0.0, mask=None,
                  adam_b1: float = 0.9, adam_b2: float = 0.999,
@@ -565,6 +672,7 @@ class Muon(Optimizer):
         self.adam_b1, self.adam_b2 = adam_b1, adam_b2
 
     def init(self, params: dict) -> MuonState:
+        params = local_dict(params)
         routed = {k for k, p in params.items() if muon_view(k, p)}
         mu = _zeros({k: params[k] for k in routed})
         rest = {k: p for k, p in params.items() if k not in routed}
@@ -641,3 +749,350 @@ def make_optimizer(lr: float | Callable[[int], float] = 1e-3, *,
     else:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     return skip_nonfinite(tx) if skip_nonfinite_updates else tx
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1: the optimizer state stored as this rank's slice over the data
+# replicas (the reference's shard_state, arXiv:2004.13336)
+# --------------------------------------------------------------------------
+
+
+def _zero1_layout(shape, world: int, min_size: int):
+    """How one leaf is stored under ZeRO-1 (the reference's rule):
+    ``("replicate", None)`` for scalars and leaves under ``min_size``;
+    ``("shard", dim)`` on the largest ``world``-divisible dim (the natural
+    shape, split); ``("pad", cols)`` when no dim divides (flattened,
+    zero-padded to ``world * cols`` and viewed ``[world, cols]``)."""
+    from tpudist_torch.mesh import largest_divisible_dim
+
+    if world <= 1 or len(shape) == 0 or math.prod(shape) < min_size:
+        return ("replicate", None)
+    dim = largest_divisible_dim(tuple(shape), world, min_size=min_size)
+    if dim is not None:
+        return ("shard", dim)
+    return ("pad", -(-math.prod(shape) // world))
+
+
+def _named_leaves(state, name: str):
+    """Every tensor of an optimizer state (its dataclass fields, nested
+    states and dicts) stored under parameter ``name``."""
+    out = []
+
+    def walk(x):
+        if dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, dict):
+            t = x.get(name)
+            if isinstance(t, torch.Tensor):
+                out.append(t)
+
+    walk(state)
+    return out
+
+
+@dataclasses.dataclass
+class ZeroState:
+    """:class:`ShardedStateOptimizer`'s state: ``inner`` the wrapped
+    optimizer's state over ``slices`` (this rank's slice of each leaf, the
+    leaf itself where it is replicated), ``modes`` each leaf's
+    classification, ``params`` the module's parameters (the gather's
+    destination)."""
+
+    inner: object
+    slices: dict
+    modes: dict
+    params: dict
+    world: int
+    rank: int
+    mesh: object = None
+
+    def _dtensor(self, name: str, t: torch.Tensor):
+        mode, info = self.modes[name]
+        if mode == "replicate" or self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor, Shard
+
+        shape = self.params[name].shape
+        if mode == "pad":
+            return DTensor.from_local(t, self.mesh, [Shard(0)],
+                                      run_check=False,
+                                      shape=(self.world, info),
+                                      stride=(info, 1))
+        return DTensor.from_local(t, self.mesh, [Shard(info)],
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    def state_dict(self) -> dict:
+        """The inner state's entries, each sliced leaf a DTensor over the
+        data replicas (``Shard(dim)`` of its natural shape, ``Shard(0)``
+        of ``[world, cols]``), so a DCP checkpoint holds one global array
+        per leaf."""
+        def wrap(x):
+            if isinstance(x, dict):
+                return {k: (self._dtensor(k, v) if k in self.modes and
+                            isinstance(v, torch.Tensor) else wrap(v))
+                        for k, v in x.items()}
+            return x
+
+        return wrap(self.inner.state_dict())
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Load the inner state (its DTensors' local slices), then make the
+        slices and the module's parameters agree: a parameter loaded in
+        full refreshes its slice; a master held in slices is gathered into
+        the parameter."""
+        def unwrap(x):
+            if isinstance(x, dict):
+                return {k: unwrap(v) for k, v in x.items()}
+            return local(x)
+
+        self.inner.load_state_dict(unwrap(sd))
+        held = getattr(_base_state(self.inner), "master", {})
+        for name, (mode, _) in self.modes.items():
+            if (mode == "replicate" or name in held
+                    or self.slices[name] is self.params[name]):
+                continue
+            self.slices[name].copy_(_slice_of(self.params[name], mode,
+                                              self.modes[name][1],
+                                              self.world, self.rank))
+        if held:
+            gather_slices(self)
+
+    def full_masters(self) -> dict:
+        """Every parameter's float32 master in full (a gather of the
+        sliced ones over the data replicas: every rank must call it)."""
+        held = getattr(_base_state(self.inner), "master", {})
+        out = {}
+        for name, p in self.params.items():
+            mode, info = self.modes[name]
+            src = held.get(name, self.slices[name])
+            # a whole-leaf optimizer keeps the parameters whole
+            out[name] = (src if mode == "replicate" or src is p else
+                         _assemble(_all_gather(self, src), mode, info,
+                                   p.shape))
+        return out
+
+
+def _reslice(state, name: str, mode: str, info, world: int,
+             rank: int) -> None:
+    """Replace each tensor of ``state`` stored under ``name`` by this
+    rank's slice of it."""
+    def walk(x):
+        if dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, dict) and isinstance(x.get(name), torch.Tensor):
+            x[name] = _slice_of(x[name], mode, info, world, rank)
+
+    walk(state)
+
+
+def _move_scalars(src, dst) -> None:
+    """Copy the host scalars (counts, the guard's pending flag) of one
+    optimizer state onto another of the same structure."""
+    for f in dataclasses.fields(src):
+        v = getattr(src, f.name)
+        if dataclasses.is_dataclass(v):
+            _move_scalars(v, getattr(dst, f.name))
+        elif not isinstance(v, (dict, torch.Tensor)):
+            setattr(dst, f.name, v)
+
+
+def _base_state(state):
+    from tpudist_torch.amp import inner_state
+
+    return inner_state(state)
+
+
+def _slice_of(p: torch.Tensor, mode: str, info, world: int, rank: int):
+    """This rank's slice of leaf ``p`` as a new contiguous tensor."""
+    if mode == "shard":
+        return p.detach().chunk(world, info)[rank].contiguous()
+    flat = p.detach().reshape(-1)
+    row = torch.zeros((1, info), dtype=p.dtype, device=p.device)
+    lo = rank * info
+    hi = min(lo + info, flat.numel())
+    if hi > lo:
+        row[0, :hi - lo] = flat[lo:hi]
+    return row
+
+
+def _assemble(parts: list, mode: str, info, shape) -> torch.Tensor:
+    if mode == "shard":
+        return torch.cat(parts, info)
+    return torch.cat([t.reshape(-1) for t in parts])[:math.prod(shape)].view(
+        shape)
+
+
+def _all_gather(state: ZeroState, t: torch.Tensor) -> list:
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(state.world)]
+    dist.all_gather(parts, t.contiguous(), group=state.mesh.get_group())
+    return parts
+
+
+@torch.no_grad()
+def gather_slices(state: ZeroState) -> None:
+    """All-gather every sliced leaf's updated slice into the module's
+    parameter (the params all-gather ZeRO-1 pays every step)."""
+    for name, (mode, info) in state.modes.items():
+        if mode == "replicate":
+            continue
+        p = local(state.params[name])
+        p.copy_(_assemble(_all_gather(state, state.slices[name]), mode,
+                          info, p.shape))
+
+
+class ShardedStateOptimizer:
+    """ZeRO-1 around a port optimizer (:func:`shard_state`). ``world`` /
+    ``rank``: this rank's place among the data replicas; ``mesh``: their
+    DeviceMesh (None: a one-process stand-in that only updates slices,
+    as chip_smoke.py's phase 56 drives it)."""
+
+    def __init__(self, inner, *, world: int, rank: int, mesh=None,
+                 min_size: int = 1024, skip_spec=None):
+        self.inner = inner
+        self.world, self.rank, self.mesh = int(world), int(rank), mesh
+        self.min_size = int(min_size)
+        self.skip_spec = skip_spec
+        base = self._base()
+        if base.elementwise:
+            # the inner step takes slices: its guard (the check kernel
+            # under the fused AdamW) spans the data replicas, and the clip
+            # runs here, on the whole gradients (:meth:`update`)
+            base.slice_over(mesh.get_group() if mesh is not None else None)
+
+    @property
+    def fused(self) -> bool:
+        return getattr(self.inner, "fused", False)
+
+    @property
+    def compute_dtype(self):
+        return getattr(self.inner, "compute_dtype", None)
+
+    def _base(self):
+        return getattr(self.inner, "inner", self.inner)
+
+    def layout(self, p) -> tuple:
+        """The leaf's classification: a DTensor (FSDP already shards it)
+        or a leaf ``skip_spec`` exempts stays natural (``replicate``)."""
+        if hasattr(p, "to_local") or (
+                self.skip_spec is not None and self.skip_spec(tuple(p.shape))):
+            return ("replicate", None)
+        return _zero1_layout(tuple(p.shape), self.world, self.min_size)
+
+    @torch.no_grad()
+    def init(self, params: dict) -> ZeroState:
+        base = self._base()
+        modes = {k: self.layout(p) for k, p in params.items()}
+        if not base.elementwise:
+            # Lamb's trust ratio and Muon's orthogonalization read whole
+            # leaves: the state is built whole and stored as slices
+            state = ZeroState(self.inner.init(dict(params)), dict(params),
+                              modes, dict(params), self.world, self.rank,
+                              self.mesh)
+            for name, (mode, info) in modes.items():
+                if mode != "replicate":
+                    _reslice(state.inner, name, mode, info, self.world,
+                             self.rank)
+            return state
+        slices = {k: (p if modes[k][0] == "replicate" else
+                      _slice_of(p, *modes[k], self.world, self.rank))
+                  for k, p in params.items()}
+        if base.mask is not None:
+            # the decay mask reads the leaves' natural shapes (a pad slice
+            # of a 1-D leaf is 2-D)
+            natural = base.mask(params)
+            base.mask = lambda _slices: natural
+        inner = self.inner.init(slices)
+        if self.compute_dtype is not None:
+            # the module holds the whole compute copy, gathered each step
+            # from the slices the kernel writes
+            for k, p in params.items():
+                if modes[k][0] != "replicate" and p.is_floating_point():
+                    p.data = p.data.to(self.compute_dtype)
+        return ZeroState(inner, slices, modes, dict(params), self.world,
+                         self.rank, self.mesh)
+
+    @torch.no_grad()
+    def update(self, state: ZeroState, grads: dict):
+        """Clip the whole (replicated, already reduced) gradients, then
+        update this rank's slices through the inner optimizer with their
+        slices: under the fused AdamW one kernel launch over the slices
+        (and, under the ``--amp`` guard, one check launch, its flag summed
+        over the data replicas). The pad region is re-zeroed. The guard
+        reads clipped gradients: the clip keeps a finite gradient finite
+        and turns a non-finite one's whole tree into NaN or zeros around
+        it, so the decision is the unclipped gradients'."""
+        base = self._base()
+        grads = local_dict(grads)
+        if not base.elementwise:
+            return self._update_whole(state, grads)
+        grads = base.clip(grads)
+        gslices = {k: (g if state.modes[k][0] == "replicate" else
+                       _slice_of(g, *state.modes[k], self.world, self.rank))
+                   for k, g in grads.items()}
+        self.inner.step(state.inner, state.slices, gslices)
+        for name, (mode, cols) in state.modes.items():
+            if mode != "pad":
+                continue
+            valid = max(0, min(cols, state.params[name].numel()
+                               - self.rank * cols))
+            for t in (state.slices[name], *_named_leaves(state.inner, name)):
+                t.view(-1)[valid:].zero_()
+
+    def _update_whole(self, state: ZeroState, grads: dict) -> None:
+        """An update that reads whole leaves: the state's slices are
+        gathered into a whole state, the inner step runs on it and on the
+        whole (replicated) parameters as on every replica, and this
+        rank's slices are kept. The update is the replicated one bit for
+        bit; the state rests sliced."""
+        params = local_dict(state.params)
+        whole = self.inner.init(dict(params))
+        for name, (mode, info) in state.modes.items():
+            for src, dst in zip(_named_leaves(state.inner, name),
+                                _named_leaves(whole, name)):
+                dst.copy_(src if mode == "replicate" else
+                          _assemble(_all_gather(state, src), mode, info,
+                                    dst.shape))
+        _move_scalars(state.inner, whole)
+        self.inner.step(whole, params, grads)
+        _move_scalars(whole, state.inner)
+        for name, (mode, info) in state.modes.items():
+            for src, dst in zip(_named_leaves(whole, name),
+                                _named_leaves(state.inner, name)):
+                dst.copy_(src if mode == "replicate" else
+                          _slice_of(src, mode, info, self.world, self.rank))
+
+    @torch.no_grad()
+    def step(self, state: ZeroState, params: dict, grads: dict) -> None:
+        """:meth:`update`, then the params all-gather (a whole-leaf
+        update wrote the parameters whole)."""
+        self.update(state, grads)
+        if self._base().elementwise:
+            gather_slices(state)
+
+
+def shard_state(tx, layout=None, *, world: int | None = None,
+                rank: int | None = None, mesh=None, min_size: int = 1024,
+                skip_spec=None) -> ShardedStateOptimizer:
+    """ZeRO-1 over ``layout``'s data replicas (its data DeviceMesh), or
+    over an explicit ``world`` / ``rank`` / ``mesh``: each state leaf
+    stored per :func:`_zero1_layout`, the update run on this rank's slices
+    with the replicated gradient's slices, then the parameters all-
+    gathered. Apply it outermost (around the ``--amp`` guard). The fused
+    AdamW then runs its kernel once a step over the table of this rank's
+    slices, bit-equal on those elements to the replicated launch (AdamW is
+    element-wise). ``skip_spec(shape) -> bool`` exempts leaves (the plan's
+    fsdp-sharded ones)."""
+    if layout is not None:
+        world = layout.data
+        rank = layout.data_idx
+        mesh = layout.data_mesh()
+    return ShardedStateOptimizer(tx, world=world or 1, rank=rank or 0,
+                                 mesh=mesh, min_size=min_size,
+                                 skip_spec=skip_spec)

@@ -1,0 +1,131 @@
+"""ParallelPlan: the one resolver for a composed run, over data x fsdp.
+
+Counterpart of :mod:`tpudist.parallel.plan` for the data-parallel axes:
+a plan holds the rank layout (:func:`tpudist_torch.mesh.create_layout`
+over ``data x fsdp``), the replicate-below threshold shared by FSDP and
+ZeRO-1, and the rules that tie them:
+
+- FSDP shards every leaf over ``fsdp`` on its largest divisible dim
+  (:mod:`tpudist_torch.parallel.fsdp`), and the batch rides ``data x
+  fsdp`` jointly;
+- :meth:`ParallelPlan.wrap_zero1` is ZeRO-1 over ``data`` that skips the
+  leaves the plan already shards over ``fsdp``, so nothing is sharded
+  twice;
+- :meth:`ParallelPlan.validate_reduce` refuses the explicit reducer on a
+  plan with a real ``fsdp`` axis, with the reference's hint;
+- :meth:`ParallelPlan.axis_worlds` is what a checkpoint's geometry
+  records (``fsdp_world``; tensor, pipe and expert are 1).
+
+``tensor``, ``pipe`` and ``expert`` above 1 raise, naming their ROADMAP
+items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from tpudist_torch.mesh import (
+    AXIS_ITEMS, EXPERT_AXIS, FSDP_AXIS, PIPELINE_AXIS, TENSOR_AXIS,
+    MeshConfig, RankLayout, create_layout, largest_divisible_spec)
+
+__all__ = ["ParallelPlan", "spec_is_sharded"]
+
+
+def spec_is_sharded(spec, sizes: dict) -> bool:
+    """True iff ``spec`` names an axis of more than one rank (``sizes``:
+    axis name -> size)."""
+    for part in tuple(spec or ()):
+        names = part if isinstance(part, tuple) else (part,)
+        if any(n is not None and int(sizes.get(n, 1)) > 1 for n in names):
+            return True
+    return False
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelPlan:
+    """The resolved composition of one layout; ``fsdp_min_size`` is the
+    replicate-below threshold (elements) shared with ZeRO-1."""
+
+    layout: RankLayout
+    fsdp_min_size: int = 1024
+
+    @property
+    def wraps_fsdp(self) -> bool:
+        """The model is wrapped with FSDP under this plan: the layout has
+        an fsdp group (one of a single rank, too: one card then runs
+        FSDP's gathers, casts and reductions for real)."""
+        return self.layout.fsdp_group is not None
+
+    @classmethod
+    def build(cls, *, data: int = -1, fsdp: int = 1, pipe: int = 1,
+              tensor: int = 1, expert: int = 1, **kw) -> "ParallelPlan":
+        """Plan and layout in one call (``MeshConfig`` semantics: ``-1``
+        is every remaining rank). Every rank must call it."""
+        for axis, size in ((TENSOR_AXIS, tensor), (PIPELINE_AXIS, pipe),
+                           (EXPERT_AXIS, expert)):
+            if size != 1:
+                raise NotImplementedError(
+                    f"ParallelPlan({axis}={size}) is not ported yet "
+                    f"(ROADMAP {AXIS_ITEMS[axis]})")
+        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp)), **kw)
+
+    @property
+    def data(self) -> int:
+        return self.layout.data
+
+    @property
+    def fsdp(self) -> int:
+        return self.layout.fsdp
+
+    pipe = tensor = expert = 1
+
+    @property
+    def model_axes(self) -> dict[str, int]:
+        return {FSDP_AXIS: self.fsdp} if self.fsdp > 1 else {}
+
+    def axis_worlds(self) -> dict[str, int]:
+        """The geometry keys a checkpoint records for this plan."""
+        return {"fsdp_world": self.fsdp, "tensor_world": 1,
+                "pipe_world": 1, "expert_world": 1}
+
+    def describe(self) -> str:
+        return (f"ParallelPlan(data={self.data}, fsdp={self.fsdp}, "
+                "pipe=1, tensor=1, expert=1)")
+
+    @property
+    def data_parallel_size(self) -> int:
+        return self.layout.data_parallel_size
+
+    def fsdp_spec(self, shape) -> tuple:
+        return largest_divisible_spec(tuple(shape), FSDP_AXIS, self.fsdp,
+                                      min_size=self.fsdp_min_size)
+
+    def _zero1_skip(self, shape) -> bool:
+        return self.wraps_fsdp and bool(self.fsdp_spec(shape))
+
+    def wrap_zero1(self, tx):
+        """ZeRO-1 over ``data`` composed with this plan: the leaves the
+        plan shards over ``fsdp`` stay as FSDP holds them."""
+        from tpudist_torch.optim import shard_state
+
+        return shard_state(tx, self.layout, min_size=self.fsdp_min_size,
+                           skip_spec=self._zero1_skip if self.wraps_fsdp
+                           else None)
+
+    def validate_reduce(self, reduce) -> None:
+        """The explicit reducer reduces over ``data`` alone: refused on a
+        plan with a real model axis, naming the fix."""
+        if reduce is None or reduce in ("none", "auto") or not isinstance(
+                reduce, str):
+            return
+        axes = self.model_axes
+        if axes:
+            moved = " * ".join(f"{k}={v}" for k, v in axes.items())
+            raise ValueError(
+                f"reduce={reduce!r} is pure-DP (the explicit bucketed/"
+                "quantized reducer reduces over the 'data' axis only) but "
+                f"this plan shards the model over {moved} — keep "
+                "reduce='none' (FSDP already reduce-scatters gradients over "
+                "'fsdp'), or move those ranks to the data axis "
+                "(ParallelPlan.build(data=-1) / MeshConfig(data=-1)) before "
+                "asking for the explicit wire format")

@@ -14,10 +14,11 @@ Counterpart of :mod:`tpudist.resilience`, for what the port runs:
 - :mod:`~tpudist_torch.resilience.chaos`: deterministic crash, hang,
   SIGTERM, checkpoint corruption and NaN injection at a step;
 - :mod:`~tpudist_torch.resilience.elastic`: the geometry guard a resume
-  applies to the saved ``tpudist_meta.json``.
+  applies to the saved ``tpudist_meta.json``, and the elastic reshard
+  onto another data world (``fit(elastic=True)``).
 
 Not ported yet: goodput accounting and the repair loop (ROADMAP Queue 1
-#8), the elastic reshard (Queue 1 #7).
+#8).
 """
 
 from tpudist_torch.resilience.chaos import (

@@ -1,13 +1,23 @@
-"""The geometry guard of a resume: which checkpoint metas a run may take.
+"""Elastic restart: resume a checkpoint on another data world.
 
-Part of :mod:`tpudist.resilience.elastic`, the functions every resume's
-guard uses (``tpudist/train.py``'s bring-up): :func:`meta_matches` decides
-whether a saved ``tpudist_meta.json`` describes this run's geometry, and
-:func:`refusal_reason` says why a mismatch is not a pure world resize;
-that text is the hint of the error a refused resume raises. The elastic
-reshard itself (``reshard_restore``, ``remap_step``, ``fit(elastic=True)``)
-is not ported yet (ROADMAP Queue 1 #7/#9): its world-bound layouts are
-ZeRO-1's and the quantized reducer's, which the port does not have yet.
+Counterpart of :mod:`tpudist.resilience.elastic`. The guard every resume
+uses: :func:`meta_matches` decides whether a saved ``tpudist_meta.json``
+describes this run's geometry, and :func:`refusal_reason` says why a
+mismatch is not a pure world resize (the world-shaped keys may differ;
+the semantic ones, ``reduce`` and ``shard_opt_state``, and the model
+axes may not). ``fit(elastic=True)`` turns a pure resize into a reshard
+(:func:`reshard_restore`):
+
+- a leaf whose saved global shape is the live one loads directly (DCP
+  places a DTensor's global array on the new world's shards);
+- a ZeRO-1 pad leaf (``[world, cols]``) or a leaf whose ZeRO-1
+  classification changed is read whole at its saved shape, relaid by its
+  flat prefix (re-padded with zeros, exact because the pad region is
+  zero by construction) and sliced for this rank;
+- the error-feedback residual is world-bound per-replica error: it
+  restarts as zeros (one step of uncompensated quantization noise);
+- the step counter, the data position, is remapped by the
+  steps-per-epoch ratio, rounding down (:func:`remap_step`).
 """
 
 from __future__ import annotations
@@ -20,6 +30,8 @@ __all__ = [
     "comparable_meta",
     "elastic_mismatch",
     "meta_matches",
+    "remap_step",
+    "reshard_restore",
 ]
 
 
@@ -145,3 +157,149 @@ def elastic_mismatch(saved_meta: dict, run_meta: dict) -> bool:
     resize (every differing key in :data:`ELASTIC_KEYS`)."""
     return (not meta_matches(saved_meta, run_meta)
             and refusal_reason(saved_meta, run_meta) is None)
+
+
+def remap_step(step: int, saved_meta: dict, run_meta: dict) -> tuple[int, bool]:
+    """The saved optimizer-step counter in the new world's steps,
+    keeping the data position (``step / steps_per_epoch`` epochs): ``(new
+    step, exact)``; an inexact ratio rounds down (a partial batch is
+    consumed again, never skipped)."""
+    old = saved_meta.get("steps_per_epoch")
+    new = run_meta.get("steps_per_epoch")
+    step = int(step)
+    if not old or not new or old == new:
+        return step, True
+    return (step * new) // old, (step * new) % old == 0
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> ``{"a.b.c": leaf}`` (DCP's names)."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{name}."))
+        else:
+            out[name] = v
+    return out
+
+
+def relayout(old, new_shape) -> "torch.Tensor":
+    """Old stored layout -> new: the flat prefix copied, the tail
+    zero-(re)padded."""
+    import math
+
+    import torch
+
+    n = math.prod(new_shape)
+    flat = old.reshape(-1)
+    if flat.numel() >= n:
+        flat = flat[:n]
+    else:
+        flat = torch.cat([flat, flat.new_zeros(n - flat.numel())])
+    return flat.reshape(new_shape)
+
+
+def _local_part(full, like):
+    """This rank's part of the global ``full`` as ``like`` (a DTensor, or
+    a plain tensor: all of it) holds it."""
+    if not hasattr(like, "to_local"):
+        return full
+    mesh = like.device_mesh
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard():
+            full = full.chunk(mesh.size(i), pl.dim)[mesh.get_local_rank(i)]
+    return full
+
+
+def reshard_restore(ckpt, like, step: int, *, saved_meta: dict,
+                    run_meta: dict, on_event=None):
+    """Restore checkpoint ``step`` into ``like`` (a
+    :class:`~tpudist_torch.train.TrainState` built for the new world, its
+    residual zeroed) in place, resharding the world-bound leaves (module
+    docstring). Emits one ``reshard`` event through ``on_event``."""
+    import torch
+
+    reason = refusal_reason(saved_meta, run_meta)
+    if reason is not None:
+        raise ElasticRefusal(
+            f"checkpoint at {ckpt.directory} cannot be elastically resumed: "
+            f"{reason} — resume with the original settings or start a "
+            "fresh checkpoint_dir")
+    saved = ckpt.saved_metadata(step)
+    sd = like.state_dict()
+    live = {k: v for k, v in _flatten(sd).items()
+            if isinstance(v, torch.Tensor)}
+    if set(saved) != set(live):
+        missing = sorted(set(live) - set(saved))[:3]
+        extra = sorted(set(saved) - set(live))[:3]
+        raise ElasticRefusal(
+            f"checkpoint at {ckpt.directory} has a different train-state "
+            f"STRUCTURE than the live run (missing {missing}, extra {extra})"
+            " — this is not a world resize; resume with the original "
+            "settings")
+    load = {}
+    resharded, flushed = [], False
+    for name, t in live.items():
+        old_shape, old_dtype = saved[name]
+        if name == "comm_residual":
+            flushed = True   # the live state's zeros are the flushed bank
+            continue
+        if old_dtype != t.dtype:
+            raise ElasticRefusal(f"leaf {name} changed dtype ({old_dtype} != "
+                                 f"{t.dtype}) — not a world resize")
+        if old_shape == tuple(t.shape):
+            load[name] = t
+        else:
+            load[name] = torch.empty(old_shape, dtype=old_dtype)
+            resharded.append(name)
+    # what is read: the entries of sd (counters included), each tensor
+    # replaced by its load target, the flushed residual left out
+    def targets(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            name = f"{prefix}{k}"
+            if isinstance(v, dict):
+                out[k] = targets(v, f"{name}.")
+            elif not isinstance(v, torch.Tensor):
+                out[k] = v
+            elif name in load:
+                out[k] = load[name]
+        return out
+
+    nested = targets(sd)
+    ckpt.raw_restore(nested, step)
+
+    def merge(tree, got, prefix=""):
+        for k, v in got.items():
+            name = f"{prefix}{k}"
+            if isinstance(v, dict):
+                merge(tree[k], v, f"{name}.")
+            elif name in resharded:
+                t = tree[k]
+                dev = (t.to_local() if hasattr(t, "to_local") else t).device
+                tree[k] = _local_part(
+                    relayout(v, tuple(t.shape)).to(dev), t)
+            elif not isinstance(v, torch.Tensor):
+                tree[k] = v
+
+    merge(sd, nested)
+    if flushed:
+        sd.pop("comm_residual", None)
+    like.load_state_dict(sd)
+    new_step, exact = remap_step(like.step, saved_meta, run_meta)
+    like.step = new_step
+    if on_event is not None:
+        on_event({
+            "tag": "reshard",
+            "old_world": saved_meta.get("data_world",
+                                        saved_meta.get("world_size")),
+            "new_world": run_meta.get("data_world",
+                                      run_meta.get("world_size")),
+            "step_old": int(step), "step_new": int(new_step),
+            "cursor_exact": bool(exact),
+            "resharded_leaves": len(resharded),
+            "resharded": resharded[:16],
+            "residual_flushed": flushed,
+        })
+    return like

@@ -20,7 +20,7 @@
 ``--prompt`` takes comma-separated token ids (no tokenizer ships);
 without any, mixed-length random prompts exercise the scheduler. The
 flags are the JAX CLI's (``--tensor``, ``--trace`` and ``--metrics_port``
-are not ported: ROADMAP Queue 1 #7, #8), plus ``--device``, ``--full``,
+are not ported: ROADMAP Queue 1 #7b, #8), plus ``--device``, ``--full``,
 ``--paged`` / ``--block_size`` and ``--attn_impl`` (default ``fused``:
 decode through the kernels).
 """

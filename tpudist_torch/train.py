@@ -64,6 +64,23 @@ with the reference's numerics:
   rank does; no bit parity with the reference's one global mask is
   claimed.
 
+The data-parallel layers of the reference (Queue 1 #7's first half):
+
+- ``reduce="bucketed"|"quantized"|"auto"`` takes the gradient reduction
+  out of DDP into the explicit reducer (:mod:`tpudist_torch.parallel.dp`):
+  no DDP wrapper, local BatchNorm statistics whose running averages are
+  averaged over the replicas, the error-feedback residual in
+  ``state.comm_residual``;
+- ``plan`` (:class:`tpudist_torch.parallel.plan.ParallelPlan`) with an
+  ``fsdp`` axis shards every block and the root with FSDP2
+  (:mod:`tpudist_torch.parallel.fsdp`) over ``data x fsdp``: no DDP,
+  FSDP reduce-scatters the sharded leaves' gradients, the step
+  all-reduces the replicated ones;
+- ``shard_opt_state`` is ZeRO-1 (:func:`tpudist_torch.optim.shard_state`,
+  through ``plan.wrap_zero1`` under a plan);
+- ``elastic`` resumes a checkpoint written at another data world
+  (:mod:`tpudist_torch.resilience.elastic`).
+
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
 is a silent no-op.
@@ -88,7 +105,8 @@ from tpudist_torch.distributed import group_up
 from tpudist_torch.memory import device_memory_stats
 from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.models.lm_utils import seq_shard_lm
-from tpudist_torch.optim import FusedAdamWState, Optimizer, load_tensors
+from tpudist_torch.optim import (
+    FusedAdamWState, Optimizer, load_tensors, local)
 from tpudist_torch.profiling import WindowedProfiler
 from tpudist_torch.remat import remat_module, resolve as resolve_remat
 from tpudist_torch.rng import fold_in
@@ -105,15 +123,47 @@ class TrainState:
     model: nn.Module
     module: nn.Module
     opt_state: object
+    #: the explicit reducer's error-feedback residual ``[1, n_buckets,
+    #: bucket_size]`` (this rank's), or None
+    comm_residual: torch.Tensor | None = None
+    #: the rank layout the state is placed on (its data DeviceMesh holds
+    #: the residual and ZeRO-1's slices in a checkpoint), or None
+    layout: object = None
+
+    def _sharded(self) -> dict:
+        """FSDP's DTensor parameters by name."""
+        return {k: p for k, p in self.model.named_parameters()
+                if hasattr(p, "to_local")}
+
+    def _global(self, name: str, t: torch.Tensor, sharded: dict):
+        """``t`` (this rank's shard of parameter ``name``'s leaf, or a
+        state tensor of its shape) as a DTensor placed as the parameter."""
+        p = sharded.get(name)
+        if p is None or hasattr(t, "to_local") or t.shape != local(p).shape:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, p.device_mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride())
 
     def params(self) -> dict[str, torch.Tensor]:
-        """The float32 master of every parameter, by name."""
+        """The float32 master of every parameter, by name, whole: ZeRO-1's
+        slices and FSDP's shards are gathered (every rank must call it
+        then)."""
         opt = inner_state(self.opt_state)
-        if isinstance(opt, FusedAdamWState):
+        if hasattr(self.opt_state, "slices"):
+            params = self.opt_state.full_masters()
+        elif isinstance(opt, FusedAdamWState):
             params = opt.master
         else:
             params = dict(self.model.named_parameters())
-        return {k: p.detach() for k, p in params.items()}
+        sharded = self._sharded()
+        out = {}
+        for k, p in params.items():
+            p = self._global(k, p.detach(), sharded)
+            out[k] = p.full_tensor() if hasattr(p, "full_tensor") else p
+        return out
 
     def batch_stats(self) -> dict[str, torch.Tensor]:
         """The BN running statistics, by buffer name."""
@@ -131,20 +181,58 @@ class TrainState:
         optimizer state does not hold (all of them but under the fused
         optimizer, whose state holds every master); ``buffers``, the BN
         running statistics and counters; ``opt``, the optimizer state's
-        ``state_dict``. Each tensor appears once, and a compute copy never
-        (the fused optimizer derives it on load)."""
-        return {"step": self.step, "params": self._own_params(),
-                "buffers": self.batch_stats(),
-                "opt": self.opt_state.state_dict()}
+        ``state_dict``; ``comm_residual`` when the reducer keeps one. Each
+        tensor appears once, and a compute copy never (the fused optimizer
+        derives it on load). A tensor that differs across ranks is a
+        DTensor, so DCP writes one global array for it: FSDP's shards
+        (and the optimizer state of their leaves), ZeRO-1's slices, the
+        residual (``Shard(0)`` of ``[world, n_buckets, bucket_size]``)."""
+        sharded = self._sharded()
+
+        def wrap(x):
+            if isinstance(x, dict):
+                return {k: (self._global(k, v, sharded)
+                            if isinstance(v, torch.Tensor) else wrap(v))
+                        for k, v in x.items()}
+            return x
+
+        sd = {"step": self.step, "params": self._own_params(),
+              "buffers": self.batch_stats(),
+              "opt": wrap(self.opt_state.state_dict())}
+        if self.comm_residual is not None:
+            sd["comm_residual"] = self._residual_dtensor()
+        return sd
+
+    def _residual_dtensor(self):
+        mesh = self.layout.data_mesh() if self.layout is not None else None
+        if mesh is None:
+            return self.comm_residual
+        from torch.distributed.tensor import DTensor, Shard
+
+        r = self.comm_residual
+        return DTensor.from_local(r, mesh, [Shard(0)], run_check=False,
+                                  shape=(mesh.size(), *r.shape[1:]),
+                                  stride=r.stride())
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """Copy ``sd`` into the live tensors in place (no tensor is rebound:
         the fused kernel's table and DDP's buckets keep their storage) and
         take its step and counters."""
-        load_tensors(self._own_params(), sd["params"], "params")
+        def unwrap(x):
+            if isinstance(x, dict):
+                return {k: unwrap(v) for k, v in x.items()}
+            return local(x)
+
+        load_tensors({k: local(t) for k, t in self._own_params().items()},
+                     unwrap(sd["params"]), "params")
         load_tensors(self.batch_stats(), sd["buffers"], "buffers")
-        self.opt_state.load_state_dict(sd["opt"])
+        self.opt_state.load_state_dict(
+            sd["opt"] if hasattr(self.opt_state, "slices")
+            else unwrap(sd["opt"]))
+        if self.comm_residual is not None and "comm_residual" in sd:
+            load_tensors({"r": self.comm_residual},
+                         {"r": local(sd["comm_residual"])}, "comm_residual")
         self.step = int(sd["step"])
 
 
@@ -179,20 +267,35 @@ def lm_loss(logits, tokens):
                            ignore_index=-100)
 
 
-def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
+def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
+                       ddp: bool = True, layout=None) -> TrainState:
     """Build the optimizer state from ``model``'s parameters (the fused
     optimizer with a compute copy turns them into the copy here) and wrap
     the module in DDP when a process group is up. Every rank builds the
     model from the same seed; DDP's broadcast from rank 0 at wrap time is
-    the reference's init-sync."""
-    opt_state = tx.init(dict(model.named_parameters()))
+    the reference's init-sync. ``plan`` with an ``fsdp`` axis shards the
+    model with FSDP2 first (:func:`tpudist_torch.parallel.fsdp.
+    apply_fsdp`; no DDP); ``ddp=False`` (the explicit reducer's path)
+    broadcasts the parameters and buffers from rank 0 instead of
+    wrapping."""
     module = model
-    if group_up():
+    if plan is not None:
+        layout = plan.layout
+    if plan is not None and plan.wraps_fsdp:
+        from tpudist_torch.parallel.fsdp import apply_fsdp
+
+        apply_fsdp(model, plan.layout, tx, min_size=plan.fsdp_min_size)
+    elif group_up() and not ddp:
+        with torch.no_grad():
+            for t in (*model.parameters(), *model.buffers()):
+                dist.broadcast(t, 0)
+    opt_state = tx.init(dict(model.named_parameters()))
+    if group_up() and ddp and not (plan is not None and plan.wraps_fsdp):
         dev = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
             broadcast_buffers=False)
-    return TrainState(0, model, module, opt_state)
+    return TrainState(0, model, module, opt_state, layout=layout)
 
 
 def _apply_input_transform(transform, inputs, batch, step=None):
@@ -258,10 +361,11 @@ def resolve_fused(fused, model, tx) -> frozenset:
 
 def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_loss,
                     input_key: str = "image", label_key: str = "label",
-                    fused=None, grad_accum: int = 1, reduce: str = "none",
+                    fused=None, grad_accum: int = 1, reduce="none",
                     forward_loss: Callable | None = None, remat=False,
                     dropout_seed: int = 0,
-                    input_transform: Callable | None = None, layout=None):
+                    input_transform: Callable | None = None, layout=None,
+                    plan=None, reduce_bucket_size: int | None = None):
     """Build ``step(state, batch) -> (state, {"loss": tensor})``: forward,
     loss, backward (DDP all-reduces the gradients under a group), one
     optimizer update. ``state`` is updated in place; ``batch`` is a dict of
@@ -301,16 +405,39 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     ``forward_loss`` must be one built for the same layout
     (``chunked_lm_forward(..., layout=)``).
 
+    ``reduce`` (``"none"``, ``"bucketed"``, ``"quantized"``, ``"auto"``
+    or a built :class:`~tpudist_torch.parallel.dp.GradReducer`) takes the
+    explicit reducer's path (module docstring; ``step.grad_reducer`` is
+    None on DDP's); ``reduce_bucket_size`` sets its buckets' elements.
+    The state must then be built with
+    ``create_train_state(..., ddp=False)`` and carry the residual
+    (``step.grad_reducer.new_residual``); ``fit`` does both.
+    ``plan`` (a :class:`~tpudist_torch.parallel.plan.ParallelPlan`)
+    validates the reducer against its axes and, with ``fsdp > 1``,
+    expects a state built under it (FSDP's module): the step then
+    all-reduces the gradients of the leaves FSDP leaves replicated.
+    ``step.comm_stats(params)`` is the reducer's wire accounting (None
+    without one), ``step.plan`` the plan.
+
     Under a process group ``step(state, batch, votes)`` also sums the
     host floats ``votes`` over the ranks in the loss's all-reduce
     (``metrics["votes"]``, on the device): ``fit`` agrees its stop and
     save decisions through them without a collective of their own."""
+    from tpudist_torch.allreduce import DEFAULT_BUCKET_ELEMS
+    from tpudist_torch.parallel.dp import make_reducer
+
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if plan is not None:
+        plan.validate_reduce(reduce)
+        if layout is None:
+            layout = plan.layout
+    reducer = None
     if reduce not in (None, "none"):
-        raise NotImplementedError(
-            f"reduce={reduce!r} is not ported yet (ROADMAP Queue 1 #7); "
-            "DDP's all-reduce is the port's 'none'")
+        reducer = make_reducer(
+            reduce, layout if layout is not None else default_layout(),
+            bucket_size=reduce_bucket_size or DEFAULT_BUCKET_ELEMS)
+    fsdp = plan is not None and plan.wraps_fsdp
     fused_set = resolve_fused(fused, model, tx)
     if "optimizer" not in fused_set and getattr(tx, "compute_dtype", None):
         raise ValueError(
@@ -348,6 +475,12 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         # the LayerNorms through the fused kernel
         model.fused_ln = True
 
+    if reducer is not None:
+        # the DDP default: each replica's batch statistics, the running
+        # averages averaged over the replicas after the step
+        for m in model.modules():
+            if hasattr(m, "cross_replica"):
+                m.cross_replica = False
     rank = dist.get_rank() if group_up() else 0
     if forward_loss is None and seq > 1:
         def run_loss(module, batch, index):
@@ -396,27 +529,69 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
                         p.grad = None
                 lsum += loss.detach()
         if group_up():
-            flat = torch.cat([t.reshape(-1) for t in sums.values()])
-            dist.all_reduce(flat)
-            flat /= dist.get_world_size()
-            sums = dict(zip(sums, flat.split([t.numel()
-                                               for t in sums.values()])))
-            sums = {k: t.view_as(params[k]) for k, t in sums.items()}
+            # FSDP reduced its shards in each backward: the rest here
+            sums = {**sums, **average_replicated(
+                {k: t for k, t in sums.items() if not hasattr(t, "to_local")})}
         return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
 
     def backward(loss):
         # DDP averages over data x seq ranks; the chunks' gradients add
         (loss * seq if seq > 1 else loss).backward()
 
+    def micro_batch(batch, i):
+        operands = {k: v for k, v in batch.items() if k.startswith("_")}
+        return {**{k: v.reshape(grad_accum, -1, *v.shape[1:])[i]
+                   for k, v in batch.items() if k not in operands},
+                **operands}
+
+    def reduced(state, batch, params):
+        # the explicit reducer: local gradients, flattened and reduced
+        def grad_fn(i):
+            mb = batch if grad_accum == 1 else micro_batch(batch, i)
+            loss = run_loss(state.module, mb, state.step * grad_accum + i
+                            if grad_accum > 1 else state.step)
+            loss.backward()
+            g = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in params.items()}
+            for p in params.values():
+                p.grad = None
+            return loss.detach(), g
+
+        loss, grads, state.comm_residual = reducer.compute(
+            grad_fn, list(params), grad_accum, state.step,
+            state.comm_residual)
+        average_stats(state.model)
+        # the buckets hold each leaf in its logical order; a gradient takes
+        # its parameter's layout back (the fused AdamW reads both in one
+        # layout, and a ResNet's conv weights are channels-last on the card)
+        return loss, {k: g if g.stride() == params[k].stride() else
+                      torch.empty_like(params[k], dtype=g.dtype).copy_(g)
+                      for k, g in grads.items()}
+
+    def average_stats(model):
+        w = torch.full((), float(reducer.world))
+        with torch.no_grad():
+            for m in model.modules():
+                if hasattr(m, "cross_replica"):
+                    for b in (m.mean, m.var):
+                        t = reducer.ring.all_reduce_sum(b[None])[0]
+                        b.copy_(t / w.to(t.device))
+
     def step(state: TrainState, batch: dict, votes: tuple = ()):
         state.module.train()
         params = dict(state.model.named_parameters())
         for p in params.values():
             p.grad = None
-        if grad_accum == 1:
+        if reducer is not None:
+            loss, grads = reduced(state, batch, params)
+        elif grad_accum == 1:
             loss = run_loss(state.module, batch, state.step)
             backward(loss)
             grads = {k: p.grad for k, p in params.items()}
+            if fsdp:
+                grads.update(average_replicated(
+                    {k: g for k, g in grads.items()
+                     if g is not None and not hasattr(g, "to_local")}))
         else:
             loss, grads = accumulate(state, batch, params)
         tx.step(state.opt_state, params, grads)
@@ -438,7 +613,42 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         return state, metrics
 
     step.fused = fused_set
+    step.grad_reducer = reducer
+    step.plan = plan
+    step.comm_stats = (
+        (lambda params: reducer.comm_stats(params, grad_accum))
+        if reducer is not None else (lambda params: None))
     return step
+
+
+def default_layout():
+    """The data-only layout of the formed world (no group is created: the
+    data group is the default group, its DeviceMesh wraps it)."""
+    from tpudist_torch.mesh import DATA_AXIS, RankLayout
+
+    if not group_up() or dist.get_world_size() == 1:
+        return RankLayout(0, 1, 1)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh.from_group(
+        dist.group.WORLD, "cuda" if dist.get_backend() == "nccl" else "cpu",
+        mesh_dim_names=(DATA_AXIS,))
+    return RankLayout(dist.get_rank(), dist.get_world_size(), 1,
+                      data_group=dist.group.WORLD, device_mesh=mesh)
+
+
+def average_replicated(grads: dict) -> dict:
+    """The mean over every rank of each gradient in ``grads``, in one
+    float32 all-reduce (the leaves DDP does not see: the accumulated sums
+    under ``grad_accum``, the replicated leaves FSDP ignores)."""
+    if not grads or not group_up():
+        return grads
+    flat = torch.cat([t.reshape(-1).float() for t in grads.values()])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    parts = flat.split([t.numel() for t in grads.values()])
+    return {k: p.view_as(t).to(t.dtype)
+            for (k, t), p in zip(grads.items(), parts)}
 
 
 class _DelayedFetch:
@@ -481,33 +691,40 @@ class _DelayedFetch:
 
 _DEFERRED = {
     # fit() keyword: (value meaning "off", ROADMAP item)
-    "reduce": ("none", "Queue 1 #7"),
-    "plan": (None, "Queue 1 #7"),
-    "shard_opt_state": (False, "Queue 1 #7"),
     "telemetry": (False, "Queue 1 #8"),
     "metrics_port": (None, "Queue 1 #8"),
-    "elastic": (False, "Queue 1 #7"),
     "repair": (None, "Queue 1 #8"),
     "compile_cache": (None, "Queue 1 #9"),
 }
 
 
 def run_geometry(train_loader, *, batch_size: int, world_size: int,
-                 grad_accum: int, model=None) -> dict:
+                 grad_accum: int, model=None, fsdp_world: int = 1,
+                 reduce: str | None = None, shard_opt_state: bool = False,
+                 data_world: int | None = None) -> dict:
     """The geometry a checkpoint is bound to (``tpudist_meta.json``, the
     reference's keys): the data position of ``state.step`` depends on
-    each of them. The model-axis worlds are 1: the port is data-parallel
-    only. A language model's ``geometry`` (its arch and widths: GPT-2's
-    heads, Llama's K/V heads, SwiGLU width, theta and tying) goes in under
-    ``"model"``, so a resume into another geometry is refused by the same
-    guard before any tensor is read."""
+    each of them. ``fsdp_world`` is the plan's (tensor and pipe are 1);
+    ``reduce`` (the explicit reducer's method) and ``shard_opt_state``
+    are recorded only when on, with ``data_world``, the world their
+    stored layouts are bound to. A language model's ``geometry`` (its arch
+    and widths: GPT-2's heads, Llama's K/V heads, SwiGLU width, theta and
+    tying) goes in under ``"model"``, so a resume into another geometry is
+    refused by the same guard before any tensor is read."""
     if not hasattr(train_loader, "__len__"):
         raise ValueError(
             "checkpointing needs a sized train_loader (len() maps state.step "
             "to an epoch/batch position for exact resume)")
     meta = {"steps_per_epoch": len(train_loader), "batch_size": batch_size,
             "world_size": world_size, "grad_accum": grad_accum,
-            "fsdp_world": 1, "tensor_world": 1, "pipe_world": 1}
+            "fsdp_world": int(fsdp_world), "tensor_world": 1, "pipe_world": 1}
+    if shard_opt_state:
+        meta["shard_opt_state"] = True
+    if reduce is not None:
+        meta["reduce"] = reduce
+    if shard_opt_state or reduce is not None:
+        meta["data_world"] = int(data_world if data_world is not None
+                                 else world_size)
     geometry = getattr(model, "geometry", None)
     if geometry is not None:
         meta["model"] = dict(geometry)
@@ -515,13 +732,20 @@ def run_geometry(train_loader, *, batch_size: int, world_size: int,
 
 
 def _bring_up_checkpoint(ckpt, state, run_meta: dict, *, resume: bool,
-                         checkpoint_dir) -> int:
+                         checkpoint_dir, elastic: bool = False) -> int:
     """Resume from ``ckpt``'s newest loadable step into ``state`` (in
     place) when it holds one, after the geometry guard; record this run's
-    geometry. Returns the step the run starts from."""
-    from tpudist_torch.resilience import elastic
+    geometry. A pure world resize is resharded under ``elastic``
+    (:func:`tpudist_torch.resilience.elastic.reshard_restore`) and
+    committed: the old steps quarantined, the new-world state saved, the
+    meta flipped, the quarantine purged. Returns the step the run starts
+    from."""
+    from tpudist_torch.resilience import elastic as elastic_mod
 
+    # finish or roll back a reshard commit a previous life left half done
+    ckpt.recover_interrupted_reshard()
     start_step = 0
+    resharded = False
     if ckpt.latest_step() is not None:
         if not resume:
             raise ValueError(
@@ -530,25 +754,39 @@ def _bring_up_checkpoint(ckpt, state, run_meta: dict, *, resume: bool,
                 "overwritten meta would corrupt a later resume) — use a fresh "
                 "checkpoint_dir")
         saved = ckpt.read_meta()
-        if saved is not None and not elastic.meta_matches(saved, run_meta):
-            reason = elastic.refusal_reason(saved, run_meta)
-            hint = (" — this is a pure world resize, and the elastic reshard "
-                    "is not ported yet (ROADMAP Queue 1 #7)"
-                    if reason is None else f" — {reason}")
-            raise ValueError(
-                f"checkpoint at {checkpoint_dir} was written by a run with "
-                f"different geometry ({saved} != {run_meta}); state.step "
-                "would map to the wrong data position — resume with the "
-                f"original settings or start a fresh checkpoint_dir{hint}")
+        if saved is not None and not elastic_mod.meta_matches(saved, run_meta):
+            reason = elastic_mod.refusal_reason(saved, run_meta)
+            if not elastic or reason is not None:
+                hint = (" — this is a pure world resize; pass "
+                        "fit(elastic=True) to reshard onto the live layout"
+                        if reason is None else f" — {reason}")
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} was written by a run "
+                    f"with different geometry ({saved} != {run_meta}); "
+                    "state.step would map to the wrong data position — "
+                    "resume with the original settings or start a fresh "
+                    f"checkpoint_dir{hint}")
+            resharded = True
         events: list[dict] = []
-        ckpt.restore(state, fallback=True, on_event=events.append)
+        if resharded:
+            elastic_mod.reshard_restore(
+                ckpt, state, ckpt.latest_step(), saved_meta=saved,
+                run_meta=run_meta, on_event=events.append)
+        else:
+            ckpt.restore(state, fallback=True, on_event=events.append)
         for ev in events:
-            print(f"checkpoint_fallback: {json.dumps(ev)}", flush=True)
-            # set aside what failed to load: it would shadow latest_step
-            # and take the step number a later save needs
-            ckpt.quarantine_failed_step(ev["failed_step"])
+            tag = ev.get("tag", "checkpoint_fallback")
+            print(f"{tag}: {json.dumps(ev)}", flush=True)
+            if tag == "checkpoint_fallback":
+                # set aside what failed to load: it would shadow
+                # latest_step and take the step number a later save needs
+                ckpt.quarantine_failed_step(ev["failed_step"])
         start_step = state.step
+        if resharded:
+            ckpt.quarantine_steps(commit_meta=run_meta)
+            ckpt.save(state, wait=True)
     ckpt.write_meta(run_meta)
+    ckpt.purge_quarantined()
     return start_step
 
 
@@ -565,7 +803,10 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         checkpoint_dir: str | None = None, checkpoint_every: int = 0,
         checkpoint_every_s: float | None = None,
         keep_last: int | None = None, resume: bool = True,
-        preempt: bool | str = "auto", chaos=None, layout=None, **deferred):
+        preempt: bool | str = "auto", chaos=None, layout=None,
+        reduce="none", plan=None, shard_opt_state: bool = False,
+        elastic: bool = False, reduce_bucket_size: int | None = None,
+        **deferred):
     """The reference's training program as a function: epochs x batches,
     the per-epoch sampler re-shuffle, the windowed profiler, the TSV
     metrics and the TrainTime footer. ``model`` carries its initial
@@ -619,8 +860,16 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
     ``log_every * 10`` on the card and off on the CPU, whose allocator
     reports nothing; 0 is off.
 
-    The reference's other keywords (``reduce``, ``plan``,
-    ``shard_opt_state``, ``telemetry``, ``metrics_port``, ``elastic``,
+    The data-parallel layers: ``reduce`` names the explicit reducer
+    (:func:`make_train_step`; its residual is attached here), ``plan`` a
+    :class:`~tpudist_torch.parallel.plan.ParallelPlan` (FSDP over ``data
+    x fsdp``), ``shard_opt_state`` ZeRO-1 (through ``plan.wrap_zero1``
+    under a plan), and ``elastic`` lets a resume reshard a checkpoint
+    written at another data world (the geometry's world-shaped keys may
+    differ, its semantic ones, ``reduce`` and ``shard_opt_state``, may
+    not).
+
+    The reference's other keywords (``telemetry``, ``metrics_port``,
     ``repair``, ``compile_cache``) are accepted and raise
     ``NotImplementedError`` naming their ROADMAP item unless they are at
     their "off" value."""
@@ -630,7 +879,7 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         if key not in _DEFERRED:
             raise TypeError(f"fit() got an unexpected keyword argument {key!r}")
         off, item = _DEFERRED[key]
-        if value != off and not (key == "reduce" and value is None):
+        if value != off:
             raise NotImplementedError(
                 f"fit({key}={value!r}) is not ported yet (ROADMAP {item})")
     device = next(model.parameters()).device
@@ -645,16 +894,40 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         # shape source); drawn here too, so a host transform's stream (the
         # host augmentation) stands where the reference's does
         train_loader.probe()
-    run_meta = (run_geometry(train_loader, batch_size=batch_size,
-                             world_size=world_size, grad_accum=grad_accum,
-                             model=model)
-                if checkpoint_dir is not None else None)
+    if plan is not None and layout is None:
+        layout = plan.layout
+    if shard_opt_state:
+        from tpudist_torch.optim import shard_state
+
+        tx = (plan.wrap_zero1(tx) if plan is not None else
+              shard_state(tx, layout if layout is not None
+                          else default_layout()))
     step = make_train_step(model, tx, loss_fn=loss_fn, input_key=input_key,
                            label_key=label_key, fused=fused,
                            grad_accum=grad_accum, forward_loss=forward_loss,
                            remat=remat, dropout_seed=seed,
-                           input_transform=input_transform, layout=layout)
-    state = create_train_state(model, tx)
+                           input_transform=input_transform, layout=layout,
+                           reduce=reduce, plan=plan,
+                           reduce_bucket_size=reduce_bucket_size)
+    reducer = step.grad_reducer
+    state = create_train_state(
+        model, tx, plan, ddp=reducer is None,
+        layout=layout if layout is not None else default_layout())
+    if reducer is not None:
+        state.comm_residual = reducer.new_residual(
+            dict(model.named_parameters()))
+        if global_rank == 0:
+            # one step's wire accounting, as the reference's comm row has it
+            print("grad_reducer: " + json.dumps(
+                step.comm_stats(dict(model.named_parameters()))), flush=True)
+    data_world = (layout.data if layout is not None else world_size)
+    run_meta = (run_geometry(
+        train_loader, batch_size=batch_size, world_size=world_size,
+        grad_accum=grad_accum, model=model,
+        fsdp_world=plan.fsdp if plan is not None else 1,
+        reduce=reducer.method if reducer is not None else None,
+        shard_opt_state=shard_opt_state, data_world=data_world)
+        if checkpoint_dir is not None else None)
     chaos_inj = make_injector(chaos)
     # ranks agree their stop and time-cadence saves through the step's
     # all-reduce; one rank decides on its own, at once
@@ -680,7 +953,7 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
                 chaos_inj.bind(checkpoint_dir, wait=ckpt.wait)
             start_step = global_step = _bring_up_checkpoint(
                 ckpt, state, run_meta, resume=resume,
-                checkpoint_dir=checkpoint_dir)
+                checkpoint_dir=checkpoint_dir, elastic=elastic)
         steps_per_epoch = len(train_loader) if run_meta else None
         with logger, WindowedProfiler(job_id, enabled=profile,
                                       log_dir=f"{log_dir}/log_{job_id}",

@@ -58,6 +58,13 @@ must divide it, ``data = world / N``), the ``N`` ranks of a data replica
 read the same windows (the sampler deals windows to replicas, not ranks),
 and each trains on its chunk of every sequence
 (:func:`tpudist_torch.train.make_train_step`'s ``layout``).
+
+The data-parallel layers: ``--shard_opt_state`` stores the optimizer
+state as each data replica's slice (ZeRO-1, :func:`tpudist_torch.optim.
+shard_state`; the fused AdamW runs its kernel over the slices),
+``--fsdp N`` shards the model with FSDP over ``data x fsdp`` (the batch
+over both; not with ``--cp``), and ``--elastic`` lets
+``--checkpoint_dir`` resume a checkpoint written at another world.
 ``--batch_size`` is per data replica, the TSV's ``g_step`` and the
 ``tokens/sec`` line count replicas, and the checkpoint's world is the
 replicas' (the state is the same on every seq rank, so a run resumes at
@@ -185,16 +192,14 @@ def parse_args(argv=None):
 
 
 #: flags of the reference this port does not run yet -> the ROADMAP item
+_TP, _PP, _EP = ("Queue 1 #7b (tensor parallelism)",
+                  "Queue 1 #7c (the pipeline)", "Queue 1 #7d (experts)")
 _UNPORTED = {
-    "shard_opt_state": "Queue 1 #7",
-    "fsdp": "Queue 1 #7", "tensor": "Queue 1 #7", "pipe": "Queue 1 #7",
-    "num_micro": "Queue 1 #7", "pipe_schedule": "Queue 1 #7",
-    "experts": "Queue 1 #7", "expert_axis": "Queue 1 #7",
-    "moe_every": "Queue 1 #7", "moe_top_k": "Queue 1 #7",
-    "capacity_factor": "Queue 1 #7", "moe_dispatch": "Queue 1 #7",
-    "router_z_loss": "Queue 1 #7", "router_jitter": "Queue 1 #7",
-    "telemetry": "Queue 1 #8",
-    "elastic": "Queue 1 #7", "compile_cache": "Queue 1 #9",
+    "tensor": _TP, "pipe": _PP, "num_micro": _PP, "pipe_schedule": _PP,
+    "experts": _EP, "expert_axis": _EP, "moe_every": _EP, "moe_top_k": _EP,
+    "capacity_factor": _EP, "moe_dispatch": _EP, "router_z_loss": _EP,
+    "router_jitter": _EP,
+    "telemetry": "Queue 1 #8", "compile_cache": "Queue 1 #9",
 }
 
 #: the context-parallel --attn values
@@ -243,6 +248,10 @@ def check_args(args) -> None:
         raise SystemExit(
             f"--attn {args.attn} has no decode path; --generate needs the "
             "xla/flash model")
+    if args.fsdp > 1 and args.cp > 1:
+        raise SystemExit(
+            "--fsdp does not compose with --cp yet (the context-parallel "
+            "step keeps parameters replicated); use one or the other")
     if (args.eval or args.generate) and args.cp > 1:
         raise SystemExit(
             "--eval/--generate support the non-cp, non-pipe paths; rerun "
@@ -310,8 +319,16 @@ def main(argv=None):
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
-        # data x seq; --batch_size, the sampler and the TSV count replicas
-        layout = create_layout(MeshConfig(data=-1, seq=args.cp))
+        # data x fsdp x seq; --batch_size, the sampler and the TSV count
+        # the data x fsdp replicas
+        plan = None
+        if args.fsdp > 1:
+            from tpudist_torch.parallel.plan import ParallelPlan
+
+            plan = ParallelPlan.build(data=-1, fsdp=args.fsdp)
+            layout = plan.layout
+        else:
+            layout = create_layout(MeshConfig(data=-1, seq=args.cp))
         attn = resolve_attn(args.attn, args.seq_len, ctx.device)
         dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
         model = build_model(args, dtype, attn, ctx.device, layout)
@@ -333,7 +350,7 @@ def main(argv=None):
         loader = TokenWindowLoader(
             token_source(args), args.batch_size * args.grad_accum,
             args.seq_len, vocab_size=args.vocab_size,
-            num_replicas=layout.data, rank=layout.data_idx)
+            num_replicas=layout.data_parallel_size, rank=layout.replica)
         total = args.total_steps or args.epochs * len(loader)
         fuse_opt = args.fused in ("optimizer", "all") or (
             args.fused == "auto" and args.optimizer == "adam")
@@ -350,7 +367,8 @@ def main(argv=None):
         t0 = time.time()
         state, losses = fit(
             model, tx, loader, epochs=args.epochs, job_id=args.JobID,
-            batch_size=args.batch_size, world_size=layout.data,
+            batch_size=args.batch_size,
+            world_size=layout.data_parallel_size,
             global_rank=ctx.rank, loss_fn=lm_loss, input_key="tokens",
             label_key="tokens", grad_accum=args.grad_accum,
             forward_loss=forward_loss, remat=args.remat,
@@ -358,10 +376,13 @@ def main(argv=None):
             profile=not args.no_profiler, log_dir=args.log_dir,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every,
-            resume=not args.no_resume, chaos=args.chaos, layout=layout)
+            resume=not args.no_resume, chaos=args.chaos,
+            layout=None if plan is not None else layout, plan=plan,
+            shard_opt_state=args.shard_opt_state, elastic=args.elastic)
         wall = time.time() - t0
         if losses and ctx.is_chief:
-            seqs = len(losses) * args.batch_size * layout.data * args.grad_accum
+            seqs = (len(losses) * args.batch_size * layout.data_parallel_size
+                    * args.grad_accum)
             print(f"tokens/sec: {seqs * args.seq_len / wall:.1f} (global, "
                   f"incl. the first step) steps={len(losses)} "
                   f"final_loss={losses[-1]:.4f}")
@@ -394,8 +415,8 @@ def main(argv=None):
             val_loader = TokenWindowLoader(
                 source, args.batch_size, args.seq_len,
                 vocab_size=args.vocab_size, shuffle=False,
-                drop_remainder=False, num_replicas=layout.data,
-                rank=layout.data_idx)
+                drop_remainder=False,
+                num_replicas=layout.data_parallel_size, rank=layout.replica)
             # the training run's chunked head: no [B, S, V] logits here
             metrics = evaluate_lm(state, val_loader,
                                   chunk=args.chunked_ce or None)
