@@ -468,9 +468,41 @@ Phases, each fatal on failure:
     quantized`` (the 1-rank reducer resolves ``none``: printed) and
     ``python -m tpudist_torch.train_gpt2 --shard_opt_state --amp`` exit 0;
     ``main --dataset digits`` raises ``ImportError`` naming scikit-learn
-    where it is missing (and trains where it is installed).
+    where it is missing (and trains where it is installed);
+59. tensor-parallel shard parity at full width, in this process: for
+    GPT-2 124M (H 12, dh 64) at tensor worlds 2 and 4 and Llama-3-8B's
+    width (H 32 / H_kv 8, dh 128) at 4, each rank's head slice (its
+    ``H / T`` query and ``H_kv / T`` K/V heads) through the contiguous
+    decode kernel (B 8, S 1024, cursor 1023), the paged kernel (8 rows at
+    phase 3's cursors, bs 32), vmem forward and backward (B 8, S 1024,
+    causal) and flash forward and backward (S 4096, causal; B 4, or B 1 at
+    Llama's width, K/V heads repeated), in bf16: the attention kernels'
+    outputs bit-identical to the same head slice of the call over every
+    head; the decode kernels' held to phase 2's bars with their bit-
+    identity printed (their launch splits a short grid over more SMs, so
+    a rank's call may add its PV partials in another order); each shard's
+    and the whole call's CUDA-event ms;
+60. two ranks on the one card (this script's ``--tensor_child`` mode:
+    two processes on ``cuda:0``, a gloo group over CUDA tensors), the
+    tensor-sharded serving CLIs: ``python -m tpudist_torch.serve --full
+    --paged --tensor 2`` (GPT-2 124M, 8 requests x 32 greedy tokens) in
+    bf16, with ``--spec_draft 4 --spec_k 4``, and in f32; ``main --serve
+    --tensor 2``: every rank's counts set to 0 before each run and read
+    after (the paged kernel on every decode step, a verify pass at s_q
+    5); the f32 streams equal the one-rank CLI's (run here), the bf16
+    ones' agreement printed; the demo serves every request;
+61. the same world, ``train_gpt2 --tensor 2 --fused all --attn auto``:
+    GPT-2 124M, batch 8, S 1024, 4 steps in bf16 (a rank's launches a
+    step: LN 25 / 25 + 25, vmem 12 + 12 on its 6 heads, one fused AdamW
+    over its shards and the replicated leaves), then ``--generate 32``
+    (the contiguous kernel 12 x 32 a rank, the logits gathered; rank 0
+    prints), and in f32 against the one-rank run from the same seed on
+    the same text under phase 15's bars (the gathered parameters; the
+    qkv key slice to its step bound); then llama_125m (GQA 12 / 4: 6 / 2
+    heads a rank) and the long-context leg (S 4096, batch 2,
+    ``--chunked_ce 256``: flash 12 + 12 a step) in bf16, 4 steps each.
 
-Phases 22-29 and 31-58 print their seconds.
+Phases 22-29 and 31-61 print their seconds.
 """
 
 from __future__ import annotations
@@ -801,6 +833,7 @@ def main() -> int:
     spec_agreement_phase(dev)
     serve_cli_phase(smi, dev)
     data_parallel_phases(smi, dev)
+    tensor_phases(smi, dev)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -4398,7 +4431,437 @@ def dp_cli_phase(smi: str) -> None:
     print(f"  phase 58: {time.perf_counter() - t0:.1f} s")
 
 
+#: phase 59's geometries: (name, query heads, K/V heads, head dim, the
+#: tensor worlds it is split over)
+TP_SHAPES = (("GPT-2 124M", 12, 12, 64, (2, 4)),
+             ("Llama-3-8B width", 32, 8, 128, (4,)))
+#: phase 59's sequence lengths: the decode cache and vmem's, flash's
+TP_SEQ = (1024, 4096)
+TENSOR_CHILD = "--tensor_child"
+
+
+def tensor_phases(smi: str, dev) -> None:
+    """Phases 59-61 (module docstring)."""
+    tensor_shard_phase(smi, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = tensor_world(Path(tmp))
+        world_s = time.perf_counter() - t0
+        tensor_serving_phase(smi, Path(tmp), ranks)
+        tensor_training_phase(smi, Path(tmp), ranks)
+    print(f"  phases 60-61: the two-rank world {world_s:.1f} s (its start, "
+          "its runs and their writes) before the two phases' checks")
+
+
+def _shard_cases(dev, h: int, hkv: int, dh: int, seq=TP_SEQ):
+    """Phase 59's kernels as ``(name, prep, run, slicer)``: ``prep(hs,
+    ks)`` gives the kernel's inputs on query heads ``hs`` and K/V heads
+    ``ks`` (slices; the whole call takes every head) as a rank holds them
+    (the decode caches' head slices contiguous, as a rank's pool is),
+    ``run(*inputs)`` launches it, ``slicer(outputs, hs, ks)`` cuts the
+    whole call's outputs to those heads. Inputs are random bf16 from a
+    seeded generator."""
+    import torch
+
+    from tpudist_torch.ops import decode as D
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import vmem_attention as VA
+    from tpudist_torch.ops.decode_bench import smoke_prompts
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 59)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(
+        dev, torch.bfloat16)
+    s_dec, s_flash = seq
+    b, bs = 8, 32
+    # contiguous: B 8 at cursor s - 1
+    qc, kc, vc = rnd(b, 1, h, dh), rnd(b, hkv, s_dec, dh), rnd(b, hkv, s_dec, dh)
+    # paged: phase 4's prompt lengths as cursors, a pool of B x S slots
+    mb = s_dec // bs
+    n_pool = b * mb + 1
+    qp = rnd(b, 1, h, dh)
+    kp, vp = rnd(n_pool, hkv, bs, dh), rnd(n_pool, hkv, bs, dh)
+    tables = (torch.randperm(n_pool - 1, generator=gen)[: b * mb] + 1) \
+        .reshape(b, mb).to(dev, torch.int32)
+    cursors = [min(len(p) + NEW - 1, s_dec - 1) for p in smoke_prompts(SEED)]
+    pos = torch.tensor(cursors, dtype=torch.int32, device=dev)
+    # vmem: B 8, S 1024, causal, grouped K/V in place
+    qv, kv_, vv = (rnd(b, s_dec, h, dh), rnd(b, s_dec, hkv, dh),
+                   rnd(b, s_dec, hkv, dh))
+    dov = rnd(b, s_dec, h, dh)
+    # flash: S 4096, K/V repeated to the query heads (flash_attention's rule)
+    bf = 4 if h * dh <= 768 else 1
+    qf, kf, vf, dof = (rnd(bf, s_flash, h, dh), rnd(bf, s_flash, h, dh),
+                       rnd(bf, s_flash, h, dh), rnd(bf, s_flash, h, dh))
+    scale = VA._scale(dh)
+    kw_v = dict(causal=True, kv_len=s_dec, scale=scale)
+    kw_f = dict(causal=True, kv_len=s_flash, scale=scale)
+    ov, lsev = VA.vmem_fwd_cuda(qv, kv_, vv, **kw_v)
+    of, lsef = FA.flash_fwd_cuda(qf, kf, vf, **kw_f)
+    every = (slice(None), slice(None))
+    return [
+        ("fused_decode_attention",
+         lambda hs, ks: (qc[:, :, hs].contiguous(), kc[:, ks].contiguous(),
+                         vc[:, ks].contiguous(), s_dec - 1),
+         lambda *a: (D.fused_decode_attention_cuda(*a),),
+         lambda out, hs, ks: (out[0][:, :, hs],)),
+        ("paged_decode_attention",
+         lambda hs, ks: (qp[:, :, hs].contiguous(), kp[:, ks].contiguous(),
+                         vp[:, ks].contiguous(), tables, pos),
+         lambda *a: (D.paged_fused_attention_cuda(*a),),
+         lambda out, hs, ks: (out[0][:, :, hs],)),
+        ("vmem_attention_fwd",
+         lambda hs, ks: (qv[:, :, hs], kv_[:, :, ks], vv[:, :, ks]),
+         lambda *a: VA.vmem_fwd_cuda(*a, **kw_v),
+         lambda out, hs, ks: (out[0][:, :, hs], out[1][:, hs])),
+        ("vmem_attention_bwd",
+         lambda hs, ks: (qv[:, :, hs], kv_[:, :, ks], vv[:, :, ks],
+                         ov[:, :, hs], dov[:, :, hs],
+                         lsev[:, hs].contiguous()),
+         lambda *a: VA.vmem_bwd_cuda(*a, **kw_v),
+         lambda out, hs, ks: (out[0][:, :, hs], out[1][:, :, ks],
+                              out[2][:, :, ks])),
+        ("flash_attention_fwd",
+         lambda hs, ks: (qf[:, :, hs], kf[:, :, hs], vf[:, :, hs]),
+         lambda *a: FA.flash_fwd_cuda(*a, **kw_f),
+         lambda out, hs, ks: (out[0][:, :, hs], out[1][:, hs])),
+        ("flash_attention_bwd",
+         lambda hs, ks: (qf[:, :, hs], kf[:, :, hs], vf[:, :, hs],
+                         of[:, :, hs], dof[:, :, hs],
+                         lsef[:, hs].contiguous()),
+         lambda *a: FA.flash_bwd_cuda(*a, **kw_f),
+         lambda out, hs, ks: (out[0][:, :, hs], out[1][:, :, hs],
+                              out[2][:, :, hs])),
+    ], every
+
+
+def tensor_shard_phase(smi: str, dev, shapes=TP_SHAPES, seq=TP_SEQ) -> None:
+    """Phase 59 (module docstring); ``shapes`` and ``seq`` narrow it (a
+    rehearsal)."""
+    import torch
+
+    from tpudist_torch.ops import decode_bench as DB
+
+    t0 = time.perf_counter()
+    print("== 59. tensor-parallel shard parity: each rank's heads through "
+          "the kernels, against the same heads of the call over all of them "
+          "(bf16)")
+    decode = ("fused_decode_attention", "paged_decode_attention")
+    for name, h, hkv, dh, worlds in shapes:
+        cases, every = _shard_cases(dev, h, hkv, dh, seq)
+        for kname, prep, run, slicer in cases:
+            args = prep(*every)
+            whole = run(*args)
+            whole_ms = event_ms(lambda: run(*args), reps=25)
+            for t in worlds:
+                same, times = [], []
+                for r in range(t):
+                    hs = slice(r * h // t, (r + 1) * h // t)
+                    # flash takes its K/V repeated: a rank's are its heads'
+                    ks = (hs if kname.startswith("flash")
+                          else slice(r * hkv // t, (r + 1) * hkv // t))
+                    shard = prep(hs, ks)
+                    got = run(*shard)
+                    want = slicer(whole, hs, ks)
+                    same.append(all(torch.equal(a, w)
+                                    for a, w in zip(got, want)))
+                    if kname in decode:
+                        check(f"{name} T {t} rank {r} {kname}", got[0],
+                              want[0].contiguous(), elem=True,
+                              share_bar=DB.SHARE_BAR)
+                    times.append(event_ms(lambda: run(*shard), reps=25))
+                print(f"  {name} T {t} {kname} ({h // t} / "
+                      f"{(h if kname.startswith('flash') else hkv) // t} "
+                      f"heads a rank): bit-identical {same}; ms a rank "
+                      f"{[round(x, 4) for x in times]}, all heads "
+                      f"{whole_ms:.4f} (25-call CUDA-event medians)  [{smi}]")
+                if kname not in decode and not all(same):
+                    fail(f"{name} T {t} {kname}: a shard differs from its "
+                         "heads of the whole call")
+        del cases
+        torch.cuda.empty_cache()
+    if FAILURES:
+        fail(f"shard parity: {FAILURES}")
+    print(f"  phase 59: {time.perf_counter() - t0:.1f} s")
+
+
+def _tp_legs(tmp: Path) -> list[dict]:
+    """Phases 60-61's runs in the two-rank world, in order: ``cli`` (a
+    module of tpudist_torch), ``argv``, and for training whether to
+    gather the parameters."""
+    text = str(tmp / "text.bin")
+    serve = ["--full", "--paged", "--requests", "8", "--max_new", str(NEW),
+             "--log_dir", str(tmp)]
+    train = ["--batch_size", "8", "--seq_len", "1024", "--tokens", text,
+             "--no_profiler", "--log_dir", str(tmp), "--warmup_steps", "2",
+             "--total_steps", "4", "--fused", "all"]
+    return [
+        dict(name="serve_bf16", cli="serve", argv=[*serve, "--bf16"]),
+        dict(name="serve_spec", cli="serve",
+             argv=[*serve, "--bf16", "--spec_draft", "4", "--spec_k", "4"]),
+        dict(name="serve_f32", cli="serve", argv=serve),
+        dict(name="demo", cli="main",
+             argv=["--serve", "--log_dir", str(tmp)]),
+        dict(name="train_bf16", cli="train_gpt2",
+             argv=[*train, "--bf16", "--attn", "auto", "--generate",
+                   str(NEW), "--JobID", "TP16"]),
+        dict(name="train_f32", cli="train_gpt2", gather=True,
+             argv=[*train, "--attn", "vmem", "--JobID", "TP32"]),
+        dict(name="llama_bf16", cli="train_gpt2",
+             argv=[*train, *LLAMA_125M, "--bf16", "--attn", "auto",
+                   "--JobID", "TPL"]),
+        # the long-context leg (S 4096 takes flash), 4 steps of the text
+        dict(name="long_bf16", cli="train_gpt2",
+             argv=[*train, "--seq_len", "4096", "--batch_size", "2",
+                   "--bf16", "--attn", "auto", "--chunked_ce", "256",
+                   "--JobID", "TPS"]),
+    ]
+
+
+def tensor_child(argv) -> int:
+    """One rank of phases 60-61's world: ``argv`` is ``--tensor_child
+    OUT_DIR``. Forms a 2-rank gloo group over CUDA tensors (both ranks on
+    ``cuda:0``), then runs each of :func:`_tp_legs` with ``--tensor 2``:
+    every launch count set to 0 just before and read just after, the
+    printed output kept, a training run's losses (and with ``gather`` its
+    parameters, gathered whole: rank 0 saves them); writes
+    ``rank<r>.json``."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch.ops import decode as D
+
+    out = Path(argv[argv.index(TENSOR_CHILD) + 1])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    records = {}
+    try:
+        for leg in _tp_legs(out):
+            cli = importlib.import_module(
+                "tpudist_torch.serve.__main__" if leg["cli"] == "serve"
+                else f"tpudist_torch.{leg['cli']}")
+            for mod in (*counted_modules(), D):
+                mod.reset_launch_counts()
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                result = cli.main([*leg["argv"], "--tensor", "2"])
+            torch.cuda.synchronize()
+            rec = {"printed": printed.getvalue(),
+                   "counts": {**launches(), **D.launch_counts},
+                   "seconds": time.perf_counter() - t0}
+            if isinstance(result, tuple):
+                state, losses = result
+                rec["losses"] = list(losses)
+                rec["leaves"] = len(list(state.model.parameters()))
+                if leg.get("gather"):
+                    params = {k: v.float().cpu()
+                              for k, v in state.params().items()}
+                    if rank == 0:
+                        torch.save(params, out / f"{leg['name']}.pt")
+                del state
+            else:
+                rec["snapshot"] = result
+            records[leg["name"]] = rec
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(records))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def tensor_world(tmp: Path) -> list[dict]:
+    """Phases 60-61's two ranks on the one card: :func:`tensor_child` in
+    two processes (``LOCAL_RANK`` 0 both), within 900 s. Returns each
+    rank's records."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    LB.token_file(tmp / "text.bin", 4 * 8 * 1024)  # 4 steps of 8 x 1024
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "PYTHONPATH": str(HERE), "MASTER_ADDR":
+               "127.0.0.1", "MASTER_PORT": str(port), "RANK": str(rank),
+               "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), TENSOR_CHILD,
+             str(tmp)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            log, _ = p.communicate(timeout=900)
+            logs.append(log)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            fail(f"tensor child rank {r} exited {p.returncode}:\n"
+                 f"{log[-4000:]}")
+    return [json.loads((tmp / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def _one_rank(cli: str, argv):
+    """A CLI run in this process at one rank (no group), output kept:
+    ``(result, printed)``."""
+    import importlib
+
+    mod = importlib.import_module(
+        "tpudist_torch.serve.__main__" if cli == "serve"
+        else f"tpudist_torch.{cli}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = mod.main(list(argv))
+    return result, printed.getvalue()
+
+
+def _streams(printed: str) -> list[str]:
+    return [ln for ln in printed.splitlines() if ln.startswith("request ")]
+
+
+def _prefix(a: str, b: str) -> int:
+    """The tokens two printed streams share before they differ."""
+    ta = a.split("-> ", 1)[-1].strip("[]").split(", ")
+    tb = b.split("-> ", 1)[-1].strip("[]").split(", ")
+    return next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                min(len(ta), len(tb)))
+
+
+def tensor_serving_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phase 60 (module docstring)."""
+    t0 = time.perf_counter()
+    print("== 60. two ranks on one card (gloo over CUDA tensors): the "
+          "tensor-sharded serving CLIs")
+    legs = {leg["name"]: leg for leg in _tp_legs(tmp)}
+    for name in ("serve_bf16", "serve_spec", "serve_f32", "demo"):
+        got = [r[name] for r in ranks]
+        counts = got[0]["counts"]
+        snap = got[0]["snapshot"]
+        paged = counts["paged_decode_attention"]
+        # the demo's contiguous engine decodes per-row cursors on the dense
+        # path, as the reference's does: it launches no counted kernel
+        others = {k: n for k, n in counts.items()
+                  if n and k != "paged_decode_attention"}
+        if (not paged) != (name == "demo") or others or any(
+                g["counts"] != counts for g in got):
+            fail(f"{name}: launches {[g['counts'] for g in got]}")
+        if snap["tensor_world"] != 2 or got[1]["printed"]:
+            fail(f"{name}: tensor_world {snap['tensor_world']}, rank 1 "
+                 f"printed {got[1]['printed'][:200]!r}")
+        one, printed = _one_rank(legs[name]["cli"], legs[name]["argv"])
+        if name == "demo":
+            done = lambda out: sorted(ln for ln in out.splitlines()
+                                      if ln.endswith("tokens (done)"))
+            same = done(got[0]["printed"]) == done(printed)
+            agree = f"every request served as at one rank: {same}"
+            if not same or len(done(printed)) != 8:
+                fail(f"demo: {done(got[0]['printed'])} vs {done(printed)}")
+        else:
+            a, b = _streams(got[0]["printed"]), _streams(printed)
+            equal = sum(x == y for x, y in zip(a, b))
+            agree = (f"{equal} of {len(b)} greedy streams equal the one-rank "
+                     f"CLI's, tokens agreeing before the first difference "
+                     f"{[_prefix(x, y) for x, y in zip(a, b)]}")
+            if len(a) != 8 or len(b) != 8:
+                fail(f"{name}: {len(a)} and {len(b)} streams printed")
+            if name == "serve_f32" and equal != len(b):
+                fail(f"{name}: the sharded f32 streams differ: {a} vs {b}")
+        spec = (f"; drafted {snap['spec_drafted']}, accepted "
+                f"{snap['spec_accepted']}" if name == "serve_spec" else "")
+        print(f"  {name} ({' '.join(legs[name]['argv'][:6])} ... --tensor 2):"
+              f" paged kernel {paged} launches a rank (every other counted "
+              f"kernel 0), TPOT p50 "
+              f"{snap['tpot_p50']} s, {snap['tokens_per_sec']} tok/s "
+              f"(one rank here: {one['tpot_p50']} s, "
+              f"{one['tokens_per_sec']} tok/s){spec}; {agree}; "
+              f"{got[0]['seconds']:.1f} s  [{smi}]")
+    print(f"  phase 60: {time.perf_counter() - t0:.1f} s here (the one-rank "
+          "runs); the world's serving runs "
+          + ", ".join(f"{n} {ranks[0][n]['seconds']:.1f} s" for n in
+                      ("serve_bf16", "serve_spec", "serve_f32", "demo")))
+
+
+def tensor_training_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phase 61 (module docstring)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    print("== 61. the same world: train_gpt2 --tensor 2 --fused all")
+    legs = {leg["name"]: leg for leg in _tp_legs(tmp)}
+    depth = 12
+    for name, attn in (("train_bf16", "vmem"), ("llama_bf16", "vmem"),
+                       ("long_bf16", "flash")):
+        got = [r[name] for r in ranks]
+        losses = got[0]["losses"]
+        counts = {k: n for k, n in got[0]["counts"].items() if n}
+        # --generate's decode steps, one contiguous launch a block each
+        decode = counts.pop("fused_decode_attention", 0)
+        per_step = {k: n / len(losses) for k, n in counts.items()}
+        want = {"layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+                "layernorm_bwd_reduce": 2 * depth + 1,
+                f"{attn}_attention_fwd": depth,
+                f"{attn}_attention_bwd": depth,
+                "fused_adamw": 1, "fused_adamw_leaves": got[0]["leaves"]}
+        want_decode = depth * NEW if name == "train_bf16" else 0
+        if (len(losses) != 4 or not np.isfinite(losses).all()
+                or per_step != want or decode != want_decode
+                or any(g["losses"] != losses for g in got)
+                or any(g["counts"] != got[0]["counts"] for g in got)):
+            fail(f"{name}: losses {[g['losses'] for g in got]}, launches a "
+                 f"step {per_step} (want {want}), decode {decode} (want "
+                 f"{want_decode})")
+        said = [ln for ln in got[0]["printed"].splitlines()
+                if ln.startswith("generated tokens")]
+        print(f"  {name}: 4 steps, losses {losses[0]:.4f} -> {losses[-1]:.4f},"
+              f" equal on both ranks; launches a step a rank {per_step} over "
+              f"{got[0]['leaves']} leaves a rank"
+              + (f"; --generate {NEW}: {decode} contiguous launches a rank "
+                 f"(= {depth} x {NEW})" if decode else "")
+              + f"; {got[0]['seconds']:.1f} s  [{smi}]")
+        if name == "train_bf16" and (len(said) != 1 or "generated tokens"
+                                     in got[1]["printed"]):
+            fail(f"{name}: rank 0 alone prints the generated tokens: {said}")
+    # f32 against the one-rank run from the same seed on the same text
+    got = ranks[0]["train_f32"]
+    sharded = torch.load(tmp / "train_f32.pt")
+    (state, losses), _ = _one_rank("train_gpt2", legs["train_f32"]["argv"])
+    whole = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], losses))
+    gaps, key_moved = {}, 0.0
+    for k, b in whole.items():
+        a = sharded[k]
+        if k.endswith("qkv.bias"):
+            key_moved = max(key_moved, float(a[1].abs().max()),
+                            float(b[1].abs().max()))
+            a, b = a[[0, 2]], b[[0, 2]]
+        gaps[k] = float((a - b).abs().max())
+    worst = max(gaps, key=gaps.get)
+    key_bound = 1.5 * 4 * 3e-4
+    print(f"  f32 --tensor 2 against one rank: losses {got['losses']} vs "
+          f"{losses}: max rel {loss_rel:.3e} [bar {LOSS_BAR:g}]; params max "
+          f"abs {gaps[worst]:.3e} ({worst}) [bar {PARAM_BAR:g}]; key slice of "
+          f"the qkv biases moved at most {key_moved:.3e} [step bound "
+          f"{key_bound:.2e}]")
+    if (loss_rel > LOSS_BAR or gaps[worst] > PARAM_BAR
+            or key_moved > key_bound or sharded.keys() != whole.keys()):
+        fail("the f32 tensor-parallel run and the one-rank run disagree")
+    print(f"  phase 61: {time.perf_counter() - t0:.1f} s here (the one-rank "
+          "f32 run); the world's training runs "
+          + ", ".join(f"{n} {ranks[0][n]['seconds']:.1f} s" for n in
+                      ("train_bf16", "train_f32", "llama_bf16", "long_bf16")))
+
+
 if __name__ == "__main__":
     if RECOVERY_CHILD in sys.argv:
         sys.exit(recovery_child(sys.argv[1:]))
+    if TENSOR_CHILD in sys.argv:
+        sys.exit(tensor_child(sys.argv[1:]))
     sys.exit(main())

@@ -208,7 +208,7 @@ def test_layout_is_the_references_device_order():
     """rank = data_idx * seq + seq_idx: the reference's mesh (axis order
     data, fsdp, pipe, expert, seq, tensor) over devices 0..7 in order."""
     cfg = mesh_lib.MeshConfig(data=-1, seq=4)
-    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "seq": 4}
+    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "seq": 4, "tensor": 1}
     mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(data=2, seq=4),
                                 devices=jax.devices()[:8])
     ids = np.vectorize(lambda d: d.id)(np.asarray(mesh.devices))
@@ -219,7 +219,7 @@ def test_layout_is_the_references_device_order():
     with pytest.raises(ValueError, match="not divisible"):
         cfg.axis_sizes(6)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7"):
-        mesh_lib.MeshConfig(tensor=2)
+        mesh_lib.MeshConfig(tensor=2, seq=2)
     one = mesh_lib.create_layout()
     assert (one.data, one.seq, one.seq_group, one.data_group) == (1, 1, None,
                                                                   None)

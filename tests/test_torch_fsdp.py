@@ -340,7 +340,7 @@ def test_fsdp_refusals():
     with pytest.raises(ValueError, match="fsdp does not compose with seq"):
         MeshConfig(fsdp=2, seq=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7b"):
-        ParallelPlan.build(tensor=2)
+        ParallelPlan.build(fsdp=2, tensor=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
         ParallelPlan.build(pipe=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):

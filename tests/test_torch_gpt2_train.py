@@ -480,7 +480,7 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2"],
+    ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2", "--cp", "2"],
     ["--fsdp", "2", "--tensor", "2"],
     ["--remat_policy", "full", "--pipe", "2"],
     ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic", "--pipe", "2"],

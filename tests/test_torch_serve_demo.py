@@ -107,7 +107,6 @@ def test_serve_cli_init_hf_serves_the_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--serve_experts", "2"], "Queue 1 #7"),
-    (["--tensor", "2"], "Queue 1 #7"),
     (["--serve_moe_dispatch", "index"], "Queue 1 #7"),
     (["--trace"], "Queue 1 #8"),
     (["--metrics_port", "0"], "Queue 1 #8"),

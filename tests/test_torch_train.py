@@ -295,7 +295,7 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
     ["--fsdp", "2", "--tensor", "2"], ["--telemetry"], ["--trace"],
     ["--health"], ["--repair"], ["--elastic", "--serve_experts", "2"],
     ["--skip_window", "4"],
-    ["--serve", "--tensor", "2"], ["--tensor", "2"],
+    ["--tensor", "2"],
     ["--serve", "--serve_experts", "2"],
     ["--compile_cache", "cc"],
     ["--dataset", "digits", "--serve_moe_dispatch", "index"],

@@ -7,13 +7,18 @@ step times. Run from the root of the repo, one rank a card:
         --batch_size 128 --epochs 1 --bf16 --fused optimizer --reduce quantized
     torchrun --nproc_per_node 4 tools/torch_world_run.py gpt2 G4 \\
         --bf16 --fused all --batch_size 8 --synthetic_tokens 524288 --fsdp 4
+    torchrun --nproc_per_node 4 tools/torch_world_run.py serve S4 \\
+        --full --bf16 --paged --tensor 4
 
 The first argument names the CLI (``main``: :mod:`tpudist_torch.main`;
-``gpt2``: :mod:`tpudist_torch.train_gpt2`), the second the job (its TSV
-goes to ``chiprun_out/world/<job>/``), the rest are the CLI's flags
-(``--no_profiler`` is added). Each rank prints its step count, peak
-memory (``torch.cuda.max_memory_allocated``) and wall time; rank 0 also
-the step at each TSV row (``batch / examples_per_sec``). Without a card
+``gpt2``: :mod:`tpudist_torch.train_gpt2`; ``serve``:
+:mod:`tpudist_torch.serve`), the second the job (its TSV or serving
+telemetry goes to ``chiprun_out/world/<job>/``), the rest are the CLI's
+flags (``--no_profiler`` is added to the training CLIs). Each rank
+prints its peak memory (``torch.cuda.max_memory_allocated``) and wall
+time, and a training rank its step count; rank 0 also the step at each
+TSV row (``batch / examples_per_sec``) or, serving (``serve``, or
+``main --serve``), the engine's TTFT, TPOT and tokens/s. Without a card
 it exits with an error: it measures the card and nothing else.
 """
 
@@ -38,16 +43,31 @@ def main(argv=None) -> None:
         from tpudist_torch.main import main as cli
     elif which == "gpt2":
         from tpudist_torch.train_gpt2 import main as cli
+    elif which == "serve":
+        from tpudist_torch.serve.__main__ import main as cli
     else:
-        raise SystemExit(f"unknown CLI {which!r}: main or gpt2")
+        raise SystemExit(f"unknown CLI {which!r}: main, gpt2 or serve")
     log_dir = Path("chiprun_out/world") / job
+    log_dir.mkdir(parents=True, exist_ok=True)
+    serving = which == "serve" or "--serve" in flags
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, losses = cli([*flags, "--log_dir", str(log_dir), "--JobID", job,
-                     "--no_profiler"])
+    result = cli([*flags, "--log_dir", str(log_dir), "--JobID", job,
+                  *(() if which == "serve" else ("--no_profiler",))])
     wall = time.perf_counter() - t0
     rank = int(os.environ.get("RANK", "0"))
     peak = f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+    if serving:
+        print(f"[{job}] rank {rank}: peak {peak}, wall {wall:.1f} s",
+              flush=True)
+        if rank == 0:
+            print(f"[{job}] served {result['completed']} requests, "
+                  f"{result['tokens']} tokens; TTFT p50 {result['ttft_p50']} "
+                  f"s, TPOT p50 {result['tpot_p50']} s p95 "
+                  f"{result['tpot_p95']} s, {result['tokens_per_sec']} tok/s, "
+                  f"tensor_world {result['tensor_world']}", flush=True)
+        return
+    _, losses = result
     print(f"[{job}] rank {rank}: {len(losses)} steps, peak {peak}, wall "
           f"{wall:.1f} s", flush=True)
     if rank == 0:

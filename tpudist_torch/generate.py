@@ -232,11 +232,12 @@ def eos_retire(tok, done, eos_id, pad_id=0):
 def zero_cache(model, batch_size: int) -> dict:
     """Zeroed decode cache for ``batch_size`` rows: per layer the
     head-major ``[B, H_kv, max_seq_len, dh]`` K/V buffers (``H_kv`` the
-    model's ``num_kv_heads``: GQA heads are cached once, and the decode
+    model's ``cache_heads``: GQA heads are cached once, a tensor rank's
+    share of them under a tensor axis, and the decode
     kernels read them in place) and a scalar cursor, plus the wpe cursor
     of a model with a position table (GPT-2; Llama's RoPE reads each
     layer's cursor)."""
-    shape = (batch_size, model.num_kv_heads, model.max_seq_len,
+    shape = (batch_size, model.cache_heads, model.max_seq_len,
              model.head_dim)
     mk = lambda: torch.zeros(shape, dtype=model.dtype, device=model.device)
     cache = {"layers": [{"k": mk(), "v": mk(), "index": 0}

@@ -43,7 +43,11 @@ byte-vocabulary GPT-2 (128 wide, 2 deep) with random weights serves
 sampled, through the continuous-batching engine with ``--serve_slots``
 slots (``--spec_draft N --spec_k K``: speculative decoding with the
 target's first ``N`` blocks as the draft), writing ``serve`` rows to
-``{log_dir}/{JobID}_serve_0.jsonl``.
+``{log_dir}/{JobID}_serve_0.jsonl``. ``--serve --tensor N`` (N processes,
+e.g. ``torchrun --nproc_per_node N``) shards the engine over a tensor
+axis (:mod:`tpudist_torch.parallel.tp`); rank 0 writes and prints.
+``--tensor`` without ``--serve`` (the image models' tensor layout) raises
+``NotImplementedError`` naming the rest of ROADMAP Queue 1 #7b.
 
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps (and/or
 ``--checkpoint_every_s`` seconds) and at the end, keeps the newest
@@ -181,7 +185,6 @@ _UNPORTED = {
     "compile_cache": "Queue 1 #9",
     "serve_experts": "Queue 1 #7d (experts)",
     "serve_moe_dispatch": "Queue 1 #7d (experts)",
-    "tensor": "Queue 1 #7b (tensor parallelism)",
 }
 
 def check_ported(parser, args) -> None:
@@ -192,6 +195,14 @@ def check_ported(parser, args) -> None:
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
+    if args.tensor > 1 and not args.serve:
+        from tpudist_torch.mesh import TENSOR_REMAINDER
+
+        # the reference reads --tensor under --serve only; the image
+        # models' tensor layout (ViT's mesh=) is the rest of #7b
+        raise NotImplementedError(
+            f"--tensor {args.tensor} without --serve is not ported yet "
+            f"(ROADMAP {TENSOR_REMAINDER}: ViT's mesh=)")
     if args.fsdp > 1 and args.reduce in ("bucketed", "quantized"):
         raise ValueError(
             f"--reduce {args.reduce} is pure-DP (the explicit reducer "
@@ -353,29 +364,50 @@ def _imagenet_val(args, dtype, train_classes):
 
 def _serve_demo(args):
     """``--serve``: the reference's demo (``main.py:_serve_demo``) on the
-    port's engine. Returns the SLO snapshot."""
+    port's engine. Returns the SLO snapshot. ``--tensor N`` shards the
+    engine over a tensor axis of ``N`` ranks (one process a rank, the
+    world from ``torchrun``'s ``env://`` variables; rank 0 writes and
+    prints)."""
     import numpy as np
 
+    from tpudist_torch.distributed import init_from_env
     from tpudist_torch.models.gpt2 import GPT2
     from tpudist_torch.serve import ServeEngine, early_exit_draft
     from tpudist_torch.serve.stats import fmt_s
     from tpudist_torch.telemetry import TelemetrySink
 
+    import torch.distributed as dist
+
+    from tpudist_torch.distributed import group_up
+
+    mesh = None
+    device = args.device
+    formed_here = not group_up()
+    if args.tensor > 1:
+        from tpudist_torch.mesh import MeshConfig, create_layout
+
+        ctx = init_from_env(args.device)
+        device = ctx.device
+        # the engine refuses a tensor world that does not divide the heads
+        # before any weight moves
+        mesh = create_layout(MeshConfig(data=-1, tensor=args.tensor))
+    chief = mesh is None or mesh.rank == 0
     model = GPT2(vocab_size=256, max_seq_len=256, hidden_dim=128, depth=2,
-                 num_heads=4, attn_impl="fused", device=args.device)
-    sink = TelemetrySink(
+                 num_heads=4, attn_impl="fused", device=device, layout=mesh)
+    sink = (TelemetrySink(
         os.path.join(args.log_dir, f"{args.JobID}_serve_0.jsonl"))
+        if chief else None)
     streamed: dict[int, int] = {}
 
     def on_token(ev):
         streamed[ev.request_id] = streamed.get(ev.request_id, 0) + 1
-        if ev.done:
+        if ev.done and chief:
             print(f"request {ev.request_id}: {streamed[ev.request_id]} "
                   "tokens (done)")
 
     engine = ServeEngine(
         model, max_slots=args.serve_slots, sink=sink, stats_every=10,
-        on_token=on_token, spec_k=args.spec_k,
+        on_token=on_token, spec_k=args.spec_k, mesh=mesh,
         draft_model=(early_exit_draft(model, args.spec_draft)
                      if args.spec_draft else None))
     rng = np.random.Generator(np.random.PCG64(0))
@@ -386,14 +418,20 @@ def _serve_demo(args):
                       temperature=0.0 if i % 2 == 0 else 0.8,
                       top_k=0 if i % 2 == 0 else 50)
     engine.run()
-    sink.close()
     snap = engine.stats.snapshot()
+    if mesh is not None and formed_here:
+        dist.destroy_process_group()
+    if not chief:
+        return snap
+    sink.close()
     print(
         f"served {snap['completed']} requests, {snap['tokens']} tokens in "
         f"{snap['wall_s']:.2f}s ({snap['tokens_per_sec']:.1f} tok/s); "
         f"TTFT p50/p95 {fmt_s(snap['ttft_p50'])}/{fmt_s(snap['ttft_p95'])}s, "
         f"TPOT p50 {fmt_s(snap['tpot_p50'], 1e3, 1)}ms, slot utilization "
-        f"{fmt_s(snap['slot_utilization'], digits=2)}")
+        f"{fmt_s(snap['slot_utilization'], digits=2)}"
+        + (f", tensor_world {engine.tensor_world}" if mesh is not None
+           else ""))
     if args.spec_draft:
         print(f"speculative: {snap['spec_accepted']}/{snap['spec_drafted']} "
               "drafts accepted (rate "

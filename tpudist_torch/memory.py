@@ -90,11 +90,11 @@ def _shard_shape(shape, record) -> tuple:
         return tuple(shape)
     dim, world, *axis = record
     if axis and axis[0] not in ("data", "fsdp"):
-        from tpudist_torch.mesh import AXIS_ITEMS
+        from tpudist_torch.mesh import AXIS_ITEMS, TENSOR_REMAINDER
 
         raise NotImplementedError(
             f"a placement over {axis[0]!r} is not ported yet (ROADMAP "
-            f"{AXIS_ITEMS.get(axis[0], 'Queue 1 #7')})")
+            f"{AXIS_ITEMS.get(axis[0], TENSOR_REMAINDER)})")
     out = list(shape)
     out[dim] = -(-out[dim] // int(world))
     return tuple(out)
@@ -269,13 +269,13 @@ def train_state_budget(
     Returns the reference's keys: per-component bytes, the per-chip total,
     ``fits`` and ``bytes_per_param``."""
     if plan is not None:
-        from tpudist_torch.mesh import AXIS_ITEMS
+        from tpudist_torch.mesh import AXIS_ITEMS, TENSOR_REMAINDER
 
         for axis in ("tensor", "pipe", "expert"):
             if getattr(plan, axis, 1) != 1:
                 raise NotImplementedError(
                     f"train_state_budget under a {axis} axis is not ported "
-                    f"yet (ROADMAP {AXIS_ITEMS[axis]})")
+                    f"yet (ROADMAP {AXIS_ITEMS.get(axis, TENSOR_REMAINDER)})")
     if hbm_budget_bytes is None:
         if not torch.cuda.is_available():
             raise ValueError("hbm_budget_bytes is required without a card "

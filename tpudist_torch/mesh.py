@@ -1,21 +1,26 @@
-"""The data x fsdp x seq rank layout: the part of :mod:`tpudist.mesh`
-that data, fully-sharded and context parallelism need.
+"""The data x fsdp x seq x tensor rank layout: the part of
+:mod:`tpudist.mesh` that data, fully-sharded, context and tensor
+parallelism need.
 
 The reference lays its devices out as a named mesh whose axis order is
-``data, fsdp, pipe, expert, seq, tensor``. With pipe, expert and tensor
-at 1, rank ``r`` of a world of ``data * fsdp * seq`` ranks sits at
-``data_idx = r // (fsdp * seq)``, ``fsdp_idx = (r // seq) % fsdp``,
-``seq_idx = r % seq``: the reference's device order. :func:`create_layout`
-gives a rank those coordinates and its process groups, created on every
-rank in the same order: its seq peers (data and fsdp fixed; ring and
-Ulysses attention run over them), its fsdp peers (data and seq fixed;
-FSDP shards parameters over them) and its data replicas (fsdp and seq
-fixed; the explicit reducer and ZeRO-1 work over them). The batch is
-split over ``data x fsdp`` jointly (:attr:`RankLayout.replica`), as the
-reference's ``batch_sharding`` splits it. ``fsdp`` with ``seq > 1`` is
-refused, as the reference's ``train_gpt2.py`` refuses it; the other axes
-raise, naming their ROADMAP items (tensor parallelism, the pipeline,
-experts).
+``data, fsdp, pipe, expert, seq, tensor``. With pipe and expert at 1,
+rank ``r`` of a world of ``data * fsdp * seq * tensor`` ranks sits at
+``tensor_idx = r % tensor``, ``seq_idx = (r // tensor) % seq``,
+``fsdp_idx = (r // (seq * tensor)) % fsdp`` and ``data_idx = r // (fsdp *
+seq * tensor)``: the reference's device order, tensor innermost.
+:func:`create_layout` gives a rank those coordinates and its process
+groups, created on every rank in the same order: its tensor peers (the
+Megatron layers of :mod:`tpudist_torch.parallel.tp` all-reduce over
+them), its seq peers (ring and Ulysses attention run over them), its fsdp
+peers (FSDP shards parameters over them) and its data replicas (the
+ranks with its fsdp, seq and tensor coordinates; DDP, the explicit
+reducer and ZeRO-1 work over them). The batch is split over ``data x
+fsdp`` jointly (:attr:`RankLayout.replica`), as the reference's
+``batch_sharding`` splits it; the tensor ranks of a replica share its
+batch. ``fsdp`` with ``seq > 1`` is refused, as the reference's
+``train_gpt2.py`` refuses it; ``tensor > 1`` with ``fsdp > 1`` or ``seq >
+1`` waits for the rest of ROADMAP Queue 1 #7b; pipe and expert raise,
+naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -45,23 +50,24 @@ class MeshConfig:
     tensor: int = 1
 
     def __post_init__(self):
-        for axis in (PIPELINE_AXIS, EXPERT_AXIS, TENSOR_AXIS):
+        for axis in (PIPELINE_AXIS, EXPERT_AXIS):
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"MeshConfig({axis}={getattr(self, axis)}) is not ported "
                     f"yet (ROADMAP {AXIS_ITEMS[axis]}); the port lays out "
-                    "data x fsdp x seq")
+                    "data x fsdp x seq x tensor")
         if self.fsdp > 1 and self.seq > 1:
             raise ValueError(
                 "fsdp does not compose with seq > 1 (the context-parallel "
                 "step keeps parameters replicated), as the reference's "
                 "train_gpt2.py refuses --fsdp with --cp")
+        refuse_tensor_with(self.tensor, fsdp=self.fsdp, seq=self.seq)
 
     def axis_sizes(self, world: int) -> dict[str, int]:
-        """``{"data": ..., "fsdp": ..., "seq": ...}`` over ``world``
-        ranks."""
+        """``{"data": ..., "fsdp": ..., "seq": ..., "tensor": ...}`` over
+        ``world`` ranks."""
         sizes = {DATA_AXIS: self.data, FSDP_AXIS: self.fsdp,
-                 SEQUENCE_AXIS: self.seq}
+                 SEQUENCE_AXIS: self.seq, TENSOR_AXIS: self.tensor}
         wild = [k for k, v in sizes.items() if v == -1]
         if len(wild) > 1:
             raise ValueError(f"at most one axis may be -1, got {wild}")
@@ -81,13 +87,29 @@ class MeshConfig:
                 "fsdp does not compose with seq > 1 (the context-parallel "
                 "step keeps parameters replicated), as the reference's "
                 "train_gpt2.py refuses --fsdp with --cp")
+        refuse_tensor_with(sizes[TENSOR_AXIS], fsdp=sizes[FSDP_AXIS],
+                           seq=sizes[SEQUENCE_AXIS])
         return sizes
 
 
 #: the ROADMAP items that port the axes the layout still refuses
-AXIS_ITEMS = {TENSOR_AXIS: "Queue 1 #7b (tensor parallelism)",
-              PIPELINE_AXIS: "Queue 1 #7c (the pipeline)",
+AXIS_ITEMS = {PIPELINE_AXIS: "Queue 1 #7c (the pipeline)",
               EXPERT_AXIS: "Queue 1 #7d (experts)"}
+#: the ROADMAP item of what tensor parallelism does not compose with yet
+TENSOR_REMAINDER = "Queue 1 #7b (remainder)"
+
+
+def refuse_tensor_with(tensor: int, *, fsdp: int = 1, seq: int = 1) -> None:
+    """``tensor > 1`` composes with ``data`` only so far: with ``fsdp`` or
+    ``seq`` above 1 it raises ``NotImplementedError`` naming the ROADMAP
+    item that ports the composition."""
+    if tensor > 1 and (fsdp > 1 or seq > 1):
+        other = f"fsdp={fsdp}" if fsdp > 1 else f"seq={seq}"
+        raise NotImplementedError(
+            f"tensor={tensor} with {other} is not ported yet (ROADMAP "
+            f"{TENSOR_REMAINDER}: compose_fsdp over fsdp x tensor, seq x "
+            "tensor); the port lays tensor parallelism out over data x "
+            "tensor")
 
 
 def largest_divisible_dim(shape, size: int, *,
@@ -116,11 +138,12 @@ def largest_divisible_spec(shape, axis: str, size: int, *,
 
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
-    """This rank's place in a ``data x fsdp x seq`` world. A group is None
-    when its axis is 1 (no collective). ``device_mesh`` is the
-    ``torch.distributed`` DeviceMesh over the same groups, ``(data,
-    fsdp)`` or the one of them above 1 (None when both are 1): FSDP2 and
-    the ZeRO-1 DTensors are placed on it."""
+    """This rank's place in a ``data x fsdp x seq x tensor`` world. A group
+    is None when its axis is 1 (no collective). ``device_mesh`` is the
+    ``torch.distributed`` DeviceMesh over the same groups: ``(data,
+    fsdp)``, ``(data, tensor)``, or the one of them above 1 (None when
+    every axis is 1): FSDP2, the ZeRO-1 DTensors and the tensor shards in
+    a checkpoint are placed on it."""
 
     rank: int
     data: int
@@ -130,18 +153,24 @@ class RankLayout:
     fsdp: int = 1
     fsdp_group: object = None
     device_mesh: object = None
+    tensor: int = 1
+    tensor_group: object = None
 
     @property
     def data_idx(self) -> int:
-        return self.rank // (self.fsdp * self.seq)
+        return self.rank // (self.fsdp * self.seq * self.tensor)
 
     @property
     def fsdp_idx(self) -> int:
-        return (self.rank // self.seq) % self.fsdp
+        return (self.rank // (self.seq * self.tensor)) % self.fsdp
 
     @property
     def seq_idx(self) -> int:
-        return self.rank % self.seq
+        return (self.rank // self.tensor) % self.seq
+
+    @property
+    def tensor_idx(self) -> int:
+        return self.rank % self.tensor
 
     @property
     def data_parallel_size(self) -> int:
@@ -159,9 +188,18 @@ class RankLayout:
         data replica)."""
         if self.data == 1:
             return None
-        if self.fsdp == 1:
+        if self.device_mesh.ndim == 1:
             return self.device_mesh
         return self.device_mesh[DATA_AXIS]
+
+    def tensor_mesh(self):
+        """The 1-D DeviceMesh of this rank's tensor peers (None with one
+        tensor rank)."""
+        if self.tensor == 1:
+            return None
+        if self.device_mesh.ndim == 1:
+            return self.device_mesh
+        return self.device_mesh[TENSOR_AXIS]
 
     def __deepcopy__(self, memo):
         # process groups are process-wide: a copied model shares them
@@ -191,28 +229,37 @@ def create_layout(config: MeshConfig = MeshConfig()) -> RankLayout:
         rank, world = 0, 1
     sizes = config.axis_sizes(world)
     data, fsdp, seq = sizes[DATA_AXIS], sizes[FSDP_AXIS], sizes[SEQUENCE_AXIS]
-    seq_group = data_group = fsdp_group = device_mesh = None
+    tensor = sizes[TENSOR_AXIS]
+    seq_group = data_group = fsdp_group = tensor_group = device_mesh = None
+    if tensor > 1 and tensor < world:
+        tensor_group = _groups(rank, world, 1, tensor)
+    elif tensor > 1:
+        tensor_group = dist.group.WORLD
     if seq > 1:
-        seq_group = _groups(rank, world, 1, seq)
+        seq_group = _groups(rank, world, tensor, seq)
     if fsdp > 1:
-        fsdp_group = _groups(rank, world, seq, fsdp)
+        fsdp_group = _groups(rank, world, seq * tensor, fsdp)
     if data > 1 and data < world:
-        data_group = _groups(rank, world, fsdp * seq, data)
+        data_group = _groups(rank, world, fsdp * seq * tensor, data)
     elif data > 1:
         data_group = dist.group.WORLD
-    if data > 1 or fsdp > 1:
+    # the mesh's second axis: fsdp or tensor (they do not compose yet)
+    inner, inner_group = ((TENSOR_AXIS, tensor_group) if tensor > 1
+                          else (FSDP_AXIS, fsdp_group))
+    inner_size = max(tensor, fsdp)
+    if data > 1 or inner_size > 1:
         import torch
         from torch.distributed.device_mesh import DeviceMesh
 
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        if data > 1 and fsdp > 1:
+        if data > 1 and inner_size > 1:
             device_mesh = DeviceMesh.from_group(
-                [data_group, fsdp_group], device_type,
-                mesh=torch.arange(world).view(data, fsdp),
-                mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+                [data_group, inner_group], device_type,
+                mesh=torch.arange(world).view(data, inner_size),
+                mesh_dim_names=(DATA_AXIS, inner))
         else:
             device_mesh = DeviceMesh.from_group(
-                data_group if data > 1 else fsdp_group, device_type,
-                mesh_dim_names=(DATA_AXIS if data > 1 else FSDP_AXIS,))
+                data_group if data > 1 else inner_group, device_type,
+                mesh_dim_names=(DATA_AXIS if data > 1 else inner,))
     return RankLayout(rank, data, seq, seq_group, data_group, fsdp,
-                      fsdp_group, device_mesh)
+                      fsdp_group, device_mesh, tensor, tensor_group)

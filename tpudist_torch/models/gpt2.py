@@ -1,6 +1,6 @@
 """GPT-2 decoder in PyTorch: counterpart of :mod:`tpudist.models.gpt2`.
 
-Dense blocks only (no MoE or tensor/pipeline parallelism). The decode
+Dense blocks only (no MoE or pipeline parallelism). The decode
 path runs over a KV cache
 (:mod:`tpudist_torch.ops.decode`) in the reference's three modes: scalar
 cursor (``generate``), per-row positions (the contiguous serving pool)
@@ -23,6 +23,19 @@ sequence, gathered over the seq group
 (:func:`tpudist_torch.parallel.cp.gathered_attention`): the reference's
 GSPMD runs them replicated over the sequence. A seq-sharded model has no
 decode path and raises there, as the reference does.
+
+Under a layout with a tensor axis (:mod:`tpudist_torch.parallel.tp`, the
+reference's ``nn.with_partitioning`` annotations) each rank holds
+``num_heads / T`` heads: ``qkv`` (its grouped ``(3, H, dh)`` split) and
+``mlp_fc`` are column-parallel, ``out`` and ``mlp_proj`` row-parallel,
+``wte`` is split over the vocabulary (the embedding a masked lookup and a
+sum, the tied head this rank's logit columns), and ``wpe`` and the
+LayerNorms stay whole, on whole rows. The random init draws every leaf
+whole from the seeded generator, then keeps this rank's shard, so a
+sharded model computes the unsharded one's function. Training reads the
+vocabulary-local logits (``forward(vocab_local=True)``, for
+:func:`tpudist_torch.parallel.tp.vocab_parallel_cross_entropy`); every
+other forward, decode included, gathers them whole.
 
 ``fused_ln`` (an attribute, which ``make_train_step(fused="ln")`` sets)
 swaps in the fused residual-add + LayerNorm kernel
@@ -72,6 +85,10 @@ from tpudist_torch.ops.layernorm import fused_layernorm
 from tpudist_torch.parallel.cp import (
     CP_IMPLS, context_parallel_attention, gathered_attention_local,
 )
+from tpudist_torch.parallel import tp as tp_lib
+from tpudist_torch.parallel.tp import (
+    ColumnParallel, RowParallel, copy_to_tensor, tensor_size,
+)
 from tpudist_torch.rng import fold_in, generator
 
 ATTN_IMPLS = ("xla", "fused", "vmem", "auto", "flash", *CP_IMPLS)
@@ -111,6 +128,36 @@ def check_attn_impl(attn_impl: str, layout, *, gather: bool = True) -> None:
         raise ValueError(
             f"a seq axis of {layout.seq} needs a sequence-parallel "
             "attention: attn_impl ring, ulysses or ulysses_flash")
+    if attn_impl in CP_IMPLS and tensor_size(layout) > 1:
+        from tpudist_torch.mesh import TENSOR_REMAINDER
+
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} under a tensor axis (seq x tensor) is "
+            f"not ported yet (ROADMAP {TENSOR_REMAINDER})")
+
+
+def check_tensor(model) -> int:
+    """The tensor world of ``model``'s layout, after the reference's
+    checks: both head counts and the vocabulary must divide over it."""
+    t = tensor_size(model.layout)
+    if t > 1:
+        tp_lib.check_heads(model.num_heads, model.num_kv_heads, t)
+        tp_lib.check_vocab(model.vocab_size, t)
+    return t
+
+
+def lm_logits(model, x, head_w, vocab_local: bool):
+    """The LM head over ``x`` with the ``[V, D]`` table ``head_w`` (this
+    rank's vocabulary rows under a tensor axis): f32 logits
+    (:func:`tied_head`), whole unless ``vocab_local`` asks for this rank's
+    columns."""
+    layout = model.layout
+    if tensor_size(layout) == 1:
+        return tied_head(x, head_w)
+    local = tied_head(copy_to_tensor(x, layout), head_w)
+    if vocab_local:
+        return local
+    return tp_lib.gather_from_tensor(local, layout, full=model.vocab_size)
 
 
 def gathers_sequence(model) -> bool:
@@ -212,25 +259,31 @@ class Block(nn.Module):
         self.attn_impl = attn_impl
         self.layout = layout
         self.dropout = dropout
-        lin = lambda i, o: Dense(i, o, device=device)
+        t = tensor_size(layout)
+        col = lambda i, o, **kw: ColumnParallel(i, o, device=device,
+                                                layout=layout, **kw)
+        row = lambda i, o: RowParallel(i, o, device=device, layout=layout)
         self.ln_1 = LayerNorm(d, device=device)
-        # out features ordered (3, heads, dh)
-        self.qkv = Dense(d, 3 * d, bias_shape=(3, num_heads, d // num_heads),
-                         device=device)
-        self.out = lin(d, d)           # in features ordered (heads, dh)
+        # out features ordered (3, heads, dh): a rank holds its heads of
+        # each of q, k and v
+        self.qkv = col(d, 3 * d, bias_shape=(3, num_heads // t,
+                                             d // num_heads))
+        self.out = row(d, d)           # in features ordered (heads, dh)
         self.ln_2 = LayerNorm(d, device=device)
-        self.mlp_fc = lin(d, 4 * d)
-        self.mlp_proj = lin(4 * d, d)
+        self.mlp_fc = col(d, 4 * d)
+        self.mlp_proj = row(4 * d, d)
 
     def forward(self, x, cache=None, positions=None, block_tables=None,
                 fused_ln: bool = False, dropout_key: int | None = None):
         """``dropout_key``: this block's key (None: no dropout); the
         attention branch draws from site 0, the MLP branch from site 1."""
         b, s, d = x.shape
-        h = self.num_heads
+        # this rank's heads (all of them without a tensor axis)
+        h = self.num_heads // tensor_size(self.layout)
+        dh = d // self.num_heads
         fused = fused_ln and cache is None
         y = self.ln_1.fused(x, self.dtype) if fused else self.ln_1(x, self.dtype)
-        qkv = self.qkv(y).view(b, s, 3, h, d // h)
+        qkv = self.qkv(y).view(b, s, 3, h, dh)
         q, k, v = qkv.unbind(2)
         if cache is not None:
             keys, values, mask, pos = cached_kv(
@@ -260,7 +313,7 @@ class Block(nn.Module):
         else:
             attn = multi_head_attention(q, k, v, causal=True,
                                         impl=self.attn_impl)
-        y = dropout(self.out(attn.reshape(b, s, d)), self.dropout,
+        y = dropout(self.out(attn.reshape(b, s, h * dh)), self.dropout,
                     site_key(dropout_key, 0))
         if fused:
             # one kernel sweep: the residual add and the norm, both the
@@ -282,8 +335,8 @@ class GPT2(nn.Module):
     distributions: lecun-normal kernels, N(0, 0.02) ``wte``, N(0, 0.01)
     ``wpe``, zero biases, unit LayerNorm scales). ``dropout``,
     ``scan_layers``, ``remat_layers`` and ``remat_policy`` are the
-    reference's fields, and ``layout`` is the context-parallel impls'
-    (module docstring)."""
+    reference's fields, and ``layout`` is the context-parallel impls' and
+    the tensor axis's (module docstring)."""
 
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -315,8 +368,11 @@ class GPT2(nn.Module):
         self.dropout = float(dropout)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
+        t = check_tensor(self)
         dev = self.device
-        self.wte = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev))
+        v0, v1 = tp_lib.vocab_range(vocab_size, t, layout.tensor_idx
+                                    if t > 1 else 0)
+        self.wte = nn.Parameter(torch.empty(v1 - v0, hidden_dim, device=dev))
         self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev))
         self.h = nn.ModuleList(
             Block(hidden_dim, num_heads, dtype=dtype, attn_impl=attn_impl,
@@ -333,8 +389,14 @@ class GPT2(nn.Module):
 
     @property
     def num_kv_heads(self) -> int:
-        """The decode cache's heads (GPT-2 has no grouped K/V)."""
+        """GPT-2 has no grouped K/V: its heads."""
         return self.num_heads
+
+    @property
+    def cache_heads(self) -> int:
+        """The decode cache's heads on this rank (its share under a tensor
+        axis)."""
+        return self.num_kv_heads // tensor_size(self.layout)
 
     @property
     def geometry(self) -> dict:
@@ -346,22 +408,28 @@ class GPT2(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         g = generator(int(seed), self.device)
+        dev, layout, vocab = self.device, self.layout, self.vocab_size
 
-        def lecun(p, fan_in):
-            t = torch.empty(p.shape, device=self.device)
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-            p.copy_(t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+        def lecun(name, p, fan_in):
+            def draw(shape):
+                t = torch.empty(shape, device=dev)
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+                return t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+            tp_lib.init_sharded(p, name, draw, layout, vocab)
 
-        def normal(p, std):
-            p.copy_(torch.randn(p.shape, device=self.device, generator=g) * std)
+        def normal(name, p, std):
+            tp_lib.init_sharded(
+                p, name, lambda shape: torch.randn(
+                    shape, device=dev, generator=g) * std, layout, vocab)
 
         d = self.hidden_dim
-        normal(self.wte, 0.02)
-        normal(self.wpe, 0.01)
-        for blk in self.h:
-            for lin, fan_in in ((blk.qkv, d), (blk.out, d), (blk.mlp_fc, d),
-                                (blk.mlp_proj, 4 * d)):
-                lecun(lin.weight, fan_in)
+        normal("wte", self.wte, 0.02)
+        normal("wpe", self.wpe, 0.01)
+        for i, blk in enumerate(self.h):
+            for name, lin, fan_in in (("qkv", blk.qkv, d), ("out", blk.out, d),
+                                      ("mlp_fc", blk.mlp_fc, d),
+                                      ("mlp_proj", blk.mlp_proj, 4 * d)):
+                lecun(f"h.{i}.{name}.weight", lin.weight, fan_in)
                 lin.bias.zero_()
             for ln in (blk.ln_1, blk.ln_2):
                 ln.scale.fill_(1.0)
@@ -382,7 +450,7 @@ class GPT2(nn.Module):
 
     def forward(self, tokens, *, cache=None, positions=None,
                 block_tables=None, return_hidden: bool = False,
-                dropout_key: int | None = None):
+                dropout_key: int | None = None, vocab_local: bool = False):
         """``tokens [B, s]`` -> f32 logits ``[B, s, V]`` (or the final
         hidden state with ``return_hidden``). With ``cache`` the decode
         path runs: scalar cursor, per-row ``positions`` or paged
@@ -393,7 +461,9 @@ class GPT2(nn.Module):
         ``dropout_key`` (the training step's; the embedding draws from
         site 0, block ``i`` from site ``i + 1``), as the reference needs a
         'dropout' rng; in eval mode nothing is dropped. A context-parallel
-        model takes this rank's chunk of the sequence."""
+        model takes this rank's chunk of the sequence. Under a tensor axis
+        ``vocab_local`` returns this rank's vocabulary columns of the
+        logits (the training loss's input) instead of the whole row."""
         if cache is not None:
             refuse_cp_decode(self)
             if self.scan_layers:
@@ -402,12 +472,13 @@ class GPT2(nn.Module):
                     "per-layer variables); generate with scan_layers=False")
             with torch.no_grad():
                 return self._forward(tokens, cache, positions, block_tables,
-                                     return_hidden, False, None)
+                                     return_hidden, False, None, False)
         return self._forward(tokens, None, None, None, return_hidden,
-                             self.fused_ln, train_key(self, dropout_key))
+                             self.fused_ln, train_key(self, dropout_key),
+                             vocab_local)
 
     def _forward(self, tokens, cache, positions, block_tables, return_hidden,
-                 fused, dropout_key):
+                 fused, dropout_key, vocab_local):
         b, s = tokens.shape
         if tokens.dtype != torch.int64:
             tokens = tokens.long()
@@ -440,7 +511,9 @@ class GPT2(nn.Module):
         else:
             off = seq_offset(self, s)
             pos = self.wpe[off:off + s][None]
-        x = self.wte[tokens].to(self.dtype) + pos.to(self.dtype)
+        x = (tp_lib.vocab_parallel_embedding(tokens, self.wte, self.layout,
+                                             self.vocab_size).to(self.dtype)
+             + pos.to(self.dtype))
         x = dropout(x, self.dropout, site_key(dropout_key, 0))
         layers = cache["layers"] if cache is not None else [None] * self.depth
         policy = self.block_policy if cache is None else None
@@ -451,7 +524,7 @@ class GPT2(nn.Module):
         x = self.ln_f.fused(x, self.dtype) if fused else self.ln_f(x, self.dtype)
         if return_hidden:
             return x
-        return tied_head(x, self.wte.to(self.dtype))
+        return lm_logits(self, x, self.wte.to(self.dtype), vocab_local)
 
 
 def tied_head_grads(g, x2, wte, mm):
@@ -520,7 +593,7 @@ def compute_copy(model: GPT2) -> GPT2:
         for p in (held.wte, held.wpe):
             p.data = p.data.to(held.dtype)
         for m in held.modules():
-            if isinstance(m, Dense):
+            if isinstance(m, (Dense, ColumnParallel, RowParallel)):
                 m.weight.data = m.weight.data.to(held.dtype)
                 m.bias.data = m.bias.data.to(held.dtype)
     return held

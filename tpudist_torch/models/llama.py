@@ -12,6 +12,15 @@ repeated before the attention, as the reference repeats them. Under a seq
 axis the other impls attend over the gathered sequence, as GPT-2's do,
 with grouped K/V heads gathered before any repeat.
 
+Under a layout with a tensor axis (:mod:`tpudist_torch.parallel.tp`) a
+rank holds ``num_heads / T`` query heads and ``num_kv_heads / T`` K/V
+heads (both must divide, the reference's constraint): q, k, v and
+SwiGLU's gate and up are column-parallel (the normed input copied in once
+for each group), ``o_proj`` and ``down_proj`` row-parallel, ``embed`` and
+``lm_head`` split over the vocabulary, the RMSNorms whole. The init and
+the logits are GPT-2's (:mod:`.gpt2`): drawn whole, then sliced; whole
+rows unless the training loss asks for ``vocab_local``.
+
 The parameter names are the reference's, so the optimizer's routing
 (``optim._ADAM_TOP``, ``muon_view``, the 1-D decay mask), the checkpoint
 and the HF bridge read them as they read the flax tree: top-level
@@ -60,8 +69,8 @@ from tpudist_torch import remat as remat_lib
 from tpudist_torch.device import resolve_device
 from tpudist_torch.rng import generator
 from tpudist_torch.models.gpt2 import (
-    _TRUNC_STD, check_attn_impl, gathers_sequence, refuse_cp_decode,
-    seq_offset, tied_head,
+    _TRUNC_STD, check_attn_impl, check_tensor, gathers_sequence, lm_logits,
+    refuse_cp_decode, seq_offset,
 )
 from tpudist_torch.ops.attention import multi_head_attention, repeat_kv
 from tpudist_torch.ops.decode import (
@@ -71,6 +80,8 @@ from tpudist_torch.ops.layernorm import fused_layernorm
 from tpudist_torch.parallel.cp import (
     CP_IMPLS, context_parallel_attention, gathered_attention_local,
 )
+from tpudist_torch.parallel import tp as tp_lib
+from tpudist_torch.parallel.tp import RowLinear, copy_to_tensor, tensor_size
 
 #: the ROADMAP item that ports the Mixtral-style experts
 _MOE_ITEM = "Queue 1 #7d (experts)"
@@ -160,27 +171,34 @@ class LlamaBlock(nn.Module):
         self.layout = layout
         self.rope_theta = rope_theta
         dh = d // num_heads
+        t = tensor_size(layout)
+        row = lambda i, o: RowLinear(i, o, device=device, layout=layout)
         self.attn_norm = RMSNorm(d, eps=norm_eps, device=device)
-        # q/k/v out features ordered (heads, dh); o_proj's in features too
-        self.q_proj = Linear(d, num_heads * dh, device=device)
-        self.k_proj = Linear(d, num_kv_heads * dh, device=device)
-        self.v_proj = Linear(d, num_kv_heads * dh, device=device)
-        self.o_proj = Linear(num_heads * dh, d, device=device)
+        # q/k/v out features ordered (heads, dh); o_proj's in features too.
+        # Under a tensor axis q/k/v/gate/up hold this rank's columns
+        # (column-parallel: the block copies their input in once)
+        self.q_proj = Linear(d, num_heads * dh // t, device=device)
+        self.k_proj = Linear(d, num_kv_heads * dh // t, device=device)
+        self.v_proj = Linear(d, num_kv_heads * dh // t, device=device)
+        self.o_proj = row(num_heads * dh, d)
         self.mlp_norm = RMSNorm(d, eps=norm_eps, device=device)
-        self.gate_proj = Linear(d, ffn_dim, device=device)
-        self.up_proj = Linear(d, ffn_dim, device=device)
-        self.down_proj = Linear(ffn_dim, d, device=device)
+        self.gate_proj = Linear(d, ffn_dim // t, device=device)
+        self.up_proj = Linear(d, ffn_dim // t, device=device)
+        self.down_proj = row(ffn_dim, d)
 
     def forward(self, x, cache=None, positions=None, block_tables=None,
                 fused_ln: bool = False, offset: int = 0):
         """``offset``: the global position of ``x``'s first row (a
         context-parallel chunk's)."""
         b, s, d = x.shape
-        h, kv = self.num_heads, self.num_kv_heads
-        dh = d // h
+        t = tensor_size(self.layout)
+        dh = d // self.num_heads
+        # this rank's query and K/V heads (all without a tensor axis)
+        h, kv = self.num_heads // t, self.num_kv_heads // t
         fused = fused_ln and cache is None
         y = (self.attn_norm.fused(x, self.dtype) if fused
              else self.attn_norm(x, self.dtype))
+        y = copy_to_tensor(y, self.layout)
         q = self.q_proj(y).view(b, s, h, dh)
         k = self.k_proj(y).view(b, s, kv, dh)
         v = self.v_proj(y).view(b, s, kv, dh)
@@ -241,6 +259,7 @@ class LlamaBlock(nn.Module):
         else:
             x = x + o
             y = self.mlp_norm(x, self.dtype)
+        y = copy_to_tensor(y, self.layout)
         return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
 
 
@@ -254,7 +273,8 @@ class Llama(nn.Module):
     """The reference's ``Llama`` fields and defaults (vocab 32000, S 2048,
     d 768, 12 layers, 12 heads, MHA unless ``num_kv_heads``, SwiGLU width
     :func:`default_ffn_dim` unless ``ffn_dim``, theta 1e4, eps 1e-5, an
-    untied head; ``layout`` for the context-parallel impls, as GPT-2's).
+    untied head; ``layout`` for the context-parallel impls and the tensor
+    axis, as GPT-2's).
     ``device`` defaults to ``"cuda"`` and raises without a card unless
     ``"cpu"`` is given; ``seed`` draws the random init from a
     ``torch.Generator`` on that device (flax's distributions: lecun-normal
@@ -296,8 +316,14 @@ class Llama(nn.Module):
         self.tie_embeddings = bool(tie_embeddings)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
+        t = check_tensor(self)
+        if self.ffn_dim % t:
+            raise ValueError(f"ffn_dim {self.ffn_dim} not divisible by "
+                             f"tensor={t}")
         dev = self.device
-        self.embed = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev))
+        v0, v1 = tp_lib.vocab_range(vocab_size, t, layout.tensor_idx
+                                    if t > 1 else 0)
+        self.embed = nn.Parameter(torch.empty(v1 - v0, hidden_dim, device=dev))
         for i in range(depth):
             self.add_module(f"layer_{i}", LlamaBlock(
                 hidden_dim, num_heads, self.num_kv_heads, self.ffn_dim,
@@ -306,7 +332,7 @@ class Llama(nn.Module):
         self.norm = RMSNorm(hidden_dim, eps=norm_eps, device=dev)
         if not self.tie_embeddings:
             self.lm_head = nn.Parameter(
-                torch.empty(vocab_size, hidden_dim, device=dev))
+                torch.empty(v1 - v0, hidden_dim, device=dev))
         self.init_weights(seed)
         self.eval()
 
@@ -317,6 +343,12 @@ class Llama(nn.Module):
     @property
     def blocks(self) -> list[LlamaBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.depth)]
+
+    @property
+    def cache_heads(self) -> int:
+        """The decode cache's K/V heads on this rank (its share under a
+        tensor axis)."""
+        return self.num_kv_heads // tensor_size(self.layout)
 
     @property
     def head_weight(self) -> torch.Tensor:
@@ -336,25 +368,30 @@ class Llama(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         g = generator(int(seed), self.device)
+        dev, layout, vocab = self.device, self.layout, self.vocab_size
 
-        def lecun(p, fan_in):
-            t = torch.empty(p.shape, device=self.device)
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-            p.copy_(t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+        def lecun(name, p):
+            def draw(shape):
+                t = torch.empty(shape, device=dev)
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+                return t * (math.sqrt(1.0 / shape[1]) / _TRUNC_STD)
+            tp_lib.init_sharded(p, name, draw, layout, vocab)
 
-        def normal(p, std):
-            p.copy_(torch.randn(p.shape, device=self.device, generator=g) * std)
+        def normal(name, p, std):
+            tp_lib.init_sharded(
+                p, name, lambda shape: torch.randn(
+                    shape, device=dev, generator=g) * std, layout, vocab)
 
-        normal(self.embed, 0.02)
-        for blk in self.blocks:
-            for lin in (blk.q_proj, blk.k_proj, blk.v_proj, blk.o_proj,
-                        blk.gate_proj, blk.up_proj, blk.down_proj):
-                lecun(lin.weight, lin.weight.shape[1])
+        normal("embed", self.embed, 0.02)
+        for i, blk in enumerate(self.blocks):
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                         "up_proj", "down_proj"):
+                lecun(f"layer_{i}.{name}.weight", getattr(blk, name).weight)
             blk.attn_norm.scale.fill_(1.0)
             blk.mlp_norm.scale.fill_(1.0)
         self.norm.scale.fill_(1.0)
         if not self.tie_embeddings:
-            normal(self.lm_head, 0.02)
+            normal("lm_head", self.lm_head, 0.02)
 
     def init_cache(self, batch_size: int) -> dict:
         """Zeroed decode cache for ``batch_size`` rows (``num_kv_heads``
@@ -368,12 +405,15 @@ class Llama(nn.Module):
         return compute_copy(self)
 
     def forward(self, tokens, *, cache=None, positions=None,
-                block_tables=None, return_hidden: bool = False):
+                block_tables=None, return_hidden: bool = False,
+                vocab_local: bool = False):
         """``tokens [B, s]`` -> f32 logits ``[B, s, V]`` (or the final
         hidden state with ``return_hidden``). With ``cache`` the decode
         path runs (scalar cursor, per-row ``positions`` or paged
         ``block_tables``) without autograd, updating the cache in place;
-        otherwise the ``fused_ln`` attribute picks the fused RMSNorm."""
+        otherwise the ``fused_ln`` attribute picks the fused RMSNorm.
+        ``vocab_local``: this rank's vocabulary columns under a tensor
+        axis (:mod:`.gpt2`)."""
         if cache is not None:
             refuse_cp_decode(self)
             if self.scan_layers:
@@ -382,19 +422,21 @@ class Llama(nn.Module):
                     "per-layer variables); generate with scan_layers=False")
             with torch.no_grad():
                 return self._forward(tokens, cache, positions, block_tables,
-                                     return_hidden, False)
+                                     return_hidden, False, False)
         return self._forward(tokens, None, None, None, return_hidden,
-                             self.fused_ln)
+                             self.fused_ln, vocab_local)
 
     def _forward(self, tokens, cache, positions, block_tables, return_hidden,
-                 fused):
+                 fused, vocab_local):
         b, s = tokens.shape
         if s > self.max_seq_len:
             raise ValueError(f"sequence {s} exceeds max_seq_len "
                              f"{self.max_seq_len}")
         if tokens.dtype != torch.int64:
             tokens = tokens.long()
-        x = self.embed[tokens].to(self.dtype)  # RoPE: no position table
+        # RoPE: no position table
+        x = tp_lib.vocab_parallel_embedding(tokens, self.embed, self.layout,
+                                            self.vocab_size).to(self.dtype)
         layers = cache["layers"] if cache is not None else [None] * self.depth
         policy = self.block_policy if cache is None else None
         offset = seq_offset(self, s) if cache is None else 0
@@ -405,7 +447,8 @@ class Llama(nn.Module):
         x = self.norm.fused(x, self.dtype) if fused else self.norm(x, self.dtype)
         if return_hidden:
             return x
-        return tied_head(x, self.head_weight.to(self.dtype))
+        return lm_logits(self, x, self.head_weight.to(self.dtype),
+                         vocab_local)
 
 
 def compute_copy(model: Llama) -> Llama:
@@ -422,7 +465,7 @@ def compute_copy(model: Llama) -> Llama:
         if not held.tie_embeddings:
             held.lm_head.data = held.lm_head.data.to(held.dtype)
         for m in held.modules():
-            if isinstance(m, Linear):
+            if isinstance(m, (Linear, RowLinear)):
                 m.weight.data = m.weight.data.to(held.dtype)
     return held
 

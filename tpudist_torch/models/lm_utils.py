@@ -14,7 +14,10 @@ each chunk's logits instead of storing them.
 Under context parallelism (:func:`seq_shard_lm`) a rank scores only its
 chunk of each sequence, against labels taken from the whole row: its last
 position's label is the next chunk's first token, and the sequence's last
-position has none.
+position has none. Under a tensor axis (a model built on a layout with
+one) each chunk's logits are this rank's vocabulary columns and its loss
+is :func:`tpudist_torch.parallel.tp.vocab_parallel_cross_entropy`: no
+rank holds a whole ``[B, chunk, V]``.
 """
 
 from __future__ import annotations
@@ -26,22 +29,29 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpudist_torch.models.gpt2 import tied_head
+from tpudist_torch.parallel import tp as tp_lib
 
 
-def _chunk_ce_sum(logits_fn, hc, tc, mc):
+def _chunk_ce_sum(logits_fn, hc, tc, mc, model=None):
     logits = logits_fn(hc)
-    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tc.reshape(-1),
-                         reduction="none")
+    flat, target = logits.reshape(-1, logits.shape[-1]), tc.reshape(-1)
+    if model is not None:
+        ce = tp_lib.vocab_parallel_cross_entropy(flat, target, model.layout,
+                                                 model.vocab_size)
+    else:
+        ce = F.cross_entropy(flat, target, reduction="none")
     return (ce * mc.reshape(-1)).sum()
 
 
 def chunked_head_reduce(logits_fn: Callable, h, targets, pos_mask,
-                        chunk: int):
+                        chunk: int, model=None):
     """The masked softmax-CE sum of a position-wise head over sequence
     chunks. ``logits_fn``: ``[B, chunk, D]`` hidden -> ``[B, chunk, V]``
     f32 logits; ``h [B, S, D]``; ``targets``/``pos_mask`` ``[B, S]``
     (``pos_mask`` broadcastable). S is padded to a multiple of ``chunk``
-    with a zero position mask, as the reference pads it."""
+    with a zero position mask, as the reference pads it. ``model``: a
+    tensor-parallel LM whose vocabulary-local logits ``logits_fn`` gives
+    (the loss is then the vocabulary-parallel CE)."""
     b, s, _ = h.shape
     pad = -s % chunk
     pos_mask = torch.broadcast_to(pos_mask, (b, s)).float()
@@ -53,12 +63,12 @@ def chunked_head_reduce(logits_fn: Callable, h, targets, pos_mask,
     for c in range(0, s + pad, chunk):
         total = total + checkpoint(
             _chunk_ce_sum, logits_fn, h[:, c:c + chunk],
-            targets[:, c:c + chunk], pos_mask[:, c:c + chunk],
+            targets[:, c:c + chunk], pos_mask[:, c:c + chunk], model,
             use_reentrant=False)
     return total
 
 
-def tied_head_logits_fn(head_w) -> Callable:
+def tied_head_logits_fn(head_w, layout=None) -> Callable:
     """``logits_fn`` for :func:`chunked_head_reduce`: the head against a
     ``[V, D]`` table (tied or not, the reference's one head function), cast to the hidden's dtype inside the chunk
     (so a float32 master's gradient sums over the chunks in float32, as
@@ -66,6 +76,8 @@ def tied_head_logits_fn(head_w) -> Callable:
     (:func:`tpudist_torch.models.gpt2.tied_head`)."""
 
     def logits_fn(hc):
+        if layout is not None:
+            hc = tp_lib.copy_to_tensor(hc, layout)
         return tied_head(hc, head_w.to(hc.dtype))
 
     return logits_fn
@@ -82,10 +94,14 @@ def lm_head_weight(model) -> torch.Tensor:
     raise ValueError(f"no LM head weight on {type(model).__name__}")
 
 
-def chunked_ce_sum(head_w, h, targets, pos_mask, chunk: int):
-    """The masked softmax-CE sum under the head ``head_w [V, D]``."""
-    return chunked_head_reduce(tied_head_logits_fn(head_w), h, targets,
-                               pos_mask, chunk)
+def chunked_ce_sum(head_w, h, targets, pos_mask, chunk: int, model=None):
+    """The masked softmax-CE sum under the head ``head_w [V, D]`` (this
+    rank's vocabulary rows when ``model`` is tensor-parallel)."""
+    if model is None or tp_lib.tensor_size(model.layout) == 1:
+        return chunked_head_reduce(tied_head_logits_fn(head_w), h, targets,
+                                   pos_mask, chunk)
+    return chunked_head_reduce(tied_head_logits_fn(head_w, model.layout), h,
+                               targets, pos_mask, chunk, model=model)
 
 
 def seq_shard(x, layout):
@@ -149,7 +165,7 @@ def chunked_lm_forward(model, chunk: int = 256, layout=None) -> Callable:
         b, s, _ = h.shape
         mask = torch.ones((b, s), device=h.device)
         return chunked_ce_sum(lm_head_weight(model), h, targets, mask,
-                              chunk) / (b * s)
+                              chunk, model=model) / (b * s)
 
     sharded = layout is not None and layout.seq > 1
     forward_loss.layout = layout if sharded else None

@@ -133,8 +133,8 @@ class ViT(nn.Module):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError(
-                "ViT over a mesh is not ported yet (ROADMAP Queue 1 #7b, "
-                "tensor parallelism)")
+                "ViT over a mesh is not ported yet (ROADMAP Queue 1 #7b "
+                "(remainder): the LMs' tensor layers are ported)")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
         if hidden_dim % num_heads:

@@ -243,14 +243,15 @@ class Optimizer:
 
     def shard_over(self, group, sharded) -> None:
         """Gradients of the names in ``sharded`` are this rank's shards of
-        leaves split over ``group`` (FSDP's); the others are replicated
+        leaves split over ``group`` (FSDP's or the tensor axis's); the
+        others are replicated
         over it. The clip's global norm and the guard's flag then sum over
         the group, so every rank takes the same decision."""
         if not self.elementwise and sharded:
             raise NotImplementedError(
                 f"{type(self).__name__} reads whole leaves (not an "
-                "element-wise update), and FSDP holds shards of them: run "
-                "it without --fsdp")
+                "element-wise update), and FSDP or the tensor axis holds "
+                "shards of them: run it without --fsdp / --tensor")
         self.shard_group, self.sharded = group, frozenset(sharded)
 
     def slice_over(self, group) -> None:

@@ -1,5 +1,6 @@
 """Parallelism strategies: the data-parallel layers (the explicit
-reducer, FSDP, the plan) and context parallelism (:mod:`.cp`)."""
+reducer, FSDP, the plan), context parallelism (:mod:`.cp`) and tensor
+parallelism (:mod:`.tp`: the Megatron layers)."""
 
 from tpudist_torch.parallel.dp import GradReducer, make_reducer, resolve_method
 from tpudist_torch.parallel.fsdp import apply_fsdp, fsdp_spec

@@ -107,5 +107,5 @@ def apply_fsdp(model: nn.Module, layout, tx=None, *,
 
 def compose_fsdp(*args, **kwargs):
     raise NotImplementedError(
-        "compose_fsdp (FSDP over tensor-parallel placements) waits for "
-        "tensor parallelism (ROADMAP Queue 1 #7b)")
+        "compose_fsdp (FSDP over tensor-parallel placements) is not ported "
+        "yet (ROADMAP Queue 1 #7b (remainder))")

@@ -1,9 +1,11 @@
-"""ParallelPlan: the one resolver for a composed run, over data x fsdp.
+"""ParallelPlan: the one resolver for a composed run, over data x fsdp
+or data x tensor.
 
-Counterpart of :mod:`tpudist.parallel.plan` for the data-parallel axes:
-a plan holds the rank layout (:func:`tpudist_torch.mesh.create_layout`
-over ``data x fsdp``), the replicate-below threshold shared by FSDP and
-ZeRO-1, and the rules that tie them:
+Counterpart of :mod:`tpudist.parallel.plan` for the data-parallel and
+tensor axes: a plan holds the rank layout
+(:func:`tpudist_torch.mesh.create_layout` over ``data x fsdp`` or ``data
+x tensor``), the replicate-below threshold shared by FSDP and ZeRO-1, and
+the rules that tie them:
 
 - FSDP shards every leaf over ``fsdp`` on its largest divisible dim
   (:mod:`tpudist_torch.parallel.fsdp`), and the batch rides ``data x
@@ -11,13 +13,17 @@ ZeRO-1, and the rules that tie them:
 - :meth:`ParallelPlan.wrap_zero1` is ZeRO-1 over ``data`` that skips the
   leaves the plan already shards over ``fsdp``, so nothing is sharded
   twice;
+- a ``tensor`` axis shards the LMs' Megatron layers
+  (:mod:`tpudist_torch.parallel.tp`; the model is built on
+  :attr:`ParallelPlan.layout`) and the batch rides ``data`` alone;
 - :meth:`ParallelPlan.validate_reduce` refuses the explicit reducer on a
-  plan with a real ``fsdp`` axis, with the reference's hint;
+  plan with a real ``fsdp`` or ``tensor`` axis, with the reference's hint;
 - :meth:`ParallelPlan.axis_worlds` is what a checkpoint's geometry
-  records (``fsdp_world``; tensor, pipe and expert are 1).
+  records (``fsdp_world``, ``tensor_world``; pipe and expert are 1).
 
-``tensor``, ``pipe`` and ``expert`` above 1 raise, naming their ROADMAP
-items.
+``pipe`` and ``expert`` above 1 raise, naming their ROADMAP items;
+``tensor`` with ``fsdp``, and ZeRO-1 under ``tensor``, raise naming the
+rest of #7b.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import dataclasses
 
 from tpudist_torch.mesh import (
     AXIS_ITEMS, EXPERT_AXIS, FSDP_AXIS, PIPELINE_AXIS, TENSOR_AXIS,
-    MeshConfig, RankLayout, create_layout, largest_divisible_spec)
+    TENSOR_REMAINDER, MeshConfig, RankLayout, create_layout,
+    largest_divisible_spec)
 
 __all__ = ["ParallelPlan", "spec_is_sharded"]
 
@@ -61,13 +68,13 @@ class ParallelPlan:
               tensor: int = 1, expert: int = 1, **kw) -> "ParallelPlan":
         """Plan and layout in one call (``MeshConfig`` semantics: ``-1``
         is every remaining rank). Every rank must call it."""
-        for axis, size in ((TENSOR_AXIS, tensor), (PIPELINE_AXIS, pipe),
-                           (EXPERT_AXIS, expert)):
+        for axis, size in ((PIPELINE_AXIS, pipe), (EXPERT_AXIS, expert)):
             if size != 1:
                 raise NotImplementedError(
                     f"ParallelPlan({axis}={size}) is not ported yet "
                     f"(ROADMAP {AXIS_ITEMS[axis]})")
-        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp)), **kw)
+        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp,
+                                            tensor=tensor)), **kw)
 
     @property
     def data(self) -> int:
@@ -77,20 +84,26 @@ class ParallelPlan:
     def fsdp(self) -> int:
         return self.layout.fsdp
 
-    pipe = tensor = expert = 1
+    @property
+    def tensor(self) -> int:
+        return self.layout.tensor
+
+    pipe = expert = 1
 
     @property
     def model_axes(self) -> dict[str, int]:
-        return {FSDP_AXIS: self.fsdp} if self.fsdp > 1 else {}
+        """The real (>1) model-parallel axes of this plan."""
+        return {k: v for k, v in ((FSDP_AXIS, self.fsdp),
+                                  (TENSOR_AXIS, self.tensor)) if v > 1}
 
     def axis_worlds(self) -> dict[str, int]:
         """The geometry keys a checkpoint records for this plan."""
-        return {"fsdp_world": self.fsdp, "tensor_world": 1,
+        return {"fsdp_world": self.fsdp, "tensor_world": self.tensor,
                 "pipe_world": 1, "expert_world": 1}
 
     def describe(self) -> str:
         return (f"ParallelPlan(data={self.data}, fsdp={self.fsdp}, "
-                "pipe=1, tensor=1, expert=1)")
+                f"pipe=1, tensor={self.tensor}, expert=1)")
 
     @property
     def data_parallel_size(self) -> int:
@@ -105,9 +118,14 @@ class ParallelPlan:
 
     def wrap_zero1(self, tx):
         """ZeRO-1 over ``data`` composed with this plan: the leaves the
-        plan shards over ``fsdp`` stay as FSDP holds them."""
+        plan shards over ``fsdp`` stay as FSDP holds them. Under a tensor
+        axis it raises (the rest of #7b)."""
         from tpudist_torch.optim import shard_state
 
+        if self.tensor > 1:
+            raise NotImplementedError(
+                f"ZeRO-1 (shard_opt_state) under tensor={self.tensor} is not "
+                f"ported yet (ROADMAP {TENSOR_REMAINDER})")
         return shard_state(tx, self.layout, min_size=self.fsdp_min_size,
                            skip_spec=self._zero1_skip if self.wraps_fsdp
                            else None)
@@ -126,6 +144,7 @@ class ParallelPlan:
                 "quantized reducer reduces over the 'data' axis only) but "
                 f"this plan shards the model over {moved} — keep "
                 "reduce='none' (FSDP already reduce-scatters gradients over "
-                "'fsdp'), or move those ranks to the data axis "
+                "'fsdp', and the Megatron layers all-reduce over 'tensor' "
+                "in each block), or move those ranks to the data axis "
                 "(ParallelPlan.build(data=-1) / MeshConfig(data=-1)) before "
                 "asking for the explicit wire format")

@@ -17,12 +17,20 @@
     # the plain CPU path
     python -m tpudist_torch.serve --device cpu --requests 3 --max_new 6
 
+    # tensor-sharded over 2 ranks (one process a rank; gloo on the CPU)
+    torchrun --nproc_per_node 2 -m tpudist_torch.serve --full --bf16 \
+        --paged --tensor 2
+
 ``--prompt`` takes comma-separated token ids (no tokenizer ships);
 without any, mixed-length random prompts exercise the scheduler. The
-flags are the JAX CLI's (``--tensor``, ``--trace`` and ``--metrics_port``
-are not ported: ROADMAP Queue 1 #7b, #8), plus ``--device``, ``--full``,
-``--paged`` / ``--block_size`` and ``--attn_impl`` (default ``fused``:
-decode through the kernels).
+flags are the JAX CLI's (``--trace`` and ``--metrics_port`` are not
+ported: ROADMAP Queue 1 #8), plus ``--device``, ``--full``, ``--paged`` /
+``--block_size`` and ``--attn_impl`` (default ``fused``: decode through
+the kernels). ``--tensor N`` shards the engine over a tensor axis of the
+``N`` ranks of the world that ``torchrun``'s ``env://`` variables name
+(:mod:`tpudist_torch.parallel.tp`): each rank serves the same stream
+with its heads, rank 0 prints and writes the telemetry; ``num_heads``
+(and a Llama's K/V heads) must divide ``N``.
 """
 
 from __future__ import annotations
@@ -69,6 +77,11 @@ def parse_args(argv=None):
                    "off)")
     p.add_argument("--spec_k", default=4, type=int,
                    help="with --spec_draft: proposals a slot a tick")
+    p.add_argument("--tensor", default=1, type=int,
+                   help="tensor-parallel world: shard the engine (weights "
+                   "by their Megatron placements, KV pools on the KV-head "
+                   "dim) over this many ranks; num_heads must divide it. "
+                   "1 = one card")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--log_dir", default=".", type=str)
     p.add_argument("--JobID", default="Serve", type=str)
@@ -79,12 +92,22 @@ def main(argv=None):
     args = parse_args(argv)
     import numpy as np
     import torch
+    import torch.distributed as dist
 
+    from tpudist_torch.distributed import group_up, init_from_env
     from tpudist_torch.models.gpt2 import GPT2
     from tpudist_torch.serve import ServeEngine, early_exit_draft
     from tpudist_torch.serve.stats import fmt_s
     from tpudist_torch.telemetry import TelemetrySink
 
+    mesh = None
+    formed_here = not group_up()
+    if args.tensor > 1:
+        from tpudist_torch.mesh import MeshConfig, create_layout
+
+        args.device = str(init_from_env(args.device).device)
+        mesh = create_layout(MeshConfig(data=-1, tensor=args.tensor))
+    chief = mesh is None or mesh.rank == 0
     small = not (args.full or args.init_hf)
     model = GPT2(
         vocab_size=args.vocab_size or (256 if small else 50257),
@@ -94,13 +117,17 @@ def main(argv=None):
         num_heads=4 if small else args.num_heads,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         attn_impl=args.attn_impl, device=args.device, seed=args.seed,
+        # each rank builds its shards alone (the whole init drawn a leaf
+        # at a time): no rank holds the whole model
+        layout=mesh,
     )
     if args.init_hf:
         from tpudist_torch.interop import load_hf_params
+        from tpudist_torch.parallel.tp import shard_state_dict
 
-        model.load_state_dict(load_hf_params(
+        model.load_state_dict(shard_state_dict(load_hf_params(
             args.init_hf, arch="gpt2", depth=model.depth,
-            num_heads=model.num_heads))
+            num_heads=model.num_heads), mesh))
     rng = np.random.Generator(np.random.PCG64(args.seed))
     if args.prompt:
         prompts = [np.asarray([int(t) for t in s.split(",")], np.int32)
@@ -111,11 +138,13 @@ def main(argv=None):
             .astype(np.int32)
             for _ in range(args.requests)
         ]
-    sink = TelemetrySink(os.path.join(args.log_dir, f"{args.JobID}_serve_0.jsonl"))
+    sink = (TelemetrySink(os.path.join(args.log_dir,
+                                       f"{args.JobID}_serve_0.jsonl"))
+            if chief else None)
     engine = ServeEngine(
         model, max_slots=args.slots, max_queue=args.max_queue, seed=args.seed,
         sink=sink, stats_every=10, paged=args.paged,
-        block_size=args.block_size, spec_k=args.spec_k,
+        block_size=args.block_size, spec_k=args.spec_k, mesh=mesh,
         draft_model=(early_exit_draft(model, args.spec_draft)
                      if args.spec_draft else None),
     )
@@ -125,10 +154,16 @@ def main(argv=None):
         for pr in prompts
     ]
     for ev in engine.events():
-        print(f"  r{ev.request_id} +{ev.token}" + (" [done]" if ev.done else ""))
+        if chief:
+            print(f"  r{ev.request_id} +{ev.token}"
+                  + (" [done]" if ev.done else ""))
+    snap = engine.stats.snapshot()
+    if mesh is not None and formed_here:
+        dist.destroy_process_group()
+    if not chief:
+        return snap
     for r in rids:
         print(f"request {r}: {len(engine.result(r))} tokens -> {engine.result(r)}")
-    snap = engine.stats.snapshot()
     sink.close()
     dev = (torch.cuda.get_device_name(model.device)
            if model.device.type == "cuda" else "cpu")
@@ -138,7 +173,9 @@ def main(argv=None):
         f"TTFT p50/p95 {fmt_s(snap['ttft_p50'])}/{fmt_s(snap['ttft_p95'])}s, "
         f"TPOT p50/p95 {fmt_s(snap['tpot_p50'], 1e3, 1)}/"
         f"{fmt_s(snap['tpot_p95'], 1e3, 1)}ms, "
-        f"slot utilization {fmt_s(snap['slot_utilization'], digits=2)}\n"
+        f"slot utilization {fmt_s(snap['slot_utilization'], digits=2)}"
+        + (f", tensor_world {engine.tensor_world}" if mesh is not None
+           else "") + "\n"
         + (f"speculative: {snap['spec_accepted']}/{snap['spec_drafted']} "
            "drafts accepted (rate "
            f"{fmt_s(snap['spec_acceptance_rate'], digits=2)})\n"

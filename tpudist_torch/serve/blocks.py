@@ -36,8 +36,8 @@ GARBAGE_BLOCK = 0
 def paged_cache(model, n_blocks: int, block_size: int) -> dict:
     """The device-side block pool: the model's decode-cache structure with
     every layer's K/V as ``[n_blocks, H_kv, block_size, dh]`` (``H_kv`` the
-    model's ``num_kv_heads``)."""
-    shape = (n_blocks, model.num_kv_heads, block_size, model.head_dim)
+    model's ``cache_heads``: this rank's K/V heads)."""
+    shape = (n_blocks, model.cache_heads, block_size, model.head_dim)
     mk = lambda: torch.zeros(shape, dtype=model.dtype, device=model.device)
     cache = {"layers": [{"k": mk(), "v": mk(), "index": 0}
                         for _ in range(model.depth)]}

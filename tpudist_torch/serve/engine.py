@@ -50,9 +50,18 @@ prompt_len + max_new_tokens`` bounds sequence end and budget on the card,
 and rejected drafts' K/V is left above the cursor, where the causal mask
 never admits it before it is overwritten.
 
-Left out of this slice (see ROADMAP.md): tensor-sharded serving
-(``mesh``), the AOT compile cache, program anatomy, span tracing and the
-metrics endpoint.
+**Tensor-sharded mode** (``mesh=``, a
+:class:`tpudist_torch.mesh.RankLayout` or a ``MeshConfig``): every rank
+of the tensor group runs this engine over the same request stream with
+its shard of the model and the draft (:func:`tpudist_torch.parallel.tp.
+shard_model`: ``num_heads / T`` heads, the KV pools ``[.., H_kv / T, ..,
+dh]``, the decode kernels on those heads; block tables and cursors the
+same on every rank). The logits are gathered whole before sampling, so
+every rank draws the same token and keeps the same schedule; rank 0 alone
+writes the sink.
+
+Left out of this slice (see ROADMAP.md): the AOT compile cache, program
+anatomy, span tracing and the metrics endpoint.
 """
 
 from __future__ import annotations
@@ -177,11 +186,33 @@ class ServeEngine:
                  n_blocks: int | None = None, prefix_cache: bool = True,
                  watermark_blocks: int | None = None,
                  ttft_slo_s: float | None = None, draft_model=None,
-                 spec_k: int = 4):
+                 spec_k: int = 4, mesh=None):
+        from tpudist_torch.parallel import tp
+
         source = model
+        layout = mesh
+        if mesh is not None and not hasattr(mesh, "tensor_group"):
+            from tpudist_torch.mesh import create_layout
+
+            layout = create_layout(mesh)
+        self.layout = layout
+        self.tensor_world = tp.tensor_size(layout)
+        if self.tensor_world > 1:
+            for name, m in (("model", model), ("draft_model", draft_model)):
+                if m is not None:
+                    tp.check_heads(m.num_heads, m.num_kv_heads,
+                                   self.tensor_world, name)
+            if ttft_slo_s is not None:
+                raise ValueError(
+                    "ttft_slo_s ages the queue by each rank's own clock, "
+                    "which would part the tensor ranks' schedules; serve "
+                    "under mesh= without it")
+            if layout.rank != 0:
+                sink = None
         # the engine serves a copy held in the compute dtype: the model's
         # float32 masters would be cast at every use of every decode step
-        self.model = model = model.compute_copy()
+        # (and, under a tensor axis, this rank's shard of it)
+        self.model = model = tp.shard_model(model.compute_copy(), layout)
         self.device = model.device
         self.spec = draft_model is not None
         self.spec_k = int(spec_k)
@@ -222,7 +253,7 @@ class ServeEngine:
         self.ttft_slo_s = ttft_slo_s
         self.stats = ServeStats(
             slots=max_slots, sink=sink, every=stats_every, clock=clock,
-            paged=self.paged,
+            paged=self.paged, tensor_world=self.tensor_world,
         )
         self._lanes: dict[int, collections.deque[Request]] = {}
         self._t_submit: dict[int, float] = {}
@@ -284,7 +315,9 @@ class ServeEngine:
             from tpudist_torch.serve.spec import early_exit_draft
 
             return early_exit_draft(model, draft.depth)
-        return draft.compute_copy()
+        from tpudist_torch.parallel import tp
+
+        return tp.shard_model(draft.compute_copy(), self.layout)
 
     # -- submission --------------------------------------------------------
 
@@ -390,7 +423,7 @@ class ServeEngine:
         s = self.stats
         self.stats = ServeStats(
             slots=self.pool.max_slots, sink=s.sink, every=s.every,
-            clock=s._clock, paged=self.paged,
+            clock=s._clock, paged=self.paged, tensor_world=self.tensor_world,
         )
 
     # -- internals ---------------------------------------------------------

@@ -171,5 +171,5 @@ def cache_bytes(model, rows: int) -> int:
     (nothing is allocated): what a speculative engine pays for its draft
     pool on top of the target's."""
     itemsize = torch.empty((), dtype=model.dtype).element_size()
-    return (2 * model.depth * rows * model.num_kv_heads * model.max_seq_len
+    return (2 * model.depth * rows * model.cache_heads * model.max_seq_len
             * model.head_dim * itemsize)

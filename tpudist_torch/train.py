@@ -81,6 +81,19 @@ The data-parallel layers of the reference (Queue 1 #7's first half):
 - ``elastic`` resumes a checkpoint written at another data world
   (:mod:`tpudist_torch.resilience.elastic`).
 
+Tensor parallelism (Queue 1 #7b's first half): a ``layout`` with a tensor
+axis over a model built on it (:mod:`tpudist_torch.parallel.tp`) runs DDP
+over the layout's data group alone (the tensor ranks of a replica share
+its batch), the default loss through
+:func:`tpudist_torch.parallel.tp.vocab_parallel_cross_entropy` on the
+vocabulary-local logits, and the optimizer's clip and ``--amp`` flag over
+the tensor group (:meth:`tpudist_torch.optim.Optimizer.shard_over`: a
+sharded leaf's squares summed over it, a replicated one counted once).
+A replicated leaf gets the same gradient on every tensor rank through
+:func:`~tpudist_torch.parallel.tp.copy_to_tensor`'s backward. A checkpoint
+holds the shards as DTensors on the layout's ``(data, tensor)``
+DeviceMesh and records ``tensor_world``.
+
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
 is a silent no-op.
@@ -107,6 +120,7 @@ from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.models.lm_utils import seq_shard_lm
 from tpudist_torch.optim import (
     FusedAdamWState, Optimizer, load_tensors, local)
+from tpudist_torch.parallel import tp as tp_lib
 from tpudist_torch.profiling import WindowedProfiler
 from tpudist_torch.remat import remat_module, resolve as resolve_remat
 from tpudist_torch.rng import fold_in
@@ -131,14 +145,43 @@ class TrainState:
     layout: object = None
 
     def _sharded(self) -> dict:
-        """FSDP's DTensor parameters by name."""
-        return {k: p for k, p in self.model.named_parameters()
-                if hasattr(p, "to_local")}
+        """The sharded parameters by name: FSDP's DTensors, and the tensor
+        shards as ``(parameter, mesh, placements, whole shape)``."""
+        out = {k: p for k, p in self.model.named_parameters()
+               if hasattr(p, "to_local")}
+        layout = getattr(self.model, "layout", None)
+        if tp_lib.tensor_size(layout) > 1:
+            from torch.distributed.tensor import Replicate, Shard
+
+            mesh = layout.device_mesh
+            for k, p in self.model.named_parameters():
+                spec = tp_lib.tensor_spec(k)
+                if spec is None:
+                    continue
+                dim = 0 if spec[0] == "vocab" else spec[0]
+                place = [Shard(dim)] if mesh.ndim == 1 else [Replicate(),
+                                                            Shard(dim)]
+                out[k] = (p, mesh, place, tp_lib.full_shape(
+                    k, p.shape, layout.tensor, self.model.vocab_size))
+        return out
 
     def _global(self, name: str, t: torch.Tensor, sharded: dict):
         """``t`` (this rank's shard of parameter ``name``'s leaf, or a
-        state tensor of its shape) as a DTensor placed as the parameter."""
+        state tensor of its shape) as a DTensor placed as the parameter.
+        A tensor shard's DTensor is ``Shard`` of its split dim on the
+        tensor mesh axis (``Replicate`` over data): exact for every leaf
+        but GPT-2's ``qkv.weight``, whose grouped shards it stores in rank
+        order (a checkpoint is bound to its ``tensor_world``)."""
         p = sharded.get(name)
+        if isinstance(p, tuple):
+            p, mesh, place, shape = p
+            if hasattr(t, "to_local") or t.shape != p.shape:
+                return t
+            from torch.distributed.tensor import DTensor
+
+            stride = torch.empty(shape, device="meta").stride()
+            return DTensor.from_local(t, mesh, place, run_check=False,
+                                      shape=shape, stride=stride)
         if p is None or hasattr(t, "to_local") or t.shape != local(p).shape:
             return t
         from torch.distributed.tensor import DTensor
@@ -149,8 +192,8 @@ class TrainState:
 
     def params(self) -> dict[str, torch.Tensor]:
         """The float32 master of every parameter, by name, whole: ZeRO-1's
-        slices and FSDP's shards are gathered (every rank must call it
-        then)."""
+        slices, FSDP's shards and the tensor shards are gathered (every
+        rank must call it then)."""
         opt = inner_state(self.opt_state)
         if hasattr(self.opt_state, "slices"):
             params = self.opt_state.full_masters()
@@ -158,6 +201,11 @@ class TrainState:
             params = opt.master
         else:
             params = dict(self.model.named_parameters())
+        layout = getattr(self.model, "layout", None)
+        if tp_lib.tensor_size(layout) > 1:
+            return tp_lib.gather_state_dict(
+                {k: p.detach() for k, p in params.items()}, layout,
+                self.model.vocab_size)
         sharded = self._sharded()
         out = {}
         for k, p in params.items():
@@ -185,8 +233,9 @@ class TrainState:
         tensor appears once, and a compute copy never (the fused optimizer
         derives it on load). A tensor that differs across ranks is a
         DTensor, so DCP writes one global array for it: FSDP's shards
-        (and the optimizer state of their leaves), ZeRO-1's slices, the
-        residual (``Shard(0)`` of ``[world, n_buckets, bucket_size]``)."""
+        (and the optimizer state of their leaves), the tensor shards
+        (likewise), ZeRO-1's slices, the residual (``Shard(0)`` of
+        ``[world, n_buckets, bucket_size]``)."""
         sharded = self._sharded()
 
         def wrap(x):
@@ -196,7 +245,7 @@ class TrainState:
                         for k, v in x.items()}
             return x
 
-        sd = {"step": self.step, "params": self._own_params(),
+        sd = {"step": self.step, "params": wrap(self._own_params()),
               "buffers": self.batch_stats(),
               "opt": wrap(self.opt_state.state_dict())}
         if self.comm_residual is not None:
@@ -267,6 +316,19 @@ def lm_loss(logits, tokens):
                            ignore_index=-100)
 
 
+def tp_lm_loss(logits, tokens, layout, vocab: int):
+    """:func:`lm_loss` of vocabulary-local logits ``[B, S, V_local]``
+    under a tensor axis (:func:`tpudist_torch.parallel.tp.
+    vocab_parallel_cross_entropy`): the same mean on every tensor rank."""
+    targets = torch.full_like(tokens, -100, dtype=torch.long)
+    targets[:, :-1] = tokens[:, 1:]
+    ce = tp_lib.vocab_parallel_cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), layout,
+        vocab)
+    b, s = tokens.shape
+    return ce.sum() / (b * (s - 1))
+
+
 def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
                        ddp: bool = True, layout=None) -> TrainState:
     """Build the optimizer state from ``model``'s parameters (the fused
@@ -277,10 +339,19 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
     model with FSDP2 first (:func:`tpudist_torch.parallel.fsdp.
     apply_fsdp`; no DDP); ``ddp=False`` (the explicit reducer's path)
     broadcasts the parameters and buffers from rank 0 instead of
-    wrapping."""
+    wrapping. A model on a tensor layout (module docstring) is wrapped in
+    DDP over the layout's data group, or not at all with one data
+    replica, and ``tx`` clips and guards over the tensor group."""
     module = model
     if plan is not None:
         layout = plan.layout
+    tensor = tp_lib.tensor_size(getattr(model, "layout", None))
+    if tensor > 1:
+        from tpudist_torch.parallel.fsdp import _base_optimizer
+
+        layout = model.layout
+        _base_optimizer(tx).shard_over(layout.tensor_group,
+                                       tp_lib.sharded_names(model))
     if plan is not None and plan.wraps_fsdp:
         from tpudist_torch.parallel.fsdp import apply_fsdp
 
@@ -290,11 +361,13 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
             for t in (*model.parameters(), *model.buffers()):
                 dist.broadcast(t, 0)
     opt_state = tx.init(dict(model.named_parameters()))
-    if group_up() and ddp and not (plan is not None and plan.wraps_fsdp):
+    if group_up() and ddp and not (plan is not None and plan.wraps_fsdp) \
+            and not (tensor > 1 and layout.data == 1):
         dev = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
-            broadcast_buffers=False)
+            broadcast_buffers=False,
+            process_group=layout.data_group if tensor > 1 else None)
     return TrainState(0, model, module, opt_state, layout=layout)
 
 
@@ -432,6 +505,22 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         plan.validate_reduce(reduce)
         if layout is None:
             layout = plan.layout
+    tensor = tp_lib.tensor_size(getattr(model, "layout", None))
+    if tensor > 1:
+        from tpudist_torch.parallel.plan import ParallelPlan
+
+        if layout is not None and layout is not model.layout:
+            raise ValueError("a tensor-parallel model trains on its own "
+                             "layout: pass make_train_step(layout=model."
+                             "layout) or none")
+        layout = model.layout
+        # the explicit reducer reduces over data alone: the plan's refusal
+        ParallelPlan(layout).validate_reduce(reduce)
+        if forward_loss is None and (loss_fn is not lm_loss
+                                     or input_key != label_key):
+            raise ValueError("a tensor-parallel step computes the next-token "
+                             "loss of its tokens on the vocabulary-local "
+                             "logits: pass loss_fn=lm_loss")
     reducer = None
     if reduce not in (None, "none"):
         reducer = make_reducer(
@@ -481,8 +570,18 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         for m in model.modules():
             if hasattr(m, "cross_replica"):
                 m.cross_replica = False
-    rank = dist.get_rank() if group_up() else 0
-    if forward_loss is None and seq > 1:
+    # dropout masks keyed by the replica under a tensor axis: its tensor
+    # ranks hold the same activations and must drop the same elements
+    rank = (layout.replica if tensor > 1 else
+            dist.get_rank() if group_up() else 0)
+    if forward_loss is None and tensor > 1:
+        def run_loss(module, batch, index):
+            tokens = batch[input_key].long()
+            kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
+                  if dropout_rate > 0 else {})
+            logits = module(tokens, vocab_local=True, **kw)
+            return tp_lm_loss(logits, tokens, layout, model.vocab_size)
+    elif forward_loss is None and seq > 1:
         def run_loss(module, batch, index):
             tokens = batch[input_key].long()
             local, labels = seq_shard_lm(tokens, layout)
@@ -531,8 +630,14 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         if group_up():
             # FSDP reduced its shards in each backward: the rest here
             sums = {**sums, **average_replicated(
-                {k: t for k, t in sums.items() if not hasattr(t, "to_local")})}
+                {k: t for k, t in sums.items() if not hasattr(t, "to_local")},
+                group=avg_group)}
         return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
+
+    # under a tensor axis gradients are averaged over the data replicas
+    # alone (a shard differs from its tensor peers'); False: one replica
+    avg_group = ((layout.data_group if layout.data > 1 else False)
+                 if tensor > 1 else None)
 
     def backward(loss):
         # DDP averages over data x seq ranks; the chunks' gradients add
@@ -637,15 +742,16 @@ def default_layout():
                       data_group=dist.group.WORLD, device_mesh=mesh)
 
 
-def average_replicated(grads: dict) -> dict:
-    """The mean over every rank of each gradient in ``grads``, in one
-    float32 all-reduce (the leaves DDP does not see: the accumulated sums
-    under ``grad_accum``, the replicated leaves FSDP ignores)."""
-    if not grads or not group_up():
+def average_replicated(grads: dict, group=None) -> dict:
+    """The mean over every rank (of ``group``; ``False``: no other rank)
+    of each gradient in ``grads``, in one float32 all-reduce (the leaves
+    DDP does not see: the accumulated sums under ``grad_accum``, the
+    replicated leaves FSDP ignores)."""
+    if not grads or not group_up() or group is False:
         return grads
     flat = torch.cat([t.reshape(-1).float() for t in grads.values()])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
     parts = flat.split([t.numel() for t in grads.values()])
     return {k: p.view_as(t).to(t.dtype)
             for (k, t), p in zip(grads.items(), parts)}
@@ -701,10 +807,12 @@ _DEFERRED = {
 def run_geometry(train_loader, *, batch_size: int, world_size: int,
                  grad_accum: int, model=None, fsdp_world: int = 1,
                  reduce: str | None = None, shard_opt_state: bool = False,
-                 data_world: int | None = None) -> dict:
+                 data_world: int | None = None,
+                 tensor_world: int = 1) -> dict:
     """The geometry a checkpoint is bound to (``tpudist_meta.json``, the
     reference's keys): the data position of ``state.step`` depends on
-    each of them. ``fsdp_world`` is the plan's (tensor and pipe are 1);
+    each of them. ``fsdp_world`` is the plan's, ``tensor_world`` the
+    layout's (pipe is 1);
     ``reduce`` (the explicit reducer's method) and ``shard_opt_state``
     are recorded only when on, with ``data_world``, the world their
     stored layouts are bound to. A language model's ``geometry`` (its arch
@@ -717,7 +825,8 @@ def run_geometry(train_loader, *, batch_size: int, world_size: int,
             "to an epoch/batch position for exact resume)")
     meta = {"steps_per_epoch": len(train_loader), "batch_size": batch_size,
             "world_size": world_size, "grad_accum": grad_accum,
-            "fsdp_world": int(fsdp_world), "tensor_world": 1, "pipe_world": 1}
+            "fsdp_world": int(fsdp_world), "tensor_world": int(tensor_world),
+            "pipe_world": 1}
     if shard_opt_state:
         meta["shard_opt_state"] = True
     if reduce is not None:
@@ -926,7 +1035,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         grad_accum=grad_accum, model=model,
         fsdp_world=plan.fsdp if plan is not None else 1,
         reduce=reducer.method if reducer is not None else None,
-        shard_opt_state=shard_opt_state, data_world=data_world)
+        shard_opt_state=shard_opt_state, data_world=data_world,
+        tensor_world=tp_lib.tensor_size(getattr(model, "layout", None)))
         if checkpoint_dir is not None else None)
     chaos_inj = make_injector(chaos)
     # ranks agree their stop and time-cadence saves through the step's
@@ -1138,6 +1248,8 @@ def evaluate_lm(state: TrainState, loader, *, input_key: str = "tokens",
     model = state.model
     model.eval()
     device = next(model.parameters()).device
+    layout = getattr(model, "layout", None)
+    tensor = tp_lib.tensor_size(layout)
     sums = torch.zeros(2, dtype=torch.float64, device=device)
     for batch in prefetch_to_device(iter(loader), device):
         tokens = batch[input_key].long()
@@ -1147,7 +1259,13 @@ def evaluate_lm(state: TrainState, loader, *, input_key: str = "tokens",
             hidden = model(inputs, return_hidden=True)
             ce = chunked_ce_sum(lm_head_weight(model), hidden[:, :-1],
                                 tokens[:, 1:],
-                                torch.ones((b, s - 1), device=device), chunk)
+                                torch.ones((b, s - 1), device=device), chunk,
+                                model=model)
+        elif tensor > 1:
+            # the tensor ranks score the same rows: every sum is counted
+            # tensor times, the ratio not
+            ce = tp_lm_loss(model(inputs, vocab_local=True), tokens, layout,
+                            model.vocab_size) * (b * (s - 1))
         else:
             logits = model(inputs)[:, :-1]
             ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),

@@ -32,8 +32,8 @@ of every row. ``--chunked_ce N`` runs the MLM head over sequence chunks
 (or the training stream in order), corrupted with ``seed + 10000``;
 ``--init_hf DIR`` starts from a local HF ``BertForMaskedLM`` checkpoint.
 The reference's refusals are kept; ``--tensor`` > 1 raises
-``NotImplementedError`` naming ROADMAP Queue 1 #7b (tensor
-parallelism). The reference has no
+``NotImplementedError`` naming ROADMAP Queue 1 #7b's remainder
+(the LMs' tensor layers are ported). The reference has no
 ``--fused`` here: the fused LayerNorm and AdamW kernels are reached through
 the model API (``fit(..., fused="all")`` with ``make_optimizer(fused=True)``).
 """
@@ -109,8 +109,8 @@ def check_args(args) -> tuple[int, int]:
     model_vocab)``."""
     if args.tensor != 1:
         raise NotImplementedError(
-            "--tensor is not ported yet (ROADMAP Queue 1 #7b, tensor "
-            "parallelism)")
+            "--tensor is not ported yet for BERT (ROADMAP Queue 1 #7b "
+            "(remainder); the LMs' tensor layers are ported)")
     if args.cp > 1 and args.attn not in CP_ATTN:
         raise SystemExit("--cp needs a sequence-parallel attention: "
                          "--attn ring|ulysses|ulysses_flash")

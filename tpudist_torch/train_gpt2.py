@@ -76,6 +76,18 @@ GSPMD does; ``--generate`` with a
 context-parallel attention, and ``--eval`` or ``--generate`` with ``--cp >
 1``, exit before training, as in the reference.
 
+Tensor parallelism, the reference's ``--tensor N``
+(:mod:`tpudist_torch.parallel.tp`): the world is laid out ``data x
+tensor`` (``N`` must divide it), each rank holds ``num_heads / N`` heads
+and its column or row shard of every projection, ``1 / N`` of the
+vocabulary; the ``N`` ranks of a data replica read the same windows, and
+the loss (full or ``--chunked_ce``) is the vocabulary-parallel CE. The
+attention kernels, ``--fused`` and ``--amp`` run on each rank's shards;
+``--generate`` decodes sharded with the logits gathered, ``--init_hf``
+loads the whole checkpoint and keeps each rank's shards. ``--tensor``
+with ``--fsdp``, ``--cp > 1`` or ``--shard_opt_state`` raises
+``NotImplementedError`` naming the rest of ROADMAP Queue 1 #7b.
+
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps and at the
 end and resumes from the newest loadable step unless ``--no_resume``;
 SIGTERM gives a checkpoint at the last completed step and exit 75, and
@@ -192,10 +204,9 @@ def parse_args(argv=None):
 
 
 #: flags of the reference this port does not run yet -> the ROADMAP item
-_TP, _PP, _EP = ("Queue 1 #7b (tensor parallelism)",
-                  "Queue 1 #7c (the pipeline)", "Queue 1 #7d (experts)")
+_PP, _EP = "Queue 1 #7c (the pipeline)", "Queue 1 #7d (experts)"
 _UNPORTED = {
-    "tensor": _TP, "pipe": _PP, "num_micro": _PP, "pipe_schedule": _PP,
+    "pipe": _PP, "num_micro": _PP, "pipe_schedule": _PP,
     "experts": _EP, "expert_axis": _EP, "moe_every": _EP, "moe_top_k": _EP,
     "capacity_factor": _EP, "moe_dispatch": _EP, "router_z_loss": _EP,
     "router_jitter": _EP,
@@ -213,6 +224,15 @@ def check_ported(parser, args) -> None:
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
+    if args.tensor > 1:
+        from tpudist_torch.mesh import TENSOR_REMAINDER
+
+        for flag, on in (("--fsdp", args.fsdp > 1), ("--cp", args.cp > 1),
+                         ("--shard_opt_state", args.shard_opt_state)):
+            if on:
+                raise NotImplementedError(
+                    f"--tensor {args.tensor} with {flag} is not ported yet "
+                    f"(ROADMAP {TENSOR_REMAINDER})")
 
 
 def resolve_attn(attn: str, seq_len: int, device) -> str:
@@ -314,13 +334,14 @@ def main(argv=None):
     from tpudist_torch.mesh import MeshConfig, create_layout
     from tpudist_torch.models.lm_utils import chunked_lm_forward
     from tpudist_torch.optim import make_optimizer, run_schedule
+    from tpudist_torch.parallel.tp import shard_state_dict
     from tpudist_torch.train import evaluate_lm, fit, lm_loss
 
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
-        # data x fsdp x seq; --batch_size, the sampler and the TSV count
-        # the data x fsdp replicas
+        # data x fsdp x seq x tensor; --batch_size, the sampler and the TSV
+        # count the data x fsdp replicas
         plan = None
         if args.fsdp > 1:
             from tpudist_torch.parallel.plan import ParallelPlan
@@ -328,7 +349,8 @@ def main(argv=None):
             plan = ParallelPlan.build(data=-1, fsdp=args.fsdp)
             layout = plan.layout
         else:
-            layout = create_layout(MeshConfig(data=-1, seq=args.cp))
+            layout = create_layout(MeshConfig(data=-1, seq=args.cp,
+                                              tensor=args.tensor))
         attn = resolve_attn(args.attn, args.seq_len, ctx.device)
         dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
         model = build_model(args, dtype, attn, ctx.device, layout)
@@ -343,7 +365,8 @@ def main(argv=None):
                         f"fewer than --seq_len {args.seq_len}")
                 # the reference's model reads wpe[:seq_len] of a longer table
                 sd["wpe"] = sd["wpe"][:args.seq_len]
-            model.load_state_dict(sd)
+            # loaded whole; under --tensor each rank keeps its shards
+            model.load_state_dict(shard_state_dict(sd, layout))
         # --batch_size is per data replica; each loader batch holds
         # grad_accum microbatches of it, the same windows on the replica's
         # seq ranks

@@ -28,7 +28,7 @@ is bf16 plus the non-finite update guard.
 ``--generate`` denoises one window greedily with
 :func:`tpudist_torch.generate.generate_seq2seq` and prints the generated
 span tokens beside the true ones. ``--tensor`` > 1 raises
-``NotImplementedError`` naming ROADMAP Queue 1 #7b (tensor parallelism).
+``NotImplementedError`` naming ROADMAP Queue 1 #7b's remainder.
 """
 
 from __future__ import annotations
@@ -124,8 +124,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.tensor != 1:
         raise NotImplementedError(
-            "--tensor is not ported yet (ROADMAP Queue 1 #7b, tensor "
-            "parallelism)")
+            "--tensor is not ported yet for T5 (ROADMAP Queue 1 #7b "
+            "(remainder); the LMs' tensor layers are ported)")
     os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
 
     import numpy as np
