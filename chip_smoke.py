@@ -251,7 +251,9 @@ Phases, each fatal on failure:
     resumed losses must equal the uninterrupted run's steps 9..16 and
     every tensor of the two runs' step-16 checkpoints (masters, moments,
     BN buffers) must be bit-identical; each life launches fused AdamW
-    and its finite check once a step, covering all 161 leaves;
+    and its finite check once a step, covering all 161 leaves (the four
+    launched runs of phases 31 and 32 start together, beside phases
+    60-65's two-rank world, and are checked after it);
 32. recovery, GPT-2 — the same with ``tpudist_torch.train_gpt2``, GPT-2
     124M at S 1024, batch 8, --bf16 --fused all --amp --attn auto, 16
     steps on phase 14's text, --checkpoint_every 6: uninterrupted, and
@@ -500,9 +502,47 @@ Phases, each fatal on failure:
     the same text under phase 15's bars (the gathered parameters; the
     qkv key slice to its step bound); then llama_125m (GQA 12 / 4: 6 / 2
     heads a rank) and the long-context leg (S 4096, batch 2,
-    ``--chunked_ce 256``: flash 12 + 12 a step) in bf16, 4 steps each.
+    ``--chunked_ce 256``: flash 12 + 12 a step) in bf16, 4 steps each;
+62. tensor-parallel shard parity at BERT-base's attention (B 32, S 512,
+    12 heads of 64, non-causal, bf16), in this process: each rank's 6
+    heads through vmem and flash, forward and backward, bit-identical to
+    those heads of the call over all 12; each rank's and the whole call's
+    CUDA-event ms;
+63. phase 60's world, BERT-base (model vocab 30523, S 512, batch 16, 4
+    steps; its tied MLM head 15262 / 15261 rows a rank):
+    ``train_bert --tensor 2 --attn flash --chunked_ce 128 --eval`` in
+    bf16 and in f32 (a rank's launches a step: flash 12 + 12 on its 6
+    heads, and 12 forward a batch of ``--eval``; the CLI has no fused
+    LN or AdamW, as the reference's has none), both ranks' losses and
+    ``--eval`` equal, the f32 run against the one-rank run from the same
+    seed under phase 15's bars; then the model API, ``Bert(attn_impl=
+    'vmem', layout=)`` through ``fit(fused='all')`` with the bf16 compute
+    copy: LN 25 / 25 + 25 at eps 1e-12, vmem 12 + 12 and one fused AdamW
+    over the rank's 154 leaves a step;
+64. the same world, ViT-B/16 at phase 22's 32x32 (65 tokens, 100
+    classes) on ``ViT(mesh=MeshConfig(tensor=2))`` through
+    ``fit(fused='all')``, 4 steps of 128 images, bf16 copy and f32: LN 25
+    / 25 + 25 at eps 1e-6 on whole rows and one AdamW over 152 leaves a
+    step a rank, a rank's ``qkv.weight`` its [1152, 768] shard; the f32
+    run against one rank's under phase 23's bars;
+65. the same world, ``train_t5 --tensor 2`` at its defaults (t5-v1.1-
+    small, 3 of its 6 heads of 85 a rank, S 512, batch 16, 4 steps): no
+    counted kernel (phase 44); bf16 losses fall; in f32 with ``--eval
+    --generate`` both ranks' losses and ``--eval`` equal and rank 0 alone
+    prints, and an unsharded t5-small holding the gathered weights gives
+    the two-rank run's greedy tokens, and its ``--eval`` within
+    ``T5_F32_BAR``; the witness: t5-small from the CLI's init, forward
+    and backward on the CLI's first batch at two ranks and at one, in
+    float32 and in float64 (attention, norms, logits and loss in
+    float64): the float64 loss and gathered gradients held to one rank's
+    under ``T5_F64_LOSS_BAR`` / ``T5_F64_GRAD_BAR``, the two-rank float32
+    loss to the float64 one within ``T5_F32_BAR``, and each float32 run's
+    distance from float64 printed; then the 4-step f32 trajectories
+    against the one-rank run's (they part: float32's own gradients are
+    far from float64's), the parameters within ``T5_PARAM_BAR``, Adam's
+    step bound.
 
-Phases 22-29 and 31-61 print their seconds.
+Phases 22-29 and 31-65 print their seconds.
 """
 
 from __future__ import annotations
@@ -820,7 +860,6 @@ def main() -> int:
     amp_phase(smi, dev)
     device_cache_phases(smi, dev)
     lm_flag_phases(smi, dev)
-    recovery_phases(smi)
     checkpoint_costs(smi)
     kernels.extend(llama_phases(smi, dev))
     cp_attention_phase(smi, dev)
@@ -3033,30 +3072,53 @@ def recovery_child(argv) -> int:
     return 0
 
 
-def launched(cli: str, args, out: Path, launcher=()) -> tuple[str, list]:
-    """Run ``tpudist_torch.<cli>`` with ``args`` under ``python -m
+def start_launch(cli: str, args, out: Path, launcher=(), port=None) -> dict:
+    """Start ``tpudist_torch.<cli>`` with ``args`` under ``python -m
     tpudist_torch.launch --nproc_per_node 1 [launcher]`` through
-    :func:`recovery_child`; fail unless the launcher exits 0 within 600 s.
-    Returns its stdout + stderr and each life's record, generation
-    order."""
+    :func:`recovery_child` on master port ``port``, its stdout and stderr
+    to ``out/launcher.log``; :func:`finish_launch` waits for it."""
     out.mkdir()
     cmd = [sys.executable, "-m", "tpudist_torch.launch", "--nproc_per_node",
-           "1", "--master_port", str(free_port()), *launcher,
+           "1", "--master_port", str(port or free_port()), *launcher,
            str(HERE / "chip_smoke.py"), RECOVERY_CHILD, cli, str(out), *args]
-    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    with open(out / "launcher.log", "w") as log:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+    return dict(proc=proc, out=out, what=f"{cli} {' '.join(launcher)}")
+
+
+def finish_launch(run: dict, timeout: float = 600) -> tuple[str, list]:
+    """Fail unless the launcher :func:`start_launch` started exits 0
+    within ``timeout`` s. Returns its stdout + stderr and each life's
+    record, generation order."""
+    proc, out = run["proc"], run["out"]
     try:
-        text, _ = proc.communicate(timeout=600)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.terminate()  # the launcher forwards it and reaps its world
-        text, _ = proc.communicate()
-        fail(f"{cli} {' '.join(launcher)}: launcher timed out:\n{text[-4000:]}")
+        proc.wait()
+        text = (out / "launcher.log").read_text()
+        fail(f"{run['what']}: launcher timed out:\n{text[-4000:]}")
+    text = (out / "launcher.log").read_text()
     if proc.returncode != 0:
-        fail(f"{cli} {' '.join(launcher)}: launcher exited "
-             f"{proc.returncode}:\n{text[-4000:]}")
+        fail(f"{run['what']}: launcher exited {proc.returncode}:\n"
+             f"{text[-4000:]}")
     lives = [json.loads((out / f"life{g}.json").read_text())
              for g in range(len(list(out.glob("life*.json"))))]
     return text, lives
+
+
+def stop_launches(runs: dict) -> None:
+    """Terminate every launcher of ``runs`` still running (a phase that
+    failed while they ran), and reap it."""
+    for run in runs.values():
+        if run["proc"].poll() is None:
+            run["proc"].terminate()
+            try:
+                run["proc"].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                run["proc"].kill()
+                run["proc"].wait()
 
 
 def same_checkpoints(a: Path, b: Path, step: int) -> int:
@@ -3094,81 +3156,97 @@ def check_lives(what: str, lives: list, want_steps, per_step: dict) -> None:
         for life, steps in zip(lives, want_steps)))
 
 
-def recovery_phases(smi: str) -> None:
-    """Phases 31 and 32 (module docstring)."""
+def _recovery_args(tmp: Path) -> dict:
+    """Phases 31 and 32's runs by name: ``(cli, its flags, the
+    launcher's flags)``, the run's checkpoint directory to be added."""
     from tpudist_torch.ops import lm_kernels_bench as LB
 
-    adamw = {"fused_adamw": 1, "fused_adamw_check": 1}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        print("== 31. recovery: ResNet-50 bf16 --fused optimizer --amp "
-              "through tpudist_torch.launch, --chaos corrupt@12")
-        t0 = time.perf_counter()
-        args = ["--model", "resnet50", "--dataset", "synthetic",
-                "--synthetic_size", "2048", "--batch_size", "128", "--epochs",
-                "1", "--bf16", "--fused", "optimizer", "--amp",
-                "--no_profiler", "--checkpoint_every", "4", "--log_dir",
-                str(tmp)]
-        _, base = launched("main", [*args, "--checkpoint_dir",
-                                    str(tmp / "r_full")], tmp / "r_full_out")
-        text, lives = launched(
-            "main", [*args, "--checkpoint_dir", str(tmp / "r_drill"),
-                     "--chaos", "corrupt@12"], tmp / "r_drill_out",
-            launcher=["--max_restarts", "1", "--backoff_base", "0"])
-        fallback = [ln for ln in text.splitlines()
-                    if ln.startswith("checkpoint_fallback: ")]
-        if (len(lives) != 2 or lives[0]["code"] is not None
-                or lives[1]["code"] != 0 or len(fallback) != 1
-                or '"failed_step": 12' not in fallback[0]
-                or '"next_step": 8' not in fallback[0]
-                or not (tmp / "r_drill" / "_failed" / "12").is_dir()):
-            fail(f"corrupt@12: lives {[(l['generation'], l['code']) for l in lives]}"
-                 f", fallback lines {fallback}")
-        print(f"  generation 0 crashed after truncating step 12; generation 1: "
-              f"{fallback[0][:160]}...")
-        resumed_at(lives[1], base[0], 8, "ResNet-50")
-        check_lives("launches", [base[0], *lives], (16, 12, 8),
-                    {**adamw, "fused_adamw_leaves": 161})
-        n = same_checkpoints(tmp / "r_full", tmp / "r_drill", 16)
-        print(f"  step-16 checkpoints bit-identical: {n} tensors  "
-              f"[{time.perf_counter() - t0:.1f} s]")
+    tokens = LB.token_file(tmp / "text.bin", 16 * 8 * 1024)
+    resnet = ["--model", "resnet50", "--dataset", "synthetic",
+              "--synthetic_size", "2048", "--batch_size", "128", "--epochs",
+              "1", "--bf16", "--fused", "optimizer", "--amp",
+              "--no_profiler", "--checkpoint_every", "4", "--log_dir",
+              str(tmp)]
+    gpt2 = ["--bf16", "--fused", "all", "--amp", "--attn", "auto",
+            "--batch_size", "8", "--seq_len", "1024", "--tokens",
+            str(tokens), "--no_profiler", "--checkpoint_every", "6",
+            "--log_dir", str(tmp)]
+    return {"r_full": ("main", resnet, ()),
+            "r_drill": ("main", [*resnet, "--chaos", "corrupt@12"],
+                        ("--max_restarts", "1", "--backoff_base", "0")),
+            "g_full": ("train_gpt2", gpt2, ()),
+            "g_drill": ("train_gpt2", [*gpt2, "--chaos", "sigterm@8"], ())}
 
-        print("== 32. recovery: GPT-2 124M S 1024 bf16 --fused all --amp "
-              "through tpudist_torch.launch, --chaos sigterm@8")
-        t0 = time.perf_counter()
-        tokens = LB.token_file(tmp / "text.bin", 16 * 8 * 1024)
-        args = ["--bf16", "--fused", "all", "--amp", "--attn", "auto",
-                "--batch_size", "8", "--seq_len", "1024", "--tokens",
-                str(tokens), "--no_profiler", "--checkpoint_every", "6",
-                "--log_dir", str(tmp)]
-        _, base = launched("train_gpt2", [*args, "--checkpoint_dir",
-                                          str(tmp / "g_full")],
-                           tmp / "g_full_out")
-        text, lives = launched(
-            "train_gpt2", [*args, "--checkpoint_dir", str(tmp / "g_drill"),
-                           "--chaos", "sigterm@8"], tmp / "g_drill_out")
-        if (len(lives) != 2 or lives[0]["code"] != 75 or lives[0]["step"] != 8
-                or lives[1]["code"] != 0
-                or "exited rc=75 (restartable); restarting generation 1"
-                not in text):
-            fail(f"sigterm@8: lives {[(l['generation'], l['code']) for l in lives]}"
-                 f"\n{text[-3000:]}")
-        if lives[0]["losses"] != base[0]["losses"][:8]:
-            fail(f"the preempted life's losses {lives[0]['losses']} are not "
-                 f"the uninterrupted run's first 8 {base[0]['losses'][:8]}")
-        print("  generation 0 exited 75 after its emergency checkpoint at "
-              "step 8; generation 1 resumed")
-        resumed_at(lives[1], base[0], 8, "GPT-2 124M")
-        depth = 12
-        check_lives("launches", [base[0], *lives], (16, 8, 8), {
-            **adamw, "fused_adamw_leaves": 148,
-            "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
-            "layernorm_bwd_reduce": 2 * depth + 1,
-            "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0})
-        n = same_checkpoints(tmp / "g_full", tmp / "g_drill", 16)
-        print(f"  step-16 checkpoints bit-identical: {n} tensors  "
-              f"[{time.perf_counter() - t0:.1f} s]  [{smi}]")
+
+def start_recovery(tmp: Path) -> dict:
+    """Phases 31 and 32's four launched runs, started together (each on
+    a master port of its own): ResNet-50's and GPT-2's uninterrupted runs
+    and drills, checkpoints under ``tmp``."""
+    runs, ports = {}, set()
+    for name, (cli, args, launcher) in _recovery_args(tmp).items():
+        port = free_port()
+        while port in ports:
+            port = free_port()
+        ports.add(port)
+        runs[name] = start_launch(
+            cli, [*args, "--checkpoint_dir", str(tmp / name)],
+            tmp / f"{name}_out", launcher, port)
+    return runs
+
+
+def recovery_phases(smi: str, tmp: Path, runs: dict) -> None:
+    """Phases 31 and 32 (module docstring) on the runs
+    :func:`start_recovery` started."""
+    adamw = {"fused_adamw": 1, "fused_adamw_check": 1}
+    t0 = time.perf_counter()
+    print("== 31. recovery: ResNet-50 bf16 --fused optimizer --amp "
+          "through tpudist_torch.launch, --chaos corrupt@12")
+    _, base = finish_launch(runs["r_full"])
+    text, lives = finish_launch(runs["r_drill"])
+    fallback = [ln for ln in text.splitlines()
+                if ln.startswith("checkpoint_fallback: ")]
+    if (len(lives) != 2 or lives[0]["code"] is not None
+            or lives[1]["code"] != 0 or len(fallback) != 1
+            or '"failed_step": 12' not in fallback[0]
+            or '"next_step": 8' not in fallback[0]
+            or not (tmp / "r_drill" / "_failed" / "12").is_dir()):
+        fail(f"corrupt@12: lives {[(l['generation'], l['code']) for l in lives]}"
+             f", fallback lines {fallback}")
+    print(f"  generation 0 crashed after truncating step 12; generation 1: "
+          f"{fallback[0][:160]}...")
+    resumed_at(lives[1], base[0], 8, "ResNet-50")
+    check_lives("launches", [base[0], *lives], (16, 12, 8),
+                {**adamw, "fused_adamw_leaves": 161})
+    n = same_checkpoints(tmp / "r_full", tmp / "r_drill", 16)
+    print(f"  step-16 checkpoints bit-identical: {n} tensors")
+
+    print("== 32. recovery: GPT-2 124M S 1024 bf16 --fused all --amp "
+          "through tpudist_torch.launch, --chaos sigterm@8")
+    _, base = finish_launch(runs["g_full"])
+    text, lives = finish_launch(runs["g_drill"])
+    if (len(lives) != 2 or lives[0]["code"] != 75 or lives[0]["step"] != 8
+            or lives[1]["code"] != 0
+            or "exited rc=75 (restartable); restarting generation 1"
+            not in text):
+        fail(f"sigterm@8: lives {[(l['generation'], l['code']) for l in lives]}"
+             f"\n{text[-3000:]}")
+    if lives[0]["losses"] != base[0]["losses"][:8]:
+        fail(f"the preempted life's losses {lives[0]['losses']} are not "
+             f"the uninterrupted run's first 8 {base[0]['losses'][:8]}")
+    print("  generation 0 exited 75 after its emergency checkpoint at "
+          "step 8; generation 1 resumed")
+    resumed_at(lives[1], base[0], 8, "GPT-2 124M")
+    depth = 12
+    check_lives("launches", [base[0], *lives], (16, 8, 8), {
+        **adamw, "fused_adamw_leaves": 148,
+        "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+        "layernorm_bwd_reduce": 2 * depth + 1,
+        "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0})
+    n = same_checkpoints(tmp / "g_full", tmp / "g_drill", 16)
+    print(f"  step-16 checkpoints bit-identical: {n} tensors  [phases 31-32: "
+          f"{time.perf_counter() - t0:.1f} s of checks after the two-rank "
+          f"world, beside which their four runs ran]  [{smi}]")
 
 
 def resumed_at(life: dict, base: dict, k: int, what: str) -> None:
@@ -4441,16 +4519,30 @@ TENSOR_CHILD = "--tensor_child"
 
 
 def tensor_phases(smi: str, dev) -> None:
-    """Phases 59-61 (module docstring)."""
+    """Phases 59-65 (module docstring)."""
     tensor_shard_phase(smi, dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ranks = tensor_world(Path(tmp))
-        world_s = time.perf_counter() - t0
+    encoder_shard_phase(smi, dev)
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as rtmp:
+        # phases 31-32's launched runs check only bits and launches: they
+        # run beside the two-rank world, whose timings are checks too
+        runs = start_recovery(Path(rtmp))
+        try:
+            t0 = time.perf_counter()
+            ranks = tensor_world(Path(tmp))
+            world_s = time.perf_counter() - t0
+            recovery_phases(smi, Path(rtmp), runs)
+        finally:
+            stop_launches(runs)
+        print(f"  phases 31-32 and the two-rank world: "
+              f"{time.perf_counter() - t0:.1f} s together")
         tensor_serving_phase(smi, Path(tmp), ranks)
         tensor_training_phase(smi, Path(tmp), ranks)
-    print(f"  phases 60-61: the two-rank world {world_s:.1f} s (its start, "
-          "its runs and their writes) before the two phases' checks")
+        tensor_bert_phase(smi, Path(tmp), ranks)
+        tensor_vit_phase(smi, Path(tmp), ranks)
+        tensor_t5_phase(smi, Path(tmp), ranks)
+    print(f"  phases 60-61 and 63-65: the two-rank world {world_s:.1f} s (its "
+          "start, its runs and their writes) before the phases' checks")
 
 
 def _shard_cases(dev, h: int, hkv: int, dh: int, seq=TP_SEQ):
@@ -4539,49 +4631,61 @@ def tensor_shard_phase(smi: str, dev, shapes=TP_SHAPES, seq=TP_SEQ) -> None:
     rehearsal)."""
     import torch
 
-    from tpudist_torch.ops import decode_bench as DB
-
     t0 = time.perf_counter()
     print("== 59. tensor-parallel shard parity: each rank's heads through "
           "the kernels, against the same heads of the call over all of them "
           "(bf16)")
-    decode = ("fused_decode_attention", "paged_decode_attention")
     for name, h, hkv, dh, worlds in shapes:
         cases, every = _shard_cases(dev, h, hkv, dh, seq)
-        for kname, prep, run, slicer in cases:
-            args = prep(*every)
-            whole = run(*args)
-            whole_ms = event_ms(lambda: run(*args), reps=25)
-            for t in worlds:
-                same, times = [], []
-                for r in range(t):
-                    hs = slice(r * h // t, (r + 1) * h // t)
-                    # flash takes its K/V repeated: a rank's are its heads'
-                    ks = (hs if kname.startswith("flash")
-                          else slice(r * hkv // t, (r + 1) * hkv // t))
-                    shard = prep(hs, ks)
-                    got = run(*shard)
-                    want = slicer(whole, hs, ks)
-                    same.append(all(torch.equal(a, w)
-                                    for a, w in zip(got, want)))
-                    if kname in decode:
-                        check(f"{name} T {t} rank {r} {kname}", got[0],
-                              want[0].contiguous(), elem=True,
-                              share_bar=DB.SHARE_BAR)
-                    times.append(event_ms(lambda: run(*shard), reps=25))
-                print(f"  {name} T {t} {kname} ({h // t} / "
-                      f"{(h if kname.startswith('flash') else hkv) // t} "
-                      f"heads a rank): bit-identical {same}; ms a rank "
-                      f"{[round(x, 4) for x in times]}, all heads "
-                      f"{whole_ms:.4f} (25-call CUDA-event medians)  [{smi}]")
-                if kname not in decode and not all(same):
-                    fail(f"{name} T {t} {kname}: a shard differs from its "
-                         "heads of the whole call")
+        shard_parity(smi, name, cases, every, h, hkv, worlds)
         del cases
         torch.cuda.empty_cache()
     if FAILURES:
         fail(f"shard parity: {FAILURES}")
     print(f"  phase 59: {time.perf_counter() - t0:.1f} s")
+
+
+def shard_parity(smi: str, name: str, cases, every, h: int, hkv: int,
+                 worlds) -> None:
+    """Phases 59 and 62: each of ``cases`` (:func:`_shard_cases`) on every
+    rank's head slice at each tensor world against the same heads of the
+    call over all of them (the attention kernels bit for bit, the decode
+    kernels under phase 2's bars), each rank's and the whole call's
+    CUDA-event ms."""
+    import torch
+
+    from tpudist_torch.ops import decode_bench as DB
+
+    decode = ("fused_decode_attention", "paged_decode_attention")
+    for kname, prep, run, slicer in cases:
+        args = prep(*every)
+        whole = run(*args)
+        whole_ms = event_ms(lambda: run(*args), reps=25)
+        for t in worlds:
+            same, times = [], []
+            for r in range(t):
+                hs = slice(r * h // t, (r + 1) * h // t)
+                # flash takes its K/V repeated: a rank's are its heads'
+                ks = (hs if kname.startswith("flash")
+                      else slice(r * hkv // t, (r + 1) * hkv // t))
+                shard = prep(hs, ks)
+                got = run(*shard)
+                want = slicer(whole, hs, ks)
+                same.append(all(torch.equal(a, w)
+                                for a, w in zip(got, want)))
+                if kname in decode:
+                    check(f"{name} T {t} rank {r} {kname}", got[0],
+                          want[0].contiguous(), elem=True,
+                          share_bar=DB.SHARE_BAR)
+                times.append(event_ms(lambda: run(*shard), reps=25))
+            print(f"  {name} T {t} {kname} ({h // t} / "
+                  f"{(h if kname.startswith('flash') else hkv) // t} "
+                  f"heads a rank): bit-identical {same}; ms a rank "
+                  f"{[round(x, 4) for x in times]}, all heads "
+                  f"{whole_ms:.4f} (25-call CUDA-event medians)  [{smi}]")
+            if kname not in decode and not all(same):
+                fail(f"{name} T {t} {kname}: a shard differs from its "
+                     "heads of the whole call")
 
 
 def _tp_legs(tmp: Path) -> list[dict]:
@@ -4614,7 +4718,214 @@ def _tp_legs(tmp: Path) -> list[dict]:
              argv=[*train, "--seq_len", "4096", "--batch_size", "2",
                    "--bf16", "--attn", "auto", "--chunked_ce", "256",
                    "--JobID", "TPS"]),
+        *_encoder_legs(tmp),
     ]
+
+
+#: phases 63-65's text: the two-rank world's 32768 tokens in windows of
+#: 512, 16 a step: 4 steps of BERT-base, ViT-B/16's 4 batches of 128
+#: images and t5-small's 4 steps at its CLI's batch
+ENC_BATCH, ENC_SEQ = 16, 512
+
+
+def _encoder_legs(tmp: Path) -> list[dict]:
+    """Phases 63-65's runs in the two-rank world (after phase 61's):
+    BERT-base through ``train_bert`` (flash, bf16 and f32) and the model
+    API (vmem, ``fit(fused='all')``), ViT-B/16 through ``ViT(layout=)``
+    and ``fit(fused='all')`` (bf16 and f32), t5-small through
+    ``train_t5`` (bf16, and f32 with ``--eval --generate``), and phase
+    65's float32 / float64 witness on the CLI's first batch."""
+    text = str(tmp / "text.bin")
+    common = ["--tokens", text, "--log_dir", str(tmp), "--no_profiler",
+              "--seq_len", str(ENC_SEQ), "--batch_size", str(ENC_BATCH),
+              "--warmup_steps", "2"]
+    bert = [*common, "--vocab_size", "30522", "--chunked_ce", "128",
+            "--attn", "flash", "--eval"]
+    return [
+        dict(name="bert_flash", cli="train_bert",
+             argv=[*bert, "--bf16", "--JobID", "TPB16"]),
+        dict(name="bert_f32", cli="train_bert", gather=True,
+             argv=[*bert, "--JobID", "TPB32"]),
+        dict(name="bert_vmem", cli="bert_api",
+             argv=["--tokens", text, "--log_dir", str(tmp), "--bf16"]),
+        dict(name="vit_bf16", cli="vit_api",
+             argv=["--log_dir", str(tmp), "--bf16"]),
+        dict(name="vit_f32", cli="vit_api", gather=True,
+             argv=["--log_dir", str(tmp)]),
+        dict(name="t5_bf16", cli="train_t5",
+             argv=[*common, "--bf16", "--JobID", "TPT16"]),
+        dict(name="t5_f32", cli="train_t5", gather=True,
+             argv=[*common, "--eval", "--generate", "--JobID", "TPT32"]),
+        dict(name="t5_witness", cli="t5_witness",
+             argv=["--tokens", text, "--log_dir", str(tmp)]),
+    ]
+
+
+def _api_args(argv):
+    import argparse
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--tensor", default=1, type=int)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--tokens", default=None)
+    p.add_argument("--log_dir", default=".")
+    return p.parse_args(argv)
+
+
+def bert_api_main(argv):
+    """Phase 63's model-API leg, ``(state, losses)``: BERT-base
+    (``Bert(attn_impl='vmem', layout=)`` over ``data x tensor``) through
+    ``fit(fused='all')`` with ``make_optimizer(fused=True)`` (its compute
+    copy bf16 under ``--bf16``) and ``mlm_forward(chunk=128)``, batch 16
+    x S 512 of ``--tokens``, 4 steps, as phase 42's model-API run."""
+    import torch
+
+    from tpudist_torch.data.lm import TokenWindowLoader
+    from tpudist_torch.mesh import MeshConfig, create_layout
+    from tpudist_torch.models.bert import Bert, mlm_forward, mlm_transform
+    from tpudist_torch.optim import make_optimizer, run_schedule
+    from tpudist_torch.train import fit
+
+    args = _api_args(argv)
+    layout = create_layout(MeshConfig(data=-1, tensor=args.tensor))
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model = Bert(vocab_size=30523, max_seq_len=ENC_SEQ, dtype=dtype,
+                 attn_impl="vmem", layout=layout, device="cuda", seed=SEED)
+    loader = TokenWindowLoader(
+        args.tokens, ENC_BATCH, ENC_SEQ, vocab_size=30522,
+        num_replicas=layout.data, rank=layout.data_idx,
+        transform=mlm_transform(30523, 30522, seed=SEED))
+    tx = make_optimizer(run_schedule(1e-4, total_steps=4, warmup_steps=0),
+                        fused=True,
+                        compute_dtype=dtype if args.bf16 else None)
+    return fit(model, tx, loader, epochs=1, job_id="TPBAPI",
+               input_key="tokens", label_key="targets", fused="all",
+               forward_loss=mlm_forward(model, chunk=128), profile=False,
+               log_dir=args.log_dir)
+
+
+def vit_api_main(argv):
+    """Phase 64's leg, ``(state, losses)``: ViT-B/16 at phase 22's shape
+    (4-pixel patches on 32x32, 65 tokens, 100 classes) built on the
+    reference's keyword ``mesh=`` (a ``MeshConfig(data=-1, tensor=T)``)
+    through ``fit(fused='all')`` with ``make_optimizer(1e-3, fused=True)``
+    (its compute copy bf16 under ``--bf16``), 4 steps of 128 synthetic
+    images, the same batches at any world."""
+    import torch
+
+    from tpudist_torch.data.cifar import synthetic_cifar, to_tensor
+    from tpudist_torch.data.loader import DataLoader
+    from tpudist_torch.data.sampler import DistributedSampler
+    from tpudist_torch.mesh import MeshConfig
+    from tpudist_torch.models.vit import ViT
+    from tpudist_torch.optim import make_optimizer
+    from tpudist_torch.train import fit
+
+    args = _api_args(argv)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model = ViT(num_classes=100, patch_size=4, image_size=32, dtype=dtype,
+                mesh=MeshConfig(data=-1, tensor=args.tensor), device="cuda",
+                seed=SEED)
+    rows = 128
+    layout = model.layout
+    loader = DataLoader(
+        synthetic_cifar(4 * rows * layout.data, num_classes=100), rows,
+        transform=to_tensor, sampler=DistributedSampler(
+            4 * rows * layout.data, num_replicas=layout.data,
+            rank=layout.data_idx))
+    tx = make_optimizer(1e-3, fused=True,
+                        compute_dtype=dtype if args.bf16 else None)
+    return fit(model, tx, loader, epochs=1, job_id="TPVIT", fused="all",
+               profile=False, log_dir=args.log_dir)
+
+
+def t5_witness_main(argv):
+    """Phase 65's witness, ``{dtype: loss}``: t5-small at ``train_t5``'s
+    defaults from its init (seed 0) on its first batch (``--tokens``,
+    windows of 512 corrupted as the CLI corrupts them, 16 a replica), one
+    forward and backward in float32 and in float64 (the float32 init cast
+    up); the gradients gathered whole, rank 0 saves them as
+    ``t5_grads_<dtype>_t<T>.pt`` in ``--log_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch.data.lm import TokenWindowLoader
+    from tpudist_torch.mesh import MeshConfig, create_layout
+    from tpudist_torch.models.t5 import (
+        seq2seq_forward, span_corrupt_transform, span_corruption_plan,
+        t5_small,
+    )
+    from tpudist_torch.parallel import tp
+
+    args = _api_args(argv)
+    layout = create_layout(MeshConfig(data=-1, tensor=args.tensor))
+    _, spans, _, dec_len = span_corruption_plan(ENC_SEQ)
+    vocab = 256 + spans + 1
+    loader = TokenWindowLoader(
+        args.tokens, ENC_BATCH, ENC_SEQ, vocab_size=256,
+        num_replicas=layout.data, rank=layout.data_idx,
+        transform=span_corrupt_transform(vocab, seed=SEED + layout.data_idx))
+    loader.sampler.set_epoch(0)
+    batch = {k: torch.as_tensor(np.asarray(v)).cuda()
+             for k, v in next(iter(loader)).items()}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = t5_small(vocab_size=vocab, max_decode_len=dec_len + 1,
+                         dtype=dtype, device="cuda", seed=SEED,
+                         layout=layout).to(dtype)
+        loss = seq2seq_forward(model)(model, batch)
+        loss.backward()
+        grads = tp.gather_state_dict(
+            {k: p.grad for k, p in model.named_parameters()}, layout, vocab,
+            table=model.tensor_specs)
+        name = str(dtype).removeprefix("torch.")
+        out[name] = float(loss.detach())
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            torch.save({k: g.cpu() for k, g in grads.items()},
+                       Path(args.log_dir) / f"t5_grads_{name}_t{args.tensor}.pt")
+        del model, grads, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the legs' entry points that are not a CLI's module, and the eval
+#: function of a CLI whose results a leg records
+API_MAINS = {"bert_api": bert_api_main, "vit_api": vit_api_main,
+             "t5_witness": t5_witness_main}
+EVALS = {"train_bert": "evaluate_mlm", "train_t5": "evaluate_spans"}
+
+
+def run_leg(cli: str, argv):
+    """One leg in this process, its output kept: ``(result, printed,
+    evals)``, ``evals`` the metrics of each eval pass of the CLI."""
+    import importlib
+
+    if cli in API_MAINS:
+        main_fn, mod = API_MAINS[cli], None
+    else:
+        mod = importlib.import_module(
+            "tpudist_torch.serve.__main__" if cli == "serve"
+            else f"tpudist_torch.{cli}")
+        main_fn = mod.main
+    evals = []
+    name = EVALS.get(cli)
+    if name is not None:
+        inner = getattr(mod, name)
+
+        def recorded(*a, **kw):
+            evals.append(inner(*a, **kw))
+            return evals[-1]
+
+        setattr(mod, name, recorded)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            result = main_fn(list(argv))
+    finally:
+        if name is not None:
+            setattr(mod, name, inner)
+    return result, printed.getvalue(), evals
 
 
 def tensor_child(argv) -> int:
@@ -4625,8 +4936,6 @@ def tensor_child(argv) -> int:
     printed output kept, a training run's losses (and with ``gather`` its
     parameters, gathered whole: rank 0 saves them); writes
     ``rank<r>.json``."""
-    import importlib
-
     import torch
     import torch.distributed as dist
 
@@ -4639,24 +4948,23 @@ def tensor_child(argv) -> int:
     records = {}
     try:
         for leg in _tp_legs(out):
-            cli = importlib.import_module(
-                "tpudist_torch.serve.__main__" if leg["cli"] == "serve"
-                else f"tpudist_torch.{leg['cli']}")
             for mod in (*counted_modules(), D):
                 mod.reset_launch_counts()
-            printed = io.StringIO()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
-                result = cli.main([*leg["argv"], "--tensor", "2"])
+            result, printed, evals = run_leg(leg["cli"],
+                                             [*leg["argv"], "--tensor", "2"])
             torch.cuda.synchronize()
-            rec = {"printed": printed.getvalue(),
+            rec = {"printed": printed, "evals": evals,
                    "counts": {**launches(), **D.launch_counts},
                    "seconds": time.perf_counter() - t0}
             if isinstance(result, tuple):
                 state, losses = result
                 rec["losses"] = list(losses)
                 rec["leaves"] = len(list(state.model.parameters()))
+                qkv = next((p for k, p in state.model.named_parameters()
+                            if k.endswith("qkv.weight")), None)
+                rec["qkv_shape"] = None if qkv is None else list(qkv.shape)
                 if leg.get("gather"):
                     params = {k: v.float().cpu()
                               for k, v in state.params().items()}
@@ -4666,6 +4974,7 @@ def tensor_child(argv) -> int:
             else:
                 rec["snapshot"] = result
             records[leg["name"]] = rec
+            torch.cuda.empty_cache()
     finally:
         (out / f"rank{rank}.json").write_text(json.dumps(records))
         if dist.is_initialized():
@@ -4708,17 +5017,10 @@ def tensor_world(tmp: Path) -> list[dict]:
 
 
 def _one_rank(cli: str, argv):
-    """A CLI run in this process at one rank (no group), output kept:
+    """A leg run in this process at one rank (no group), output kept:
     ``(result, printed)``."""
-    import importlib
-
-    mod = importlib.import_module(
-        "tpudist_torch.serve.__main__" if cli == "serve"
-        else f"tpudist_torch.{cli}")
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        result = mod.main(list(argv))
-    return result, printed.getvalue()
+    result, printed, _ = run_leg(cli, argv)
+    return result, printed
 
 
 def _streams(printed: str) -> list[str]:
@@ -4857,6 +5159,375 @@ def tensor_training_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
           "f32 run); the world's training runs "
           + ", ".join(f"{n} {ranks[0][n]['seconds']:.1f} s" for n in
                       ("train_bf16", "train_f32", "llama_bf16", "long_bf16")))
+
+
+
+#: phase 62's shape: BERT-base's attention (B 32, S 512, 12 heads of 64,
+#: non-causal), the shape of PERF.md's BERT kernel readings
+ENC_SHARD = (32, 512, 12, 64)
+
+
+def _encoder_shard_cases(dev, b: int, s: int, h: int, dh: int):
+    """Phase 62's kernels as :func:`_shard_cases` gives phase 59's: vmem
+    and flash forward and backward, non-causal, bf16 from a seeded
+    generator."""
+    import torch
+
+    from tpudist_torch.ops import flash_attention as FA
+    from tpudist_torch.ops import vmem_attention as VA
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 62)
+    q, k, v, do = (torch.randn(b, s, h, dh, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    kw = dict(causal=False, kv_len=s, scale=VA._scale(dh))
+    ov, lsev = VA.vmem_fwd_cuda(q, k, v, **kw)
+    of, lsef = FA.flash_fwd_cuda(q, k, v, **kw)
+    every = (slice(None), slice(None))
+    fwd = lambda hs, ks: (q[:, :, hs], k[:, :, ks], v[:, :, ks])
+    fwd_out = lambda out, hs, ks: (out[0][:, :, hs], out[1][:, hs])
+    bwd_out = lambda out, hs, ks: (out[0][:, :, hs], out[1][:, :, ks],
+                                   out[2][:, :, ks])
+
+    def bwd(o, lse):
+        return lambda hs, ks: (q[:, :, hs], k[:, :, ks], v[:, :, ks],
+                               o[:, :, hs], do[:, :, hs],
+                               lse[:, hs].contiguous())
+
+    return [
+        ("vmem_attention_fwd", fwd, lambda *a: VA.vmem_fwd_cuda(*a, **kw),
+         fwd_out),
+        ("vmem_attention_bwd", bwd(ov, lsev),
+         lambda *a: VA.vmem_bwd_cuda(*a, **kw), bwd_out),
+        ("flash_attention_fwd", fwd, lambda *a: FA.flash_fwd_cuda(*a, **kw),
+         fwd_out),
+        ("flash_attention_bwd", bwd(of, lsef),
+         lambda *a: FA.flash_bwd_cuda(*a, **kw), bwd_out),
+    ], every
+
+
+def encoder_shard_phase(smi: str, dev, shape=ENC_SHARD) -> None:
+    """Phase 62 (module docstring); ``shape`` narrows it (a rehearsal)."""
+    import torch
+
+    t0 = time.perf_counter()
+    b, s, h, dh = shape
+    print(f"== 62. tensor-parallel shard parity at BERT-base's attention (B "
+          f"{b}, S {s}, {h} heads of {dh}, non-causal, bf16): each rank's 6 "
+          "heads through vmem and flash against the call over all 12")
+    cases, every = _encoder_shard_cases(dev, b, s, h, dh)
+    shard_parity(smi, "BERT-base", cases, every, h, h, (2,))
+    del cases
+    torch.cuda.empty_cache()
+    print(f"  phase 62: {time.perf_counter() - t0:.1f} s")
+
+
+def _world_leg(ranks: list[dict], name: str, want: dict, what: str):
+    """A two-rank leg's records after its checks: 4 finite losses equal
+    on both ranks, the same launches on both, a rank's launches ``want``
+    (every other counted kernel 0). Returns rank 0's record."""
+    import numpy as np
+
+    got = [r[name] for r in ranks]
+    losses = got[0]["losses"]
+    counts = {k: n for k, n in got[0]["counts"].items() if n}
+    if (len(losses) != 4 or not np.isfinite(losses).all()
+            or any(g["losses"] != losses for g in got)
+            or any(g["counts"] != got[0]["counts"] for g in got)
+            or counts != {k: n for k, n in want.items() if n}):
+        fail(f"{name}: losses {[g['losses'] for g in got]}, launches a rank "
+             f"{[g['counts'] for g in got]} (want {want})")
+    print(f"  {name} ({what}): 4 steps, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, equal on both ranks; launches a rank "
+          f"{ {k: n for k, n in want.items() if n} } over "
+          f"{got[0]['leaves']} leaves a rank; {got[0]['seconds']:.1f} s")
+    return got[0]
+
+
+def _step_counts(per_step: dict, steps: int = 4, **extra) -> dict:
+    out = {k: n * steps for k, n in per_step.items()}
+    for k, n in extra.items():
+        out[k] = out.get(k, 0) + n
+    return out
+
+
+def _against_one_rank(name: str, sharded: dict, whole: dict, losses,
+                      one_losses, *, loss_bar: float, param_bar: float,
+                      peak_lr: float) -> None:
+    """A float32 leg's gathered parameters and losses against the
+    one-rank run's from the same seed on the same data: losses
+    ``loss_bar`` relative, parameters ``param_bar`` absolute, the key
+    slice of a qkv bias (zero gradient in exact arithmetic) held to its
+    step bound from its zero init instead (:func:`f32_agreement`'s
+    rule)."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    gaps, key_moved = {}, 0.0
+    for k, b in whole.items():
+        a = sharded[k]
+        if k.endswith("qkv.bias"):
+            key_moved = max(key_moved, float(a[1].abs().max()),
+                            float(b[1].abs().max()))
+            a, b = a[[0, 2]], b[[0, 2]]
+        gaps[k] = float((a - b).abs().max())
+    worst = max(gaps, key=gaps.get)
+    key_bound = 1.5 * 4 * peak_lr
+    key = (f"; key slice of the qkv biases moved at most {key_moved:.3e} "
+           f"[step bound {key_bound:.2e}]"
+           if any(k.endswith("qkv.bias") for k in whole) else "")
+    print(f"  {name} --tensor 2 against one rank: losses {losses} vs "
+          f"{one_losses}: max rel {loss_rel:.3e} [bar {loss_bar:g}]; params "
+          f"max abs {gaps[worst]:.3e} ({worst}) [bar {param_bar:g}]{key}")
+    if (loss_rel > loss_bar or gaps[worst] > param_bar
+            or key_moved > key_bound or sharded.keys() != whole.keys()):
+        fail(f"{name}: the f32 tensor-parallel run and the one-rank run "
+             "disagree")
+
+
+def tensor_bert_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phase 63 (module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    print("== 63. the same world: BERT-base (12 x 768, S 512, batch 16, "
+          "model vocab 30523: 15262 / 15261 rows a rank) with --tensor 2")
+    legs = {leg["name"]: leg for leg in _encoder_legs(tmp)}
+    depth, ln = 12, 25  # ln_embed plain, two post-norms a block
+    evals_batches = 4  # --eval reads the 64 windows again, 16 a batch
+    flash = {"flash_attention_fwd": depth, "flash_attention_bwd": depth}
+    for name in ("bert_flash", "bert_f32"):
+        _world_leg(ranks, name, _step_counts(
+            flash, flash_attention_fwd=depth * evals_batches),
+            f"train_bert --attn flash --chunked_ce 128 --eval, "
+            f"{'bf16' if name == 'bert_flash' else 'f32'}")
+        evals = [r[name]["evals"] for r in ranks]
+        if len(evals[0]) != 1 or evals[0] != evals[1]:
+            fail(f"{name}: --eval on the two ranks {evals}")
+        print(f"    --eval on both ranks: {evals[0][0]} (flash forward "
+              f"{depth} x {evals_batches} batches a rank)")
+    api = _world_leg(ranks, "bert_vmem", _step_counts(
+        {"layernorm_fwd": ln, "layernorm_bwd": ln, "layernorm_bwd_reduce": ln,
+         "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+         "fused_adamw": 1}) | {"fused_adamw_leaves":
+                               4 * bert_leaves(depth)},
+        "Bert(attn_impl='vmem', layout=) + fit(fused='all'), bf16 copy")
+    if api["leaves"] != bert_leaves(depth):
+        fail(f"bert_vmem: {api['leaves']} leaves a rank")
+    sharded = torch.load(tmp / "bert_f32.pt")
+    (state, losses), printed = _one_rank("train_bert",
+                                         legs["bert_f32"]["argv"])
+    whole = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    said = lambda out: [line for line in out.splitlines()
+                        if line.startswith("mlm_loss")]
+    print(f"    --eval, one rank: {said(printed)}; two: "
+          f"{said(ranks[0]['bert_f32']['printed'])}")
+    _against_one_rank("bert_f32", sharded, whole,
+                      ranks[0]["bert_f32"]["losses"], losses,
+                      loss_bar=LOSS_BAR, param_bar=PARAM_BAR, peak_lr=1e-4)
+    print(f"  phase 63: {time.perf_counter() - t0:.1f} s here (the one-rank "
+          "f32 run); the world's runs " + ", ".join(
+              f"{n} {ranks[0][n]['seconds']:.1f} s"
+              for n in ("bert_flash", "bert_f32", "bert_vmem")) + f"  [{smi}]")
+
+
+def tensor_vit_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phase 64 (module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    print("== 64. the same world: ViT-B/16 at 32x32 (65 tokens) on "
+          "ViT(mesh=MeshConfig(tensor=2)) through fit(fused='all')")
+    legs = {leg["name"]: leg for leg in _encoder_legs(tmp)}
+    ln = 25  # each block's two pre-norms (the second fused with its add), norm
+    want = _step_counts({"layernorm_fwd": ln, "layernorm_bwd": ln,
+                         "layernorm_bwd_reduce": ln, "fused_adamw": 1})
+    for name in ("vit_bf16", "vit_f32"):
+        rec = _world_leg(ranks, name, want | {"fused_adamw_leaves": 4 * 152},
+                         "bf16 copy" if name == "vit_bf16" else "f32")
+        if rec["leaves"] != 152 or rec["qkv_shape"] != [1152, 768]:
+            fail(f"{name}: {rec['leaves']} leaves, qkv.weight "
+                 f"{rec['qkv_shape']} a rank (want 152, [1152, 768])")
+        print(f"    a rank's blocks.0.qkv.weight {rec['qkv_shape']} (its 6 "
+              "heads of each of q, k and v)")
+    sharded = torch.load(tmp / "vit_f32.pt")
+    (state, losses), _ = _one_rank("vit_api", legs["vit_f32"]["argv"])
+    whole = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    _against_one_rank("vit_f32", sharded, whole, ranks[0]["vit_f32"]["losses"],
+                      losses, loss_bar=VIT_LOSS_BAR, param_bar=VIT_PARAM_BAR,
+                      peak_lr=1e-3)
+    print(f"  phase 64: {time.perf_counter() - t0:.1f} s here (the one-rank "
+          "f32 run); the world's runs " + ", ".join(
+              f"{n} {ranks[0][n]['seconds']:.1f} s"
+              for n in ("vit_bf16", "vit_f32")) + f"  [{smi}]")
+
+
+def t5_same_weights(sharded: dict, tmp: Path):
+    """Phase 65's checks on the two-rank run's gathered weights
+    ``sharded``, one process: an unsharded t5-small holding them gives
+    ``(tokens, evals)``, its greedy ``generate_seq2seq`` on the CLI's
+    ``--generate`` window and its ``evaluate_spans`` over the CLI's
+    ``--eval`` batches."""
+    import types
+
+    import numpy as np
+
+    from tpudist_torch.data.lm import TokenWindowLoader
+    from tpudist_torch.generate import generate_seq2seq
+    from tpudist_torch.models.t5 import (
+        span_corrupt_transform, span_corruption_plan, t5_small,
+    )
+    from tpudist_torch.train_t5 import evaluate_spans
+
+    _, spans, _, dec_len = span_corruption_plan(ENC_SEQ)
+    vocab = 256 + spans + 1
+    model = t5_small(vocab_size=vocab, max_decode_len=dec_len + 1,
+                     device="cuda")
+    model.load_state_dict(sharded)
+    model.eval()
+    text = np.fromfile(tmp / "text.bin", np.uint16)
+    corrupt = lambda seed: span_corrupt_transform(vocab, seed=seed)
+    demo = corrupt(SEED + 20_000)(
+        {"tokens": text[:ENC_SEQ].astype(np.int32)[None]})
+    tokens = generate_seq2seq(model, demo["enc_tokens"], dec_len,
+                              temperature=0.0)[0].tolist()
+    evals = evaluate_spans(types.SimpleNamespace(model=model),
+                           TokenWindowLoader(
+                               text, ENC_BATCH, ENC_SEQ, vocab_size=256,
+                               shuffle=False, drop_remainder=True,
+                               transform=corrupt(SEED + 10_000)))
+    return tokens, evals
+
+
+#: phase 65's bars. t5-small at its init is ill-conditioned in float32
+#: (dense, un-scaled scores over 16 layers): tools/t5_tensor_witness.py
+#: (CPU, batch 2 x S 512) puts one rank's float32 forward and backward
+#: 1.9e-4 (relative) from the float64 loss and up to 0.27 of a leaf's
+#: largest gradient from the float64 gradients, and two ranks' float64
+#: 8.6e-14 and 1.5e-10 from one rank's. Float64 carries 2**29 times
+#: float32's precision, so that conditioning leaves it about 3.5e-13 on
+#: the loss and 5e-10 on a gradient: the float64 bars, about 20 times
+#: that, hold the sharded forward and backward to one rank's.
+T5_F64_LOSS_BAR, T5_F64_GRAD_BAR = 1e-11, 1e-8
+#: float32's: a loss held to float64's, or to an unsharded float32 model
+#: on the same weights, within five times the 1.9e-4 above
+T5_F32_BAR = 1e-3
+#: the 4-step float32 trajectories' parameters: the CLI's lr runs 0, 5e-4,
+#: 1e-3, 5e-4 (2e-3 in all), and over 4 steps Adam's bias-corrected step
+#: is at most 1.01 lr a coordinate (Cauchy-Schwarz on its moment
+#: weights), so two runs whose gradients part (float32's do, by up to 0.27
+#: of a leaf's scale) part by at most twice 1.01 x 2e-3; a fault of the
+#: gather or the shards' order moves the weights by their own scale
+T5_PARAM_BAR = 2 * 1.01 * 2e-3
+
+
+def _grad_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The largest gap of gradients ``got`` from ``want`` over the
+    leaves, each as a share of ``want``'s largest entry there."""
+    gaps = {k: float((got[k].double() - w.double()).abs().max()
+                     / max(float(w.double().abs().max()), 1e-300))
+            for k, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def t5_witness(tmp: Path, ranks: list[dict]) -> None:
+    """Phase 65's witness (module docstring): the two-rank run's records
+    against :func:`t5_witness_main` at one rank, in this process."""
+    import torch
+
+    legs = {leg["name"]: leg for leg in _encoder_legs(tmp)}
+    two = ranks[0]["t5_witness"]["snapshot"]
+    if ranks[1]["t5_witness"]["snapshot"] != two:
+        fail(f"t5_witness: the ranks' losses {two} and "
+             f"{ranks[1]['t5_witness']['snapshot']}")
+    one, _ = _one_rank("t5_witness", legs["t5_witness"]["argv"])
+    grads = {(d, t): torch.load(tmp / f"t5_grads_{d}_t{t}.pt")
+             for d in ("float32", "float64") for t in (1, 2)}
+    truth, want = one["float64"], grads[("float64", 1)]
+    rel = lambda x: abs(x - truth) / abs(truth)
+    loss64 = rel(two["float64"])
+    grad64, leaf64 = _grad_gap(grads[("float64", 2)], want)
+    print(f"    the witness, t5-small from the CLI's init on its first "
+          f"batch: float64 loss, two ranks {two['float64']!r} against one "
+          f"rank's {truth!r}, rel {loss64:.3e} [bar {T5_F64_LOSS_BAR:g}]; "
+          f"float64 gradients gathered, worst leaf {leaf64} at {grad64:.3e} "
+          f"of its largest [bar {T5_F64_GRAD_BAR:g}]")
+    for t, what in ((1, "one rank"), (2, "two ranks")):
+        loss = (one if t == 1 else two)["float32"]
+        gap, leaf = _grad_gap(grads[("float32", t)], want)
+        print(f"    float32 at {what}: loss {loss!r}, rel {rel(loss):.3e} "
+              f"from float64's; gradients, worst leaf {leaf} at {gap:.3e} "
+              "of its largest")
+    if (loss64 > T5_F64_LOSS_BAR or grad64 > T5_F64_GRAD_BAR
+            or rel(two["float32"]) > T5_F32_BAR
+            or grads[("float64", 2)].keys() != want.keys()):
+        fail("t5_witness: the two-rank t5-small and the one-rank one "
+             "disagree")
+
+
+def tensor_t5_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phase 65 (module docstring)."""
+    import torch
+
+    from tpudist_torch.ops import decode as D
+
+    t0 = time.perf_counter()
+    print("== 65. the same world: train_t5 --tensor 2 at its defaults "
+          "(t5-v1.1-small: 6 heads of 85, 3 a rank; S 512, batch 16; no "
+          "counted kernel: the relative bias keeps attention dense)")
+    legs = {leg["name"]: leg for leg in _encoder_legs(tmp)}
+    none = dict.fromkeys((*launches(), *D.launch_counts), 0)
+    bf16 = _world_leg(ranks, "t5_bf16", none, "bf16")
+    if not bf16["losses"][-1] < bf16["losses"][0]:
+        fail(f"t5_bf16: losses do not fall: {bf16['losses']}")
+    rec = _world_leg(ranks, "t5_f32", none, "f32, --eval --generate")
+    evals = [r["t5_f32"]["evals"] for r in ranks]
+    if len(evals[0]) != 1 or evals[0] != evals[1]:
+        fail(f"t5_f32: --eval on the two ranks {evals}")
+    if any("generated span tokens" in r["t5_f32"]["printed"]
+           for r in ranks[1:]):
+        fail("t5_f32: rank 1 printed the generated tokens")
+    tokens = lambda out: json.loads(next(
+        (line.split(": ", 1)[1] for line in out.splitlines()
+         if line.startswith("generated span tokens")), "null"))
+    got = tokens(rec["printed"])
+    sharded = torch.load(tmp / "t5_f32.pt")
+    again, same = t5_same_weights(sharded, tmp)
+    ev = abs(evals[0][0]["loss"] - same["loss"]) / abs(same["loss"])
+    print(f"    on the gathered weights, an unsharded t5-small: --eval "
+          f"{evals[0][0]['loss']} / {evals[0][0]['accuracy']} against its "
+          f"{same['loss']} / {same['accuracy']}, rel {ev:.3e} [bar "
+          f"{T5_F32_BAR:g}]; --generate's {len(got or [])} greedy tokens "
+          f"equal its: {again == got}")
+    if got is None or again != got or ev > T5_F32_BAR:
+        fail("t5_f32: the two-rank model and the unsharded one disagree on "
+             "the same weights")
+    t5_witness(tmp, ranks)
+    (state, losses), printed = _one_rank("train_t5", legs["t5_f32"]["argv"])
+    whole = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    gaps = {k: float((sharded[k] - w).abs().max()) for k, w in whole.items()}
+    worst = max(gaps, key=gaps.get)
+    one = tokens(printed)
+    apart = next((i for i, (a, b) in enumerate(zip(got, one or []))
+                  if a != b), None)
+    print(f"    the f32 trajectories: losses {rec['losses']} against one "
+          f"rank's {losses}, max rel "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(rec['losses'], losses)):.3e}"
+          f"; parameters max abs {gaps[worst]:.3e} ({worst}) [bar "
+          f"{T5_PARAM_BAR:g}]; greedy tokens equal the one-rank run's: "
+          f"{one == got}" + ("" if apart is None
+                             else f" (first apart at token {apart})"))
+    if gaps[worst] > T5_PARAM_BAR or sharded.keys() != whole.keys():
+        fail("t5_f32: the two-rank parameters part from one rank's beyond "
+             "Adam's steps")
+    print(f"  phase 65: {time.perf_counter() - t0:.1f} s here (the one-rank "
+          "runs); the world's runs " + ", ".join(
+              f"{n} {ranks[0][n]['seconds']:.1f} s"
+              for n in ("t5_bf16", "t5_f32", "t5_witness")) + f"  [{smi}]")
 
 
 if __name__ == "__main__":

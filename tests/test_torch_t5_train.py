@@ -15,7 +15,8 @@ moved by up to lr a step either way; the first reading had one such
 element of 8192 in ``enc.0.mlp.wo``, 9.3e-4 apart), then
 ``--eval``'s span loss and accuracy (2e-4; against the reference model's
 scores of the port's eval batches, see there) and ``--generate``'s greedy
-tokens, equal. Then the refusal of ``--tensor``.
+tokens, equal. Then what ``--tensor`` still refuses (its training is
+tests/test_torch_tp_t5.py's).
 """
 
 import contextlib
@@ -162,6 +163,16 @@ def test_cli_matches_the_reference_cli(tmp_path, monkeypatch):
 
 
 def test_tensor_parallel_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #7"):
+    """--tensor is ported (tests/test_torch_tp_t5.py); what stays refused
+    is a tensor axis the world does not divide, and one that does not
+    divide the heads (t5-small's 6 over 4), with check_heads' wording,
+    before any weight moves."""
+    from tpudist_torch.mesh import RankLayout
+    from tpudist_torch.models.t5 import t5_small
+
+    with pytest.raises(ValueError, match="not divisible by the fixed"):
         main(["--tokens", str(tmp_path / "none.bin"), "--tensor", "2",
               "--device", "cpu"])
+    with pytest.raises(ValueError, match=r"num_heads=6 not divisible by "
+                       r"tensor=4"):
+        t5_small(device="cpu", layout=RankLayout(0, 1, 1, tensor=4))

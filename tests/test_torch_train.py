@@ -290,12 +290,12 @@ def test_cli_fused_bf16_profiler_and_eval(tmp_path, capsys):
     assert re.search(r"Accuracy: \d\.\d{4}", capsys.readouterr().out)
 
 
+# --tensor without --serve is read by nothing, as in the reference
+# (tests/test_torch_tp_vit.py holds it to --tensor 1)
 @pytest.mark.parametrize("flag", [
-    ["--reduce", "bucketed", "--tensor", "2"],
-    ["--fsdp", "2", "--tensor", "2"], ["--telemetry"], ["--trace"],
+    ["--telemetry"], ["--trace"],
     ["--health"], ["--repair"], ["--elastic", "--serve_experts", "2"],
     ["--skip_window", "4"],
-    ["--tensor", "2"],
     ["--serve", "--serve_experts", "2"],
     ["--compile_cache", "cc"],
     ["--dataset", "digits", "--serve_moe_dispatch", "index"],

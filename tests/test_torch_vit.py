@@ -146,7 +146,9 @@ def test_unported_knobs_raise():
     # reference needs a 'dropout' rng
     with pytest.raises(ValueError, match="needs a dropout_key"):
         _port(dropout=0.1).train()(torch.zeros(1, 32, 32, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    # mesh= is ported (the tensor layout, tests/test_torch_tp_vit.py): it
+    # takes the port's counterparts of a jax Mesh and nothing else
+    with pytest.raises(TypeError, match="RankLayout or a MeshConfig"):
         _port(mesh=object())
 
 

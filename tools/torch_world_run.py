@@ -9,10 +9,13 @@ step times. Run from the root of the repo, one rank a card:
         --bf16 --fused all --batch_size 8 --synthetic_tokens 524288 --fsdp 4
     torchrun --nproc_per_node 4 tools/torch_world_run.py serve S4 \\
         --full --bf16 --paged --tensor 4
+    torchrun --nproc_per_node 4 tools/torch_world_run.py bert B4 \\
+        --tokens text.bin --bf16 --attn flash --chunked_ce 128 --tensor 4
 
 The first argument names the CLI (``main``: :mod:`tpudist_torch.main`;
-``gpt2``: :mod:`tpudist_torch.train_gpt2`; ``serve``:
-:mod:`tpudist_torch.serve`), the second the job (its TSV or serving
+``gpt2``: :mod:`tpudist_torch.train_gpt2`; ``bert``:
+:mod:`tpudist_torch.train_bert`; ``t5``: :mod:`tpudist_torch.train_t5`;
+``serve``: :mod:`tpudist_torch.serve`), the second the job (its TSV or serving
 telemetry goes to ``chiprun_out/world/<job>/``), the rest are the CLI's
 flags (``--no_profiler`` is added to the training CLIs). Each rank
 prints its peak memory (``torch.cuda.max_memory_allocated``) and wall
@@ -43,10 +46,15 @@ def main(argv=None) -> None:
         from tpudist_torch.main import main as cli
     elif which == "gpt2":
         from tpudist_torch.train_gpt2 import main as cli
+    elif which == "bert":
+        from tpudist_torch.train_bert import main as cli
+    elif which == "t5":
+        from tpudist_torch.train_t5 import main as cli
     elif which == "serve":
         from tpudist_torch.serve.__main__ import main as cli
     else:
-        raise SystemExit(f"unknown CLI {which!r}: main, gpt2 or serve")
+        raise SystemExit(f"unknown CLI {which!r}: main, gpt2, bert, t5 or "
+                         "serve")
     log_dir = Path("chiprun_out/world") / job
     log_dir.mkdir(parents=True, exist_ok=True)
     serving = which == "serve" or "--serve" in flags

@@ -320,7 +320,10 @@ def generate_seq2seq(model, enc_tokens, max_new_tokens: int, *,
     start token takes one). Returns ``[B, max_new_tokens]`` int32 numpy
     (and ``[B]`` real lengths with ``return_lengths``), with
     :func:`generate`'s sampling controls and ``eos_id`` / ``pad_id``
-    retirement."""
+    retirement. A model on a tensor layout runs on every tensor rank: the
+    encoder once and each decoder step on the rank's heads (its cache
+    holds them, the cross-attention recomputed on them), the logits
+    gathered whole before sampling, so every rank picks the same token."""
     if max_new_tokens + 1 > model.max_decode_len:
         raise ValueError(
             f"start token + {max_new_tokens} new tokens exceeds the model's "

@@ -46,8 +46,10 @@ target's first ``N`` blocks as the draft), writing ``serve`` rows to
 ``{log_dir}/{JobID}_serve_0.jsonl``. ``--serve --tensor N`` (N processes,
 e.g. ``torchrun --nproc_per_node N``) shards the engine over a tensor
 axis (:mod:`tpudist_torch.parallel.tp`); rank 0 writes and prints.
-``--tensor`` without ``--serve`` (the image models' tensor layout) raises
-``NotImplementedError`` naming the rest of ROADMAP Queue 1 #7b.
+Without ``--serve``, ``--tensor`` is read by nothing, as in the reference
+(whose flag is "with --serve"): training runs data-parallel exactly as
+with ``--tensor 1``. ViT's tensor layout is the model API's
+(``ViT(layout=)`` through ``fit``).
 
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps (and/or
 ``--checkpoint_every_s`` seconds) and at the end, keeps the newest
@@ -195,14 +197,6 @@ def check_ported(parser, args) -> None:
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
-    if args.tensor > 1 and not args.serve:
-        from tpudist_torch.mesh import TENSOR_REMAINDER
-
-        # the reference reads --tensor under --serve only; the image
-        # models' tensor layout (ViT's mesh=) is the rest of #7b
-        raise NotImplementedError(
-            f"--tensor {args.tensor} without --serve is not ported yet "
-            f"(ROADMAP {TENSOR_REMAINDER}: ViT's mesh=)")
     if args.fsdp > 1 and args.reduce in ("bucketed", "quantized"):
         raise ValueError(
             f"--reduce {args.reduce} is pure-DP (the explicit reducer "

@@ -38,6 +38,20 @@ one in full.
 :func:`mlm_forward` is the training loss (the global masked-CE mean, see
 there) and :func:`mlm_transform` the host-side 80/10/10 corruption, a
 numpy copy of the reference's that gives the same draws for a seed.
+
+Under a layout with a tensor axis (:mod:`tpudist_torch.parallel.tp`, the
+reference's ``nn.with_partitioning`` annotations) each rank holds
+``num_heads / T`` heads: ``qkv`` (its ``(3, H, dh)`` split) and
+``mlp_fc`` are column-parallel, ``out`` and ``mlp_proj`` row-parallel,
+``wte`` is split over the vocabulary (the embedding a masked lookup and a
+sum, the tied MLM decode this rank's logit columns), and ``wpe``, ``wty``,
+the LayerNorms and the head's transform stay whole. The MLM ``bias`` stays
+replicated, as the reference leaves it; a rank adds its vocabulary slice
+of it and reads it through :func:`~tpudist_torch.parallel.tp.
+copy_to_tensor`, so its gradient is summed over the tensor group. The init
+draws every leaf whole, then keeps this rank's shard. Training reads the
+vocabulary-local logits (``forward(vocab_local=True)``, the
+vocabulary-parallel CE); every other forward gathers them whole.
 """
 
 from __future__ import annotations
@@ -60,7 +74,11 @@ from tpudist_torch.models.gpt2 import (
 from tpudist_torch.models.lm_utils import chunked_head_reduce, seq_shard
 from tpudist_torch.ops.attention import multi_head_attention
 from tpudist_torch.ops.layernorm import fused_layernorm
+from tpudist_torch.parallel import tp as tp_lib
 from tpudist_torch.parallel.cp import CP_IMPLS, context_parallel_attention
+from tpudist_torch.parallel.tp import (
+    ColumnParallel, RowParallel, copy_to_tensor, tensor_size,
+)
 from tpudist_torch.rng import generator
 
 #: BERT's LayerNorm epsilon, every norm of the family
@@ -84,12 +102,18 @@ class EncoderBlock(nn.Module):
         self.attn_impl = attn_impl
         self.layout = layout
         self.dropout = dropout
-        self.qkv = Dense(d, 3 * d, bias_shape=(3, num_heads, d // num_heads),
-                         device=device)
-        self.out = Dense(d, d, device=device)
+        t = tensor_size(layout)
+        col = lambda i, o, **kw: ColumnParallel(i, o, device=device,
+                                                layout=layout, **kw)
+        row = lambda i, o: RowParallel(i, o, device=device, layout=layout)
+        # out features ordered (3, heads, dh): a rank holds its heads of
+        # each of q, k and v
+        self.qkv = col(d, 3 * d, bias_shape=(3, num_heads // t,
+                                             d // num_heads))
+        self.out = row(d, d)           # in features ordered (heads, dh)
         self.ln_attn = LayerNorm(d, eps=EPS, device=device)
-        self.mlp_fc = Dense(d, 4 * d, device=device)
-        self.mlp_proj = Dense(4 * d, d, device=device)
+        self.mlp_fc = col(d, 4 * d)
+        self.mlp_proj = row(4 * d, d)
         self.ln_mlp = LayerNorm(d, eps=EPS, device=device)
 
     def _post_ln(self, ln, x, y, fused: bool):
@@ -100,8 +124,10 @@ class EncoderBlock(nn.Module):
     def forward(self, x, attention_mask=None, fused_ln: bool = False,
                 dropout_key: int | None = None):
         b, s, d = x.shape
-        h = self.num_heads
-        q, k, v = self.qkv(x).view(b, s, 3, h, d // h).unbind(2)
+        dh = d // self.num_heads
+        # this rank's heads (all of them without a tensor axis)
+        h = self.num_heads // tensor_size(self.layout)
+        q, k, v = self.qkv(x).view(b, s, 3, h, dh).unbind(2)
         if self.attn_impl in CP_IMPLS:
             if attention_mask is not None:
                 raise ValueError(
@@ -116,7 +142,7 @@ class EncoderBlock(nn.Module):
                         else attention_mask[:, None, None, :].bool())
             attn = multi_head_attention(q, k, v, causal=False, mask=key_mask,
                                         impl=self.attn_impl)
-        y = dropout(self.out(attn.reshape(b, s, d)), self.dropout,
+        y = dropout(self.out(attn.reshape(b, s, h * dh)), self.dropout,
                     site_key(dropout_key, 0))
         x = self._post_ln(self.ln_attn, x, y, fused_ln)
         y = self.mlp_proj(_gelu(self.mlp_fc(x)))
@@ -134,18 +160,36 @@ def fused_post_ln(ln: LayerNorm, x, y, dtype):
 
 class MlmHead(nn.Module):
     """BERT's MLM head: ``transform`` (dense, erf GELU, LayerNorm ``ln``)
-    then the decode tied to the embedding table, plus the f32 ``bias``."""
+    then the decode tied to the embedding table, plus the f32 ``bias``
+    (replicated; under a tensor axis a rank adds its vocabulary slice)."""
 
-    def __init__(self, hidden_dim: int, vocab_size: int, *, dtype, device):
+    def __init__(self, hidden_dim: int, vocab_size: int, *, dtype, device,
+                 layout=None):
         super().__init__()
         self.dtype = dtype
+        self.vocab_size = vocab_size
+        self.layout = layout
         self.transform = Dense(hidden_dim, hidden_dim, device=device)
         self.ln = LayerNorm(hidden_dim, eps=EPS, device=device)
         self.bias = nn.Parameter(torch.zeros(vocab_size, device=device))
 
-    def forward(self, x, wte):
+    def forward(self, x, wte, vocab_local: bool = False):
+        """f32 logits of ``x`` against ``wte`` (this rank's vocabulary rows
+        under a tensor axis): whole, or this rank's columns with
+        ``vocab_local``."""
         y = self.ln(_gelu(self.transform(x.to(self.dtype))), self.dtype)
-        return tied_head(y, wte.to(self.dtype)) + self.bias.float()
+        layout = self.layout
+        t = tensor_size(layout)
+        if t == 1:
+            return tied_head(y, wte.to(self.dtype)) + self.bias.float()
+        v0, v1 = tp_lib.vocab_range(self.vocab_size, t, layout.tensor_idx)
+        # replicated, read in part: its gradient summed over the group
+        bias = copy_to_tensor(self.bias, layout)[v0:v1]
+        local = (tied_head(copy_to_tensor(y, layout), wte.to(self.dtype))
+                 + bias.float())
+        if vocab_local:
+            return local
+        return tp_lib.gather_from_tensor(local, layout, full=self.vocab_size)
 
 
 class Bert(nn.Module):
@@ -154,8 +198,11 @@ class Bert(nn.Module):
     ``"cuda"`` and raises without a card unless ``"cpu"`` is given;
     ``seed`` draws flax's init (N(0, 0.02) embeddings, lecun-normal
     kernels, zero biases, unit LayerNorm scales). ``layout`` serves the
-    context-parallel impls (module docstring). ``mlm_head=False`` builds
-    the encoder alone (the classifier's ``bert``, which has no head)."""
+    context-parallel impls and the tensor axis (module docstring).
+    ``mlm_head=False`` builds the encoder alone (the classifier's
+    ``bert``, which has no head)."""
+
+    tensor_specs = tp_lib.BERT_SPECS
 
     def __init__(self, vocab_size: int = 30522, max_seq_len: int = 512,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -186,8 +233,12 @@ class Bert(nn.Module):
         self.dropout = float(dropout)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
+        t = tensor_size(layout)
+        tp_lib.check_model(self, t)
         dev = self.device
-        self.wte = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev))
+        v0, v1 = tp_lib.vocab_range(vocab_size, t, layout.tensor_idx
+                                    if t > 1 else 0)
+        self.wte = nn.Parameter(torch.empty(v1 - v0, hidden_dim, device=dev))
         self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev))
         if type_vocab:
             self.wty = nn.Parameter(torch.empty(type_vocab, hidden_dim,
@@ -200,7 +251,7 @@ class Bert(nn.Module):
             for _ in range(depth))
         if mlm_head:
             self.mlm_head = MlmHead(hidden_dim, vocab_size, dtype=dtype,
-                                    device=dev)
+                                    device=dev, layout=layout)
         self.init_weights(seed)
         self.eval()
 
@@ -214,25 +265,32 @@ class Bert(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         g = generator(int(seed), self.device)
+        # each leaf drawn whole, then this rank's shard kept
+        table = self.tensor_specs
         for name, p in self.named_parameters():
             if p.ndim == 2 and name.endswith("weight"):
-                lecun_(p, p.shape[1], g)
+                draw = lambda shape: lecun_draw(shape, shape[1], g, p.device)
             elif name.endswith("bias"):
                 p.zero_()
+                continue
             elif name.endswith("scale"):
                 p.fill_(1.0)
+                continue
             else:  # the embedding tables
-                p.copy_(torch.randn(p.shape, device=p.device, generator=g)
-                        * 0.02)
+                draw = lambda shape: torch.randn(
+                    shape, device=p.device, generator=g) * 0.02
+            tp_lib.init_sharded(p, name, draw, self.layout, self.vocab_size,
+                                table=table)
 
     def forward(self, tokens, *, return_hidden: bool = False,
                 token_types=None, attention_mask=None,
-                dropout_key: int | None = None):
+                dropout_key: int | None = None, vocab_local: bool = False):
         """``tokens [B, s]`` -> f32 MLM logits ``[B, s, V]`` (or the final
         hidden state in the compute dtype with ``return_hidden``).
         ``token_types`` defaults to segment 0; ``attention_mask`` ``[B, s]``
         excludes the padded keys. A context-parallel model takes this
-        rank's chunk of each sequence."""
+        rank's chunk of each sequence. Under a tensor axis ``vocab_local``
+        returns this rank's vocabulary columns of the logits."""
         b, s = tokens.shape
         if s > self.max_seq_len:
             raise ValueError(
@@ -242,7 +300,9 @@ class Bert(nn.Module):
         off = seq_offset(self, s)
         # the reference adds the tables in their own dtype (f32 masters, the
         # compute copy's dtype under the fused optimizer), then casts
-        x = self.wte[tokens] + self.wpe[off:off + s]
+        x = (tp_lib.vocab_parallel_embedding(tokens, self.wte, self.layout,
+                                             self.vocab_size)
+             + self.wpe[off:off + s])
         if self.type_vocab:
             types = (torch.zeros_like(tokens) if token_types is None
                      else token_types.long())
@@ -258,15 +318,20 @@ class Bert(nn.Module):
                     dropout_key=site_key(dropout_key, i + 1))
         if return_hidden:
             return x
-        return self.mlm_head(x, self.wte)
+        return self.mlm_head(x, self.wte, vocab_local)
+
+
+def lecun_draw(shape, fan_in: int, g, device) -> torch.Tensor:
+    """flax's lecun-normal of ``shape``: a normal truncated at 2 sigma,
+    rescaled to standard deviation ``sqrt(1 / fan_in)``."""
+    t = torch.empty(shape, device=device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
 def lecun_(p, fan_in: int, g) -> None:
-    """flax's lecun-normal into ``p``: a normal truncated at 2 sigma,
-    rescaled to standard deviation ``sqrt(1 / fan_in)``."""
-    t = torch.empty(p.shape, device=p.device)
-    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-    p.copy_(t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+    """flax's lecun-normal into ``p`` (:func:`lecun_draw`)."""
+    p.copy_(lecun_draw(p.shape, fan_in, g, p.device))
 
 
 class BertClassifier(nn.Module):
@@ -274,18 +339,25 @@ class BertClassifier(nn.Module):
     surface): the first token's hidden state through the tanh ``pooler``,
     then the f32 ``classifier`` head. The encoder lives under ``bert``, so
     :func:`classifier_params_from_mlm` grafts pretrained weights into
-    it."""
+    it. Under a tensor ``layout`` the encoder is laid out as :class:`Bert`
+    and the pooled head stays replicated."""
+
+    tensor_specs = tp_lib.BERT_CLASSIFIER_SPECS
 
     def __init__(self, num_labels: int, vocab_size: int = 30522,
                  max_seq_len: int = 512, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, type_vocab: int = 2,
                  dtype=torch.float32, attn_impl: str = "xla", *,
-                 dropout: float = 0.0, device=None, seed: int = 0):
+                 dropout: float = 0.0, device=None, seed: int = 0,
+                 layout=None):
         super().__init__()
         self.bert = Bert(vocab_size, max_seq_len, hidden_dim, depth,
                          num_heads, type_vocab, dtype, attn_impl,
                          dropout=dropout, device=device, seed=seed,
-                         mlm_head=False)
+                         mlm_head=False, layout=layout)
+        self.layout = layout
+        self.num_heads = num_heads
+        self.vocab_size = vocab_size
         dev = self.bert.device
         self.device = dev
         self.dtype = dtype
@@ -381,8 +453,9 @@ def mlm_transform(vocab_size: int, mask_id: int, *, mask_rate: float = 0.15,
 
 def mlm_head_logits_fn(model: Bert):
     """``logits_fn`` for :func:`~tpudist_torch.models.lm_utils.
-    chunked_head_reduce`: the MLM head on a hidden chunk."""
-    return lambda hc: model.mlm_head(hc, model.wte)
+    chunked_head_reduce`: the MLM head on a hidden chunk (this rank's
+    vocabulary columns under a tensor axis)."""
+    return lambda hc: model.mlm_head(hc, model.wte, vocab_local=True)
 
 
 def mlm_forward(model: Bert, chunk: int | None = None, layout=None):
@@ -400,7 +473,10 @@ def mlm_forward(model: Bert, chunk: int | None = None, layout=None):
     ranks' sum over the replicas. With a ``layout`` of more than one seq
     rank, the rank scores its chunk of every row (``tokens``, ``targets``
     and ``mlm_mask`` sliced alike, no shift), and the step's ``loss x
-    seq`` backward completes the sum over the chunks."""
+    seq`` backward completes the sum over the chunks. A model on a tensor
+    axis scores its vocabulary-local logits with the vocabulary-parallel
+    CE, and its masked count is summed over the data group alone: the
+    tensor ranks of a replica hold the same batch."""
     if getattr(model, "dropout", 0.0):
         raise ValueError(
             "mlm_forward has no rng stream; use dropout=0 (match "
@@ -409,6 +485,7 @@ def mlm_forward(model: Bert, chunk: int | None = None, layout=None):
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     sharded = layout is not None and layout.seq > 1
     seq = layout.seq if layout is not None else 1
+    tp_layout = model.layout if tensor_size(model.layout) > 1 else None
 
     def forward_loss(module, batch):
         tokens, targets = batch["tokens"].long(), batch["targets"].long()
@@ -418,18 +495,24 @@ def mlm_forward(model: Bert, chunk: int | None = None, layout=None):
                                      for x in (tokens, targets, mask))
         count = mask.sum()
         data = 1
-        if group_up():
+        if tp_layout is not None:
+            if tp_layout.data > 1:
+                dist.all_reduce(count, group=tp_layout.data_group)
+            data = tp_layout.data
+        elif group_up():
             dist.all_reduce(count)
             data = dist.get_world_size() // seq
         if chunk is None:
-            logits = module(tokens)
-            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                 targets.reshape(-1), reduction="none")
+            logits = module(tokens, vocab_local=True)
+            ce = tp_lib.vocab_parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                model.layout, model.vocab_size)
             total = (ce * mask.reshape(-1)).sum()
         else:
             hidden = module(tokens, return_hidden=True)
-            total = chunked_head_reduce(mlm_head_logits_fn(model), hidden,
-                                        targets, mask, chunk)
+            total = chunked_head_reduce(
+                mlm_head_logits_fn(model), hidden, targets, mask, chunk,
+                model=model if tp_layout is not None else None)
         return total / torch.clamp(count, min=1.0) * data
 
     forward_loss.layout = layout if sharded else None

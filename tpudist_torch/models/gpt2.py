@@ -140,9 +140,7 @@ def check_tensor(model) -> int:
     """The tensor world of ``model``'s layout, after the reference's
     checks: both head counts and the vocabulary must divide over it."""
     t = tensor_size(model.layout)
-    if t > 1:
-        tp_lib.check_heads(model.num_heads, model.num_kv_heads, t)
-        tp_lib.check_vocab(model.vocab_size, t)
+    tp_lib.check_model(model, t)
     return t
 
 
@@ -338,6 +336,11 @@ class GPT2(nn.Module):
     reference's fields, and ``layout`` is the context-parallel impls' and
     the tensor axis's (module docstring)."""
 
+    tensor_specs = tp_lib.GPT2_SPECS
+    #: the train step's default loss under a tensor axis: the next-token
+    #: CE on the vocabulary-local logits (``train.tp_lm_loss``)
+    causal_lm = True
+
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  dtype=torch.float32, attn_impl: str = "xla", *,
@@ -415,12 +418,14 @@ class GPT2(nn.Module):
                 t = torch.empty(shape, device=dev)
                 nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
                 return t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
-            tp_lib.init_sharded(p, name, draw, layout, vocab)
+            tp_lib.init_sharded(p, name, draw, layout, vocab,
+                                table=self.tensor_specs)
 
         def normal(name, p, std):
             tp_lib.init_sharded(
                 p, name, lambda shape: torch.randn(
-                    shape, device=dev, generator=g) * std, layout, vocab)
+                    shape, device=dev, generator=g) * std, layout, vocab,
+                table=self.tensor_specs)
 
         d = self.hidden_dim
         normal("wte", self.wte, 0.02)

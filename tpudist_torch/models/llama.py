@@ -123,8 +123,8 @@ def rope_positions(start, s: int, device):
 
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm(epsilon=eps, dtype=dtype)``: float32 mean of
-    squares, ``x * (rsqrt(var + eps) * scale)`` in float32, cast to the
-    compute dtype. ``fused`` runs the fused kernel over the same
+    squares, ``x * (rsqrt(var + eps) * scale)`` in float32 (float64 for a
+    float64 ``x``), cast to the compute dtype. ``fused`` runs the fused kernel over the same
     ``scale``."""
 
     def __init__(self, dim: int, *, eps: float = 1e-5, device=None):
@@ -133,7 +133,7 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x, dtype):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var = (xf * xf).mean(-1, keepdim=True)
         return (xf * (torch.rsqrt(var + self.eps) * self.scale)).to(dtype)
 
@@ -280,6 +280,10 @@ class Llama(nn.Module):
     ``torch.Generator`` on that device (flax's distributions: lecun-normal
     kernels, N(0, 0.02) ``embed`` and ``lm_head``, unit RMSNorm scales)."""
 
+    tensor_specs = tp_lib.LLAMA_SPECS
+    #: as GPT-2's
+    causal_lm = True
+
     def __init__(self, vocab_size: int = 32000, max_seq_len: int = 2048,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  num_kv_heads: int | None = None, ffn_dim: int | None = None,
@@ -375,12 +379,14 @@ class Llama(nn.Module):
                 t = torch.empty(shape, device=dev)
                 nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
                 return t * (math.sqrt(1.0 / shape[1]) / _TRUNC_STD)
-            tp_lib.init_sharded(p, name, draw, layout, vocab)
+            tp_lib.init_sharded(p, name, draw, layout, vocab,
+                                table=self.tensor_specs)
 
         def normal(name, p, std):
             tp_lib.init_sharded(
                 p, name, lambda shape: torch.randn(
-                    shape, device=dev, generator=g) * std, layout, vocab)
+                    shape, device=dev, generator=g) * std, layout, vocab,
+                table=self.tensor_specs)
 
         normal("embed", self.embed, 0.02)
         for i, blk in enumerate(self.blocks):

@@ -31,6 +31,21 @@ raises.
 
 :func:`span_corrupt_transform` is the reference's span corruption with
 its ``(seed, epoch, start)`` keying, bit for bit.
+
+Under a layout with a tensor axis (``layout=``; :mod:`tpudist_torch.
+parallel.tp`, the reference's ``nn.with_partitioning`` annotations) each
+rank holds ``num_heads / T`` heads: ``q``, ``k`` and ``v`` (the
+cross-attention's too) and the MLP's ``wi_0`` / ``wi_1`` are
+column-parallel, ``out`` and ``wo`` row-parallel; ``wte`` (the encoder's
+and the decoder's input) and the untied ``lm_head`` are split over the
+vocabulary, and the norms stay whole. The relative-bias tables stay
+replicated, as the reference leaves them: a rank reads its heads'
+columns through :func:`~tpudist_torch.parallel.tp.copy_to_tensor`, so
+their gradients are summed over the tensor group. The decode cache holds
+the rank's heads, and every decode step's logits are gathered whole, so
+every rank samples the same token. The init draws every leaf whole, then
+keeps this rank's shard. Training reads the vocabulary-local logits
+(``vocab_local=True``, the vocabulary-parallel CE).
 """
 
 from __future__ import annotations
@@ -44,10 +59,12 @@ from torch import nn
 
 from tpudist_torch.device import resolve_device
 from tpudist_torch.rng import generator
-from tpudist_torch.models.bert import lecun_
+from tpudist_torch.models.bert import lecun_draw
 from tpudist_torch.models.llama import Linear, RMSNorm
 from tpudist_torch.ops.attention import dot_product_attention
 from tpudist_torch.ops.decode import cached_kv, decode_attention
+from tpudist_torch.parallel import tp as tp_lib
+from tpudist_torch.parallel.tp import RowLinear, copy_to_tensor, tensor_size
 
 EPS = 1e-6
 
@@ -82,22 +99,29 @@ def relative_position_buckets(q_len: int, k_len: int, *, bidirectional: bool,
 
 class _Attention(nn.Module):
     """Bias-free q/k/v/out projections over ``heads x dh``; ``kv`` is the
-    query stream (self-attention) or the encoder output (cross)."""
+    query stream (self-attention) or the encoder output (cross). Under a
+    tensor axis q/k/v hold this rank's heads and ``out`` is
+    row-parallel; ``bias`` is this rank's heads'."""
 
-    def __init__(self, d: int, heads: int, *, device):
+    def __init__(self, d: int, heads: int, *, device, layout=None):
         super().__init__()
         self.heads = heads
         self.dh = d // heads
+        self.layout = layout
         inner = heads * self.dh
-        self.q = Linear(d, inner, device=device)
-        self.k = Linear(d, inner, device=device)
-        self.v = Linear(d, inner, device=device)
-        self.out = Linear(inner, d, device=device)
+        local = inner // tensor_size(layout)
+        self.q = Linear(d, local, device=device)
+        self.k = Linear(d, local, device=device)
+        self.v = Linear(d, local, device=device)
+        self.out = RowLinear(inner, d, device=device, layout=layout)
 
     def forward(self, x, kv=None, *, bias=None, causal=False, cache=None):
         b, s, _ = x.shape
-        kv = x if kv is None else kv
-        split = lambda t: t.view(t.shape[0], t.shape[1], self.heads, self.dh)
+        # the column-parallel inputs, copied in (their gradients summed)
+        x = copy_to_tensor(x, self.layout)
+        kv = x if kv is None else copy_to_tensor(kv, self.layout)
+        h = self.heads // tensor_size(self.layout)
+        split = lambda t: t.view(t.shape[0], t.shape[1], h, self.dh)
         q, k, v = split(self.q(x)), split(self.k(kv)), split(self.v(kv))
         bias = None if bias is None else bias[None]
         if cache is not None:
@@ -113,26 +137,30 @@ class _Attention(nn.Module):
 
 
 class _GatedMlp(nn.Module):
-    """T5 v1.1's MLP: ``wo(gelu_tanh(wi_0 x) * wi_1 x)``, no biases."""
+    """T5 v1.1's MLP: ``wo(gelu_tanh(wi_0 x) * wi_1 x)``, no biases
+    (column- then row-parallel under a tensor axis)."""
 
-    def __init__(self, d: int, ffn: int, *, device):
+    def __init__(self, d: int, ffn: int, *, device, layout=None):
         super().__init__()
-        self.wi_0 = Linear(d, ffn, device=device)
-        self.wi_1 = Linear(d, ffn, device=device)
-        self.wo = Linear(ffn, d, device=device)
+        self.layout = layout
+        local = ffn // tensor_size(layout)
+        self.wi_0 = Linear(d, local, device=device)
+        self.wi_1 = Linear(d, local, device=device)
+        self.wo = RowLinear(ffn, d, device=device, layout=layout)
 
     def forward(self, x):
+        x = copy_to_tensor(x, self.layout)
         return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))
 
 
 class _EncoderBlock(nn.Module):
-    def __init__(self, d, heads, ffn, *, dtype, device):
+    def __init__(self, d, heads, ffn, *, dtype, device, layout=None):
         super().__init__()
         self.dtype = dtype
         self.ln_attn = RMSNorm(d, eps=EPS, device=device)
-        self.attn = _Attention(d, heads, device=device)
+        self.attn = _Attention(d, heads, device=device, layout=layout)
         self.ln_mlp = RMSNorm(d, eps=EPS, device=device)
-        self.mlp = _GatedMlp(d, ffn, device=device)
+        self.mlp = _GatedMlp(d, ffn, device=device, layout=layout)
 
     def forward(self, x, bias):
         x = x + self.attn(self.ln_attn(x, self.dtype), bias=bias)
@@ -140,15 +168,15 @@ class _EncoderBlock(nn.Module):
 
 
 class _DecoderBlock(nn.Module):
-    def __init__(self, d, heads, ffn, *, dtype, device):
+    def __init__(self, d, heads, ffn, *, dtype, device, layout=None):
         super().__init__()
         self.dtype = dtype
         self.ln_self = RMSNorm(d, eps=EPS, device=device)
-        self.self_attn = _Attention(d, heads, device=device)
+        self.self_attn = _Attention(d, heads, device=device, layout=layout)
         self.ln_cross = RMSNorm(d, eps=EPS, device=device)
-        self.cross_attn = _Attention(d, heads, device=device)
+        self.cross_attn = _Attention(d, heads, device=device, layout=layout)
         self.ln_mlp = RMSNorm(d, eps=EPS, device=device)
-        self.mlp = _GatedMlp(d, ffn, device=device)
+        self.mlp = _GatedMlp(d, ffn, device=device, layout=layout)
 
     def forward(self, x, enc, bias, cache=None):
         x = x + self.self_attn(self.ln_self(x, self.dtype), bias=bias,
@@ -165,13 +193,17 @@ class T5(nn.Module):
     slots). ``device`` defaults to ``"cuda"`` and raises without a card
     unless ``"cpu"`` is given; ``seed`` draws flax's init (N(0, 1)
     ``wte``, N(0, 0.4) relative-bias tables, N(0, 0.05) ``lm_head``,
-    lecun-normal projections, unit norm scales)."""
+    lecun-normal projections, unit norm scales). ``layout`` lays the model
+    out over its tensor axis (module docstring)."""
+
+    tensor_specs = tp_lib.T5_SPECS
 
     def __init__(self, vocab_size: int = 512, hidden_dim: int = 256,
                  ffn_dim: int = 512, enc_depth: int = 4, dec_depth: int = 4,
                  num_heads: int = 4, rel_buckets: int = 32,
                  rel_max_distance: int = 128, max_decode_len: int = 128,
-                 dtype=torch.float32, *, device=None, seed: int = 0):
+                 dtype=torch.float32, *, device=None, seed: int = 0,
+                 layout=None):
         super().__init__()
         self.device = resolve_device(device)
         self.vocab_size = vocab_size
@@ -184,13 +216,18 @@ class T5(nn.Module):
         self.rel_max_distance = rel_max_distance
         self.max_decode_len = max_decode_len
         self.dtype = dtype
+        self.layout = layout
+        t = tensor_size(layout)
+        tp_lib.check_model(self, t)
         dev = self.device
-        self.wte = nn.Parameter(torch.empty(vocab_size, hidden_dim, device=dev))
+        v0, v1 = tp_lib.vocab_range(vocab_size, t, layout.tensor_idx
+                                    if t > 1 else 0)
+        self.wte = nn.Parameter(torch.empty(v1 - v0, hidden_dim, device=dev))
         self.enc_rel_bias = nn.Parameter(torch.empty(rel_buckets, num_heads,
                                                      device=dev))
         self.dec_rel_bias = nn.Parameter(torch.empty(rel_buckets, num_heads,
                                                      device=dev))
-        blk = dict(dtype=dtype, device=dev)
+        blk = dict(dtype=dtype, device=dev, layout=layout)
         self.enc = nn.ModuleList(
             _EncoderBlock(hidden_dim, num_heads, ffn_dim, **blk)
             for _ in range(enc_depth))
@@ -199,7 +236,8 @@ class T5(nn.Module):
             _DecoderBlock(hidden_dim, num_heads, ffn_dim, **blk)
             for _ in range(dec_depth))
         self.ln_dec = RMSNorm(hidden_dim, eps=EPS, device=dev)
-        self.lm_head = Linear(hidden_dim, vocab_size, device=dev)
+        # [V, d]: this rank's vocabulary rows under a tensor axis
+        self.lm_head = Linear(hidden_dim, v1 - v0, device=dev)
         self.init_weights(seed)
         self.eval()
 
@@ -214,41 +252,75 @@ class T5(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         g = generator(int(seed), self.device)
-        normal = lambda p, std: p.copy_(
-            torch.randn(p.shape, device=p.device, generator=g) * std)
-        normal(self.wte, 1.0)
-        normal(self.enc_rel_bias, 0.4)
-        normal(self.dec_rel_bias, 0.4)
-        normal(self.lm_head.weight, 0.05)
+        layout, vocab, table = self.layout, self.vocab_size, self.tensor_specs
+
+        # each leaf drawn whole, then this rank's shard kept
+        def normal(name, p, std):
+            tp_lib.init_sharded(p, name, lambda shape: torch.randn(
+                shape, device=p.device, generator=g) * std, layout, vocab,
+                table=table)
+
+        normal("wte", self.wte, 1.0)
+        normal("enc_rel_bias", self.enc_rel_bias, 0.4)
+        normal("dec_rel_bias", self.dec_rel_bias, 0.4)
+        normal("lm_head.weight", self.lm_head.weight, 0.05)
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
             elif name.startswith(("enc.", "dec.")):
-                lecun_(p, p.shape[1], g)
+                tp_lib.init_sharded(
+                    p, name, lambda shape: lecun_draw(shape, shape[1], g,
+                                                      p.device),
+                    layout, vocab, table=table)
 
     def _rel_bias(self, table, q_len: int, k_len: int, bidirectional: bool):
+        """``[H, Sq, Sk]``: this rank's heads' columns of the replicated
+        ``table`` at each bucket."""
         buckets = relative_position_buckets(
             q_len, k_len, bidirectional=bidirectional,
             num_buckets=self.rel_buckets, max_distance=self.rel_max_distance,
             device=table.device)
-        return table[buckets].permute(2, 0, 1)  # [H, Sq, Sk]
+        t = tensor_size(self.layout)
+        if t > 1:
+            h = self.num_heads // t
+            h0 = self.layout.tensor_idx * h
+            # replicated, read in part: its gradient summed over the group
+            table = copy_to_tensor(table, self.layout)[:, h0:h0 + h]
+        return table[buckets].permute(2, 0, 1)
 
-    def _head(self, y):
-        return self.lm_head(self.ln_dec(y, self.dtype)).float()
+    def _head(self, y, vocab_local: bool = False):
+        """f32 logits (f64 for a float64 model) of the decoder's last
+        hidden state: whole, or this rank's vocabulary columns with
+        ``vocab_local``."""
+        y = self.ln_dec(y, self.dtype)
+        layout = self.layout
+        acc = torch.promote_types(self.dtype, torch.float32)
+        if tensor_size(layout) == 1:
+            return self.lm_head(y).to(acc)
+        local = self.lm_head(copy_to_tensor(y, layout)).to(acc)
+        if vocab_local:
+            return local
+        return tp_lib.gather_from_tensor(local, layout, full=self.vocab_size)
 
     def init_cache(self, batch_size: int) -> dict:
         """Zeroed decoder cache: per decoder layer head-major ``[B, H,
-        max_decode_len, dh]`` K/V buffers and a cursor, and the stack's
-        position cursor (the bias rows)."""
-        shape = (batch_size, self.num_heads, self.max_decode_len,
-                 self.hidden_dim // self.num_heads)
+        max_decode_len, dh]`` K/V buffers (this rank's heads under a
+        tensor axis) and a cursor, and the stack's position cursor (the
+        bias rows)."""
+        shape = (batch_size, self.num_heads // tensor_size(self.layout),
+                 self.max_decode_len, self.hidden_dim // self.num_heads)
         mk = lambda: torch.zeros(shape, dtype=self.dtype, device=self.device)
         return {"position": 0,
                 "layers": [{"k": mk(), "v": mk(), "index": 0}
                            for _ in range(self.dec_depth)]}
 
+    def _embed(self, tokens):
+        return tp_lib.vocab_parallel_embedding(
+            tokens.long(), self.wte, self.layout,
+            self.vocab_size).to(self.dtype)
+
     def encode(self, enc_tokens):
-        x = self.wte[enc_tokens.long()].to(self.dtype)
+        x = self._embed(enc_tokens)
         se = x.shape[1]
         bias = self._rel_bias(self.enc_rel_bias, se, se, True)
         for blk in self.enc:
@@ -257,10 +329,12 @@ class T5(nn.Module):
 
     def forward(self, enc_tokens, dec_tokens=None, *,
                 return_hidden: bool = False, encode_only: bool = False,
-                decode: bool = False, enc=None, cache=None):
+                decode: bool = False, enc=None, cache=None,
+                vocab_local: bool = False):
         """Teacher-forced ``(enc_tokens [B, Se], dec_tokens [B, Sd])`` ->
-        f32 logits ``[B, Sd, V]``; the other entry points are in the
-        module docstring (under ``decode`` the first argument is the
+        f32 logits ``[B, Sd, V]`` (this rank's vocabulary columns with
+        ``vocab_local`` under a tensor axis); the other entry points are in
+        the module docstring (under ``decode`` the first argument is the
         decoder chunk)."""
         if decode:
             if cache is None or enc is None:
@@ -274,14 +348,14 @@ class T5(nn.Module):
             # the reference's single-input convention: an (enc, dec) pair
             enc_tokens, dec_tokens = enc_tokens
         enc = self.encode(enc_tokens)
-        y = self.wte[dec_tokens.long()].to(self.dtype)
+        y = self._embed(dec_tokens)
         sd = y.shape[1]
         bias = self._rel_bias(self.dec_rel_bias, sd, sd, False)
         for blk in self.dec:
             y = blk(y, enc, bias)
         if return_hidden:
             return self.ln_dec(y, self.dtype)
-        return self._head(y)
+        return self._head(y, vocab_local)
 
     def _decode(self, tok, enc, cache):
         dmax = self.max_decode_len
@@ -301,7 +375,7 @@ class T5(nn.Module):
         # own relative distances to every slot
         bias = self._rel_bias(self.dec_rel_bias, dmax, dmax, False)[
             :, pos:pos + s]
-        y = self.wte[tok.long()].to(self.dtype)
+        y = self._embed(tok)
         for blk, layer in zip(self.dec, cache["layers"]):
             y = blk(y, enc, bias, cache=layer)
         return self._head(y)
@@ -401,12 +475,17 @@ def seq2seq_forward(model: T5):
     make_train_step`: the mean CE of the decoder's logits against the span
     targets (every position is real: the fixed-count corruption pads
     nothing). Ranks hold equal batches, so DDP's average of the ranks'
-    means is the global mean."""
+    means is the global mean. A model on a tensor axis scores its
+    vocabulary-local logits with the vocabulary-parallel CE (the same mean
+    on every tensor rank of a replica)."""
 
     def forward_loss(module, batch):
-        logits = module(batch["enc_tokens"], batch["dec_tokens"])
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               batch["targets"].long().reshape(-1))
+        logits = module(batch["enc_tokens"], batch["dec_tokens"],
+                        vocab_local=True)
+        return tp_lib.vocab_parallel_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]),
+            batch["targets"].long().reshape(-1), model.layout,
+            model.vocab_size).mean()
 
     forward_loss.layout = None
     return forward_loss

@@ -33,8 +33,20 @@ flax casts (under the fused optimizer's compute copy the parameters
 already are ``dtype`` and the casts are no-ops). ``dropout`` is the
 reference's residual dropout, on each block's two branches before their
 adds (no embedding dropout), with masks from the training step's
-``dropout_key`` (:func:`tpudist_torch.models.gpt2.dropout`). ``mesh`` of
-the reference is not ported.
+``dropout_key`` (:func:`tpudist_torch.models.gpt2.dropout`).
+
+Under a layout with a tensor axis (``layout=``, or the reference's
+``mesh=`` as a :class:`tpudist_torch.mesh.RankLayout` or a
+:class:`~tpudist_torch.mesh.MeshConfig`; :mod:`tpudist_torch.parallel.tp`)
+each rank holds ``num_heads / T`` heads, as the reference's
+``nn.with_partitioning`` annotations place them: ``qkv`` (its ``(3, H,
+dh)`` out features and bias split by heads) and ``mlp.fc`` are
+column-parallel, ``out`` and ``mlp.proj`` row-parallel (a rank's partial
+product summed over the tensor group, the bias added once after the sum),
+and the patch embedding, ``cls``, ``pos_embedding``, the LayerNorms and
+the f32 head stay whole, on whole rows. The init draws every leaf whole
+from the seeded generator, then keeps this rank's shard, so a sharded
+model computes the unsharded one's function.
 """
 
 from __future__ import annotations
@@ -50,6 +62,8 @@ from tpudist_torch.models.gpt2 import (
     _TRUNC_STD, Dense, LayerNorm, dropout, site_key, train_key,
 )
 from tpudist_torch.ops.attention import multi_head_attention
+from tpudist_torch.parallel import tp as tp_lib
+from tpudist_torch.parallel.tp import ColumnParallel, RowParallel, tensor_size
 
 ATTN_IMPLS = ("xla", "vmem", "auto")
 LN_EPS = 1e-6
@@ -68,12 +82,12 @@ class PatchEmbedding(nn.Module):
 
 class MlpBlock(nn.Module):
     """``Dense(mlp_dim)`` -> tanh GELU -> ``Dense(dim)``, in the input's
-    dtype."""
+    dtype (column- then row-parallel under a tensor axis)."""
 
-    def __init__(self, dim: int, mlp_dim: int, *, device=None):
+    def __init__(self, dim: int, mlp_dim: int, *, device=None, layout=None):
         super().__init__()
-        self.fc = Dense(dim, mlp_dim, device=device)
-        self.proj = Dense(mlp_dim, dim, device=device)
+        self.fc = ColumnParallel(dim, mlp_dim, device=device, layout=layout)
+        self.proj = RowParallel(mlp_dim, dim, device=device, layout=layout)
 
     def forward(self, x):
         return self.proj(F.gelu(self.fc(x), approximate="tanh"))
@@ -81,29 +95,36 @@ class MlpBlock(nn.Module):
 
 class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, *, dtype,
-                 attn_impl: str, device=None, dropout: float = 0.0):
+                 attn_impl: str, device=None, dropout: float = 0.0,
+                 layout=None):
         super().__init__()
         self.dropout = dropout
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.layout = layout
+        t = tensor_size(layout)
         self.ln_0 = LayerNorm(dim, eps=LN_EPS, device=device)
-        # out features ordered (3, heads, dh); the bias keeps that shape
-        self.qkv = Dense(dim, 3 * dim,
-                         bias_shape=(3, num_heads, dim // num_heads),
-                         device=device)
-        self.out = Dense(dim, dim, device=device)  # in features (heads, dh)
+        # out features ordered (3, heads, dh); the bias keeps that shape. A
+        # tensor rank holds its heads of each of q, k and v
+        self.qkv = ColumnParallel(
+            dim, 3 * dim, bias_shape=(3, num_heads // t, dim // num_heads),
+            device=device, layout=layout)
+        # in features ordered (heads, dh)
+        self.out = RowParallel(dim, dim, device=device, layout=layout)
         self.ln_1 = LayerNorm(dim, eps=LN_EPS, device=device)
-        self.mlp = MlpBlock(dim, mlp_dim, device=device)
+        self.mlp = MlpBlock(dim, mlp_dim, device=device, layout=layout)
 
     def forward(self, x, fused_ln: bool = False, dropout_key: int | None = None):
         b, s, d = x.shape
-        h = self.num_heads
+        dh = d // self.num_heads
+        # this rank's heads (all of them without a tensor axis)
+        h = self.num_heads // tensor_size(self.layout)
         y = self.ln_0.fused(x, self.dtype) if fused_ln else self.ln_0(x, self.dtype)
-        qkv = self.qkv(y).view(b, s, 3, h, d // h)
+        qkv = self.qkv(y).view(b, s, 3, h, dh)
         q, k, v = qkv.unbind(2)
         attn = multi_head_attention(q, k, v, causal=False, impl=self.attn_impl)
-        y = dropout(self.out(attn.reshape(b, s, d)), self.dropout,
+        y = dropout(self.out(attn.reshape(b, s, h * dh)), self.dropout,
                     site_key(dropout_key, 0))
         if fused_ln:
             # the residual add and the norm in one kernel sweep
@@ -122,19 +143,20 @@ class ViT(nn.Module):
     ``seed`` draws the random init (flax's distributions: lecun-normal
     kernels, zero biases and cls, N(0, 0.02) positions, unit LayerNorm
     scales) from a ``torch.Generator`` on the CPU, so every rank and
-    device gets the same weights."""
+    device gets the same weights. ``layout`` (or the reference's ``mesh``,
+    a layout or a ``MeshConfig``) lays the blocks out over its tensor
+    axis (module docstring)."""
+
+    tensor_specs = tp_lib.VIT_SPECS
 
     def __init__(self, num_classes: int = 1000, patch_size: int = 16,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, dtype=torch.float32,
                  attn_impl: str = "xla", dropout: float = 0.0, mesh=None, *,
                  image_size: int = 224, fused_ln: bool = False, device=None,
-                 seed: int = 0):
+                 seed: int = 0, layout=None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "ViT over a mesh is not ported yet (ROADMAP Queue 1 #7b "
-                "(remainder): the LMs' tensor layers are ported)")
+        layout = resolve_layout(mesh, layout)
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
         if hidden_dim % num_heads:
@@ -153,6 +175,8 @@ class ViT(nn.Module):
         self.attn_impl = attn_impl
         self.dropout = float(dropout)
         self.fused_ln = bool(fused_ln)
+        self.layout = layout
+        tp_lib.check_model(self, tensor_size(layout))
         n_tokens = (image_size // patch_size) ** 2 + 1
         dev = self.device
         self.embedding = PatchEmbedding(hidden_dim, patch_size, device=dev)
@@ -161,7 +185,8 @@ class ViT(nn.Module):
             torch.empty(1, n_tokens, hidden_dim, device=dev))
         self.blocks = nn.ModuleList(
             EncoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype,
-                         attn_impl=attn_impl, device=dev, dropout=self.dropout)
+                         attn_impl=attn_impl, device=dev, dropout=self.dropout,
+                         layout=layout)
             for _ in range(depth))
         self.norm = LayerNorm(hidden_dim, eps=LN_EPS, device=dev)
         self.head = Dense(hidden_dim, num_classes, device=dev)
@@ -177,28 +202,33 @@ class ViT(nn.Module):
     def init_weights(self, seed: int) -> None:
         g = torch.Generator().manual_seed(int(seed))
 
-        def lecun(p, fan_in):
-            t = torch.empty(p.shape)
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-            p.copy_(t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+        def lecun(name, p, fan_in):
+            def draw(shape):
+                t = torch.empty(shape)
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+                return t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+            tp_lib.init_sharded(p, name, draw, self.layout, None,
+                                table=self.tensor_specs)
 
         d, ps = self.hidden_dim, self.patch_size
-        lecun(self.embedding.weight, ps * ps * 3)
+        lecun("embedding.weight", self.embedding.weight, ps * ps * 3)
         self.embedding.bias.zero_()
         self.cls.zero_()
         self.pos_embedding.copy_(torch.randn(self.pos_embedding.shape,
                                              generator=g) * 0.02)
-        for blk in self.blocks:
-            for lin, fan_in in ((blk.qkv, d), (blk.out, d), (blk.mlp.fc, d),
-                                (blk.mlp.proj, self.mlp_dim)):
-                lecun(lin.weight, fan_in)
+        for i, blk in enumerate(self.blocks):
+            for name, lin, fan_in in (
+                    ("qkv", blk.qkv, d), ("out", blk.out, d),
+                    ("mlp.fc", blk.mlp.fc, d),
+                    ("mlp.proj", blk.mlp.proj, self.mlp_dim)):
+                lecun(f"blocks.{i}.{name}.weight", lin.weight, fan_in)
                 lin.bias.zero_()
             for ln in (blk.ln_0, blk.ln_1):
                 ln.scale.fill_(1.0)
                 ln.bias.zero_()
         self.norm.scale.fill_(1.0)
         self.norm.bias.zero_()
-        lecun(self.head.weight, d)
+        lecun("head.weight", self.head.weight, d)
         self.head.bias.zero_()
 
     def forward(self, x, dropout_key: int | None = None):
@@ -226,6 +256,25 @@ class ViT(nn.Module):
         # flax Dense(dtype=float32): the head computes in float32
         return F.linear(x[:, 0].float(), self.head.weight.float(),
                         self.head.bias.float())
+
+
+def resolve_layout(mesh, layout):
+    """The model's layout from the reference's ``mesh=`` (a
+    :class:`~tpudist_torch.mesh.RankLayout`, or a
+    :class:`~tpudist_torch.mesh.MeshConfig` laid out here: every rank
+    calls it, in the same order) or the port's ``layout=``."""
+    if mesh is None:
+        return layout
+    if layout is not None:
+        raise ValueError("pass mesh= or layout=, not both")
+    from tpudist_torch.mesh import MeshConfig, RankLayout, create_layout
+
+    if isinstance(mesh, RankLayout):
+        return mesh
+    if isinstance(mesh, MeshConfig):
+        return create_layout(mesh)
+    raise TypeError(f"mesh= takes a RankLayout or a MeshConfig (the port's "
+                    f"counterparts of a jax Mesh), got {type(mesh).__name__}")
 
 
 def vit_b16(**kw) -> ViT:

@@ -59,16 +59,18 @@ def kernel_attention(q, k, v, *, causal: bool = False):
 
 def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                           bias=None, scale=None):
-    """q, k, v: ``[B, S, H, D]`` -> ``[B, S, H, D]``. Scores in f32, masked
-    with ``finfo(float32).min``, softmax in f32, probabilities cast to
-    q's dtype for the value product."""
+    """q, k, v: ``[B, S, H, D]`` -> ``[B, S, H, D]``. Scores in f32 (f64
+    for f64 inputs), masked with ``finfo(float32).min``, softmax in the
+    scores' dtype, probabilities cast to q's dtype for the value
+    product."""
     dtype = q.dtype
+    acc = torch.promote_types(dtype, torch.float32)
     if scale is None:
         # the reference's f32 division: 1.0 / f32(sqrt(D))
         scale = float(np.float32(1.0) / np.float32(np.sqrt(q.shape[-1])))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + bias.to(acc)
     if causal:
         s_q, s_k = logits.shape[-2], logits.shape[-1]
         causal_mask = torch.ones(s_q, s_k, dtype=torch.bool,

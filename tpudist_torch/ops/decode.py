@@ -304,9 +304,10 @@ def decode_attention(q, keys, values, mask, pos, *, impl: str = "fused",
         keys, values = repeat_kv(q, keys, values, head_axis=1)
     if scale is None:
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
-    logits = torch.einsum("bqhd,bhkd->bhqk", q.float(), keys.float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bqhd,bhkd->bhqk", q.to(acc), keys.to(acc)) * scale
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + bias.to(acc)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bqhd", probs, values)

@@ -28,17 +28,26 @@ the unsharded product rounds its one sum (and gloo has no bfloat16 sum on
 every build).
 
 :func:`tensor_spec` is the reference's annotations as a table, by a
-parameter's name in the port's state dict; :func:`shard_state_dict` and
-:func:`gather_state_dict` carry whole weights to a rank's shards and back.
-Two splits are not a contiguous slab of one dim:
+parameter's name in the port's state dict: each family's own
+(``GPT2_SPECS``, ``LLAMA_SPECS``, ``VIT_SPECS``, ``BERT_SPECS``,
+``T5_SPECS``), which its model names as ``tensor_specs``;
+:func:`shard_state_dict` and :func:`gather_state_dict` carry whole
+weights to a rank's shards and back.
+A replicated leaf that a rank reads only in part (BERT's MLM bias over
+the rank's vocabulary, T5's relative-bias tables over its heads) is read
+through :func:`copy_to_tensor`, whose backward sums the ranks' partial
+gradients over the tensor group, so every rank's copy takes the whole
+gradient and the copies stay equal. Two splits are not a contiguous slab
+of one dim:
 
 - GPT-2's ``qkv.weight`` ``[3d, d]`` orders its out features ``(3, H,
   dh)``: a rank's shard is heads ``[h0, h1)`` of each of q, k and v (spec
   ``(0, 3)``: dim 0 viewed as ``[3, d]``, its second factor split);
-- the vocabulary (``wte``, ``embed``, ``lm_head``) splits by
-  ``torch.chunk`` semantics, ``ceil(V / T)`` rows a rank and the last
-  rank shorter (GPT-2's 50257 divides by neither 2 nor 4), which a
-  ``DTensor`` with ``Shard(0)`` describes exactly.
+- the vocabulary (``wte``, ``embed``, ``lm_head``; T5's
+  ``lm_head.weight``) splits by ``torch.chunk`` semantics, ``ceil(V /
+  T)`` rows a rank and the last rank shorter (GPT-2's 50257 divides by
+  neither 2 nor 4), which a ``DTensor`` with ``Shard(0)`` describes
+  exactly.
 """
 
 from __future__ import annotations
@@ -52,8 +61,11 @@ __all__ = [
     "tensor_size", "copy_to_tensor", "reduce_from_tensor",
     "gather_from_tensor", "ColumnParallel", "RowParallel", "RowLinear",
     "vocab_range", "vocab_parallel_embedding", "vocab_parallel_cross_entropy",
+    "vocab_parallel_argmax",
     "tensor_spec", "shard_tensor", "gather_tensor", "shard_state_dict",
     "gather_state_dict", "full_shape", "shard_model", "check_heads",
+    "check_model", "GPT2_SPECS", "LLAMA_SPECS", "LM_SPECS", "VIT_SPECS",
+    "BERT_SPECS", "BERT_CLASSIFIER_SPECS", "T5_SPECS",
 ]
 
 
@@ -303,7 +315,7 @@ class _VocabParallelCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, target, v0, layout, ignore_index):
         group = _group(layout)
-        logits = logits.float()
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         m = logits.max(-1).values
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
         z = logits - m[:, None]
@@ -333,54 +345,105 @@ class _VocabParallelCE(torch.autograd.Function):
 def vocab_parallel_cross_entropy(logits, target, layout, vocab: int, *,
                                  ignore_index: int = -100):
     """Per-row softmax CE of vocabulary-sharded logits ``[N, V_local]``
-    (f32) against whole-vocabulary ``target [N]``, 0 where ``target`` is
-    ``ignore_index`` (Megatron's loss: module docstring). One rank is
-    ``F.cross_entropy(..., reduction="none")``."""
+    (in f32, or f64 for f64 logits) against whole-vocabulary ``target
+    [N]``, 0 where ``target`` is ``ignore_index`` (Megatron's loss: module
+    docstring). One rank is ``F.cross_entropy(..., reduction="none")``."""
     t = tensor_size(layout)
     if t == 1:
-        return F.cross_entropy(logits.float(), target, reduction="none",
-                               ignore_index=ignore_index)
+        return F.cross_entropy(
+            logits.to(torch.promote_types(logits.dtype, torch.float32)),
+            target, reduction="none", ignore_index=ignore_index)
     v0, _ = vocab_range(vocab, t, layout.tensor_idx)
     return _VocabParallelCE.apply(logits, target, v0, layout, ignore_index)
 
 
+def vocab_parallel_argmax(logits, layout, vocab: int):
+    """``torch.argmax(-1)`` of the whole rows of vocabulary-sharded logits
+    ``[N, V_local]``: each rank's first maximum and its value, gathered
+    over the tensor group, the first rank holding the global maximum wins,
+    so a tie keeps ``torch.argmax``'s lowest index. Whole-vocabulary ids
+    ``[N]``, the same on every tensor rank."""
+    t = tensor_size(layout)
+    if t == 1:
+        return logits.argmax(-1)
+    v0, _ = vocab_range(vocab, t, layout.tensor_idx)
+    idx = logits.argmax(-1)
+    best = logits.gather(-1, idx[:, None])[:, 0]
+    best = best.to(torch.promote_types(best.dtype, torch.float32))
+    vals = [torch.empty_like(best) for _ in range(t)]
+    ids = [torch.empty_like(idx) for _ in range(t)]
+    dist.all_gather(vals, best.contiguous(), group=_group(layout))
+    dist.all_gather(ids, (idx + v0).contiguous(), group=_group(layout))
+    vals, ids = torch.stack(vals), torch.stack(ids)
+    first = (vals == vals.max(0).values).int().argmax(0)
+    return ids.gather(0, first[None])[0]
+
+
 # -- the placement table -------------------------------------------------------
 
-#: (module, leaf) -> (dim, outer): dim ``dim`` viewed as ``[outer, n]`` and
-#: its second factor split over the tensor ranks (the reference's
-#: ``nn.with_partitioning`` annotations of tpudist/models/gpt2.py and
-#: llama.py)
-_SPECS = {
-    ("qkv", "weight"): (0, 3), ("qkv", "bias"): (1, 1),
-    ("out", "weight"): (1, 1),
-    ("mlp_fc", "weight"): (0, 1), ("mlp_fc", "bias"): (0, 1),
-    ("mlp_proj", "weight"): (1, 1),
-    ("q_proj", "weight"): (0, 1), ("k_proj", "weight"): (0, 1),
-    ("v_proj", "weight"): (0, 1), ("o_proj", "weight"): (1, 1),
-    ("gate_proj", "weight"): (0, 1), ("up_proj", "weight"): (0, 1),
-    ("down_proj", "weight"): (1, 1),
+#: Each family's placement table: a leaf's name below its block (the name
+#: past its block index, ``h.3.qkv.weight`` -> ``qkv.weight``,
+#: ``layer_3.q_proj.weight`` -> ``q_proj.weight``; a top-level leaf by its
+#: whole name) -> ``(dim, outer)``, dim ``dim`` viewed as ``[outer, n]``
+#: and its second factor split over the tensor ranks, or ``VOCAB``, the
+#: vocabulary's split on dim 0 by ``torch.chunk``. The reference's
+#: ``nn.with_partitioning`` annotations of tpudist/models/gpt2.py,
+#: llama.py, vit.py, bert.py and t5.py; a model names its table as
+#: ``tensor_specs``.
+VOCAB = ("vocab", 0)
+_MEGATRON_MHA = {
+    "qkv.weight": (0, 3), "qkv.bias": (1, 1), "out.weight": (1, 1),
 }
-#: the vocabulary-sharded tables (split on dim 0 by ``torch.chunk``)
-VOCAB_LEAVES = frozenset({"wte", "embed", "lm_head"})
+GPT2_SPECS = {**_MEGATRON_MHA, "wte": VOCAB, "mlp_fc.weight": (0, 1),
+              "mlp_fc.bias": (0, 1), "mlp_proj.weight": (1, 1)}
+LLAMA_SPECS = {
+    "embed": VOCAB, "lm_head": VOCAB,
+    "q_proj.weight": (0, 1), "k_proj.weight": (0, 1),
+    "v_proj.weight": (0, 1), "o_proj.weight": (1, 1),
+    "gate_proj.weight": (0, 1), "up_proj.weight": (0, 1),
+    "down_proj.weight": (1, 1),
+}
+#: the table of a call that names none: the LMs' (their names do not meet)
+LM_SPECS = {**GPT2_SPECS, **LLAMA_SPECS}
+VIT_SPECS = {**_MEGATRON_MHA, "mlp.fc.weight": (0, 1),
+             "mlp.fc.bias": (0, 1), "mlp.proj.weight": (1, 1)}
+#: BERT's blocks carry GPT-2's names
+BERT_SPECS = GPT2_SPECS
+#: BertClassifier's: the encoder under ``bert.``
+BERT_CLASSIFIER_SPECS = {**{k: v for k, v in BERT_SPECS.items()
+                            if k != "wte"}, "bert.wte": VOCAB}
+T5_SPECS = {
+    "wte": VOCAB, "lm_head.weight": VOCAB,
+    **{f"{attn}.{p}.weight": (0, 1)
+       for attn in ("attn", "self_attn", "cross_attn") for p in "qkv"},
+    **{f"{attn}.out.weight": (1, 1)
+       for attn in ("attn", "self_attn", "cross_attn")},
+    "mlp.wi_0.weight": (0, 1), "mlp.wi_1.weight": (0, 1),
+    "mlp.wo.weight": (1, 1),
+}
 
 
-def tensor_spec(name: str, shape=None):
-    """How the leaf ``name`` of an LM's state dict is placed over the
+def _block_name(name: str) -> str:
+    parts = name.split(".")
+    idx = [i for i, p in enumerate(parts)
+           if p.isdigit() or (p.startswith("layer_") and p[6:].isdigit())]
+    return ".".join(parts[idx[-1] + 1:]) if idx else name
+
+
+def tensor_spec(name: str, shape=None, *, table: dict | None = None):
+    """How the leaf ``name`` of a model's state dict is placed over the
     tensor axis: ``None`` (replicated), ``("vocab", 0)`` (the vocabulary's
     uneven split on dim 0) or ``(dim, outer)`` (dim ``dim`` viewed as
-    ``[outer, n]``, its second factor split evenly). ``shape`` is
+    ``[outer, n]``, its second factor split evenly), by the family's
+    ``table`` (``model.tensor_specs``; None: ``LM_SPECS``). ``shape`` is
     accepted for the reference's signature and unused."""
-    parts = name.split(".")
-    if parts[-1] in VOCAB_LEAVES and len(parts) == 1:
-        return ("vocab", 0)
-    if len(parts) >= 2:
-        return _SPECS.get((parts[-2], parts[-1]))
-    return None
+    return (LM_SPECS if table is None else table).get(_block_name(name))
 
 
-def full_shape(name: str, local_shape, tensor: int, vocab: int) -> tuple:
+def full_shape(name: str, local_shape, tensor: int, vocab: int | None, *,
+               table: dict | None = None) -> tuple:
     """The whole leaf's shape from this rank's shard of it."""
-    spec = tensor_spec(name)
+    spec = tensor_spec(name, table=table)
     out = list(local_shape)
     if spec is None or tensor == 1:
         return tuple(out)
@@ -391,10 +454,11 @@ def full_shape(name: str, local_shape, tensor: int, vocab: int) -> tuple:
     return tuple(out)
 
 
-def shard_tensor(name: str, full: torch.Tensor, tensor: int, rank: int):
+def shard_tensor(name: str, full: torch.Tensor, tensor: int, rank: int, *,
+                 table: dict | None = None):
     """Tensor rank ``rank``'s shard of the whole leaf ``full`` (a view
     where the split is a slab, a copy for the grouped ``qkv`` split)."""
-    spec = tensor_spec(name)
+    spec = tensor_spec(name, table=table)
     if spec is None or tensor == 1:
         return full
     if spec[0] == "vocab":
@@ -415,10 +479,11 @@ def shard_tensor(name: str, full: torch.Tensor, tensor: int, rank: int):
     return part.reshape(*shape[:dim], outer * w, *shape[dim + 1:])
 
 
-def gather_tensor(name: str, local: torch.Tensor, layout, vocab: int):
+def gather_tensor(name: str, local: torch.Tensor, layout, vocab: int | None,
+                  *, table: dict | None = None):
     """The whole leaf from every tensor rank's shard (a collective over
     the tensor group: every rank calls it)."""
-    spec = tensor_spec(name)
+    spec = tensor_spec(name, table=table)
     t = tensor_size(layout)
     if spec is None or t == 1:
         return local
@@ -439,32 +504,45 @@ def gather_tensor(name: str, local: torch.Tensor, layout, vocab: int):
     return whole.reshape(*shape[:dim], outer * w * t, *shape[dim + 1:])
 
 
-def shard_state_dict(full_sd: dict, layout) -> dict:
-    """This rank's shards of a whole LM state dict (:func:`tensor_spec`;
-    replicated leaves as they are), each a contiguous copy."""
+def shard_state_dict(full_sd: dict, layout, *,
+                     table: dict | None = None) -> dict:
+    """This rank's shards of a whole state dict (:func:`tensor_spec` under
+    the family's ``table``; replicated leaves as they are), each a
+    contiguous copy."""
     t = tensor_size(layout)
     r = layout.tensor_idx if t > 1 else 0
-    return {k: shard_tensor(k, v, t, r).clone(
+    return {k: shard_tensor(k, v, t, r, table=table).clone(
                 memory_format=torch.contiguous_format)
-            if tensor_spec(k) is not None and t > 1 else v
+            if tensor_spec(k, table=table) is not None and t > 1 else v
             for k, v in full_sd.items()}
 
 
-def gather_state_dict(shard_sd: dict, layout, vocab: int) -> dict:
+def gather_state_dict(shard_sd: dict, layout, vocab: int | None, *,
+                      table: dict | None = None) -> dict:
     """The whole state dict from every tensor rank's shards (every rank
     calls it, with its dict in the same order)."""
-    return {k: gather_tensor(k, v, layout, vocab)
+    return {k: gather_tensor(k, v, layout, vocab, table=table)
             for k, v in shard_sd.items()}
 
 
 # -- whole models --------------------------------------------------------------
 
 
-def check_heads(num_heads: int, num_kv_heads: int, tensor: int,
+def check_heads(num_heads: int, num_kv_heads: int | None, tensor: int,
                 name: str = "model") -> None:
-    """The reference engine's refusal, before any weight moves: both head
-    counts must divide over the tensor world (the KV pools shard on their
-    KV-head dim and the decode kernels run on each rank's heads)."""
+    """The reference engine's refusal, before any weight moves: the head
+    counts must divide over the tensor world (each rank runs its share of
+    the heads; an LM's KV pools shard on their KV-head dim and the decode
+    kernels run on each rank's heads). ``num_kv_heads`` None: a model
+    without grouped K/V (ViT, BERT, T5)."""
+    if num_kv_heads is None:
+        if num_heads % tensor:
+            raise ValueError(
+                f"{name}: num_heads={num_heads} not divisible by "
+                f"tensor={tensor} — each tensor rank runs num_heads / tensor "
+                "heads (column-parallel q/k/v, row-parallel out); pick a "
+                "smaller tensor=")
+        return
     if num_heads % tensor or num_kv_heads % tensor:
         raise ValueError(
             f"{name}: num_heads={num_heads} / num_kv_heads={num_kv_heads} "
@@ -475,27 +553,40 @@ def check_heads(num_heads: int, num_kv_heads: int, tensor: int,
             "(mesh=None)")
 
 
+def check_model(model, tensor: int) -> None:
+    """The refusals of a model over ``tensor`` ranks: its head counts
+    (:func:`check_heads`), and its vocabulary where it has one."""
+    if tensor == 1:
+        return
+    check_heads(model.num_heads, getattr(model, "num_kv_heads", None),
+                tensor)
+    vocab = getattr(model, "vocab_size", None)
+    if vocab is not None:
+        check_vocab(vocab, tensor)
+
+
 def shard_model(model: nn.Module, layout) -> nn.Module:
-    """``model`` (a whole GPT-2 or Llama) with this rank's shards of its
-    weights and ``layout`` set on it and every module that reads one; a
-    copy when ``model`` would be changed, ``model`` itself when it already
-    is on ``layout``. Its forward then computes the whole model's
-    function (the serving engine's ``mesh=``)."""
+    """``model`` (a whole GPT-2, Llama, ViT, BERT or T5) with this rank's
+    shards of its weights and ``layout`` set on it and every module that
+    reads one; a copy when ``model`` would be changed, ``model`` itself
+    when it already is on ``layout``. Its forward then computes the whole
+    model's function (the serving engine's ``mesh=``)."""
     t = tensor_size(layout)
     if t == 1 or model.layout is layout:
         return model
     if tensor_size(model.layout) > 1:
         raise ValueError("the model is already sharded over another "
                          "tensor layout")
-    check_heads(model.num_heads, model.num_kv_heads, t)
-    check_vocab(model.vocab_size, t)
+    check_model(model, t)
     import copy
 
+    table = model.tensor_specs
     held = copy.deepcopy(model)
     with torch.no_grad():
         for k, p in held.named_parameters():
-            if tensor_spec(k) is not None:
-                p.data = shard_tensor(k, p.data, t, layout.tensor_idx).clone(
+            if tensor_spec(k, table=table) is not None:
+                p.data = shard_tensor(k, p.data, t, layout.tensor_idx,
+                                      table=table).clone(
                     memory_format=torch.contiguous_format)
     for m in held.modules():
         if hasattr(m, "layout"):
@@ -507,19 +598,20 @@ def sharded_names(model: nn.Module) -> list[str]:
     """The parameters of ``model`` held as tensor shards."""
     if tensor_size(getattr(model, "layout", None)) == 1:
         return []
+    table = model.tensor_specs
     return [k for k, _ in model.named_parameters()
-            if tensor_spec(k) is not None]
+            if tensor_spec(k, table=table) is not None]
 
 
 def init_sharded(p: torch.Tensor, name: str, draw, layout,
-                 vocab: int) -> None:
+                 vocab: int | None, *, table: dict | None = None) -> None:
     """Write this rank's shard of ``draw(whole shape)`` into ``p`` (the
     random init of a sharded model: each leaf drawn whole from the seeded
     generator, in the unsharded model's order, then sliced, so a sharded
     model is the unsharded one's function)."""
     t = tensor_size(layout)
-    if t == 1 or tensor_spec(name) is None:
+    if t == 1 or tensor_spec(name, table=table) is None:
         p.copy_(draw(tuple(p.shape)))
         return
-    whole = draw(full_shape(name, p.shape, t, vocab))
-    p.copy_(shard_tensor(name, whole, t, layout.tensor_idx))
+    whole = draw(full_shape(name, p.shape, t, vocab, table=table))
+    p.copy_(shard_tensor(name, whole, t, layout.tensor_idx, table=table))

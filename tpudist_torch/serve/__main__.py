@@ -127,7 +127,7 @@ def main(argv=None):
 
         model.load_state_dict(shard_state_dict(load_hf_params(
             args.init_hf, arch="gpt2", depth=model.depth,
-            num_heads=model.num_heads), mesh))
+            num_heads=model.num_heads), mesh, table=model.tensor_specs))
     rng = np.random.Generator(np.random.PCG64(args.seed))
     if args.prompt:
         prompts = [np.asarray([int(t) for t in s.split(",")], np.int32)

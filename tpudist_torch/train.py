@@ -81,18 +81,32 @@ The data-parallel layers of the reference (Queue 1 #7's first half):
 - ``elastic`` resumes a checkpoint written at another data world
   (:mod:`tpudist_torch.resilience.elastic`).
 
-Tensor parallelism (Queue 1 #7b's first half): a ``layout`` with a tensor
-axis over a model built on it (:mod:`tpudist_torch.parallel.tp`) runs DDP
-over the layout's data group alone (the tensor ranks of a replica share
-its batch), the default loss through
+Tensor parallelism (Queue 1 #7b): a ``layout`` with a tensor axis over a
+model built on it (:mod:`tpudist_torch.parallel.tp`: GPT-2, Llama, ViT,
+BERT, T5) runs DDP over the layout's data group alone (the tensor ranks
+of a replica share its batch) and the optimizer's clip and ``--amp`` flag
+over the tensor group (:meth:`tpudist_torch.optim.Optimizer.shard_over`:
+a sharded leaf's squares summed over it, a replicated one counted once).
+A causal LM's (``model.causal_lm``: GPT-2, Llama) default loss is
 :func:`tpudist_torch.parallel.tp.vocab_parallel_cross_entropy` on the
-vocabulary-local logits, and the optimizer's clip and ``--amp`` flag over
-the tensor group (:meth:`tpudist_torch.optim.Optimizer.shard_over`: a
-sharded leaf's squares summed over it, a replicated one counted once).
-A replicated leaf gets the same gradient on every tensor rank through
-:func:`~tpudist_torch.parallel.tp.copy_to_tensor`'s backward. A checkpoint
-holds the shards as DTensors on the layout's ``(data, tensor)``
-DeviceMesh and records ``tensor_world``.
+vocabulary-local logits; ViT's is
+``loss_fn`` on its replicated logits. A replicated leaf must hold the
+same gradient on every tensor rank, or the ranks' copies part silently:
+
+- a leaf every rank reads whole (the LayerNorms, ``wpe``, ViT's head)
+  gets it as it is, because its input is replicated and the gradient of
+  that input is summed over the group by
+  :func:`~tpudist_torch.parallel.tp.copy_to_tensor`'s backward where it
+  enters a column-parallel layer;
+- a leaf a rank reads only in part (BERT's MLM bias, over the rank's
+  vocabulary columns; T5's relative-bias tables, over its heads) gets a
+  partial gradient on each rank, which must be summed over the tensor
+  group before the optimizer: the models read such a leaf through
+  :func:`~tpudist_torch.parallel.tp.copy_to_tensor`, whose backward is
+  that sum, so the step adds no pass of its own.
+
+A checkpoint holds the shards as DTensors on the layout's ``(data,
+tensor)`` DeviceMesh and records ``tensor_world``.
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -154,15 +168,17 @@ class TrainState:
             from torch.distributed.tensor import Replicate, Shard
 
             mesh = layout.device_mesh
+            table = self.model.tensor_specs
+            vocab = getattr(self.model, "vocab_size", None)
             for k, p in self.model.named_parameters():
-                spec = tp_lib.tensor_spec(k)
+                spec = tp_lib.tensor_spec(k, table=table)
                 if spec is None:
                     continue
                 dim = 0 if spec[0] == "vocab" else spec[0]
                 place = [Shard(dim)] if mesh.ndim == 1 else [Replicate(),
                                                             Shard(dim)]
                 out[k] = (p, mesh, place, tp_lib.full_shape(
-                    k, p.shape, layout.tensor, self.model.vocab_size))
+                    k, p.shape, layout.tensor, vocab, table=table))
         return out
 
     def _global(self, name: str, t: torch.Tensor, sharded: dict):
@@ -205,7 +221,8 @@ class TrainState:
         if tp_lib.tensor_size(layout) > 1:
             return tp_lib.gather_state_dict(
                 {k: p.detach() for k, p in params.items()}, layout,
-                self.model.vocab_size)
+                getattr(self.model, "vocab_size", None),
+                table=self.model.tensor_specs)
         sharded = self._sharded()
         out = {}
         for k, p in params.items():
@@ -506,6 +523,8 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         if layout is None:
             layout = plan.layout
     tensor = tp_lib.tensor_size(getattr(model, "layout", None))
+    # a causal LM under a tensor axis: the vocabulary-local LM loss
+    lm_tensor = tensor > 1 and getattr(model, "causal_lm", False)
     if tensor > 1:
         from tpudist_torch.parallel.plan import ParallelPlan
 
@@ -516,8 +535,8 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         layout = model.layout
         # the explicit reducer reduces over data alone: the plan's refusal
         ParallelPlan(layout).validate_reduce(reduce)
-        if forward_loss is None and (loss_fn is not lm_loss
-                                     or input_key != label_key):
+        if forward_loss is None and lm_tensor and (
+                loss_fn is not lm_loss or input_key != label_key):
             raise ValueError("a tensor-parallel step computes the next-token "
                              "loss of its tokens on the vocabulary-local "
                              "logits: pass loss_fn=lm_loss")
@@ -574,7 +593,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     # ranks hold the same activations and must drop the same elements
     rank = (layout.replica if tensor > 1 else
             dist.get_rank() if group_up() else 0)
-    if forward_loss is None and tensor > 1:
+    if forward_loss is None and lm_tensor:
         def run_loss(module, batch, index):
             tokens = batch[input_key].long()
             kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}

@@ -31,9 +31,18 @@ of every row. ``--chunked_ce N`` runs the MLM head over sequence chunks
 ``--eval`` reports the masked CE and top-1 accuracy over ``--val_tokens``
 (or the training stream in order), corrupted with ``seed + 10000``;
 ``--init_hf DIR`` starts from a local HF ``BertForMaskedLM`` checkpoint.
-The reference's refusals are kept; ``--tensor`` > 1 raises
-``NotImplementedError`` naming ROADMAP Queue 1 #7b's remainder
-(the LMs' tensor layers are ported). The reference has no
+
+``--tensor N`` lays the world out ``data x tensor``
+(:mod:`tpudist_torch.parallel.tp`): each rank holds ``num_heads / N``
+heads, its column or row shard of every projection and ``1 / N`` of the
+vocabulary (the tied MLM decode its logit columns, the MLM bias whole);
+the ``N`` ranks of a replica read and corrupt the same windows, the loss
+(full or ``--chunked_ce``) is the vocabulary-parallel CE over the masked
+count of the data group, ``--eval`` takes its top-1 across the shards by
+``torch.argmax``'s lowest-index rule, and ``--init_hf`` loads the whole
+checkpoint and keeps each rank's shards. ``--tensor`` with ``--cp > 1``
+raises ``NotImplementedError`` naming the rest of ROADMAP Queue 1 #7b.
+The reference's refusals are kept, in its order. The reference has no
 ``--fused`` here: the fused LayerNorm and AdamW kernels are reached through
 the model API (``fit(..., fused="all")`` with ``make_optimizer(fused=True)``).
 """
@@ -105,12 +114,11 @@ def parse_args(argv=None):
 
 
 def check_args(args) -> tuple[int, int]:
-    """The reference's refusals, before any work; returns ``(mask_id,
-    model_vocab)``."""
-    if args.tensor != 1:
-        raise NotImplementedError(
-            "--tensor is not ported yet for BERT (ROADMAP Queue 1 #7b "
-            "(remainder); the LMs' tensor layers are ported)")
+    """The reference's refusals, before any work, in its order (the
+    mesh's first); returns ``(mask_id, model_vocab)``."""
+    from tpudist_torch.mesh import refuse_tensor_with
+
+    refuse_tensor_with(args.tensor, seq=args.cp)
     if args.cp > 1 and args.attn not in CP_ATTN:
         raise SystemExit("--cp needs a sequence-parallel attention: "
                          "--attn ring|ulysses|ulysses_flash")
@@ -136,8 +144,10 @@ def check_args(args) -> tuple[int, int]:
 
 def load_init_hf(model, args) -> None:
     """``--init_hf``: the HF encoder (and its MLM head, when the checkpoint
-    has one) into ``model``; ``wpe`` cut to ``--seq_len``."""
+    has one) into ``model``; ``wpe`` cut to ``--seq_len``. Loaded whole;
+    under ``--tensor`` each rank keeps its shards."""
     from tpudist_torch.interop import load_hf_params
+    from tpudist_torch.parallel.tp import shard_state_dict
 
     sd = load_hf_params(args.init_hf, arch="bert", depth=args.depth,
                         num_heads=args.num_heads)
@@ -145,6 +155,7 @@ def load_init_hf(model, args) -> None:
         raise SystemExit(f"--init_hf holds {sd['wpe'].shape[0]} positions, "
                          f"fewer than --seq_len {args.seq_len}")
     sd["wpe"] = sd["wpe"][:args.seq_len]
+    sd = shard_state_dict(sd, model.layout, table=model.tensor_specs)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     if unexpected or any(not k.startswith("mlm_head.") for k in missing):
         raise SystemExit(f"--init_hf does not fit the model: missing "
@@ -156,14 +167,18 @@ def evaluate_mlm(state, loader, *, chunk: int, layout) -> dict[str, float]:
     reference's ``evaluate_mlm``): each rank scores its rows (its chunk of
     them under a seq axis) through the MLM head ``chunk`` positions at a
     time, so the ``[B, S, V]`` logits never exist, and the sums are added
-    over the ranks: a global mean over the masked positions."""
+    over the ranks: a global mean over the masked positions. A tensor
+    rank scores its vocabulary columns (the vocabulary-parallel CE, the
+    top-1 by :func:`~tpudist_torch.parallel.tp.vocab_parallel_argmax`);
+    the tensor ranks score the same rows, so every sum is counted
+    ``tensor`` times and the ratios not."""
     import torch
     import torch.distributed as dist
-    import torch.nn.functional as F
 
     from tpudist_torch.data.loader import prefetch_to_device
     from tpudist_torch.distributed import group_up
     from tpudist_torch.models.lm_utils import seq_shard
+    from tpudist_torch.parallel import tp
 
     model = state.model
     model.eval()
@@ -178,12 +193,16 @@ def evaluate_mlm(state, loader, *, chunk: int, layout) -> dict[str, float]:
             tokens, targets, mask = rows
             hidden = model(tokens, return_hidden=True)
             for c in range(0, hidden.shape[1], chunk):
-                logits = model.mlm_head(hidden[:, c:c + chunk], model.wte)
+                logits = model.mlm_head(hidden[:, c:c + chunk], model.wte,
+                                        vocab_local=True)
                 t, m = targets[:, c:c + chunk], mask[:, c:c + chunk]
-                ce = F.cross_entropy(logits.transpose(1, 2), t,
-                                     reduction="none")
-                sums[0] += (ce * m).sum()
-                sums[1] += ((logits.argmax(-1) == t) & m).sum()
+                flat = logits.reshape(-1, logits.shape[-1])
+                ce = tp.vocab_parallel_cross_entropy(
+                    flat, t.reshape(-1), model.layout, model.vocab_size)
+                top = tp.vocab_parallel_argmax(flat, model.layout,
+                                               model.vocab_size)
+                sums[0] += (ce * m.reshape(-1)).sum()
+                sums[1] += ((top == t.reshape(-1)) & m.reshape(-1)).sum()
                 sums[2] += m.sum()
     if group_up():
         dist.all_reduce(sums)
@@ -210,7 +229,8 @@ def main(argv=None):
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
-        layout = create_layout(MeshConfig(data=-1, seq=args.cp))
+        layout = create_layout(MeshConfig(data=-1, seq=args.cp,
+                                          tensor=args.tensor))
         dtype = torch.bfloat16 if args.bf16 else torch.float32
         model = Bert(vocab_size=model_vocab, max_seq_len=args.seq_len,
                      hidden_dim=args.hidden_dim, depth=args.depth,
@@ -220,8 +240,8 @@ def main(argv=None):
                      device=ctx.device, seed=args.seed)
         if args.init_hf:
             load_init_hf(model, args)
-        # one corruption stream a data replica: its seq ranks hold the same
-        # rows and must mask the same positions
+        # one corruption stream a data replica: its seq and tensor ranks
+        # hold the same rows and must mask the same positions
         corruption = mlm_transform(model_vocab, mask_id,
                                    mask_rate=args.mask_rate,
                                    seed=args.seed + layout.data_idx)

@@ -366,7 +366,8 @@ def main(argv=None):
                 # the reference's model reads wpe[:seq_len] of a longer table
                 sd["wpe"] = sd["wpe"][:args.seq_len]
             # loaded whole; under --tensor each rank keeps its shards
-            model.load_state_dict(shard_state_dict(sd, layout))
+            model.load_state_dict(shard_state_dict(
+                sd, layout, table=model.tensor_specs))
         # --batch_size is per data replica; each loader batch holds
         # grad_accum microbatches of it, the same windows on the replica's
         # seq ranks

@@ -27,8 +27,19 @@ is bf16 plus the non-finite update guard.
 (or the training stream in order), corrupted with ``seed + 10000``;
 ``--generate`` denoises one window greedily with
 :func:`tpudist_torch.generate.generate_seq2seq` and prints the generated
-span tokens beside the true ones. ``--tensor`` > 1 raises
-``NotImplementedError`` naming ROADMAP Queue 1 #7b's remainder.
+span tokens beside the true ones.
+
+``--tensor N`` lays the world out ``data x tensor``
+(:mod:`tpudist_torch.parallel.tp`): each rank holds ``num_heads / N``
+heads (t5-small's 6 split over 2, not 4: the model refuses a tensor world
+that does not divide its heads), its column or row shard of every
+projection and ``1 / N`` of the vocabulary (the shared embedding and the
+untied head); the relative-bias tables stay whole. The ``N`` ranks of a
+replica read and corrupt the same windows, the loss is the
+vocabulary-parallel CE, ``--eval`` takes its top-1 across the shards by
+``torch.argmax``'s lowest-index rule, and ``--generate`` decodes on each
+rank's heads with the logits gathered, so every rank picks the same
+token; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -93,13 +104,17 @@ def parse_args(argv=None):
 
 def evaluate_spans(state, loader) -> dict[str, float]:
     """Span CE and per-token accuracy over every batch of ``loader``,
-    summed over the ranks (each scores its own windows)."""
+    summed over the ranks (each scores its own windows). A tensor rank
+    scores its vocabulary columns (the vocabulary-parallel CE, the top-1
+    by :func:`~tpudist_torch.parallel.tp.vocab_parallel_argmax`); the
+    tensor ranks score the same windows, so every sum is counted
+    ``tensor`` times and the ratios not."""
     import torch
     import torch.distributed as dist
-    import torch.nn.functional as F
 
     from tpudist_torch.data.loader import prefetch_to_device
     from tpudist_torch.distributed import group_up
+    from tpudist_torch.parallel import tp
 
     model = state.model
     model.eval()
@@ -107,11 +122,14 @@ def evaluate_spans(state, loader) -> dict[str, float]:
     sums = torch.zeros(3, dtype=torch.float64, device=device)
     with torch.no_grad():
         for batch in prefetch_to_device(iter(loader), device):
-            tgt = batch["targets"].long()
-            logits = model(batch["enc_tokens"], batch["dec_tokens"])
-            sums[0] += F.cross_entropy(logits.transpose(1, 2), tgt,
-                                       reduction="sum")
-            sums[1] += (logits.argmax(-1) == tgt).sum()
+            tgt = batch["targets"].long().reshape(-1)
+            logits = model(batch["enc_tokens"], batch["dec_tokens"],
+                           vocab_local=True)
+            flat = logits.reshape(-1, logits.shape[-1])
+            sums[0] += tp.vocab_parallel_cross_entropy(
+                flat, tgt, model.layout, model.vocab_size).sum()
+            sums[1] += (tp.vocab_parallel_argmax(
+                flat, model.layout, model.vocab_size) == tgt).sum()
             sums[2] += tgt.numel()
     if group_up():
         dist.all_reduce(sums)
@@ -122,10 +140,6 @@ def evaluate_spans(state, loader) -> dict[str, float]:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tensor != 1:
-        raise NotImplementedError(
-            "--tensor is not ported yet for T5 (ROADMAP Queue 1 #7b "
-            "(remainder); the LMs' tensor layers are ported)")
     os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
 
     import numpy as np
@@ -136,6 +150,7 @@ def main(argv=None):
     from tpudist_torch.data.lm import TokenWindowLoader, load_token_stream
     from tpudist_torch.distributed import group_up, init_from_env
     from tpudist_torch.generate import generate_seq2seq
+    from tpudist_torch.mesh import MeshConfig, create_layout
     from tpudist_torch.models.t5 import (
         T5, seq2seq_forward, span_corrupt_transform, span_corruption_plan,
     )
@@ -145,6 +160,9 @@ def main(argv=None):
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
+        # data x tensor; --batch_size, the sampler and the TSV count the
+        # data replicas
+        layout = create_layout(MeshConfig(data=-1, tensor=args.tensor))
         dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
         # the sentinel/EOS block above the corpus vocabulary: one id a span
         # and the EOS
@@ -155,15 +173,15 @@ def main(argv=None):
                    ffn_dim=args.ffn_dim, enc_depth=args.enc_depth,
                    dec_depth=args.dec_depth, num_heads=args.num_heads,
                    dtype=dtype, max_decode_len=dec_len + 1,
-                   device=ctx.device, seed=args.seed)
+                   device=ctx.device, seed=args.seed, layout=layout)
         corrupt = lambda seed: span_corrupt_transform(
             model_vocab, density=args.density, mean_span=args.mean_span,
             seed=seed)
         loader = TokenWindowLoader(
             args.tokens, args.batch_size * args.grad_accum, args.seq_len,
             dtype=np.dtype(args.token_dtype), vocab_size=args.vocab_size,
-            num_replicas=ctx.world_size, rank=ctx.rank,
-            transform=corrupt(args.seed + ctx.rank))
+            num_replicas=layout.data, rank=layout.data_idx,
+            transform=corrupt(args.seed + layout.data_idx))
         total = args.total_steps or args.epochs * len(loader)
         tx = make_optimizer(
             run_schedule(args.lr, total_steps=total,
@@ -173,7 +191,7 @@ def main(argv=None):
         t0 = time.time()
         state, losses = fit(
             model, tx, loader, epochs=args.epochs, job_id=args.JobID,
-            batch_size=args.batch_size, world_size=ctx.world_size,
+            batch_size=args.batch_size, world_size=layout.data,
             global_rank=ctx.rank, input_key="enc_tokens",
             label_key="targets", forward_loss=seq2seq_forward(model),
             grad_accum=args.grad_accum, seed=args.seed,
@@ -183,7 +201,7 @@ def main(argv=None):
             resume=not args.no_resume)
         wall = time.time() - t0
         if losses and ctx.is_chief:
-            seqs = (len(losses) * args.batch_size * ctx.world_size
+            seqs = (len(losses) * args.batch_size * layout.data
                     * args.grad_accum)
             print(f"tokens/sec: {seqs * args.seq_len / wall:.1f} (global, "
                   f"incl. the first step) steps={len(losses)} "
@@ -200,8 +218,8 @@ def main(argv=None):
             val_loader = TokenWindowLoader(
                 source, args.batch_size, args.seq_len,
                 vocab_size=args.vocab_size, shuffle=False,
-                drop_remainder=True, num_replicas=ctx.world_size,
-                rank=ctx.rank, transform=corrupt(args.seed + 10_000))
+                drop_remainder=True, num_replicas=layout.data,
+                rank=layout.data_idx, transform=corrupt(args.seed + 10_000))
             metrics = evaluate_spans(state, val_loader)
             if ctx.is_chief and metrics["count"]:
                 print(f"span_loss: {metrics['loss']:.4f} "
