@@ -540,9 +540,43 @@ Phases, each fatal on failure:
     distance from float64 printed; then the 4-step f32 trajectories
     against the one-rank run's (they part: float32's own gradients are
     far from float64's), the parameters within ``T5_PARAM_BAR``, Adam's
-    step bound.
+    step bound;
+66. seq x tensor shard parity, in this process: the heads a ``(seq,
+    tensor)`` rank holds through the kernels against the same heads of
+    the call over all of them (phase 59's method, bf16): flash forward
+    and backward on 3 of GPT-2 124M's 12 heads (Ulysses over ``seq 2 x
+    tensor 2``) at B 4, S 4096, causal, flash and vmem on 3 of BERT-
+    base's at B 32, S 512, non-causal (``ulysses_flash`` takes vmem
+    there), and vmem on 6 heads at B 8, S 1024, causal (the gathered
+    attention under ``tensor 2``): bit-identical, each rank's and the
+    whole call's ms;
+67. four ranks on the one card (this script's ``--composed_child`` mode:
+    four processes on ``cuda:0``, a gloo group over CUDA tensors, started
+    beside phase 60's world and phases 31-32's runs), 4 steps a leg, every
+    rank's counts set to 0 before each leg and read after, each leg's
+    allocator peak a rank printed beside ``train_state_budget``'s line:
+    ``train_gpt2 --fsdp 2 --tensor 2 --fused all``, GPT-2 124M, S 1024,
+    batch 8 a replica, in bf16 (a rank's launches a step: LN 25 / 25 +
+    25, vmem 12 + 12, AdamW 2 over 148 leaves: FSDP's float32-gradient
+    shards and the bf16 leaves with their copy) then ``--eval`` (one
+    batch a replica) and ``--generate 32`` (the contiguous kernel 12 x
+    32), and in f32 against the one-rank run on both replicas' windows
+    under phase 15's bars;
+68. the same world, ``train_gpt2 --tensor 2 --shard_opt_state --fused
+    all`` (data 2 x tensor 2): in bf16 one AdamW launch a rank a step over
+    its ZeRO-1 slices; in f32 its losses and gathered parameters bit-
+    equal to the same world's run without ``--shard_opt_state``, and both
+    against the one-rank run under phase 15's bars;
+69. the same world, seq x tensor: ``train_gpt2 --cp 2 --tensor 2 --attn
+    ulysses_flash --seq_len 4096 --chunked_ce 256 --batch_size 4`` in
+    bf16 (flash 12 + 12 a rank a step on 3 heads), ``--attn ring
+    --seq_len 1024`` in f32 against the one-rank ``--attn ring`` run
+    under phase 15's bars, and ``train_bert --tensor 2 --cp 2 --attn
+    ulysses_flash --chunked_ce 128`` at bert-base, S 512, batch 16, bf16
+    (vmem 12 + 12 a rank a step). The losses agree on the ranks of each
+    replica.
 
-Phases 22-29 and 31-65 print their seconds.
+Phases 22-29 and 31-69 print their seconds.
 """
 
 from __future__ import annotations
@@ -4090,16 +4124,19 @@ def serve_cli_phase(smi: str, dev) -> None:
     fields = {"spec_drafted", "spec_accepted", "spec_acceptance_rate"}
     env = {**os.environ, "PYTHONPATH": str(HERE)}
     with tempfile.TemporaryDirectory() as tmp:
-        for job, argv in (
+        # the two CLIs check exits and rows: they run together
+        runs = [(job, argv, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", *argv, "--log_dir", tmp, "--JobID", job],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)) for job, argv in (
                 ("Serve", ["tpudist_torch.serve", "--full", "--bf16", "--paged",
                            "--spec_draft", "4", "--spec_k", "4"]),
                 ("Demo", ["tpudist_torch.main", "--serve", "--spec_draft",
-                          "1"])):
-            t1 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", *argv, "--log_dir", tmp, "--JobID",
-                 job], cwd=HERE, env=env, capture_output=True, text=True,
-                timeout=300)
+                          "1"]))]
+        for job, argv, t1, proc in runs:
+            out, err = proc.communicate(timeout=300)
+            proc = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                               out, err)
             lines = proc.stdout.splitlines()
             if proc.returncode:
                 print("\n".join(lines[-20:]) + proc.stderr[-3000:])
@@ -4110,8 +4147,8 @@ def serve_cli_phase(smi: str, dev) -> None:
             if not serve or not all(fields <= set(r) for r in serve):
                 fail(f"{argv[0]}: serve rows without the speculative fields")
             said = [x for x in lines if x.startswith(("served", "speculative"))]
-            print(f"  python -m {' '.join(argv)}: exit 0 in "
-                  f"{time.perf_counter() - t1:.1f} s; {len(serve)} serve rows "
+            print(f"  python -m {' '.join(argv)} (beside the other): exit 0 "
+                  f"in {time.perf_counter() - t1:.1f} s; {len(serve)} serve rows "
                   f"with the spec fields; " + "; ".join(said) + f"  [{smi}]")
     model = GPT2(vocab_size=256, max_seq_len=256, hidden_dim=128, depth=2,
                  num_heads=4, attn_impl="fused", device="cuda")
@@ -4474,7 +4511,10 @@ def dp_cli_phase(smi: str) -> None:
     env = {**os.environ, "PYTHONPATH": str(HERE)}
     sklearn = importlib.util.find_spec("sklearn") is not None
     with tempfile.TemporaryDirectory() as tmp:
-        for argv, want_ok in (
+        # the three CLIs check exits: they run together, each in its own
+        # log directory
+        runs = []
+        for i, (argv, want_ok) in enumerate((
                 (["tpudist_torch.main", "--reduce", "quantized", "--dataset",
                   "synthetic", "--synthetic_size", "1024", "--bf16",
                   "--fused", "optimizer"], True),
@@ -4482,12 +4522,18 @@ def dp_cli_phase(smi: str) -> None:
                   "--fused", "all", "--synthetic_tokens", str(8 * 8 * 1024)],
                  True),
                 (["tpudist_torch.main", "--dataset", "digits", "--model",
-                  "resnet18"], sklearn)):
-            t1 = time.perf_counter()
-            proc = subprocess.run(
+                  "resnet18"], sklearn))):
+            log_dir = Path(tmp) / str(i)
+            log_dir.mkdir()
+            runs.append((argv, want_ok, time.perf_counter(), subprocess.Popen(
                 [sys.executable, "-m", *argv, "--epochs", "1",
-                 "--no_profiler", "--log_dir", tmp], cwd=HERE, env=env,
-                capture_output=True, text=True, timeout=600)
+                 "--no_profiler", "--log_dir", str(log_dir)], cwd=HERE,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for argv, want_ok, t1, proc in runs:
+            out, err = proc.communicate(timeout=600)
+            proc = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                               out, err)
             said = " ".join(argv)
             if want_ok:
                 if proc.returncode:
@@ -4519,30 +4565,42 @@ TENSOR_CHILD = "--tensor_child"
 
 
 def tensor_phases(smi: str, dev) -> None:
-    """Phases 59-65 (module docstring)."""
+    """Phases 59-69 (module docstring)."""
     tensor_shard_phase(smi, dev)
     encoder_shard_phase(smi, dev)
+    cp_tensor_shard_phase(smi, dev)
     with tempfile.TemporaryDirectory() as tmp, \
-            tempfile.TemporaryDirectory() as rtmp:
-        # phases 31-32's launched runs check only bits and launches: they
-        # run beside the two-rank world, whose timings are checks too
+            tempfile.TemporaryDirectory() as rtmp, \
+            tempfile.TemporaryDirectory() as ctmp:
+        # phases 31-32's launched runs and the four-rank world check only
+        # bits and launches: they run beside the two-rank world, whose
+        # timings are checks too
         runs = start_recovery(Path(rtmp))
+        composed = start_composed_world(Path(ctmp))
         try:
             t0 = time.perf_counter()
             ranks = tensor_world(Path(tmp))
             world_s = time.perf_counter() - t0
             recovery_phases(smi, Path(rtmp), runs)
+            cranks = finish_world(composed, Path(ctmp), "composed world")
+            composed_s = time.perf_counter() - t0
         finally:
             stop_launches(runs)
-        print(f"  phases 31-32 and the two-rank world: "
+            for p in composed:
+                if p.poll() is None:
+                    p.kill()
+        print(f"  phases 31-32, the two-rank and the four-rank world: "
               f"{time.perf_counter() - t0:.1f} s together")
         tensor_serving_phase(smi, Path(tmp), ranks)
         tensor_training_phase(smi, Path(tmp), ranks)
         tensor_bert_phase(smi, Path(tmp), ranks)
         tensor_vit_phase(smi, Path(tmp), ranks)
         tensor_t5_phase(smi, Path(tmp), ranks)
+        composed_phases(smi, Path(ctmp), cranks)
     print(f"  phases 60-61 and 63-65: the two-rank world {world_s:.1f} s (its "
-          "start, its runs and their writes) before the phases' checks")
+          "start, its runs and their writes) before the phases' checks; "
+          f"phases 67-69: the four-rank world done {composed_s:.1f} s after "
+          "the two-rank world's start")
 
 
 def _shard_cases(dev, h: int, hkv: int, dh: int, seq=TP_SEQ):
@@ -5530,9 +5588,371 @@ def tensor_t5_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
               for n in ("t5_bf16", "t5_f32", "t5_witness")) + f"  [{smi}]")
 
 
+#: phase 66's cases: (name, kernels, shape, tensor x seq ranks whose heads
+#: one rank holds): the Ulysses exchange leaves a (seq, tensor) rank 12 /
+#: T / seq heads over the whole sequence, the gathered attention 12 / T.
+#: ``ulysses_flash`` takes the kernel by length: flash at S 4096, vmem at
+#: BERT's S 512 (both run there)
+CP_TP_SHARDS = (("GPT-2 124M S 4096", ("flash",), "gpt2", 4),
+                ("BERT-base S 512", ("flash", "vmem"), "bert", 4),
+                ("GPT-2 124M S 1024", ("vmem",), "gpt2", 2))
+
+
+def cp_tensor_shard_phase(smi: str, dev, shards=CP_TP_SHARDS,
+                          seq=TP_SEQ, enc=ENC_SHARD) -> None:
+    """Phase 66 (module docstring); ``seq`` and ``enc`` narrow it (a
+    rehearsal)."""
+    import torch
+
+    t0 = time.perf_counter()
+    print("== 66. seq x tensor shard parity: the heads a (seq, tensor) rank "
+          "holds through the kernels, against the same heads of the call "
+          "over all of them (bf16)")
+    for name, kinds, model, ranks in shards:
+        if model == "gpt2":
+            cases, every = _shard_cases(dev, 12, 12, 64, seq)
+            h = 12
+        else:
+            cases, every = _encoder_shard_cases(dev, *enc)
+            h = enc[2]
+        cases = [c for c in cases if c[0].split("_")[0] in kinds]
+        shard_parity(smi, name, cases, every, h, h, (ranks,))
+        del cases
+        torch.cuda.empty_cache()
+    print(f"  phase 66: {time.perf_counter() - t0:.1f} s")
+
+
+COMPOSED_CHILD = "--composed_child"
+#: phases 67-69's token files: 4 steps of 16 x 1024 (two replicas of 8,
+#: or one of 4 x 4096) and of 8 x 1024 (one replica; BERT's 16 x 512), and
+#: one eval batch a replica
+COMPOSED_TEXT = {"ctext.bin": 4 * 16 * 1024, "ctext1.bin": 4 * 8 * 1024,
+                 "cval.bin": 16 * 1024}
+
+
+def _composed_legs(tmp: Path) -> list[dict]:
+    """Phases 67-69's runs in the four-rank world, in order, each with its
+    own layout flags (module docstring)."""
+    text, text1 = str(tmp / "ctext.bin"), str(tmp / "ctext1.bin")
+    gpt = ["--no_profiler", "--log_dir", str(tmp), "--warmup_steps", "2",
+           "--total_steps", "4", "--fused", "all"]
+    s1024 = [*gpt, "--tokens", text, "--batch_size", "8", "--seq_len",
+             "1024"]
+    return [
+        dict(name="fsdp_bf16", cli="train_gpt2", plan=(1, 2, 2),
+             argv=[*s1024, "--fsdp", "2", "--tensor", "2", "--bf16",
+                   "--attn", "auto", "--eval", "--val_tokens",
+                   str(tmp / "cval.bin"), "--generate", str(NEW),
+                   "--JobID", "C67B"]),
+        dict(name="fsdp_f32", cli="train_gpt2", gather=True, plan=(1, 2, 2),
+             argv=[*s1024, "--fsdp", "2", "--tensor", "2", "--attn", "vmem",
+                   "--JobID", "C67F"]),
+        dict(name="zero_bf16", cli="train_gpt2", plan=(2, 1, 2), zero1=True,
+             argv=[*s1024, "--tensor", "2", "--shard_opt_state", "--bf16",
+                   "--attn", "auto", "--JobID", "C68B"]),
+        dict(name="zero_f32", cli="train_gpt2", gather=True, plan=(2, 1, 2),
+             zero1=True,
+             argv=[*s1024, "--tensor", "2", "--shard_opt_state", "--attn",
+                   "vmem", "--JobID", "C68F"]),
+        dict(name="tp_f32", cli="train_gpt2", gather=True, plan=(2, 1, 2),
+             argv=[*s1024, "--tensor", "2", "--attn", "vmem", "--JobID",
+                   "C68R"]),
+        dict(name="cp_flash_bf16", cli="train_gpt2",
+             argv=[*gpt, "--tokens", text, "--cp", "2", "--tensor", "2",
+                   "--attn", "ulysses_flash", "--seq_len", "4096",
+                   "--chunked_ce", "256", "--batch_size", "4", "--bf16",
+                   "--JobID", "C69U"]),
+        dict(name="cp_ring_f32", cli="train_gpt2", gather=True,
+             argv=[*gpt, "--tokens", text1, "--cp", "2", "--tensor", "2",
+                   "--attn", "ring", "--seq_len", "1024", "--batch_size",
+                   "8", "--JobID", "C69R"]),
+        dict(name="bert_cp_bf16", cli="train_bert",
+             argv=["--tokens", text1, "--log_dir", str(tmp), "--no_profiler",
+                   "--seq_len", "512", "--batch_size", "16", "--warmup_steps",
+                   "2", "--vocab_size", "30522", "--chunked_ce", "128",
+                   "--attn", "ulysses_flash", "--tensor", "2", "--cp", "2",
+                   "--bf16", "--JobID", "C69B"]),
+    ]
+
+
+def composed_child(argv) -> int:
+    """One rank of phases 67-69's world: ``argv`` is ``--composed_child
+    OUT_DIR``. Forms a 4-rank gloo group over CUDA tensors (every rank on
+    ``cuda:0``), then runs each of :func:`_composed_legs` as
+    :func:`tensor_child` runs its legs, recording besides the allocator's
+    peak a rank; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch.ops import decode as D
+
+    out = Path(argv[argv.index(COMPOSED_CHILD) + 1])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    records = {}
+    try:
+        for leg in _composed_legs(out):
+            # the leg's name where a dying rank leaves it (its log)
+            print(f"rank {rank}: leg {leg['name']}", file=sys.stderr,
+                  flush=True)
+            for mod in (*counted_modules(), D):
+                mod.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result, printed, _ = run_leg(leg["cli"], leg["argv"])
+            torch.cuda.synchronize()
+            rec = {"printed": printed,
+                   "counts": {**launches(), **D.launch_counts},
+                   "seconds": time.perf_counter() - t0,
+                   "peak": torch.cuda.max_memory_allocated()}
+            state, losses = result
+            rec["losses"] = list(losses)
+            rec["leaves"] = len(list(state.model.parameters()))
+            if leg.get("gather"):
+                params = {k: v.float().cpu()
+                          for k, v in state.params().items()}
+                if rank == 0:
+                    torch.save(params, out / f"{leg['name']}.pt")
+            del state, result
+            records[leg["name"]] = rec
+            torch.cuda.empty_cache()
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(records))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def start_composed_world(tmp: Path) -> list:
+    """Start phases 67-69's four ranks on the one card
+    (:func:`composed_child`, ``LOCAL_RANK`` 0 all); :func:`finish_world`
+    collects them."""
+    from tpudist_torch.ops import lm_kernels_bench as LB
+
+    for name, n in COMPOSED_TEXT.items():
+        LB.token_file(tmp / name, n)
+    port = free_port()
+    procs = []
+    for rank in range(4):
+        env = {**os.environ, "PYTHONPATH": str(HERE), "MASTER_ADDR":
+               "127.0.0.1", "MASTER_PORT": str(port), "RANK": str(rank),
+               "WORLD_SIZE": "4", "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), COMPOSED_CHILD,
+             str(tmp)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_world(procs: list, tmp: Path, what: str,
+                 timeout: float = 900) -> list[dict]:
+    """Wait for a world's ranks (within ``timeout`` s) and return each
+    rank's records; a rank that failed fails the phase."""
+    logs = []
+    try:
+        for p in procs:
+            log, _ = p.communicate(timeout=timeout)
+            logs.append(log)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            fail(f"{what} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return [json.loads((tmp / f"rank{r}.json").read_text())
+            for r in range(len(procs))]
+
+
+def _composed_leg(ranks: list[dict], name: str, want: dict, what: str,
+                  agree, extra: dict | None = None, budget=None) -> dict:
+    """A four-rank leg's checks: 4 finite losses, equal on the ranks of
+    each group ``agree`` lists (every rank of a leg without data
+    replicas), the same launches on every rank, a rank's launches a step
+    ``want`` plus ``extra`` (every other counted kernel 0); prints the
+    allocator's peak a rank beside ``budget`` (a ``format_budget`` line).
+    Returns rank 0's record."""
+    import numpy as np
+
+    got = [r[name] for r in ranks]
+    losses = got[0]["losses"]
+    counts = {k: n for k, n in got[0]["counts"].items() if n}
+    want = {k: n for k, n in _step_counts(want, **(extra or {})).items()
+            if n}
+    groups_agree = all(got[a]["losses"] == got[b]["losses"]
+                       for group in agree for a in group for b in group)
+    if (len(losses) != 4 or any(not np.isfinite(g["losses"]).all()
+                                for g in got) or not groups_agree
+            or any(g["counts"] != got[0]["counts"] for g in got)
+            or counts != want):
+        fail(f"{name}: losses {[g['losses'] for g in got]}, launches a rank "
+             f"{[g['counts'] for g in got]} (want {want})")
+    peaks = [round(g["peak"] / 1e9, 3) for g in got]
+    print(f"  {name} ({what}): 4 steps, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, equal on the ranks of {agree}; launches a "
+          f"rank {want} over {got[0]['leaves']} leaves a rank; allocator "
+          f"peak a rank {peaks} GB"
+          + (f"; budget {budget}" if budget else "")
+          + f"; {got[0]['seconds']:.1f} s")
+    return got[0]
+
+
+def _without(argv, *flags) -> list:
+    """``argv`` without each of ``flags`` and the value after it."""
+    out = list(argv)
+    for flag in flags:
+        i = out.index(flag)
+        del out[i:i + 2]
+    return out
+
+
+def _composed_budget(plan, zero1: bool, *, bf16: bool) -> str:
+    """``train_state_budget``'s line for GPT-2 124M at batch 8 x S 1024 a
+    replica under ``plan`` (data, fsdp, tensor) with the CLI's fused
+    AdamW (and ZeRO-1)."""
+    import types
+
+    import torch
+
+    from tpudist_torch.memory import format_budget, train_state_budget
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.optim import make_optimizer, shard_state
+
+    data, fsdp, tensor = plan
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tx = make_optimizer(3e-4, fused=True, weight_decay=0.1, clip_norm=1.0,
+                        compute_dtype=dtype if bf16 else None)
+    if zero1:
+        tx = shard_state(tx, world=data, rank=0)
+    report = train_state_budget(
+        lambda d: GPT2(dtype=dtype, attn_impl="vmem", device=d), tx,
+        batch=8 * data * fsdp, seq=1024, world_size=data * fsdp * tensor,
+        plan=types.SimpleNamespace(data=data, fsdp=fsdp, tensor=tensor),
+        hbm_budget_bytes=80 * 10 ** 9)
+    return format_budget(report)
+
+
+def composed_phases(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phases 67-69 (module docstring): the four-rank world's checks and
+    the one-rank float32 runs they are held against."""
+    import torch
+
+    from tpudist_torch.data.lm import TokenWindowLoader
+
+    t0 = time.perf_counter()
+    legs = {leg["name"]: leg for leg in _composed_legs(tmp)}
+    depth = 12
+    ln = {"layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+          "layernorm_bwd_reduce": 2 * depth + 1}
+    every = [[0, 1, 2, 3]]
+    print("== 67. four ranks on one card (gloo over CUDA tensors): "
+          "train_gpt2 --fsdp 2 --tensor 2 --fused all, GPT-2 124M, S 1024, "
+          "batch 8 a replica")
+    # a rank's eval batches (one replica of the val windows) and decode
+    argv = legs["fsdp_bf16"]["argv"]
+    flag = lambda f: argv[argv.index(f) + 1]
+    nb = len(TokenWindowLoader(flag("--val_tokens"), int(flag("--batch_size")),
+                               int(flag("--seq_len")), shuffle=False,
+                               drop_remainder=False, num_replicas=2, rank=0))
+    fsdp = _composed_leg(
+        ranks, "fsdp_bf16",
+        {**ln, "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+         "fused_adamw": 2, "fused_adamw_leaves": 148},
+        "bf16, --attn auto, then --eval and --generate 32",
+        [[0, 1], [2, 3]],
+        extra={"layernorm_fwd": (2 * depth + 1) * nb,
+               "vmem_attention_fwd": depth * nb,
+               "fused_decode_attention": depth * NEW},
+        budget=_composed_budget((1, 2, 2), False, bf16=True))
+    said = [ln_ for ln_ in fsdp["printed"].splitlines()
+            if ln_.startswith(("generated tokens", "val_loss"))]
+    print(f"    rank 0 printed {said}")
+    if len(said) != 2:
+        fail(f"fsdp_bf16: --eval and --generate printed {said}")
+    # float32: FSDP's shards and the replicated leaves are one mix (no
+    # copy), one AdamW launch
+    f32_step = {**ln, "vmem_attention_fwd": depth,
+                "vmem_attention_bwd": depth, "fused_adamw": 1,
+                "fused_adamw_leaves": 148}
+    _composed_leg(ranks, "fsdp_f32", f32_step, "f32, --attn vmem",
+                  [[0, 1], [2, 3]],
+                  budget=_composed_budget((1, 2, 2), False, bf16=False))
+    # one rank takes both replicas' rows a step: the same windows
+    one_argv = _without(legs["tp_f32"]["argv"], "--tensor")
+    i = one_argv.index("--batch_size") + 1
+    one_argv[i] = str(2 * int(one_argv[i]))
+    (state, one_losses), _ = _one_rank("train_gpt2", one_argv)
+    whole = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    _against_one_rank("fsdp_f32 (--fsdp 2", torch.load(tmp / "fsdp_f32.pt"),
+                      whole, ranks[0]["fsdp_f32"]["losses"], one_losses,
+                      loss_bar=LOSS_BAR, param_bar=PARAM_BAR, peak_lr=3e-4)
+
+    print("== 68. the same world: train_gpt2 --tensor 2 --shard_opt_state "
+          "--fused all (data 2 x tensor 2)")
+    _composed_leg(
+        ranks, "zero_bf16",
+        {**ln, "vmem_attention_fwd": depth, "vmem_attention_bwd": depth,
+         "fused_adamw": 1, "fused_adamw_leaves": 148},
+        "bf16, --attn auto", [[0, 1], [2, 3]],
+        budget=_composed_budget((2, 1, 2), True, bf16=True))
+    for name in ("zero_f32", "tp_f32"):
+        _composed_leg(ranks, name, f32_step, "f32, --attn vmem",
+                      [[0, 1], [2, 3]],
+                      budget=_composed_budget((2, 1, 2), name == "zero_f32",
+                                              bf16=False))
+    zero, rep = torch.load(tmp / "zero_f32.pt"), torch.load(tmp / "tp_f32.pt")
+    equal = (ranks[0]["zero_f32"]["losses"] == ranks[0]["tp_f32"]["losses"]
+             and zero.keys() == rep.keys()
+             and all(torch.equal(zero[k], rep[k]) for k in rep))
+    print(f"    zero_f32 against tp_f32 (the same world without "
+          f"--shard_opt_state): losses and parameters bit-equal: {equal}")
+    if not equal:
+        fail("ZeRO-1 under tensor is not the replicated step bit for bit")
+    _against_one_rank("zero_f32 (data 2", zero, whole,
+                      ranks[0]["zero_f32"]["losses"], one_losses,
+                      loss_bar=LOSS_BAR, param_bar=PARAM_BAR, peak_lr=3e-4)
+
+    print("== 69. the same world: seq x tensor (--cp 2 --tensor 2)")
+    _composed_leg(
+        ranks, "cp_flash_bf16",
+        {**ln, "flash_attention_fwd": depth, "flash_attention_bwd": depth,
+         "fused_adamw": 1, "fused_adamw_leaves": 148},
+        "--attn ulysses_flash, S 4096, batch 4, --chunked_ce 256, bf16: "
+        "flash on 3 heads a rank", every)
+    # the ring's chunk products are plain matrix products (no kernel)
+    _composed_leg(ranks, "cp_ring_f32",
+                  {**ln, "fused_adamw": 1, "fused_adamw_leaves": 148},
+                  "--attn ring, S 1024, f32", every)
+    ring_argv = _without(legs["cp_ring_f32"]["argv"], "--cp", "--tensor")
+    (state, ring_losses), _ = _one_rank("train_gpt2", ring_argv)
+    ring_whole = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    _against_one_rank("cp_ring_f32 (--cp 2", torch.load(
+        tmp / "cp_ring_f32.pt"), ring_whole,
+        ranks[0]["cp_ring_f32"]["losses"], ring_losses, loss_bar=LOSS_BAR,
+        param_bar=PARAM_BAR, peak_lr=3e-4)
+    # ulysses_flash takes the kernel by length: vmem at S 512
+    _composed_leg(
+        ranks, "bert_cp_bf16",
+        {"vmem_attention_fwd": depth, "vmem_attention_bwd": depth},
+        "train_bert --tensor 2 --cp 2 --attn ulysses_flash --chunked_ce 128, "
+        "bert-base, S 512, batch 16, bf16", every)
+    print(f"  phases 67-69: {time.perf_counter() - t0:.1f} s here (the "
+          "one-rank f32 runs); the world's runs " + ", ".join(
+              f"{n} {ranks[0][n]['seconds']:.1f} s" for n in legs)
+          + f"  [{smi}]")
+
+
 if __name__ == "__main__":
     if RECOVERY_CHILD in sys.argv:
         sys.exit(recovery_child(sys.argv[1:]))
     if TENSOR_CHILD in sys.argv:
         sys.exit(tensor_child(sys.argv[1:]))
+    if COMPOSED_CHILD in sys.argv:
+        sys.exit(composed_child(sys.argv[1:]))
     sys.exit(main())

@@ -357,10 +357,9 @@ def test_model_api_fused_all_matches_the_reference(tmp_path):
 def test_cli_refusals(corpus, tmp_path):
     base = [*FLAGS, "--device", "cpu", "--tokens", str(corpus / "train.bin"),
             "--vocab_size", "256", "--log_dir", str(tmp_path)]
-    # --tensor is ported (tests/test_torch_tp_bert.py); with --cp > 1 it is
-    # the rest of #7b, refused first, as the reference's mesh comes first
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 #7b \(remainder\)"):
+    # --tensor composes with --cp (tests/test_torch_tp_cp.py): the
+    # combination meets the CP refusal of a non-CP attention, as alone
+    with pytest.raises(SystemExit, match="--cp needs a sequence-parallel"):
         main([*base, "--tensor", "2", "--cp", "2"])
     for extra, msg in ((["--cp", "2"], "--cp needs a sequence-parallel"),
                        (["--mask_id", "256"], "outside"),

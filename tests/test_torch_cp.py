@@ -218,8 +218,11 @@ def test_layout_is_the_references_device_order():
         assert grid[lay.data_idx, lay.seq_idx] == rank
     with pytest.raises(ValueError, match="not divisible"):
         cfg.axis_sizes(6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7"):
-        mesh_lib.MeshConfig(tensor=2, seq=2)
+    # seq composes with tensor (tests/test_torch_tp_cp.py), not with fsdp
+    assert mesh_lib.MeshConfig(tensor=2, seq=2).axis_sizes(8) == {
+        "data": 2, "fsdp": 1, "seq": 2, "tensor": 2}
+    with pytest.raises(ValueError, match="fsdp does not compose with seq"):
+        mesh_lib.MeshConfig(fsdp=2, seq=2)
     one = mesh_lib.create_layout()
     assert (one.data, one.seq, one.seq_group, one.data_group) == (1, 1, None,
                                                                   None)

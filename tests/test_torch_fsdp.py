@@ -339,14 +339,18 @@ def test_fsdp_refusals():
         main(["--device", "cpu", "--fsdp", "2", "--reduce", "bucketed"])
     with pytest.raises(ValueError, match="fsdp does not compose with seq"):
         MeshConfig(fsdp=2, seq=2)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7b"):
-        ParallelPlan.build(fsdp=2, tensor=2)
+    # fsdp x tensor composes (tests/test_torch_tp_fsdp.py runs it): the
+    # layout wants its ranks, and compose_fsdp is the plan's FSDP
+    assert MeshConfig(fsdp=2, tensor=2).axis_sizes(8)["data"] == 2
+    with pytest.raises(ValueError, match="wants 4 ranks"):
+        ParallelPlan.build(data=1, fsdp=2, tensor=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
         ParallelPlan.build(pipe=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
         ParallelPlan.build(expert=2)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7b"):
-        compose_fsdp()
+    from tpudist_torch.parallel.fsdp import apply_fsdp
+
+    assert compose_fsdp is apply_fsdp
 
 
 @pytest.mark.parametrize("fsdp,data,zero1", [

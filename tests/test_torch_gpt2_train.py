@@ -480,8 +480,8 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2", "--cp", "2"],
-    ["--fsdp", "2", "--tensor", "2"],
+    ["--experts", "4"], ["--pipe", "2"], ["--tensor", "2", "--pipe", "2"],
+    ["--fsdp", "2", "--tensor", "2", "--experts", "4"],
     ["--remat_policy", "full", "--pipe", "2"],
     ["--chaos", "bitflip@3"], ["--telemetry"], ["--elastic", "--pipe", "2"],
     ["--compile_cache", "cc"], ["--shard_opt_state", "--experts", "4"],
@@ -489,6 +489,19 @@ def test_cli_grad_accum_and_fused_ln(tmp_path):
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d"):
+        main([*CLI, *flag])
+
+
+@pytest.mark.parametrize("flag", [["--tensor", "2", "--cp", "2"],
+                                  ["--fsdp", "2", "--tensor", "2"]],
+                         ids=lambda f: " ".join(f))
+def test_tensor_compositions_are_ported(flag):
+    """``--tensor`` with ``--cp`` or ``--fsdp`` raised as unported until
+    it was ported (tests/test_torch_tp_cp.py, test_torch_tp_fsdp.py run
+    them): in one process the layout needs the 4 ranks it names."""
+    with pytest.raises(ValueError,
+                       match="1 ranks not divisible by the fixed axes' "
+                       "product 4"):
         main([*CLI, *flag])
 
 

@@ -70,12 +70,18 @@ def test_state_bytes_are_the_references(arch):
             == REFERENCE_COUNT_BYTES)
     assert got["total"]["per_device"] == sum(
         got[k]["per_device"] for k in ("params", "opt_state", "batch_stats"))
+    # a placement over the tensor axis: the leaf's shard, ceil-divided
+    name, leaf = next(iter(state.params().items()))
+    on_tensor = {name: (0, 2, "tensor")}
+    halved = M.per_device_bytes(state.params(), shardings=on_tensor)
+    assert M.tree_bytes(state.params()) - halved == \
+        (leaf.shape[0] // 2) * leaf[0].numel() * leaf.element_size()
     # a placement over an axis the port does not lay out yet
-    on_tensor = {next(iter(state.params())): (0, 2, "tensor")}
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        M.state_bytes(state, shardings={"params": on_tensor})
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        M.per_device_bytes(state.params(), shardings=on_tensor)
+    on_pipe = {name: (0, 2, "pipe")}
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
+        M.state_bytes(state, shardings={"params": on_pipe})
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
+        M.per_device_bytes(state.params(), shardings=on_pipe)
 
 
 def test_budget_line_is_the_references():
@@ -116,11 +122,12 @@ def test_budget_on_meta_allocates_nothing_and_counts_a_compute_copy():
     n = sum(p.numel() for p in built[0].parameters())
     assert report["n_params"] == n and report["params_bytes"] == 2 * n
     assert 12 * n <= report["opt_state_bytes_per_chip"] < 12 * n + (1 << 20)
-    # a plan over a tensor axis (not ported yet)
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    # a plan over a pipe axis (not ported yet; tensor is,
+    # tests/test_torch_tp_fsdp.py)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
         M.train_state_budget(lambda d: None, None, batch=1, seq=1,
                              hbm_budget_bytes=1,
-                             plan=types.SimpleNamespace(tensor=2))
+                             plan=types.SimpleNamespace(pipe=2))
 
 
 def test_the_cpu_reports_no_live_stats(monkeypatch):

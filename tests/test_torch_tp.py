@@ -79,8 +79,27 @@ def test_rank_coordinates_are_the_references_device_order():
         assert lay.replica == lay.data_idx
     assert mesh_lib.MeshConfig(data=-1, tensor=4).axis_sizes(8) == {
         "data": 2, "fsdp": 1, "seq": 1, "tensor": 4}
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7b \(remainder"):
-        mesh_lib.MeshConfig(fsdp=2, tensor=2)
+    # tensor composed with fsdp or seq: the four-axis formulas at 8 ranks
+    for other in ("fsdp", "seq"):
+        cfg = {"data": 2, other: 2, "tensor": 2}
+        mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(**cfg),
+                                    devices=jax.devices()[:8])
+        ids = np.vectorize(lambda d: d.id)(np.asarray(mesh.devices))
+        grid = ids.reshape(2, 2, 2)
+        assert mesh_lib.MeshConfig(data=-1, **{other: 2},
+                                   tensor=2).axis_sizes(8) == {
+            "data": 2, "fsdp": 1, "seq": 1, "tensor": 2, other: 2}
+        for rank in range(8):
+            lay = mesh_lib.RankLayout(rank, 2, cfg.get("seq", 1), tensor=2,
+                                      fsdp=cfg.get("fsdp", 1))
+            mid = lay.fsdp_idx if other == "fsdp" else lay.seq_idx
+            assert grid[lay.data_idx, mid, lay.tensor_idx] == rank
+            # the batch rides data x fsdp: the tensor and seq ranks of a
+            # replica share it
+            assert lay.replica == (lay.data_idx * 2 + lay.fsdp_idx
+                                   if other == "fsdp" else lay.data_idx)
+    with pytest.raises(ValueError, match="fsdp does not compose with seq"):
+        mesh_lib.MeshConfig(fsdp=2, seq=2, tensor=2)
 
 
 @pytest.mark.parametrize("vocab,t", [(64, 2), (67, 2), (67, 4), (50257, 4),

@@ -24,7 +24,9 @@
     top-1 equal the unsharded model's over the same batches;
   - the CLI's DCP checkpoint holds whole leaves and restores bit for bit;
     a resume at ``--tensor 4`` is refused.
-- ``--tensor 2 --cp 2`` is refused first, naming ROADMAP Queue 1 #7b.
+- ``--tensor 2 --cp 2`` passes the reference's refusals (it runs in
+  tests/test_torch_tp_cp.py); a non-CP attention under ``--cp`` is still
+  refused.
 """
 
 import os
@@ -83,12 +85,17 @@ def test_tensor_spec_is_the_references_annotation():
 
 
 def test_tensor_with_cp_is_refused_first(tmp_path):
-    from tpudist_torch.train_bert import main
+    """``--tensor 2 --cp 2`` composes now (tests/test_torch_tp_cp.py runs
+    it): the reference's refusals pass it, and what stays refused is
+    what the reference refuses, a non-CP attention under --cp."""
+    from tpudist_torch.train_bert import check_args, parse_args
 
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 #7b \(remainder\)"):
-        main(["--device", "cpu", "--tokens", str(tmp_path / "none.bin"),
-              "--tensor", "2", "--cp", "2", "--attn", "ring"])
+    argv = ["--device", "cpu", "--tokens", str(tmp_path / "none.bin"),
+            "--tensor", "2", "--cp", "2"]
+    assert check_args(parse_args([*argv, "--attn", "ring"])) == (30522,
+                                                                 30523)
+    with pytest.raises(SystemExit, match="--cp needs a sequence-parallel"):
+        check_args(parse_args(argv))
 
 
 WORKER = r"""

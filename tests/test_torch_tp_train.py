@@ -16,9 +16,12 @@ step on a ``MeshConfig(data=2, tensor=2)`` mesh of 4 CPU devices.
   decay and clipping (``test_torch_gpt2_train.py``'s bars); with ``--amp
   --generate --eval`` it trains, skips nothing and decodes.
 - A DCP checkpoint under ``data 2 x tensor 2`` holds each sharded leaf at
-  its whole shape and restores bit for bit; the refusals: ``--tensor``
-  with ``--fsdp`` / ``--cp`` / ``--shard_opt_state``, the explicit
-  reducer, ZeRO-1 under a tensor plan, a tensor resize on resume.
+  its whole shape and restores bit for bit; ``--tensor`` with ``--fsdp``
+  / ``--cp`` / ``--shard_opt_state`` accepted (run in
+  test_torch_tp_fsdp.py, test_torch_tp_cp.py, test_torch_tp_zero1.py)
+  and ZeRO-1 under a tensor plan built; the refusals: ``--pipe`` and the
+  MoE flags with ``--tensor``, the explicit reducer, a tensor resize on
+  resume.
 """
 
 import os
@@ -343,9 +346,14 @@ def test_tensor_refusals():
     from tpudist_torch.resilience import elastic
 
     base = ["--device", "cpu", "--tensor", "2"]
+    # --tensor composes with --fsdp, --cp and --shard_opt_state (run in
+    # tests/test_torch_tp_fsdp.py, test_torch_tp_cp.py, test_torch_tp_zero1.py)
     for flags in (["--fsdp", "2"], ["--cp", "2"], ["--shard_opt_state"]):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue 1 #7b \(remainder\)"):
+        parser, args = train_gpt2.parse_args([*base, *flags])
+        train_gpt2.check_ported(parser, args)
+    for flags, item in ((["--pipe", "2"], r"#7c"),
+                        (["--experts", "4"], r"#7d")):
+        with pytest.raises(NotImplementedError, match=item):
             train_gpt2.main([*base, *flags])
     plan = ParallelPlan(RankLayout(0, 1, 1, tensor=2))
     assert plan.model_axes == {"tensor": 2}
@@ -354,8 +362,11 @@ def test_tensor_refusals():
                                "tensor=2, expert=1)")
     with pytest.raises(ValueError, match="pure-DP.*tensor=2"):
         plan.validate_reduce("bucketed")
-    with pytest.raises(NotImplementedError, match=r"#7b \(remainder\)"):
-        plan.wrap_zero1(None)
+    from tpudist_torch.optim import ShardedStateOptimizer, make_optimizer
+
+    zero1 = plan.wrap_zero1(make_optimizer(1e-3))
+    assert isinstance(zero1, ShardedStateOptimizer)
+    assert zero1.world == 1 and zero1.skip_spec is None
     saved = {"world_size": 2, "tensor_world": 2, "fsdp_world": 1}
     reason = elastic.refusal_reason(saved, {**saved, "tensor_world": 1})
     assert "only the data axis is elastic" in reason

@@ -7,8 +7,9 @@ The port's copy of :mod:`tpudist.memory` (with :mod:`tpudist.utils.tree`'s
    state dicts, modules, optimizer states or any nesting of them;
    :func:`per_device_bytes` / :func:`state_bytes` under the port's
    placement records (:func:`plan_placements`: a leaf's shard dim and
-   its world, FSDP's and ZeRO-1's; a ZeRO-1 pad leaf is ``[world,
-   cols]`` split on dim 0);
+   its world over the tensor axis, FSDP's and ZeRO-1's, or a list of
+   them applied in turn; a ZeRO-1 pad leaf is ``[world, cols]`` split on
+   dim 0);
 2. an activation estimate, analytic: :func:`transformer_activation_bytes`
    is the reference's word for word;
 3. live stats: :func:`device_memory_stats` reads the caching allocator
@@ -84,20 +85,34 @@ def tree_bytes(tree) -> int:
 def _shard_shape(shape, record) -> tuple:
     """The largest shard one device holds of a leaf of ``shape`` under
     ``record``: None (replicated), ``(dim, world)`` (ceil division, the
-    padded shard an allocator reserves) or ``(dim, world, axis)``; an
-    axis the port does not lay out raises."""
+    padded shard an allocator reserves), ``(dim, world, axis)`` over
+    ``data``, ``fsdp`` or ``tensor``, or a list of them applied in turn
+    (a rank's tensor shard sliced over data; an FSDP shard sliced again
+    over data); an axis the port does not lay out raises."""
     if record is None:
         return tuple(shape)
+    if isinstance(record, list):
+        for r in record:
+            shape = _shard_shape(shape, r)
+        return tuple(shape)
     dim, world, *axis = record
-    if axis and axis[0] not in ("data", "fsdp"):
-        from tpudist_torch.mesh import AXIS_ITEMS, TENSOR_REMAINDER
+    if axis and axis[0] not in ("data", "fsdp", "tensor"):
+        from tpudist_torch.mesh import AXIS_ITEMS
 
         raise NotImplementedError(
             f"a placement over {axis[0]!r} is not ported yet (ROADMAP "
-            f"{AXIS_ITEMS.get(axis[0], TENSOR_REMAINDER)})")
+            f"{AXIS_ITEMS.get(axis[0], 'Queue 1 #7')})")
     out = list(shape)
     out[dim] = -(-out[dim] // int(world))
     return tuple(out)
+
+
+def param_record(record):
+    """The part of a state record that places the parameter itself (its
+    fsdp or tensor shard; ZeRO-1's data slices place the state only)."""
+    parts = record if isinstance(record, list) else [record]
+    kept = [r for r in parts if r is not None and r[2] != "data"]
+    return kept[0] if kept else None
 
 
 def per_device_bytes(tree, shardings=None) -> int:
@@ -126,29 +141,57 @@ def per_device_bytes(tree, shardings=None) -> int:
     return total
 
 
-def plan_placements(params: dict, *, fsdp: int = 1, data: int = 1,
-                    zero1: bool = False, min_size: int = 1024) -> dict:
-    """The placement record of each parameter's leaf under a plan: its
-    ``fsdp`` shard dim (the plan's rule), or, under ZeRO-1 for what
-    FSDP leaves whole, its ``data`` slice (a pad leaf's record is on its
-    stored ``[world, cols]`` shape: apply it with :func:`zero1_shape`)."""
-    from tpudist_torch.mesh import largest_divisible_dim
+def _zero1_record(shape, data: int, min_size: int):
+    """ZeRO-1's record of a leaf of ``shape`` over ``data`` replicas (a pad
+    leaf's record carries its ``cols``: it is stored ``[world, cols]``)."""
     from tpudist_torch.optim import _zero1_layout
+
+    mode, info = _zero1_layout(tuple(shape), data, min_size)
+    if mode == "shard":
+        return (info, data, "data")
+    if mode == "pad":
+        return (0, data, "data", info)
+    return None
+
+
+def plan_placements(params: dict, *, fsdp: int = 1, data: int = 1,
+                    zero1: bool = False, min_size: int = 1024,
+                    tensor: int = 1, table: dict | None = None) -> dict:
+    """The placement record of each leaf's optimizer state under a plan
+    (:func:`param_record` of it places the parameter), from the whole
+    parameters ``params``:
+
+    - a leaf the tensor axis places (``table``, the family's
+      ``tensor_specs``, when ``tensor > 1``) is its tensor shard; under
+      ZeRO-1 without an fsdp axis its state is that shard sliced over
+      ``data`` (the port's placement; the reference slices the whole
+      leaf over data and replicates the slices over tensor); beside an
+      fsdp axis it stays as it is;
+    - every other leaf takes its ``fsdp`` shard dim (the plan's rule),
+      under ZeRO-1 sliced again over ``data`` where ``fsdp x data``
+      divides the dim (the reference's ``(fsdp, data)`` overlay);
+    - what FSDP leaves whole takes its ``data`` slice under ZeRO-1."""
+    from tpudist_torch.mesh import largest_divisible_dim
+    from tpudist_torch.parallel.tp import tensor_spec
 
     out = {}
     for k, p in params.items():
         shape = tuple(p.shape)
+        spec = tensor_spec(k, table=table) if tensor > 1 else None
+        if spec is not None:
+            rec = (0 if spec[0] == "vocab" else spec[0], tensor, "tensor")
+            z = (_zero1_record(_shard_shape(shape, rec), data, min_size)
+                 if zero1 and fsdp == 1 else None)
+            out[k] = rec if z is None else [rec, z]
+            continue
         dim = largest_divisible_dim(shape, fsdp, min_size=min_size)
         if dim is not None:
-            out[k] = (dim, fsdp, "fsdp")
+            rec = (dim, fsdp, "fsdp")
+            if zero1 and data > 1 and shape[dim] % (fsdp * data) == 0:
+                rec = [rec, (dim, data, "data")]
+            out[k] = rec
             continue
-        out[k] = None
-        if zero1:
-            mode, info = _zero1_layout(shape, data, min_size)
-            if mode == "shard":
-                out[k] = (info, data, "data")
-            elif mode == "pad":
-                out[k] = (0, data, "data", info)
+        out[k] = _zero1_record(shape, data, min_size) if zero1 else None
     return out
 
 
@@ -260,22 +303,25 @@ def train_state_budget(
     (``torch.cuda.get_device_properties(...).total_memory``) and is
     required without a card. ``plan`` (a :class:`tpudist_torch.parallel.
     plan.ParallelPlan`, or anything with ``data``/``fsdp``/``tensor``/
-    ``pipe``/``expert``) makes the parameters, gradients and optimizer
-    state per device under its placement (:func:`plan_placements`;
+    ``pipe``/``expert``) makes the parameters and gradients their largest
+    single-rank shard and the optimizer state per device under the plan's
+    placement (:func:`plan_placements` over the model's ``tensor_specs``;
     ZeRO-1 when ``tx`` is :func:`tpudist_torch.optim.shard_state`'s), and
-    the activation estimate's batch ``batch / (data * fsdp)``; a tensor,
-    pipe or expert axis above 1 raises.
+    scales the activation estimate as the reference does: its batch
+    ``batch / (data * fsdp)``, the whole divided by ``tensor``. ``model_fn``
+    builds the whole model (no layout): only the axis sizes are read, so
+    no world is needed. A pipe or expert axis above 1 raises.
 
     Returns the reference's keys: per-component bytes, the per-chip total,
     ``fits`` and ``bytes_per_param``."""
     if plan is not None:
-        from tpudist_torch.mesh import AXIS_ITEMS, TENSOR_REMAINDER
+        from tpudist_torch.mesh import AXIS_ITEMS
 
-        for axis in ("tensor", "pipe", "expert"):
+        for axis in ("pipe", "expert"):
             if getattr(plan, axis, 1) != 1:
                 raise NotImplementedError(
                     f"train_state_budget under a {axis} axis is not ported "
-                    f"yet (ROADMAP {AXIS_ITEMS.get(axis, TENSOR_REMAINDER)})")
+                    f"yet (ROADMAP {AXIS_ITEMS[axis]})")
     if hbm_budget_bytes is None:
         if not torch.cuda.is_available():
             raise ValueError("hbm_budget_bytes is required without a card "
@@ -297,24 +343,25 @@ def train_state_budget(
     params_bytes = tree_bytes(dict(model.named_parameters()))
     opt_leaves = [t for t in _leaves(opt_state) if id(t) not in own]
     opt_bytes = sum(t.numel() * t.element_size() for t in opt_leaves)
+    params_global = params_bytes
     opt_per_chip, grads_per_chip, act_batch = opt_bytes, None, batch
+    tensor = int(getattr(plan, "tensor", 1)) if plan is not None else 1
     if plan is not None or zero1:
         fsdp = int(getattr(plan, "fsdp", 1)) if plan is not None else 1
         data = (int(getattr(plan, "data", 1)) if plan is not None
                 else int(tx.world))
         recs = plan_placements(params, fsdp=fsdp, data=data, zero1=zero1,
                                min_size=getattr(plan, "fsdp_min_size", 1024)
-                               if plan is not None else tx.min_size)
+                               if plan is not None else tx.min_size,
+                               tensor=tensor,
+                               table=getattr(model, "tensor_specs", None))
         named = dict(model.named_parameters())
-        params_bytes = per_device_bytes(named, {
-            k: r for k, r in recs.items() if r is not None and r[2] == "fsdp"})
+        placed = {k: param_record(r) for k, r in recs.items()}
+        params_bytes = per_device_bytes(named, placed)
         grads_per_chip = per_device_bytes(
             {k: torch.empty(p.shape, device="meta", dtype=torch.uint8)
-             for k, p in named.items()},
-            {k: r for k, r in recs.items()
-             if r is not None and r[2] == "fsdp"}) * grad_dtype_bytes
-        opt_per_chip = sum(
-            _leaf_per_device(t, recs, named) for t in opt_leaves)
+             for k, p in named.items()}, placed) * grad_dtype_bytes
+        opt_per_chip = _state_per_device(opt_state, opt_leaves, recs)
         act_batch = -(-batch // (fsdp * data))
     acts = transformer_activation_bytes(
         act_batch, seq, int(getattr(model, "hidden_dim", 0) or 0),
@@ -322,12 +369,12 @@ def train_state_budget(
         num_heads=getattr(model, "num_heads", None),
         remat_policy=remat_policy,
         attention_scores=getattr(model, "attn_impl", "xla") in ("xla", "auto"),
-    )
+    ) // max(tensor, 1)
     grads = (n_params * grad_dtype_bytes if grads_per_chip is None
              else grads_per_chip)
     subtotal = params_bytes + opt_per_chip + acts + grads
     per_chip_total = int(subtotal * (1.0 + workspace_fraction))
-    return {
+    out = {
         "n_params": int(n_params),
         "world_size": int(world_size),
         "remat_policy": str(remat_policy),
@@ -342,22 +389,41 @@ def train_state_budget(
         "fits": bool(per_chip_total <= hbm_budget_bytes),
         "bytes_per_param": round(per_chip_total / max(n_params, 1), 2),
     }
+    if plan is not None:
+        # the reference's plan keys
+        worlds = {f"{a}_world": int(getattr(plan, a, 1))
+                  for a in ("fsdp", "tensor", "pipe", "expert")}
+        out["params_bytes_global"] = int(params_global)
+        out["plan"] = (plan.describe() if hasattr(plan, "describe") else
+                       f"ParallelPlan(data={int(getattr(plan, 'data', 1))}, "
+                       f"fsdp={worlds['fsdp_world']}, pipe=1, "
+                       f"tensor={worlds['tensor_world']}, expert=1)")
+        out.update(worlds)
+    return out
 
 
-def _leaf_per_device(t, recs: dict, params: dict) -> int:
-    """Per-device bytes of one optimizer-state leaf: the record of the
-    parameter it mirrors (same shape), a ZeRO-1 pad leaf its ``cols``."""
-    for k, p in params.items():
-        if tuple(t.shape) != tuple(p.shape) or recs.get(k) is None:
+def _state_per_device(opt_state, leaves: list, recs: dict) -> int:
+    """Per-device bytes of an optimizer state's ``leaves``: one stored
+    under a parameter's name takes that parameter's record (a ZeRO-1 pad
+    record its ``cols``), any other is replicated."""
+    from tpudist_torch.optim import _named_leaves
+
+    owner = {}
+    for k in recs:
+        for t in _named_leaves(opt_state, k):
+            owner.setdefault(id(t), k)
+    total = 0
+    for t in leaves:
+        rec = recs.get(owner.get(id(t)))
+        last = rec[-1] if isinstance(rec, list) else rec
+        if last is not None and len(last) == 4:
+            total += last[3] * t.element_size()
             continue
-        rec = recs[k]
-        if len(rec) == 4:
-            return rec[3] * t.element_size()
         n = 1
-        for d in _shard_shape(tuple(t.shape), rec[:3]):
+        for d in _shard_shape(tuple(t.shape), rec):
             n *= d
-        return n * t.element_size()
-    return t.numel() * t.element_size()
+        total += n * t.element_size()
+    return total
 
 
 def budget_columns(report: Mapping[str, Any] | None = None, *,

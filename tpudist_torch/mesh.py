@@ -16,11 +16,13 @@ peers (FSDP shards parameters over them) and its data replicas (the
 ranks with its fsdp, seq and tensor coordinates; DDP, the explicit
 reducer and ZeRO-1 work over them). The batch is split over ``data x
 fsdp`` jointly (:attr:`RankLayout.replica`), as the reference's
-``batch_sharding`` splits it; the tensor ranks of a replica share its
-batch. ``fsdp`` with ``seq > 1`` is refused, as the reference's
-``train_gpt2.py`` refuses it; ``tensor > 1`` with ``fsdp > 1`` or ``seq >
-1`` waits for the rest of ROADMAP Queue 1 #7b; pipe and expert raise,
-naming their ROADMAP items.
+``batch_sharding`` splits it; the tensor and seq ranks of a replica share
+its batch. A rank's batch peers (:attr:`RankLayout.batch_group`) are the
+ranks with its tensor index: its data, fsdp and seq peers together, over
+which the gradients of what the tensor axis holds in shards are
+averaged. ``fsdp`` with ``seq > 1`` is refused, as the reference's
+``train_gpt2.py`` refuses it; ``tensor`` composes with either; pipe and
+expert raise, naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -61,7 +63,6 @@ class MeshConfig:
                 "fsdp does not compose with seq > 1 (the context-parallel "
                 "step keeps parameters replicated), as the reference's "
                 "train_gpt2.py refuses --fsdp with --cp")
-        refuse_tensor_with(self.tensor, fsdp=self.fsdp, seq=self.seq)
 
     def axis_sizes(self, world: int) -> dict[str, int]:
         """``{"data": ..., "fsdp": ..., "seq": ..., "tensor": ...}`` over
@@ -87,29 +88,12 @@ class MeshConfig:
                 "fsdp does not compose with seq > 1 (the context-parallel "
                 "step keeps parameters replicated), as the reference's "
                 "train_gpt2.py refuses --fsdp with --cp")
-        refuse_tensor_with(sizes[TENSOR_AXIS], fsdp=sizes[FSDP_AXIS],
-                           seq=sizes[SEQUENCE_AXIS])
         return sizes
 
 
 #: the ROADMAP items that port the axes the layout still refuses
 AXIS_ITEMS = {PIPELINE_AXIS: "Queue 1 #7c (the pipeline)",
               EXPERT_AXIS: "Queue 1 #7d (experts)"}
-#: the ROADMAP item of what tensor parallelism does not compose with yet
-TENSOR_REMAINDER = "Queue 1 #7b (remainder)"
-
-
-def refuse_tensor_with(tensor: int, *, fsdp: int = 1, seq: int = 1) -> None:
-    """``tensor > 1`` composes with ``data`` only so far: with ``fsdp`` or
-    ``seq`` above 1 it raises ``NotImplementedError`` naming the ROADMAP
-    item that ports the composition."""
-    if tensor > 1 and (fsdp > 1 or seq > 1):
-        other = f"fsdp={fsdp}" if fsdp > 1 else f"seq={seq}"
-        raise NotImplementedError(
-            f"tensor={tensor} with {other} is not ported yet (ROADMAP "
-            f"{TENSOR_REMAINDER}: compose_fsdp over fsdp x tensor, seq x "
-            "tensor); the port lays tensor parallelism out over data x "
-            "tensor")
 
 
 def largest_divisible_dim(shape, size: int, *,
@@ -140,10 +124,12 @@ def largest_divisible_spec(shape, axis: str, size: int, *,
 class RankLayout:
     """This rank's place in a ``data x fsdp x seq x tensor`` world. A group
     is None when its axis is 1 (no collective). ``device_mesh`` is the
-    ``torch.distributed`` DeviceMesh over the same groups: ``(data,
-    fsdp)``, ``(data, tensor)``, or the one of them above 1 (None when
-    every axis is 1): FSDP2, the ZeRO-1 DTensors and the tensor shards in
-    a checkpoint are placed on it."""
+    ``torch.distributed`` DeviceMesh over the same groups, one dim for
+    each axis above 1 in the order ``data, fsdp, seq, tensor`` (seq only
+    beside a tensor axis; None when every axis is 1): FSDP2
+    (:meth:`fsdp_mesh`), the ZeRO-1 DTensors (:meth:`data_mesh`) and the
+    tensor shards in a checkpoint are placed on it. ``batch_group``: the
+    ranks with this rank's tensor index (None: none other)."""
 
     rank: int
     data: int
@@ -155,6 +141,7 @@ class RankLayout:
     device_mesh: object = None
     tensor: int = 1
     tensor_group: object = None
+    batch_group: object = None
 
     @property
     def data_idx(self) -> int:
@@ -183,23 +170,32 @@ class RankLayout:
         """This rank's index among the ``data * fsdp`` batch replicas."""
         return self.data_idx * self.fsdp + self.fsdp_idx
 
+    def _sub_mesh(self, *axes: str):
+        """The DeviceMesh of ``axes`` (those above 1), None without one."""
+        axes = tuple(a for a in axes if getattr(self, a) > 1)
+        if not axes:
+            return None
+        if self.device_mesh.mesh_dim_names == axes:
+            return self.device_mesh
+        return self.device_mesh[axes if len(axes) > 1 else axes[0]]
+
     def data_mesh(self):
         """The 1-D DeviceMesh of this rank's data replicas (None with one
         data replica)."""
-        if self.data == 1:
-            return None
-        if self.device_mesh.ndim == 1:
-            return self.device_mesh
-        return self.device_mesh[DATA_AXIS]
+        return self._sub_mesh(DATA_AXIS)
 
     def tensor_mesh(self):
         """The 1-D DeviceMesh of this rank's tensor peers (None with one
         tensor rank)."""
-        if self.tensor == 1:
+        return self._sub_mesh(TENSOR_AXIS)
+
+    def fsdp_mesh(self):
+        """The DeviceMesh FSDP2 shards over: ``(data, fsdp)`` (hybrid:
+        sharded over fsdp, replicated over data) or ``fsdp``, the ranks
+        with this rank's tensor index; None with one fsdp rank."""
+        if self.fsdp == 1:
             return None
-        if self.device_mesh.ndim == 1:
-            return self.device_mesh
-        return self.device_mesh[TENSOR_AXIS]
+        return self._sub_mesh(DATA_AXIS, FSDP_AXIS)
 
     def __deepcopy__(self, memo):
         # process groups are process-wide: a copied model shares them
@@ -219,10 +215,25 @@ def _groups(rank: int, world: int, stride: int, size: int):
     return mine
 
 
-def create_layout(config: MeshConfig = MeshConfig()) -> RankLayout:
+def _strided(rank: int, world: int, tensor: int):
+    """Create (on every rank, in the same order) the groups of the ranks
+    that share a tensor index; return this rank's."""
+    mine = None
+    for t in range(tensor):
+        ranks = list(range(t, world, tensor))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
+
+
+def create_layout(config: MeshConfig = MeshConfig(), *,
+                  device_type: str | None = None) -> RankLayout:
     """The layout of this rank in the formed world (one rank without a
     process group). Every rank must call it, in the same order as its
-    other group creations."""
+    other group creations. ``device_type`` is the DeviceMesh's (where
+    FSDP2 keeps its shards): by default ``cuda`` under NCCL, else ``cpu``;
+    ranks that hold CUDA tensors over gloo pass ``cuda``."""
     if dist.is_available() and dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
     else:
@@ -231,6 +242,7 @@ def create_layout(config: MeshConfig = MeshConfig()) -> RankLayout:
     data, fsdp, seq = sizes[DATA_AXIS], sizes[FSDP_AXIS], sizes[SEQUENCE_AXIS]
     tensor = sizes[TENSOR_AXIS]
     seq_group = data_group = fsdp_group = tensor_group = device_mesh = None
+    batch_group = None
     if tensor > 1 and tensor < world:
         tensor_group = _groups(rank, world, 1, tensor)
     elif tensor > 1:
@@ -243,23 +255,30 @@ def create_layout(config: MeshConfig = MeshConfig()) -> RankLayout:
         data_group = _groups(rank, world, fsdp * seq * tensor, data)
     elif data > 1:
         data_group = dist.group.WORLD
-    # the mesh's second axis: fsdp or tensor (they do not compose yet)
-    inner, inner_group = ((TENSOR_AXIS, tensor_group) if tensor > 1
-                          else (FSDP_AXIS, fsdp_group))
-    inner_size = max(tensor, fsdp)
-    if data > 1 or inner_size > 1:
+    if tensor > 1 and tensor < world:
+        # the ranks with this rank's tensor index: data x fsdp x seq
+        batch_group = _strided(rank, world, tensor)
+    elif tensor == 1 and world > 1:
+        batch_group = dist.group.WORLD
+    axes = [(a, n, g) for a, n, g in (
+        (DATA_AXIS, data, data_group), (FSDP_AXIS, fsdp, fsdp_group),
+        (SEQUENCE_AXIS, seq if tensor > 1 else 1, seq_group),
+        (TENSOR_AXIS, tensor, tensor_group)) if n > 1]
+    if axes:
         import torch
         from torch.distributed.device_mesh import DeviceMesh
 
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        if data > 1 and inner_size > 1:
+        if device_type is None:
+            device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        names = tuple(a for a, _, _ in axes)
+        if len(axes) > 1:
             device_mesh = DeviceMesh.from_group(
-                [data_group, inner_group], device_type,
-                mesh=torch.arange(world).view(data, inner_size),
-                mesh_dim_names=(DATA_AXIS, inner))
+                [g for _, _, g in axes], device_type,
+                mesh=torch.arange(world).view(*(n for _, n, _ in axes)),
+                mesh_dim_names=names)
         else:
-            device_mesh = DeviceMesh.from_group(
-                data_group if data > 1 else inner_group, device_type,
-                mesh_dim_names=(DATA_AXIS if data > 1 else inner,))
+            device_mesh = DeviceMesh.from_group(axes[0][2], device_type,
+                                                mesh_dim_names=names)
     return RankLayout(rank, data, seq, seq_group, data_group, fsdp,
-                      fsdp_group, device_mesh, tensor, tensor_group)
+                      fsdp_group, device_mesh, tensor, tensor_group,
+                      batch_group)

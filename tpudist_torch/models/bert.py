@@ -136,7 +136,8 @@ class EncoderBlock(nn.Module):
                     "dense fixed-length windows); pad-free batches or the "
                     "xla/flash impls")
             attn = context_parallel_attention(
-                q, k, v, self.attn_impl, self.layout.seq_group, causal=False)
+                q, k, v, self.attn_impl, self.layout.seq_group, causal=False,
+                layout=self.layout)
         else:
             key_mask = (None if attention_mask is None
                         else attention_mask[:, None, None, :].bool())
@@ -475,8 +476,9 @@ def mlm_forward(model: Bert, chunk: int | None = None, layout=None):
     and ``mlm_mask`` sliced alike, no shift), and the step's ``loss x
     seq`` backward completes the sum over the chunks. A model on a tensor
     axis scores its vocabulary-local logits with the vocabulary-parallel
-    CE, and its masked count is summed over the data group alone: the
-    tensor ranks of a replica hold the same batch."""
+    CE, and its masked count is summed over the ranks with its tensor
+    index alone (the data group, with the seq group under a seq axis):
+    the tensor ranks of a replica hold the same batch."""
     if getattr(model, "dropout", 0.0):
         raise ValueError(
             "mlm_forward has no rng stream; use dropout=0 (match "
@@ -496,8 +498,8 @@ def mlm_forward(model: Bert, chunk: int | None = None, layout=None):
         count = mask.sum()
         data = 1
         if tp_layout is not None:
-            if tp_layout.data > 1:
-                dist.all_reduce(count, group=tp_layout.data_group)
+            if tp_layout.batch_group is not None:
+                dist.all_reduce(count, group=tp_layout.batch_group)
             data = tp_layout.data
         elif group_up():
             dist.all_reduce(count)

@@ -32,7 +32,9 @@ reference's ``nn.with_partitioning`` annotations) each rank holds
 sum, the tied head this rank's logit columns), and ``wpe`` and the
 LayerNorms stay whole, on whole rows. The random init draws every leaf
 whole from the seeded generator, then keeps this rank's shard, so a
-sharded model computes the unsharded one's function. Training reads the
+sharded model computes the unsharded one's function. With a seq axis too
+each attention (ring, Ulysses, the gathered one) runs over the seq group
+on the rank's heads. Training reads the
 vocabulary-local logits (``forward(vocab_local=True)``, for
 :func:`tpudist_torch.parallel.tp.vocab_parallel_cross_entropy`); every
 other forward, decode included, gathers them whole.
@@ -128,12 +130,6 @@ def check_attn_impl(attn_impl: str, layout, *, gather: bool = True) -> None:
         raise ValueError(
             f"a seq axis of {layout.seq} needs a sequence-parallel "
             "attention: attn_impl ring, ulysses or ulysses_flash")
-    if attn_impl in CP_IMPLS and tensor_size(layout) > 1:
-        from tpudist_torch.mesh import TENSOR_REMAINDER
-
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} under a tensor axis (seq x tensor) is "
-            f"not ported yet (ROADMAP {TENSOR_REMAINDER})")
 
 
 def check_tensor(model) -> int:
@@ -302,7 +298,8 @@ class Block(nn.Module):
                 )
         elif self.attn_impl in CP_IMPLS:
             attn = context_parallel_attention(
-                q, k, v, self.attn_impl, self.layout.seq_group, causal=True)
+                q, k, v, self.attn_impl, self.layout.seq_group, causal=True,
+                layout=self.layout)
         elif gathers_sequence(self):
             attn = gathered_attention_local(
                 q, k, v, group=self.layout.seq_group, causal=True,

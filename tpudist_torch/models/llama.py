@@ -232,7 +232,8 @@ class LlamaBlock(nn.Module):
             # the CP bodies shard and rotate whole head sets
             k, v = repeat_kv(q, k, v)
             attn = context_parallel_attention(
-                q, k, v, self.attn_impl, self.layout.seq_group, causal=True)
+                q, k, v, self.attn_impl, self.layout.seq_group, causal=True,
+                layout=self.layout)
         elif gathers_sequence(self):
             pos = torch.arange(offset, offset + s, dtype=torch.float32,
                                device=x.device)

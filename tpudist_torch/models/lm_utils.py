@@ -159,7 +159,7 @@ def chunked_lm_forward(model, chunk: int = 256, layout=None) -> Callable:
             hidden = module(local, return_hidden=True)
             return chunked_ce_sum(lm_head_weight(model), hidden,
                                   labels.clamp(min=0), labels >= 0,
-                                  chunk) / (b * (s - 1))
+                                  chunk, model=model) / (b * (s - 1))
         hidden = module(tokens, return_hidden=True)
         h, targets = hidden[:, :-1], tokens[:, 1:]
         b, s, _ = h.shape

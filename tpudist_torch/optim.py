@@ -32,7 +32,11 @@ gradients are DTensors: every optimizer works on their local shards
 clip and the guard's flag span the fsdp group. :func:`shard_state` is
 ZeRO-1: each state leaf is stored as this rank's slice over the data
 replicas (:class:`ShardedStateOptimizer`), and
-:meth:`Optimizer.slice_over` makes the guard's flag span them.
+:meth:`Optimizer.slice_over` makes the guard's flag span them. Under a
+tensor axis a rank slices its own tensor shards over its data replicas;
+under FSDP with more than one data replica a leaf FSDP shards on a dim
+``fsdp x data`` divides has its state sliced again over data (the
+reference's ``(fsdp, data)`` overlay).
 """
 
 from __future__ import annotations
@@ -227,6 +231,10 @@ class Optimizer:
     #: update slices; Lamb's trust ratio and Muon's orthogonalization read
     #: the whole leaf)
     elementwise = True
+    #: names whose (plain) parameters :meth:`init` takes as masters, as it
+    #: takes FSDP's shards: no compute copy of them (ZeRO-1's slices of
+    #: FSDP's shards)
+    master_names = frozenset()
 
     def __init__(self, learning_rate: float | Callable[[int], float] = 1e-3,
                  *, weight_decay: float = 0.0,
@@ -236,8 +244,8 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.mask = mask
         self.clip_norm = clip_norm
-        self.shard_group = None
-        self.sharded = frozenset()
+        #: ``[(group, names)]``: the leaves each group holds in shards
+        self.shards = []
         self.sliced = False
         self.slice_group = None
 
@@ -246,13 +254,17 @@ class Optimizer:
         leaves split over ``group`` (FSDP's or the tensor axis's); the
         others are replicated
         over it. The clip's global norm and the guard's flag then sum over
-        the group, so every rank takes the same decision."""
+        the group, so every rank takes the same decision. Called once for
+        each of two groups (fsdp x tensor: a leaf is split over one of
+        them at most), the norm sums each group's leaves over its own
+        group; a second call for the same group replaces the first."""
         if not self.elementwise and sharded:
             raise NotImplementedError(
                 f"{type(self).__name__} reads whole leaves (not an "
                 "element-wise update), and FSDP or the tensor axis holds "
                 "shards of them: run it without --fsdp / --tensor")
-        self.shard_group, self.sharded = group, frozenset(sharded)
+        self.shards = [(g, n) for g, n in self.shards if g is not group]
+        self.shards.append((group, frozenset(sharded)))
 
     def slice_over(self, group) -> None:
         """:meth:`step` takes this rank's slices of gradients that are whole
@@ -263,22 +275,34 @@ class Optimizer:
         self.sliced, self.slice_group = True, group
 
     def _flag_groups(self) -> list:
-        return [g for g in (self.shard_group, self.slice_group)
+        return [g for g in (*(g for g, _ in self.shards), self.slice_group)
                 if g is not None]
 
     def global_norm(self, grads: dict) -> torch.Tensor:
         """optax's ``global_norm`` of ``grads``; over the shard group the
         squares of sharded leaves are summed over the ranks, a replicated
         leaf's counted once."""
-        if self.shard_group is None:
+        if not self.shards:
             return global_norm(grads.values())
         import torch.distributed as dist
 
-        n = dist.get_world_size(self.shard_group)
-        parts = [torch.sum(torch.square(g.float())) * (
-            1.0 if k in self.sharded else 1.0 / n) for k, g in grads.items()]
-        total = torch.stack(parts).sum()
-        dist.all_reduce(total, group=self.shard_group)
+        sq = {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+        if len(self.shards) == 1:
+            group, sharded = self.shards[0]
+            n = dist.get_world_size(group)
+            total = torch.stack([v * (1.0 if k in sharded else 1.0 / n)
+                                 for k, v in sq.items()]).sum()
+            dist.all_reduce(total, group=group)
+            return torch.sqrt(total)
+        held = set().union(*(n for _, n in self.shards))
+        zero = [next(iter(sq.values())).new_zeros(())]
+        total = torch.stack([v for k, v in sq.items() if k not in held]
+                            or zero).sum()
+        for group, sharded in self.shards:
+            part = torch.stack([v for k, v in sq.items() if k in sharded]
+                               or zero).sum()
+            dist.all_reduce(part, group=group)
+            total = total + part
         return torch.sqrt(total)
 
     def all_finite(self, grads: dict) -> torch.Tensor:
@@ -316,7 +340,7 @@ class Optimizer:
         shard group), or ``grads`` itself without a ``clip_norm``."""
         if self.clip_norm is None:
             return grads
-        if self.shard_group is None:
+        if not self.shards:
             return clip_by_global_norm(grads, self.clip_norm)
         norm = self.global_norm(grads)
         keep = norm < self.clip_norm
@@ -416,6 +440,7 @@ class FusedAdamW(Adam):
         # FSDP's sharded parameters: their local shards are the masters,
         # and FSDP's mixed-precision cast at the all-gather makes the copy
         sharded = {k for k, p in params.items() if hasattr(p, "to_local")}
+        sharded |= self.master_names
         params = local_dict(params)
         if self.compute_dtype is None:
             master = dict(params)
@@ -807,11 +832,19 @@ class ZeroState:
     world: int
     rank: int
     mesh: object = None
+    #: the sliced leaves that are themselves a rank's shard (a tensor
+    #: shard, an FSDP shard): a checkpoint holds them gathered over the
+    #: data replicas, at the shard's shape, which the train state places
+    #: as the parameter is placed
+    nested: frozenset = frozenset()
 
     def _dtensor(self, name: str, t: torch.Tensor):
         mode, info = self.modes[name]
         if mode == "replicate" or self.mesh is None:
             return t
+        if name in self.nested:
+            return _assemble(_all_gather(self, t), mode, info,
+                             local(self.params[name]).shape)
         from torch.distributed.tensor import DTensor, Shard
 
         shape = self.params[name].shape
@@ -845,10 +878,15 @@ class ZeroState:
         slices and the module's parameters agree: a parameter loaded in
         full refreshes its slice; a master held in slices is gathered into
         the parameter."""
-        def unwrap(x):
+        def unwrap(x, name=None):
             if isinstance(x, dict):
-                return {k: unwrap(v) for k, v in x.items()}
-            return local(x)
+                return {k: unwrap(v, k) for k, v in x.items()}
+            x = local(x)
+            if name in self.nested and isinstance(x, torch.Tensor) and (
+                    x.shape == local(self.params[name]).shape):
+                # held gathered over the data replicas: this rank's slice
+                x = _slice_of(x, *self.modes[name], self.world, self.rank)
+            return x
 
         self.inner.load_state_dict(unwrap(sd))
         held = getattr(_base_state(self.inner), "master", {})
@@ -856,7 +894,7 @@ class ZeroState:
             if (mode == "replicate" or name in held
                     or self.slices[name] is self.params[name]):
                 continue
-            self.slices[name].copy_(_slice_of(self.params[name], mode,
+            self.slices[name].copy_(_slice_of(local(self.params[name]), mode,
                                               self.modes[name][1],
                                               self.world, self.rank))
         if held:
@@ -873,7 +911,7 @@ class ZeroState:
             # a whole-leaf optimizer keeps the parameters whole
             out[name] = (src if mode == "replicate" or src is p else
                          _assemble(_all_gather(self, src), mode, info,
-                                   p.shape))
+                                   local(p).shape))
         return out
 
 
@@ -960,6 +998,8 @@ class ShardedStateOptimizer:
         self.world, self.rank, self.mesh = int(world), int(rank), mesh
         self.min_size = int(min_size)
         self.skip_spec = skip_spec
+        # whether FSDP shards the model (set by init from its parameters)
+        self.fsdp = False
         base = self._base()
         if base.elementwise:
             # the inner step takes slices: its guard (the check kernel
@@ -978,10 +1018,25 @@ class ShardedStateOptimizer:
     def _base(self):
         return getattr(self.inner, "inner", self.inner)
 
-    def layout(self, p) -> tuple:
-        """The leaf's classification: a DTensor (FSDP already shards it)
-        or a leaf ``skip_spec`` exempts stays natural (``replicate``)."""
-        if hasattr(p, "to_local") or (
+    def _held(self) -> frozenset:
+        """The names the inner optimizer was told are shards of a group
+        (:meth:`Optimizer.shard_over`: the tensor axis's, FSDP's)."""
+        return frozenset().union(*(n for _, n in self._base().shards))
+
+    def layout(self, p, name: str | None = None) -> tuple:
+        """The leaf's classification: a DTensor (FSDP's shard) is sliced
+        again over data on FSDP's dim where that dim divides (the
+        reference's ``(fsdp, data)`` overlay), else stays natural
+        (``replicate``); beside FSDP a leaf a group holds in shards (the
+        tensor axis's) stays natural, as does one ``skip_spec``
+        exempts."""
+        if hasattr(p, "to_local"):
+            dim = getattr(p.placements[-1], "dim", None)
+            if (self.world > 1 and dim is not None
+                    and p.to_local().shape[dim] % self.world == 0):
+                return ("shard", dim)
+            return ("replicate", None)
+        if (self.fsdp and name in self._held()) or (
                 self.skip_spec is not None and self.skip_spec(tuple(p.shape))):
             return ("replicate", None)
         return _zero1_layout(tuple(p.shape), self.world, self.min_size)
@@ -989,35 +1044,46 @@ class ShardedStateOptimizer:
     @torch.no_grad()
     def init(self, params: dict) -> ZeroState:
         base = self._base()
-        modes = {k: self.layout(p) for k, p in params.items()}
+        self.fsdp = any(hasattr(p, "to_local") for p in params.values())
+        modes = {k: self.layout(p, k) for k, p in params.items()}
+        held = self._held()
+        nested = frozenset(
+            k for k, p in params.items() if modes[k][0] != "replicate"
+            and (k in held or hasattr(p, "to_local")))
         if not base.elementwise:
             # Lamb's trust ratio and Muon's orthogonalization read whole
             # leaves: the state is built whole and stored as slices
             state = ZeroState(self.inner.init(dict(params)), dict(params),
                               modes, dict(params), self.world, self.rank,
-                              self.mesh)
+                              self.mesh, nested)
             for name, (mode, info) in modes.items():
                 if mode != "replicate":
                     _reslice(state.inner, name, mode, info, self.world,
                              self.rank)
             return state
         slices = {k: (p if modes[k][0] == "replicate" else
-                      _slice_of(p, *modes[k], self.world, self.rank))
+                      _slice_of(local(p), *modes[k], self.world, self.rank))
                   for k, p in params.items()}
         if base.mask is not None:
             # the decay mask reads the leaves' natural shapes (a pad slice
             # of a 1-D leaf is 2-D)
             natural = base.mask(params)
             base.mask = lambda _slices: natural
+        # an FSDP shard's slices are masters: FSDP casts the gathered
+        # parameter to the compute dtype itself
+        fsdp = {k for k, p in params.items()
+                if hasattr(p, "to_local") and modes[k][0] != "replicate"}
+        base.master_names = frozenset(fsdp)
         inner = self.inner.init(slices)
         if self.compute_dtype is not None:
             # the module holds the whole compute copy, gathered each step
             # from the slices the kernel writes
             for k, p in params.items():
-                if modes[k][0] != "replicate" and p.is_floating_point():
+                if (modes[k][0] != "replicate" and p.is_floating_point()
+                        and k not in fsdp):
                     p.data = p.data.to(self.compute_dtype)
         return ZeroState(inner, slices, modes, dict(params), self.world,
-                         self.rank, self.mesh)
+                         self.rank, self.mesh, nested)
 
     @torch.no_grad()
     def update(self, state: ZeroState, grads: dict):
@@ -1089,7 +1155,8 @@ def shard_state(tx, layout=None, *, world: int | None = None,
     AdamW then runs its kernel once a step over the table of this rank's
     slices, bit-equal on those elements to the replicated launch (AdamW is
     element-wise). ``skip_spec(shape) -> bool`` exempts leaves (the plan's
-    fsdp-sharded ones)."""
+    fsdp-sharded ones); FSDP's shards and, beside them, the tensor axis's
+    are classified by :meth:`ShardedStateOptimizer.layout`."""
     if layout is not None:
         world = layout.data
         rank = layout.data_idx

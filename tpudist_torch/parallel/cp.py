@@ -45,6 +45,15 @@ positions ``i S/n ..``):
   exchanges one tensor, not three partial gradients; the price is the
   reference's, n-fold attention work.
 
+Under a tensor axis (seq x tensor) each rank holds ``H / T`` heads of q,
+k and v, and each attention here runs over the seq group on those heads:
+attention is parallel over heads, so the result is the reference's,
+whose ``shard_map`` keeps every head on every tensor rank. Ulysses splits
+a rank's heads over the seq group; where ``H / T`` does not divide by
+``n`` (the reference asks only ``H % n == 0``), q, k and v are gathered
+over the tensor group first, Ulysses runs on every head, and the rank
+keeps its heads of the output (:func:`context_parallel_attention`).
+
 ``n == 1`` takes no collective: Ulysses calls ``attn_fn`` on its inputs
 and the ring makes one hop. The exchanges go through a small object: the
 process group's (:class:`GroupComm`: ``dist.batch_isend_irecv`` to
@@ -83,19 +92,26 @@ class GroupComm:
 
     def rotate(self, tensors):
         """Send each tensor to seq rank ``i + 1``; return those received
-        from ``i - 1``."""
+        from ``i - 1``. Over gloo a CUDA tensor travels through host
+        memory: gloo's point-to-point ops take host buffers only (its
+        collectives stage CUDA tensors themselves), as ranks sharing one
+        card use it."""
         i = self.ranks[0]
         dst = dist.get_global_rank(self.group, (i + 1) % self.n)
         src = dist.get_global_rank(self.group, (i - 1) % self.n)
+        host = (dist.get_backend(self.group) == "gloo"
+                and any(t.is_cuda for t in tensors))
+        where = torch.device("cpu") if host else None
+        sent = [t.to(where or t.device).contiguous() for t in tensors]
         got = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-               for t in tensors]
+               for t in sent]
         ops = []
-        for t, g in zip(tensors, got):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, self.group))
+        for t, g in zip(sent, got):
+            ops.append(dist.P2POp(dist.isend, t, dst, self.group))
             ops.append(dist.P2POp(dist.irecv, g, src, self.group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return got
+        return [g.to(t.device) for g, t in zip(got, tensors)] if host else got
 
     def all_to_all(self, x):
         """``x [1, n, ...]``: part ``j`` to seq rank ``j``; returns
@@ -417,12 +433,33 @@ def gathered_attention_loopback(q, k, v, n: int, *, causal: bool = False,
         attn_fn or multi_head_attention, LoopbackComm(n), causal))
 
 
-def context_parallel_attention(q, k, v, impl: str, group, *, causal: bool):
+def _gather_heads(x, layout):
+    """``[B, s, H / T, D]`` -> ``[B, s, H, D]``, the tensor ranks' heads in
+    rank order (backward: this rank's heads of the gradient)."""
+    from tpudist_torch.parallel.tp import gather_from_tensor
+
+    return gather_from_tensor(x.movedim(2, -1), layout).movedim(-1, 2)
+
+
+def context_parallel_attention(q, k, v, impl: str, group, *, causal: bool,
+                               layout=None):
     """The models' context-parallel attention by ``attn_impl``: ``"ring"``,
     ``"ulysses"`` (dense per head group) or ``"ulysses_flash"`` (the
-    kernels, :func:`~tpudist_torch.ops.attention.kernel_attention`)."""
+    kernels, :func:`~tpudist_torch.ops.attention.kernel_attention`), on
+    the heads this rank holds. ``layout``: the model's, whose tensor group
+    Ulysses gathers the heads over when a rank's do not divide over the
+    seq group (module docstring)."""
     if impl == "ring":
         return ring_attention_local(q, k, v, group=group, causal=causal)
-    return ulysses_attention_local(
-        q, k, v, group=group, causal=causal,
-        attn_fn=kernel_attention if impl == "ulysses_flash" else None)
+    attn_fn = kernel_attention if impl == "ulysses_flash" else None
+    n = 1 if group is None else dist.get_world_size(group)
+    t = getattr(layout, "tensor", 1) if layout is not None else 1
+    if t == 1 or q.shape[2] % n == 0:
+        return ulysses_attention_local(q, k, v, group=group, causal=causal,
+                                       attn_fn=attn_fn)
+    h = q.shape[2]
+    out = ulysses_attention_local(
+        *(_gather_heads(x, layout) for x in (q, k, v)), group=group,
+        causal=causal, attn_fn=attn_fn)
+    i = layout.tensor_idx
+    return out[:, :, i * h:(i + 1) * h]

@@ -22,8 +22,20 @@ The fused AdamW under FSDP runs its kernel over the local shards: FSDP's
 sharded float32 parameters are the masters, and the bf16 compute copy is
 FSDP2's ``MixedPrecisionPolicy(param_dtype=bf16)`` cast at the
 all-gather, which rounds the new master as the kernel's own ``(p +
-u).to(bf16)`` does. FSDP composed with tensor parallelism
-(:func:`compose_fsdp`) waits for that item.
+u).to(bf16)`` does.
+
+FSDP composed with tensor parallelism (:func:`compose_fsdp`, the
+reference's rule, ``tpudist.parallel.plan._leaf_sharding``): a leaf the
+tensor axis places (the family's ``tensor_specs``) keeps that placement
+and is not sharded over fsdp (it joins ``ignored_params``); every other
+leaf takes the fsdp rule. FSDP2 runs over the ranks with this rank's
+tensor index (:meth:`tpudist_torch.mesh.RankLayout.fsdp_mesh`: ``(data,
+fsdp)`` or ``fsdp``), never over the tensor group. The gradients of
+every ignored leaf (the tensor shards and the small replicated leaves)
+are averaged by the train step over the same ranks
+(:attr:`~tpudist_torch.mesh.RankLayout.batch_group`). Sharding the
+tensor shards over fsdp as well would hold fewer bytes; the reference
+does not place them so, and neither does the port.
 """
 
 from __future__ import annotations
@@ -65,12 +77,19 @@ def apply_fsdp(model: nn.Module, layout, tx=None, *,
     copy the gathered parameters are cast to the copy's dtype. Over a
     group of one rank every dim divides: each leaf of ``min_size``
     elements or more is a (whole) shard on its largest dim, so one card
-    runs FSDP2's gathers, casts and reductions for real. Returns ``{name:
-    shard dim or None}``."""
+    runs FSDP2's gathers, casts and reductions for real. A model on a
+    layout with a tensor axis keeps its tensor shards whole on the rank
+    (:func:`compose_fsdp`). Returns ``{name: shard dim or None}``."""
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
 
-    def dim(shape):
+    from tpudist_torch.parallel import tp as tp_lib
+
+    placed = set(tp_lib.sharded_names(model))
+
+    def dim(name, shape):
+        if name in placed:
+            return None
         if layout.fsdp > 1:
             return largest_divisible_dim(shape, layout.fsdp,
                                          min_size=min_size)
@@ -78,7 +97,7 @@ def apply_fsdp(model: nn.Module, layout, tx=None, *,
             return None
         return max((d, i) for i, d in enumerate(shape))[1]
 
-    dims = {k: dim(tuple(p.shape)) for k, p in model.named_parameters()}
+    dims = {k: dim(k, tuple(p.shape)) for k, p in model.named_parameters()}
     for k, p in model.named_parameters():
         if dims[k] is not None and not p.is_contiguous():
             # FSDP2 shards contiguous parameters only (a ResNet's
@@ -91,7 +110,8 @@ def apply_fsdp(model: nn.Module, layout, tx=None, *,
         return Shard(by_param[p])
 
     copy = getattr(tx, "compute_dtype", None) if tx is not None else None
-    kw = dict(mesh=layout.device_mesh, shard_placement_fn=place,
+    mesh = layout.fsdp_mesh() if layout.fsdp > 1 else layout.device_mesh
+    kw = dict(mesh=mesh, shard_placement_fn=place,
               ignored_params=ignored)
     if copy is not None:
         kw["mp_policy"] = MixedPrecisionPolicy(param_dtype=copy,
@@ -105,7 +125,8 @@ def apply_fsdp(model: nn.Module, layout, tx=None, *,
     return dims
 
 
-def compose_fsdp(*args, **kwargs):
-    raise NotImplementedError(
-        "compose_fsdp (FSDP over tensor-parallel placements) is not ported "
-        "yet (ROADMAP Queue 1 #7b (remainder))")
+#: the reference's name for FSDP over a state that already holds
+#: model-parallel placements (``tpudist.parallel.fsdp.compose_fsdp``):
+#: :func:`apply_fsdp` keeps the tensor placements of a model on a tensor
+#: layout and shards the rest
+compose_fsdp = apply_fsdp

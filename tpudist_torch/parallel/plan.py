@@ -1,29 +1,31 @@
 """ParallelPlan: the one resolver for a composed run, over data x fsdp
-or data x tensor.
+x tensor (or data x seq x tensor).
 
 Counterpart of :mod:`tpudist.parallel.plan` for the data-parallel and
 tensor axes: a plan holds the rank layout
-(:func:`tpudist_torch.mesh.create_layout` over ``data x fsdp`` or ``data
-x tensor``), the replicate-below threshold shared by FSDP and ZeRO-1, and
-the rules that tie them:
+(:func:`tpudist_torch.mesh.create_layout`), the replicate-below threshold
+shared by FSDP and ZeRO-1, and the rules that tie them:
 
 - FSDP shards every leaf over ``fsdp`` on its largest divisible dim
   (:mod:`tpudist_torch.parallel.fsdp`), and the batch rides ``data x
-  fsdp`` jointly;
+  fsdp`` jointly; a leaf the tensor axis places keeps that placement and
+  is not sharded over fsdp (the reference's ``_leaf_sharding``);
 - :meth:`ParallelPlan.wrap_zero1` is ZeRO-1 over ``data`` that skips the
-  leaves the plan already shards over ``fsdp``, so nothing is sharded
-  twice;
+  leaves the plan already shards over ``fsdp`` and, beside an fsdp axis,
+  those the tensor axis places, so nothing is sharded twice; with more
+  than one data replica the state of an fsdp-sharded leaf is sliced again
+  over data where its dim divides (the reference's ``_mirror_overlay``);
+  without fsdp, a rank slices its own tensor shards;
 - a ``tensor`` axis shards the LMs' Megatron layers
   (:mod:`tpudist_torch.parallel.tp`; the model is built on
-  :attr:`ParallelPlan.layout`) and the batch rides ``data`` alone;
+  :attr:`ParallelPlan.layout`), and the tensor ranks of a replica share
+  its batch;
 - :meth:`ParallelPlan.validate_reduce` refuses the explicit reducer on a
   plan with a real ``fsdp`` or ``tensor`` axis, with the reference's hint;
 - :meth:`ParallelPlan.axis_worlds` is what a checkpoint's geometry
   records (``fsdp_world``, ``tensor_world``; pipe and expert are 1).
 
-``pipe`` and ``expert`` above 1 raise, naming their ROADMAP items;
-``tensor`` with ``fsdp``, and ZeRO-1 under ``tensor``, raise naming the
-rest of #7b.
+``pipe`` and ``expert`` above 1 raise, naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -32,8 +34,7 @@ import dataclasses
 
 from tpudist_torch.mesh import (
     AXIS_ITEMS, EXPERT_AXIS, FSDP_AXIS, PIPELINE_AXIS, TENSOR_AXIS,
-    TENSOR_REMAINDER, MeshConfig, RankLayout, create_layout,
-    largest_divisible_spec)
+    MeshConfig, RankLayout, create_layout, largest_divisible_spec)
 
 __all__ = ["ParallelPlan", "spec_is_sharded"]
 
@@ -65,16 +66,20 @@ class ParallelPlan:
 
     @classmethod
     def build(cls, *, data: int = -1, fsdp: int = 1, pipe: int = 1,
-              tensor: int = 1, expert: int = 1, **kw) -> "ParallelPlan":
+              tensor: int = 1, expert: int = 1, seq: int = 1,
+              device_type: str | None = None, **kw) -> "ParallelPlan":
         """Plan and layout in one call (``MeshConfig`` semantics: ``-1``
-        is every remaining rank). Every rank must call it."""
+        is every remaining rank; ``device_type`` as
+        :func:`~tpudist_torch.mesh.create_layout` takes it). Every rank
+        must call it."""
         for axis, size in ((PIPELINE_AXIS, pipe), (EXPERT_AXIS, expert)):
             if size != 1:
                 raise NotImplementedError(
                     f"ParallelPlan({axis}={size}) is not ported yet "
                     f"(ROADMAP {AXIS_ITEMS[axis]})")
-        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp,
-                                            tensor=tensor)), **kw)
+        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp, seq=seq,
+                                            tensor=tensor),
+                                 device_type=device_type), **kw)
 
     @property
     def data(self) -> int:
@@ -117,15 +122,13 @@ class ParallelPlan:
         return self.wraps_fsdp and bool(self.fsdp_spec(shape))
 
     def wrap_zero1(self, tx):
-        """ZeRO-1 over ``data`` composed with this plan: the leaves the
-        plan shards over ``fsdp`` stay as FSDP holds them. Under a tensor
-        axis it raises (the rest of #7b)."""
+        """ZeRO-1 over ``data`` composed with this plan (module docstring):
+        the leaves the plan shards over ``fsdp`` stay as FSDP holds them,
+        their state sliced again over data where the dim divides; beside
+        an fsdp axis the tensor shards stay whole; without one a rank
+        slices its tensor shards over its data replicas."""
         from tpudist_torch.optim import shard_state
 
-        if self.tensor > 1:
-            raise NotImplementedError(
-                f"ZeRO-1 (shard_opt_state) under tensor={self.tensor} is not "
-                f"ported yet (ROADMAP {TENSOR_REMAINDER})")
         return shard_state(tx, self.layout, min_size=self.fsdp_min_size,
                            skip_spec=self._zero1_skip if self.wraps_fsdp
                            else None)

@@ -83,10 +83,17 @@ The data-parallel layers of the reference (Queue 1 #7's first half):
 
 Tensor parallelism (Queue 1 #7b): a ``layout`` with a tensor axis over a
 model built on it (:mod:`tpudist_torch.parallel.tp`: GPT-2, Llama, ViT,
-BERT, T5) runs DDP over the layout's data group alone (the tensor ranks
-of a replica share its batch) and the optimizer's clip and ``--amp`` flag
-over the tensor group (:meth:`tpudist_torch.optim.Optimizer.shard_over`:
-a sharded leaf's squares summed over it, a replicated one counted once).
+BERT, T5) runs DDP over the ranks with this rank's tensor index alone
+(the layout's ``batch_group``: its data replicas, and its seq peers under
+a seq axis; the tensor ranks of a replica share its batch) and the
+optimizer's clip and ``--amp`` flag over the tensor group
+(:meth:`tpudist_torch.optim.Optimizer.shard_over`: a sharded leaf's
+squares summed over it, a replicated one counted once). Composed with a
+plan's fsdp axis, FSDP2 shards what the tensor axis leaves whole over the
+same ranks and the step averages every other gradient over them; with a
+seq axis, a causal LM's loss is its chunk's vocabulary-parallel CE sum
+over the replica's positions (each count and gradient taken once: the
+backward on ``loss x seq``, the average over the batch group).
 A causal LM's (``model.causal_lm``: GPT-2, Llama) default loss is
 :func:`tpudist_torch.parallel.tp.vocab_parallel_cross_entropy` on the
 vocabulary-local logits; ViT's is
@@ -105,8 +112,8 @@ same gradient on every tensor rank, or the ranks' copies part silently:
   :func:`~tpudist_torch.parallel.tp.copy_to_tensor`, whose backward is
   that sum, so the step adds no pass of its own.
 
-A checkpoint holds the shards as DTensors on the layout's ``(data,
-tensor)`` DeviceMesh and records ``tensor_world``.
+A checkpoint holds the shards as DTensors on the layout's DeviceMesh
+(replicated over its other axes) and records ``tensor_world``.
 
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
@@ -160,7 +167,15 @@ class TrainState:
 
     def _sharded(self) -> dict:
         """The sharded parameters by name: FSDP's DTensors, and the tensor
-        shards as ``(parameter, mesh, placements, whole shape)``."""
+        shards as ``(parameter, mesh, placements, whole shape)``. FSDP2
+        keeps its root's parameters gathered after a forward that no
+        backward followed (an eval, a decode): they are sharded again
+        first."""
+        from torch.distributed.fsdp import FSDPModule
+
+        for m in self.model.modules():
+            if isinstance(m, FSDPModule):
+                m.reshard()
         out = {k: p for k, p in self.model.named_parameters()
                if hasattr(p, "to_local")}
         layout = getattr(self.model, "layout", None)
@@ -175,8 +190,9 @@ class TrainState:
                 if spec is None:
                     continue
                 dim = 0 if spec[0] == "vocab" else spec[0]
-                place = [Shard(dim)] if mesh.ndim == 1 else [Replicate(),
-                                                            Shard(dim)]
+                # the tensor axis is the mesh's last: replicated over the
+                # others (data, fsdp, seq)
+                place = [Replicate()] * (mesh.ndim - 1) + [Shard(dim)]
                 out[k] = (p, mesh, place, tp_lib.full_shape(
                     k, p.shape, layout.tensor, vocab, table=table))
         return out
@@ -211,23 +227,25 @@ class TrainState:
         slices, FSDP's shards and the tensor shards are gathered (every
         rank must call it then)."""
         opt = inner_state(self.opt_state)
+        sharded = self._sharded()
         if hasattr(self.opt_state, "slices"):
             params = self.opt_state.full_masters()
         elif isinstance(opt, FusedAdamWState):
             params = opt.master
         else:
             params = dict(self.model.named_parameters())
+        out = {}
+        for k, p in params.items():
+            p = p.detach()
+            if not isinstance(sharded.get(k), tuple):
+                # FSDP's shards (and ZeRO-1's slices of them) gathered
+                p = whole_tensor(self._global(k, p, sharded))
+            out[k] = p
         layout = getattr(self.model, "layout", None)
         if tp_lib.tensor_size(layout) > 1:
             return tp_lib.gather_state_dict(
-                {k: p.detach() for k, p in params.items()}, layout,
-                getattr(self.model, "vocab_size", None),
+                out, layout, getattr(self.model, "vocab_size", None),
                 table=self.model.tensor_specs)
-        sharded = self._sharded()
-        out = {}
-        for k, p in params.items():
-            p = self._global(k, p.detach(), sharded)
-            out[k] = p.full_tensor() if hasattr(p, "full_tensor") else p
         return out
 
     def batch_stats(self) -> dict[str, torch.Tensor]:
@@ -300,6 +318,34 @@ class TrainState:
             load_tensors({"r": self.comm_residual},
                          {"r": local(sd["comm_residual"])}, "comm_residual")
         self.step = int(sd["step"])
+
+
+def whole_tensor(t):
+    """A DTensor's global value (every rank of its mesh calls it), any
+    other tensor as it is. Each ``Shard`` placement (one a tensor dim, as
+    FSDP's) is gathered with ``dist.all_gather`` over its mesh dim's
+    group, the shards padded to the largest of ``torch.chunk``'s split,
+    instead of ``full_tensor()``: its functional collectives crash over
+    gloo on CUDA tensors (torch 2.11), which ranks sharing one card use."""
+    if not hasattr(t, "to_local"):
+        return t
+    out = t.to_local().detach()
+    mesh = t.device_mesh
+    for i in range(mesh.ndim):
+        dim = getattr(t.placements[i], "dim", None)
+        if dim is None:
+            continue
+        group = mesh.get_group(i)
+        n = dist.get_world_size(group)
+        sizes = [len(c) for c in torch.arange(t.shape[dim]).chunk(n)]
+        pad = max(sizes) - out.shape[dim]
+        part = (F.pad(out.movedim(dim, -1), (0, pad)).movedim(-1, dim)
+                if pad else out).contiguous()
+        parts = [torch.empty_like(part) for _ in range(n)]
+        dist.all_gather(parts, part, group=group)
+        out = torch.cat([q.narrow(dim, 0, m) for q, m in zip(parts, sizes)],
+                        dim)
+    return out
 
 
 def cross_entropy_loss(logits, labels):
@@ -379,12 +425,12 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
                 dist.broadcast(t, 0)
     opt_state = tx.init(dict(model.named_parameters()))
     if group_up() and ddp and not (plan is not None and plan.wraps_fsdp) \
-            and not (tensor > 1 and layout.data == 1):
+            and not (tensor > 1 and layout.batch_group is None):
         dev = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
             broadcast_buffers=False,
-            process_group=layout.data_group if tensor > 1 else None)
+            process_group=layout.batch_group if tensor > 1 else None)
     return TrainState(0, model, module, opt_state, layout=layout)
 
 
@@ -589,17 +635,27 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         for m in model.modules():
             if hasattr(m, "cross_replica"):
                 m.cross_replica = False
-    # dropout masks keyed by the replica under a tensor axis: its tensor
-    # ranks hold the same activations and must drop the same elements
-    rank = (layout.replica if tensor > 1 else
-            dist.get_rank() if group_up() else 0)
+    # dropout masks keyed by the rank without its tensor index (the
+    # replica, and its seq index under a seq axis): its tensor ranks hold
+    # the same activations and must drop the same elements
+    rank = ((dist.get_rank() if group_up() else 0) // tensor)
     if forward_loss is None and lm_tensor:
         def run_loss(module, batch, index):
             tokens = batch[input_key].long()
             kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
                   if dropout_rate > 0 else {})
-            logits = module(tokens, vocab_local=True, **kw)
-            return tp_lm_loss(logits, tokens, layout, model.vocab_size)
+            if seq == 1:
+                logits = module(tokens, vocab_local=True, **kw)
+                return tp_lm_loss(logits, tokens, layout, model.vocab_size)
+            # this rank's chunk, scored on its vocabulary columns: the CE
+            # sum over the replica's positions, as under seq alone
+            local, labels = seq_shard_lm(tokens, layout)
+            logits = module(local, vocab_local=True, **kw)
+            ce = tp_lib.vocab_parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                layout, model.vocab_size)
+            b, s = tokens.shape
+            return ce.sum() / (b * (s - 1))
     elif forward_loss is None and seq > 1:
         def run_loss(module, batch, index):
             tokens = batch[input_key].long()
@@ -653,10 +709,11 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
                 group=avg_group)}
         return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
 
-    # under a tensor axis gradients are averaged over the data replicas
-    # alone (a shard differs from its tensor peers'); False: one replica
-    avg_group = ((layout.data_group if layout.data > 1 else False)
-                 if tensor > 1 else None)
+    # under a tensor axis gradients are averaged over the ranks with this
+    # rank's tensor index alone (a shard differs from its tensor peers');
+    # False: no other such rank
+    avg_group = ((layout.batch_group if layout.batch_group is not None
+                  else False) if tensor > 1 else None)
 
     def backward(loss):
         # DDP averages over data x seq ranks; the chunks' gradients add
@@ -715,7 +772,8 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             if fsdp:
                 grads.update(average_replicated(
                     {k: g for k, g in grads.items()
-                     if g is not None and not hasattr(g, "to_local")}))
+                     if g is not None and not hasattr(g, "to_local")},
+                    group=avg_group))
         else:
             loss, grads = accumulate(state, batch, params)
         tx.step(state.opt_state, params, grads)

@@ -32,16 +32,17 @@ of every row. ``--chunked_ce N`` runs the MLM head over sequence chunks
 (or the training stream in order), corrupted with ``seed + 10000``;
 ``--init_hf DIR`` starts from a local HF ``BertForMaskedLM`` checkpoint.
 
-``--tensor N`` lays the world out ``data x tensor``
+``--tensor N`` lays the world out ``data x seq x tensor``
 (:mod:`tpudist_torch.parallel.tp`): each rank holds ``num_heads / N``
 heads, its column or row shard of every projection and ``1 / N`` of the
 vocabulary (the tied MLM decode its logit columns, the MLM bias whole);
 the ``N`` ranks of a replica read and corrupt the same windows, the loss
 (full or ``--chunked_ce``) is the vocabulary-parallel CE over the masked
-count of the data group, ``--eval`` takes its top-1 across the shards by
+count of the replicas (and their seq chunks under ``--cp``: each attention
+runs over the seq group on the rank's heads), counted once and not again
+over the tensor ranks, ``--eval`` takes its top-1 across the shards by
 ``torch.argmax``'s lowest-index rule, and ``--init_hf`` loads the whole
-checkpoint and keeps each rank's shards. ``--tensor`` with ``--cp > 1``
-raises ``NotImplementedError`` naming the rest of ROADMAP Queue 1 #7b.
+checkpoint and keeps each rank's shards.
 The reference's refusals are kept, in its order. The reference has no
 ``--fused`` here: the fused LayerNorm and AdamW kernels are reached through
 the model API (``fit(..., fused="all")`` with ``make_optimizer(fused=True)``).
@@ -116,9 +117,6 @@ def parse_args(argv=None):
 def check_args(args) -> tuple[int, int]:
     """The reference's refusals, before any work, in its order (the
     mesh's first); returns ``(mask_id, model_vocab)``."""
-    from tpudist_torch.mesh import refuse_tensor_with
-
-    refuse_tensor_with(args.tensor, seq=args.cp)
     if args.cp > 1 and args.attn not in CP_ATTN:
         raise SystemExit("--cp needs a sequence-parallel attention: "
                          "--attn ring|ulysses|ulysses_flash")
@@ -230,7 +228,8 @@ def main(argv=None):
     ctx = init_from_env(args.device)
     try:
         layout = create_layout(MeshConfig(data=-1, seq=args.cp,
-                                          tensor=args.tensor))
+                                          tensor=args.tensor),
+                               device_type=ctx.device.type)
         dtype = torch.bfloat16 if args.bf16 else torch.float32
         model = Bert(vocab_size=model_vocab, max_seq_len=args.seq_len,
                      hidden_dim=args.hidden_dim, depth=args.depth,

@@ -77,16 +77,18 @@ context-parallel attention, and ``--eval`` or ``--generate`` with ``--cp >
 1``, exit before training, as in the reference.
 
 Tensor parallelism, the reference's ``--tensor N``
-(:mod:`tpudist_torch.parallel.tp`): the world is laid out ``data x
-tensor`` (``N`` must divide it), each rank holds ``num_heads / N`` heads
-and its column or row shard of every projection, ``1 / N`` of the
-vocabulary; the ``N`` ranks of a data replica read the same windows, and
+(:mod:`tpudist_torch.parallel.tp`): the world is laid out ``data x fsdp
+x seq x tensor`` (``N`` must divide it), each rank holds ``num_heads /
+N`` heads and its column or row shard of every projection, ``1 / N`` of
+the vocabulary; the ``N`` ranks of a replica read the same windows, and
 the loss (full or ``--chunked_ce``) is the vocabulary-parallel CE. The
 attention kernels, ``--fused`` and ``--amp`` run on each rank's shards;
 ``--generate`` decodes sharded with the logits gathered, ``--init_hf``
-loads the whole checkpoint and keeps each rank's shards. ``--tensor``
-with ``--fsdp``, ``--cp > 1`` or ``--shard_opt_state`` raises
-``NotImplementedError`` naming the rest of ROADMAP Queue 1 #7b.
+loads the whole checkpoint and keeps each rank's shards. It composes
+with ``--fsdp`` (FSDP shards what the tensor axis leaves whole, through
+the plan), with ``--cp`` (each attention over the seq group on the
+rank's heads) and with ``--shard_opt_state`` (ZeRO-1 over the rank's
+tensor shards).
 
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps and at the
 end and resumes from the newest loadable step unless ``--no_resume``;
@@ -224,15 +226,6 @@ def check_ported(parser, args) -> None:
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
-    if args.tensor > 1:
-        from tpudist_torch.mesh import TENSOR_REMAINDER
-
-        for flag, on in (("--fsdp", args.fsdp > 1), ("--cp", args.cp > 1),
-                         ("--shard_opt_state", args.shard_opt_state)):
-            if on:
-                raise NotImplementedError(
-                    f"--tensor {args.tensor} with {flag} is not ported yet "
-                    f"(ROADMAP {TENSOR_REMAINDER})")
 
 
 def resolve_attn(attn: str, seq_len: int, device) -> str:
@@ -346,11 +339,14 @@ def main(argv=None):
         if args.fsdp > 1:
             from tpudist_torch.parallel.plan import ParallelPlan
 
-            plan = ParallelPlan.build(data=-1, fsdp=args.fsdp)
+            plan = ParallelPlan.build(data=-1, fsdp=args.fsdp,
+                                      tensor=args.tensor,
+                                      device_type=ctx.device.type)
             layout = plan.layout
         else:
             layout = create_layout(MeshConfig(data=-1, seq=args.cp,
-                                              tensor=args.tensor))
+                                              tensor=args.tensor),
+                                   device_type=ctx.device.type)
         attn = resolve_attn(args.attn, args.seq_len, ctx.device)
         dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
         model = build_model(args, dtype, attn, ctx.device, layout)
