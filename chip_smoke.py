@@ -574,9 +574,34 @@ Phases, each fatal on failure:
     under phase 15's bars, and ``train_bert --tensor 2 --cp 2 --attn
     ulysses_flash --chunked_ce 128`` at bert-base, S 512, batch 16, bf16
     (vmem 12 + 12 a rank a step). The losses agree on the ranks of each
-    replica.
+    replica;
+70. two ranks on the one card (this script's ``--composed_child pipe``
+    mode, a gloo group over CUDA tensors, started beside phase 71's world
+    after the worlds of phases 60-69 are done), ``train_gpt2 --pipe 2
+    --num_micro 4 --batch_size 8 --fused optimizer``, GPT-2 124M, S 1024,
+    4 steps a leg: in bf16 under GPipe and 1F1B (a rank's launches a step:
+    one AdamW over its 76 leaves, 6 blocks x 12 + 4, and no other counted
+    kernel: the pipelined blocks run the dense attention), in f32 under
+    both (the first losses bit-equal, the rest within phase 15's bars;
+    GPipe's checkpointed at step 2, against the one-rank ``--attn xla``
+    run with the plain AdamW on the same windows under phase 15's bars),
+    each leg's allocator peak a rank beside ``train_state_budget`` (1F1B's
+    under GPipe's), ``--amp`` with a NaN in stage 1's gradients at step 2
+    (both ranks skip it), and a resume from the step-2 checkpoint equal to
+    the uninterrupted run bit for bit; both ranks log the same losses, and
+    after every leg the stages' copies of ``wte``, ``wpe`` and ``ln_f``
+    are bit-equal (nothing but equal bits keeps them so);
+71. four ranks on the one card (beside phase 70's world): ``--pipe 2
+    --tensor 2`` and ``data 2 x pipe 2`` in f32 under 1F1B against the
+    one-rank ``--attn xla`` runs with the plain AdamW on their windows
+    (``--grad_accum 2`` for both replicas' rows) under phase 15's bars,
+    and ``--pipe 4`` in bf16 under GPipe (one AdamW a rank a step over its
+    40 leaves); the stages' copies of the replicated leaves bit-equal
+    after every leg, as in phase 70. The one-rank runs take ``--remat
+    full`` (the same function; the card holds them beside the two
+    worlds).
 
-Phases 22-29 and 31-69 print their seconds.
+Phases 22-29 and 31-71 print their seconds.
 """
 
 from __future__ import annotations
@@ -907,6 +932,7 @@ def main() -> int:
     serve_cli_phase(smi, dev)
     data_parallel_phases(smi, dev)
     tensor_phases(smi, dev)
+    pipe_phases(smi)
 
     # -- 30. result ---------------------------------------------------------------
     launches = {"paged_decode_attention": served_launches["paged_decode_attention"],
@@ -5310,7 +5336,7 @@ def _step_counts(per_step: dict, steps: int = 4, **extra) -> dict:
 
 def _against_one_rank(name: str, sharded: dict, whole: dict, losses,
                       one_losses, *, loss_bar: float, param_bar: float,
-                      peak_lr: float) -> None:
+                      peak_lr: float, how: str = "--tensor 2") -> None:
     """A float32 leg's gathered parameters and losses against the
     one-rank run's from the same seed on the same data: losses
     ``loss_bar`` relative, parameters ``param_bar`` absolute, the key
@@ -5331,13 +5357,12 @@ def _against_one_rank(name: str, sharded: dict, whole: dict, losses,
     key = (f"; key slice of the qkv biases moved at most {key_moved:.3e} "
            f"[step bound {key_bound:.2e}]"
            if any(k.endswith("qkv.bias") for k in whole) else "")
-    print(f"  {name} --tensor 2 against one rank: losses {losses} vs "
+    print(f"  {name} {how} against one rank: losses {losses} vs "
           f"{one_losses}: max rel {loss_rel:.3e} [bar {loss_bar:g}]; params "
           f"max abs {gaps[worst]:.3e} ({worst}) [bar {param_bar:g}]{key}")
     if (loss_rel > loss_bar or gaps[worst] > param_bar
             or key_moved > key_bound or sharded.keys() != whole.keys()):
-        fail(f"{name}: the f32 tensor-parallel run and the one-rank run "
-             "disagree")
+        fail(f"{name}: the f32 {how} run and the one-rank run disagree")
 
 
 def tensor_bert_phase(smi: str, tmp: Path, ranks: list[dict]) -> None:
@@ -5628,6 +5653,12 @@ COMPOSED_CHILD = "--composed_child"
 #: one eval batch a replica
 COMPOSED_TEXT = {"ctext.bin": 4 * 16 * 1024, "ctext1.bin": 4 * 8 * 1024,
                  "cval.bin": 16 * 1024}
+#: phases 70-71's token files: 4 steps of 8 x 1024 (one replica) and of
+#: 16 x 1024 (two replicas of 8)
+PIPE_TEXT = {"ptext.bin": 4 * 8 * 1024, "pdtext.bin": 4 * 16 * 1024}
+#: the NaN phase 70's ``--amp`` leg puts in stage 1's gradients: the leaf,
+#: the step (1-based)
+PIPE_NAN = ("h.11.mlp_fc.weight", 2)
 
 
 def _composed_legs(tmp: Path) -> list[dict]:
@@ -5675,47 +5706,94 @@ def _composed_legs(tmp: Path) -> list[dict]:
     ]
 
 
+def _poisoned(build_model, leaf: str, at: int):
+    """``train_gpt2.build_model`` with a NaN put in stage 1's ``leaf``
+    gradient at step ``at`` (1-based)."""
+
+    def build(args, dtype, attn, device, layout):
+        model = build_model(args, dtype, attn, device, layout)
+        if layout.pipe_idx == 1:
+            steps = {"n": 0}
+            model.register_forward_pre_hook(
+                lambda *_: steps.update(n=steps["n"] + 1))
+            dict(model.named_parameters())[leaf].register_hook(
+                lambda g: g * float("nan") if steps["n"] == at else g)
+        return model
+
+    return build
+
+
 def composed_child(argv) -> int:
-    """One rank of phases 67-69's world: ``argv`` is ``--composed_child
-    OUT_DIR``. Forms a 4-rank gloo group over CUDA tensors (every rank on
-    ``cuda:0``), then runs each of :func:`_composed_legs` as
+    """One rank of phases 67-69's or 70's or 71's world: ``argv`` is
+    ``--composed_child OUT_DIR KIND`` (``composed``: :func:`_composed_legs`;
+    ``pipe``: :func:`_pipe_legs` at this world's size). Forms a gloo group
+    over CUDA tensors (every rank on ``cuda:0``), then runs each leg as
     :func:`tensor_child` runs its legs, recording besides the allocator's
-    peak a rank; writes ``rank<r>.json``."""
+    peak a rank, an ``--amp`` leg's skipped steps and, under ``--pipe``,
+    whether the stages' copies of the replicated leaves are bit-equal; a
+    leg with ``trim`` first copies that checkpoint without its last step
+    (rank 0), one with ``nan`` poisons a gradient (:func:`_poisoned`).
+    Writes ``rank<r>.json``."""
+    import shutil
+
     import torch
     import torch.distributed as dist
 
+    from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.amp import skipped_steps
     from tpudist_torch.ops import decode as D
+    from tpudist_torch.parallel import pp
 
-    out = Path(argv[argv.index(COMPOSED_CHILD) + 1])
+    i = argv.index(COMPOSED_CHILD)
+    out, kind = Path(argv[i + 1]), argv[i + 2]
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method="env://")
     rank = dist.get_rank()
+    legs = (_composed_legs(out) if kind == "composed"
+            else _pipe_legs(out, dist.get_world_size()))
     records = {}
+    build_model = TG.build_model
     try:
-        for leg in _composed_legs(out):
+        for leg in legs:
             # the leg's name where a dying rank leaves it (its log)
             print(f"rank {rank}: leg {leg['name']}", file=sys.stderr,
                   flush=True)
+            if leg.get("trim"):
+                src, dst, last = leg["trim"]
+                if rank == 0:
+                    shutil.copytree(src, dst)
+                    shutil.rmtree(Path(dst) / str(last))
+                dist.barrier()
+            if leg.get("nan"):
+                TG.build_model = _poisoned(build_model, *leg["nan"])
             for mod in (*counted_modules(), D):
                 mod.reset_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            result, printed, _ = run_leg(leg["cli"], leg["argv"])
+            try:
+                (state, losses), printed, _ = run_leg(
+                    leg.get("cli", "train_gpt2"), leg["argv"])
+            finally:
+                TG.build_model = build_model
             torch.cuda.synchronize()
             rec = {"printed": printed,
                    "counts": {**launches(), **D.launch_counts},
                    "seconds": time.perf_counter() - t0,
-                   "peak": torch.cuda.max_memory_allocated()}
-            state, losses = result
-            rec["losses"] = list(losses)
-            rec["leaves"] = len(list(state.model.parameters()))
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "losses": list(losses),
+                   "leaves": len(list(state.model.parameters()))}
+            if "--amp" in leg["argv"]:
+                rec["skipped"] = skipped_steps(state.opt_state)
+            if "--pipe" in leg["argv"]:
+                rec["replicas_agree"] = pp.replicas_agree(
+                    dict(state.model.named_parameters()), state.model.layout)
             if leg.get("gather"):
                 params = {k: v.float().cpu()
                           for k, v in state.params().items()}
                 if rank == 0:
                     torch.save(params, out / f"{leg['name']}.pt")
-            del state, result
+            del state
             records[leg["name"]] = rec
             torch.cuda.empty_cache()
     finally:
@@ -5725,23 +5803,28 @@ def composed_child(argv) -> int:
     return 0
 
 
-def start_composed_world(tmp: Path) -> list:
-    """Start phases 67-69's four ranks on the one card
-    (:func:`composed_child`, ``LOCAL_RANK`` 0 all); :func:`finish_world`
-    collects them."""
+#: each kind of :func:`composed_child` world's token files
+WORLD_TEXT = {"composed": COMPOSED_TEXT, "pipe": PIPE_TEXT}
+
+
+def start_composed_world(tmp: Path, kind: str = "composed",
+                         world: int = 4) -> list:
+    """Start ``world`` ranks on the one card (:func:`composed_child`,
+    ``LOCAL_RANK`` 0 all) running ``kind``'s legs, their token files
+    written into ``tmp`` first; :func:`finish_world` collects them."""
     from tpudist_torch.ops import lm_kernels_bench as LB
 
-    for name, n in COMPOSED_TEXT.items():
+    for name, n in WORLD_TEXT[kind].items():
         LB.token_file(tmp / name, n)
     port = free_port()
     procs = []
-    for rank in range(4):
+    for rank in range(world):
         env = {**os.environ, "PYTHONPATH": str(HERE), "MASTER_ADDR":
                "127.0.0.1", "MASTER_PORT": str(port), "RANK": str(rank),
-               "WORLD_SIZE": "4", "LOCAL_RANK": "0"}
+               "WORLD_SIZE": str(world), "LOCAL_RANK": "0"}
         procs.append(subprocess.Popen(
             [sys.executable, str(HERE / "chip_smoke.py"), COMPOSED_CHILD,
-             str(tmp)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+             str(tmp), kind], cwd=HERE, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -5946,6 +6029,230 @@ def composed_phases(smi: str, tmp: Path, ranks: list[dict]) -> None:
           "one-rank f32 runs); the world's runs " + ", ".join(
               f"{n} {ranks[0][n]['seconds']:.1f} s" for n in legs)
           + f"  [{smi}]")
+
+
+
+def _pipe_legs(tmp: Path, world: int) -> list[dict]:
+    """Phase 70's (``world`` 2) or 71's (4) legs, in order; a leg with
+    ``trim`` copies that checkpoint without its last step (rank 0) before
+    the legs after it."""
+    common = ["--no_profiler", "--log_dir", str(tmp), "--warmup_steps", "2",
+              "--total_steps", "4", "--seq_len", "1024", "--batch_size", "8",
+              "--tokens", str(tmp / "ptext.bin"), "--fused", "optimizer",
+              "--num_micro", "4"]
+    if world == 2:
+        p2 = [*common, "--pipe", "2"]
+        ck = str(tmp / "pck")
+        return [
+            dict(name="gpipe_bf16", argv=[*p2, "--bf16", "--JobID", "P70G"]),
+            dict(name="f1b_bf16", argv=[*p2, "--bf16", "--pipe_schedule",
+                                        "1f1b", "--JobID", "P70O"]),
+            dict(name="gpipe_f32", gather=True,
+                 argv=[*p2, "--checkpoint_dir", ck, "--checkpoint_every",
+                       "2", "--JobID", "P70F"]),
+            dict(name="f1b_f32", gather=True,
+                 argv=[*p2, "--pipe_schedule", "1f1b", "--JobID", "P70E"]),
+            dict(name="amp", nan=PIPE_NAN,
+                 argv=[*p2, "--amp", "--pipe_schedule", "1f1b", "--JobID",
+                       "P70A"]),
+            dict(name="resume_f32", gather=True, trim=(ck, ck + "2", 4),
+                 argv=[*p2, "--checkpoint_dir", ck + "2", "--JobID",
+                       "P70R"]),
+        ]
+    return [
+        dict(name="pt_f32", gather=True,
+             argv=[*common, "--pipe", "2", "--tensor", "2", "--pipe_schedule",
+                   "1f1b", "--JobID", "P71T"]),
+        dict(name="dp_f32", gather=True,
+             argv=[*_without(common, "--tokens"), "--tokens",
+                   str(tmp / "pdtext.bin"), "--pipe", "2", "--pipe_schedule",
+                   "1f1b", "--JobID", "P71D"]),
+        dict(name="p4_bf16",
+             argv=[*common, "--pipe", "4", "--bf16", "--JobID", "P71P"]),
+    ]
+
+
+def _pipe_budget(data: int, pipe: int, tensor: int, *, bf16: bool) -> str:
+    """``train_state_budget``'s line for GPT-2 124M (the dense attention)
+    at batch 8 x S 1024 a replica over ``data x pipe x tensor`` with the
+    CLI's fused AdamW."""
+    import types
+
+    import torch
+
+    from tpudist_torch.memory import format_budget, train_state_budget
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.optim import make_optimizer
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tx = make_optimizer(3e-4, fused=True, weight_decay=0.1, clip_norm=1.0,
+                        compute_dtype=dtype if bf16 else None)
+    report = train_state_budget(
+        lambda d: GPT2(dtype=dtype, attn_impl="xla", device=d), tx,
+        batch=8 * data, seq=1024, world_size=data * pipe * tensor,
+        plan=types.SimpleNamespace(data=data, fsdp=1, tensor=tensor,
+                                   pipe=pipe),
+        hbm_budget_bytes=80 * 10 ** 9)
+    return format_budget(report)
+
+
+def _one_rank_xla(tmp: Path, tokens: Path, accum: int):
+    """The one-rank f32 run a pipelined f32 leg is held against: the
+    unpipelined GPT-2 on the same windows, ``--attn xla`` (the blocks'
+    attention), ``--remat full``, ``--grad_accum accum`` (both replicas'
+    rows a step at 2), with the plain AdamW (phase 1 holds the kernel
+    bit-equal to it), so the legs' fused AdamW on a stage's table is held
+    against the plain step. Returns ``(losses, params)``."""
+    import torch
+
+    argv = ["--no_profiler", "--log_dir", str(tmp), "--warmup_steps", "2",
+            "--total_steps", "4", "--seq_len", "1024", "--batch_size", "8",
+            "--tokens", str(tokens), "--attn", "xla", "--remat", "full",
+            "--grad_accum", str(accum), "--JobID", f"P1{accum}"]
+    (state, losses), _ = _one_rank("train_gpt2", argv)
+    params = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def pipe_phases(smi: str) -> None:
+    """Phases 70-71 (module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        worlds, procs = {}, {}
+        for w in (2, 4):
+            (tmp / f"w{w}").mkdir()
+            procs[w] = start_composed_world(tmp / f"w{w}", "pipe", w)
+        try:
+            # the one-rank runs beside the two worlds, on their windows
+            one = {accum: _one_rank_xla(tmp, tmp / "w2" / tok, accum)
+                   for accum, tok in ((1, "ptext.bin"), (2, "pdtext.bin"))}
+            one_s = time.perf_counter() - t0
+            for w in (2, 4):
+                worlds[w] = finish_world(procs[w], tmp / f"w{w}",
+                                         f"pipe world of {w}")
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+        worlds_s = time.perf_counter() - t0
+        _pipe_two(smi, tmp / "w2", worlds[2], one[1])
+        _pipe_four(smi, tmp / "w4", worlds[4], one)
+    print(f"  phases 70-71: {time.perf_counter() - t0:.1f} s (the two worlds "
+          f"done {worlds_s:.1f} s after their start, the one-rank runs "
+          f"{one_s:.1f} s)  [{smi}]")
+
+
+def _pipe_replicas(ranks: list[dict]) -> None:
+    """Fail unless, after every leg, each rank's copies of the leaves the
+    stages replicate (``wte``, ``wpe``, ``ln_f``) were bit-equal to those
+    of every rank of its pipe group."""
+    legs = list(ranks[0])
+    bad = [(r, n) for r, rec in enumerate(ranks) for n in legs
+           if not rec[n]["replicas_agree"]]
+    print(f"    the stages' copies of wte, wpe and ln_f bit-equal over the "
+          f"pipe group after every leg ({', '.join(legs)}): {not bad}")
+    if bad:
+        fail(f"the stages' replicated leaves differ (rank, leg): {bad}")
+
+
+def _pipe_counts(leaves: int, steps: int = 4, check: bool = False) -> dict:
+    out = {"fused_adamw": steps, "fused_adamw_leaves": leaves * steps}
+    if check:
+        out["fused_adamw_check"] = steps
+    return out
+
+
+def _pipe_two(smi: str, tmp: Path, ranks: list[dict], one) -> None:
+    """Phase 70's checks (module docstring)."""
+    import torch
+
+    print("== 70. two ranks on one card (gloo over CUDA tensors): "
+          "train_gpt2 --pipe 2 --num_micro 4 --fused optimizer, GPT-2 124M, "
+          "S 1024, batch 8")
+    legs = {}
+    for name, what in (("gpipe_bf16", "bf16, GPipe"), ("f1b_bf16",
+                                                       "bf16, 1F1B"),
+                       ("gpipe_f32", "f32, GPipe, checkpoints at 2 and 4"),
+                       ("f1b_f32", "f32, 1F1B")):
+        legs[name] = _world_leg(ranks, name, _pipe_counts(76), what)
+    for dtype in ("bf16", "f32"):
+        a, b = legs[f"gpipe_{dtype}"], legs[f"f1b_{dtype}"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                      a["losses"]))
+        peaks = [[round(r[n]["peak"] / 1e9, 3) for r in ranks]
+                 for n in (f"gpipe_{dtype}", f"f1b_{dtype}")]
+        print(f"  {dtype}: 1F1B against GPipe: first losses bit-equal "
+              f"{a['losses'][0] == b['losses'][0]}, max rel {rel:.3e}; "
+              f"allocator peak a rank GPipe {peaks[0]} GB, 1F1B {peaks[1]} "
+              f"GB; budget {_pipe_budget(1, 2, 1, bf16=dtype == 'bf16')}")
+        if a["losses"][0] != b["losses"][0] or (
+                dtype == "f32" and rel > LOSS_BAR):
+            fail(f"{dtype}: 1F1B and GPipe disagree")
+        if max(peaks[1]) >= min(peaks[0]):
+            fail(f"{dtype}: 1F1B's peak {peaks[1]} is not under GPipe's "
+                 f"{peaks[0]}")
+    gpipe, f1b = (torch.load(tmp / f"{n}.pt") for n in ("gpipe_f32",
+                                                         "f1b_f32"))
+    gap = max(float((gpipe[k] - f1b[k]).abs().max()) for k in gpipe)
+    print(f"    f32 parameters, 1F1B against GPipe: max abs {gap:.3e} [bar "
+          f"{PARAM_BAR:g}]")
+    if gap > PARAM_BAR or gpipe.keys() != f1b.keys():
+        fail("f32 1F1B and GPipe parameters disagree")
+    one_losses, whole = one
+    for name in ("gpipe_f32", "f1b_f32"):
+        _against_one_rank(name, torch.load(tmp / f"{name}.pt"), whole,
+                          ranks[0][name]["losses"], one_losses,
+                          loss_bar=LOSS_BAR, param_bar=PARAM_BAR,
+                          peak_lr=3e-4, how="(--pipe 2)")
+    _world_leg(ranks, "amp", _pipe_counts(76, check=True),
+               f"bf16 --amp, 1F1B, a NaN in stage 1's {PIPE_NAN[0]} "
+               f"gradient at step {PIPE_NAN[1]}")
+    skipped = [r["amp"]["skipped"] for r in ranks]
+    print(f"    skipped steps a rank {skipped}")
+    if skipped != [1, 1]:
+        fail(f"--amp: skipped {skipped}, want one step on both ranks")
+    res = [r["resume_f32"] for r in ranks]
+    want = ranks[0]["gpipe_f32"]["losses"][2:]
+    resumed = torch.load(tmp / "resume_f32.pt")
+    same = (all(r["losses"] == want for r in res)
+            and resumed.keys() == gpipe.keys()
+            and all(torch.equal(resumed[k], gpipe[k]) for k in gpipe))
+    counts = {k: n for k, n in res[0]["counts"].items() if n}
+    print(f"  resume_f32 (from gpipe_f32's step 2): steps 3-4 losses "
+          f"{res[0]['losses']}, losses and parameters bit-equal to the "
+          f"uninterrupted run: {same}; launches a rank {counts}; "
+          f"{res[0]['seconds']:.1f} s")
+    if not same or counts != _pipe_counts(76, steps=2):
+        fail("the resumed --pipe 2 run is not the uninterrupted one")
+    _pipe_replicas(ranks)
+
+
+def _pipe_four(smi: str, tmp: Path, ranks: list[dict], one: dict) -> None:
+    """Phase 71's checks (module docstring)."""
+    import torch
+
+    print("== 71. four ranks on one card: --pipe 2 --tensor 2 and data 2 x "
+          "pipe 2 (f32, 1F1B), --pipe 4 (bf16, GPipe)")
+    every = [[0, 1, 2, 3]]
+    for name, leaves, what, plan, accum in (
+            ("pt_f32", 76, "--pipe 2 --tensor 2, f32, 1F1B", (1, 2, 2), 1),
+            ("dp_f32", 76, "data 2 x pipe 2, f32, 1F1B", (2, 2, 1), 2)):
+        _composed_leg(ranks, name, {}, what, every,
+                      extra=_pipe_counts(leaves),
+                      budget=_pipe_budget(*plan, bf16=False))
+        one_losses, whole = one[accum]
+        _against_one_rank(name, torch.load(tmp / f"{name}.pt"), whole,
+                          ranks[0][name]["losses"], one_losses,
+                          loss_bar=LOSS_BAR, param_bar=PARAM_BAR,
+                          peak_lr=3e-4, how=f"({what})")
+    _composed_leg(ranks, "p4_bf16", {}, "--pipe 4, bf16, GPipe", every,
+                  extra=_pipe_counts(40),
+                  budget=_pipe_budget(1, 4, 1, bf16=True))
+    _pipe_replicas(ranks)
 
 
 if __name__ == "__main__":

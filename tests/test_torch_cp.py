@@ -208,7 +208,8 @@ def test_layout_is_the_references_device_order():
     """rank = data_idx * seq + seq_idx: the reference's mesh (axis order
     data, fsdp, pipe, expert, seq, tensor) over devices 0..7 in order."""
     cfg = mesh_lib.MeshConfig(data=-1, seq=4)
-    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "seq": 4, "tensor": 1}
+    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "pipe": 1, "seq": 4,
+                                 "tensor": 1}
     mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(data=2, seq=4),
                                 devices=jax.devices()[:8])
     ids = np.vectorize(lambda d: d.id)(np.asarray(mesh.devices))
@@ -220,7 +221,7 @@ def test_layout_is_the_references_device_order():
         cfg.axis_sizes(6)
     # seq composes with tensor (tests/test_torch_tp_cp.py), not with fsdp
     assert mesh_lib.MeshConfig(tensor=2, seq=2).axis_sizes(8) == {
-        "data": 2, "fsdp": 1, "seq": 2, "tensor": 2}
+        "data": 2, "fsdp": 1, "pipe": 1, "seq": 2, "tensor": 2}
     with pytest.raises(ValueError, match="fsdp does not compose with seq"):
         mesh_lib.MeshConfig(fsdp=2, seq=2)
     one = mesh_lib.create_layout()

@@ -344,8 +344,12 @@ def test_fsdp_refusals():
     assert MeshConfig(fsdp=2, tensor=2).axis_sizes(8)["data"] == 2
     with pytest.raises(ValueError, match="wants 4 ranks"):
         ParallelPlan.build(data=1, fsdp=2, tensor=2)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
+    # a pipe axis is ported (tests/test_torch_pp_train.py): one rank
+    # cannot hold two stages; FSDP beside it is not ported yet
+    with pytest.raises(ValueError, match="1 ranks not divisible"):
         ParallelPlan.build(pipe=2)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c \(remainder"):
+        ParallelPlan.build(fsdp=2, pipe=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
         ParallelPlan.build(expert=2)
     from tpudist_torch.parallel.fsdp import apply_fsdp

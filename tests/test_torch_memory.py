@@ -76,12 +76,16 @@ def test_state_bytes_are_the_references(arch):
     halved = M.per_device_bytes(state.params(), shardings=on_tensor)
     assert M.tree_bytes(state.params()) - halved == \
         (leaf.shape[0] // 2) * leaf[0].numel() * leaf.element_size()
-    # a placement over an axis the port does not lay out yet
+    # a placement over the pipe axis (a stacked leaf's layers, as the
+    # reference places them): the same ceil division
     on_pipe = {name: (0, 2, "pipe")}
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
-        M.state_bytes(state, shardings={"params": on_pipe})
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
-        M.per_device_bytes(state.params(), shardings=on_pipe)
+    assert M.per_device_bytes(state.params(), shardings=on_pipe) == halved
+    # a placement over an axis the port does not lay out yet
+    on_expert = {name: (0, 2, "expert")}
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
+        M.state_bytes(state, shardings={"params": on_expert})
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
+        M.per_device_bytes(state.params(), shardings=on_expert)
 
 
 def test_budget_line_is_the_references():
@@ -122,12 +126,45 @@ def test_budget_on_meta_allocates_nothing_and_counts_a_compute_copy():
     n = sum(p.numel() for p in built[0].parameters())
     assert report["n_params"] == n and report["params_bytes"] == 2 * n
     assert 12 * n <= report["opt_state_bytes_per_chip"] < 12 * n + (1 << 20)
-    # a plan over a pipe axis (not ported yet; tensor is,
-    # tests/test_torch_tp_fsdp.py)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7c"):
+    # a plan over an expert axis (not ported yet; tensor is,
+    # tests/test_torch_tp_fsdp.py, and pipe below)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
         M.train_state_budget(lambda d: None, None, batch=1, seq=1,
                              hbm_budget_bytes=1,
-                             plan=types.SimpleNamespace(pipe=2))
+                             plan=types.SimpleNamespace(expert=2))
+
+
+@pytest.mark.parametrize("axes", [dict(data=2, pipe=2),
+                                  dict(data=1, pipe=2, tensor=2)],
+                         ids=["data2-pipe2", "pipe2-tensor2"])
+def test_budget_under_a_pipe_plan_is_the_references(axes):
+    """``train_state_budget(plan=)`` over a pipe axis against the
+    reference's on the same plan of 4 CPU devices with its
+    ``PipelinedGPT2`` (blocks stacked and placed over pipe): a rank holds
+    one stage's blocks and the replicated rest, its activations
+    ``depth / pipe`` layers; the reference's int32 Adam count aside."""
+    from tpudist.models.gpt2 import PipelinedGPT2 as JPipelined
+    from tpudist.parallel.plan import ParallelPlan as JPlan
+
+    geom = dict(vocab_size=64, max_seq_len=32, hidden_dim=64, depth=4,
+                num_heads=4)
+    plan = JPlan.build(devices=jax.devices()[:4], **axes)
+    want = J.train_state_budget(
+        JPipelined(plan.mesh, num_micro=2, **geom), jax_make_optimizer(1e-3),
+        jnp.zeros((1, 8), jnp.int32), batch=8, seq=32, plan=plan,
+        hbm_budget_bytes=1 << 34)
+    got = M.train_state_budget(
+        lambda d: GPT2(**geom, device=d), make_optimizer(1e-3), batch=8,
+        seq=32, plan=types.SimpleNamespace(**axes), hbm_budget_bytes=1 << 34)
+    for k in ("params_bytes", "grad_bytes", "activation_bytes_est",
+              "n_params", "params_bytes_global", "pipe_world",
+              "tensor_world", "plan"):
+        assert got[k] == want[k], k
+    for k in ("opt_state_bytes_per_chip", "opt_state_bytes_global"):
+        assert got[k] == want[k] - REFERENCE_COUNT_BYTES, k
+    # a stage's blocks: half the blocks, the embeddings whole
+    assert got["pipe_world"] == 2 and got["params_bytes"] < \
+        got["params_bytes_global"]
 
 
 def test_the_cpu_reports_no_live_stats(monkeypatch):

@@ -19,8 +19,8 @@ step on a ``MeshConfig(data=2, tensor=2)`` mesh of 4 CPU devices.
   its whole shape and restores bit for bit; ``--tensor`` with ``--fsdp``
   / ``--cp`` / ``--shard_opt_state`` accepted (run in
   test_torch_tp_fsdp.py, test_torch_tp_cp.py, test_torch_tp_zero1.py)
-  and ZeRO-1 under a tensor plan built; the refusals: ``--pipe`` and the
-  MoE flags with ``--tensor``, the explicit reducer, a tensor resize on
+  and ZeRO-1 under a tensor plan built; the refusals: the MoE flags with
+  ``--tensor`` (``--pipe`` with it needs its ranks), the explicit reducer, a tensor resize on
   resume.
 """
 
@@ -351,10 +351,13 @@ def test_tensor_refusals():
     for flags in (["--fsdp", "2"], ["--cp", "2"], ["--shard_opt_state"]):
         parser, args = train_gpt2.parse_args([*base, *flags])
         train_gpt2.check_ported(parser, args)
-    for flags, item in ((["--pipe", "2"], r"#7c"),
-                        (["--experts", "4"], r"#7d")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_gpt2.main([*base, *flags])
+    # --tensor 2 --pipe 2 is ported (tests/test_torch_pp_train.py): in one
+    # process the layout needs its 4 ranks
+    with pytest.raises(ValueError, match="1 ranks not divisible by the "
+                       "fixed axes' product 4"):
+        train_gpt2.main([*base, "--pipe", "2"])
+    with pytest.raises(NotImplementedError, match=r"#7d"):
+        train_gpt2.main([*base, "--experts", "4"])
     plan = ParallelPlan(RankLayout(0, 1, 1, tensor=2))
     assert plan.model_axes == {"tensor": 2}
     assert plan.axis_worlds()["tensor_world"] == 2

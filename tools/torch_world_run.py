@@ -14,10 +14,15 @@ step times. Run from the root of the repo, one rank a card:
     torchrun --nproc_per_node 4 tools/torch_world_run.py gpt2 FT4 \\
         --bf16 --fused all --batch_size 8 --synthetic_tokens 524288 \\
         --fsdp 2 --tensor 2
+    torchrun --nproc_per_node 4 tools/torch_world_run.py gpt2 P4 \\
+        --bf16 --fused optimizer --batch_size 8 --synthetic_tokens 524288 \\
+        --pipe 4 --num_micro 8 --pipe_schedule 1f1b
     python tools/torch_world_run.py budget 4 --arch llama --hidden_dim 4096 \\
         --depth 32 --num_heads 32 --num_kv_heads 8 --ffn_dim 14336 \\
         --vocab_size 128256 --seq_len 2048 --batch_size 1 --bf16 \\
         --fused all --chunked_ce 256 --tensor 4
+    python tools/torch_world_run.py budget 4 --bf16 --fused optimizer \\
+        --pipe 2 --tensor 2
 
 The first argument names the CLI (``main``: :mod:`tpudist_torch.main`;
 ``gpt2``: :mod:`tpudist_torch.train_gpt2`; ``bert``:
@@ -50,8 +55,9 @@ def budget_line(flags, world: int, hbm_budget_bytes=None) -> str:
     """``memory.train_state_budget``'s line for ``train_gpt2 flags`` over
     ``world`` ranks: the whole model and its optimizer state on the meta
     device, placed by the flags' plan (``--fsdp``, ``--tensor``, ZeRO-1
-    under ``--shard_opt_state``; the data axis the rest of the world less
-    ``--cp``), the batch the global one."""
+    under ``--shard_opt_state``, a stage's blocks under ``--pipe``; the
+    data axis the rest of the world less ``--cp`` and ``--pipe``), the
+    batch the global one."""
     import types
 
     import torch
@@ -61,13 +67,13 @@ def budget_line(flags, world: int, hbm_budget_bytes=None) -> str:
     from tpudist_torch.optim import make_optimizer, shard_state
 
     _, args = TG.parse_args(list(flags))
-    data = world // (args.fsdp * args.tensor * args.cp)
+    data = world // (args.fsdp * args.tensor * args.cp * args.pipe)
     dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
     # a context-parallel attention needs its layout: the estimate takes
     # the attention each rank runs (the dense chunks, or the kernels)
     attn = {"ring": "xla", "ulysses": "xla", "ulysses_flash": "flash"}.get(
         args.attn, TG.resolve_attn(args.attn, args.seq_len,
-                                   torch.device("cuda")))
+                                   torch.device("cuda"), args.pipe))
     tx = make_optimizer(
         args.lr, optimizer=args.optimizer, weight_decay=args.weight_decay,
         clip_norm=args.clip_norm,
@@ -81,7 +87,7 @@ def budget_line(flags, world: int, hbm_budget_bytes=None) -> str:
         batch=args.batch_size * data * args.fsdp, seq=args.seq_len,
         world_size=world, hbm_budget_bytes=hbm_budget_bytes,
         plan=types.SimpleNamespace(data=data, fsdp=args.fsdp,
-                                   tensor=args.tensor))
+                                   tensor=args.tensor, pipe=args.pipe))
     return format_budget(report)
 
 

@@ -15,7 +15,9 @@ both packages can run the same weights. Flax ``Dense`` kernels are
 ``[in, out]`` and the port's weights ``[out, in]``; ``DenseGeneral``
 kernels flatten their grouped axes first (``qkv`` ``[d, 3, h, dh]``,
 ``out`` ``[h, dh, d]``), and biases keep their shapes (``qkv``'s
-``[3, h, dh]``).
+``[3, h, dh]``). :func:`pipelined_gpt2_params_from_flax` maps the
+reference's :class:`tpudist.models.gpt2.PipelinedGPT2` tree (its blocks
+stacked under ``blocks``) onto the same names and keeps a stage's blocks.
 
 :func:`llama_params_from_flax` maps a flax :class:`tpudist.models.llama.Llama`
 param tree (unrolled ``layer_{i}``, or stacked under ``layers``) onto the
@@ -124,6 +126,24 @@ def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:
     sd["ln_f.bias"] = torch.from_numpy(
         np.asarray(p["ln_f"]["bias"], np.float32).copy())
     return sd
+
+
+def pipelined_gpt2_params_from_flax(tree, *, layout=None
+                                    ) -> dict[str, torch.Tensor]:
+    """The reference's :class:`~tpudist.models.gpt2.PipelinedGPT2` params
+    (``wte``, ``wpe``, ``blocks/...`` stacked ``[depth, ...]`` as
+    ``stack_gpt2_params`` lays them out, ``ln_f``; unboxed, a
+    ``{"params": ...}`` wrapper accepted) -> the port's state dict under
+    the global names ``h.{i}``, kept to ``layout``'s stage (every block
+    without one), in f32 on the CPU."""
+    from tpudist_torch.parallel.pp import stage_state_dict
+
+    p = tree["params"] if "params" in tree else tree
+    p = unstack_layers({**p, "blocks": {"block": p["blocks"]}}, prefix="h_",
+                       dest="blocks")
+    sd = gpt2_params_from_flax(p)
+    depth = sum(1 for k in p if k.startswith("h_"))
+    return stage_state_dict(sd, depth, layout)
 
 
 def _f32(a) -> torch.Tensor:

@@ -86,7 +86,8 @@ def _shard_shape(shape, record) -> tuple:
     """The largest shard one device holds of a leaf of ``shape`` under
     ``record``: None (replicated), ``(dim, world)`` (ceil division, the
     padded shard an allocator reserves), ``(dim, world, axis)`` over
-    ``data``, ``fsdp`` or ``tensor``, or a list of them applied in turn
+    ``data``, ``fsdp``, ``pipe`` (a stacked leaf's layers) or ``tensor``,
+    or a list of them applied in turn
     (a rank's tensor shard sliced over data; an FSDP shard sliced again
     over data); an axis the port does not lay out raises."""
     if record is None:
@@ -96,7 +97,7 @@ def _shard_shape(shape, record) -> tuple:
             shape = _shard_shape(shape, r)
         return tuple(shape)
     dim, world, *axis = record
-    if axis and axis[0] not in ("data", "fsdp", "tensor"):
+    if axis and axis[0] not in ("data", "fsdp", "pipe", "tensor"):
         from tpudist_torch.mesh import AXIS_ITEMS
 
         raise NotImplementedError(
@@ -308,20 +309,22 @@ def train_state_budget(
     placement (:func:`plan_placements` over the model's ``tensor_specs``;
     ZeRO-1 when ``tx`` is :func:`tpudist_torch.optim.shard_state`'s), and
     scales the activation estimate as the reference does: its batch
-    ``batch / (data * fsdp)``, the whole divided by ``tensor``. ``model_fn``
+    ``batch / (data * fsdp)``, ``depth / pipe`` layers, the whole divided
+    by ``tensor``. Under a pipe axis a rank holds one stage's blocks and
+    the replicated rest (:func:`tpudist_torch.parallel.pp.stage_names`,
+    stage 0's: every stage holds as many), so the per-device parameters,
+    gradients and optimizer state count those leaves alone. ``model_fn``
     builds the whole model (no layout): only the axis sizes are read, so
-    no world is needed. A pipe or expert axis above 1 raises.
+    no world is needed. An expert axis above 1 raises.
 
     Returns the reference's keys: per-component bytes, the per-chip total,
     ``fits`` and ``bytes_per_param``."""
-    if plan is not None:
+    if plan is not None and getattr(plan, "expert", 1) != 1:
         from tpudist_torch.mesh import AXIS_ITEMS
 
-        for axis in ("pipe", "expert"):
-            if getattr(plan, axis, 1) != 1:
-                raise NotImplementedError(
-                    f"train_state_budget under a {axis} axis is not ported "
-                    f"yet (ROADMAP {AXIS_ITEMS[axis]})")
+        raise NotImplementedError(
+            "train_state_budget under an expert axis is not ported yet "
+            f"(ROADMAP {AXIS_ITEMS['expert']})")
     if hbm_budget_bytes is None:
         if not torch.cuda.is_available():
             raise ValueError("hbm_budget_bytes is required without a card "
@@ -346,6 +349,9 @@ def train_state_budget(
     params_global = params_bytes
     opt_per_chip, grads_per_chip, act_batch = opt_bytes, None, batch
     tensor = int(getattr(plan, "tensor", 1)) if plan is not None else 1
+    depth = int(getattr(model, "depth", 0) or 0)
+    pipe = int(getattr(plan, "pipe", 1)) if plan is not None else 1
+    act_depth = depth
     if plan is not None or zero1:
         fsdp = int(getattr(plan, "fsdp", 1)) if plan is not None else 1
         data = (int(getattr(plan, "data", 1)) if plan is not None
@@ -356,7 +362,17 @@ def train_state_budget(
                                tensor=tensor,
                                table=getattr(model, "tensor_specs", None))
         named = dict(model.named_parameters())
-        placed = {k: param_record(r) for k, r in recs.items()}
+        if pipe > 1:
+            from tpudist_torch.optim import _named_leaves
+            from tpudist_torch.parallel.pp import stage_names
+
+            held = stage_names(named, depth, pipe, 0)
+            away = {id(t) for k in named if k not in held
+                    for t in _named_leaves(opt_state, k)}
+            named = {k: named[k] for k in held}
+            opt_leaves = [t for t in opt_leaves if id(t) not in away]
+            act_depth = -(-depth // pipe) if depth else depth
+        placed = {k: param_record(recs[k]) for k in named}
         params_bytes = per_device_bytes(named, placed)
         grads_per_chip = per_device_bytes(
             {k: torch.empty(p.shape, device="meta", dtype=torch.uint8)
@@ -365,7 +381,7 @@ def train_state_budget(
         act_batch = -(-batch // (fsdp * data))
     acts = transformer_activation_bytes(
         act_batch, seq, int(getattr(model, "hidden_dim", 0) or 0),
-        int(getattr(model, "depth", 0) or 0),
+        act_depth,
         num_heads=getattr(model, "num_heads", None),
         remat_policy=remat_policy,
         attention_scores=getattr(model, "attn_impl", "xla") in ("xla", "auto"),
@@ -396,7 +412,8 @@ def train_state_budget(
         out["params_bytes_global"] = int(params_global)
         out["plan"] = (plan.describe() if hasattr(plan, "describe") else
                        f"ParallelPlan(data={int(getattr(plan, 'data', 1))}, "
-                       f"fsdp={worlds['fsdp_world']}, pipe=1, "
+                       f"fsdp={worlds['fsdp_world']}, "
+                       f"pipe={worlds['pipe_world']}, "
                        f"tensor={worlds['tensor_world']}, expert=1)")
         out.update(worlds)
     return out

@@ -1,28 +1,31 @@
-"""The data x fsdp x seq x tensor rank layout: the part of
-:mod:`tpudist.mesh` that data, fully-sharded, context and tensor
-parallelism need.
+"""The data x fsdp x pipe x seq x tensor rank layout: the part of
+:mod:`tpudist.mesh` that data, fully-sharded, pipeline, context and
+tensor parallelism need.
 
 The reference lays its devices out as a named mesh whose axis order is
-``data, fsdp, pipe, expert, seq, tensor``. With pipe and expert at 1,
-rank ``r`` of a world of ``data * fsdp * seq * tensor`` ranks sits at
+``data, fsdp, pipe, expert, seq, tensor``. With expert at 1, rank ``r``
+of a world of ``data * fsdp * pipe * seq * tensor`` ranks sits at
 ``tensor_idx = r % tensor``, ``seq_idx = (r // tensor) % seq``,
-``fsdp_idx = (r // (seq * tensor)) % fsdp`` and ``data_idx = r // (fsdp *
-seq * tensor)``: the reference's device order, tensor innermost.
+``pipe_idx = (r // (seq * tensor)) % pipe``, ``fsdp_idx = (r // (pipe *
+seq * tensor)) % fsdp`` and ``data_idx = r // (fsdp * pipe * seq *
+tensor)``: the reference's device order, tensor innermost.
 :func:`create_layout` gives a rank those coordinates and its process
 groups, created on every rank in the same order: its tensor peers (the
 Megatron layers of :mod:`tpudist_torch.parallel.tp` all-reduce over
-them), its seq peers (ring and Ulysses attention run over them), its fsdp
-peers (FSDP shards parameters over them) and its data replicas (the
-ranks with its fsdp, seq and tensor coordinates; DDP, the explicit
-reducer and ZeRO-1 work over them). The batch is split over ``data x
-fsdp`` jointly (:attr:`RankLayout.replica`), as the reference's
-``batch_sharding`` splits it; the tensor and seq ranks of a replica share
-its batch. A rank's batch peers (:attr:`RankLayout.batch_group`) are the
-ranks with its tensor index: its data, fsdp and seq peers together, over
-which the gradients of what the tensor axis holds in shards are
+them), its seq peers (ring and Ulysses attention run over them), its pipe
+peers (the stages of :mod:`tpudist_torch.parallel.pp`, which pass
+activations along them), its fsdp peers (FSDP shards parameters over
+them) and its data replicas (the ranks with its fsdp, pipe, seq and
+tensor coordinates; DDP, the explicit reducer and ZeRO-1 work over
+them). The batch is split over ``data x fsdp`` jointly
+(:attr:`RankLayout.replica`), as the reference's ``batch_sharding``
+splits it; the pipe, tensor and seq ranks of a replica share its batch.
+A rank's batch peers (:attr:`RankLayout.batch_group`) are the ranks with
+its pipe and tensor indices: its data, fsdp and seq peers together, over
+which the gradients of what the pipe and tensor axes hold in parts are
 averaged. ``fsdp`` with ``seq > 1`` is refused, as the reference's
-``train_gpt2.py`` refuses it; ``tensor`` composes with either; pipe and
-expert raise, naming their ROADMAP items.
+``train_gpt2.py`` refuses it; ``tensor`` composes with either, and
+``pipe`` with data and tensor; expert raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,12 +55,11 @@ class MeshConfig:
     tensor: int = 1
 
     def __post_init__(self):
-        for axis in (PIPELINE_AXIS, EXPERT_AXIS):
-            if getattr(self, axis) != 1:
-                raise NotImplementedError(
-                    f"MeshConfig({axis}={getattr(self, axis)}) is not ported "
-                    f"yet (ROADMAP {AXIS_ITEMS[axis]}); the port lays out "
-                    "data x fsdp x seq x tensor")
+        if self.expert != 1:
+            raise NotImplementedError(
+                f"MeshConfig(expert={self.expert}) is not ported yet "
+                f"(ROADMAP {AXIS_ITEMS[EXPERT_AXIS]}); the port lays out "
+                "data x fsdp x pipe x seq x tensor")
         if self.fsdp > 1 and self.seq > 1:
             raise ValueError(
                 "fsdp does not compose with seq > 1 (the context-parallel "
@@ -65,10 +67,11 @@ class MeshConfig:
                 "train_gpt2.py refuses --fsdp with --cp")
 
     def axis_sizes(self, world: int) -> dict[str, int]:
-        """``{"data": ..., "fsdp": ..., "seq": ..., "tensor": ...}`` over
-        ``world`` ranks."""
+        """``{"data": ..., "fsdp": ..., "pipe": ..., "seq": ...,
+        "tensor": ...}`` over ``world`` ranks."""
         sizes = {DATA_AXIS: self.data, FSDP_AXIS: self.fsdp,
-                 SEQUENCE_AXIS: self.seq, TENSOR_AXIS: self.tensor}
+                 PIPELINE_AXIS: self.pipe, SEQUENCE_AXIS: self.seq,
+                 TENSOR_AXIS: self.tensor}
         wild = [k for k, v in sizes.items() if v == -1]
         if len(wild) > 1:
             raise ValueError(f"at most one axis may be -1, got {wild}")
@@ -88,12 +91,17 @@ class MeshConfig:
                 "fsdp does not compose with seq > 1 (the context-parallel "
                 "step keeps parameters replicated), as the reference's "
                 "train_gpt2.py refuses --fsdp with --cp")
+        if sizes[PIPELINE_AXIS] > 1 and sizes[SEQUENCE_AXIS] > 1:
+            raise NotImplementedError(
+                "a pipe axis beside a seq axis is not ported yet (ROADMAP "
+                f"{PIPE_REMAINDER}); the port lays out data x pipe x tensor")
         return sizes
 
 
 #: the ROADMAP items that port the axes the layout still refuses
-AXIS_ITEMS = {PIPELINE_AXIS: "Queue 1 #7c (the pipeline)",
-              EXPERT_AXIS: "Queue 1 #7d (experts)"}
+AXIS_ITEMS = {EXPERT_AXIS: "Queue 1 #7d (experts)"}
+#: the ROADMAP item of the pipe compositions not ported yet
+PIPE_REMAINDER = "Queue 1 #7c (remainder)"
 
 
 def largest_divisible_dim(shape, size: int, *,
@@ -122,14 +130,16 @@ def largest_divisible_spec(shape, axis: str, size: int, *,
 
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
-    """This rank's place in a ``data x fsdp x seq x tensor`` world. A group
-    is None when its axis is 1 (no collective). ``device_mesh`` is the
-    ``torch.distributed`` DeviceMesh over the same groups, one dim for
-    each axis above 1 in the order ``data, fsdp, seq, tensor`` (seq only
-    beside a tensor axis; None when every axis is 1): FSDP2
+    """This rank's place in a ``data x fsdp x pipe x seq x tensor`` world.
+    A group is None when its axis is 1 (no collective). ``device_mesh`` is
+    the ``torch.distributed`` DeviceMesh over the same groups, one dim for
+    each axis above 1 in the order ``data, fsdp, pipe, seq, tensor`` (seq
+    only beside a tensor axis; None when every axis is 1): FSDP2
     (:meth:`fsdp_mesh`), the ZeRO-1 DTensors (:meth:`data_mesh`) and the
-    tensor shards in a checkpoint are placed on it. ``batch_group``: the
-    ranks with this rank's tensor index (None: none other)."""
+    tensor shards in a checkpoint (:meth:`shard_mesh`) are placed on it.
+    ``batch_group``: the ranks with this rank's pipe and tensor indices
+    (None: none other). ``pipe_ranks``: the global ranks of this rank's
+    pipe group in stage order (None with one stage)."""
 
     rank: int
     data: int
@@ -142,14 +152,21 @@ class RankLayout:
     tensor: int = 1
     tensor_group: object = None
     batch_group: object = None
+    pipe: int = 1
+    pipe_group: object = None
+    pipe_ranks: tuple | None = None
 
     @property
     def data_idx(self) -> int:
-        return self.rank // (self.fsdp * self.seq * self.tensor)
+        return self.rank // (self.fsdp * self.pipe * self.seq * self.tensor)
 
     @property
     def fsdp_idx(self) -> int:
-        return (self.rank // (self.seq * self.tensor)) % self.fsdp
+        return (self.rank // (self.pipe * self.seq * self.tensor)) % self.fsdp
+
+    @property
+    def pipe_idx(self) -> int:
+        return (self.rank // (self.seq * self.tensor)) % self.pipe
 
     @property
     def seq_idx(self) -> int:
@@ -158,6 +175,20 @@ class RankLayout:
     @property
     def tensor_idx(self) -> int:
         return self.rank % self.tensor
+
+    @property
+    def prev_stage(self) -> int | None:
+        """The global rank of the stage before this rank's (None at the
+        first stage)."""
+        i = self.pipe_idx
+        return self.pipe_ranks[i - 1] if i > 0 else None
+
+    @property
+    def next_stage(self) -> int | None:
+        """The global rank of the stage after this rank's (None at the
+        last stage)."""
+        i = self.pipe_idx
+        return self.pipe_ranks[i + 1] if i < self.pipe - 1 else None
 
     @property
     def data_parallel_size(self) -> int:
@@ -189,6 +220,15 @@ class RankLayout:
         tensor rank)."""
         return self._sub_mesh(TENSOR_AXIS)
 
+    def shard_mesh(self):
+        """The DeviceMesh a tensor shard is placed on in a checkpoint: the
+        whole mesh without its pipe dim (a stage's leaves live on its own
+        ranks alone), the tensor dim last."""
+        if self.pipe == 1:
+            return self.device_mesh
+        return self._sub_mesh(DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS,
+                              TENSOR_AXIS)
+
     def fsdp_mesh(self):
         """The DeviceMesh FSDP2 shards over: ``(data, fsdp)`` (hybrid:
         sharded over fsdp, replicated over data) or ``fsdp``, the ranks
@@ -215,12 +255,12 @@ def _groups(rank: int, world: int, stride: int, size: int):
     return mine
 
 
-def _strided(rank: int, world: int, tensor: int):
+def _sharing(rank: int, world: int, key):
     """Create (on every rank, in the same order) the groups of the ranks
-    that share a tensor index; return this rank's."""
+    with equal ``key(rank)``; return this rank's."""
     mine = None
-    for t in range(tensor):
-        ranks = list(range(t, world, tensor))
+    for k in sorted({key(r) for r in range(world)}):
+        ranks = [r for r in range(world) if key(r) == k]
         g = dist.new_group(ranks)
         if rank in ranks:
             mine = g
@@ -240,28 +280,37 @@ def create_layout(config: MeshConfig = MeshConfig(), *,
         rank, world = 0, 1
     sizes = config.axis_sizes(world)
     data, fsdp, seq = sizes[DATA_AXIS], sizes[FSDP_AXIS], sizes[SEQUENCE_AXIS]
-    tensor = sizes[TENSOR_AXIS]
+    tensor, pipe = sizes[TENSOR_AXIS], sizes[PIPELINE_AXIS]
     seq_group = data_group = fsdp_group = tensor_group = device_mesh = None
-    batch_group = None
+    batch_group = pipe_group = pipe_ranks = None
     if tensor > 1 and tensor < world:
         tensor_group = _groups(rank, world, 1, tensor)
     elif tensor > 1:
         tensor_group = dist.group.WORLD
     if seq > 1:
         seq_group = _groups(rank, world, tensor, seq)
+    if pipe > 1:
+        stride = seq * tensor
+        pipe_group = (_groups(rank, world, stride, pipe) if pipe < world
+                      else dist.group.WORLD)
+        first = rank - ((rank // stride) % pipe) * stride
+        pipe_ranks = tuple(first + k * stride for k in range(pipe))
     if fsdp > 1:
-        fsdp_group = _groups(rank, world, seq * tensor, fsdp)
+        fsdp_group = _groups(rank, world, pipe * seq * tensor, fsdp)
     if data > 1 and data < world:
-        data_group = _groups(rank, world, fsdp * seq * tensor, data)
+        data_group = _groups(rank, world, fsdp * pipe * seq * tensor, data)
     elif data > 1:
         data_group = dist.group.WORLD
-    if tensor > 1 and tensor < world:
-        # the ranks with this rank's tensor index: data x fsdp x seq
-        batch_group = _strided(rank, world, tensor)
-    elif tensor == 1 and world > 1:
+    if 1 < pipe * tensor < world:
+        # the ranks with this rank's (pipe, tensor) indices: data x fsdp x
+        # seq
+        batch_group = _sharing(rank, world, lambda r: (
+            r // (seq * tensor) % pipe, r % tensor))
+    elif pipe * tensor == 1 and world > 1:
         batch_group = dist.group.WORLD
     axes = [(a, n, g) for a, n, g in (
         (DATA_AXIS, data, data_group), (FSDP_AXIS, fsdp, fsdp_group),
+        (PIPELINE_AXIS, pipe, pipe_group),
         (SEQUENCE_AXIS, seq if tensor > 1 else 1, seq_group),
         (TENSOR_AXIS, tensor, tensor_group)) if n > 1]
     if axes:
@@ -281,4 +330,4 @@ def create_layout(config: MeshConfig = MeshConfig(), *,
                                                 mesh_dim_names=names)
     return RankLayout(rank, data, seq, seq_group, data_group, fsdp,
                       fsdp_group, device_mesh, tensor, tensor_group,
-                      batch_group)
+                      batch_group, pipe, pipe_group, pipe_ranks)

@@ -1,6 +1,7 @@
 """GPT-2 decoder in PyTorch: counterpart of :mod:`tpudist.models.gpt2`.
 
-Dense blocks only (no MoE or pipeline parallelism). The decode
+Dense blocks only (no MoE); :class:`PipelinedGPT2` runs the blocks over
+a layout's pipe axis (:mod:`tpudist_torch.parallel.pp`). The decode
 path runs over a KV cache
 (:mod:`tpudist_torch.ops.decode`) in the reference's three modes: scalar
 cursor (``generate``), per-row positions (the contiguous serving pool)
@@ -87,6 +88,7 @@ from tpudist_torch.ops.layernorm import fused_layernorm
 from tpudist_torch.parallel.cp import (
     CP_IMPLS, context_parallel_attention, gathered_attention_local,
 )
+from tpudist_torch.parallel import pp as pp_lib
 from tpudist_torch.parallel import tp as tp_lib
 from tpudist_torch.parallel.tp import (
     ColumnParallel, RowParallel, copy_to_tensor, tensor_size,
@@ -415,6 +417,9 @@ class GPT2(nn.Module):
                 t = torch.empty(shape, device=dev)
                 nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
                 return t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+            if name is None:
+                draw(tuple(p.shape))
+                return
             tp_lib.init_sharded(p, name, draw, layout, vocab,
                                 table=self.tensor_specs)
 
@@ -427,17 +432,31 @@ class GPT2(nn.Module):
         d = self.hidden_dim
         normal("wte", self.wte, 0.02)
         normal("wpe", self.wpe, 0.01)
-        for i, blk in enumerate(self.h):
-            for name, lin, fan_in in (("qkv", blk.qkv, d), ("out", blk.out, d),
-                                      ("mlp_fc", blk.mlp_fc, d),
-                                      ("mlp_proj", blk.mlp_proj, 4 * d)):
+        for i in range(self.depth):
+            blk = self._held_block(i)
+            for name, shape, fan_in in (("qkv", (3 * d, d), d),
+                                        ("out", (d, d), d),
+                                        ("mlp_fc", (4 * d, d), d),
+                                        ("mlp_proj", (d, 4 * d), 4 * d)):
+                if blk is None:
+                    # a block another stage holds: drawn all the same, so
+                    # the generator reaches the next leaf where it would
+                    lecun(None, torch.empty(shape, device=dev), fan_in)
+                    continue
+                lin = getattr(blk, name)
                 lecun(f"h.{i}.{name}.weight", lin.weight, fan_in)
                 lin.bias.zero_()
+            if blk is None:
+                continue
             for ln in (blk.ln_1, blk.ln_2):
                 ln.scale.fill_(1.0)
                 ln.bias.zero_()
         self.ln_f.scale.fill_(1.0)
         self.ln_f.bias.zero_()
+
+    def _held_block(self, i: int):
+        """Block ``i`` (None where this rank does not hold it)."""
+        return self.h[i]
 
     def init_cache(self, batch_size: int) -> dict:
         """Zeroed decode cache for ``batch_size`` rows — the serving
@@ -603,3 +622,108 @@ def compute_copy(model: GPT2) -> GPT2:
 
 def gpt2_124m(**kw) -> GPT2:
     return GPT2(**kw)
+
+
+class PipelinedGPT2(GPT2):
+    """GPT-2 with its blocks run through the pipeline over ``layout``'s
+    pipe axis (:func:`tpudist_torch.parallel.pp.pipeline_apply`): the
+    counterpart of :class:`tpudist.models.gpt2.PipelinedGPT2`. A rank
+    holds its stage's blocks under their global names (``h.{i}``, so a
+    checkpoint and a converted tree name the same leaf) and the
+    replicated ``wte``, ``wpe`` and ``ln_f``; the embedding, the final
+    LayerNorm and the tied head run on every pipe rank, the head on the
+    last stage's outputs, which every stage receives. Under a tensor axis
+    too the stage's blocks are PR 20's column / row layers
+    (``tensor_specs``, GPT-2's).
+
+    The init draws every leaf whole from ``seed`` in the unrolled model's
+    order and keeps this rank's (the reference initializes its unrolled
+    twin and re-stacks it), so the same seed gives :class:`GPT2`'s
+    function. ``num_micro`` splits a rank's batch; ``schedule`` is
+    ``"gpipe"`` or ``"1f1b"`` (the same function; 1F1B keeps only each
+    microbatch's stage input for the backward). Attention is the dense
+    path (``attn_impl="xla"``, the reference's refusal otherwise); there
+    is no ``fused_ln`` knob, no dropout and no decode path."""
+
+    def __init__(self, layout=None, *, num_micro: int,
+                 vocab_size: int = 50257, max_seq_len: int = 1024,
+                 hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 dtype=torch.float32, attn_impl: str = "xla",
+                 schedule: str = "gpipe", device=None, seed: int = 0):
+        nn.Module.__init__(self)
+        pipe = pp_lib.pipe_size(layout)
+        if depth % pipe:
+            raise ValueError(f"depth {depth} not divisible by pipe={pipe}")
+        if attn_impl != "xla":
+            raise ValueError(
+                f"attn_impl={attn_impl!r} does not compose with the GPipe "
+                "schedule yet; the pipelined model runs XLA attention "
+                "(attn_impl='xla')")
+        pp_lib.check_schedule(schedule)
+        if hidden_dim % num_heads:
+            raise ValueError("hidden_dim must divide into num_heads")
+        self.device = resolve_device(device)
+        self.vocab_size = vocab_size
+        self.max_seq_len = max_seq_len
+        self.hidden_dim = hidden_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.layout = layout
+        self.num_micro = int(num_micro)
+        self.schedule = schedule
+        t = check_tensor(self)
+        dev = self.device
+        v0, v1 = tp_lib.vocab_range(vocab_size, t, layout.tensor_idx
+                                    if t > 1 else 0)
+        self.wte = nn.Parameter(torch.empty(v1 - v0, hidden_dim, device=dev))
+        self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim,
+                                            device=dev))
+        self.layers = pp_lib.stage_layers(
+            depth, pipe, layout.pipe_idx if pipe > 1 else 0)
+        self.h = nn.ModuleDict({
+            str(i): Block(hidden_dim, num_heads, dtype=dtype,
+                          attn_impl=attn_impl, device=dev, layout=layout)
+            for i in self.layers})
+        self.ln_f = LayerNorm(hidden_dim, device=dev)
+        self.init_weights(seed)
+        self.eval()
+
+    def _held_block(self, i: int):
+        return self.h[str(i)] if i in self.layers else None
+
+    def init_cache(self, batch_size: int) -> dict:
+        raise ValueError("PipelinedGPT2 has no decode path (the reference "
+                         "refuses --generate under --pipe); generate with "
+                         "GPT2")
+
+    def _stage(self, x):
+        for blk in self.h.values():
+            x = blk(x)
+        return x
+
+    def forward(self, tokens, *, cache=None, positions=None,
+                block_tables=None, return_hidden: bool = False,
+                dropout_key: int | None = None, vocab_local: bool = False):
+        """``tokens [B, s]`` (this rank's rows) -> f32 logits ``[B, s,
+        V]`` (this rank's vocabulary columns with ``vocab_local`` under a
+        tensor axis), or the final hidden state with ``return_hidden``;
+        the blocks run through the pipeline in ``num_micro``
+        microbatches."""
+        if cache is not None:
+            self.init_cache(0)
+        b, s = tokens.shape
+        if tokens.dtype != torch.int64:
+            tokens = tokens.long()
+        x = (tp_lib.vocab_parallel_embedding(tokens, self.wte, self.layout,
+                                             self.vocab_size).to(self.dtype)
+             + self.wpe[:s][None].to(self.dtype))
+        params = [p for blk in self.h.values() for p in blk.parameters()]
+        x = pp_lib.pipeline_apply(self._stage, x, self.layout,
+                                  num_micro=self.num_micro,
+                                  schedule=self.schedule, params=params)
+        x = self.ln_f(x, self.dtype)
+        if return_hidden:
+            return x
+        return lm_logits(self, x, self.wte.to(self.dtype), vocab_local)

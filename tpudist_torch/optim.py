@@ -251,13 +251,14 @@ class Optimizer:
 
     def shard_over(self, group, sharded) -> None:
         """Gradients of the names in ``sharded`` are this rank's shards of
-        leaves split over ``group`` (FSDP's or the tensor axis's); the
-        others are replicated
-        over it. The clip's global norm and the guard's flag then sum over
-        the group, so every rank takes the same decision. Called once for
-        each of two groups (fsdp x tensor: a leaf is split over one of
-        them at most), the norm sums each group's leaves over its own
-        group; a second call for the same group replaces the first."""
+        leaves split over ``group`` (FSDP's, the tensor axis's or a pipe
+        stage's); the others are replicated over it. The clip's global
+        norm and the guard's flag then sum over the group, so every rank
+        takes the same decision. Called once for
+        each of two groups (fsdp x tensor, pipe x tensor), the norm divides
+        each square by the size of every group that replicates its leaf
+        and sums over both groups in turn; a second call for the same group
+        replaces the first."""
         if not self.elementwise and sharded:
             raise NotImplementedError(
                 f"{type(self).__name__} reads whole leaves (not an "
@@ -286,23 +287,15 @@ class Optimizer:
             return global_norm(grads.values())
         import torch.distributed as dist
 
-        sq = {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
-        if len(self.shards) == 1:
-            group, sharded = self.shards[0]
-            n = dist.get_world_size(group)
-            total = torch.stack([v * (1.0 if k in sharded else 1.0 / n)
-                                 for k, v in sq.items()]).sum()
+        # every rank's squares, a leaf's divided by the size of each group
+        # that replicates it, summed over each group in turn
+        sizes = [(n, dist.get_world_size(g)) for g, n in self.shards]
+        total = torch.stack([
+            torch.sum(torch.square(g.float()))
+            / math.prod(w for n, w in sizes if k not in n)
+            for k, g in grads.items()]).sum()
+        for group, _ in self.shards:
             dist.all_reduce(total, group=group)
-            return torch.sqrt(total)
-        held = set().union(*(n for _, n in self.shards))
-        zero = [next(iter(sq.values())).new_zeros(())]
-        total = torch.stack([v for k, v in sq.items() if k not in held]
-                            or zero).sum()
-        for group, sharded in self.shards:
-            part = torch.stack([v for k, v in sq.items() if k in sharded]
-                               or zero).sum()
-            dist.all_reduce(part, group=group)
-            total = total + part
         return torch.sqrt(total)
 
     def all_finite(self, grads: dict) -> torch.Tensor:

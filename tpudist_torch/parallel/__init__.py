@@ -1,6 +1,7 @@
 """Parallelism strategies: the data-parallel layers (the explicit
-reducer, FSDP, the plan), context parallelism (:mod:`.cp`) and tensor
-parallelism (:mod:`.tp`: the Megatron layers)."""
+reducer, FSDP, the plan), context parallelism (:mod:`.cp`), tensor
+parallelism (:mod:`.tp`: the Megatron layers) and the pipeline
+(:mod:`.pp`: GPipe and 1F1B)."""
 
 from tpudist_torch.parallel.dp import GradReducer, make_reducer, resolve_method
 from tpudist_torch.parallel.fsdp import apply_fsdp, fsdp_spec

@@ -1,5 +1,5 @@
 """ParallelPlan: the one resolver for a composed run, over data x fsdp
-x tensor (or data x seq x tensor).
+x tensor, data x seq x tensor or data x pipe x tensor.
 
 Counterpart of :mod:`tpudist.parallel.plan` for the data-parallel and
 tensor axes: a plan holds the rank layout
@@ -22,10 +22,15 @@ shared by FSDP and ZeRO-1, and the rules that tie them:
   its batch;
 - :meth:`ParallelPlan.validate_reduce` refuses the explicit reducer on a
   plan with a real ``fsdp`` or ``tensor`` axis, with the reference's hint;
+- a ``pipe`` axis holds each stage's blocks on its ranks alone
+  (:mod:`tpudist_torch.parallel.pp`) and replicates the rest over the
+  stages; fsdp and ZeRO-1 beside it raise, naming "Queue 1 #7c
+  (remainder)";
 - :meth:`ParallelPlan.axis_worlds` is what a checkpoint's geometry
-  records (``fsdp_world``, ``tensor_world``; pipe and expert are 1).
+  records (``fsdp_world``, ``tensor_world``, ``pipe_world``; expert is
+  1).
 
-``pipe`` and ``expert`` above 1 raise, naming their ROADMAP items.
+``expert`` above 1 raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from __future__ import annotations
 import dataclasses
 
 from tpudist_torch.mesh import (
-    AXIS_ITEMS, EXPERT_AXIS, FSDP_AXIS, PIPELINE_AXIS, TENSOR_AXIS,
-    MeshConfig, RankLayout, create_layout, largest_divisible_spec)
+    AXIS_ITEMS, EXPERT_AXIS, FSDP_AXIS, PIPE_REMAINDER, PIPELINE_AXIS,
+    TENSOR_AXIS, MeshConfig, RankLayout, create_layout,
+    largest_divisible_spec)
 
 __all__ = ["ParallelPlan", "spec_is_sharded"]
 
@@ -72,13 +78,16 @@ class ParallelPlan:
         is every remaining rank; ``device_type`` as
         :func:`~tpudist_torch.mesh.create_layout` takes it). Every rank
         must call it."""
-        for axis, size in ((PIPELINE_AXIS, pipe), (EXPERT_AXIS, expert)):
-            if size != 1:
-                raise NotImplementedError(
-                    f"ParallelPlan({axis}={size}) is not ported yet "
-                    f"(ROADMAP {AXIS_ITEMS[axis]})")
-        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp, seq=seq,
-                                            tensor=tensor),
+        if expert != 1:
+            raise NotImplementedError(
+                f"ParallelPlan({EXPERT_AXIS}={expert}) is not ported yet "
+                f"(ROADMAP {AXIS_ITEMS[EXPERT_AXIS]})")
+        if pipe > 1 and fsdp > 1:
+            raise NotImplementedError(
+                f"ParallelPlan(fsdp={fsdp}, pipe={pipe}) is not ported yet "
+                f"(ROADMAP {PIPE_REMAINDER})")
+        return cls(create_layout(MeshConfig(data=data, fsdp=fsdp, pipe=pipe,
+                                            seq=seq, tensor=tensor),
                                  device_type=device_type), **kw)
 
     @property
@@ -93,22 +102,28 @@ class ParallelPlan:
     def tensor(self) -> int:
         return self.layout.tensor
 
-    pipe = expert = 1
+    @property
+    def pipe(self) -> int:
+        return self.layout.pipe
+
+    expert = 1
 
     @property
     def model_axes(self) -> dict[str, int]:
         """The real (>1) model-parallel axes of this plan."""
         return {k: v for k, v in ((FSDP_AXIS, self.fsdp),
+                                  (PIPELINE_AXIS, self.pipe),
                                   (TENSOR_AXIS, self.tensor)) if v > 1}
 
     def axis_worlds(self) -> dict[str, int]:
         """The geometry keys a checkpoint records for this plan."""
         return {"fsdp_world": self.fsdp, "tensor_world": self.tensor,
-                "pipe_world": 1, "expert_world": 1}
+                "pipe_world": self.pipe, "expert_world": 1}
 
     def describe(self) -> str:
         return (f"ParallelPlan(data={self.data}, fsdp={self.fsdp}, "
-                f"pipe=1, tensor={self.tensor}, expert=1)")
+                f"pipe={self.pipe}, tensor={self.tensor}, expert=1)")
+
 
     @property
     def data_parallel_size(self) -> int:
@@ -129,6 +144,10 @@ class ParallelPlan:
         slices its tensor shards over its data replicas."""
         from tpudist_torch.optim import shard_state
 
+        if self.pipe > 1:
+            raise NotImplementedError(
+                f"ZeRO-1 beside a pipe axis is not ported yet (ROADMAP "
+                f"{PIPE_REMAINDER})")
         return shard_state(tx, self.layout, min_size=self.fsdp_min_size,
                            skip_spec=self._zero1_skip if self.wraps_fsdp
                            else None)

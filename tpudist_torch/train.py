@@ -115,6 +115,19 @@ same gradient on every tensor rank, or the ranks' copies part silently:
 A checkpoint holds the shards as DTensors on the layout's DeviceMesh
 (replicated over its other axes) and records ``tensor_world``.
 
+Pipeline parallelism (Queue 1 #7c): a model on a layout with a pipe axis
+(:class:`tpudist_torch.models.gpt2.PipelinedGPT2`) holds its stage's
+blocks and the replicated embeddings and head; every stage computes the
+same loss. The module is not wrapped in DDP (its bucket all-reduces would
+interleave with the schedule's point-to-point ops in the backward): the
+step averages every gradient over the batch group (the ranks of this
+rank's pipe and tensor indices) in one float32 all-reduce after the
+schedule, and the optimizer clips and guards over the pipe group too
+(a stage's block leaves counted on their stage alone). The params gather
+the other stages' blocks (:func:`tpudist_torch.parallel.pp.
+gather_stages`); a checkpoint holds a stage's blocks under their global
+names on its ranks and records ``pipe_world``.
+
 ``fit`` raises ``NotImplementedError`` for every feature of the
 reference's ``fit`` that is not ported yet, naming its ROADMAP item; none
 is a silent no-op.
@@ -141,6 +154,7 @@ from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.models.lm_utils import seq_shard_lm
 from tpudist_torch.optim import (
     FusedAdamWState, Optimizer, load_tensors, local)
+from tpudist_torch.parallel import pp as pp_lib
 from tpudist_torch.parallel import tp as tp_lib
 from tpudist_torch.profiling import WindowedProfiler
 from tpudist_torch.remat import remat_module, resolve as resolve_remat
@@ -182,7 +196,7 @@ class TrainState:
         if tp_lib.tensor_size(layout) > 1:
             from torch.distributed.tensor import Replicate, Shard
 
-            mesh = layout.device_mesh
+            mesh = layout.shard_mesh()
             table = self.model.tensor_specs
             vocab = getattr(self.model, "vocab_size", None)
             for k, p in self.model.named_parameters():
@@ -191,7 +205,8 @@ class TrainState:
                     continue
                 dim = 0 if spec[0] == "vocab" else spec[0]
                 # the tensor axis is the mesh's last: replicated over the
-                # others (data, fsdp, seq)
+                # others (data, fsdp, seq; a stage's leaves live on its
+                # ranks alone, so the mesh has no pipe dim)
                 place = [Replicate()] * (mesh.ndim - 1) + [Shard(dim)]
                 out[k] = (p, mesh, place, tp_lib.full_shape(
                     k, p.shape, layout.tensor, vocab, table=table))
@@ -224,8 +239,8 @@ class TrainState:
 
     def params(self) -> dict[str, torch.Tensor]:
         """The float32 master of every parameter, by name, whole: ZeRO-1's
-        slices, FSDP's shards and the tensor shards are gathered (every
-        rank must call it then)."""
+        slices, FSDP's shards, the tensor shards and the other stages'
+        blocks are gathered (every rank must call it then)."""
         opt = inner_state(self.opt_state)
         sharded = self._sharded()
         if hasattr(self.opt_state, "slices"):
@@ -243,9 +258,11 @@ class TrainState:
             out[k] = p
         layout = getattr(self.model, "layout", None)
         if tp_lib.tensor_size(layout) > 1:
-            return tp_lib.gather_state_dict(
+            out = tp_lib.gather_state_dict(
                 out, layout, getattr(self.model, "vocab_size", None),
                 table=self.model.tensor_specs)
+        if pp_lib.pipe_size(layout) > 1:
+            out = pp_lib.gather_stages(out, layout)
         return out
 
     def batch_stats(self) -> dict[str, torch.Tensor]:
@@ -404,17 +421,25 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
     broadcasts the parameters and buffers from rank 0 instead of
     wrapping. A model on a tensor layout (module docstring) is wrapped in
     DDP over the layout's data group, or not at all with one data
-    replica, and ``tx`` clips and guards over the tensor group."""
+    replica, and ``tx`` clips and guards over the tensor group. A model
+    on a pipe layout is not wrapped (the step averages its gradients
+    over the batch group after the schedule) and ``tx`` clips and guards
+    over the pipe group too."""
     module = model
     if plan is not None:
         layout = plan.layout
     tensor = tp_lib.tensor_size(getattr(model, "layout", None))
-    if tensor > 1:
+    pipe = pp_lib.pipe_size(getattr(model, "layout", None))
+    if tensor > 1 or pipe > 1:
         from tpudist_torch.parallel.fsdp import _base_optimizer
 
         layout = model.layout
-        _base_optimizer(tx).shard_over(layout.tensor_group,
-                                       tp_lib.sharded_names(model))
+        base = _base_optimizer(tx)
+        if tensor > 1:
+            base.shard_over(layout.tensor_group, tp_lib.sharded_names(model))
+        if pipe > 1:
+            base.shard_over(layout.pipe_group, pp_lib.stage_local_names(
+                dict(model.named_parameters())))
     if plan is not None and plan.wraps_fsdp:
         from tpudist_torch.parallel.fsdp import apply_fsdp
 
@@ -425,7 +450,8 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
                 dist.broadcast(t, 0)
     opt_state = tx.init(dict(model.named_parameters()))
     if group_up() and ddp and not (plan is not None and plan.wraps_fsdp) \
-            and not (tensor > 1 and layout.batch_group is None):
+            and not (tensor > 1 and layout.batch_group is None) \
+            and pipe == 1:
         dev = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
@@ -569,15 +595,27 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         if layout is None:
             layout = plan.layout
     tensor = tp_lib.tensor_size(getattr(model, "layout", None))
+    pipe = pp_lib.pipe_size(getattr(model, "layout", None))
     # a causal LM under a tensor axis: the vocabulary-local LM loss
     lm_tensor = tensor > 1 and getattr(model, "causal_lm", False)
-    if tensor > 1:
+    if pipe > 1:
+        from tpudist_torch.mesh import PIPE_REMAINDER
+
+        if resolve_remat(remat) is not None:
+            raise NotImplementedError(
+                "remat over a pipelined model is not ported yet (ROADMAP "
+                f"{PIPE_REMAINDER})")
+        if forward_loss is not None:
+            raise ValueError("a pipelined model trains on the default LM "
+                             "loss (the reference refuses --chunked_ce "
+                             "with --pipe)")
+    if tensor > 1 or pipe > 1:
         from tpudist_torch.parallel.plan import ParallelPlan
 
         if layout is not None and layout is not model.layout:
-            raise ValueError("a tensor-parallel model trains on its own "
-                             "layout: pass make_train_step(layout=model."
-                             "layout) or none")
+            raise ValueError("a tensor-parallel or pipelined model trains "
+                             "on its own layout: pass make_train_step("
+                             "layout=model.layout) or none")
         layout = model.layout
         # the explicit reducer reduces over data alone: the plan's refusal
         ParallelPlan(layout).validate_reduce(reduce)
@@ -709,11 +747,11 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
                 group=avg_group)}
         return lsum / grad_accum, {k: t / grad_accum for k, t in sums.items()}
 
-    # under a tensor axis gradients are averaged over the ranks with this
-    # rank's tensor index alone (a shard differs from its tensor peers');
-    # False: no other such rank
+    # under a tensor or pipe axis gradients are averaged over the ranks
+    # with this rank's tensor and pipe indices alone (a shard or a stage
+    # differs from its peers'); False: no other such rank
     avg_group = ((layout.batch_group if layout.batch_group is not None
-                  else False) if tensor > 1 else None)
+                  else False) if tensor > 1 or pipe > 1 else None)
 
     def backward(loss):
         # DDP averages over data x seq ranks; the chunks' gradients add
@@ -769,7 +807,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             loss = run_loss(state.module, batch, state.step)
             backward(loss)
             grads = {k: p.grad for k, p in params.items()}
-            if fsdp:
+            if fsdp or pipe > 1:
                 grads.update(average_replicated(
                     {k: g for k, g in grads.items()
                      if g is not None and not hasattr(g, "to_local")},
@@ -885,11 +923,11 @@ def run_geometry(train_loader, *, batch_size: int, world_size: int,
                  grad_accum: int, model=None, fsdp_world: int = 1,
                  reduce: str | None = None, shard_opt_state: bool = False,
                  data_world: int | None = None,
-                 tensor_world: int = 1) -> dict:
+                 tensor_world: int = 1, pipe_world: int = 1) -> dict:
     """The geometry a checkpoint is bound to (``tpudist_meta.json``, the
     reference's keys): the data position of ``state.step`` depends on
-    each of them. ``fsdp_world`` is the plan's, ``tensor_world`` the
-    layout's (pipe is 1);
+    each of them. ``fsdp_world`` is the plan's, ``tensor_world`` and
+    ``pipe_world`` the layout's;
     ``reduce`` (the explicit reducer's method) and ``shard_opt_state``
     are recorded only when on, with ``data_world``, the world their
     stored layouts are bound to. A language model's ``geometry`` (its arch
@@ -903,7 +941,7 @@ def run_geometry(train_loader, *, batch_size: int, world_size: int,
     meta = {"steps_per_epoch": len(train_loader), "batch_size": batch_size,
             "world_size": world_size, "grad_accum": grad_accum,
             "fsdp_world": int(fsdp_world), "tensor_world": int(tensor_world),
-            "pipe_world": 1}
+            "pipe_world": int(pipe_world)}
     if shard_opt_state:
         meta["shard_opt_state"] = True
     if reduce is not None:
@@ -1082,6 +1120,13 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         train_loader.probe()
     if plan is not None and layout is None:
         layout = plan.layout
+    if pp_lib.pipe_size(getattr(model, "layout", None)) > 1 and (
+            shard_opt_state or elastic):
+        from tpudist_torch.mesh import PIPE_REMAINDER
+
+        raise NotImplementedError(
+            "ZeRO-1 and the elastic resume over a pipelined model are not "
+            f"ported yet (ROADMAP {PIPE_REMAINDER})")
     if shard_opt_state:
         from tpudist_torch.optim import shard_state
 
@@ -1113,7 +1158,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         fsdp_world=plan.fsdp if plan is not None else 1,
         reduce=reducer.method if reducer is not None else None,
         shard_opt_state=shard_opt_state, data_world=data_world,
-        tensor_world=tp_lib.tensor_size(getattr(model, "layout", None)))
+        tensor_world=tp_lib.tensor_size(getattr(model, "layout", None)),
+        pipe_world=pp_lib.pipe_size(getattr(model, "layout", None)))
         if checkpoint_dir is not None else None)
     chaos_inj = make_injector(chaos)
     # ranks agree their stop and time-cadence saves through the step's

@@ -90,6 +90,24 @@ the plan), with ``--cp`` (each attention over the seq group on the
 rank's heads) and with ``--shard_opt_state`` (ZeRO-1 over the rank's
 tensor shards).
 
+Pipeline parallelism, the reference's ``--pipe N --num_micro M
+--pipe_schedule gpipe|1f1b`` (:mod:`tpudist_torch.parallel.pp`): the
+world is laid out ``data x pipe x tensor``, each rank holds ``depth / N``
+blocks (:class:`tpudist_torch.models.gpt2.PipelinedGPT2`) and the
+replicated embeddings and head, the ``N`` stages of a replica read the
+same windows and split them into ``M`` microbatches, and every stage
+logs the same loss. The blocks run the dense attention (``--attn auto``
+resolves to it; a kernel request exits, as in the reference); ``--fused
+optimizer`` (or ``auto``) runs the fused AdamW over a rank's leaves,
+``--fused ln|all`` raises (the pipelined model has no fused LayerNorm,
+as in the reference). ``--init_hf`` loads the whole checkpoint and keeps
+each rank's stage (and tensor shards). The reference's refusals under
+``--pipe`` are kept (``--dropout``, ``--arch llama``, ``--scan_layers``,
+``--remat_layers``, ``--remat_policy``, ``--chunked_ce``, ``--eval``,
+``--generate``); ``--fsdp``, ``--shard_opt_state``, ``--cp``, ``--remat``
+and ``--elastic``, which the reference composes with it, raise
+``NotImplementedError`` naming "Queue 1 #7c (remainder)".
+
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps and at the
 end and resumes from the newest loadable step unless ``--no_resume``;
 SIGTERM gives a checkpoint at the last completed step and exit 75, and
@@ -206,9 +224,8 @@ def parse_args(argv=None):
 
 
 #: flags of the reference this port does not run yet -> the ROADMAP item
-_PP, _EP = "Queue 1 #7c (the pipeline)", "Queue 1 #7d (experts)"
+_EP = "Queue 1 #7d (experts)"
 _UNPORTED = {
-    "pipe": _PP, "num_micro": _PP, "pipe_schedule": _PP,
     "experts": _EP, "expert_axis": _EP, "moe_every": _EP, "moe_top_k": _EP,
     "capacity_factor": _EP, "moe_dispatch": _EP, "router_z_loss": _EP,
     "router_jitter": _EP,
@@ -218,6 +235,9 @@ _UNPORTED = {
 #: the context-parallel --attn values
 CP_ATTN = ("ring", "ulysses", "ulysses_flash")
 
+#: flags the reference composes with --pipe that the port does not yet
+_PIPE_UNPORTED = ("fsdp", "shard_opt_state", "cp", "remat", "elastic")
+
 
 def check_ported(parser, args) -> None:
     """Raise ``NotImplementedError`` for a flag (or a flag combination)
@@ -226,15 +246,25 @@ def check_ported(parser, args) -> None:
         if getattr(args, name) != parser.get_default(name):
             raise NotImplementedError(
                 f"--{name} is not ported yet (ROADMAP {item})")
+    if args.pipe > 1:
+        from tpudist_torch.mesh import PIPE_REMAINDER
+
+        for name in _PIPE_UNPORTED:
+            value = getattr(args, name)
+            if value != parser.get_default(name) and value != "none":
+                raise NotImplementedError(
+                    f"--{name} with --pipe is not ported yet (ROADMAP "
+                    f"{PIPE_REMAINDER})")
 
 
-def resolve_attn(attn: str, seq_len: int, device) -> str:
+def resolve_attn(attn: str, seq_len: int, device, pipe: int = 1) -> str:
     """``--attn auto`` by sequence length, the reference's crossovers: on
     the card the vmem kernel up to 1024, the dense path to 2047, flash from
-    2048; off the card the dense path. Other values pass through."""
+    2048; off the card, and under ``--pipe`` (whose blocks run the dense
+    path), the dense path. Other values pass through."""
     if attn != "auto":
         return attn
-    if device.type != "cuda":
+    if device.type != "cuda" or pipe > 1:
         return "xla"
     if seq_len <= 1024:
         return "vmem"
@@ -265,7 +295,7 @@ def check_args(args) -> None:
         raise SystemExit(
             "--fsdp does not compose with --cp yet (the context-parallel "
             "step keeps parameters replicated); use one or the other")
-    if (args.eval or args.generate) and args.cp > 1:
+    if (args.eval or args.generate) and (args.cp > 1 or args.pipe > 1):
         raise SystemExit(
             "--eval/--generate support the non-cp, non-pipe paths; rerun "
             "them separately without --cp/--pipe")
@@ -284,6 +314,29 @@ def check_args(args) -> None:
         raise SystemExit(
             "--scan_layers supports dense training only (no --experts/"
             "--generate/--init_hf: those need the unrolled layout)")
+    if args.pipe > 1:
+        # the reference's build_model refusals under --pipe, in its order:
+        # an explicit kernel request errors, --attn auto resolves to the
+        # dense path (resolve_attn)
+        if args.experts or args.attn not in ("xla", "auto"):
+            raise SystemExit(
+                "--pipe composes with --tensor and data parallelism and "
+                "runs XLA attention; MoE/context-parallel/kernel "
+                "attention are not pipelined")
+        if args.dropout:
+            raise SystemExit("--dropout is not supported with --pipe")
+        if args.arch != "gpt2":
+            raise SystemExit("--pipe supports the gpt2 arch only")
+        if args.scan_layers or args.remat_layers:
+            raise SystemExit(
+                "--scan_layers/--remat_layers are not supported with --pipe "
+                "(the pipeline already stacks blocks over the 'pipe' axis)")
+        if args.remat_policy:
+            raise SystemExit(
+                "--remat_policy is not supported with --pipe (checkpoint "
+                "the whole forward with --remat instead)")
+        if args.chunked_ce:
+            raise SystemExit("--chunked_ce does not compose with --pipe")
 
 
 def build_model(args, dtype, attn: str, device, layout):
@@ -291,9 +344,17 @@ def build_model(args, dtype, attn: str, device, layout):
     gpt2`` (the default) or ``llama`` with ``--num_kv_heads`` (0: MHA),
     ``--ffn_dim`` (0: the SwiGLU default), ``--rope_theta`` and
     ``--tie_embeddings``; a context-parallel ``attn`` runs over
-    ``layout``'s seq group."""
-    from tpudist_torch.models.gpt2 import GPT2
+    ``layout``'s seq group. ``--pipe > 1`` builds the pipelined GPT-2 on
+    ``layout``'s pipe axis (``--num_micro``, ``--pipe_schedule``)."""
+    from tpudist_torch.models.gpt2 import GPT2, PipelinedGPT2
     from tpudist_torch.models.llama import Llama
+
+    if args.pipe > 1:
+        return PipelinedGPT2(
+            layout, num_micro=args.num_micro, vocab_size=args.vocab_size,
+            max_seq_len=args.seq_len, hidden_dim=args.hidden_dim,
+            depth=args.depth, num_heads=args.num_heads, dtype=dtype,
+            attn_impl=attn, schedule=args.pipe_schedule, device=device)
 
     common = dict(vocab_size=args.vocab_size, max_seq_len=args.seq_len,
                   hidden_dim=args.hidden_dim, depth=args.depth,
@@ -327,14 +388,15 @@ def main(argv=None):
     from tpudist_torch.mesh import MeshConfig, create_layout
     from tpudist_torch.models.lm_utils import chunked_lm_forward
     from tpudist_torch.optim import make_optimizer, run_schedule
+    from tpudist_torch.parallel.pp import stage_state_dict
     from tpudist_torch.parallel.tp import shard_state_dict
     from tpudist_torch.train import evaluate_lm, fit, lm_loss
 
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
-        # data x fsdp x seq x tensor; --batch_size, the sampler and the TSV
-        # count the data x fsdp replicas
+        # data x fsdp x pipe x seq x tensor; --batch_size, the sampler and
+        # the TSV count the data x fsdp replicas
         plan = None
         if args.fsdp > 1:
             from tpudist_torch.parallel.plan import ParallelPlan
@@ -344,10 +406,11 @@ def main(argv=None):
                                       device_type=ctx.device.type)
             layout = plan.layout
         else:
-            layout = create_layout(MeshConfig(data=-1, seq=args.cp,
+            layout = create_layout(MeshConfig(data=-1, pipe=args.pipe,
+                                              seq=args.cp,
                                               tensor=args.tensor),
                                    device_type=ctx.device.type)
-        attn = resolve_attn(args.attn, args.seq_len, ctx.device)
+        attn = resolve_attn(args.attn, args.seq_len, ctx.device, args.pipe)
         dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
         model = build_model(args, dtype, attn, ctx.device, layout)
         if args.init_hf:
@@ -361,9 +424,11 @@ def main(argv=None):
                         f"fewer than --seq_len {args.seq_len}")
                 # the reference's model reads wpe[:seq_len] of a longer table
                 sd["wpe"] = sd["wpe"][:args.seq_len]
-            # loaded whole; under --tensor each rank keeps its shards
+            # loaded whole; under --pipe each rank keeps its stage's
+            # blocks, under --tensor its shards
             model.load_state_dict(shard_state_dict(
-                sd, layout, table=model.tensor_specs))
+                stage_state_dict(sd, args.depth, layout), layout,
+                table=model.tensor_specs))
         # --batch_size is per data replica; each loader batch holds
         # grad_accum microbatches of it, the same windows on the replica's
         # seq ranks
