@@ -601,7 +601,47 @@ Phases, each fatal on failure:
     full`` (the same function; the card holds them beside the two
     worlds).
 
-Phases 22-29 and 31-71 print their seconds.
+72. the experts, trained — ``train_gpt2 --experts 8`` (GPT-2 124M, blocks
+    1, 3, .., 11 each 8 GELU experts routed top-2, capacity 1.25: 142
+    leaves) at --bf16 --fused all --attn auto, batch 8, S 1024, 16 steps
+    under DDP, once under ``--moe_dispatch einsum`` and once under
+    ``index`` (then ``--generate 32``: the contiguous kernel 12 x 32):
+    phase 14's launches a step (the MoE blocks leave LN and attention as
+    they are; one AdamW over the 142 leaves), the TSV rows, falling
+    losses, the step at g_step 15 and the allocator's peak beside
+    ``train_state_budget``, the routed and dropped shares of the last
+    step; then in f32 at depth 2 (block 1 MoE), 4 sgd steps at lr 0.1
+    (``MOE_F32``: Adam would turn a gradient within rounding of zero, an
+    expert row few tokens reach, into a step of either sign): --fused ln
+    --attn vmem against --fused none --attn xla, and the einsum dispatch
+    against the index dispatch, under phase 15's bars;
+73. the experts, served — phase 4's engine and requests on the MoE GPT-2
+    124M (every other block 8 experts) in bf16 under each dispatch: the
+    paged kernel on every decode step, TTFT / TPOT, the streams' agreement
+    between the dispatches printed; in f32 the greedy streams of the two
+    dispatches equal; ``main --serve --serve_experts 8`` under each
+    dispatch prints the same requests;
+74. Mixtral-8x7B's width (d 4096, GQA 32/8, every block 8 SwiGLU experts
+    of 14336 top-2, vocab 32000, theta 1e6) at the depth
+    ``train_state_budget`` fits in 90% of the card (2, else 1), bf16,
+    --fused all --attn auto --chunked_ce 256, batch 2, S 2048, 16 steps
+    under DDP: the wide RMSNorm kernels 2 x depth + 1 each way, flash
+    depth each way, one AdamW over the 3 + 10 x depth leaves (a stacked
+    expert leaf holds 469,762,048 elements), the allocator's peak beside
+    the budget;
+75. four ranks on the one card (phase 71's world, after its legs):
+    GPT-2 124M's width at depth 4 with ``--experts 8 --expert_axis 2
+    --remat_policy full --chunked_ce 256``, 4 steps: f32 (--fused ln,
+    sgd as phase 72's) on data 2 x expert 2 (index dispatch) and on
+    expert 2 x tensor 2 (einsum) against the one-rank einsum run on the
+    same windows (here, beside the worlds) under phase 15's bars; bf16
+    (--fused all) on data 2 x expert 2 with --shard_opt_state and
+    checkpoints at steps 2 and 4 (a rank's
+    launches a step: LN 17 / 9 + 9, vmem 8 + 4 (each block recomputed),
+    one AdamW), then a resume from step 2 bit-equal to the uninterrupted
+    steps 3-4.
+
+Phases 22-29 and 31-75 print their seconds.
 """
 
 from __future__ import annotations
@@ -932,6 +972,7 @@ def main() -> int:
     serve_cli_phase(smi, dev)
     data_parallel_phases(smi, dev)
     tensor_phases(smi, dev)
+    moe_phases(smi, dev)
     pipe_phases(smi)
 
     # -- 30. result ---------------------------------------------------------------
@@ -6069,6 +6110,7 @@ def _pipe_legs(tmp: Path, world: int) -> list[dict]:
                    "1f1b", "--JobID", "P71D"]),
         dict(name="p4_bf16",
              argv=[*common, "--pipe", "4", "--bf16", "--JobID", "P71P"]),
+        *_moe_legs(tmp),
     ]
 
 
@@ -6129,6 +6171,9 @@ def pipe_phases(smi: str) -> None:
             # the one-rank runs beside the two worlds, on their windows
             one = {accum: _one_rank_xla(tmp, tmp / "w2" / tok, accum)
                    for accum, tok in ((1, "ptext.bin"), (2, "pdtext.bin"))}
+            moe_one = {accum: _one_rank_moe(tmp, tmp / "w2" / tok, accum)
+                       for accum, tok in ((1, "ptext.bin"),
+                                          (2, "pdtext.bin"))}
             one_s = time.perf_counter() - t0
             for w in (2, 4):
                 worlds[w] = finish_world(procs[w], tmp / f"w{w}",
@@ -6141,7 +6186,8 @@ def pipe_phases(smi: str) -> None:
         worlds_s = time.perf_counter() - t0
         _pipe_two(smi, tmp / "w2", worlds[2], one[1])
         _pipe_four(smi, tmp / "w4", worlds[4], one)
-    print(f"  phases 70-71: {time.perf_counter() - t0:.1f} s (the two worlds "
+        _moe_world(smi, tmp / "w4", worlds[4], moe_one)
+    print(f"  phases 70-71, 75: {time.perf_counter() - t0:.1f} s (the two worlds "
           f"done {worlds_s:.1f} s after their start, the one-rank runs "
           f"{one_s:.1f} s)  [{smi}]")
 
@@ -6150,7 +6196,7 @@ def _pipe_replicas(ranks: list[dict]) -> None:
     """Fail unless, after every leg, each rank's copies of the leaves the
     stages replicate (``wte``, ``wpe``, ``ln_f``) were bit-equal to those
     of every rank of its pipe group."""
-    legs = list(ranks[0])
+    legs = [n for n, rec in ranks[0].items() if "replicas_agree" in rec]
     bad = [(r, n) for r, rec in enumerate(ranks) for n in legs
            if not rec[n]["replicas_agree"]]
     print(f"    the stages' copies of wte, wpe and ln_f bit-equal over the "
@@ -6253,6 +6299,397 @@ def _pipe_four(smi: str, tmp: Path, ranks: list[dict], one: dict) -> None:
                   extra=_pipe_counts(40),
                   budget=_pipe_budget(1, 4, 1, bf16=True))
     _pipe_replicas(ranks)
+
+
+# -- the experts (phases 72-75) -----------------------------------------------
+
+#: GPT-2 124M with ``--experts 8``: 6 of 12 blocks swap mlp_fc / mlp_proj
+#: (4 leaves) for the router and two stacked expert leaves
+MOE_LEAVES = 148 - 6 * 4 + 6 * 3
+#: Mixtral-8x7B's width (``models.llama.mixtral_8x7b``'s geometry), every
+#: block 8 experts top-2; phase 74 picks the depth the card holds
+MIXTRAL_WIDTH = ["--arch", "llama", "--hidden_dim", "4096", "--num_heads",
+                 "32", "--num_kv_heads", "8", "--ffn_dim", "14336",
+                 "--vocab_size", "32000", "--rope_theta", "1000000",
+                 "--experts", "8"]
+#: the f32 agreement runs of the MoE paths (phases 72 and 75) step with
+#: sgd: an MoE routes discontinuously, and Adam turns a gradient within
+#: rounding of zero (an expert's row that few tokens reach) into a step of
+#: up to lr either way, as it does the qkv key bias; sgd moves each
+#: parameter by lr times its gradient, so phase 15's bars hold the
+#: gradients themselves (lr 0.1: a wrong gradient moves a parameter by
+#: ~1e-3, a rounding difference by ~1e-9)
+MOE_F32 = ["--optimizer", "sgd", "--lr", "0.1"]
+#: a GPT-2 124M step's launches under --fused all --attn auto (phase 14's),
+#: which the MoE blocks leave as they are
+GPT2_STEP = lambda depth, n_leaves: {  # noqa: E731
+    "layernorm_fwd": 2 * depth + 1, "layernorm_bwd": 2 * depth + 1,
+    "layernorm_bwd_reduce": 2 * depth + 1, "vmem_attention_fwd": depth,
+    "vmem_attention_bwd": depth, "flash_attention_fwd": 0,
+    "flash_attention_bwd": 0, "fused_adamw": 1, "fused_adamw_leaves": n_leaves}
+
+
+def moe_budget(flags, world: int = 1, *, zero1_world: int = 0) -> dict:
+    """``train_state_budget``'s report for ``train_gpt2 flags`` over
+    ``world`` ranks (the expert axis by the CLI's rule), on the meta
+    device: the ``tools/torch_world_run.py budget`` line's report."""
+    import types
+
+    import torch
+
+    from tpudist_torch import train_gpt2 as TG
+    from tpudist_torch.memory import train_state_budget
+    from tpudist_torch.optim import make_optimizer, shard_state
+
+    _, args = TG.parse_args(list(flags))
+    expert = TG.expert_axis(args, world)
+    data = world // (args.tensor * expert)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    attn = TG.resolve_attn(args.attn, args.seq_len, torch.device("cuda"))
+    tx = make_optimizer(3e-4, fused=args.fused in ("optimizer", "all"),
+                        weight_decay=0.1, clip_norm=1.0,
+                        compute_dtype=dtype if args.bf16 else None)
+    if zero1_world:
+        tx = shard_state(tx, world=zero1_world, rank=0)
+    return train_state_budget(
+        lambda d: TG.build_model(args, dtype, attn, d, None), tx,
+        batch=args.batch_size * data, seq=args.seq_len, world_size=world,
+        remat_policy=args.remat_policy or "none",
+        plan=types.SimpleNamespace(data=data, fsdp=1, tensor=args.tensor,
+                                   pipe=1, expert=expert))
+
+
+def router_shares(model) -> tuple[float, float]:
+    """The routed and dropped shares of the (token, choice) pairs of the
+    model's last forward, over its MoE layers."""
+    from tpudist_torch.parallel.ep import moe_layers
+
+    dropped = [float(m.stats()["dropped"]) for m in moe_layers(model)]
+    d = sum(dropped) / len(dropped)
+    return 1.0 - d, d
+
+
+def moe_phases(smi: str, dev) -> None:
+    """Phases 72-74 (module docstring); 75 runs in phase 71's world."""
+    moe_training_phase(smi)
+    moe_serving_phase(smi, dev)
+    mixtral_phase(smi)
+
+
+def moe_training_phase(smi: str) -> None:
+    """Phase 72 (module docstring)."""
+    import torch
+
+    from tpudist_torch.memory import format_budget
+
+    t0 = time.perf_counter()
+    print("== 72. MoE GPT-2 124M (--experts 8: blocks 1, 3, .., 11 route "
+          "top-2 over 8 GELU experts, capacity 1.25), bf16, --fused all "
+          "--attn auto, batch 8, S 1024, 16 steps under DDP (NCCL), einsum "
+          "and index dispatch; --generate 32 after the index run")
+    flags = ["--bf16", "--fused", "all", "--attn", "auto", "--experts", "8"]
+    budget = moe_budget([*flags, "--batch_size", "8"])
+    for impl in ("einsum", "index"):
+        legs: dict = {}
+        gen = (["--generate", str(NEW), "--temperature", "0"]
+               if impl == "index" else [])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with (leg_counts(legs) if gen else contextlib.nullcontext()):
+            run = trained_cli([*flags, "--moe_dispatch", impl, *gen],
+                              batch=8, seq=1024, job=f"Moe{impl[:2]}",
+                              smi=smi, want=GPT2_STEP, leaves=MOE_LEAVES,
+                              legs=legs if gen else None)
+        peak = legs.get("peak_gb", torch.cuda.max_memory_allocated() / 1e9)
+        print(f"  {impl}: step at g_step 15 {STEP_MS[f'Moe{impl[:2]}']:.2f} "
+              f"ms; allocator peak {peak:.3f} GB (training); "
+              f"train_state_budget {format_budget(budget)}  [{smi}]")
+        if not gen:
+            routed, dropped = router_shares(run["model"])
+            print(f"  the last step's (token, choice) pairs over the 6 MoE "
+                  f"layers: routed {routed:.4f}, dropped {dropped:.4f}")
+        else:
+            g = legs.get("generate", {})
+            print(f"  --generate {NEW}: launches {g} in "
+                  f"{legs.get('generate_s', 0):.3f} s  [{smi}]")
+            if g.get("fused_decode_attention") != 12 * NEW:
+                fail(f"--generate launched the contiguous decode kernel "
+                     f"{g.get('fused_decode_attention')} times, want 12 x "
+                     f"{NEW}")
+        del run
+    torch.cuda.empty_cache()
+
+    print("== 72. f32 at depth 2 (block 1 MoE), 4 sgd steps (lr 0.1): "
+          "--fused ln --attn vmem against --fused none --attn xla (index), "
+          "and the einsum dispatch against the index dispatch (kernels)")
+    runner = gpt2_runner(8, 1024, extra=["--depth", "2", "--experts", "8",
+                                         *MOE_F32])
+    kernel = ["--fused", "ln", "--attn", "vmem"]
+    unused = {"flash_attention_fwd", "flash_attention_bwd",
+              "fused_adamw_check", "fused_adamw",
+              "fused_adamw_leaves"} | WIDE_LN
+    runs = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        for name, flags_ in (
+                ("kernels", [*kernel, "--moe_dispatch", "index"]),
+                ("plain", ["--fused", "none", "--attn", "xla",
+                           "--moe_dispatch", "index"]),
+                ("einsum", [*kernel, "--moe_dispatch", "einsum"])):
+            for mod in counted_modules():
+                mod.reset_launch_counts()
+            st, ls = runner(flags_, log_dir)
+            ran = launches()
+            used = {k for k, n in ran.items() if n}
+            if used != (set() if name == "plain" else set(ran) - unused):
+                fail(f"f32 {name}: launches {ran}")
+            runs[name] = (ls, {k: v.float().cpu()
+                               for k, v in st.params().items()})
+            del st
+    for name, how in (("plain", "(--fused none --attn xla)"),
+                      ("einsum", "(--moe_dispatch einsum)")):
+        _against_one_rank("f32 kernels + index", runs["kernels"][1],
+                          runs[name][1], runs["kernels"][0], runs[name][0],
+                          loss_bar=LOSS_BAR, param_bar=PARAM_BAR,
+                          peak_lr=0.1, how=f"against {how}")
+    torch.cuda.empty_cache()
+    print(f"  phase 72: {time.perf_counter() - t0:.1f} s")
+
+
+def moe_serving_phase(smi: str, dev) -> None:
+    """Phase 73 (module docstring)."""
+    import torch
+
+    from tpudist_torch.models.gpt2 import GPT2
+    from tpudist_torch.ops import decode as D
+    from tpudist_torch.ops import decode_bench as DB
+    from tpudist_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    print("== 73. MoE GPT-2 124M served: ServeEngine(paged=True, block 32, "
+          "8 slots), phase 4's 8 requests x 32 tokens, bf16, einsum and "
+          "index; f32 greedy streams of both; main --serve --serve_experts 8")
+    prompts = DB.smoke_prompts(SEED)
+    sampling = [dict(temperature=0.0)] * 6 + [
+        dict(temperature=1.0, top_k=50, top_p=0.95)] * 2
+    streams = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for impl in ("einsum", "index"):
+            model = GPT2(dtype=dtype, attn_impl="fused", device="cuda",
+                         seed=SEED, num_experts=8, moe_dispatch=impl)
+            eng = ServeEngine(model, max_slots=8, paged=True, block_size=32,
+                              seed=SEED)
+            warm = eng.submit(prompts[0][:20], 4)
+            eng.run()
+            if len(eng.result(warm)) != 4:
+                fail("warm-up request did not complete")
+            eng.reset_stats()
+            steps0 = eng.decode_steps
+            opts = sampling if dtype == torch.bfloat16 else [
+                dict(temperature=0.0)] * len(prompts)
+            D.reset_launch_counts()
+            torch.cuda.synchronize()
+            rids = [eng.submit(p, NEW, **o) for p, o in zip(prompts, opts)]
+            out = eng.run()
+            torch.cuda.synchronize()
+            paged = D.launch_counts["paged_decode_attention"]
+            steps = eng.decode_steps - steps0
+            streams[dtype, impl] = [out[r] for r in rids]
+            if any(len(s) != NEW for s in streams[dtype, impl]):
+                fail(f"{impl}: a request ended short")
+            if paged != model.depth * steps:
+                fail(f"{impl}: paged kernel launched {paged} times for "
+                     f"{steps} decode steps x {model.depth} layers")
+            snap = eng.stats.snapshot()
+            print(f"  {str(dtype)[6:]} {impl}: {steps} decode steps, paged "
+                  f"kernel launches {paged} (= {model.depth} x {steps}); "
+                  f"TTFT p50 {snap['ttft_p50']} s, TPOT p50 "
+                  f"{snap['tpot_p50']} s p95 {snap['tpot_p95']} s, "
+                  f"{snap['tokens_per_sec']} tok/s  [{smi}]")
+            del model, eng
+            torch.cuda.empty_cache()
+    bf = [a == b for a, b in zip(streams[torch.bfloat16, "einsum"],
+                                 streams[torch.bfloat16, "index"])]
+    same = (streams[torch.float32, "einsum"]
+            == streams[torch.float32, "index"])
+    print(f"  bf16 streams equal between the dispatches: {sum(bf[:6])} of 6 "
+          f"greedy, {sum(bf[6:])} of 2 sampled (the combine rounds its sum "
+          f"once under einsum, once a choice under index); f32 greedy "
+          f"streams equal: {same}")
+    if not same:
+        fail("the f32 greedy streams of the two dispatches differ")
+    printed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in ("einsum", "index"):
+            D.reset_launch_counts()
+            _, out = _one_rank("main", [
+                "--serve", "--serve_experts", "8", "--serve_moe_dispatch",
+                impl, "--log_dir", tmp])
+            printed[impl] = [ln for ln in out.splitlines()
+                             if ln.startswith("request ")]
+            # the demo's contiguous engine decodes per-row cursors on the
+            # dense path, as the reference's does (phase 60)
+            print(f"  main --serve --serve_experts 8 --serve_moe_dispatch "
+                  f"{impl}: {len(printed[impl])} requests done; decode "
+                  f"launches {dict(D.launch_counts)} (the dense path)")
+    if not printed["einsum"] or printed["einsum"] != printed["index"]:
+        fail(f"main --serve --serve_experts: {printed}")
+    print(f"  main --serve --serve_experts 8: the same output under both "
+          f"dispatches: True")
+    print(f"  phase 73: {time.perf_counter() - t0:.1f} s")
+
+
+def mixtral_phase(smi: str) -> None:
+    """Phase 74 (module docstring)."""
+    import torch
+
+    from tpudist_torch.memory import format_budget
+
+    t0 = time.perf_counter()
+    flags = [*MIXTRAL_WIDTH, "--bf16", "--fused", "all", "--attn", "auto",
+             "--chunked_ce", "256"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    depth = 1
+    for d in (2, 1):
+        report = moe_budget([*flags, "--depth", str(d), "--batch_size", "2",
+                             "--seq_len", "2048"])
+        if report["per_chip_total_bytes"] <= 0.9 * card:
+            depth = d
+            break
+    print(f"== 74. Mixtral-8x7B width at depth {depth} (d 4096, GQA 32/8, 8 "
+          f"SwiGLU experts of 14336 top-2 every block, vocab 32000, theta "
+          f"1e6), bf16, --fused all --attn auto --chunked_ce 256, batch 2, "
+          f"S 2048, 16 steps under DDP (NCCL); train_state_budget "
+          f"{format_budget(report)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = trained_cli(
+        [*flags, "--depth", str(depth)], batch=2, seq=2048, job="Mixtral",
+        smi=smi, leaves=3 + 10 * depth, want=lambda d, n_leaves: {
+            "layernorm_fwd": 0, "layernorm_bwd": 0,
+            "layernorm_fwd_wide": 2 * d + 1, "layernorm_bwd_wide": 2 * d + 1,
+            "layernorm_bwd_reduce": 2 * d + 1, "vmem_attention_fwd": 0,
+            "vmem_attention_bwd": 0, "flash_attention_fwd": d,
+            "flash_attention_bwd": d, "fused_adamw": 1,
+            "fused_adamw_leaves": n_leaves})
+    n = sum(p.numel() for p in run["model"].parameters())
+    routed, dropped = router_shares(run["model"])
+    del run
+    torch.cuda.empty_cache()
+    print(f"  {n:,} parameters; the last step routed {routed:.4f} / dropped "
+          f"{dropped:.4f}; allocator peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB against the "
+          f"budget's {report['per_chip_total_bytes'] / 1e9:.2f} GB  [{smi}]")
+    print(f"  phase 74: {time.perf_counter() - t0:.1f} s")
+
+
+def _moe_common(tmp: Path) -> list:
+    """Phase 75's flags: GPT-2 124M's width at depth 4 (blocks 1 and 3
+    MoE), each block checkpointed and the chunked head (the four ranks
+    hold their legs beside phase 70's world), 4 steps of batch 8 x S
+    1024 a replica; the f32 legs on sgd (:data:`MOE_F32`)."""
+    return ["--no_profiler", "--log_dir", str(tmp), "--warmup_steps", "2",
+            "--total_steps", "4", "--seq_len", "1024", "--batch_size", "8",
+            "--depth", "4", "--experts", "8", "--remat_policy", "full",
+            "--chunked_ce", "256"]
+
+
+#: phase 75's f32 legs and their one-rank runs
+MOE_F32_LEG = ["--attn", "vmem", "--fused", "ln", *MOE_F32]
+
+
+def _moe_legs(tmp: Path) -> list[dict]:
+    """Phase 75's legs in phase 71's four-rank world (module docstring),
+    ``--expert_axis 2``."""
+    common = [*_moe_common(tmp), "--expert_axis", "2"]
+    dp = [*common, "--tokens", str(tmp / "pdtext.bin")]
+    ck = str(tmp / "eck")
+    zero = [*dp, "--bf16", "--attn", "auto", "--fused", "all",
+            "--moe_dispatch", "index", "--shard_opt_state"]
+    return [
+        dict(name="moe_dp_f32", gather=True,
+             argv=[*dp, *MOE_F32_LEG, "--moe_dispatch", "index", "--JobID",
+                   "E75D"]),
+        dict(name="moe_tp_f32", gather=True,
+             argv=[*common, "--tokens", str(tmp / "ptext.bin"), "--tensor",
+                   "2", *MOE_F32_LEG, "--moe_dispatch", "einsum", "--JobID",
+                   "E75T"]),
+        dict(name="moe_zero_bf16", gather=True,
+             argv=[*zero, "--checkpoint_dir", ck, "--checkpoint_every", "2",
+                   "--JobID", "E75Z"]),
+        dict(name="moe_resume_bf16", gather=True, trim=(ck, ck + "2", 4),
+             argv=[*zero, "--checkpoint_dir", ck + "2", "--JobID", "E75R"]),
+    ]
+
+
+def _one_rank_moe(tmp: Path, tokens: Path, accum: int):
+    """The one-rank f32 run an expert-axis leg is held against: the same
+    model and flags on the same windows, the einsum dispatch, no expert
+    axis, ``--grad_accum accum`` (both replicas' rows a step at 2).
+    Returns ``(losses, params)``."""
+    import torch
+
+    argv = [*_moe_common(tmp), "--tokens", str(tokens), *MOE_F32_LEG,
+            "--moe_dispatch", "einsum", "--grad_accum", str(accum),
+            "--JobID", f"E1{accum}"]
+    (state, losses), _ = _one_rank("train_gpt2", argv)
+    params = {k: v.float().cpu() for k, v in state.params().items()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def _moe_world(smi: str, tmp: Path, ranks: list[dict], one: dict) -> None:
+    """Phase 75's checks (module docstring)."""
+    import torch
+
+    from tpudist_torch.memory import format_budget
+
+    print("== 75. the same four ranks: GPT-2 124M width at depth 4 with "
+          "--experts 8 --expert_axis 2 --remat_policy full --chunked_ce 256, "
+          "data 2 x expert 2 and expert 2 x tensor 2 (f32: --fused ln, 4 sgd "
+          "steps; bf16: --fused all)")
+    every = [[0, 1, 2, 3]]
+
+    def step(n_leaves):
+        # each block's forward runs again in its backward (its LN and
+        # attention forwards twice)
+        return {**GPT2_STEP(4, n_leaves), "layernorm_fwd": 4 * 4 + 1,
+                "vmem_attention_fwd": 2 * 4}
+
+    for name, what, key in (
+            ("moe_dp_f32", "data 2 x expert 2, index, f32", 2),
+            ("moe_tp_f32", "expert 2 x tensor 2, einsum, f32", 1)):
+        _composed_leg(ranks, name, {**step(0), "fused_adamw": 0}, what,
+                      every)
+        one_losses, whole = one[key]
+        _against_one_rank(name, torch.load(tmp / f"{name}.pt"), whole,
+                          ranks[0][name]["losses"], one_losses,
+                          loss_bar=LOSS_BAR, param_bar=PARAM_BAR,
+                          peak_lr=0.1, how=f"({what})")
+    budget = moe_budget(["--bf16", "--fused", "all", "--attn", "auto",
+                         "--experts", "8", "--expert_axis", "2", "--depth",
+                         "4", "--batch_size", "8", "--remat_policy", "full"],
+                        4, zero1_world=2)
+    zero = _composed_leg(ranks, "moe_zero_bf16",
+                         step(ranks[0]["moe_zero_bf16"]["leaves"]),
+                         "data 2 x expert 2, index, bf16, --shard_opt_state, "
+                         "checkpoints at 2 and 4", every,
+                         budget=format_budget(budget))
+    res = [r["moe_resume_bf16"] for r in ranks]
+    whole = torch.load(tmp / "moe_zero_bf16.pt")
+    resumed = torch.load(tmp / "moe_resume_bf16.pt")
+    same = (all(r["losses"] == zero["losses"][2:] for r in res)
+            and resumed.keys() == whole.keys()
+            and all(torch.equal(resumed[k], whole[k]) for k in whole))
+    counts = {k: n for k, n in res[0]["counts"].items() if n}
+    print(f"  moe_resume_bf16 (from moe_zero_bf16's step 2): steps 3-4 "
+          f"losses {res[0]['losses']}, losses and parameters bit-equal to "
+          f"the uninterrupted run: {same}; launches a rank {counts}; "
+          f"{res[0]['seconds']:.1f} s")
+    want = {k: n for k, n in _step_counts(
+        step(ranks[0]["moe_zero_bf16"]["leaves"]), steps=2).items() if n}
+    if not same or counts != want:
+        fail("the resumed expert-axis run is not the uninterrupted one")
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from tpudist.optim import make_optimizer as jax_make_optimizer
 from tpudist_torch import amp
 from tpudist_torch.ops import fused_update as FU
 from tpudist_torch.optim import make_optimizer
+from torch_threads import two_torch_threads  # noqa: F401
 
 TOL = 1e-6
 BAD = 1  # the step (from 0) whose gradient holds an inf

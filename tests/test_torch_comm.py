@@ -34,6 +34,7 @@ from tpudist import comm as jcomm
 from tpudist.utils.compat import shard_map
 from tpudist_torch import allreduce as comm
 from tpudist_torch.rng import fold_in
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -39,6 +39,7 @@ from tpudist_torch.models.gpt2 import GPT2
 from tpudist_torch.models.llama import Llama
 from tpudist_torch.ops.attention import kernel_attention, repeat_kv
 from tpudist_torch.parallel import cp
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FWD, GRAD = 1e-5, 1e-4
@@ -208,8 +209,8 @@ def test_layout_is_the_references_device_order():
     """rank = data_idx * seq + seq_idx: the reference's mesh (axis order
     data, fsdp, pipe, expert, seq, tensor) over devices 0..7 in order."""
     cfg = mesh_lib.MeshConfig(data=-1, seq=4)
-    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "pipe": 1, "seq": 4,
-                                 "tensor": 1}
+    assert cfg.axis_sizes(8) == {"data": 2, "fsdp": 1, "pipe": 1,
+                                 "expert": 1, "seq": 4, "tensor": 1}
     mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(data=2, seq=4),
                                 devices=jax.devices()[:8])
     ids = np.vectorize(lambda d: d.id)(np.asarray(mesh.devices))
@@ -221,7 +222,7 @@ def test_layout_is_the_references_device_order():
         cfg.axis_sizes(6)
     # seq composes with tensor (tests/test_torch_tp_cp.py), not with fsdp
     assert mesh_lib.MeshConfig(tensor=2, seq=2).axis_sizes(8) == {
-        "data": 2, "fsdp": 1, "pipe": 1, "seq": 2, "tensor": 2}
+        "data": 2, "fsdp": 1, "pipe": 1, "expert": 1, "seq": 2, "tensor": 2}
     with pytest.raises(ValueError, match="fsdp does not compose with seq"):
         mesh_lib.MeshConfig(fsdp=2, seq=2)
     one = mesh_lib.create_layout()

@@ -39,6 +39,7 @@ from tpudist_torch.optim import make_optimizer
 from tpudist_torch.parallel import cp
 from tpudist_torch.train import make_train_step
 from tpudist_torch.train_gpt2 import resolve_attn
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _inputs(b=2, s=64, h=4, h_kv=2, d=16, seed=0):

@@ -49,6 +49,7 @@ from tpudist.train import state_shardings_of
 from tpudist_torch.data.lm import TokenWindowLoader
 from tpudist_torch.interop import gpt2_params_from_flax, llama_params_from_flax
 from tpudist_torch.models.gpt2 import GPT2 as GPT2T
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 S, B, V, STEPS, LR = 32, 2, 64, 3, 1e-4

@@ -31,6 +31,7 @@ from tpudist_torch.ops import decode as D
 from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.serve.blocks import paged_cache
 from torch_decode_model import contiguous_model, paged_model
+from torch_threads import two_torch_threads  # noqa: F401
 
 GEOM = dict(vocab_size=64, max_seq_len=64, hidden_dim=32, depth=2, num_heads=4)
 DTYPES = {"f32": (jnp.float32, torch.float32),

@@ -11,6 +11,7 @@ import pytest
 
 from tpudist.data.digits import load_digits_dataset as jax_load_digits
 from tpudist_torch.data.digits import load_digits_dataset
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "val"])

@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 STEPS, HALF = 3, 4

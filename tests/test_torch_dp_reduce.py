@@ -50,6 +50,7 @@ from tpudist_torch.interop import resnet_params_from_flax
 from tpudist_torch.mesh import RankLayout
 from tpudist_torch.parallel import dp
 from tpudist_torch.parallel.plan import ParallelPlan
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 STEPS, ROWS = 3, 32

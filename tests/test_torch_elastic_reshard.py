@@ -45,6 +45,7 @@ from tpudist.resilience import elastic as jax_elastic
 from tpudist_torch import optim
 from tpudist_torch.checkpoint import Checkpointer
 from tpudist_torch.resilience import elastic
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

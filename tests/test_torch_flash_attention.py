@@ -42,6 +42,7 @@ from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.ops import vmem_attention as VA
 from tpudist_torch.ops.attention import dot_product_attention, multi_head_attention
 from tpudist_torch.ops.flash_attention import flash_attention
+from torch_threads import two_torch_threads  # noqa: F401
 
 CASES = [
     (128, True, None, 32), (128, False, None, 64),

@@ -51,6 +51,7 @@ from tpudist_torch.parallel.fsdp import fsdp_spec
 
 from test_torch_dp_reduce import _params64
 from test_torch_zero1 import GEOM, assert_lm_close, run_lm_cli
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 STEPS, ROWS = 3, 32
@@ -350,8 +351,12 @@ def test_fsdp_refusals():
         ParallelPlan.build(pipe=2)
     with pytest.raises(NotImplementedError, match=r"Queue 1 #7c \(remainder"):
         ParallelPlan.build(fsdp=2, pipe=2)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
+    # an expert axis is ported (tests/test_torch_ep_train.py): one rank
+    # cannot hold two expert ranks; FSDP beside it is not ported yet
+    with pytest.raises(ValueError, match="1 ranks not divisible"):
         ParallelPlan.build(expert=2)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
+        MeshConfig(data=1, fsdp=2, expert=2).axis_sizes(4)
     from tpudist_torch.parallel.fsdp import apply_fsdp
 
     assert compose_fsdp is apply_fsdp

@@ -30,6 +30,7 @@ from tpudist.optim import fused_adamw as jax_fused_adamw
 from tpudist_torch.ops import fused_update as F
 from tpudist_torch.optim import (
     Adam, decay_mask, fused_adamw, make_optimizer, warmup_cosine)
+from torch_threads import two_torch_threads  # noqa: F401
 
 TOL = {"w": 1e-6, "big": 1e-6, "b": 5e-7, "one": 5e-7}
 HP = dict(b1=0.9, b2=0.999, eps=1e-8)

@@ -20,6 +20,7 @@ from tpudist.models.gpt2 import GPT2 as JGPT2
 from tpudist_torch.generate import zero_cache
 from tpudist_torch.interop import gpt2_params_from_flax
 from tpudist_torch.models.gpt2 import GPT2
+from torch_threads import two_torch_threads  # noqa: F401
 
 GEOM = dict(vocab_size=64, max_seq_len=64, hidden_dim=32, depth=2, num_heads=4)
 ATOL = 2e-5

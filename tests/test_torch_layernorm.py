@@ -24,6 +24,7 @@ import torch
 from tpudist.ops.layernorm import fused_layernorm as jax_fused_layernorm
 from tpudist_torch.ops import layernorm as LN
 from tpudist_torch.ops.layernorm import fused_layernorm
+from torch_threads import two_torch_threads  # noqa: F401
 
 EPS = 1e-5
 

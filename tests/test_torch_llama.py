@@ -317,8 +317,9 @@ def test_chunked_loss_takes_the_llama_head(tie):
 def test_compute_copy_and_geometry():
     """The engine's copy holds the linears, ``embed`` and ``lm_head`` in
     the compute dtype and the RMSNorm scales in float32; the run meta's
-    model geometry names the arch and the GQA and SwiGLU fields; Mixtral
-    raises naming its item."""
+    model geometry names the arch and the GQA and SwiGLU fields (and the
+    experts of an MoE model); Mixtral's geometry is the reference's
+    (tests/test_torch_ep.py trains the MoE blocks)."""
     model = L.Llama(**GEOM, num_kv_heads=2, dtype=torch.bfloat16,
                     device="cpu")
     held = model.compute_copy()
@@ -330,10 +331,12 @@ def test_compute_copy_and_geometry():
         "arch": "llama", "vocab_size": 64, "hidden_dim": 64, "depth": 2,
         "num_heads": 4, "num_kv_heads": 2, "ffn_dim": 128,
         "rope_theta": 10000.0, "tie_embeddings": False}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #7"):
-        L.Llama(**GEOM, num_experts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #7"):
-        L.mixtral_8x7b(device="cpu")
+    moe = L.Llama(**GEOM, num_experts=4, device="cpu")
+    assert moe.geometry["num_experts"] == 4 and moe.geometry["moe_every"] == 1
+    assert all(hasattr(b, "moe") for b in moe.blocks)
+    mixtral = L.mixtral_8x7b(depth=1, device="meta")
+    assert (mixtral.hidden_dim, mixtral.num_kv_heads, mixtral.ffn_dim,
+            mixtral.num_experts) == (4096, 8, 14336, 8)
     assert L.llama3_8b.__doc__ and L.llama2_7b.__doc__
 
 

@@ -29,6 +29,7 @@ from tpudist_torch.models.llama import Llama
 from tpudist_torch.models.vit import vit_b16
 from tpudist_torch.optim import make_optimizer
 from tpudist_torch.train import create_train_state
+from torch_threads import two_torch_threads  # noqa: F401
 
 #: the reference's optax Adam state counts steps in one int32 device scalar
 REFERENCE_COUNT_BYTES = 4
@@ -80,12 +81,15 @@ def test_state_bytes_are_the_references(arch):
     # reference places them): the same ceil division
     on_pipe = {name: (0, 2, "pipe")}
     assert M.per_device_bytes(state.params(), shardings=on_pipe) == halved
-    # a placement over an axis the port does not lay out yet
+    # a placement over the expert axis (a stacked expert leaf's experts):
+    # the same ceil division; an axis the port does not lay out raises
     on_expert = {name: (0, 2, "expert")}
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
-        M.state_bytes(state, shardings={"params": on_expert})
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
-        M.per_device_bytes(state.params(), shardings=on_expert)
+    assert M.state_bytes(state, shardings={"params": on_expert})[
+        "params"]["per_device"] == halved
+    assert M.per_device_bytes(state.params(), shardings=on_expert) == halved
+    with pytest.raises(ValueError, match="'sequence'"):
+        M.per_device_bytes(state.params(),
+                           shardings={name: (0, 2, "sequence")})
 
 
 def test_budget_line_is_the_references():
@@ -126,12 +130,8 @@ def test_budget_on_meta_allocates_nothing_and_counts_a_compute_copy():
     n = sum(p.numel() for p in built[0].parameters())
     assert report["n_params"] == n and report["params_bytes"] == 2 * n
     assert 12 * n <= report["opt_state_bytes_per_chip"] < 12 * n + (1 << 20)
-    # a plan over an expert axis (not ported yet; tensor is,
-    # tests/test_torch_tp_fsdp.py, and pipe below)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #7d"):
-        M.train_state_budget(lambda d: None, None, batch=1, seq=1,
-                             hbm_budget_bytes=1,
-                             plan=types.SimpleNamespace(expert=2))
+    # a plan over an expert axis (tests/test_torch_ep_train.py trains
+    # it): test_budget_under_an_expert_plan
 
 
 @pytest.mark.parametrize("axes", [dict(data=2, pipe=2),
@@ -179,3 +179,37 @@ def test_the_cpu_reports_no_live_stats(monkeypatch):
                              make_optimizer(1e-3), batch=1, seq=8)
     assert np.isclose(M.budget_columns({"per_chip_total_bytes": 7})[
         "estimate_bytes"], 7)
+
+
+@pytest.mark.parametrize("axes", [dict(data=2, expert=2),
+                                  dict(data=1, expert=2, tensor=2)],
+                         ids=["data2-expert2", "expert2-tensor2"])
+def test_budget_under_an_expert_plan(axes):
+    """``train_state_budget(plan=)`` over an expert axis against the
+    reference's on the same plan of 4 CPU devices with its MoE GPT-2 (the
+    stacked expert leaves placed over ``expert``, their ffn dim over
+    ``tensor``): a rank holds half of each expert leaf; the reference's
+    int32 Adam count aside."""
+    from tpudist.parallel.plan import ParallelPlan as JPlan
+
+    geom = dict(vocab_size=64, max_seq_len=32, hidden_dim=64, depth=2,
+                num_heads=4, num_experts=4)
+    plan = JPlan.build(devices=jax.devices()[:4], **axes)
+    want = J.train_state_budget(
+        JaxGPT2(**geom, mesh=plan.mesh), jax_make_optimizer(1e-3),
+        jnp.zeros((2, 8), jnp.int32), batch=8, seq=32, plan=plan,
+        hbm_budget_bytes=1 << 34)
+    got = M.train_state_budget(
+        lambda d: GPT2(**geom, device=d), make_optimizer(1e-3), batch=8,
+        seq=32, plan=types.SimpleNamespace(**axes), hbm_budget_bytes=1 << 34)
+    for k in ("params_bytes", "grad_bytes", "n_params",
+              "params_bytes_global", "expert_world", "tensor_world"):
+        assert got[k] == want[k], k
+    assert got["opt_state_bytes_per_chip"] == \
+        want["opt_state_bytes_per_chip"] - REFERENCE_COUNT_BYTES
+    whole = M.train_state_budget(
+        lambda d: GPT2(**geom, device=d), make_optimizer(1e-3), batch=8,
+        seq=32, plan=types.SimpleNamespace(data=4), hbm_budget_bytes=1 << 34)
+    moe = GPT2(**geom, device="meta").h[1].moe
+    half = sum(getattr(moe, n).numel() for n in moe.expert_leaves) * 4 // 2
+    assert whole["params_bytes"] - got["params_bytes"] >= half

@@ -43,6 +43,7 @@ from tpudist_torch.models.vit import vit_b16
 from tpudist_torch.optim import (
     SGD, Lamb, Lion, Muon, decay_mask, make_optimizer, muon_view,
     warmup_cosine)
+from torch_threads import two_torch_threads  # noqa: F401
 
 D, H, DH, IN_C, OUT_C = 16, 2, 8, 4, 8
 TOL = 1e-6

@@ -31,6 +31,7 @@ import torch
 
 from tpudist import mesh as jax_mesh
 from tpudist.parallel.pp import pipeline_apply as jax_pipeline_apply
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 LAYERS, D, HIDDEN, B, POS, MICRO = 8, 16, 32, 16, 4, 4
@@ -270,7 +271,7 @@ def test_rank_coordinates_are_the_references_device_order():
     grid = np.vectorize(lambda d: d.id)(np.asarray(mesh.devices)).reshape(
         2, 2, 2)
     assert MeshConfig(data=-1, pipe=2, tensor=2).axis_sizes(8) == {
-        "data": 2, "fsdp": 1, "pipe": 2, "seq": 1, "tensor": 2}
+        "data": 2, "fsdp": 1, "pipe": 2, "expert": 1, "seq": 1, "tensor": 2}
     for rank in range(8):
         ranks = tuple(int(r) for r in grid[rank // 4, :, rank % 2])
         lay = RankLayout(rank, 2, 1, tensor=2, pipe=2, pipe_ranks=ranks)

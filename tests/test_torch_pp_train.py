@@ -57,6 +57,7 @@ from tpudist.train import state_shardings_of
 from tpudist_torch.interop import pipelined_gpt2_params_from_flax
 
 from torch_composed import lm_cli_reference, lm_geometry_flags
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 V, S, B, MICRO, STEPS = 64, 16, 8, 4, 3

@@ -34,6 +34,7 @@ from tpudist.models import resnet as jres
 from tpudist_torch.interop import resnet_params_from_flax
 from tpudist_torch.models import resnet as tres
 from tpudist_torch.train import cross_entropy_loss
+from torch_threads import two_torch_threads  # noqa: F401
 
 BATCH = 8
 

@@ -40,6 +40,7 @@ from tpudist_torch.serve import (
 from tpudist_torch.serve.blocks import GARBAGE_BLOCK
 from tpudist_torch.serve.engine import Request
 from tpudist_torch.telemetry import TelemetrySink
+from torch_threads import two_torch_threads  # noqa: F401
 
 GEOM = dict(vocab_size=64, max_seq_len=64, hidden_dim=32, depth=2, num_heads=4)
 

@@ -31,6 +31,7 @@ from tpudist.models.llama import Llama as JLlama
 from tpudist.serve import ServeEngine as JServeEngine
 from tpudist.serve import early_exit_draft as jax_early_exit_draft
 from tpudist_torch.interop import gpt2_params_from_flax, llama_params_from_flax
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GEOM = dict(vocab_size=64, max_seq_len=64, hidden_dim=32, depth=2,

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tpudist_torch.models.gpt2 import tied_head_grads
+from torch_threads import two_torch_threads  # noqa: F401
 
 N, V, DIM = 256, 4001, 768
 #: the checks: share of bf16 elements that differ from JAX, and the f32

@@ -31,6 +31,7 @@ from tpudist.models.llama import Llama as JLlama
 from tpudist_torch import mesh as mesh_lib
 from tpudist_torch.interop import gpt2_params_from_flax, llama_params_from_flax
 from tpudist_torch.parallel import tp
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GPT2_GEOM = dict(max_seq_len=32, hidden_dim=32, depth=2, num_heads=4)
@@ -78,7 +79,7 @@ def test_rank_coordinates_are_the_references_device_order():
         assert grid[lay.data_idx, lay.tensor_idx] == rank
         assert lay.replica == lay.data_idx
     assert mesh_lib.MeshConfig(data=-1, tensor=4).axis_sizes(8) == {
-        "data": 2, "fsdp": 1, "pipe": 1, "seq": 1, "tensor": 4}
+        "data": 2, "fsdp": 1, "pipe": 1, "expert": 1, "seq": 1, "tensor": 4}
     # tensor composed with fsdp or seq: the four-axis formulas at 8 ranks
     for other in ("fsdp", "seq"):
         cfg = {"data": 2, other: 2, "tensor": 2}
@@ -88,8 +89,8 @@ def test_rank_coordinates_are_the_references_device_order():
         grid = ids.reshape(2, 2, 2)
         assert mesh_lib.MeshConfig(data=-1, **{other: 2},
                                    tensor=2).axis_sizes(8) == {
-            "data": 2, "fsdp": 1, "pipe": 1, "seq": 1, "tensor": 2,
-            other: 2}
+            "data": 2, "fsdp": 1, "pipe": 1, "expert": 1, "seq": 1,
+            "tensor": 2, other: 2}
         for rank in range(8):
             lay = mesh_lib.RankLayout(rank, 2, cfg.get("seq", 1), tensor=2,
                                       fsdp=cfg.get("fsdp", 1))

@@ -48,6 +48,7 @@ from torch_composed import (
     assert_cli_close, assert_close, lm_cli_reference, lm_geometry_flags,
     reference, spawn,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 V, S, B = 64, 16, 8
 MESH = {"data": 1, "seq": 2, "tensor": 2}

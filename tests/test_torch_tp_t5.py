@@ -55,6 +55,7 @@ from tpudist.train import make_train_step as jax_make_train_step
 from tpudist.train import state_shardings_of
 from tpudist_torch.interop import t5_params_from_flax
 from tpudist_torch.parallel import tp
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 S, B, STEPS, LR = 32, 4, 3, 1e-3

@@ -45,6 +45,7 @@ from tpudist.train import make_train_step as jax_make_train_step
 from tpudist.train import state_shardings_of
 from tpudist_torch.interop import vit_params_from_flax
 from tpudist_torch.parallel import tp
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(num_classes=10, patch_size=8, hidden_dim=32, depth=2,

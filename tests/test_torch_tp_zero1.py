@@ -39,6 +39,7 @@ from torch_composed import (
     assert_cli_close, assert_close, jax_model, lm_cli_reference,
     lm_geometry_flags, reference, spawn,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 V, S, B = 64, 16, 8
 MESH = {"data": 2, "tensor": 2}

@@ -17,6 +17,7 @@ import torch
 
 from tpudist.data import transforms as R
 from tpudist_torch.data import transforms as T
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _images(n=16, h=8, w=8, seed=0):

@@ -38,6 +38,7 @@ from tpudist_torch.ops import lm_kernels_bench as LB
 from tpudist_torch.ops import vmem_attention as VA
 from tpudist_torch.ops.attention import dot_product_attention, multi_head_attention
 from tpudist_torch.ops.vmem_attention import vmem_attention
+from torch_threads import two_torch_threads  # noqa: F401
 
 D = 32
 

@@ -54,6 +54,7 @@ from tpudist_torch import optim
 from tpudist_torch.interop import gpt2_params_from_flax
 from tpudist_torch.models.gpt2 import GPT2
 from tpudist_torch.models.resnet import resnet18
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -23,6 +23,16 @@ step times. Run from the root of the repo, one rank a card:
         --fused all --chunked_ce 256 --tensor 4
     python tools/torch_world_run.py budget 4 --bf16 --fused optimizer \\
         --pipe 2 --tensor 2
+    torchrun --nproc_per_node 4 tools/torch_world_run.py gpt2 E4 \\
+        --bf16 --fused all --batch_size 8 --synthetic_tokens 524288 \\
+        --experts 8 --moe_dispatch index
+    torchrun --nproc_per_node 4 tools/torch_world_run.py gpt2 DE4 \\
+        --bf16 --fused all --batch_size 8 --synthetic_tokens 524288 \\
+        --experts 8 --expert_axis 2
+    python tools/torch_world_run.py budget 4 --arch llama --hidden_dim 4096 \\
+        --depth 4 --num_heads 32 --num_kv_heads 8 --ffn_dim 14336 \\
+        --vocab_size 32000 --seq_len 2048 --batch_size 2 --bf16 \\
+        --fused optimizer --chunked_ce 256 --experts 8
 
 The first argument names the CLI (``main``: :mod:`tpudist_torch.main`;
 ``gpt2``: :mod:`tpudist_torch.train_gpt2`; ``bert``:
@@ -55,9 +65,11 @@ def budget_line(flags, world: int, hbm_budget_bytes=None) -> str:
     """``memory.train_state_budget``'s line for ``train_gpt2 flags`` over
     ``world`` ranks: the whole model and its optimizer state on the meta
     device, placed by the flags' plan (``--fsdp``, ``--tensor``, ZeRO-1
-    under ``--shard_opt_state``, a stage's blocks under ``--pipe``; the
-    data axis the rest of the world less ``--cp`` and ``--pipe``), the
-    batch the global one."""
+    under ``--shard_opt_state``, a stage's blocks under ``--pipe``, a
+    rank's experts under ``--experts`` (the expert axis by
+    ``train_gpt2``'s rule); the data axis the rest of the world less
+    ``--cp``, ``--pipe`` and the expert axis), the batch the global
+    one."""
     import types
 
     import torch
@@ -67,7 +79,8 @@ def budget_line(flags, world: int, hbm_budget_bytes=None) -> str:
     from tpudist_torch.optim import make_optimizer, shard_state
 
     _, args = TG.parse_args(list(flags))
-    data = world // (args.fsdp * args.tensor * args.cp * args.pipe)
+    expert = TG.expert_axis(args, world)
+    data = world // (args.fsdp * args.tensor * args.cp * args.pipe * expert)
     dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
     # a context-parallel attention needs its layout: the estimate takes
     # the attention each rank runs (the dense chunks, or the kernels)
@@ -87,7 +100,8 @@ def budget_line(flags, world: int, hbm_budget_bytes=None) -> str:
         batch=args.batch_size * data * args.fsdp, seq=args.seq_len,
         world_size=world, hbm_budget_bytes=hbm_budget_bytes,
         plan=types.SimpleNamespace(data=data, fsdp=args.fsdp,
-                                   tensor=args.tensor, pipe=args.pipe))
+                                   tensor=args.tensor, pipe=args.pipe,
+                                   expert=expert))
     return format_budget(report)
 
 

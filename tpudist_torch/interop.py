@@ -93,12 +93,30 @@ def unstack_layers(params: dict, *, prefix: str, dest: str) -> dict:
     return out
 
 
-def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:
+def _moe(sd: dict, dst: str, src) -> None:
+    """An MoE block's ``moe`` subtree (``router [d, E]`` and the stacked
+    experts, ``w1``/``w2`` or ``w_gate``/``w_up``/``w_down``): the port
+    keeps the reference's leaves in their shapes."""
+    for leaf, value in src.items():
+        sd[f"{dst}.moe.{leaf}"] = _f32(value)
+
+
+def _experts_of(sd: dict, layout) -> dict:
+    if layout is None:
+        return sd
+    from tpudist_torch.parallel.ep import shard_experts
+
+    return shard_experts(sd, layout)
+
+
+def gpt2_params_from_flax(tree, *, layout=None) -> dict[str, torch.Tensor]:
     """flax GPT-2 params (``wte``, ``wpe``, ``h_{i}/{ln_1,qkv,out,ln_2,
-    mlp_fc,mlp_proj}`` or their ``scan_layers`` stack ``hs/block/...``,
-    ``ln_f``; a ``{"params": ...}`` wrapper is accepted) -> the port's
-    state dict, in f32 on the CPU. ``GPT2.load_state_dict`` casts each
-    entry to the model's dtype and device."""
+    mlp_fc,mlp_proj}`` or ``h_{i}/moe/{router,w1,w2}`` in an MoE block, or
+    their ``scan_layers`` stack ``hs/block/...``, ``ln_f``; a
+    ``{"params": ...}`` wrapper is accepted) -> the port's state dict, in
+    f32 on the CPU, the experts kept to ``layout``'s expert rank (all of
+    them without one). ``GPT2.load_state_dict`` casts each entry to the
+    model's dtype and device."""
     p = tree["params"] if "params" in tree else tree
     if "hs" in p:
         p = unstack_layers(p, prefix="h_", dest="hs")
@@ -117,6 +135,9 @@ def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:
         _linear(sd, f"{dst}.qkv", src["qkv"]["kernel"], src["qkv"]["bias"])
         _linear(sd, f"{dst}.out", src["out"]["kernel"], src["out"]["bias"],
                 n_in_axes=2)
+        if "moe" in src:
+            _moe(sd, dst, src["moe"])
+            continue
         _linear(sd, f"{dst}.mlp_fc", src["mlp_fc"]["kernel"],
                 src["mlp_fc"]["bias"])
         _linear(sd, f"{dst}.mlp_proj", src["mlp_proj"]["kernel"],
@@ -125,7 +146,7 @@ def gpt2_params_from_flax(tree) -> dict[str, torch.Tensor]:
         np.asarray(p["ln_f"]["scale"], np.float32).copy())
     sd["ln_f.bias"] = torch.from_numpy(
         np.asarray(p["ln_f"]["bias"], np.float32).copy())
-    return sd
+    return _experts_of(sd, layout)
 
 
 def pipelined_gpt2_params_from_flax(tree, *, layout=None
@@ -157,11 +178,13 @@ _LLAMA_LINEARS = (("q_proj", 1), ("k_proj", 1), ("v_proj", 1), ("o_proj", 2),
                   ("gate_proj", 1), ("up_proj", 1), ("down_proj", 1))
 
 
-def llama_params_from_flax(tree) -> dict[str, torch.Tensor]:
+def llama_params_from_flax(tree, *, layout=None) -> dict[str, torch.Tensor]:
     """flax Llama params (``embed``, ``layer_{i}/{attn_norm, q_proj, ...,
-    down_proj}`` or their ``scan_layers`` stack ``layers/block/...``,
-    ``norm``, and ``lm_head`` when untied; a ``{"params": ...}`` wrapper is
-    accepted) -> the port's state dict, in f32 on the CPU."""
+    down_proj}`` or ``layer_{i}/moe/{router,w_gate,w_up,w_down}`` in a
+    Mixtral-style block, or their ``scan_layers`` stack
+    ``layers/block/...``, ``norm``, and ``lm_head`` when untied; a
+    ``{"params": ...}`` wrapper is accepted) -> the port's state dict, in
+    f32 on the CPU, the experts kept to ``layout``'s expert rank."""
     p = tree["params"] if "params" in tree else tree
     if "layers" in p:
         p = unstack_layers(p, prefix="layer_", dest="layers")
@@ -172,11 +195,15 @@ def llama_params_from_flax(tree) -> dict[str, torch.Tensor]:
         for norm in ("attn_norm", "mlp_norm"):
             sd[f"{dst}.{norm}.scale"] = _f32(src[norm]["scale"])
         for name, n_in in _LLAMA_LINEARS:
-            sd[f"{dst}.{name}.weight"] = _kernel(src[name]["kernel"], n_in)
+            if name in src:
+                sd[f"{dst}.{name}.weight"] = _kernel(src[name]["kernel"],
+                                                     n_in)
+        if "moe" in src:
+            _moe(sd, dst, src["moe"])
     sd["norm.scale"] = _f32(p["norm"]["scale"])
     if "lm_head" in p:
         sd["lm_head"] = _f32(p["lm_head"])
-    return sd
+    return _experts_of(sd, layout)
 
 
 def _ln(sd: dict, prefix: str, src) -> None:

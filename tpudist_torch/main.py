@@ -185,8 +185,6 @@ _UNPORTED = {
     "divergence_every": "Queue 1 #8", "hang_action": "Queue 1 #8",
     "repair": "Queue 1 #8", "skip_window": "Queue 1 #8",
     "compile_cache": "Queue 1 #9",
-    "serve_experts": "Queue 1 #7d (experts)",
-    "serve_moe_dispatch": "Queue 1 #7d (experts)",
 }
 
 def check_ported(parser, args) -> None:
@@ -386,8 +384,15 @@ def _serve_demo(args):
         # before any weight moves
         mesh = create_layout(MeshConfig(data=-1, tensor=args.tensor))
     chief = mesh is None or mesh.rank == 0
+    # --serve_experts: every other block a routed top-2 MoE (decode routes
+    # each generated token; capacity sizes itself to the one-token step,
+    # so nothing drops there)
+    moe_kw = (dict(num_experts=args.serve_experts, moe_every=2,
+                   moe_dispatch=args.serve_moe_dispatch)
+              if args.serve_experts else {})
     model = GPT2(vocab_size=256, max_seq_len=256, hidden_dim=128, depth=2,
-                 num_heads=4, attn_impl="fused", device=device, layout=mesh)
+                 num_heads=4, attn_impl="fused", device=device, layout=mesh,
+                 **moe_kw)
     sink = (TelemetrySink(
         os.path.join(args.log_dir, f"{args.JobID}_serve_0.jsonl"))
         if chief else None)

@@ -86,10 +86,11 @@ def _shard_shape(shape, record) -> tuple:
     """The largest shard one device holds of a leaf of ``shape`` under
     ``record``: None (replicated), ``(dim, world)`` (ceil division, the
     padded shard an allocator reserves), ``(dim, world, axis)`` over
-    ``data``, ``fsdp``, ``pipe`` (a stacked leaf's layers) or ``tensor``,
-    or a list of them applied in turn
-    (a rank's tensor shard sliced over data; an FSDP shard sliced again
-    over data); an axis the port does not lay out raises."""
+    ``data``, ``fsdp``, ``pipe`` (a stacked leaf's layers), ``expert`` (a
+    stacked expert leaf's experts) or ``tensor``, or a list of them
+    applied in turn (a rank's tensor shard sliced over data; an FSDP
+    shard sliced again over data; an expert leaf's experts and its ffn
+    shard); an axis the port does not lay out raises."""
     if record is None:
         return tuple(shape)
     if isinstance(record, list):
@@ -97,12 +98,9 @@ def _shard_shape(shape, record) -> tuple:
             shape = _shard_shape(shape, r)
         return tuple(shape)
     dim, world, *axis = record
-    if axis and axis[0] not in ("data", "fsdp", "pipe", "tensor"):
-        from tpudist_torch.mesh import AXIS_ITEMS
-
-        raise NotImplementedError(
-            f"a placement over {axis[0]!r} is not ported yet (ROADMAP "
-            f"{AXIS_ITEMS.get(axis[0], 'Queue 1 #7')})")
+    if axis and axis[0] not in ("data", "fsdp", "pipe", "expert", "tensor"):
+        raise ValueError(f"a placement over {axis[0]!r}: the port lays out "
+                         "data, fsdp, pipe, expert and tensor")
     out = list(shape)
     out[dim] = -(-out[dim] // int(world))
     return tuple(out)
@@ -110,10 +108,13 @@ def _shard_shape(shape, record) -> tuple:
 
 def param_record(record):
     """The part of a state record that places the parameter itself (its
-    fsdp or tensor shard; ZeRO-1's data slices place the state only)."""
+    fsdp, tensor or expert shard; ZeRO-1's data slices place the state
+    only)."""
     parts = record if isinstance(record, list) else [record]
     kept = [r for r in parts if r is not None and r[2] != "data"]
-    return kept[0] if kept else None
+    if not kept:
+        return None
+    return kept[0] if len(kept) == 1 else kept
 
 
 def per_device_bytes(tree, shardings=None) -> int:
@@ -157,7 +158,8 @@ def _zero1_record(shape, data: int, min_size: int):
 
 def plan_placements(params: dict, *, fsdp: int = 1, data: int = 1,
                     zero1: bool = False, min_size: int = 1024,
-                    tensor: int = 1, table: dict | None = None) -> dict:
+                    tensor: int = 1, table: dict | None = None,
+                    expert: int = 1) -> dict:
     """The placement record of each leaf's optimizer state under a plan
     (:func:`param_record` of it places the parameter), from the whole
     parameters ``params``:
@@ -171,14 +173,26 @@ def plan_placements(params: dict, *, fsdp: int = 1, data: int = 1,
     - every other leaf takes its ``fsdp`` shard dim (the plan's rule),
       under ZeRO-1 sliced again over ``data`` where ``fsdp x data``
       divides the dim (the reference's ``(fsdp, data)`` overlay);
-    - what FSDP leaves whole takes its ``data`` slice under ZeRO-1."""
+    - what FSDP leaves whole takes its ``data`` slice under ZeRO-1;
+    - a stacked expert leaf (:func:`tpudist_torch.parallel.ep.
+      is_expert_leaf`) under ``expert > 1`` holds its rank's experts
+      (dim 0), and its ffn shard under a tensor axis; ZeRO-1 leaves its
+      state as the parameter is (the reference's ``wrap_zero1`` exempts
+      the expert leaves)."""
     from tpudist_torch.mesh import largest_divisible_dim
+    from tpudist_torch.parallel.ep import is_expert_leaf
     from tpudist_torch.parallel.tp import tensor_spec
 
     out = {}
     for k, p in params.items():
         shape = tuple(p.shape)
         spec = tensor_spec(k, table=table) if tensor > 1 else None
+        if expert > 1 and is_expert_leaf(k):
+            rec = (0, expert, "expert")
+            if spec is not None:
+                rec = [(spec[0], tensor, "tensor"), rec]
+            out[k] = rec
+            continue
         if spec is not None:
             rec = (0 if spec[0] == "vocab" else spec[0], tensor, "tensor")
             z = (_zero1_record(_shard_shape(shape, rec), data, min_size)
@@ -315,16 +329,13 @@ def train_state_budget(
     stage 0's: every stage holds as many), so the per-device parameters,
     gradients and optimizer state count those leaves alone. ``model_fn``
     builds the whole model (no layout): only the axis sizes are read, so
-    no world is needed. An expert axis above 1 raises.
+    no world is needed. Under an expert axis a rank holds ``1 /
+    expert`` of each stacked expert leaf (:func:`plan_placements`); the
+    activations are counted as the dense model's (the reference's
+    estimate: each token's FFN runs once a choice).
 
     Returns the reference's keys: per-component bytes, the per-chip total,
     ``fits`` and ``bytes_per_param``."""
-    if plan is not None and getattr(plan, "expert", 1) != 1:
-        from tpudist_torch.mesh import AXIS_ITEMS
-
-        raise NotImplementedError(
-            "train_state_budget under an expert axis is not ported yet "
-            f"(ROADMAP {AXIS_ITEMS['expert']})")
     if hbm_budget_bytes is None:
         if not torch.cuda.is_available():
             raise ValueError("hbm_budget_bytes is required without a card "
@@ -360,7 +371,9 @@ def train_state_budget(
                                min_size=getattr(plan, "fsdp_min_size", 1024)
                                if plan is not None else tx.min_size,
                                tensor=tensor,
-                               table=getattr(model, "tensor_specs", None))
+                               table=getattr(model, "tensor_specs", None),
+                               expert=int(getattr(plan, "expert", 1))
+                               if plan is not None else 1)
         named = dict(model.named_parameters())
         if pipe > 1:
             from tpudist_torch.optim import _named_leaves
@@ -414,7 +427,8 @@ def train_state_budget(
                        f"ParallelPlan(data={int(getattr(plan, 'data', 1))}, "
                        f"fsdp={worlds['fsdp_world']}, "
                        f"pipe={worlds['pipe_world']}, "
-                       f"tensor={worlds['tensor_world']}, expert=1)")
+                       f"tensor={worlds['tensor_world']}, "
+                       f"expert={worlds['expert_world']})")
         out.update(worlds)
     return out
 

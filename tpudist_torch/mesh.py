@@ -1,31 +1,34 @@
-"""The data x fsdp x pipe x seq x tensor rank layout: the part of
-:mod:`tpudist.mesh` that data, fully-sharded, pipeline, context and
-tensor parallelism need.
+"""The data x fsdp x pipe x expert x seq x tensor rank layout: the part
+of :mod:`tpudist.mesh` that data, fully-sharded, pipeline, expert,
+context and tensor parallelism need.
 
 The reference lays its devices out as a named mesh whose axis order is
-``data, fsdp, pipe, expert, seq, tensor``. With expert at 1, rank ``r``
-of a world of ``data * fsdp * pipe * seq * tensor`` ranks sits at
+``data, fsdp, pipe, expert, seq, tensor``. Rank ``r`` of a world of
+``data * fsdp * pipe * expert * seq * tensor`` ranks sits at
 ``tensor_idx = r % tensor``, ``seq_idx = (r // tensor) % seq``,
-``pipe_idx = (r // (seq * tensor)) % pipe``, ``fsdp_idx = (r // (pipe *
-seq * tensor)) % fsdp`` and ``data_idx = r // (fsdp * pipe * seq *
-tensor)``: the reference's device order, tensor innermost.
+``expert_idx = (r // (seq * tensor)) % expert``, ``pipe_idx = (r //
+(expert * seq * tensor)) % pipe``, ``fsdp_idx = (r // (pipe * expert *
+seq * tensor)) % fsdp`` and ``data_idx = r // (fsdp * pipe * expert *
+seq * tensor)``: the reference's device order, tensor innermost.
 :func:`create_layout` gives a rank those coordinates and its process
 groups, created on every rank in the same order: its tensor peers (the
 Megatron layers of :mod:`tpudist_torch.parallel.tp` all-reduce over
-them), its seq peers (ring and Ulysses attention run over them), its pipe
-peers (the stages of :mod:`tpudist_torch.parallel.pp`, which pass
-activations along them), its fsdp peers (FSDP shards parameters over
-them) and its data replicas (the ranks with its fsdp, pipe, seq and
-tensor coordinates; DDP, the explicit reducer and ZeRO-1 work over
-them). The batch is split over ``data x fsdp`` jointly
-(:attr:`RankLayout.replica`), as the reference's ``batch_sharding``
-splits it; the pipe, tensor and seq ranks of a replica share its batch.
-A rank's batch peers (:attr:`RankLayout.batch_group`) are the ranks with
-its pipe and tensor indices: its data, fsdp and seq peers together, over
-which the gradients of what the pipe and tensor axes hold in parts are
-averaged. ``fsdp`` with ``seq > 1`` is refused, as the reference's
-``train_gpt2.py`` refuses it; ``tensor`` composes with either, and
-``pipe`` with data and tensor; expert raises, naming its ROADMAP item.
+them), its seq peers (ring and Ulysses attention run over them), its
+expert peers (the MoE layers of :mod:`tpudist_torch.parallel.ep` gather
+their slot outputs over them), its pipe peers (the stages of
+:mod:`tpudist_torch.parallel.pp`, which pass activations along them),
+its fsdp peers (FSDP shards parameters over them) and its data replicas
+(the ranks with its fsdp, pipe, expert, seq and tensor coordinates; DDP,
+the explicit reducer and ZeRO-1 work over them). The batch is split over
+``data x fsdp`` jointly (:attr:`RankLayout.replica`), as the reference's
+``batch_sharding`` splits it; the pipe, expert, tensor and seq ranks of a
+replica share its batch (tokens are replicated over expert). A rank's
+batch peers (:attr:`RankLayout.batch_group`) are the ranks with its
+pipe, expert and tensor indices: its data, fsdp and seq peers together,
+over which the gradients of what the pipe, expert and tensor axes hold in
+parts are averaged. ``fsdp`` with ``seq > 1`` is refused, as the
+reference's ``train_gpt2.py`` refuses it; ``tensor`` composes with
+either, ``pipe`` with data and tensor, ``expert`` with data and tensor.
 """
 
 from __future__ import annotations
@@ -55,11 +58,6 @@ class MeshConfig:
     tensor: int = 1
 
     def __post_init__(self):
-        if self.expert != 1:
-            raise NotImplementedError(
-                f"MeshConfig(expert={self.expert}) is not ported yet "
-                f"(ROADMAP {AXIS_ITEMS[EXPERT_AXIS]}); the port lays out "
-                "data x fsdp x pipe x seq x tensor")
         if self.fsdp > 1 and self.seq > 1:
             raise ValueError(
                 "fsdp does not compose with seq > 1 (the context-parallel "
@@ -67,11 +65,11 @@ class MeshConfig:
                 "train_gpt2.py refuses --fsdp with --cp")
 
     def axis_sizes(self, world: int) -> dict[str, int]:
-        """``{"data": ..., "fsdp": ..., "pipe": ..., "seq": ...,
-        "tensor": ...}`` over ``world`` ranks."""
+        """``{"data": ..., "fsdp": ..., "pipe": ..., "expert": ...,
+        "seq": ..., "tensor": ...}`` over ``world`` ranks."""
         sizes = {DATA_AXIS: self.data, FSDP_AXIS: self.fsdp,
-                 PIPELINE_AXIS: self.pipe, SEQUENCE_AXIS: self.seq,
-                 TENSOR_AXIS: self.tensor}
+                 PIPELINE_AXIS: self.pipe, EXPERT_AXIS: self.expert,
+                 SEQUENCE_AXIS: self.seq, TENSOR_AXIS: self.tensor}
         wild = [k for k, v in sizes.items() if v == -1]
         if len(wild) > 1:
             raise ValueError(f"at most one axis may be -1, got {wild}")
@@ -95,13 +93,20 @@ class MeshConfig:
             raise NotImplementedError(
                 "a pipe axis beside a seq axis is not ported yet (ROADMAP "
                 f"{PIPE_REMAINDER}); the port lays out data x pipe x tensor")
+        if sizes[EXPERT_AXIS] > 1 and (sizes[FSDP_AXIS] > 1
+                                       or sizes[SEQUENCE_AXIS] > 1
+                                       or sizes[PIPELINE_AXIS] > 1):
+            raise NotImplementedError(
+                "an expert axis beside fsdp, seq or pipe is not ported yet "
+                f"(ROADMAP {EXPERT_REMAINDER}); the port lays out data x "
+                "expert x tensor")
         return sizes
 
 
-#: the ROADMAP items that port the axes the layout still refuses
-AXIS_ITEMS = {EXPERT_AXIS: "Queue 1 #7d (experts)"}
 #: the ROADMAP item of the pipe compositions not ported yet
 PIPE_REMAINDER = "Queue 1 #7c (remainder)"
+#: the ROADMAP item of the expert compositions not ported yet
+EXPERT_REMAINDER = "Queue 1 #7d (remainder)"
 
 
 def largest_divisible_dim(shape, size: int, *,
@@ -130,15 +135,16 @@ def largest_divisible_spec(shape, axis: str, size: int, *,
 
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
-    """This rank's place in a ``data x fsdp x pipe x seq x tensor`` world.
-    A group is None when its axis is 1 (no collective). ``device_mesh`` is
-    the ``torch.distributed`` DeviceMesh over the same groups, one dim for
-    each axis above 1 in the order ``data, fsdp, pipe, seq, tensor`` (seq
+    """This rank's place in a ``data x fsdp x pipe x expert x seq x
+    tensor`` world. A group is None when its axis is 1 (no collective).
+    ``device_mesh`` is the ``torch.distributed`` DeviceMesh over the same
+    groups, one dim for each axis above 1 in the order ``data, fsdp, pipe,
+    expert, seq, tensor`` (seq
     only beside a tensor axis; None when every axis is 1): FSDP2
     (:meth:`fsdp_mesh`), the ZeRO-1 DTensors (:meth:`data_mesh`) and the
     tensor shards in a checkpoint (:meth:`shard_mesh`) are placed on it.
-    ``batch_group``: the ranks with this rank's pipe and tensor indices
-    (None: none other). ``pipe_ranks``: the global ranks of this rank's
+    ``batch_group``: the ranks with this rank's pipe, expert and tensor
+    indices (None: none other). ``pipe_ranks``: the global ranks of this rank's
     pipe group in stage order (None with one stage)."""
 
     rank: int
@@ -155,18 +161,26 @@ class RankLayout:
     pipe: int = 1
     pipe_group: object = None
     pipe_ranks: tuple | None = None
+    expert: int = 1
+    expert_group: object = None
 
     @property
     def data_idx(self) -> int:
-        return self.rank // (self.fsdp * self.pipe * self.seq * self.tensor)
+        return self.rank // (self.fsdp * self.pipe * self.expert * self.seq
+                             * self.tensor)
 
     @property
     def fsdp_idx(self) -> int:
-        return (self.rank // (self.pipe * self.seq * self.tensor)) % self.fsdp
+        return (self.rank // (self.pipe * self.expert * self.seq
+                              * self.tensor)) % self.fsdp
 
     @property
     def pipe_idx(self) -> int:
-        return (self.rank // (self.seq * self.tensor)) % self.pipe
+        return (self.rank // (self.expert * self.seq * self.tensor)) % self.pipe
+
+    @property
+    def expert_idx(self) -> int:
+        return (self.rank // (self.seq * self.tensor)) % self.expert
 
     @property
     def seq_idx(self) -> int:
@@ -226,8 +240,8 @@ class RankLayout:
         ranks alone), the tensor dim last."""
         if self.pipe == 1:
             return self.device_mesh
-        return self._sub_mesh(DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS,
-                              TENSOR_AXIS)
+        return self._sub_mesh(DATA_AXIS, FSDP_AXIS, EXPERT_AXIS,
+                              SEQUENCE_AXIS, TENSOR_AXIS)
 
     def fsdp_mesh(self):
         """The DeviceMesh FSDP2 shards over: ``(data, fsdp)`` (hybrid:
@@ -281,36 +295,43 @@ def create_layout(config: MeshConfig = MeshConfig(), *,
     sizes = config.axis_sizes(world)
     data, fsdp, seq = sizes[DATA_AXIS], sizes[FSDP_AXIS], sizes[SEQUENCE_AXIS]
     tensor, pipe = sizes[TENSOR_AXIS], sizes[PIPELINE_AXIS]
+    expert = sizes[EXPERT_AXIS]
     seq_group = data_group = fsdp_group = tensor_group = device_mesh = None
-    batch_group = pipe_group = pipe_ranks = None
+    batch_group = pipe_group = pipe_ranks = expert_group = None
     if tensor > 1 and tensor < world:
         tensor_group = _groups(rank, world, 1, tensor)
     elif tensor > 1:
         tensor_group = dist.group.WORLD
     if seq > 1:
         seq_group = _groups(rank, world, tensor, seq)
+    if expert > 1:
+        expert_group = (_groups(rank, world, seq * tensor, expert)
+                        if expert < world else dist.group.WORLD)
     if pipe > 1:
-        stride = seq * tensor
+        stride = expert * seq * tensor
         pipe_group = (_groups(rank, world, stride, pipe) if pipe < world
                       else dist.group.WORLD)
         first = rank - ((rank // stride) % pipe) * stride
         pipe_ranks = tuple(first + k * stride for k in range(pipe))
     if fsdp > 1:
-        fsdp_group = _groups(rank, world, pipe * seq * tensor, fsdp)
+        fsdp_group = _groups(rank, world, pipe * expert * seq * tensor, fsdp)
     if data > 1 and data < world:
-        data_group = _groups(rank, world, fsdp * pipe * seq * tensor, data)
+        data_group = _groups(rank, world,
+                             fsdp * pipe * expert * seq * tensor, data)
     elif data > 1:
         data_group = dist.group.WORLD
-    if 1 < pipe * tensor < world:
-        # the ranks with this rank's (pipe, tensor) indices: data x fsdp x
-        # seq
+    if 1 < pipe * expert * tensor < world:
+        # the ranks with this rank's (pipe, expert, tensor) indices: data
+        # x fsdp x seq
         batch_group = _sharing(rank, world, lambda r: (
-            r // (seq * tensor) % pipe, r % tensor))
-    elif pipe * tensor == 1 and world > 1:
+            r // (expert * seq * tensor) % pipe,
+            r // (seq * tensor) % expert, r % tensor))
+    elif pipe * expert * tensor == 1 and world > 1:
         batch_group = dist.group.WORLD
     axes = [(a, n, g) for a, n, g in (
         (DATA_AXIS, data, data_group), (FSDP_AXIS, fsdp, fsdp_group),
         (PIPELINE_AXIS, pipe, pipe_group),
+        (EXPERT_AXIS, expert, expert_group),
         (SEQUENCE_AXIS, seq if tensor > 1 else 1, seq_group),
         (TENSOR_AXIS, tensor, tensor_group)) if n > 1]
     if axes:
@@ -330,4 +351,5 @@ def create_layout(config: MeshConfig = MeshConfig(), *,
                                                 mesh_dim_names=names)
     return RankLayout(rank, data, seq, seq_group, data_group, fsdp,
                       fsdp_group, device_mesh, tensor, tensor_group,
-                      batch_group, pipe, pipe_group, pipe_ranks)
+                      batch_group, pipe, pipe_group, pipe_ranks, expert,
+                      expert_group)

@@ -1,8 +1,15 @@
 """GPT-2 decoder in PyTorch: counterpart of :mod:`tpudist.models.gpt2`.
 
-Dense blocks only (no MoE); :class:`PipelinedGPT2` runs the blocks over
-a layout's pipe axis (:mod:`tpudist_torch.parallel.pp`). The decode
-path runs over a KV cache
+``num_experts > 0`` makes every ``moe_every``-th block (``i % moe_every
+== moe_every - 1``) a mixture of experts: its ``mlp_fc`` / ``mlp_proj``
+become :class:`tpudist_torch.parallel.ep.MoEMlp` under the name ``moe``
+(top-``moe_top_k`` routing, ``capacity_factor``, ``moe_dispatch``
+``"einsum"`` or ``"index"``, ``router_z_loss``, ``router_jitter``; on a
+layout with an expert axis a rank holds its share of the experts), in
+training and on every decode path; the train step adds the layers'
+aux losses to the task loss (``has_aux_loss``). :class:`PipelinedGPT2`
+runs dense blocks over a layout's pipe axis
+(:mod:`tpudist_torch.parallel.pp`). The decode path runs over a KV cache
 (:mod:`tpudist_torch.ops.decode`) in the reference's three modes: scalar
 cursor (``generate``), per-row positions (the contiguous serving pool)
 and paged block tables (the paged pool). Any ``attn_impl`` other than
@@ -90,6 +97,7 @@ from tpudist_torch.parallel.cp import (
 )
 from tpudist_torch.parallel import pp as pp_lib
 from tpudist_torch.parallel import tp as tp_lib
+from tpudist_torch.parallel.ep import MoEMlp
 from tpudist_torch.parallel.tp import (
     ColumnParallel, RowParallel, copy_to_tensor, tensor_size,
 )
@@ -187,13 +195,15 @@ def site_key(key: int | None, *path: int) -> int | None:
 
 
 def train_key(model: nn.Module, key: int | None) -> int | None:
-    """The key ``model``'s forward draws its masks from: ``key`` in train
-    mode with ``dropout > 0``, else None (eval mode drops nothing). In
-    train mode such a model without a key raises, as the reference's
-    needs a 'dropout' rng."""
-    if not (model.training and model.dropout):
+    """The key ``model``'s forward draws its masks (and its routers'
+    jitter) from: ``key`` in train mode with ``dropout > 0`` or
+    ``router_jitter > 0``, else None (eval mode drops nothing). In train
+    mode a dropout model without a key raises, as the reference's needs a
+    'dropout' rng (a jitter model raises in its MoE layers)."""
+    jitter = getattr(model, "router_jitter", 0.0)
+    if not (model.training and (model.dropout or jitter)):
         return None
-    if key is None:
+    if key is None and model.dropout:
         raise ValueError(
             f"dropout={model.dropout} in train mode needs a dropout_key "
             "(make_train_step passes one); call eval() to score")
@@ -246,8 +256,13 @@ class Dense(nn.Module):
 
 
 class Block(nn.Module):
+    """A GPT-2 block; ``num_experts > 0`` swaps its MLP for an
+    :class:`~tpudist_torch.parallel.ep.MoEMlp` named ``moe`` (``moe``:
+    that layer's other keywords)."""
+
     def __init__(self, hidden_dim: int, num_heads: int, *, dtype, attn_impl,
-                 device, dropout: float = 0.0, layout=None):
+                 device, dropout: float = 0.0, layout=None,
+                 num_experts: int = 0, moe: dict | None = None):
         super().__init__()
         d = hidden_dim
         self.num_heads = num_heads
@@ -266,13 +281,18 @@ class Block(nn.Module):
                                              d // num_heads))
         self.out = row(d, d)           # in features ordered (heads, dh)
         self.ln_2 = LayerNorm(d, device=device)
-        self.mlp_fc = col(d, 4 * d)
-        self.mlp_proj = row(4 * d, d)
+        if num_experts:
+            self.moe = MoEMlp(d, num_experts, dtype=dtype, layout=layout,
+                              device=device, **(moe or {}))
+        else:
+            self.mlp_fc = col(d, 4 * d)
+            self.mlp_proj = row(4 * d, d)
 
     def forward(self, x, cache=None, positions=None, block_tables=None,
                 fused_ln: bool = False, dropout_key: int | None = None):
         """``dropout_key``: this block's key (None: no dropout); the
-        attention branch draws from site 0, the MLP branch from site 1."""
+        attention branch draws from site 0, the MLP branch from site 1, an
+        MoE router's jitter from site 2."""
         b, s, d = x.shape
         # this rank's heads (all of them without a tensor axis)
         h = self.num_heads // tensor_size(self.layout)
@@ -319,9 +339,12 @@ class Block(nn.Module):
         else:
             x = x + y
             y = self.ln_2(x, self.dtype)
-        y = F.gelu(self.mlp_fc(y), approximate="tanh")
-        return x + dropout(self.mlp_proj(y), self.dropout,
-                           site_key(dropout_key, 1))
+        if hasattr(self, "moe"):
+            y = self.moe(y, train=self.training and cache is None,
+                         jitter_key=site_key(dropout_key, 2))
+        else:
+            y = self.mlp_proj(F.gelu(self.mlp_fc(y), approximate="tanh"))
+        return x + dropout(y, self.dropout, site_key(dropout_key, 1))
 
 
 class GPT2(nn.Module):
@@ -332,8 +355,11 @@ class GPT2(nn.Module):
     distributions: lecun-normal kernels, N(0, 0.02) ``wte``, N(0, 0.01)
     ``wpe``, zero biases, unit LayerNorm scales). ``dropout``,
     ``scan_layers``, ``remat_layers`` and ``remat_policy`` are the
-    reference's fields, and ``layout`` is the context-parallel impls' and
-    the tensor axis's (module docstring)."""
+    reference's fields, and ``layout`` is the context-parallel impls',
+    the tensor axis's and the expert axis's (module docstring), as are
+    the MoE fields ``num_experts`` (0: dense), ``moe_every``,
+    ``moe_top_k``, ``capacity_factor``, ``moe_dispatch``,
+    ``router_z_loss`` and ``router_jitter``."""
 
     tensor_specs = tp_lib.GPT2_SPECS
     #: the train step's default loss under a tensor axis: the next-token
@@ -346,11 +372,18 @@ class GPT2(nn.Module):
                  dropout: float = 0.0, scan_layers: bool = False,
                  remat_layers: bool = False, remat_policy=None,
                  fused_ln: bool = False, layout=None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, num_experts: int = 0, moe_every: int = 2,
+                 moe_top_k: int = 2, capacity_factor: float = 1.25,
+                 moe_dispatch: str = "einsum", router_z_loss: float = 0.0,
+                 router_jitter: float = 0.0):
         super().__init__()
         check_attn_impl(attn_impl, layout)
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide into num_heads")
+        if num_experts and scan_layers:
+            raise ValueError(
+                "scan_layers supports dense training only (no num_experts: "
+                "the MoE blocks need the unrolled layout)")
         if remat_layers and not scan_layers:
             raise ValueError("remat_layers requires scan_layers=True "
                              "(set remat_policy to checkpoint the unrolled "
@@ -370,6 +403,11 @@ class GPT2(nn.Module):
         self.dropout = float(dropout)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
+        self.num_experts, self.moe_every = int(num_experts), int(moe_every)
+        self.router_jitter = float(router_jitter)
+        moe = dict(top_k=moe_top_k, capacity_factor=capacity_factor,
+                   dispatch_impl=moe_dispatch, router_z_loss=router_z_loss,
+                   router_jitter=router_jitter)
         t = check_tensor(self)
         dev = self.device
         v0, v1 = tp_lib.vocab_range(vocab_size, t, layout.tensor_idx
@@ -378,8 +416,10 @@ class GPT2(nn.Module):
         self.wpe = nn.Parameter(torch.empty(max_seq_len, hidden_dim, device=dev))
         self.h = nn.ModuleList(
             Block(hidden_dim, num_heads, dtype=dtype, attn_impl=attn_impl,
-                  device=dev, dropout=self.dropout, layout=layout)
-            for _ in range(depth)
+                  device=dev, dropout=self.dropout, layout=layout,
+                  num_experts=self.num_experts if self.moe_here(i) else 0,
+                  moe=moe)
+            for i in range(depth)
         )
         self.ln_f = LayerNorm(hidden_dim, device=dev)
         self.init_weights(seed)
@@ -388,6 +428,15 @@ class GPT2(nn.Module):
     @property
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_heads
+
+    def moe_here(self, i: int) -> bool:
+        """Whether block ``i`` is an MoE block (the reference's rule)."""
+        return self.num_experts > 0 and i % self.moe_every == self.moe_every - 1
+
+    @property
+    def has_aux_loss(self) -> bool:
+        """The model adds aux losses (its MoE layers') to the task loss."""
+        return self.num_experts > 0
 
     @property
     def num_kv_heads(self) -> int:
@@ -403,9 +452,13 @@ class GPT2(nn.Module):
     @property
     def geometry(self) -> dict:
         """What a checkpoint of this model is bound to (the run meta)."""
-        return {"arch": "gpt2", "vocab_size": self.vocab_size,
-                "hidden_dim": self.hidden_dim, "depth": self.depth,
-                "num_heads": self.num_heads}
+        geo = {"arch": "gpt2", "vocab_size": self.vocab_size,
+               "hidden_dim": self.hidden_dim, "depth": self.depth,
+               "num_heads": self.num_heads}
+        if self.num_experts:
+            geo.update(num_experts=self.num_experts,
+                       moe_every=self.moe_every)
+        return geo
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -434,10 +487,10 @@ class GPT2(nn.Module):
         normal("wpe", self.wpe, 0.01)
         for i in range(self.depth):
             blk = self._held_block(i)
+            mlp = ((("mlp_fc", (4 * d, d), d), ("mlp_proj", (d, 4 * d), 4 * d))
+                   if blk is None or not hasattr(blk, "moe") else ())
             for name, shape, fan_in in (("qkv", (3 * d, d), d),
-                                        ("out", (d, d), d),
-                                        ("mlp_fc", (4 * d, d), d),
-                                        ("mlp_proj", (d, 4 * d), 4 * d)):
+                                        ("out", (d, d), d), *mlp):
                 if blk is None:
                     # a block another stage holds: drawn all the same, so
                     # the generator reaches the next leaf where it would
@@ -448,6 +501,8 @@ class GPT2(nn.Module):
                 lin.bias.zero_()
             if blk is None:
                 continue
+            if hasattr(blk, "moe"):
+                blk.moe.init_weights(g)
             for ln in (blk.ln_1, blk.ln_2):
                 ln.scale.fill_(1.0)
                 ln.bias.zero_()
@@ -617,6 +672,12 @@ def compute_copy(model: GPT2) -> GPT2:
             if isinstance(m, (Dense, ColumnParallel, RowParallel)):
                 m.weight.data = m.weight.data.to(held.dtype)
                 m.bias.data = m.bias.data.to(held.dtype)
+            elif isinstance(m, MoEMlp):
+                # the experts in the compute dtype; the router stays
+                # float32, the input of its float32 product
+                for name in m.expert_leaves:
+                    w = getattr(m, name)
+                    w.data = w.data.to(held.dtype)
     return held
 
 
@@ -649,8 +710,15 @@ class PipelinedGPT2(GPT2):
                  vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  dtype=torch.float32, attn_impl: str = "xla",
-                 schedule: str = "gpipe", device=None, seed: int = 0):
+                 schedule: str = "gpipe", device=None, seed: int = 0,
+                 num_experts: int = 0):
         nn.Module.__init__(self)
+        if num_experts:
+            raise ValueError(
+                "--pipe composes with --tensor and data parallelism and "
+                "runs XLA attention; MoE/context-parallel/kernel "
+                "attention are not pipelined")
+        self.num_experts = 0
         pipe = pp_lib.pipe_size(layout)
         if depth % pipe:
             raise ValueError(f"depth {depth} not divisible by pipe={pipe}")

@@ -4,8 +4,12 @@ Pre-norm RMSNorm, rotary position embeddings (:func:`apply_rope`, the
 rotate-half convention, angles in float32, no position table),
 grouped-query attention (``num_kv_heads`` K/V heads under ``num_heads``
 query heads), a SwiGLU MLP, no biases and an untied LM head (tying
-optional). Dense blocks only: ``num_experts > 0`` (Mixtral) is not
-ported yet. The context-parallel impls (``"ring"``, ``"ulysses"``,
+optional). ``num_experts > 0`` makes every ``moe_every``-th block
+(default every block, Mixtral) a mixture of SwiGLU experts of width
+``ffn_dim``: its ``gate_proj`` / ``up_proj`` / ``down_proj`` become
+:class:`tpudist_torch.parallel.ep.MoEMlp` under the name ``moe``
+(``w_gate``, ``w_up``, ``w_down``), as :mod:`.gpt2`'s MoE blocks do.
+The context-parallel impls (``"ring"``, ``"ulysses"``,
 ``"ulysses_flash"``) take GPT-2's ``layout`` (:mod:`.gpt2`): RoPE rotates
 this rank's chunk at its global positions, and grouped K/V heads are
 repeated before the attention, as the reference repeats them. Under a seq
@@ -70,7 +74,7 @@ from tpudist_torch.device import resolve_device
 from tpudist_torch.rng import generator
 from tpudist_torch.models.gpt2 import (
     _TRUNC_STD, check_attn_impl, check_tensor, gathers_sequence, lm_logits,
-    refuse_cp_decode, seq_offset,
+    refuse_cp_decode, seq_offset, site_key,
 )
 from tpudist_torch.ops.attention import multi_head_attention, repeat_kv
 from tpudist_torch.ops.decode import (
@@ -81,10 +85,8 @@ from tpudist_torch.parallel.cp import (
     CP_IMPLS, context_parallel_attention, gathered_attention_local,
 )
 from tpudist_torch.parallel import tp as tp_lib
+from tpudist_torch.parallel.ep import MoEMlp
 from tpudist_torch.parallel.tp import RowLinear, copy_to_tensor, tensor_size
-
-#: the ROADMAP item that ports the Mixtral-style experts
-_MOE_ITEM = "Queue 1 #7d (experts)"
 
 
 def apply_rope(x, *, theta: float = 10000.0, positions=None):
@@ -160,7 +162,8 @@ class Linear(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, num_kv_heads: int,
                  ffn_dim: int, *, dtype, attn_impl, rope_theta: float,
-                 norm_eps: float, device, layout=None):
+                 norm_eps: float, device, layout=None, num_experts: int = 0,
+                 moe: dict | None = None):
         super().__init__()
         d = hidden_dim
         if num_heads % num_kv_heads:
@@ -182,14 +185,22 @@ class LlamaBlock(nn.Module):
         self.v_proj = Linear(d, num_kv_heads * dh // t, device=device)
         self.o_proj = row(num_heads * dh, d)
         self.mlp_norm = RMSNorm(d, eps=norm_eps, device=device)
-        self.gate_proj = Linear(d, ffn_dim // t, device=device)
-        self.up_proj = Linear(d, ffn_dim // t, device=device)
-        self.down_proj = row(ffn_dim, d)
+        if num_experts:
+            # Mixtral: SwiGLU experts of width ffn_dim
+            self.moe = MoEMlp(d, num_experts, ffn_dim=ffn_dim,
+                              expert_act="swiglu", dtype=dtype,
+                              layout=layout, device=device, **(moe or {}))
+        else:
+            self.gate_proj = Linear(d, ffn_dim // t, device=device)
+            self.up_proj = Linear(d, ffn_dim // t, device=device)
+            self.down_proj = row(ffn_dim, d)
 
     def forward(self, x, cache=None, positions=None, block_tables=None,
-                fused_ln: bool = False, offset: int = 0):
+                fused_ln: bool = False, offset: int = 0,
+                jitter_key: int | None = None):
         """``offset``: the global position of ``x``'s first row (a
-        context-parallel chunk's)."""
+        context-parallel chunk's); ``jitter_key``: an MoE router's jitter
+        key in training."""
         b, s, d = x.shape
         t = tensor_size(self.layout)
         dh = d // self.num_heads
@@ -260,6 +271,9 @@ class LlamaBlock(nn.Module):
         else:
             x = x + o
             y = self.mlp_norm(x, self.dtype)
+        if hasattr(self, "moe"):
+            return x + self.moe(y, train=self.training and cache is None,
+                                jitter_key=jitter_key)
         y = copy_to_tensor(y, self.layout)
         return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
 
@@ -275,7 +289,10 @@ class Llama(nn.Module):
     d 768, 12 layers, 12 heads, MHA unless ``num_kv_heads``, SwiGLU width
     :func:`default_ffn_dim` unless ``ffn_dim``, theta 1e4, eps 1e-5, an
     untied head; ``layout`` for the context-parallel impls and the tensor
-    axis, as GPT-2's).
+    axis, as GPT-2's; the expert axis's with ``num_experts > 0``, whose
+    MoE fields ``moe_every`` (default 1), ``moe_top_k``,
+    ``capacity_factor``, ``moe_dispatch``, ``router_z_loss`` and
+    ``router_jitter`` are the reference's).
     ``device`` defaults to ``"cuda"`` and raises without a card unless
     ``"cpu"`` is given; ``seed`` draws the random init from a
     ``torch.Generator`` on that device (flax's distributions: lecun-normal
@@ -293,12 +310,15 @@ class Llama(nn.Module):
                  norm_eps: float = 1e-5, scan_layers: bool = False,
                  remat_layers: bool = False, remat_policy=None,
                  fused_ln: bool = False, num_experts: int = 0, layout=None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, moe_every: int = 1,
+                 moe_top_k: int = 2, capacity_factor: float = 1.25,
+                 moe_dispatch: str = "einsum", router_z_loss: float = 0.0,
+                 router_jitter: float = 0.0):
         super().__init__()
-        if num_experts:
-            raise NotImplementedError(
-                f"Llama num_experts={num_experts} (Mixtral-style MoE) is not "
-                f"ported yet (ROADMAP {_MOE_ITEM})")
+        if num_experts and scan_layers:
+            raise ValueError(
+                "--scan_layers uses the stacked dense layout; --generate/"
+                "--init_hf/--experts need the unrolled model")
         check_attn_impl(attn_impl, layout)
         if hidden_dim % num_heads:
             raise ValueError("hidden_dim must divide into num_heads")
@@ -321,6 +341,11 @@ class Llama(nn.Module):
         self.tie_embeddings = bool(tie_embeddings)
         self.scan_layers = bool(scan_layers)
         self.fused_ln = bool(fused_ln)
+        self.num_experts, self.moe_every = int(num_experts), int(moe_every)
+        self.router_jitter = float(router_jitter)
+        moe = dict(top_k=moe_top_k, capacity_factor=capacity_factor,
+                   dispatch_impl=moe_dispatch, router_z_loss=router_z_loss,
+                   router_jitter=router_jitter)
         t = check_tensor(self)
         if self.ffn_dim % t:
             raise ValueError(f"ffn_dim {self.ffn_dim} not divisible by "
@@ -333,7 +358,9 @@ class Llama(nn.Module):
             self.add_module(f"layer_{i}", LlamaBlock(
                 hidden_dim, num_heads, self.num_kv_heads, self.ffn_dim,
                 dtype=dtype, attn_impl=attn_impl, rope_theta=self.rope_theta,
-                norm_eps=norm_eps, device=dev, layout=layout))
+                norm_eps=norm_eps, device=dev, layout=layout,
+                num_experts=self.num_experts if self.moe_here(i) else 0,
+                moe=moe))
         self.norm = RMSNorm(hidden_dim, eps=norm_eps, device=dev)
         if not self.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -344,6 +371,15 @@ class Llama(nn.Module):
     @property
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_heads
+
+    def moe_here(self, i: int) -> bool:
+        """Whether block ``i`` is an MoE block (the reference's rule)."""
+        return self.num_experts > 0 and i % self.moe_every == self.moe_every - 1
+
+    @property
+    def has_aux_loss(self) -> bool:
+        """The model adds aux losses (its MoE layers') to the task loss."""
+        return self.num_experts > 0
 
     @property
     def blocks(self) -> list[LlamaBlock]:
@@ -368,7 +404,9 @@ class Llama(nn.Module):
                 "hidden_dim": self.hidden_dim, "depth": self.depth,
                 "num_heads": self.num_heads, "num_kv_heads": self.num_kv_heads,
                 "ffn_dim": self.ffn_dim, "rope_theta": self.rope_theta,
-                "tie_embeddings": self.tie_embeddings}
+                "tie_embeddings": self.tie_embeddings,
+                **({"num_experts": self.num_experts,
+                    "moe_every": self.moe_every} if self.num_experts else {})}
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -391,9 +429,13 @@ class Llama(nn.Module):
 
         normal("embed", self.embed, 0.02)
         for i, blk in enumerate(self.blocks):
-            for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
-                         "up_proj", "down_proj"):
+            moe = hasattr(blk, "moe")
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj",
+                         *(() if moe else ("gate_proj", "up_proj",
+                                           "down_proj"))):
                 lecun(f"layer_{i}.{name}.weight", getattr(blk, name).weight)
+            if moe:
+                blk.moe.init_weights(g)
             blk.attn_norm.scale.fill_(1.0)
             blk.mlp_norm.scale.fill_(1.0)
         self.norm.scale.fill_(1.0)
@@ -413,14 +455,15 @@ class Llama(nn.Module):
 
     def forward(self, tokens, *, cache=None, positions=None,
                 block_tables=None, return_hidden: bool = False,
-                vocab_local: bool = False):
+                vocab_local: bool = False, dropout_key: int | None = None):
         """``tokens [B, s]`` -> f32 logits ``[B, s, V]`` (or the final
         hidden state with ``return_hidden``). With ``cache`` the decode
         path runs (scalar cursor, per-row ``positions`` or paged
         ``block_tables``) without autograd, updating the cache in place;
         otherwise the ``fused_ln`` attribute picks the fused RMSNorm.
         ``vocab_local``: this rank's vocabulary columns under a tensor
-        axis (:mod:`.gpt2`)."""
+        axis (:mod:`.gpt2`). ``dropout_key``: the training step's key, from
+        which the MoE routers draw their jitter (Llama has no dropout)."""
         if cache is not None:
             refuse_cp_decode(self)
             if self.scan_layers:
@@ -429,12 +472,14 @@ class Llama(nn.Module):
                     "per-layer variables); generate with scan_layers=False")
             with torch.no_grad():
                 return self._forward(tokens, cache, positions, block_tables,
-                                     return_hidden, False, False)
+                                     return_hidden, False, False, None)
+        key = (dropout_key if self.training and self.router_jitter
+               else None)
         return self._forward(tokens, None, None, None, return_hidden,
-                             self.fused_ln, vocab_local)
+                             self.fused_ln, vocab_local, key)
 
     def _forward(self, tokens, cache, positions, block_tables, return_hidden,
-                 fused, vocab_local):
+                 fused, vocab_local, key):
         b, s = tokens.shape
         if s > self.max_seq_len:
             raise ValueError(f"sequence {s} exceeds max_seq_len "
@@ -447,10 +492,11 @@ class Llama(nn.Module):
         layers = cache["layers"] if cache is not None else [None] * self.depth
         policy = self.block_policy if cache is None else None
         offset = seq_offset(self, s) if cache is None else 0
-        for blk, layer in zip(self.blocks, layers):
+        for i, (blk, layer) in enumerate(zip(self.blocks, layers)):
             run = remat_lib.checkpoint(blk, policy)
             x = run(x, layer, positions=positions, block_tables=block_tables,
-                    fused_ln=fused, offset=offset)
+                    fused_ln=fused, offset=offset,
+                    jitter_key=site_key(key, i + 1, 2))
         x = self.norm.fused(x, self.dtype) if fused else self.norm(x, self.dtype)
         if return_hidden:
             return x
@@ -474,6 +520,10 @@ def compute_copy(model: Llama) -> Llama:
         for m in held.modules():
             if isinstance(m, (Linear, RowLinear)):
                 m.weight.data = m.weight.data.to(held.dtype)
+            elif isinstance(m, MoEMlp):
+                for name in m.expert_leaves:
+                    w = getattr(m, name)
+                    w.data = w.data.to(held.dtype)
     return held
 
 
@@ -537,9 +587,18 @@ def llama3_8b(**kw) -> Llama:
 
 
 def mixtral_8x7b(**kw) -> Llama:
-    """Mixtral-8x7B geometry (every block an 8-expert top-2 MoE): not
-    ported yet."""
-    raise NotImplementedError(
-        f"mixtral_8x7b (Mixtral-style MoE) is not ported yet (ROADMAP "
-        f"{_MOE_ITEM})")
+    """Mixtral-8x7B geometry: Llama-7B trunk, every block an 8-expert
+    top-2 SwiGLU MoE, GQA 32/8, 32k vocab, rope theta 1e6 (the
+    reference's)."""
+    kw.setdefault("hidden_dim", 4096)
+    kw.setdefault("depth", 32)
+    kw.setdefault("num_heads", 32)
+    kw.setdefault("num_kv_heads", 8)
+    kw.setdefault("ffn_dim", 14336)
+    kw.setdefault("vocab_size", 32000)
+    kw.setdefault("rope_theta", 1e6)
+    kw.setdefault("max_seq_len", 32768)
+    kw.setdefault("num_experts", 8)
+    kw.setdefault("moe_top_k", 2)
+    return Llama(**kw)
 

@@ -143,13 +143,25 @@ def chunked_lm_forward(model, chunk: int = 256, layout=None) -> Callable:
     ``layout`` of more than one seq rank the loss is this rank's share:
     its chunk's CE sum (:func:`seq_shard_lm`) over the replica's ``B (S -
     1)``, which the seq group's ranks add up (``make_train_step(layout=)``
-    takes such a loss and no other)."""
+    takes such a loss and no other). An MoE model's (``has_aux_loss``)
+    aux losses of the blocks' pass are added to the chunked CE, as the
+    reference collects its sowed ``losses``."""
     if getattr(model, "dropout", 0.0):
         raise ValueError(
             "chunked_lm_forward does not support dropout (the fused path "
             "has no rng stream); use the default forward")
+    if getattr(model, "router_jitter", 0.0):
+        raise ValueError(
+            "chunked_lm_forward does not support router_jitter (the fused "
+            "path has no rng stream); use the default forward")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if getattr(model, "has_aux_loss", False):
+        from tpudist_torch.parallel.ep import moe_losses
+
+        aux = lambda: moe_losses(model)  # noqa: E731
+    else:
+        aux = lambda: 0.0  # noqa: E731
 
     def forward_loss(module, batch):
         tokens = batch["tokens"].long()
@@ -165,7 +177,7 @@ def chunked_lm_forward(model, chunk: int = 256, layout=None) -> Callable:
         b, s, _ = h.shape
         mask = torch.ones((b, s), device=h.device)
         return chunked_ce_sum(lm_head_weight(model), h, targets, mask,
-                              chunk, model=model) / (b * s)
+                              chunk, model=model) / (b * s) + aux()
 
     sharded = layout is not None and layout.seq > 1
     forward_loss.layout = layout if sharded else None

@@ -986,11 +986,12 @@ class ShardedStateOptimizer:
     as chip_smoke.py's phase 56 drives it)."""
 
     def __init__(self, inner, *, world: int, rank: int, mesh=None,
-                 min_size: int = 1024, skip_spec=None):
+                 min_size: int = 1024, skip_spec=None, skip_name=None):
         self.inner = inner
         self.world, self.rank, self.mesh = int(world), int(rank), mesh
         self.min_size = int(min_size)
         self.skip_spec = skip_spec
+        self.skip_name = skip_name
         # whether FSDP shards the model (set by init from its parameters)
         self.fsdp = False
         base = self._base()
@@ -1021,8 +1022,8 @@ class ShardedStateOptimizer:
         again over data on FSDP's dim where that dim divides (the
         reference's ``(fsdp, data)`` overlay), else stays natural
         (``replicate``); beside FSDP a leaf a group holds in shards (the
-        tensor axis's) stays natural, as does one ``skip_spec``
-        exempts."""
+        tensor axis's) stays natural, as does one ``skip_spec`` (by its
+        shape) or ``skip_name`` (by its name) exempts."""
         if hasattr(p, "to_local"):
             dim = getattr(p.placements[-1], "dim", None)
             if (self.world > 1 and dim is not None
@@ -1030,7 +1031,9 @@ class ShardedStateOptimizer:
                 return ("shard", dim)
             return ("replicate", None)
         if (self.fsdp and name in self._held()) or (
-                self.skip_spec is not None and self.skip_spec(tuple(p.shape))):
+                self.skip_spec is not None and self.skip_spec(tuple(p.shape))
+        ) or (self.skip_name is not None and name is not None
+              and self.skip_name(name)):
             return ("replicate", None)
         return _zero1_layout(tuple(p.shape), self.world, self.min_size)
 
@@ -1149,11 +1152,18 @@ def shard_state(tx, layout=None, *, world: int | None = None,
     slices, bit-equal on those elements to the replicated launch (AdamW is
     element-wise). ``skip_spec(shape) -> bool`` exempts leaves (the plan's
     fsdp-sharded ones); FSDP's shards and, beside them, the tensor axis's
-    are classified by :meth:`ShardedStateOptimizer.layout`."""
+    are classified by :meth:`ShardedStateOptimizer.layout`. On a layout
+    with an expert axis the stacked expert leaves keep their state whole
+    (the reference's ``wrap_zero1`` exempts them)."""
+    skip_name = None
     if layout is not None:
         world = layout.data
         rank = layout.data_idx
         mesh = layout.data_mesh()
+        if getattr(layout, "expert", 1) > 1:
+            from tpudist_torch.parallel.ep import is_expert_leaf
+
+            skip_name = is_expert_leaf
     return ShardedStateOptimizer(tx, world=world or 1, rank=rank or 0,
                                  mesh=mesh, min_size=min_size,
-                                 skip_spec=skip_spec)
+                                 skip_spec=skip_spec, skip_name=skip_name)

@@ -1,5 +1,6 @@
 """ParallelPlan: the one resolver for a composed run, over data x fsdp
-x tensor, data x seq x tensor or data x pipe x tensor.
+x tensor, data x seq x tensor, data x pipe x tensor or data x expert x
+tensor.
 
 Counterpart of :mod:`tpudist.parallel.plan` for the data-parallel and
 tensor axes: a plan holds the rank layout
@@ -26,11 +27,14 @@ shared by FSDP and ZeRO-1, and the rules that tie them:
   (:mod:`tpudist_torch.parallel.pp`) and replicates the rest over the
   stages; fsdp and ZeRO-1 beside it raise, naming "Queue 1 #7c
   (remainder)";
+- an ``expert`` axis holds ``1 / expert`` of each MoE layer's experts
+  on a rank (:mod:`tpudist_torch.parallel.ep`) and replicates the rest
+  over the expert ranks; ZeRO-1 keeps the expert leaves' state whole, as
+  the reference's ``wrap_zero1`` exempts them, and fsdp or seq beside it
+  raise, naming "Queue 1 #7d (remainder)";
 - :meth:`ParallelPlan.axis_worlds` is what a checkpoint's geometry
-  records (``fsdp_world``, ``tensor_world``, ``pipe_world``; expert is
-  1).
-
-``expert`` above 1 raises, naming its ROADMAP item.
+  records (``fsdp_world``, ``tensor_world``, ``pipe_world``,
+  ``expert_world``).
 """
 
 from __future__ import annotations
@@ -38,9 +42,8 @@ from __future__ import annotations
 import dataclasses
 
 from tpudist_torch.mesh import (
-    AXIS_ITEMS, EXPERT_AXIS, FSDP_AXIS, PIPE_REMAINDER, PIPELINE_AXIS,
-    TENSOR_AXIS, MeshConfig, RankLayout, create_layout,
-    largest_divisible_spec)
+    EXPERT_AXIS, FSDP_AXIS, PIPE_REMAINDER, PIPELINE_AXIS, TENSOR_AXIS,
+    MeshConfig, RankLayout, create_layout, largest_divisible_spec)
 
 __all__ = ["ParallelPlan", "spec_is_sharded"]
 
@@ -78,16 +81,13 @@ class ParallelPlan:
         is every remaining rank; ``device_type`` as
         :func:`~tpudist_torch.mesh.create_layout` takes it). Every rank
         must call it."""
-        if expert != 1:
-            raise NotImplementedError(
-                f"ParallelPlan({EXPERT_AXIS}={expert}) is not ported yet "
-                f"(ROADMAP {AXIS_ITEMS[EXPERT_AXIS]})")
         if pipe > 1 and fsdp > 1:
             raise NotImplementedError(
                 f"ParallelPlan(fsdp={fsdp}, pipe={pipe}) is not ported yet "
                 f"(ROADMAP {PIPE_REMAINDER})")
         return cls(create_layout(MeshConfig(data=data, fsdp=fsdp, pipe=pipe,
-                                            seq=seq, tensor=tensor),
+                                            expert=expert, seq=seq,
+                                            tensor=tensor),
                                  device_type=device_type), **kw)
 
     @property
@@ -106,23 +106,27 @@ class ParallelPlan:
     def pipe(self) -> int:
         return self.layout.pipe
 
-    expert = 1
+    @property
+    def expert(self) -> int:
+        return self.layout.expert
 
     @property
     def model_axes(self) -> dict[str, int]:
         """The real (>1) model-parallel axes of this plan."""
         return {k: v for k, v in ((FSDP_AXIS, self.fsdp),
                                   (PIPELINE_AXIS, self.pipe),
+                                  (EXPERT_AXIS, self.expert),
                                   (TENSOR_AXIS, self.tensor)) if v > 1}
 
     def axis_worlds(self) -> dict[str, int]:
         """The geometry keys a checkpoint records for this plan."""
         return {"fsdp_world": self.fsdp, "tensor_world": self.tensor,
-                "pipe_world": self.pipe, "expert_world": 1}
+                "pipe_world": self.pipe, "expert_world": self.expert}
 
     def describe(self) -> str:
         return (f"ParallelPlan(data={self.data}, fsdp={self.fsdp}, "
-                f"pipe={self.pipe}, tensor={self.tensor}, expert=1)")
+                f"pipe={self.pipe}, tensor={self.tensor}, "
+                f"expert={self.expert})")
 
 
     @property
@@ -141,7 +145,9 @@ class ParallelPlan:
         the leaves the plan shards over ``fsdp`` stay as FSDP holds them,
         their state sliced again over data where the dim divides; beside
         an fsdp axis the tensor shards stay whole; without one a rank
-        slices its tensor shards over its data replicas."""
+        slices its tensor shards over its data replicas. The expert
+        leaves' state stays whole (``skip_names``: the leaves
+        :func:`tpudist_torch.parallel.ep.is_expert_leaf` names)."""
         from tpudist_torch.optim import shard_state
 
         if self.pipe > 1:

@@ -394,14 +394,21 @@ VOCAB = ("vocab", 0)
 _MEGATRON_MHA = {
     "qkv.weight": (0, 3), "qkv.bias": (1, 1), "out.weight": (1, 1),
 }
+#: an MoE block's stacked experts (:mod:`tpudist_torch.parallel.ep`):
+#: ``w1``, ``w_gate`` and ``w_up`` ``[E, d, ff]`` split on their ffn
+#: columns, ``w2`` and ``w_down`` ``[E, ff, d]`` on their ffn rows; the
+#: router stays whole
+MOE_SPECS = {"moe.w1": (2, 1), "moe.w_gate": (2, 1), "moe.w_up": (2, 1),
+             "moe.w2": (1, 1), "moe.w_down": (1, 1)}
 GPT2_SPECS = {**_MEGATRON_MHA, "wte": VOCAB, "mlp_fc.weight": (0, 1),
-              "mlp_fc.bias": (0, 1), "mlp_proj.weight": (1, 1)}
+              "mlp_fc.bias": (0, 1), "mlp_proj.weight": (1, 1),
+              **MOE_SPECS}
 LLAMA_SPECS = {
     "embed": VOCAB, "lm_head": VOCAB,
     "q_proj.weight": (0, 1), "k_proj.weight": (0, 1),
     "v_proj.weight": (0, 1), "o_proj.weight": (1, 1),
     "gate_proj.weight": (0, 1), "up_proj.weight": (0, 1),
-    "down_proj.weight": (1, 1),
+    "down_proj.weight": (1, 1), **MOE_SPECS,
 }
 #: the table of a call that names none: the LMs' (their names do not meet)
 LM_SPECS = {**GPT2_SPECS, **LLAMA_SPECS}
@@ -508,21 +515,30 @@ def shard_state_dict(full_sd: dict, layout, *,
                      table: dict | None = None) -> dict:
     """This rank's shards of a whole state dict (:func:`tensor_spec` under
     the family's ``table``; replicated leaves as they are), each a
-    contiguous copy."""
+    contiguous copy; under an expert axis the stacked expert leaves keep
+    this rank's experts too (:func:`tpudist_torch.parallel.ep.
+    shard_experts`)."""
+    from tpudist_torch.parallel.ep import shard_experts
+
     t = tensor_size(layout)
     r = layout.tensor_idx if t > 1 else 0
-    return {k: shard_tensor(k, v, t, r, table=table).clone(
-                memory_format=torch.contiguous_format)
-            if tensor_spec(k, table=table) is not None and t > 1 else v
-            for k, v in full_sd.items()}
+    return shard_experts({k: shard_tensor(k, v, t, r, table=table).clone(
+                              memory_format=torch.contiguous_format)
+                          if tensor_spec(k, table=table) is not None
+                          and t > 1 else v
+                          for k, v in full_sd.items()}, layout)
 
 
 def gather_state_dict(shard_sd: dict, layout, vocab: int | None, *,
                       table: dict | None = None) -> dict:
     """The whole state dict from every tensor rank's shards (every rank
-    calls it, with its dict in the same order)."""
-    return {k: gather_tensor(k, v, layout, vocab, table=table)
-            for k, v in shard_sd.items()}
+    calls it, with its dict in the same order), and every expert of the
+    stacked expert leaves under an expert axis."""
+    from tpudist_torch.parallel.ep import gather_expert_sd
+
+    return gather_expert_sd({k: gather_tensor(k, v, layout, vocab,
+                                              table=table)
+                             for k, v in shard_sd.items()}, layout)
 
 
 # -- whole models --------------------------------------------------------------

@@ -115,6 +115,23 @@ same gradient on every tensor rank, or the ranks' copies part silently:
 A checkpoint holds the shards as DTensors on the layout's DeviceMesh
 (replicated over its other axes) and records ``tensor_world``.
 
+Experts (Queue 1 #7d): a model with ``has_aux_loss`` (GPT-2 or Llama
+with ``num_experts > 0``, :mod:`tpudist_torch.parallel.ep`) adds its MoE
+layers' scaled aux (and z-) losses of the forward to the task loss on
+the default path (a ``forward_loss`` adds them itself:
+:func:`tpudist_torch.models.lm_utils.chunked_lm_forward`); its routers'
+jitter draws from the dropout stream, keyed like the dropout masks by the
+rank without its tensor and expert indices, so every rank of an expert or
+tensor group draws the same noise (a ``forward_loss``, which has no
+stream, is refused with jitter on, as the reference refuses it). On a
+layout with an expert axis a rank holds its experts; DDP runs over the
+batch group (the ranks with this rank's expert and tensor indices, which
+hold the same experts), so an expert leaf is averaged over the replicas
+that hold it and never over another expert rank; the optimizer's clip and
+``--amp`` flag sum an expert leaf's squares over the expert group and
+count a replicated leaf once. A checkpoint holds the expert leaves as
+DTensors ``Shard(0)`` over the expert dim and records ``expert_world``.
+
 Pipeline parallelism (Queue 1 #7c): a model on a layout with a pipe axis
 (:class:`tpudist_torch.models.gpt2.PipelinedGPT2`) holds its stage's
 blocks and the replicated embeddings and head; every stage computes the
@@ -154,6 +171,7 @@ from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.models.lm_utils import seq_shard_lm
 from tpudist_torch.optim import (
     FusedAdamWState, Optimizer, load_tensors, local)
+from tpudist_torch.parallel import ep as ep_lib
 from tpudist_torch.parallel import pp as pp_lib
 from tpudist_torch.parallel import tp as tp_lib
 from tpudist_torch.profiling import WindowedProfiler
@@ -193,23 +211,35 @@ class TrainState:
         out = {k: p for k, p in self.model.named_parameters()
                if hasattr(p, "to_local")}
         layout = getattr(self.model, "layout", None)
-        if tp_lib.tensor_size(layout) > 1:
+        tensor = tp_lib.tensor_size(layout)
+        expert = ep_lib.expert_size(layout)
+        if tensor > 1 or expert > 1:
             from torch.distributed.tensor import Replicate, Shard
 
             mesh = layout.shard_mesh()
+            names = mesh.mesh_dim_names
             table = self.model.tensor_specs
             vocab = getattr(self.model, "vocab_size", None)
             for k, p in self.model.named_parameters():
-                spec = tp_lib.tensor_spec(k, table=table)
-                if spec is None:
+                spec = (tp_lib.tensor_spec(k, table=table) if tensor > 1
+                        else None)
+                on_expert = expert > 1 and ep_lib.is_expert_leaf(k)
+                if spec is None and not on_expert:
                     continue
-                dim = 0 if spec[0] == "vocab" else spec[0]
-                # the tensor axis is the mesh's last: replicated over the
-                # others (data, fsdp, seq; a stage's leaves live on its
-                # ranks alone, so the mesh has no pipe dim)
-                place = [Replicate()] * (mesh.ndim - 1) + [Shard(dim)]
-                out[k] = (p, mesh, place, tp_lib.full_shape(
-                    k, p.shape, layout.tensor, vocab, table=table))
+                # Shard on the tensor and expert dims that split the leaf,
+                # replicated over the others (data, fsdp, seq; a stage's
+                # leaves live on its ranks alone: the mesh has no pipe dim)
+                place = [Replicate()] * mesh.ndim
+                shape = list(p.shape)
+                if spec is not None:
+                    dim = 0 if spec[0] == "vocab" else spec[0]
+                    place[names.index("tensor")] = Shard(dim)
+                    shape = list(tp_lib.full_shape(k, p.shape, tensor, vocab,
+                                                   table=table))
+                if on_expert:
+                    place[names.index("expert")] = Shard(0)
+                    shape[0] *= expert
+                out[k] = (p, mesh, place, tuple(shape))
         return out
 
     def _global(self, name: str, t: torch.Tensor, sharded: dict):
@@ -257,7 +287,7 @@ class TrainState:
                 p = whole_tensor(self._global(k, p, sharded))
             out[k] = p
         layout = getattr(self.model, "layout", None)
-        if tp_lib.tensor_size(layout) > 1:
+        if tp_lib.tensor_size(layout) > 1 or ep_lib.expert_size(layout) > 1:
             out = tp_lib.gather_state_dict(
                 out, layout, getattr(self.model, "vocab_size", None),
                 table=self.model.tensor_specs)
@@ -424,13 +454,16 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
     replica, and ``tx`` clips and guards over the tensor group. A model
     on a pipe layout is not wrapped (the step averages its gradients
     over the batch group after the schedule) and ``tx`` clips and guards
-    over the pipe group too."""
+    over the pipe group too. A model on an expert layout is wrapped in DDP
+    over its batch group (the ranks that hold its experts) and ``tx``
+    clips and guards over the expert group too."""
     module = model
     if plan is not None:
         layout = plan.layout
     tensor = tp_lib.tensor_size(getattr(model, "layout", None))
     pipe = pp_lib.pipe_size(getattr(model, "layout", None))
-    if tensor > 1 or pipe > 1:
+    expert = ep_lib.expert_size(getattr(model, "layout", None))
+    if tensor > 1 or pipe > 1 or expert > 1:
         from tpudist_torch.parallel.fsdp import _base_optimizer
 
         layout = model.layout
@@ -440,6 +473,8 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
         if pipe > 1:
             base.shard_over(layout.pipe_group, pp_lib.stage_local_names(
                 dict(model.named_parameters())))
+        if expert > 1:
+            base.shard_over(layout.expert_group, ep_lib.expert_names(model))
     if plan is not None and plan.wraps_fsdp:
         from tpudist_torch.parallel.fsdp import apply_fsdp
 
@@ -449,14 +484,15 @@ def create_train_state(model: nn.Module, tx: Optimizer, plan=None, *,
             for t in (*model.parameters(), *model.buffers()):
                 dist.broadcast(t, 0)
     opt_state = tx.init(dict(model.named_parameters()))
+    split = tensor > 1 or expert > 1
     if group_up() and ddp and not (plan is not None and plan.wraps_fsdp) \
-            and not (tensor > 1 and layout.batch_group is None) \
+            and not (split and layout.batch_group is None) \
             and pipe == 1:
         dev = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
             broadcast_buffers=False,
-            process_group=layout.batch_group if tensor > 1 else None)
+            process_group=layout.batch_group if split else None)
     return TrainState(0, model, module, opt_state, layout=layout)
 
 
@@ -481,6 +517,19 @@ def _apply_input_transform(transform, inputs, batch, step=None):
     if wants_step:
         args.append(step)
     return transform(*args)
+
+
+def stream_rank(rank: int, layout) -> int:
+    """The rank a dropout (and router-jitter) stream is keyed by: ``rank``
+    without its tensor and expert indices, so the ranks of a tensor or
+    expert group, which hold the same activations, draw the same masks."""
+    tensor = tp_lib.tensor_size(layout)
+    expert = ep_lib.expert_size(layout)
+    r = rank // tensor
+    if expert == 1:
+        return r
+    seq = layout.seq
+    return (r // (seq * expert)) * seq + r % seq
 
 
 def dropout_key(seed: int, rank: int, index: int) -> int:
@@ -596,6 +645,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             layout = plan.layout
     tensor = tp_lib.tensor_size(getattr(model, "layout", None))
     pipe = pp_lib.pipe_size(getattr(model, "layout", None))
+    expert = ep_lib.expert_size(getattr(model, "layout", None))
     # a causal LM under a tensor axis: the vocabulary-local LM loss
     lm_tensor = tensor > 1 and getattr(model, "causal_lm", False)
     if pipe > 1:
@@ -609,13 +659,14 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             raise ValueError("a pipelined model trains on the default LM "
                              "loss (the reference refuses --chunked_ce "
                              "with --pipe)")
-    if tensor > 1 or pipe > 1:
+    if tensor > 1 or pipe > 1 or expert > 1:
         from tpudist_torch.parallel.plan import ParallelPlan
 
         if layout is not None and layout is not model.layout:
-            raise ValueError("a tensor-parallel or pipelined model trains "
-                             "on its own layout: pass make_train_step("
-                             "layout=model.layout) or none")
+            raise ValueError("a tensor-parallel, expert-parallel or "
+                             "pipelined model trains on its own layout: "
+                             "pass make_train_step(layout=model.layout) or "
+                             "none")
         layout = model.layout
         # the explicit reducer reduces over data alone: the plan's refusal
         ParallelPlan(layout).validate_reduce(reduce)
@@ -637,10 +688,19 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             "copy; build the step with fused='optimizer' (or 'auto')")
 
     dropout_rate = float(getattr(model, "dropout", 0.0) or 0.0)
+    jitter_rate = float(getattr(model, "router_jitter", 0.0) or 0.0)
     if forward_loss is not None and dropout_rate > 0:
         raise ValueError(
             f"model.dropout={dropout_rate} but forward_loss has no rng "
             "stream; use the default forward or a dropout-free model")
+    if forward_loss is not None and jitter_rate > 0:
+        raise ValueError(
+            f"model.router_jitter={jitter_rate} but forward_loss has "
+            "no rng stream; use the default forward or router_jitter=0")
+    # the MoE layers' aux losses of the forward join the task loss (a
+    # forward_loss adds them itself)
+    aux = ((lambda: ep_lib.moe_losses(model))
+           if getattr(model, "has_aux_loss", False) else (lambda: 0.0))
     if resolve_remat(remat) is not None and next(model.buffers(), None) is not None:
         raise ValueError(
             "remat recomputes the forward, and this model updates buffers in "
@@ -673,18 +733,21 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
         for m in model.modules():
             if hasattr(m, "cross_replica"):
                 m.cross_replica = False
-    # dropout masks keyed by the rank without its tensor index (the
-    # replica, and its seq index under a seq axis): its tensor ranks hold
-    # the same activations and must drop the same elements
-    rank = ((dist.get_rank() if group_up() else 0) // tensor)
+    # dropout masks (and router jitter) keyed by the rank without its
+    # tensor and expert indices (the replica, and its seq index under a
+    # seq axis): its tensor and expert ranks hold the same activations and
+    # must drop the same elements
+    rank = stream_rank(dist.get_rank() if group_up() else 0, layout)
+    keyed = dropout_rate > 0 or jitter_rate > 0
     if forward_loss is None and lm_tensor:
         def run_loss(module, batch, index):
             tokens = batch[input_key].long()
             kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
-                  if dropout_rate > 0 else {})
+                  if keyed else {})
             if seq == 1:
                 logits = module(tokens, vocab_local=True, **kw)
-                return tp_lm_loss(logits, tokens, layout, model.vocab_size)
+                return (tp_lm_loss(logits, tokens, layout, model.vocab_size)
+                        + aux())
             # this rank's chunk, scored on its vocabulary columns: the CE
             # sum over the replica's positions, as under seq alone
             local, labels = seq_shard_lm(tokens, layout)
@@ -699,7 +762,7 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             tokens = batch[input_key].long()
             local, labels = seq_shard_lm(tokens, layout)
             kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
-                  if dropout_rate > 0 else {})
+                  if keyed else {})
             logits = module(local, **kw)
             ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
                                  labels.reshape(-1), ignore_index=-100,
@@ -711,8 +774,8 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
             inputs = _apply_input_transform(input_transform, batch[input_key],
                                             batch, index)
             kw = ({"dropout_key": dropout_key(dropout_seed, rank, index)}
-                  if dropout_rate > 0 else {})
-            return loss_fn(module(inputs, **kw), batch[label_key])
+                  if keyed else {})
+            return loss_fn(module(inputs, **kw), batch[label_key]) + aux()
     else:
         def run_loss(module, batch, index):
             return forward_loss(module, batch)
@@ -751,7 +814,8 @@ def make_train_step(model, tx: Optimizer, *, loss_fn: Callable = cross_entropy_l
     # with this rank's tensor and pipe indices alone (a shard or a stage
     # differs from its peers'); False: no other such rank
     avg_group = ((layout.batch_group if layout.batch_group is not None
-                  else False) if tensor > 1 or pipe > 1 else None)
+                  else False) if tensor > 1 or pipe > 1 or expert > 1
+                 else None)
 
     def backward(loss):
         # DDP averages over data x seq ranks; the chunks' gradients add
@@ -923,7 +987,8 @@ def run_geometry(train_loader, *, batch_size: int, world_size: int,
                  grad_accum: int, model=None, fsdp_world: int = 1,
                  reduce: str | None = None, shard_opt_state: bool = False,
                  data_world: int | None = None,
-                 tensor_world: int = 1, pipe_world: int = 1) -> dict:
+                 tensor_world: int = 1, pipe_world: int = 1,
+                 expert_world: int = 1) -> dict:
     """The geometry a checkpoint is bound to (``tpudist_meta.json``, the
     reference's keys): the data position of ``state.step`` depends on
     each of them. ``fsdp_world`` is the plan's, ``tensor_world`` and
@@ -942,6 +1007,8 @@ def run_geometry(train_loader, *, batch_size: int, world_size: int,
             "world_size": world_size, "grad_accum": grad_accum,
             "fsdp_world": int(fsdp_world), "tensor_world": int(tensor_world),
             "pipe_world": int(pipe_world)}
+    if expert_world > 1:
+        meta["expert_world"] = int(expert_world)
     if shard_opt_state:
         meta["shard_opt_state"] = True
     if reduce is not None:
@@ -990,6 +1057,13 @@ def _bring_up_checkpoint(ckpt, state, run_meta: dict, *, resume: bool,
                     "state.step would map to the wrong data position — "
                     "resume with the original settings or start a fresh "
                     f"checkpoint_dir{hint}")
+            if run_meta.get("expert_world", 1) > 1:
+                from tpudist_torch.mesh import EXPERT_REMAINDER
+
+                raise NotImplementedError(
+                    "an elastic data resize of a checkpoint written under "
+                    "an expert axis is not ported yet (ROADMAP "
+                    f"{EXPERT_REMAINDER})")
             resharded = True
         events: list[dict] = []
         if resharded:
@@ -1159,7 +1233,8 @@ def fit(model: nn.Module, tx: Optimizer, train_loader, *, epochs: int,
         reduce=reducer.method if reducer is not None else None,
         shard_opt_state=shard_opt_state, data_world=data_world,
         tensor_world=tp_lib.tensor_size(getattr(model, "layout", None)),
-        pipe_world=pp_lib.pipe_size(getattr(model, "layout", None)))
+        pipe_world=pp_lib.pipe_size(getattr(model, "layout", None)),
+        expert_world=ep_lib.expert_size(getattr(model, "layout", None)))
         if checkpoint_dir is not None else None)
     chaos_inj = make_injector(chaos)
     # ranks agree their stop and time-cadence saves through the step's

@@ -108,6 +108,22 @@ each rank's stage (and tensor shards). The reference's refusals under
 and ``--elastic``, which the reference composes with it, raise
 ``NotImplementedError`` naming "Queue 1 #7c (remainder)".
 
+Experts, the reference's ``--experts E`` (:mod:`tpudist_torch.parallel.
+ep`): every ``--moe_every``-th block (GPT-2's default 2, Llama's 1, the
+Mixtral layout) is a top-``--moe_top_k`` mixture of ``E`` experts
+(GPT-2's GELU FFNs, Llama's SwiGLU FFNs of ``--ffn_dim``) with
+``--capacity_factor``, ``--moe_dispatch einsum|index``,
+``--router_z_loss`` and ``--router_jitter``; the layers' aux losses join
+the loss. ``--expert_axis N`` lays the world out ``data x expert x
+tensor`` (``0``: the reference's rule, the largest ``N`` dividing both
+``E`` and the ranks the tensor, pipe and cp axes leave), each rank
+holding ``E / N`` experts; the ``N`` expert ranks of a replica read the
+same windows (``--batch_size`` stays per data replica). The reference's
+refusals with ``--experts`` are kept (``--init_hf``, ``--scan_layers``,
+``--pipe``); ``--fsdp`` and ``--cp`` with ``--experts``, which the
+reference composes, raise ``NotImplementedError`` naming "Queue 1 #7d
+(remainder)".
+
 ``--checkpoint_dir`` saves every ``--checkpoint_every`` steps and at the
 end and resumes from the newest loadable step unless ``--no_resume``;
 SIGTERM gives a checkpoint at the last completed step and exit 75, and
@@ -224,11 +240,7 @@ def parse_args(argv=None):
 
 
 #: flags of the reference this port does not run yet -> the ROADMAP item
-_EP = "Queue 1 #7d (experts)"
 _UNPORTED = {
-    "experts": _EP, "expert_axis": _EP, "moe_every": _EP, "moe_top_k": _EP,
-    "capacity_factor": _EP, "moe_dispatch": _EP, "router_z_loss": _EP,
-    "router_jitter": _EP,
     "telemetry": "Queue 1 #8", "compile_cache": "Queue 1 #9",
 }
 
@@ -237,6 +249,8 @@ CP_ATTN = ("ring", "ulysses", "ulysses_flash")
 
 #: flags the reference composes with --pipe that the port does not yet
 _PIPE_UNPORTED = ("fsdp", "shard_opt_state", "cp", "remat", "elastic")
+#: flags the reference composes with --experts that the port does not yet
+_EXPERT_UNPORTED = ("fsdp", "cp")
 
 
 def check_ported(parser, args) -> None:
@@ -255,6 +269,27 @@ def check_ported(parser, args) -> None:
                 raise NotImplementedError(
                     f"--{name} with --pipe is not ported yet (ROADMAP "
                     f"{PIPE_REMAINDER})")
+    if args.experts:
+        from tpudist_torch.mesh import EXPERT_REMAINDER
+
+        for name in _EXPERT_UNPORTED:
+            if getattr(args, name) != parser.get_default(name):
+                raise NotImplementedError(
+                    f"--{name} with --experts is not ported yet (ROADMAP "
+                    f"{EXPERT_REMAINDER})")
+
+
+def expert_axis(args, world: int) -> int:
+    """The expert axis: ``--expert_axis``, else with ``--experts`` the
+    reference's rule (the largest size that divides both the expert count
+    and the ranks the tensor, pipe and cp axes leave), else 1."""
+    if args.expert_axis:
+        return args.expert_axis
+    if not args.experts:
+        return 1
+    avail = max(world // (args.tensor * args.pipe * args.cp), 1)
+    return max(d for d in range(1, min(args.experts, avail) + 1)
+               if args.experts % d == 0 and avail % d == 0)
 
 
 def resolve_attn(attn: str, seq_len: int, device, pipe: int = 1) -> str:
@@ -299,6 +334,8 @@ def check_args(args) -> None:
         raise SystemExit(
             "--eval/--generate support the non-cp, non-pipe paths; rerun "
             "them separately without --cp/--pipe")
+    if args.experts and args.init_hf:
+        raise SystemExit("--init_hf converts dense checkpoints only")
     if args.generate and args.generate >= args.seq_len:
         raise SystemExit(
             f"--generate {args.generate} must be < --seq_len {args.seq_len} "
@@ -306,11 +343,12 @@ def check_args(args) -> None:
     if args.arch == "llama":
         if args.dropout:
             raise SystemExit("llama has no dropout (matching the family)")
-        if args.scan_layers and (args.generate or args.init_hf):
+        if args.scan_layers and (args.generate or args.init_hf
+                                 or args.experts):
             raise SystemExit(
                 "--scan_layers uses the stacked dense layout; --generate/"
                 "--init_hf/--experts need the unrolled model")
-    elif args.scan_layers and (args.generate or args.init_hf):
+    elif args.scan_layers and (args.experts or args.generate or args.init_hf):
         raise SystemExit(
             "--scan_layers supports dense training only (no --experts/"
             "--generate/--init_hf: those need the unrolled layout)")
@@ -362,12 +400,20 @@ def build_model(args, dtype, attn: str, device, layout):
                   scan_layers=args.scan_layers,
                   remat_layers=args.remat_layers,
                   remat_policy=args.remat_policy, device=device,
-                  layout=layout)
+                  layout=layout, num_experts=args.experts,
+                  moe_top_k=args.moe_top_k,
+                  capacity_factor=args.capacity_factor,
+                  moe_dispatch=args.moe_dispatch,
+                  router_z_loss=args.router_z_loss,
+                  router_jitter=args.router_jitter)
     if args.arch == "llama":
+        # Mixtral-style SwiGLU experts, every block by default
         return Llama(num_kv_heads=args.num_kv_heads or None,
                      ffn_dim=args.ffn_dim or None, rope_theta=args.rope_theta,
-                     tie_embeddings=args.tie_embeddings, **common)
-    return GPT2(dropout=args.dropout, **common)
+                     tie_embeddings=args.tie_embeddings,
+                     moe_every=args.moe_every or 1, **common)
+    return GPT2(dropout=args.dropout, moe_every=args.moe_every or 2,
+                **common)
 
 
 def main(argv=None):
@@ -395,8 +441,8 @@ def main(argv=None):
     formed_here = not group_up()
     ctx = init_from_env(args.device)
     try:
-        # data x fsdp x pipe x seq x tensor; --batch_size, the sampler and
-        # the TSV count the data x fsdp replicas
+        # data x fsdp x pipe x expert x seq x tensor; --batch_size, the
+        # sampler and the TSV count the data x fsdp replicas
         plan = None
         if args.fsdp > 1:
             from tpudist_torch.parallel.plan import ParallelPlan
@@ -406,10 +452,11 @@ def main(argv=None):
                                       device_type=ctx.device.type)
             layout = plan.layout
         else:
-            layout = create_layout(MeshConfig(data=-1, pipe=args.pipe,
-                                              seq=args.cp,
-                                              tensor=args.tensor),
-                                   device_type=ctx.device.type)
+            layout = create_layout(
+                MeshConfig(data=-1, pipe=args.pipe,
+                           expert=expert_axis(args, ctx.world_size),
+                           seq=args.cp, tensor=args.tensor),
+                device_type=ctx.device.type)
         attn = resolve_attn(args.attn, args.seq_len, ctx.device, args.pipe)
         dtype = torch.bfloat16 if (args.bf16 or args.amp) else torch.float32
         model = build_model(args, dtype, attn, ctx.device, layout)
